@@ -52,6 +52,9 @@ def pytest_configure(config):
     # with `-m slow`.
     config.addinivalue_line(
         "markers", "slow: heavy integration test, excluded from tier-1")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (paddle_tpu_torch kernels); "
+        "skips without one")
 
 
 def shard_frac(arr):

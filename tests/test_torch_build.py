@@ -1,0 +1,104 @@
+"""ops/_build.py: how the port's CUDA sources are built at first use.
+
+There is no nvcc on a CPU-only machine, so a stand-in `nvcc` script
+(CUDA_HOME/bin/nvcc) records its arguments and writes the output file;
+the real build runs on the card (chip_smoke.py). Checked here: the
+library name follows the content hash, every source gets its own nvcc
+process with the Hopper flags, an unchanged source is not rebuilt, and a
+failed build raises with the compiler's output.
+"""
+import os
+import stat
+
+import pytest
+
+from paddle_tpu_torch.ops import _build
+
+FAKE_NVCC = """#!/bin/sh
+out=""
+prev=""
+for a in "$@"; do
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+done
+echo "$@" >> "$(dirname "$0")/calls.txt"
+case "$*" in
+  *broken.cu*) echo "broken.cu(3): error: expected a ';'"; exit 2;;
+esac
+echo "ptxas info    : Used 40 registers, 0 bytes spill stores"
+echo lib > "$out"
+"""
+
+
+@pytest.fixture
+def fake_cuda(tmp_path, monkeypatch):
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    (csrc / "b.cu").write_text("// b\n")
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return home, csrc
+
+
+def test_builds_every_source_with_hopper_flags(fake_cuda):
+    home, csrc = fake_cuda
+    info = _build.build()
+    assert sorted(info) == ["a", "b"]
+    assert all(not i["cached"] and "registers" in i["log"]
+               for i in info.values())
+    calls = (home / "bin" / "calls.txt").read_text().splitlines()
+    assert len(calls) == 2
+    for c in calls:
+        assert "arch=compute_90a,code=sm_90a" in c and "-shared" in c
+        assert "-Xcompiler -fPIC" in c and "-O3" in c
+    for name in ("a", "b"):
+        assert _build.library_path(name).exists()
+        assert _build.library_path(name).parent == _build.BUILD_DIR
+    # nothing changed: loaded from disk, no new nvcc
+    again = _build.build()
+    assert all(i["cached"] for i in again.values())
+    assert len((home / "bin" / "calls.txt").read_text().splitlines()) == 2
+
+
+def test_source_or_header_change_rebuilds(fake_cuda):
+    _, csrc = fake_cuda
+    before = _build.library_path("a")
+    (csrc / "a.cu").write_text("// a, edited\n")
+    edited = _build.library_path("a")
+    (csrc / "common.cuh").write_text("// shared header\n")
+    assert len({before, edited, _build.library_path("a")}) == 3
+
+
+def test_failed_build_raises_with_compiler_output(fake_cuda):
+    _, csrc = fake_cuda
+    (csrc / "broken.cu").write_text("int x\n")
+    with pytest.raises(RuntimeError, match="expected a ';'"):
+        _build.build(["broken", "a"])
+    assert not _build.library_path("broken").exists()
+    assert _build.library_path("a").exists()
+    assert not list(_build.BUILD_DIR.glob("*.tmp.so"))
+
+
+def test_missing_nvcc_and_unknown_source(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build.os.path, "exists",
+                        lambda p: False if str(p).endswith("nvcc")
+                        else os.path.lexists(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+    with pytest.raises(FileNotFoundError):
+        _build.build(["no_such_kernel"])
+
+
+def test_repo_sources_are_listed():
+    assert "flash_attn_fwd" in _build.sources()
+    assert _build.library_path("flash_attn_fwd").name.startswith(
+        "flash_attn_fwd-")
