@@ -14,9 +14,12 @@ CUDA and without that request, the first entry point raises
 RuntimeError; importing never touches the device.
 
 Ported so far: ERNIE inference (models.ErnieForPretraining in eval
-mode) through the flash-attention forward kernel.
+mode) through the flash-attention forward kernel, and ERNIE pretraining
+(static.TrainStep with optimizer.AdamW under amp.auto_cast) through the
+forward and both backward kernels with in-kernel Philox attention
+dropout.
 """
-from . import core, device, models, nn, ops  # noqa: F401
+from . import amp, core, device, models, nn, ops, optimizer, static  # noqa: F401
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
 from .core.generator import seed  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401

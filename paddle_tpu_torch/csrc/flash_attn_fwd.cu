@@ -7,8 +7,12 @@
 // scale, the key bound `col < sk`, the causal rule `row >= col`
 // (top-left aligned) with k-tiles above the diagonal skipped, masking
 // with -1e30, `l_safe = max(l, 1e-30)`, O = acc / l_safe and
-// lse = m + log(l_safe). Dropout is not here: the wrapper raises on
-// dropout_p > 0 until the training slice brings the Philox RNG.
+// lse = m + log(l_safe). With dropout (DROP), as in the Pallas kernel:
+// l sums the un-dropped probabilities, and the kept ones are scaled by
+// 1/(1-p) before P V; the keep bits come from philox.cuh, a pure
+// function of (seed, b*n + head, row, col) that the backward kernels
+// (flash_attn_bwd.cu) regenerate. DROP = false compiles to the path
+// without any Philox call.
 //
 // Layout. q, k, v are read as [b, s, n, h] through element strides
 // (batch, seq, head; the head_dim stride is 1), so the strided views
@@ -47,6 +51,9 @@
 //    block of S and a 4x(h/16) block of O; tiles sit transposed in
 //    shared memory so every inner step is two 16-byte shared loads for
 //    16 FMAs.
+//  * Dropout costs one Philox4x32-10 call per 2x2 block of links (ten
+//    rounds of two 32-bit multiplies): in the mma kernel each pair of
+//    lanes that shares two blocks computes one each and swaps them.
 // Simple first: no TMA, no wgmma and no warp specialisation; those are
 // later work.
 
@@ -54,21 +61,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+#include "philox.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kBM = 64;  // query rows per CTA
-constexpr int kBN = 64;  // keys per k-tile
-
-struct Strides {
-  long long b, s, n;  // element strides of batch, seq, head
-};
-
-__device__ __forceinline__ int causal_tiles(int nk, int q0) {
-  // k-tiles whose first key can be seen by the tile's last row
-  int last = (q0 + kBM - 1) / kBN + 1;
-  return nk < last ? nk : last;
-}
+using namespace flash;
 
 // ------------------------------------------------------------ f32, FFMA
 
@@ -80,12 +78,13 @@ constexpr size_t simt_smem_bytes() {
   return (2 * D * kLd + kBN * D + kBN * kLd) * sizeof(float);
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool DROP>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int n_heads, int sq, int sk,
-               Strides qs, Strides ks, Strides vs, float scale) {
+               Strides qs, Strides ks, Strides vs, float scale,
+               DropParams dp) {
   static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
   constexpr int G = D / 64;  // 4-column groups of O per thread
   extern __shared__ __align__(16) unsigned char smem_simt[];
@@ -187,6 +186,23 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4 * G; ++j) acc[i][j] *= corr;
     }
+    if (DROP) {
+      // rows r*4 .. r*4+3 and columns c*4 .. c*4+3: four 2x2 blocks
+#pragma unroll
+      for (int ip = 0; ip < 2; ++ip)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int row = q0 + r * 4 + ip * 2, col = k0 + c * 4 + jp * 2;
+          const uint4 w = drop_block(dp, bh, row, col);
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int b2 = 0; b2 < 2; ++b2) {
+              float& x = s[ip * 2 + a][jp * 2 + b2];
+              x = drop_keep(dp, w, row + a, col + b2) ? x * dp.rinv : 0.f;
+            }
+        }
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<float4*>(&Pt[(c * 4 + j) * kLd + r * 4]) =
@@ -235,11 +251,6 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------- bf16, tensor cores
 
 constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-template <int D>
-__host__ __device__ constexpr int mma_ld() { return D + 8; }  // smem row stride (bf16)
 
 // Q tile + two buffers of K and V tiles
 template <int D>
@@ -247,83 +258,14 @@ constexpr size_t mma_smem_bytes() {
   return (size_t)(kBM + 4 * kBN) * mma_ld<D>() * sizeof(__nv_bfloat16);
 }
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8, and gets (row g, cols 2t, 2t+1) of each
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// the same, transposed: each lane gets (rows 2t, 2t+1, col g)
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16-byte global -> shared copy that does not wait; zero-fills when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// 64 x D tile of a [.., s, .., D] tensor into shared memory as 16-byte
-// cp.async copies; rows at or past `limit` read as zeros
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long row_stride,
-                                                int row0, int limit,
-                                                int tid) {
-  constexpr int CHUNKS = D / 8;
-  for (int e = tid; e < kBN * CHUNKS; e += kMmaThreads) {
-    const int row = e / CHUNKS, ch = e % CHUNKS;
-    const bool in = row0 + row < limit;
-    // an out-of-range row copies 0 bytes, from a valid address
-    const __nv_bfloat16* from =
-        src + (in ? (long long)(row0 + row) * row_stride : 0) + ch * 8;
-    cp_async16(dst + row * mma_ld<D>() + ch * 8, from, in);
-  }
-}
-
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool DROP>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
               int n_heads, int sq, int sk, Strides qs, Strides ks,
-              Strides vs, float scale) {
+              Strides vs, float scale, DropParams dp) {
   static_assert(kBM == kBN, "load_tile_async assumes square tiles");
   constexpr int LD = mma_ld<D>();
   constexpr int KC = D / 16;   // k16 steps of Q K^T
@@ -353,9 +295,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   if (CAUSAL) nk = causal_tiles(nk, q0);
 
   // group 0: the Q tile and the first K/V tiles
-  load_tile_async<D>(Qs, qb, qs.s, q0, sq, tid);
-  load_tile_async<D>(Ks, kb, ks.s, 0, sk, tid);
-  load_tile_async<D>(Vs, vb, vs.s, 0, sk, tid);
+  load_tile_async<D, kBN, kMmaThreads>(Qs, qb, qs.s, q0, sq, tid);
+  load_tile_async<D, kBN, kMmaThreads>(Ks, kb, ks.s, 0, sk, tid);
+  load_tile_async<D, kBN, kMmaThreads>(Vs, vb, vs.s, 0, sk, tid);
   cp_async_commit();
 
   uint32_t qa[KC][4];
@@ -374,9 +316,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* Vc = Vs + (kt & 1) * kBN * LD;
     if (kt + 1 < nk) {
       // the next tile streams in while this one is computed
-      load_tile_async<D>(Ks + ((kt + 1) & 1) * kBN * LD, kb, ks.s,
+      load_tile_async<D, kBN, kMmaThreads>(Ks + ((kt + 1) & 1) * kBN * LD, kb, ks.s,
                          k0 + kBN, sk, tid);
-      load_tile_async<D>(Vs + ((kt + 1) & 1) * kBN * LD, vb, vs.s,
+      load_tile_async<D, kBN, kMmaThreads>(Vs + ((kt + 1) & 1) * kBN * LD, vb, vs.s,
                          k0 + kBN, sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
@@ -455,6 +397,22 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       acc[dn][2] *= corr[1];
       acc[dn][3] *= corr[1];
     }
+    if (DROP) {
+      // lanes g and g^1 (lane ^ 4) hold the same two 2x2 blocks of each
+      // 8-column chunk: rows (row_lo, row_lo + 8) x columns (2t, 2t+1)
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc) {
+        const int col = k0 + nc * 8 + 2 * t;
+        uint4 wlo, whi;
+        philox_pair(dp, bh, g & 1, rows[0], col, rows[1], col, 4, wlo, whi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool keep = drop_keep(dp, (e >> 1) ? whi : wlo,
+                                      rows[e >> 1], col + (e & 1));
+          s[nc][e] = keep ? s[nc][e] * dp.rinv : 0.f;
+        }
+      }
+    }
 
     // O += P V: S chunks 2j, 2j+1 re-pack as the m16k16 A fragment of
     // keys 16j .. 16j+15; V's B fragments come transposed by ldmatrix
@@ -498,9 +456,43 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// one launch of the kernel for (dtype, D, causal, dropout)
+template <int D, bool C, bool DROP>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   void* o, float* lse, dim3 grid, int n, int sq, int sk,
+                   Strides qs, Strides ks, Strides vs, float scale,
+                   DropParams dp, cudaStream_t stream) {
+  cudaError_t e;
+  if (dtype == 0) {
+    auto kern = flash_fwd_simt<D, C, DROP>;
+    const size_t smem = simt_smem_bytes<D>();
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kSimtThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, n, sq, sk,
+        qs, ks, vs, scale, dp);
+  } else {
+    auto kern = flash_fwd_mma<D, C, DROP>;
+    const size_t smem = mma_smem_bytes<D>();
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), lse, n, sq, sk, qs, ks, vs, scale, dp);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (FFMA kernel), 1 = bfloat16 (tensor-core kernel).
+// dropout != 0 applies attention dropout with the keep threshold, the
+// 64-bit Philox seed (seed_lo, seed_hi) and rinv = 1 / (1 - p).
 // Returns 0 on success, a cudaError_t code if the launch was refused,
 // or -1 for a dtype / head_dim this file has no kernel for.
 extern "C" int pt_flash_attn_fwd(
@@ -509,54 +501,26 @@ extern "C" int pt_flash_attn_fwd(
     long long q_sb, long long q_ss, long long q_sn,
     long long k_sb, long long k_ss, long long k_sn,
     long long v_sb, long long v_ss, long long v_sn,
-    float scale, int causal, void* stream_ptr) {
+    float scale, int causal, int dropout, unsigned int threshold,
+    unsigned int seed_lo, unsigned int seed_hi, float rinv,
+    void* stream_ptr) {
   const Strides qs{q_sb, q_ss, q_sn}, ks{k_sb, k_ss, k_sn},
       vs{v_sb, v_ss, v_sn};
+  const DropParams dp{threshold, seed_lo, seed_hi, rinv};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const dim3 grid(b * n, (sq + kBM - 1) / kBM);
-  cudaError_t e = cudaSuccess;
+  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return -1;
 
-#define PT_SIMT(D, C)                                                        \
-  do {                                                                       \
-    auto kern = flash_fwd_simt<D, C>;                                        \
-    const size_t smem = simt_smem_bytes<D>();                                \
-    e = cudaFuncSetAttribute(kern,                                           \
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                             (int)smem);                                     \
-    if (e != cudaSuccess) return (int)e;                                     \
-    kern<<<grid, kSimtThreads, smem, stream>>>(                              \
-        static_cast<const float*>(q), static_cast<const float*>(k),          \
-        static_cast<const float*>(v), static_cast<float*>(o), lse, n, sq,    \
-        sk, qs, ks, vs, scale);                                              \
-  } while (0)
-
-#define PT_MMA(D, C)                                                         \
-  do {                                                                       \
-    auto kern = flash_fwd_mma<D, C>;                                         \
-    const size_t smem = mma_smem_bytes<D>();                                 \
-    e = cudaFuncSetAttribute(kern,                                           \
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                             (int)smem);                                     \
-    if (e != cudaSuccess) return (int)e;                                     \
-    kern<<<grid, kMmaThreads, smem, stream>>>(                               \
-        static_cast<const __nv_bfloat16*>(q),                                \
-        static_cast<const __nv_bfloat16*>(k),                                \
-        static_cast<const __nv_bfloat16*>(v),                                \
-        static_cast<__nv_bfloat16*>(o), lse, n, sq, sk, qs, ks, vs, scale);  \
-  } while (0)
-
-  if (dtype == 0 && d == 64) {
-    if (causal) PT_SIMT(64, true); else PT_SIMT(64, false);
-  } else if (dtype == 0 && d == 128) {
-    if (causal) PT_SIMT(128, true); else PT_SIMT(128, false);
-  } else if (dtype == 1 && d == 64) {
-    if (causal) PT_MMA(64, true); else PT_MMA(64, false);
-  } else if (dtype == 1 && d == 128) {
-    if (causal) PT_MMA(128, true); else PT_MMA(128, false);
-  } else {
-    return -1;
-  }
-#undef PT_SIMT
-#undef PT_MMA
-  return (int)cudaGetLastError();
+#define PT_GO(D, C, P)                                                      \
+  launch<D, C, P>(dtype, q, k, v, o, lse, grid, n, sq, sk, qs, ks, vs,     \
+                  scale, dp, stream)
+#define PT_DROP(D, C) (dropout ? PT_GO(D, C, true) : PT_GO(D, C, false))
+  cudaError_t e;
+  if (d == 64)
+    e = causal ? PT_DROP(64, true) : PT_DROP(64, false);
+  else
+    e = causal ? PT_DROP(128, true) : PT_DROP(128, false);
+#undef PT_DROP
+#undef PT_GO
+  return (int)e;
 }

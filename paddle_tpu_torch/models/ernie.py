@@ -1,16 +1,19 @@
-"""ERNIE/BERT-class encoder, inference path (counterpart of
-paddle_tpu/models/ernie.py).
+"""ERNIE/BERT-class encoder for inference and pretraining (counterpart
+of paddle_tpu/models/ernie.py).
 
-The forward paths of ErnieForPretraining: embeddings, a dense unscanned
-encoder whose self-attention runs the flash-attention kernel, the pooler,
+ErnieForPretraining: embeddings, a dense unscanned encoder whose
+self-attention runs the flash-attention kernels (forward and backward,
+with the in-kernel Philox attention dropout in training), the pooler,
 and the MLM head with the decoder tied to the word embeddings
-(logits = h @ E^T + mlm_bias). Parameter names and shapes equal the JAX
-model's, so its state_dict loads by name (models/convert.py).
+(logits = h @ E^T + mlm_bias, through F.linear so AMP casts it), plus
+the static pretraining_loss. Hidden dropout goes through F.dropout.
+Parameter names and shapes equal the JAX model's, so its state_dict
+loads by name (models/convert.py).
 
 Not ported yet, and rejected with NotImplementedError naming the slice
-that brings them: MoE layers, sequence parallelism, the scanned encoder
-and the vocab-chunked CE head (training slice and later), and
-training-mode attention dropout (training slice).
+that brings them: MoE layers and sequence parallelism (the distributed
+slice), the scanned encoder and the vocab-chunked CE head (a later
+training PR, ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -80,8 +83,9 @@ def _check_supported(config: ErnieConfig):
               "the distributed slice"),
              (bool(config.sequence_parallel), "sequence_parallel",
               "the distributed slice"),
-             (config.scan_layers, "scan_layers", "the training slice"),
-             (config.chunked_ce, "chunked_ce", "the training slice")]
+             (config.scan_layers, "scan_layers",
+              "a later training-slice PR"),
+             (config.chunked_ce, "chunked_ce", "a later training-slice PR")]
     for bad, flag, where in later:
         if bad:
             raise NotImplementedError(
@@ -244,10 +248,26 @@ class ErnieForPretraining(nn.Layer):
         seq, pooled = self.ernie(input_ids, token_type_ids, position_ids,
                                  attention_mask, seq_lens=seq_lens)
         h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
-        # weight-tied decoder in 2D: logits = h @ E^T + mlm_bias
+        # weight-tied decoder in 2D: logits = h @ E^T + mlm_bias, through
+        # F.linear (an AMP white-list op, as in the JAX package)
         b, s = h.shape[0], h.shape[1]
         w = self.ernie.embeddings.word_embeddings.weight
-        bias = self.mlm_bias if self.mlm_bias.dtype == h.dtype \
-            else self.mlm_bias.to(h.dtype)
-        logits = torch.addmm(bias, h.reshape(-1, h.shape[-1]), w.t())
-        return logits.reshape(b, s, -1), self.nsp(pooled)
+        lg = F.linear(h.reshape(-1, h.shape[-1]), w.t())
+        # bias in the LOGITS dtype: under O1 the f32 bias would promote
+        # the whole [b*s, vocab] tensor to f32
+        bias = self.mlm_bias if self.mlm_bias.dtype == lg.dtype \
+            else self.mlm_bias.to(lg.dtype)
+        return (lg + bias).reshape(b, s, -1), self.nsp(pooled)
+
+    @staticmethod
+    def pretraining_loss(outputs, mlm_labels, nsp_labels=None,
+                         ignore_index=-100):
+        """MLM cross-entropy over [b*s, vocab] (mean over the labels that
+        are not ignore_index), plus NSP's when nsp_labels are given."""
+        logits, nsp_logits = outputs
+        mlm = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              mlm_labels.reshape(-1),
+                              ignore_index=ignore_index)
+        if nsp_labels is None:
+            return mlm
+        return mlm + F.cross_entropy(nsp_logits, nsp_labels.reshape(-1))

@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu", "tanh"]
+from ...amp.auto_cast import amp_cast
+
+__all__ = ["gelu", "tanh", "softmax"]
 
 
 def gelu(x, approximate=False, name=None):
@@ -16,3 +18,9 @@ def gelu(x, approximate=False, name=None):
 
 def tanh(x, name=None):
     return torch.tanh(x)
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    """An AMP black-list op ("softmax_op"): float32 under auto_cast."""
+    (x,) = amp_cast("softmax_op", x)
+    return torch.softmax(x, dim=axis, dtype=dtype)

@@ -7,6 +7,7 @@ library name follows the content hash, every source gets its own nvcc
 process with the Hopper flags, an unchanged source is not rebuilt, and a
 failed build raises with the compiler's output.
 """
+import ctypes
 import os
 import stat
 
@@ -102,3 +103,57 @@ def test_repo_sources_are_listed():
     assert "flash_attn_fwd" in _build.sources()
     assert _build.library_path("flash_attn_fwd").name.startswith(
         "flash_attn_fwd-")
+
+
+def test_backward_and_philox_sources_are_built():
+    assert {"flash_attn_fwd", "flash_attn_bwd"} <= set(_build.sources())
+    headers = {p.name for p in _build.CSRC.glob("*.cuh")}
+    assert {"philox.cuh", "flash_common.cuh"} <= headers
+    for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        text = (_build.CSRC / src).read_text()
+        assert '#include "philox.cuh"' in text
+
+
+def test_package_data_ships_every_source_and_header():
+    """An installed package compiles from its own csrc/: every source
+    and every header a source includes must be in package-data."""
+    import fnmatch
+    import re
+    import tomllib
+    root = _build.CSRC.parents[1]
+    with open(root / "pyproject.toml", "rb") as f:
+        shipped = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "paddle_tpu_torch"]
+    files = sorted(_build.CSRC.glob("*.cu")) + sorted(
+        _build.CSRC.glob("*.cuh"))
+    needed = {p.name for p in files}
+    for p in files:
+        needed |= set(re.findall(r'#include "([^"]+)"', p.read_text()))
+    assert {"philox.cuh", "flash_common.cuh"} <= needed
+    for name in sorted(needed):
+        assert (_build.CSRC / name).is_file(), name
+        assert any(fnmatch.fnmatch(f"csrc/{name}", pat) for pat in shipped), \
+            f"csrc/{name} is not in paddle_tpu_torch's package-data"
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "float*": ctypes.c_void_p, "const float*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "unsigned int": ctypes.c_uint, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("entry", ["pt_flash_attn_fwd",
+                                   "pt_flash_attn_bwd_dq",
+                                   "pt_flash_attn_bwd_dkv"])
+def test_ctypes_signatures_match_the_c_entries(entry):
+    """The wrappers' argtypes against the extern "C" parameter lists, so
+    a marshalling slip shows here and not only on the card."""
+    import re
+    from paddle_tpu_torch.ops import flash_attention as fa
+    text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text, re.S)
+    assert m, entry
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    kinds = [_C_TYPES[re.sub(r"\s*\w+$", "", p).replace(" *", "*")]
+             for p in params]
+    assert kinds == fa._ARGTYPES[entry]

@@ -148,12 +148,18 @@ def test_bf16_cast_stays_close_to_f32(pair):
     assert rel < 5e-2
 
 
-def test_training_mode_attention_dropout_raises(pair):
+def test_training_mode_attention_dropout_raises(pair, monkeypatch):
+    """train() runs attention dropout (the training slice ported it); a
+    typo in the PD_ATTN_DROPOUT_IMPL override still raises."""
     _, tm, _ = pair
     ids, tt = _batch(seed=8)
+    ev, _ = _torch(tm, ids, tt)
     tm.train()
     try:
-        with pytest.raises(NotImplementedError, match="training slice"):
+        tr, _ = _torch(tm, ids, tt)
+        assert torch.isfinite(tr).all() and (tr - ev).abs().max() > 1e-4
+        monkeypatch.setenv("PD_ATTN_DROPOUT_IMPL", "kernal")
+        with pytest.raises(ValueError, match="PD_ATTN_DROPOUT_IMPL"):
             _torch(tm, ids, tt)
     finally:
         tm.eval()

@@ -142,15 +142,21 @@ def test_sdpa_matches_jax_sdpa_with_additive_mask():
 
 
 def test_training_dropout_raises():
+    """Training-mode dropout runs (the training slice ported it); what
+    still raises is a rate outside [0, 1)."""
     q, k, v = (torch.from_numpy(a) for a in _data(1, 16, 16, 2, 8))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TF.flash_attention(q, k, v, dropout=0.1, training=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention_fwd(q, k, v, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_p"):
+        fa.flash_attention_fwd(q, k, v, dropout_p=1.0)
+    with pytest.raises(ValueError, match="dropout_p"):
+        TF.flash_attention(q, k, v, dropout=1.5, training=True)
+    ev = TF.flash_attention(q, k, v, dropout=0.1, training=False)
+    tr = TF.flash_attention(q, k, v, dropout=0.5, training=True)
+    sd = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.5)
+    assert torch.isfinite(tr).all() and torch.isfinite(sd).all()
+    assert (tr - ev).abs().max() > 1e-3
     # eval mode ignores the rate, as in the JAX package
-    TF.flash_attention(q, k, v, dropout=0.1, training=False)
+    torch.testing.assert_close(ev, TF.flash_attention(q, k, v,
+                                                      training=False))
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -30,7 +30,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
     out = _run(
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models, "
-        "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops._build\n"
+        "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops._build, "
+        "paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, "
+        "paddle_tpu_torch.static, paddle_tpu_torch.ops.philox\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
