@@ -13,7 +13,9 @@ Phases, each of which fails the run on any mismatch:
    cuDNN), so f32 comparisons are f32-exact up to summation order.
 2. Build: every kernel under paddle_tpu_torch/csrc, compiled by nvcc
    for sm_90a into build/paddle_tpu_torch/ (one nvcc per source, all
-   started together), with ptxas's register and spill report.
+   started together), with ptxas's register and spill report. A spill
+   in a head_dim-64 bf16 backward kernel (dq_wgmma, dkv_wgmma) fails
+   the run.
 3. Forward kernel: flash_attn_fwd against its plain PyTorch version at
    the inference path's shapes (ERNIE-base attention, b 32, s 512 and
    200, 12 heads of 64, read as strided views of a fused qkv tensor),
@@ -28,10 +30,14 @@ Phases, each of which fails the run on any mismatch:
    and bf16, head_dim 128; with dropout p = 0.1 at a fixed seed the
    forward and the backward against the plain versions drawing the same
    Philox mask. Tolerance: f32 max abs error <= 1e-4 * max(1, max|ref|),
-   bf16 <= 2e-2 * max|ref|. Each backward kernel is timed against the
-   plain version of its own outputs (dq, or dk and dv); the library
-   yardstick, SDPA's forward + backward minus its forward, computes all
-   three gradients and is reported for the whole backward only.
+   bf16 <= 2e-2 * max|ref|. A second dQ launch must give the same dq
+   bit for bit, and every bf16 case holds the delta = rowsum(dO*O) that
+   the dQ kernel computes against torch ops at 1e-3 x max(1,
+   max|delta|) (f32 takes delta from those ops). Each backward kernel
+   is timed against the plain version of its own outputs (dq, or dk
+   and dv); the library yardstick, SDPA's forward + backward minus its
+   forward, computes all three gradients and is reported for the whole
+   backward only.
    Mask probe: inputs on which each output element sums a few dropout
    links of equal weight run through the bf16 (tensor-core) and f32
    (FFMA) forward, dQ and dK/dV kernels at b 48, s 512 and 200; each
@@ -94,6 +100,8 @@ DROP_P, DROP_SEED = 0.1, 1234
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# kernels whose ptxas report must show no spill at head_dim 64
+NO_SPILL = ("dq_wgmma", "dkv_wgmma")
 
 
 def emit(obj):
@@ -111,6 +119,21 @@ def nvidia_smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def ptxas_spills(log):
+    """[(function, spill store bytes, spill load bytes)] from nvcc's
+    -Xptxas -v output."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            cur = ln.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in ln and cur is not None:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            out.append((cur, nums[1], nums[2]))
+            cur = None
+    return out
 
 
 def time_ms(fn, reps, warmup=2):
@@ -212,14 +235,15 @@ def bwd_bound_ms(kernel, b, sq, sk, n, h, causal, dtype_name):
     """Least time on an H100 for one backward kernel: the larger of its
     bytes (each input read once, each output written once) over the
     memory rate and its flops over the peak rate of the input type.
-    dQ: q, k, v, dO, lse, delta in, dq out; 3 products (S, dP, dS K).
+    dQ: q, k, v, dO, O, lse in, dq and delta out; 3 products (S, dP,
+    dS K; the rowsum(dO*O) of delta is 2 h flops a row, not counted).
     dK/dV: the same inputs, dk and dv out; 4 products (S, dP, P^T dO,
     dS^T Q). Each product is 2 h flops per kept (query, key) link."""
     esize = 4 if dtype_name == "float32" else 2
     q_el, k_el = b * sq * n * h, b * sk * n * h
     stats = 2 * b * n * sq * 4
     if kernel == "dq":
-        nbytes = (2 * q_el + 2 * k_el + q_el) * esize + stats
+        nbytes = (3 * q_el + 2 * k_el + q_el) * esize + stats
         products = 3
     else:
         nbytes = (2 * q_el + 2 * k_el + 2 * k_el) * esize + stats
@@ -304,14 +328,33 @@ def bwd_kernel_phase(torch, fa):
         if not ok:
             emit({"bwd_kernel_case": row})
             fail(f"a backward kernel disagrees with its plain version: {row}")
-        lse_c = lse.contiguous()
-        delta = fa._bwd_delta(o, do)
+        # the same dq from a second launch; where the dQ kernel computes
+        # delta (bf16), its delta against delta in torch ops (f32 takes
+        # delta from those ops: nothing to check, null)
+        dq2, delta = fa._flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
+                                           p, DROP_SEED)
+        row["dq_repeatable"] = bool(torch.equal(dq2, dq))
+        row["delta_max_abs_err"] = row["delta_tol"] = None
+        delta_ok = True
+        if fa._delta_in_kernel(dtype):
+            ref_delta = fa._bwd_delta(o, do)
+            big = max(1.0, ref_delta.abs().max().item())
+            row["delta_max_abs_err"] = (delta - ref_delta).abs().max().item()
+            row["delta_tol"] = 1e-3 * big
+            delta_ok = row["delta_max_abs_err"] <= row["delta_tol"]
+            del ref_delta
+        if not (delta_ok and row["dq_repeatable"]):
+            emit({"bwd_kernel_case": row})
+            fail(f"the dQ kernel's delta or its dq is off: {row}")
+        del dq2
+        # dq_ms includes delta: in the kernel for bf16, torch ops for f32
         row["dq_ms"] = time_ms(lambda: fa._flash_bwd_dq_cuda(
-            q, k, v, do, lse_c, delta, causal, scale, p, DROP_SEED), reps=10)
+            q, k, v, o, do, lse, causal, scale, p, DROP_SEED), reps=10)
         row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_dkv_cuda(
-            q, k, v, do, lse_c, delta, causal, scale, p, DROP_SEED), reps=10)
-        row["delta_ms"] = time_ms(lambda: fa._bwd_delta(o, do), reps=10)
-        row["backward_ms"] = row["dq_ms"] + row["dkv_ms"] + row["delta_ms"]
+            q, k, v, do, lse, delta, causal, scale, p, DROP_SEED), reps=10)
+        row["delta_torch_ms"] = time_ms(lambda: fa._bwd_delta(o, do),
+                                        reps=10)
+        row["backward_ms"] = row["dq_ms"] + row["dkv_ms"]
         for kern in ("dq", "dkv"):
             row[f"{kern}_plain_ms"] = time_ms(
                 lambda: fa.flash_attention_bwd_plain(
@@ -629,7 +672,7 @@ def train_cpu_check(torch, pt, fa):
 
 # kernel-name fragments of the profile's categories, first match wins
 PROFILE_CATEGORIES = [
-    ("flash attention kernels", ("flash_fwd_", "dq_mma", "dkv_mma",
+    ("flash attention kernels", ("flash_fwd_", "dq_wgmma", "dkv_wgmma",
                                  "dq_simt", "dkv_simt")),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
     ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -702,9 +745,15 @@ def main():
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "entry function" in ln or "registers" in ln
-                 or "spill" in ln]
+                 or "spill" in ln or "warning" in ln.lower()
+                 or "Performance" in ln]
         emit({"build": name, "seconds": info["seconds"],
               "cached": info["cached"], "ptxas": ptxas})
+        spilled = [f for f, st, ld in ptxas_spills(info["log"])
+                   if any(k in f for k in NO_SPILL) and "ILi64E" in f
+                   and (st or ld)]
+        if spilled:
+            fail(f"ptxas spills in a head_dim-64 wgmma kernel: {spilled}")
     emit({"build_seconds": build_s})
 
     cases = kernel_phase(torch, fa)
@@ -747,7 +796,8 @@ def main():
              replaces="paddle_tpu/ops/pallas_kernels.py:283",
              max_abs_err=head["dq_max_abs_err"], ms=head["dq_ms"],
              plain_ms=head["dq_plain_ms"], bound_ms=head["dq_bound_ms"],
-             bound_by=head["dq_bound_by"], **whole_bwd),
+             bound_by=head["dq_bound_by"],
+             delta_max_abs_err=head["delta_max_abs_err"], **whole_bwd),
         dict(name="flash_attn_bwd_dkv",
              source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="paddle_tpu/ops/pallas_kernels.py:319",

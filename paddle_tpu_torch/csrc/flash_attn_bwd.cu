@@ -1,16 +1,19 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, dK and dV of
-// O = dropout(softmax(Q K^T * scale)) V, from O's gradient dO, the
-// forward's per-row log-sum-exp and delta = rowsum(dO * O), without
-// materialising the [sq, sk] probabilities.
+// O = dropout(softmax(Q K^T * scale)) V, from O's gradient dO and the
+// forward's per-row log-sum-exp, without materialising the [sq, sk]
+// probabilities.
 //
-// Replaces: paddle_tpu/ops/pallas_kernels.py `_dq_kernel` and
-// `_dkv_kernel` (launched by `_flash_bwd_pallas` through two
-// pl.pallas_call). The same two-kernel split, and no atomics, so the
+// Replaces: paddle_tpu/ops/pallas_kernels.py `_dq_kernel` (:283) and
+// `_dkv_kernel` (:319), launched by `_flash_bwd_pallas` through two
+// pl.pallas_call. The same two-kernel split, and no atomics, so the
 // gradients are the same from run to run:
-//  * pt_flash_attn_bwd_dq: each CTA owns a 64-row q-tile of one
+//  * pt_flash_attn_bwd_dq: each CTA owns a block of query rows of one
 //    (batch, head) and loops over the k-tiles; dQ = sum_j dS K * scale.
-//  * pt_flash_attn_bwd_dkv: each CTA owns a k-tile and loops over the
-//    q-tiles; dV = sum_i dropout(P)^T dO, dK = sum_i dS^T Q * scale.
+//    In bf16 it also computes delta = rowsum(dO * O) of its rows in f32,
+//    uses it and writes it to a [b, n, sq] buffer for the next kernel.
+//  * pt_flash_attn_bwd_dkv: each CTA owns a block of keys and loops over
+//    the q-tiles; dV = sum_i dropout(P)^T dO, dK = sum_i dS^T Q * scale.
+//    It launches after dQ on the same stream and reads that delta.
 // Both recompute P = exp(Q K^T * scale - lse) as `_masked_probs` does,
 // with the key bound `col < sk`, the query bound `row < sq` and the
 // causal rule `row >= col` (top-left), so a masked link and a row with
@@ -19,10 +22,10 @@
 // head, row, col) and mask and scale dP as pallas_kernels.py:306-308
 // and :355-356 do: dS = P * (keep * dP / (1 - p) - delta).
 //
-// Layout. q, k, v, dO are read as [b, s, n, h] through element strides
-// (the head_dim stride is 1), so `qkv[:, :, i]` views go in without a
-// copy; dq, dk, dv are written through strides too. lse and delta are
-// f32 [b, n, sq].
+// Layout. q, k, v, dO (and O for delta) are read as [b, s, n, h] through
+// element strides (the head_dim stride is 1), so `qkv[:, :, i]` views go
+// in without a copy; dq, dk, dv are written through strides too. lse and
+// delta are f32 [b, n, sq].
 //
 // What bounds it on an H100. At b 48, s 512, n 12, h 64 one product
 // 2*b*n*s^2*h is 19.33 GFLOP. dQ does 3 products (S, dP, dS K): 0.059 ms
@@ -32,41 +35,78 @@
 // ms, bound by operations. In f32 the products run on the FP32 pipes
 // (67 TFLOP/s), 14.8x slower, so f32 is bound by operations.
 //
-// What the design does about that.
-//  * bf16 (dq_mma, dkv_mma): every product on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows.
-//    The score and dP accumulators stay in registers and are re-packed
-//    as A fragments for the next product (P and dS are cast to bf16
-//    before their products, as the Pallas kernels cast them); the
-//    streamed tiles (K/V for dQ, Q/dO for dK/dV) are double-buffered by
-//    cp.async and read by ldmatrix (.trans where the product needs the
-//    other operand order). exp runs in base 2 with the scale folded in.
-//    Masking is evaluated only on tiles that cross a bound or the
-//    diagonal.
+// What the design does about that (and about what held the mma.sync
+// kernels back: 16-row warps reloading every B fragment, 2 CTAs of 4
+// warps per SM with synchronous double buffering, Philox rounds on the
+// critical path, delta in eager torch ops).
+//  * bf16 (dq_wgmma, dkv_wgmma), warp-specialised: a CTA of 384 threads
+//    owns 128 rows (query rows for dQ, keys for dK/dV). Warpgroups 0 and
+//    1 are consumers of 64 rows each; warpgroup 2 is the producer and
+//    gives up registers (setmaxnreg 64 against the consumers' 216). One
+//    producer thread loads the owned tiles (Q and dO, or K and V) once
+//    and streams the 64-row tiles of the other side (K and V, or Q and
+//    dO) by TMA into an mbarrier ring of 4 stages (2 at h 128), 128-byte
+//    swizzled. The tensor maps describe the strided [b, s, n, h] views
+//    as they are, and TMA's out-of-bounds zero fill gives the ragged
+//    edge. No consumer thread spends an instruction on a copy. The grid
+//    is one such CTA per SM, each walking over (batch, head, row block)
+//    work items, so the owned tiles of its next item load while it
+//    finishes the current one. Both kernels are one pipeline
+//    (bwd_wgmma); they differ in the side they own and in the
+//    consumers' math.
+//  * Every product is one warpgroup's wgmma.mma_async m64n64k16 (bf16
+//    in, f32 accumulate): S and dP (S^T and dP^T in dK/dV) with both
+//    operands in shared memory, K-major; dQ += dS K, dV += dropout(P)^T
+//    dO and dK += dS^T Q with A from registers (the score accumulators
+//    re-packed to bf16, as the Pallas kernels cast P and dS) and B from
+//    shared memory, MN-major. B is read from shared memory once per 64
+//    rows of A, not once per 16 rows as mma.sync did. The products of
+//    the two consumer warpgroups interleave on the tensor
+//    cores. The grid walks the row blocks of one (batch, head) first,
+//    so the CTAs on the card at once read each streamed tile from L2.
+//  * Dropout: the 128 producer threads compute the stage's keep bits
+//    (Philox4x32-10 from philox.cuh, the same pure function of seed,
+//    b*n + head, row, col) while the consumers run the previous stages'
+//    products, and hand each consumer thread its 32 bits as one word in
+//    shared memory. So the integer rounds overlap the tensor cores and
+//    run on warps of their own, not on the consumers' critical path.
+//    The wgmma accumulator layout is mma.sync's m16n8 layout, so each
+//    lane pair (g, g^1) still shares two 2x2 Philox blocks per chunk.
+//  * delta is folded into the dQ kernel: one f32 pass over its own rows
+//    of O and dO while the first tiles load, where torch ops made f32
+//    copies of both. The producer of dK/dV stages lse and delta with
+//    each Q/dO tile.
+//  * exp is one ex2.approx per probability, with the scale folded in;
+//    masking runs only on tiles that cross a bound or the diagonal and
+//    sets a masked probability to exactly 0.
 //  * f32 (dq_simt, dkv_simt): exact FFMA, no TF32, so the gradients
-//    agree with a float32 reference to ~1e-6. Every thread owns a 4x4
-//    block of the scores; operands sit transposed in shared memory so an
-//    inner step is 16-byte shared loads feeding 16 FMAs. dK/dV takes
-//    32-key tiles so that h = 128 fits the 227 KB of shared memory.
-// Simple first: no TMA, no wgmma, no warp specialisation.
+//    agree with a float32 reference to ~1e-6; delta comes from torch
+//    ops. Every thread owns a 4x4 block of the scores; operands sit
+//    transposed in shared memory so an inner step is 16-byte shared
+//    loads feeding 16 FMAs. dK/dV takes 32-key tiles so that h = 128
+//    fits the 227 KB of shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 struct BwdArgs {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;  // bf16 dQ: written; otherwise read
   void *dq, *dk, *dv;
-  Strides qs, ks, vs, dos, dqs, dks, dvs;
-  int n_heads, sq, sk;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+  int batch, n_heads, sq, sk;
   float scale;
   DropParams dp;
 };
@@ -393,396 +433,598 @@ __global__ void __launch_bounds__(kKvThreads) dkv_simt(BwdArgs a) {
   }
 }
 
-// ------------------------------------------------- bf16, tensor cores
+// ------------------------------------------ bf16, wgmma + TMA + mbarriers
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
+constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr int kConsumers = 256, kProducers = 128;
+constexpr int kOwn = 128;        // rows a CTA owns, 64 per consumer
+constexpr int kStrm = 64;        // rows of a streamed tile
+constexpr int kLine = 128;       // bytes of a swizzled tile line (64 bf16)
+constexpr int kProducerRegs = 64, kConsumerRegs = 216;
+// setmaxnreg moves registers within the CTA's own pool, which is what
+// __launch_bounds__(384, 1) gives every thread at launch (168): asking
+// for more than the pool holds would spin in the allocation forever
+static_assert(kProducers * kProducerRegs + kConsumers * kConsumerRegs <=
+                  168 * kWgThreads,
+              "the warpgroups' registers exceed the CTA's pool");
 
-// two resident 64-row tiles + two buffers of two streamed tiles
+// depth of the streamed-tile ring, as deep as shared memory allows
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return (size_t)(2 * kBM + 4 * kBN) * mma_ld<D>() * sizeof(__nv_bfloat16);
-}
+constexpr int ring() { return D == 64 ? 4 : 2; }
 
-template <int D>
-constexpr size_t dkv_mma_smem() {
-  return mma_smem_bytes<D>() + 4 * kBM * sizeof(float);
-}
+// Shared memory, byte offsets from a 1024-aligned base. A tile of R rows
+// is [D / 64 halves][R lines][128 bytes]. The two owned tiles of a work
+// item (Q and dO for dQ; K and V for dK/dV) have two buffers, so that the
+// next item's load overlaps this one's products; the two streamed tiles
+// (K and V; Q and dO) have a ring of S stages. Each stage also holds the
+// 32 keep bits of every consumer thread (u32 [256]). lse * log2(e) and
+// delta go with their rows: in dQ with the owned buffer (f32 [2][2][128]),
+// in dK/dV with the stage (f32 [S][2][64]).
+template <int D, bool DKV>
+struct Layout {
+  static constexpr int H = D / 64, S = ring<D>();
+  static constexpr int kOwnTile = H * kOwn * kLine;
+  static constexpr int kStrmTile = H * kStrm * kLine;
+  static constexpr int kOwnBytes = 2 * kOwnTile;  // a buffer of both tiles
+  // owned tile i of buffer b at b * kOwnBytes + i * kOwnTile; streamed
+  // tile i of stage st at kStrmAt + (i * S + st) * kStrmTile
+  static constexpr int kStrmAt = 2 * kOwnBytes;
+  static constexpr int kKeep = kStrmAt + 2 * S * kStrmTile;
+  static constexpr int kStat = kKeep + S * kConsumers * 4;
+  static constexpr int kBar =
+      kStat + (DKV ? S * 2 * kStrm : 2 * 2 * kOwn) * 4;
+  static constexpr int kBytes = kBar + (4 + 2 * S) * 8 + 1024;
+};
 
-// A fragment of one warp's 16 rows x k16 step kc of a [.., LD] tile
-template <int D>
-__device__ __forceinline__ void ld_a(uint32_t* f, const __nv_bfloat16* tile,
-                                     int row0, int kc, int lane) {
-  const int lr = lane & 7, lm = lane >> 3;
-  ldsm_x4(f, tile + (row0 + lr + (lm & 1) * 8) * mma_ld<D>() + kc * 16 +
-                 (lm >> 1) * 8);
-}
-
-// acc[nc] += A (KC fragments) x B^T over the 64 rows of `tile` (B's n)
-template <int D>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], uint32_t (*fa)[4],
-                                        const __nv_bfloat16* tile, int lane) {
-  constexpr int KC = D / 16, NC = 64 / 8;
-  const int lr = lane & 7, lm = lane >> 3;
-#pragma unroll
-  for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-    for (int kc = 0; kc < KC; kc += 2) {
-      uint32_t bf[4];  // b0, b1 of k-steps kc and kc + 1
-      ldsm_x4(bf, tile + (nc * 8 + lr) * mma_ld<D>() + kc * 16 + lm * 8);
-      mma_16816(acc[nc], fa[kc], bf[0], bf[1]);
-      mma_16816(acc[nc], fa[kc + 1], bf[2], bf[3]);
+// The mbarriers: owned buffer b full and empty, ring stage s full and
+// empty. Full: its TMA bytes have landed and every producer thread has
+// stored its part (keep bits, lse, delta). Empty: every consumer warp is
+// done with it.
+template <int S>
+struct Bars {
+  uint32_t at;
+  __device__ uint32_t own_full(int b) const { return at + 8 * b; }
+  __device__ uint32_t own_empty(int b) const { return at + 16 + 8 * b; }
+  __device__ uint32_t full(int s) const { return at + 32 + 8 * s; }
+  __device__ uint32_t empty(int s) const { return at + 32 + 8 * (S + s); }
+  __device__ void init() const {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(own_full(b), kProducers);
+      mbar_init(own_empty(b), kConsumers / 32);
     }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), kProducers);
+      mbar_init(empty(s), kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
 }
 
-// acc[dn] += X (64 columns in the score layout, cast to bf16) x tile,
-// where tile is [64 rows = X's columns][D]: X's chunks 2j, 2j+1 re-pack
-// as the m16k16 A fragment of rows 16j .. 16j+15, and the tile's B
-// fragments come transposed by ldmatrix
-template <int D>
-__device__ __forceinline__ void mma_xb(float (*acc)[4], float (*x)[4],
-                                       const __nv_bfloat16* tile, int lane) {
-  constexpr int DN = D / 8;
-  const int lr = lane & 7, lm = lane >> 3;
+// a consumer warp is done with a stage
+__device__ __forceinline__ void release(uint32_t empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// sum of the products of 8 bf16 pairs, in f32
+__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < 64 / 16; ++j) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    pa[1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    pa[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    pa[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(b[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// the register A fragments of k-steps 0..3 from a thread's 32 score
+// slots (slot 4 c + e is column 8 c + 2 t + e % 2 of row g + 8 (e / 2))
+__device__ __forceinline__ void pack_a(uint32_t (*f)[4], const float* x) {
 #pragma unroll
-    for (int dn = 0; dn < DN; dn += 2) {
-      uint32_t bf[4];  // b0, b1 of column chunks dn and dn + 1
-      ldsm_x4_t(bf, tile + (j * 16 + lr + (lm & 1) * 8) * mma_ld<D>() +
-                        (dn + (lm >> 1)) * 8);
-      mma_16816(acc[dn], pa, bf[0], bf[1]);
-      mma_16816(acc[dn + 1], pa, bf[2], bf[3]);
-    }
+  for (int j = 0; j < 4; ++j) {
+    f[j][0] = pack_bf16(x[8 * j], x[8 * j + 1]);
+    f[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
+    f[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
+    f[j][3] = pack_bf16(x[8 * j + 6], x[8 * j + 7]);
   }
 }
 
-// write a warp's 16 x D f32 accumulator as bf16 rows (times mul)
+// The keep bits of one stage for two consumer lanes, g0 and g0 + 1, of
+// consumer thread pair p (0..127): bit 4 c + e of a lane's word is its
+// score slot 4 c + e, as the slot layout above. Their owned rows (query
+// rows for dQ, keys for dK/dV) share row >> 1, so both take their bits
+// from the same two 2x2 Philox blocks per column chunk: 16 Philox calls
+// per pair and stage. With KEYS_OWNED the link is (streamed query, owned
+// key), else (owned row, streamed key). The owned row r0 and the
+// streamed column x are even, so a link's word in its block,
+// (row & 1) * 2 + (col & 1) as philox.cuh's drop_keep takes it, is known
+// at compile time here.
+template <bool KEYS_OWNED>
+__device__ __forceinline__ void keep_words(const DropParams& dp, int bh,
+                                           int own0, int strm0, int p,
+                                           uint32_t* words) {
+  const int wg = p >> 6, w = (p >> 4) & 3, g0 = ((p >> 2) & 3) * 2;
+  const int t = p & 3;
+  const int r0 = own0 + wg * 64 + w * 16 + g0;
+  uint32_t m[2] = {0u, 0u};
+#pragma unroll 2
+  for (int c = 0; c < 8; ++c) {
+    const int x = strm0 + c * 8 + 2 * t;
+    uint32_t nib[2] = {0u, 0u};  // slots 4 c .. 4 c + 3 of lanes g0, g0 + 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows r0 (+1) and r0 + 8 (+1)
+      const int own = r0 + 8 * h;
+      const uint4 w4 = KEYS_OWNED ? drop_block(dp, bh, x, own)
+                                  : drop_block(dp, bh, own, x);
+      const uint32_t wd[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (wd[KEYS_OWNED ? e * 2 + j : j * 2 + e] >= dp.threshold)
+            nib[j] |= 1u << (2 * h + e);
+    }
+    m[0] |= nib[0] << (4 * c);
+    m[1] |= nib[1] << (4 * c);
+  }
+  const int lane0 = wg * 128 + w * 32 + g0 * 4 + t;
+  words[lane0] = m[0];
+  words[lane0 + 4] = m[1];
+}
+
+// write a warpgroup's 64 x D f32 accumulators (D / 64 halves) as bf16
+// rows, times mul; rows at or past limit are not written
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
-                                           long long row_stride,
-                                           float (*acc)[4],
-                                           const int* rows, int limit,
-                                           float mul, int t) {
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base,
+                                          long long row_stride,
+                                          float (*acc)[32], const int* rows,
+                                          int limit, float mul, int t) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= limit) continue;
-    __nv_bfloat16* out = base + (long long)rows[h] * row_stride;
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= limit) continue;
+    __nv_bfloat16* out = base + (long long)rows[r] * row_stride;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(&out[dn * 8 + 2 * t]) =
-          pack_bf16(acc[dn][2 * h] * mul, acc[dn][2 * h + 1] * mul);
+    for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<uint32_t*>(&out[h * 64 + c * 8 + 2 * t]) =
+            pack_bf16(acc[h][c * 4 + 2 * r] * mul,
+                      acc[h][c * 4 + 2 * r + 1] * mul);
+  }
+}
+
+// S (or dP) of a warpgroup's 64 owned rows against a 64-row streamed
+// tile over D: both K-major in shared memory
+template <int D>
+__device__ __forceinline__ void scores(float* s, uint32_t own,
+                                       uint32_t strm) {
+  wgmma_ss<false>(s, sw128_desc(own), sw128_desc(strm));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const int h = kk >> 2, j = kk & 3;
+    wgmma_ss<true>(s, sw128_desc(own + h * kOwn * kLine + j * 32),
+                   sw128_desc(strm + h * kStrm * kLine + j * 32));
+  }
+}
+
+// acc += X B, X the 64 x 64 bf16 fragments f, B a 64-row streamed tile
+// [64 lines][D] read MN-major
+template <int D>
+__device__ __forceinline__ void accumulate(float (*acc)[32],
+                                           uint32_t (*f)[4], uint32_t strm) {
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_rs_t(acc[h], f[j],
+                 sw128_desc(strm + h * kStrm * kLine + j * 16 * kLine));
+}
+
+// Materialise all 16 bf16 A fragments of an accumulate product before it
+// is issued: else the compiler may re-pack them one k-step at a time
+// into registers of an accumulator, and ptxas then serialises every
+// wgmma of the kernel.
+__device__ __forceinline__ void pin_frags(uint32_t (*f)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(f[j][k]) :: "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void fence_accs(float (*acc)[32]) {
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h) fence_acc(acc[h]);
+}
+
+// slot i of a thread's scores is a valid link when lo[r] <= 8 (i / 4) +
+// i % 2 < hi[r], r = (i / 2) % 2
+__device__ __forceinline__ bool slot_ok(int i, const int* lo, const int* hi) {
+  const int r = (i >> 1) & 1, x = (i >> 2) * 8 + (i & 1);
+  return x >= lo[r] && x < hi[r];
+}
+
+// One CTA per SM walks over work items (a (batch, head) and one block of
+// its rows), item = blockIdx.x + i * gridDim.x: the items of one (batch,
+// head) are neighbours, so the CTAs on the card at once share their
+// streamed tiles in L2.
+//
+// The row block of an item. Its order within a (batch, head) turns by
+// one per head: with item % nblk and a grid that is a multiple of nblk
+// (132 CTAs, nblk 4 at s 512), each CTA would draw the same block every
+// time, and under a causal mask the blocks' work differs up to 4-fold.
+__device__ __forceinline__ int item_block(int item, int nblk) {
+  return (item + item / nblk) % nblk;
+}
+
+// A work item: its (batch, head), its block of kOwn owned rows from own0,
+// and the streamed tiles [first, last) that meet them: for dQ the k-tiles
+// (under a causal mask, up to the block's last row), for dK/dV the
+// q-tiles (under a causal mask, from the block's first key on)
+struct Item {
+  int bh, bi, hi, own0, first, last;
+};
+
+template <bool DKV, bool CAUSAL>
+__device__ __forceinline__ Item work_item(const BwdArgs& a, int item,
+                                          int nblk) {
+  Item it;
+  it.bh = item / nblk;
+  it.bi = it.bh / a.n_heads;
+  it.hi = it.bh % a.n_heads;
+  it.own0 = item_block(item, nblk) * kOwn;
+  it.first = DKV && CAUSAL ? it.own0 / kStrm : 0;
+  it.last = ((DKV ? a.sq : a.sk) + kStrm - 1) / kStrm;
+  if (!DKV && CAUSAL)
+    it.last = min(it.last, (it.own0 + kOwn - 1) / kStrm + 1);
+  return it;
+}
+
+// The tensor maps of the owned tiles (Q, dO for dQ; K, V for dK/dV) and
+// of the streamed ones (the other two)
+struct Maps {
+  const CUtensorMap* own[2];
+  const CUtensorMap* strm[2];
+};
+
+// The pipeline of both bf16 kernels; DKV picks dK/dV's side and math,
+// else dQ's. Warpgroup 2 produces: TMA from one thread, lse, delta and
+// the keep bits from all 128. Warpgroups 0 and 1 consume 64 owned rows
+// each: per streamed tile, S and dP by wgmma, then dS (and dropout(P)),
+// then the accumulating products.
+template <int D, bool DKV, bool CAUSAL, bool DROP>
+__device__ __forceinline__ void bwd_wgmma(const Maps& m, const BwdArgs& a) {
+  using L = Layout<D, DKV>;
+  constexpr int H = L::H, S = L::S;
+  extern __shared__ __align__(1024) unsigned char smem_bwd[];
+  unsigned char* sm = align1024(smem_bwd);
+  const uint32_t base = smem_u32(sm);
+  const Bars<S> bars{base + L::kBar};
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(sm + L::kKeep);
+  float* stat_s = reinterpret_cast<float*>(sm + L::kStat);
+  const int sq = a.sq, sk = a.sk;
+  const int nblk = ((DKV ? sk : sq) + kOwn - 1) / kOwn;
+  const int items = a.batch * a.n_heads * nblk;
+  const int tid = threadIdx.x, wg = tid >> 7;
+
+  if (tid == 0) bars.init();
+  __syncthreads();
+
+  if (wg == 2) {
+    regs_dec<kProducerRegs>();
+    const int p = tid - kConsumers;
+    int tile = 0, n = 0;  // streamed tiles and items of this CTA so far
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const Item it = work_item<DKV, CAUSAL>(a, item, nblk);
+      const int ob = n & 1;
+      mbar_wait(bars.own_empty(ob), ((n >> 1) & 1) ^ 1);
+      if (p == 0) {
+        mbar_expect_tx(bars.own_full(ob), L::kOwnBytes);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < H; ++h)
+            tma_load_4d(base + ob * L::kOwnBytes + i * L::kOwnTile +
+                            h * kOwn * kLine,
+                        m.own[i], bars.own_full(ob), h * 64, it.hi, it.own0,
+                        it.bi);
+      }
+      if constexpr (!DKV) {
+        // lse * log2(e) and delta = rowsum(dO * O) of row own0 + p, in f32
+        const int row = it.own0 + p;
+        float l = 0.f, dsum = 0.f;
+        if (row < sq) {
+          const uint4* op = reinterpret_cast<const uint4*>(
+              static_cast<const __nv_bfloat16*>(a.o) + it.bi * a.os.b +
+              row * a.os.s + it.hi * a.os.n);
+          const uint4* gp = reinterpret_cast<const uint4*>(
+              static_cast<const __nv_bfloat16*>(a.dout) + it.bi * a.dos.b +
+              row * a.dos.s + it.hi * a.dos.n);
+#pragma unroll 4
+          for (int c = 0; c < D / 8; ++c) dsum += dot8(op[c], gp[c]);
+          l = a.lse[(long long)it.bh * sq + row] * kLog2e;
+          a.delta[(long long)it.bh * sq + row] = dsum;
+        }
+        stat_s[ob * 2 * kOwn + p] = l;
+        stat_s[ob * 2 * kOwn + kOwn + p] = dsum;
+      }
+      mbar_arrive(bars.own_full(ob));
+      for (int j = it.first; j < it.last; ++j, ++tile) {
+        const int st = tile % S, s0 = j * kStrm;
+        mbar_wait(bars.empty(st), ((tile / S) & 1) ^ 1);
+        if (p == 0) {
+          mbar_expect_tx(bars.full(st), 2 * L::kStrmTile);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < H; ++h)
+              tma_load_4d(base + L::kStrmAt + (i * S + st) * L::kStrmTile +
+                              h * kStrm * kLine,
+                          m.strm[i], bars.full(st), h * 64, it.hi, s0, it.bi);
+        }
+        if constexpr (DKV) {
+          // threads 0..63 stage lse * log2(e) of the tile's rows, 64..127
+          // their delta
+          const int i = s0 + (p & (kStrm - 1));
+          float x = 0.f;
+          if (i < sq)
+            x = p < kStrm ? a.lse[(long long)it.bh * sq + i] * kLog2e
+                          : a.delta[(long long)it.bh * sq + i];
+          stat_s[st * 2 * kStrm + p] = x;
+        }
+        if (DROP)
+          keep_words<DKV>(a.dp, it.bh, it.own0, s0, p,
+                          keep_s + st * kConsumers);
+        mbar_arrive(bars.full(st));
+      }
+    }
+  } else {
+    regs_inc<kConsumerRegs>();
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int lrow = wg * 64 + warp * 16;  // the warp's first row in a block
+    const float scale2 = a.scale * kLog2e;
+    int tile = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const Item it = work_item<DKV, CAUSAL>(a, item, nblk);
+      const int ob = n & 1;
+      const int wrow = it.own0 + lrow;  // the warp's first query row, or key
+      const int rows[2] = {wrow + g, wrow + g + 8};
+      // acc[0] sums the dS products (dQ, or dK); acc[1] is dK/dV's dV
+      float acc[DKV ? 2 : 1][H][32];
+#pragma unroll
+      for (int x = 0; x < (DKV ? 2 : 1); ++x)
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[x][h][i] = 0.f;
+      // the warpgroup's 64 rows of the owned tiles: Q and dO, or K and V
+      const uint32_t own_a = base + ob * L::kOwnBytes + wg * 64 * kLine;
+      const uint32_t own_b = own_a + L::kOwnTile;
+      mbar_wait(bars.own_full(ob), (n >> 1) & 1);
+      // dQ: lse * log2(e) and delta of the thread's two rows, and the keys
+      // below klim[r] that row r may see
+      [[maybe_unused]] float lse2[2], dl[2];
+      [[maybe_unused]] int klim[2];
+      if constexpr (!DKV) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lse2[r] = stat_s[ob * 2 * kOwn + lrow + g + 8 * r];
+          dl[r] = stat_s[ob * 2 * kOwn + kOwn + lrow + g + 8 * r];
+          klim[r] = rows[r] < sq ? (CAUSAL ? min(sk, rows[r] + 1) : sk) : 0;
+        }
+      }
+
+      for (int j = it.first; j < it.last; ++j, ++tile) {
+        const int st = tile % S, s0 = j * kStrm;
+        mbar_wait(bars.full(st), (tile / S) & 1);
+        // the streamed tiles: K and V, or Q and dO
+        const uint32_t strm_a = base + L::kStrmAt + st * L::kStrmTile;
+        const uint32_t strm_b = strm_a + S * L::kStrmTile;
+
+        // S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T, dP^T = V dO^T)
+        float s[32], dp[32];
+        wgmma_fence();
+        scores<D>(s, own_a, strm_a);
+        scores<D>(dp, own_b, strm_b);
+        wgmma_commit();
+        const uint32_t keep = DROP ? keep_s[st * kConsumers + tid] : 0u;
+        wgmma_wait<0>();
+        fence_acc(s);
+        fence_acc(dp);
+
+        // The scores are only read from here on: writing them in place
+        // (a masked -inf, dS) makes ptxas serialise every wgmma
+        if constexpr (DKV) {
+          const bool edge = s0 + kStrm > sq || it.own0 + kOwn > sk ||
+                            (CAUSAL && s0 < wrow + 15);
+          int lo[2], hi2[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            lo[r] = CAUSAL ? rows[r] - s0 - 2 * t : -kStrm;
+            hi2[r] = rows[r] < sk ? sq - s0 - 2 * t : -kStrm;
+          }
+          const float* lsec = stat_s + st * 2 * kStrm;
+          const float* dlc = lsec + kStrm;
+          float pd[32], ds[32];  // dropout(P)^T and dS^T
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int qi = (i >> 2) * 8 + 2 * t + (i & 1);
+            float pr = ex2(fmaf(s[i], scale2, -lsec[qi]));
+            if (edge && !slot_ok(i, lo, hi2)) pr = 0.f;
+            float d = dp[i];
+            pd[i] = pr;
+            if (DROP) {
+              const bool kept = (keep >> i) & 1;
+              d = kept ? d * a.dp.rinv : 0.f;
+              pd[i] = kept ? pr * a.dp.rinv : 0.f;
+            }
+            ds[i] = pr * (d - dlc[qi]);
+          }
+          // dV += dropout(P)^T dO and dK += dS^T Q
+          uint32_t pf[4][4], sf[4][4];
+          pack_a(pf, pd);
+          pack_a(sf, ds);
+          pin_frags(pf);
+          pin_frags(sf);
+          wgmma_fence();
+          accumulate<D>(acc[1], pf, strm_b);
+          accumulate<D>(acc[0], sf, strm_a);
+        } else {
+          const bool edge = s0 + kStrm > sk || it.own0 + kOwn > sq ||
+                            (CAUSAL && s0 + kStrm - 1 > wrow);
+          const int lo[2] = {0, 0};
+          const int hi2[2] = {klim[0] - s0 - 2 * t, klim[1] - s0 - 2 * t};
+          float ds[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = (i >> 1) & 1;
+            float pr = ex2(fmaf(s[i], scale2, -lse2[r]));
+            if (edge && !slot_ok(i, lo, hi2)) pr = 0.f;
+            float d = dp[i];
+            if (DROP) d = ((keep >> i) & 1) ? d * a.dp.rinv : 0.f;
+            ds[i] = pr * (d - dl[r]);
+          }
+          // dQ += dS K
+          uint32_t f[4][4];
+          pack_a(f, ds);
+          pin_frags(f);
+          wgmma_fence();
+          accumulate<D>(acc[0], f, strm_a);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        release(bars.empty(st), lane);
+      }
+      release(bars.own_empty(ob), lane);
+#pragma unroll
+      for (int x = 0; x < (DKV ? 2 : 1); ++x) fence_accs<D>(acc[x]);
+      if constexpr (DKV) {
+        store_acc<D>(static_cast<__nv_bfloat16*>(a.dk) + it.bi * a.dks.b +
+                         it.hi * a.dks.n,
+                     a.dks.s, acc[0], rows, sk, a.scale, t);
+        store_acc<D>(static_cast<__nv_bfloat16*>(a.dv) + it.bi * a.dvs.b +
+                         it.hi * a.dvs.n,
+                     a.dvs.s, acc[1], rows, sk, 1.f, t);
+      } else {
+        store_acc<D>(static_cast<__nv_bfloat16*>(a.dq) + it.bi * a.dqs.b +
+                         it.hi * a.dqs.n,
+                     a.dqs.s, acc[0], rows, sq, a.scale, t);
+      }
+    }
   }
 }
 
 template <int D, bool CAUSAL, bool DROP>
-__global__ void __launch_bounds__(kMmaThreads) dq_mma(BwdArgs a) {
-  constexpr int LD = mma_ld<D>();
-  constexpr int KC = D / 16, NC = kBN / 8, DN = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_dqm[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_dqm);  // [kBM][LD]
-  __nv_bfloat16* dOs = Qs + kBM * LD;     // [kBM][LD]
-  __nv_bfloat16* Ks = dOs + kBM * LD;     // [2][kBN][LD]
-  __nv_bfloat16* Vs = Ks + 2 * kBN * LD;  // [2][kBN][LD]
-
-  const int bh = blockIdx.x;
-  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
-  const int q0 = blockIdx.y * kBM;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int sq = a.sq, sk = a.sk;
-
-  const __nv_bfloat16* qb =
-      static_cast<const __nv_bfloat16*>(a.q) + bi * a.qs.b + hi * a.qs.n;
-  const __nv_bfloat16* kb =
-      static_cast<const __nv_bfloat16*>(a.k) + bi * a.ks.b + hi * a.ks.n;
-  const __nv_bfloat16* vb =
-      static_cast<const __nv_bfloat16*>(a.v) + bi * a.vs.b + hi * a.vs.n;
-  const __nv_bfloat16* db =
-      static_cast<const __nv_bfloat16*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
-  const float scale2 = a.scale * kLog2e;
-
-  int nk = (sk + kBN - 1) / kBN;
-  if (CAUSAL) nk = causal_tiles(nk, q0);
-
-  load_tile_async<D, kBM, kMmaThreads>(Qs, qb, a.qs.s, q0, sq, tid);
-  load_tile_async<D, kBM, kMmaThreads>(dOs, db, a.dos.s, q0, sq, tid);
-  load_tile_async<D, kBN, kMmaThreads>(Ks, kb, a.ks.s, 0, sk, tid);
-  load_tile_async<D, kBN, kMmaThreads>(Vs, vb, a.vs.s, 0, sk, tid);
-  cp_async_commit();
-
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool in = rows[h] < sq;
-    lse2[h] = in ? a.lse[(long long)bh * sq + rows[h]] * kLog2e : 0.f;
-    dl[h] = in ? a.delta[(long long)bh * sq + rows[h]] : 0.f;
-  }
-  uint32_t qa[KC][4], da[KC][4];
-  float acc[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBN;
-    const __nv_bfloat16* Kc = Ks + (kt & 1) * kBN * LD;
-    const __nv_bfloat16* Vc = Vs + (kt & 1) * kBN * LD;
-    if (kt + 1 < nk) {
-      load_tile_async<D, kBN, kMmaThreads>(Ks + ((kt + 1) & 1) * kBN * LD, kb,
-                                           a.ks.s, k0 + kBN, sk, tid);
-      load_tile_async<D, kBN, kMmaThreads>(Vs + ((kt + 1) & 1) * kBN * LD, vb,
-                                           a.vs.s, k0 + kBN, sk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        ld_a<D>(qa[kc], Qs, warp * 16, kc, lane);
-        ld_a<D>(da[kc], dOs, warp * 16, kc, lane);
-      }
-    }
-
-    // S = Q K^T and dP = dO V^T: slot e of chunk nc is
-    // (rows[e >> 1], k0 + nc*8 + 2t + (e & 1))
-    float s[NC][4], dpv[NC][4];
-#pragma unroll
-    for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nc][e] = dpv[nc][e] = 0.f;
-    mma_abt<D>(s, qa, Kc, lane);
-    mma_abt<D>(dpv, da, Vc, lane);
-
-    if (DROP) {
-#pragma unroll
-      for (int nc = 0; nc < NC; ++nc) {
-        const int col = k0 + nc * 8 + 2 * t;
-        uint4 wlo, whi;
-        philox_pair(a.dp, bh, g & 1, rows[0], col, rows[1], col, 4, wlo, whi);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool keep = drop_keep(a.dp, (e >> 1) ? whi : wlo,
-                                      rows[e >> 1], col + (e & 1));
-          dpv[nc][e] = keep ? dpv[nc][e] * a.dp.rinv : 0.f;
-        }
-      }
-    }
-    const bool edge = k0 + kBN > sk || q0 + kBM > sq ||
-                      (CAUSAL && k0 + kBN - 1 > q0 + warp * 16);
-#pragma unroll
-    for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[nc][e] * scale2 - lse2[e >> 1]);
-        if (edge && !link_ok(CAUSAL, rows[e >> 1], k0 + nc * 8 + 2 * t + (e & 1),
-                             sq, sk))
-          p = 0.f;
-        s[nc][e] = p * (dpv[nc][e] - dl[e >> 1]);  // dS
-      }
-    // dQ += dS K
-    mma_xb<D>(acc, s, Kc, lane);
-    __syncthreads();  // all reads of this buffer are done before its refill
-  }
-
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + bi * a.dqs.b + hi * a.dqs.n,
-                a.dqs.s, acc, rows, sq, a.scale, t);
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const BwdArgs a) {
+  bwd_wgmma<D, false, CAUSAL, DROP>(Maps{{&tq, &tdo}, {&tk, &tv}}, a);
 }
 
 template <int D, bool CAUSAL, bool DROP>
-__global__ void __launch_bounds__(kMmaThreads) dkv_mma(BwdArgs a) {
-  constexpr int LD = mma_ld<D>();
-  constexpr int KC = D / 16, NC = kBM / 8, DN = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_dkvm[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_dkvm);  // [kBN][LD]
-  __nv_bfloat16* Vs = Ks + kBN * LD;      // [kBN][LD]
-  __nv_bfloat16* Qs = Vs + kBN * LD;      // [2][kBM][LD]
-  __nv_bfloat16* dOs = Qs + 2 * kBM * LD; // [2][kBM][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kBM * LD);  // [2][kBM]
-  float* dl_s = lse_s + 2 * kBM;                                // [2][kBM]
-
-  const int bh = blockIdx.x;
-  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
-  const int k0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int sq = a.sq, sk = a.sk;
-
-  const __nv_bfloat16* qb =
-      static_cast<const __nv_bfloat16*>(a.q) + bi * a.qs.b + hi * a.qs.n;
-  const __nv_bfloat16* kb =
-      static_cast<const __nv_bfloat16*>(a.k) + bi * a.ks.b + hi * a.ks.n;
-  const __nv_bfloat16* vb =
-      static_cast<const __nv_bfloat16*>(a.v) + bi * a.vs.b + hi * a.vs.n;
-  const __nv_bfloat16* db =
-      static_cast<const __nv_bfloat16*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
-  const float scale2 = a.scale * kLog2e;
-  const float* lse_row = a.lse + (long long)bh * sq;
-  const float* dl_row = a.delta + (long long)bh * sq;
-
-  const int nq = (sq + kBM - 1) / kBM;
-  // causal: q-tiles whose last row reaches this tile's first key
-  const int first = CAUSAL ? k0 / kBM : 0;
-
-  load_tile_async<D, kBN, kMmaThreads>(Ks, kb, a.ks.s, k0, sk, tid);
-  load_tile_async<D, kBN, kMmaThreads>(Vs, vb, a.vs.s, k0, sk, tid);
-  if (first < nq) {
-    load_tile_async<D, kBM, kMmaThreads>(Qs, qb, a.qs.s, first * kBM, sq, tid);
-    load_tile_async<D, kBM, kMmaThreads>(dOs, db, a.dos.s, first * kBM, sq, tid);
-    for (int e = tid; e < kBM; e += kMmaThreads) {
-      const int i = first * kBM + e;
-      lse_s[e] = i < sq ? lse_row[i] * kLog2e : 0.f;
-      dl_s[e] = i < sq ? dl_row[i] : 0.f;
-    }
-  }
-  cp_async_commit();
-
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk[DN][4], dv[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-
-  for (int qt = first; qt < nq; ++qt) {
-    const int it = qt - first;
-    const int i0 = qt * kBM;
-    const int buf = it & 1;
-    if (qt + 1 < nq) {
-      const int nb = buf ^ 1;
-      load_tile_async<D, kBM, kMmaThreads>(Qs + nb * kBM * LD, qb, a.qs.s,
-                                           i0 + kBM, sq, tid);
-      load_tile_async<D, kBM, kMmaThreads>(dOs + nb * kBM * LD, db, a.dos.s,
-                                           i0 + kBM, sq, tid);
-      for (int e = tid; e < kBM; e += kMmaThreads) {
-        const int i = i0 + kBM + e;
-        lse_s[nb * kBM + e] = i < sq ? lse_row[i] * kLog2e : 0.f;
-        dl_s[nb * kBM + e] = i < sq ? dl_row[i] : 0.f;
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Qc = Qs + buf * kBM * LD;
-    const __nv_bfloat16* dOc = dOs + buf * kBM * LD;
-    const float* lsec = lse_s + buf * kBM;
-    const float* dlc = dl_s + buf * kBM;
-
-    // S^T = K Q^T and dP^T = V dO^T: slot e of chunk nc is
-    // (key keys[e >> 1], query i0 + nc*8 + 2t + (e & 1))
-    float s[NC][4], dpv[NC][4];
-#pragma unroll
-    for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nc][e] = dpv[nc][e] = 0.f;
-    {
-      uint32_t fa[KC][4];
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) ld_a<D>(fa[kc], Ks, warp * 16, kc, lane);
-      mma_abt<D>(s, fa, Qc, lane);
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) ld_a<D>(fa[kc], Vs, warp * 16, kc, lane);
-      mma_abt<D>(dpv, fa, dOc, lane);
-    }
-
-    const bool edge = i0 + kBM > sq || k0 + kBN > sk ||
-                      (CAUSAL && i0 < k0 + warp * 16 + 15);
-#pragma unroll
-    for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nc * 8 + 2 * t + (e & 1);
-        float p = exp2f(s[nc][e] * scale2 - lsec[qi]);
-        if (edge && !link_ok(CAUSAL, i0 + qi, keys[e >> 1], sq, sk)) p = 0.f;
-        s[nc][e] = p;
-      }
-    if (DROP) {
-      // lanes g and g^1 hold the same two 2x2 blocks of each chunk:
-      // queries (2t, 2t+1) x keys (keys[0], keys[1])
-#pragma unroll
-      for (int nc = 0; nc < NC; ++nc) {
-        const int qrow = i0 + nc * 8 + 2 * t;
-        uint4 w0, w1;
-        philox_pair(a.dp, bh, g & 1, qrow, keys[0], qrow, keys[1], 4, w0, w1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool keep = drop_keep(a.dp, (e >> 1) ? w1 : w0,
-                                      qrow + (e & 1), keys[e >> 1]);
-          const float p = s[nc][e];
-          const float d = keep ? dpv[nc][e] * a.dp.rinv : 0.f;
-          dpv[nc][e] = p * (d - dlc[nc * 8 + 2 * t + (e & 1)]);  // dS
-          s[nc][e] = keep ? p * a.dp.rinv : 0.f;                  // dropout(P)
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dpv[nc][e] = s[nc][e] * (dpv[nc][e] - dlc[nc * 8 + 2 * t + (e & 1)]);
-    }
-    // dV += dropout(P)^T dO and dK += dS^T Q
-    mma_xb<D>(dv, s, dOc, lane);
-    mma_xb<D>(dk, dpv, Qc, lane);
-    __syncthreads();  // all reads of this buffer are done before its refill
-  }
-  cp_async_wait<0>();  // a CTA that saw no q-tile still has K/V in flight
-
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + bi * a.dks.b + hi * a.dks.n,
-                a.dks.s, dk, keys, sk, a.scale, t);
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + bi * a.dvs.b + hi * a.dvs.n,
-                a.dvs.s, dv, keys, sk, 1.f, t);
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const BwdArgs a) {
+  bwd_wgmma<D, true, CAUSAL, DROP>(Maps{{&tk, &tv}, {&tq, &tdo}}, a);
 }
 
 // ------------------------------------------------------------ launching
 
-template <typename Kern>
+template <typename Kern, typename... Args>
 cudaError_t go(Kern kern, dim3 grid, int threads, size_t smem,
-               cudaStream_t stream, const BwdArgs& a) {
+               cudaStream_t stream, const Args&... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, threads, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// the streaming multiprocessors of the current device, cached per device
+cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && cached[dev] > 0) {
+    *sms = cached[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < kDevices) cached[dev] = *sms;
+  return e;
+}
+
+// The wgmma kernels: tensor maps of the four [b, s, n, h] inputs, whose
+// boxes are kOwn rows for the CTA's own side (Q, dO for dQ; K, V for
+// dK/dV) and kStrm rows for the streamed side; one CTA per SM, or one
+// per work item when there are fewer
+template <int D, bool C, bool P, bool DKV>
+cudaError_t go_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  const int rq = DKV ? kStrm : kOwn, rk = DKV ? kOwn : kStrm;
+  const int b = a.batch, n = a.n_heads;
+  CUtensorMap tq, tdo, tk, tv;
+  if (bf16_rows_map(&tq, a.q, b, a.sq, n, D, a.qs.b, a.qs.s, a.qs.n, rq) ||
+      bf16_rows_map(&tdo, a.dout, b, a.sq, n, D, a.dos.b, a.dos.s, a.dos.n,
+                    rq) ||
+      bf16_rows_map(&tk, a.k, b, a.sk, n, D, a.ks.b, a.ks.s, a.ks.n, rk) ||
+      bf16_rows_map(&tv, a.v, b, a.sk, n, D, a.vs.b, a.vs.s, a.vs.n, rk))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const long long items =
+      (long long)b * n * (((DKV ? a.sk : a.sq) + kOwn - 1) / kOwn);
+  const dim3 grid((unsigned)(items < sms ? items : sms));
+  if constexpr (DKV)
+    return go(dkv_wgmma<D, C, P>, grid, kWgThreads, Layout<D, true>::kBytes,
+              stream, tq, tdo, tk, tv, a);
+  else
+    return go(dq_wgmma<D, C, P>, grid, kWgThreads, Layout<D, false>::kBytes,
+              stream, tq, tdo, tk, tv, a);
+}
+
+// The dQ kernel of each dtype, and with it the role of BwdArgs.delta:
+// bf16 runs dq_wgmma, which computes delta = rowsum(dO * O) and writes
+// it (an output); f32 runs dq_simt, which reads the caller's delta (an
+// input). ops/flash_attention.py's _delta_in_kernel states the same rule.
 template <int D, bool C, bool P>
-cudaError_t launch_dq(int dtype, int bn, const BwdArgs& a, cudaStream_t st) {
-  const dim3 grid(bn, (a.sq + kBM - 1) / kBM);
-  if (dtype == 0)
-    return go(dq_simt<D, C, P>, grid, kDqThreads, dq_simt_smem<D>(), st, a);
-  return go(dq_mma<D, C, P>, grid, kMmaThreads, mma_smem_bytes<D>(), st, a);
+cudaError_t launch_dq(int dtype, const BwdArgs& a, cudaStream_t st) {
+  const int b = a.batch;
+  if (dtype == 1) return go_wgmma<D, C, P, false>(a, st);
+  return go(dq_simt<D, C, P>, dim3(b * a.n_heads, (a.sq + kBM - 1) / kBM),
+            kDqThreads, dq_simt_smem<D>(), st, a);
 }
 
 template <int D, bool C, bool P>
-cudaError_t launch_dkv(int dtype, int bn, const BwdArgs& a, cudaStream_t st) {
-  if (dtype == 0)
-    return go(dkv_simt<D, C, P>, dim3(bn, (a.sk + kKB - 1) / kKB), kKvThreads,
-              dkv_simt_smem<D>(), st, a);
-  return go(dkv_mma<D, C, P>, dim3(bn, (a.sk + kBN - 1) / kBN), kMmaThreads,
-            dkv_mma_smem<D>(), st, a);
+cudaError_t launch_dkv(int dtype, const BwdArgs& a, cudaStream_t st) {
+  const int b = a.batch;
+  if (dtype == 1) return go_wgmma<D, C, P, true>(a, st);
+  return go(dkv_simt<D, C, P>, dim3(b * a.n_heads, (a.sk + kKB - 1) / kKB),
+            kKvThreads, dkv_simt_smem<D>(), st, a);
 }
 
 template <bool DKV>
-int dispatch(int dtype, int bn, int d, int causal, int dropout,
-             const BwdArgs& a, cudaStream_t st) {
+int dispatch(int dtype, int d, int causal, int dropout, const BwdArgs& a,
+             cudaStream_t st) {
   if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return -1;
 #define PT_GO(D, C, P)                                                \
-  (DKV ? launch_dkv<D, C, P>(dtype, bn, a, st)                        \
-       : launch_dq<D, C, P>(dtype, bn, a, st))
+  (DKV ? launch_dkv<D, C, P>(dtype, a, st)                            \
+       : launch_dq<D, C, P>(dtype, a, st))
 #define PT_DROP(D, C) (dropout ? PT_GO(D, C, true) : PT_GO(D, C, false))
   cudaError_t e;
   if (d == 64)
@@ -796,33 +1038,38 @@ int dispatch(int dtype, int bn, int d, int causal, int dropout,
 
 }  // namespace
 
-// dtype: 0 = float32 (FFMA kernels), 1 = bfloat16 (tensor-core kernels).
+// dtype: 0 = float32 (FFMA kernels), 1 = bfloat16 (wgmma kernels).
 // Strides are element strides (batch, seq, head) of [b, s, n, h] tensors
-// whose head_dim stride is 1. dropout != 0 regenerates the forward's
-// keep bits from (threshold, seed_lo, seed_hi); rinv = 1 / (1 - p).
-// Returns 0 on success, a cudaError_t code if a launch was refused, or
-// -1 for a dtype / head_dim this file has no kernel for.
+// whose head_dim stride is 1; in bf16 they are the layout the tensor
+// maps describe: multiples of 8 elements, and a dimension of size 1
+// given the stride a packed tensor would have. dropout != 0 regenerates
+// the forward's keep bits from (threshold, seed_lo, seed_hi); rinv =
+// 1 / (1 - p). delta: in bf16 the dQ kernel writes rowsum(dO * O) there
+// (o is read for it); in f32 it is read (see launch_dq). Returns 0 on
+// success, a cudaError_t code if a launch or a tensor map was refused,
+// or -1 for a dtype / head_dim this file has no kernel for.
 extern "C" int pt_flash_attn_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, int dtype, int b, int n,
-    int sq, int sk, int d,
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, int dtype,
+    int b, int n, int sq, int sk, int d,
     long long q_sb, long long q_ss, long long q_sn,
     long long k_sb, long long k_ss, long long k_sn,
     long long v_sb, long long v_ss, long long v_sn,
     long long o_sb, long long o_ss, long long o_sn,
+    long long do_sb, long long do_ss, long long do_sn,
     long long dq_sb, long long dq_ss, long long dq_sn,
     float scale, int causal, int dropout, unsigned int threshold,
     unsigned int seed_lo, unsigned int seed_hi, float rinv,
     void* stream_ptr) {
   BwdArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
-  a.dq = dq;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
+  a.lse = lse; a.delta = delta; a.dq = dq;
   a.qs = {q_sb, q_ss, q_sn}; a.ks = {k_sb, k_ss, k_sn};
-  a.vs = {v_sb, v_ss, v_sn}; a.dos = {o_sb, o_ss, o_sn};
-  a.dqs = {dq_sb, dq_ss, dq_sn};
-  a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
+  a.vs = {v_sb, v_ss, v_sn}; a.os = {o_sb, o_ss, o_sn};
+  a.dos = {do_sb, do_ss, do_sn}; a.dqs = {dq_sb, dq_ss, dq_sn};
+  a.batch = b; a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
   a.dp = {threshold, seed_lo, seed_hi, rinv};
-  return dispatch<false>(dtype, b * n, d, causal, dropout, a,
+  return dispatch<false>(dtype, d, causal, dropout, a,
                          static_cast<cudaStream_t>(stream_ptr));
 }
 
@@ -833,20 +1080,21 @@ extern "C" int pt_flash_attn_bwd_dkv(
     long long q_sb, long long q_ss, long long q_sn,
     long long k_sb, long long k_ss, long long k_sn,
     long long v_sb, long long v_ss, long long v_sn,
-    long long o_sb, long long o_ss, long long o_sn,
+    long long do_sb, long long do_ss, long long do_sn,
     long long dk_sb, long long dk_ss, long long dk_sn,
     long long dv_sb, long long dv_ss, long long dv_sn,
     float scale, int causal, int dropout, unsigned int threshold,
     unsigned int seed_lo, unsigned int seed_hi, float rinv,
     void* stream_ptr) {
   BwdArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = lse; a.delta = const_cast<float*>(delta);
   a.dk = dk; a.dv = dv;
   a.qs = {q_sb, q_ss, q_sn}; a.ks = {k_sb, k_ss, k_sn};
-  a.vs = {v_sb, v_ss, v_sn}; a.dos = {o_sb, o_ss, o_sn};
+  a.vs = {v_sb, v_ss, v_sn}; a.dos = {do_sb, do_ss, do_sn};
   a.dks = {dk_sb, dk_ss, dk_sn}; a.dvs = {dv_sb, dv_ss, dv_sn};
-  a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
+  a.batch = b; a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
   a.dp = {threshold, seed_lo, seed_hi, rinv};
-  return dispatch<true>(dtype, b * n, d, causal, dropout, a,
+  return dispatch<true>(dtype, d, causal, dropout, a,
                         static_cast<cudaStream_t>(stream_ptr));
 }

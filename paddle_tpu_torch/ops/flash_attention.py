@@ -5,7 +5,8 @@ kernels become kernels written by hand for Hopper (sm_90a), built with
 nvcc at first use (ops/_build.py) and called through ctypes:
 
 - `_fwd_kernel` -> csrc/flash_attn_fwd.cu (O and lse, with dropout);
-- `_dq_kernel` and `_dkv_kernel` -> csrc/flash_attn_bwd.cu (two entries);
+- `_dq_kernel` and `_dkv_kernel` -> csrc/flash_attn_bwd.cu (two entries;
+  in bf16 wgmma kernels fed by TMA, the dQ one computing delta too);
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -46,11 +47,11 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
 
 _VP, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_uint)
-# causal, dropout, threshold, seed_lo, seed_hi, rinv, stream
+# scale, causal, dropout, threshold, seed_lo, seed_hi, rinv, stream
 _TAIL = [ctypes.c_float, _I, _I, _U, _U, _U, ctypes.c_float, _VP]
 _ARGTYPES = {
     "pt_flash_attn_fwd": [_VP] * 5 + [_I] * 6 + [_LL] * 9 + _TAIL,
-    "pt_flash_attn_bwd_dq": [_VP] * 7 + [_I] * 6 + [_LL] * 15 + _TAIL,
+    "pt_flash_attn_bwd_dq": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
     "pt_flash_attn_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
 }
 
@@ -154,20 +155,40 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
 
 # ------------------------------------------------------------ CUDA kernels
 
-def _aligned16(t):
-    """True when every [.., :, .., :] row of t starts on 16 bytes (the
-    tensor-core kernels read rows as 16-byte vectors)."""
+def _tma_strides(t):
+    """(batch, seq, head) element strides of a [b, s, n, h] tensor as the
+    kernels are given them: a dimension of size 1 takes the stride a
+    packed tensor would give it (its own stride is never used, and the
+    bf16 backward's tensor maps must describe a layout)."""
+    b, s, n, h = t.shape
+    sb, ss, sn, _ = t.stride()
+    sn = sn if n > 1 else h
+    ss = ss if s > 1 else sn * n
+    sb = sb if b > 1 else ss * s
+    return sb, ss, sn
+
+
+def _tma_ok(t):
+    """True when the bf16 kernels can read t in place: a unit head_dim
+    stride, a 16-byte-aligned base, strides of whole 16-byte multiples
+    (TMA's rule; cp.async and ldmatrix read 16-byte rows), and head, seq
+    and batch laid out in that order without overlap, as the fused qkv
+    views and every packed tensor are."""
+    if t.stride(3) != 1 or t.data_ptr() % 16:
+        return False
+    _, s, n, h = t.shape
+    sb, ss, sn = _tma_strides(t)
     per = 16 // t.element_size()
-    return (t.data_ptr() % 16 == 0
-            and all(s % per == 0 for s in t.stride()[:3]))
+    return (all(x % per == 0 for x in (sb, ss, sn))
+            and sn >= h and ss >= sn * n and sb >= ss * s)
 
 
 def _kernel_input(t):
-    """t itself when the kernels can read it through its strides (unit
-    head_dim stride; 16-byte rows for bf16), else a contiguous copy."""
-    if t.stride(3) == 1 and (t.dtype == torch.float32 or _aligned16(t)):
-        return t
-    return t.contiguous()
+    """t itself when the kernels can read it through its strides (a unit
+    head_dim stride in f32; _tma_ok in bf16), else a packed copy in fresh
+    (aligned) memory."""
+    ok = t.stride(3) == 1 if t.dtype == torch.float32 else _tma_ok(t)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_kernel(name, q, k):
@@ -191,16 +212,25 @@ def _entry(lib_name, fn_name):
     return fn
 
 
+def _launch(lib_name, fn_name, q, args):
+    """Call the C entry fn_name of csrc/<lib_name>.cu with args and the
+    current stream of q's card; raise if the launch was refused."""
+    with torch.cuda.device(q.device):
+        rc = _entry(lib_name, fn_name)(
+            *args, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed (code {rc})")
+
+
 def _strides(*ts):
-    return [s for t in ts for s in t.stride()[:3]]
+    return [s for t in ts for s in _tma_strides(t)]
 
 
-def _tail(q, causal, scale, dropout_p, seed):
+def _tail(causal, scale, dropout_p, seed):
     lo, hi = _philox.split_seed(seed)
     rinv = 1.0 / (1.0 - dropout_p) if dropout_p else 1.0
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     return [float(scale), int(bool(causal)), int(dropout_p > 0),
-            _philox.drop_threshold(dropout_p), lo, hi, rinv, stream]
+            _philox.drop_threshold(dropout_p), lo, hi, rinv]
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
@@ -211,41 +241,51 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
     q, k, v = (_kernel_input(t) for t in (q, k, v))
     o = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-    fn = _entry("flash_attn_fwd", "pt_flash_attn_fwd")
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
-                *_strides(q, k, v), *_tail(q, causal, scale, dropout_p, seed))
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed (code {rc})")
+    _launch("flash_attn_fwd", "pt_flash_attn_fwd", q,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
+             *_strides(q, k, v), *_tail(causal, scale, dropout_p, seed)])
     launches["flash_attn_fwd"] += 1
     return o, lse
 
 
 def _bwd_delta(o, do):
     """delta = rowsum(dO * O), f32 [b, n, sq]: torch ops, as the JAX
-    package leaves it to XLA outside its kernels."""
+    package leaves it to XLA outside its kernels. The f32 backward uses
+    it; the bf16 dQ kernel computes delta itself."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale,
-                       dropout_p=0.0, seed=0):
-    """Launch the dQ kernel of csrc/flash_attn_bwd.cu: returns dq."""
+def _delta_in_kernel(dtype):
+    """True when the dQ kernel computes delta for this dtype: the dQ
+    entry's delta buffer is then its output (bf16, dq_wgmma), else its
+    input, filled by _bwd_delta (f32, dq_simt). csrc/flash_attn_bwd.cu's
+    launch_dq picks the kernel by the same dtype rule."""
+    return dtype == torch.bfloat16
+
+
+def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
+                       seed=0):
+    """Launch the dQ kernel of csrc/flash_attn_bwd.cu: returns (dq,
+    delta), delta = rowsum(dO * O) f32 [b, n, sq], which the dK/dV
+    kernel reads. In bf16 the kernel computes delta and writes it."""
     _check_kernel("flash_attn_bwd_dq", q, k)
     b, sq, n, h = q.shape
-    q, k, v, do = (_kernel_input(t) for t in (q, k, v, do))
+    q, k, v, o, do = (_kernel_input(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    if _delta_in_kernel(q.dtype):
+        delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    else:
+        delta = _bwd_delta(o, do)
     dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _entry("flash_attn_bwd", "pt_flash_attn_bwd_dq")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _KERNEL_DTYPES[q.dtype], b, n, sq, k.shape[1], h,
-            *_strides(q, k, v, do, dq),
-            *_tail(q, causal, scale, dropout_p, seed))
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd_dq launch failed (code {rc})")
+    _launch("flash_attn_bwd", "pt_flash_attn_bwd_dq", q,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             _KERNEL_DTYPES[q.dtype], b, n, sq, k.shape[1], h,
+             *_strides(q, k, v, o, do, dq),
+             *_tail(causal, scale, dropout_p, seed)])
     launches["flash_attn_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
@@ -256,29 +296,25 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
     b, sq, n, h = q.shape
     sk = k.shape[1]
     q, k, v, do = (_kernel_input(t) for t in (q, k, v, do))
+    lse = lse.contiguous()
     dk = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _entry("flash_attn_bwd", "pt_flash_attn_bwd_dkv")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
-            *_strides(q, k, v, do, dk, dv),
-            *_tail(q, causal, scale, dropout_p, seed))
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd_dkv launch failed (code {rc})")
+    _launch("flash_attn_bwd", "pt_flash_attn_bwd_dkv", q,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
+             *_strides(q, k, v, do, dk, dv),
+             *_tail(causal, scale, dropout_p, seed)])
     launches["flash_attn_bwd_dkv"] += 1
     return dk, dv
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, dropout_p=0.0,
                     seed=0):
-    """The backward on the card: delta, then the dQ and the dK/dV
-    kernels on the current stream. Returns (dq, dk, dv)."""
-    delta = _bwd_delta(o, do)
-    lse = lse.contiguous()
-    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale,
-                            dropout_p, seed)
+    """The backward on the card: the dQ kernel (with delta), then the
+    dK/dV kernel on the current stream. Returns (dq, dk, dv)."""
+    dq, delta = _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
+                                   dropout_p, seed)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
                                  dropout_p, seed)
     return dq, dk, dv

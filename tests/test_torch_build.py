@@ -108,10 +108,12 @@ def test_repo_sources_are_listed():
 def test_backward_and_philox_sources_are_built():
     assert {"flash_attn_fwd", "flash_attn_bwd"} <= set(_build.sources())
     headers = {p.name for p in _build.CSRC.glob("*.cuh")}
-    assert {"philox.cuh", "flash_common.cuh"} <= headers
+    assert {"philox.cuh", "flash_common.cuh", "hopper.cuh"} <= headers
     for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
         text = (_build.CSRC / src).read_text()
         assert '#include "philox.cuh"' in text
+    assert '#include "hopper.cuh"' in (
+        _build.CSRC / "flash_attn_bwd.cu").read_text()
 
 
 def test_package_data_ships_every_source_and_header():

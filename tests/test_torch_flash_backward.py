@@ -193,6 +193,97 @@ def test_model_grads_match_jax_in_train_mode():
                                    atol=1e-5, rtol=1e-4, err_msg=name)
 
 
+def _bf16(*shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(torch.bfloat16)
+
+
+def _odd_offset():
+    # packed, but one element into its storage: 2 bytes off 16
+    return _bf16(1 + 2 * 16 * 2 * 64)[1:].view(2, 16, 2, 64)
+
+
+@pytest.mark.parametrize("make,copied", [
+    (lambda: _bf16(2, 16, 3, 2, 64)[:, :, 1], False),       # fused qkv view
+    (lambda: _bf16(2, 16, 2, 64), False),                   # packed
+    (lambda: _bf16(1, 16, 2, 64)[:1], False),               # batch of 1
+    (lambda: _bf16(2, 16, 1, 64).expand(2, 16, 2, 64), True),  # heads 0
+    (_odd_offset, True),                                    # base not 16 B
+    (lambda: _bf16(2, 16, 2, 68)[..., :64], True),          # 136-byte rows
+    (lambda: _bf16(2, 2, 16, 64).transpose(1, 2), True),    # heads outside
+    (lambda: _bf16(2, 16, 2, 128)[..., ::2], True),         # h stride 2
+])
+def test_kernel_input_copies_what_tma_cannot_read(make, copied):
+    """The bf16 kernels read q, k, v, O and dO by TMA: a view whose base
+    or strides are not whole 16-byte multiples, or whose heads lie
+    outside its rows, is copied into fresh packed memory; the fused qkv
+    views and packed tensors go in as they are."""
+    t = make()
+    got = fa._kernel_input(t)
+    assert (got.data_ptr() != t.data_ptr()) == copied
+    assert torch.equal(got, t)
+    assert fa._tma_ok(got)
+
+
+def test_tma_strides_give_size_one_dims_a_packed_stride():
+    t = _bf16(1, 8, 3, 1, 64)[:, :, 0]          # b 1, n 1: strides unused
+    assert fa._tma_strides(t) == (8 * 3 * 64, 3 * 64, 64)
+    qkv = _bf16(2, 8, 3, 4, 64)
+    assert fa._tma_strides(qkv[:, :, 2]) == (8 * 3 * 4 * 64, 3 * 4 * 64, 64)
+
+
+def _record_launches(monkeypatch):
+    calls = []
+    monkeypatch.setattr(fa, "_launch",
+                        lambda lib, fn, q, args: calls.append((fn, args)))
+    return calls
+
+
+def test_bf16_backward_computes_delta_in_the_dq_kernel(monkeypatch):
+    """bf16: no torch op computes delta; the dQ kernel gets O and a fresh
+    f32 [b, n, sq] buffer, and the dK/dV kernel reads that buffer."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
+        "delta computed by torch ops on the bf16 path"))
+    qkv = _bf16(2, 24, 3, 2, 64)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, do = _bf16(2, 24, 2, 64, seed=1), _bf16(2, 24, 2, 64, seed=2)
+    lse = torch.zeros((2, 2, 24))
+    before = dict(fa.launches)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, False, 0.125)
+    assert [c[0] for c in calls] == ["pt_flash_attn_bwd_dq",
+                                     "pt_flash_attn_bwd_dkv"]
+    dq_args, dkv_args = calls[0][1], calls[1][1]
+    # q, k, v (the fused views, uncopied), O, dO, lse, delta, dq
+    assert dq_args[:5] == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), do.data_ptr()]
+    assert dq_args[7] == dq.data_ptr() and dq_args[8] == 1
+    assert dkv_args[5] == dq_args[6]  # the dQ kernel's delta buffer
+    assert fa.launches["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
+    assert fa.launches["flash_attn_bwd_dkv"] == \
+        before["flash_attn_bwd_dkv"] + 1
+    assert fa._delta_in_kernel(torch.bfloat16)
+    assert not fa._delta_in_kernel(torch.float32)
+
+
+def test_f32_backward_takes_delta_from_torch_ops(monkeypatch):
+    """f32 keeps delta in torch ops (the FFMA kernels read it)."""
+    calls = _record_launches(monkeypatch)
+    seen = []
+    real = fa._bwd_delta
+
+    def delta(o, do):
+        seen.append(real(o, do))
+        return seen[-1]
+    monkeypatch.setattr(fa, "_bwd_delta", delta)
+    q, k, v, o, do = (_bf16(1, 16, 2, 64, seed=i).float() for i in range(5))
+    fa._flash_bwd_cuda(q, k, v, o, torch.zeros((1, 2, 16)), do, True, 0.125)
+    assert len(seen) == 1
+    assert calls[0][1][6] == calls[1][1][5] == seen[0].data_ptr()
+    torch.testing.assert_close(
+        seen[0], (do * o).sum(-1).transpose(1, 2), atol=1e-6, rtol=1e-6)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
