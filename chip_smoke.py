@@ -14,16 +14,20 @@ Phases, each of which fails the run on any mismatch:
 2. Build: every kernel under paddle_tpu_torch/csrc, compiled by nvcc
    for sm_90a into build/paddle_tpu_torch/ (one nvcc per source, all
    started together), with ptxas's register and spill report. A spill
-   in a head_dim-64 bf16 backward kernel (dq_wgmma, dkv_wgmma) fails
-   the run.
+   or a wgmma serialisation (ptxas C7515/C7512) in a head_dim-64 bf16
+   wgmma kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) fails the run. From
+   the built forward's SASS (cuobjdump -sass), the instructions per
+   Philox4x32-10 call of the dropout kernel's keep-bit loop, for the
+   forward's Philox floor (see 4).
 3. Forward kernel: flash_attn_fwd against its plain PyTorch version at
    the inference path's shapes (ERNIE-base attention, b 32, s 512 and
    200, 12 heads of 64, read as strided views of a fused qkv tensor),
    causal and not, f32 (tolerance 1e-4) and bf16 (2e-2, the Pallas
-   tests' bf16 tolerance); head_dim 128 too. Times with CUDA events after
-   warm-up: the kernel, the plain version, and torch's
-   scaled_dot_product_attention as the library yardstick (timed here
-   only; the port never calls it).
+   tests' bf16 tolerance); head_dim 128 too, in bf16 also with dropout
+   0.1 (the training path's shapes, phase 4, cover head_dim 64). Times
+   with CUDA events after warm-up: the kernel, the plain version, and
+   torch's scaled_dot_product_attention at the same dropout p as the
+   library yardstick (timed here only; the port never calls it).
 4. Backward kernels and dropout: flash_attn_bwd_dq and flash_attn_bwd_dkv
    against flash_attention_bwd_plain at the training path's shapes (b 48,
    s 512 and 200, n 12, h 64, strided qkv views), causal and not, f32
@@ -37,7 +41,15 @@ Phases, each of which fails the run on any mismatch:
    is timed against the plain version of its own outputs (dq, or dk
    and dv); the library yardstick, SDPA's forward + backward minus its
    forward, computes all three gradients and is reported for the whole
-   backward only.
+   backward only. Every bf16 case and every dropout case also holds the
+   forward against its plain version and times it beside SDPA's forward
+   at the same dropout p. The forward's bound (bytes and tensor-core
+   flops) leaves out the dropout's integer work: beside it stand the
+   Philox4x32-10 calls of the call (one per 2x2 block of links), their
+   SASS instructions, and the floor they set at the SM's integer issue
+   rate (64 ops per clock per SM, CUDA C++ Programming Guide's
+   throughput table for compute capability 9.0, at the card's maximum
+   SM clock from nvidia-smi).
    Mask probe: inputs on which each output element sums a few dropout
    links of equal weight run through the bf16 (tensor-core) and f32
    (FFMA) forward, dQ and dK/dV kernels at b 48, s 512 and 200; each
@@ -101,7 +113,13 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # kernels whose ptxas report must show no spill at head_dim 64
-NO_SPILL = ("dq_wgmma", "dkv_wgmma")
+NO_SPILL = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
+# integer instructions an SM issues per clock (CUDA C++ Programming
+# Guide, arithmetic-instruction throughput, compute capability 9.0:
+# 32-bit integer add, multiply-add, shift, compare and logic ops)
+INT_OPS_PER_CLOCK_SM = 64
+# Philox4x32-10's two round multipliers, as ptxas prints them
+PHILOX_MULS = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
 
 
 def emit(obj):
@@ -136,6 +154,69 @@ def ptxas_spills(log):
     return out
 
 
+def ptxas_serialised(log):
+    """Functions whose wgmma ptxas serialises (C7515, C7512), from
+    nvcc's -Xptxas -v output."""
+    out = []
+    for ln in log.splitlines():
+        if "C7515" in ln or "C7512" in ln:
+            name = ln.rsplit("function", 1)[-1].strip(" '")
+            out.append(name)
+    return out
+
+
+def sass_functions(text):
+    """{function: [(address, instruction)]} from cuobjdump -sass."""
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        if "Function : " in ln:
+            cur = ln.split("Function : ", 1)[1].strip()
+            funcs[cur] = []
+        elif cur is not None and "/*" in ln and "*/" in ln:
+            head, _, rest = ln.partition("*/")
+            addr = head.strip().lstrip("/*").strip()
+            ins = rest.split(";")[0].strip()
+            if ins and all(c in "0123456789abcdef" for c in addr):
+                funcs[cur].append((int(addr, 16), ins))
+    return funcs
+
+
+def philox_loop(instrs):
+    """(instructions per Philox4x32-10 call, calls in the loop, loop
+    instructions) of the innermost loop of a kernel's SASS that draws
+    keep bits: the smallest span [target, branch] of a backward branch
+    that holds Philox's round multiplies. A call ends in four unsigned
+    compares of its words with the keep threshold (ISETP.GE.U32), which
+    count the calls; its 20 multiplies (an IMAD.WIDE.U32, or an
+    IMAD.HI.U32 beside a low IMAD, each) check the count, less the few
+    that ptxas hoists or shares between calls. None when there is no
+    such loop."""
+    best = None
+    for addr, ins in instrs:
+        words = ins.split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        if not op.startswith("BRA") or not words[-1].startswith("0x"):
+            continue
+        target = int(words[-1], 16)
+        if target >= addr:
+            continue
+        body = [x for a, x in instrs if target <= a <= addr]
+        muls = sum(1 for x in body if (".WIDE" in x or ".HI" in x)
+                   and any(k in x.lower() for k in PHILOX_MULS))
+        calls = sum(1 for x in body if "ISETP.GE.U32" in x) // 4
+        if calls and 15 * calls <= muls <= 20 * calls and (
+                best is None or len(body) < best[2]):
+            best = (len(body) / calls, calls, len(body))
+    return best
+
+
+def philox_floor_ms(calls, instr_per_call, sms, clock_mhz):
+    """Least time for `calls` Philox4x32-10 calls of `instr_per_call`
+    integer instructions each, at INT_OPS_PER_CLOCK_SM on every SM."""
+    rate = sms * INT_OPS_PER_CLOCK_SM * clock_mhz * 1e6
+    return calls * instr_per_call / rate * 1e3
+
+
 def time_ms(fn, reps, warmup=2):
     import torch
     for _ in range(warmup):
@@ -151,20 +232,44 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def attention_bound_ms(b, sq, sk, n, h, causal, dtype_name):
-    """Least time on an H100 for one flash forward: the larger of its
-    bytes (q, k, v read once, O and lse written once) over the memory
-    rate and its flops (QK^T and PV over the pairs this mask keeps)
-    over the peak rate of the input type."""
+def fwd_work(b, sq, sk, n, h, causal, dtype_name):
+    """(bytes, flops) of one flash forward: q, k, v read once, O and lse
+    written once; QK^T and PV over the links this mask keeps."""
     esize = 4 if dtype_name == "float32" else 2
     nbytes = (b * sq * n * h + 2 * b * sk * n * h + b * sq * n * h) * esize \
         + b * n * sq * 4
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    flops = 4.0 * b * n * h * pairs
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return nbytes, 4.0 * b * n * h * _pairs(sq, sk, causal)
+
+
+def fwd_bound(b, sq, sk, n, h, causal, dtype_name, dropout_p=0.0,
+              philox=None):
+    """The forward's bound with what it leaves out. bound_ms, the least
+    time on an H100, is the larger of its bytes over the memory rate and
+    its flops over the peak rate of the input type (fwd_work): bytes and
+    tensor-core flops only. With dropout the call also draws one
+    Philox4x32-10 call per 2x2 block of kept-mask links, integer work
+    beside them: philox_calls, and with philox = (instructions per call,
+    SMs, max SM clock MHz) from the card, its integer instructions and
+    the floor they set (philox_floor_ms). At p 0 there is no such work
+    (None)."""
+    nbytes, flops = fwd_work(b, sq, sk, n, h, causal, dtype_name)
+    ms, by = _bound(nbytes, flops, dtype_name)
+    row = dict(bytes=nbytes, flops=flops, bound_ms=ms, bound_by=by,
+               philox_calls=None, philox_int_instructions=None,
+               philox_floor_ms=None,
+               bound_note="bytes and tensor-core flops; no dropout work")
+    if dropout_p:
+        row["philox_calls"] = b * n * _pairs(sq, sk, causal) // 4
+        row["bound_note"] = ("bytes and tensor-core flops only: leaves out "
+                             "the dropout's Philox integer work "
+                             "(philox_floor_ms)")
+        if philox is not None:
+            ipc, sms, clock_mhz = philox
+            row["philox_int_instructions"] = row["philox_calls"] * ipc
+            row["philox_floor_ms"] = philox_floor_ms(
+                row["philox_calls"], ipc, sms, clock_mhz)
+            row["bound_reachable"] = row["philox_floor_ms"] <= ms
+    return row
 
 
 def kernel_phase(torch, fa):
@@ -173,22 +278,24 @@ def kernel_phase(torch, fa):
     gen.manual_seed(SEED)
     n, h = BASE["num_attention_heads"], \
         BASE["hidden_size"] // BASE["num_attention_heads"]
-    cases = [(32, s, n, h, causal, dt)
+    cases = [(32, s, n, h, causal, dt, 0.0)
              for dt in ("float32", "bfloat16")
              for s in (512, 200) for causal in (False, True)]
-    cases += [(8, 256, 8, 128, causal, dt)
-              for dt in ("float32", "bfloat16") for causal in (False, True)]
+    cases += [(8, 256, 8, 128, causal, dt, p)
+              for dt in ("float32", "bfloat16") for causal in (False, True)
+              for p in ((0.0, DROP_P) if dt == "bfloat16" else (0.0,))]
     rows = []
-    for b, s, nh, hd, causal, dt in cases:
+    for b, s, nh, hd, causal, dt, p in cases:
         dtype = getattr(torch, dt)
         # the main path's layout: q, k, v as strided views of one qkv
         qkv = torch.randn((b, s, 3, nh, hd), generator=gen, device=dev,
                           dtype=torch.float32).to(dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scale = 1.0 / math.sqrt(hd)
-        o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale)
+        o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, DROP_SEED)
         torch.cuda.synchronize()
-        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(
+            q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED)
         torch.cuda.synchronize()
         tol = TOL[dt]
         err_o = (o.float() - o_ref.float()).abs().max().item()
@@ -196,22 +303,24 @@ def kernel_phase(torch, fa):
         ok = (torch.allclose(o.float(), o_ref.float(), atol=tol, rtol=tol)
               and torch.allclose(lse, lse_ref, atol=tol, rtol=tol))
         row = dict(dtype=dt, b=b, s=s, n=nh, h=hd, causal=causal,
-                   max_abs_err=err_o, lse_max_abs_err=err_lse, tol=tol,
-                   ok=bool(ok))
+                   dropout_p=p, max_abs_err=err_o, lse_max_abs_err=err_lse,
+                   tol=tol, ok=bool(ok))
         if not ok:
             emit({"kernel_case": row})
             fail(f"flash_attn_fwd disagrees with its plain version: {row}")
-        row["ms"] = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, causal,
-                                                       scale), reps=20)
+        row["ms"] = time_ms(lambda: fa._flash_fwd_cuda(
+            q, k, v, causal, scale, p, DROP_SEED), reps=20)
         row["plain_ms"] = time_ms(
-            lambda: fa.flash_attention_fwd_plain(q, k, v, causal, scale),
+            lambda: fa.flash_attention_fwd_plain(
+                q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED),
             reps=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale), reps=20)
-        row["bound_ms"], row["bound_by"] = attention_bound_ms(
-            b, s, s, nh, hd, causal, dt)
+                qt, kt, vt, is_causal=causal, scale=scale, dropout_p=p),
+            reps=20)
+        bound = fwd_bound(b, s, s, nh, hd, causal, dt)
+        row["bound_ms"], row["bound_by"] = bound["bound_ms"], bound["bound_by"]
         emit({"kernel_case": row})
         rows.append(row)
         del qkv, q, k, v, o, lse, o_ref, lse_ref
@@ -277,9 +386,11 @@ def _sdpa_fb(torch, q, k, v, do, causal, scale, p):
     return fwd, fwd_bwd
 
 
-def bwd_kernel_phase(torch, fa):
-    """The backward kernels (and the forward with dropout) against their
-    plain versions at the training path's shapes."""
+def bwd_kernel_phase(torch, fa, philox):
+    """The backward kernels (and the forward, in bf16 and with dropout)
+    against their plain versions at the training path's shapes. philox:
+    (instructions per Philox call, SMs, max SM clock MHz) for the
+    forward's bound."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
@@ -317,7 +428,8 @@ def bwd_kernel_phase(torch, fa):
             err, tol, good = _err_ok(got, want, dt)
             row[f"{name}_max_abs_err"], row[f"{name}_tol"] = err, tol
             ok &= good
-        if p:
+        with_fwd = bool(p) or dt == "bfloat16"
+        if with_fwd:
             o_ref, lse_ref = fa.flash_attention_fwd_plain(
                 q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED)
             err, tol, good = _err_ok(o, o_ref, dt)
@@ -327,7 +439,7 @@ def bwd_kernel_phase(torch, fa):
         row["ok"] = bool(ok)
         if not ok:
             emit({"bwd_kernel_case": row})
-            fail(f"a backward kernel disagrees with its plain version: {row}")
+            fail(f"a kernel disagrees with its plain version: {row}")
         # the same dq from a second launch; where the dQ kernel computes
         # delta (bf16), its delta against delta in torch ops (f32 takes
         # delta from those ops: nothing to check, null)
@@ -368,7 +480,8 @@ def bwd_kernel_phase(torch, fa):
         for kern in ("dq", "dkv"):
             row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = bwd_bound_ms(
                 kern, b_, s, s, nh, hd, causal, dt)
-        if p:
+        if with_fwd:
+            # the forward beside SDPA's forward at the same dropout p
             row["fwd_ms"] = time_ms(lambda: fa._flash_fwd_cuda(
                 q, k, v, causal, scale, p, DROP_SEED), reps=20)
             row["fwd_plain_ms"] = time_ms(
@@ -376,8 +489,11 @@ def bwd_kernel_phase(torch, fa):
                     q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED),
                 reps=2, warmup=1)
             row["fwd_library_ms"] = time_ms(lib_f, reps=20)
-            row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound_ms(
-                b_, s, s, nh, hd, causal, dt)
+            bound = fwd_bound(b_, s, s, nh, hd, causal, dt, p,
+                              philox if hd == 64 else None)
+            row["fwd_bound_ms"], row["fwd_bound_by"] = (bound["bound_ms"],
+                                                        bound["bound_by"])
+            row["fwd_bound"] = bound
         emit({"bwd_kernel_case": row})
         rows.append(row)
         del qkv, q, k, v, do, o, lse, dq, dk, dv, ref
@@ -672,8 +788,8 @@ def train_cpu_check(torch, pt, fa):
 
 # kernel-name fragments of the profile's categories, first match wins
 PROFILE_CATEGORIES = [
-    ("flash attention kernels", ("flash_fwd_", "dq_wgmma", "dkv_wgmma",
-                                 "dq_simt", "dkv_simt")),
+    ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
+                                 "dkv_wgmma", "dq_simt", "dkv_simt")),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
     ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -716,6 +832,40 @@ def profile_phase(torch, train_state):
                               for r in rows[:25]])})
 
 
+def philox_phase(torch, build):
+    """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
+    call's instructions counted in the SASS of the head_dim-64 dropout
+    forward (fwd_wgmma<64, non-causal, dropout>), its keep-bit loop.
+    None for a tree without that kernel (this script run against an
+    older tree's kernels, to compare the two on one card)."""
+    lib = str(build.library_path("flash_attn_fwd"))
+    exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs = sass_functions(text)
+    name = next((f for f in funcs if "fwd_wgmma" in f
+                 and "ILi64ELb0ELb1E" in f), None)
+    if name is None:
+        emit({"philox_sass": None})
+        return None
+    loop = philox_loop(funcs[name])
+    if loop is None:
+        fail(f"no Philox keep-bit loop in the SASS of {name}")
+    ipc, calls, body = loop
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    emit({"philox_sass": dict(
+        function=name, loop_instructions=body, calls_in_loop=calls,
+        instructions_per_call=ipc, sms=sms, max_sm_clock_mhz=clock,
+        int_ops_per_clock_sm=INT_OPS_PER_CLOCK_SM,
+        int_rate_source="CUDA C++ Programming Guide, arithmetic "
+                        "instruction throughput, compute capability 9.0")})
+    return ipc, sms, clock
+
+
 def main():
     try:
         import torch
@@ -754,10 +904,16 @@ def main():
                    and (st or ld)]
         if spilled:
             fail(f"ptxas spills in a head_dim-64 wgmma kernel: {spilled}")
+        serial = [f for f in ptxas_serialised(info["log"])
+                  if any(k in f for k in NO_SPILL) and "ILi64E" in f]
+        if serial:
+            fail(f"ptxas serialises the wgmma of a head_dim-64 kernel: "
+                 f"{serial}")
     emit({"build_seconds": build_s})
+    philox = philox_phase(torch, _build)
 
     cases = kernel_phase(torch, fa)
-    bwd_cases = bwd_kernel_phase(torch, fa)
+    bwd_cases = bwd_kernel_phase(torch, fa, philox)
     probes = mask_probe_phase(torch, fa)
     _zero(fa)
     rows, launches_inf, launches_f32 = main_path(torch, pt, fa)
@@ -772,6 +928,9 @@ def main():
     head = next(c for c in bwd_cases if c["dtype"] == "bfloat16"
                 and c["b"] == TRAIN_BATCH[0] and c["s"] == 512
                 and not c["causal"] and c["dropout_p"])
+    head_p0 = next(c for c in bwd_cases if c["dtype"] == "bfloat16"
+                   and c["b"] == TRAIN_BATCH[0] and c["s"] == 512
+                   and not c["causal"] and not c["dropout_p"])
     shape = "b48 s512 n12 h64 bfloat16 non-causal dropout 0.1"
     by_path = {k: {"inference": launches_inf if k == "flash_attn_fwd"
                    else 0, "training": train["launches"][k]}
@@ -789,6 +948,14 @@ def main():
              plain_ms=head["fwd_plain_ms"], bound_ms=head["fwd_bound_ms"],
              bound_by=head["fwd_bound_by"],
              library_ms=head["fwd_library_ms"],
+             bound_note=head["fwd_bound"]["bound_note"],
+             dropout_work={k: head["fwd_bound"].get(k) for k in (
+                 "philox_calls", "philox_int_instructions",
+                 "philox_floor_ms", "bound_reachable")},
+             at_dropout_0=dict(ms=head_p0["fwd_ms"],
+                               library_ms=head_p0["fwd_library_ms"],
+                               bound_ms=head_p0["fwd_bound_ms"],
+                               bound_by=head_p0["fwd_bound_by"]),
              launches_float32_inference_pass=launches_f32,
              inference_cases=cases),
         dict(name="flash_attn_bwd_dq",

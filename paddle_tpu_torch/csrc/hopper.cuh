@@ -183,6 +183,33 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da,
   }
 }
 
+// d = A B^T (ACC: d += A B^T) over k16, A [64 x 16] bf16 in registers
+// (the fragment layout of wgmma_rs_t below), B [64 x 16] K-major in
+// shared memory as in wgmma_ss; ACC = false as there
+template <bool ACC>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PT_WG_REGS32
+        ", {%32, %33, %34, %35}, %36, 1, 1, 1, 0;\n"
+        "}\n"
+        : PT_WG_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PT_WG_REGS32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : PT_WG_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+  }
+}
+
 // d += A B over k16, A [64 x 16] bf16 in registers (the m16n8k16 A
 // fragment of each warp's 16 rows: a0 (g, 2t..), a1 (g+8, 2t..), a2 (g,
 // 2t+8..), a3 (g+8, 2t+8..)), B [16 x 64] MN-major in shared memory:

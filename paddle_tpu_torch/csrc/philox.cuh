@@ -9,10 +9,11 @@
 //   counter = (col >> 1, row >> 1, bh, 0), key = (seed_lo, seed_hi);
 //   the element's word is (row & 1) * 2 + (col & 1);
 //   keep when word >= threshold = min(floor(p * 2^32), 2^32 - 1).
-// One call covers a 2x2 block of links. A thread of the mma.sync kernels
-// holds two columns (2t, 2t+1) of two rows (g, g+8); the lanes g and g^1
-// need the same two 2x2 blocks, so each computes one and they swap it
-// (philox_pair below): one call per 8-column chunk per thread.
+// One call covers a 2x2 block of links. In the wgmma kernels' score
+// layout a lane holds two columns (2t, 2t+1) of two rows (g, g+8), and
+// the lanes g and g^1 need the same two 2x2 blocks: flash_wgmma.cuh's
+// keep_words computes each block once for both, on the producer
+// warpgroup.
 
 #pragma once
 
@@ -56,23 +57,4 @@ __device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
 __device__ __forceinline__ bool drop_keep(const DropParams& dp,
                                           const uint4& w, int row, int col) {
   return word_of(w, (row & 1) * 2 + (col & 1)) >= dp.threshold;
-}
-
-// Two 2x2 blocks shared by the lanes `lane` and `lane ^ xor_lanes`: this
-// lane computes block `mine` (0 or 1), the partner the other, and they
-// swap. Returns the block-0 and block-1 words in b0, b1.
-__device__ __forceinline__ void philox_pair(const DropParams& dp, int bh,
-                                            int mine, int row0, int col0,
-                                            int row1, int col1,
-                                            int xor_lanes, uint4& b0,
-                                            uint4& b1) {
-  const uint4 w = mine ? drop_block(dp, bh, row1, col1)
-                       : drop_block(dp, bh, row0, col0);
-  uint4 o;
-  o.x = __shfl_xor_sync(0xffffffffu, w.x, xor_lanes);
-  o.y = __shfl_xor_sync(0xffffffffu, w.y, xor_lanes);
-  o.z = __shfl_xor_sync(0xffffffffu, w.z, xor_lanes);
-  o.w = __shfl_xor_sync(0xffffffffu, w.w, xor_lanes);
-  b0 = mine ? o : w;
-  b1 = mine ? w : o;
 }

@@ -5,8 +5,10 @@ kernels become kernels written by hand for Hopper (sm_90a), built with
 nvcc at first use (ops/_build.py) and called through ctypes:
 
 - `_fwd_kernel` -> csrc/flash_attn_fwd.cu (O and lse, with dropout);
-- `_dq_kernel` and `_dkv_kernel` -> csrc/flash_attn_bwd.cu (two entries;
-  in bf16 wgmma kernels fed by TMA, the dQ one computing delta too);
+- `_dq_kernel` and `_dkv_kernel` -> csrc/flash_attn_bwd.cu (two entries,
+  the dQ one computing delta too);
+- in bf16 all three are wgmma kernels fed by TMA, on one pipeline
+  (csrc/flash_wgmma.cuh); in f32 exact FFMA kernels;
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in

@@ -116,6 +116,19 @@ def test_backward_and_philox_sources_are_built():
         _build.CSRC / "flash_attn_bwd.cu").read_text()
 
 
+@pytest.mark.parametrize("src", ["flash_attn_fwd.cu", "flash_attn_bwd.cu"])
+def test_bf16_kernels_share_the_wgmma_pipeline(src):
+    """The bf16 forward and backward are built on one pipeline header
+    (ring, barriers, products, keep bits, work items); no mma.sync,
+    ldmatrix or cp.async kernel code is left in the sources."""
+    text = (_build.CSRC / src).read_text()
+    assert '#include "flash_wgmma.cuh"' in text
+    assert "_wgmma<" in text
+    for p in sorted(_build.CSRC.glob("*.cu*")):
+        for instr in ("mma.sync.aligned", "ldmatrix", "cp.async.cg"):
+            assert instr not in p.read_text(), (p.name, instr)
+
+
 def test_package_data_ships_every_source_and_header():
     """An installed package compiles from its own csrc/: every source
     and every header a source includes must be in package-data."""

@@ -1,0 +1,145 @@
+"""chip_smoke.py's arithmetic, without a card.
+
+chip_smoke.py needs only the standard library at import (torch is
+imported inside main()), so its bound and SASS-reading helpers run
+here: the forward's bytes and flops at the training shape, the Philox
+work counted with dropout and absent without it, the keep-bit loop found
+in a SASS listing, and the ptxas serialisation lines named.
+"""
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def cs():
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the training path's attention: b 48, s 512, n 12, h 64, bf16
+B, S, N, H = 48, 512, 12, 64
+
+
+def test_import_needs_only_the_standard_library():
+    code = ("import importlib.util, sys; "
+            f"spec = importlib.util.spec_from_file_location('c', "
+            f"{str(ROOT / 'chip_smoke.py')!r}); "
+            "m = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(m); "
+            "bad = [k for k in ('torch', 'numpy', 'jax') "
+            "if k in sys.modules]; sys.exit(1 if bad else 0)")
+    assert subprocess.run([sys.executable, "-c", code]).returncode == 0
+
+
+def test_forward_bound_at_the_training_shape(cs):
+    """q, k, v read and O written once in bf16, lse in f32; QK^T and PV
+    over every link: bound by bytes, 0.045 ms at 3.35 TB/s."""
+    row = cs.fwd_bound(B, S, S, N, H, False, "bfloat16")
+    el = B * S * N * H
+    assert row["bytes"] == 4 * el * 2 + B * N * S * 4 == 152_174_592
+    assert row["flops"] == 4 * B * N * H * S * S == 38_654_705_664
+    assert row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(152_174_592 / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_forward_bound_counts_the_philox_work_only_with_dropout(cs, p):
+    """At p 0.1 one Philox4x32-10 call per 2x2 block of links, and with
+    the card's numbers (instructions per call, SMs, clock) the floor of
+    their integer work, which the byte bound cannot reach; at p 0 no
+    such work is counted."""
+    ipc, sms, mhz = 47.25, 132, 1980.0
+    row = cs.fwd_bound(B, S, S, N, H, False, "bfloat16", p, (ipc, sms, mhz))
+    base = cs.fwd_bound(B, S, S, N, H, False, "bfloat16")
+    assert (row["bytes"], row["flops"], row["bound_ms"]) == \
+        (base["bytes"], base["flops"], base["bound_ms"])
+    if not p:
+        assert row["philox_calls"] is None
+        assert row["philox_floor_ms"] is None
+        assert "no dropout work" in row["bound_note"]
+        return
+    calls = B * N * S * S // 4
+    assert row["philox_calls"] == calls == 37_748_736
+    assert row["philox_int_instructions"] == calls * ipc
+    floor = calls * ipc / (sms * 64 * mhz * 1e6) * 1e3
+    assert row["philox_floor_ms"] == pytest.approx(floor)
+    assert row["bound_reachable"] is False
+    assert "leaves out" in row["bound_note"]
+
+
+def test_causal_bound_counts_the_kept_links(cs):
+    row = cs.fwd_bound(2, 8, 8, 1, 64, True, "bfloat16", 0.1)
+    assert row["flops"] == 4 * 2 * 64 * (8 * 9 // 2)
+    assert row["philox_calls"] == 2 * (8 * 9 // 2) // 4
+    assert row["philox_floor_ms"] is None      # no card numbers given
+
+
+def _sass(calls_inner, outer=True):
+    """A cuobjdump -sass listing: a keep-bit loop of `calls_inner`
+    Philox calls (20 multiplies and 4 threshold compares each), inside
+    an outer loop."""
+    lines = ["\t\tFunction : _Z9fwd_wgmmaILi64ELb0ELb1EEEv"]
+    addr = 0
+
+    def ins(text):
+        nonlocal addr
+        lines.append(f"        /*{addr:04x}*/                   {text} ;"
+                     "   /* 0x000fe20000000f00 */")
+        addr += 16
+    ins("MOV R1, c[0x0][0x28]")
+    top = addr
+    ins("SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4+0x19040], R5")
+    loop = addr
+    for _ in range(calls_inner):
+        for r in range(10):
+            ins("IMAD.WIDE.U32 R6, R6, -0x2daee0ad, RZ")
+            ins("IMAD.WIDE.U32 R4, R4, -0x326172a9, RZ")
+            ins("LOP3.LUT R40, R7, UR35, R4, 0x96, !PT")
+            ins("LOP3.LUT R36, R5, UR36, R6, 0x96, !PT")
+        for _ in range(4):
+            ins("ISETP.GE.U32.AND P4, PT, R22, UR8, PT")
+    ins("ISETP.NE.AND P0, PT, R41, 0x24, PT")
+    ins(f"@P0 BRA 0x{loop:x}")
+    if outer:
+        ins("STS [R4], R38")
+        ins(f"@!P0 BRA 0x{top:x}")
+    ins("EXIT")
+    return "\n".join(lines)
+
+
+def test_philox_loop_is_the_innermost_loop_with_the_rounds(cs):
+    funcs = cs.sass_functions(_sass(4))
+    (name, instrs), = funcs.items()
+    assert "fwd_wgmma" in name
+    body = 4 * (10 * 4 + 4) + 2
+    assert cs.philox_loop(instrs) == (body / 4, 4, body)
+
+
+def test_philox_loop_is_none_without_philox(cs):
+    funcs = cs.sass_functions(_sass(0))
+    (instrs,) = funcs.values()
+    assert cs.philox_loop(instrs) is None
+
+
+def test_ptxas_serialisation_lines_name_the_function(cs):
+    log = "\n".join([
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async"
+        " instructions are serialized due to the presence of Extern "
+        "calls in the function '_Z9fwd_wgmmaILi64ELb0ELb0EEEv'",
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async"
+        " instructions are serialized due to insufficient register "
+        "resources for the function '_Z9dkv_wgmmaILi128ELb0ELb0EEEv'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+    ])
+    assert cs.ptxas_serialised(log) == ["_Z9fwd_wgmmaILi64ELb0ELb0EEEv",
+                                        "_Z9dkv_wgmmaILi128ELb0ELb0EEEv"]
+    assert "fwd_wgmma" in cs.NO_SPILL

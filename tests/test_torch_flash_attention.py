@@ -169,6 +169,65 @@ def test_wrapper_rejects_bad_inputs():
         fa.flash_attention_fwd(q[0], k[0], v[0])
 
 
+def _bf16(*shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(torch.bfloat16)
+
+
+def _record_launches(monkeypatch):
+    calls = []
+    monkeypatch.setattr(fa, "_launch",
+                        lambda lib, fn, q, args: calls.append((lib, fn, args)))
+    return calls
+
+
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (True, 0.1)])
+def test_bf16_forward_launches_the_wgmma_entry_on_fused_views(monkeypatch,
+                                                             causal, p):
+    """bf16 on fused qkv views: one call of pt_flash_attn_fwd with the
+    views' own pointers and strides (no copy), O [b, sq, n, h] in bf16
+    and lse f32 [b, n, sq] allocated by the wrapper, and the launch
+    counted. The argument layout is the C entry's: 5 pointers, dtype, b,
+    n, sq, sk, h, 9 strides, then scale, causal, dropout, threshold,
+    seed words and 1 / (1 - p)."""
+    calls = _record_launches(monkeypatch)
+    b, s, n, h = 2, 40, 3, 64
+    qkv = _bf16(b, s, 3, n, h)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = fa.launches["flash_attn_fwd"]
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, 0.125, p, 7)
+    assert fa.launches["flash_attn_fwd"] == before + 1
+    assert len(calls) == 1
+    lib, fn, args = calls[0]
+    assert (lib, fn) == ("flash_attn_fwd", "pt_flash_attn_fwd")
+    assert args[:5] == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr()]
+    assert args[5:11] == [1, b, n, s, s, h]
+    fused = [s * 3 * n * h, 3 * n * h, h]
+    assert args[11:20] == fused * 3
+    assert args[20:23] == [0.125, int(causal), int(p > 0)]
+    assert args[23] == (int(p * 2 ** 32) if p else 0)
+    assert args[26] == pytest.approx(1 / (1 - p))
+    assert len(args) + 1 == len(fa._ARGTYPES["pt_flash_attn_fwd"])
+    assert o.shape == (b, s, n, h) and o.dtype == torch.bfloat16
+    assert o.is_contiguous()
+    assert lse.shape == (b, n, s) and lse.dtype == torch.float32
+
+
+def test_bf16_forward_copies_only_what_tma_cannot_read(monkeypatch):
+    """A view whose heads lie outside its rows goes in as a packed copy;
+    the other two inputs, fused views, go in as they are."""
+    calls = _record_launches(monkeypatch)
+    qkv = _bf16(1, 16, 3, 2, 64)
+    q = _bf16(1, 2, 16, 64).transpose(1, 2)       # heads outside rows
+    k, v = qkv[:, :, 1], qkv[:, :, 2]
+    fa._flash_fwd_cuda(q, k, v, False, 0.125)
+    args = calls[0][2]
+    assert args[0] != q.data_ptr()
+    assert args[1:3] == [k.data_ptr(), v.data_ptr()]
+    assert args[11:14] == [16 * 2 * 64, 2 * 64, 64]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -179,15 +238,22 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("s,causal", [(512, False), (200, True)])
-def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, causal):
+@pytest.mark.parametrize("s,causal,h,p", [(512, False, 64, 0.0),
+                                          (200, True, 64, 0.0),
+                                          (512, False, 64, 0.1),
+                                          (200, True, 128, 0.1),
+                                          (256, False, 128, 0.0)])
+def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, causal,
+                                      h, p):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    qkv = torch.randn((2, s, 3, 4, 64), generator=g,
+    qkv = torch.randn((2, s, 3, 4, h), generator=g,
                       device=cuda_device).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     before = fa.launches["flash_attn_fwd"]
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, dropout_p=p,
+                                    seed=5)
     assert fa.launches["flash_attn_fwd"] == before + 1
-    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                  dropout_p=p, seed=5)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=tol)
