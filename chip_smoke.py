@@ -82,6 +82,36 @@ Phases, each of which fails the run on any mismatch:
 
 8. Profile: torch.profiler over two more training steps, device time
    per step by kernel and by category (`profile` line).
+9. GPT forward (`gpt_forward`): GPT-2 small as bench.py:306 defines it
+   (vocab 50304, hidden 768, 12 layers, 12 heads of 64, 1024
+   positions), random weights from seed 0, eval mode, at 8x1024 and
+   8x128 in f32 and bf16. Counts are zeroed before each forward, which
+   must launch the causal flash_attn_fwd exactly 12 times and nothing
+   else. The card's logits against a CPU run of the same weights at
+   2x128 (1e-3), bf16 against f32 (5e-2 relative L2), and the causal
+   kernel at every shape the forwards give it (b 8, s 1024 and 128, n
+   12, h 64, f32 and bf16) against its plain version, timed beside
+   SDPA's causal forward, with its bound.
+10. Generation (`generate`): GPT-2 small generate() in bf16, greedy, at
+   bench.py:308's shape (batch 8, prompt 128, 128 new tokens): new
+   tokens/s and ms per token on a synchronised host clock. Then f32
+   greedy at 2x32 with 16 new tokens against argmax over a full
+   re-forward (through the causal kernel) at every step.
+11. Serving (`serving`): the bf16 ServingEngine at SERVE_CONFIG; warmup()
+   captures one CUDA graph per bucket; each graph's replay is held
+   against the same program run eagerly on the same inputs and pools
+   (`graph_vs_eager`: tokens and pools equal). Then 48 requests from
+   numpy seed 0 (prompts 8-128 tokens, 16-128 new), submitted in waves
+   of 8 every 4 engine steps: generated tokens/s, TTFT p50/p99, dispatch
+   ms p50 and sums, graphs captured, programs against
+   expected_executables, sentinel events, eager dispatches after
+   warm-up (0 on the card), pages free at the end (n_blocks - 1) and
+   the cache invariants. The largest decode graph's replay is timed
+   with CUDA events and profiled by kernel (`serving_profile`).
+12. Serving parity (`serving_parity`): the f32 engine (dtype=None) under
+   staggered admission, 6 requests; each stream must equal the port's
+   solo greedy generate(), or differ first where that stream's top-2
+   logit gap is below NEAR_TIE relative (printed per stream).
 
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
@@ -120,6 +150,20 @@ NO_SPILL = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
 INT_OPS_PER_CLOCK_SM = 64
 # Philox4x32-10's two round multipliers, as ptxas prints them
 PHILOX_MULS = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
+
+# GPT-2 small as bench.py:306 defines it (dropout 0: eval)
+GPT2 = dict(vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
+            max_seq_len=1024, dropout=0.0)
+GPT_BATCHES = [(8, 1024), (8, 128)]
+GEN_SHAPE = (8, 128, 128)       # bench.py:308: batch, prompt, new tokens
+GEN_CHECK = (2, 32, 16)         # f32 greedy against full re-forwards
+SERVE_CONFIG = dict(max_slots=16, max_admit=4, block_size=16, n_blocks=257,
+                    prefill_buckets=(32, 64, 128), decode_buckets=(4, 8, 16),
+                    decode_chunk=4, max_total_tokens=256)
+SERVE_REQUESTS, SERVE_WAVE, SERVE_EVERY = 48, 8, 4
+# f32 parity trace: (prompt length, new tokens), submitted staggered
+PARITY_SPECS = [(40, 24), (17, 20), (100, 16), (9, 30), (64, 12), (128, 20)]
+NEAR_TIE = 1e-4
 
 
 def emit(obj):
@@ -799,37 +843,460 @@ PROFILE_CATEGORIES = [
 ]
 
 
-def profile_phase(torch, train_state):
-    """Device time by kernel over two training steps (torch.profiler)."""
+def device_profile(torch, fn, runs):
+    """torch.profiler over `runs` calls of fn, per call: device ms, ms by
+    PROFILE_CATEGORIES, device events, the top 25 by time. Device events only
+    (kernels, copies, sets), not the host ops that launched them, so
+    nothing is counted twice."""
     from torch.profiler import ProfilerActivity, profile
-    model, step, x, y = train_state
-    step(x, y)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step(x, y)
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-    # device events only (kernels, copies, sets), not the host ops that
-    # launched them, so nothing is counted twice
     by_name = {}
     for ev in prof.events():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         ms, calls = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 2e3, calls + 1)
-    rows = [(ms, name, calls // 2) for name, (ms, calls) in by_name.items()]
+        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3 / runs,
+                            calls + 1)
+    rows = [(ms, name, calls // runs) for name, (ms, calls) in by_name.items()]
     rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
     cats = {}
     for ms, name, _ in rows:
         cat = next((c for c, keys in PROFILE_CATEGORIES
                     if any(k in name for k in keys)), "other elementwise")
         cats[cat] = cats.get(cat, 0.0) + ms
-    emit({"profile": dict(steps=2, device_ms_per_step=total,
-                          categories=cats, top=[
-                              dict(ms=r[0], name=r[1][:90], calls=r[2])
-                              for r in rows[:25]])})
+    return dict(device_ms=sum(r[0] for r in rows), categories=cats,
+                events=sum(r[2] for r in rows),
+                top=[dict(ms=r[0], name=r[1][:90], calls=r[2])
+                     for r in rows[:25]])
+
+
+def profile_phase(torch, train_state):
+    """Device time by kernel over two training steps (torch.profiler)."""
+    model, step, x, y = train_state
+    prof = device_profile(torch, lambda: step(x, y), runs=2)
+    emit({"profile": dict(steps=2, device_ms_per_step=prof["device_ms"],
+                          categories=prof["categories"], top=prof["top"])})
+
+
+def _gpt_model(pt, device):
+    """GPT-2 small (GPT2) in eval mode, random weights from SEED."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    pt.seed(SEED)
+    return GPTForCausalLM(GPTConfig(**GPT2), device=device).eval()
+
+
+def _median_ms(torch, fn, runs=5):
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[runs // 2]
+
+
+def causal_kernel_case(torch, fa, b, s, n, h, dt):
+    """The causal forward kernel at the GPT forward's shape (q, k, v as
+    strided views of a fused qkv tensor) against its plain version,
+    timed beside SDPA's causal forward, with its bound."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    qkv = torch.randn((b, s, 3, n, h), generator=gen, device=dev,
+                      dtype=torch.float32).to(getattr(torch, dt))
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = 1.0 / math.sqrt(h)
+    o, lse = fa._flash_fwd_cuda(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, True, scale)
+    err, tol, ok = _err_ok(o, o_ref, dt)
+    lse_err = (lse - lse_ref).abs().max().item()
+    row = dict(dtype=dt, b=b, s=s, n=n, h=h, causal=True, dropout_p=0.0,
+               max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
+               ok=bool(ok and lse_err <= TOL[dt]))
+    if not row["ok"]:
+        emit({"gpt_causal_kernel": row})
+        fail(f"the causal flash_attn_fwd disagrees with its plain version: "
+             f"{row}")
+    row["ms"] = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, True, scale),
+                        reps=20)
+    row["plain_ms"] = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, True, scale), reps=2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale), reps=20)
+    bound = fwd_bound(b, s, s, n, h, True, dt)
+    row["bound_ms"], row["bound_by"] = bound["bound_ms"], bound["bound_by"]
+    emit({"gpt_causal_kernel": row})
+    del qkv, q, k, v, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def gpt_forward_phase(torch, pt, fa):
+    """GPT-2 small's forward on the card in f32 and bf16: each forward
+    must launch flash_attn_fwd (causal) once per layer and nothing else;
+    the card against a CPU run of the same weights, bf16 against f32, and
+    the causal kernel at every shape and dtype the forwards gave it.
+    Returns (rows, kernel cases, the f32 model, launches per forward)."""
+    import copy
+    model = _gpt_model(pt, "cuda")
+    layers, vocab = GPT2["num_layers"], GPT2["vocab_size"]
+    models = {"float32": model,
+              "bfloat16": copy.deepcopy(model).to(torch.bfloat16)}
+    gen = torch.Generator(device="cuda")
+    rows, kept = [], {}
+    for dt, m in models.items():
+        gen.manual_seed(SEED)   # the same request batches in both dtypes
+        for b, s in GPT_BATCHES:
+            ids = torch.randint(0, vocab, (b, s), generator=gen,
+                                device="cuda")
+            _zero(fa)
+            with torch.no_grad():
+                logits = m(ids)
+            torch.cuda.synchronize()
+            counts = dict(fa.launches)
+            if counts != {**{k: 0 for k in counts}, "flash_attn_fwd": layers}:
+                fail(f"GPT {dt} {b}x{s}: one forward launched {counts}, "
+                     f"expected {layers} flash_attn_fwd and nothing else")
+            if tuple(logits.shape) != (b, s, vocab):
+                fail(f"GPT {dt} {b}x{s}: logits {tuple(logits.shape)}")
+            if not torch.isfinite(logits).all():
+                fail(f"GPT {dt} {b}x{s}: non-finite logits")
+            if (b, s) == GPT_BATCHES[-1]:
+                kept[dt] = logits.float().cpu()
+            del logits
+            with torch.no_grad():
+                ms = _median_ms(torch, lambda: m(ids))
+            row = dict(dtype=dt, batch=b, seq=s,
+                       launches_per_forward=counts["flash_attn_fwd"],
+                       latency_ms=ms, tokens_per_s=b * s / (ms / 1e3))
+            emit({"gpt_forward": row})
+            rows.append(row)
+    del models["bfloat16"]
+    rel = ((kept["bfloat16"] - kept["float32"]).norm()
+           / kept["float32"].norm()).item()
+    emit({"gpt_bf16_vs_f32": dict(batch=GPT_BATCHES[-1][0],
+                                  seq=GPT_BATCHES[-1][1], logits_rel_l2=rel,
+                                  tol=5e-2, ok=rel <= 5e-2)})
+    if not rel <= 5e-2:
+        fail(f"GPT bf16 logits drift {rel} from f32 (relative L2 > 5e-2)")
+
+    b, s = CPU_BATCH
+    g = torch.Generator().manual_seed(SEED + 1)
+    ids = torch.randint(0, vocab, (b, s), generator=g)
+    cpu_model = _gpt_model(pt, "cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    _zero(fa)
+    with torch.no_grad():
+        lg_cpu = cpu_model(ids)
+        cpu_launches = fa.launches["flash_attn_fwd"]
+        lg_gpu = model(ids.cuda()).cpu()
+    err = (lg_gpu - lg_cpu).abs().max().item()
+    ok = torch.allclose(lg_gpu, lg_cpu, atol=1e-3, rtol=1e-3) \
+        and cpu_launches == 0
+    emit({"gpt_card_vs_cpu": dict(batch=b, seq=s, dtype="float32",
+                                  max_abs_err=err, tol=1e-3,
+                                  cpu_launches=cpu_launches, ok=bool(ok))})
+    if not ok:
+        fail("the card's GPT-2 logits disagree with the CPU run")
+    del cpu_model, lg_cpu, lg_gpu
+    n, h = GPT2["num_heads"], GPT2["hidden_size"] // GPT2["num_heads"]
+    cases = [causal_kernel_case(torch, fa, b, s, n, h, dt)
+             for dt in ("float32", "bfloat16") for b, s in GPT_BATCHES]
+    return rows, cases, model, rows[-1]["launches_per_forward"]
+
+
+def _rel_gap(logits):
+    """(top1 - top2) / |top1| of each row of f32 logits [..., V]."""
+    top = logits.float().topk(2, dim=-1).values
+    return ((top[..., 0] - top[..., 1]) / top[..., 0].abs().clamp_min(
+        1e-30)).cpu().numpy()
+
+
+def streams_agree(got, want, gaps):
+    """Token streams against their reference, one dict per stream:
+    equal, or equal up to the first mismatch, where the reference's top-2
+    logit gap (gaps, relative, per position) is below NEAR_TIE: a near
+    tie that summation order on the card may flip. ok is False for any
+    other mismatch."""
+    out = []
+    for g, w, gap in zip(got, want, gaps):
+        g, w = list(map(int, g)), list(map(int, w))
+        m = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 None if len(g) == len(w) else min(len(g), len(w)))
+        row = dict(equal=m is None, first_mismatch=m)
+        if m is not None:
+            row["gap_rel"] = float(gap[m]) if m < len(gap) else None
+            row["near_tie"] = row["gap_rel"] is not None and \
+                row["gap_rel"] < NEAR_TIE
+        row["ok"] = m is None or row["near_tie"]
+        out.append(row)
+    return out
+
+
+def generate_phase(torch, pt, fa, model):
+    """GPT-2 small generate() on the card: bf16 greedy at bench.py's
+    shape, timed; then f32 greedy against argmax over a full re-forward
+    (through the causal kernel) at every step."""
+    import numpy as np
+    vocab, layers = GPT2["vocab_size"], GPT2["num_layers"]
+    b, p, n = GEN_SHAPE
+    rng = np.random.RandomState(SEED)
+    prompt = torch.from_numpy(
+        rng.randint(0, vocab, (b, p)).astype(np.int64)).cuda()
+    model.generate(prompt, max_new_tokens=n, dtype="bfloat16")   # warm
+    torch.cuda.synchronize()
+    _zero(fa)
+    t0 = time.perf_counter()
+    out = model.generate(prompt, max_new_tokens=n, dtype="bfloat16").cpu()
+    secs = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    if tuple(out.shape) != (b, p + n) or not torch.equal(
+            out[:, :p].long(), prompt.cpu()) or not (
+            (out >= 0) & (out < vocab)).all():
+        fail(f"generate returned {tuple(out.shape)} or lost its prompt or "
+             "left the vocabulary")
+    row = dict(dtype="bfloat16", batch=b, prompt=p, new_tokens=n,
+               seconds=secs, new_tokens_per_s=b * n / secs,
+               ms_per_token=secs / n * 1e3, launches=launches)
+
+    b2, p2, n2 = GEN_CHECK
+    ids = torch.from_numpy(
+        rng.randint(0, vocab, (b2, p2)).astype(np.int64)).cuda()
+    got = model.generate(ids, max_new_tokens=n2).cpu().numpy()[:, p2:]
+    _zero(fa)
+    cur, want, gaps = ids, [], []
+    with torch.no_grad():
+        for _ in range(n2):
+            last = model(cur)[:, -1].float()
+            gaps.append(_rel_gap(last))
+            nxt = last.argmax(-1)
+            want.append(nxt.cpu().numpy())
+            cur = torch.cat([cur, nxt[:, None]], dim=1)
+    torch.cuda.synchronize()
+    reforward = fa.launches["flash_attn_fwd"]
+    want, gaps = np.stack(want, 1), np.stack(gaps, 1)
+    agree = streams_agree(got, want, gaps)
+    row.update(check=dict(dtype="float32", batch=b2, prompt=p2,
+                          new_tokens=n2, reforward_launches=reforward,
+                          min_gap_rel=float(gaps.min()), streams=agree))
+    emit({"generate": row})
+    if reforward != n2 * layers:
+        fail(f"the re-forwards launched {reforward} flash_attn_fwd, "
+             f"expected {n2 * layers}")
+    if not all(r["ok"] for r in agree):
+        fail(f"f32 greedy generate differs from the full re-forward: {agree}")
+    return row
+
+
+def graph_vs_eager(torch, eng):
+    """Each captured program of `eng` replayed against the same program
+    run eagerly on the same inputs, from equal pools (filled with random
+    K/V so every gather reads data): tokens and pools must come out
+    equal. The pools are zeroed afterwards."""
+    import numpy as np
+    cfg, cache = eng.config, eng.cache
+    w = cfg.table_width
+    rng = np.random.RandomState(SEED + 7)
+    gen = torch.Generator(device=cache.device)
+    gen.manual_seed(SEED + 7)
+    for kv in cache.pools:
+        for t in kv:
+            t.normal_(generator=gen)
+    rows = []
+    for key in eng.programs.keys():
+        name, shapes, _ = key
+        rows_n = shapes[0][0]
+        perm = rng.permutation(np.arange(1, cache.n_blocks))
+        tables = perm[:rows_n * w].reshape(rows_n, w).astype(np.int32)
+        if name == "decode":
+            fn = eng._decode_fn
+            inputs = (tables, rng.randint(0, eng.vocab_size, rows_n),
+                      rng.randint(0, cfg.max_total_tokens - cfg.decode_chunk,
+                                  rows_n))
+        else:
+            fn, s = eng._prefill_fn, shapes[1][1]
+            inputs = (tables, rng.randint(0, eng.vocab_size, (rows_n, s)),
+                      rng.randint(1, s + 1, rows_n))
+        eager_pools = tuple((k.clone(), v.clone()) for k, v in cache.pools)
+        with torch.no_grad():
+            want = fn(eager_pools, *[torch.from_numpy(
+                np.asarray(a, np.int64)).cuda() for a in inputs],
+                eng.params, None).cpu().numpy()
+        got = eng.programs(name, fn, cache.pools, eng.params, inputs)
+        torch.cuda.synchronize()
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for kv_a, kv_b in zip(cache.pools, eager_pools)
+                   for a, b in zip(kv_a, kv_b))
+        row = dict(program=name, shapes=[list(s_) for s_ in shapes],
+                   tokens_equal=bool(np.array_equal(got, want)),
+                   pools_equal=diff == 0.0, pool_max_abs_diff=diff)
+        emit({"graph_vs_eager": row})
+        if not (row["tokens_equal"] and row["pools_equal"]):
+            fail(f"a captured program disagrees with its eager run: {row}")
+        rows.append(row)
+        del eager_pools
+    for kv in cache.pools:
+        for t in kv:
+            t.zero_()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serving_phase(torch, pt, fa, model):
+    """The bf16 ServingEngine at SERVE_CONFIG on GPT-2 small: warm-up
+    (captures one CUDA graph per bucket), each graph against its eager
+    run, then a staggered trace of SERVE_REQUESTS requests."""
+    import numpy as np
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    vocab = GPT2["vocab_size"]
+    eng = ServingEngine(model, ServingConfig(**SERVE_CONFIG))
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captures = eng.programs.captures
+    checks = graph_vs_eager(torch, eng)
+
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(8, 129, SERVE_REQUESTS)
+    news = rng.randint(16, 129, SERVE_REQUESTS)
+    prompts = [rng.randint(0, vocab, (int(n_),)).astype(np.int32)
+               for n_ in lens]
+    progs = eng.programs
+    eager0, replays0 = progs.eager_dispatches, progs.replays
+    progs.dispatch_ms.clear()    # the trace's dispatches only
+    done, submitted, steps = [], 0, 0
+    _zero(fa)
+    t_start = time.perf_counter()
+    while submitted < SERVE_REQUESTS or eng.has_work():
+        if steps % SERVE_EVERY == 0 and submitted < SERVE_REQUESTS:
+            for i in range(submitted,
+                           min(submitted + SERVE_WAVE, SERVE_REQUESTS)):
+                eng.submit(prompts[i], int(news[i]), rid=i)
+            submitted = min(submitted + SERVE_WAVE, SERVE_REQUESTS)
+        done.extend(eng.step())
+        steps += 1
+        if steps > 20000:
+            fail("the serving trace did not drain")
+    secs = time.perf_counter() - t_start
+    launches = dict(fa.launches)
+    by_rid = {r.rid: r for r in done}
+    tokens = sum(len(r.out) for r in done)
+    ttft = np.array([(r.first_token_ts - r.arrival) * 1e3 for r in done])
+    dec, pre = progs.dispatch_ms["decode"], progs.dispatch_ms["prefill"]
+    # the device time of one decode replay at the largest bucket, against
+    # the host time of a dispatch (copy in, replay, copy out)
+    big = next(k for k in progs.keys()
+               if k[0] == "decode" and k[1][0][0] == max(
+                   SERVE_CONFIG["decode_buckets"]))
+    replay = progs.graph(big).graph.replay
+    replay_ms = time_ms(replay, reps=20)
+    emit({"serving_profile": dict(
+        program="decode", bucket=big[1][0][0],
+        token_boundaries=SERVE_CONFIG["decode_chunk"],
+        per_replay=device_profile(torch, replay, runs=3))})
+    row = dict(
+        dtype="bfloat16", config=SERVE_CONFIG, requests=len(done),
+        steps=steps, seconds=secs, generated_tokens=tokens,
+        tokens_per_s=tokens / secs,
+        ttft_ms_p50=float(np.percentile(ttft, 50)),
+        ttft_ms_p99=float(np.percentile(ttft, 99)),
+        decode_dispatch_ms_p50=float(np.percentile(dec, 50)),
+        prefill_dispatch_ms_p50=float(np.percentile(pre, 50)),
+        decode_dispatches=len(dec), prefill_dispatches=len(pre),
+        decode_dispatch_ms_sum=float(np.sum(dec)),
+        prefill_dispatch_ms_sum=float(np.sum(pre)),
+        decode_replay_device_ms=replay_ms,
+        warmup_seconds=warm_s, graphs_captured=captures,
+        graphs_after_trace=progs.captures,
+        executable_count=eng.executable_count(),
+        expected_executables=eng.expected_executables,
+        sentinel_fired=eng.sentinel.fired,
+        eager_dispatches_after_warmup=progs.eager_dispatches - eager0,
+        replays=progs.replays - replays0,
+        pages_free=eng.cache.n_free, n_blocks=eng.cache.n_blocks,
+        pool_bytes=eng.cache.pool_bytes, launches=launches,
+        graph_vs_eager=len(checks))
+    row["invariants"] = eng.cache.check_invariants()
+    emit({"serving": row})
+    bad = [i for i in range(SERVE_REQUESTS)
+           if i not in by_rid or len(by_rid[i].out) != int(news[i])
+           or not all(0 <= t < vocab for t in by_rid[i].out)]
+    if bad:
+        fail(f"serving requests {bad} came out short or out of the vocab")
+    if not (row["executable_count"] == row["expected_executables"]
+            == captures == progs.captures):
+        fail(f"serving programs {row['executable_count']}, graphs "
+             f"{progs.captures}, expected {row['expected_executables']}")
+    if row["sentinel_fired"] or row["eager_dispatches_after_warmup"]:
+        fail(f"serving sentinel fired {row['sentinel_fired']} times, "
+             f"{row['eager_dispatches_after_warmup']} eager dispatches")
+    if row["pages_free"] != eng.cache.n_blocks - 1:
+        fail(f"{row['pages_free']} pages free at the end, expected "
+             f"{eng.cache.n_blocks - 1}")
+    return row
+
+
+def serving_parity_phase(torch, pt, fa, model):
+    """The f32 engine (dtype=None) under staggered admission: each stream
+    against the port's solo greedy generate() of the same prompt, with the
+    near-tie rule of streams_agree (the reference's gaps from a full
+    forward of its own stream)."""
+    import numpy as np
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    vocab = GPT2["vocab_size"]
+    eng = ServingEngine(model, ServingConfig(**dict(SERVE_CONFIG,
+                                                    dtype=None))).warmup()
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(0, vocab, (n_,)).astype(np.int32)
+               for n_, _ in PARITY_SPECS]
+    news = [n_ for _, n_ in PARITY_SPECS]
+    rids = [eng.submit(prompts[0], news[0])]
+    eng.step()
+    eng.step()
+    rids.append(eng.submit(prompts[1], news[1]))
+    eng.step()
+    rids += [eng.submit(prompts[i], news[i]) for i in (2, 3)]
+    eng.step()
+    rids += [eng.submit(prompts[i], news[i]) for i in (4, 5)]
+    by_rid = {r.rid: r for r in eng.run_to_completion()}
+    got, want, gaps = [], [], []
+    for rid, p, n_ in zip(rids, prompts, news):
+        ids = torch.from_numpy(p[None].astype(np.int64)).cuda()
+        solo = model.generate(ids, max_new_tokens=n_)
+        with torch.no_grad():
+            lg = model(solo[:, :-1].long())[0, len(p) - 1:]
+        got.append(by_rid[rid].out)
+        want.append(solo[0, len(p):].cpu().numpy())
+        gaps.append(_rel_gap(lg))
+    agree = streams_agree(got, want, gaps)
+    row = dict(dtype="float32", requests=len(rids), specs=PARITY_SPECS,
+               streams=agree, exact=all(r["equal"] for r in agree),
+               min_gap_rel=float(min(g.min() for g in gaps)),
+               executable_count=eng.executable_count(),
+               expected_executables=eng.expected_executables,
+               sentinel_fired=eng.sentinel.fired,
+               eager_dispatches=eng.programs.eager_dispatches,
+               pages_free=eng.cache.n_free,
+               invariants=eng.cache.check_invariants())
+    emit({"serving_parity": row})
+    if not all(r["ok"] for r in agree):
+        fail(f"f32 engine streams differ from solo generate: {agree}")
+    if (row["executable_count"] != row["expected_executables"]
+            or row["sentinel_fired"] or row["eager_dispatches"]
+            or row["pages_free"] != eng.cache.n_blocks - 1):
+        fail(f"f32 engine contract broken: {row}")
+    return row
 
 
 def philox_phase(torch, build):
@@ -922,6 +1389,13 @@ def main():
     del train_state
     torch.cuda.empty_cache()
     train_cpu_check(torch, pt, fa)
+    gpt_rows, gpt_cases, gpt_model, gpt_launches = gpt_forward_phase(
+        torch, pt, fa)
+    generate_phase(torch, pt, fa, gpt_model)
+    serving_phase(torch, pt, fa, gpt_model)
+    serving_parity_phase(torch, pt, fa, gpt_model)
+    del gpt_model
+    torch.cuda.empty_cache()
 
     # every row at the training path's shape: b 48, s 512, n 12, h 64,
     # bf16, non-causal, dropout 0.1, strided qkv views
@@ -933,7 +1407,9 @@ def main():
                    and not c["causal"] and not c["dropout_p"])
     shape = "b48 s512 n12 h64 bfloat16 non-causal dropout 0.1"
     by_path = {k: {"inference": launches_inf if k == "flash_attn_fwd"
-                   else 0, "training": train["launches"][k]}
+                   else 0, "training": train["launches"][k],
+                   "gpt_forward": gpt_launches if k == "flash_attn_fwd"
+                   else 0}
                for k in fa.launches}
     # no library call computes one backward kernel's outputs alone: the
     # backward rows carry SDPA's backward beside the whole backward
@@ -957,7 +1433,7 @@ def main():
                                bound_ms=head_p0["fwd_bound_ms"],
                                bound_by=head_p0["fwd_bound_by"]),
              launches_float32_inference_pass=launches_f32,
-             inference_cases=cases),
+             gpt_causal=gpt_cases, inference_cases=cases),
         dict(name="flash_attn_bwd_dq",
              source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              replaces="paddle_tpu/ops/pallas_kernels.py:283",

@@ -17,9 +17,14 @@ Ported so far: ERNIE inference (models.ErnieForPretraining in eval
 mode) through the flash-attention forward kernel, and ERNIE pretraining
 (static.TrainStep with optimizer.AdamW under amp.auto_cast) through the
 forward and both backward kernels with in-kernel Philox attention
-dropout.
+dropout; GPT-2 generation (models.GPTForCausalLM, whose forward runs the
+forward kernel causally, and generate(): greedy, sampling, ragged
+prompts, beam search) and the continuous-batching engine over the paged
+KV cache (serving.ServingEngine), whose bucket programs are captured as
+CUDA graphs on the card.
 """
-from . import amp, core, device, models, nn, ops, optimizer, static  # noqa: F401
+from . import (amp, core, device, models, nn, observability, ops,  # noqa: F401
+               optimizer, serving, static)
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
 from .core.generator import seed  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401

@@ -1,3 +1,3 @@
-"""Kernels of the port (counterpart of paddle_tpu/ops; only the kernel
-module the ported slice runs)."""
-from . import flash_attention  # noqa: F401
+"""Kernels of the port (counterpart of paddle_tpu/ops; only the modules
+the ported slices run)."""
+from . import extras, flash_attention  # noqa: F401

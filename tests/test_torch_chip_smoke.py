@@ -143,3 +143,27 @@ def test_ptxas_serialisation_lines_name_the_function(cs):
     assert cs.ptxas_serialised(log) == ["_Z9fwd_wgmmaILi64ELb0ELb0EEEv",
                                         "_Z9dkv_wgmmaILi128ELb0ELb0EEEv"]
     assert "fwd_wgmma" in cs.NO_SPILL
+
+
+def test_streams_agree_applies_the_near_tie_rule(cs):
+    """A stream passes when it equals its reference, or when it first
+    differs where the reference's top-2 logit gap is below NEAR_TIE;
+    any other difference, or a shorter stream, fails."""
+    import numpy as np
+    want = [[1, 2, 3], [4, 5, 6], [7, 8, 9], [1, 2, 3]]
+    got = [[1, 2, 3], [4, 9, 9], [7, 1, 9], [1, 2]]
+    gaps = [np.full(3, 0.5), np.array([0.5, cs.NEAR_TIE / 2, 0.5]),
+            np.full(3, 0.5), np.full(3, 0.5)]
+    rows = cs.streams_agree(got, want, gaps)
+    assert rows[0] == {"equal": True, "first_mismatch": None, "ok": True}
+    assert rows[1]["first_mismatch"] == 1 and rows[1]["near_tie"]
+    assert rows[1]["ok"] and not rows[1]["equal"]
+    assert rows[2]["first_mismatch"] == 1 and not rows[2]["ok"]
+    assert rows[3]["first_mismatch"] == 2 and not rows[3]["ok"]
+
+
+def test_rel_gap_is_the_top2_gap_over_the_top(cs):
+    import numpy as np
+    import torch
+    lg = torch.tensor([[1.0, 3.0, 2.0], [-2.0, -1.0, -1.0]])
+    np.testing.assert_allclose(cs._rel_gap(lg), [1 / 3, 0.0])

@@ -32,7 +32,13 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch, paddle_tpu_torch.models, "
         "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops._build, "
         "paddle_tpu_torch.amp, paddle_tpu_torch.optimizer, "
-        "paddle_tpu_torch.static, paddle_tpu_torch.ops.philox\n"
+        "paddle_tpu_torch.static, paddle_tpu_torch.ops.philox, "
+        "paddle_tpu_torch.ops.extras, paddle_tpu_torch.models.gpt, "
+        "paddle_tpu_torch.models.generation, paddle_tpu_torch.serving, "
+        "paddle_tpu_torch.serving.engine, paddle_tpu_torch.serving.programs, "
+        "paddle_tpu_torch.serving.paged_cache, "
+        "paddle_tpu_torch.serving.scheduler, "
+        "paddle_tpu_torch.observability.sentinel\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -64,6 +70,37 @@ def test_default_device_raises_without_cuda_and_cpu_works():
         "print('OUT', tuple(lg.shape), lg.device.type)\n")
     assert "DEV cpu:0" in out
     assert "OUT (1, 8, 1024) cpu" in out
+
+
+def test_gpt_and_serving_need_cuda_unless_asked_for_the_cpu():
+    """GPTForCausalLM, and with it a ServingEngine, and a PagedKVCache
+    raise without CUDA unless the CPU was asked for; a CPU model's engine
+    follows the model onto the CPU."""
+    out = _run(
+        "import numpy as np, torch, paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM\n"
+        "from paddle_tpu_torch.serving import (PagedKVCache, "
+        "ServingConfig, ServingEngine)\n"
+        "cfg = GPTConfig.tiny(dropout=0.0)\n"
+        "scfg = ServingConfig(max_slots=2, max_admit=1, block_size=4, "
+        "n_blocks=8, prefill_buckets=(8,), max_total_tokens=16)\n"
+        "for fn in (lambda: GPTForCausalLM(cfg), "
+        "lambda: ServingEngine(GPTForCausalLM(cfg), scfg), "
+        "lambda: PagedKVCache(1, 4, 4, 1, 4)):\n"
+        "    try:\n"
+        "        fn()\n"
+        "        raise SystemExit('no error without CUDA')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'set_device' in str(e), e\n"
+        "m = GPTForCausalLM(cfg, device='cpu').eval()\n"
+        "eng = ServingEngine(m, scfg)\n"
+        "print('POOL', eng.cache.pools[0][0].device.type, eng.device.type)\n"
+        "print('OUT', eng.generate_tokens([np.arange(5)], 3))\n"
+        "pt.set_device('cpu')\n"
+        "print('DEV', next(GPTForCausalLM(cfg).parameters()).device.type)\n")
+    assert "POOL cpu cpu" in out
+    assert "OUT [[" in out
+    assert "DEV cpu" in out
 
 
 _IMPORT = re.compile(
