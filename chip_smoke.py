@@ -112,6 +112,28 @@ Phases, each of which fails the run on any mismatch:
    staggered admission, 6 requests; each stream must equal the port's
    solo greedy generate(), or differ first where that stream's top-2
    logit gap is below NEAR_TIE relative (printed per stream).
+13. Serving levers (`serving_levers`, one line a lever, GPT-2 small from
+   seed 0). Every lever engine is warmed, its graphs (the draft's and
+   the page copy included) held bit-equal to eager (`graph_vs_eager`),
+   and after each trace must show graphs = programs = expected, no
+   sentinel event, no eager dispatch and every page back. int8:
+   int8_gemm's int32 accumulators at every GPT-2 block matmul and
+   INT8_ROWS rows against a float64 product (exact: |acc| <= 128 * 128
+   * 3072 < 2**53), the output against the plain rescale, timed beside
+   a bf16 matmul (`int8_matmul` lines) and with row-major codes
+   (`int8_layout`); the logits-drift receipt on 4x32 prompts; the
+   bf16+int8 engine over the serving trace, with its token agreement
+   with the bf16 engine's streams. Speculative, k LEVER_K, DRAFT: the
+   f32 streams of the parity requests against solo generate (near-tie
+   rule), then the bf16 trace with that draft and with the target as
+   its own draft (acceptance at least 0.5, printed). Prefix sharing:
+   f32 streams of 6 staggered requests sharing a 64-token prefix
+   against the unshared f32 engine's, then loadgen's shared-prefix
+   traffic (SHARED_* below) through the sharing and the unshared bf16
+   engines: prefix hits > 0 and a lower peak of live pages. Sampling
+   (SAMPLING): two engines from one seed give equal streams over the
+   trace, and the sampled prefill, decode and chunk graphs are
+   bit-equal to eager on the same Gumbel noise.
 
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
@@ -140,7 +162,7 @@ DROP_P, DROP_SEED = 0.1, 1234
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and dense
 # FLOP/s by input type (f32 on the FP32 pipes, bf16 on the tensor cores)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # kernels whose ptxas report must show no spill at head_dim 64
 NO_SPILL = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
@@ -164,6 +186,21 @@ SERVE_REQUESTS, SERVE_WAVE, SERVE_EVERY = 48, 8, 4
 # f32 parity trace: (prompt length, new tokens), submitted staggered
 PARITY_SPECS = [(40, 24), (17, 20), (100, 16), (9, 30), (64, 12), (128, 20)]
 NEAR_TIE = 1e-4
+# -- the serving levers ---------------------------------------------------------
+# int8: GPT-2 small's block matmuls (in, out) at these row counts
+INT8_ROWS = (4, 16, 128)
+INT8_DRIFT = (4, 32)            # prompts x tokens of the logits-drift receipt
+LEVER_K = 4                     # speculative proposals per boundary
+# tools/serving_bench.py:93 build_draft at GPT-2 small's widths: the same
+# vocab, half the hidden width and heads, 1 layer (--draft-layers)
+DRAFT = dict(GPT2, hidden_size=384, num_heads=6, num_layers=1)
+# paddle_tpu/serving/loadgen.py:47's shared-prefix mode: one trace-wide
+# prefix on serving_bench's --shared-frac default share of the requests
+SHARED_PREFIX, SHARED_FRAC = 64, 0.9
+SHARED_TAILS, SHARED_NEW = (8, 64), (16, 128)
+# f32 shared-prefix parity: (tail length, new tokens), staggered
+SHARED_PARITY = [(8, 24), (17, 20), (40, 16), (9, 30), (64, 12), (30, 20)]
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 
 
 def emit(obj):
@@ -1098,64 +1135,167 @@ def generate_phase(torch, pt, fa, model):
     return row
 
 
+def _program_inputs(np, rng, eng, name, shapes):
+    """Random host inputs of one program key of `eng` (all tables drawn
+    from distinct real pages, so every gather reads data)."""
+    cfg, w, vocab = eng.config, eng.config.table_width, eng.vocab_size
+    rows = shapes[0][0]
+    perm = rng.permutation(np.arange(1, eng.cache.n_blocks))
+    if name == "copy":
+        return (perm[:1], perm[1:2])
+    tables = perm[:rows * w].reshape(rows, w).astype(np.int32)
+    if name in ("decode", "draft_decode"):
+        steps = cfg.decode_chunk if name == "decode" else cfg.speculative_k
+        return (tables, rng.randint(0, vocab, rows),
+                rng.randint(0, cfg.max_total_tokens - steps, rows))
+    s = shapes[1][1]
+    ids = rng.randint(0, vocab, (rows, s))
+    if name == "chunk":
+        return (tables, ids, rng.randint(0, cfg.max_total_tokens - s + 1,
+                                         rows), rng.randint(1, s + 1, rows))
+    return (tables, ids, rng.randint(1, s + 1, rows))
+
+
+def _program_fn(eng, name):
+    """(program cache, function, cache, params) of a program name."""
+    from paddle_tpu_torch.serving.programs import copy_page_fn
+    if name == "copy":
+        return eng.cache._copy, copy_page_fn, eng.cache, None
+    if name.startswith("draft_"):
+        fn = (eng._draft_decode_fn if name == "draft_decode"
+              else eng._draft_prefill_fn)
+        return eng.programs, fn, eng.draft_cache, eng.draft_params
+    fn = {"decode": eng._decode_fn, "prefill": eng._prefill_fn,
+          "chunk": eng._chunk_fn}[name]
+    return eng.programs, fn, eng.cache, eng.params
+
+
 def graph_vs_eager(torch, eng):
-    """Each captured program of `eng` replayed against the same program
-    run eagerly on the same inputs, from equal pools (filled with random
-    K/V so every gather reads data): tokens and pools must come out
-    equal. The pools are zeroed afterwards."""
+    """Each captured program of `eng` (the page copy and the draft's
+    included) replayed against the same program run eagerly on the same
+    inputs and Gumbel noise, from equal pools (filled with random K/V so
+    every gather reads data): tokens and pools must come out equal. A
+    chunk program's scratch page 0 is left out of the pool comparison:
+    positions past a row's length write there from several lanes, and
+    scratch is never read. The pools are zeroed afterwards."""
     import numpy as np
-    cfg, cache = eng.config, eng.cache
-    w = cfg.table_width
+    from paddle_tpu_torch.models.generation import _gumbel
     rng = np.random.RandomState(SEED + 7)
-    gen = torch.Generator(device=cache.device)
+    gen = torch.Generator(device=eng.device)
     gen.manual_seed(SEED + 7)
-    for kv in cache.pools:
-        for t in kv:
-            t.normal_(generator=gen)
+    caches = [c for c in (eng.cache, eng.draft_cache) if c is not None]
+    for c in caches:
+        for kv in c.pools:
+            for t in kv:
+                t.normal_(generator=gen)
+    keys = [("copy", k) for k in eng.cache._copy.keys()] + \
+        [(k[0], k) for k in eng.programs.keys()]
     rows = []
-    for key in eng.programs.keys():
-        name, shapes, _ = key
-        rows_n = shapes[0][0]
-        perm = rng.permutation(np.arange(1, cache.n_blocks))
-        tables = perm[:rows_n * w].reshape(rows_n, w).astype(np.int32)
-        if name == "decode":
-            fn = eng._decode_fn
-            inputs = (tables, rng.randint(0, eng.vocab_size, rows_n),
-                      rng.randint(0, cfg.max_total_tokens - cfg.decode_chunk,
-                                  rows_n))
-        else:
-            fn, s = eng._prefill_fn, shapes[1][1]
-            inputs = (tables, rng.randint(0, eng.vocab_size, (rows_n, s)),
-                      rng.randint(1, s + 1, rows_n))
+    for name, key in keys:
+        _, shapes, noise_shape = key
+        progs, fn, cache, params = _program_fn(eng, name)
+        inputs = _program_inputs(np, rng, eng, name, shapes)
+        noise = (None if noise_shape is None
+                 else _gumbel(noise_shape, gen, eng.device))
         eager_pools = tuple((k.clone(), v.clone()) for k, v in cache.pools)
         with torch.no_grad():
             want = fn(eager_pools, *[torch.from_numpy(
                 np.asarray(a, np.int64)).cuda() for a in inputs],
-                eng.params, None).cpu().numpy()
-        got = eng.programs(name, fn, cache.pools, eng.params, inputs)
+                params, noise)
+        got = progs(name, fn, cache.pools, params, inputs, noise)
         torch.cuda.synchronize()
-        diff = max((a.float() - b.float()).abs().max().item()
+        want = () if want is None else tuple(
+            t.cpu().numpy() for t in (want if isinstance(want, tuple)
+                                      else (want,)))
+        got = () if got is None else (got if isinstance(got, tuple)
+                                      else (got,))
+        first = 1 if name == "chunk" else 0
+        diff = max((a[first:].float() - b[first:].float()).abs().max().item()
                    for kv_a, kv_b in zip(cache.pools, eager_pools)
                    for a, b in zip(kv_a, kv_b))
         row = dict(program=name, shapes=[list(s_) for s_ in shapes],
-                   tokens_equal=bool(np.array_equal(got, want)),
+                   noise=noise_shape is not None,
+                   tokens_equal=len(got) == len(want) and all(
+                       np.array_equal(a, b) for a, b in zip(got, want)),
                    pools_equal=diff == 0.0, pool_max_abs_diff=diff)
         emit({"graph_vs_eager": row})
         if not (row["tokens_equal"] and row["pools_equal"]):
             fail(f"a captured program disagrees with its eager run: {row}")
         rows.append(row)
         del eager_pools
-    for kv in cache.pools:
-        for t in kv:
-            t.zero_()
+    for c in caches:
+        for kv in c.pools:
+            for t in kv:
+                t.zero_()
     torch.cuda.empty_cache()
     return rows
+
+
+def serve_trace(np, vocab):
+    """The staggered serving trace: SERVE_REQUESTS prompts of 8-128
+    tokens and 16-128 new tokens from numpy seed SEED."""
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(8, 129, SERVE_REQUESTS)
+    news = rng.randint(16, 129, SERVE_REQUESTS)
+    prompts = [rng.randint(0, vocab, (int(n_),)).astype(np.int32)
+               for n_ in lens]
+    return prompts, [int(n_) for n_ in news]
+
+
+def shared_prefix_trace(np, n, vocab, seed=SEED, prefix_len=SHARED_PREFIX,
+                        frac=SHARED_FRAC, tails=SHARED_TAILS,
+                        news=SHARED_NEW):
+    """The shared-prefix traffic of paddle_tpu/serving/loadgen.py's
+    synthetic_trace: one trace-wide prefix of prefix_len tokens, drawn
+    first, prepended to a `frac` share of the requests' own tails (tails
+    and new tokens uniform in the inclusive ranges). Returns (prompts,
+    new tokens, which requests carry the prefix)."""
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, (prefix_len,)).astype(np.int32)
+    prompts, new, shared = [], [], []
+    for _ in range(n):
+        tail = rng.randint(0, vocab, (rng.randint(tails[0], tails[1] + 1),))
+        new.append(int(rng.randint(news[0], news[1] + 1)))
+        hit = bool(rng.rand() < frac)
+        prompts.append(np.concatenate([prefix, tail]).astype(np.int32)
+                       if hit else tail.astype(np.int32))
+        shared.append(hit)
+    return prompts, new, shared
+
+
+def _run_trace(eng, prompts, news):
+    """Submit the trace in waves of SERVE_WAVE every SERVE_EVERY engine
+    steps and drain it. Returns (finished requests by rid, seconds,
+    steps, the peak of the cache's live pages)."""
+    done, submitted, steps, peak = [], 0, 0, 0
+    n = len(prompts)
+    t0 = time.perf_counter()
+    while submitted < n or eng.has_work():
+        if steps % SERVE_EVERY == 0 and submitted < n:
+            for i in range(submitted, min(submitted + SERVE_WAVE, n)):
+                eng.submit(prompts[i], int(news[i]), rid=i)
+            submitted = min(submitted + SERVE_WAVE, n)
+        done.extend(eng.step())
+        peak = max(peak, eng.cache.n_live)
+        steps += 1
+        if steps > 20000:
+            fail("a serving trace did not drain")
+    return {r.rid: r for r in done}, time.perf_counter() - t0, steps, peak
+
+
+def _check_streams(what, by_rid, news, vocab):
+    bad = [i for i in range(len(news))
+           if i not in by_rid or len(by_rid[i].out) != int(news[i])
+           or not all(0 <= t < vocab for t in by_rid[i].out)]
+    if bad:
+        fail(f"{what}: requests {bad} came out short or out of the vocab")
 
 
 def serving_phase(torch, pt, fa, model):
     """The bf16 ServingEngine at SERVE_CONFIG on GPT-2 small: warm-up
     (captures one CUDA graph per bucket), each graph against its eager
-    run, then a staggered trace of SERVE_REQUESTS requests."""
+    run, then a staggered trace of SERVE_REQUESTS requests. Returns the
+    row and the streams by rid."""
     import numpy as np
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
     vocab = GPT2["vocab_size"]
@@ -1167,30 +1307,14 @@ def serving_phase(torch, pt, fa, model):
     captures = eng.programs.captures
     checks = graph_vs_eager(torch, eng)
 
-    rng = np.random.RandomState(SEED)
-    lens = rng.randint(8, 129, SERVE_REQUESTS)
-    news = rng.randint(16, 129, SERVE_REQUESTS)
-    prompts = [rng.randint(0, vocab, (int(n_),)).astype(np.int32)
-               for n_ in lens]
+    prompts, news = serve_trace(np, vocab)
     progs = eng.programs
     eager0, replays0 = progs.eager_dispatches, progs.replays
     progs.dispatch_ms.clear()    # the trace's dispatches only
-    done, submitted, steps = [], 0, 0
     _zero(fa)
-    t_start = time.perf_counter()
-    while submitted < SERVE_REQUESTS or eng.has_work():
-        if steps % SERVE_EVERY == 0 and submitted < SERVE_REQUESTS:
-            for i in range(submitted,
-                           min(submitted + SERVE_WAVE, SERVE_REQUESTS)):
-                eng.submit(prompts[i], int(news[i]), rid=i)
-            submitted = min(submitted + SERVE_WAVE, SERVE_REQUESTS)
-        done.extend(eng.step())
-        steps += 1
-        if steps > 20000:
-            fail("the serving trace did not drain")
-    secs = time.perf_counter() - t_start
+    by_rid, secs, steps, _ = _run_trace(eng, prompts, news)
     launches = dict(fa.launches)
-    by_rid = {r.rid: r for r in done}
+    done = list(by_rid.values())
     tokens = sum(len(r.out) for r in done)
     ttft = np.array([(r.first_token_ts - r.arrival) * 1e3 for r in done])
     dec, pre = progs.dispatch_ms["decode"], progs.dispatch_ms["prefill"]
@@ -1229,11 +1353,7 @@ def serving_phase(torch, pt, fa, model):
         graph_vs_eager=len(checks))
     row["invariants"] = eng.cache.check_invariants()
     emit({"serving": row})
-    bad = [i for i in range(SERVE_REQUESTS)
-           if i not in by_rid or len(by_rid[i].out) != int(news[i])
-           or not all(0 <= t < vocab for t in by_rid[i].out)]
-    if bad:
-        fail(f"serving requests {bad} came out short or out of the vocab")
+    _check_streams("serving", by_rid, news, vocab)
     if not (row["executable_count"] == row["expected_executables"]
             == captures == progs.captures):
         fail(f"serving programs {row['executable_count']}, graphs "
@@ -1244,23 +1364,12 @@ def serving_phase(torch, pt, fa, model):
     if row["pages_free"] != eng.cache.n_blocks - 1:
         fail(f"{row['pages_free']} pages free at the end, expected "
              f"{eng.cache.n_blocks - 1}")
-    return row
+    return row, {i: list(r.out) for i, r in by_rid.items()}
 
 
-def serving_parity_phase(torch, pt, fa, model):
-    """The f32 engine (dtype=None) under staggered admission: each stream
-    against the port's solo greedy generate() of the same prompt, with the
-    near-tie rule of streams_agree (the reference's gaps from a full
-    forward of its own stream)."""
-    import numpy as np
-    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
-    vocab = GPT2["vocab_size"]
-    eng = ServingEngine(model, ServingConfig(**dict(SERVE_CONFIG,
-                                                    dtype=None))).warmup()
-    rng = np.random.RandomState(SEED + 1)
-    prompts = [rng.randint(0, vocab, (n_,)).astype(np.int32)
-               for n_, _ in PARITY_SPECS]
-    news = [n_ for _, n_ in PARITY_SPECS]
+def _staggered(eng, prompts, news):
+    """r0 alone, r1 two boundaries later, r2 and r3 at the next, r4 and
+    r5 at the one after; drained. Returns the streams in that order."""
     rids = [eng.submit(prompts[0], news[0])]
     eng.step()
     eng.step()
@@ -1270,17 +1379,45 @@ def serving_parity_phase(torch, pt, fa, model):
     eng.step()
     rids += [eng.submit(prompts[i], news[i]) for i in (4, 5)]
     by_rid = {r.rid: r for r in eng.run_to_completion()}
-    got, want, gaps = [], [], []
-    for rid, p, n_ in zip(rids, prompts, news):
+    return [by_rid[rid].out for rid in rids]
+
+
+def _stream_gaps(torch, model, prompt, stream):
+    """The relative top-2 gap of the f32 logits at each position of
+    `stream` after `prompt` (one full forward, through the causal
+    kernel)."""
+    import numpy as np
+    ids = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])
+    with torch.no_grad():
+        lg = model(torch.from_numpy(ids[None].astype(np.int64)).cuda())
+    return _rel_gap(lg[0, len(prompt) - 1:])
+
+
+def serving_parity_phase(torch, pt, fa, model):
+    """The f32 engine (dtype=None) under staggered admission: each stream
+    against the port's solo greedy generate() of the same prompt, with the
+    near-tie rule of streams_agree (the reference's gaps from a full
+    forward of its own stream). Returns the engine (drained), the
+    prompts, new tokens, the solo streams and their gaps, for the lever
+    phase's f32 checks."""
+    import numpy as np
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    vocab = GPT2["vocab_size"]
+    eng = ServingEngine(model, ServingConfig(**dict(SERVE_CONFIG,
+                                                    dtype=None))).warmup()
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(0, vocab, (n_,)).astype(np.int32)
+               for n_, _ in PARITY_SPECS]
+    news = [n_ for _, n_ in PARITY_SPECS]
+    got = _staggered(eng, prompts, news)
+    want, gaps = [], []
+    for p, n_ in zip(prompts, news):
         ids = torch.from_numpy(p[None].astype(np.int64)).cuda()
-        solo = model.generate(ids, max_new_tokens=n_)
-        with torch.no_grad():
-            lg = model(solo[:, :-1].long())[0, len(p) - 1:]
-        got.append(by_rid[rid].out)
-        want.append(solo[0, len(p):].cpu().numpy())
-        gaps.append(_rel_gap(lg))
+        solo = model.generate(ids, max_new_tokens=n_)[0, len(p):]
+        want.append(solo.cpu().numpy())
+        gaps.append(_stream_gaps(torch, model, p, want[-1]))
     agree = streams_agree(got, want, gaps)
-    row = dict(dtype="float32", requests=len(rids), specs=PARITY_SPECS,
+    row = dict(dtype="float32", requests=len(got), specs=PARITY_SPECS,
                streams=agree, exact=all(r["equal"] for r in agree),
                min_gap_rel=float(min(g.min() for g in gaps)),
                executable_count=eng.executable_count(),
@@ -1296,7 +1433,349 @@ def serving_parity_phase(torch, pt, fa, model):
             or row["sentinel_fired"] or row["eager_dispatches"]
             or row["pages_free"] != eng.cache.n_blocks - 1):
         fail(f"f32 engine contract broken: {row}")
+    return dict(engine=eng, prompts=prompts, news=news, want=want,
+                gaps=gaps)
+
+
+def int8_acc_plain(torch, codes, q8):
+    """The plain version of int8_gemm: codes [M, K] x q8 [K, N] in
+    float64, exact while every partial sum fits float64's 53-bit
+    significand: |acc| <= 128 * 128 * K < 2**53."""
+    k = codes.shape[-1]
+    if 128 * 128 * k >= 2 ** 53:
+        raise ValueError(f"K={k}: float64 cannot hold the accumulator "
+                         "exactly")
+    return codes.double() @ q8.double()
+
+
+def int8_bound(m, k, n):
+    """(bytes, int8 operations, bound ms, bound by) of int8_matmul over
+    x [m, k] bf16 and q8 [k, n]: x, the codes, the scales and the bf16
+    output moved once; 2 m k n int8 operations."""
+    nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
+    ops = 2 * m * k * n
+    return (nbytes, ops) + _bound(nbytes, ops, "int8")
+
+
+def int8_matmul_phase(torch, model):
+    """int8_matmul at every block matmul of GPT-2 small (block 0's
+    weights, quantized) on INT8_ROWS rows of bf16 activations: the int32
+    accumulators of int8_gemm must equal int8_acc_plain's and the output
+    the plain rescale of them, bit for bit. Timed beside the plain
+    version and a bf16 matmul of the float weight (the library
+    yardstick); then _int_mm with the codes column-major (as stored)
+    against row-major (`int8_layout`)."""
+    from paddle_tpu_torch.quant import (int8_gemm, int8_matmul,
+                                        quantize_activation, quantize_weight)
+    blk = model.gpt.blocks[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    rows = []
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        w = getattr(blk, name).weight.detach()
+        leaf = quantize_weight(w)
+        q8, s = leaf["q8"], leaf["s"]
+        wb = w.to(torch.bfloat16)
+        k, n = w.shape
+        for m in INT8_ROWS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            codes, sx = quantize_activation(x)
+            acc = int8_gemm(codes, q8)
+            plain = int8_acc_plain(torch, codes, q8)
+            out = int8_matmul(x, q8, s)
+            out_plain = (plain.float() * sx * s).to(x.dtype)
+            nbytes, ops, bound_ms, bound_by = int8_bound(m, k, n)
+            row = dict(matmul=name, rows=m, k=k, n=n,
+                       acc_equal=bool(torch.equal(acc.double(), plain)),
+                       out_equal=bool(torch.equal(out, out_plain)),
+                       max_abs_err=(out.float() - out_plain.float()).abs()
+                       .max().item(), bytes=nbytes, int8_ops=ops,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            if not (row["acc_equal"] and row["out_equal"]):
+                emit({"int8_matmul": row})
+                fail(f"int8_matmul disagrees with its plain version: {row}")
+
+            def plain_fn():
+                c, f = quantize_activation(x)
+                return (int8_acc_plain(torch, c, q8).float() * f
+                        * s).to(x.dtype)
+            row["ms"] = time_ms(lambda: int8_matmul(x, q8, s), reps=50)
+            row["plain_ms"] = time_ms(plain_fn, reps=5)
+            row["library_ms"] = time_ms(lambda: x @ wb, reps=50)
+            emit({"int8_matmul": row})
+            rows.append(row)
+    x = torch.randint(-128, 128, (INT8_ROWS[-1], q8.shape[0]),
+                      generator=gen, device="cuda", dtype=torch.int8)
+    emit({"int8_layout": dict(
+        matmul="fc2", rows=INT8_ROWS[-1], k=q8.shape[0], n=q8.shape[1],
+        column_major_ms=time_ms(lambda: torch._int_mm(x, q8), reps=50),
+        row_major_ms=time_ms(lambda: torch._int_mm(
+            x, q8.contiguous()), reps=50))})
+    return rows
+
+
+def _lever_engine(torch, model, draft=None, **kw):
+    """A warmed ServingEngine at SERVE_CONFIG with `kw` on top; returns
+    it and its warm-up seconds."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    eng = ServingEngine(model, ServingConfig(**dict(SERVE_CONFIG, **kw)),
+                        draft_model=draft)
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def _lever_trace(torch, fa, eng, prompts, news, what):
+    """One trace through a warmed lever engine, and the contract every
+    lever engine keeps: streams of the asked length in the vocab, graphs
+    = programs = expected, no sentinel event, no eager dispatch, every
+    page back (free, or held by the prefix index alone) and the cache
+    invariants. Returns the row and the streams by rid."""
+    import numpy as np
+    progs, copy = eng.programs, eng.cache._copy
+    eager0 = progs.eager_dispatches + copy.eager_dispatches
+    prop0, acc0 = eng.spec_proposed, eng.spec_accepted
+    progs.dispatch_ms.clear()
+    _zero(fa)
+    by_rid, secs, steps, peak = _run_trace(eng, prompts, news)
+    done = list(by_rid.values())
+    tokens = sum(len(r.out) for r in done)
+    ttft = np.array([(r.first_token_ts - r.arrival) * 1e3 for r in done])
+    cache = eng.cache
+    row = dict(
+        requests=len(done), steps=steps, seconds=secs,
+        generated_tokens=tokens, tokens_per_s=tokens / secs,
+        ttft_ms_p50=float(np.percentile(ttft, 50)),
+        ttft_ms_p99=float(np.percentile(ttft, 99)),
+        dispatch_ms_p50={k: float(np.percentile(v, 50))
+                         for k, v in progs.dispatch_ms.items()},
+        dispatches={k: len(v) for k, v in progs.dispatch_ms.items()},
+        graphs=progs.captures + copy.captures,
+        executable_count=eng.executable_count(),
+        expected_executables=eng.expected_executables,
+        sentinel_fired=eng.sentinel.fired,
+        eager_dispatches_after_warmup=(progs.eager_dispatches
+                                       + copy.eager_dispatches - eager0),
+        launches=dict(fa.launches), peak_pages_live=peak,
+        pages_available=cache.available_pages, n_blocks=cache.n_blocks,
+        live_requests=len(cache.live_requests()),
+        invariants=cache.check_invariants())
+    if eng.draft_cache is not None:
+        row.update(draft_pages_free=eng.draft_cache.n_free,
+                   draft_invariants=eng.draft_cache.check_invariants())
+    if eng.config.speculative_k:
+        prop, acc = eng.spec_proposed - prop0, eng.spec_accepted - acc0
+        row.update(proposed=prop, accepted=acc,
+                   acceptance_rate=acc / prop if prop else None)
+    if cache.prefix_sharing:
+        st = cache.stats()
+        row.update({k: st[k] for k in (
+            "prefix_hits", "shared_pages_matched", "pages_shared",
+            "cow_copies", "reclaimed_pages", "prefix_nodes")})
+    _check_streams(what, by_rid, news, eng.vocab_size)
+    if not (row["executable_count"] == row["expected_executables"]
+            == row["graphs"]):
+        fail(f"{what}: programs {row['executable_count']}, graphs "
+             f"{row['graphs']}, expected {row['expected_executables']}")
+    if row["sentinel_fired"] or row["eager_dispatches_after_warmup"]:
+        fail(f"{what}: sentinel fired {row['sentinel_fired']} times, "
+             f"{row['eager_dispatches_after_warmup']} eager dispatches")
+    if row["pages_available"] != cache.n_blocks - 1 or row["live_requests"]:
+        fail(f"{what}: {row['pages_available']} pages back of "
+             f"{cache.n_blocks - 1}, {row['live_requests']} requests live")
+    if eng.draft_cache is not None and \
+            row["draft_pages_free"] != eng.draft_cache.n_blocks - 1:
+        fail(f"{what}: the draft cache kept pages: {row}")
+    return row, {i: list(r.out) for i, r in by_rid.items()}
+
+
+def _parity_row(eng, agree):
+    return dict(streams=agree, exact=all(r["equal"] for r in agree),
+                executable_count=eng.executable_count(),
+                expected_executables=eng.expected_executables,
+                sentinel_fired=eng.sentinel.fired,
+                eager_dispatches=(eng.programs.eager_dispatches
+                                  + eng.cache._copy.eager_dispatches),
+                pages_available=eng.cache.available_pages,
+                invariants=eng.cache.check_invariants())
+
+
+def _parity_gates(what, eng, row):
+    if not all(r["ok"] for r in row["streams"]):
+        fail(f"{what}: f32 streams differ from their reference: {row}")
+    if (row["executable_count"] != row["expected_executables"]
+            or row["sentinel_fired"] or row["eager_dispatches"]
+            or row["pages_available"] != eng.cache.n_blocks - 1):
+        fail(f"{what}: f32 engine contract broken: {row}")
+
+
+def lever_int8(torch, pt, fa, model, bf16_streams):
+    """(a) int8: int8_matmul against its plain version, the logits-drift
+    receipt, and the bf16+int8 engine over the serving trace against the
+    bf16 engine's streams."""
+    import numpy as np
+    from paddle_tpu_torch.models.generation import _gpt_params
+    from paddle_tpu_torch.quant import logits_drift_receipt
+    vocab = GPT2["vocab_size"]
+    cases = int8_matmul_phase(torch, model)
+    ids = torch.from_numpy(np.random.RandomState(SEED + 12).randint(
+        0, vocab, INT8_DRIFT)).cuda()
+    drift = logits_drift_receipt(_gpt_params(model),
+                                 model.gpt.config.layer_norm_eps,
+                                 GPT2["num_heads"], ids)
+    if not all(math.isfinite(v) for v in drift.values()):
+        fail(f"int8 logits drift is not finite: {drift}")
+    eng, warm = _lever_engine(torch, model, quant="int8")
+    checks = graph_vs_eager(torch, eng)
+    prompts, news = serve_trace(np, vocab)
+    row, streams = _lever_trace(torch, fa, eng, prompts, news, "int8")
+    same = sum(a == b for i in streams
+               for a, b in zip(streams[i], bf16_streams[i]))
+    total = sum(len(v) for v in streams.values())
+    row.update(lever="int8", dtype="bfloat16", quant="int8",
+               warmup_seconds=warm, graph_vs_eager=len(checks),
+               token_agreement_with_bf16=same / total,
+               streams_equal_to_bf16=sum(streams[i] == bf16_streams[i]
+                                         for i in streams),
+               drift=dict(drift, prompts=INT8_DRIFT[0],
+                          tokens=INT8_DRIFT[1]),
+               int8_matmul_cases=len(cases))
+    emit({"serving_levers": row})
+    del eng
+    torch.cuda.empty_cache()
     return row
+
+
+def lever_speculative(torch, pt, fa, model, parity):
+    """(b) speculative decoding at k = LEVER_K with DRAFT: f32 streams of
+    the parity requests against non-speculative greedy (solo generate,
+    near-tie rule), then the bf16 serving trace with that draft and
+    with a draft equal to the target."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    pt.seed(SEED + 1)
+    draft = GPTForCausalLM(GPTConfig(**DRAFT), device="cuda").eval()
+    eng, _ = _lever_engine(torch, model, draft, dtype=None,
+                           speculative_k=LEVER_K)
+    got = _staggered(eng, parity["prompts"], parity["news"])
+    par = _parity_row(eng, streams_agree(got, parity["want"],
+                                         parity["gaps"]))
+    par.update(proposed=eng.spec_proposed, accepted=eng.spec_accepted)
+    _parity_gates("speculative", eng, par)
+    del eng
+    prompts, news = serve_trace(np, GPT2["vocab_size"])
+    runs = {}
+    for name, d in (("distinct_draft", draft), ("draft_is_target", model)):
+        eng, warm = _lever_engine(torch, model, d, speculative_k=LEVER_K)
+        checks = graph_vs_eager(torch, eng) if not runs else []
+        runs[name], _ = _lever_trace(torch, fa, eng, prompts, news,
+                                     f"speculative {name}")
+        runs[name].update(warmup_seconds=warm, graph_vs_eager=len(checks))
+        del eng
+        torch.cuda.empty_cache()
+    row = dict(lever="speculative", dtype="bfloat16", k=LEVER_K,
+               draft={k: DRAFT[k] for k in ("vocab_size", "hidden_size",
+                                            "num_heads", "num_layers")},
+               parity_f32=par, **runs)
+    emit({"serving_levers": row})
+    rate = runs["draft_is_target"]["acceptance_rate"]
+    if rate is None or rate < 0.5:
+        fail(f"a draft equal to the target accepted {rate} of its "
+             "proposals (a near-tie flip aside, all should land)")
+    del draft
+    return row
+
+
+def lever_prefix(torch, pt, fa, model, parity):
+    """(c) prefix sharing: f32 streams of staggered shared-prefix
+    requests against the unshared f32 engine's, then the bf16
+    shared-prefix trace on the sharing engine and on the unshared one."""
+    import numpy as np
+    vocab = GPT2["vocab_size"]
+    rng = np.random.RandomState(SEED + 3)
+    head = rng.randint(0, vocab, (SHARED_PREFIX,)).astype(np.int32)
+    prompts = [np.concatenate([head, rng.randint(0, vocab, (t,)).astype(
+        np.int32)]) for t, _ in SHARED_PARITY]
+    news = [n_ for _, n_ in SHARED_PARITY]
+    want = _staggered(parity["engine"], prompts, news)
+    gaps = [_stream_gaps(torch, model, p, w) for p, w in zip(prompts, want)]
+    eng, _ = _lever_engine(torch, model, dtype=None, prefix_sharing=True)
+    got = _staggered(eng, prompts, news)
+    par = _parity_row(eng, streams_agree(got, want, gaps))
+    par.update(prefix_hits=eng.cache.prefix_hits,
+               shared_pages_matched=eng.cache.shared_pages_matched)
+    _parity_gates("prefix sharing", eng, par)
+    if not par["prefix_hits"]:
+        fail(f"the f32 sharing engine matched no prefix: {par}")
+    del eng, parity["engine"]
+    torch.cuda.empty_cache()
+    sp, sn, hit = shared_prefix_trace(np, SERVE_REQUESTS, vocab)
+    eng, _ = _lever_engine(torch, model)
+    unshared, _ = _lever_trace(torch, fa, eng, sp, sn, "unshared")
+    del eng
+    eng, warm = _lever_engine(torch, model, prefix_sharing=True)
+    checks = graph_vs_eager(torch, eng)
+    shared, _ = _lever_trace(torch, fa, eng, sp, sn, "prefix sharing")
+    shared.update(warmup_seconds=warm, graph_vs_eager=len(checks))
+    del eng
+    torch.cuda.empty_cache()
+    row = dict(lever="prefix_sharing", dtype="bfloat16",
+               trace=dict(requests=len(sp), prefix=SHARED_PREFIX,
+                          with_prefix=sum(hit), tails=SHARED_TAILS,
+                          new_tokens=SHARED_NEW),
+               parity_f32=par, shared=shared, unshared=unshared)
+    emit({"serving_levers": row})
+    if not shared["prefix_hits"]:
+        fail("the bf16 sharing engine matched no prefix")
+    if not shared["peak_pages_live"] < unshared["peak_pages_live"]:
+        fail(f"sharing held {shared['peak_pages_live']} pages at its "
+             f"peak, the unshared engine {unshared['peak_pages_live']}")
+    return row
+
+
+def lever_sampling(torch, pt, fa, model):
+    """(d) sampling inside the captured graphs: the bf16 engine at
+    SAMPLING, twice from one seed over the serving trace (streams equal);
+    every program, the sampled prefill and decode and (with prefix
+    sharing) the sampled chunk, bit-equal to eager on the same noise."""
+    import numpy as np
+    prompts, news = serve_trace(np, GPT2["vocab_size"])
+    runs, streams = [], []
+    for _ in range(2):
+        eng, warm = _lever_engine(torch, model, seed=SEED, **SAMPLING)
+        r, st = _lever_trace(torch, fa, eng, prompts, news, "sampling")
+        r["warmup_seconds"] = warm
+        runs.append(r)
+        streams.append(st)
+    checks = graph_vs_eager(torch, eng)
+    del eng
+    eng, _ = _lever_engine(torch, model, seed=SEED, prefix_sharing=True,
+                           **SAMPLING)
+    checks += graph_vs_eager(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    row = dict(lever="sampling", dtype="bfloat16", **SAMPLING, seed=SEED,
+               runs=runs, streams_identical=streams[0] == streams[1],
+               graph_vs_eager=[(c["program"], c["noise"]) for c in checks])
+    emit({"serving_levers": row})
+    if not row["streams_identical"]:
+        fail("two sampled runs from one seed gave different streams")
+    if not any(c["program"] == "chunk" and c["noise"] for c in checks):
+        fail("no sampled chunk program was held against its eager run")
+    return row
+
+
+def serving_levers_phase(torch, pt, fa, model, bf16_streams, parity):
+    """The serving raw-speed levers on GPT-2 small, one JSON line each:
+    int8, speculative decoding, prefix sharing, sampling."""
+    t0 = time.perf_counter()
+    lever_int8(torch, pt, fa, model, bf16_streams)
+    lever_speculative(torch, pt, fa, model, parity)
+    lever_prefix(torch, pt, fa, model, parity)
+    lever_sampling(torch, pt, fa, model)
+    emit({"serving_levers_seconds": time.perf_counter() - t0})
 
 
 def philox_phase(torch, build):
@@ -1392,8 +1871,9 @@ def main():
     gpt_rows, gpt_cases, gpt_model, gpt_launches = gpt_forward_phase(
         torch, pt, fa)
     generate_phase(torch, pt, fa, gpt_model)
-    serving_phase(torch, pt, fa, gpt_model)
-    serving_parity_phase(torch, pt, fa, gpt_model)
+    _, bf16_streams = serving_phase(torch, pt, fa, gpt_model)
+    parity = serving_parity_phase(torch, pt, fa, gpt_model)
+    serving_levers_phase(torch, pt, fa, gpt_model, bf16_streams, parity)
     del gpt_model
     torch.cuda.empty_cache()
 

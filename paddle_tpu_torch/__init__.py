@@ -21,10 +21,12 @@ dropout; GPT-2 generation (models.GPTForCausalLM, whose forward runs the
 forward kernel causally, and generate(): greedy, sampling, ragged
 prompts, beam search) and the continuous-batching engine over the paged
 KV cache (serving.ServingEngine), whose bucket programs are captured as
-CUDA graphs on the card.
+CUDA graphs on the card, with the engine's raw-speed levers: int8
+weights (quant.int8_serving), speculative decoding with a draft model
+and copy-on-write prefix sharing, both on the paged chunk program.
 """
 from . import (amp, core, device, models, nn, observability, ops,  # noqa: F401
-               optimizer, serving, static)
+               optimizer, quant, serving, static)
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
 from .core.generator import seed  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401

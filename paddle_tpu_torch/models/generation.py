@@ -37,11 +37,11 @@ import numpy as np
 import torch
 
 from ..core.dtypes import convert_dtype
+from ..quant.int8_serving import int8_matmul
 
 __all__ = ["generate_gpt"]
 
 _NEG = -1e30
-_QUANT = "ROADMAP.md queue A item 11 (int8 serving)"
 
 
 def _ln(x, w, b, eps):
@@ -79,14 +79,14 @@ def _gpt_params(model):
 
 
 def _mm(x, bp, name):
-    """One block matmul through the float weight ``<name>_w``. An int8
-    ``{"q8", "s"}`` leaf (the JAX package's serving int8 snapshot) is not
-    ported."""
+    """One block matmul through either the float weight ``<name>_w`` or
+    the serving int8 snapshot's ``{"q8", "s"}`` leaf
+    (quant/int8_serving.py: per-channel codes and dequant factors). The
+    float path is the ``x @ w`` it always was, so the f32 greedy parity
+    holds as before."""
     w = bp[name + "_w"]
     if isinstance(w, dict):
-        raise NotImplementedError(
-            f"int8 serving weights ({name}_w) are not ported yet: they "
-            f"come with {_QUANT}")
+        return int8_matmul(x, w["q8"], w["s"])
     return x @ w
 
 

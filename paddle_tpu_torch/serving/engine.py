@@ -1,6 +1,5 @@
 """ServingEngine: continuous-batching GPT serving over the paged cache
-(counterpart of paddle_tpu/serving/engine.py, its baseline
-configuration).
+(counterpart of paddle_tpu/serving/engine.py).
 
 Ties the pieces together: a weight snapshot (bf16 by default; the f32
 parity mode, dtype=None, is held token for token against
@@ -21,13 +20,30 @@ needs a host decision point at every boundary (who retires, who
 admits), so each dispatch is one graph replay and the host reads its
 tokens back.
 
+Three raw-speed levers compose on top of that loop, each off by
+default:
+
+- ``quant="int8"``: the weight snapshot's four block matmul weights
+  become per-channel int8 codes + f32 scales (quant/int8_serving.py) and
+  every block matmul runs int8 x int8 -> int32; the f32 parity mode
+  stays the accuracy reference.
+- ``speculative_k=k`` (with ``draft_model=``): the draft proposes k
+  greedy tokens in one decode dispatch, the target scores the anchor
+  and the k proposals in one chunk dispatch, and the host keeps the
+  longest agreeing prefix. Every emitted token is a target argmax over
+  a cache that held only accepted tokens, so the streams equal
+  non-speculative greedy: speculation changes latency, not output.
+- ``prefix_sharing=True``: admission matches the longest radix-indexed
+  prompt prefix, points the block table at the shared pages
+  (refcounted, copy-on-write) and prefills only the unshared suffix
+  through the chunk program.
+
 The engine follows the model's device: a model built on the card serves
 from the card, one built with device="cpu" from the CPU.
 
-Not ported yet, rejected with NotImplementedError naming the ROADMAP
-item: int8 weights (quant), speculative decoding (speculative_k) and
-prefix sharing (item 11), tensor-parallel plans (item 14). The JAX engine's metrics, request traces and OOM forensics belong
-to the observability slice (item 16).
+Not ported yet: tensor-parallel plans (``plan=``, ROADMAP.md queue A
+item 14). The JAX engine's metrics, request traces and OOM forensics
+belong to the observability slice (item 16).
 """
 from __future__ import annotations
 
@@ -40,14 +56,13 @@ import torch
 
 from ..models.generation import _cast_params, _gpt_params, _gumbel
 from ..observability.sentinel import RecompileSentinel
+from ..quant.int8_serving import quantize_params
 from .paged_cache import PagedKVCache
-from .programs import ProgramCache, make_decode_fn, make_prefill_fn
+from .programs import (ProgramCache, make_chunk_fn, make_decode_fn,
+                       make_prefill_fn)
 from .scheduler import BucketLadder, FifoScheduler, Request
 
 __all__ = ["ServingConfig", "ServingEngine", "build_serving_snapshot"]
-
-_ITEM11 = "ROADMAP.md queue A item 11 (int8, speculative decoding, " \
-    "prefix sharing)"
 
 
 def _leaves(params, path=""):
@@ -63,12 +78,17 @@ def _leaves(params, path=""):
 
 def build_serving_snapshot(params, cfg) -> dict:
     """Raw generation params -> this config's serving snapshot: the
-    float cast to cfg.dtype, as fresh tensors that the engine owns (a
-    weight swap copies into them in place; the model's own parameters
-    are never written). The one builder that engine build and
-    ``swap_weights(cast=True)`` share."""
+    float cast to cfg.dtype, then (``quant="int8"``) the four block
+    matmul weights as ``{"q8", "s"}`` leaves, all fresh tensors that the
+    engine owns (a weight swap copies into them in place; the model's
+    own parameters are never written). The one function that engine
+    build and ``swap_weights(cast=True)`` share, so a new snapshot
+    always has the structure the captured programs read."""
     dtype = None if cfg.dtype is None else getattr(torch, cfg.dtype)
-    return _clone(_cast_params(params, dtype))
+    snap = _cast_params(params, dtype)
+    if cfg.quant == "int8":
+        snap = quantize_params(snap, cfg.quant_config)
+    return _clone(snap)
 
 
 def _clone(params):
@@ -98,10 +118,11 @@ class ServingConfig:
     top_p: Optional[float] = None
     eos_token_id: Optional[int] = None # default; per-request override
     seed: int = 0
-    # -- the JAX engine's raw-speed levers and tp plans: not ported ---------
-    quant: Optional[object] = None
-    speculative_k: int = 0
-    prefix_sharing: bool = False
+    # -- raw-speed levers (all off by default) -------------------------------
+    quant: Optional[object] = None     # "int8" | a config with int8_compute
+    speculative_k: int = 0             # draft proposals per boundary
+    prefix_sharing: bool = False       # radix/COW shared prompt pages
+    # -- tensor parallelism: not ported --------------------------------------
     plan: Optional[object] = None
 
     def __post_init__(self):
@@ -109,21 +130,29 @@ class ServingConfig:
             raise NotImplementedError(
                 "plan= (tensor-parallel serving) is not ported yet: it "
                 "comes with ROADMAP.md queue A item 14")
-        # the JAX config's own value checks come first: a value it
-        # refuses is refused here too, not reported as unported
-        if isinstance(self.quant, str) and self.quant != "int8":
+        self.quant_config = None
+        if self.quant is not None and not isinstance(self.quant, str):
+            # a quantization config object opts into serving int8
+            # through int8_compute (read by name: no quant package is
+            # imported for it); its weight_bits sets the code width
+            if not getattr(self.quant, "int8_compute", False):
+                raise ValueError(
+                    "serving quant takes a config with int8_compute=True "
+                    "(or the string 'int8')")
+            self.quant_config = self.quant
+            self.quant = "int8"
+        if self.quant not in (None, "int8"):
             raise ValueError(
                 f"quant={self.quant!r}: only 'int8' (bf16/f32 are the "
                 "dtype= cast, not a quant mode)")
         if self.speculative_k < 0:
             raise ValueError(
                 f"speculative_k={self.speculative_k} must be >= 0")
-        for name, off in (("quant", None), ("speculative_k", 0),
-                          ("prefix_sharing", False)):
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"ServingConfig({name}=...) is not ported yet: it "
-                    f"comes with {_ITEM11}")
+        if self.speculative_k and self.temperature != 0.0:
+            raise ValueError(
+                "speculative decoding requires greedy (temperature=0): "
+                "acceptance keeps the longest prefix agreeing with the "
+                "target argmax")
         if self.dtype not in (None, "bfloat16", "float32", "float16"):
             raise ValueError(
                 f"dtype={self.dtype!r}: 'bfloat16', 'float16', "
@@ -155,9 +184,15 @@ class ServingConfig:
 
 class ServingEngine:
     """Continuous-batching serving over one GPTForCausalLM, on the
-    model's device."""
+    model's device.
 
-    def __init__(self, model, config: Optional[ServingConfig] = None):
+    ``draft_model`` (required iff ``config.speculative_k >= 1``): the
+    small proposer, any GPTForCausalLM over the same vocabulary on the
+    same device; its own paged cache tracks the target position for
+    position."""
+
+    def __init__(self, model, config: Optional[ServingConfig] = None,
+                 draft_model=None):
         self.config = cfg = config or ServingConfig()
         mcfg = model.gpt.config
         if cfg.max_total_tokens > mcfg.max_seq_len:
@@ -166,9 +201,10 @@ class ServingEngine:
                 f"model's max_seq_len={mcfg.max_seq_len}")
         self.device = next(model.parameters()).device
         self.n_heads = int(mcfg.num_heads)
-        # weight snapshot, cast once at engine build into tensors the
-        # engine owns; new weights land only through swap_weights(), in
-        # place, so no captured program changes
+        # weight snapshot, cast (and int8-quantized under quant="int8")
+        # once at engine build into tensors the engine owns; new weights
+        # land only through swap_weights(), in place, so no captured
+        # program changes
         self.params = build_serving_snapshot(_gpt_params(model), cfg)
         self.eps = float(mcfg.layer_norm_eps)
         self.vocab_size = int(mcfg.vocab_size)
@@ -177,7 +213,7 @@ class ServingEngine:
             n_layers=int(mcfg.num_layers), n_blocks=cfg.n_blocks,
             block_size=cfg.block_size, n_heads=self.n_heads, head_dim=hd,
             dtype=cfg.dtype or self.params["wte"].dtype,
-            device=self.device)
+            prefix_sharing=cfg.prefix_sharing, device=self.device)
         self.ladder = BucketLadder(cfg.prefill_buckets,
                                    cfg.decode_buckets, cfg.block_size)
         self.sched = FifoScheduler(cfg.max_slots, cfg.max_admit)
@@ -189,6 +225,19 @@ class ServingEngine:
                                          n_steps=int(cfg.decode_chunk))
         self._prefill_fn = make_prefill_fn(self.eps, self.n_heads,
                                            cfg.block_size, *sampling)
+        # the chunk program serves both levers (speculative verify at
+        # [slots, k+1], shared-prefix suffix prefill at [admit, bucket])
+        self._spec_k = int(cfg.speculative_k)
+        self._chunk_fn = None
+        if cfg.prefix_sharing or self._spec_k:
+            self._chunk_fn = make_chunk_fn(self.eps, self.n_heads,
+                                           cfg.block_size, *sampling)
+        self.draft_cache = self.draft_params = None
+        self._draft_prefill_fn = self._draft_decode_fn = None
+        # speculative receipts: proposals scored and accepted
+        self.spec_proposed = self.spec_accepted = 0
+        if self._spec_k:
+            self._init_draft(draft_model)
         self.programs = ProgramCache(self.device)
         self.sentinel = RecompileSentinel("serving")
         # the sampling noise's generator (drawn outside the programs)
@@ -197,17 +246,79 @@ class ServingEngine:
             self._gen = torch.Generator(device=self.device)
             self._gen.manual_seed(int(cfg.seed))
 
+    def _init_draft(self, draft_model):
+        cfg = self.config
+        if draft_model is None:
+            raise ValueError(
+                "speculative_k >= 1 needs a draft_model: the draft "
+                "proposes, the target verifies")
+        dcfg = draft_model.gpt.config
+        if int(dcfg.vocab_size) != self.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{self.vocab_size}: proposals would not be comparable "
+                "token ids")
+        if cfg.max_total_tokens > dcfg.max_seq_len:
+            raise ValueError(
+                f"max_total_tokens={cfg.max_total_tokens} exceeds the "
+                f"draft's max_seq_len={dcfg.max_seq_len}")
+        ddev = next(draft_model.parameters()).device
+        if ddev != self.device:
+            raise ValueError(f"draft model on {ddev}, target on "
+                             f"{self.device}: they must share a device")
+        heads = int(dcfg.num_heads)
+        eps = float(dcfg.layer_norm_eps)
+        # the draft keeps the plain float cast (no int8): it is small by
+        # construction, and its only job is proposal quality
+        dtype = None if cfg.dtype is None else getattr(torch, cfg.dtype)
+        self.draft_params = _clone(_cast_params(_gpt_params(draft_model),
+                                                dtype))
+        self.draft_cache = PagedKVCache(
+            n_layers=int(dcfg.num_layers), n_blocks=cfg.n_blocks,
+            block_size=cfg.block_size, n_heads=heads,
+            head_dim=int(dcfg.hidden_size) // heads,
+            dtype=cfg.dtype or self.draft_params["wte"].dtype,
+            device=self.device)
+        greedy = (0.0, None, None)    # proposals are always argmax
+        self._draft_prefill_fn = make_prefill_fn(eps, heads,
+                                                 cfg.block_size, *greedy)
+        # one dispatch proposes all k tokens
+        self._draft_decode_fn = make_decode_fn(eps, heads, cfg.block_size,
+                                               *greedy,
+                                               n_steps=self._spec_k)
+
     # -- program-count contract ----------------------------------------------
     def executable_count(self) -> int:
         """Programs the engine holds: CUDA graphs on the card, eager
-        entries on the CPU."""
-        return len(self.programs)
+        entries on the CPU (the page-copy program included)."""
+        return len(self.programs) + self.cache.copy_executables()
 
     @property
     def expected_executables(self) -> int:
-        """The steady-state program budget the sentinel pins: one per
-        prefill bucket and one per decode bucket."""
-        return self.ladder.size
+        """The steady-state program budget the sentinel pins. Levers
+        swap programs rather than stack them (sharing replaces the dense
+        prefill with chunk suffix prefills and adds the page copy;
+        speculation replaces the plain decode with the draft's prefill
+        and k-proposal decode and the chunk verify), and chunk programs
+        dedupe by shape: a verify width equal to a suffix bucket is one
+        program."""
+        cfg = self.config
+        n = 0
+        chunk_shapes = set()
+        if cfg.prefix_sharing:
+            for s in self.ladder.prefill:
+                chunk_shapes.add((self.sched.max_admit, s))
+            n += 1                       # the COW page-copy program
+        else:
+            n += len(self.ladder.prefill)
+        if self._spec_k:
+            for b in self.ladder.decode:
+                chunk_shapes.add((b, self._spec_k + 1))
+            n += len(self.ladder.prefill)   # draft prompt prefill
+            n += len(self.ladder.decode)    # draft k-proposal decode
+        else:
+            n += len(self.ladder.decode)
+        return n + len(chunk_shapes)
 
     # -- request intake ------------------------------------------------------
     def submit(self, ids, max_new_tokens: int, rid=None,
@@ -256,6 +367,23 @@ class ServingEngine:
                              self._noise((self.config.decode_chunk, b,
                                           self.vocab_size)))
 
+    def _chunk(self, tables, ids, starts, lens):
+        """-> (all_tok [B, S], picked [B])."""
+        b = ids.shape[0]
+        return self.programs("chunk", self._chunk_fn, self.cache.pools,
+                             self.params, (tables, ids, starts, lens),
+                             self._noise((b, self.vocab_size)))
+
+    def _draft_prefill(self, tables, ids, lens):
+        return self.programs("draft_prefill", self._draft_prefill_fn,
+                             self.draft_cache.pools, self.draft_params,
+                             (tables, ids, lens))
+
+    def _draft_decode(self, tables, toks, positions):
+        return self.programs("draft_decode", self._draft_decode_fn,
+                             self.draft_cache.pools, self.draft_params,
+                             (tables, toks, positions))
+
     # -- the ladder warmup ---------------------------------------------------
     def warmup(self):
         """Build the whole ladder up front on dummy lanes (all-zero
@@ -266,14 +394,35 @@ class ServingEngine:
         cfg = self.config
         w = cfg.table_width
         a = self.sched.max_admit
+
+        def lanes(rows, width=None):
+            return (np.zeros((rows, w), np.int32),
+                    np.zeros((rows,) if width is None else (rows, width),
+                             np.int32))
+
         for s in self.ladder.prefill:
-            self._prefill(np.zeros((a, w), np.int32),
-                          np.zeros((a, s), np.int32),
-                          np.ones((a,), np.int32))
+            if cfg.prefix_sharing:
+                # sharing serves every admission through the chunk
+                # program (starts 0 on a full miss is a dense prefill)
+                self._chunk(*lanes(a, s), np.zeros((a,), np.int32),
+                            np.ones((a,), np.int32))
+            else:
+                self._prefill(*lanes(a, s), np.ones((a,), np.int32))
+        if cfg.prefix_sharing:
+            self.cache.warm_copy()
         for b in self.ladder.decode:
-            self._decode(np.zeros((b, w), np.int32),
-                         np.zeros((b,), np.int32),
-                         np.zeros((b,), np.int32))
+            if self._spec_k:
+                # speculation replaces the plain decode with the draft's
+                # k-proposal decode and the target's [b, k+1] verify
+                self._chunk(*lanes(b, self._spec_k + 1),
+                            np.zeros((b,), np.int32),
+                            np.ones((b,), np.int32))
+                self._draft_decode(*lanes(b), np.zeros((b,), np.int32))
+            else:
+                self._decode(*lanes(b), np.zeros((b,), np.int32))
+        if self._spec_k:
+            for s in self.ladder.prefill:
+                self._draft_prefill(*lanes(a, s), np.ones((a,), np.int32))
         self.sentinel.observe(self.executable_count(),
                               expected=self.expected_executables,
                               signature=self._shape_signature(None, None))
@@ -283,65 +432,169 @@ class ServingEngine:
     def step(self) -> List[Request]:
         """Retire, admit, decode: returns the requests that finished at
         this boundary (their pages already freed)."""
-        cfg = self.config
         finished = self.sched.retire_finished()
         for r in finished:
-            self.cache.free(r.rid)
+            self._free(r)
             r.done_ts = time.perf_counter()
-        batch = self.sched.take_admissible(self.cache)
+        batch = self.sched.take_admissible(
+            self.cache,
+            () if self.draft_cache is None else (self.draft_cache,))
         prefill_sig = decode_sig = None
+        chunk_sigs: List[Tuple[int, int]] = []
         if batch:
-            t0 = time.perf_counter()
-            a = self.sched.max_admit
-            rids: List[object] = []
-            for r in batch:
-                self.cache.alloc(r.rid, r.total_tokens)
-                rids.append(r.rid)
-            rids += [None] * (a - len(batch))
-            s = self.ladder.pick_prefill(max(r.prompt_len for r in batch))
-            ids = np.zeros((a, s), np.int32)
-            lens = np.ones((a,), np.int32)
-            for i, r in enumerate(batch):
-                ids[i, :r.prompt_len] = r.ids
-                lens[i] = r.prompt_len
-            tok = self._prefill(
-                self.cache.table_array(rids, cfg.table_width), ids, lens)
-            prefill_sig = (a, s)
-            now = time.perf_counter()
-            for i, r in enumerate(batch):
-                r.admitted_ts = t0
-                r.first_token_ts = now
-                r.pos = r.prompt_len
-                r.accept(int(tok[i]))
-
+            prefill_sig = self._admit(batch, chunk_sigs)
         active = self.sched.active()
         if active:
-            b = self.ladder.pick_decode(len(active))
-            toks = np.zeros((b,), np.int32)
-            positions = np.zeros((b,), np.int32)
-            rids = []
-            for i, r in enumerate(active):
-                toks[i] = r.out[-1]
-                positions[i] = r.pos
-                rids.append(r.rid)
-            rids += [None] * (b - len(active))
-            toks_out = self._decode(
-                self.cache.table_array(rids, cfg.table_width), toks,
-                positions)                              # [chunk, B]
-            for i, r in enumerate(active):
-                for s in range(toks_out.shape[0]):
-                    if r.done:
-                        break   # over-decoded junk: the host trims
-                    r.pos += 1
-                    r.accept(int(toks_out[s, i]))
-            decode_sig = (b,)
-
+            decode_sig = (self._speculate(active, chunk_sigs)
+                          if self._spec_k else self._decode_active(active))
         if batch or active:
             self.sentinel.observe(
                 self.executable_count(),
                 expected=self.expected_executables,
-                signature=self._shape_signature(prefill_sig, decode_sig))
+                signature=self._shape_signature(prefill_sig, decode_sig,
+                                                chunk_sigs))
         return finished
+
+    def _free(self, r):
+        self.cache.free(r.rid)
+        if self.draft_cache is not None:
+            self.draft_cache.free(r.rid)
+
+    def _admit(self, batch, chunk_sigs):
+        """One admission: page allocation (radix-matched under sharing),
+        the draft's full-prompt prefill under speculation, then the
+        target's prefill (the chunk program over each row's unshared
+        suffix under sharing). Returns the dense prefill's signature, or
+        None when the chunk program ran."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        a = self.sched.max_admit
+        rids: List[object] = []
+        for r in batch:
+            if cfg.prefix_sharing:
+                # the longest indexed prompt prefix rides shared pages
+                _, r.shared_tokens = self.cache.alloc_shared(
+                    r.rid, r.total_tokens, r.ids)
+            else:
+                self.cache.alloc(r.rid, r.total_tokens)
+            rids.append(r.rid)
+        rids += [None] * (a - len(batch))
+        if self.draft_cache is not None:
+            # the draft mirrors the target position for position; its
+            # cache never shares, so it prefills the full prompt
+            for r in batch:
+                self.draft_cache.alloc(r.rid, r.total_tokens)
+            ids, lens = self._window(batch, a, 0)
+            self._draft_prefill(
+                self.draft_cache.table_array(rids, cfg.table_width),
+                ids, lens)
+        tables = self.cache.table_array(rids, cfg.table_width)
+        if cfg.prefix_sharing:
+            # each row forwards only its unshared tail, starting at its
+            # shared-token offset and attending the shared pages through
+            # the table gather (a full miss is starts 0)
+            ids, lens = self._window(batch, a, None)
+            starts = np.zeros((a,), np.int32)
+            for i, r in enumerate(batch):
+                starts[i] = r.shared_tokens
+            _, tok = self._chunk(tables, ids, starts, lens)
+            chunk_sigs.append(ids.shape)
+            sig = None
+        else:
+            ids, lens = self._window(batch, a, 0)
+            tok = self._prefill(tables, ids, lens)
+            sig = ids.shape
+        now = time.perf_counter()
+        for i, r in enumerate(batch):
+            r.admitted_ts = t0
+            r.first_token_ts = now
+            r.pos = r.prompt_len
+            r.accept(int(tok[i]))
+        if cfg.prefix_sharing:
+            # adopt the prompts' full-chunk pages into the radix index
+            # after the prefill landed their K/V: the next request with
+            # this prefix shares them
+            for r in batch:
+                self.cache.register_prefix(r.rid, r.ids)
+        return sig
+
+    def _window(self, batch, a, start):
+        """The admit batch's prompts from ``start`` (None: each row's
+        shared-token offset), right-padded to the prefill bucket of the
+        longest: ids [a, S], lens [a] (1 on padded lanes)."""
+        tails = [r.ids[r.shared_tokens if start is None else start:]
+                 for r in batch]
+        s = self.ladder.pick_prefill(max(t.size for t in tails))
+        ids = np.zeros((a, s), np.int32)
+        lens = np.ones((a,), np.int32)
+        for i, t in enumerate(tails):
+            ids[i, :t.size] = t
+            lens[i] = t.size
+        return ids, lens
+
+    def _lanes(self, active):
+        """Decode lanes of the active set: bucket b, last tokens,
+        positions and rids (None on padded lanes)."""
+        b = self.ladder.pick_decode(len(active))
+        toks = np.zeros((b,), np.int32)
+        positions = np.zeros((b,), np.int32)
+        rids: List[object] = []
+        for i, r in enumerate(active):
+            toks[i] = r.out[-1]
+            positions[i] = r.pos
+            rids.append(r.rid)
+        rids += [None] * (b - len(active))
+        return b, toks, positions, rids
+
+    def _decode_active(self, active):
+        b, toks, positions, rids = self._lanes(active)
+        toks_out = self._decode(
+            self.cache.table_array(rids, self.config.table_width), toks,
+            positions)                                   # [chunk, B]
+        for i, r in enumerate(active):
+            for s in range(toks_out.shape[0]):
+                if r.done:
+                    break   # over-decoded junk: the host trims
+                r.pos += 1
+                r.accept(int(toks_out[s, i]))
+        return (b,)
+
+    def _speculate(self, active, chunk_sigs):
+        """A speculative boundary: the draft proposes k tokens in one
+        dispatch, the target scores anchor + proposals in one chunk
+        dispatch, the host keeps the longest agreeing prefix. Each
+        emitted token is a target argmax over a cache prefix that held
+        only accepted tokens, hence equal to sequential greedy."""
+        k, width = self._spec_k, self.config.table_width
+        b, toks, positions, rids = self._lanes(active)
+        props = self._draft_decode(
+            self.draft_cache.table_array(rids, width), toks,
+            positions)                                   # [k, B]
+        ids = np.zeros((b, k + 1), np.int32)
+        lens = np.ones((b,), np.int32)
+        for i, r in enumerate(active):
+            # emission cap: proposals past the budget are junk the chunk
+            # program routes to scratch (lens masks them)
+            cap = min(k, r.max_new_tokens - len(r.out))
+            ids[i, 0] = r.out[-1]
+            ids[i, 1:] = props[:, i]
+            lens[i] = cap + 1
+        all_tok, _ = self._chunk(self.cache.table_array(rids, width), ids,
+                                 positions, lens)        # [B, k+1]
+        for i, r in enumerate(active):
+            cap = int(lens[i]) - 1
+            self.spec_proposed += cap
+            n = 0
+            while n < cap:
+                tok = int(all_tok[i, n])                 # target argmax
+                r.pos += 1
+                r.accept(tok)
+                n += 1
+                if r.done or n >= cap or int(props[n - 1, i]) != tok:
+                    break   # the draft diverged: later scores are junk
+            self.spec_accepted += n
+        chunk_sigs.append((b, k + 1))
+        return (b,)
 
     # -- eviction + hot weight swap ------------------------------------------
     def evict_requests(self) -> List[Request]:
@@ -354,7 +607,7 @@ class ServingEngine:
         another engine resumes it exactly. Pages are freed."""
         running = list(self.sched.running.values())
         for r in running:
-            self.cache.free(r.rid)
+            self._free(r)
         self.sched.running.clear()
         queued = list(self.sched.queue)
         self.sched.queue.clear()
@@ -372,7 +625,7 @@ class ServingEngine:
         stays quiet. cast=True runs ``params`` (generation params, e.g.
         from models.generation._gpt_params) through the engine's
         snapshot build first; cast=False takes a snapshot already in
-        the serving dtype."""
+        the serving dtype (under quant="int8" with its int8 leaves)."""
         new = build_serving_snapshot(params, self.config) if cast \
             else params
         old_leaves, new_leaves = _leaves(self.params), _leaves(new)
@@ -392,7 +645,7 @@ class ServingEngine:
                 o.copy_(n)
         return self
 
-    def _shape_signature(self, prefill_sig, decode_sig):
+    def _shape_signature(self, prefill_sig, decode_sig, chunk_sigs=()):
         """Sentinel signature: the bucket shapes this step dispatched
         (a violation's diff then names the drifting bucket)."""
         sig = []
@@ -400,6 +653,8 @@ class ServingEngine:
             sig.append(("prefill", tuple(prefill_sig), "bucket"))
         if decode_sig is not None:
             sig.append(("decode", tuple(decode_sig), "bucket"))
+        for cs in chunk_sigs:
+            sig.append(("chunk", tuple(cs), "bucket"))
         return tuple(sig)
 
     # -- convenience drains --------------------------------------------------

@@ -1,6 +1,7 @@
-"""The serving engine's two programs, bucketed prefill and the paged
-decode chunk, and the per-engine program cache that captures each of
-them as a CUDA graph (counterpart of paddle_tpu/serving/programs.py).
+"""The serving engine's programs, bucketed prefill, the paged decode
+chunk and the paged multi-token chunk, and the per-engine program cache
+that captures each of them as a CUDA graph (counterpart of
+paddle_tpu/serving/programs.py).
 
 The JAX engine runs a small fixed set of compiled executables over
 static shapes, never a compile per request:
@@ -8,7 +9,8 @@ static shapes, never a compile per request:
   n_prefill_buckets   prefill programs   (admit width x bucket length)
   n_decode_buckets    decode programs    (slot-count buckets)
 
-The port keeps that set. On the card each (program, input shapes) entry
+and its raw-speed levers swap some of them for chunk programs (see
+ServingEngine.expected_executables). The port keeps that set. On the card each (program, input shapes) entry
 of an engine's ProgramCache is captured once, at the engine's warmup(),
 as a torch.cuda.CUDAGraph, and every later dispatch replays it; on the
 CPU each entry is the eager function. The RecompileSentinel pins the
@@ -42,9 +44,12 @@ The rules of a captured program, which every body here keeps:
   in-place index_put_): they are never reallocated, and a weight swap
   copies into them.
 
-`make_chunk_fn` (speculative verify and shared-prefix suffix prefill)
-and the tensor-parallel programs are not ported (ROADMAP.md queue A
-items 10a and 14).
+`make_chunk_fn` is the one program behind speculative verify and the
+shared-prefix suffix prefill; unlike decode it routes the writes of
+positions past a row's valid length to scratch instead of clamping them
+into the row's last page, because under prefix sharing that page may be
+borrowed. The tensor-parallel programs are not ported (ROADMAP.md queue
+A item 14).
 """
 from __future__ import annotations
 
@@ -56,9 +61,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.generation import _attend, _ln, _mm, _pick, _prefill
+from ..models.generation import _NEG, _attend, _ln, _mm, _pick, _prefill
 
-__all__ = ["make_decode_fn", "make_prefill_fn", "ProgramCache"]
+__all__ = ["make_decode_fn", "make_prefill_fn", "make_chunk_fn",
+           "ProgramCache"]
 
 DISPATCH_TIMES_KEPT = 4096
 
@@ -170,10 +176,99 @@ def make_prefill_fn(eps: float, n_heads: int, block_size: int,
     return run
 
 
+def make_chunk_fn(eps: float, n_heads: int, block_size: int,
+                  temperature: float, top_k, top_p):
+    """Multi-token forward over the paged cache, the one program behind
+    two levers:
+
+    - speculative verify: the target scores a draft's k proposals plus
+      the anchor token in one dispatch (``[slots, k+1]``) and returns
+      every position's greedy argmax, so the host keeps the longest
+      agreeing prefix;
+    - shared-prefix suffix prefill: a request whose prompt head already
+      lives in shared pages forwards only its unshared tail (``[admit,
+      suffix bucket]``), its queries attending the shared pages through
+      the same table gather decode uses.
+
+    run(pools, tables, toks, starts, lens, params, noise=None)
+        -> (all_tok [B, S], picked [B]) (int64); K/V written in place
+
+    toks [B, S] is a right-padded token window, starts [B] the logical
+    position of toks[:, 0] (the tokens already in the cache), lens [B]
+    the valid counts (1..S), noise [B, V] the Gumbel noise of the pick
+    (None when greedy). Position q of row i lands its K/V at logical
+    ``starts[i] + q``; positions past lens write to scratch page 0. The
+    per-query causal mask (key position <= query position) gives every
+    query the support of a decode step at its position, so the verify
+    argmaxes equal sequential decode. all_tok is the f32 argmax at every
+    position; picked is the token at each row's last valid position (the
+    next token a non-speculative boundary would emit)."""
+
+    def run(pools, tables, toks, starts, lens, params, noise=None):
+        b, s = toks.shape
+        hd = params["wte"].shape[1] // n_heads
+        scale = 1.0 / math.sqrt(hd)
+        dev = toks.device
+        offs = torch.arange(s, device=dev)
+        positions = starts[:, None] + offs[None, :]          # [B, S]
+        valid = offs[None, :] < lens[:, None]                # [B, S]
+        wpe = params["wpe"]
+        x = (params["wte"][toks]
+             + wpe[positions.clamp(max=wpe.shape[0] - 1)])  # [B, S, H]
+        bi = torch.arange(b, device=dev)
+        col = (positions // block_size).clamp(max=tables.shape[1] - 1)
+        blk = torch.where(valid, tables[bi[:, None], col], 0)  # [B, S]
+        off = positions % block_size
+        for bp, (kp, vp) in zip(params["blocks"], pools):
+            xn = _ln(x, bp["ln1_w"], bp["ln1_b"], eps)
+            qkv = (_mm(xn, bp, "qkv") + bp["qkv_b"]).reshape(
+                b, s, 3, n_heads, hd)
+            q = qkv[:, :, 0].permute(0, 2, 1, 3)         # [B,nh,S,hd]
+            kp[blk, off] = qkv[:, :, 1]
+            vp[blk, off] = qkv[:, :, 2]
+            kc = _gathered(kp, tables, n_heads, hd)
+            vc = _gathered(vp, tables, n_heads, hd)
+            att = torch.einsum("bnqh,bnkh->bnqk", q, kc) * scale
+            kpos = torch.arange(kc.shape[2], device=dev)
+            mask = kpos[None, None, None, :] <= positions[:, None, :, None]
+            att = torch.where(mask, att, _NEG)
+            p = torch.softmax(att.float(), dim=-1).to(x.dtype)
+            ctx = torch.einsum("bnqk,bnkh->bnqh", p, vc)
+            ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, -1)
+            x = x + _mm(ctx, bp, "proj") + bp["proj_b"]
+            ff = _ln(x, bp["ln2_w"], bp["ln2_b"], eps)
+            ff = torch.nn.functional.gelu(_mm(ff, bp, "fc1") + bp["fc1_b"])
+            x = x + _mm(ff, bp, "fc2") + bp["fc2_b"]
+        h = _ln(x, params["lnf_w"], params["lnf_b"], eps)
+        logits = h @ params["wte"].T                         # [B, S, V]
+        all_tok = torch.argmax(logits.float(), dim=-1)
+        last = logits[bi, lens - 1]                          # [B, V]
+        return all_tok, _pick(last, noise, temperature, top_k, top_p)
+
+    return run
+
+
+def copy_page_fn(pools, src, dst, params=None, noise=None):
+    """The copy-on-write page copy: page ``src`` of every pool into page
+    ``dst`` (src, dst [1]), in place. Scratch into scratch is a harmless
+    write, which is how the program is captured at warm-up."""
+    for kv in pools:
+        for t in kv:
+            t.index_copy_(0, dst, t.index_select(0, src))
+
+
+def _to_host(out):
+    if out is None:
+        return None
+    if isinstance(out, tuple):
+        return tuple(o.cpu().numpy() for o in out)
+    return out.cpu().numpy()
+
+
 class _Graph:
     """One captured program: the graph, its static input buffers (one
     int64 buffer, viewed per input), its static noise buffer and its
-    output tensor."""
+    output (a tensor, a tuple of tensors, or None)."""
     __slots__ = ("graph", "flat", "inputs", "noise", "out")
 
 
@@ -183,7 +278,8 @@ class ProgramCache:
 
     ``cache(name, fn, pools, params, inputs, noise)`` runs
     ``fn(pools, *inputs, params, noise)`` and returns its output as a
-    numpy array. ``inputs`` are host integer arrays (tables, tokens,
+    numpy array (a tuple of them for a program with several outputs,
+    None for one without). ``inputs`` are host integer arrays (tables, tokens,
     positions, lengths); ``noise`` is a float tensor on the device, or
     None when greedy.
 
@@ -241,7 +337,7 @@ class ProgramCache:
             ent.graph.replay()
             self.replays += 1
             out = ent.out
-        res = out.cpu().numpy()
+        res = _to_host(out)
         self.dispatch_ms.setdefault(
             name, deque(maxlen=DISPATCH_TIMES_KEPT)).append(
             (time.perf_counter() - t0) * 1e3)

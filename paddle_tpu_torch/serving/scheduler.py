@@ -47,6 +47,8 @@ class Request:
     # -- runtime (engine-owned) ---------------------------------------------
     pos: int = 0                       # next K/V write position
     out: List[int] = field(default_factory=list)
+    shared_tokens: int = 0             # prompt head served from shared
+    #                                    pages (prefix-sharing admission)
     admitted_ts: Optional[float] = None
     first_token_ts: Optional[float] = None
     done_ts: Optional[float] = None
@@ -156,21 +158,33 @@ class FifoScheduler:
     def has_work(self) -> bool:
         return bool(self.queue or self.running)
 
-    def take_admissible(self, cache) -> List[Request]:
+    def take_admissible(self, cache, extra_caches=()) -> List[Request]:
         """Pop the FIFO prefix that fits this token boundary: bounded by
         free slots, the admit width, and page availability
         (whole-lifetime pages per request, accounted cumulatively across
         the batch). Stops at the first request that does not fit: no
-        overtaking, no starvation."""
+        overtaking, no starvation.
+
+        ``extra_caches`` (the speculative draft's page pool) must fit
+        every admitted request too: the draft cache tracks the target
+        position for position, so a request admitted into one but not
+        the other would wedge mid-decode. Availability counts the prefix
+        index's reclaimable pages (``available_pages``); the count is
+        conservative under sharing, where a prefix hit needs fewer fresh
+        pages than budgeted here."""
+        caches = (cache,) + tuple(extra_caches)
         admitted: List[Request] = []
-        spoken_for = 0
+        spoken_for = [0] * len(caches)
         while (self.queue
                and len(admitted) < self.max_admit
                and self.n_running + len(admitted) < self.max_slots):
-            need = cache.blocks_for(self.queue[0].total_tokens)
-            if spoken_for + need > cache.available_pages:
+            head = self.queue[0]
+            if any(taken + c.blocks_for(head.total_tokens)
+                   > c.available_pages
+                   for taken, c in zip(spoken_for, caches)):
                 break
-            spoken_for += need
+            for i, c in enumerate(caches):
+                spoken_for[i] += c.blocks_for(head.total_tokens)
             admitted.append(self.queue.popleft())
         for r in admitted:
             self.running[r.rid] = r

@@ -167,3 +167,63 @@ def test_rel_gap_is_the_top2_gap_over_the_top(cs):
     import torch
     lg = torch.tensor([[1.0, 3.0, 2.0], [-2.0, -1.0, -1.0]])
     np.testing.assert_allclose(cs._rel_gap(lg), [1 / 3, 0.0])
+
+
+def test_int8_acc_plain_is_the_exact_int32_accumulator(cs):
+    """The float64 plain version of int8_gemm equals torch._int_mm's
+    int32 accumulator at GPT-2 small's widest contraction (K 3072),
+    extreme codes included (|acc| up to 128 * 128 * 3072, past f32's
+    24-bit significand), and refuses a K past float64's exact range."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    codes = torch.randint(-128, 128, (5, 3072), generator=g,
+                          dtype=torch.int8)
+    q8 = torch.randint(-128, 128, (768, 3072), generator=g,
+                       dtype=torch.int8).t()
+    codes[0] = -128
+    q8[:, 0] = -128
+    want = torch._int_mm(codes, q8)
+    got = cs.int8_acc_plain(torch, codes, q8)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, want.double())
+    assert got[0, 0].item() == 128 * 128 * 3072
+    huge = torch.zeros((1, 1), dtype=torch.int8).expand(1, 2 ** 39)
+    with pytest.raises(ValueError, match="exactly"):
+        cs.int8_acc_plain(torch, huge, huge.t())
+
+
+def test_int8_bound_at_the_fc2_shape(cs):
+    """x [128, 3072] bf16 and q8 [3072, 768] int8 read once, the scales
+    and the bf16 output written once; 2 m k n int8 operations at 1979
+    TOP/s: bound by bytes."""
+    nbytes, ops, bound_ms, by = cs.int8_bound(128, 3072, 768)
+    assert nbytes == 128 * 3072 * 2 + 3072 * 768 + 768 * 4 + 128 * 768 * 2
+    assert ops == 2 * 128 * 3072 * 768
+    assert by == "bytes"
+    assert bound_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert cs.PEAK_FLOPS["int8"] == 1979e12
+
+
+def test_shared_prefix_trace_is_the_loadgen_shape(cs):
+    """One trace-wide prefix of SHARED_PREFIX tokens on about
+    SHARED_FRAC of the requests, tails and new tokens in their ranges,
+    every request within the serving config; the same seed gives the
+    same trace, frac 0 gives no prefix."""
+    import numpy as np
+    prompts, news, hit = cs.shared_prefix_trace(np, 200, 50304)
+    again = cs.shared_prefix_trace(np, 200, 50304)
+    assert all(np.array_equal(a, b) for a, b in zip(prompts, again[0]))
+    assert news == again[1] and hit == again[2]
+    head = next(p for p, h in zip(prompts, hit) if h)[:cs.SHARED_PREFIX]
+    lo, hi = cs.SHARED_TAILS
+    for p, n, h in zip(prompts, news, hit):
+        tail = p[cs.SHARED_PREFIX:] if h else p
+        assert lo <= tail.size <= hi and p.dtype == np.int32
+        if h:
+            assert np.array_equal(p[:cs.SHARED_PREFIX], head)
+        assert cs.SHARED_NEW[0] <= n <= cs.SHARED_NEW[1]
+        assert p.size <= max(cs.SERVE_CONFIG["prefill_buckets"])
+        assert p.size + n <= cs.SERVE_CONFIG["max_total_tokens"]
+    assert 0.85 <= np.mean(hit) <= 0.95
+    _, _, none = cs.shared_prefix_trace(np, 50, 50304, frac=0.0)
+    assert not any(none)

@@ -288,6 +288,18 @@ def test_layer_norm_helper_uses_population_variance():
 
 
 def test_int8_leaf_raises():
-    bp = {"qkv_w": {"q8": None, "s": None}}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tgen._mm(torch.zeros(1, 4), bp, "qkv")
+    """An int8 {"q8", "s"} leaf goes through int8_matmul as in the JAX
+    package's _mm (it used to raise as unported); a product the int8
+    GEMM refuses (K mismatch) still raises."""
+    rng = np.random.RandomState(2)
+    x = rng.randn(3, 8).astype(np.float32)
+    q8 = rng.randint(-128, 128, (8, 16)).astype(np.int8)
+    s = rng.uniform(0.01, 0.1, (16,)).astype(np.float32)
+    want = np.asarray(jgen._mm(jnp.asarray(x), {"qkv_w": {
+        "q8": jnp.asarray(q8), "s": jnp.asarray(s)}}, "qkv"))
+    got = tgen._mm(torch.from_numpy(x), {"qkv_w": {
+        "q8": torch.from_numpy(q8), "s": torch.from_numpy(s)}}, "qkv")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(RuntimeError):
+        tgen._mm(torch.zeros(1, 4), {"qkv_w": {
+            "q8": torch.from_numpy(q8), "s": torch.from_numpy(s)}}, "qkv")

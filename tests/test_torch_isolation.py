@@ -38,6 +38,7 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.serving.engine, paddle_tpu_torch.serving.programs, "
         "paddle_tpu_torch.serving.paged_cache, "
         "paddle_tpu_torch.serving.scheduler, "
+        "paddle_tpu_torch.quant, paddle_tpu_torch.quant.int8_serving, "
         "paddle_tpu_torch.observability.sentinel\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "

@@ -294,10 +294,15 @@ def test_config_validation():
         ServingConfig(quant="bf16")
     with pytest.raises(ValueError, match="speculative_k"):
         ServingConfig(speculative_k=-1)
-    for kw in (dict(quant="int8"), dict(speculative_k=2),
-               dict(prefix_sharing=True), dict(plan=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingConfig(**kw)
+    # the raw-speed levers are ported and compose; only tp plans stay
+    # unported
+    cfg = ServingConfig(quant="int8", speculative_k=2, prefix_sharing=True)
+    assert (cfg.quant, cfg.speculative_k, cfg.prefix_sharing) == (
+        "int8", 2, True)
+    with pytest.raises(ValueError, match="greedy"):
+        ServingConfig(speculative_k=2, temperature=0.7)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ServingConfig(plan=object())
 
 
 def test_engine_rejects_a_too_long_config(model):
@@ -374,8 +379,8 @@ def test_paged_cache_alloc_free_tables_and_invariants():
 def test_paged_cache_rejects_unported_modes_and_bad_sizes():
     kw = dict(n_layers=1, n_blocks=4, block_size=4, n_heads=1, head_dim=4,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PagedKVCache(prefix_sharing=True, **kw)
+    # prefix sharing is ported; sharded pools are not
+    assert PagedKVCache(prefix_sharing=True, **kw).prefix_sharing
     with pytest.raises(NotImplementedError, match="item 14"):
         PagedKVCache(tp=2, **kw)
     with pytest.raises(ValueError, match="n_blocks"):
