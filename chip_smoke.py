@@ -23,7 +23,8 @@ Phases, each of which fails the run on any mismatch:
    the inference path's shapes (ERNIE-base attention, b 32, s 512 and
    200, 12 heads of 64, read as strided views of a fused qkv tensor),
    causal and not, f32 (tolerance 1e-4) and bf16 (2e-2, the Pallas
-   tests' bf16 tolerance); head_dim 128 too, in bf16 also with dropout
+   tests' bf16 tolerance), elementwise and row by row as in 4;
+   head_dim 128 too, in bf16 also with dropout
    0.1 (the training path's shapes, phase 4, cover head_dim 64). Times
    with CUDA events after warm-up: the kernel, the plain version, and
    torch's scaled_dot_product_attention at the same dropout p as the
@@ -33,8 +34,11 @@ Phases, each of which fails the run on any mismatch:
    s 512 and 200, n 12, h 64, strided qkv views), causal and not, f32
    and bf16, head_dim 128; with dropout p = 0.1 at a fixed seed the
    forward and the backward against the plain versions drawing the same
-   Philox mask. Tolerance: f32 max abs error <= 1e-4 * max(1, max|ref|),
-   bf16 <= 2e-2 * max|ref|. A second dQ launch must give the same dq
+   Philox mask. Tolerance, row by row (a query row of O and dQ, a key
+   row of dK and dV; a causal row holds about 1/sqrt(i + 1) of row 0):
+   f32 max abs error of the row <= 1e-4 * max(1, max|ref_row|), bf16
+   <= 2e-2 * max(max|ref_row|, ROW_FLOOR * max|ref|); the worst row's
+   ratio is printed. A second dQ launch must give the same dq
    bit for bit, and every bf16 case holds the delta = rowsum(dO*O) that
    the dQ kernel computes against torch ops at 1e-3 x max(1,
    max|delta|) (f32 takes delta from those ops). Each backward kernel
@@ -134,6 +138,32 @@ Phases, each of which fails the run on any mismatch:
    (SAMPLING): two engines from one seed give equal streams over the
    trace, and the sampled prefill, decode and chunk graphs are
    bit-equal to eager on the same Gumbel noise.
+14. GPT training kernels (`gpt_train_kernel`, `mask_probe` causal): the
+   forward, dQ and dK/dV kernels at GPT-2 small's training shape (b 8,
+   s 1024, n 12, h 64, causal, dropout 0.1, strided qkv views) against
+   their plain versions in bf16 and f32 (the tolerances of 4), timed
+   beside SDPA's causal forward and backward at the same p, with their
+   bounds and the forward's Philox floor; the mask probe at that shape,
+   causal (each row's links weigh 1/(i + 1), so dO is scaled per row to
+   keep every backward link at one weight).
+15. GPT training (`gpt_train_path`): GPT-2 small (GPT_TRAIN, dropout
+   0.1) + AdamW(1e-4, weight decay 0.01) + TrainStep(O1, bf16) with
+   lm_loss at 8x1024, ids and labels from numpy seed 0, 2 warm-up and
+   10 timed steps: every step launches each kernel 12 times, losses
+   finite and falling, MFU (bench.py's formula, not halved for the
+   causal mask) in (0, 1); step ms, tokens/s, peak memory.
+16. Chunked CE (`chunked_ce_check`, `chunked_ce`): linear_cross_entropy
+   against a dense CE over materialised f32 logits (CE_CHECK: loss, dh,
+   dW, db within 1e-4 x max(1, max|ref|)); then ERNIE-base 48x512 and
+   GPT-2 small 8x1024 with chunked_ce=True from the dense steps' weights
+   and batches: step-1 and step-2 losses within CE_LOSS_RTOL of the
+   dense ones, peak memory below the dense peak (both above what each
+   phase found allocated), step ms beside the dense step's.
+17. Scanned stacks (`scan_layers`): ERNIE-base and GPT-2 small with
+   scan_layers=True, loaded from their unrolled twins through
+   load_from_layers: every step's loss equal to the unrolled run's at
+   that step within SCAN_RTOL, 12 launches of each kernel a step, step
+   ms beside the unrolled step's.
 
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
@@ -164,6 +194,10 @@ DROP_P, DROP_SEED = 0.1, 1234
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# attention outputs are held row by row (_row_err_ok); a bf16 row's
+# tolerance is TOL of its own max|ref|, or of this share of the whole
+# tensor's max|ref| where the row is smaller
+ROW_FLOOR = 1e-3
 # kernels whose ptxas report must show no spill at head_dim 64
 NO_SPILL = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
 # integer instructions an SM issues per clock (CUDA C++ Programming
@@ -177,6 +211,21 @@ PHILOX_MULS = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
 GPT2 = dict(vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
             max_seq_len=1024, dropout=0.0)
 GPT_BATCHES = [(8, 1024), (8, 128)]
+# GPT-2 small in training: GPTConfig's default dropout 0.1 (attention
+# dropout in the three kernels, causal), 8 sequences of the full 1024
+# context, the gpt_forward phase's 8x1024
+GPT_TRAIN = dict(GPT2, dropout=0.1)
+GPT_TRAIN_BATCH = (8, 1024)
+# the chunked-CE and scanned variants: warm-up and timed steps
+VARIANT_WARMUP, VARIANT_STEPS = 2, 5
+# linear_cross_entropy against a dense CE over materialised f32 logits:
+# ERNIE-base's head width and vocab, 4096 rows, the default vocab block
+CE_CHECK = dict(n=4096, d=768, vocab=30528, block=2048)
+# step-1 and step-2 losses of a chunked (f32 head) run against the dense
+# run's (bf16 logits under O1), relative: a head that dropped its partial
+# last vocab block would move GPT's by about 2e-3; every loss of a scanned
+# run against the unrolled one's at the same step
+CE_LOSS_RTOL, SCAN_RTOL = 1e-4, 1e-5
 GEN_SHAPE = (8, 128, 128)       # bench.py:308: batch, prompt, new tokens
 GEN_CHECK = (2, 32, 16)         # f32 greedy against full re-forwards
 SERVE_CONFIG = dict(max_slots=16, max_admit=4, block_size=16, n_blocks=257,
@@ -379,13 +428,14 @@ def kernel_phase(torch, fa):
             q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED)
         torch.cuda.synchronize()
         tol = TOL[dt]
-        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_o, ratio, rows_ok = _row_err_ok(o, o_ref, dt)
         err_lse = (lse - lse_ref).abs().max().item()
-        ok = (torch.allclose(o.float(), o_ref.float(), atol=tol, rtol=tol)
+        ok = (rows_ok
+              and torch.allclose(o.float(), o_ref.float(), atol=tol, rtol=tol)
               and torch.allclose(lse, lse_ref, atol=tol, rtol=tol))
         row = dict(dtype=dt, b=b, s=s, n=nh, h=hd, causal=causal,
-                   dropout_p=p, max_abs_err=err_o, lse_max_abs_err=err_lse,
-                   tol=tol, ok=bool(ok))
+                   dropout_p=p, max_abs_err=err_o, worst_row=ratio,
+                   lse_max_abs_err=err_lse, tol=tol, ok=bool(ok))
         if not ok:
             emit({"kernel_case": row})
             fail(f"flash_attn_fwd disagrees with its plain version: {row}")
@@ -451,6 +501,25 @@ def _err_ok(got, ref, dt):
     return err, tol, err <= tol
 
 
+def _row_err_ok(got, ref, dt):
+    """(max abs error, worst row ratio, ok) of an attention output
+    [..., h], held row by row (a query row of O and dQ, a key row of dK
+    and dV): row r's largest error over max(1, max|ref_r|) in f32 and
+    over max(max|ref_r|, ROW_FLOOR * max|ref|) in bf16, at most TOL. A
+    causal output's rows shrink with the keys they see (|O_i| about
+    1/sqrt(i + 1)), so one tolerance from the largest row would let the
+    late rows be wrong by as much as they hold; the floor keeps rows
+    that cancel to about 0 (dQ of row 0) at rounding noise."""
+    d = (got.float() - ref.float()).abs().amax(-1)
+    r = ref.float().abs().amax(-1)
+    if dt == "float32":
+        scale = r.clamp(min=1.0)
+    else:
+        scale = r.clamp(min=ROW_FLOOR * r.max().item())
+    ratio = (d / scale.clamp(min=1e-30)).max().item()
+    return d.max().item(), ratio, ratio <= TOL[dt]
+
+
 def _sdpa_fb(torch, q, k, v, do, causal, scale, p):
     """SDPA forward + backward and forward-only callables, [b, s, n, h]
     inputs: the library yardstick of the backward kernels."""
@@ -486,171 +555,186 @@ def bwd_kernel_phase(torch, fa, philox):
     cases += [(b, 200, n, h, True, "bfloat16", DROP_P)]
     cases += [(8, 256, 8, 128, causal, dt, 0.0)
               for dt in ("float32", "bfloat16") for causal in (False, True)]
-    rows = []
-    for b_, s, nh, hd, causal, dt, p in cases:
-        dtype = getattr(torch, dt)
-        qkv = torch.randn((b_, s, 3, nh, hd), generator=gen, device=dev,
-                          dtype=torch.float32).to(dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        do = torch.randn((b_, s, nh, hd), generator=gen, device=dev,
-                         dtype=torch.float32).to(dtype)
-        scale = 1.0 / math.sqrt(hd)
-        o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, DROP_SEED)
-        dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
-                                        p, DROP_SEED)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                           scale, p, DROP_SEED)
-        torch.cuda.synchronize()
-        row = dict(dtype=dt, b=b_, s=s, n=nh, h=hd, causal=causal,
-                   dropout_p=p)
-        ok = True
-        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-            err, tol, good = _err_ok(got, want, dt)
-            row[f"{name}_max_abs_err"], row[f"{name}_tol"] = err, tol
-            ok &= good
-        with_fwd = bool(p) or dt == "bfloat16"
-        if with_fwd:
-            o_ref, lse_ref = fa.flash_attention_fwd_plain(
-                q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED)
-            err, tol, good = _err_ok(o, o_ref, dt)
-            row["o_max_abs_err"], row["o_tol"] = err, tol
-            row["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
-            ok &= good and row["lse_max_abs_err"] <= TOL[dt]
-        row["ok"] = bool(ok)
-        if not ok:
-            emit({"bwd_kernel_case": row})
-            fail(f"a kernel disagrees with its plain version: {row}")
-        # the same dq from a second launch; where the dQ kernel computes
-        # delta (bf16), its delta against delta in torch ops (f32 takes
-        # delta from those ops: nothing to check, null)
-        dq2, delta = fa._flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
-                                           p, DROP_SEED)
-        row["dq_repeatable"] = bool(torch.equal(dq2, dq))
-        row["delta_max_abs_err"] = row["delta_tol"] = None
-        delta_ok = True
-        if fa._delta_in_kernel(dtype):
-            ref_delta = fa._bwd_delta(o, do)
-            big = max(1.0, ref_delta.abs().max().item())
-            row["delta_max_abs_err"] = (delta - ref_delta).abs().max().item()
-            row["delta_tol"] = 1e-3 * big
-            delta_ok = row["delta_max_abs_err"] <= row["delta_tol"]
-            del ref_delta
-        if not (delta_ok and row["dq_repeatable"]):
-            emit({"bwd_kernel_case": row})
-            fail(f"the dQ kernel's delta or its dq is off: {row}")
-        del dq2
-        # dq_ms includes delta: in the kernel for bf16, torch ops for f32
-        row["dq_ms"] = time_ms(lambda: fa._flash_bwd_dq_cuda(
-            q, k, v, o, do, lse, causal, scale, p, DROP_SEED), reps=10)
-        row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_dkv_cuda(
-            q, k, v, do, lse, delta, causal, scale, p, DROP_SEED), reps=10)
-        row["delta_torch_ms"] = time_ms(lambda: fa._bwd_delta(o, do),
-                                        reps=10)
-        row["backward_ms"] = row["dq_ms"] + row["dkv_ms"]
-        for kern in ("dq", "dkv"):
-            row[f"{kern}_plain_ms"] = time_ms(
-                lambda: fa.flash_attention_bwd_plain(
-                    q, k, v, o, lse, do, causal, scale, p, DROP_SEED,
-                    which=kern), reps=2, warmup=1)
-        # SDPA's backward computes dq, dk and dv together: a yardstick for
-        # the whole backward (backward_ms), not for one kernel
-        lib_f, lib_fb = _sdpa_fb(torch, q, k, v, do, causal, scale, p)
-        row["backward_library_ms"] = (time_ms(lib_fb, reps=10)
-                                      - time_ms(lib_f, reps=10))
-        for kern in ("dq", "dkv"):
-            row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = bwd_bound_ms(
-                kern, b_, s, s, nh, hd, causal, dt)
-        if with_fwd:
-            # the forward beside SDPA's forward at the same dropout p
-            row["fwd_ms"] = time_ms(lambda: fa._flash_fwd_cuda(
-                q, k, v, causal, scale, p, DROP_SEED), reps=20)
-            row["fwd_plain_ms"] = time_ms(
-                lambda: fa.flash_attention_fwd_plain(
-                    q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED),
-                reps=2, warmup=1)
-            row["fwd_library_ms"] = time_ms(lib_f, reps=20)
-            bound = fwd_bound(b_, s, s, nh, hd, causal, dt, p,
-                              philox if hd == 64 else None)
-            row["fwd_bound_ms"], row["fwd_bound_by"] = (bound["bound_ms"],
-                                                        bound["bound_by"])
-            row["fwd_bound"] = bound
-        emit({"bwd_kernel_case": row})
-        rows.append(row)
-        del qkv, q, k, v, do, o, lse, dq, dk, dv, ref
-        torch.cuda.empty_cache()
-    return rows
+    return [bwd_kernel_case(torch, fa, gen, case, philox) for case in cases]
+
+
+def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
+    """One case (b, s, n, h, causal, dtype, dropout p) of the backward
+    kernels (and the forward, in bf16 and with dropout) against their
+    plain versions, with their times and bounds; emitted under `tag`."""
+    dev = torch.device("cuda", 0)
+    b_, s, nh, hd, causal, dt, p = case
+    dtype = getattr(torch, dt)
+    qkv = torch.randn((b_, s, 3, nh, hd), generator=gen, device=dev,
+                      dtype=torch.float32).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((b_, s, nh, hd), generator=gen, device=dev,
+                     dtype=torch.float32).to(dtype)
+    scale = 1.0 / math.sqrt(hd)
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, DROP_SEED)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
+                                    p, DROP_SEED)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                       scale, p, DROP_SEED)
+    torch.cuda.synchronize()
+    row = dict(dtype=dt, b=b_, s=s, n=nh, h=hd, causal=causal,
+               dropout_p=p)
+    ok = True
+    row["tol"] = TOL[dt]
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        err, ratio, good = _row_err_ok(got, want, dt)
+        row[f"{name}_max_abs_err"], row[f"{name}_worst_row"] = err, ratio
+        ok &= good
+    with_fwd = bool(p) or dt == "bfloat16"
+    if with_fwd:
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(
+            q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED)
+        err, ratio, good = _row_err_ok(o, o_ref, dt)
+        row["o_max_abs_err"], row["o_worst_row"] = err, ratio
+        row["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+        ok &= good and row["lse_max_abs_err"] <= TOL[dt]
+    row["ok"] = bool(ok)
+    if not ok:
+        emit({tag: row})
+        fail(f"a kernel disagrees with its plain version: {row}")
+    # the same dq from a second launch; where the dQ kernel computes
+    # delta (bf16), its delta against delta in torch ops (f32 takes
+    # delta from those ops: nothing to check, null)
+    dq2, delta = fa._flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
+                                       p, DROP_SEED)
+    row["dq_repeatable"] = bool(torch.equal(dq2, dq))
+    row["delta_max_abs_err"] = row["delta_tol"] = None
+    delta_ok = True
+    if fa._delta_in_kernel(dtype):
+        ref_delta = fa._bwd_delta(o, do)
+        big = max(1.0, ref_delta.abs().max().item())
+        row["delta_max_abs_err"] = (delta - ref_delta).abs().max().item()
+        row["delta_tol"] = 1e-3 * big
+        delta_ok = row["delta_max_abs_err"] <= row["delta_tol"]
+        del ref_delta
+    if not (delta_ok and row["dq_repeatable"]):
+        emit({tag: row})
+        fail(f"the dQ kernel's delta or its dq is off: {row}")
+    del dq2
+    # dq_ms includes delta: in the kernel for bf16, torch ops for f32
+    row["dq_ms"] = time_ms(lambda: fa._flash_bwd_dq_cuda(
+        q, k, v, o, do, lse, causal, scale, p, DROP_SEED), reps=10)
+    row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, causal, scale, p, DROP_SEED), reps=10)
+    row["delta_torch_ms"] = time_ms(lambda: fa._bwd_delta(o, do),
+                                    reps=10)
+    row["backward_ms"] = row["dq_ms"] + row["dkv_ms"]
+    for kern in ("dq", "dkv"):
+        row[f"{kern}_plain_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal, scale, p, DROP_SEED,
+                which=kern), reps=2, warmup=1)
+    # SDPA's backward computes dq, dk and dv together: a yardstick for
+    # the whole backward (backward_ms), not for one kernel
+    lib_f, lib_fb = _sdpa_fb(torch, q, k, v, do, causal, scale, p)
+    row["backward_library_ms"] = (time_ms(lib_fb, reps=10)
+                                  - time_ms(lib_f, reps=10))
+    for kern in ("dq", "dkv"):
+        row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = bwd_bound_ms(
+            kern, b_, s, s, nh, hd, causal, dt)
+    if with_fwd:
+        # the forward beside SDPA's forward at the same dropout p
+        row["fwd_ms"] = time_ms(lambda: fa._flash_fwd_cuda(
+            q, k, v, causal, scale, p, DROP_SEED), reps=20)
+        row["fwd_plain_ms"] = time_ms(
+            lambda: fa.flash_attention_fwd_plain(
+                q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED),
+            reps=2, warmup=1)
+        row["fwd_library_ms"] = time_ms(lib_f, reps=20)
+        bound = fwd_bound(b_, s, s, nh, hd, causal, dt, p,
+                          philox if hd == 64 else None)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = (bound["bound_ms"],
+                                                    bound["bound_by"])
+        row["fwd_bound"] = bound
+    emit({tag: row})
+    del qkv, q, k, v, do, o, lse, dq, dk, dv, ref
+    torch.cuda.empty_cache()
+    return row
 
 
 def mask_probe_phase(torch, fa):
-    """The kernels' own dropout masks, link for link. q and k live on
-    disjoint halves of head_dim (q[i, c] = 1 where c < h/2 and i % (h/2)
-    == c; k[j, c] = 1 where c >= h/2 and j % (h/2) == c - h/2), so QK^T
-    = 0 and every probability is 1/s.
+    """The kernels' own dropout masks, link for link, at the training
+    path's shapes (b 48, s 512 and 200, non-causal; mask_probe_case)."""
+    b, n = TRAIN_BATCH[0], BASE["num_attention_heads"]
+    h = BASE["hidden_size"] // n
+    return [mask_probe_case(torch, fa, b, n, h, s, dt, causal=False)
+            for dt in ("bfloat16", "float32") for s in (TRAIN_BATCH[1], 200)]
+
+
+def mask_probe_case(torch, fa, b, n, h, s, dt, causal):
+    """One probe of the kernels' dropout masks, link for link. q and k
+    live on disjoint halves of head_dim (q[i, c] = 1 where c < h/2 and
+    i % (h/2) == c; k[j, c] = 1 where c >= h/2 and j % (h/2) == c - h/2),
+    so QK^T = 0 and every probability of row i is 1/n_i, n_i the keys
+    it sees (s, or i + 1 causal).
     Forward: v[j, c] = 1 where j % h == c, so O[i, c] is the number of
-    kept links (i, j) with j % h == c, times w = 1 / (s (1 - p)).
-    Backward: v = 1 and dO[i, c] = 1 where i % h == c. Then dV[j, c]
+    kept links (i, j) with j % h == c, times w_i = 1 / (n_i (1 - p)).
+    Backward: v = 1 and dO[i, c] = n_i / s where i % h == c (1 when
+    non-causal), so every link weighs w = 1 / (s (1 - p)). Then dV[j, c]
     counts the kept links (i, j) with i % h == c (times w); dQ[i, c],
     c >= h/2, sums keep/(1-p) - delta_i over the keys j % (h/2) == c -
     h/2, and dK[j, c], c < h/2, over the rows i % (h/2) == c (times
-    scale/s). Every link lands in one element of each output, so a wrong
-    bit moves that element by one link's weight (w, or scale w for dQ and
-    dK): each kernel must agree with the plain version (the same Philox
-    mask, f32 math) to within half of it. Outputs stay small counts, so
-    bf16 rounds them by far less than that."""
-    b, n = TRAIN_BATCH[0], BASE["num_attention_heads"]
-    h = BASE["hidden_size"] // n
+    scale n_i / s). Every link lands in one element of each output, so a
+    wrong bit moves that element by one link's weight (w_i for O, w for
+    dV, scale w for dQ and dK): each kernel must agree with the plain
+    version (the same Philox mask, f32 math, the same dO) to within half
+    of it. Outputs stay small counts, so bf16 rounds them by far less
+    than that."""
     half = h // 2
     dev = torch.device("cuda", 0)
     scale = 1.0 / math.sqrt(h)
-    rows = []
-    for dt in ("bfloat16", "float32"):
-        for s in (TRAIN_BATCH[1], 200):
-            dtype = getattr(torch, dt)
-            i = torch.arange(s, device=dev)[:, None]
-            c = torch.arange(h, device=dev)[None, :]
-            vpat = (i % h == c)[None, :, None, :]
-            qkv = torch.zeros((b, s, 3, n, h), device=dev, dtype=dtype)
-            qkv[:, :, 0] = ((c < half) & (i % half == c))[None, :, None, :]
-            qkv[:, :, 1] = ((c >= half) & (i % half == c - half))[
-                None, :, None, :]
-            qkv[:, :, 2] = vpat
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            w = 1.0 / (s * (1.0 - DROP_P))
-            o, _ = fa._flash_fwd_cuda(q, k, v, False, scale, DROP_P,
-                                      DROP_SEED)
-            o_ref, _ = fa.flash_attention_fwd_plain(
-                q.float(), k.float(), v.float(), False, scale,
-                dropout_p=DROP_P, seed=DROP_SEED)
-            err = {"o": (o.float() - o_ref).abs().max().item() / w}
-            # O / w are counts of kept links, each link in one of them
-            kept = ((o.double() / w).round().sum() / (b * n * s * s)).item()
-            del o_ref
-            qkv[:, :, 2] = 1
-            do = vpat.expand(b, s, n, h).to(dtype).contiguous()
-            o, lse = fa._flash_fwd_cuda(q, k, v, False, scale, DROP_P,
-                                        DROP_SEED)
-            got = fa._flash_bwd_cuda(q, k, v, o, lse, do, False, scale,
-                                     DROP_P, DROP_SEED)
-            ref = fa.flash_attention_bwd_plain(
-                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-                False, scale, DROP_P, DROP_SEED)
-            for name, a, r, unit in zip(("dq", "dk", "dv"), got, ref,
-                                        (scale * w, scale * w, w)):
-                err[name] = (a.float() - r).abs().max().item() / unit
-            row = dict(dtype=dt, b=b, s=s, n=n, h=h, dropout_p=DROP_P,
-                       links=b * n * s * s, kept_fraction=kept,
-                       expected=1.0 - DROP_P,
-                       max_err_in_links=err, tol_in_links=0.5)
-            row["ok"] = (all(e < 0.5 for e in err.values())
-                         and abs(kept - (1.0 - DROP_P)) < 1e-3)
-            emit({"mask_probe": row})
-            if not row["ok"]:
-                fail(f"a kernel's dropout mask is off: {row}")
-            rows.append(row)
-            del qkv, q, k, v, o, lse, do, got, ref
-            torch.cuda.empty_cache()
-    return rows
+    dtype = getattr(torch, dt)
+    i = torch.arange(s, device=dev)[:, None]
+    c = torch.arange(h, device=dev)[None, :]
+    seen = (i[:, 0] + 1 if causal else torch.full((s,), s, device=dev)
+            ).double()
+    vpat = (i % h == c)[None, :, None, :]
+    qkv = torch.zeros((b, s, 3, n, h), device=dev, dtype=dtype)
+    qkv[:, :, 0] = ((c < half) & (i % half == c))[None, :, None, :]
+    qkv[:, :, 1] = ((c >= half) & (i % half == c - half))[None, :, None, :]
+    qkv[:, :, 2] = vpat
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    w_row = (1.0 / (seen * (1.0 - DROP_P)))[None, :, None, None]
+    w = 1.0 / (s * (1.0 - DROP_P))
+    o, _ = fa._flash_fwd_cuda(q, k, v, causal, scale, DROP_P, DROP_SEED)
+    o_ref, _ = fa.flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), causal, scale, dropout_p=DROP_P,
+        seed=DROP_SEED)
+    err = {"o": ((o.double() - o_ref.double()).abs() / w_row).max().item()}
+    # O / w_i are counts of kept links, each link in one of them
+    links = b * n * int(seen.sum().item())
+    kept = ((o.double() / w_row).round().sum() / links).item()
+    del o_ref
+    qkv[:, :, 2] = 1
+    do = (vpat * (seen / s)[None, :, None, None]).expand(b, s, n, h) \
+        .to(dtype).contiguous()
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, DROP_P, DROP_SEED)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, DROP_P,
+                             DROP_SEED)
+    ref = fa.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+        causal, scale, DROP_P, DROP_SEED)
+    for name, a, r, unit in zip(("dq", "dk", "dv"), got, ref,
+                                (scale * w, scale * w, w)):
+        err[name] = (a.float() - r).abs().max().item() / unit
+    row = dict(dtype=dt, b=b, s=s, n=n, h=h, causal=causal,
+               dropout_p=DROP_P, links=links, kept_fraction=kept,
+               expected=1.0 - DROP_P, max_err_in_links=err,
+               tol_in_links=0.5)
+    row["ok"] = (all(e < 0.5 for e in err.values())
+                 and abs(kept - (1.0 - DROP_P)) < 1e-3)
+    emit({"mask_probe": row})
+    if not row["ok"]:
+        fail(f"a kernel's dropout mask is off: {row}")
+    del qkv, q, k, v, o, lse, do, got, ref
+    torch.cuda.empty_cache()
+    return row
 
 
 def run_batches(torch, pt, fa, model, dtype_name, gen, keep):
@@ -768,22 +852,46 @@ def _zero(fa):
         fa.launches[k] = 0
 
 
-def train_path(torch, pt, fa):
-    """ERNIE-base pretraining through TrainStep on the card."""
-    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+def _gpt_lm_loss(out, labels):
+    from paddle_tpu_torch.models import GPTForCausalLM
+    return GPTForCausalLM.lm_loss(out, labels)
+
+
+def _train_model(pt, kind, **kw):
+    """ERNIE-base ("ernie", BASE) or GPT-2 small ("gpt", GPT_TRAIN) in
+    train mode on the card, random weights from SEED; kw goes to the
+    config (chunked_ce, scan_layers)."""
+    from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
+                                         GPTConfig, GPTForCausalLM)
+    pt.seed(SEED)
+    if kind == "ernie":
+        return ErnieForPretraining(ErnieConfig.base(**BASE, **kw),
+                                   device="cuda").train()
+    return GPTForCausalLM(GPTConfig(**GPT_TRAIN, **kw), device="cuda").train()
+
+
+def _train_run(torch, fa, kind, model, warmup, steps, base):
+    """warmup + steps TrainStep steps of `model` on its path's batch
+    (TRAIN_BATCH or GPT_TRAIN_BATCH, ids and labels from numpy seed 0):
+    AdamW(1e-4, weight decay 0.01), O1 bf16, the dense loss or the
+    chunked one. Counts are zeroed just before the first step and every
+    step must launch each kernel once per layer; timed over the last
+    `steps` on a synchronised host clock. base: the bytes allocated
+    before the phase built its models (peak_above_base_bytes)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.static import TrainStep
-    cfg = ErnieConfig.base(**BASE)
-    pt.seed(SEED)
-    model = ErnieForPretraining(cfg, device="cuda").train()
+    cfg = model.config
+    chunked = cfg.chunked_ce
+    if kind == "ernie":
+        (b, s), layers = TRAIN_BATCH, cfg.num_hidden_layers
+        loss = model.chunked_pretraining_loss if chunked else _ernie_loss
+    else:
+        (b, s), layers = GPT_TRAIN_BATCH, cfg.num_layers
+        loss = model.chunked_lm_loss if chunked else _gpt_lm_loss
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
-    step = TrainStep(model, _ernie_loss, opt, amp_level="O1",
-                     amp_dtype="bfloat16")
-    b, s = TRAIN_BATCH
+    step = TrainStep(model, loss, opt, amp_level="O1", amp_dtype="bfloat16")
     x, y = _train_batch(torch, cfg.vocab_size, b, s, "cuda")
-    n_params = sum(p.numel() for p in model.parameters())
-    layers = cfg.num_hidden_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -796,39 +904,65 @@ def train_path(torch, pt, fa):
         losses.append(step(x, y))
         per_step.append({k: fa.launches[k] - before[k] for k in before})
 
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         one()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         one()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(fa.launches)
     for i, c in enumerate(per_step):
         if any(v != layers for v in c.values()):
-            fail(f"training step {i} launched {c}, expected {layers} of "
-                 "each kernel")
+            fail(f"{kind} training step {i} launched {c}, expected "
+                 f"{layers} of each kernel")
     losses = [float(v) for v in losses]
-    step_ms = secs / TRAIN_STEPS * 1e3
-    tokens_per_s = b * s * TRAIN_STEPS / secs
-    flops_per_token = 6.0 * n_params + 12.0 * layers * cfg.hidden_size * s
-    mfu = tokens_per_s * flops_per_token / PEAK_FLOPS["bfloat16"]
-    row = dict(batch=b, seq=s, amp="O1 bfloat16", dropout=(
-        cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob),
-        params=n_params, warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
-        step_ms=step_ms, tokens_per_s=tokens_per_s,
-        flops_per_token=flops_per_token, mfu=mfu,
-        peak_memory_bytes=torch.cuda.max_memory_allocated(),
-        launches_per_step=per_step[-1], launches=counts, losses=losses)
-    emit({"train_path": row})
     if not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite training loss: {losses}")
+        fail(f"non-finite {kind} training loss: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    row = dict(model=kind, batch=b, seq=s, amp="O1 bfloat16",
+               chunked_ce=bool(chunked), scan_layers=bool(cfg.scan_layers),
+               params=sum(p.numel() for p in model.parameters()),
+               warmup_steps=warmup, timed_steps=steps,
+               step_ms=secs / steps * 1e3, tokens_per_s=b * s * steps / secs,
+               peak_memory_bytes=peak, peak_above_base_bytes=peak - base,
+               launches_per_step=per_step[-1], launches=counts,
+               losses=losses)
+    return row, (model, step, x, y)
+
+
+def train_flops_per_token(n_params, layers, hidden, seq):
+    """bench.py's training FLOPs per token: 6N + 12 L h s (the attention
+    term not halved for a causal mask)."""
+    return 6.0 * n_params + 12.0 * layers * hidden * seq
+
+
+def _with_mfu(row, layers, hidden):
+    row["flops_per_token"] = train_flops_per_token(row["params"], layers,
+                                                   hidden, row["seq"])
+    row["mfu"] = (row["tokens_per_s"] * row["flops_per_token"]
+                  / PEAK_FLOPS["bfloat16"])
+    return row
+
+
+def train_path(torch, pt, fa):
+    """ERNIE-base pretraining through TrainStep on the card."""
+    base = torch.cuda.memory_allocated()
+    model = _train_model(pt, "ernie")
+    row, state = _train_run(torch, fa, "ernie", model, TRAIN_WARMUP,
+                            TRAIN_STEPS, base)
+    cfg = model.config
+    row["dropout"] = (cfg.hidden_dropout_prob,
+                      cfg.attention_probs_dropout_prob)
+    _with_mfu(row, cfg.num_hidden_layers, cfg.hidden_size)
+    emit({"train_path": row})
+    losses, mfu = row["losses"], row["mfu"]
     if not losses[-1] < losses[0]:
         fail(f"training loss did not fall on a repeated batch: {losses}")
     if not 0 < mfu < 1:
         fail(f"MFU {mfu} is outside (0, 1)")
-    return row, (model, step, x, y)
+    return row, state
 
 
 def train_cpu_check(torch, pt, fa):
@@ -952,10 +1086,11 @@ def causal_kernel_case(torch, fa, b, s, n, h, dt):
     o, lse = fa._flash_fwd_cuda(q, k, v, True, scale)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, True, scale)
-    err, tol, ok = _err_ok(o, o_ref, dt)
+    err, ratio, ok = _row_err_ok(o, o_ref, dt)
     lse_err = (lse - lse_ref).abs().max().item()
     row = dict(dtype=dt, b=b, s=s, n=n, h=h, causal=True, dropout_p=0.0,
-               max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
+               max_abs_err=err, worst_row=ratio, tol=TOL[dt],
+               lse_max_abs_err=lse_err,
                ok=bool(ok and lse_err <= TOL[dt]))
     if not row["ok"]:
         emit({"gpt_causal_kernel": row})
@@ -1778,6 +1913,230 @@ def serving_levers_phase(torch, pt, fa, model, bf16_streams, parity):
     emit({"serving_levers_seconds": time.perf_counter() - t0})
 
 
+def gpt_param_count(vocab_size, hidden_size, num_layers, max_seq_len,
+                    **_):
+    """Parameters of a GPTForCausalLM: token and position embeddings,
+    per block two layer norms (4h), qkv (3h^2 + 3h), proj (h^2 + h), fc1
+    (4h^2 + 4h) and fc2 (4h^2 + h), and the final layer norm (2h); the
+    head is tied to the token embeddings."""
+    h = hidden_size
+    return ((vocab_size + max_seq_len) * h
+            + num_layers * (12 * h * h + 13 * h) + 2 * h)
+
+
+def chunked_head_work(n, d, vocab, block):
+    """The vocab-chunked head of n rows of width d over `vocab` columns
+    in blocks of `block` (padded up to a multiple): 4 f32 GEMMs a block
+    (the forward's block logits; the backward's rematerialised logits, dh
+    and dW), 2 n d flops a column each; their bound on the f32 pipes
+    against the bytes they must move (h, W, dh and dW once each), and
+    the bytes of one bf16 [n, vocab] logits tensor that the head never
+    builds."""
+    nb = -(-vocab // block)
+    padded = nb * block
+    flops = 4 * 2.0 * n * d * padded
+    nbytes = (2 * n * d + 2 * d * vocab) * 4
+    ms, by = _bound(nbytes, flops, "float32")
+    return dict(blocks=nb, padded_vocab=padded, pad=padded - vocab,
+                flops=flops, bytes=nbytes, bound_ms=ms, bound_by=by,
+                logits_bf16_bytes=n * vocab * 2)
+
+
+def gpt_train_kernels_phase(torch, fa, philox):
+    """The three kernels at GPT-2 small's training shape (b 8, s 1024,
+    n 12, h 64, causal, p 0.1, strided qkv views) against their plain
+    versions, bf16 and f32, with their times, bounds (the forward's
+    Philox floor too) and SDPA's causal forward and backward at the same
+    p; then the mask probe at that shape, causal."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    b, s = GPT_TRAIN_BATCH
+    n = GPT_TRAIN["num_heads"]
+    h = GPT_TRAIN["hidden_size"] // n
+    p = GPT_TRAIN["dropout"]
+    rows = [bwd_kernel_case(torch, fa, gen, (b, s, n, h, True, dt, p),
+                            philox, tag="gpt_train_kernel")
+            for dt in ("bfloat16", "float32")]
+    probes = [mask_probe_case(torch, fa, b, n, h, s, dt, causal=True)
+              for dt in ("bfloat16", "float32")]
+    return rows, probes
+
+
+def gpt_train_path(torch, pt, fa):
+    """GPT-2 small pretraining through TrainStep on the card, causal
+    dropout through all three kernels."""
+    base = torch.cuda.memory_allocated()
+    model = _train_model(pt, "gpt")
+    row, (_, step, x, y) = _train_run(torch, fa, "gpt", model, TRAIN_WARMUP,
+                                      TRAIN_STEPS, base)
+    if row["params"] != gpt_param_count(**GPT_TRAIN):
+        fail(f"GPT-2 small has {row['params']} parameters, expected "
+             f"{gpt_param_count(**GPT_TRAIN)}")
+    row["dropout"] = GPT_TRAIN["dropout"]
+    _with_mfu(row, GPT_TRAIN["num_layers"], GPT_TRAIN["hidden_size"])
+    row["mfu_note"] = ("bench.py's 6N + 12 L h s a token, the attention "
+                       "term not halved for the causal mask")
+    emit({"gpt_train_path": row})
+    losses = row["losses"]
+    if not losses[-1] < losses[0]:
+        fail(f"GPT training loss did not fall on a repeated batch: "
+             f"{losses}")
+    if not 0 < row["mfu"] < 1:
+        fail(f"GPT MFU {row['mfu']} is outside (0, 1)")
+    prof = device_profile(torch, lambda: step(x, y), runs=2)
+    emit({"gpt_profile": dict(steps=2, device_ms_per_step=prof["device_ms"],
+                              categories=prof["categories"],
+                              top=prof["top"])})
+    return row
+
+
+def linear_ce_check(torch):
+    """F.linear_cross_entropy on the card against the port's dense
+    F.cross_entropy over f32 logits materialised on purpose (CE_CHECK;
+    every 7th label ignored): loss, dh, dW and db within 1e-4 x max(1,
+    max|ref|), f32 products with TF32 off. Times of both, forward and
+    backward, beside the chunked head's bound."""
+    from paddle_tpu_torch.nn import functional as F
+    n, d, vocab, block = (CE_CHECK[k] for k in ("n", "d", "vocab", "block"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    h = torch.randn((n, d), generator=gen, device="cuda")
+    w = torch.randn((d, vocab), generator=gen, device="cuda") * 0.05
+    bias = torch.randn((vocab,), generator=gen, device="cuda") * 0.1
+    lbl = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+    lbl[::7] = -100
+
+    def run(chunked):
+        args = [t.detach().requires_grad_(True) for t in (h, w, bias)]
+        if chunked:
+            loss = F.linear_cross_entropy(*args, lbl, vocab_block=block)
+        else:
+            loss = F.cross_entropy(torch.addmm(args[2], args[0], args[1]),
+                                   lbl)
+        loss.backward()
+        return [loss.detach()] + [a.grad for a in args]
+
+    got, ref = run(True), run(False)
+    row = dict(n=n, d=d, vocab=vocab, block=block, dtype="float32")
+    ok = True
+    for name, g, r in zip(("loss", "dh", "dw", "db"), got, ref):
+        err, tol, good = _err_ok(g, r, "float32")
+        row[f"{name}_max_abs_err"], row[f"{name}_tol"] = err, tol
+        ok &= good
+    row["ok"] = bool(ok)
+    if not ok:
+        emit({"chunked_ce_check": row})
+        fail(f"linear_cross_entropy disagrees with the dense CE: {row}")
+    row["chunked_ms"] = time_ms(lambda: run(True), reps=3, warmup=1)
+    row["dense_ms"] = time_ms(lambda: run(False), reps=3, warmup=1)
+    row["head"] = chunked_head_work(n, d, vocab, block)
+    emit({"chunked_ce_check": row})
+    del got, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def chunked_ce_phase(torch, pt, fa, dense):
+    """linear_ce_check, then ERNIE-base (48x512) and GPT-2 small (8x1024)
+    O1 TrainSteps with chunked_ce=True from the same weights (SEED) and
+    batch as their dense steps (dense: {"ernie": train_path's row, "gpt":
+    gpt_train_path's}). The step-1 losses (the chunked forward) and the
+    step-2 losses (after one update through the chunked backward) agree
+    within CE_LOSS_RTOL and
+    the chunked peak memory lies below the dense peak (both counted
+    above what was allocated before each phase built its model)."""
+    check = linear_ce_check(torch)
+    rows = {}
+    for kind in ("ernie", "gpt"):
+        base = torch.cuda.memory_allocated()
+        model = _train_model(pt, kind, chunked_ce=True)
+        row, (_, step, x, y) = _train_run(torch, fa, kind, model,
+                                          VARIANT_WARMUP, VARIANT_STEPS, base)
+        prof = device_profile(torch, lambda: step(x, y), runs=2)
+        row["profile"] = dict(device_ms_per_step=prof["device_ms"],
+                              categories=prof["categories"],
+                              top=prof["top"][:10])
+        del step
+        # the head's rows: every position (ERNIE's MLM), all but the
+        # last of each sequence (GPT's shifted LM loss)
+        rows_ce = row["batch"] * (row["seq"] - (kind == "gpt"))
+        head = chunked_head_work(rows_ce, model.config.hidden_size,
+                                 model.config.vocab_size,
+                                 model.config.ce_vocab_block)
+        del model
+        ref = dense[kind]
+        row.update(
+            dense_step_ms=ref["step_ms"],
+            dense_tokens_per_s=ref["tokens_per_s"],
+            dense_peak_above_base_bytes=ref["peak_above_base_bytes"],
+            peak_saved_bytes=(ref["peak_above_base_bytes"]
+                              - row["peak_above_base_bytes"]),
+            logits_bf16_bytes=head["logits_bf16_bytes"], head=head,
+            dense_losses=ref["losses"][:2],
+            step1_rel_diff=_rel_diff(row["losses"][0], ref["losses"][0]),
+            step2_rel_diff=_rel_diff(row["losses"][1], ref["losses"][1]),
+            rtol=CE_LOSS_RTOL)
+        row["ok"] = (row["step1_rel_diff"] <= CE_LOSS_RTOL
+                     and row["step2_rel_diff"] <= CE_LOSS_RTOL
+                     and row["peak_saved_bytes"] > 0)
+        emit({"chunked_ce": row})
+        if not row["ok"]:
+            fail(f"the chunked {kind} step disagrees with the dense one "
+                 f"or does not save memory: {row}")
+        rows[kind] = row
+        torch.cuda.empty_cache()
+    return check, rows
+
+
+def _rel_diff(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _scanned_twin(pt, kind):
+    """A scan_layers model loaded from its unrolled twin (both from
+    SEED) through load_from_layers, the other parameters by name."""
+    twin = _train_model(pt, kind)
+    model = _train_model(pt, kind, scan_layers=True)
+    stack, blocks = ((model.ernie.encoder, twin.ernie.encoder)
+                     if kind == "ernie" else
+                     (model.gpt.blocks, twin.gpt.blocks))
+    stack.load_from_layers(blocks)
+    own = model.state_dict()
+    model.set_state_dict({k: v for k, v in twin.state_dict().items()
+                          if k in own})
+    return model
+
+
+def scan_layers_phase(torch, pt, fa, dense):
+    """ERNIE-base and GPT-2 small with scan_layers=True, loaded from
+    their unrolled twins: the loss of every step (the first forward,
+    then each after the stacked backward and AdamW on the stacks) equals
+    the unrolled run's at that step (dense: train_path's and
+    gpt_train_path's rows, the same seeds and batch) within SCAN_RTOL,
+    every step launches each kernel once per layer (_train_run)."""
+    rows = {}
+    for kind in ("ernie", "gpt"):
+        base = torch.cuda.memory_allocated()
+        model = _scanned_twin(pt, kind)
+        row, _ = _train_run(torch, fa, kind, model, VARIANT_WARMUP,
+                            VARIANT_STEPS, base)
+        del model
+        ref = dense[kind]["losses"][:len(row["losses"])]
+        diffs = [_rel_diff(a, b) for a, b in zip(row["losses"], ref)]
+        row.update(unrolled_step_ms=dense[kind]["step_ms"],
+                   unrolled_losses=ref, rel_diffs=diffs,
+                   max_rel_diff=max(diffs), rtol=SCAN_RTOL)
+        row["ok"] = row["max_rel_diff"] <= SCAN_RTOL
+        emit({"scan_layers": row})
+        if not row["ok"]:
+            fail(f"the scanned {kind} step disagrees with the unrolled "
+                 f"one: {row}")
+        rows[kind] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -1876,6 +2235,12 @@ def main():
     serving_levers_phase(torch, pt, fa, gpt_model, bf16_streams, parity)
     del gpt_model
     torch.cuda.empty_cache()
+    gpt_kernel_rows, gpt_probes = gpt_train_kernels_phase(torch, fa, philox)
+    gpt_train = gpt_train_path(torch, pt, fa)
+    torch.cuda.empty_cache()
+    dense = {"ernie": train, "gpt": gpt_train}
+    _, chunked = chunked_ce_phase(torch, pt, fa, dense)
+    scanned = scan_layers_phase(torch, pt, fa, dense)
 
     # every row at the training path's shape: b 48, s 512, n 12, h 64,
     # bf16, non-causal, dropout 0.1, strided qkv views
@@ -1889,8 +2254,46 @@ def main():
     by_path = {k: {"inference": launches_inf if k == "flash_attn_fwd"
                    else 0, "training": train["launches"][k],
                    "gpt_forward": gpt_launches if k == "flash_attn_fwd"
-                   else 0}
+                   else 0, "gpt_training": gpt_train["launches"][k],
+                   **{f"chunked_ce_{m}": chunked[m]["launches"][k]
+                      for m in chunked},
+                   **{f"scan_layers_{m}": scanned[m]["launches"][k]
+                      for m in scanned}}
                for k in fa.launches}
+    # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
+    # bf16 (the O1 path's attention), causal, dropout 0.1
+    gpt_head = next(c for c in gpt_kernel_rows if c["dtype"] == "bfloat16")
+    gpt_shape = "b8 s1024 n12 h64 bfloat16 causal dropout 0.1"
+    per_step = gpt_train["launches_per_step"]
+    gpt_at = {
+        "flash_attn_fwd": dict(
+            max_abs_err=gpt_head["o_max_abs_err"],
+            worst_row=gpt_head["o_worst_row"], ms=gpt_head["fwd_ms"],
+            plain_ms=gpt_head["fwd_plain_ms"],
+            bound_ms=gpt_head["fwd_bound_ms"],
+            bound_by=gpt_head["fwd_bound_by"],
+            library_ms=gpt_head["fwd_library_ms"],
+            dropout_work={k: gpt_head["fwd_bound"].get(k) for k in (
+                "philox_calls", "philox_int_instructions",
+                "philox_floor_ms", "bound_reachable")}),
+        "flash_attn_bwd_dq": dict(
+            max_abs_err=gpt_head["dq_max_abs_err"],
+            worst_row=gpt_head["dq_worst_row"], ms=gpt_head["dq_ms"],
+            plain_ms=gpt_head["dq_plain_ms"],
+            bound_ms=gpt_head["dq_bound_ms"],
+            bound_by=gpt_head["dq_bound_by"], library_ms=None),
+        "flash_attn_bwd_dkv": dict(
+            max_abs_err=max(gpt_head["dk_max_abs_err"],
+                            gpt_head["dv_max_abs_err"]),
+            worst_row=max(gpt_head["dk_worst_row"],
+                          gpt_head["dv_worst_row"]),
+            ms=gpt_head["dkv_ms"], plain_ms=gpt_head["dkv_plain_ms"],
+            bound_ms=gpt_head["dkv_bound_ms"],
+            bound_by=gpt_head["dkv_bound_by"], library_ms=None)}
+    for k, v in gpt_at.items():
+        v.update(shape=gpt_shape, launches_per_step=per_step[k],
+                 backward_ms=gpt_head["backward_ms"],
+                 backward_library_ms=gpt_head["backward_library_ms"])
     # no library call computes one backward kernel's outputs alone: the
     # backward rows carry SDPA's backward beside the whole backward
     common = dict(route="cuda", shape=shape)
@@ -1930,14 +2333,16 @@ def main():
              **whole_bwd)]
     for kern in kernels:
         kern.update(common, launches=by_path[kern["name"]]["training"],
-                    launches_by_path=by_path[kern["name"]])
+                    launches_by_path=by_path[kern["name"]],
+                    gpt_training=gpt_at[kern["name"]])
         if kern["launches"] == 0:
             fail(f"the training path launched no {kern['name']} kernel")
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     emit({"kernels": kernels, "philox": "paddle_tpu_torch/csrc/philox.cuh "
           "replaces paddle_tpu/ops/pallas_kernels.py:157 (inside all three)",
-          "mask_probes": probes, "backward_cases": bwd_cases})
+          "mask_probes": probes + gpt_probes, "backward_cases": bwd_cases,
+          "gpt_training_cases": gpt_kernel_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -64,7 +64,10 @@ class AmpScaler:
         if res is None:
             return
         params, found = res
-        optimizer.apply_gradients(params, [p.grad for p in params],
+        # the unscaled gradients through the optimizer's grad_clip, as
+        # the JAX scaler's optimizer.step() clips them
+        pg = optimizer._clipped([(p, p.grad) for p in params])
+        optimizer.apply_gradients([p for p, _ in pg], [g for _, g in pg],
                                   skip=found)
         self._update(found)
 

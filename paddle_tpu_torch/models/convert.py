@@ -18,7 +18,9 @@ def load_jax_params(model, state: Dict[str, np.ndarray]):
     """Copy a paddle_tpu `state_dict()` (as numpy arrays) into `model`.
 
     Both packages name parameters alike and Linear keeps the [in, out]
-    layout, so every array copies 1:1, cast to the parameter's dtype.
+    layout, so every array copies 1:1, cast to the parameter's dtype; a
+    scan_layers model's [L, ...] stacks carry the JAX model's
+    `stk__...` names (nn/layer/scanned.py) and load the same way.
     Raises KeyError on a missing or an extra name and ValueError on a
     shape mismatch: a partial load is never silent."""
     own = model.state_dict()

@@ -1,19 +1,24 @@
 """ERNIE/BERT-class encoder for inference and pretraining (counterpart
 of paddle_tpu/models/ernie.py).
 
-ErnieForPretraining: embeddings, a dense unscanned encoder whose
-self-attention runs the flash-attention kernels (forward and backward,
-with the in-kernel Philox attention dropout in training), the pooler,
-and the MLM head with the decoder tied to the word embeddings
-(logits = h @ E^T + mlm_bias, through F.linear so AMP casts it), plus
-the static pretraining_loss. Hidden dropout goes through F.dropout.
-Parameter names and shapes equal the JAX model's, so its state_dict
-loads by name (models/convert.py).
+ErnieForPretraining: embeddings, an encoder whose self-attention runs
+the flash-attention kernels (forward and backward, with the in-kernel
+Philox attention dropout in training), the pooler, and the MLM head with
+the decoder tied to the word embeddings (logits = h @ E^T + mlm_bias,
+through F.linear so AMP casts it), plus the static pretraining_loss.
+Hidden dropout goes through F.dropout.
+
+scan_layers=True makes the encoder one ErnieScannedEncoder (stacked
+[L, ...] parameters under the JAX model's `ernie.encoder.stk__...`
+names); chunked_ce=True makes forward return the transformed hidden
+states in place of the logits, and chunked_pretraining_loss streams the
+tied decoder + CE through vocab blocks (F.linear_cross_entropy).
+Parameter names and shapes equal the JAX model's in every form, so its
+state_dict loads by name (models/convert.py).
 
 Not ported yet, and rejected with NotImplementedError naming the slice
 that brings them: MoE layers and sequence parallelism (the distributed
-slice), the scanned encoder and the vocab-chunked CE head (a later
-training PR, ROADMAP queue A).
+slice).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from ..nn import functional as F
 from ..nn.initializer import Normal
 
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieSelfAttention",
-           "ErnieLayer", "ErnieModel", "ErnieForPretraining"]
+           "ErnieLayer", "ErnieScannedEncoder", "ErnieModel",
+           "ErnieForPretraining"]
 
 
 class ErnieConfig:
@@ -82,15 +88,12 @@ def _check_supported(config: ErnieConfig):
     later = [(config.moe_num_experts > 0, "moe_num_experts > 0",
               "the distributed slice"),
              (bool(config.sequence_parallel), "sequence_parallel",
-              "the distributed slice"),
-             (config.scan_layers, "scan_layers",
-              "a later training-slice PR"),
-             (config.chunked_ce, "chunked_ce", "a later training-slice PR")]
+              "the distributed slice")]
     for bad, flag, where in later:
         if bad:
             raise NotImplementedError(
                 f"ErnieConfig({flag}) is not ported yet: it comes with "
-                f"{where}; this slice runs the dense unscanned encoder")
+                f"{where}; this slice runs the dense encoder")
 
 
 def _init_linear(layer, std):
@@ -164,6 +167,19 @@ class ErnieLayer(nn.Layer):
         return self.ffn_norm(x + self.dropout(ffn))
 
 
+class ErnieScannedEncoder(nn.ScannedStack):
+    """All encoder blocks as one nn.ScannedStack:
+    ``encoder.0.attention.qkv.weight [h, 3h]`` x L becomes
+    ``encoder.stk__attention__qkv__weight [L, h, 3h]``.
+    ``load_from_layers`` imports unrolled weights; the additive
+    attention mask rides as the blocks' side input."""
+
+    def __init__(self, config: ErnieConfig, device=None):
+        super().__init__([ErnieLayer(config, device=device)
+                          for _ in range(config.num_hidden_layers)],
+                         op_name="ernie_scanned_encoder")
+
+
 class ErnieEmbeddings(nn.Layer):
     def __init__(self, config: ErnieConfig, device=None):
         super().__init__(device=device)
@@ -199,9 +215,12 @@ class ErnieModel(nn.Layer):
         _check_supported(self.config)
         dev = self._device
         self.embeddings = ErnieEmbeddings(self.config, device=dev)
-        self.encoder = nn.LayerList(
-            [ErnieLayer(self.config, device=dev)
-             for _ in range(self.config.num_hidden_layers)])
+        if self.config.scan_layers:
+            self.encoder = ErnieScannedEncoder(self.config, device=dev)
+        else:
+            self.encoder = nn.LayerList(
+                [ErnieLayer(self.config, device=dev)
+                 for _ in range(self.config.num_hidden_layers)])
         self.pooler = nn.Linear(self.config.hidden_size,
                                 self.config.hidden_size, device=dev)
 
@@ -219,15 +238,24 @@ class ErnieModel(nn.Layer):
         if seq_lens is not None and not self.config.use_flash_attention:
             attention_mask = _lens_to_additive_mask(seq_lens, x.shape[1])
             seq_lens = None
-        for layer in self.encoder:
-            x = layer(x, attention_mask, kv_lens=seq_lens)
+        if self.config.scan_layers:
+            if seq_lens is not None:
+                raise ValueError(
+                    "scan_layers encoder takes attention_mask, not "
+                    "seq_lens (the scanned stack carries the additive "
+                    "mask form)")
+            x = self.encoder(x, attention_mask)
+        else:
+            for layer in self.encoder:
+                x = layer(x, attention_mask, kv_lens=seq_lens)
         pooled = F.tanh(self.pooler(x[:, 0]))
         return x, pooled
 
 
 class ErnieForPretraining(nn.Layer):
     """MLM + NSP heads. forward returns (mlm logits [b, s, vocab],
-    nsp logits [b, 2])."""
+    nsp logits [b, 2]); with chunked_ce, (the transformed hidden states
+    [b, s, hidden], nsp logits), for chunked_pretraining_loss."""
 
     def __init__(self, config: ErnieConfig = None, device=None, **kwargs):
         super().__init__(device=device)
@@ -248,6 +276,9 @@ class ErnieForPretraining(nn.Layer):
         seq, pooled = self.ernie(input_ids, token_type_ids, position_ids,
                                  attention_mask, seq_lens=seq_lens)
         h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
+        if self.config.chunked_ce:
+            # the decoder matmul moves into chunked_pretraining_loss
+            return h, self.nsp(pooled)
         # weight-tied decoder in 2D: logits = h @ E^T + mlm_bias, through
         # F.linear (an AMP white-list op, as in the JAX package)
         b, s = h.shape[0], h.shape[1]
@@ -268,6 +299,25 @@ class ErnieForPretraining(nn.Layer):
         mlm = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                               mlm_labels.reshape(-1),
                               ignore_index=ignore_index)
+        if nsp_labels is None:
+            return mlm
+        return mlm + F.cross_entropy(nsp_logits, nsp_labels.reshape(-1))
+
+    def chunked_pretraining_loss(self, outputs, mlm_labels,
+                                 nsp_labels=None, ignore_index=-100):
+        """Loss for chunked_ce=True models: outputs carry the HIDDEN
+        states (forward skipped the decoder); the tied decoder + CE
+        stream through vocab blocks (F.linear_cross_entropy), so no
+        [b*s, vocab] logits ever exist. Bind as the TrainStep loss_fn:
+        TrainStep(model, model.chunked_pretraining_loss, ...)."""
+        h, nsp_logits = outputs
+        w_t = self.ernie.embeddings.word_embeddings.weight.t()
+        mlm = F.linear_cross_entropy(
+            h.reshape(-1, h.shape[-1]), w_t, self.mlm_bias,
+            mlm_labels.reshape(-1),
+            vocab_block=min(self.config.ce_vocab_block,
+                            self.config.vocab_size),
+            ignore_index=ignore_index)
         if nsp_labels is None:
             return mlm
         return mlm + F.cross_entropy(nsp_logits, nsp_labels.reshape(-1))

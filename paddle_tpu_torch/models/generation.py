@@ -57,24 +57,38 @@ _BLOCK_KEYS = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "qkv_w", "qkv_b",
                "proj_w", "proj_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 
 
+def _block_name(key):
+    """Decode key -> the block's parameter name (ln1_w is ln1.weight,
+    qkv_b qkv.bias, ...)."""
+    return key[:-2] + (".weight" if key.endswith("_w") else ".bias")
+
+
 def _block_params(blk):
-    """Decode-key -> the block's parameter tensor (ln1_w is
-    blk.ln1.weight, qkv_b blk.qkv.bias, ...)."""
-    return {k: getattr(getattr(blk, k[:-2]),
-                       "weight" if k.endswith("_w") else "bias").detach()
+    """Decode key -> the block's parameter tensor."""
+    return {k: blk.get_parameter(_block_name(k)).detach()
             for k in _BLOCK_KEYS}
 
 
 def _gpt_params(model):
     """The model's parameters as the generation/serving dict: wte, wpe,
     lnf_w, lnf_b and per-block dicts. Detached views of the live
-    parameters, not copies."""
+    parameters, not copies. A scan_layers model's [L, ...] stacks are
+    sliced into the same per-layer dicts, so generation and serving run
+    alike off either layout."""
     gpt = model.gpt
+    if gpt.config.scan_layers:
+        stk = gpt.blocks
+        stacks = {k: stk.stacked(_block_name(k)).detach()
+                  for k in _BLOCK_KEYS}
+        blocks = [{k: v[i] for k, v in stacks.items()}
+                  for i in range(stk.L)]
+    else:
+        blocks = [_block_params(b) for b in gpt.blocks]
     return {
         "wte": gpt.wte.weight.detach(),
         "wpe": gpt.wpe.weight.detach(),
         "lnf_w": gpt.ln_f.weight.detach(), "lnf_b": gpt.ln_f.bias.detach(),
-        "blocks": [_block_params(b) for b in gpt.blocks],
+        "blocks": blocks,
     }
 
 

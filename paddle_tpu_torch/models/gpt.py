@@ -1,20 +1,22 @@
 """GPT-class decoder LM (counterpart of paddle_tpu/models/gpt.py).
 
-GPTForCausalLM: token + position embeddings, a dense unscanned stack of
-pre-LN blocks whose causal self-attention runs the flash-attention
-forward kernel (F.flash_attention(..., causal=True); on the card
-csrc/flash_attn_fwd.cu, once per block), the final layer norm, and the
-head tied to the token embeddings (logits = h @ wte^T through F.linear,
-so AMP casts it). use_flash_attention=False takes the SDPA composition.
-Parameter names and shapes equal the JAX model's (gpt.wte.weight,
-gpt.blocks.{i}.qkv.weight, ...), so its state_dict loads by name
+GPTForCausalLM: token + position embeddings, a stack of pre-LN blocks
+whose causal self-attention runs the flash-attention kernels
+(F.flash_attention(..., causal=True); on the card csrc/flash_attn_fwd.cu
+once per block, and in training the dQ and dK/dV kernels of
+csrc/flash_attn_bwd.cu, with the in-kernel Philox attention dropout),
+the final layer norm, and the head tied to the token embeddings
+(logits = h @ wte^T through F.linear, so AMP casts it).
+use_flash_attention=False takes the SDPA composition.
+
+scan_layers=True keeps the blocks as one nn.ScannedStack (stacked
+[L, ...] parameters under the JAX model's `gpt.blocks.stk__...` names);
+chunked_ce=True makes forward return the hidden states and moves the
+tied head into chunked_lm_loss (F.linear_cross_entropy: the
+[b*s, vocab] logits never exist). Parameter names and shapes equal the
+JAX model's in every form, so its state_dict loads by name
 (models/convert.py). generate() is the KV-cache decode of
 models/generation.py.
-
-Not ported yet, and rejected with NotImplementedError naming the ROADMAP
-item that brings them: scan_layers and the vocab-chunked CE head
-(chunked_ce, chunked_lm_loss), both training work (ROADMAP.md queue A
-item 10f, GPT training through the three kernels).
 """
 from __future__ import annotations
 
@@ -25,15 +27,13 @@ from ..nn import functional as F
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM"]
 
-_LATER = ("ROADMAP.md queue A item 10f (GPT training through the "
-          "three kernels)")
-
 
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, dropout=0.1,
                  layer_norm_eps=1e-5, use_flash_attention=True,
-                 scan_layers=False, chunked_ce=False):
+                 scan_layers=False, chunked_ce=False,
+                 ce_vocab_block=2048):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -42,21 +42,19 @@ class GPTConfig:
         self.dropout = dropout
         self.layer_norm_eps = layer_norm_eps
         self.use_flash_attention = use_flash_attention
+        # chunked_ce: training only: forward returns the HIDDEN states
+        # and chunked_lm_loss streams the tied head through vocab blocks
+        # of ce_vocab_block columns. generate() reads the weights
+        # directly and is unaffected
         self.chunked_ce = chunked_ce
+        self.ce_vocab_block = ce_vocab_block
+        # the blocks as one nn.ScannedStack of [L, ...] parameters
         self.scan_layers = bool(scan_layers)
 
     @classmethod
     def tiny(cls, **kw):
         return cls(vocab_size=512, hidden_size=64, num_layers=2,
                    num_heads=4, max_seq_len=128, **kw)
-
-
-def _check_supported(config: GPTConfig):
-    for flag in ("scan_layers", "chunked_ce"):
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"GPTConfig({flag}=True) is not ported yet: it comes with "
-                f"{_LATER}; this slice runs the dense unscanned stack")
 
 
 class GPTBlock(nn.Layer):
@@ -99,14 +97,14 @@ class GPTModel(nn.Layer):
     def __init__(self, config: GPTConfig = None, device=None, **kwargs):
         super().__init__(device=device)
         self.config = cfg = config or GPTConfig(**kwargs)
-        _check_supported(cfg)
         dev = self._device
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=dev)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size,
                                 device=dev)
         self.drop = nn.Dropout(cfg.dropout, device=dev)
-        self.blocks = nn.LayerList([GPTBlock(cfg, device=dev)
-                                    for _ in range(cfg.num_layers)])
+        blocks = [GPTBlock(cfg, device=dev) for _ in range(cfg.num_layers)]
+        self.blocks = (nn.ScannedStack(blocks, op_name="gpt_scanned_blocks")
+                       if cfg.scan_layers else nn.LayerList(blocks))
         self.ln_f = nn.LayerNorm(cfg.hidden_size,
                                  epsilon=cfg.layer_norm_eps, device=dev)
 
@@ -114,8 +112,11 @@ class GPTModel(nn.Layer):
         b, s = input_ids.shape
         pos = torch.arange(s, device=input_ids.device).unsqueeze(0)
         x = self.drop(self.wte(input_ids) + self.wpe(pos.expand(b, s)))
-        for blk in self.blocks:
-            x = blk(x)
+        if self.config.scan_layers:
+            x = self.blocks(x)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.ln_f(x)
 
 
@@ -127,6 +128,8 @@ class GPTForCausalLM(nn.Layer):
 
     def forward(self, input_ids):
         h = self.gpt(input_ids)
+        if self.config.chunked_ce:
+            return h   # the head moves into chunked_lm_loss
         # 2D head matmul against the tied embeddings: [b*s, vocab] logits
         b, s = h.shape[0], h.shape[1]
         h2 = h.reshape(-1, h.shape[-1])
@@ -139,9 +142,15 @@ class GPTForCausalLM(nn.Layer):
             labels[:, 1:].reshape(-1))
 
     def chunked_lm_loss(self, hidden, labels):
-        raise NotImplementedError(
-            f"chunked_lm_loss is not ported yet: it comes with {_LATER} "
-            "(with F.linear_cross_entropy)")
+        """Loss for chunked_ce=True models: `hidden` is forward()'s
+        output; the tied head + CE stream through vocab blocks, so the
+        [b*s, vocab] logits never exist. Bind as the TrainStep loss_fn:
+        TrainStep(model, model.chunked_lm_loss, ...)."""
+        cfg = self.config
+        h2 = hidden[:, :-1].reshape(-1, hidden.shape[-1])
+        return F.linear_cross_entropy(
+            h2, self.gpt.wte.weight.t(), None, labels[:, 1:].reshape(-1),
+            vocab_block=min(cfg.ce_vocab_block, cfg.vocab_size))
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, eos_token_id=None, pad_token_id=0,

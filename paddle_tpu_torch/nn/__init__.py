@@ -2,5 +2,8 @@
 paddle_tpu/nn)."""
 from torch.nn import ModuleList as LayerList  # noqa: F401
 
-from . import functional, initializer  # noqa: F401
-from .layer import Dropout, Embedding, Layer, LayerNorm, Linear  # noqa: F401
+from . import clip, functional, initializer  # noqa: F401
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue)
+from .layer import (Dropout, Embedding, Layer, LayerNorm,  # noqa: F401
+                    Linear, ScannedStack)

@@ -14,7 +14,9 @@ weight decay, the latter applied with the OLD parameter (p_new -= lr *
 wd * p); multi-precision master weights for bf16/fp16 params (the rule
 runs on an f32 master and the param is its cast-down); and, for the
 loss-scale skip, a device-side bool `skip` that keeps params and state
-exactly as they were without reading the flag back to the host.
+exactly as they were without reading the flag back to the host. The
+eager step() applies grad_clip (nn/clip.py) first; apply_gradients, the
+compiled-step form, does not clip, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,12 +38,10 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None):
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad_clip is not ported yet: it comes with a later slice")
         self._lr = learning_rate
         self._parameters = list(parameters) if parameters is not None \
             else None
+        self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         self._wd_mode = "l2"
         if isinstance(weight_decay, (float, int)):
@@ -155,10 +155,20 @@ class Optimizer:
                             None)
 
     def step(self):
-        """Eager step over the params that have a gradient."""
-        ps = [p for p in self._param_list() if p.grad is not None]
-        if ps:
-            self.apply_gradients(ps, [p.grad for p in ps])
+        """Eager step over the params that have a gradient, clipped
+        first by the optimizer's grad_clip (nn/clip.py), as the JAX
+        package's eager step clips them."""
+        pg = self._clipped([(p, p.grad) for p in self._param_list()
+                            if p.grad is not None])
+        if pg:
+            self.apply_gradients([p for p, _ in pg], [g for _, g in pg])
+
+    def _clipped(self, params_grads):
+        """(param, grad) pairs through grad_clip when one is set, pairs
+        without a gradient dropped: what an eager step applies."""
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        return [(p, g) for p, g in params_grads if g is not None]
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):

@@ -24,7 +24,8 @@ eagerly on the card, with the semantics of the JAX `_build`'s `step`:
 Capturing the step (a CUDA graph or a compiled graph) with a "no
 recompiles after warm-up" contract is the next TrainStep item (ROADMAP queue A 7).
 mesh/sharding_plan, grad_transform, remat and sentry belong to later
-slices and raise NotImplementedError.
+slices and raise NotImplementedError, as does an optimizer with a
+grad_clip (the JAX package's compiled step does not clip).
 """
 from __future__ import annotations
 
@@ -78,6 +79,16 @@ class TrainStep:
                 ("sentry", sentry, "the observability slice")):
             if val:
                 raise _later(flag, where)
+        if getattr(optimizer, "_grad_clip", None) is not None:
+            # the JAX TrainStep updates through apply_gradients_tree,
+            # which never calls the optimizer's _grad_clip: its compiled
+            # step does not clip. Refuse rather than differ in silence.
+            raise NotImplementedError(
+                "TrainStep with an optimizer that carries a grad_clip: the "
+                "JAX package's compiled step never applies it (its "
+                "apply_gradients_tree skips _grad_clip; ROADMAP.md queue "
+                "C), so the port refuses it rather than clip or not in "
+                "silence. Clip in an eager loop with optimizer.step().")
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{grad_accum_steps}")

@@ -227,3 +227,113 @@ def test_shared_prefix_trace_is_the_loadgen_shape(cs):
     assert 0.85 <= np.mean(hit) <= 0.95
     _, _, none = cs.shared_prefix_trace(np, 50, 50304, frac=0.0)
     assert not any(none)
+
+
+# GPT-2 small's training attention: b 8, s 1024, n 12, h 64, causal
+GB, GS = 8, 1024
+
+
+def test_gpt_train_forward_bound_and_philox_floor(cs):
+    """Causal, p 0.1: s (s + 1) / 2 kept links a head, one Philox call
+    per 2x2 block of them (12,595,200 calls); bound by bytes at 0.0151
+    ms, while 47.25 instructions a call at 64 integer ops per clock on
+    132 SMs at 1980 MHz set a floor of about 0.036 ms."""
+    ipc, sms, mhz = 47.25, 132, 1980.0
+    row = cs.fwd_bound(GB, GS, GS, N, H, True, "bfloat16", 0.1,
+                       (ipc, sms, mhz))
+    links = GS * (GS + 1) // 2
+    assert row["flops"] == 4 * GB * N * H * links
+    assert row["bytes"] == 4 * GB * GS * N * H * 2 + GB * N * GS * 4
+    assert row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(0.0151, abs=5e-5)
+    assert row["philox_calls"] == GB * N * links // 4 == 12_595_200
+    assert row["philox_floor_ms"] == pytest.approx(
+        12_595_200 * ipc / (sms * 64 * mhz * 1e6) * 1e3)
+    assert row["philox_floor_ms"] == pytest.approx(0.0356, abs=5e-4)
+    assert row["bound_reachable"] is False
+
+
+def test_gpt_train_backward_bounds(cs):
+    """dQ: 3 products over the causal links, dK/dV: 4; bytes as the
+    training shape counts them (each input read once, each output
+    written once)."""
+    links = GS * (GS + 1) // 2
+    el = GB * GS * N * H
+    for kern, products, nbytes in (("dq", 3, 6 * el * 2),
+                                   ("dkv", 4, 6 * el * 2)):
+        ms, by = cs.bwd_bound_ms(kern, GB, GS, GS, N, H, True, "bfloat16")
+        flops = products * 2.0 * GB * N * H * links
+        stats = 2 * GB * N * GS * 4
+        want = max((nbytes + stats) / 3.35e12, flops / 989e12) * 1e3
+        assert ms == pytest.approx(want)
+
+
+def test_gpt2_small_params_and_flops_per_token(cs):
+    """N = 124,475,904 for GPT-2 small (vocab 50304, 1024 positions, 12
+    layers of 768): 860.1 MFLOP a token by bench.py's 6N + 12 L h s."""
+    n = cs.gpt_param_count(**cs.GPT_TRAIN)
+    assert n == 124_475_904
+    f = cs.train_flops_per_token(n, 12, 768, 1024)
+    assert f == 6 * 124_475_904 + 12 * 12 * 768 * 1024 == 860_101_632
+    assert cs.GPT_TRAIN["dropout"] == 0.1
+    assert cs.GPT_TRAIN_BATCH == (8, 1024)
+
+
+@pytest.mark.parametrize("n,vocab,blocks,padded,logits_gb", [
+    (48 * 512, 30528, 15, 30720, 1.50),    # ERNIE-base MLM head, 48x512
+    (8 * 1023, 50304, 25, 51200, 0.82)])   # GPT-2 small LM head, 8x1024
+def test_chunked_head_padding_and_work(cs, n, vocab, blocks, padded,
+                                       logits_gb):
+    """The vocab padded to a multiple of the 2048-column block; 4 f32
+    GEMMs a block of 2 n d flops a column (ERNIE 4.6 TFLOP a step, GPT
+    2.6), bound by the f32 pipes; the bf16 logits it never builds."""
+    w = cs.chunked_head_work(n, 768, vocab, 2048)
+    assert (w["blocks"], w["padded_vocab"], w["pad"]) == \
+        (blocks, padded, padded - vocab)
+    assert w["flops"] == 4 * 2.0 * n * 768 * padded
+    assert w["bound_by"] == "operations"
+    assert w["bound_ms"] == pytest.approx(w["flops"] / 67e12 * 1e3)
+    assert w["logits_bf16_bytes"] / 1e9 == pytest.approx(logits_gb,
+                                                         abs=0.005)
+    assert w["flops"] / 1e12 == pytest.approx(
+        {30528: 4.64, 50304: 2.58}[vocab], abs=0.01)
+
+
+def _causal_like(seed=0, s=1024, h=64):
+    """An O-like [s, h] tensor: row i about 1/sqrt(i + 1) in size, as a
+    causal attention output over random values."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.arange(s, dtype=torch.float32)[:, None]
+    return torch.randn((s, h), generator=g) / torch.sqrt(rows + 1.0)
+
+
+def test_row_check_catches_late_rows_the_global_check_passes(cs):
+    """A 30% error in the rows past 300 stays inside 2e-2 x max|ref|
+    (the rows there hold about 1/17 of row 0), but not inside 2e-2 of
+    each row's own max|ref|."""
+    ref = _causal_like()
+    bad = ref.clone()
+    bad[300:] *= 1.3
+    assert cs._err_ok(bad, ref, "bfloat16")[2]
+    err, ratio, ok = cs._row_err_ok(bad, ref, "bfloat16")
+    assert not ok and ratio == pytest.approx(0.3, rel=1e-4)
+
+
+def test_row_check_passes_bf16_rounding_and_cancelled_rows(cs):
+    """bf16 rounding of every element passes row by row; a row that
+    cancels to noise (dQ of causal row 0) is held to the floor, not to
+    its own size."""
+    import torch
+    ref = _causal_like(seed=1)
+    ref[0] = 1e-7
+    got = ref.to(torch.bfloat16).float()
+    got[0] = -1e-6
+    err, ratio, ok = cs._row_err_ok(got, ref, "bfloat16")
+    assert ok and ratio <= 2 ** -8
+    # f32: each row against max(1, its max|ref|), so an error of 2e-4 in
+    # a row below 1 fails where it would in the whole-tensor check too
+    off = ref.clone()
+    off[700, 3] += 2e-4
+    assert not cs._row_err_ok(off, ref, "float32")[2]
+    assert cs._row_err_ok(ref.clone(), ref, "float32")[2]

@@ -121,13 +121,26 @@ def test_eval_ignores_dropout_and_train_applies_it():
 
 @pytest.mark.parametrize("flag", ["scan_layers", "chunked_ce"])
 def test_unported_config_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTForCausalLM(GPTConfig(**dict(SMALL, **{flag: True})),
-                       device="cpu")
+    """The two flags the GPT slice once rejected are ported now: the
+    model builds with the JAX model's parameter names and shapes for the
+    flag (tests/test_torch_scan_layers.py and
+    tests/test_torch_gpt_training.py hold their numbers against JAX)."""
+    paddle.seed(0)
+    jm = JaxGPT(JaxConfig(**dict(SMALL, **{flag: True})))
+    tm = GPTForCausalLM(GPTConfig(**dict(SMALL, **{flag: True})),
+                        device="cpu")
+    assert [(k, tuple(v.shape)) for k, v in jm.state_dict().items()] == \
+        [(k, tuple(v.shape)) for k, v in tm.state_dict().items()]
 
 
 def test_chunked_lm_loss_raises(pairs):
+    """chunked_lm_loss no longer raises: over the hidden states it equals
+    lm_loss over the dense logits of the same weights."""
     _, tm = pairs[True]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.chunked_lm_loss(torch.zeros((1, 4, 32)),
-                           torch.zeros((1, 4), dtype=torch.long))
+    ids = torch.from_numpy(np.random.RandomState(6).randint(0, 97, (2, 12)))
+    with torch.no_grad():
+        logits = tm(ids)
+        hidden = tm.gpt(ids)
+        got = tm.chunked_lm_loss(hidden, ids)
+    torch.testing.assert_close(got, tm.lm_loss(logits, ids), atol=1e-5,
+                               rtol=1e-5)

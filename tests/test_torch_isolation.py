@@ -39,7 +39,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.serving.paged_cache, "
         "paddle_tpu_torch.serving.scheduler, "
         "paddle_tpu_torch.quant, paddle_tpu_torch.quant.int8_serving, "
-        "paddle_tpu_torch.observability.sentinel\n"
+        "paddle_tpu_torch.observability.sentinel, "
+        "paddle_tpu_torch.nn.clip, paddle_tpu_torch.nn.layer.scanned, "
+        "paddle_tpu_torch.nn.functional.loss\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
