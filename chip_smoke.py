@@ -59,7 +59,11 @@ Phases, each of which fails the run on any mismatch:
    (FFMA) forward, dQ and dK/dV kernels at b 48, s 512 and 200; each
    must agree with the plain version to within half a link's weight,
    so the kernels' own masks equal the plain Philox mask link for link.
-   The kept fraction over all links is reported too.
+   The kept fraction over all links is reported too. The kernels get
+   the seed as a tensor on the card (seed_card), as a training step
+   does; `host_cost` then times the forward wrapper's host side alone
+   at GPT-2's 8x128 causal shape: at p 0, and at p 0.1 with an int seed
+   (made into a card tensor at every call) and with a card-resident one.
 5. Main path, inference: ERNIE-base (bench.py's base config: vocab
    30528, hidden 768, 12 layers, 12 heads, ffn 3072, 512 positions),
    random weights from seed 0, in eval mode on the card, answering
@@ -74,18 +78,32 @@ Phases, each of which fails the run on any mismatch:
    ErnieForPretraining (dropouts 0.1/0.1) + AdamW(1e-4, weight decay
    0.01) + TrainStep(amp_level="O1", amp_dtype="bfloat16") at batch
    48x512, ids and labels from numpy seed 0; 2 warm-up steps, then 10
-   timed steps on a synchronised host clock. Counts are zeroed just
-   before the path and read after: every step must launch the forward,
-   dQ and dK/dV kernels exactly 12 times each. Losses finite, the last
-   below the first (one batch, repeated). Step ms, tokens/s, MFU =
-   tokens/s x (6N + 12 L h s) / 989e12 (bench.py's formula) and peak
-   memory (torch.cuda.max_memory_allocated).
+   timed steps on a synchronised host clock. On the card a TrainStep
+   captures its step as one CUDA graph at the first call (after an eager
+   warm-up, which is that call's step) and replays it after, so every
+   training phase runs captured: 1 graph, 0 sentinel events. Counts are
+   zeroed just before the path. The first call's launches are the
+   wrappers' count of its warm-up (TrainStep.last_launches); a replay
+   does not pass through the wrappers, so after the timed steps two
+   replays run under torch.profiler, which counts the kernels each ran
+   on the card (`launches_per_step`; three such rounds, each kernel's
+   largest count kept, since the profiler drops a record now and then).
+   The warm-up and every replay
+   must launch the forward, dQ and dK/dV kernels exactly 12 times each,
+   and a replay the launches its capture recorded
+   (TrainStep.capture_launches); `launches` sums the counted calls,
+   `counted_calls` names them, `wrapper_counts` is the wrappers' own
+   count (warm-up and capture).
+   Losses finite, the last below the first (one batch, repeated). Step
+   ms, tokens/s, MFU = tokens/s x (6N + 12 L h s) / 989e12 (bench.py's
+   formula) and peak memory (torch.cuda.max_memory_allocated).
 7. Card against CPU, training: 2 layers of the base width, batch 2x128,
    f32, dropout 0, 3 TrainStep steps from the same weights on the card
    and on the CPU (plain path): losses agree at 1e-3 relative.
 
-8. Profile: torch.profiler over two more training steps, device time
-   per step by kernel and by category (`profile` line).
+8. Profile: the two profiled replays of 6, device time per step by
+   kernel and by category (`profile` line). The run fails if the
+   profiler sees no device time inside a replay.
 9. GPT forward (`gpt_forward`): GPT-2 small as bench.py:306 defines it
    (vocab 50304, hidden 768, 12 layers, 12 heads of 64, 1024
    positions), random weights from seed 0, eval mode, at 8x1024 and
@@ -164,6 +182,56 @@ Phases, each of which fails the run on any mismatch:
    load_from_layers: every step's loss equal to the unrolled run's at
    that step within SCAN_RTOL, 12 launches of each kernel a step, step
    ms beside the unrolled step's.
+
+18. ERNIE determinism (`ernie_determinism`): ERNIE-base's eager O1
+   step twice from one state and one step seed: the parameters whose
+   gradients differ, the ops torch names under
+   use_deterministic_algorithms(True, warn_only=True), and whether that
+   mode makes the step bit-reproducible. The run fails unless the step
+   is bit-reproducible (F.embedding's backward runs in that mode: the
+   position and token-type gradients differed between runs before), so
+   ERNIE's captured and remat checks below are bit-equal too.
+19. Captured training (`captured_train`, ERNIE-base 48x512 and GPT-2
+   small 8x1024, O1 bf16, dropout 0.1, AdamW): from one start state
+   (TrainStep.state_dict, restored in place) and the step seeds
+   STEP_SEEDS, the first call (warm-up and capture) and 3 replays
+   against 4 eager steps (TrainStep.eager_step): losses and every
+   parameter bit-equal; one replay repeated with the same step seed
+   gives the same loss, another seed another; then 12 timed replays: 1
+   graph, 0 sentinel events, host step ms beside the device ms of a
+   replay (two replays under torch.profiler, which also counts 12
+   launches of each kernel in each), the idle share, tokens/s, MFU,
+   peak memory and the eager body's step ms from the same weights.
+   Then `captured_train_scaler`: GPT-2 small with a GradScaler (scale
+   2^15, dynamic) and grad_accum_steps=2 (the microbatch loop unrolled
+   in the graph, 24 launches of each kernel a step), the first call and
+   3 replays against 4 eager steps from one state and seed sequence;
+   before the third the scale is set to inf in place, so that step's
+   gradients are non-finite and the skip select runs inside the graph
+   (and back to 2^15 before the fourth). Losses, the
+   loss-scale state after every step and the final parameters
+   bit-equal; the overflowing replay leaves the parameters as they
+   were and counts one skip.
+20. Captured eval (`captured_eval`): build_eval_fn on GPT-2 small (f32
+   weights, 8x1024), its graph replayed twice, bit-equal to the eager
+   eval forward.
+21. Remat (`remat`, GPT-2 small, then ERNIE-base): the plain captured
+   step and remat with policy None, "nothing_saveable" and
+   "checkpoint_dots", each from the same weights and fresh AdamW state
+   at the first two step seeds: step-1 and step-2 losses bit-equal to
+   the plain step's, the forward launched twice per layer (its
+   recompute; counted by the wrappers in the warm-up and by
+   torch.profiler in two replays), step ms, device ms and peak memory
+   beside the plain step's.
+22. LR schedule (`lr_schedule`): a captured GPT-2 small step under
+   LinearWarmup; the lr each replay reads from its buffer equals the
+   scheduler's get_lr() at that step, and the parameters after 5 steps
+   are bit-equal to the eager body's under the same schedule.
+23. Optimizers (`optimizers`): each of the ten optimizers'
+   apply_gradients captured (after a warm-up step) against the same 4
+   updates run eagerly on GPT-2-width tensors, f32 and bf16 with
+   multi_precision: params and state bit-equal. Then `capture_hazards`
+   sums up what the captures above showed.
 
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
@@ -250,6 +318,20 @@ SHARED_TAILS, SHARED_NEW = (8, 64), (16, 128)
 # f32 shared-prefix parity: (tail length, new tokens), staggered
 SHARED_PARITY = [(8, 24), (17, 20), (40, 16), (9, 30), (64, 12), (30, 20)]
 SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+
+
+def seed_card(torch):
+    """DROP_SEED as the kernels read it: a 0-d int64 tensor on the card,
+    made once (an eager caller's int seed becomes such a tensor at every
+    call, host work a kernel's timing should not carry)."""
+    global _SEED_CARD
+    if _SEED_CARD is None:
+        _SEED_CARD = torch.tensor(DROP_SEED, dtype=torch.int64,
+                                  device="cuda")
+    return _SEED_CARD
+
+
+_SEED_CARD = None
 
 
 def emit(obj):
@@ -404,6 +486,7 @@ def fwd_bound(b, sq, sk, n, h, causal, dtype_name, dropout_p=0.0,
 
 def kernel_phase(torch, fa):
     dev = torch.device("cuda", 0)
+    sd = seed_card(torch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     n, h = BASE["num_attention_heads"], \
@@ -422,7 +505,7 @@ def kernel_phase(torch, fa):
                           dtype=torch.float32).to(dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         scale = 1.0 / math.sqrt(hd)
-        o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, DROP_SEED)
+        o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, sd)
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.flash_attention_fwd_plain(
             q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED)
@@ -440,7 +523,7 @@ def kernel_phase(torch, fa):
             emit({"kernel_case": row})
             fail(f"flash_attn_fwd disagrees with its plain version: {row}")
         row["ms"] = time_ms(lambda: fa._flash_fwd_cuda(
-            q, k, v, causal, scale, p, DROP_SEED), reps=20)
+            q, k, v, causal, scale, p, sd), reps=20)
         row["plain_ms"] = time_ms(
             lambda: fa.flash_attention_fwd_plain(
                 q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED),
@@ -457,6 +540,48 @@ def kernel_phase(torch, fa):
         del qkv, q, k, v, o, lse, o_ref, lse_ref
     torch.cuda.empty_cache()
     return rows
+
+
+HOST_CALLS = 300
+
+
+def host_cost_phase(torch, fa):
+    """Host microseconds a call of the bf16 forward wrapper takes at
+    GPT-2's 8x128 causal shape (ROADMAP item 11): HOST_CALLS calls on
+    the host clock with no sync inside (the kernel runs for a few
+    microseconds, so the loop is bound by the host), at p 0 (no seed),
+    and at p 0.1 with an int seed (made into a card tensor by a fill
+    kernel at every call) and with a seed tensor already on the card
+    (as a captured step passes its slot)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    b, s = GPT_BATCHES[1]
+    n = GPT2["num_heads"]
+    h = GPT2["hidden_size"] // n
+    qkv = torch.randn((b, s, 3, n, h), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = 1.0 / math.sqrt(h)
+    sd = seed_card(torch)
+    cases = {"p0": (0.0, None), "p0.1_int_seed": (DROP_P, DROP_SEED),
+             "p0.1_card_seed": (DROP_P, sd)}
+    row = dict(b=b, s=s, n=n, h=h, dtype="bfloat16", causal=True,
+               calls=HOST_CALLS)
+    for name, (p, seed) in cases.items():
+        def call():
+            return fa._flash_fwd_cuda(q, k, v, True, scale, p, seed)
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            call()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        row[f"{name}_host_us"] = host / HOST_CALLS * 1e6
+    emit({"host_cost": row})
+    return row
 
 
 def _pairs(sq, sk, causal):
@@ -562,6 +687,7 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
     """One case (b, s, n, h, causal, dtype, dropout p) of the backward
     kernels (and the forward, in bf16 and with dropout) against their
     plain versions, with their times and bounds; emitted under `tag`."""
+    sd = seed_card(torch)
     dev = torch.device("cuda", 0)
     b_, s, nh, hd, causal, dt, p = case
     dtype = getattr(torch, dt)
@@ -571,9 +697,9 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
     do = torch.randn((b_, s, nh, hd), generator=gen, device=dev,
                      dtype=torch.float32).to(dtype)
     scale = 1.0 / math.sqrt(hd)
-    o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, DROP_SEED)
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, sd)
     dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
-                                    p, DROP_SEED)
+                                    p, sd)
     torch.cuda.synchronize()
     ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                        scale, p, DROP_SEED)
@@ -602,7 +728,7 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
     # delta (bf16), its delta against delta in torch ops (f32 takes
     # delta from those ops: nothing to check, null)
     dq2, delta = fa._flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
-                                       p, DROP_SEED)
+                                       p, sd)
     row["dq_repeatable"] = bool(torch.equal(dq2, dq))
     row["delta_max_abs_err"] = row["delta_tol"] = None
     delta_ok = True
@@ -619,9 +745,9 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
     del dq2
     # dq_ms includes delta: in the kernel for bf16, torch ops for f32
     row["dq_ms"] = time_ms(lambda: fa._flash_bwd_dq_cuda(
-        q, k, v, o, do, lse, causal, scale, p, DROP_SEED), reps=10)
+        q, k, v, o, do, lse, causal, scale, p, sd), reps=10)
     row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_dkv_cuda(
-        q, k, v, do, lse, delta, causal, scale, p, DROP_SEED), reps=10)
+        q, k, v, do, lse, delta, causal, scale, p, sd), reps=10)
     row["delta_torch_ms"] = time_ms(lambda: fa._bwd_delta(o, do),
                                     reps=10)
     row["backward_ms"] = row["dq_ms"] + row["dkv_ms"]
@@ -641,7 +767,7 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
     if with_fwd:
         # the forward beside SDPA's forward at the same dropout p
         row["fwd_ms"] = time_ms(lambda: fa._flash_fwd_cuda(
-            q, k, v, causal, scale, p, DROP_SEED), reps=20)
+            q, k, v, causal, scale, p, sd), reps=20)
         row["fwd_plain_ms"] = time_ms(
             lambda: fa.flash_attention_fwd_plain(
                 q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED),
@@ -686,6 +812,7 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal):
     version (the same Philox mask, f32 math, the same dO) to within half
     of it. Outputs stay small counts, so bf16 rounds them by far less
     than that."""
+    sd = seed_card(torch)
     half = h // 2
     dev = torch.device("cuda", 0)
     scale = 1.0 / math.sqrt(h)
@@ -702,7 +829,7 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal):
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     w_row = (1.0 / (seen * (1.0 - DROP_P)))[None, :, None, None]
     w = 1.0 / (s * (1.0 - DROP_P))
-    o, _ = fa._flash_fwd_cuda(q, k, v, causal, scale, DROP_P, DROP_SEED)
+    o, _ = fa._flash_fwd_cuda(q, k, v, causal, scale, DROP_P, sd)
     o_ref, _ = fa.flash_attention_fwd_plain(
         q.float(), k.float(), v.float(), causal, scale, dropout_p=DROP_P,
         seed=DROP_SEED)
@@ -716,7 +843,7 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal):
         .to(dtype).contiguous()
     o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, DROP_P, DROP_SEED)
     got = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, DROP_P,
-                             DROP_SEED)
+                             sd)
     ref = fa.flash_attention_bwd_plain(
         q.float(), k.float(), v.float(), o.float(), lse, do.float(),
         causal, scale, DROP_P, DROP_SEED)
@@ -870,14 +997,13 @@ def _train_model(pt, kind, **kw):
     return GPTForCausalLM(GPTConfig(**GPT_TRAIN, **kw), device="cuda").train()
 
 
-def _train_run(torch, fa, kind, model, warmup, steps, base):
-    """warmup + steps TrainStep steps of `model` on its path's batch
-    (TRAIN_BATCH or GPT_TRAIN_BATCH, ids and labels from numpy seed 0):
-    AdamW(1e-4, weight decay 0.01), O1 bf16, the dense loss or the
-    chunked one. Counts are zeroed just before the first step and every
-    step must launch each kernel once per layer; timed over the last
-    `steps` on a synchronised host clock. base: the bytes allocated
-    before the phase built its models (peak_above_base_bytes)."""
+def _train_step(torch, kind, model, **kw):
+    """The phase's TrainStep of `model` on its path's batch (TRAIN_BATCH
+    or GPT_TRAIN_BATCH, ids and labels from numpy seed 0): AdamW(1e-4,
+    weight decay 0.01), O1 bf16, the dense loss or the chunked one; kw
+    goes to TrainStep (remat, remat_policy). On the card it captures one
+    CUDA graph at its first call and replays it after. Returns (step, x,
+    y, (b, s), layers)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.static import TrainStep
     cfg = model.config
@@ -890,46 +1016,92 @@ def _train_run(torch, fa, kind, model, warmup, steps, base):
         loss = model.chunked_lm_loss if chunked else _gpt_lm_loss
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
-    step = TrainStep(model, loss, opt, amp_level="O1", amp_dtype="bfloat16")
+    step = TrainStep(model, loss, opt, amp_level="O1", amp_dtype="bfloat16",
+                     **kw)
     x, y = _train_batch(torch, cfg.vocab_size, b, s, "cuda")
+    return step, x, y, (b, s), layers
+
+
+def _expect_launches(kind, per_step, layers, fwd=1):
+    """Every step launched fwd x layers forward kernels and layers of
+    each backward kernel on the card (a warm-up's wrapper count,
+    TrainStep.last_launches, or a replay's count on the device,
+    profile_step)."""
+    want = {k: layers * (fwd if k == "flash_attn_fwd" else 1)
+            for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                      "flash_attn_bwd_dkv")}
+    for i, c in enumerate(per_step):
+        if c != want:
+            fail(f"{kind} training step {i} launched {c}, expected {want}")
+
+
+def _sum_launches(per_step):
+    out = {}
+    for c in per_step:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _train_run(torch, fa, kind, model, warmup, steps, base):
+    """warmup + steps TrainStep steps of `model` (_train_step): the first
+    captures the step, the others replay it; then two replays under
+    torch.profiler (profile_step, the row's `profile`). The kernels'
+    counts are zeroed just before the first step. The first call's
+    launches are its warm-up's, counted by the wrappers; a replay's are
+    counted on the device in the profiled replays. Each must launch each
+    kernel once per layer (_expect_launches); `launches` is their sum,
+    `wrapper_counts` the wrappers' own counts (the warm-up's launches and
+    the capture's, which records them once). Timed over the last `steps`
+    on a synchronised host clock. base: the bytes allocated before the
+    phase built its models (peak_above_base_bytes). Releases the step's
+    graph before it returns the row."""
+    step, x, y, (b, s), layers = _train_step(torch, kind, model)
+    cfg = model.config
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     _zero(fa)
-    losses = []
-    per_step = []
-
-    def one():
-        before = dict(fa.launches)
+    losses = [step(x, y)]
+    warm = dict(step.last_launches)
+    for _ in range(warmup - 1):
         losses.append(step(x, y))
-        per_step.append({k: fa.launches[k] - before[k] for k in before})
-
-    for _ in range(warmup):
-        one()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        one()
+        losses.append(step(x, y))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(fa.launches)
-    for i, c in enumerate(per_step):
-        if any(v != layers for v in c.values()):
-            fail(f"{kind} training step {i} launched {c}, expected "
-                 f"{layers} of each kernel")
+    peak = torch.cuda.max_memory_allocated()
+    wrapper = dict(fa.launches)
+    if not all(wrapper.values()):
+        fail(f"{kind} training: a kernel's wrapper counted no launch: "
+             f"{wrapper}")
+    prof = profile_step(torch, step, x, y)
+    per_step = [warm, prof["launches_per_replay"]]
+    _expect_launches(kind, per_step, layers)
+    if step.programs != 1 or step.recompile_sentinel.fired:
+        fail(f"{kind} TrainStep captured {step.programs} programs with "
+             f"{step.recompile_sentinel.fired} sentinel events, expected "
+             "1 and 0")
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite {kind} training loss: {losses}")
-    peak = torch.cuda.max_memory_allocated()
     row = dict(model=kind, batch=b, seq=s, amp="O1 bfloat16",
-               chunked_ce=bool(chunked), scan_layers=bool(cfg.scan_layers),
+               chunked_ce=bool(cfg.chunked_ce),
+               scan_layers=bool(cfg.scan_layers), captured=True,
+               graphs=step.programs, replays=step.replays,
+               sentinel_events=step.recompile_sentinel.fired,
                params=sum(p.numel() for p in model.parameters()),
                warmup_steps=warmup, timed_steps=steps,
                step_ms=secs / steps * 1e3, tokens_per_s=b * s * steps / secs,
                peak_memory_bytes=peak, peak_above_base_bytes=peak - base,
-               launches_per_step=per_step[-1], launches=counts,
-               losses=losses)
-    return row, (model, step, x, y)
+               launches_per_step=prof["launches_per_replay"],
+               launches=_sum_launches([warm, prof["kernel_launches"]]),
+               counted_calls=COUNTED_CALLS, wrapper_counts=wrapper,
+               losses=losses, profile=_profile_row(prof, top=25))
+    step.release()
+    return row
 
 
 def train_flops_per_token(n_params, layers, hidden, seq):
@@ -947,22 +1119,25 @@ def _with_mfu(row, layers, hidden):
 
 
 def train_path(torch, pt, fa):
-    """ERNIE-base pretraining through TrainStep on the card."""
+    """ERNIE-base pretraining through TrainStep on the card; its profiled
+    replays make the `profile` line."""
     base = torch.cuda.memory_allocated()
     model = _train_model(pt, "ernie")
-    row, state = _train_run(torch, fa, "ernie", model, TRAIN_WARMUP,
-                            TRAIN_STEPS, base)
+    row = _train_run(torch, fa, "ernie", model, TRAIN_WARMUP, TRAIN_STEPS,
+                     base)
     cfg = model.config
     row["dropout"] = (cfg.hidden_dropout_prob,
                       cfg.attention_probs_dropout_prob)
     _with_mfu(row, cfg.num_hidden_layers, cfg.hidden_size)
+    prof = row.pop("profile")
     emit({"train_path": row})
+    emit({"profile": prof})
     losses, mfu = row["losses"], row["mfu"]
     if not losses[-1] < losses[0]:
         fail(f"training loss did not fall on a repeated batch: {losses}")
     if not 0 < mfu < 1:
         fail(f"MFU {mfu} is outside (0, 1)")
-    return row, state
+    return row
 
 
 def train_cpu_check(torch, pt, fa):
@@ -986,8 +1161,18 @@ def train_cpu_check(torch, pt, fa):
                                              weight_decay=0.01))
         x, y = _train_batch(torch, cfg.vocab_size, b, s, dev)
         _zero(fa)
-        out[name] = [float(st(x, y)) for _ in range(3)]
-        counts[name] = dict(fa.launches)
+        out[name], per_step = [], []
+        for i in range(3):
+            out[name].append(float(st(x, y)))
+            if dev == "cpu" or i == 0:
+                per_step.append(st.last_launches)
+        if dev == "cuda":
+            # the card's later steps are replays: count the kernels of
+            # two more on the card
+            per_step.append(profile_step(torch, st, x, y)["kernel_launches"])
+            st.release()
+        counts[name] = _sum_launches(per_step)
+        del st
     rel = max(abs(a - c) / abs(c) for a, c in zip(out["card"], out["cpu"]))
     # the card ran the kernels (2 layers x 3 steps each), the CPU none
     ran = (all(v == 6 for v in counts["card"].values())
@@ -1014,11 +1199,45 @@ PROFILE_CATEGORIES = [
 ]
 
 
+# the device kernels each wrapper launches, by the fragments of their
+# names that torch.profiler shows (bf16 wgmma, f32 simt)
+KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt"),
+                 "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt"),
+                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt")}
+# what a training run's `launches` counts
+COUNTED_CALLS = ("the first call's warm-up (the wrappers' count) and two "
+                 "replays under torch.profiler (kernels counted on the "
+                 "card, the largest count of PROFILE_ROUNDS rounds); the "
+                 "timed replays run the same graph uncounted")
+
+
+def kernel_launches(names):
+    """Launches of each wrapper's kernels (KERNEL_EVENTS) among device
+    event names, one name per launch."""
+    out = {k: 0 for k in KERNEL_EVENTS}
+    for name in names:
+        for k, keys in KERNEL_EVENTS.items():
+            if any(key in name for key in keys):
+                out[k] += 1
+                break
+    return out
+
+
+def per_call(total, calls):
+    """total launches over `calls` calls as launches a call; a count
+    that does not divide stays a fraction, so it matches no whole
+    expectation."""
+    return {k: v // calls if v % calls == 0 else v / calls
+            for k, v in total.items()}
+
+
 def device_profile(torch, fn, runs):
-    """torch.profiler over `runs` calls of fn, per call: device ms, ms by
-    PROFILE_CATEGORIES, device events, the top 25 by time. Device events only
-    (kernels, copies, sets), not the host ops that launched them, so
-    nothing is counted twice."""
+    """torch.profiler over `runs` calls of fn (after one unprofiled
+    call), per call: device ms, ms by PROFILE_CATEGORIES, device events,
+    the top 25 by time; and over all runs: `kernel_launches`, the
+    flash-attention kernels launched, and `device_events`, every device
+    event (kernels, copies, sets; not the host ops that launched
+    them)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1027,13 +1246,13 @@ def device_profile(torch, fn, runs):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+    events = [(ev.name, ev.time_range.elapsed_us() / 1e3)
+              for ev in prof.events()
+              if str(getattr(ev, "device_type", "")).endswith("CUDA")]
     by_name = {}
-    for ev in prof.events():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
-        ms, calls = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3 / runs,
-                            calls + 1)
+    for name, ev_ms in events:
+        ms, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + ev_ms / runs, calls + 1)
     rows = [(ms, name, calls // runs) for name, (ms, calls) in by_name.items()]
     rows.sort(reverse=True)
     cats = {}
@@ -1044,15 +1263,57 @@ def device_profile(torch, fn, runs):
     return dict(device_ms=sum(r[0] for r in rows), categories=cats,
                 events=sum(r[2] for r in rows),
                 top=[dict(ms=r[0], name=r[1][:90], calls=r[2])
-                     for r in rows[:25]])
+                     for r in rows[:25]],
+                kernel_launches=kernel_launches(n for n, _ in events),
+                device_events=len(events))
 
 
-def profile_phase(torch, train_state):
-    """Device time by kernel over two training steps (torch.profiler)."""
-    model, step, x, y = train_state
-    prof = device_profile(torch, lambda: step(x, y), runs=2)
-    emit({"profile": dict(steps=2, device_ms_per_step=prof["device_ms"],
-                          categories=prof["categories"], top=prof["top"])})
+PROFILED_REPLAYS, PROFILE_ROUNDS = 2, 3
+
+
+def max_counts(rounds):
+    """Each kernel's largest count over the rounds' kernel_launches. The
+    profiler drops a device record now and then (PERF.md §6, call 8i),
+    which can only lower one round's count; a graph that lost or doubled
+    a kernel node moves it in every round."""
+    return {k: max(r[k] for r in rounds) for k in rounds[0]}
+
+
+def profile_step(torch, step, x, y, runs=PROFILED_REPLAYS):
+    """device_profile over `runs` replays of a captured TrainStep, in
+    PROFILE_ROUNDS rounds; the profile is the round with the most device
+    events, `launches_per_replay` the flash-attention kernels a replay
+    ran, counted on the card (a replay does not pass through the
+    wrappers; max_counts over the rounds). Fails unless every profiled
+    call was a replay, the profiler saw device time inside them and a
+    replay ran the launches its capture recorded
+    (TrainStep.capture_launches)."""
+    before = step.replays
+    rounds = [device_profile(torch, lambda: step(x, y), runs)
+              for _ in range(PROFILE_ROUNDS)]
+    calls = PROFILE_ROUNDS * (runs + 1)
+    if step.replays - before != calls:
+        fail(f"profile_step: {step.replays - before} of {calls} calls "
+             "were replays")
+    prof = max(rounds, key=lambda r: r["device_events"])
+    if prof["device_ms"] <= 0:
+        fail("torch.profiler saw no device time inside a replay of the "
+             "captured step")
+    prof["kernel_launches"] = max_counts([r["kernel_launches"]
+                                          for r in rounds])
+    prof["device_events_by_round"] = [r["device_events"] for r in rounds]
+    prof["launches_per_replay"] = per_call(prof["kernel_launches"], runs)
+    if prof["launches_per_replay"] != step.capture_launches:
+        fail(f"a replay ran {prof['launches_per_replay']} kernels, its "
+             f"capture recorded {step.capture_launches}")
+    return prof
+
+
+def _profile_row(prof, top=10):
+    return dict(replays=PROFILED_REPLAYS,
+                device_events_by_round=prof["device_events_by_round"],
+                device_ms_per_step=prof["device_ms"],
+                categories=prof["categories"], top=prof["top"][:top])
 
 
 def _gpt_model(pt, device):
@@ -1968,8 +2229,8 @@ def gpt_train_path(torch, pt, fa):
     dropout through all three kernels."""
     base = torch.cuda.memory_allocated()
     model = _train_model(pt, "gpt")
-    row, (_, step, x, y) = _train_run(torch, fa, "gpt", model, TRAIN_WARMUP,
-                                      TRAIN_STEPS, base)
+    row = _train_run(torch, fa, "gpt", model, TRAIN_WARMUP, TRAIN_STEPS,
+                     base)
     if row["params"] != gpt_param_count(**GPT_TRAIN):
         fail(f"GPT-2 small has {row['params']} parameters, expected "
              f"{gpt_param_count(**GPT_TRAIN)}")
@@ -1977,6 +2238,7 @@ def gpt_train_path(torch, pt, fa):
     _with_mfu(row, GPT_TRAIN["num_layers"], GPT_TRAIN["hidden_size"])
     row["mfu_note"] = ("bench.py's 6N + 12 L h s a token, the attention "
                        "term not halved for the causal mask")
+    prof = row.pop("profile")
     emit({"gpt_train_path": row})
     losses = row["losses"]
     if not losses[-1] < losses[0]:
@@ -1984,10 +2246,7 @@ def gpt_train_path(torch, pt, fa):
              f"{losses}")
     if not 0 < row["mfu"] < 1:
         fail(f"GPT MFU {row['mfu']} is outside (0, 1)")
-    prof = device_profile(torch, lambda: step(x, y), runs=2)
-    emit({"gpt_profile": dict(steps=2, device_ms_per_step=prof["device_ms"],
-                              categories=prof["categories"],
-                              top=prof["top"])})
+    emit({"gpt_profile": prof})
     return row
 
 
@@ -2051,13 +2310,9 @@ def chunked_ce_phase(torch, pt, fa, dense):
     for kind in ("ernie", "gpt"):
         base = torch.cuda.memory_allocated()
         model = _train_model(pt, kind, chunked_ce=True)
-        row, (_, step, x, y) = _train_run(torch, fa, kind, model,
-                                          VARIANT_WARMUP, VARIANT_STEPS, base)
-        prof = device_profile(torch, lambda: step(x, y), runs=2)
-        row["profile"] = dict(device_ms_per_step=prof["device_ms"],
-                              categories=prof["categories"],
-                              top=prof["top"][:10])
-        del step
+        row = _train_run(torch, fa, kind, model, VARIANT_WARMUP,
+                         VARIANT_STEPS, base)
+        row["profile"]["top"] = row["profile"]["top"][:10]
         # the head's rows: every position (ERNIE's MLM), all but the
         # last of each sequence (GPT's shifted LM loss)
         rows_ce = row["batch"] * (row["seq"] - (kind == "gpt"))
@@ -2119,8 +2374,8 @@ def scan_layers_phase(torch, pt, fa, dense):
     for kind in ("ernie", "gpt"):
         base = torch.cuda.memory_allocated()
         model = _scanned_twin(pt, kind)
-        row, _ = _train_run(torch, fa, kind, model, VARIANT_WARMUP,
-                            VARIANT_STEPS, base)
+        row = _train_run(torch, fa, kind, model, VARIANT_WARMUP,
+                         VARIANT_STEPS, base)
         del model
         ref = dense[kind]["losses"][:len(row["losses"])]
         diffs = [_rel_diff(a, b) for a, b in zip(row["losses"], ref)]
@@ -2135,6 +2390,504 @@ def scan_layers_phase(torch, pt, fa, dense):
         rows[kind] = row
         torch.cuda.empty_cache()
     return rows
+
+
+def _card(torch):
+    return torch.device("cuda", 0)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu() if hasattr(tree, "cpu") else tree
+
+
+def _snapshot(step):
+    return [p.detach().clone() for p in step.params]
+
+
+def _bit_equal(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _max_abs_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max()) for x, y in
+               zip(a, b))
+
+
+# the step seeds of the graph-vs-eager checks
+STEP_SEEDS = [SEED + 100 + i for i in range(4)]
+CAPTURE_WARMUP, CAPTURE_STEPS = 2, 12
+
+
+def captured_train_phase(torch, pt, fa, kind):
+    """ERNIE-base 48x512 or GPT-2 small 8x1024, O1 bf16, dropout 0.1,
+    AdamW: the captured TrainStep against its eager body from one start
+    state (the snapshot before step 1, restored in place) and one seed
+    sequence (STEP_SEEDS): the first call (warm-up, then capture; the
+    peak memory is read over it, as a replay allocates nothing) and 3
+    replays against 4 eager steps, losses and every parameter bit-equal;
+    one replay repeated from the same state with the same step seed
+    gives the same loss, with another seed another loss; then
+    CAPTURE_WARMUP + CAPTURE_STEPS replays on a synchronised host clock
+    (1 graph, 0 sentinel events), the device time of a replay and the
+    kernels each ran (profile_step: each kernel once per layer, as in
+    the first call's warm-up), the idle share, tokens/s, MFU, peak
+    memory and the eager body's step ms from the same weights. Returns
+    (row, model, step, x, y)."""
+    base = torch.cuda.memory_allocated()
+    model = _train_model(pt, kind)
+    step, x, y, (b, s), layers = _train_step(torch, kind, model)
+    s0 = _to_cpu(step.state_dict())    # off the card: not in the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph_losses = []
+    for sd in STEP_SEEDS:
+        graph_losses.append(float(step(x, y, seed=sd)))
+        if len(graph_losses) == 1:
+            # warm-up and capture: what the step needs (a replay
+            # allocates nothing; the graph's pool holds it)
+            warm = dict(step.last_launches)
+            peak = torch.cuda.max_memory_allocated()
+            reserved = torch.cuda.memory_reserved()
+    graph_params = _snapshot(step)
+    step.set_state_dict(s0)
+    eager_losses = [float(step.eager_step(x, y, seed=sd))
+                    for sd in STEP_SEEDS]
+    eager_params = _snapshot(step)
+    loss_rel = max(_rel_diff(a, e) for a, e in zip(graph_losses,
+                                                   eager_losses))
+    params_equal = _bit_equal(graph_params, eager_params)
+    param_diff = _max_abs_diff(graph_params, eager_params)
+    del graph_params, eager_params
+    # the step seed decides a replay
+    seeded = []
+    for sd in (STEP_SEEDS[1], STEP_SEEDS[1], STEP_SEEDS[1] + 7):
+        step.set_state_dict(s0)
+        seeded.append(float(step(x, y, seed=sd)))
+    for _ in range(CAPTURE_WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CAPTURE_STEPS):
+        step(x, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    prof = profile_step(torch, step, x, y)
+    _expect_launches(kind, [warm, prof["launches_per_replay"]], layers)
+    step_ms = secs / CAPTURE_STEPS * 1e3
+    eager_ms = time_ms(lambda: step.eager_step(x, y), reps=5, warmup=1)
+    cfg = model.config
+    row = dict(model=kind, batch=b, seq=s, amp="O1 bfloat16",
+               dropout=0.1, params=sum(p.numel() for p in step.params),
+               graphs=step.programs, captures=step.captures,
+               replays=step.replays,
+               sentinel_events=step.recompile_sentinel.fired,
+               launches_per_replay=prof["launches_per_replay"],
+               launches=_sum_launches([warm, prof["kernel_launches"]]),
+               counted_calls=COUNTED_CALLS,
+               step_seeds=STEP_SEEDS, graph_losses=graph_losses,
+               eager_losses=eager_losses, max_loss_rel_diff=loss_rel,
+               params_bit_equal=params_equal,
+               params_max_abs_diff=param_diff,
+               same_seed_losses=seeded[:2], other_seed_loss=seeded[2],
+               timed_replays=CAPTURE_STEPS, step_ms=step_ms,
+               device_ms_per_step=prof["device_ms"],
+               idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               tokens_per_s=b * s * CAPTURE_STEPS / secs,
+               eager_step_ms=eager_ms, peak_memory_bytes=peak,
+               peak_above_base_bytes=peak - base,
+               reserved_after_capture_bytes=reserved,
+               profile=_profile_row(prof, top=8))
+    _with_mfu(row, layers, cfg.hidden_size)
+    row["ok"] = bool(
+        row["graphs"] == 1 and row["sentinel_events"] == 0
+        and loss_rel == 0 and params_equal
+        and seeded[0] == seeded[1] and seeded[2] != seeded[0]
+        and all(math.isfinite(v) for v in graph_losses)
+        and 0 < row["mfu"] < 1)
+    emit({"captured_train": row})
+    if not row["ok"]:
+        fail(f"the captured {kind} step disagrees with its eager body or "
+             f"its contract: {row}")
+    return row, model, step, x, y
+
+
+# the overflow: an infinite scale makes every gradient of that step
+# non-finite (a finite one, even 2^127, may not: the loss's own gradient
+# is small)
+SCALER_INIT, SCALER_OVERFLOW = 2.0 ** 15, math.inf
+SCALER_ACCUM = 2
+AMP_KEYS = ("amp_scale", "amp_good", "amp_bad", "amp_skipped")
+
+
+def _finite(states):
+    """The scale states with a non-finite number as its string (the
+    lines stay strict JSON)."""
+    return [{k: v if math.isfinite(v) else str(v) for k, v in st.items()}
+            for st in states]
+
+
+def captured_scaler_phase(torch, pt, fa):
+    """GPT-2 small 8x1024, O1 bf16, dropout 0.1, AdamW, with a GradScaler
+    (SCALER_INIT, dynamic) and grad_accum_steps=SCALER_ACCUM (the
+    microbatch loop unrolled in the graph): from one start state and
+    STEP_SEEDS, the first call and 3 replays against 4 eager steps.
+    Before the third step the scale is set to SCALER_OVERFLOW in place,
+    and back to SCALER_INIT before the fourth, so the third step's
+    gradients are non-finite and the skip select runs inside the graph.
+    Losses, the loss-scale state after every step and the final
+    parameters bit-equal; the overflowing step leaves the parameters as
+    they were and counts one skip; every call launches each kernel once
+    per layer and microbatch (the first call's warm-up by the wrappers,
+    two replays on the card). Returns the row."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import TrainStep
+    model = _train_model(pt, "gpt")
+    layers = model.config.num_layers
+    step = TrainStep(model, _gpt_lm_loss,
+                     AdamW(learning_rate=1e-4, weight_decay=0.01),
+                     amp_level="O1", amp_dtype="bfloat16",
+                     grad_accum_steps=SCALER_ACCUM,
+                     scaler=GradScaler(init_loss_scaling=SCALER_INIT))
+    x, y = _train_batch(torch, model.config.vocab_size, *GPT_TRAIN_BATCH,
+                        "cuda")
+    s0 = _to_cpu(step.state_dict())
+    runs = {}
+    for mode in ("graph", "eager"):
+        step.set_state_dict(s0)
+        call = step if mode == "graph" else step.eager_step
+        losses, amp = [], []
+        for i, sd in enumerate(STEP_SEEDS):
+            scale = step.strategy_state["amp_scale"]
+            if i == 2:
+                scale.fill_(SCALER_OVERFLOW)
+                before = _snapshot(step)
+            elif i == 3:
+                scale.fill_(SCALER_INIT)
+            losses.append(float(call(x, y, seed=sd)))
+            if i == 0 and mode == "graph":
+                warm = dict(step.last_launches)
+            if i == 2:
+                skip_kept = _bit_equal(before, _snapshot(step))
+                del before
+            amp.append({k: float(step.strategy_state[k]) for k in AMP_KEYS})
+        runs[mode] = dict(losses=losses, amp=amp, skip_kept_params=skip_kept,
+                          params=_snapshot(step))
+        if mode == "graph":
+            prof = profile_step(torch, step, x, y)
+    g, e = runs["graph"], runs["eager"]
+    _expect_launches("gpt scaler accum", [warm, prof["launches_per_replay"]],
+                     layers * SCALER_ACCUM)
+    row = dict(model="gpt", batch=GPT_TRAIN_BATCH[0], seq=GPT_TRAIN_BATCH[1],
+               amp="O1 bfloat16", dropout=0.1,
+               grad_accum_steps=SCALER_ACCUM, init_scale=SCALER_INIT,
+               overflow_scale_at_step_3=str(SCALER_OVERFLOW),
+               graphs=step.programs, replays=step.replays,
+               sentinel_events=step.recompile_sentinel.fired,
+               step_seeds=STEP_SEEDS, graph_losses=g["losses"],
+               eager_losses=e["losses"], graph_amp_state=_finite(g["amp"]),
+               eager_amp_state=_finite(e["amp"]),
+               params_bit_equal=_bit_equal(g["params"], e["params"]),
+               params_max_abs_diff=_max_abs_diff(g["params"], e["params"]),
+               overflow_kept_params=[g["skip_kept_params"],
+                                     e["skip_kept_params"]],
+               launches_per_replay=prof["launches_per_replay"],
+               launches=_sum_launches([warm, prof["kernel_launches"]]),
+               counted_calls=COUNTED_CALLS)
+    row["ok"] = bool(
+        row["graphs"] == 1 and row["sentinel_events"] == 0
+        and g["losses"] == e["losses"] and g["amp"] == e["amp"]
+        and row["params_bit_equal"] and all(row["overflow_kept_params"])
+        and g["amp"][1]["amp_skipped"] == 0
+        and g["amp"][2]["amp_skipped"] == 1
+        and g["amp"][3]["amp_skipped"] == 1
+        and all(math.isfinite(v) for v in g["losses"]))
+    emit({"captured_train_scaler": row})
+    step.release()
+    del step, model, runs, g, e, s0
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        fail(f"the captured step with a GradScaler and grad_accum_steps "
+             f"disagrees with its eager body: {row}")
+    return row
+
+
+def captured_eval_phase(torch, step, x):
+    """build_eval_fn (one graph per signature) against the eager eval
+    forward of the same model, bit-equal, f32 weights (GPT-2 small)."""
+    ev = step.build_eval_fn()
+    got = ev(x)
+    again = ev(x)
+    model = step.layer
+    model.eval()
+    with torch.no_grad():
+        ref = model(x)
+    model.train()
+    got, again, ref = ((t,) if isinstance(t, torch.Tensor) else tuple(t)
+                       for t in (got, again, ref))
+    row = dict(batch=tuple(x.shape), graphs=ev.programs,
+               replays=ev.replays, bit_equal=_bit_equal(got, ref)
+               and _bit_equal(again, ref),
+               max_abs_diff=_max_abs_diff(got, ref),
+               ms=time_ms(lambda: ev(x), reps=5, warmup=1))
+    row["ok"] = bool(row["bit_equal"] and row["graphs"] == 1)
+    emit({"captured_eval": row})
+    if not row["ok"]:
+        fail(f"the captured eval forward disagrees with the eager one: "
+             f"{row}")
+    del ev, got, again, ref
+    torch.cuda.empty_cache()
+
+
+def lr_schedule_phase(torch, pt):
+    """A captured GPT-2 small step under LinearWarmup (4 warm-up steps to
+    1e-4): the lr each replay reads (its buffer word) equals the
+    scheduler's get_lr() at that step in f32, and the parameters after 5
+    steps are bit-equal to the eager body's under the same schedule."""
+    import numpy as np
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup
+    from paddle_tpu_torch.static import TrainStep
+    model = _train_model(pt, "gpt")
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    x, y = _train_batch(torch, model.config.vocab_size, *GPT_TRAIN_BATCH,
+                        "cuda")
+    runs = {}
+    for mode in ("graph", "eager"):
+        model.set_state_dict(w0)
+        sched = LinearWarmup(learning_rate=1e-4, warmup_steps=4,
+                             start_lr=0.0, end_lr=1e-4)
+        step = TrainStep(model, _gpt_lm_loss,
+                         AdamW(learning_rate=sched, weight_decay=0.01),
+                         amp_level="O1", amp_dtype="bfloat16")
+        want, read = [], []
+        for sd in STEP_SEEDS + [STEP_SEEDS[-1] + 1]:
+            want.append(float(np.float32(sched.get_lr())))
+            if mode == "graph":
+                step(x, y, seed=sd)
+                if step.last_lr is not None:
+                    read.append(float(step.last_lr))
+            else:
+                step.eager_step(x, y, seed=sd)
+            sched.step()
+        runs[mode] = dict(params=_snapshot(step), want=want, read=read,
+                          replays=step.replays)
+        step.release()
+        del step
+    g, e = runs["graph"], runs["eager"]
+    row = dict(steps=len(g["want"]), replays=g["replays"],
+               scheduler_lr=g["want"], replay_lr=g["read"],
+               lr_equal=g["read"] == g["want"][1:],
+               params_bit_equal=_bit_equal(g["params"], e["params"]),
+               params_max_abs_diff=_max_abs_diff(g["params"], e["params"]))
+    row["ok"] = bool(row["lr_equal"] and row["params_bit_equal"]
+                     and g["replays"] == len(g["want"]) - 1)
+    emit({"lr_schedule": row})
+    if not row["ok"]:
+        fail(f"the captured step does not follow the scheduler: {row}")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+# the ten optimizers of paddle_tpu/optimizer/optimizers.py, one setting
+# each, and GPT-2-width tensors: qkv weight and bias, an MLP weight, the
+# embedding
+OPTIMIZERS = [
+    ("SGD", dict(learning_rate=1e-2)),
+    ("Momentum", dict(learning_rate=1e-2, use_nesterov=True)),
+    ("Adam", dict(learning_rate=1e-3)),
+    ("AdamW", dict(learning_rate=1e-3, weight_decay=0.01)),
+    ("Adagrad", dict(learning_rate=1e-2)),
+    ("Adadelta", dict(learning_rate=1.0)),
+    ("Adamax", dict(learning_rate=1e-3)),
+    ("RMSProp", dict(learning_rate=1e-3, momentum=0.9, centered=True)),
+    ("Lamb", dict(learning_rate=1e-3)),
+    ("Lars", dict(learning_rate=1e-2)),
+]
+OPT_SHAPES = [(768, 2304), (2304,), (768, 3072), (50304, 768)]
+OPT_STEPS = 4
+
+
+def optimizers_phase(torch):
+    """Each optimizer's apply_gradients captured as a CUDA graph (after a
+    warm-up step on a side stream) against the same updates run eagerly,
+    from the same params and OPT_STEPS gradients: params and every state
+    tensor bit-equal, in f32 and in bf16 with multi_precision (f32
+    masters)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.static.capture import capture, warm_up
+    dev = _card(torch)
+    rows = []
+    for name, kw in OPTIMIZERS:
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+            init = [torch.randn(sh, generator=gen, device=dev).to(dt)
+                    for sh in OPT_SHAPES]
+            grads = [[torch.randn(sh, generator=gen, device=dev).to(dt)
+                      * 1e-2 for sh in OPT_SHAPES]
+                     for _ in range(OPT_STEPS)]
+            lr = torch.tensor(kw["learning_rate"], dtype=torch.float32,
+                              device=dev)
+            sides = []
+            for _ in range(2):
+                ps = [t.clone() for t in init]
+                opt = getattr(topt, name)(**kw, parameters=ps)
+                opt._multi_precision = dt == torch.bfloat16
+                sides.append((ps, opt))
+            (pa, oa), (pb, ob) = sides
+            static = [g.clone() for g in grads[0]]
+            warm_up(lambda: oa.apply_gradients(pa, static, lr=lr), dev)
+            graph, _ = capture(lambda: oa.apply_gradients(pa, static, lr=lr),
+                               dev)
+            for gs in grads[1:]:
+                for s_, g in zip(static, gs):
+                    s_.copy_(g)
+                graph.replay()
+            for gs in grads:
+                ob.apply_gradients(pb, gs, lr=lr)
+            torch.cuda.synchronize()
+            sa = [t for p in pa for t in oa._accumulators[id(p)].values()]
+            sb = [t for p in pb for t in ob._accumulators[id(p)].values()]
+            row = dict(optimizer=name, dtype=str(dt).split(".")[-1],
+                       multi_precision=dt == torch.bfloat16,
+                       steps=OPT_STEPS, state=sorted(
+                           oa._accumulators[id(pa[0])]),
+                       bit_equal=_bit_equal(pa, pb) and _bit_equal(sa, sb)
+                       and len(sa) == len(sb),
+                       moved=not _bit_equal(pa, init))
+            rows.append(row)
+            del graph, sides, pa, pb, oa, ob, static, grads, init
+    torch.cuda.empty_cache()
+    ok = all(r["bit_equal"] and r["moved"] for r in rows)
+    emit({"optimizers": dict(shapes=OPT_SHAPES, rows=rows, ok=ok)})
+    if not ok:
+        fail(f"a captured optimizer update differs from the eager one: "
+             f"{[r for r in rows if not (r['bit_equal'] and r['moved'])]}")
+
+
+REMAT_POLICIES = [None, "nothing_saveable", "checkpoint_dots"]
+REMAT_TIMED = 5
+
+
+def remat_phase(torch, pt, fa, kind):
+    """The plain captured step, then remat with each of REMAT_POLICIES,
+    each from the same weights (SEED) and fresh AdamW state, at
+    STEP_SEEDS[:2]: step-1 and step-2 losses bit-equal to the plain
+    step's; the remat step
+    launches the forward twice per layer (its recompute) and each
+    backward kernel once; step ms over REMAT_TIMED replays and the peak
+    memory above the weights (over the warm-up and the capture: a
+    replay allocates nothing) and the device ms of a replay beside the
+    plain step's. Launches: the first call's warm-up by the wrappers,
+    two replays on the card (profile_step). Returns the rows (their
+    counted launches summed)."""
+    model = _train_model(pt, kind)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rows = {}
+    for policy in ["plain"] + REMAT_POLICIES:
+        model.set_state_dict(w0)
+        kw = {} if policy == "plain" else dict(remat=True,
+                                               remat_policy=policy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step, x, y, (b, s), layers = _train_step(torch, kind, model, **kw)
+        losses = [float(step(x, y, seed=STEP_SEEDS[0]))]
+        warm = dict(step.last_launches)
+        losses.append(float(step(x, y, seed=STEP_SEEDS[1])))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_TIMED):
+            step(x, y)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_step(torch, step, x, y)
+        _expect_launches(f"{kind} remat {policy}",
+                         [warm, prof["launches_per_replay"]], layers,
+                         fwd=1 if policy == "plain" else 2)
+        rows[str(policy)] = dict(
+            policy=policy, losses=losses, step_ms=secs / REMAT_TIMED * 1e3,
+            device_ms_per_step=prof["device_ms"],
+            peak_above_base_bytes=peak - base,
+            launches_per_step=prof["launches_per_replay"],
+            launches=_sum_launches([warm, prof["kernel_launches"]]),
+            counted_calls=COUNTED_CALLS, graphs=step.programs)
+        step.release()
+        del step, x, y
+        torch.cuda.empty_cache()
+    plain = rows["plain"]
+    for key, r in rows.items():
+        r["loss_rel_diffs"] = [_rel_diff(a, p) for a, p in
+                               zip(r["losses"], plain["losses"])]
+        r["ok"] = bool(max(r["loss_rel_diffs"]) == 0 and r["graphs"] == 1)
+        r["slowdown"] = r["step_ms"] / plain["step_ms"]
+        r["peak_vs_plain"] = (r["peak_above_base_bytes"]
+                              / plain["peak_above_base_bytes"])
+    emit({"remat": dict(model=kind, batch=b, seq=s, step_seeds=STEP_SEEDS[:2],
+                        rows=list(rows.values()))})
+    bad = [r for r in rows.values() if not r["ok"]]
+    if bad:
+        fail(f"a {kind} remat step disagrees with the plain step: {bad}")
+    del model, w0
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ernie_determinism_phase(torch, pt):
+    """ERNIE-base's eager O1 step from one state and one step seed twice:
+    the parameters whose gradients differ between the two (before
+    F.embedding's backward ran in torch's deterministic mode: the
+    position and token-type embeddings, whose rows repeat 48 and 24,576
+    times a step); the ops torch names under
+    use_deterministic_algorithms(True, warn_only=True); and whether the
+    step is bit-reproducible under that mode. Fails unless the plain
+    step is bit-reproducible, which the bit-equal checks of ERNIE's
+    captured and remat steps rely on."""
+    import warnings
+    model = _train_model(pt, "ernie")
+    step, x, y, _, _ = _train_step(torch, "ernie", model)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    s0 = step.state_dict()
+
+    def grads(seed):
+        step.set_state_dict(s0)
+        loss = float(step.eager_step(x, y, seed=seed))
+        return loss, [None if p.grad is None else p.grad.clone()
+                      for p in step.params]
+
+    (la, ga), (lb, gb) = grads(STEP_SEEDS[0]), grads(STEP_SEEDS[0])
+    differ = [dict(param=n, max_abs_diff=float((a - b).abs().max()))
+              for n, a, b in zip(names, ga, gb)
+              if a is not None and not torch.equal(a, b)]
+    del ga, gb
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            (lc, gc), (ld, gd) = (grads(STEP_SEEDS[0]),
+                                  grads(STEP_SEEDS[0]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message)[:160] for w in caught
+                  if "deterministic" in str(w.message)})
+    det_equal = all((a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(gc, gd))
+    row = dict(loss_a=la, loss_b=lb, params_differing=differ,
+               bit_reproducible=not differ and la == lb,
+               nondeterministic_ops=ops,
+               reproducible_in_deterministic_mode=bool(det_equal
+                                                       and lc == ld),
+               deterministic_mode_losses=[lc, ld])
+    emit({"ernie_determinism": row})
+    step.release()
+    del step, model, gc, gd, s0
+    torch.cuda.empty_cache()
+    if not row["bit_reproducible"]:
+        fail(f"ERNIE-base's eager step is not bit-reproducible: {row}")
 
 
 def philox_phase(torch, build):
@@ -2220,11 +2973,10 @@ def main():
     cases = kernel_phase(torch, fa)
     bwd_cases = bwd_kernel_phase(torch, fa, philox)
     probes = mask_probe_phase(torch, fa)
+    host_cost_phase(torch, fa)
     _zero(fa)
     rows, launches_inf, launches_f32 = main_path(torch, pt, fa)
-    train, train_state = train_path(torch, pt, fa)
-    profile_phase(torch, train_state)
-    del train_state
+    train = train_path(torch, pt, fa)
     torch.cuda.empty_cache()
     train_cpu_check(torch, pt, fa)
     gpt_rows, gpt_cases, gpt_model, gpt_launches = gpt_forward_phase(
@@ -2241,6 +2993,32 @@ def main():
     dense = {"ernie": train, "gpt": gpt_train}
     _, chunked = chunked_ce_phase(torch, pt, fa, dense)
     scanned = scan_layers_phase(torch, pt, fa, dense)
+    ernie_determinism_phase(torch, pt)
+    captured = {}
+    for kind in ("ernie", "gpt"):
+        captured[kind], model, step, x, _ = captured_train_phase(
+            torch, pt, fa, kind)
+        if kind == "gpt":
+            captured_eval_phase(torch, step, x)
+        step.release()
+        del model, step, x
+        torch.cuda.empty_cache()
+    scaler = captured_scaler_phase(torch, pt, fa)
+    remat = {kind: remat_phase(torch, pt, fa, kind)
+             for kind in ("gpt", "ernie")}
+    lr_schedule_phase(torch, pt)
+    optimizers_phase(torch)
+    emit({"capture_hazards": dict(
+        capture_mode="global (torch.cuda.graph's default): every capture "
+                     "of this run succeeded, the kernels' host calls "
+                     "(sm_count, tensor-map encoding, "
+                     "cudaFuncSetAttribute) included",
+        tensor_maps="encoded once at capture over the graph pool's "
+                    "addresses; held by the graph-vs-eager checks, "
+                    "bit-equal: " + ", ".join(captured),
+        profiler="torch.profiler sees the kernels inside a replay: every "
+                 "captured run's replays were profiled and counted on the "
+                 "card")})
 
     # every row at the training path's shape: b 48, s 512, n 12, h 64,
     # bf16, non-causal, dropout 0.1, strided qkv views
@@ -2258,7 +3036,13 @@ def main():
                    **{f"chunked_ce_{m}": chunked[m]["launches"][k]
                       for m in chunked},
                    **{f"scan_layers_{m}": scanned[m]["launches"][k]
-                      for m in scanned}}
+                      for m in scanned},
+                   **{f"captured_training_{m}": captured[m]["launches"][k]
+                      for m in captured},
+                   "captured_training_gpt_scaler_accum2":
+                       scaler["launches"][k],
+                   **{f"remat_{p}_{m}": remat[m][p]["launches"][k]
+                      for m in remat for p in remat[m] if p != "plain"}}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1

@@ -23,10 +23,14 @@ prompts, beam search) and the continuous-batching engine over the paged
 KV cache (serving.ServingEngine), whose bucket programs are captured as
 CUDA graphs on the card, with the engine's raw-speed levers: int8
 weights (quant.int8_serving), speculative decoding with a draft model
-and copy-on-write prefix sharing, both on the paged chunk program.
+and copy-on-write prefix sharing, both on the paged chunk program; GPT-2
+pretraining with the vocab-chunked CE head and scanned stacks. On the
+card static.TrainStep captures each step as one CUDA graph per input
+signature (the kernels read their dropout seed from device memory), with
+remat (distributed.recompute) and the JAX package's ten optimizers.
 """
-from . import (amp, core, device, models, nn, observability, ops,  # noqa: F401
-               optimizer, quant, serving, static)
+from . import (amp, core, device, distributed, models, nn,  # noqa: F401
+               observability, ops, optimizer, quant, serving, static)
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
 from .core.generator import seed  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401

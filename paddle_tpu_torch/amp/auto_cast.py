@@ -25,7 +25,8 @@ import torch
 from ..core import dtypes as _dtypes
 
 __all__ = ["auto_cast", "amp_guard", "amp_cast", "amp_state",
-           "white_list", "black_list", "AMP_WHITE_LIST", "AMP_BLACK_LIST"]
+           "amp_state_scope", "white_list", "black_list", "AMP_WHITE_LIST",
+           "AMP_BLACK_LIST"]
 
 # mirror of fp16_lists.py: ops that are numerically safe in low precision
 AMP_WHITE_LIST: Set[str] = {
@@ -63,6 +64,25 @@ def amp_state():
     if level is None:
         return None
     return level, _state.dtype
+
+
+class amp_state_scope:
+    """with amp_state_scope(st): the AMP state is exactly `st` inside (an
+    amp_state() value; None turns AMP off), restored after. A recompute
+    in the backward (distributed/recompute.py) re-enters the state its
+    forward ran under."""
+
+    def __init__(self, st):
+        self.st = st
+
+    def __enter__(self):
+        self.prev = (getattr(_state, "level", None),
+                     getattr(_state, "dtype", None))
+        _state.level, _state.dtype = self.st if self.st else (None, None)
+        return self
+
+    def __exit__(self, *exc):
+        _state.level, _state.dtype = self.prev
 
 
 def _cast(t, to):

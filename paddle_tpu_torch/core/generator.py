@@ -16,9 +16,26 @@ plays the part of key_scope: inside it, next_seed() derives its seeds
 from s and a counter instead of the global stream, so a TrainStep pins
 every dropout of one step to that step's seed. The numbers differ from
 JAX's for the same seed; tests carry weights across by name instead.
+
+A captured step (static/train_step.py) cannot take host ints: a CUDA
+graph would replay the seeds of its capture forever. So inside a step
+the scope's base is a SeedSlots path, and every draw is a `Draw`: its
+path of counters below the step seed, whose value is
+mix_seed(...mix_seed(step_seed, c1)..., cn), the very int the host scope
+computes. The consumers turn a draw into what they need:
+seed_tensor() (a 0-d int64 device tensor, which the attention kernels
+read) and scope_generator() (a torch.Generator, for hidden dropout).
+While SeedSlots records (the warm-up), those are made from the step's
+ints, so the masks equal the host-int path's; while it replays, each
+draw takes slot j: a view of one static int64 buffer or a generator of
+its own, and fill(step_seed) writes every slot's seed before each
+replay (one non-blocking copy, one manual_seed per generator).
+rewind_point()/rewound() let a recompute (distributed/recompute.py)
+draw the same seeds as the forward it repeats.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import zlib
 from typing import Dict, Optional
@@ -26,8 +43,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .place import host_tensor
+
 __all__ = ["default_generator", "seed", "next_seed", "seed_scope",
-           "mix_seed", "scope_generator"]
+           "mix_seed", "scope_generator", "seed_tensor", "SeedSlots",
+           "Draw", "rewind_point", "rewound", "seed_int64", "fold_seed"]
 
 _generators: Dict[str, torch.Generator] = {}
 _seed: Optional[int] = None
@@ -41,6 +61,14 @@ def _key(device: torch.device) -> str:
     if device.type == "cuda":
         return f"cuda:{device.index if device.index is not None else 0}"
     return device.type
+
+
+def seed_int64(seed: int) -> int:
+    """The 64-bit seed as the signed int64 with the same bits: a 0-d
+    int64 tensor holding it is the two uint32 words (lo, hi) the kernels
+    read from device memory."""
+    seed = int(seed) & _MASK64
+    return seed - (1 << 64) if seed >> 63 else seed
 
 
 def mix_seed(*parts: int) -> int:
@@ -86,15 +114,30 @@ def seed(s: int):
     return _seed
 
 
-class _SeedScope:
-    def __init__(self, base: int):
-        self.base = int(base)
-        self.counter = 0
+class Draw:
+    """A seed drawn inside a SeedSlots scope: `path`, the counters that
+    lead from the step seed to it, and the table that resolves it."""
+    __slots__ = ("path", "slots")
 
-    def next(self) -> int:
-        s = mix_seed(self.base, self.counter)
+    def __init__(self, path, slots):
+        self.path = tuple(path)
+        self.slots = slots
+
+    def __repr__(self):
+        return f"Draw{self.path}"
+
+
+class _SeedScope:
+    def __init__(self, base, counter: int = 0):
+        self.base = base if isinstance(base, Draw) else int(base)
+        self.counter = counter
+
+    def next(self):
+        c = self.counter
         self.counter += 1
-        return s
+        if isinstance(self.base, Draw):
+            return Draw(self.base.path + (c,), self.base.slots)
+        return mix_seed(self.base, c)
 
 
 _scope_stack = threading.local()
@@ -107,10 +150,11 @@ def _scopes():
 
 
 class seed_scope:
-    """with seed_scope(s): every next_seed() inside derives from s."""
+    """with seed_scope(s): every next_seed() inside derives from s (an
+    int, or a Draw: the draws inside are then Draws below it)."""
 
-    def __init__(self, base: int):
-        self._scope = _SeedScope(base)
+    def __init__(self, base, _counter: int = 0):
+        self._scope = _SeedScope(base, _counter)
 
     def __enter__(self):
         _scopes().append(self._scope)
@@ -120,9 +164,10 @@ class seed_scope:
         _scopes().pop()
 
 
-def next_seed(device="cpu") -> int:
+def next_seed(device="cpu"):
     """The next 64-bit dropout seed: from the innermost seed_scope, else
-    from `device`'s stream (advanced once per call). Host-side only."""
+    from `device`'s stream (advanced once per call). Host-side only: an
+    int, or a Draw inside a SeedSlots scope."""
     stack = _scopes()
     if stack:
         return stack[-1].next()
@@ -134,11 +179,153 @@ def next_seed(device="cpu") -> int:
     return mix_seed(base, zlib.crc32(key.encode()), n)
 
 
+def _generator(device, s: int) -> torch.Generator:
+    g = torch.Generator(device=_key(device))
+    g.manual_seed(s & ((1 << 63) - 1))
+    return g
+
+
 def scope_generator(device) -> torch.Generator:
     """The generator a random op on `device` draws from: inside a
-    seed_scope a fresh one seeded from next_seed(), else the default."""
+    seed_scope a fresh one seeded from next_seed() (a Draw's own
+    generator inside a SeedSlots scope), else the default."""
     if not _scopes():
         return default_generator(device)
-    g = torch.Generator(device=_key(device))
-    g.manual_seed(next_seed(device) & ((1 << 63) - 1))
-    return g
+    s = next_seed(device)
+    if isinstance(s, Draw):
+        return s.slots.generator(s.path, device)
+    return _generator(device, s)
+
+
+def seed_tensor(seed, device) -> torch.Tensor:
+    """A dropout seed as the attention kernels read it: a 0-d int64
+    tensor on `device` holding the 64-bit seed's bits (seed_int64). An
+    int becomes one without a host sync (place.host_tensor), a Draw
+    resolves through its table, a tensor passes through."""
+    if isinstance(seed, Draw):
+        return seed.slots.tensor(seed.path, device)
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise TypeError(f"a seed tensor is one int64, got {seed.dtype} "
+                            f"of shape {tuple(seed.shape)}")
+        return seed.reshape(()).to(device)
+    return host_tensor(seed_int64(seed), torch.int64, device)
+
+
+def rewind_point():
+    """The innermost scope and its counter now, or None outside scopes:
+    what rewound() needs to draw the same seeds again."""
+    stack = _scopes()
+    if not stack:
+        return None
+    return stack[-1].base, stack[-1].counter
+
+
+def rewound(point):
+    """with rewound(point): the draws inside repeat those made after
+    rewind_point() returned `point` (the same ints, or the same Draw
+    paths). A recompute enters it so that its masks are the forward's."""
+    return contextlib.nullcontext() if point is None else seed_scope(*point)
+
+
+def fold_seed(step_seed: int, path) -> int:
+    """The int a Draw of `path` stands for below `step_seed`."""
+    s = int(step_seed)
+    for c in path:
+        s = mix_seed(s, c)
+    return s
+
+
+class SeedSlots:
+    """The seeds of one captured step, one slot per draw.
+
+    A step runs its body inside seed_scope(Draw(path, slots)), path
+    being its microbatch's counters below the step seed. Two modes:
+
+    - record(step_seed): the warm-up run. Every draw is resolved to the
+      step's own int seed (tensor: a fresh device copy; generator: a
+      fresh generator seeded with it), so the run equals the host-int
+      path; each draw's (path, kind) is laid down as slot j, in order.
+    - slots (after freeze()): every run draws slot 0, 1, ... again and
+      must draw the same (path, kind) in the same order, else it raises.
+      A tensor slot is a 0-d view of one static int64 buffer, a
+      generator slot a generator of its own (`generators`, which the
+      graph registers). fill(step_seed) writes all of them: the
+      buffer with one non-blocking copy, each generator with
+      manual_seed. Call it before each replay and before an eager run
+      in slot mode."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.recipes = []           # [(path, "tensor" | "generator")]
+        self.generators = {}        # slot -> torch.Generator
+        self.buf = None
+        self._step_seed = None
+        self._cursor = 0
+
+    def __len__(self):
+        return len(self.recipes)
+
+    def record(self, step_seed: int):
+        if self.buf is not None:
+            raise RuntimeError("SeedSlots already frozen")
+        self._step_seed = int(step_seed)
+        return self
+
+    def freeze(self):
+        """End the recording: make the static buffer and one generator
+        per generator slot."""
+        self._step_seed = None
+        self.buf = torch.zeros(len(self.recipes), dtype=torch.int64,
+                               device=self.device)
+        for j, (_, kind) in enumerate(self.recipes):
+            if kind == "generator":
+                self.generators[j] = torch.Generator(
+                    device=_key(self.device))
+        return self
+
+    def values(self, step_seed: int):
+        """Each slot's int seed for `step_seed`."""
+        return [fold_seed(step_seed, p) for p, _ in self.recipes]
+
+    def fill(self, step_seed: int):
+        """Write the seeds of `step_seed` into every slot; the next run
+        draws slot 0 first."""
+        vals = self.values(step_seed)
+        if vals:
+            self.buf.copy_(host_tensor([seed_int64(v) for v in vals],
+                                       torch.int64, self.device),
+                           non_blocking=True)
+        for j, g in self.generators.items():
+            g.manual_seed(vals[j] & ((1 << 63) - 1))
+        self._cursor = 0
+
+    def _draw(self, path, kind):
+        if self.buf is None:
+            if self._step_seed is None:
+                raise RuntimeError("SeedSlots: draw outside record() "
+                                   "before freeze()")
+            self.recipes.append((path, kind))
+            return None
+        j = self._cursor
+        if j >= len(self.recipes) or self.recipes[j] != (path, kind):
+            want = self.recipes[j] if j < len(self.recipes) else None
+            raise RuntimeError(
+                f"seed draw {j} is {kind} {path}, but the recorded step "
+                f"drew {want} there: the step must draw the same seeds "
+                "in the same order every call")
+        self._cursor += 1
+        return j
+
+    def tensor(self, path, device):
+        j = self._draw(path, "tensor")
+        if j is None:
+            return host_tensor(seed_int64(fold_seed(self._step_seed, path)),
+                               torch.int64, device)
+        return self.buf[j]
+
+    def generator(self, path, device):
+        j = self._draw(path, "generator")
+        if j is None:
+            return _generator(device, fold_seed(self._step_seed, path))
+        return self.generators[j]

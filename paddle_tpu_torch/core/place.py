@@ -108,3 +108,21 @@ def resolve_device(device=None) -> torch.device:
 def is_compiled_with_cuda() -> bool:
     return torch.cuda.is_available()
 
+
+
+def host_tensor(values, dtype, device) -> torch.Tensor:
+    """A tensor of host values (a number or a list) on `device`, made
+    without synchronising the host with the card: one number becomes a
+    0-d tensor through a fill kernel, which takes the value as its
+    argument (no copy at all); a list is staged in pinned memory and
+    copied with non_blocking=True (the caching host allocator keeps the
+    staging block until the copy has run). A captured CUDA graph takes
+    no host copy, so its per-call scalars (seeds, the learning rate) go
+    through such a copy into static buffers before each replay."""
+    device = torch.device(device)
+    if not isinstance(values, (list, tuple)):
+        return torch.full((), values, dtype=dtype, device=device)
+    t = torch.tensor(values, dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

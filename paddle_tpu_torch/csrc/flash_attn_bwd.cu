@@ -156,6 +156,7 @@ __global__ void __launch_bounds__(kDqThreads) dq_simt(BwdArgs a) {
   const int r = tid >> 4;  // rows r*4 .. r*4+3
   const int c = tid & 15;  // score columns c*4 ..; dQ columns c*4+64g ..
   const int sq = a.sq, sk = a.sk;
+  const DropParams dp = drop_params<DROP>(a.dp);
 
   const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.n;
   const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.n;
@@ -218,13 +219,13 @@ __global__ void __launch_bounds__(kDqThreads) dq_simt(BwdArgs a) {
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp) {
           const int row = q0 + r * 4 + ip * 2, col = k0 + c * 4 + jp * 2;
-          const uint4 w = drop_block(a.dp, bh, row, col);
+          const uint4 w = drop_block(dp, bh, row, col);
 #pragma unroll
           for (int x = 0; x < 2; ++x)
 #pragma unroll
             for (int y = 0; y < 2; ++y) {
               float& e = dpv[ip * 2 + x][jp * 2 + y];
-              e = drop_keep(a.dp, w, row + x, col + y) ? e * a.dp.rinv : 0.f;
+              e = drop_keep(dp, w, row + x, col + y) ? e * dp.rinv : 0.f;
             }
         }
     }
@@ -296,6 +297,7 @@ __global__ void __launch_bounds__(kKvThreads) dkv_simt(BwdArgs a) {
   const int r = tid >> 4;  // keys r*4 .. r*4+3
   const int c = tid & 15;  // score queries c*4 ..; dK/dV columns c*4+64g ..
   const int sq = a.sq, sk = a.sk;
+  const DropParams dp = drop_params<DROP>(a.dp);
 
   const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.n;
   const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.n;
@@ -368,16 +370,16 @@ __global__ void __launch_bounds__(kKvThreads) dkv_simt(BwdArgs a) {
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp) {
           const int qrow = i0 + c * 4 + ip * 2, key = k0 + r * 4 + jp * 2;
-          const uint4 w = drop_block(a.dp, bh, qrow, key);
+          const uint4 w = drop_block(dp, bh, qrow, key);
 #pragma unroll
           for (int x = 0; x < 2; ++x)
 #pragma unroll
             for (int y = 0; y < 2; ++y) {
-              const bool keep = drop_keep(a.dp, w, qrow + x, key + y);
+              const bool keep = drop_keep(dp, w, qrow + x, key + y);
               float& p = pd[jp * 2 + y][ip * 2 + x];
               float& g = dpv[jp * 2 + y][ip * 2 + x];
-              p = keep ? p * a.dp.rinv : 0.f;
-              g = keep ? g * a.dp.rinv : 0.f;
+              p = keep ? p * dp.rinv : 0.f;
+              g = keep ? g * dp.rinv : 0.f;
             }
         }
     }
@@ -507,6 +509,7 @@ __device__ __forceinline__ void bwd_wgmma(const Maps& m, const BwdArgs& a) {
 
   if (wg == 2) {
     regs_dec<kProducerRegs>();
+    const DropParams dp = drop_params<DROP>(a.dp);
     const int p = tid - kConsumers;
     int tile = 0, n = 0;  // streamed tiles and items of this CTA so far
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
@@ -568,7 +571,7 @@ __device__ __forceinline__ void bwd_wgmma(const Maps& m, const BwdArgs& a) {
           stat_s[st * 2 * kStrm + p] = x;
         }
         if (DROP)
-          keep_words<DKV>(a.dp, it.bh, it.own0, s0, p,
+          keep_words<DKV>(dp, it.bh, it.own0, s0, p,
                           keep_s + st * kConsumers);
         mbar_arrive(bars.full(st));
       }
@@ -804,7 +807,8 @@ int dispatch(int dtype, int d, int causal, int dropout, const BwdArgs& a,
 // whose head_dim stride is 1; in bf16 they are the layout the tensor
 // maps describe: multiples of 8 elements, and a dimension of size 1
 // given the stride a packed tensor would have. dropout != 0 regenerates
-// the forward's keep bits from (threshold, seed_lo, seed_hi); rinv =
+// the forward's keep bits from the threshold and the 64-bit seed at
+// `seed` in device memory (lo, hi; read by the kernel); rinv =
 // 1 / (1 - p). delta: in bf16 the dQ kernel writes rowsum(dO * O) there
 // (o is read for it); in f32 it is read (see launch_dq). Returns 0 on
 // success, a cudaError_t code if a launch or a tensor map was refused,
@@ -820,8 +824,7 @@ extern "C" int pt_flash_attn_bwd_dq(
     long long do_sb, long long do_ss, long long do_sn,
     long long dq_sb, long long dq_ss, long long dq_sn,
     float scale, int causal, int dropout, unsigned int threshold,
-    unsigned int seed_lo, unsigned int seed_hi, float rinv,
-    void* stream_ptr) {
+    const void* seed, float rinv, void* stream_ptr) {
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = lse; a.delta = delta; a.dq = dq;
@@ -829,7 +832,7 @@ extern "C" int pt_flash_attn_bwd_dq(
   a.vs = {v_sb, v_ss, v_sn}; a.os = {o_sb, o_ss, o_sn};
   a.dos = {do_sb, do_ss, do_sn}; a.dqs = {dq_sb, dq_ss, dq_sn};
   a.batch = b; a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
-  a.dp = {threshold, seed_lo, seed_hi, rinv};
+  a.dp = {threshold, static_cast<const uint32_t*>(seed), 0u, 0u, rinv};
   return dispatch<false>(dtype, d, causal, dropout, a,
                          static_cast<cudaStream_t>(stream_ptr));
 }
@@ -845,8 +848,7 @@ extern "C" int pt_flash_attn_bwd_dkv(
     long long dk_sb, long long dk_ss, long long dk_sn,
     long long dv_sb, long long dv_ss, long long dv_sn,
     float scale, int causal, int dropout, unsigned int threshold,
-    unsigned int seed_lo, unsigned int seed_hi, float rinv,
-    void* stream_ptr) {
+    const void* seed, float rinv, void* stream_ptr) {
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.lse = lse; a.delta = const_cast<float*>(delta);
@@ -855,7 +857,7 @@ extern "C" int pt_flash_attn_bwd_dkv(
   a.vs = {v_sb, v_ss, v_sn}; a.dos = {do_sb, do_ss, do_sn};
   a.dks = {dk_sb, dk_ss, dk_sn}; a.dvs = {dv_sb, dv_ss, dv_sn};
   a.batch = b; a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
-  a.dp = {threshold, seed_lo, seed_hi, rinv};
+  a.dp = {threshold, static_cast<const uint32_t*>(seed), 0u, 0u, rinv};
   return dispatch<true>(dtype, d, causal, dropout, a,
                         static_cast<cudaStream_t>(stream_ptr));
 }

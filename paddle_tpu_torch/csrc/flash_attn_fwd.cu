@@ -110,9 +110,10 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int n_heads, int sq, int sk,
                Strides qs, Strides ks, Strides vs, float scale,
-               DropParams dp) {
+               DropParams drop) {
   static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
   constexpr int G = D / 64;  // 4-column groups of O per thread
+  const DropParams dp = drop_params<DROP>(drop);
   extern __shared__ __align__(16) unsigned char smem_simt[];
   float* Qt = reinterpret_cast<float*>(smem_simt);  // [D][kLd] q*scale, transposed
   float* Kt = Qt + D * kLd;    // [D][kLd]  k, transposed
@@ -454,6 +455,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   if (wg == 2) {
     regs_dec<kProducerRegs>();
+    const DropParams dp = drop_params<DROP>(a.dp);
     const int p = tid - kConsumers;
     int tile = 0, n = 0;  // k-tiles and items of this CTA so far
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
@@ -483,7 +485,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                           it.bi);
         }
         if (DROP)
-          keep_words<false>(a.dp, it.bh, it.own0, s0, p,
+          keep_words<false>(dp, it.bh, it.own0, s0, p,
                             keep_s + st * kConsumers);
         mbar_arrive(bars.full(st));
       }
@@ -659,8 +661,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 // maps describe: multiples of 8 elements, and a dimension of size 1
 // given the stride a packed tensor would have. o is written contiguous
 // [b, sq, n, h], lse f32 [b, n, sq]. dropout != 0 applies attention
-// dropout with the keep threshold, the 64-bit Philox seed (seed_lo,
-// seed_hi) and rinv = 1 / (1 - p). Returns 0 on success, a cudaError_t
+// dropout with the keep threshold, the 64-bit Philox seed at `seed` in
+// device memory (two 32-bit words, lo then hi; read by the kernel) and
+// rinv = 1 / (1 - p). Returns 0 on success, a cudaError_t
 // code if a launch or a tensor map was refused, or -1 for a dtype /
 // head_dim this file has no kernel for.
 extern "C" int pt_flash_attn_fwd(
@@ -670,12 +673,12 @@ extern "C" int pt_flash_attn_fwd(
     long long k_sb, long long k_ss, long long k_sn,
     long long v_sb, long long v_ss, long long v_sn,
     float scale, int causal, int dropout, unsigned int threshold,
-    unsigned int seed_lo, unsigned int seed_hi, float rinv,
-    void* stream_ptr) {
+    const void* seed, float rinv, void* stream_ptr) {
   if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return -1;
   const Strides qs{q_sb, q_ss, q_sn}, ks{k_sb, k_ss, k_sn},
       vs{v_sb, v_ss, v_sn};
-  const DropParams dp{threshold, seed_lo, seed_hi, rinv};
+  const DropParams dp{threshold, static_cast<const uint32_t*>(seed), 0u, 0u,
+                      rinv};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   FwdArgs a{};
   a.o = o; a.lse = lse;

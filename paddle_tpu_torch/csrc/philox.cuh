@@ -20,11 +20,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The key lives in device memory: `seed` points at the two 32-bit words
+// (lo, hi) of the 64-bit seed, as a little-endian int64 tensor holds it.
+// Each kernel reads them once at its start (drop_params), so a captured
+// CUDA graph draws whatever seed the step wrote there before the replay,
+// as the Pallas kernels read their seed from SMEM
+// (pallas_kernels.py:248-258) rather than from the compiled program.
 struct DropParams {
-  uint32_t threshold;  // keep when bits >= threshold
-  uint32_t seed_lo, seed_hi;
-  float rinv;          // 1 / (1 - p)
+  uint32_t threshold;        // keep when bits >= threshold
+  const uint32_t* seed;      // device memory: seed_lo, seed_hi
+  uint32_t seed_lo, seed_hi; // the key, filled in by drop_params
+  float rinv;                // 1 / (1 - p)
 };
+
+// dp with its key read from device memory (DROP), or as given
+template <bool DROP>
+__device__ __forceinline__ DropParams drop_params(const DropParams& dp) {
+  DropParams r = dp;
+  if (DROP) {
+    r.seed_lo = dp.seed[0];
+    r.seed_hi = dp.seed[1];
+  }
+  return r;
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {

@@ -29,7 +29,7 @@ import os
 import torch
 
 from ...amp.auto_cast import amp_cast
-from ...core.generator import next_seed
+from ...core.generator import next_seed, seed_tensor
 from ...ops import flash_attention as _fa
 from ...ops import philox as _philox
 
@@ -67,7 +67,8 @@ def _sdpa_impl(q, k, v, attn_mask, dropout_p, is_causal, scale,
         # drops them; the links are those the flash kernels drop
         b, n, sq, sk = probs.shape
         keep = _philox.keep_mask(
-            seed, dropout_p, _bh_index(b, n, q.device),
+            seed_tensor(seed, q.device), dropout_p,
+            _bh_index(b, n, q.device),
             torch.arange(sq, device=q.device)[:, None],
             torch.arange(sk, device=q.device)[None, :])
         probs = torch.where(keep, probs / (1.0 - dropout_p),
@@ -106,11 +107,14 @@ def _flash_carry_update(q32, k, v, carry, block_k, pos_q, pos_k0, sk,
     kernel). kv_lens [b]: per-batch true key length (right padding).
     dropout=(seed, p): flash-style attention-probs dropout, l summing
     the UN-dropped probabilities while acc takes p*keep/(1-p) V, with the
-    Philox mask of (seed, b*n + head, query, key)."""
+    Philox mask of (seed, b*n + head, query, key); seed an int, a 0-d
+    int64 tensor or a Draw (core/generator.py seed_tensor)."""
     acc, m, l = carry
     b, n = q32.shape[0], q32.shape[1]
     skl = k.shape[2]
     bh = _bh_index(b, n, q32.device) if dropout is not None else None
+    if dropout is not None:
+        dropout = (seed_tensor(dropout[0], q32.device), dropout[1])
     for j0 in range(0, skl, block_k):
         kj = k[:, :, j0:j0 + block_k].to(q32.dtype)
         vj = v[:, :, j0:j0 + block_k].to(q32.dtype)

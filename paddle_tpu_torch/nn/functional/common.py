@@ -43,12 +43,46 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
                                                  device=x.device))
 
 
+class _Embedding(torch.autograd.Function):
+    """Row gather whose backward, the sum of the output rows of each
+    index (the JAX package's scatter-add), is the same bits every run.
+
+    torch's CUDA embedding backward adds the rows of an index that
+    repeats more than a few times with atomics, in an order that changes
+    from run to run: ERNIE-base's position and token-type tables, whose
+    rows repeat 48 and 24,576 times in a 48x512 step, took gradients
+    that differed between two identical steps (chip_smoke.py's
+    ernie_determinism). Under torch's deterministic mode the same
+    backward sums them in a fixed order, so this backward runs in that
+    mode (a host flag, read when the op is dispatched, so a captured
+    graph keeps the deterministic kernels)."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x)
+        ctx.rows = weight.shape[0]
+        return torch.nn.functional.embedding(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        was = torch.are_deterministic_algorithms_enabled()
+        warn = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            gw = torch.ops.aten.embedding_dense_backward(
+                g.contiguous(), x, ctx.rows, -1, False)
+        finally:
+            torch.use_deterministic_algorithms(was, warn_only=warn)
+        return None, gw
+
+
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Row gather; rows of `padding_idx` read as zeros (Paddle's
-    lookup_table_v2 semantics). Its backward is torch's dense embedding
-    backward (a sum of rows per index), not an index_put over the whole
+    lookup_table_v2 semantics). Its backward is a dense sum of rows per
+    index in a fixed order (_Embedding), not an index_put over the whole
     table."""
-    out = torch.nn.functional.embedding(x, weight)
+    out = _Embedding.apply(x, weight)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((x == padding_idx).unsqueeze(-1), 0.0)
     return out

@@ -1,24 +1,53 @@
 """Recompile sentinel (counterpart of paddle_tpu/observability/sentinel.py,
-minimal): the guard of the serving engine's fixed program count.
+minimal): the guard of the serving engine's fixed program count and of
+the one-program-per-signature TrainStep.
 
-The JAX engine promises a fixed ladder of compiled executables; the
-port's engine promises a fixed set of programs, one CUDA graph per
-bucket on the card. The engine calls ``observe(executables, expected,
-signature)`` once per step; when the count grows past the expected
-figure, the sentinel records an event with the shape delta against the
-previous step's signature, adds the growth to ``counter`` and logs a
-warning. The JAX version's metrics registry and flight-recorder
-breadcrumbs belong to the observability slice (ROADMAP.md queue A item
-16) and are left out.
+The JAX engine promises a fixed ladder of compiled executables and the
+JAX TrainStep one executable; the port's engine promises a fixed set of
+programs, one CUDA graph per bucket on the card, and its TrainStep one
+captured graph per input signature (``signature_of``). Each calls
+``observe(executables, expected, signature)`` once per step; when the
+count grows past the expected figure, the sentinel records an event
+with the shape delta against the previous step's signature, adds the
+growth to ``counter`` and logs a warning. The JAX version's metrics
+registry and flight-recorder breadcrumbs belong to the observability
+slice (ROADMAP.md queue A item 16) and are left out.
 """
 from __future__ import annotations
 
 import logging
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
-__all__ = ["RecompileSentinel", "diff_signatures"]
+import torch
+
+__all__ = ["RecompileSentinel", "diff_signatures", "signature_of"]
 
 logger = logging.getLogger("paddle_tpu_torch.observability")
+
+
+def _leaves(tree, path):
+    if isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _leaves(x, f"{path}[{i}]")
+    elif isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _leaves(tree[k], f"{path}[{k!r}]")
+    else:
+        yield path, tree
+
+
+def signature_of(*trees) -> Tuple[Tuple[str, Tuple[int, ...], str], ...]:
+    """Flatten nested lists, tuples and dicts of tensors into ((path,
+    shape, dtype), ...): the comparable identity a captured program is
+    keyed on, as the JAX package's jit cache keys on it. A non-tensor
+    leaf has shape () and its type's name."""
+    out = []
+    for path, leaf in _leaves(tuple(trees), ""):
+        if isinstance(leaf, torch.Tensor):
+            out.append((path, tuple(leaf.shape), str(leaf.dtype)))
+        else:
+            out.append((path, (), type(leaf).__name__))
+    return tuple(out)
 
 
 def diff_signatures(old, new) -> str:

@@ -17,8 +17,14 @@ the JAX package.
 - flash_attention_fwd(q, k, v, causal, scale, dropout_p, seed) ->
   (O, lse f32 [b, n, sq]) and flash_attention_mha(...) -> O go through
   the torch.autograd.Function _FlashAttention (the `_flash_mha` custom
-  VJP). For CUDA tensors the forward and the backward launch the kernels
-  or raise; for CPU tensors they run the plain versions. There is no
+  VJP). The dropout seed is data, as `_flash_mha(q, k, v, seed, ...)`
+  takes it: a 0-d int64 tensor on the inputs' device (an int becomes
+  one without a host sync), whose two 32-bit words the kernels read
+  from device memory at their start. So a captured CUDA graph draws a
+  new mask whenever the step writes a new seed into that tensor, and
+  the backward reads the same tensor as the forward (kept in ctx).
+  For CUDA tensors the forward and the backward launch the kernels or
+  raise; for CPU tensors they run the plain versions. There is no
   fallback from one to the other.
 - flash_attention_fwd_plain / flash_attention_bwd_plain: the same math
   in plain PyTorch (blockwise, f32 accumulators, the Philox mask of
@@ -34,6 +40,7 @@ import math
 
 import torch
 
+from ..core.generator import seed_tensor
 from . import _build
 from . import philox as _philox
 
@@ -49,8 +56,8 @@ launches = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
 
 _VP, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_uint)
-# scale, causal, dropout, threshold, seed_lo, seed_hi, rinv, stream
-_TAIL = [ctypes.c_float, _I, _I, _U, _U, _U, ctypes.c_float, _VP]
+# scale, causal, dropout, threshold, seed (device pointer), rinv, stream
+_TAIL = [ctypes.c_float, _I, _I, _U, _VP, ctypes.c_float, _VP]
 _ARGTYPES = {
     "pt_flash_attn_fwd": [_VP] * 5 + [_I] * 6 + [_LL] * 9 + _TAIL,
     "pt_flash_attn_bwd_dq": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
@@ -92,9 +99,12 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None,
                               block_k=512, dropout_p=0.0, seed=0):
     """Plain PyTorch version of the forward kernel: (O, lse f32 [b, n,
     sq]), with attention dropout from the Philox mask when dropout_p >
-    0 (l sums the un-dropped probabilities, as in the kernel)."""
+    0 (l sums the un-dropped probabilities, as in the kernel). seed is
+    taken as the kernel takes it, a 0-d int64 tensor (an int or a Draw
+    is turned into one)."""
     from ..nn.functional.attention import _flash_headmajor
-    drop = (int(seed), float(dropout_p)) if dropout_p else None
+    seed_t = _seed_arg(seed, dropout_p, q.device)
+    drop = (seed_t, float(dropout_p)) if dropout_p else None
     return _flash_headmajor(q, k, v, causal, block_k, scale=scale,
                             return_lse=True, dropout=drop)
 
@@ -108,7 +118,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
     recomputed per block, dS = P * (dropout(dP) - rowsum(dO*O)).
     which="dq" or "dkv" computes only the dQ or only the dK/dV kernel's
     outputs (None in place of the others), so each kernel has a plain
-    version of its own work."""
+    version of its own work. seed as in flash_attention_fwd_plain."""
     if which not in ("all", "dq", "dkv"):
         raise ValueError(f"which must be all, dq or dkv, got {which!r}")
     want_dq, want_dkv = which in ("all", "dq"), which in ("all", "dkv")
@@ -128,6 +138,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
     pos_q = torch.arange(sq, device=q.device)
     bh = _bh_index(b, n, q.device)
     rinv = 1.0 / (1.0 - dropout_p) if dropout_p else 1.0
+    seed = _seed_arg(seed, dropout_p, q.device)
     for j0 in range(0, sk, block_k):
         kj, vj = kh[:, :, j0:j0 + block_k], vh[:, :, j0:j0 + block_k]
         pos_k = j0 + torch.arange(kj.shape[2], device=q.device)
@@ -228,11 +239,22 @@ def _strides(*ts):
     return [s for t in ts for s in _tma_strides(t)]
 
 
-def _tail(causal, scale, dropout_p, seed):
-    lo, hi = _philox.split_seed(seed)
+def _seed_arg(seed, dropout_p, device):
+    """The seed as the kernels take it: a 0-d int64 tensor on `device`
+    when dropout_p > 0 (seed_tensor: an int becomes one without a host
+    sync), else None (the kernels read no seed)."""
+    if not dropout_p:
+        return None
+    return seed_tensor(0 if seed is None else seed, device)
+
+
+def _tail(causal, scale, dropout_p, seed_t):
+    """The launch arguments after the strides; seed_t from _seed_arg
+    (its data pointer is what the kernels read the key from)."""
     rinv = 1.0 / (1.0 - dropout_p) if dropout_p else 1.0
     return [float(scale), int(bool(causal)), int(dropout_p > 0),
-            _philox.drop_threshold(dropout_p), lo, hi, rinv]
+            _philox.drop_threshold(dropout_p),
+            None if seed_t is None else seed_t.data_ptr(), rinv]
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
@@ -241,12 +263,13 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
     b, sq, n, h = q.shape
     sk = k.shape[1]
     q, k, v = (_kernel_input(t) for t in (q, k, v))
+    seed_t = _seed_arg(seed, dropout_p, q.device)
     o = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     _launch("flash_attn_fwd", "pt_flash_attn_fwd", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
-             *_strides(q, k, v), *_tail(causal, scale, dropout_p, seed)])
+             *_strides(q, k, v), *_tail(causal, scale, dropout_p, seed_t)])
     launches["flash_attn_fwd"] += 1
     return o, lse
 
@@ -274,6 +297,7 @@ def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
     _check_kernel("flash_attn_bwd_dq", q, k)
     b, sq, n, h = q.shape
     q, k, v, o, do = (_kernel_input(t) for t in (q, k, v, o, do))
+    seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
     if _delta_in_kernel(q.dtype):
         delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
@@ -285,7 +309,7 @@ def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              _KERNEL_DTYPES[q.dtype], b, n, sq, k.shape[1], h,
              *_strides(q, k, v, o, do, dq),
-             *_tail(causal, scale, dropout_p, seed)])
+             *_tail(causal, scale, dropout_p, seed_t)])
     launches["flash_attn_bwd_dq"] += 1
     return dq, delta
 
@@ -298,6 +322,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
     b, sq, n, h = q.shape
     sk = k.shape[1]
     q, k, v, do = (_kernel_input(t) for t in (q, k, v, do))
+    seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
     dk = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
@@ -306,7 +331,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
              *_strides(q, k, v, do, dk, dv),
-             *_tail(causal, scale, dropout_p, seed)])
+             *_tail(causal, scale, dropout_p, seed_t)])
     launches["flash_attn_bwd_dkv"] += 1
     return dk, dv
 
@@ -315,6 +340,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, dropout_p=0.0,
                     seed=0):
     """The backward on the card: the dQ kernel (with delta), then the
     dK/dV kernel on the current stream. Returns (dq, dk, dv)."""
+    seed = _seed_arg(seed, dropout_p, q.device)
     dq, delta = _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
                                    dropout_p, seed)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
@@ -333,8 +359,9 @@ def _device_of(t):
 
 class _FlashAttention(torch.autograd.Function):
     """The `_flash_mha` custom VJP: the forward saves (q, k, v, O, lse)
-    and the seed; the backward regenerates the dropout mask from it.
-    CUDA tensors launch the kernels, CPU tensors run the plain versions."""
+    and the seed tensor (None at p 0); the backward regenerates the
+    dropout mask from that same tensor. CUDA tensors launch the kernels,
+    CPU tensors run the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
@@ -344,15 +371,15 @@ class _FlashAttention(torch.autograd.Function):
             o, lse = flash_attention_fwd_plain(q, k, v, causal, scale,
                                                dropout_p=dropout_p,
                                                seed=seed)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, scale, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, o, lse, seed)
+        ctx.args = (causal, scale, dropout_p)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        causal, scale, dropout_p, seed = ctx.args
+        q, k, v, o, lse, seed = ctx.saved_tensors
+        causal, scale, dropout_p = ctx.args
         if q.device.type == "cuda":
             dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
                                          dropout_p, seed)
@@ -370,7 +397,8 @@ def flash_attention_fwd(query, key, value, causal=False, scale=None,
     scale defaults to 1/sqrt(h). Causal masking is top-left aligned
     (row >= col), as in the Pallas kernel. dropout_p drops attention
     links with the Philox mask of `seed` (0 when None, as the Pallas
-    wrapper defaults it)."""
+    wrapper defaults it): an int, a 0-d int64 tensor, or a Draw of a
+    captured step (core/generator.py seed_tensor)."""
     _check(query, key, value)
     _check_dropout(dropout_p)
     _device_of(query)
@@ -378,7 +406,7 @@ def flash_attention_fwd(query, key, value, causal=False, scale=None,
         scale = 1.0 / math.sqrt(query.shape[-1])
     return _FlashAttention.apply(query, key, value, bool(causal),
                                  float(scale), float(dropout_p),
-                                 0 if seed is None else int(seed))
+                                 _seed_arg(seed, dropout_p, query.device))
 
 
 def flash_attention_mha(query, key, value, causal=False, scale=None,

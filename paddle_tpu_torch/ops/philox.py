@@ -22,7 +22,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32", "drop_threshold", "keep_mask", "split_seed"]
+from ..core.generator import seed_int64
+
+__all__ = ["philox4x32", "drop_threshold", "keep_mask", "split_seed",
+           "seed_int64"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -37,10 +40,10 @@ def _mulhilo(a: int, b: torch.Tensor):
     return (lo_full >> 32) + (p2 >> 16), lo_full & _MASK
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+def philox4x32(c0, c1, c2, c3, k0, k1):
     """Philox4x32-10 of broadcastable int64 counters holding uint32
-    values and a 64-bit key given as two uint32 ints. Returns the four
-    output words as int64 tensors."""
+    values and a 64-bit key given as two uint32 values (ints or 0-d
+    int64 tensors). Returns the four output words as int64 tensors."""
     for r in range(10):
         if r:
             k0 = (k0 + _W0) & _MASK
@@ -56,18 +59,28 @@ def drop_threshold(p: float) -> int:
     return min(int(float(p) * 4294967296.0), 4294967295)
 
 
-def split_seed(seed: int):
-    """A 64-bit seed as the Philox key (lo, hi)."""
+def split_seed(seed):
+    """A 64-bit seed as the Philox key (lo, hi): ints for an int seed,
+    int64 tensors for a seed held in a 0-d int64 tensor (read on the
+    device, no host sync)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise TypeError(f"a seed tensor is one int64, got "
+                            f"{seed.dtype} of shape {tuple(seed.shape)}")
+        seed = seed.reshape(())
+        return seed & _MASK, (seed >> 32) & _MASK
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     return seed & _MASK, seed >> 32
 
 
-def keep_mask(seed: int, p: float, bh, rows, cols):
+def keep_mask(seed, p: float, bh, rows, cols):
     """Boolean keep-mask of attention dropout.
 
-    bh, rows, cols: broadcastable integer tensors of (batch*heads + head,
-    query row, key column). Returns a bool tensor of their broadcast
-    shape: True where the link is kept (probability 1 - p)."""
+    seed: an int, or a 0-d int64 tensor on the device of rows (the form
+    the kernels take). bh, rows, cols: broadcastable integer tensors of
+    (batch*heads + head, query row, key column). Returns a bool tensor
+    of their broadcast shape: True where the link is kept (probability
+    1 - p)."""
     k0, k1 = split_seed(seed)
     bh, rows, cols = (t.to(torch.int64) for t in (bh, rows, cols))
     zero = torch.zeros((), dtype=torch.int64, device=rows.device)

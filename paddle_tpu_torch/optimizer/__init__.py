@@ -1,6 +1,7 @@
 """Optimizers and LR schedulers (counterpart of paddle_tpu/optimizer):
-Adam and AdamW with multi-precision master weights; the other
-optimizers come with a later slice."""
+the JAX package's ten optimizers, with multi-precision master weights,
+and lr.py's schedulers."""
 from . import lr  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
-from .optimizers import Adam, AdamW  # noqa: F401
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax,  # noqa: F401
+                         AdamW, Lamb, Lars, Momentum, RMSProp)

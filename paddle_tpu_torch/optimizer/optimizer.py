@@ -17,6 +17,13 @@ loss-scale skip, a device-side bool `skip` that keeps params and state
 exactly as they were without reading the flag back to the host. The
 eager step() applies grad_clip (nn/clip.py) first; apply_gradients, the
 compiled-step form, does not clip, as in the JAX package.
+
+The rules take the learning rate as a 0-d f32 tensor on the params'
+device, as the JAX step passes lr as traced data: a captured CUDA graph
+then reads whatever lr the step wrote into its buffer, so an
+LRScheduler keeps taking effect. Params and state are written in place
+(copy_), and set_state_dict copies into the existing tensors, never
+rebinding them: a captured graph holds their addresses.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from ..core.place import host_tensor
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -62,6 +70,7 @@ class Optimizer:
         return {}
 
     def update_rule(self, params, grads, states, lr):
+        """(new params, new states) from lists; lr a 0-d f32 tensor."""
         raise NotImplementedError
 
     # -- state -------------------------------------------------------------
@@ -125,10 +134,17 @@ class Optimizer:
 
     @torch.no_grad()
     def apply_gradients(self, params, grads, lr=None, skip=None):
-        """Update `params` in place from `grads` (one list each). skip: a
-        bool device tensor; where True, params and state stay as they
-        were (the loss-scale skip), decided on the device."""
-        lr = self.get_lr() if lr is None else float(lr)
+        """Update `params` in place from `grads` (one list each). lr: a
+        0-d f32 tensor on the params' device (a captured step's lr
+        buffer), a number, or None for get_lr(); a number goes to the
+        device without a host sync. skip: a bool device tensor; where
+        True, params and state stay as they were (the loss-scale skip),
+        decided on the device."""
+        if not params:
+            return
+        if not isinstance(lr, torch.Tensor):
+            lr = host_tensor(self.get_lr() if lr is None else float(lr),
+                             torch.float32, params[0].device)
         self._step_count += 1
         groups: Dict[Any, List[int]] = {}
         for i, p in enumerate(params):
@@ -196,25 +212,36 @@ class Optimizer:
 
     # -- state dict --------------------------------------------------------
     def state_dict(self):
+        """A snapshot: every state tensor is a detached copy (the live
+        ones are updated in place by later steps)."""
         out: Dict[str, Any] = {"_step_count": self._step_count}
         for i, p in enumerate(self._parameters or []):
             st = self._accumulators.get(id(p))
             if st:
-                out[f"param_{i}"] = dict(st)
+                out[f"param_{i}"] = {k: v.detach().clone()
+                                     for k, v in st.items()}
         if isinstance(self._lr, LRScheduler):
             out["LR_Scheduler"] = self._lr.state_dict()
         return out
 
+    @torch.no_grad()
     def set_state_dict(self, state):
-        """Restore state_dict() output; tensors are copied onto each
-        param's device."""
+        """Restore state_dict() output. A state tensor that exists is
+        written in place (copy_), so its identity, and a captured graph
+        that reads it, stay valid; a missing one is created as a copy on
+        the param's device."""
         self._step_count = state.get("_step_count", 0)
         for i, p in enumerate(self._parameters or []):
             key = f"param_{i}"
-            if key in state:
-                self._accumulators[id(p)] = {
-                    k: torch.as_tensor(v).detach().clone().to(p.device)
-                    for k, v in state[key].items()}
+            if key not in state:
+                continue
+            own = self._accumulators.setdefault(id(p), {})
+            for k, v in state[key].items():
+                v = torch.as_tensor(v).detach()
+                if k in own and own[k].shape == v.shape:
+                    own[k].copy_(v)
+                else:
+                    own[k] = v.clone().to(p.device)
         if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
             self._lr.set_state_dict(state["LR_Scheduler"])
 

@@ -1,31 +1,55 @@
-"""TrainStep: one training step (counterpart of
-paddle_tpu/static/train_step.py).
+"""TrainStep: one training step, one captured program per input
+signature (counterpart of paddle_tpu/static/train_step.py).
 
 The JAX package compiles forward + loss + backward + optimizer update +
-loss scaling into one XLA executable. The port runs the same step
-eagerly on the card, with the semantics of the JAX `_build`'s `step`:
+loss scaling into one XLA executable (`jax.jit` of `_build`'s `step`).
+The port's counterpart is one torch.cuda.CUDAGraph per input signature
+(the shapes and dtypes of the inputs and labels, observability
+signature_of): the first call of a signature on the card runs the step
+body eagerly on a side stream (the warm-up; it is that call's step),
+then captures the body into a graph over static input buffers; every
+later call copies its inputs, its learning rate and its dropout seeds
+into the graph's buffers and replays it. The capture rules are
+static/capture.py's. On the CPU the same body runs eagerly (the tests'
+path). A capture that fails raises; there is no eager fallback on the
+card. The eager body stays callable (eager_step), the reference a
+replay is held against.
+
+The body, as the JAX `_build`'s `step`:
 
 - AMP: the forward and the loss run under amp.auto_cast(amp_level,
   amp_dtype). O2 casts the floating params down and keeps f32 master
   weights in the optimizer, taken from the ORIGINAL f32 values.
 - grad_accum_steps: the batch is cut along dim 0 into microbatches
-  (_microslice); gradients and losses are averaged over them.
+  (_microslice; unrolled inside the graph); gradients and losses are
+  averaged over them.
 - scaler (amp.GradScaler/AmpScaler): the loss is scaled, the gradients
   unscaled and checked for non-finite values, and on overflow the
   params and optimizer state stay exactly as they were, while the scale
-  adapts and strategy_state["amp_skipped"] counts the skip. All of it
-  on the device: the step never reads a value back to the host.
+  adapts and strategy_state["amp_skipped"] counts the skip, all in
+  place on the device: the step never reads a value back to the host.
 - dropout: every random draw of one step comes from one seed of the
   global stream (core/generator.py seed_scope; one per microbatch).
+  Inside a captured step each draw is a slot of the program's
+  SeedSlots, written before each replay, so every replay draws new
+  masks and equals the eager step of the same step seed bit for bit.
+- lr: the optimizer's get_lr() at each call, passed as a 0-d f32 device
+  tensor (the graph's own lr buffer, filled before each replay), so an
+  LRScheduler takes effect.
+- remat (with remat_policy None, "nothing_saveable" or
+  "checkpoint_dots"): forward and loss run as one recompute region
+  (distributed/recompute.py checkpointed), as jax.checkpoint wraps
+  `_forward_loss`.
 - __call__ returns the loss as a device tensor (no .item()).
-- donate is accepted for the JAX signature: the eager step updates the
-  params and the optimizer state in place anyway.
+- donate is accepted for the JAX signature: the step updates the params
+  and the optimizer state in place anyway.
 
-Capturing the step (a CUDA graph or a compiled graph) with a "no
-recompiles after warm-up" contract is the next TrainStep item (ROADMAP queue A 7).
-mesh/sharding_plan, grad_transform, remat and sentry belong to later
-slices and raise NotImplementedError, as does an optimizer with a
-grad_clip (the JAX package's compiled step does not clip).
+The RecompileSentinel("train") observes the program count every call,
+expected 1: a second signature captures a second graph and records an
+event, as a retrace does in the JAX package. mesh/sharding_plan,
+grad_transform and sentry belong to later slices and raise
+NotImplementedError, as does an optimizer with a grad_clip (the JAX
+package's compiled step does not clip); aot_lower is not ported.
 """
 from __future__ import annotations
 
@@ -36,8 +60,13 @@ import torch
 from ..amp.auto_cast import auto_cast
 from ..amp.functional import (check_finite_and_unscale_tree,
                               update_loss_scaling_state)
-from ..core.generator import mix_seed, next_seed, seed_scope
+from ..core.generator import Draw, SeedSlots, mix_seed, next_seed, seed_scope
+from ..core.place import host_tensor
+from ..distributed.recompute import check_policy, checkpointed
+from ..observability.sentinel import RecompileSentinel, signature_of
+from ..ops import flash_attention as _fa
 from ..optimizer.optimizer import Optimizer
+from .capture import StaticInputs, capture, warm_up
 
 __all__ = ["TrainStep"]
 
@@ -55,13 +84,49 @@ def _later(flag, where):
         f"TrainStep({flag}=...) is not ported yet: it comes with {where}")
 
 
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (list, tuple)) else (x,)
+
+
+def _program_key(inputs, labels):
+    """(signature, non-tensor leaves): a new key is a new program."""
+    sig = signature_of(inputs, labels)
+    consts = tuple(repr(x) for x in (*inputs, *labels)
+                   if not isinstance(x, torch.Tensor))
+    return sig, (sig, consts)
+
+
+def _launch_counts():
+    return dict(_fa.launches)
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _fa.launches.items()}
+
+
+class _Program:
+    """One captured step: graph, static inputs, seed slots, the 0-d f32
+    lr buffer and the loss output."""
+    __slots__ = ("graph", "inputs", "slots", "lr", "loss")
+
+
 class TrainStep:
-    """One training step of `layer`.
+    """One training step of `layer`, captured per input signature on the
+    card.
 
     loss_fn(outputs, *labels) -> scalar tensor. Usage:
         step = TrainStep(model, loss_fn, optimizer, amp_level="O1")
         loss = step(inputs, labels)
-    """
+
+    Counts: ``captures``, ``replays``, ``programs`` (the executable
+    count the sentinel observes), ``last_launches`` (the flash-attention
+    kernel launches the wrappers counted in the last call: an eager
+    step's, or the warm-up's for a capturing call; None after a replay,
+    which does not pass through the wrappers: count a replay's kernels
+    on the device, with torch.profiler), ``capture_launches`` (the
+    launches the last capture recorded into its graph) and ``last_lr``
+    (the 0-d device tensor the last replay read its learning rate from;
+    None after an eager step)."""
 
     def __init__(self, layer, loss_fn: Callable, optimizer: Optimizer,
                  amp_level: Optional[str] = None, amp_dtype="bfloat16",
@@ -75,7 +140,6 @@ class TrainStep:
                 ("mesh", mesh, "the distributed slice"),
                 ("sharding_plan", sharding_plan, "the distributed slice"),
                 ("grad_transform", grad_transform, "the distributed slice"),
-                ("remat", remat, "a later training-slice PR"),
                 ("sentry", sentry, "the observability slice")):
             if val:
                 raise _later(flag, where)
@@ -98,6 +162,8 @@ class TrainStep:
         self.amp_level = amp_level
         self.amp_dtype = amp_dtype
         self.grad_accum_steps = int(grad_accum_steps)
+        self.remat = bool(remat)
+        self.remat_policy = check_policy(remat_policy)
         self.strategy_state = strategy_state if strategy_state is not None \
             else {}
         self.params = [p for p in layer.parameters() if p.requires_grad]
@@ -105,6 +171,11 @@ class TrainStep:
             optimizer._parameters = list(self.params)
         if amp_level == "O2":
             self._cast_down(amp_dtype)
+        for p in self.params:
+            # the optimizer state exists from the start, as the JAX step's
+            # init_state_tree makes it (and a snapshot taken before the
+            # first step restores it)
+            optimizer._state_of(p)
         self._scaler_cfg = None
         if scaler is not None and getattr(scaler, "_enable", True):
             self._scaler_cfg = {
@@ -116,6 +187,13 @@ class TrainStep:
                 "dynamic": bool(scaler._dynamic),
             }
             self._init_scaler_state()
+        self.recompile_sentinel = RecompileSentinel("train")
+        self._programs: Dict[Any, Optional[_Program]] = {}
+        self.captures = 0
+        self.replays = 0
+        self.last_launches: Optional[Dict[str, int]] = {}
+        self.capture_launches: Dict[str, int] = {}
+        self.last_lr: Optional[torch.Tensor] = None
 
     def _device(self):
         return self.params[0].device
@@ -146,7 +224,8 @@ class TrainStep:
         for k in ("amp_good", "amp_bad", "amp_skipped"):
             st.setdefault(k, torch.zeros((), dtype=torch.int32, device=dev))
 
-    def _forward_loss(self, inputs, labels):
+    # -- the body -------------------------------------------------------------
+    def _forward_loss_plain(self, inputs, labels):
         if self.amp_level:
             with auto_cast(level=self.amp_level, dtype=self.amp_dtype):
                 out = self.layer(*inputs)
@@ -156,23 +235,35 @@ class TrainStep:
             loss = self.loss_fn(out, *labels)
         return loss.to(torch.float32)
 
-    def __call__(self, inputs, labels=()):
-        inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
-            else (inputs,)
-        labels = tuple(labels) if isinstance(labels, (list, tuple)) \
-            else (labels,)
+    def _forward_loss(self, inputs, labels):
+        if not self.remat:
+            return self._forward_loss_plain(inputs, labels)
+        n = len(inputs)
+        return checkpointed(
+            lambda *a: self._forward_loss_plain(a[:n], a[n:]),
+            *inputs, *labels, policy=self.remat_policy)
+
+    def _body(self, inputs, labels, lr, seed):
+        """The step on `inputs`/`labels` with learning rate `lr` (a 0-d
+        f32 device tensor) and dropout seed `seed` (the step seed, an
+        int; or a SeedSlots, whose Draws stand for it): forward, loss,
+        backward, unscale and finite check, the update with the skip
+        select, the scale update. Returns the loss (f32 device tensor)."""
         accum = self.grad_accum_steps
         scale = self.strategy_state["amp_scale"] \
             if self._scaler_cfg is not None else None
-        step_seed = next_seed(self._device())
         for p in self.params:
             p.grad = None
         loss_sum = None
         for idx in range(accum):
             ins = tuple(_microslice(a, idx, accum) for a in inputs)
             lbls = tuple(_microslice(a, idx, accum) for a in labels)
-            seed = step_seed if accum == 1 else mix_seed(step_seed, idx)
-            with seed_scope(seed):
+            path = () if accum == 1 else (idx,)
+            if isinstance(seed, SeedSlots):
+                base = Draw(path, seed)
+            else:
+                base = seed if accum == 1 else mix_seed(seed, idx)
+            with seed_scope(base):
                 loss = self._forward_loss(ins, lbls)
             scaled = loss / accum if accum > 1 else loss
             if scale is not None:
@@ -186,32 +277,143 @@ class TrainStep:
         found_inf = None
         if scale is not None:
             found_inf = check_finite_and_unscale_tree(grads, scale)
-        self.optimizer.apply_gradients(self.params, grads, skip=found_inf)
+        self.optimizer.apply_gradients(self.params, grads, lr=lr,
+                                       skip=found_inf)
         if found_inf is not None:
             self._update_scaler(found_inf)
         return loss
 
+    @torch.no_grad()
     def _update_scaler(self, found_inf):
+        """The scale update, written into the strategy_state tensors in
+        place (a captured graph holds their addresses)."""
         st, cfg = self.strategy_state, self._scaler_cfg
         if cfg["dynamic"]:
-            st["amp_scale"], st["amp_good"], st["amp_bad"] = \
-                update_loss_scaling_state(
-                    st["amp_scale"], st["amp_good"], st["amp_bad"],
-                    found_inf, incr_ratio=cfg["incr_ratio"],
-                    decr_ratio=cfg["decr_ratio"],
-                    incr_every_n=cfg["incr_every_n"],
-                    decr_every_n=cfg["decr_every_n"])
-        st["amp_skipped"] = st["amp_skipped"] + found_inf.to(torch.int32)
+            new = update_loss_scaling_state(
+                st["amp_scale"], st["amp_good"], st["amp_bad"], found_inf,
+                incr_ratio=cfg["incr_ratio"], decr_ratio=cfg["decr_ratio"],
+                incr_every_n=cfg["incr_every_n"],
+                decr_every_n=cfg["decr_every_n"])
+            for k, v in zip(("amp_scale", "amp_good", "amp_bad"), new):
+                st[k].copy_(v)
+        st["amp_skipped"].add_(found_inf.to(torch.int32))
 
-    # -- checkpoints --------------------------------------------------------
+    # -- the step call --------------------------------------------------------
+    def eager_step(self, inputs, labels=(), seed=None):
+        """The step body run eagerly, without any capture: the reference
+        a replay is held against. seed: the step's dropout seed (None
+        draws the next from the device's stream, as __call__ does)."""
+        inputs, labels = _as_tuple(inputs), _as_tuple(labels)
+        step_seed = next_seed(self._device()) if seed is None else int(seed)
+        lr = host_tensor(self.optimizer.get_lr(), torch.float32,
+                         self._device())
+        before = _launch_counts()
+        loss = self._body(inputs, labels, lr, step_seed)
+        self.last_launches = _delta(before)
+        self.last_lr = None
+        return loss
+
+    def __call__(self, inputs, labels=(), seed=None):
+        """One step; returns the loss as a device tensor. seed: the
+        step's dropout seed (None draws the next from the device's
+        stream, as the JAX step draws next_key())."""
+        inputs, labels = _as_tuple(inputs), _as_tuple(labels)
+        sig, key = _program_key(inputs, labels)
+        if self._device().type != "cuda":
+            self._programs.setdefault(key, None)
+            loss = self.eager_step(inputs, labels, seed)
+        else:
+            step_seed = next_seed(self._device()) if seed is None \
+                else int(seed)
+            prog = self._programs.get(key)
+            if prog is None:
+                loss = self._capture(key, inputs, labels, step_seed)
+            else:
+                loss = self._replay(prog, inputs, labels, step_seed)
+        self.recompile_sentinel.observe(len(self._programs), expected=1,
+                                        signature=sig)
+        return loss
+
+    def _capture(self, key, inputs, labels, step_seed):
+        """The first call of a signature on the card: the warm-up (this
+        call's step, eager, recording the seed slots), then the capture.
+        Returns the warm-up's loss."""
+        dev = self._device()
+        prog = _Program()
+        prog.inputs = StaticInputs((inputs, labels), dev)
+        ins, lbls = prog.inputs.tree
+        prog.slots = SeedSlots(dev).record(step_seed)
+        prog.lr = host_tensor(self.optimizer.get_lr(), torch.float32, dev)
+        before = _launch_counts()
+        loss = warm_up(lambda: self._body(ins, lbls, prog.lr, prog.slots),
+                       dev)
+        self.last_launches = _delta(before)
+        self.last_lr = None
+        warm_grads = [p.grad for p in self.params]
+        prog.slots.freeze()
+        steps = self.optimizer._step_count
+        before = _launch_counts()
+        prog.graph, prog.loss = capture(
+            lambda: self._body(ins, lbls, prog.lr, prog.slots), dev,
+            prog.slots.generators.values())
+        self.capture_launches = _delta(before)
+        self.optimizer._step_count = steps
+        with torch.no_grad():
+            # the gradients now live in the graph's pool; give them the
+            # warm-up step's values, as an eager step leaves them
+            for p, g in zip(self.params, warm_grads):
+                if p.grad is not None and g is not None:
+                    p.grad.copy_(g)
+        self._programs[key] = prog
+        self.captures += 1
+        return loss
+
+    def _replay(self, prog, inputs, labels, step_seed):
+        prog.inputs.fill((inputs, labels))
+        prog.slots.fill(step_seed)
+        prog.lr.fill_(self.optimizer.get_lr())
+        prog.graph.replay()
+        self.optimizer._step_count += 1
+        self.replays += 1
+        self.last_launches = None
+        self.last_lr = prog.lr
+        return prog.loss.clone()
+
+    @property
+    def programs(self) -> int:
+        return len(self._programs)
+
+    def release(self):
+        """Drop the captured programs and their memory pools (the
+        gradients live there too, so they are dropped as well)."""
+        self._programs.clear()
+        for p in self.params:
+            p.grad = None
+
+    # -- eval -----------------------------------------------------------------
+    def build_eval_fn(self):
+        """The eval forward (paddle_tpu's build_eval_fn): ev(inputs) ->
+        the layer's outputs in eval mode under no_grad, the layer's
+        training flag restored after. On the card each input signature
+        is captured once and replayed (outputs cloned out)."""
+        return _EvalFn(self)
+
+    # -- checkpoints ----------------------------------------------------------
     def state_dict(self):
-        return {"model": self.layer.state_dict(),
+        """A snapshot (copies): the live tensors are updated in place by
+        later steps."""
+        return {"model": {k: v.detach().clone()
+                          for k, v in self.layer.state_dict().items()},
                 "opt": self.optimizer.state_dict(),
-                "strategy_state": dict(self.strategy_state)}
+                "strategy_state": {
+                    k: v.detach().clone() if isinstance(v, torch.Tensor)
+                    else v for k, v in self.strategy_state.items()}}
 
     @torch.no_grad()
     def set_state_dict(self, state):
-        """Restore a state_dict() checkpoint; tensors are copied."""
+        """Restore a state_dict() checkpoint. Every tensor that exists is
+        written in place (the model's, the optimizer's, strategy_state's),
+        so a captured program goes on reading the restored values."""
         if state.get("model"):
             own = self.layer.state_dict()
             for k, v in state["model"].items():
@@ -220,8 +422,64 @@ class TrainStep:
         if state.get("opt") is not None:
             self.optimizer.set_state_dict(state["opt"])
         if state.get("strategy_state") is not None:
-            self.strategy_state = {
-                k: v.detach().clone() if isinstance(v, torch.Tensor) else v
-                for k, v in state["strategy_state"].items()}
+            st = self.strategy_state
+            for k, v in state["strategy_state"].items():
+                if isinstance(v, torch.Tensor) and isinstance(
+                        st.get(k), torch.Tensor) and st[k].shape == v.shape:
+                    st[k].copy_(v)
+                else:
+                    st[k] = v.detach().clone() \
+                        if isinstance(v, torch.Tensor) else v
             if self._scaler_cfg is not None:
                 self._init_scaler_state()
+
+
+class _EvalFn:
+    """TrainStep.build_eval_fn's callable; counts ``programs`` and
+    ``replays`` like the step."""
+
+    def __init__(self, step: TrainStep):
+        self.step = step
+        self._programs: Dict[Any, Any] = {}
+        self.replays = 0
+
+    @property
+    def programs(self) -> int:
+        return len(self._programs)
+
+    def _forward(self, inputs):
+        layer = self.step.layer
+        mode = layer.training
+        layer.eval()
+        try:
+            with torch.no_grad():
+                return layer(*inputs)
+        finally:
+            layer.train(mode)
+
+    def __call__(self, inputs):
+        inputs = _as_tuple(inputs)
+        dev = self.step._device()
+        if dev.type != "cuda":
+            self._programs.setdefault(_program_key(inputs, ())[1], None)
+            return self._forward(inputs)
+        key = _program_key(inputs, ())[1]
+        ent = self._programs.get(key)
+        if ent is None:
+            static = StaticInputs(inputs, dev)
+            warm_up(lambda: self._forward(static.tree), dev)
+            graph, out = capture(lambda: self._forward(static.tree), dev)
+            ent = self._programs[key] = (graph, static, out)
+        graph, static, out = ent
+        static.fill(inputs)
+        graph.replay()
+        self.replays += 1
+        return _clone(out)
+
+
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (list, tuple)):
+        return type(out)(_clone(x) for x in out)
+    return out

@@ -337,3 +337,79 @@ def test_row_check_passes_bf16_rounding_and_cancelled_rows(cs):
     off[700, 3] += 2e-4
     assert not cs._row_err_ok(off, ref, "float32")[2]
     assert cs._row_err_ok(ref.clone(), ref, "float32")[2]
+
+
+def test_launch_sums_and_expectations(cs, monkeypatch):
+    """A captured run's launches are the sum of its counted calls (the
+    warm-up's wrapper count, the replays' count on the card); every call
+    must launch the forward once per layer (twice under remat: its
+    recompute) and each backward kernel once per layer."""
+    one = {"flash_attn_fwd": 12, "flash_attn_bwd_dq": 12,
+           "flash_attn_bwd_dkv": 12}
+    remat = dict(one, flash_attn_fwd=24)
+    assert cs._sum_launches([one, one, one]) == {k: 36 for k in one}
+    assert cs._sum_launches([]) == {}
+    failed = []
+    monkeypatch.setattr(cs, "fail", failed.append)
+    cs._expect_launches("gpt", [one, one], 12)
+    cs._expect_launches("gpt remat", [remat], 12, fwd=2)
+    assert failed == []
+    cs._expect_launches("gpt", [one, remat], 12)
+    cs._expect_launches("gpt remat", [one], 12, fwd=2)
+    assert len(failed) == 2 and "step 1" in failed[0]
+
+
+def test_bit_equal_and_max_abs_diff(cs):
+    import torch
+    a = [torch.tensor([1.0, 2.0]), torch.tensor([[0.5]])]
+    b = [t.clone() for t in a]
+    assert cs._bit_equal(a, b) and cs._max_abs_diff(a, b) == 0.0
+    b[1] = torch.tensor([[0.25]])
+    assert not cs._bit_equal(a, b)
+    assert cs._max_abs_diff(a, b) == 0.25
+    assert cs._rel_diff(3.0, 2.0) == 0.5
+
+
+def test_kernel_launches_count_device_events_by_wrapper(cs):
+    """Profiler event names map to the wrapper whose kernel they are
+    (bf16 wgmma and f32 simt); library kernels count for none."""
+    names = ["void fwd_wgmma<64, true, true>(CUtensorMap_st, FwdArgs)",
+             "void dq_wgmma<64, true, true>(CUtensorMap_st, BwdArgs)",
+             "void dkv_wgmma<64, true, true>(CUtensorMap_st, BwdArgs)",
+             "void flash_fwd_simt<64, false, false>(float const*)",
+             "void dq_simt<64, false, false>(BwdArgs)",
+             "void dkv_simt<64, false, false>(BwdArgs)",
+             "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT",
+             "void at::native::vectorized_elementwise_kernel<4>()",
+             "void fwd_wgmma<64, true, true>(CUtensorMap_st, FwdArgs)"]
+    assert cs.kernel_launches(names) == {
+        "flash_attn_fwd": 3, "flash_attn_bwd_dq": 2,
+        "flash_attn_bwd_dkv": 2}
+    assert cs.kernel_launches([]) == {k: 0 for k in cs.KERNEL_EVENTS}
+
+
+def test_per_call_keeps_a_remainder_visible(cs, monkeypatch):
+    """Launches over two replays become launches a replay; a count that
+    does not divide (a lost or doubled node in one replay) stays a
+    fraction and fails the whole expectation."""
+    assert cs.per_call({"flash_attn_fwd": 24, "flash_attn_bwd_dq": 24},
+                       2) == {"flash_attn_fwd": 12, "flash_attn_bwd_dq": 12}
+    odd = cs.per_call({"flash_attn_fwd": 23, "flash_attn_bwd_dq": 24,
+                       "flash_attn_bwd_dkv": 24}, 2)
+    assert odd["flash_attn_fwd"] == 11.5
+    failed = []
+    monkeypatch.setattr(cs, "fail", failed.append)
+    cs._expect_launches("gpt", [odd], 12)
+    assert len(failed) == 1
+
+
+def test_max_counts_survives_a_dropped_record(cs):
+    """A record the profiler dropped lowers one round's count only; a
+    kernel node missing from the graph lowers every round's."""
+    full = {"flash_attn_fwd": 24, "flash_attn_bwd_dq": 24,
+            "flash_attn_bwd_dkv": 24}
+    dropped = dict(full, flash_attn_fwd=23)
+    assert cs.max_counts([dropped, full, full]) == full
+    assert cs.max_counts([full, full, dropped]) == full
+    lost = dict(full, flash_attn_bwd_dq=22)
+    assert cs.max_counts([lost, lost, lost]) == lost

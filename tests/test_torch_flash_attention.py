@@ -13,6 +13,7 @@ JAX matmul precision to "highest", so both sides are f32 and differ only
 in summation order); lse at 1e-4 against a float64 numpy log-sum-exp of
 the materialised logits.
 """
+import ctypes
 import math
 
 import jax.numpy as jnp
@@ -189,8 +190,16 @@ def test_bf16_forward_launches_the_wgmma_entry_on_fused_views(monkeypatch,
     and lse f32 [b, n, sq] allocated by the wrapper, and the launch
     counted. The argument layout is the C entry's: 5 pointers, dtype, b,
     n, sq, sk, h, 9 strides, then scale, causal, dropout, threshold,
-    seed words and 1 / (1 - p)."""
-    calls = _record_launches(monkeypatch)
+    the pointer to the seed's two 32-bit words in device memory (None
+    at p 0: no seed is read) and 1 / (1 - p)."""
+    calls = []
+
+    def launch(lib, fn, q, args):
+        ptr = args[24]
+        words = None if ptr is None else \
+            list((ctypes.c_uint32 * 2).from_address(ptr))
+        calls.append((lib, fn, args, words))
+    monkeypatch.setattr(fa, "_launch", launch)
     b, s, n, h = 2, 40, 3, 64
     qkv = _bf16(b, s, 3, n, h)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -198,7 +207,7 @@ def test_bf16_forward_launches_the_wgmma_entry_on_fused_views(monkeypatch,
     o, lse = fa._flash_fwd_cuda(q, k, v, causal, 0.125, p, 7)
     assert fa.launches["flash_attn_fwd"] == before + 1
     assert len(calls) == 1
-    lib, fn, args = calls[0]
+    lib, fn, args, words = calls[0]
     assert (lib, fn) == ("flash_attn_fwd", "pt_flash_attn_fwd")
     assert args[:5] == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), lse.data_ptr()]
@@ -207,7 +216,8 @@ def test_bf16_forward_launches_the_wgmma_entry_on_fused_views(monkeypatch,
     assert args[11:20] == fused * 3
     assert args[20:23] == [0.125, int(causal), int(p > 0)]
     assert args[23] == (int(p * 2 ** 32) if p else 0)
-    assert args[26] == pytest.approx(1 / (1 - p))
+    assert words == ([7, 0] if p else None)
+    assert args[25] == pytest.approx(1 / (1 - p))
     assert len(args) + 1 == len(fa._ARGTYPES["pt_flash_attn_fwd"])
     assert o.shape == (b, s, n, h) and o.dtype == torch.bfloat16
     assert o.is_contiguous()

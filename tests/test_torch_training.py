@@ -391,7 +391,6 @@ def test_trainstep_state_dict_roundtrip_and_later_flags():
     st.set_state_dict(ck)
     b = st(torch.from_numpy(ids), torch.from_numpy(lbl)).item()
     assert a == b
-    for flag in ("mesh", "sharding_plan", "grad_transform", "remat",
-                 "sentry"):
+    for flag in ("mesh", "sharding_plan", "grad_transform", "sentry"):
         with pytest.raises(NotImplementedError, match="slice"):
             TrainStep(m, _loss_fn, topt.AdamW(), **{flag: object()})
