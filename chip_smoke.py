@@ -233,6 +233,36 @@ Phases, each of which fails the run on any mismatch:
    multi_precision: params and state bit-equal. Then `capture_hazards`
    sums up what the captures above showed.
 
+24. Captured generate (`generate_capture`): GPT-2 small generate() at
+   GEN_SHAPE in each of GEN_MODES (greedy; temperature 0.8 with top-k
+   50, top-p 0.9, both; ragged prompt lengths; beam 4 with an eos), bf16
+   and f32. The first call of a signature captures its programs
+   (prefill, decode step, finish); a second call replays them and must
+   be bit-equal to the eager loop (eager=True) from the same seed,
+   capture nothing new, fire no sentinel event, and leave one program
+   per signature seen. Captured and eager ms a token from the same call;
+   in bf16, torch.profiler's device ms of a whole captured call and of
+   its prefill and finish graphs give the device ms of one decode step
+   and its kernels, and the call's idle share (1 - device ms / host
+   ms). Then captured f32 greedy at GEN_CHECK against argmax over full
+   re-forwards (near-tie rule of 12); the generate phase (10) and the
+   parity phase (12) run the eager loop, as before.
+25. Telemetry (`telemetry`): the `serving` trace through a fresh bf16
+   engine four times, the planes off, on, off, on (metrics, reqtrace and
+   the flight recorder armed together): the streams equal in every run,
+   and in the last `serving.retired_total` and the `serving.ttft_ms`
+   count equal to the requests, `serving.tokens_total` to the emitted
+   tokens less each request's first (the JAX engine's definition:
+   admitted_total counts those), every request with its admission,
+   prefill and decode spans, explain_tail naming a component, and the
+   pulse server (127.0.0.1, port 0) answering /metrics with the same
+   counters; tokens/s each way. The OOM sentry on a real
+   torch.cuda.OutOfMemoryError (an allocation of the card's whole
+   memory inside the engine's wrapped dispatch): it propagates,
+   `memory.oom_total` is 1 and the receipt's free bytes are within 5%
+   of mem_get_info's. A captured GPT-2 small TrainStep with the flight
+   recorder armed leaves one step.begin/step.end pair per call.
+
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
@@ -1486,11 +1516,13 @@ def generate_phase(torch, pt, fa, model):
     rng = np.random.RandomState(SEED)
     prompt = torch.from_numpy(
         rng.randint(0, vocab, (b, p)).astype(np.int64)).cuda()
-    model.generate(prompt, max_new_tokens=n, dtype="bfloat16")   # warm
+    model.generate(prompt, max_new_tokens=n, dtype="bfloat16",
+                   eager=True)                                   # warm
     torch.cuda.synchronize()
     _zero(fa)
     t0 = time.perf_counter()
-    out = model.generate(prompt, max_new_tokens=n, dtype="bfloat16").cpu()
+    out = model.generate(prompt, max_new_tokens=n, dtype="bfloat16",
+                         eager=True).cpu()
     secs = time.perf_counter() - t0
     launches = dict(fa.launches)
     if tuple(out.shape) != (b, p + n) or not torch.equal(
@@ -1505,7 +1537,8 @@ def generate_phase(torch, pt, fa, model):
     b2, p2, n2 = GEN_CHECK
     ids = torch.from_numpy(
         rng.randint(0, vocab, (b2, p2)).astype(np.int64)).cuda()
-    got = model.generate(ids, max_new_tokens=n2).cpu().numpy()[:, p2:]
+    got = model.generate(ids, max_new_tokens=n2,
+                         eager=True).cpu().numpy()[:, p2:]
     _zero(fa)
     cur, want, gaps = ids, [], []
     with torch.no_grad():
@@ -1809,7 +1842,8 @@ def serving_parity_phase(torch, pt, fa, model):
     want, gaps = [], []
     for p, n_ in zip(prompts, news):
         ids = torch.from_numpy(p[None].astype(np.int64)).cuda()
-        solo = model.generate(ids, max_new_tokens=n_)[0, len(p):]
+        solo = model.generate(ids, max_new_tokens=n_,
+                              eager=True)[0, len(p):]
         want.append(solo.cpu().numpy())
         gaps.append(_stream_gaps(torch, model, p, want[-1]))
     agree = streams_agree(got, want, gaps)
@@ -2172,6 +2206,389 @@ def serving_levers_phase(torch, pt, fa, model, bf16_streams, parity):
     lever_prefix(torch, pt, fa, model, parity)
     lever_sampling(torch, pt, fa, model)
     emit({"serving_levers_seconds": time.perf_counter() - t0})
+
+
+# -- captured generate (item 10e) and the telemetry planes (item 16) ---------
+# generate's modes at GEN_SHAPE: (name, generate() keywords); ragged's
+# prompt lengths and beam's eos are filled in by generate_capture_phase
+GEN_MODES = [("greedy", {}),
+             ("top_k", dict(temperature=0.8, top_k=50)),
+             ("top_p", dict(temperature=0.8, top_p=0.9)),
+             ("top_k_top_p", dict(temperature=0.8, top_k=50, top_p=0.9)),
+             ("ragged", {}), ("beam", dict(num_beams=4))]
+GEN_SEED = 5
+
+
+def generate_capture_gates(rows):
+    """Failures of the generate_capture rows: captured tokens not
+    bit-equal to eager, a sampled mode whose call at a second seed
+    through the same program was not bit-equal to eager at that seed or
+    repeated the first seed's tokens (or was not made), a second call of
+    a seen signature that captured, a sentinel event, a program count
+    off the signatures seen."""
+    bad = []
+    for r in rows:
+        what = f"generate_capture {r['mode']} {r['dtype']}"
+        if not r["bit_equal"]:
+            bad.append(f"{what}: captured tokens differ from eager")
+        if r.get("sampled"):
+            if r.get("other_seed_bit_equal") is not True:
+                bad.append(f"{what}: at the second seed the captured "
+                           f"tokens differ from eager (or were not held)")
+            if r.get("other_seed_differs") is not True:
+                bad.append(f"{what}: the second seed repeated the first "
+                           f"seed's tokens (or was not run)")
+        if r["second_call_captures"]:
+            bad.append(f"{what}: a second call with the same signature "
+                       f"captured {r['second_call_captures']} programs")
+        if r["sentinel_events"]:
+            bad.append(f"{what}: {r['sentinel_events']} sentinel events")
+        if r["graphs"] != r["expected_graphs"]:
+            bad.append(f"{what}: {r['graphs']} programs, expected "
+                       f"{r['expected_graphs']}")
+    return bad
+
+
+def _gen_call(torch, model, ids, kw, eager):
+    """(tokens on the card, host seconds) of one synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, eager=eager, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def generate_capture_phase(torch, pt, model):
+    """Captured generate on GPT-2 small at GEN_SHAPE, each mode of
+    GEN_MODES in bf16 and f32: the first call captures the signature's
+    programs (prefill, step, finish), a second call replays them and is
+    held bit-equal to the eager loop (eager=True) from the same seed,
+    captures nothing and fires no sentinel. Timed: captured and eager ms
+    a token from the same call; under torch.profiler the device ms of a
+    whole captured call and of its prefill graph, hence of one decode
+    step, and the idle share of the call. Then f32 greedy captured
+    against argmax over a full re-forward (GEN_CHECK, near-tie rule)."""
+    import numpy as np
+    from paddle_tpu_torch.models.generation import generate_programs
+    vocab = GPT2["vocab_size"]
+    b, p, n = GEN_SHAPE
+    rng = np.random.RandomState(SEED + 9)
+    ids = torch.from_numpy(rng.randint(0, vocab, (b, p))).cuda()
+    lens = torch.from_numpy(rng.randint(1, p + 1, b))
+    st = generate_programs(model)
+    st.release()
+    card = nvidia_smi()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    rows, seen = [], set()
+    eos = None
+    for name, kw in GEN_MODES:
+        kw = dict(kw, max_new_tokens=n, seed=GEN_SEED)
+        if name == "ragged":
+            kw["prompt_lens"] = lens
+        if name == "beam":
+            kw["eos_token_id"] = eos
+        for dt in ("bfloat16", None):
+            kw["dtype"] = dt
+            first, first_s = _gen_call(torch, model, ids, kw, None)
+            if name == "greedy" and dt == "bfloat16":
+                # the token greedy picks first for row 0: the beam mode's
+                # eos, so a finished beam freezes at its first step
+                eos = int(first[0, p])
+            captures = st.captures
+            got, cap_s = _gen_call(torch, model, ids, kw, None)
+            second = st.captures - captures
+            want, eager_s = _gen_call(torch, model, ids, kw, True)
+            sampled = bool(kw.get("temperature"))
+            other = {}
+            if sampled:
+                # a second seed through the same program: it must reach
+                # the generator registered with the graphs
+                okw = dict(kw, seed=GEN_SEED + 1)
+                captures = st.captures
+                o_got, _ = _gen_call(torch, model, ids, okw, None)
+                second += st.captures - captures
+                o_want, _ = _gen_call(torch, model, ids, okw, True)
+                other = dict(other_seed=GEN_SEED + 1,
+                             other_seed_bit_equal=bool(
+                                 torch.equal(o_got, o_want)),
+                             other_seed_differs=not torch.equal(o_got,
+                                                                want))
+            seen.add((name, dt))
+            row = dict(card=card, mode=name, dtype=dt or "float32",
+                       batch=b, prompt=p,
+                       new_tokens=n,
+                       bit_equal=bool(torch.equal(got, want)
+                                      and torch.equal(first, want)),
+                       first_call_s=first_s,
+                       captured_ms_per_token=cap_s / n * 1e3,
+                       eager_ms_per_token=eager_s / n * 1e3,
+                       speedup=eager_s / cap_s,
+                       sampled=sampled, **other,
+                       second_call_captures=second,
+                       graphs=st.programs, expected_graphs=len(seen),
+                       sentinel_events=st.sentinel.fired,
+                       generate_args={k: v for k, v in kw.items()
+                                      if k != "prompt_lens"})
+            if dt == "bfloat16":
+                prog = st.last
+                call = device_profile(
+                    torch, lambda: model.generate(ids, **kw), runs=1)
+                pre = device_profile(torch, prog.graphs["prefill"].replay,
+                                     runs=3)
+                fin = device_profile(torch, prog.graphs["finish"].replay,
+                                     runs=3)
+                step_ms = (call["device_ms"] - pre["device_ms"]
+                           - fin["device_ms"]) / (n - 1)
+                row.update(
+                    call_device_ms=call["device_ms"],
+                    call_host_ms=cap_s * 1e3,
+                    idle_share=1.0 - call["device_ms"] / (cap_s * 1e3),
+                    prefill_device_ms=pre["device_ms"],
+                    decode_step_device_ms=step_ms,
+                    decode_step_kernels=(call["events"] - pre["events"]
+                                         - fin["events"]) / (n - 1),
+                    call_categories=call["categories"],
+                    top=call["top"][:8])
+            emit({"generate_capture": row})
+            rows.append(row)
+    bad = generate_capture_gates(rows)
+    # what the resident programs hold: their static buffers (KV caches
+    # and state), the bf16 weight copies, and the graphs' shared pool
+    # (reserved beyond allocated once the free cache is emptied)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    cast = sum(x.numel() * x.element_size() for w in st.weights.values()
+               for x, owned in zip(w._own, w.owned) if owned)
+    emit({"generate_capture_memory": dict(
+        card=card, programs=st.programs, program_bytes=st.runs.nbytes,
+        program_bytes_max=st.runs.max_bytes, evictions=st.runs.evictions,
+        cast_weight_bytes=cast, allocated_before=mem0[0],
+        allocated_after=mem1[0], reserved_before=mem0[1],
+        reserved_after=mem1[1],
+        allocated_beyond_buffers=mem1[0] - mem0[0] - st.runs.nbytes - cast,
+        reserved_beyond_allocated=(mem1[1] - mem1[0]) - (mem0[1] - mem0[0]))})
+
+    b2, p2, n2 = GEN_CHECK
+    ids2 = torch.from_numpy(rng.randint(0, vocab, (b2, p2))).cuda()
+    got = model.generate(ids2, max_new_tokens=n2).cpu().numpy()[:, p2:]
+    cur, want, gaps = ids2, [], []
+    with torch.no_grad():
+        for _ in range(n2):
+            last = model(cur)[:, -1].float()
+            gaps.append(_rel_gap(last))
+            nxt = last.argmax(-1)
+            want.append(nxt.cpu().numpy())
+            cur = torch.cat([cur, nxt[:, None]], dim=1)
+    want, gaps = np.stack(want, 1), np.stack(gaps, 1)
+    agree = streams_agree(got, want, gaps)
+    emit({"generate_capture_check": dict(
+        card=card, dtype="float32", batch=b2, prompt=p2, new_tokens=n2,
+        min_gap_rel=float(gaps.min()), streams=agree)})
+    if not all(r["ok"] for r in agree):
+        bad.append(f"captured f32 greedy differs from the full re-forward: "
+                   f"{agree}")
+    st.release()
+    torch.cuda.empty_cache()
+    if bad:
+        fail("; ".join(bad))
+    return rows
+
+
+TELEMETRY_SPANS = ("admission", "prefill", "decode")
+PULSE_COUNTERS = ("tokens_total", "retired_total", "admitted_total")
+
+
+def telemetry_gates(row):
+    """Failures of the telemetry row: streams that moved when the planes
+    were armed; serving counters off the engine's own counts (retired
+    and the ttft count = the requests; tokens_total = the decode
+    boundaries' tokens, the emitted tokens less each request's first,
+    which admitted_total counts, as the JAX engine defines them); a
+    request without its spans; no tail component; a /metrics answer
+    without the counters; an OOM that did not propagate or left no
+    counter or receipt, or a receipt whose free bytes are more than 5%
+    off mem_get_info's; a TrainStep replay without its step bracket."""
+    bad = []
+    n, c = row["requests"], row["counters"]
+    if not row["streams_equal"]:
+        bad.append("telemetry: the streams changed with the planes armed")
+    if c["retired_total"] != n or c["ttft_count"] != n:
+        bad.append(f"telemetry: retired {c['retired_total']}, ttft count "
+                   f"{c['ttft_count']}, expected {n}")
+    if c["admitted_total"] != n or \
+            c["tokens_total"] != row["tokens_emitted"] - n:
+        bad.append(f"telemetry: tokens_total {c['tokens_total']} + "
+                   f"admitted_total {c['admitted_total']} != "
+                   f"{row['tokens_emitted']} tokens emitted")
+    if row["requests_missing_spans"]:
+        bad.append(f"telemetry: requests without their spans: "
+                   f"{row['requests_missing_spans']}")
+    if not row["tail_component"]:
+        bad.append("telemetry: explain_tail named no component")
+    served = row["pulse_metrics"]
+    if set(served) != set(PULSE_COUNTERS) or \
+            any(served[k] != c[k] for k in PULSE_COUNTERS):
+        bad.append(f"telemetry: /metrics served {row['pulse_metrics']}, the "
+                   f"registry holds {c}")
+    oom = row["oom"]
+    if not (oom["propagated"] and oom["oom_total"] == 1
+            and oom["receipt"]):
+        bad.append(f"telemetry: the OOM sentry left {oom}")
+    elif abs(oom["receipt_free_bytes"] - oom["mem_get_info_free"]) > \
+            0.05 * oom["mem_get_info_free"]:
+        bad.append(f"telemetry: the receipt's free bytes "
+                   f"{oom['receipt_free_bytes']} are more than 5% off "
+                   f"mem_get_info's {oom['mem_get_info_free']}")
+    tr = row["train_step"]
+    if tr["step_begin"] != tr["calls"] or tr["step_end"] != tr["calls"] \
+            or tr["steps"] != list(range(tr["calls"])):
+        bad.append(f"telemetry: a captured TrainStep left {tr}")
+    return bad
+
+
+def _scrape(port):
+    """The serving counters of a /metrics answer from the pulse server on
+    127.0.0.1:port."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        for k in PULSE_COUNTERS:
+            if line.startswith(f"paddle_tpu_serving_{k} "):
+                out[k] = int(float(line.split()[1]))
+    return out
+
+
+def _oom_probe(torch, eng):
+    """A real torch.cuda.OutOfMemoryError inside the engine's wrapped
+    dispatch (an allocation of the card's whole memory): did it
+    propagate, what did the counter and the receipt say."""
+    from paddle_tpu_torch.observability import metrics
+    out_dir = os.path.join(REPO, "build", "oom_receipts")
+    os.environ["PD_OOM_DIR"] = out_dir
+    for f in os.listdir(out_dir) if os.path.isdir(out_dir) else ():
+        os.remove(os.path.join(out_dir, f))
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    propagated = False
+    try:
+        eng._dispatch("serving_decode", lambda: torch.empty(
+            total, dtype=torch.uint8, device="cuda"), bucket=0)
+    except torch.cuda.OutOfMemoryError:
+        propagated = True
+    torch.cuda.empty_cache()
+    receipts = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    doc = {}
+    if receipts:
+        with open(os.path.join(out_dir, receipts[0])) as f:
+            doc = json.load(f)
+    return dict(propagated=propagated,
+                oom_total=metrics.counter(
+                    "memory.oom_total", _always=True,
+                    program="serving_decode").value(),
+                receipt=receipts[0] if receipts else None,
+                receipt_free_bytes=doc.get("free_bytes"),
+                receipt_requested_bytes=doc.get("requested_bytes"),
+                mem_get_info_free=free, mem_get_info_total=total,
+                hint=doc.get("hint"))
+
+
+def _train_brackets(torch, pt):
+    """A captured GPT-2 small TrainStep (8x1024 O1) with the flight
+    recorder armed: the first call and 3 replays, each bracketed."""
+    from paddle_tpu_torch.observability import flight_recorder as fr
+    model = _train_model(pt, "gpt")
+    step, x, y, _, _ = _train_step(torch, "gpt", model)
+    fr.reset()
+    fr.enable(sync_steps=True)
+    calls = 4
+    for i in range(calls):
+        step(x, y, seed=STEP_SEEDS[i])
+    fr.disable()
+    ev = fr.get_recorder().events()
+    row = dict(calls=calls, captures=step.captures, replays=step.replays,
+               step_begin=sum(e["k"] == "step.begin" for e in ev),
+               step_end=sum(e["k"] == "step.end" for e in ev),
+               steps=[e["step"] for e in ev if e["k"] == "step.end"])
+    step.release()
+    del model, step, x, y
+    torch.cuda.empty_cache()
+    return row
+
+
+def telemetry_phase(torch, pt, model):
+    """The serving trace of the `serving` phase through a fresh bf16
+    engine four times, the planes off, on, off, on (metrics, reqtrace and
+    the flight recorder armed together): streams equal, the counters
+    and spans against the engine's own counts, tokens/s each way; the
+    pulse server's /metrics on 127.0.0.1, port 0; the OOM sentry on a
+    real CUDA OOM; the flight recorder's step bracket around a captured
+    TrainStep."""
+    import numpy as np
+    from paddle_tpu_torch.observability import flight_recorder as fr
+    from paddle_tpu_torch.observability import metrics, pulse_server
+    from paddle_tpu_torch.observability import reqtrace as rt
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    vocab = GPT2["vocab_size"]
+    eng = ServingEngine(model, ServingConfig(**SERVE_CONFIG)).warmup()
+    prompts, news = serve_trace(np, vocab)
+    runs = []
+    for armed in (False, True, False, True):
+        metrics.reset("serving.")
+        rt.reset()
+        fr.reset()
+        if armed:
+            metrics.enable()
+            rt.enable(capacity=1 << 16)
+            fr.enable(sync_steps=False)
+        by_rid, secs, steps, _ = _run_trace(eng, prompts, news)
+        for plane in (metrics, rt, fr):
+            plane.disable()
+        tokens = sum(len(r.out) for r in by_rid.values())
+        runs.append(dict(armed=armed, seconds=secs, steps=steps,
+                         tokens=tokens, tokens_per_s=tokens / secs,
+                         streams={i: list(r.out) for i, r in by_rid.items()}))
+    snap = metrics.snapshot("serving.")
+    counters = {k: snap.get(f"serving.{k}", {}).get("value", 0)
+                for k in PULSE_COUNTERS}
+    counters["ttft_count"] = snap["serving.ttft_ms"]["count"]
+    tls = rt.timelines()
+    missing = [rid for rid in range(len(prompts))
+               if not set(TELEMETRY_SPANS) <= {
+                   s["comp"] for s in tls.get(rid, {}).get("spans", [])}]
+    tail = rt.explain_tail()
+    srv = pulse_server.PulseServer(port=0).start()
+    try:
+        scraped = _scrape(srv.port)
+    finally:
+        srv.stop()
+    oom = _oom_probe(torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    train = _train_brackets(torch, pt)
+    off = [r["tokens_per_s"] for r in runs if not r["armed"]]
+    on = [r["tokens_per_s"] for r in runs if r["armed"]]
+    row = dict(card=nvidia_smi(), requests=len(prompts),
+               tokens_emitted=runs[-1]["tokens"],
+               streams_equal=all(r["streams"] == runs[0]["streams"]
+                                 for r in runs),
+               tokens_per_s_off=off, tokens_per_s_on=on,
+               armed_cost=1.0 - (sum(on) / len(on)) / (sum(off) / len(off)),
+               counters=counters, requests_missing_spans=missing,
+               spans=sum(len(t["spans"]) for t in tls.values()),
+               tail_component=tail.get("dominant_overall"),
+               tail_cohort=len(tail.get("cohort", [])),
+               pulse_metrics=scraped, oom=oom, train_step=train)
+    emit({"telemetry": row})
+    bad = telemetry_gates(row)
+    if bad:
+        fail("; ".join(bad))
+    return row
 
 
 def gpt_param_count(vocab_size, hidden_size, num_layers, max_seq_len,
@@ -2985,6 +3402,8 @@ def main():
     _, bf16_streams = serving_phase(torch, pt, fa, gpt_model)
     parity = serving_parity_phase(torch, pt, fa, gpt_model)
     serving_levers_phase(torch, pt, fa, gpt_model, bf16_streams, parity)
+    generate_capture_phase(torch, pt, gpt_model)
+    telemetry_phase(torch, pt, gpt_model)
     del gpt_model
     torch.cuda.empty_cache()
     gpt_kernel_rows, gpt_probes = gpt_train_kernels_phase(torch, fa, philox)

@@ -4,10 +4,21 @@ paddle_tpu/models/generation.py).
 Prefill computes the prompt's per-layer K/V into a cache sized to
 prompt + max_new_tokens, then each decode step writes one token's K/V in
 place and attends over the valid prefix with a position mask. The JAX
-package compiles the whole loop as one program (a lax.scan); here it
-runs eagerly on the model's device, one step at a time. It is the
-reference the serving engine is held against; capturing the dense decode
-as a CUDA graph is ROADMAP.md queue A item 10e.
+package compiles the whole loop as one program per static signature
+(`_build_run`, `_build_beam_run`, each lru_cached 64 deep). Here each
+static signature (the same key plus the batch) is one `_Program`: static
+buffers for the inputs, the caches, the position, the done flags and the
+output, and three bodies over them with no host read, captured on the
+card as CUDA graphs (prefill; one decode step, replayed T - 1 times;
+finish), so a call is one copy in, T + 1 replays and one copy out. The
+programs live in one per-model ProgramLRU, bounded to PROGRAMS_MAX
+entries as the JAX lru_caches are and, unlike them, to PROGRAM_BYTES_MAX
+bytes of resident buffers (a program keeps its KV caches while idle,
+where a JAX executable keeps none), watched by a
+RecompileSentinel("generate"). All of a model's graphs capture into one
+shared memory pool. The eager step-by-step loop stays
+(generate(eager=True), and what the CPU runs by default): it is the
+reference the captured programs are held against, token for token.
 
 Greedy, temperature / top-k / top-p sampling (filters applied in that
 order, as the JAX package does), eos/pad, ragged prompts (prompt_lens)
@@ -31,6 +42,8 @@ the same seed; the filters and the argmax are the same.
 from __future__ import annotations
 
 import math
+import weakref
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -39,7 +52,8 @@ import torch
 from ..core.dtypes import convert_dtype
 from ..quant.int8_serving import int8_matmul
 
-__all__ = ["generate_gpt"]
+__all__ = ["generate_gpt", "generate_programs", "GenerateState",
+           "ProgramLRU", "PROGRAMS_MAX", "PROGRAM_BYTES_MAX"]
 
 _NEG = -1e30
 
@@ -123,6 +137,28 @@ def _heads(qkv):
     return (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
 
 
+def _blocks_step(params, eps, n_heads, x, caches, write, n_valid):
+    """One token's hidden state through all blocks: each block's K/V go
+    into its caches through write(kc, vc, k, v) (k, v [B, N, 1, hd]),
+    then attention runs over the caches masked to n_valid."""
+    hd = x.shape[-1] // n_heads
+    scale = 1.0 / math.sqrt(hd)
+    b = x.shape[0]
+    for bp, (kc, vc) in zip(params["blocks"], caches):
+        xn = _ln(x, bp["ln1_w"], bp["ln1_b"], eps)
+        qkv = (_mm(xn, bp, "qkv") + bp["qkv_b"]).reshape(
+            b, 1, 3, n_heads, hd)
+        q, k, v = _heads(qkv)
+        write(kc, vc, k, v)
+        ctx = _attend(q, kc, vc, n_valid, scale)
+        ctx = ctx.permute(0, 2, 1, 3).reshape(b, 1, -1)
+        x = x + _mm(ctx, bp, "proj") + bp["proj_b"]
+        ff = _ln(x, bp["ln2_w"], bp["ln2_b"], eps)
+        ff = torch.nn.functional.gelu(_mm(ff, bp, "fc1") + bp["fc1_b"])
+        x = x + _mm(ff, bp, "fc2") + bp["fc2_b"]
+    return x
+
+
 def _step_hidden(params, eps, n_heads, x, caches, pos):
     """One token's hidden state through all blocks, writing its K/V
     into the caches in place.
@@ -131,16 +167,10 @@ def _step_hidden(params, eps, n_heads, x, caches, pos):
     pos: index where this token's K/V land, an int (uniform prompts) or
     [B] (ragged prompts: each row writes at its own next position and
     attends over its own valid prefix)."""
-    hd = x.shape[-1] // n_heads
-    scale = 1.0 / math.sqrt(hd)
     ragged = isinstance(pos, torch.Tensor) and pos.dim() > 0
-    b = x.shape[0]
-    bi = torch.arange(b, device=x.device)
-    for bp, (kc, vc) in zip(params["blocks"], caches):
-        xn = _ln(x, bp["ln1_w"], bp["ln1_b"], eps)
-        qkv = (_mm(xn, bp, "qkv") + bp["qkv_b"]).reshape(
-            b, 1, 3, n_heads, hd)
-        q, k, v = _heads(qkv)
+    bi = torch.arange(x.shape[0], device=x.device)
+
+    def write(kc, vc, k, v):
         if ragged:
             # per-row scatter: row i writes its K/V at pos[i]
             kc[bi, :, pos] = k[:, :, 0]
@@ -148,13 +178,28 @@ def _step_hidden(params, eps, n_heads, x, caches, pos):
         else:
             kc[:, :, pos] = k[:, :, 0]
             vc[:, :, pos] = v[:, :, 0]
-        ctx = _attend(q, kc, vc, pos + 1, scale)
-        ctx = ctx.permute(0, 2, 1, 3).reshape(b, 1, -1)
-        x = x + _mm(ctx, bp, "proj") + bp["proj_b"]
-        ff = _ln(x, bp["ln2_w"], bp["ln2_b"], eps)
-        ff = torch.nn.functional.gelu(_mm(ff, bp, "fc1") + bp["fc1_b"])
-        x = x + _mm(ff, bp, "fc2") + bp["fc2_b"]
-    return x, caches
+
+    return _blocks_step(params, eps, n_heads, x, caches, write,
+                        pos + 1), caches
+
+
+def _step_hidden_at(params, eps, n_heads, x, caches, pos, ragged):
+    """_step_hidden for a program whose position lives on the device:
+    pos is a [1] int64 tensor (uniform prompts; index_copy_ along the
+    cache's time axis) or [B] (ragged; a per-row scatter). No host read,
+    so it runs inside a captured graph; the caches are written in
+    place."""
+    bi = torch.arange(x.shape[0], device=x.device)
+
+    def write(kc, vc, k, v):
+        if ragged:
+            kc[bi, :, pos] = k[:, :, 0]
+            vc[bi, :, pos] = v[:, :, 0]
+        else:
+            kc.index_copy_(2, pos, k)
+            vc.index_copy_(2, pos, v)
+
+    return _blocks_step(params, eps, n_heads, x, caches, write, pos + 1)
 
 
 def _prefill(params, eps, n_heads, ids, total_len, prompt_lens=None,
@@ -371,11 +416,429 @@ def _as_long(x, device):
     return torch.as_tensor(np.asarray(x), dtype=torch.long, device=device)
 
 
+# -- the static programs ------------------------------------------------------
+
+PROGRAMS_MAX = 64            # the program cache's bound (the JAX lru_cache's)
+PROGRAM_BYTES_MAX = 4 << 30  # and on the bytes its programs' buffers hold
+
+
+class ProgramLRU:
+    """key -> program, bounded to `maxsize` entries and to `max_bytes`
+    bytes of the programs' `nbytes`, evicting the least recently used, as
+    functools.lru_cache(maxsize) does; the program just built stays even
+    when it alone is over `max_bytes`. An evicted program's release()
+    frees its graphs and buffers. Counts hits, misses and evictions."""
+
+    def __init__(self, maxsize: int = PROGRAMS_MAX,
+                 max_bytes: int = PROGRAM_BYTES_MAX):
+        self.maxsize = int(maxsize)
+        self.max_bytes = int(max_bytes)
+        self._entries: "OrderedDict" = OrderedDict()
+        self.nbytes = 0
+        self.hits = self.misses = self.evictions = 0
+
+    def __len__(self):
+        return len(self._entries)
+
+    def keys(self):
+        return list(self._entries)
+
+    def get(self, key, build):
+        """The program of `key`, built by build() on a miss."""
+        prog = self._entries.get(key)
+        if prog is not None:
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return prog
+        self.misses += 1
+        prog = build()
+        self._entries[key] = prog
+        self.nbytes += getattr(prog, "nbytes", 0)
+        while len(self._entries) > self.maxsize or (
+                self.nbytes > self.max_bytes and len(self._entries) > 1):
+            _, old = self._entries.popitem(last=False)
+            self.evictions += 1
+            self.nbytes -= getattr(old, "nbytes", 0)
+            old.release()
+        return prog
+
+    def clear(self):
+        for prog in self._entries.values():
+            prog.release()
+        self._entries.clear()
+        self.nbytes = 0
+
+
+def _leaves_of(params):
+    if isinstance(params, dict):
+        return [x for k in params for x in _leaves_of(params[k])]
+    if isinstance(params, (list, tuple)):
+        return [x for v in params for x in _leaves_of(v)]
+    return [params]
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, it) for v in tree)
+    return next(it)
+
+
+class _Weights:
+    """The weights one dtype's programs read: the model's own tensors
+    where no cast is needed (captured by address), else cast copies the
+    programs own, made once and refreshed in place (copy_) when a
+    source tensor changed since (its version counter or address moved).
+    refresh() returns False when an uncast source tensor moved to a new
+    address: the programs captured on the old one must be rebuilt."""
+
+    def __init__(self, src, dtype):
+        leaves = _leaves_of(src)
+        own = [t.to(dtype) if dtype is not None and t.is_floating_point()
+               else t for t in leaves]
+        self.owned = [o.data_ptr() != t.data_ptr()
+                      for o, t in zip(own, leaves)]
+        self.tree = _rebuild(src, iter(own))
+        self._own = own
+        self._token = self._token_of(leaves)
+
+    @staticmethod
+    def _token_of(leaves):
+        return tuple((t.data_ptr(), t._version) for t in leaves)
+
+    def refresh(self, src) -> bool:
+        leaves = _leaves_of(src)
+        token = self._token_of(leaves)
+        if token == self._token:
+            return True
+        for o, t, owned, (ptr, _) in zip(self._own, leaves, self.owned,
+                                          self._token):
+            if owned:
+                o.copy_(t)
+            elif t.data_ptr() != ptr:
+                return False
+        self._token = token
+        return True
+
+
+class _Program:
+    """generate's program for one static signature (the JAX
+    _build_run/_build_beam_run key plus the batch): the inputs, the
+    decode state and the output live in static buffers, and three
+    bodies run over them with no host read:
+
+      prefill  the prompt's forward into the caches, the first logits,
+               the state reset, the first pick (or beam expansion);
+      step     one decode step: the last token's embedding (and for
+               beams the caches reordered by parent, in place), its K/V
+               written at the device position, the next logits, the
+               next pick; replayed max_new_tokens - 1 times;
+      finish   the output assembled (for beams gather_tree's walk back
+               and the best beam).
+
+    On the card each body is captured as a CUDA graph (static/capture.py:
+    a warm-up on a side stream, then the capture, the sampling
+    generator registered with the graph) into the memory pool `pool`;
+    on the CPU the bodies run eagerly over the same buffers. A call is
+    one copy of the inputs, a manual_seed of the generator and
+    1 + (T - 1) + 1 replays. `nbytes` counts the static buffers the
+    program holds while idle."""
+
+    def __init__(self, spec, weights, b, device, pool=None):
+        self.spec = spec
+        self.weights = weights
+        self.graphs = {}
+        dev = self.device = torch.device(device)
+        p, t, total = spec["prompt"], spec["max_new_tokens"], spec["total"]
+        w = spec["num_beams"]
+        params = weights.tree
+        wte = params["wte"]
+        v, hidden = wte.shape
+        heads = spec["heads"]
+        rows = b * w
+        z = dict(device=dev)
+        self.b, self.w, self.v = b, w, v
+        self.ids = torch.zeros((b, p), dtype=torch.long, **z)
+        self.pl = (torch.ones((b,), dtype=torch.long, **z)
+                   if spec["ragged"] else None)
+        self.caches = [tuple(torch.zeros((rows, heads, total,
+                                          hidden // heads),
+                                         dtype=wte.dtype, **z)
+                             for _ in range(2))
+                       for _ in params["blocks"]]
+        self.logits = torch.zeros((rows, v), dtype=wte.dtype, **z)
+        self.pos = torch.zeros((b,) if spec["ragged"] else (1,),
+                               dtype=torch.long, **z)
+        self.t = torch.zeros((1,), dtype=torch.long, **z)
+        self.out = torch.zeros((b, p + t), dtype=torch.long, **z)
+        self.gen = None
+        if w > 1:
+            self.scores = torch.zeros((b, w), dtype=torch.float32, **z)
+            self.scores0 = torch.tensor([0.0] + [_NEG] * (w - 1),
+                                        **z).repeat(b, 1)
+            self.done = torch.zeros((b, w), dtype=torch.bool, **z)
+            self.frozen = torch.full((v,), _NEG, **z)
+            self.frozen[spec["pad"]] = 0.0
+            self.beam_base = torch.arange(b, **z)[:, None] * w
+            self.cur_toks = torch.zeros((b, w), dtype=torch.long, **z)
+            self.cur_parents = torch.zeros((b, w), dtype=torch.long, **z)
+            self.toks = torch.zeros((t, b, w), dtype=torch.long, **z)
+            self.parents = torch.zeros((t, b, w), dtype=torch.long, **z)
+            self.best_scores = torch.zeros((b,), dtype=torch.float32, **z)
+            bodies = (self._beam_prefill, self._beam_step,
+                      self._beam_finish)
+        else:
+            self.done = torch.zeros((b,), dtype=torch.bool, **z)
+            self.tok = torch.zeros((b,), dtype=torch.long, **z)
+            self.toks = torch.zeros((t, b), dtype=torch.long, **z)
+            if spec["temperature"] != 0.0:
+                self.gen = torch.Generator(device=dev)
+            bodies = (self._prefill, self._step, self._finish)
+        self.bodies = dict(zip(("prefill", "step", "finish"), bodies))
+        if t == 1:
+            del self.bodies["step"]   # no decode step: one pick in all
+        self.nbytes = sum(x.numel() * x.element_size()
+                          for x in self._buffers())
+        if pool is not None:
+            self._capture_all(pool)
+
+    def _buffers(self):
+        return [x for x in vars(self).values()
+                if isinstance(x, torch.Tensor)] + [
+            x for kv in self.caches for x in kv]
+
+    # -- capture --------------------------------------------------------------
+    def _capture_all(self, pool):
+        from ..static.capture import capture, warm_up
+        gens = () if self.gen is None else (self.gen,)
+        for name, body in self.bodies.items():
+            warm_up(body, self.device)
+            self.graphs[name], _ = capture(body, self.device, gens,
+                                           program="generate", pool=pool)
+
+    def release(self):
+        """Drop the graphs (the shared pool goes back to the allocator
+        with the model's last graph) and the buffers."""
+        for g in self.graphs.values():
+            g.reset()
+        self.graphs.clear()
+        self.bodies = {}
+        for name in [k for k, x in vars(self).items()
+                     if isinstance(x, torch.Tensor)]:
+            delattr(self, name)
+        self.caches = []
+
+    # -- a call ---------------------------------------------------------------
+    def __call__(self, ids, prompt_lens, seed):
+        self.ids.copy_(ids, non_blocking=True)
+        if self.pl is not None:
+            self.pl.copy_(prompt_lens, non_blocking=True)
+        if self.gen is not None:
+            self.gen.manual_seed(int(seed))
+        run = ({k: g.replay for k, g in self.graphs.items()}
+               if self.graphs else self.bodies)
+        run["prefill"]()
+        for _ in range(self.spec["max_new_tokens"] - 1):
+            run["step"]()
+        run["finish"]()
+        if self.w > 1:
+            return self.out.to(torch.int32), self.best_scores.clone()
+        return self.out.to(torch.int32)
+
+    # -- greedy / sampled bodies ----------------------------------------------
+    def _reset_caches(self, caches, repeat=1):
+        for (kc, vc), (k, vv) in zip(self.caches, caches):
+            kc.copy_(k if repeat == 1 else k.repeat_interleave(repeat, 0))
+            vc.copy_(vv if repeat == 1 else vv.repeat_interleave(repeat, 0))
+
+    def _next_hidden(self, toks):
+        """The next logits from tokens toks [rows] at self.pos."""
+        sp, params = self.spec, self.weights.tree
+        x = (params["wte"].index_select(0, toks)
+             + params["wpe"].index_select(0, self.pos))[:, None, :]
+        x = _step_hidden_at(params, sp["eps"], sp["heads"], x, self.caches,
+                            self.pos, sp["ragged"])
+        h = _ln(x, params["lnf_w"], params["lnf_b"], sp["eps"])
+        self.logits.copy_(h[:, 0] @ params["wte"].T)
+        self.pos.add_(1)
+
+    def _pick_next(self):
+        sp = self.spec
+        noise = (None if self.gen is None
+                 else _gumbel((self.b, self.v), self.gen, self.device))
+        tok = _pick(self.logits, noise, sp["temperature"], sp["top_k"],
+                    sp["top_p"])
+        if sp["eos"] is not None:
+            tok = torch.where(self.done, sp["pad"], tok)
+            self.done.copy_(self.done | (tok == sp["eos"]))
+        self.tok.copy_(tok)
+        self.toks.index_copy_(0, self.t, tok[None])
+        self.t.add_(1)
+
+    def _prefill(self):
+        sp, params = self.spec, self.weights.tree
+        x, caches = _prefill(params, sp["eps"], sp["heads"], self.ids,
+                             sp["total"], prompt_lens=self.pl)
+        self._reset_caches(caches)
+        self.logits.copy_(_last_logits(params, sp["eps"], x, self.pl))
+        if self.pl is not None:
+            self.pos.copy_(self.pl)
+        else:
+            self.pos.fill_(sp["prompt"])
+        self.done.zero_()
+        self.t.zero_()
+        self._pick_next()
+
+    def _step(self):
+        self._next_hidden(self.tok)
+        self._pick_next()
+
+    def _finish(self):
+        self.out.copy_(torch.cat([self.ids, self.toks.T], dim=1))
+
+    # -- beam bodies ----------------------------------------------------------
+    def _expand(self):
+        from ..ops.extras import beam_search_step
+        sp, b, w = self.spec, self.b, self.w
+        logp = torch.log_softmax(self.logits.float(), dim=-1).reshape(
+            b, w, -1)
+        if sp["eos"] is not None:
+            # finished beams only extend with pad at zero cost
+            logp = torch.where(self.done[:, :, None], self.frozen[None, None],
+                               logp)
+        scores, toks, parents = beam_search_step(logp, self.scores,
+                                                 beam_size=w)
+        if sp["eos"] is not None:
+            self.done.copy_(torch.gather(self.done, 1, parents)
+                            | (toks == sp["eos"]))
+        self.scores.copy_(scores)
+        self.cur_toks.copy_(toks)
+        self.cur_parents.copy_(parents)
+        self.toks.index_copy_(0, self.t, toks[None])
+        self.parents.index_copy_(0, self.t, parents[None])
+        self.t.add_(1)
+
+    def _beam_prefill(self):
+        sp, params = self.spec, self.weights.tree
+        # prefill once over the B prompts, then repeat caches and the
+        # final logits across beams
+        x, caches = _prefill(params, sp["eps"], sp["heads"], self.ids,
+                             sp["total"])
+        self._reset_caches(caches, self.w)
+        self.logits.copy_(_last_logits(params, sp["eps"], x,
+                                       None).repeat_interleave(self.w, 0))
+        self.scores.copy_(self.scores0)
+        self.done.zero_()
+        self.pos.fill_(sp["prompt"])
+        self.t.zero_()
+        self._expand()
+
+    def _beam_step(self):
+        # reorder beam rows (KV caches) by parent, in place
+        gidx = (self.beam_base + self.cur_parents).reshape(-1)
+        for kc, vc in self.caches:
+            kc.copy_(kc.index_select(0, gidx))
+            vc.copy_(vc.index_select(0, gidx))
+        self._next_hidden(self.cur_toks.reshape(-1))
+        self._expand()
+
+    def _beam_finish(self):
+        from ..ops.extras import gather_tree
+        seqs = gather_tree(self.toks, self.parents)           # [T, B, W]
+        best = torch.argmax(self.scores, dim=1)               # [B]
+        bi = torch.arange(self.b, device=self.device)
+        self.out.copy_(torch.cat([self.ids, seqs[:, bi, best].T], dim=1))
+        self.best_scores.copy_(self.scores[bi, best])
+
+
+class GenerateState:
+    """One model's generate programs: the program cache (its key holds
+    num_beams, so one cache serves what the JAX package's two lru_caches
+    do), the weights each dtype's programs read, the graphs' shared
+    memory pool, the RecompileSentinel("generate") and the counts.
+    ``captures`` counts programs built (CUDA-graph captured on the
+    card); the sentinel holds it to the number of distinct signatures
+    seen, so a second call with a seen signature that built anything
+    fires it.
+
+    The graphs share one pool: a body's allocations all die inside it
+    (its results go to the program's static buffers, allocated outside
+    the capture), and a model's replays run one after another on the
+    current stream, so a graph may reuse what another freed."""
+
+    def __init__(self):
+        from ..observability.sentinel import RecompileSentinel
+        self.runs = ProgramLRU()
+        self.pool = None
+        self.weights = {}
+        self.sentinel = RecompileSentinel("generate")
+        self.seen = set()
+        self.captures = 0
+        self.last = None          # the program of the last call
+
+    @property
+    def programs(self) -> int:
+        return len(self.runs)
+
+    def release(self):
+        self.runs.clear()
+        self.pool = None
+        self.weights.clear()
+        self.last = None
+
+
+_states: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def generate_programs(model) -> GenerateState:
+    """The model's GenerateState (made on first use; it dies with the
+    model)."""
+    st = _states.get(model)
+    if st is None:
+        st = _states[model] = GenerateState()
+    return st
+
+
+def _signature(key, b, prompt):
+    """The sentinel's signature of one call: the batch and prompt shape
+    and each static field of the program key."""
+    return (("input_ids", (b, prompt), "int64"),) + tuple(
+        (name, (), repr(val)) for name, val in key)
+
+
+def _run_program(model, params, spec, ids, pl, seed, graphs):
+    st = generate_programs(model)
+    dev = ids.device
+    b = ids.shape[0]
+    dt = spec["dtype"]
+    weights = st.weights.get(dt)
+    if weights is not None and not weights.refresh(params):
+        st.release()      # an uncast weight moved: recapture on it
+        weights = None
+    if weights is None:
+        weights = st.weights[dt] = _Weights(params, convert_dtype(dt))
+    key = tuple(sorted(spec.items(), key=lambda kv: kv[0])) + (("batch", b),)
+
+    def build():
+        st.captures += 1
+        if graphs and st.pool is None:
+            st.pool = torch.cuda.graph_pool_handle()
+        return _Program(spec, weights, b, dev, st.pool if graphs else None)
+
+    prog = st.last = st.runs.get(key, build)
+    st.seen.add(key)
+    st.sentinel.observe(st.captures, expected=len(st.seen),
+                        signature=_signature(key, b, ids.shape[1]))
+    return prog(ids, pl, seed)
+
+
 def generate_gpt(model, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k: Optional[int] = None,
                  eos_token_id: Optional[int] = None, pad_token_id=0,
                  num_beams=1, seed=0, dtype=None, prompt_lens=None,
-                 top_p: Optional[float] = None):
+                 top_p: Optional[float] = None,
+                 eager: Optional[bool] = None):
     """KV-cache decode for GPTForCausalLM on the model's device.
     temperature=0 -> greedy; num_beams>1 -> beam search
     (temperature/top_k/top_p ignored: beams expand by log-prob).
@@ -390,6 +853,13 @@ def generate_gpt(model, input_ids, max_new_tokens=32, temperature=0.0,
     for the decode; layer norm moments and sampling stay f32. None keeps
     the model's dtype (the exact greedy-equals-full-forward contract).
     seed seeds the torch.Generator the sampling noise is drawn from.
+
+    eager: None (the default) runs the model's program for this call's
+    static signature on the card (captured as CUDA graphs once, replayed
+    after; see _Program) and the eager step-by-step loop on the CPU;
+    True runs the eager loop anywhere (the reference the programs are
+    held against); False runs the program's bodies anywhere (on the CPU
+    without graphs). Both give the same tokens for the same seed.
 
     Returns int32 [B, prompt_len + max_new_tokens]; rows that hit
     eos_token_id emit pad_token_id afterwards."""
@@ -406,14 +876,27 @@ def generate_gpt(model, input_ids, max_new_tokens=32, temperature=0.0,
         raise ValueError(
             f"prompt+max_new_tokens={total} exceeds max_seq_len="
             f"{cfg.max_seq_len}")
-    params = _cast_params(_gpt_params(model), convert_dtype(dtype))
+    if eager is None:
+        eager = dev.type != "cuda"
+    raw = _gpt_params(model)
     eps, n_heads = float(cfg.layer_norm_eps), int(cfg.num_heads)
     eos = None if eos_token_id is None else int(eos_token_id)
+    dt = None if dtype is None else str(convert_dtype(dtype)).replace(
+        "torch.", "")
+    spec = dict(eps=eps, heads=n_heads, eos=eos, pad=int(pad_token_id),
+                max_new_tokens=int(max_new_tokens), prompt=prompt,
+                total=total, dtype=dt, num_beams=max(int(num_beams), 1),
+                temperature=0.0, top_k=None, top_p=None, ragged=False)
     with torch.no_grad():
         if num_beams > 1:
             if prompt_lens is not None:
                 raise ValueError("prompt_lens is not supported with beam "
                                  "search yet: pad to a common length")
+            if not eager:
+                out, _ = _run_program(model, raw, spec, ids, None, seed,
+                                      dev.type == "cuda")
+                return out
+            params = _cast_params(raw, convert_dtype(dtype))
             out, _ = _beam_search(params, eps, n_heads, ids,
                                   int(num_beams), int(max_new_tokens),
                                   total, eos, int(pad_token_id))
@@ -432,13 +915,20 @@ def generate_gpt(model, input_ids, max_new_tokens=32, temperature=0.0,
                     f"prompt_lens must be in [1, {prompt}] (padded prompt "
                     f"width); got min={pl_host.min()} max={pl_host.max()}")
             pl = _as_long(pl_host, dev)
+        temperature = float(temperature)
+        top_k = None if top_k is None else int(top_k)
+        top_p = None if top_p is None else float(top_p)
+        if not eager:
+            spec.update(temperature=temperature, top_k=top_k, top_p=top_p,
+                        ragged=pl is not None)
+            return _run_program(model, raw, spec, ids, pl, seed,
+                                dev.type == "cuda")
         gen = None
-        if float(temperature) != 0.0:
+        if temperature != 0.0:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
         out = _greedy_or_sample(
-            params, eps, n_heads, ids, int(max_new_tokens), total,
-            float(temperature), None if top_k is None else int(top_k),
-            None if top_p is None else float(top_p), eos,
+            _cast_params(raw, convert_dtype(dtype)), eps, n_heads, ids,
+            int(max_new_tokens), total, temperature, top_k, top_p, eos,
             int(pad_token_id), gen, prompt_lens=pl)
     return out.to(torch.int32)

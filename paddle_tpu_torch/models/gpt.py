@@ -155,16 +155,18 @@ class GPTForCausalLM(nn.Layer):
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, eos_token_id=None, pad_token_id=0,
                  num_beams=1, seed=0, dtype=None, prompt_lens=None,
-                 top_p=None):
-        """KV-cache autoregressive decode (models/generation.py), run
-        eagerly on the model's device: temperature=0 is greedy,
-        num_beams>1 beam search, dtype="bfloat16" serves in bf16
-        (layer norm moments and sampling stay f32), prompt_lens [B]
-        batches ragged right-padded prompts."""
+                 top_p=None, eager=None):
+        """KV-cache autoregressive decode (models/generation.py) on the
+        model's device: temperature=0 is greedy, num_beams>1 beam search,
+        dtype="bfloat16" serves in bf16 (layer norm moments and sampling
+        stay f32), prompt_lens [B] batches ragged right-padded prompts.
+        On the card each static signature is one program of CUDA graphs,
+        captured on first use; eager=True runs the step-by-step loop."""
         from .generation import generate_gpt
         return generate_gpt(self, input_ids, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_k=top_k,
                             eos_token_id=eos_token_id,
                             pad_token_id=pad_token_id,
                             num_beams=num_beams, seed=seed, dtype=dtype,
-                            prompt_lens=prompt_lens, top_p=top_p)
+                            prompt_lens=prompt_lens, top_p=top_p,
+                            eager=eager)

@@ -1,6 +1,7 @@
-"""Recompile sentinel (counterpart of paddle_tpu/observability/sentinel.py,
-minimal): the guard of the serving engine's fixed program count and of
-the one-program-per-signature TrainStep.
+"""Recompile sentinel (counterpart of paddle_tpu/observability/sentinel.py):
+the guard of the serving engine's fixed program count, of the
+one-program-per-signature TrainStep and of generate's one program per
+static signature.
 
 The JAX engine promises a fixed ladder of compiled executables and the
 JAX TrainStep one executable; the port's engine promises a fixed set of
@@ -9,9 +10,17 @@ captured graph per input signature (``signature_of``). Each calls
 ``observe(executables, expected, signature)`` once per step; when the
 count grows past the expected figure, the sentinel records an event
 with the shape delta against the previous step's signature, adds the
-growth to ``counter`` and logs a warning. The JAX version's metrics
-registry and flight-recorder breadcrumbs belong to the observability
-slice (ROADMAP.md queue A item 16) and are left out.
+growth to ``counter`` and to the always-on ``<name>_recompiles_total``
+metrics counter (the reference's flat name), leaves a ``recompile``
+flight-recorder breadcrumb and logs a warning.
+
+In place of the JAX package's jax.monitoring compile hook, every CUDA
+graph capture (the engine's programs, the TrainStep's step and eval
+programs, generate's programs) calls ``count_capture``: it counts
+``cuda_graph.captures_total{program=}`` and observes
+``cuda_graph.capture_secs``, both always on as the JAX compile
+odometer is, and books the seconds to goodput's ``"compile"`` bucket,
+as a compile's are.
 """
 from __future__ import annotations
 
@@ -20,7 +29,10 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-__all__ = ["RecompileSentinel", "diff_signatures", "signature_of"]
+from . import goodput, metrics
+
+__all__ = ["RecompileSentinel", "diff_signatures", "signature_of",
+           "count_capture"]
 
 logger = logging.getLogger("paddle_tpu_torch.observability")
 
@@ -74,12 +86,15 @@ class RecompileSentinel:
     """Per-engine watcher of the program-count contract.
 
     events: list of {step, executables, expected, diff}, one per
-    violation, newest last. counter: the total growth past the allowed
-    count, a plain integer."""
+    violation, newest last. counter: this sentinel's total growth past
+    the allowed count, a plain integer; the ``<name>_recompiles_total``
+    metrics counter rolls it up across sentinels of one name."""
 
     def __init__(self, name: str = "train"):
         self.name = name
         self.counter = 0
+        self._metric = metrics.counter(f"{name}_recompiles_total",
+                                       _always=True)
         self.events: List[dict] = []
         self._last_sig = None
         self._allowed: Optional[int] = None
@@ -104,6 +119,12 @@ class RecompileSentinel:
                                 "executables": int(executables),
                                 "expected": allowed, "diff": delta})
             self.counter += int(executables) - allowed
+            self._metric.add(int(executables) - allowed)
+            # black-box breadcrumb: the shape delta of each recapture
+            from . import flight_recorder as _fr
+            _fr.record("recompile", engine=self.name, step=self._steps,
+                       executables=int(executables), expected=allowed,
+                       diff=delta)
             logger.warning(
                 "recompile sentinel [%s]: program count grew %d -> %d at "
                 "step %d; input delta: %s", self.name, allowed,
@@ -116,3 +137,15 @@ class RecompileSentinel:
     @property
     def fired(self) -> int:
         return len(self.events)
+
+
+def count_capture(program: str, seconds: float):
+    """One CUDA-graph capture of `program` ("serving", "train", "eval",
+    "generate") that took `seconds`: the always-on capture counter and
+    histogram, and the goodput compile bucket."""
+    metrics.counter("cuda_graph.captures_total", _always=True,
+                    program=str(program)).add(1)
+    if seconds > 0:
+        metrics.histogram("cuda_graph.capture_secs", _always=True).observe(
+            float(seconds))
+        goodput.account("compile", float(seconds))

@@ -41,9 +41,20 @@ default:
 The engine follows the model's device: a model built on the card serves
 from the card, one built with device="cpu" from the CPU.
 
+Telemetry, at the JAX engine's boundaries and under its names, each
+gated on its plane's one module bool (nothing is read from the card for
+it): the request tracer's submit/dispatch/retire marks and its
+admission (scheduler), prefix_match, prefill, draft and decode spans;
+the ``serving.*`` counters (admitted, retired, evicted, tokens, prefix
+hits, speculative proposed/accepted, weight swaps), histograms (ttft,
+prefill and decode step ms) and gauges (queue depth, active slots,
+pages); and the OOM sentry around every captured dispatch
+(observability.memory.handle_dispatch_oom, then re-raise). Spans carry
+the boundary number as their tick. They carry no replica label:
+only the fleet sets one in the JAX package (ROADMAP item 10d).
+
 Not ported yet: tensor-parallel plans (``plan=``, ROADMAP.md queue A
-item 14). The JAX engine's metrics, request traces and OOM forensics
-belong to the observability slice (item 16).
+item 14).
 """
 from __future__ import annotations
 
@@ -55,6 +66,9 @@ import numpy as np
 import torch
 
 from ..models.generation import _cast_params, _gpt_params, _gumbel
+from ..observability import memory as _mem
+from ..observability import metrics as _obs
+from ..observability import reqtrace as _rt
 from ..observability.sentinel import RecompileSentinel
 from ..quant.int8_serving import quantize_params
 from .paged_cache import PagedKVCache
@@ -240,6 +254,7 @@ class ServingEngine:
             self._init_draft(draft_model)
         self.programs = ProgramCache(self.device)
         self.sentinel = RecompileSentinel("serving")
+        self._step_no = 0
         # the sampling noise's generator (drawn outside the programs)
         self._gen = None
         if cfg.temperature != 0.0:
@@ -343,12 +358,29 @@ class ServingEngine:
             raise ValueError(
                 f"request needs {need} pages > pool size "
                 f"{self.cache.n_blocks - 1}")
-        return self.sched.submit(req)
+        if _rt._enabled:
+            # a standalone engine: this call is the request's arrival
+            _rt.mark(req.rid, "submit", t=req.arrival)
+            _rt.mark(req.rid, "dispatch")
+        self.sched.submit(req)
+        if _obs._enabled:
+            _obs.gauge("serving.queue_depth").set(self.sched.queue_depth)
+        return req.rid
 
     def has_work(self) -> bool:
         return self.sched.has_work()
 
     # -- the dispatches ------------------------------------------------------
+    def _dispatch(self, program, call, **context):
+        """call() behind the OOM sentry: an out-of-memory fault leaves
+        its counter, breadcrumb and receipt, then propagates."""
+        try:
+            return call()
+        except Exception as e:
+            _mem.handle_dispatch_oom(program, e, step=self._step_no,
+                                     **context)
+            raise
+
     def _noise(self, shape):
         if self._gen is None:
             return None
@@ -436,9 +468,16 @@ class ServingEngine:
         for r in finished:
             self._free(r)
             r.done_ts = time.perf_counter()
+        if _rt._enabled:
+            for r in finished:
+                _rt.mark(r.rid, "retire", t=r.done_ts,
+                         reason=r.finish_reason)
+        if _obs._enabled and finished:
+            _obs.counter("serving.retired_total").add(len(finished))
         batch = self.sched.take_admissible(
             self.cache,
             () if self.draft_cache is None else (self.draft_cache,))
+        self._step_no += 1
         prefill_sig = decode_sig = None
         chunk_sigs: List[Tuple[int, int]] = []
         if batch:
@@ -453,7 +492,15 @@ class ServingEngine:
                 expected=self.expected_executables,
                 signature=self._shape_signature(prefill_sig, decode_sig,
                                                 chunk_sigs))
+        if _obs._enabled:
+            _obs.gauge("serving.queue_depth").set(self.sched.queue_depth)
+            _obs.gauge("serving.active_slots").set(len(self.sched.active()))
+            _obs.gauge("serving.pages_free").set(self.cache.n_free)
+            _obs.gauge("serving.pages_live").set(self.cache.n_live)
+            if self.config.prefix_sharing:
+                _obs.gauge("serving.pages_shared").set(self.cache.n_shared)
         return finished
+
 
     def _free(self, r):
         self.cache.free(r.rid)
@@ -478,6 +525,7 @@ class ServingEngine:
             else:
                 self.cache.alloc(r.rid, r.total_tokens)
             rids.append(r.rid)
+        t_match = time.perf_counter()
         rids += [None] * (a - len(batch))
         if self.draft_cache is not None:
             # the draft mirrors the target position for position; its
@@ -497,12 +545,17 @@ class ServingEngine:
             starts = np.zeros((a,), np.int32)
             for i, r in enumerate(batch):
                 starts[i] = r.shared_tokens
-            _, tok = self._chunk(tables, ids, starts, lens)
+            _, tok = self._dispatch(
+                "serving_prefill",
+                lambda: self._chunk(tables, ids, starts, lens),
+                bucket=ids.shape[1], width=a)
             chunk_sigs.append(ids.shape)
             sig = None
         else:
             ids, lens = self._window(batch, a, 0)
-            tok = self._prefill(tables, ids, lens)
+            tok = self._dispatch(
+                "serving_prefill", lambda: self._prefill(tables, ids, lens),
+                bucket=ids.shape[1], width=a)
             sig = ids.shape
         now = time.perf_counter()
         for i, r in enumerate(batch):
@@ -516,6 +569,32 @@ class ServingEngine:
             # this prefix shares them
             for r in batch:
                 self.cache.register_prefix(r.rid, r.ids)
+        s = ids.shape[1]
+        if _rt._enabled:
+            tick = self._step_no
+            for r in batch:
+                if r.shared_tokens:
+                    # the radix match + shared alloc slice of admission
+                    _rt.record_span(r.rid, "prefix_match", t0, t_match,
+                                    shared_tokens=r.shared_tokens,
+                                    tick=tick)
+                _rt.record_span(r.rid, "prefill",
+                                t_match if r.shared_tokens else t0, now,
+                                bucket=s, width=a, tick=tick)
+        if _obs._enabled:
+            _obs.counter("serving.admitted_total").add(len(batch))
+            _obs.histogram("serving.prefill_ms").observe((now - t0) * 1e3)
+            for r in batch:
+                if r.arrival is not None:
+                    _obs.histogram("serving.ttft_ms").observe(
+                        (now - r.arrival) * 1e3)
+            if cfg.prefix_sharing:
+                hits = sum(1 for r in batch if r.shared_tokens)
+                if hits:
+                    _obs.counter("serving.prefix_hits_total").add(hits)
+                    _obs.counter("serving.prefix_shared_pages_total").add(
+                        sum(r.shared_tokens // cfg.block_size
+                            for r in batch))
         return sig
 
     def _window(self, batch, a, start):
@@ -547,16 +626,29 @@ class ServingEngine:
         return b, toks, positions, rids
 
     def _decode_active(self, active):
+        t0 = time.perf_counter()
         b, toks, positions, rids = self._lanes(active)
-        toks_out = self._decode(
-            self.cache.table_array(rids, self.config.table_width), toks,
-            positions)                                   # [chunk, B]
+        tables = self.cache.table_array(rids, self.config.table_width)
+        toks_out = self._dispatch(
+            "serving_decode", lambda: self._decode(tables, toks, positions),
+            bucket=b)                                    # [chunk, B]
+        accepted = 0
         for i, r in enumerate(active):
             for s in range(toks_out.shape[0]):
                 if r.done:
                     break   # over-decoded junk: the host trims
                 r.pos += 1
                 r.accept(int(toks_out[s, i]))
+                accepted += 1
+        if _rt._enabled:
+            t1, tick = time.perf_counter(), self._step_no
+            for r in active:
+                _rt.record_span(r.rid, "decode", t0, t1, bucket=b,
+                                chunk=int(toks_out.shape[0]), tick=tick)
+        if _obs._enabled:
+            _obs.histogram("serving.decode_step_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
+            _obs.counter("serving.tokens_total").add(accepted)
         return (b,)
 
     def _speculate(self, active, chunk_sigs):
@@ -565,11 +657,15 @@ class ServingEngine:
         dispatch, the host keeps the longest agreeing prefix. Each
         emitted token is a target argmax over a cache prefix that held
         only accepted tokens, hence equal to sequential greedy."""
+        t0 = time.perf_counter()
         k, width = self._spec_k, self.config.table_width
         b, toks, positions, rids = self._lanes(active)
-        props = self._draft_decode(
-            self.draft_cache.table_array(rids, width), toks,
-            positions)                                   # [k, B]
+        d_tables = self.draft_cache.table_array(rids, width)
+        props = self._dispatch(
+            "serving_draft",
+            lambda: self._draft_decode(d_tables, toks, positions),
+            bucket=b)                                    # [k, B]
+        t_draft = time.perf_counter()
         ids = np.zeros((b, k + 1), np.int32)
         lens = np.ones((b,), np.int32)
         for i, r in enumerate(active):
@@ -579,11 +675,15 @@ class ServingEngine:
             ids[i, 0] = r.out[-1]
             ids[i, 1:] = props[:, i]
             lens[i] = cap + 1
-        all_tok, _ = self._chunk(self.cache.table_array(rids, width), ids,
-                                 positions, lens)        # [B, k+1]
+        tables = self.cache.table_array(rids, width)
+        all_tok, _ = self._dispatch(
+            "serving_verify",
+            lambda: self._chunk(tables, ids, positions, lens),
+            bucket=b)                                    # [B, k+1]
+        proposed = accepted = 0
         for i, r in enumerate(active):
             cap = int(lens[i]) - 1
-            self.spec_proposed += cap
+            proposed += cap
             n = 0
             while n < cap:
                 tok = int(all_tok[i, n])                 # target argmax
@@ -592,8 +692,26 @@ class ServingEngine:
                 n += 1
                 if r.done or n >= cap or int(props[n - 1, i]) != tok:
                     break   # the draft diverged: later scores are junk
-            self.spec_accepted += n
+            accepted += n
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
         chunk_sigs.append((b, k + 1))
+        if _rt._enabled:
+            t1, tick = time.perf_counter(), self._step_no
+            for r in active:
+                _rt.record_span(r.rid, "draft", t0, t_draft, bucket=b, k=k,
+                                tick=tick)
+                _rt.record_span(r.rid, "decode", t_draft, t1, bucket=b,
+                                chunk=k + 1, tick=tick)
+        if _obs._enabled:
+            _obs.histogram("serving.decode_step_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
+            _obs.counter("serving.tokens_total").add(accepted)
+            _obs.counter("serving.spec_proposed_total").add(proposed)
+            _obs.counter("serving.spec_accepted_total").add(accepted)
+            if proposed:
+                _obs.gauge("serving.spec_acceptance_rate").set(
+                    accepted / proposed)
         return (b,)
 
     # -- eviction + hot weight swap ------------------------------------------
@@ -611,7 +729,13 @@ class ServingEngine:
         self.sched.running.clear()
         queued = list(self.sched.queue)
         self.sched.queue.clear()
-        return running + queued
+        evicted = running + queued
+        if _obs._enabled and evicted:
+            _obs.counter("serving.evicted_total").add(len(evicted))
+            _obs.gauge("serving.queue_depth").set(0)
+            _obs.gauge("serving.active_slots").set(0)
+            _obs.gauge("serving.pages_free").set(self.cache.n_free)
+        return evicted
 
     def swap_weights(self, params, cast: bool = True):
         """Install new weights at a token boundary without draining: any
@@ -643,6 +767,8 @@ class ServingEngine:
         with torch.no_grad():
             for (_, o), (_, n) in zip(old_leaves, new_leaves):
                 o.copy_(n)
+        if _obs._enabled:
+            _obs.counter("serving.weight_swaps_total").add(1)
         return self
 
     def _shape_signature(self, prefill_sig, decode_sig, chunk_sigs=()):

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..models.generation import _NEG, _attend, _ln, _mm, _pick, _prefill
+from ..static.capture import capture, warm_up
 
 __all__ = ["make_decode_fn", "make_prefill_fn", "make_chunk_fn",
            "ProgramCache"]
@@ -361,17 +362,15 @@ class ProgramCache:
             off += a.size
         ent.noise = None if noise is None else torch.empty_like(noise)
         self._fill(ent, host, noise)
-        with torch.cuda.device(dev), torch.no_grad():
+
+        def body():
+            return fn(pools, *ent.inputs, params, ent.noise)
+
+        with torch.no_grad():
             # warm-up on a side stream (lazy library state, workspaces),
             # then the capture; both on this call's inputs, so the pool
             # writes of the warm-up are the ones the replay makes again
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                fn(pools, *ent.inputs, params, ent.noise)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            ent.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(ent.graph):
-                ent.out = fn(pools, *ent.inputs, params, ent.noise)
+            warm_up(body, dev)
+            ent.graph, ent.out = capture(body, dev, program="serving")
         self.captures += 1
         return ent

@@ -18,18 +18,21 @@ The bucket ladder quantizes dynamic shapes into the fixed program set:
 prompts pad to the smallest prefill bucket that fits the longest prompt
 in the admit batch, decode runs at the smallest slot-count bucket
 covering the active set. The program count is therefore bounded by the
-ladder size, not by the length mix of the traffic. The JAX package's
-per-request trace hooks (reqtrace) are not ported (ROADMAP.md queue A
-item 16).
+ladder size, not by the length mix of the traffic. With the request
+tracer armed (observability.reqtrace), submit stamps the queue entry and
+admission records each admitted request's ``admission`` span.
 """
 from __future__ import annotations
 
 import itertools
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from ..observability import reqtrace as _rt
 
 __all__ = ["Request", "BucketLadder", "FifoScheduler"]
 
@@ -44,6 +47,7 @@ class Request:
     rid: object = None
     eos_token_id: Optional[int] = None
     arrival: Optional[float] = None    # perf_counter() timestamp
+    submit_ts: Optional[float] = None  # engine-queue entry (reqtrace)
     # -- runtime (engine-owned) ---------------------------------------------
     pos: int = 0                       # next K/V write position
     out: List[int] = field(default_factory=list)
@@ -144,6 +148,8 @@ class FifoScheduler:
         self.running: dict = {}
 
     def submit(self, req: Request):
+        if _rt._enabled:
+            req.submit_ts = time.perf_counter()
         self.queue.append(req)
         return req.rid
 
@@ -188,6 +194,12 @@ class FifoScheduler:
             admitted.append(self.queue.popleft())
         for r in admitted:
             self.running[r.rid] = r
+        if _rt._enabled and admitted:
+            now = time.perf_counter()
+            for r in admitted:
+                _rt.record_span(
+                    r.rid, "admission",
+                    now if r.submit_ts is None else r.submit_ts, now)
         return admitted
 
     def retire_finished(self) -> List[Request]:

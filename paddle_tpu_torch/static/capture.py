@@ -1,5 +1,6 @@
 """CUDA-graph capture of a whole program (the port's counterpart of one
-jax.jit executable), shared by TrainStep's step and eval programs.
+jax.jit executable), shared by TrainStep's step and eval programs,
+generate's programs and the serving engine's.
 
 The rules of a captured program, which every body run under `capture`
 keeps (serving/programs.py keeps the same for the engine):
@@ -16,7 +17,11 @@ keeps (serving/programs.py keeps the same for the engine):
 """
 from __future__ import annotations
 
+import time
+
 import torch
+
+from ..observability.sentinel import count_capture
 
 __all__ = ["StaticInputs", "warm_up", "capture"]
 
@@ -68,13 +73,27 @@ class StaticInputs:
             b.copy_(t, non_blocking=True)
 
 
+_side_streams = {}
+
+
+def _side_stream(dev):
+    """The device's one warm-up stream. cuBLAS keeps a workspace for
+    every stream it has run on, so a new stream per warm-up would leave
+    a workspace behind for each captured program."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    side = _side_streams.get(idx)
+    if side is None:
+        side = _side_streams[idx] = torch.cuda.Stream(idx)
+    return side
+
+
 def warm_up(fn, device):
-    """fn() on a side stream (lazy library state and workspaces are made
-    outside the capture), the current stream joined to it after; returns
-    fn's result."""
+    """fn() on the device's side stream (lazy library state and
+    workspaces are made outside the capture), the current stream joined
+    to it after; returns fn's result."""
     dev = torch.device(device)
     cur = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
+    side = _side_stream(dev)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         out = fn()
@@ -82,18 +101,22 @@ def warm_up(fn, device):
     return out
 
 
-def capture(fn, device, generators=()):
+def capture(fn, device, generators=(), program="train", pool=None):
     """(graph, out): fn() captured as one torch.cuda.CUDAGraph on
-    `device`, with every generator in `generators` registered, so that a
+    `device` (into the memory pool `pool`, a graph_pool_handle(), when
+    given), with every generator in `generators` registered, so that a
     replay draws from its state as set before the replay (manual_seed).
     A failure raises RuntimeError naming the captured program's error;
-    nothing runs eagerly instead."""
+    nothing runs eagerly instead. The capture is counted under
+    `program` (observability.sentinel.count_capture)."""
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
+    t0 = time.perf_counter()
     try:
-        with torch.cuda.device(device), torch.cuda.graph(graph):
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
             out = fn()
     except RuntimeError as e:
         raise RuntimeError(f"CUDA graph capture failed: {e}") from e
+    count_capture(program, time.perf_counter() - t0)
     return graph, out

@@ -46,7 +46,19 @@ The body, as the JAX `_build`'s `step`:
 
 The RecompileSentinel("train") observes the program count every call,
 expected 1: a second signature captures a second graph and records an
-event, as a retrace does in the JAX package. mesh/sharding_plan,
+event, as a retrace does in the JAX package.
+
+Telemetry, as the JAX __call__ has it: each step, eager or replayed,
+is bracketed by the flight recorder's step_begin/step_end (the hang
+watchdog's progress clock and goodput's train bucket; with sync_steps()
+the bracket closes after the card finished the step), counts
+``train.steps_total`` when metrics are on, and sits behind the OOM
+sentry (observability.memory.handle_dispatch_oom, then re-raise). With a
+scaler and a plane armed (metrics or the flight recorder), the step's
+found_inf and scale are read back to the host for the
+``amp.loss_scale.skipped_total`` counter, the ``loss_scale.skip``
+breadcrumb and the ``amp.loss_scale.scale`` gauge; with both planes off
+nothing is read from the card. mesh/sharding_plan,
 grad_transform and sentry belong to later slices and raise
 NotImplementedError, as does an optimizer with a grad_clip (the JAX
 package's compiled step does not clip); aot_lower is not ported.
@@ -63,6 +75,9 @@ from ..amp.functional import (check_finite_and_unscale_tree,
 from ..core.generator import Draw, SeedSlots, mix_seed, next_seed, seed_scope
 from ..core.place import host_tensor
 from ..distributed.recompute import check_policy, checkpointed
+from ..observability import flight_recorder as _fr
+from ..observability import memory as _mem
+from ..observability import metrics as _obs
 from ..observability.sentinel import RecompileSentinel, signature_of
 from ..ops import flash_attention as _fa
 from ..optimizer.optimizer import Optimizer
@@ -107,7 +122,7 @@ def _delta(before):
 class _Program:
     """One captured step: graph, static inputs, seed slots, the 0-d f32
     lr buffer and the loss output."""
-    __slots__ = ("graph", "inputs", "slots", "lr", "loss")
+    __slots__ = ("graph", "inputs", "slots", "lr", "loss", "found_inf")
 
 
 class TrainStep:
@@ -194,6 +209,10 @@ class TrainStep:
         self.last_launches: Optional[Dict[str, int]] = {}
         self.capture_launches: Dict[str, int] = {}
         self.last_lr: Optional[torch.Tensor] = None
+        self._steps_done = 0
+        # the last step's overflow flag (a device tensor; None without a
+        # scaler), read only when a telemetry plane is armed
+        self._found_inf: Optional[torch.Tensor] = None
 
     def _device(self):
         return self.params[0].device
@@ -281,6 +300,7 @@ class TrainStep:
                                        skip=found_inf)
         if found_inf is not None:
             self._update_scaler(found_inf)
+        self._found_inf = found_inf
         return loss
 
     @torch.no_grad()
@@ -319,20 +339,43 @@ class TrainStep:
         stream, as the JAX step draws next_key())."""
         inputs, labels = _as_tuple(inputs), _as_tuple(labels)
         sig, key = _program_key(inputs, labels)
-        if self._device().type != "cuda":
-            self._programs.setdefault(key, None)
-            loss = self.eager_step(inputs, labels, seed)
-        else:
-            step_seed = next_seed(self._device()) if seed is None \
-                else int(seed)
-            prog = self._programs.get(key)
-            if prog is None:
-                loss = self._capture(key, inputs, labels, step_seed)
-            else:
-                loss = self._replay(prog, inputs, labels, step_seed)
+        tok = _fr.step_begin("train_step", self._steps_done)
+        try:
+            loss = self._dispatch(key, inputs, labels, seed)
+        except Exception as e:
+            _mem.handle_dispatch_oom("train_step", e, step=self._steps_done)
+            raise
+        if tok is not None and _fr.sync_steps() and loss.is_cuda:
+            # the card finished the step before the bracket closes
+            torch.cuda.synchronize(loss.device)
+        _fr.step_end("train_step", self._steps_done, tok)
+        if self._found_inf is not None and (_obs._enabled or _fr._enabled):
+            # the gated host read: a plane nobody armed costs no sync
+            skipped = bool(self._found_inf)
+            scale_v = float(self.strategy_state["amp_scale"])
+            if skipped:
+                _obs.counter("amp.loss_scale.skipped_total",
+                             _always=True).add(1)
+                _fr.record("loss_scale.skip", step=self._steps_done,
+                           scale=scale_v)
+            if _obs._enabled:
+                _obs.gauge("amp.loss_scale.scale").set(scale_v)
+        self._steps_done += 1
+        if _obs._enabled:
+            _obs.counter("train.steps_total").add(1)
         self.recompile_sentinel.observe(len(self._programs), expected=1,
                                         signature=sig)
         return loss
+
+    def _dispatch(self, key, inputs, labels, seed):
+        if self._device().type != "cuda":
+            self._programs.setdefault(key, None)
+            return self.eager_step(inputs, labels, seed)
+        step_seed = next_seed(self._device()) if seed is None else int(seed)
+        prog = self._programs.get(key)
+        if prog is None:
+            return self._capture(key, inputs, labels, step_seed)
+        return self._replay(prog, inputs, labels, step_seed)
 
     def _capture(self, key, inputs, labels, step_seed):
         """The first call of a signature on the card: the warm-up (this
@@ -353,9 +396,13 @@ class TrainStep:
         prog.slots.freeze()
         steps = self.optimizer._step_count
         before = _launch_counts()
+        warm_found_inf = self._found_inf
         prog.graph, prog.loss = capture(
             lambda: self._body(ins, lbls, prog.lr, prog.slots), dev,
             prog.slots.generators.values())
+        # the graph's own flag; this call's step is the warm-up's
+        prog.found_inf = self._found_inf
+        self._found_inf = warm_found_inf
         self.capture_launches = _delta(before)
         self.optimizer._step_count = steps
         with torch.no_grad():
@@ -373,6 +420,7 @@ class TrainStep:
         prog.slots.fill(step_seed)
         prog.lr.fill_(self.optimizer.get_lr())
         prog.graph.replay()
+        self._found_inf = prog.found_inf
         self.optimizer._step_count += 1
         self.replays += 1
         self.last_launches = None
@@ -468,7 +516,8 @@ class _EvalFn:
         if ent is None:
             static = StaticInputs(inputs, dev)
             warm_up(lambda: self._forward(static.tree), dev)
-            graph, out = capture(lambda: self._forward(static.tree), dev)
+            graph, out = capture(lambda: self._forward(static.tree), dev,
+                                 program="eval")
             ent = self._programs[key] = (graph, static, out)
         graph, static, out = ent
         static.fill(inputs)

@@ -4,7 +4,8 @@ chip_smoke.py needs only the standard library at import (torch is
 imported inside main()), so its bound and SASS-reading helpers run
 here: the forward's bytes and flops at the training shape, the Philox
 work counted with dropout and absent without it, the keep-bit loop found
-in a SASS listing, and the ptxas serialisation lines named.
+in a SASS listing, and the ptxas serialisation lines named; and the
+gates of the generate_capture and telemetry phases, each failure named.
 """
 import importlib.util
 import subprocess
@@ -413,3 +414,81 @@ def test_max_counts_survives_a_dropped_record(cs):
     assert cs.max_counts([full, full, dropped]) == full
     lost = dict(full, flash_attn_bwd_dq=22)
     assert cs.max_counts([lost, lost, lost]) == lost
+
+
+def _gen_row(**kw):
+    row = dict(mode="greedy", dtype="bfloat16", bit_equal=True,
+               second_call_captures=0, sentinel_events=0, graphs=3,
+               expected_graphs=3)
+    row.update(kw)
+    return row
+
+
+@pytest.mark.parametrize("bad,word", [
+    (dict(bit_equal=False), "differ from eager"),
+    (dict(second_call_captures=2), "captured 2 programs"),
+    (dict(sentinel_events=1), "1 sentinel events"),
+    (dict(graphs=4), "4 programs, expected 3"),
+    (dict(sampled=True, other_seed_differs=True), "not held"),
+    (dict(sampled=True, other_seed_bit_equal=False,
+          other_seed_differs=True), "at the second seed"),
+    (dict(sampled=True, other_seed_bit_equal=True,
+          other_seed_differs=False), "repeated the first")])
+def test_generate_capture_gates_name_each_failure(cs, bad, word):
+    sampled = _gen_row(mode="top_k", sampled=True, other_seed_bit_equal=True,
+                       other_seed_differs=True)
+    assert cs.generate_capture_gates([_gen_row(), _gen_row(mode="beam"),
+                                      sampled]) == []
+    out = cs.generate_capture_gates([_gen_row(), _gen_row(**bad)])
+    assert len(out) == 1 and word in out[0] and "greedy" in out[0]
+
+
+def _telemetry_row():
+    counters = dict(tokens_total=2929, retired_total=48, admitted_total=48,
+                    ttft_count=48)
+    return dict(requests=48, tokens_emitted=2977, streams_equal=True,
+                counters=counters, requests_missing_spans=[],
+                tail_component="decode",
+                pulse_metrics={k: counters[k] for k in cs_pulse()},
+                oom=dict(propagated=True, oom_total=1, receipt="oom.json",
+                         receipt_free_bytes=82_044_612_771,
+                         mem_get_info_free=82_040_782_848),
+                train_step=dict(calls=4, step_begin=4, step_end=4,
+                                steps=[0, 1, 2, 3]))
+
+
+def cs_pulse():
+    return ("tokens_total", "retired_total", "admitted_total")
+
+
+def _set(row, path, value):
+    *head, last = path
+    for k in head:
+        row = row[k]
+    row[last] = value
+
+
+@pytest.mark.parametrize("path,value,word", [
+    (("streams_equal",), False, "streams changed"),
+    (("counters", "retired_total"), 47, "retired 47"),
+    (("counters", "ttft_count"), 40, "ttft count 40"),
+    (("counters", "tokens_total"), 2977, "tokens emitted"),
+    (("requests_missing_spans",), [5], "without their spans"),
+    (("tail_component",), None, "named no component"),
+    (("pulse_metrics", "tokens_total"), 0, "/metrics served"),
+    (("oom", "propagated"), False, "OOM sentry"),
+    (("oom", "oom_total"), 0, "OOM sentry"),
+    (("oom", "receipt"), None, "OOM sentry"),
+    (("oom", "receipt_free_bytes"), 70_000_000_000, "more than 5% off"),
+    (("train_step", "step_end"), 3, "TrainStep"),
+    (("train_step", "steps"), [0, 1, 1, 3], "TrainStep")])
+def test_telemetry_gates_name_each_failure(cs, path, value, word):
+    assert tuple(cs.PULSE_COUNTERS) == cs_pulse()
+    assert cs.telemetry_gates(_telemetry_row()) == []
+    row = _telemetry_row()
+    _set(row, path, value)
+    if path[0] == "counters" and path[1] in row["pulse_metrics"]:
+        # /metrics serves what the registry holds
+        row["pulse_metrics"][path[1]] = value
+    out = cs.telemetry_gates(row)
+    assert len(out) == 1 and word in out[0], out

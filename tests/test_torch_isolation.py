@@ -39,7 +39,18 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.serving.paged_cache, "
         "paddle_tpu_torch.serving.scheduler, "
         "paddle_tpu_torch.quant, paddle_tpu_torch.quant.int8_serving, "
+        "paddle_tpu_torch.observability, "
         "paddle_tpu_torch.observability.sentinel, "
+        "paddle_tpu_torch.observability.metrics, "
+        "paddle_tpu_torch.observability.goodput, "
+        "paddle_tpu_torch.observability.flight_recorder, "
+        "paddle_tpu_torch.observability.reqtrace, "
+        "paddle_tpu_torch.observability.decisions, "
+        "paddle_tpu_torch.observability.timeseries, "
+        "paddle_tpu_torch.observability.exporters, "
+        "paddle_tpu_torch.observability.pulse_server, "
+        "paddle_tpu_torch.observability.watchdog, "
+        "paddle_tpu_torch.observability.memory, "
         "paddle_tpu_torch.nn.clip, paddle_tpu_torch.nn.layer.scanned, "
         "paddle_tpu_torch.nn.functional.loss, "
         "paddle_tpu_torch.distributed, "
@@ -125,7 +136,8 @@ def _port_sources():
 
 
 def test_no_source_imports_jax_or_paddle_tpu():
-    for f in _port_sources() + [REPO / "chip_smoke.py"]:
+    for f in _port_sources() + [REPO / "chip_smoke.py",
+                                 REPO / "compare_generate.py"]:
         text = f.read_text()
         hit = _IMPORT.search(text)
         assert hit is None, f"{f.relative_to(REPO)}: {hit.group(0)!r}"
@@ -136,3 +148,43 @@ def test_port_calls_no_library_attention():
         text = f.read_text()
         for word in _FORBIDDEN:
             assert word not in text, f"{f.relative_to(REPO)} uses {word}"
+
+
+def test_planes_import_without_torch_and_generate_needs_the_card():
+    """The telemetry planes but the sentinel load in an interpreter with
+    no torch at all (a dump must work while the card is wedged), and
+    generate on a model for the card raises without CUDA rather than
+    run on the CPU."""
+    out = _run(
+        "import sys, importlib.util, types\n"
+        "pkg = types.ModuleType('paddle_tpu_torch'); pkg.__path__ = "
+        "['paddle_tpu_torch']\n"
+        "sub = types.ModuleType('paddle_tpu_torch.observability'); "
+        "sub.__path__ = ['paddle_tpu_torch/observability']\n"
+        "sys.modules.update({'paddle_tpu_torch': pkg, "
+        "'paddle_tpu_torch.observability': sub})\n"
+        "import importlib\n"
+        "for m in ('metrics', 'goodput', 'flight_recorder', 'reqtrace', "
+        "'decisions', 'timeseries', 'exporters', 'pulse_server', "
+        "'watchdog', 'memory'):\n"
+        "    importlib.import_module('paddle_tpu_torch.observability.' + m)\n"
+        "print('TORCH', 'torch' in sys.modules)\n")
+    assert "TORCH False" in out
+    out = _run(
+        "import torch, paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM\n"
+        "from paddle_tpu_torch.models.generation import generate_programs\n"
+        "cfg = GPTConfig.tiny(dropout=0.0)\n"
+        "try:\n"
+        "    GPTForCausalLM(cfg).generate(torch.zeros((1, 4), "
+        "dtype=torch.long), max_new_tokens=2)\n"
+        "    print('RAN')\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', 'set_device' in str(e))\n"
+        "m = GPTForCausalLM(cfg, device='cpu').eval()\n"
+        "out = m.generate(torch.zeros((1, 4), dtype=torch.long), "
+        "max_new_tokens=2)\n"
+        "print('CPU', out.device.type, generate_programs(m).programs)\n")
+    assert "RAISED True" in out and "RAN" not in out
+    # a CPU model runs the eager loop there and builds no program
+    assert "CPU cpu 0" in out

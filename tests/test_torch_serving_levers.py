@@ -13,9 +13,10 @@ operations to equal tables and stats, and the f32 speculative and
 shared-prefix engine streams equal to the JAX engine's. On the CPU the
 programs run eagerly; the card captures each as a CUDA graph
 (chip_smoke.py's serving_levers phase). The JAX package's loadgen
-shared-prefix trace and reqtrace taxonomy are not ported (ROADMAP.md
-queue A items 10c and 16); chip_smoke.py's shared-prefix trace helper
-is tested in tests/test_torch_chip_smoke.py.
+shared-prefix trace is not ported (ROADMAP.md queue A item 10c);
+chip_smoke.py's shared-prefix trace helper is tested in
+tests/test_torch_chip_smoke.py, the request-trace spans of the levers in
+tests/test_torch_observability.py.
 """
 import types
 
