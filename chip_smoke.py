@@ -262,6 +262,45 @@ Phases, each of which fails the run on any mismatch:
    `memory.oom_total` is 1 and the receipt's free bytes are within 5%
    of mem_get_info's. A captured GPT-2 small TrainStep with the flight
    recorder armed leaves one step.begin/step.end pair per call.
+26. Fleet (`fleet`, after `telemetry`): GPT-2 small's ServingFleet at
+   FLEET_CONFIG (SERVE_CONFIG's ladder plus a 256 prefill bucket, which
+   requeue needs). f32, 2 replicas, the PARITY_SPECS trace admitted as
+   `serving_parity` admits it, with a chaos kill and then a chaos stall
+   of replica 1 at fleet tick FLEET_FAULT_TICK: every request finishes,
+   at least one is requeued, the streams agree with solo generate's
+   (streams_agree's near-tie rule: decode and the requeued prefill sum
+   in different orders on the card), and after the eviction the card's
+   allocated bytes are within 64 MiB of their level before replica 1's
+   spawn. A hot swap from a second weight set written by
+   distributed.checkpoint.save_sharded: one replica flips per tick, no
+   capture, no sentinel event, then the streams agree with a solo f32
+   engine's on the new weights; a corrupt_swap drill aborts the next
+   swap with a receipt and leaves the weights in service as they were.
+   bf16 overload: the serve_trace requests as one burst (every other one
+   in the batch class) from 1 replica (up to 2) at queue_high
+   FLEET_QUEUE_HIGH, shed depth FLEET_SHED_DEPTH and no TTFT trigger:
+   scale_up spawns a replica whose graphs (and captures counted by
+   sentinel.count_capture) equal its expected count, every request
+   finishes or is returned shed, none dropped or evicted, idle ticks
+   scale down and retire the spawned replica, and memory comes back as
+   above. Tokens/s and TTFT p50/p99 beside `serving`'s, each replica's
+   graphs and spawn seconds.
+27. Elastic training (`elastic_train`, last): GPT-2 small (GPT_TRAIN, O1
+   bf16, AdamW) at GPT_TRAIN_BATCH, ELASTIC_STEPS steps with an async
+   save every ELASTIC_EVERY, through `python -m
+   paddle_tpu_torch.distributed.launch --elastic` and
+   paddle_tpu_torch/distributed/elastic_worker.py, checkpoints in a
+   temporary directory: a control run, a run with chaos `kill` at step
+   5 and one with `corrupt_ckpt` at step 6. Each chaos run leaves one
+   respawn receipt with verdict crash, resumes from the newest intact
+   checkpoint (printed), and its losses after the resume and its final
+   checkpoint's manifest crc32s (params, moments, seed stream, step
+   count) equal the control run's; every incarnation holds 1 graph, 0
+   sentinel events and 12 launches of each kernel at warm-up. Printed:
+   checkpoint bytes, each save's blocking ms (and the part spent joining
+   the previous write) beside its background write ms, restore ms,
+   seconds from the kill to the first resumed step, and the goodput
+   checkpoint fraction of every incarnation.
 
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
@@ -3307,6 +3346,523 @@ def ernie_determinism_phase(torch, pt):
         fail(f"ERNIE-base's eager step is not bit-reproducible: {row}")
 
 
+# -- the elastic plane: checkpoints, the launcher, chaos -------------------------
+# GPT-2 small training under `launch --elastic` and the drill worker: the
+# steps of a run, an async save every ELASTIC_EVERY of them, and the runs:
+# (name, chaos mode, the step it strikes at)
+ELASTIC_STEPS, ELASTIC_EVERY = 8, 2
+ELASTIC_RUNS = [("control", None, None), ("kill", "kill", 5),
+                ("corrupt_ckpt", "corrupt_ckpt", 6)]
+ELASTIC_TIMEOUT = 420
+ELASTIC_WORKER = os.path.join("paddle_tpu_torch", "distributed",
+                              "elastic_worker.py")
+ELASTIC_MODEL = ("gpt2", "cuda")    # the worker's --model and --device
+# the serving fleet: SERVE_CONFIG's ladder plus the 256 bucket that
+# requeue needs (every resumable prefix, up to max_total_tokens - 1)
+FLEET_CONFIG = dict(SERVE_CONFIG, prefill_buckets=(32, 64, 128, 256))
+FLEET_FAULT_TICK, FLEET_STALL_TICKS = 5, 4
+FLEET_QUEUE_HIGH, FLEET_SHED_DEPTH = 4, 16
+FLEET_MEMORY_SLACK = 64 << 20
+
+
+def _run_group(cmd, env, timeout):
+    """cmd in a process group of its own; on timeout the whole group is
+    killed (the launcher and its workers). (rc, stdout, stderr)."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return 124, out, err
+    return proc.returncode, out, err
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _elastic_run(name, mode, at, tmp):
+    """One `launch --elastic` run of the drill worker on GPT-2 small at
+    GPT_TRAIN_BATCH; returns its incarnations, receipts, progress lines
+    and final manifest (the checkpoint files are removed after)."""
+    import glob
+    import shutil
+    ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
+    env = dict(os.environ, PYTHONPATH=REPO,
+               PD_ELASTIC_DIR=os.path.join(tmp, "receipts"),
+               PD_FR_DIR=os.path.join(tmp, "flight"))
+    for k in ("PD_CHAOS_MODE", "PD_CHAOS_STEP", "PD_CHAOS_RANK",
+              "PD_CHAOS_EVERY"):
+        env.pop(k, None)
+    if mode:
+        env.update(PD_CHAOS_MODE=mode, PD_CHAOS_STEP=str(at),
+                   PD_CHAOS_RANK="0")
+    b, s = GPT_TRAIN_BATCH
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--elastic", "--heartbeat_timeout", "120",
+           "--heartbeat_startup_timeout", "600", "--restart_backoff", "0.1",
+           "--dump_grace", "0.5", ELASTIC_WORKER, "--ckpt-dir", ckpt,
+           "--out-dir", out, "--model", ELASTIC_MODEL[0],
+           "--device", ELASTIC_MODEL[1],
+           "--steps", str(ELASTIC_STEPS), "--ckpt-every", str(ELASTIC_EVERY),
+           "--batch", str(b), "--seq", str(s)]
+    t0 = time.perf_counter()
+    rc, sout, serr = _run_group(cmd, env, ELASTIC_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"elastic_train {name}: the launch exited {rc}: "
+             f"{serr[-3000:]}")
+    incs = sorted((json.load(open(f)) for f in glob.glob(
+        os.path.join(out, "inc*_slot0.json"))),
+        key=lambda d: d["incarnation"])
+    receipts = [json.load(open(f)) for f in sorted(glob.glob(
+        os.path.join(tmp, "receipts", "receipt_*.json")))]
+    progress = _jsonl(os.path.join(out, "progress_slot0.jsonl"))
+    with open(os.path.join(ckpt, "slot0.pkl.manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    return dict(name=name, mode=mode, at=at, seconds=secs, incs=incs,
+                receipts=receipts, progress=progress, manifest=manifest)
+
+
+def _elastic_row(run, control):
+    """The run's line and its gate failures against the control run."""
+    bad = []
+    incs, name = run["incs"], run["name"]
+    want_incs = 1 if run["mode"] is None else 2
+    if len(incs) != want_incs or not incs[-1]["done"]:
+        bad.append(f"{name}: {len(incs)} incarnations (done "
+                   f"{[i['done'] for i in incs]}), expected {want_incs}")
+    want_rc = 0 if run["mode"] is None else 1
+    if len(run["receipts"]) != want_rc or any(
+            r["verdict"]["kind"] != "crash" for r in run["receipts"]):
+        bad.append(f"{name}: receipts "
+                   f"{[(r['action'], r['verdict']) for r in run['receipts']]}")
+    per_layer = GPT_TRAIN["num_layers"]
+    for inc in incs:
+        want = {k: per_layer for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                       "flash_attn_bwd_dkv")}
+        if inc["graphs"] != 1 or inc["sentinel_events"] or \
+                inc["warmup_launches"] != want:
+            bad.append(f"{name} incarnation {inc['incarnation']}: graphs "
+                       f"{inc['graphs']}, sentinel events "
+                       f"{inc['sentinel_events']}, warm-up launches "
+                       f"{inc['warmup_launches']}")
+    resumed = incs[-1] if len(incs) > 1 else None
+    row = dict(run=name, chaos=run["mode"], chaos_step=run["at"],
+               seconds=run["seconds"], incarnations=len(incs),
+               receipts=[dict(action=r["action"], verdict=r["verdict"],
+                              backoff_s=r["backoff_s"])
+                         for r in run["receipts"]])
+    if resumed is not None:
+        cands = resumed["candidate_steps"]
+        # the newest intact candidate: the primary after a kill, the
+        # one past the corrupted primary after corrupt_ckpt
+        want_at = cands[0] if run["mode"] == "kill" else (
+            cands[1] if len(cands) > 1 else None)
+        if resumed["resume_step"] is None or \
+                resumed["resume_step"] != want_at:
+            bad.append(f"{name}: resumed from {resumed['resume_step']}, "
+                       f"candidates on disk {cands}")
+        died = [p for p in run["progress"] if p["inc"] == 0]
+        back = [p for p in run["progress"] if p["inc"] == 1
+                and p["phase"] == "end"]
+        row.update(resume_step=resumed["resume_step"],
+                   candidate_steps=cands,
+                   restore_ms=resumed["restore_ms"],
+                   died_at_step=died[-1]["step"],
+                   kill_to_first_resumed_step_s=(
+                       back[0]["t"] - died[-1]["t"] if back else None))
+    losses = {}
+    for inc in incs:
+        losses.update(inc["losses"])
+    ctrl = control["incs"][0]["losses"] if control else losses
+    after = sorted(int(k) for k in losses
+                   if resumed is None or int(k) > resumed["resume_step"])
+    row["losses_after_resume_equal"] = all(
+        losses[str(k)] == ctrl[str(k)] for k in after)
+    row["losses"] = [losses[str(k)] for k in range(ELASTIC_STEPS)]
+    if not row["losses_after_resume_equal"]:
+        bad.append(f"{name}: losses {row['losses']} against the control's "
+                   f"{[ctrl[str(k)] for k in range(ELASTIC_STEPS)]}")
+    if control is not None:
+        same = sorted(k for k in run["manifest"]
+                      if run["manifest"][k] == control["manifest"].get(k))
+        row["manifest_leaves"] = len(run["manifest"])
+        row["manifest_leaves_equal"] = len(same)
+        if len(same) != len(control["manifest"]) or \
+                len(run["manifest"]) != len(control["manifest"]):
+            diff = sorted(set(run["manifest"]) - set(same))[:5]
+            bad.append(f"{name}: final manifest differs from the control's "
+                       f"at {diff}")
+    row["per_incarnation"] = [dict(
+        incarnation=i["incarnation"], resume_step=i["resume_step"],
+        restore_ms=i["restore_ms"], graphs=i["graphs"],
+        captures=i["captures"], replays=i["replays"],
+        sentinel_events=i["sentinel_events"],
+        warmup_launches=i["warmup_launches"],
+        goodput_checkpoint_fraction=i["goodput"]["checkpoint_fraction"],
+        goodput=i["goodput"], saves=i["saves"]) for i in incs]
+    return row, bad
+
+
+def elastic_train_phase(torch):
+    """GPT-2 small (GPT_TRAIN, O1 bf16, AdamW) at GPT_TRAIN_BATCH through
+    `python -m paddle_tpu_torch.distributed.launch --elastic` and the
+    drill worker: a control run, a kill at step 5 and a corrupt_ckpt at
+    step 6, each with an async save every ELASTIC_EVERY steps into a
+    temporary directory."""
+    import tempfile
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, mode, at in ELASTIC_RUNS:
+        runs[name] = _elastic_run(name, mode, at,
+                                  tempfile.mkdtemp(prefix="pd_elastic_"))
+    control = runs["control"]
+    rows, bad = [], []
+    for name, _, _ in ELASTIC_RUNS:
+        row, b = _elastic_row(runs[name],
+                              None if name == "control" else control)
+        rows.append(row)
+        bad += b
+    saves = [s for r in rows for i in r["per_incarnation"]
+             for s in i["saves"]]
+    emit({"elastic_train": dict(
+        card=nvidia_smi(), model="GPT-2 small", batch=GPT_TRAIN_BATCH,
+        amp="O1 bfloat16", dropout=GPT_TRAIN["dropout"],
+        steps=ELASTIC_STEPS, save_every=ELASTIC_EVERY,
+        checkpoint_bytes=saves[0]["bytes"] if saves else None,
+        save_block_ms=[s["block_ms"] for s in saves],
+        save_join_ms=[s["join_ms"] for s in saves],
+        save_write_ms=[s["write_ms"] for s in saves],
+        runs=rows)})
+    if bad:
+        fail("elastic_train: " + "; ".join(bad))
+    return rows
+
+
+class _ChaosEnv:
+    """with _ChaosEnv(mode, tick, replica): the PD_CHAOS_* plan armed for
+    the fleet inside, disarmed after."""
+
+    KEYS = ("PD_CHAOS_MODE", "PD_CHAOS_STEP", "PD_CHAOS_RANK",
+            "PD_CHAOS_STALL_S")
+
+    def __init__(self, mode, tick, replica):
+        self.env = dict(PD_CHAOS_MODE=mode, PD_CHAOS_STEP=str(tick),
+                        PD_CHAOS_RANK=str(replica), PD_CHAOS_STALL_S="600")
+
+    def __enter__(self):
+        from paddle_tpu_torch.distributed import chaos
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(self.env)
+        chaos.reset_plan_cache()
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.distributed import chaos
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        chaos.reset_plan_cache()
+
+
+def _fleet_f32(model, tmp, **fc):
+    from paddle_tpu_torch.serving import (FleetConfig, ServingConfig,
+                                          ServingFleet, ServingSLO)
+    return ServingFleet(
+        model, ServingConfig(**dict(FLEET_CONFIG, dtype=None)),
+        ServingSLO(p99_ttft_ms=1e9),
+        FleetConfig(**dict(dict(replicas=2, min_replicas=1, max_replicas=2,
+                                autoscale=False, backoff_base=0.0,
+                                stall_ticks=FLEET_STALL_TICKS,
+                                receipts_dir=tmp), **fc)))
+
+
+def _fleet_staggered(fleet, prompts, news):
+    """_staggered's admission pattern through the fleet; drained.
+    Returns the fleet requests in submit order."""
+    frs = [fleet.submit(prompts[0], news[0])]
+    fleet.step()
+    fleet.step()
+    frs.append(fleet.submit(prompts[1], news[1]))
+    fleet.step()
+    frs += [fleet.submit(prompts[i], news[i]) for i in (2, 3)]
+    fleet.step()
+    frs += [fleet.submit(prompts[i], news[i]) for i in (4, 5)]
+    fleet.run_until_drained()
+    return frs
+
+
+def _fleet_graphs(fleet):
+    return {slot: dict(graphs=rep.engine.executable_count(),
+                       expected=rep.engine.expected_executables,
+                       captures=rep.engine.programs.captures,
+                       warmup_s=rep.warmup_s)
+            for slot, rep in sorted(fleet._replicas.items())
+            if rep.engine is not None}
+
+
+def _fleet_fault_run(torch, model, parity, mode, tmp):
+    """The f32 fleet (2 replicas) over the parity trace with `mode`
+    (kill or stall) struck on replica 1 at FLEET_FAULT_TICK: every
+    request finishes, at least one is requeued, the streams agree with
+    solo generate's (streams_agree), and after the eviction the card's
+    allocated bytes are back within FLEET_MEMORY_SLACK of their level
+    before replica 1 was spawned."""
+    fleet = _fleet_f32(model, tmp)
+    graphs = _fleet_graphs(fleet)
+    before = fleet._replicas[1].mem_before_spawn
+    with _ChaosEnv(mode, FLEET_FAULT_TICK, 1):
+        frs = _fleet_staggered(fleet, parity["prompts"], parity["news"])
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    agree = streams_agree([fr.emitted for fr in frs], parity["want"],
+                          parity["gaps"])
+    row = dict(fault=mode, tick=FLEET_FAULT_TICK, replica=1,
+               finished=sum(fr.done for fr in frs), requests=len(frs),
+               requeued_total=fleet.requeued_total,
+               evictions=[fr.evictions for fr in frs],
+               episodes=[(e["action"], e["ranks"], e["verdict"]["kind"])
+                         for e in fleet.episodes],
+               live_replicas=fleet.live_replicas(), graphs=graphs,
+               recompile_events=fleet.recompile_events(), streams=agree,
+               streams_agree=all(r["ok"] for r in agree),
+               memory_before_spawn=before, memory_after_eviction=after,
+               memory_back=after - before <= FLEET_MEMORY_SLACK)
+    bad = []
+    if row["finished"] != len(frs) or fleet.requeued_total < 1:
+        bad.append(f"{mode}: {row['finished']}/{len(frs)} finished, "
+                   f"{fleet.requeued_total} requeued")
+    if not row["streams_agree"]:
+        bad.append(f"{mode}: streams differ from solo generate: {agree}")
+    if not row["memory_back"]:
+        bad.append(f"{mode}: {after - before} bytes more allocated after "
+                   "the eviction than before the replica's spawn")
+    want_kind = "crash" if mode == "kill" else "hang"
+    if not any(k == want_kind and 1 in r for _, r, k in row["episodes"]):
+        bad.append(f"{mode}: episodes {row['episodes']}")
+    if any(g["graphs"] != g["expected"] for g in graphs.values()) or \
+            row["recompile_events"]:
+        bad.append(f"{mode}: graphs {graphs}, sentinel events "
+                   f"{row['recompile_events']}")
+    return row, bad
+
+
+def _fleet_swap_run(torch, pt, model, parity, tmp):
+    """A second GPT-2 small weight set (seed SEED + 7) written by
+    save_sharded, swapped into the f32 fleet from the checkpoint: one
+    replica flips per tick, no capture, no sentinel event; the streams
+    after agree with a solo engine's on the new weights. Then a
+    corrupt_swap drill: the swap aborts with a receipt and the weights
+    in service stay as they were."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.generation import _gpt_params
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    pt.seed(SEED + 7)
+    other = GPTForCausalLM(GPTConfig(**GPT2), device="cuda").eval()
+    path = os.path.join(tmp, "weights")
+    t0 = time.perf_counter()
+    ck.save_sharded({"params": _gpt_params(other)}, path)
+    save_s = time.perf_counter() - t0
+    solo = ServingEngine(other, ServingConfig(**dict(FLEET_CONFIG,
+                                                     dtype=None))).warmup()
+    want = _staggered(solo, parity["prompts"], parity["news"])
+    gaps = [_stream_gaps(torch, other, p, w)
+            for p, w in zip(parity["prompts"], want)]
+    solo.release()
+    del solo, other
+    torch.cuda.empty_cache()
+
+    fleet = _fleet_f32(model, tmp)
+    captures0 = sum(g["captures"] for g in _fleet_graphs(fleet).values())
+    t0 = time.perf_counter()
+    staged = fleet.swap_weights(checkpoint_path=path)
+    stage_s = time.perf_counter() - t0
+    pending = []
+    while fleet._standby is not None:
+        fleet.step()
+        pending.append(len(fleet._flip_pending))
+    captures1 = sum(g["captures"] for g in _fleet_graphs(fleet).values())
+    frs = _fleet_staggered(fleet, parity["prompts"], parity["news"])
+    agree = streams_agree([fr.emitted for fr in frs], want, gaps)
+    wte = {s: r.engine.params["wte"].clone()
+           for s, r in fleet._replicas.items()}
+    with _ChaosEnv("corrupt_swap", fleet._tick + 1, 0):
+        fleet.step()
+    aborted = fleet.swap_weights(checkpoint_path=path) is False
+    kept = all(torch.equal(wte[s], r.engine.params["wte"])
+               for s, r in fleet._replicas.items())
+    row = dict(staged=staged, checkpoint_save_s=save_s, stage_s=stage_s,
+               flips_pending_per_tick=pending, swaps=fleet.swaps_total,
+               captures_before=captures0, captures_after=captures1,
+               recompile_events=fleet.recompile_events(), streams=agree,
+               streams_agree=all(r["ok"] for r in agree),
+               corrupt_swap_aborted=aborted,
+               swaps_aborted=fleet.swaps_aborted,
+               old_weights_kept=kept,
+               last_episode=fleet.episodes[-1]["action"])
+    bad = []
+    if not staged or fleet.swaps_total != 1 or pending != list(
+            range(fleet.fleet.replicas - 1, -1, -1)):
+        bad.append(f"swap: staged {staged}, swaps {fleet.swaps_total}, "
+                   f"flips pending per tick {pending}")
+    if captures1 != captures0 or row["recompile_events"]:
+        bad.append(f"swap: captures {captures0} -> {captures1}, sentinel "
+                   f"events {row['recompile_events']}")
+    if not row["streams_agree"]:
+        bad.append(f"swap: streams differ from the new weights' engine: "
+                   f"{agree}")
+    if not (aborted and fleet.swaps_aborted == 1 and kept
+            and row["last_episode"] == "swap_aborted"):
+        bad.append(f"corrupt_swap: aborted {aborted}, swaps_aborted "
+                   f"{fleet.swaps_aborted}, weights kept {kept}")
+    return row, bad
+
+
+def _fleet_overload_run(torch, model, tmp):
+    """The bf16 fleet from one replica (up to two) under the serve_trace
+    requests as one burst, every other one in the batch class, at
+    queue_high FLEET_QUEUE_HIGH and shed depth FLEET_SHED_DEPTH:
+    scale_up spawns a replica whose graphs equal the expected count,
+    the burst drains with every request finished or shed, and idle
+    ticks scale down and retire the spawned replica, after which the
+    card's allocated bytes are back within FLEET_MEMORY_SLACK."""
+    import numpy as np
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import (FleetConfig, ServingConfig,
+                                          ServingFleet, ServingSLO)
+    vocab = GPT2["vocab_size"]
+    fleet = ServingFleet(
+        model, ServingConfig(**FLEET_CONFIG),
+        ServingSLO(queue_high=FLEET_QUEUE_HIGH, queue_low=0,
+                   p99_ttft_ms=1e9, shed_queue_depth=FLEET_SHED_DEPTH),
+        FleetConfig(replicas=1, min_replicas=1, max_replicas=2,
+                    autoscale=True, scale_cooldown_s=0.0,
+                    receipts_dir=tmp))
+    counter = metrics.counter("cuda_graph.captures_total", _always=True,
+                              program="serving")
+    prompts, news = serve_trace(np, vocab)
+    seen = {id(rep) for rep in fleet._replicas.values()}
+    spawns = []
+    t0 = time.perf_counter()
+    frs = [fleet.submit(p, n, cls="batch" if i % 2 else "interactive")
+           for i, (p, n) in enumerate(zip(prompts, news))]
+    ticks = 0
+    while fleet.has_work():
+        c0 = counter.value()
+        fleet.step()
+        ticks += 1
+        for slot, rep in fleet._replicas.items():
+            if id(rep) not in seen:
+                seen.add(id(rep))
+                if rep.engine is not None:
+                    spawns.append(dict(
+                        slot=slot, tick=ticks, rep=rep,
+                        graphs=rep.engine.executable_count(),
+                        expected=rep.engine.expected_executables,
+                        captures_counted=counter.value() - c0,
+                        warmup_s=rep.warmup_s))
+        if ticks > 20000:
+            fail("the fleet's overload burst did not drain")
+    secs = time.perf_counter() - t0
+    for _ in range(50):
+        if 1 not in fleet._replicas:
+            break
+        fleet.step()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    served = [fr for fr in frs if not fr.shed]
+    ttft = np.array([(fr.first_token_ts - fr.arrival) * 1e3
+                     for fr in served])
+    tokens = sum(len(fr.emitted) for fr in served)
+    last = spawns[-1]["rep"] if spawns else None
+    row = dict(requests=len(frs), shed=fleet.shed_total,
+               finished=sum(1 for fr in served
+                            if fr.finish_reason in ("length", "eos")
+                            and len(fr.emitted) == fr.max_new_tokens),
+               dropped=sum(1 for fr in frs
+                           if fr.finish_reason == "dropped"),
+               evictions=sum(fr.evictions for fr in frs), ticks=ticks,
+               seconds=secs, generated_tokens=tokens,
+               tokens_per_s=tokens / secs,
+               ttft_ms_p50=float(np.percentile(ttft, 50)),
+               ttft_ms_p99=float(np.percentile(ttft, 99)),
+               episodes=[(e["action"], e["ranks"]) for e in fleet.episodes],
+               spawns=[{k: v for k, v in s.items() if k != "rep"}
+                       for s in spawns],
+               live_replicas=fleet.live_replicas(),
+               memory_before_spawn=None if last is None
+               else last.mem_before_spawn,
+               memory_after_retire=after)
+    row["memory_back"] = last is not None and \
+        after - last.mem_before_spawn <= FLEET_MEMORY_SLACK
+    bad = []
+    if row["finished"] + row["shed"] != len(frs) or row["dropped"] or \
+            row["evictions"]:
+        bad.append(f"overload: {row['finished']} finished + {row['shed']} "
+                   f"shed of {len(frs)}, {row['dropped']} dropped, "
+                   f"{row['evictions']} evictions")
+    actions = [a for a, _ in row["episodes"]]
+    if "scale_up" not in actions or "scale_down" not in actions or \
+            fleet.live_replicas() != [0]:
+        bad.append(f"overload: episodes {row['episodes']}, live "
+                   f"{fleet.live_replicas()}")
+    if not spawns or any(s["graphs"] != s["expected"]
+                         or s["captures_counted"] != s["expected"]
+                         for s in spawns):
+        bad.append(f"overload: spawned replicas' graphs {row['spawns']}")
+    if not row["memory_back"]:
+        bad.append(f"overload: {after} bytes allocated after the retire, "
+                   f"{row['memory_before_spawn']} before the spawn")
+    return row, bad
+
+
+def fleet_phase(torch, pt, model, serving_row, parity):
+    """The serving fleet on GPT-2 small at FLEET_CONFIG: f32 parity under
+    a kill and a stall of replica 1, a hot swap from a checkpoint and a
+    corrupt_swap, and the bf16 overload burst with autoscale and
+    shedding; tokens/s and TTFT beside the `serving` phase's."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="pd_fleet_")
+    bad = []
+    faults = []
+    for mode in ("kill", "stall"):
+        row, b = _fleet_fault_run(torch, model, parity, mode, tmp)
+        faults.append(row)
+        bad += b
+        torch.cuda.empty_cache()
+    swap, b = _fleet_swap_run(torch, pt, model, parity, tmp)
+    bad += b
+    torch.cuda.empty_cache()
+    over, b = _fleet_overload_run(torch, model, tmp)
+    bad += b
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"fleet": dict(
+        card=nvidia_smi(), config=FLEET_CONFIG, faults=faults, swap=swap,
+        overload=over,
+        beside_serving=dict(
+            fleet_tokens_per_s=over["tokens_per_s"],
+            fleet_ttft_ms_p50=over["ttft_ms_p50"],
+            fleet_ttft_ms_p99=over["ttft_ms_p99"],
+            serving_tokens_per_s=serving_row["tokens_per_s"],
+            serving_ttft_ms_p50=serving_row["ttft_ms_p50"],
+            serving_ttft_ms_p99=serving_row["ttft_ms_p99"],
+            note="the fleet takes the 48 requests as one burst on 1-2 "
+                 "replicas; `serving` takes them in waves of 8 every 4 "
+                 "steps on one engine"))})
+    if bad:
+        fail("fleet: " + "; ".join(bad))
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -3399,12 +3955,14 @@ def main():
     gpt_rows, gpt_cases, gpt_model, gpt_launches = gpt_forward_phase(
         torch, pt, fa)
     generate_phase(torch, pt, fa, gpt_model)
-    _, bf16_streams = serving_phase(torch, pt, fa, gpt_model)
+    serving_row, bf16_streams = serving_phase(torch, pt, fa, gpt_model)
     parity = serving_parity_phase(torch, pt, fa, gpt_model)
     serving_levers_phase(torch, pt, fa, gpt_model, bf16_streams, parity)
     generate_capture_phase(torch, pt, gpt_model)
     telemetry_phase(torch, pt, gpt_model)
-    del gpt_model
+    torch.cuda.empty_cache()
+    fleet_phase(torch, pt, gpt_model, serving_row, parity)
+    del gpt_model, parity
     torch.cuda.empty_cache()
     gpt_kernel_rows, gpt_probes = gpt_train_kernels_phase(torch, fa, philox)
     gpt_train = gpt_train_path(torch, pt, fa)
@@ -3427,6 +3985,7 @@ def main():
              for kind in ("gpt", "ernie")}
     lr_schedule_phase(torch, pt)
     optimizers_phase(torch)
+    elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
                      "of this run succeeded, the kernels' host calls "

@@ -32,6 +32,11 @@ its own, and fill(step_seed) writes every slot's seed before each
 replay (one non-blocking copy, one manual_seed per generator).
 rewind_point()/rewound() let a recompute (distributed/recompute.py)
 draw the same seeds as the forward it repeats.
+
+get_state()/set_state() carry the stream (the base seed and each
+device's counter) through a checkpoint: a step restored with them draws
+the step seed the uninterrupted run drew at that step, so its dropout
+masks are the ones that run's were.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ from .place import host_tensor
 
 __all__ = ["default_generator", "seed", "next_seed", "seed_scope",
            "mix_seed", "scope_generator", "seed_tensor", "SeedSlots",
-           "Draw", "rewind_point", "rewound", "seed_int64", "fold_seed"]
+           "Draw", "rewind_point", "rewound", "seed_int64", "fold_seed",
+           "get_state", "set_state"]
 
 _generators: Dict[str, torch.Generator] = {}
 _seed: Optional[int] = None
@@ -112,6 +118,26 @@ def seed(s: int):
             g.manual_seed(_seed)
         _streams.clear()
     return _seed
+
+
+def get_state() -> dict:
+    """The dropout seed stream: {"seed": the base seed, "streams": each
+    device's count of next_seed() draws}, plain ints."""
+    with _lock:
+        return {"seed": _base_seed(), "streams": dict(_streams)}
+
+
+def set_state(state: dict):
+    """Restore get_state() output (ints, or 0-d arrays as a checkpoint
+    gives them back): the next next_seed() on a device continues that
+    device's stream where the saved one stood. The default generators
+    are left as they are."""
+    global _seed
+    with _lock:
+        _seed = int(state["seed"])
+        _streams.clear()
+        _streams.update({str(k): int(v)
+                         for k, v in state["streams"].items()})
 
 
 class Draw:

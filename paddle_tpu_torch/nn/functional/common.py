@@ -68,12 +68,15 @@ class _Embedding(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         was = torch.are_deterministic_algorithms_enabled()
         warn = torch.is_deterministic_algorithms_warn_only_enabled()
-        torch.use_deterministic_algorithms(True)
+        # the flag alone (torch.use_deterministic_algorithms also sets
+        # inductor's config, whose import costs a process seconds at its
+        # first backward; the port compiles nothing with inductor)
+        torch._C._set_deterministic_algorithms(True)
         try:
             gw = torch.ops.aten.embedding_dense_backward(
                 g.contiguous(), x, ctx.rows, -1, False)
         finally:
-            torch.use_deterministic_algorithms(was, warn_only=warn)
+            torch._C._set_deterministic_algorithms(was, warn_only=warn)
         return None, gw
 
 

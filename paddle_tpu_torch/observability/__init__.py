@@ -22,6 +22,9 @@ names and JSON shapes, so dumps and dashboards read alike).
   pulse_server     the localhost /metrics, /healthz, /snapshot, /series
                    HTTP thread
   decisions        the control-plane decision ledger
+  fleet            metric rollups across processes (all_gather_object
+                   over a process group) and the skip-and-flag merge of
+                   the serving fleet's replicas
 
 Everything but the decision ledger is off by default:
 `metrics.enable()` turns the counter hot paths on,
@@ -30,11 +33,11 @@ Everything but the decision ledger is off by default:
 imports torch (memory reads an already-imported one), so a dump works
 while the card is wedged. Left out: the static planes (`anatomy`,
 `calibration`, `xprof`, `mfu`, `sentry`, and memory's HLO tier;
-ROADMAP.md queue A item 17) and the multi-host `fleet` rollup (with item
-10d).
+ROADMAP.md queue A item 17).
 """
 from . import metrics  # noqa: F401
 from . import decisions  # noqa: F401
+from . import fleet  # noqa: F401
 from . import exporters  # noqa: F401
 from . import goodput  # noqa: F401
 from . import flight_recorder  # noqa: F401
@@ -53,7 +56,7 @@ from .watchdog import HangWatchdog  # noqa: F401
 __all__ = [
     "metrics", "exporters", "sentinel", "flight_recorder", "watchdog",
     "goodput", "memory", "reqtrace", "timeseries", "pulse_server",
-    "decisions",
+    "decisions", "fleet",
     "counter", "gauge", "histogram", "enable", "disable", "enabled",
     "enabled_scope", "snapshot", "reset",
     "RecompileSentinel", "signature_of", "diff_signatures",

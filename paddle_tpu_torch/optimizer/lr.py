@@ -58,7 +58,10 @@ class LRScheduler:
                 if isinstance(v, (int, float, str, bool, list))}
 
     def set_state_dict(self, state):
-        self.__dict__.update(state)
+        # a checkpoint file gives scalars back as 0-d arrays
+        self.__dict__.update({k: v.item() if hasattr(v, "item")
+                              and getattr(v, "ndim", None) == 0 else v
+                              for k, v in state.items()})
 
     set_dict = set_state_dict
 

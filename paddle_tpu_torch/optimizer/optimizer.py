@@ -230,7 +230,7 @@ class Optimizer:
         written in place (copy_), so its identity, and a captured graph
         that reads it, stay valid; a missing one is created as a copy on
         the param's device."""
-        self._step_count = state.get("_step_count", 0)
+        self._step_count = int(state.get("_step_count", 0))
         for i, p in enumerate(self._parameters or []):
             key = f"param_{i}"
             if key not in state:

@@ -16,11 +16,14 @@
   engine       ServingEngine: bf16 by default, an f32 parity mode held
                token for token against models/generation.py greedy;
                int8 weights, speculative decoding and prefix sharing
+  fleet        ServingFleet: N self-healing replicas behind one priority
+               queue (exact requeue, SLO autoscale, hot weight swap)
 
-Not ported yet (ROADMAP.md queue A): loadgen (10c), the fleet (10d), tp
-serving (14).
+Not ported yet (ROADMAP.md queue A): loadgen (10c), tp serving (14).
 """
 from .engine import ServingConfig, ServingEngine, build_serving_snapshot
+from .fleet import (PRIORITY_CLASSES, FleetConfig, FleetRequest,
+                    Replica, ServingFleet, ServingSLO)
 from .paged_cache import PagedKVCache
 from .programs import (ProgramCache, make_chunk_fn, make_decode_fn,
                        make_prefill_fn)
@@ -28,4 +31,6 @@ from .scheduler import BucketLadder, FifoScheduler, Request
 
 __all__ = ["ServingConfig", "ServingEngine", "build_serving_snapshot",
            "PagedKVCache", "ProgramCache", "make_chunk_fn", "make_decode_fn",
-           "make_prefill_fn", "BucketLadder", "FifoScheduler", "Request"]
+           "make_prefill_fn", "BucketLadder", "FifoScheduler", "Request",
+           "ServingSLO", "FleetConfig", "FleetRequest", "Replica",
+           "ServingFleet", "PRIORITY_CLASSES"]

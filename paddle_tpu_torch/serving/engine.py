@@ -49,9 +49,12 @@ the ``serving.*`` counters (admitted, retired, evicted, tokens, prefix
 hits, speculative proposed/accepted, weight swaps), histograms (ttft,
 prefill and decode step ms) and gauges (queue depth, active slots,
 pages); and the OOM sentry around every captured dispatch
-(observability.memory.handle_dispatch_oom, then re-raise). Spans carry
-the boundary number as their tick. They carry no replica label:
-only the fleet sets one in the JAX package (ROADMAP item 10d).
+(observability.memory.handle_dispatch_oom, then re-raise). A fleet
+(serving/fleet.py) labels its replicas' engines: ``trace_replica``, the
+slot, rides every mark, span and OOM receipt, and ``trace_tick``, the
+fleet tick, replaces the engine's own boundary number as the spans'
+tick; a standalone engine leaves both None and marks each request's
+submit itself.
 
 Not ported yet: tensor-parallel plans (``plan=``, ROADMAP.md queue A
 item 14).
@@ -255,6 +258,9 @@ class ServingEngine:
         self.programs = ProgramCache(self.device)
         self.sentinel = RecompileSentinel("serving")
         self._step_no = 0
+        # request-trace labels a fleet sets (slot, fleet tick)
+        self.trace_replica: Optional[int] = None
+        self.trace_tick: Optional[int] = None
         # the sampling noise's generator (drawn outside the programs)
         self._gen = None
         if cfg.temperature != 0.0:
@@ -359,9 +365,11 @@ class ServingEngine:
                 f"request needs {need} pages > pool size "
                 f"{self.cache.n_blocks - 1}")
         if _rt._enabled:
-            # a standalone engine: this call is the request's arrival
-            _rt.mark(req.rid, "submit", t=req.arrival)
-            _rt.mark(req.rid, "dispatch")
+            if self.trace_replica is None:
+                # a standalone engine: this call is the request's
+                # arrival (a fleet marks submit at its class queue)
+                _rt.mark(req.rid, "submit", t=req.arrival)
+            _rt.mark(req.rid, "dispatch", replica=self.trace_replica)
         self.sched.submit(req)
         if _obs._enabled:
             _obs.gauge("serving.queue_depth").set(self.sched.queue_depth)
@@ -378,6 +386,7 @@ class ServingEngine:
             return call()
         except Exception as e:
             _mem.handle_dispatch_oom(program, e, step=self._step_no,
+                                     replica=self.trace_replica,
                                      **context)
             raise
 
@@ -471,7 +480,8 @@ class ServingEngine:
         if _rt._enabled:
             for r in finished:
                 _rt.mark(r.rid, "retire", t=r.done_ts,
-                         reason=r.finish_reason)
+                         reason=r.finish_reason,
+                         replica=self.trace_replica)
         if _obs._enabled and finished:
             _obs.counter("serving.retired_total").add(len(finished))
         batch = self.sched.take_admissible(
@@ -501,6 +511,23 @@ class ServingEngine:
                 _obs.gauge("serving.pages_shared").set(self.cache.n_shared)
         return finished
 
+
+    def _tick(self) -> int:
+        """The spans' tick: the fleet's, else this engine's boundary."""
+        return self._step_no if self.trace_tick is None else self.trace_tick
+
+    def release(self):
+        """Drop the captured programs, the page pools and the weight
+        snapshots, so their card memory goes back to the allocator (a
+        fleet calls it on a replica it kills or retires). The engine
+        serves nothing after."""
+        self.programs._entries.clear()
+        self.cache._copy._entries.clear()
+        self.cache.pools = None
+        self.params = None
+        if self.draft_cache is not None:
+            self.draft_cache.pools = None
+            self.draft_params = None
 
     def _free(self, r):
         self.cache.free(r.rid)
@@ -571,16 +598,17 @@ class ServingEngine:
                 self.cache.register_prefix(r.rid, r.ids)
         s = ids.shape[1]
         if _rt._enabled:
-            tick = self._step_no
+            tick = self._tick()
             for r in batch:
                 if r.shared_tokens:
                     # the radix match + shared alloc slice of admission
                     _rt.record_span(r.rid, "prefix_match", t0, t_match,
                                     shared_tokens=r.shared_tokens,
-                                    tick=tick)
+                                    replica=self.trace_replica, tick=tick)
                 _rt.record_span(r.rid, "prefill",
                                 t_match if r.shared_tokens else t0, now,
-                                bucket=s, width=a, tick=tick)
+                                bucket=s, width=a,
+                                replica=self.trace_replica, tick=tick)
         if _obs._enabled:
             _obs.counter("serving.admitted_total").add(len(batch))
             _obs.histogram("serving.prefill_ms").observe((now - t0) * 1e3)
@@ -641,10 +669,11 @@ class ServingEngine:
                 r.accept(int(toks_out[s, i]))
                 accepted += 1
         if _rt._enabled:
-            t1, tick = time.perf_counter(), self._step_no
+            t1, tick = time.perf_counter(), self._tick()
             for r in active:
                 _rt.record_span(r.rid, "decode", t0, t1, bucket=b,
-                                chunk=int(toks_out.shape[0]), tick=tick)
+                                chunk=int(toks_out.shape[0]),
+                                replica=self.trace_replica, tick=tick)
         if _obs._enabled:
             _obs.histogram("serving.decode_step_ms").observe(
                 (time.perf_counter() - t0) * 1e3)
@@ -697,12 +726,13 @@ class ServingEngine:
         self.spec_accepted += accepted
         chunk_sigs.append((b, k + 1))
         if _rt._enabled:
-            t1, tick = time.perf_counter(), self._step_no
+            t1, tick = time.perf_counter(), self._tick()
             for r in active:
                 _rt.record_span(r.rid, "draft", t0, t_draft, bucket=b, k=k,
-                                tick=tick)
+                                replica=self.trace_replica, tick=tick)
                 _rt.record_span(r.rid, "decode", t_draft, t1, bucket=b,
-                                chunk=k + 1, tick=tick)
+                                chunk=k + 1, replica=self.trace_replica,
+                                tick=tick)
         if _obs._enabled:
             _obs.histogram("serving.decode_step_ms").observe(
                 (time.perf_counter() - t0) * 1e3)

@@ -67,11 +67,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..amp.auto_cast import auto_cast
 from ..amp.functional import (check_finite_and_unscale_tree,
                               update_loss_scaling_state)
+from ..core import generator as _generator
 from ..core.generator import Draw, SeedSlots, mix_seed, next_seed, seed_scope
 from ..core.place import host_tensor
 from ..distributed.recompute import check_policy, checkpointed
@@ -449,29 +451,38 @@ class TrainStep:
     # -- checkpoints ----------------------------------------------------------
     def state_dict(self):
         """A snapshot (copies): the live tensors are updated in place by
-        later steps."""
+        later steps. Beside the model, the optimizer (moments, its step
+        count, the lr scheduler) and strategy_state, it carries the
+        dropout seed stream (core.generator.get_state) and the number of
+        steps taken, so a step restored from it draws the masks the
+        uninterrupted run drew at that step."""
         return {"model": {k: v.detach().clone()
                           for k, v in self.layer.state_dict().items()},
                 "opt": self.optimizer.state_dict(),
                 "strategy_state": {
                     k: v.detach().clone() if isinstance(v, torch.Tensor)
-                    else v for k, v in self.strategy_state.items()}}
+                    else v for k, v in self.strategy_state.items()},
+                "seed": _generator.get_state(),
+                "step": self._steps_done}
 
     @torch.no_grad()
     def set_state_dict(self, state):
-        """Restore a state_dict() checkpoint. Every tensor that exists is
+        """Restore a state_dict() checkpoint (tensors, or the numpy
+        arrays a checkpoint file gives back). Every tensor that exists is
         written in place (the model's, the optimizer's, strategy_state's),
         so a captured program goes on reading the restored values."""
         if state.get("model"):
             own = self.layer.state_dict()
             for k, v in state["model"].items():
                 if k in own:
-                    own[k].copy_(v)
+                    own[k].copy_(torch.as_tensor(v))
         if state.get("opt") is not None:
             self.optimizer.set_state_dict(state["opt"])
         if state.get("strategy_state") is not None:
             st = self.strategy_state
             for k, v in state["strategy_state"].items():
+                if isinstance(v, np.ndarray):
+                    v = torch.as_tensor(v, device=self._device())
                 if isinstance(v, torch.Tensor) and isinstance(
                         st.get(k), torch.Tensor) and st[k].shape == v.shape:
                     st[k].copy_(v)
@@ -480,6 +491,10 @@ class TrainStep:
                         if isinstance(v, torch.Tensor) else v
             if self._scaler_cfg is not None:
                 self._init_scaler_state()
+        if state.get("seed") is not None:
+            _generator.set_state(state["seed"])
+        if state.get("step") is not None:
+            self._steps_done = int(state["step"])
 
 
 class _EvalFn:

@@ -492,3 +492,80 @@ def test_telemetry_gates_name_each_failure(cs, path, value, word):
         row["pulse_metrics"][path[1]] = value
     out = cs.telemetry_gates(row)
     assert len(out) == 1 and word in out[0], out
+
+
+def _elastic_inc(inc, losses, resume=None, cands=(), done=True):
+    want = {k: 12 for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                            "flash_attn_bwd_dkv")}
+    return dict(incarnation=inc, resume_step=resume, restore_ms=1.0,
+                candidate_steps=list(cands), done=done, graphs=1,
+                captures=1, replays=3, sentinel_events=0,
+                warmup_launches=want, losses=losses, saves=[],
+                goodput={"checkpoint_fraction": 0.1})
+
+
+def _elastic_runs():
+    ctrl = {str(s): 5.0 - 0.1 * s for s in range(8)}
+    man = {"['train']['w']": {"crc32": 1}, "['train']['m']": {"crc32": 2}}
+    control = dict(name="control", mode=None, at=None, seconds=1.0,
+                   incs=[_elastic_inc(0, dict(ctrl))], receipts=[],
+                   progress=[], manifest=dict(man))
+    first = {str(s): ctrl[str(s)] for s in range(5)}
+    second = {str(s): ctrl[str(s)] for s in range(4, 8)}
+    kill = dict(name="kill", mode="kill", at=5, seconds=2.0,
+                incs=[_elastic_inc(0, first, done=False),
+                      _elastic_inc(1, second, resume=3, cands=(3, 1))],
+                receipts=[{"action": "respawn_gang", "backoff_s": 0.1,
+                           "verdict": {"kind": "crash", "rank": 0}}],
+                progress=[{"inc": 0, "step": 5, "phase": "begin",
+                           "t": 10.0},
+                          {"inc": 1, "step": 4, "phase": "end",
+                           "t": 25.0}],
+                manifest=dict(man))
+    return control, kill
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None),
+    ("loss", "against the control's"),
+    ("manifest", "final manifest differs"),
+    ("resume", "resumed from"),
+    ("receipts", "receipts"),
+    ("launches", "warm-up launches"),
+    ("unfinished", "incarnations")])
+def test_elastic_gates_name_each_failure(cs, breakage, word):
+    control, kill = _elastic_runs()
+    if breakage == "loss":
+        kill["incs"][1]["losses"]["6"] += 1e-7
+    elif breakage == "manifest":
+        kill["manifest"]["['train']['m']"] = {"crc32": 3}
+    elif breakage == "resume":
+        kill["incs"][1]["candidate_steps"] = [5, 3]
+    elif breakage == "receipts":
+        kill["receipts"] = kill["receipts"] * 2
+    elif breakage == "launches":
+        kill["incs"][0]["warmup_launches"]["flash_attn_bwd_dq"] = 11
+    elif breakage == "unfinished":
+        kill["incs"][1]["done"] = False
+    assert cs._elastic_row(control, None)[1] == []
+    row, bad = cs._elastic_row(kill, control)
+    if breakage is None:
+        assert bad == []
+        assert row["resume_step"] == 3 and row["died_at_step"] == 5
+        assert row["kill_to_first_resumed_step_s"] == 15.0
+        assert row["manifest_leaves_equal"] == 2
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_fleet_ladder_covers_every_resumable_prefix(cs):
+    """The fleet's config adds the 256 bucket: requeue needs a prefill
+    bucket for max_total_tokens - 1 tokens, which SERVE_CONFIG's ladder
+    lacks."""
+    assert cs.SERVE_CONFIG["prefill_buckets"][-1] < \
+        cs.SERVE_CONFIG["max_total_tokens"] - 1
+    assert cs.FLEET_CONFIG["prefill_buckets"][-1] >= \
+        cs.FLEET_CONFIG["max_total_tokens"] - 1
+    assert {k: v for k, v in cs.FLEET_CONFIG.items()
+            if k != "prefill_buckets"} == {
+        k: v for k, v in cs.SERVE_CONFIG.items() if k != "prefill_buckets"}

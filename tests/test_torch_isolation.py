@@ -58,7 +58,17 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.static.capture, "
         "paddle_tpu_torch.static.train_step, "
         "paddle_tpu_torch.optimizer.optimizers, "
-        "paddle_tpu_torch.core.generator\n"
+        "paddle_tpu_torch.core.generator, paddle_tpu_torch.serialization, "
+        "paddle_tpu_torch.distributed.chaos, "
+        "paddle_tpu_torch.distributed.elastic, "
+        "paddle_tpu_torch.distributed.checkpoint, "
+        "paddle_tpu_torch.distributed.launch, "
+        "paddle_tpu_torch.distributed.elastic_worker, "
+        "paddle_tpu_torch.distributed.fleet.utils, "
+        "paddle_tpu_torch.distributed.fleet.utils.heartbeat, "
+        "paddle_tpu_torch.distributed.fleet.utils.http_server, "
+        "paddle_tpu_torch.observability.fleet, "
+        "paddle_tpu_torch.serving.fleet\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -67,6 +77,28 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
     assert "BAD []" in out
     # importing builds and loads no kernel
     assert "LIBS {}" in out
+
+
+def test_collect_diagnosis_loads_nothing_of_the_jax_package(tmp_path):
+    """The supervisor's doctor bridge loads tools/tpu_doctor.py by path
+    and calls only its pure merge: afterwards no module of the JAX
+    package, of jax, or the doctor's perf-ledger shim is loaded."""
+    for rank, seq in ((0, 8), (1, 5)):
+        (tmp_path / f"flight_x_rank{rank}_pid{rank}.json").write_text(
+            '{"version": 1, "ts": 1.0, "rank": %d, "world": 2, '
+            '"events": [], "collective_seq": {"dp|allreduce_sum": %d}, '
+            '"progress": {"steps": 3}}' % (rank, seq))
+    out = _run(
+        "import sys\n"
+        "from paddle_tpu_torch.distributed import elastic\n"
+        f"b = elastic.collect_diagnosis({str(tmp_path)!r})\n"
+        "print('VERDICT', b['verdict']['kind'], b['verdict']['rank'])\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or "
+        "m.startswith(('jax.', 'jaxlib', 'paddle_tpu.', "
+        "'_pd_analysis_shim'))]\n"
+        "print('BAD', bad)\n")
+    assert "VERDICT divergence 1" in out
+    assert "BAD []" in out
 
 
 def test_default_device_raises_without_cuda_and_cpu_works():
