@@ -285,7 +285,31 @@ Phases, each of which fails the run on any mismatch:
    scale down and retire the spawned replica, and memory comes back as
    above. Tokens/s and TTFT p50/p99 beside `serving`'s, each replica's
    graphs and spawn seconds.
-27. Elastic training (`elastic_train`, last): GPT-2 small (GPT_TRAIN, O1
+27. Load generator (`loadgen`, after `fleet`): paddle_tpu_torch/serving/
+   loadgen.py's open-loop replays of synthetic_trace(40, 50304, seed 0,
+   60 requests/s) (tools/serving_bench.py's defaults): replay_continuous
+   through a bf16 engine at SERVE_CONFIG (0 recompile events, programs
+   = expected), replay_static at batch 4 through generate (bf16), cold
+   then warm (compiled_signatures, and the programs each leg captured),
+   and replay_fleet over 2 bf16 replicas at FLEET_CONFIG on the same
+   trace with a class mix of half interactive, half batch (0 dropped). Every finished
+   request has exactly its max_new_tokens. Tokens/s, TTFT p50/p99 and
+   per-token ms of each leg, the fleet's shed and summary().
+28. Data-parallel training (`dp_train`, after the captured phases): a
+   process group of one rank on NCCL (init_parallel_env in this process,
+   destroyed after), GPT-2 small 8x1024 O1 (GPT_TRAIN) through
+   TrainStep(mesh={"dp": 1}) from captured_train's weights, batch and
+   step seeds: 1 graph, 0 sentinel events; the first call and 3 replays
+   bit-equal, losses and every parameter, to the same step without a
+   mesh; a replay's profile holds NCCL's all-reduce kernel once a
+   gradient and once for the loss (`nccl_launches`) and 12 launches of
+   each flash kernel. Then the same step with the comm planner's sync
+   (make_comm_sync_transform, compress "bf16" and "int8_ef") as its
+   grad_transform: step ms beside the plain dp step's, the losses after
+   3 steps beside the plain ones, comm.wire_bytes of a step. Last, every
+   collective of distributed/collective.py on card tensors through NCCL
+   at world size 1, against the identity.
+29. Elastic training (`elastic_train`, last): GPT-2 small (GPT_TRAIN, O1
    bf16, AdamW) at GPT_TRAIN_BATCH, ELASTIC_STEPS steps with an async
    save every ELASTIC_EVERY, through `python -m
    paddle_tpu_torch.distributed.launch --elastic` and
@@ -1292,6 +1316,12 @@ def kernel_launches(names):
     return out
 
 
+def is_nccl(name):
+    """A device event of NCCL's: its collective kernels, and at one rank
+    oneRankReduce, which an AVG all-reduce launches to scale by 1/1."""
+    return "nccl" in name.lower() or "oneRankReduce" in name
+
+
 def per_call(total, calls):
     """total launches over `calls` calls as launches a call; a count
     that does not divide stays a fraction, so it matches no whole
@@ -1334,6 +1364,8 @@ def device_profile(torch, fn, runs):
                 top=[dict(ms=r[0], name=r[1][:90], calls=r[2])
                      for r in rows[:25]],
                 kernel_launches=kernel_launches(n for n, _ in events),
+                nccl_launches=sum(1 for n, _ in events if is_nccl(n)),
+                nccl_names=sorted({n[:90] for n, _ in events if is_nccl(n)}),
                 device_events=len(events))
 
 
@@ -3863,6 +3895,278 @@ def fleet_phase(torch, pt, model, serving_row, parity):
         fail("fleet: " + "; ".join(bad))
 
 
+# -- the load generator (loadgen) -------------------------------------------------
+# tools/serving_bench.py:262-269's defaults: 40 requests, seed 0, 60/s
+LOADGEN_TRACE = dict(n_requests=40, seed=0, rate_rps=60.0)
+LOADGEN_MIX = {"interactive": 0.5, "batch": 0.5}
+LOADGEN_STATIC_BATCH = 4
+
+
+def _loadgen_row(stats):
+    return dict(
+        tokens_per_s=stats["sustained_tokens_per_sec"],
+        ttft_ms_p50=stats["ttft_ms"]["p50"],
+        ttft_ms_p99=stats["ttft_ms"]["p99"],
+        per_token_ms_p50=stats["per_token_ms"]["p50"],
+        per_token_ms_p99=stats["per_token_ms"]["p99"],
+        requests=stats["requests"], total_new_tokens=stats["total_new_tokens"],
+        span_s=stats["span_s"])
+
+
+def loadgen_phase(torch, pt, model):
+    """paddle_tpu_torch/serving/loadgen.py's three replays of one
+    synthetic trace on GPT-2 small in bf16: the engine, static batches
+    (cold, then warm) and a 2-replica fleet."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.serving import (FleetConfig, ServingConfig,
+                                          ServingEngine, ServingFleet,
+                                          ServingSLO, loadgen)
+    vocab = GPT2["vocab_size"]
+    trace = loadgen.synthetic_trace(vocab_size=vocab, **LOADGEN_TRACE)
+    bad = []
+    t_phase = time.perf_counter()
+    # the engine
+    eng = ServingEngine(model, ServingConfig(**SERVE_CONFIG))
+    eng.warmup()
+    finished = []
+    step = eng.step
+
+    def counted_step():
+        done = step()
+        finished.extend(done)
+        return done
+    eng.step = counted_step
+    stats = loadgen.replay_continuous(eng, trace)
+    short = [r.rid for r in finished if len(r.out) != r.max_new_tokens]
+    engine = dict(_loadgen_row(stats), executables=stats["executables"],
+                  expected_executables=stats["expected_executables"],
+                  recompile_events=stats["recompile_events"],
+                  peak_pages_live=stats["peak_pages_live"])
+    if stats["recompile_events"] or \
+            stats["executables"] != stats["expected_executables"]:
+        bad.append(f"engine leg: {engine}")
+    if short or len(finished) != len(trace):
+        bad.append(f"engine leg: {len(finished)} finished of {len(trace)}, "
+                   f"short budgets {short}")
+    eng.release()
+    del eng
+    torch.cuda.empty_cache()
+    # static batches through generate, cold then warm
+    static = {}
+    for leg in ("cold", "warm"):
+        st = loadgen.replay_static(model, trace,
+                                   batch_size=LOADGEN_STATIC_BATCH,
+                                   dtype="bfloat16")
+        static[leg] = dict(_loadgen_row(st),
+                           compiled_signatures=st["compiled_signatures"],
+                           program_captures=st["program_captures"])
+        if st["requests"] != len(trace):
+            bad.append(f"static {leg}: {st['requests']} requests")
+    if static["warm"]["program_captures"] != 0 or \
+            static["cold"]["program_captures"] != \
+            static["cold"]["compiled_signatures"]:
+        bad.append(f"static: captures {static}")
+    # the fleet on the staggered trace
+    tmp = tempfile.mkdtemp(prefix="pd_loadgen_")
+    mixed = loadgen.synthetic_trace(vocab_size=vocab, class_mix=LOADGEN_MIX,
+                                    **LOADGEN_TRACE)
+    fleet = ServingFleet(model, ServingConfig(**FLEET_CONFIG), ServingSLO(),
+                         FleetConfig(replicas=2, min_replicas=1,
+                                     max_replicas=2, autoscale=False,
+                                     receipts_dir=tmp))
+    fstats, ffinished, fshed = loadgen.replay_fleet(fleet, mixed)
+    fshort = [fr.rid for fr in ffinished
+              if fr.finish_reason in ("length", "eos")
+              and len(fr.emitted) != fr.max_new_tokens]
+    fleet_row = dict(_loadgen_row(fstats), shed=fstats["shed"],
+                     dropped_requests=fstats["dropped_requests"],
+                     per_class_ttft_ms=fstats.get("per_class_ttft_ms"),
+                     summary=fstats["fleet"])
+    if fstats["dropped_requests"] or fshort or \
+            len(ffinished) + len(fshed) != len(mixed):
+        bad.append(f"fleet leg: {len(ffinished)} finished + {len(fshed)} "
+                   f"shed of {len(mixed)}, dropped "
+                   f"{fstats['dropped_requests']}, short budgets {fshort}")
+    for rep in fleet._replicas.values():
+        if rep.engine is not None:
+            rep.engine.release()
+    del fleet
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"loadgen": dict(
+        card=nvidia_smi(), trace=dict(LOADGEN_TRACE, vocab=vocab,
+                                      class_mix_fleet=LOADGEN_MIX),
+        config=SERVE_CONFIG, fleet_config=FLEET_CONFIG, engine=engine,
+        static=static, fleet=fleet_row,
+        seconds=time.perf_counter() - t_phase)})
+    if bad:
+        fail("loadgen: " + "; ".join(bad))
+
+
+# -- data-parallel training (dp_train) -----------------------------------------------
+DP_COMPRESS = ("bf16", "int8_ef")
+DP_TIMED = 10
+
+
+def _collectives_identity(torch, c):
+    """Every collective of distributed/collective.py on card tensors at
+    world size 1 (NCCL), against what it must give: the identity."""
+    x = torch.randn(64, 48, device="cuda")
+    got = {}
+    for op in ("sum", "max", "min", "avg", "prod"):
+        got["all_reduce_" + op] = (c.all_reduce(x.clone(), op=op), x)
+    got["all_gather"] = (c.all_gather(x), x[None])
+    lst = []
+    c.all_gather(lst, x)
+    got["all_gather_list"] = (torch.stack(lst), x[None])
+    got["broadcast"] = (c.broadcast(x.clone(), src=0), x)
+    got["reduce"] = (c.reduce(x.clone(), dst=0), x)
+    got["scatter"] = (c.scatter(x.clone()), x)
+    got["reduce_scatter"] = (c.reduce_scatter(x.clone()), x)
+    got["all_to_all"] = (c.all_to_all(x.clone()), x)
+    got["all_to_all_cat1"] = (c.all_to_all(x.clone(), split_axis=0,
+                                           concat_axis=1), x)
+    got["p2p_shift"] = (c.p2p_shift(x, shift=1), x)
+    c.send(x, dst=0)
+    got["send_recv"] = (c.recv(torch.zeros_like(x), src=0), x)
+    c.barrier()
+    torch.cuda.synchronize()
+    return {k: bool(torch.equal(a, b)) for k, (a, b) in got.items()}
+
+
+def _timed_replays(torch, step, x, y, n=DP_TIMED):
+    step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(x, y)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def dp_train_phase(torch, pt, fa):
+    """GPT-2 small 8x1024 O1 through TrainStep(mesh={"dp": 1}) on a
+    one-rank NCCL process group, against the same step without a mesh;
+    then the comm planner's bf16 and int8_ef syncs; then the collectives
+    at world size 1. Returns the row (its `launches`: the first call's
+    warm-up and a profiled replay, counted as captured_train counts)."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as c
+    from paddle_tpu_torch.distributed.comm import CommConfig
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
+        make_comm_sync_transform
+    from paddle_tpu_torch.observability import metrics
+    t_phase = time.perf_counter()
+    env = dist.init_parallel_env()
+    try:
+        if tdist.get_backend() != "nccl" or env.world_size != 1:
+            fail(f"dp_train: backend {tdist.get_backend()}, world "
+                 f"{env.world_size}")
+        mesh = dist.get_mesh()
+        identity = _collectives_identity(torch, c)
+        # the plain step and the dp step, from one start (SEED)
+        plain_model = _train_model(pt, "gpt")
+        plain, x, y, (b, s), layers = _train_step(torch, "gpt", plain_model)
+        dp_model = _train_model(pt, "gpt")
+        _zero(fa)
+        step, _, _, _, _ = _train_step(torch, "gpt", dp_model, mesh=mesh)
+        losses = {"dp": [], "plain": []}
+        for sd in STEP_SEEDS:
+            losses["dp"].append(float(step(x, y, seed=sd)))
+            if len(losses["dp"]) == 1:
+                warm = dict(step.last_launches)
+                wrapper_counts = dict(fa.launches)
+            losses["plain"].append(float(plain(x, y, seed=sd)))
+        params_equal = _bit_equal(_snapshot(step), _snapshot(plain))
+        prof = profile_step(torch, step, x, y)
+        _expect_launches("dp gpt", [warm, prof["launches_per_replay"]],
+                         layers)
+        nccl_per_replay = prof["nccl_launches"] / PROFILED_REPLAYS
+        want_nccl = len(step.params) + 1         # the grads and the loss
+        dp_ms = _timed_replays(torch, step, x, y)
+        plain_ms = _timed_replays(torch, plain, x, y)
+        plain.release()
+        del plain, plain_model
+        torch.cuda.empty_cache()
+        comm_rows = {}
+        for compress in DP_COMPRESS:
+            model = _train_model(pt, "gpt")
+            init, fn = make_comm_sync_transform(CommConfig(compress=compress))
+            state = init({k: p for k, p in model.named_parameters()
+                          if p.requires_grad})
+            cstep, _, _, _, _ = _train_step(
+                torch, "gpt", model, mesh=mesh, grad_transform=fn,
+                strategy_state=state)
+            metrics.enable()
+            metrics.reset("comm.")
+            closs = [float(cstep(x, y, seed=STEP_SEEDS[0]))]
+            # the first call runs the body twice: warm-up and capture
+            wire = metrics.get("comm.wire_bytes").value() / 2
+            metrics.disable()
+            closs += [float(cstep(x, y, seed=sd)) for sd in STEP_SEEDS[1:]]
+            cms = _timed_replays(torch, cstep, x, y)
+            comm_rows[compress] = dict(
+                graphs=cstep.programs,
+                sentinel_events=cstep.recompile_sentinel.fired,
+                losses=closs, loss_change_vs_plain=[
+                    a - p for a, p in zip(closs, losses["plain"])],
+                step_ms=cms, step_ms_vs_plain_dp=cms / dp_ms,
+                wire_bytes_per_step=wire,
+                f32_bytes_per_step=4 * sum(p.numel() for p in cstep.params),
+                residual_buckets=sum(1 for k in cstep.strategy_state
+                                     if k.startswith("residual_")))
+            cstep.release()
+            del cstep, model
+            torch.cuda.empty_cache()
+        row = dict(
+            card=nvidia_smi(), model="gpt", batch=b, seq=s, amp="O1 bfloat16",
+            dropout=0.1, mesh=mesh.shape, backend="nccl",
+            world_size=env.world_size, graphs=step.programs,
+            sentinel_events=step.recompile_sentinel.fired,
+            step_seeds=STEP_SEEDS, losses=losses["dp"],
+            plain_losses=losses["plain"],
+            losses_bit_equal=losses["dp"] == losses["plain"],
+            params_bit_equal=params_equal,
+            launches_per_replay=prof["launches_per_replay"],
+            launches=_sum_launches([warm, prof["kernel_launches"]]),
+            wrapper_counts=wrapper_counts, counted_calls=COUNTED_CALLS,
+            nccl_launches_per_replay=nccl_per_replay,
+            nccl_expected=want_nccl,
+            nccl_kernels=prof["nccl_names"],
+            step_ms=dp_ms, plain_step_ms=plain_ms,
+            dp_over_plain=dp_ms / plain_ms,
+            device_ms_per_step=prof["device_ms"],
+            comm=comm_rows, collectives_identity=identity,
+            seconds=time.perf_counter() - t_phase)
+        step.release()
+        del step, dp_model
+        torch.cuda.empty_cache()
+    finally:
+        dist.set_mesh(None)
+        tdist.destroy_process_group()
+    emit({"dp_train": row})
+    bad = []
+    if row["graphs"] != 1 or row["sentinel_events"]:
+        bad.append(f"graphs {row['graphs']}, sentinel "
+                   f"{row['sentinel_events']}")
+    if not (row["losses_bit_equal"] and row["params_bit_equal"]):
+        bad.append("the dp step is not bit-equal to the plain step")
+    if nccl_per_replay != want_nccl:
+        bad.append(f"{nccl_per_replay} NCCL kernels a replay, expected "
+                   f"{want_nccl}")
+    if not all(identity.values()):
+        bad.append(f"collectives at world size 1: {identity}")
+    for k, r in comm_rows.items():
+        if r["graphs"] != 1 or r["sentinel_events"] or \
+                not all(math.isfinite(v) for v in r["losses"]):
+            bad.append(f"comm {k}: {r}")
+    if bad:
+        fail("dp_train: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -3962,6 +4266,7 @@ def main():
     telemetry_phase(torch, pt, gpt_model)
     torch.cuda.empty_cache()
     fleet_phase(torch, pt, gpt_model, serving_row, parity)
+    loadgen_phase(torch, pt, gpt_model)
     del gpt_model, parity
     torch.cuda.empty_cache()
     gpt_kernel_rows, gpt_probes = gpt_train_kernels_phase(torch, fa, philox)
@@ -3985,6 +4290,8 @@ def main():
              for kind in ("gpt", "ernie")}
     lr_schedule_phase(torch, pt)
     optimizers_phase(torch)
+    dp = dp_train_phase(torch, pt, fa)
+    torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
@@ -4020,7 +4327,8 @@ def main():
                    "captured_training_gpt_scaler_accum2":
                        scaler["launches"][k],
                    **{f"remat_{p}_{m}": remat[m][p]["launches"][k]
-                      for m in remat for p in remat[m] if p != "plain"}}
+                      for m in remat for p in remat[m] if p != "plain"},
+                   "dp_training_gpt": dp["launches"][k]}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1
@@ -4054,6 +4362,7 @@ def main():
             bound_by=gpt_head["dkv_bound_by"], library_ms=None)}
     for k, v in gpt_at.items():
         v.update(shape=gpt_shape, launches_per_step=per_step[k],
+                 launches_per_dp_step=dp["launches_per_replay"][k],
                  backward_ms=gpt_head["backward_ms"],
                  backward_library_ms=gpt_head["backward_library_ms"])
     # no library call computes one backward kernel's outputs alone: the

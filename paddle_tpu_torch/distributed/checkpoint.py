@@ -201,8 +201,10 @@ def _snapshot(tree, reuse: bool):
 
 
 def _to_target(host, target):
-    """Restored numpy leaves as tensors on the devices of `target`'s
-    matching tensors (leaves with no tensor there stay numpy)."""
+    """Restored numpy leaves as tensors of the dtypes and on the devices
+    of `target`'s matching tensors (leaves with no tensor there stay
+    numpy; a JAX package's bfloat16 leaf goes through
+    serialization.from_numpy)."""
     if target is None:
         return host
     tgt = dict(_flatten(target))
@@ -210,7 +212,7 @@ def _to_target(host, target):
     def one(name, arr):
         t = tgt.get(name)
         if isinstance(t, torch.Tensor):
-            return torch.as_tensor(arr).to(t.device)
+            return serialization.from_numpy(arr).to(t.device, t.dtype)
         return arr
     return _map(one, host)
 

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..core.place import resolve_device
+from ..serialization import from_numpy
 
 __all__ = ["load_jax_params", "load_jax_serving_params",
            "serving_params_to_numpy"]
@@ -32,22 +33,16 @@ def load_jax_params(model, state: Dict[str, np.ndarray]):
     arrays = {}
     for name, arr in state.items():
         arr = np.asarray(arr)
-        if arr.dtype.name == "bfloat16":  # ml_dtypes; torch cannot wrap it
-            arr = arr.astype(np.float32)
         if tuple(arr.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
                              f"match the model's {tuple(own[name].shape)}")
-        arrays[name] = arr
+        arrays[name] = from_numpy(arr)
     model.set_state_dict(arrays)
     return model
 
 
 def _tensor(arr, device):
-    arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":  # exact through f32
-        return torch.from_numpy(arr.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.array(arr)).to(device)
+    return from_numpy(np.array(arr)).to(device)
 
 
 def load_jax_serving_params(snapshot, device=None):

@@ -85,10 +85,9 @@ class ErnieConfig:
 
 
 def _check_supported(config: ErnieConfig):
-    later = [(config.moe_num_experts > 0, "moe_num_experts > 0",
-              "the distributed slice"),
-             (bool(config.sequence_parallel), "sequence_parallel",
-              "the distributed slice")]
+    where = "the distributed slice, part 2 (ROADMAP.md item 14)"
+    later = [(config.moe_num_experts > 0, "moe_num_experts > 0", where),
+             (bool(config.sequence_parallel), "sequence_parallel", where)]
     for bad, flag, where in later:
         if bad:
             raise NotImplementedError(

@@ -18,6 +18,7 @@ from torch import nn
 from ...core import dtypes as _dtypes
 from ...core.generator import default_generator
 from ...core.place import resolve_device
+from ...serialization import from_numpy
 from ..initializer import Constant, Initializer, XavierNormal
 
 __all__ = ["Layer"]
@@ -63,7 +64,7 @@ class Layer(nn.Module):
                 unexpected.append(k)
                 continue
             src = v if isinstance(v, torch.Tensor) else \
-                torch.from_numpy(np.array(v, copy=True))
+                from_numpy(np.array(v, copy=True))
             if tuple(src.shape) != tuple(own[k].shape):
                 raise ValueError(
                     f"{k}: shape {tuple(src.shape)} does not match the "

@@ -32,6 +32,7 @@ from typing import Any, Dict, List
 import torch
 
 from ..core.place import host_tensor
+from ..serialization import from_numpy
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -237,7 +238,8 @@ class Optimizer:
                 continue
             own = self._accumulators.setdefault(id(p), {})
             for k, v in state[key].items():
-                v = torch.as_tensor(v).detach()
+                v = v.detach() if isinstance(v, torch.Tensor) else \
+                    from_numpy(v)
                 if k in own and own[k].shape == v.shape:
                     own[k].copy_(v)
                 else:

@@ -9,7 +9,10 @@ package's files, whose tensors arrive wrapped in its `_TensorPayload`
 (read through a local class of the same slots, never by importing the
 JAX package). numpy has no bfloat16, so a bfloat16 tensor is written as
 its float32 values, which hold it exactly: copying them back into a
-bfloat16 tensor (as set_state_dict does) restores it bit for bit.
+bfloat16 tensor (as set_state_dict does) restores it bit for bit. The
+JAX package writes bfloat16 as ml_dtypes bfloat16 arrays, which torch
+cannot wrap: from_numpy widens them to float32 (exact) and casts back,
+without importing ml_dtypes.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["save", "load", "STATE_FORMAT_VERSION"]
+__all__ = ["save", "load", "from_numpy", "STATE_FORMAT_VERSION"]
 
 # the envelope version the JAX package writes and reads
 # (paddle_tpu/core/version_compat.py: v0 raw pickled payload, v1 envelope)
@@ -51,6 +54,18 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", host_dtype(t.dtype)).numpy()
 
 
+def from_numpy(arr) -> torch.Tensor:
+    """A CPU tensor of a numpy array's values and dtype. An ml_dtypes
+    bfloat16 array (the JAX package's bf16) becomes a bfloat16 tensor
+    by way of its float32 values, which hold it exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    if not arr.flags.writeable:   # torch shares the buffer: own a copy
+        arr = arr.copy()
+    return torch.as_tensor(arr)
+
+
 def _encode(obj):
     if isinstance(obj, torch.Tensor):
         return to_numpy(obj)
@@ -63,7 +78,7 @@ def _encode(obj):
 
 def _decode(obj, return_numpy=False):
     if isinstance(obj, _TensorPayload):
-        return obj.array if return_numpy else torch.as_tensor(obj.array)
+        return obj.array if return_numpy else from_numpy(obj.array)
     if isinstance(obj, dict):
         return {k: _decode(v, return_numpy) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

@@ -18,9 +18,12 @@
                int8 weights, speculative decoding and prefix sharing
   fleet        ServingFleet: N self-healing replicas behind one priority
                queue (exact requeue, SLO autoscale, hot weight swap)
+  loadgen      open-loop trace replays (engine, fleet, static batches)
+               and their SLO summary
 
-Not ported yet (ROADMAP.md queue A): loadgen (10c), tp serving (14).
+Not ported yet (ROADMAP.md queue A): tp serving (14).
 """
+from . import loadgen
 from .engine import ServingConfig, ServingEngine, build_serving_snapshot
 from .fleet import (PRIORITY_CLASSES, FleetConfig, FleetRequest,
                     Replica, ServingFleet, ServingSLO)

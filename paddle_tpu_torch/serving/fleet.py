@@ -73,6 +73,7 @@ from ..observability import memory as _mem
 from ..observability import metrics as _obs
 from ..observability import reqtrace as _rt
 from ..observability import timeseries as _ts
+from ..serialization import from_numpy
 from .engine import (ServingConfig, ServingEngine, _leaves,
                      build_serving_snapshot)
 from .scheduler import BucketLadder, Request
@@ -1225,4 +1226,5 @@ def _to_device(tree, device):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
-    return torch.as_tensor(tree).to(device)
+    return (tree if isinstance(tree, torch.Tensor)
+            else from_numpy(tree)).to(device)

@@ -58,8 +58,18 @@ scaler and a plane armed (metrics or the flight recorder), the step's
 found_inf and scale are read back to the host for the
 ``amp.loss_scale.skipped_total`` counter, the ``loss_scale.skip``
 breadcrumb and the ``amp.loss_scale.scale`` gauge; with both planes off
-nothing is read from the card. mesh/sharding_plan,
-grad_transform and sentry belong to later slices and raise
+nothing is read from the card.
+
+Data parallel (mesh=, a distributed.env.Mesh with a dp axis): each rank
+calls the step on its local batch; between the unscale and the update,
+where the JAX step calls its grad_transform, the grads are averaged over
+the dp ranks (one all-reduce AVG a grad, NCCL on the card, captured in
+the step's graph), and so is the returned loss. That is the JAX step
+with ShardingPlan(zero_stage=0) on the global batch. grad_transform
+(grads, strategy_state, params) -> (grads, strategy_state) then runs by
+parameter name, its state riding strategy_state (and so state_dict); a
+comm sync transform (``syncs_dp_grads``) does the dp reduction itself.
+sharding_plan (ROADMAP.md item 14) and sentry (item 17) raise
 NotImplementedError, as does an optimizer with a grad_clip (the JAX
 package's compiled step does not clip); aot_lower is not ported.
 """
@@ -76,6 +86,8 @@ from ..amp.functional import (check_finite_and_unscale_tree,
 from ..core import generator as _generator
 from ..core.generator import Draw, SeedSlots, mix_seed, next_seed, seed_scope
 from ..core.place import host_tensor
+from ..distributed.env import DATA_AXIS
+from ..distributed.parallel import dp_average_, dp_max_, dp_size
 from ..distributed.recompute import check_policy, checkpointed
 from ..observability import flight_recorder as _fr
 from ..observability import memory as _mem
@@ -83,6 +95,7 @@ from ..observability import metrics as _obs
 from ..observability.sentinel import RecompileSentinel, signature_of
 from ..ops import flash_attention as _fa
 from ..optimizer.optimizer import Optimizer
+from ..serialization import from_numpy
 from .capture import StaticInputs, capture, warm_up
 
 __all__ = ["TrainStep"]
@@ -99,6 +112,63 @@ def _microslice(a, idx, accum):
 def _later(flag, where):
     return NotImplementedError(
         f"TrainStep({flag}=...) is not ported yet: it comes with {where}")
+
+
+def _dp_group_of(mesh):
+    """The dp process group of `mesh` (None without one). Axes other
+    than dp must have size 1: sharded and parallel forms come with the
+    planner (ROADMAP.md item 14)."""
+    if mesh is None:
+        return None
+    wide = [ax for ax in mesh.axis_names
+            if ax != DATA_AXIS and mesh.shape[ax] > 1]
+    if wide:
+        raise NotImplementedError(
+            f"TrainStep(mesh=...) over axes {wide} of size > 1: only the "
+            "dp axis is ported; sharded and parallel forms come with "
+            "ROADMAP.md item 14")
+    return mesh.group(DATA_AXIS) if DATA_AXIS in mesh else None
+
+
+def _clone_tree(tree):
+    """A copy of a state tree (nested dicts, lists, tuples) whose tensors
+    are detached clones."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree
+
+
+def _load_state(dst: dict, src: dict, device, prune: bool = False):
+    """src written into dst: tensors (or the numpy arrays a checkpoint
+    gives back) copied into dst's tensors of the same shape in place, as
+    a captured graph holds their addresses; anything else set. With
+    prune (a grad transform's new state) the keys src lacks go too."""
+    for k, v in src.items():
+        old = dst.get(k)
+        if isinstance(v, dict):
+            if not isinstance(old, dict):
+                old = dst[k] = {}
+            _load_state(old, v, device, prune)
+            continue
+        if isinstance(v, np.ndarray):
+            v = from_numpy(v).to(device)
+        if isinstance(v, torch.Tensor) and isinstance(old, torch.Tensor) \
+                and old.shape == v.shape:
+            if old is not v:
+                old.copy_(v)
+        else:
+            dst[k] = v.detach().clone() if isinstance(v, torch.Tensor) else v
+    if prune:
+        for k in [k for k in dst if k not in src]:
+            del dst[k]
+
+
+def _as_tensor(v):
+    return v if isinstance(v, torch.Tensor) else from_numpy(v)
 
 
 def _as_tuple(x):
@@ -154,12 +224,14 @@ class TrainStep:
                  remat: bool = False, remat_policy=None, scaler=None,
                  sentry=None):
         for flag, val, where in (
-                ("mesh", mesh, "the distributed slice"),
-                ("sharding_plan", sharding_plan, "the distributed slice"),
-                ("grad_transform", grad_transform, "the distributed slice"),
-                ("sentry", sentry, "the observability slice")):
-            if val:
+                ("sharding_plan", sharding_plan,
+                 "ROADMAP.md item 14 (the MeshPlan planner)"),
+                ("sentry", sentry,
+                 "ROADMAP.md item 17 (observability/sentry.py)")):
+            if val is not None:
                 raise _later(flag, where)
+        self.mesh = mesh
+        self._dp_group = _dp_group_of(mesh)
         if getattr(optimizer, "_grad_clip", None) is not None:
             # the JAX TrainStep updates through apply_gradients_tree,
             # which never calls the optimizer's _grad_clip: its compiled
@@ -183,7 +255,11 @@ class TrainStep:
         self.remat_policy = check_policy(remat_policy)
         self.strategy_state = strategy_state if strategy_state is not None \
             else {}
-        self.params = [p for p in layer.parameters() if p.requires_grad]
+        self.grad_transform = grad_transform
+        named = [(k, p) for k, p in layer.named_parameters()
+                 if p.requires_grad]
+        self._param_names = [k for k, _ in named]
+        self.params = [p for _, p in named]
         if optimizer._parameters is None:
             optimizer._parameters = list(self.params)
         if amp_level == "O2":
@@ -298,12 +374,50 @@ class TrainStep:
         found_inf = None
         if scale is not None:
             found_inf = check_finite_and_unscale_tree(grads, scale)
+            if self._dp_group is not None:
+                # one rank's overflow skips the step on every rank (the
+                # averaged grads carry it everywhere)
+                flag = found_inf.to(torch.float32)
+                dp_max_(flag, self._dp_group)
+                found_inf = flag > 0
+        grads = self._sync_and_transform(grads)
+        if self._dp_group is not None:
+            loss = loss.clone()
+            dp_average_([loss], self._dp_group)
         self.optimizer.apply_gradients(self.params, grads, lr=lr,
                                        skip=found_inf)
         if found_inf is not None:
             self._update_scaler(found_inf)
         self._found_inf = found_inf
         return loss
+
+    @torch.no_grad()
+    def _sync_and_transform(self, grads):
+        """Between the unscale and the update, where the JAX step calls
+        its grad_transform: over a dp mesh the grads are averaged over
+        the dp ranks (the JAX partitioner's global-batch gradients), then
+        grad_transform(grads, strategy_state, params) -> (grads, state)
+        runs on them by name. A transform marked ``syncs_dp_grads`` (the
+        comm sync) does the dp reduction itself: it gets the grads
+        divided by the dp size and sums them. The state it returns is
+        written into strategy_state's tensors in place (a captured
+        graph holds their addresses)."""
+        fn = self.grad_transform
+        pg = self._dp_group
+        if pg is not None:
+            if fn is not None and getattr(fn, "syncs_dp_grads", False):
+                n = dp_size(pg)
+                if n > 1:
+                    grads = [g / n for g in grads]
+            else:
+                dp_average_(grads, pg)
+        if fn is None:
+            return grads
+        names = self._param_names
+        new, state = fn(dict(zip(names, grads)), dict(self.strategy_state),
+                        dict(zip(names, self.params)))
+        _load_state(self.strategy_state, state, self._device(), prune=True)
+        return [new[k] for k in names]
 
     @torch.no_grad()
     def _update_scaler(self, found_inf):
@@ -459,9 +573,7 @@ class TrainStep:
         return {"model": {k: v.detach().clone()
                           for k, v in self.layer.state_dict().items()},
                 "opt": self.optimizer.state_dict(),
-                "strategy_state": {
-                    k: v.detach().clone() if isinstance(v, torch.Tensor)
-                    else v for k, v in self.strategy_state.items()},
+                "strategy_state": _clone_tree(self.strategy_state),
                 "seed": _generator.get_state(),
                 "step": self._steps_done}
 
@@ -475,20 +587,12 @@ class TrainStep:
             own = self.layer.state_dict()
             for k, v in state["model"].items():
                 if k in own:
-                    own[k].copy_(torch.as_tensor(v))
+                    own[k].copy_(_as_tensor(v))
         if state.get("opt") is not None:
             self.optimizer.set_state_dict(state["opt"])
         if state.get("strategy_state") is not None:
-            st = self.strategy_state
-            for k, v in state["strategy_state"].items():
-                if isinstance(v, np.ndarray):
-                    v = torch.as_tensor(v, device=self._device())
-                if isinstance(v, torch.Tensor) and isinstance(
-                        st.get(k), torch.Tensor) and st[k].shape == v.shape:
-                    st[k].copy_(v)
-                else:
-                    st[k] = v.detach().clone() \
-                        if isinstance(v, torch.Tensor) else v
+            _load_state(self.strategy_state, state["strategy_state"],
+                        self._device())
             if self._scaler_cfg is not None:
                 self._init_scaler_state()
         if state.get("seed") is not None:

@@ -215,6 +215,44 @@ def test_bfloat16_round_trips_through_float32(tmp_path, async_write):
     assert torch.equal(back, w)
 
 
+def test_reads_the_jax_packages_bfloat16(tmp_path):
+    """The JAX package keeps bfloat16 as ml_dtypes arrays, in paddle.save
+    files and in the checkpoint's pickle layout. The port reads both:
+    serialization.load gives bfloat16 tensors (numpy arrays unchanged
+    with return_numpy=True), and load_sharded with a target gives
+    tensors of the target's dtype, bit-equal to the values saved; the
+    restore paths that take arrays (a layer's set_state_dict, the
+    optimizer's, TrainStep's) take them too."""
+    import jax.numpy as jnp
+    import paddle_tpu as paddle
+    from paddle_tpu_torch import serialization
+    from paddle_tpu_torch.nn import Linear
+    vals = np.random.RandomState(3).randn(6, 5).astype(np.float32)
+    ref = torch.from_numpy(vals).to(torch.bfloat16)
+    jbf = np.asarray(jnp.asarray(vals, jnp.bfloat16))
+    assert jbf.dtype.name == "bfloat16"
+    paddle.save({"w": paddle.to_tensor(vals).astype("bfloat16")},
+                str(tmp_path / "w.pd"))
+    got = serialization.load(str(tmp_path / "w.pd"))
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], ref)
+    raw = serialization.load(str(tmp_path / "w.pd"), return_numpy=True)
+    assert raw["w"].dtype.name == "bfloat16"
+    assert np.array_equal(raw["w"].astype(np.float32), jbf.astype(np.float32))
+    jck.save_sharded({"w": jbf, "m": vals}, str(tmp_path / "c"))
+    for dtype in (torch.bfloat16, torch.float32):
+        out = pck.load_sharded(str(tmp_path / "c"),
+                               target={"w": torch.zeros(1, dtype=dtype)})
+        assert out["w"].dtype == dtype
+        assert torch.equal(out["w"], ref.to(dtype))
+        assert isinstance(out["m"], np.ndarray)
+    bare = pck.load_sharded(str(tmp_path / "c"))
+    assert bare["w"].dtype.name == "bfloat16"
+    lin = Linear(6, 5, device="cpu").to(torch.bfloat16)
+    lin.set_state_dict({"weight": bare["w"], "bias": jbf[0]})
+    assert torch.equal(lin.weight.detach(), ref)
+    assert torch.equal(lin.bias.detach(), ref[0])
+
+
 TINY = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=4,
             max_seq_len=64, dropout=0.1)
 

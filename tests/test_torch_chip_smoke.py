@@ -569,3 +569,36 @@ def test_fleet_ladder_covers_every_resumable_prefix(cs):
     assert {k: v for k, v in cs.FLEET_CONFIG.items()
             if k != "prefill_buckets"} == {
         k: v for k, v in cs.SERVE_CONFIG.items() if k != "prefill_buckets"}
+
+
+def test_nccl_events_are_told_from_the_rest(cs):
+    """dp_train counts NCCL's kernels in a replay's profile: the
+    collective kernels of several ranks, and at one rank oneRankReduce
+    (an AVG all-reduce scaling by 1/1), whose mangled name the profiler
+    shows on the H100 (PERF.md §6)."""
+    one_rank = ("__nv_static_32__b4148644_10_onerank_cu_fdf47990__ZN43_"
+                "GLOBAL__N__b4148644_10_onerank_cu_fdf4799013oneRankReduceI"
+                "13FuncPreMulSumIfEEEvPvS3_mmb")
+    for name in (one_rank, "ncclDevKernel_AllReduce_Sum_f32_RING_LL",
+                 "nccl:all_reduce"):
+        assert cs.is_nccl(name), name
+    for name in ("void at::native::vectorized_elementwise_kernel<4>",
+                 "fwd_wgmma<64>", "Memcpy DtoD (Device -> Device)"):
+        assert not cs.is_nccl(name), name
+
+
+def test_loadgen_trace_is_serving_bench_default_and_fits_the_ladders(cs):
+    """The loadgen phase replays tools/serving_bench.py's default trace
+    (40 requests, seed 0, 60/s): every prompt fits the engine's ladder
+    and every request the fleet's requeue ladder."""
+    assert cs.LOADGEN_TRACE == dict(n_requests=40, seed=0, rate_rps=60.0)
+    sys.path.insert(0, str(ROOT))
+    from paddle_tpu_torch.serving import loadgen
+    trace = loadgen.synthetic_trace(vocab_size=cs.GPT2["vocab_size"],
+                                    **cs.LOADGEN_TRACE)
+    longest = max(it.ids.size + it.max_new_tokens for it in trace)
+    assert max(it.ids.size for it in trace) <= \
+        max(cs.SERVE_CONFIG["prefill_buckets"])
+    assert longest <= cs.SERVE_CONFIG["max_total_tokens"]
+    assert max(cs.FLEET_CONFIG["prefill_buckets"]) >= \
+        cs.FLEET_CONFIG["max_total_tokens"] - 1

@@ -68,7 +68,19 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.distributed.fleet.utils.heartbeat, "
         "paddle_tpu_torch.distributed.fleet.utils.http_server, "
         "paddle_tpu_torch.observability.fleet, "
-        "paddle_tpu_torch.serving.fleet\n"
+        "paddle_tpu_torch.serving.fleet, paddle_tpu_torch.serving.loadgen, "
+        "paddle_tpu_torch.distributed.env, "
+        "paddle_tpu_torch.distributed.collective, "
+        "paddle_tpu_torch.distributed.comm, "
+        "paddle_tpu_torch.distributed.parallel, "
+        "paddle_tpu_torch.distributed.shard_map_util, "
+        "paddle_tpu_torch.distributed.rendezvous, "
+        "paddle_tpu_torch.distributed.fleet, "
+        "paddle_tpu_torch.distributed.fleet.base, "
+        "paddle_tpu_torch.distributed.fleet.meta_optimizers, "
+        "paddle_tpu_torch.distributed.fleet.metrics, "
+        "paddle_tpu_torch.distributed.fleet.metrics.metric, "
+        "paddle_tpu_torch.distributed.fleet.utils.fs\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -77,6 +89,11 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
     assert "BAD []" in out
     # importing builds and loads no kernel
     assert "LIBS {}" in out
+    # nor starts a process group
+    out = _run("import torch.distributed as d, paddle_tpu_torch\n"
+               "import paddle_tpu_torch.distributed.fleet\n"
+               "print('PG', d.is_initialized())\n")
+    assert "PG False" in out
 
 
 def test_collect_diagnosis_loads_nothing_of_the_jax_package(tmp_path):

@@ -391,6 +391,14 @@ def test_trainstep_state_dict_roundtrip_and_later_flags():
     st.set_state_dict(ck)
     b = st(torch.from_numpy(ids), torch.from_numpy(lbl)).item()
     assert a == b
-    for flag in ("mesh", "sharding_plan", "grad_transform", "sentry"):
-        with pytest.raises(NotImplementedError, match="slice"):
+    for flag, item in (("sharding_plan", "item 14"), ("sentry", "item 17")):
+        with pytest.raises(NotImplementedError, match=item):
             TrainStep(m, _loss_fn, topt.AdamW(), **{flag: object()})
+    # mesh= and grad_transform= are taken since the distributed slice;
+    # a mesh axis other than dp above size 1 waits for item 14
+    from paddle_tpu_torch.distributed import build_mesh
+    TrainStep(m, _loss_fn, topt.AdamW(), mesh=build_mesh({"dp": 1}),
+              grad_transform=lambda g, s, p: (g, s))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TrainStep(m, _loss_fn, topt.AdamW(),
+                  mesh=build_mesh({"dp": 1, "tp": 2}, devices=[0, 1]))
