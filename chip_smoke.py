@@ -347,6 +347,11 @@ BATCHES = [(32, 512), (32, 128), (8, 384), (16, 200)]
 CPU_BATCH = (2, 128)
 SEED = 0
 TRAIN_BATCH = (48, 512)   # bench.py:70's base batch x seq
+# ERNIE-base-MoE (examples/train_ernie_moe_longctx.py's expert count and
+# top-k; ErnieConfig's defaults for the rest: every 2nd layer, capacity
+# 1.25, aux weight 0.01) at bench.py's batch
+MOE = dict(moe_num_experts=4, moe_top_k=2)
+MOE_BATCH = TRAIN_BATCH
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 DROP_P, DROP_SEED = 0.1, 1234
 
@@ -1084,10 +1089,23 @@ def _train_model(pt, kind, **kw):
     from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
                                          GPTConfig, GPTForCausalLM)
     pt.seed(SEED)
-    if kind == "ernie":
+    if kind == "ernie_moe":
+        kw = dict(MOE, **kw)
+    if kind in ("ernie", "ernie_moe"):
         return ErnieForPretraining(ErnieConfig.base(**BASE, **kw),
                                    device="cuda").train()
     return GPTForCausalLM(GPTConfig(**GPT_TRAIN, **kw), device="cuda").train()
+
+
+def _moe_loss(model):
+    """examples/train_ernie_moe_longctx.py's loss: the pretraining loss
+    plus aux_weight x the MoE layers' load-balancing loss."""
+    cfg = model.config
+
+    def loss(out, labels):
+        return (_ernie_loss(out, labels)
+                + cfg.moe_aux_weight * model.moe_aux_loss())
+    return loss
 
 
 def _train_step(torch, kind, model, **kw):
@@ -1101,7 +1119,10 @@ def _train_step(torch, kind, model, **kw):
     from paddle_tpu_torch.static import TrainStep
     cfg = model.config
     chunked = cfg.chunked_ce
-    if kind == "ernie":
+    if kind == "ernie_moe":
+        (b, s), layers = MOE_BATCH, cfg.num_hidden_layers
+        loss = _moe_loss(model)
+    elif kind == "ernie":
         (b, s), layers = TRAIN_BATCH, cfg.num_hidden_layers
         loss = model.chunked_pretraining_loss if chunked else _ernie_loss
     else:
@@ -1233,15 +1254,18 @@ def train_path(torch, pt, fa):
     return row
 
 
-def train_cpu_check(torch, pt, fa):
+def train_cpu_check(torch, pt, fa, moe=False):
     """3 f32 TrainStep steps from the same weights on the card and on the
-    CPU (plain path), 2 layers of the base width, dropout 0."""
+    CPU (plain path), 2 layers of the base width, dropout 0; with moe,
+    ERNIE-base-MoE's (its second layer the expert mixture) and its
+    loss."""
     from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.static import TrainStep
     cfg = ErnieConfig.base(**dict(BASE, num_hidden_layers=2),
                            hidden_dropout_prob=0.0,
-                           attention_probs_dropout_prob=0.0)
+                           attention_probs_dropout_prob=0.0,
+                           **(MOE if moe else {}))
     pt.seed(SEED + 2)
     gm = ErnieForPretraining(cfg, device="cuda").train()
     cm = ErnieForPretraining(cfg, device="cpu").train()
@@ -1250,8 +1274,8 @@ def train_cpu_check(torch, pt, fa):
     out = {}
     counts = {}
     for name, m, dev in (("card", gm, "cuda"), ("cpu", cm, "cpu")):
-        st = TrainStep(m, _ernie_loss, AdamW(learning_rate=1e-3,
-                                             weight_decay=0.01))
+        st = TrainStep(m, _moe_loss(m) if moe else _ernie_loss,
+                       AdamW(learning_rate=1e-3, weight_decay=0.01))
         x, y = _train_batch(torch, cfg.vocab_size, b, s, dev)
         _zero(fa)
         out[name], per_step = [], []
@@ -1270,13 +1294,14 @@ def train_cpu_check(torch, pt, fa):
     # the card ran the kernels (2 layers x 3 steps each), the CPU none
     ran = (all(v == 6 for v in counts["card"].values())
            and not any(counts["cpu"].values()))
-    row = dict(layers=2, batch=b, seq=s, dtype="float32",
+    row = dict(layers=2, batch=b, seq=s, dtype="float32", moe=moe,
                losses_card=out["card"], losses_cpu=out["cpu"],
                launches=counts, max_rel_diff=rel, tol=1e-3,
                ok=rel <= 1e-3 and ran)
-    emit({"train_card_vs_cpu": row})
+    emit({"moe_train_card_vs_cpu" if moe else "train_card_vs_cpu": row})
     if not row["ok"]:
         fail(f"the card's training losses disagree with the CPU's: {row}")
+    return row
 
 
 # kernel-name fragments of the profile's categories, first match wins
@@ -2909,7 +2934,24 @@ STEP_SEEDS = [SEED + 100 + i for i in range(4)]
 CAPTURE_WARMUP, CAPTURE_STEPS = 2, 12
 
 
-def captured_train_phase(torch, pt, fa, kind):
+def active_params(model):
+    """Parameters a token runs through: every one, less the experts a
+    token is not routed to ((E - k) / E of each MoE layer's w1, b1, w2
+    and b2)."""
+    total = sum(p.numel() for p in model.parameters())
+    cfg = model.config
+    skip = 0
+    for lyr in getattr(model.ernie, "encoder", []):
+        if getattr(lyr, "use_moe", False):
+            e = cfg.moe_num_experts
+            share = (e - cfg.moe_top_k) / e
+            skip += share * sum(t.numel() for t in (
+                lyr.moe.w1, lyr.moe.b1, lyr.moe.w2, lyr.moe.b2))
+    return int(total - skip)
+
+
+def captured_train_phase(torch, pt, fa, kind, key="captured_train",
+                         **step_kw):
     """ERNIE-base 48x512 or GPT-2 small 8x1024, O1 bf16, dropout 0.1,
     AdamW: the captured TrainStep against its eager body from one start
     state (the snapshot before step 1, restored in place) and one seed
@@ -2922,11 +2964,13 @@ def captured_train_phase(torch, pt, fa, kind):
     (1 graph, 0 sentinel events), the device time of a replay and the
     kernels each ran (profile_step: each kernel once per layer, as in
     the first call's warm-up), the idle share, tokens/s, MFU, peak
-    memory and the eager body's step ms from the same weights. Returns
+    memory and the eager body's step ms from the same weights. step_kw
+    goes to TrainStep (mesh, sharding_plan); the row is emitted under
+    `key`, its MFU from the active parameters (active_params). Returns
     (row, model, step, x, y)."""
     base = torch.cuda.memory_allocated()
     model = _train_model(pt, kind)
-    step, x, y, (b, s), layers = _train_step(torch, kind, model)
+    step, x, y, (b, s), layers = _train_step(torch, kind, model, **step_kw)
     s0 = _to_cpu(step.state_dict())    # off the card: not in the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2968,13 +3012,18 @@ def captured_train_phase(torch, pt, fa, kind):
     eager_ms = time_ms(lambda: step.eager_step(x, y), reps=5, warmup=1)
     cfg = model.config
     row = dict(model=kind, batch=b, seq=s, amp="O1 bfloat16",
-               dropout=0.1, params=sum(p.numel() for p in step.params),
+               dropout=0.1, params=active_params(model)
+               if kind.startswith("ernie") else
+               sum(p.numel() for p in step.params),
+               params_total=sum(p.numel() for p in step.params),
                graphs=step.programs, captures=step.captures,
                replays=step.replays,
                sentinel_events=step.recompile_sentinel.fired,
                launches_per_replay=prof["launches_per_replay"],
                launches=_sum_launches([warm, prof["kernel_launches"]]),
                counted_calls=COUNTED_CALLS,
+               nccl_launches_per_replay=prof["nccl_launches"]
+               / PROFILED_REPLAYS, nccl_kernels=prof["nccl_names"],
                step_seeds=STEP_SEEDS, graph_losses=graph_losses,
                eager_losses=eager_losses, max_loss_rel_diff=loss_rel,
                params_bit_equal=params_equal,
@@ -2995,7 +3044,7 @@ def captured_train_phase(torch, pt, fa, kind):
         and seeded[0] == seeded[1] and seeded[2] != seeded[0]
         and all(math.isfinite(v) for v in graph_losses)
         and 0 < row["mfu"] < 1)
-    emit({"captured_train": row})
+    emit({key: row})
     if not row["ok"]:
         fail(f"the captured {kind} step disagrees with its eager body or "
              f"its contract: {row}")
@@ -4007,6 +4056,10 @@ def loadgen_phase(torch, pt, model):
 # -- data-parallel training (dp_train) -----------------------------------------------
 DP_COMPRESS = ("bf16", "int8_ef")
 DP_TIMED = 10
+# the planner phases: timed replays a run; the card's memory for
+# MeshPlan.auto (an H100 80GB's)
+PLAN_TIMED = 5
+HBM_BYTES = 80e9
 
 
 def _collectives_identity(torch, c):
@@ -4167,6 +4220,348 @@ def dp_train_phase(torch, pt, fa):
     return row
 
 
+# -- the planner and the parallel forms (item 14a) ----------------------------
+
+class _OneRankGroup:
+    """A one-rank NCCL process group (init_parallel_env, as dp_train
+    starts it) for the phases inside; the global mesh and the group are
+    gone after."""
+
+    def __enter__(self):
+        import torch.distributed as tdist
+        from paddle_tpu_torch import distributed as dist
+        env = dist.init_parallel_env()
+        if tdist.get_backend() != "nccl" or env.world_size != 1:
+            fail(f"one-rank group: backend {tdist.get_backend()}, world "
+                 f"{env.world_size}")
+        dist.set_mesh(None)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+        from paddle_tpu_torch import distributed as dist
+        dist.set_mesh(None)
+        tdist.destroy_process_group()
+
+
+def moe_routing(model):
+    """Each MoE layer's share of routed slots dropped in its last forward
+    (a replay's, read from the graph's own count)."""
+    out = {}
+    for i, lyr in enumerate(model.ernie.encoder):
+        if getattr(lyr, "use_moe", False):
+            kept = float(lyr.moe.last_kept)
+            out[f"layer{i}"] = 1.0 - kept / lyr.moe.last_routed
+    return out
+
+
+def moe_train_gates(row):
+    """What moe_train must show; a list of the failures (empty: ok)."""
+    bad = []
+    if row["graphs"] != 1 or row["sentinel_events"]:
+        bad.append(f"graphs {row['graphs']}, sentinel "
+                   f"{row['sentinel_events']}")
+    if row["max_loss_rel_diff"] != 0 or not row["params_bit_equal"]:
+        bad.append("replays are not bit-equal to the eager steps")
+    want = {k: row["layers"] for k in KERNEL_EVENTS}
+    if row["launches_per_replay"] != want:
+        bad.append(f"a replay launched {row['launches_per_replay']}, "
+                   f"expected {want}")
+    if not row["card_vs_cpu_ok"]:
+        bad.append("the card disagrees with the CPU")
+    if not all(0.0 <= v < 1.0 for v in row["dropped_share"].values()):
+        bad.append(f"dropped shares {row['dropped_share']}")
+    if row["nccl_launches_per_replay"] != row["nccl_expected"]:
+        # one AVG all-reduce a grad and the loss over the one-rank dp
+        # axis; the MoE's exchanges skip axes of one rank
+        bad.append(f"{row['nccl_launches_per_replay']} NCCL kernels a "
+                   f"replay, expected {row['nccl_expected']}")
+    return bad
+
+
+def moe_train_phase(torch, pt, fa, dense):
+    """ERNIE-base-MoE (MOE) pretraining at MOE_BATCH, O1 bf16, dropout
+    0.1, AdamW, through TrainStep(mesh=, sharding_plan=MeshPlan(dp=1)
+    .sharding_plan()) on the one-rank group: captured_train_phase's gates
+    (1 graph, 0 sentinel events, the first call and 3 replays bit-equal
+    to 4 eager steps, 12 launches of each kernel a replay, counted on the
+    card), the share of routed slots each MoE layer dropped, and the
+    card against the CPU at 2 layers. `dense`: captured_train's ERNIE
+    row of this run, printed beside."""
+    from paddle_tpu_torch import distributed as dist
+    plan = dist.MeshPlan(dp=1)
+    mesh = plan.build_mesh()
+    dist.set_mesh(mesh)
+    try:
+        row, model, step, x, _ = captured_train_phase(
+            torch, pt, fa, "ernie_moe", key="moe_train_step", mesh=mesh,
+            sharding_plan=plan.sharding_plan())
+        routing = moe_routing(model)
+        capacity = next(l.moe.last_capacity for l in model.ernie.encoder
+                        if getattr(l, "use_moe", False))
+        n_params = len(step.params)
+        step.release()
+        del model, step, x
+        torch.cuda.empty_cache()
+        cpu = train_cpu_check(torch, pt, fa, moe=True)
+    finally:
+        dist.set_mesh(None)
+    cfg_layers = BASE["num_hidden_layers"]
+    out = dict(card=nvidia_smi(), model="ernie_base_moe", **MOE,
+               moe_every_n_layers=2, capacity_factor=1.25, aux_weight=0.01,
+               batch=row["batch"], seq=row["seq"], layers=cfg_layers,
+               capacity=capacity, graphs=row["graphs"],
+               sentinel_events=row["sentinel_events"],
+               max_loss_rel_diff=row["max_loss_rel_diff"],
+               params_bit_equal=row["params_bit_equal"],
+               launches_per_replay=row["launches_per_replay"],
+               launches=row["launches"],
+               nccl_launches_per_replay=row["nccl_launches_per_replay"],
+               nccl_expected=n_params + 1, nccl_kernels=row["nccl_kernels"],
+               step_ms=row["step_ms"],
+               device_ms_per_step=row["device_ms_per_step"],
+               idle_share=row["idle_share"],
+               tokens_per_s=row["tokens_per_s"], mfu=row["mfu"],
+               params_active=row["params"], params_total=row["params_total"],
+               peak_memory_bytes=row["peak_memory_bytes"],
+               dropped_share=routing, card_vs_cpu_ok=cpu["ok"],
+               dense=dict(step_ms=dense["step_ms"],
+                          device_ms_per_step=dense["device_ms_per_step"],
+                          tokens_per_s=dense["tokens_per_s"],
+                          mfu=dense["mfu"],
+                          peak_memory_bytes=dense["peak_memory_bytes"]),
+               moe_over_dense_step=row["step_ms"] / dense["step_ms"])
+    emit({"moe_train": out})
+    bad = moe_train_gates(out)
+    if bad:
+        fail("moe_train: " + "; ".join(bad))
+    return out
+
+
+def _planned_run(torch, pt, **step_kw):
+    """ERNIE-base (dense, SEED) through _train_step with step_kw: the
+    first call and 3 replays with STEP_SEEDS, then timed replays. Returns
+    (losses, params on the card, step ms, graphs, sentinel events, the
+    step)."""
+    model = _train_model(pt, "ernie")
+    step, x, y, _, _ = _train_step(torch, "ernie", model, **step_kw)
+    losses = [float(step(x, y, seed=sd)) for sd in STEP_SEEDS]
+    params = _snapshot(step)
+    ms = _timed_replays(torch, step, x, y, n=PLAN_TIMED)
+    nccl = profile_step(torch, step, x, y)["nccl_launches"] \
+        / PROFILED_REPLAYS
+    out = (losses, params, ms, step.programs,
+           step.recompile_sentinel.fired, nccl, len(step.params))
+    step.release()
+    del step, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def plan_train_gates(row):
+    bad = []
+    for name, r in row["runs"].items():
+        if not (r["losses_bit_equal"] and r["params_bit_equal"]):
+            bad.append(f"{name} is not bit-equal to the plain step")
+        if r["graphs"] != 1 or r["sentinel_events"]:
+            bad.append(f"{name}: graphs {r['graphs']}, sentinel "
+                       f"{r['sentinel_events']}")
+    return bad
+
+
+def plan_train_phase(torch, pt):
+    """The planner on the card: the dense ERNIE-base captured step through
+    MeshPlan(dp=1) and through ShardingPlan at ZeRO stages 1-3 (a one-rank
+    dp axis: the sharded update's shards and gathers run), each from the
+    same weights, batch and step seeds as the step without a plan, bit-
+    equal in the losses and every parameter; MeshPlan.auto's winner and
+    report for ERNIE-base and ERNIE-large at 1 and 8 devices of 80 GB;
+    predict()'s analytic step time beside the measured one (printed, no
+    gate: its constants are the JAX package's, a TPU's)."""
+    import warnings
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.sharding import ModelDims
+    t0 = time.perf_counter()
+    plain_losses, plain_params, plain_ms, _, _, _, _ = \
+        _planned_run(torch, pt)
+    mplan = dist.MeshPlan(dp=1)
+    mesh = mplan.build_mesh()
+    dist.set_mesh(mesh)
+    runs = {}
+    try:
+        plans = {"meshplan_dp1": mplan.sharding_plan()}
+        for z in (1, 2, 3):
+            plans[f"zero{z}"] = dist.ShardingPlan(mesh, zero_stage=z)
+        for name, sp in plans.items():
+            losses, params, ms, graphs, fired, nccl, n_params = \
+                _planned_run(torch, pt, mesh=mesh, sharding_plan=sp)
+            runs[name] = dict(
+                losses=losses, losses_bit_equal=losses == plain_losses,
+                params_bit_equal=_bit_equal(params, plain_params),
+                step_ms=ms, step_ms_vs_plain=ms / plain_ms, graphs=graphs,
+                sentinel_events=fired, nccl_launches_per_replay=nccl,
+                params=n_params)
+            del params
+    finally:
+        dist.set_mesh(None)
+    del plain_params
+    torch.cuda.empty_cache()
+    b, s = TRAIN_BATCH
+    auto = {}
+    for name, (hidden, layers, inter) in (("base", (768, 12, 3072)),
+                                          ("large", (1024, 24, 4096))):
+        n = ernie_param_count(BASE["vocab_size"], hidden, layers, inter,
+                              BASE["max_position_embeddings"])
+        dims = ModelDims(n_params=n, hidden=hidden, n_layers=layers,
+                         vocab=BASE["vocab_size"], seq=s, batch=b)
+        for n_dev in (1, 8):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                plan = dist.MeshPlan.auto(n_dev, dims, HBM_BYTES)
+            rep = plan.predict(dims)
+            auto[f"{name}_{n_dev}dev"] = dict(
+                n_params=n, winner=plan.sizes,
+                calibration_warning=bool(w),
+                predicted_step_s=rep.predicted_step_time_s,
+                predicted_hbm_bytes=rep.predicted_hbm_bytes,
+                report=[dict(sizes=r.sizes, cost=r.cost,
+                             hbm_per_chip=r.hbm_per_chip,
+                             feasible=r.feasible,
+                             analytic_step_time_s=r.analytic_step_time_s)
+                        for r in plan.report])
+    row = dict(card=nvidia_smi(), model="ernie_base", batch=b, seq=s,
+               amp="O1 bfloat16", dropout=0.1, plain_losses=plain_losses,
+               plain_step_ms=plain_ms, runs=runs, auto=auto,
+               predicted_vs_measured=dict(
+                   predicted_s=auto["base_1dev"]["predicted_step_s"],
+                   measured_s=plain_ms / 1e3,
+                   constants="the JAX package's analytic constants (a "
+                             "TPU v4-class chip's spec sheet)"),
+               seconds=time.perf_counter() - t0)
+    emit({"plan_train": row})
+    bad = plan_train_gates(row)
+    if bad:
+        fail("plan_train: " + "; ".join(bad))
+    return row
+
+
+def ernie_param_count(vocab, hidden, layers, inter, max_pos, types=2):
+    """ErnieForPretraining's dense parameter count: embeddings (+ their
+    norm), per layer qkv, out, two norms and the FFN, the pooler, the MLM
+    transform, norm and bias, and the NSP head."""
+    emb = (vocab + max_pos + types) * hidden + 2 * hidden
+    layer = (hidden * 3 * hidden + 3 * hidden + hidden * hidden + hidden
+             + 4 * hidden + hidden * inter + inter + inter * hidden
+             + hidden)
+    head = (hidden * hidden + hidden) * 2 + 2 * hidden + vocab \
+        + hidden * 2 + 2
+    return emb + layers * layer + head
+
+
+def sp_train_gates(row):
+    bad = []
+    ul, ring = row["ulysses"], row["ring"]
+    if not (ul["losses_bit_equal"] and ul["params_bit_equal"]):
+        bad.append("the Ulysses step is not bit-equal to the dense step")
+    want = {k: row["layers"] for k in KERNEL_EVENTS}
+    if ul["launches_per_step"] != want or ul["warmup_launches"] != want:
+        bad.append(f"Ulysses launched {ul['launches_per_step']} (warm-up "
+                   f"{ul['warmup_launches']}), expected {want}")
+    none = {k: 0 for k in KERNEL_EVENTS}
+    if ring["launches_per_step"] != none or ring["warmup_launches"] != none:
+        bad.append(f"the ring launched {ring['launches_per_step']}")
+    if not (ring["loss_ok"] and ring["params_ok"]):
+        bad.append(f"the ring is outside the bf16 gate: loss rel "
+                   f"{ring['max_loss_rel_diff']}, params "
+                   f"{ring['params_max_abs_diff']} (tol "
+                   f"{ring['params_tol']})")
+    for mode in ("ulysses", "ring"):
+        r = row[mode]
+        if r["graphs"] != 1 or r["sentinel_events"]:
+            bad.append(f"{mode}: graphs {r['graphs']}, sentinel "
+                       f"{r['sentinel_events']}")
+    return bad
+
+
+def _sp_run(torch, pt, fa, mode, mesh):
+    """ERNIE-base 48x512, attention dropout 0 (hidden 0.1), captured,
+    sequence_parallel=`mode` (None: dense) over `mesh`'s one-rank sp
+    axis: 4 steps with STEP_SEEDS (the warm-up's launches by the
+    wrappers, a replay's on the card), timed replays."""
+    kw = dict(attention_probs_dropout_prob=0.0)
+    if mode:
+        kw["sequence_parallel"] = mode
+    model = _train_model(pt, "ernie", **kw)
+    step, x, y, _, layers = _train_step(
+        torch, "ernie", model, **({"mesh": mesh} if mode else {}))
+    _zero(fa)
+    losses = []
+    for sd in STEP_SEEDS:
+        losses.append(float(step(x, y, seed=sd)))
+        if len(losses) == 1:
+            warm = dict(step.last_launches)
+    params = _snapshot(step)
+    prof = profile_step(torch, step, x, y)
+    ms = _timed_replays(torch, step, x, y, n=PLAN_TIMED)
+    out = dict(losses=losses, warmup_launches=warm,
+               launches_per_step=prof["launches_per_replay"],
+               nccl_launches_per_replay=prof["nccl_launches"]
+               / PROFILED_REPLAYS, nccl_kernels=prof["nccl_names"],
+               step_ms=ms,
+               device_ms_per_step=prof["device_ms"],
+               graphs=step.programs,
+               sentinel_events=step.recompile_sentinel.fired)
+    step.release()
+    del step, model
+    torch.cuda.empty_cache()
+    return out, params, layers
+
+
+def sp_train_phase(torch, pt, fa):
+    """Sequence parallelism at an sp axis of one rank: ERNIE-base 48x512,
+    attention dropout 0, dense, then sequence_parallel "ulysses" (the
+    all-to-alls and the forward kernel at p 0: 12 launches of each
+    kernel, bit-equal to the dense step) and "ring" (one hop of the
+    blockwise carry update, torch ops: none of the kernels, and its
+    losses and parameters after the steps within the bf16 gate of the
+    dense step's)."""
+    from paddle_tpu_torch import distributed as dist
+    t0 = time.perf_counter()
+    dense, dparams, layers = _sp_run(torch, pt, fa, None, None)
+    mesh = dist.build_mesh({"sp": 1})
+    dist.set_mesh(mesh)
+    try:
+        ul, uparams, _ = _sp_run(torch, pt, fa, "ulysses", mesh)
+        ul["losses_bit_equal"] = ul["losses"] == dense["losses"]
+        ul["params_bit_equal"] = _bit_equal(uparams, dparams)
+        del uparams
+        ring, rparams, _ = _sp_run(torch, pt, fa, "ring", mesh)
+    finally:
+        dist.set_mesh(None)
+    ring["max_loss_rel_diff"] = max(
+        _rel_diff(a, d) for a, d in zip(ring["losses"], dense["losses"]))
+    ring["loss_ok"] = ring["max_loss_rel_diff"] <= TOL["bfloat16"]
+    # the parameters as one vector against the dense run's: _err_ok's
+    # bf16 gate (a tensor of its own would hold AdamW's near-zero
+    # updates, which a rounding-level gradient difference can flip)
+    err, tol, ok = _err_ok(torch.cat([p.float().flatten() for p in rparams]),
+                           torch.cat([p.float().flatten() for p in dparams]),
+                           "bfloat16")
+    ring.update(params_max_abs_diff=err, params_tol=tol, params_ok=ok)
+    del rparams, dparams
+    torch.cuda.empty_cache()
+    row = dict(card=nvidia_smi(), model="ernie_base", batch=TRAIN_BATCH[0],
+               seq=TRAIN_BATCH[1], layers=layers, amp="O1 bfloat16",
+               dropout=dict(hidden=0.1, attention=0.0), sp=1,
+               dense=dense, ulysses=ul, ring=ring,
+               seconds=time.perf_counter() - t0)
+    emit({"sp_train": row})
+    bad = sp_train_gates(row)
+    if bad:
+        fail("sp_train: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -4292,6 +4687,12 @@ def main():
     optimizers_phase(torch)
     dp = dp_train_phase(torch, pt, fa)
     torch.cuda.empty_cache()
+    with _OneRankGroup():
+        moe = moe_train_phase(torch, pt, fa, captured["ernie"])
+        torch.cuda.empty_cache()
+        plan_train_phase(torch, pt)
+        sp = sp_train_phase(torch, pt, fa)
+    torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
@@ -4328,7 +4729,11 @@ def main():
                        scaler["launches"][k],
                    **{f"remat_{p}_{m}": remat[m][p]["launches"][k]
                       for m in remat for p in remat[m] if p != "plain"},
-                   "dp_training_gpt": dp["launches"][k]}
+                   "dp_training_gpt": dp["launches"][k],
+                   "moe_training": moe["launches"][k],
+                   "sp_ulysses_per_step":
+                       sp["ulysses"]["launches_per_step"][k],
+                   "sp_ring_per_step": sp["ring"]["launches_per_step"][k]}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1
@@ -4405,9 +4810,14 @@ def main():
     for kern in kernels:
         kern.update(common, launches=by_path[kern["name"]]["training"],
                     launches_by_path=by_path[kern["name"]],
+                    launches_per_moe_step=moe["launches_per_replay"][
+                        kern["name"]],
                     gpt_training=gpt_at[kern["name"]])
         if kern["launches"] == 0:
             fail(f"the training path launched no {kern['name']} kernel")
+        if by_path[kern["name"]]["moe_training"] == 0:
+            fail(f"the MoE training path launched no {kern['name']} "
+                 "kernel")
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     emit({"kernels": kernels, "philox": "paddle_tpu_torch/csrc/philox.cuh "

@@ -13,7 +13,9 @@ compose into a mesh shape over the world's ranks and TrainStep options
   dgc/fp16_allreduce/comm  -> TrainStep(grad_transform=...)
   localsgd                 -> LocalSGDStep
   lars/lamb                -> the optimizer swapped
-  sharding/tensor_parallel/pipeline above degree 1 -> ROADMAP.md item 14
+  sharding                 -> TrainStep(sharding_plan=<ZeRO stage>)
+  tensor_parallel          -> the mesh's tp axis (the layers' annotations)
+  pipeline above degree 1  -> ROADMAP.md item 14b
 """
 from __future__ import annotations
 
@@ -28,10 +30,10 @@ __all__ = ["DistributedStrategy", "PaddleCloudRoleMaker",
            "distributed_model", "DistributedOptimizer", "Fleet"]
 
 
-def _item14(what):
+def _item14b(what):
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md item 14 "
-        "(the MeshPlan planner and the parallel forms)")
+        f"{what} is not ported yet: it comes with ROADMAP.md item 14b "
+        "(the pipeline: pipeline.py, pipeline_engine.py)")
 
 
 class DistributedStrategy:
@@ -82,7 +84,7 @@ class DistributedStrategy:
                                  "flat_threshold_kb": 128,
                                  "hierarchy": None, "int8_block": 256}
         # the parameter-server consistency mode (AsyncConfig); read by
-        # the parameter-server pair, which comes with ROADMAP.md item 14
+        # the parameter-server pair, which comes with ROADMAP.md item 14c
         self.a_sync = False
         self.a_sync_configs = {"k_steps": 0, "max_merge_var_num": 20,
                                "send_queue_size": 16,
@@ -126,7 +128,14 @@ class DistributedStrategy:
         return shape
 
     def mesh_plan(self, n_devices: int, rules=None):
-        raise _item14("DistributedStrategy.mesh_plan")
+        """The strategy's degrees as one MeshPlan declaration
+        (Fleet.build_mesh_plan adds the layout='auto' path)."""
+        from ..sharding import MeshPlan
+        shape = self.mesh_shape(n_devices)
+        return MeshPlan(dp=shape.get(DATA_AXIS, 1),
+                        fsdp=shape.get("fsdp", 1),
+                        tp=shape.get(TENSOR_AXIS, 1),
+                        pp=shape.get(PIPE_AXIS, 1), rules=rules)
 
     def __repr__(self):
         on = [k for k in ("amp", "recompute", "sharding", "pipeline",
@@ -258,14 +267,44 @@ class Fleet:
 
     def build_mesh_plan(self, strategy=None, rules=None, dims=None,
                         hbm_bytes_per_chip=None, layout=None, num_micro=4):
-        raise _item14("Fleet.build_mesh_plan")
+        """One MeshPlan from the strategy's hybrid degrees over the
+        world's ranks, or, with layout='auto', ModelDims and an HBM
+        budget, from the cost model (sharding.choose_layout)."""
+        from ..sharding import MeshPlan
+        strategy = strategy or self.strategy or DistributedStrategy()
+        n = get_world_size()
+        if layout == "auto":
+            if dims is None or hbm_bytes_per_chip is None:
+                raise ValueError(
+                    "layout='auto' needs dims= (ModelDims) and "
+                    "hbm_bytes_per_chip= — the cost model scores "
+                    "layouts against the model's bytes and the chip's "
+                    "memory")
+            compress = "none"
+            if strategy.comm_opt:
+                compress = strategy.comm_opt_configs.get(
+                    "compress", "none")
+            return MeshPlan.auto(n, dims, hbm_bytes_per_chip,
+                                 rules=rules, compress=compress,
+                                 num_micro=num_micro)
+        return strategy.mesh_plan(n, rules=rules)
 
     def build_pipeline(self, stages, loss_fn, optimizer, strategy=None,
                        schedule="spmd_1f1b", exec_mode=None, plan=None):
-        raise _item14("Fleet.build_pipeline")
+        raise _item14b("Fleet.build_pipeline")
 
     def build_sharding_plan(self, strategy=None):
-        raise _item14("Fleet.build_sharding_plan")
+        """A ShardingPlan over the fleet's mesh: the strategy's ZeRO
+        stage, and the fsdp axis when the mesh has one."""
+        from ..sharding import ShardingPlan
+        strategy = strategy or self.strategy or DistributedStrategy()
+        if self.mesh is None:
+            self.init(strategy=strategy)
+        zero = 0
+        if strategy.sharding:
+            zero = int(strategy.sharding_configs.get("stage", 1))
+        fsdp = "fsdp" if "fsdp" in self.mesh.axis_names else None
+        return ShardingPlan(self.mesh, zero_stage=zero, fsdp_axis=fsdp)
 
     def build_train_step(self, layer, loss_fn, optimizer, strategy=None):
         """The strategy compiler: the compatible meta-optimizer chain
@@ -280,7 +319,12 @@ class Fleet:
         spec = TrainStepSpec(layer=layer, loss_fn=loss_fn, optimizer=inner)
         StrategyCompiler().compile(spec, strategy, self)
         self._last_applied = list(spec.applied)
-        return build_from_spec(spec, mesh=self.mesh)
+        # the one source of the zero stage: the compiled spec
+        from ..sharding import ShardingPlan
+        plan = ShardingPlan(
+            self.mesh, zero_stage=spec.zero_stage,
+            fsdp_axis="fsdp" if "fsdp" in self.mesh.axis_names else None)
+        return build_from_spec(spec, mesh=self.mesh, sharding_plan=plan)
 
     def state_dict(self):
         return {}

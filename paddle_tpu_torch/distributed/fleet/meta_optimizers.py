@@ -14,10 +14,11 @@ TrainStep is built from:
                                 parameters averaged every k steps
 
 The chain's order and its conflict resolution are the JAX package's.
-The sharding, tensor-parallel and pipeline meta-optimizers stay in the
-chain (their conflicts still disable others), and raise
-NotImplementedError when applied with a degree above 1: those forms come
-with ROADMAP.md item 14.
+The sharding meta-optimizer sets the ZeRO stage of the step's
+ShardingPlan and the tensor-parallel one leaves the tp axis to the
+mesh, as in the JAX package; the pipeline meta-optimizer raises
+NotImplementedError above degree 1: the pipeline comes with ROADMAP.md
+item 14b.
 """
 from __future__ import annotations
 
@@ -33,10 +34,10 @@ __all__ = ["TrainStepSpec", "MetaOptimizerBase", "StrategyCompiler",
            "chain_grad_transforms", "build_from_spec"]
 
 
-def _item14(what):
+def _item14b(what):
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md item 14 "
-        "(the planner and the parallel forms)")
+        f"{what} is not ported yet: it comes with ROADMAP.md item 14b "
+        "(the pipeline)")
 
 
 @dataclasses.dataclass
@@ -225,13 +226,6 @@ class AMPOptimizer(MetaOptimizerBase):
         spec.applied.append(self.name)
 
 
-def _world(fleet) -> int:
-    if fleet is not None:
-        return int(fleet.worker_num())
-    from ..env import get_world_size
-    return get_world_size()
-
-
 class ShardingOptimizer(MetaOptimizerBase):
     name = "sharding"
     order = 30
@@ -241,11 +235,7 @@ class ShardingOptimizer(MetaOptimizerBase):
         return strategy.sharding
 
     def apply(self, spec, strategy, fleet=None):
-        stage = int(strategy.sharding_configs.get("stage", 1))
-        if stage > 0 and _world(fleet) > 1:
-            raise _item14(f"the sharding meta-optimizer (ZeRO stage "
-                          f"{stage} over {_world(fleet)} ranks)")
-        spec.zero_stage = stage
+        spec.zero_stage = int(strategy.sharding_configs.get("stage", 1))
         spec.applied.append(self.name)
 
 
@@ -259,13 +249,7 @@ class TensorParallelOptimizer(MetaOptimizerBase):
             strategy.hybrid_configs.get("mp_degree", 1) > 1
 
     def apply(self, spec, strategy, fleet=None):
-        degree = max(int(strategy.hybrid_configs.get("mp_degree", 1)),
-                     int(strategy.tensor_parallel_configs.get(
-                         "tensor_parallel_degree", 1)))
-        if degree > 1:
-            raise _item14(f"the tensor-parallel meta-optimizer (degree "
-                          f"{degree})")
-        spec.applied.append(self.name)
+        spec.applied.append(self.name)  # the tp axis: mesh_shape()
 
 
 class PipelineOptimizer(MetaOptimizerBase):
@@ -279,7 +263,7 @@ class PipelineOptimizer(MetaOptimizerBase):
     def apply(self, spec, strategy, fleet=None):
         degree = int(strategy.hybrid_configs.get("pp_degree", 1))
         if degree > 1:
-            raise _item14(f"the pipeline meta-optimizer (degree {degree})")
+            raise _item14b(f"the pipeline meta-optimizer (degree {degree})")
         spec.grad_accum_steps = max(
             spec.grad_accum_steps,
             int(strategy.pipeline_configs.get("accumulate_steps", 1)))
@@ -562,10 +546,8 @@ class LocalSGDStep:
 
 def build_from_spec(spec: TrainStepSpec, mesh=None, sharding_plan=None):
     """The compiled spec as a step object: a LocalSGDStep, or a TrainStep
-    over `mesh` with the chained grad transforms (their state made from
-    the layer's trainable parameters)."""
-    if sharding_plan is not None:
-        raise _item14("build_from_spec(sharding_plan=...)")
+    over `mesh` (or `sharding_plan`'s) with the chained grad transforms
+    (their state made from the layer's trainable parameters)."""
     if spec.localsgd_k_steps > 0:
         return LocalSGDStep(spec.layer, spec.loss_fn, spec.optimizer,
                             k_steps=spec.localsgd_k_steps, mesh=mesh,
@@ -584,7 +566,8 @@ def build_from_spec(spec: TrainStepSpec, mesh=None, sharding_plan=None):
         strategy_state = init(params)
     return TrainStep(spec.layer, spec.loss_fn, spec.optimizer,
                      amp_level=spec.amp_level, amp_dtype=spec.amp_dtype,
-                     mesh=mesh, grad_accum_steps=spec.grad_accum_steps,
+                     mesh=mesh, sharding_plan=sharding_plan,
+                     grad_accum_steps=spec.grad_accum_steps,
                      grad_transform=fn, strategy_state=strategy_state,
                      remat=spec.remat, remat_policy=spec.remat_policy,
                      scaler=spec.scaler)

@@ -13,6 +13,7 @@ batches.
 """
 from __future__ import annotations
 
+import atexit
 import os
 import socket
 from typing import Optional
@@ -51,7 +52,8 @@ def start_process_group(backend: Optional[str] = None):
     port for a world of one). The backend is NCCL when the rank has a
     card, gloo otherwise; a rank with a card takes card LOCAL_RANK (the
     only one it sees under the launcher) as torch's current device and
-    the port's."""
+    the port's. The group is destroyed at interpreter exit, if it still
+    runs then."""
     import torch.distributed as dist
     if dist.is_initialized():
         return
@@ -76,6 +78,17 @@ def start_process_group(backend: Optional[str] = None):
         port = str(_free_port())
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
                             rank=rank, world_size=world)
+    atexit.register(_destroy_at_exit)
+
+
+def _destroy_at_exit():
+    """Tear the process group down before the interpreter does: left to
+    interpreter shutdown, a gloo group's threads can still be running
+    when its destructor runs, which aborts the process ("terminate
+    called without an active exception") after its work is done."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def init_parallel_env(mesh_shape=None, backend: Optional[str] = None):
@@ -147,17 +160,19 @@ class DataParallel(torch.nn.Module):
     ``comm_config`` (a comm.CommConfig), through the bucketed, planned,
     optionally quantized GradSynchronizer: its sum of the grads divided
     by the dp size first, with the int8_ef residuals kept across steps.
-    scale_loss is the identity (the average is in the grads)."""
+    scale_loss is the identity (the average is in the grads). With
+    ``plan`` (a MeshPlan), the grads are averaged over the plan's data
+    axes, dp and fsdp, and the replicas start equal over each."""
 
     def __init__(self, layers, strategy=None, comm_buffer_size=25,
                  last_comm_buffer_size=1, find_unused_parameters=False,
                  group=None, comm_config=None, plan=None):
         super().__init__()
-        if plan is not None:
-            raise NotImplementedError(
-                "DataParallel(plan=...) is not ported yet: the MeshPlan "
-                "planner comes with ROADMAP.md item 14")
         self._layers = layers
+        # a MeshPlan: the plan's data axes (dp, fsdp) carry the batch, so
+        # the grads are averaged over each; the layer keeps its whole
+        # parameters (fsdp's sharded state is TrainStep's, sharding.py)
+        self._plan = plan
         self.find_unused_parameters = find_unused_parameters
         self._group = group
         self._comm_sync = None
@@ -179,15 +194,23 @@ class DataParallel(torch.nn.Module):
             return axis_group(g or DATA_AXIS)
         return g.process_group if isinstance(g, _Group) else g
 
+    def _data_groups(self):
+        """The groups the grads are averaged over: the plan's data axes
+        (dp, fsdp) on its mesh, else the dp group."""
+        if self._plan is None:
+            pg = self._dp_group()
+            return [] if pg is None else [pg]
+        mesh = self._plan.mesh
+        return [mesh.group(a) for a in ("dp", "fsdp")
+                if self._plan.sizes[a] > 1 and mesh.group(a) is not None]
+
     @torch.no_grad()
     def _sync_params(self):
         from . import collective as _c
-        pg = self._dp_group()
-        if pg is None:
-            return
-        for t in list(self._layers.parameters()) + \
-                list(self._layers.buffers()):
-            _c.broadcast(t.data, src=0, group=pg)
+        for pg in self._data_groups():
+            for t in list(self._layers.parameters()) + \
+                    list(self._layers.buffers()):
+                _c.broadcast(t.data, src=0, group=pg)
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)
@@ -202,10 +225,11 @@ class DataParallel(torch.nn.Module):
                  if p.requires_grad and p.grad is not None]
         if not named:
             return None
-        pg = self._dp_group()
         if self._comm_sync is None:
-            dp_average_([p.grad for _, p in named], pg)
+            for pg in self._data_groups():
+                dp_average_([p.grad for _, p in named], pg)
             return None
+        pg = self._dp_group()
         n = dp_size(pg)
         grads = {k: p.grad / n if n > 1 else p.grad for k, p in named}
         if self._comm_state is None:

@@ -1,6 +1,9 @@
 """Carry weights from the JAX package into the port: a model's
-state_dict by name, and the serving engine's params tree (int8 or not)
-leaf by leaf."""
+state_dict by name (MoE blocks' gate, w1, b1, w2 and b2 included; a
+model made on a mesh whose tp or ep axis spans several ranks takes this
+rank's block of each split array), a rank's shard of every full array
+under a sharding plan, and the serving engine's params tree (int8 or
+not) leaf by leaf."""
 from __future__ import annotations
 
 from typing import Dict
@@ -11,7 +14,7 @@ import torch
 from ..core.place import resolve_device
 from ..serialization import from_numpy
 
-__all__ = ["load_jax_params", "load_jax_serving_params",
+__all__ = ["load_jax_params", "shard_for_rank", "load_jax_serving_params",
            "serving_params_to_numpy"]
 
 
@@ -24,7 +27,8 @@ def load_jax_params(model, state: Dict[str, np.ndarray]):
     `stk__...` names (nn/layer/scanned.py) and load the same way.
     Raises KeyError on a missing or an extra name and ValueError on a
     shape mismatch: a partial load is never silent."""
-    own = model.state_dict()
+    from ..distributed import sharding as _sh
+    own = model.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
@@ -33,12 +37,50 @@ def load_jax_params(model, state: Dict[str, np.ndarray]):
     arrays = {}
     for name, arr in state.items():
         arr = np.asarray(arr)
-        if tuple(arr.shape) != tuple(own[name].shape):
+        want = _sh._shape_of(own[name])
+        if tuple(arr.shape) != want:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
-                             f"match the model's {tuple(own[name].shape)}")
-        arrays[name] = from_numpy(arr)
+                             f"match the model's {want}")
+        t = from_numpy(arr)
+        layout = _sh.model_layout(own[name])
+        arrays[name] = _sh.block_of(t, layout, _sh.get_mesh()) \
+            if layout else t
     model.set_state_dict(arrays)
     return model
+
+
+def shard_for_rank(state: Dict[str, np.ndarray], plan, rank: int,
+                   named=None) -> Dict[str, np.ndarray]:
+    """Rank `rank`'s block of every full array of `state` under `plan` (a
+    MeshPlan or a ShardingPlan): each name's param_spec on the plan's
+    mesh, from `named`'s annotations (name -> a tensor carrying
+    ``sharding_spec``, e.g. a model's state_dict(keep_vars=True)), the
+    plan's rules or replicated. A dim split over several axes holds the
+    model axes' (tp, ep) block outermost, as the port stores it
+    (distributed/sharding.py)."""
+    from ..distributed import sharding as _sh
+    mesh = plan.mesh
+    coords = mesh.coords(int(rank))
+    named = named or {}
+    out = {}
+    for name, arr in state.items():
+        arr = np.asarray(arr)
+        t = named.get(name)
+        holder = t if t is not None else arr
+        spec = plan.param_spec(name, holder)
+        for dim, entry in enumerate(spec):
+            axes = sorted(_sh._entry_axes(entry),
+                          key=lambda a: 0 if a in _sh.MODEL_AXES else 1)
+            n, idx = 1, 0
+            for a in axes:
+                n *= mesh.shape[a]
+                idx = idx * mesh.shape[a] + coords[a]
+            if n > 1:
+                size = arr.shape[dim] // n
+                arr = np.take(arr, np.arange(idx * size, (idx + 1) * size),
+                              axis=dim)
+        out[name] = arr
+    return out
 
 
 def _tensor(arr, device):

@@ -16,15 +16,37 @@ tied decoder + CE through vocab blocks (F.linear_cross_entropy).
 Parameter names and shapes equal the JAX model's in every form, so its
 state_dict loads by name (models/convert.py).
 
-Not ported yet, and rejected with NotImplementedError naming the slice
-that brings them: MoE layers and sequence parallelism (the distributed
-slice).
+The distributed forms, as the JAX model declares them:
+- moe_num_experts > 0: every moe_every_n_layers-th block's FFN is a
+  top-k expert mixture (distributed/moe.py MoELayer, activation
+  hidden_act, which is jax.nn's tanh GELU there); moe_aux_loss() sums
+  the last forward's load-balancing losses;
+- sequence_parallel True/"ring"/"ulysses": attention runs sequence-
+  parallel over the global mesh's 'sp' axis (distributed/ring.py
+  sequence_parallel_attention), with attention dropout 0;
+- tensor parallelism: qkv and ffn_in are column-, out and ffn_out
+  row-annotated over 'tp', the word embeddings and mlm_bias split on the
+  vocab dim (sharding.annotate). Made on a mesh whose tp axis spans
+  several ranks, each layer keeps its block and runs the Megatron form:
+  f before qkv, ffn_in and the decoder, g after out and ffn_out, the
+  vocab-parallel lookup; qkv's column block is all-gathered and each
+  rank attends with its n/tp heads; the decoder's logits are
+  all-gathered over the vocab.
+The pipeline stages (ErnieStageFirst/Middle/Last, ernie_pipeline_stages)
+come with ROADMAP.md item 14b.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import nn
+from ..distributed.env import TENSOR_AXIS
+from ..distributed.parallel_layers import (copy_to_group, gather_from_group,
+                                           group_rank, group_size,
+                                           reduce_from_group, tp_group,
+                                           vocab_parallel_lookup)
+from ..distributed.sharding import PartitionSpec as P
+from ..distributed.sharding import annotate
 from ..nn import functional as F
 from ..nn.initializer import Normal
 
@@ -65,16 +87,35 @@ class ErnieConfig:
         self.moe_every_n_layers = moe_every_n_layers
         self.moe_capacity_factor = moe_capacity_factor
         self.moe_aux_weight = moe_aux_weight
+        if moe_num_experts > 0 and moe_every_n_layers < 1:
+            raise ValueError(
+                "moe_every_n_layers must be >= 1 when experts are "
+                "enabled (set moe_num_experts=0 for a dense model)")
         if sequence_parallel not in (False, True, "ring", "ulysses"):
             raise ValueError(
                 f"sequence_parallel must be False/True/'ring'/'ulysses',"
                 f" got {sequence_parallel!r}")
         self.sequence_parallel = sequence_parallel
+        if sequence_parallel and attention_probs_dropout_prob > 0:
+            raise ValueError(
+                "sequence_parallel requires "
+                "attention_probs_dropout_prob=0 (ring attention carries "
+                "no dropout)")
         self.scan_layers = bool(scan_layers)
+        if self.scan_layers and moe_num_experts > 0:
+            raise ValueError(
+                "scan_layers needs homogeneous blocks; interleaved MoE "
+                "layers differ from dense ones (set moe_num_experts=0 "
+                "or scan_layers=False)")
 
     @classmethod
     def base(cls, **kw):
         return cls(**kw)
+
+    @classmethod
+    def large(cls, **kw):
+        return cls(hidden_size=1024, num_hidden_layers=24,
+                   num_attention_heads=16, intermediate_size=4096, **kw)
 
     @classmethod
     def tiny(cls, **kw):
@@ -84,22 +125,31 @@ class ErnieConfig:
                    max_position_embeddings=64, **kw)
 
 
-def _check_supported(config: ErnieConfig):
-    where = "the distributed slice, part 2 (ROADMAP.md item 14)"
-    later = [(config.moe_num_experts > 0, "moe_num_experts > 0", where),
-             (bool(config.sequence_parallel), "sequence_parallel", where)]
-    for bad, flag, where in later:
-        if bad:
-            raise NotImplementedError(
-                f"ErnieConfig({flag}) is not ported yet: it comes with "
-                f"{where}; this slice runs the dense encoder")
-
-
-def _init_linear(layer, std):
+def _init_linear(layer, std, w_spec=None, b_spec=None):
+    """Normal(0, std) weights, then the tp annotations (each rank keeps
+    its block on a mesh whose tp axis spans several ranks)."""
     with torch.no_grad():
         layer.weight.copy_(Normal(0, std)(tuple(layer.weight.shape),
                                           layer.weight.dtype, layer._device))
+    if w_spec is not None:
+        annotate(layer.weight, w_spec)
+    if b_spec is not None and layer.bias is not None:
+        annotate(layer.bias, b_spec)
     return layer
+
+
+def _is_moe_layer(config: ErnieConfig, i: int) -> bool:
+    """MoE placement rule: every n-th block (1-indexed), when the config
+    enables experts."""
+    return (config.moe_num_experts > 0
+            and (i + 1) % config.moe_every_n_layers == 0)
+
+
+def _row_parallel(x_local, layer, pg):
+    """x_local @ W_local summed over tp (g), then the bias: the row-
+    parallel linear of a layer whose weight holds rows of this rank."""
+    out = reduce_from_group(F.linear(x_local, layer.weight), pg)
+    return out + layer.bias if layer.bias is not None else out
 
 
 def _lens_to_additive_mask(kv_lens, s):
@@ -119,15 +169,53 @@ class ErnieSelfAttention(nn.Layer):
         self.head_dim = h // self.num_heads
         self.use_flash = config.use_flash_attention
         self.dropout_p = config.attention_probs_dropout_prob
+        self.seq_parallel = config.sequence_parallel
         std = config.initializer_range
-        self.qkv = _init_linear(nn.Linear(h, 3 * h, device=dev), std)
-        self.out = _init_linear(nn.Linear(h, h, device=dev), std)
+        self.qkv = _init_linear(nn.Linear(h, 3 * h, device=dev), std,
+                                P(None, TENSOR_AXIS), P(TENSOR_AXIS))
+        self.out = _init_linear(nn.Linear(h, h, device=dev), std,
+                                P(TENSOR_AXIS, None))
 
     def forward(self, x, attn_mask=None, kv_lens=None):
         b, s, h = x.shape
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        pg = tp_group(self.qkv.weight)
+        if pg is None:
+            qkv = self.qkv(x)
+        else:
+            # column block of qkv, all-gathered: each rank then attends
+            # with its own n/tp heads
+            qkv = gather_from_group(self.qkv(copy_to_group(x, pg)), -1, pg,
+                                    partitioned=True)
+        qkv = qkv.reshape(b, s, 3, self.num_heads, self.head_dim)
+        if pg is not None:
+            per = self.num_heads // group_size(pg)
+            qkv = qkv.narrow(3, group_rank(pg) * per, per)
         # strided views: the kernel reads them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        ctx = self._attend(q, k, v, attn_mask, kv_lens)
+        ctx = ctx.reshape(b, s, -1)
+        if pg is None:
+            return self.out(ctx)
+        return _row_parallel(ctx, self.out, pg)
+
+    def _attend(self, q, k, v, attn_mask, kv_lens):
+        s = q.shape[1]
+        if self.seq_parallel:
+            if attn_mask is not None or kv_lens is not None:
+                raise ValueError(
+                    "sequence_parallel attention takes no attention_mask"
+                    "/kv_lens — pad to full blocks so every position is "
+                    "real, or run the dense model")
+            from ..distributed.env import get_mesh
+            from ..distributed.ring import sequence_parallel_attention
+            mesh = get_mesh()
+            if mesh is None or "sp" not in mesh:
+                raise ValueError(
+                    "sequence_parallel attention needs the global mesh to "
+                    "carry an 'sp' axis: dist.set_mesh(build_mesh({'dp': "
+                    "..., 'sp': ...}))")
+            mode = "ulysses" if self.seq_parallel == "ulysses" else "ring"
+            return sequence_parallel_attention(q, k, v, mode=mode)
         if attn_mask is None and self.use_flash:
             ctx = F.flash_attention(q, k, v, dropout=self.dropout_p,
                                     training=self.training,
@@ -138,11 +226,12 @@ class ErnieSelfAttention(nn.Layer):
             ctx = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, dropout_p=self.dropout_p,
                 training=self.training)
-        return self.out(ctx.reshape(b, s, h))
+        return ctx
 
 
 class ErnieLayer(nn.Layer):
-    def __init__(self, config: ErnieConfig, device=None):
+    def __init__(self, config: ErnieConfig, use_moe: bool = False,
+                 device=None):
         super().__init__(device=device)
         h = config.hidden_size
         dev = self._device
@@ -150,20 +239,40 @@ class ErnieLayer(nn.Layer):
         self.attention = ErnieSelfAttention(config, device=dev)
         self.attn_norm = nn.LayerNorm(h, epsilon=config.layer_norm_eps,
                                       device=dev)
-        self.ffn_in = _init_linear(
-            nn.Linear(h, config.intermediate_size, device=dev), std)
-        self.ffn_out = _init_linear(
-            nn.Linear(config.intermediate_size, h, device=dev), std)
+        self.use_moe = bool(use_moe and config.moe_num_experts > 0)
+        if self.use_moe:
+            from ..distributed.moe import MoELayer
+            self.moe = MoELayer(
+                h, config.intermediate_size, config.moe_num_experts,
+                top_k=config.moe_top_k,
+                capacity_factor=config.moe_capacity_factor,
+                aux_weight=config.moe_aux_weight,
+                activation=config.hidden_act, device=dev)
+        else:
+            self.ffn_in = _init_linear(
+                nn.Linear(h, config.intermediate_size, device=dev), std,
+                P(None, TENSOR_AXIS), P(TENSOR_AXIS))
+            self.ffn_out = _init_linear(
+                nn.Linear(config.intermediate_size, h, device=dev), std,
+                P(TENSOR_AXIS, None))
         self.ffn_norm = nn.LayerNorm(h, epsilon=config.layer_norm_eps,
                                      device=dev)
         self.dropout = nn.Dropout(config.hidden_dropout_prob, device=dev)
         self.act = config.hidden_act
 
+    def _ffn(self, x):
+        if self.use_moe:
+            return self.moe(x)
+        pg = tp_group(self.ffn_in.weight)
+        if pg is None:
+            return self.ffn_out(getattr(F, self.act)(self.ffn_in(x)))
+        hid = getattr(F, self.act)(self.ffn_in(copy_to_group(x, pg)))
+        return _row_parallel(hid, self.ffn_out, pg)
+
     def forward(self, x, attn_mask=None, kv_lens=None):
         attn = self.attention(x, attn_mask, kv_lens=kv_lens)
         x = self.attn_norm(x + self.dropout(attn))
-        ffn = self.ffn_out(getattr(F, self.act)(self.ffn_in(x)))
-        return self.ffn_norm(x + self.dropout(ffn))
+        return self.ffn_norm(x + self.dropout(self._ffn(x)))
 
 
 class ErnieScannedEncoder(nn.ScannedStack):
@@ -185,6 +294,7 @@ class ErnieEmbeddings(nn.Layer):
         dev = self._device
         self.word_embeddings = nn.Embedding(config.vocab_size,
                                             config.hidden_size, device=dev)
+        annotate(self.word_embeddings.weight, P(TENSOR_AXIS, None))
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size, device=dev)
         self.token_type_embeddings = nn.Embedding(
@@ -201,7 +311,8 @@ class ErnieEmbeddings(nn.Layer):
                 s, device=input_ids.device).unsqueeze(0).expand(b, s)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        emb = (self.word_embeddings(input_ids)
+        emb = (vocab_parallel_lookup(input_ids,
+                                     self.word_embeddings.weight)
                + self.position_embeddings(position_ids)
                + self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(emb))
@@ -211,17 +322,31 @@ class ErnieModel(nn.Layer):
     def __init__(self, config: ErnieConfig = None, device=None, **kwargs):
         super().__init__(device=device)
         self.config = config or ErnieConfig(**kwargs)
-        _check_supported(self.config)
         dev = self._device
         self.embeddings = ErnieEmbeddings(self.config, device=dev)
         if self.config.scan_layers:
             self.encoder = ErnieScannedEncoder(self.config, device=dev)
         else:
             self.encoder = nn.LayerList(
-                [ErnieLayer(self.config, device=dev)
-                 for _ in range(self.config.num_hidden_layers)])
+                [ErnieLayer(self.config,
+                            use_moe=_is_moe_layer(self.config, i),
+                            device=dev)
+                 for i in range(self.config.num_hidden_layers)])
         self.pooler = nn.Linear(self.config.hidden_size,
                                 self.config.hidden_size, device=dev)
+
+    def moe_aux_loss(self):
+        """Sum of the last forward's expert load-balancing losses (None
+        for a dense config)."""
+        if isinstance(self.encoder, ErnieScannedEncoder):
+            return None  # scan_layers excludes MoE by construction
+        total = None
+        for lyr in self.encoder:
+            if getattr(lyr, "use_moe", False) and \
+                    lyr.moe.aux_loss is not None:
+                total = lyr.moe.aux_loss if total is None \
+                    else total + lyr.moe.aux_loss
+        return total
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None, seq_lens=None):
@@ -268,7 +393,11 @@ class ErnieForPretraining(nn.Layer):
                                      epsilon=cfg.layer_norm_eps, device=dev)
         self.mlm_bias = self.create_parameter((cfg.vocab_size,),
                                               is_bias=True)
+        annotate(self.mlm_bias, P(TENSOR_AXIS))
         self.nsp = nn.Linear(cfg.hidden_size, 2, device=dev)
+
+    def moe_aux_loss(self):
+        return self.ernie.moe_aux_loss()
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None, seq_lens=None):
@@ -282,12 +411,15 @@ class ErnieForPretraining(nn.Layer):
         # F.linear (an AMP white-list op, as in the JAX package)
         b, s = h.shape[0], h.shape[1]
         w = self.ernie.embeddings.word_embeddings.weight
-        lg = F.linear(h.reshape(-1, h.shape[-1]), w.t())
+        pg = tp_group(w)
+        lg = F.linear(copy_to_group(h.reshape(-1, h.shape[-1]), pg), w.t())
         # bias in the LOGITS dtype: under O1 the f32 bias would promote
         # the whole [b*s, vocab] tensor to f32
         bias = self.mlm_bias if self.mlm_bias.dtype == lg.dtype \
             else self.mlm_bias.to(lg.dtype)
-        return (lg + bias).reshape(b, s, -1), self.nsp(pooled)
+        # vocab-split over tp: every rank's block of the logits
+        lg = gather_from_group(lg + bias, -1, pg)
+        return lg.reshape(b, s, -1), self.nsp(pooled)
 
     @staticmethod
     def pretraining_loss(outputs, mlm_labels, nsp_labels=None,
@@ -310,6 +442,11 @@ class ErnieForPretraining(nn.Layer):
         [b*s, vocab] logits ever exist. Bind as the TrainStep loss_fn:
         TrainStep(model, model.chunked_pretraining_loss, ...)."""
         h, nsp_logits = outputs
+        if tp_group(self.ernie.embeddings.word_embeddings.weight) is not None:
+            raise ValueError(
+                "chunked_ce streams the whole vocab through each rank; "
+                "with the word embeddings split over tp, use the dense "
+                "pretraining_loss")
         w_t = self.ernie.embeddings.word_embeddings.weight.t()
         mlm = F.linear_cross_entropy(
             h.reshape(-1, h.shape[-1]), w_t, self.mlm_bias,

@@ -217,7 +217,7 @@ def _prefill(params, eps, n_heads, ids, total_len, prompt_lens=None,
     if qkv_heads_major or tp_reduce is not None or head_dim is not None:
         raise NotImplementedError(
             "tensor-parallel prefill (qkv_heads_major/tp_reduce/head_dim)"
-            " is not ported yet: it comes with ROADMAP.md queue A item 14"
+            " is not ported yet: it comes with ROADMAP.md queue A item 14c"
             " (tp serving)")
     b, s = ids.shape
     dev = ids.device

@@ -19,13 +19,19 @@ __all__ = ["Initializer", "Constant", "Normal", "XavierNormal"]
 
 
 def _fans(shape):
-    """(fan_in, fan_out) of a vector or an [in, out] matrix."""
+    """(fan_in, fan_out) as the JAX package computes them: a scalar's
+    (1, 1), a vector's (n, n), an [in, out] matrix's; for more dims
+    (conv kernels [out_c, in_c, *spatial], and MoE's stacked experts)
+    in = shape[1] * receptive, out = shape[0] * receptive."""
     shape = tuple(shape)
+    if len(shape) == 0:
+        return 1, 1
     if len(shape) == 1:
         return shape[0], shape[0]
     if len(shape) == 2:
         return shape[0], shape[1]
-    raise NotImplementedError(f"fans of a {len(shape)}-d parameter")
+    receptive = int(math.prod(shape[2:]))
+    return shape[1] * receptive, shape[0] * receptive
 
 
 class Initializer:

@@ -57,7 +57,7 @@ tick; a standalone engine leaves both None and marks each request's
 submit itself.
 
 Not ported yet: tensor-parallel plans (``plan=``, ROADMAP.md queue A
-item 14).
+item 14c).
 """
 from __future__ import annotations
 
@@ -146,7 +146,7 @@ class ServingConfig:
         if self.plan is not None:
             raise NotImplementedError(
                 "plan= (tensor-parallel serving) is not ported yet: it "
-                "comes with ROADMAP.md queue A item 14")
+                "comes with ROADMAP.md queue A item 14c")
         self.quant_config = None
         if self.quant is not None and not isinstance(self.quant, str):
             # a quantization config object opts into serving int8

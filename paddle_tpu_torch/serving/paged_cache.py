@@ -51,7 +51,7 @@ tables), scratch never handed out, and 1 (scratch) + free + live ==
 n_blocks with a shared page counted once.
 
 Not ported yet: sharded pools (tensor parallelism, ROADMAP.md queue A
-item 14).
+item 14c).
 """
 from __future__ import annotations
 
@@ -180,7 +180,7 @@ class PagedKVCache:
         if pool_sharding is not None or int(tp) != 1:
             raise NotImplementedError(
                 "sharded page pools (pool_sharding, tp > 1) are not ported "
-                "yet: they come with ROADMAP.md queue A item 14 (tp "
+                "yet: they come with ROADMAP.md queue A item 14c (tp "
                 "serving)")
         if n_blocks < 2:
             raise ValueError(

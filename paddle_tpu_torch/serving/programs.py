@@ -49,7 +49,7 @@ shared-prefix suffix prefill; unlike decode it routes the writes of
 positions past a row's valid length to scratch instead of clamping them
 into the row's last page, because under prefix sharing that page may be
 borrowed. The tensor-parallel programs are not ported (ROADMAP.md queue
-A item 14).
+A item 14c).
 """
 from __future__ import annotations
 

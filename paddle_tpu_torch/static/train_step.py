@@ -63,15 +63,38 @@ nothing is read from the card.
 Data parallel (mesh=, a distributed.env.Mesh with a dp axis): each rank
 calls the step on its local batch; between the unscale and the update,
 where the JAX step calls its grad_transform, the grads are averaged over
-the dp ranks (one all-reduce AVG a grad, NCCL on the card, captured in
-the step's graph), and so is the returned loss. That is the JAX step
-with ShardingPlan(zero_stage=0) on the global batch. grad_transform
-(grads, strategy_state, params) -> (grads, strategy_state) then runs by
-parameter name, its state riding strategy_state (and so state_dict); a
-comm sync transform (``syncs_dp_grads``) does the dp reduction itself.
-sharding_plan (ROADMAP.md item 14) and sentry (item 17) raise
-NotImplementedError, as does an optimizer with a grad_clip (the JAX
-package's compiled step does not clip); aot_lower is not ported.
+the data axes (dp, and fsdp when the mesh has it: one all-reduce AVG a
+grad and axis, NCCL on the card, captured in the step's graph), and so
+is the returned loss. That is the JAX step on the global batch.
+grad_transform (grads, strategy_state, params) -> (grads,
+strategy_state) then runs by parameter name, its state riding
+strategy_state (and so state_dict); a comm sync transform
+(``syncs_dp_grads``) does the dp reduction itself.
+
+sharding_plan (a distributed.ShardingPlan, or a MeshPlan) over the axes
+dp, fsdp, tp, ep and sp: the mesh is the plan's, and the global mesh the
+layers find their groups in. The model axes (tp, ep) are split where
+the layers are made (sharding.annotate), sp splits attention's
+sequence (models/ernie.py); the step takes this rank's batch
+(plan.place_batch). Under ZeRO stage >= 1, or an fsdp axis, each
+parameter whose state spec names a data axis is updated as a shard: the
+optimizer holds this rank's block of it (and its moments and master
+weight) along that axis, takes the same block of the averaged grad, and
+the updated blocks are all-gathered back into the parameter; a data
+axis of one rank still runs that path (a one-rank gather). The full
+gradient is all-reduced and sliced (where a reduce-scatter would move
+half the bytes), and the layer keeps its whole parameter between steps,
+so stage 3 and fsdp save the optimizer state's memory, not the
+parameters'. Over several ranks every rank calls the step, state_dict
+and set_state_dict, in the same order. state_dict() returns full
+tensors, the JAX step's global arrays: the model's, and the optimizer's
+state, gathered over the model and data axes (checkpoints keep one
+layout whatever the mesh); set_state_dict takes full tensors and keeps this
+rank's blocks. A scaler's overflow flag is the MAX over every axis of
+the mesh. The pp axis (the pipeline, ROADMAP.md item 14b) and sentry
+(item 17) raise NotImplementedError, as does an optimizer with a
+grad_clip (the JAX package's compiled step does not clip); aot_lower is
+not ported.
 """
 from __future__ import annotations
 
@@ -86,7 +109,8 @@ from ..amp.functional import (check_finite_and_unscale_tree,
 from ..core import generator as _generator
 from ..core.generator import Draw, SeedSlots, mix_seed, next_seed, seed_scope
 from ..core.place import host_tensor
-from ..distributed.env import DATA_AXIS
+from ..distributed import sharding as _sh
+from ..distributed.env import get_mesh, set_mesh
 from ..distributed.parallel import dp_average_, dp_max_, dp_size
 from ..distributed.recompute import check_policy, checkpointed
 from ..observability import flight_recorder as _fr
@@ -114,20 +138,37 @@ def _later(flag, where):
         f"TrainStep({flag}=...) is not ported yet: it comes with {where}")
 
 
-def _dp_group_of(mesh):
-    """The dp process group of `mesh` (None without one). Axes other
-    than dp must have size 1: sharded and parallel forms come with the
-    planner (ROADMAP.md item 14)."""
+#: the mesh axes a TrainStep runs over; pp (the pipeline) comes with
+#: ROADMAP.md item 14b
+_STEP_AXES = ("dp", "fsdp", "tp", "ep", "sp")
+
+
+#: optimizers whose rule reads whole-tensor norms (optimizers.py _norms)
+_NORM_RULES = ("Lamb", "Lars")
+
+
+def _check_axes(mesh):
+    """Refuse mesh axes above size 1 that the step does not run."""
     if mesh is None:
-        return None
+        return
     wide = [ax for ax in mesh.axis_names
-            if ax != DATA_AXIS and mesh.shape[ax] > 1]
+            if ax not in _STEP_AXES and mesh.shape[ax] > 1]
+    if "pp" in wide:
+        raise NotImplementedError(
+            "TrainStep(mesh=...) over a pp axis of size > 1: the pipeline "
+            "comes with ROADMAP.md item 14b (pipeline.py, "
+            "pipeline_engine.py)")
     if wide:
         raise NotImplementedError(
-            f"TrainStep(mesh=...) over axes {wide} of size > 1: only the "
-            "dp axis is ported; sharded and parallel forms come with "
-            "ROADMAP.md item 14")
-    return mesh.group(DATA_AXIS) if DATA_AXIS in mesh else None
+            f"TrainStep(mesh=...) over axes {wide} of size > 1: the step "
+            f"runs over {list(_STEP_AXES)}")
+
+
+def _plan_of(plan):
+    """A ShardingPlan from a ShardingPlan or a MeshPlan (None passes)."""
+    if isinstance(plan, _sh.MeshPlan):
+        return plan.sharding_plan()
+    return plan
 
 
 def _clone_tree(tree):
@@ -223,15 +264,31 @@ class TrainStep:
                  strategy_state: Optional[Dict[str, Any]] = None,
                  remat: bool = False, remat_policy=None, scaler=None,
                  sentry=None):
-        for flag, val, where in (
-                ("sharding_plan", sharding_plan,
-                 "ROADMAP.md item 14 (the MeshPlan planner)"),
-                ("sentry", sentry,
-                 "ROADMAP.md item 17 (observability/sentry.py)")):
-            if val is not None:
-                raise _later(flag, where)
+        if sentry is not None:
+            raise _later("sentry",
+                         "ROADMAP.md item 17 (observability/sentry.py)")
+        plan = _plan_of(sharding_plan)
+        if plan is not None:
+            if mesh is not None and mesh is not plan.mesh:
+                raise ValueError("TrainStep(mesh=, sharding_plan=): the "
+                                 "plan's mesh and mesh= differ")
+            mesh = plan.mesh
+        _check_axes(mesh)
+        if mesh is not None and get_mesh() is None:
+            # the layers find their groups in the global mesh: tp, ep,
+            # sp, and the data axes a MoE layer's slot order spans
+            set_mesh(mesh)
         self.mesh = mesh
-        self._dp_group = _dp_group_of(mesh)
+        self.sharding_plan = plan
+        # the data axes' groups (batch order), and every axis group: the
+        # grads and the loss are averaged over the first, a scaler's
+        # overflow flag is the MAX over the second
+        self._data_groups = [] if mesh is None else [
+            mesh.group(ax) for ax in _sh.DATA_AXES
+            if ax in mesh and mesh.group(ax) is not None]
+        self._all_groups = [] if mesh is None else [
+            mesh.group(ax) for ax in mesh.axis_names
+            if mesh.group(ax) is not None]
         if getattr(optimizer, "_grad_clip", None) is not None:
             # the JAX TrainStep updates through apply_gradients_tree,
             # which never calls the optimizer's _grad_clip: its compiled
@@ -269,6 +326,10 @@ class TrainStep:
             # init_state_tree makes it (and a snapshot taken before the
             # first step restores it)
             optimizer._state_of(p)
+        # ZeRO / fsdp: {param index: (data layout, the optimizer's shard)}
+        self._shards: Dict[int, Any] = {}
+        if plan is not None:
+            self._make_shards(plan)
         self._scaler_cfg = None
         if scaler is not None and getattr(scaler, "_enable", True):
             self._scaler_cfg = {
@@ -294,6 +355,58 @@ class TrainStep:
 
     def _device(self):
         return self.params[0].device
+
+    @torch.no_grad()
+    def _make_shards(self, plan):
+        """Under ZeRO >= 1 or fsdp: for each parameter whose state spec
+        names a data axis with a process group, the optimizer's param is
+        this rank's block of it, and its state (moments, master weight)
+        moves to that block."""
+        opt = self.optimizer
+        for i, (name, p) in enumerate(zip(self._param_names, self.params)):
+            layout = _sh.layout_of(plan.state_spec(name, p), self.mesh,
+                                   _sh.DATA_AXES, min_size=1)
+            if not layout:
+                continue
+            if type(opt).__name__ in _NORM_RULES:
+                raise NotImplementedError(
+                    f"{type(opt).__name__} scales each update by whole-"
+                    "tensor norms, which a shard's update does not see: "
+                    "ZeRO stage >= 1 and fsdp take an elementwise "
+                    "optimizer in the port")
+            shard = _sh.block_of(p.detach(), layout, self.mesh).clone()
+            st = opt._accumulators.pop(id(p))
+            opt._accumulators[id(shard)] = {
+                k: (_sh.block_of(v, layout, self.mesh).clone()
+                    if v.dim() > 0 else v) for k, v in st.items()}
+            self._shards[i] = (layout, shard)
+
+    def _opt_param(self, i):
+        sh = self._shards.get(i)
+        return sh[1] if sh is not None else self.params[i]
+
+    def optimizer_states(self):
+        """Each parameter's optimizer state dict as this rank holds it
+        (a shard's under ZeRO / fsdp)."""
+        return [self.optimizer._state_of(self._opt_param(i))
+                for i in range(len(self.params))]
+
+    def _apply(self, grads, lr, skip):
+        """The update: whole parameters in place, and under ZeRO / fsdp
+        the shards from their block of the grad, gathered back into the
+        parameters."""
+        if not self._shards:
+            self.optimizer.apply_gradients(self.params, grads, lr=lr,
+                                           skip=skip)
+            return
+        mesh = self.mesh
+        ps = [self._opt_param(i) for i in range(len(self.params))]
+        gs = [_sh.block_of(g, self._shards[i][0], mesh)
+              if i in self._shards else g for i, g in enumerate(grads)]
+        self.optimizer.apply_gradients(ps, gs, lr=lr, skip=skip)
+        with torch.no_grad():
+            for i, (layout, shard) in self._shards.items():
+                self.params[i].copy_(_sh.gather_of(shard, layout, mesh))
 
     @torch.no_grad()
     def _cast_down(self, amp_dtype):
@@ -374,18 +487,19 @@ class TrainStep:
         found_inf = None
         if scale is not None:
             found_inf = check_finite_and_unscale_tree(grads, scale)
-            if self._dp_group is not None:
+            if self._all_groups:
                 # one rank's overflow skips the step on every rank (the
                 # averaged grads carry it everywhere)
                 flag = found_inf.to(torch.float32)
-                dp_max_(flag, self._dp_group)
+                for pg in self._all_groups:
+                    dp_max_(flag, pg)
                 found_inf = flag > 0
         grads = self._sync_and_transform(grads)
-        if self._dp_group is not None:
+        if self._data_groups:
             loss = loss.clone()
-            dp_average_([loss], self._dp_group)
-        self.optimizer.apply_gradients(self.params, grads, lr=lr,
-                                       skip=found_inf)
+            for pg in self._data_groups:
+                dp_average_([loss], pg)
+        self._apply(grads, lr, found_inf)
         if found_inf is not None:
             self._update_scaler(found_inf)
         self._found_inf = found_inf
@@ -395,7 +509,7 @@ class TrainStep:
     def _sync_and_transform(self, grads):
         """Between the unscale and the update, where the JAX step calls
         its grad_transform: over a dp mesh the grads are averaged over
-        the dp ranks (the JAX partitioner's global-batch gradients), then
+        the data ranks (the JAX partitioner's global-batch gradients), then
         grad_transform(grads, strategy_state, params) -> (grads, state)
         runs on them by name. A transform marked ``syncs_dp_grads`` (the
         comm sync) does the dp reduction itself: it gets the grads
@@ -403,9 +517,9 @@ class TrainStep:
         written into strategy_state's tensors in place (a captured
         graph holds their addresses)."""
         fn = self.grad_transform
-        pg = self._dp_group
-        if pg is not None:
-            if fn is not None and getattr(fn, "syncs_dp_grads", False):
+        for pg in self._data_groups:
+            if fn is not None and getattr(fn, "syncs_dp_grads", False) \
+                    and pg is self.mesh.group("dp"):
                 n = dp_size(pg)
                 if n > 1:
                     grads = [g / n for g in grads]
@@ -563,33 +677,97 @@ class TrainStep:
         return _EvalFn(self)
 
     # -- checkpoints ----------------------------------------------------------
+    def _layouts(self, i):
+        """(model layout, data layout) of parameter i: how its stored
+        block and its optimizer shard were cut."""
+        model = _sh.model_layout(self.params[i], self.mesh)
+        data = self._shards[i][0] if i in self._shards else []
+        return model, data
+
+    def _full_opt_state(self):
+        """optimizer.state_dict() with every parameter's state as full
+        tensors (gathered over its data, then its model axes)."""
+        opt = self.optimizer
+        out = opt.state_dict()
+        index = {id(p): j for j, p in enumerate(opt._parameters or [])}
+        for i, p in enumerate(self.params):
+            model, data = self._layouts(i)
+            if not (model or data) or id(p) not in index:
+                continue
+            st = opt._accumulators.get(id(self._opt_param(i)), {})
+            out[f"param_{index[id(p)]}"] = {
+                k: (_sh.gather_of(_sh.gather_of(v.detach(), data,
+                                                self.mesh),
+                                  model, self.mesh).clone()
+                    if v.dim() > 0 else v.detach().clone())
+                for k, v in st.items()}
+        return out
+
     def state_dict(self):
-        """A snapshot (copies): the live tensors are updated in place by
-        later steps. Beside the model, the optimizer (moments, its step
-        count, the lr scheduler) and strategy_state, it carries the
-        dropout seed stream (core.generator.get_state) and the number of
-        steps taken, so a step restored from it draws the masks the
-        uninterrupted run drew at that step."""
-        return {"model": {k: v.detach().clone()
-                          for k, v in self.layer.state_dict().items()},
-                "opt": self.optimizer.state_dict(),
+        """A snapshot (copies) of full tensors: the live ones are updated
+        in place by later steps, and a parameter split over the mesh is
+        gathered (every rank calls it). Beside the model, the optimizer
+        (moments, its step count, the lr scheduler) and strategy_state,
+        it carries the dropout seed stream (core.generator.get_state)
+        and the number of steps taken, so a step restored from it draws
+        the masks the uninterrupted run drew at that step."""
+        own = self.layer.state_dict(keep_vars=True)
+        return {"model": {k: _sh.full_value(v, self.mesh).detach().clone()
+                          for k, v in own.items()},
+                "opt": self._full_opt_state(),
                 "strategy_state": _clone_tree(self.strategy_state),
                 "seed": _generator.get_state(),
                 "step": self._steps_done}
 
     @torch.no_grad()
+    def _set_opt_state(self, state):
+        """optimizer.set_state_dict, with the split and sharded
+        parameters' full state cut to this rank's blocks, in place."""
+        opt = self.optimizer
+        state = dict(state)
+        index = {id(p): j for j, p in enumerate(opt._parameters or [])}
+        special = {}
+        for i, p in enumerate(self.params):
+            model, data = self._layouts(i)
+            key = f"param_{index.get(id(p), -1)}"
+            if (model or data) and key in state:
+                special[i] = state.pop(key)
+        opt.set_state_dict(state)
+        for i, full in special.items():
+            model, data = self._layouts(i)
+            own = opt._state_of(self._opt_param(i))
+            for k, v in full.items():
+                v = _as_tensor(v).to(self._device())
+                if v.dim() > 0:
+                    v = _sh.block_of(_sh.block_of(v, model, self.mesh),
+                                     data, self.mesh)
+                if k in own and own[k].shape == v.shape:
+                    own[k].copy_(v)
+                else:
+                    own[k] = v.clone()
+
+    @torch.no_grad()
     def set_state_dict(self, state):
         """Restore a state_dict() checkpoint (tensors, or the numpy
-        arrays a checkpoint file gives back). Every tensor that exists is
-        written in place (the model's, the optimizer's, strategy_state's),
-        so a captured program goes on reading the restored values."""
+        arrays a checkpoint file gives back; full tensors, cut to this
+        rank's blocks). Every tensor that exists is written in place
+        (the model's, the optimizer's, strategy_state's), so a captured
+        program goes on reading the restored values."""
         if state.get("model"):
-            own = self.layer.state_dict()
+            own = self.layer.state_dict(keep_vars=True)
             for k, v in state["model"].items():
                 if k in own:
-                    own[k].copy_(_as_tensor(v))
+                    v = _as_tensor(v)
+                    lay = _sh.model_layout(own[k], self.mesh)
+                    if lay:
+                        v = _sh.block_of(v.to(own[k].device), lay,
+                                         self.mesh)
+                    own[k].copy_(v)
+            for i, (layout, shard) in self._shards.items():
+                shard.copy_(_sh.block_of(self.params[i].detach(), layout,
+                                         self.mesh))
         if state.get("opt") is not None:
-            self.optimizer.set_state_dict(state["opt"])
+            self._set_opt_state(state["opt"])
         if state.get("strategy_state") is not None:
             _load_state(self.strategy_state, state["strategy_state"],
                         self._device())

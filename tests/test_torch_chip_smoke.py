@@ -602,3 +602,124 @@ def test_loadgen_trace_is_serving_bench_default_and_fits_the_ladders(cs):
     assert longest <= cs.SERVE_CONFIG["max_total_tokens"]
     assert max(cs.FLEET_CONFIG["prefill_buckets"]) >= \
         cs.FLEET_CONFIG["max_total_tokens"] - 1
+
+
+# -- the planner phases (moe_train, plan_train, sp_train) ----------------------
+
+def _launches(n):
+    return {"flash_attn_fwd": n, "flash_attn_bwd_dq": n,
+            "flash_attn_bwd_dkv": n}
+
+
+def _moe_row():
+    return dict(graphs=1, sentinel_events=0, max_loss_rel_diff=0.0,
+                params_bit_equal=True, layers=12,
+                nccl_launches_per_replay=243, nccl_expected=243,
+                launches_per_replay=_launches(12), card_vs_cpu_ok=True,
+                dropped_share={"layer1": 0.0, "layer3": 0.375})
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("graphs", "graphs"), ("loss", "bit-equal"),
+    ("params", "bit-equal"), ("launches", "launched"),
+    ("cpu", "the CPU"), ("dropped", "dropped shares"),
+    ("nccl", "NCCL kernels")])
+def test_moe_train_gates_name_each_failure(cs, breakage, word):
+    row = _moe_row()
+    if breakage == "graphs":
+        row["graphs"] = 2
+    elif breakage == "loss":
+        row["max_loss_rel_diff"] = 1e-7
+    elif breakage == "params":
+        row["params_bit_equal"] = False
+    elif breakage == "launches":
+        row["launches_per_replay"] = dict(_launches(12), flash_attn_fwd=11)
+    elif breakage == "cpu":
+        row["card_vs_cpu_ok"] = False
+    elif breakage == "dropped":
+        row["dropped_share"]["layer5"] = 1.0
+    elif breakage == "nccl":
+        row["nccl_launches_per_replay"] = 242.5
+    bad = cs.moe_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+@pytest.mark.parametrize("breakage", [None, "loss", "params", "graphs"])
+def test_plan_train_gates_name_each_failure(cs, breakage):
+    run = dict(losses_bit_equal=True, params_bit_equal=True, graphs=1,
+               sentinel_events=0)
+    runs = {k: dict(run) for k in ("meshplan_dp1", "zero1", "zero2",
+                                   "zero3")}
+    if breakage == "loss":
+        runs["zero2"]["losses_bit_equal"] = False
+    elif breakage == "params":
+        runs["zero3"]["params_bit_equal"] = False
+    elif breakage == "graphs":
+        runs["zero1"]["graphs"] = 2
+    bad = cs.plan_train_gates({"runs": runs})
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1, bad
+
+
+def _sp_row():
+    mode = dict(graphs=1, sentinel_events=0)
+    return dict(layers=12,
+                ulysses=dict(mode, losses_bit_equal=True,
+                             params_bit_equal=True,
+                             launches_per_step=_launches(12),
+                             warmup_launches=_launches(12)),
+                ring=dict(mode, launches_per_step=_launches(0),
+                          warmup_launches=_launches(0), loss_ok=True,
+                          params_ok=True, max_loss_rel_diff=3e-6,
+                          params_max_abs_diff=1e-4, params_tol=2e-2))
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("ulysses_bits", "bit-equal"),
+    ("ulysses_launches", "Ulysses launched"),
+    ("ring_launches", "ring launched"), ("ring_loss", "bf16 gate"),
+    ("graphs", "graphs")])
+def test_sp_train_gates_name_each_failure(cs, breakage, word):
+    row = _sp_row()
+    if breakage == "ulysses_bits":
+        row["ulysses"]["params_bit_equal"] = False
+    elif breakage == "ulysses_launches":
+        row["ulysses"]["warmup_launches"] = _launches(11)
+    elif breakage == "ring_launches":
+        row["ring"]["launches_per_step"] = _launches(12)
+    elif breakage == "ring_loss":
+        row["ring"]["loss_ok"] = False
+    elif breakage == "graphs":
+        row["ring"]["graphs"] = 2
+    bad = cs.sp_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_ernie_param_count_is_the_models(cs):
+    """plan_train's ModelDims count ERNIE's parameters in closed form,
+    equal to the port's ErnieForPretraining's count; moe_train's MFU
+    counts the active ones (a token idles E - k of each MoE layer's E
+    experts)."""
+    sys.path.insert(0, str(ROOT))
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    cfg = dict(vocab_size=96, hidden_size=16, num_hidden_layers=3,
+               num_attention_heads=2, intermediate_size=24,
+               max_position_embeddings=20)
+    m = ErnieForPretraining(ErnieConfig(**cfg), device="cpu")
+    assert cs.ernie_param_count(96, 16, 3, 24, 20) == \
+        sum(p.numel() for p in m.parameters())
+    mm = ErnieForPretraining(ErnieConfig(**cfg, moe_num_experts=4),
+                             device="cpu")
+    # one MoE layer (the 2nd): top-2 of 4 experts, half idle a token
+    moe = mm.ernie.encoder[1].moe
+    skipped = sum(t.numel() for t in (moe.w1, moe.b1, moe.w2, moe.b2)) // 2
+    assert cs.active_params(mm) == \
+        sum(p.numel() for p in mm.parameters()) - skipped

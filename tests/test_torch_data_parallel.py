@@ -221,9 +221,12 @@ def test_data_parallel_refuses_a_plan_and_keeps_the_layer_surface():
     import torch
     from paddle_tpu_torch.distributed import DataParallel
     from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.distributed import MeshPlan
     lin = Linear(3, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DataParallel(lin, plan=object())
+    # plan= is taken since the planner (item 14a): no process group, so
+    # the plan's data axes have no group and there is nothing to sync
+    planned = DataParallel(lin, plan=MeshPlan(dp=1))
+    assert planned._data_groups() == []
     dp = DataParallel(lin)           # no process group: nothing to sync
     assert list(dp.state_dict()) == list(lin.state_dict())
     x = torch.randn(4, 3)

@@ -171,11 +171,22 @@ def test_training_mode_attention_dropout_raises(pair, monkeypatch):
                                   dict(chunked_ce=True,
                                        sequence_parallel=True)])
 def test_later_slice_flags_raise(flag):
-    """MoE and sequence parallelism wait for the distributed slice, also
-    beside scan_layers and chunked_ce, which are ported
-    (tests/test_torch_scan_layers.py, tests/test_torch_gpt_training.py)."""
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    """MoE and sequence parallelism came with the planner slice (item
+    14a): each flag, also beside scan_layers and chunked_ce, is now
+    accepted or refused exactly as the JAX package's ErnieConfig does
+    (sequence_parallel needs attention dropout 0; scan_layers excludes
+    MoE), and nothing raises NotImplementedError."""
+    try:
+        JaxErnie(JaxConfig.tiny(**flag))
+        jax_err = None
+    except ValueError as e:
+        jax_err = str(e)
+    if jax_err is None:
         ErnieForPretraining(ErnieConfig.tiny(**flag), device="cpu")
+    else:
+        with pytest.raises(ValueError) as e:
+            ErnieForPretraining(ErnieConfig.tiny(**flag), device="cpu")
+        assert str(e.value) == jax_err
 
 
 def test_load_jax_params_rejects_mismatch(pair):

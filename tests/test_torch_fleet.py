@@ -265,13 +265,16 @@ def test_mesh_shapes_equal_jax():
 
 
 def test_refusals_cite_item_14():
+    """What waits for item 14 now is the pipeline (14b): build_pipeline
+    and the pipeline meta-optimizer above degree 1. The planner hooks
+    (build_mesh_plan, build_sharding_plan, DistributedStrategy.mesh_plan)
+    and the tensor-parallel meta-optimizer came with 14a and run."""
     s = pfleet.DistributedStrategy()
-    for call in (lambda: pfleet.fleet.build_mesh_plan(),
-                 lambda: pfleet.fleet.build_pipeline([], None, None),
-                 lambda: pfleet.fleet.build_sharding_plan(),
-                 lambda: s.mesh_plan(1)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        pfleet.fleet.build_pipeline([], None, None)
+    assert s.mesh_plan(1).sizes == {"dp": 1, "fsdp": 1, "tp": 1, "pp": 1}
+    assert pfleet.fleet.build_mesh_plan().n_devices == 1
+    assert pfleet.fleet.build_sharding_plan().zero_stage == 0
     spec = pmeta.TrainStepSpec(layer=None, loss_fn=None, optimizer=None)
     for flag, cfg in (("tensor_parallel", {"tensor_parallel_degree": 2}),
                       ("pipeline", None)):
@@ -279,10 +282,12 @@ def test_refusals_cite_item_14():
         setattr(s, flag, True)
         if cfg:
             s.tensor_parallel_configs = cfg
+            pmeta.StrategyCompiler().compile(spec, s)
+            assert "tensor_parallel" in spec.applied
         else:
             s.hybrid_configs = dict(s.hybrid_configs, pp_degree=2)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            pmeta.StrategyCompiler().compile(spec, s)
+            with pytest.raises(NotImplementedError, match="item 14b"):
+                pmeta.StrategyCompiler().compile(spec, s)
 
 
 def test_local_fs_equals_jax(tmp_path):

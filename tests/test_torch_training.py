@@ -391,14 +391,25 @@ def test_trainstep_state_dict_roundtrip_and_later_flags():
     st.set_state_dict(ck)
     b = st(torch.from_numpy(ids), torch.from_numpy(lbl)).item()
     assert a == b
-    for flag, item in (("sharding_plan", "item 14"), ("sentry", "item 17")):
-        with pytest.raises(NotImplementedError, match=item):
-            TrainStep(m, _loss_fn, topt.AdamW(), **{flag: object()})
-    # mesh= and grad_transform= are taken since the distributed slice;
-    # a mesh axis other than dp above size 1 waits for item 14
-    from paddle_tpu_torch.distributed import build_mesh
+    with pytest.raises(NotImplementedError, match="item 17"):
+        TrainStep(m, _loss_fn, topt.AdamW(), sentry=object())
+    # mesh= and grad_transform= are taken since the distributed slice,
+    # sharding_plan= and the tp, ep, sp and fsdp axes since the planner
+    # (item 14a); a pp axis above size 1 waits for the pipeline (14b)
+    from paddle_tpu_torch.distributed import (MeshPlan, ShardingPlan,
+                                              build_mesh, set_mesh)
     TrainStep(m, _loss_fn, topt.AdamW(), mesh=build_mesh({"dp": 1}),
               grad_transform=lambda g, s, p: (g, s))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    try:
         TrainStep(m, _loss_fn, topt.AdamW(),
                   mesh=build_mesh({"dp": 1, "tp": 2}, devices=[0, 1]))
+        TrainStep(m, _loss_fn, topt.AdamW(),
+                  sharding_plan=ShardingPlan(build_mesh({"dp": 1}),
+                                             zero_stage=3))
+        TrainStep(m, _loss_fn, topt.AdamW(),
+                  sharding_plan=MeshPlan(dp=1).sharding_plan())
+        with pytest.raises(NotImplementedError, match="item 14b"):
+            TrainStep(m, _loss_fn, topt.AdamW(),
+                      mesh=build_mesh({"dp": 1, "pp": 2}, devices=[0, 1]))
+    finally:
+        set_mesh(None)
