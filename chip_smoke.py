@@ -87,7 +87,9 @@ Phases, each of which fails the run on any mismatch:
    does not pass through the wrappers, so after the timed steps two
    replays run under torch.profiler, which counts the kernels each ran
    on the card (`launches_per_step`; three such rounds, each kernel's
-   largest count kept, since the profiler drops a record now and then).
+   largest count kept, since the profiler drops a record now and then,
+   each round's window padded by PROFILE_PAD spin kernels, since it can
+   lose the first records of a window).
    The warm-up and every replay
    must launch the forward, dQ and dK/dV kernels exactly 12 times each,
    and a replay the launches its capture recorded
@@ -325,6 +327,31 @@ Phases, each of which fails the run on any mismatch:
    the previous write) beside its background write ms, restore ms,
    seconds from the kill to the first resumed step, and the goodput
    checkpoint fraction of every incarnation.
+
+30. Pipeline training (`pipeline_train`, after `sp_train`, outside the
+   one-rank group, before `elastic_train`): ERNIE-base 48x512 split by
+   ernie_pipeline_stages into 4 stages (3+3+3+3 blocks) and driven by
+   PipelineParallel(num_micro=8, schedule="1f1b") (microbatches of
+   6x512), AdamW, O1 bf16 under amp.auto_cast, dropout 0.1, from
+   captured_train's ERNIE weights (the decoder untied: the word
+   embeddings transposed). The captured engine (one CUDA graph per
+   stage, op kind and signature) bit-equal to the eager engine over 3
+   seeded steps (losses, every parameter); then 2 warm-up and 10 timed
+   steps: 168 forward, 96 dQ and 96 dK/dV launches a step counted on
+   the card (the forward in F, and again in the 3 non-last stages' B),
+   every forward on the bf16 route (fwd_wgmma), the eager step's
+   wrappers counting the same, 60 dispatches, 15 graphs, 0 sentinel
+   events, held inputs [4, 3, 2, 1] (min(M, S - s)), the bubble
+   fraction 3/11, step ms, device ms, idle share, tokens/s, MFU (PERF.md
+   §2's formula over ErnieForPretraining's parameters, the recompute
+   not counted) and peak memory beside captured_train's ERNIE step. At
+   dropout 0 in f32: the engine's 3 losses against the captured
+   TrainStep of ErnieForPretraining with its decoder untied
+   (PIPE_F32_RTOL: the same function, reduced in another order); the
+   interleaved engine (2 virtual stages on each of 4 ranks, 8 stages)
+   against the 1F1B one, with both step ms. Before it (`pipe_kernel`,
+   `mask_probe` at b 6): the three kernels at the microbatch's shape (b
+   6, s 512, bf16, non-causal, p 0.1) against their plain versions.
 
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
@@ -1355,24 +1382,42 @@ def per_call(total, calls):
             for k, v in total.items()}
 
 
-def device_profile(torch, fn, runs):
+# spin kernels launched ahead of each round's calls (device_profile's
+# pad), and the name of torch.cuda._sleep's kernel. The profiler can
+# lose the first device records of a window (9 in every unpadded round
+# of PERF.md's call 13f, none in a round padded by 19 or more), which
+# held a small step's first forward out of its count; a pad well above
+# that loss leaves every kernel of the calls counted.
+PROFILE_PAD = 64
+PAD_KERNEL = "spin_kernel"
+PROFILED_REPLAYS, PROFILE_ROUNDS = 2, 3
+
+
+def device_profile(torch, fn, runs, pad=PROFILE_PAD):
     """torch.profiler over `runs` calls of fn (after one unprofiled
-    call), per call: device ms, ms by PROFILE_CATEGORIES, device events,
+    call; with pad, that many empty spin kernels launched first inside
+    the window, to take the records the profiler can lose at its start;
+    their records are left out), per call:
+    device ms, ms by PROFILE_CATEGORIES, device events,
     the top 25 by time; and over all runs: `kernel_launches`, the
     flash-attention kernels launched, and `device_events`, every device
     event (kernels, copies, sets; not the host ops that launched
-    them)."""
+    them), and `routes`, the launches of each kernel name of
+    KERNEL_EVENTS (a wgmma or a SIMT route)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(1)
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
     events = [(ev.name, ev.time_range.elapsed_us() / 1e3)
               for ev in prof.events()
-              if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+              if str(getattr(ev, "device_type", "")).endswith("CUDA")
+              and PAD_KERNEL not in ev.name]
     by_name = {}
     for name, ev_ms in events:
         ms, calls = by_name.get(name, (0.0, 0))
@@ -1389,19 +1434,19 @@ def device_profile(torch, fn, runs):
                 top=[dict(ms=r[0], name=r[1][:90], calls=r[2])
                      for r in rows[:25]],
                 kernel_launches=kernel_launches(n for n, _ in events),
+                routes={key: sum(1 for n, _ in events if key in n)
+                        for keys in KERNEL_EVENTS.values() for key in keys},
                 nccl_launches=sum(1 for n, _ in events if is_nccl(n)),
                 nccl_names=sorted({n[:90] for n, _ in events if is_nccl(n)}),
                 device_events=len(events))
 
 
-PROFILED_REPLAYS, PROFILE_ROUNDS = 2, 3
-
-
 def max_counts(rounds):
     """Each kernel's largest count over the rounds' kernel_launches. The
     profiler drops a device record now and then (PERF.md §6, call 8i),
-    which can only lower one round's count; a graph that lost or doubled
-    a kernel node moves it in every round."""
+    which can only lower one round's count (and loses the first records
+    of a window, which PROFILE_PAD takes); a graph that lost
+    or doubled a kernel node moves it in every round."""
     return {k: max(r[k] for r in rounds) for k in rounds[0]}
 
 
@@ -4562,6 +4607,438 @@ def sp_train_phase(torch, pt, fa):
     return row
 
 
+# -- the host-driven pipeline (item 14b) -----------------------------------------
+# ERNIE-base split by ernie_pipeline_stages into 4 stages (3+3+3+3
+# blocks; the embeddings on the first, the pooler and heads on the last),
+# 8 microbatches of 6x512 at TRAIN_BATCH, 1F1B; the interleaved run puts
+# 2 virtual stages on each of 4 ranks (8 stages)
+PIPE_STAGES, PIPE_MICRO, PIPE_V = 4, 8, 2
+PIPE_CHECK_STEPS, PIPE_V_TIMED = 3, 5
+# losses of the f32 dropout-0 runs against each other, relative: the
+# same function, reduced in another order (8 microbatch means of
+# gradients and losses against one batch's; the unsplit model's and
+# the split stages' backward sum a residual's two gradients in another
+# order)
+PIPE_F32_RTOL = 1e-5
+
+
+def pipe_expected(S, M, L=BASE["num_hidden_layers"]):
+    """What a step of the engine must show: its dispatches (S·M F,
+    (S-1)·M B, S updates), its graphs (per stage F, B0 and B, the last
+    stage's L0 and L, and an update each; B and L only when M > 1), each
+    stage's peak of held inputs under 1F1B (min(M, S - s)), and the
+    kernel launches a step of L blocks split over the stages (the
+    forward in F and again in every non-last stage's B)."""
+    base, extra = divmod(L, S)
+    counts = [base + (1 if i < extra else 0) for i in range(S)]
+    remat = sum(counts[:-1])
+    per_op = 1 if M == 1 else 2
+    return dict(dispatches=S * M + (S - 1) * M + S,
+                graphs=(S - 1) * (1 + per_op) + per_op + S,
+                in_flight=[min(M, S - s) for s in range(S)],
+                launches={"flash_attn_fwd": M * (L + remat),
+                          "flash_attn_bwd_dq": M * L,
+                          "flash_attn_bwd_dkv": M * L})
+
+
+def stage_state(plain_sd, S):
+    """ErnieForPretraining's state_dict cut into ernie_pipeline_stages'
+    S stage state_dicts: the embeddings to the first stage, the blocks
+    in turn, the pooler, MLM transform and norm and NSP head to the last,
+    whose untied decoder takes the word embeddings transposed and the
+    MLM bias (the tied model's function at these weights)."""
+    L = len({k.split(".")[2] for k in plain_sd
+             if k.startswith("ernie.encoder.")})
+    base, extra = divmod(L, S)
+    counts = [base + (1 if i < extra else 0) for i in range(S)]
+    out = [{} for _ in range(S)]
+    owner, start = {}, 0
+    for s, n in enumerate(counts):
+        for j in range(n):
+            owner[start + j] = (s, j)
+        start += n
+    for k, v in plain_sd.items():
+        if k.startswith("ernie.embeddings."):
+            out[0][k[len("ernie."):]] = v
+        elif k.startswith("ernie.encoder."):
+            i, rest = k[len("ernie.encoder."):].split(".", 1)
+            s, j = owner[int(i)]
+            out[s][f"blocks.{j}.{rest}"] = v
+        elif k.startswith("ernie.pooler."):
+            out[-1][k[len("ernie."):]] = v
+        elif k == "mlm_bias":
+            out[-1]["decoder.bias"] = v
+        else:
+            out[-1][k] = v
+    out[-1]["decoder.weight"] = \
+        plain_sd["ernie.embeddings.word_embeddings.weight"].t()
+    return out
+
+
+def _untied_plain(pt, cfg, plain_sd, device="cuda"):
+    """ErnieForPretraining (config cfg) in train mode with its decoder
+    untied: a Linear of its own in place of the word embeddings and
+    mlm_bias, holding them as stage_state gives them to the last stage.
+    The pipeline's function in the unsplit model, so every update of
+    the pipeline has its counterpart here."""
+    from paddle_tpu_torch.models import ErnieForPretraining
+    F = pt.nn.functional
+
+    class UntiedErnie(ErnieForPretraining):
+        def __init__(self, cfg):
+            super().__init__(cfg, device=device)
+            del self.mlm_bias
+            self.decoder = pt.nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                        device=device)
+
+        def forward(self, input_ids):
+            seq, pooled = self.ernie(input_ids)
+            h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
+            b, s = h.shape[0], h.shape[1]
+            logits = self.decoder(h.reshape(-1, h.shape[-1]))
+            return logits.reshape(b, s, -1), self.nsp(pooled)
+
+    model = UntiedErnie(cfg)
+    sd = {k: v for k, v in plain_sd.items() if k != "mlm_bias"}
+    sd["decoder.weight"] = \
+        plain_sd["ernie.embeddings.word_embeddings.weight"].t()
+    sd["decoder.bias"] = plain_sd["mlm_bias"]
+    missing, extra = model.set_state_dict(sd)
+    if missing or extra:
+        fail(f"the untied ERNIE's weights: missing {missing}, extra {extra}")
+    return model.train()
+
+
+def _pipe_stages(torch, pt, plain_sd, S, **kw):
+    """ERNIE-base's S stages on the card in train mode, holding the
+    plain model's weights (stage_state); kw goes to the config."""
+    from paddle_tpu_torch.models import ErnieConfig, ernie_pipeline_stages
+    stages = ernie_pipeline_stages(ErnieConfig.base(**BASE, **kw), S,
+                                   device="cuda")
+    for st, sd in zip(stages, stage_state(plain_sd, S)):
+        st.set_state_dict(sd)
+        st.train()
+    return stages
+
+
+def _pipe_engine(torch, pt, plain_sd, S, eager=False, v=1, **kw):
+    from paddle_tpu_torch.distributed import PipelineParallel
+    from paddle_tpu_torch.optimizer import AdamW
+    stages = _pipe_stages(torch, pt, plain_sd, S, **kw)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+    return PipelineParallel(stages, _ernie_loss, opt, num_micro=PIPE_MICRO,
+                            schedule="interleaved" if v > 1 else "1f1b",
+                            virtual_pipeline_degree=v, device="cuda",
+                            eager=eager)
+
+
+def _pipe_params(pp):
+    return [p.detach().clone() for st in pp.stages for p in st.params]
+
+
+def _pipe_steps(pt, pp, x, y, seeds, amp_on):
+    """One train_batch a seed (under O1 bf16 auto_cast when amp_on);
+    returns the losses as floats."""
+    import contextlib
+    from paddle_tpu_torch import amp
+    ctx = (lambda: amp.auto_cast(level="O1", dtype="bfloat16")) if amp_on \
+        else contextlib.nullcontext
+    out = []
+    for sd in seeds:
+        with ctx():
+            out.append(float(pp.train_batch(x, y, seed=sd)))
+    return out
+
+
+def profile_pipeline(torch, fn):
+    """device_profile over PROFILED_REPLAYS captured pipeline steps in
+    PROFILE_ROUNDS rounds: the flash kernels a step, counted on the card
+    (max_counts), and the forward's launches by route; the profile is
+    the round with the most device events. Fails if the profiler saw no
+    device time."""
+    rounds = [device_profile(torch, fn, PROFILED_REPLAYS)
+              for _ in range(PROFILE_ROUNDS)]
+    prof = max(rounds, key=lambda r: r["device_events"])
+    if prof["device_ms"] <= 0:
+        fail("torch.profiler saw no device time inside a captured "
+             "pipeline step")
+    prof["kernel_launches"] = max_counts([r["kernel_launches"]
+                                          for r in rounds])
+    prof["routes"] = {k: max(r["routes"][k] for r in rounds)
+                      for k in rounds[0]["routes"]}
+    prof["device_events_by_round"] = [r["device_events"] for r in rounds]
+    prof["launches_per_step"] = per_call(prof["kernel_launches"],
+                                         PROFILED_REPLAYS)
+    prof["routes_per_step"] = per_call(prof["routes"], PROFILED_REPLAYS)
+    return prof
+
+
+def _kernels_at(row, shape):
+    """The three kernels' numbers in the `kernels` line from one
+    bwd_kernel_case row, at its shape (named by `shape`)."""
+    out = {
+        "flash_attn_fwd": dict(
+            max_abs_err=row["o_max_abs_err"], worst_row=row["o_worst_row"],
+            ms=row["fwd_ms"], plain_ms=row["fwd_plain_ms"],
+            bound_ms=row["fwd_bound_ms"], bound_by=row["fwd_bound_by"],
+            library_ms=row["fwd_library_ms"],
+            dropout_work={k: row["fwd_bound"].get(k) for k in (
+                "philox_calls", "philox_int_instructions",
+                "philox_floor_ms", "bound_reachable")}),
+        "flash_attn_bwd_dq": dict(
+            max_abs_err=row["dq_max_abs_err"], worst_row=row["dq_worst_row"],
+            ms=row["dq_ms"], plain_ms=row["dq_plain_ms"],
+            bound_ms=row["dq_bound_ms"], bound_by=row["dq_bound_by"],
+            library_ms=None),
+        "flash_attn_bwd_dkv": dict(
+            max_abs_err=max(row["dk_max_abs_err"], row["dv_max_abs_err"]),
+            worst_row=max(row["dk_worst_row"], row["dv_worst_row"]),
+            ms=row["dkv_ms"], plain_ms=row["dkv_plain_ms"],
+            bound_ms=row["dkv_bound_ms"], bound_by=row["dkv_bound_by"],
+            library_ms=None)}
+    for v in out.values():
+        v.update(shape=shape, backward_ms=row["backward_ms"],
+                 backward_library_ms=row["backward_library_ms"])
+    return out
+
+
+def pipe_kernel_phase(torch, fa, philox):
+    """The three kernels at the pipeline's microbatch shape (b 48/8 = 6,
+    s 512, n 12, h 64, bf16 under O1, non-causal, p 0.1, strided qkv
+    views) against their plain versions, with their times, bounds and
+    SDPA's at the same p (bwd_kernel_case); then the mask probe there."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    b, s = TRAIN_BATCH[0] // PIPE_MICRO, TRAIN_BATCH[1]
+    n = BASE["num_attention_heads"]
+    h = BASE["hidden_size"] // n
+    row = bwd_kernel_case(torch, fa, gen,
+                          (b, s, n, h, False, "bfloat16", DROP_P), philox,
+                          tag="pipe_kernel")
+    probe = mask_probe_case(torch, fa, b, n, h, s, "bfloat16", causal=False)
+    return row, probe
+
+
+def pipeline_train_gates(row):
+    """What pipeline_train must show; a list of the failures (empty: ok)."""
+    bad = []
+    want = row["expected"]
+    cap = row["captured_vs_eager"]
+    if not (cap["losses_bit_equal"] and cap["params_bit_equal"]):
+        bad.append("the captured engine is not bit-equal to the eager one")
+    if row["launches_per_step"] != want["launches"] \
+            or row["eager_launches_per_step"] != want["launches"]:
+        bad.append(f"a step launched {row['launches_per_step']} (eager "
+                   f"{row['eager_launches_per_step']}), expected "
+                   f"{want['launches']}")
+    fwd = want["launches"]["flash_attn_fwd"]
+    if row["routes_per_step"].get("fwd_wgmma") != fwd:
+        bad.append(f"forward routes {row['routes_per_step']}: the "
+                   f"recompute left bf16 (expected {fwd} fwd_wgmma)")
+    if not all(row["path_launches"].values()):
+        bad.append(f"the pipeline path launched no kernel of "
+                   f"{row['path_launches']}")
+    if row["dispatches"] != want["dispatches"]:
+        bad.append(f"dispatches {row['dispatches']}, expected "
+                   f"{want['dispatches']}")
+    if row["graphs"] != want["graphs"] or row["captures"] != row["graphs"] \
+            or row["sentinel_events"]:
+        bad.append(f"graphs {row['graphs']} (captures {row['captures']}, "
+                   f"expected {want['graphs']}), sentinel "
+                   f"{row['sentinel_events']}")
+    if row["in_flight"] != want["in_flight"]:
+        bad.append(f"in-flight inputs {row['in_flight']}, bound "
+                   f"{want['in_flight']}")
+    par = row["plain_parity"]
+    if not par["ok"]:
+        bad.append(f"the f32 dropout-0 engine is outside {PIPE_F32_RTOL} "
+                   f"of the plain step: {par}")
+    if not row["interleaved"]["losses_ok"]:
+        bad.append(f"the interleaved losses differ from 1F1B's: "
+                   f"{row['interleaved']}")
+    if not all(math.isfinite(v) for v in row["losses"]) \
+            or not 0 < row["mfu"] < 1:
+        bad.append(f"losses {row['losses']}, MFU {row['mfu']}")
+    return bad
+
+
+def _rel_all(a, b):
+    return max(_rel_diff(x, y) for x, y in zip(a, b))
+
+
+def _pipe_f32_runs(torch, pt, plain_sd, x, y):
+    """At dropout 0 and f32: the plain captured TrainStep of
+    ErnieForPretraining with its decoder untied (_untied_plain, from the
+    same weights: the pipeline's function), the captured 1F1B engine and
+    the interleaved one (PIPE_V virtual stages on each of 4 ranks):
+    losses over PIPE_CHECK_STEPS steps, then timed steps of both
+    engines."""
+    from paddle_tpu_torch.models import ErnieConfig
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import TrainStep
+    seeds = STEP_SEEDS[:PIPE_CHECK_STEPS]
+    kw = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    plain = _untied_plain(pt, ErnieConfig.base(**BASE, **kw), plain_sd)
+    step = TrainStep(plain, _ernie_loss, AdamW(
+        learning_rate=1e-4, parameters=plain.parameters(), weight_decay=0.01))
+    plain_losses = [float(step(x, y, seed=sd)) for sd in seeds]
+    step.release()
+    del step, plain
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, S, v in (("1f1b", PIPE_STAGES, 1),
+                       ("interleaved", PIPE_STAGES * PIPE_V, PIPE_V)):
+        pp = _pipe_engine(torch, pt, plain_sd, S, v=v, **kw)
+        losses = _pipe_steps(pt, pp, x, y, seeds, False)
+        _pipe_steps(pt, pp, x, y, [None] * 2, False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _pipe_steps(pt, pp, x, y, [None] * PIPE_V_TIMED, False)
+        torch.cuda.synchronize()
+        runs[name] = dict(stages=S, virtual_pipeline_degree=v,
+                          losses=losses, graphs=pp.programs,
+                          step_ms=(time.perf_counter() - t0)
+                          / PIPE_V_TIMED * 1e3,
+                          bubble_fraction=pp.schedule_bubble_fraction,
+                          dispatches=pp.last_dispatch_count)
+        pp.release()
+        del pp
+        torch.cuda.empty_cache()
+    eng = runs["1f1b"]["losses"]
+    parity = dict(precision="float32, TF32 off", dropout=0.0,
+                  plain="ErnieForPretraining, decoder untied",
+                  rtol=PIPE_F32_RTOL, plain_losses=plain_losses,
+                  engine_losses=eng, max_rel=_rel_all(eng, plain_losses))
+    parity["ok"] = parity["max_rel"] <= PIPE_F32_RTOL
+    inter = dict(runs["interleaved"],
+                 max_rel_vs_1f1b=_rel_all(runs["interleaved"]["losses"], eng),
+                 f32_1f1b_step_ms=runs["1f1b"]["step_ms"])
+    inter["losses_ok"] = inter["max_rel_vs_1f1b"] <= PIPE_F32_RTOL
+    return parity, inter
+
+
+def pipeline_train_phase(torch, pt, fa, dense):
+    """ERNIE-base pretraining through PipelineParallel: 4 stages x 8
+    microbatches, 1F1B, AdamW(1e-4, wd 0.01), O1 bf16 under
+    amp.auto_cast, dropout 0.1, from the weights of _train_model's
+    ErnieForPretraining (SEED), at TRAIN_BATCH. The captured engine (one
+    CUDA graph per stage, op kind and signature) against the eager one
+    over PIPE_CHECK_STEPS seeded steps: losses and every parameter
+    bit-equal. Then 2 warm-up and 10 timed steps of the captured engine,
+    two steps under torch.profiler (the kernels a step and the forward's
+    route); the path's launches are the wrappers' counts over the
+    captured engine's calls (zeroed just before its first step and again
+    after the eager reference, which is left out) plus the profiled
+    steps' counts on the card. Then the dispatches, graphs, sentinel,
+    each stage's peak of held inputs against min(M, S - s), the bubble
+    fraction, step ms, device ms, the
+    idle share, tokens/s, MFU (PERF.md §2's formula over
+    ErnieForPretraining's parameters: the recompute is not counted),
+    peak memory over the first step and over the timed ones beside the
+    plain captured step's (`dense`: captured_train's ERNIE row of this
+    run, the same weights and batch). Last, _pipe_f32_runs."""
+    t0 = time.perf_counter()
+    S, M = PIPE_STAGES, PIPE_MICRO
+    want = pipe_expected(S, M)
+    plain = _train_model(pt, "ernie")
+    plain_sd = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+    n_params = sum(p.numel() for p in plain.parameters())
+    cfg = plain.config
+    del plain
+    x, y = _train_batch(torch, cfg.vocab_size, *TRAIN_BATCH, "cuda")
+    seeds = STEP_SEEDS[:PIPE_CHECK_STEPS]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pp = _pipe_engine(torch, pt, plain_sd, S)
+    _zero(fa)
+    graph_losses = _pipe_steps(pt, pp, x, y, seeds[:1], True)
+    first_peak = torch.cuda.max_memory_allocated()
+    graph_losses += _pipe_steps(pt, pp, x, y, seeds[1:], True)
+    # the captured engine's own launches (its programs' eager first runs
+    # and captures; a replay does not pass through the wrappers), read
+    # before the eager reference runs
+    wrapper = dict(fa.launches)
+    graph_params = _pipe_params(pp)
+    ref = _pipe_engine(torch, pt, plain_sd, S, eager=True)
+    before = dict(fa.launches)
+    eager_losses = _pipe_steps(pt, ref, x, y, seeds[:1], True)
+    eager_launches = {k: v - before[k] for k, v in fa.launches.items()}
+    eager_losses += _pipe_steps(pt, ref, x, y, seeds[1:], True)
+    cap = dict(step_seeds=seeds, graph_losses=graph_losses,
+               eager_losses=eager_losses,
+               losses_bit_equal=graph_losses == eager_losses,
+               params_bit_equal=_bit_equal(graph_params, _pipe_params(ref)),
+               params_max_abs_diff=_max_abs_diff(graph_params,
+                                                 _pipe_params(ref)))
+    eager_ms = time_ms(lambda: _pipe_steps(pt, ref, x, y, [None], True),
+                       reps=3, warmup=1)
+    del ref, graph_params
+    torch.cuda.empty_cache()
+    _zero(fa)
+    losses = _pipe_steps(pt, pp, x, y, [None] * TRAIN_WARMUP, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    losses += _pipe_steps(pt, pp, x, y, [None] * TRAIN_STEPS, True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    steady_peak = torch.cuda.max_memory_allocated()
+    wrapper = _sum_launches([wrapper, dict(fa.launches)])
+    prof = profile_pipeline(
+        torch, lambda: _pipe_steps(pt, pp, x, y, [None], True))
+    b, s = TRAIN_BATCH
+    step_ms = secs / TRAIN_STEPS * 1e3
+    row = dict(card=nvidia_smi(), model="ernie_base", batch=b, seq=s,
+               micro_batch=b // M, stages=S, num_micro=M, schedule="1f1b",
+               amp="O1 bfloat16", dropout=0.1, layers=cfg.num_hidden_layers,
+               expected=want, captured_vs_eager=cap,
+               launches_per_step=prof["launches_per_step"],
+               routes_per_step=prof["routes_per_step"],
+               eager_launches_per_step=eager_launches,
+               path_launches=_sum_launches([wrapper,
+                                            prof["kernel_launches"]]),
+               wrapper_counts=wrapper,
+               dispatches=pp.last_dispatch_count, graphs=pp.programs,
+               captures=pp.captures, replays=pp.replays,
+               sentinel_events=pp.recompile_sentinel.fired,
+               in_flight=pp.last_in_flight,
+               bubble_fraction=pp.schedule_bubble_fraction,
+               tick_ms_p50=sorted(pp.last_tick_ms)[len(pp.last_tick_ms) // 2],
+               losses=graph_losses + losses, warmup_steps=TRAIN_WARMUP,
+               timed_steps=TRAIN_STEPS, step_ms=step_ms,
+               eager_step_ms=eager_ms,
+               device_ms_per_step=prof["device_ms"],
+               idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               tokens_per_s=b * s * TRAIN_STEPS / secs, params=n_params,
+               peak_first_step_bytes=first_peak,
+               peak_first_step_above_base_bytes=first_peak - base,
+               peak_steady_bytes=steady_peak,
+               profile=_profile_row(prof, top=10))
+    _with_mfu(row, cfg.num_hidden_layers, cfg.hidden_size)
+    pp.release()
+    del pp
+    torch.cuda.empty_cache()
+    row["plain_parity"], row["interleaved"] = _pipe_f32_runs(
+        torch, pt, plain_sd, x, y)
+    row["plain"] = dict(source="captured_train's ERNIE row of this run "
+                               "(the same weights from SEED and batch)",
+                        step_ms=dense["step_ms"],
+                        device_ms_per_step=dense["device_ms_per_step"],
+                        tokens_per_s=dense["tokens_per_s"], mfu=dense["mfu"],
+                        peak_memory_bytes=dense["peak_memory_bytes"],
+                        peak_above_base_bytes=dense["peak_above_base_bytes"])
+    row["pipeline_over_plain_step"] = step_ms / dense["step_ms"]
+    row["seconds"] = time.perf_counter() - t0
+    emit({"pipeline_train": row})
+    bad = pipeline_train_gates(row)
+    if bad:
+        fail("pipeline_train: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -4693,6 +5170,9 @@ def main():
         plan_train_phase(torch, pt)
         sp = sp_train_phase(torch, pt, fa)
     torch.cuda.empty_cache()
+    pipe_case, pipe_probe = pipe_kernel_phase(torch, fa, philox)
+    pipe = pipeline_train_phase(torch, pt, fa, captured["ernie"])
+    torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
@@ -4733,43 +5213,23 @@ def main():
                    "moe_training": moe["launches"][k],
                    "sp_ulysses_per_step":
                        sp["ulysses"]["launches_per_step"][k],
-                   "sp_ring_per_step": sp["ring"]["launches_per_step"][k]}
+                   "sp_ring_per_step": sp["ring"]["launches_per_step"][k],
+                   "pipeline_training": pipe["path_launches"][k]}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1
     gpt_head = next(c for c in gpt_kernel_rows if c["dtype"] == "bfloat16")
     gpt_shape = "b8 s1024 n12 h64 bfloat16 causal dropout 0.1"
     per_step = gpt_train["launches_per_step"]
-    gpt_at = {
-        "flash_attn_fwd": dict(
-            max_abs_err=gpt_head["o_max_abs_err"],
-            worst_row=gpt_head["o_worst_row"], ms=gpt_head["fwd_ms"],
-            plain_ms=gpt_head["fwd_plain_ms"],
-            bound_ms=gpt_head["fwd_bound_ms"],
-            bound_by=gpt_head["fwd_bound_by"],
-            library_ms=gpt_head["fwd_library_ms"],
-            dropout_work={k: gpt_head["fwd_bound"].get(k) for k in (
-                "philox_calls", "philox_int_instructions",
-                "philox_floor_ms", "bound_reachable")}),
-        "flash_attn_bwd_dq": dict(
-            max_abs_err=gpt_head["dq_max_abs_err"],
-            worst_row=gpt_head["dq_worst_row"], ms=gpt_head["dq_ms"],
-            plain_ms=gpt_head["dq_plain_ms"],
-            bound_ms=gpt_head["dq_bound_ms"],
-            bound_by=gpt_head["dq_bound_by"], library_ms=None),
-        "flash_attn_bwd_dkv": dict(
-            max_abs_err=max(gpt_head["dk_max_abs_err"],
-                            gpt_head["dv_max_abs_err"]),
-            worst_row=max(gpt_head["dk_worst_row"],
-                          gpt_head["dv_worst_row"]),
-            ms=gpt_head["dkv_ms"], plain_ms=gpt_head["dkv_plain_ms"],
-            bound_ms=gpt_head["dkv_bound_ms"],
-            bound_by=gpt_head["dkv_bound_by"], library_ms=None)}
+    gpt_at = _kernels_at(gpt_head, gpt_shape)
     for k, v in gpt_at.items():
-        v.update(shape=gpt_shape, launches_per_step=per_step[k],
-                 launches_per_dp_step=dp["launches_per_replay"][k],
-                 backward_ms=gpt_head["backward_ms"],
-                 backward_library_ms=gpt_head["backward_library_ms"])
+        v.update(launches_per_step=per_step[k],
+                 launches_per_dp_step=dp["launches_per_replay"][k])
+    # at the pipeline's microbatch: b 6, s 512, the rest as `shape`
+    pipe_at = _kernels_at(pipe_case, "b6 s512 n12 h64 bfloat16 "
+                                     "non-causal dropout 0.1")
+    for k, v in pipe_at.items():
+        v.update(launches_per_step=pipe["launches_per_step"][k])
     # no library call computes one backward kernel's outputs alone: the
     # backward rows carry SDPA's backward beside the whole backward
     common = dict(route="cuda", shape=shape)
@@ -4812,17 +5272,22 @@ def main():
                     launches_by_path=by_path[kern["name"]],
                     launches_per_moe_step=moe["launches_per_replay"][
                         kern["name"]],
-                    gpt_training=gpt_at[kern["name"]])
+                    gpt_training=gpt_at[kern["name"]],
+                    pipeline_training=pipe_at[kern["name"]])
         if kern["launches"] == 0:
             fail(f"the training path launched no {kern['name']} kernel")
         if by_path[kern["name"]]["moe_training"] == 0:
             fail(f"the MoE training path launched no {kern['name']} "
                  "kernel")
+        if by_path[kern["name"]]["pipeline_training"] == 0:
+            fail(f"the pipeline training path launched no {kern['name']} "
+                 "kernel")
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     emit({"kernels": kernels, "philox": "paddle_tpu_torch/csrc/philox.cuh "
           "replaces paddle_tpu/ops/pallas_kernels.py:157 (inside all three)",
-          "mask_probes": probes + gpt_probes, "backward_cases": bwd_cases,
+          "mask_probes": probes + gpt_probes + [pipe_probe],
+          "backward_cases": bwd_cases,
           "gpt_training_cases": gpt_kernel_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,9 +21,13 @@ CPU.
   hooks (chaos.py), the launcher (launch.py) and its drill worker
   (elastic_worker.py).
 
-The pipeline (pipeline.py, pipeline_engine.py) comes with ROADMAP.md
-item 14b, the parameter-server pair (async_ps.py, embedding_kv.py)
-with item 14c.
+- the pipeline in one process: pipeline_engine.py (PipelineParallel,
+  the host-driven 1F1B / F-then-B / interleaved engine, every stage on
+  this process's device) and pipeline.py (LayerDesc, PipelineLayer).
+
+The SPMD pipeline (pipeline.py's schedules and SpmdPipelineParallel,
+one rank per stage over p2p) comes with ROADMAP.md item 14d, the
+parameter-server pair (async_ps.py, embedding_kv.py) with item 14c.
 """
 from . import chaos, checkpoint, elastic  # noqa: F401
 from . import fleet  # noqa: F401
@@ -43,6 +47,9 @@ from .parallel import (DataParallel, ParallelEnv,  # noqa: F401
 from .parallel_layers import (ColumnParallelLinear,  # noqa: F401
                               RowParallelLinear, VocabParallelEmbedding,
                               split)
+from .pipeline import LayerDesc, PipelineLayer  # noqa: F401
+from .pipeline_engine import (PipelineParallel,  # noqa: F401
+                              build_1f1b_schedule, stage_submeshes)
 from .recompute import (RecomputeFunction, recompute,  # noqa: F401
                         recompute_sequential)
 from .ring import (RingAttention, ring_flash_attention,  # noqa: F401

@@ -15,7 +15,12 @@ compose into a mesh shape over the world's ranks and TrainStep options
   lars/lamb                -> the optimizer swapped
   sharding                 -> TrainStep(sharding_plan=<ZeRO stage>)
   tensor_parallel          -> the mesh's tp axis (the layers' annotations)
-  pipeline above degree 1  -> ROADMAP.md item 14b
+  pipeline above degree 1  -> ROADMAP.md item 14d (the SPMD pipeline)
+
+build_pipeline makes distributed/pipeline_engine.py's PipelineParallel
+(the host-driven engine, every stage in this process) for the '1f1b',
+'fthenb' and 'interleaved' schedules; the one-program forms
+('spmd_1f1b', exec_mode='spmd_1f1b', plan=) come with item 14d.
 """
 from __future__ import annotations
 
@@ -30,10 +35,10 @@ __all__ = ["DistributedStrategy", "PaddleCloudRoleMaker",
            "distributed_model", "DistributedOptimizer", "Fleet"]
 
 
-def _item14b(what):
+def _item14d(what):
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md item 14b "
-        "(the pipeline: pipeline.py, pipeline_engine.py)")
+        f"{what} is not ported yet: it comes with ROADMAP.md item 14d "
+        "(the SPMD pipeline: one rank per stage over p2p)")
 
 
 class DistributedStrategy:
@@ -291,7 +296,43 @@ class Fleet:
 
     def build_pipeline(self, stages, loss_fn, optimizer, strategy=None,
                        schedule="spmd_1f1b", exec_mode=None, plan=None):
-        raise _item14b("Fleet.build_pipeline")
+        """Pipeline-engine factory off the fleet strategy.
+        pipeline_configs['accumulate_steps'] is the microbatch count (the
+        global batch is micro_batch_size x accumulate_steps; the engine
+        cuts the batch it receives into that many microbatches), and
+        virtual_pipeline_degree comes from pipeline_configs. '1f1b',
+        'fthenb' and 'interleaved' run PipelineParallel's host-driven
+        engine. 'spmd_1f1b' (the JAX default), exec_mode='spmd_1f1b' and
+        plan= (the one-program engines) come with ROADMAP.md item 14d."""
+        from ..pipeline_engine import PipelineParallel
+        known = ("spmd_1f1b", "1f1b", "interleaved", "fthenb")
+        if schedule not in known:
+            raise ValueError(
+                f"schedule={schedule!r}: pick one of {known}")
+        if exec_mode is not None and schedule not in ("1f1b", "fthenb"):
+            raise ValueError(
+                f"exec_mode={exec_mode!r} only applies to the "
+                "PipelineParallel schedules ('1f1b'/'fthenb'); "
+                f"schedule={schedule!r} picks its own engine")
+        if plan is not None:
+            raise _item14d("Fleet.build_pipeline(plan=...)")
+        if schedule == "spmd_1f1b":
+            raise _item14d("Fleet.build_pipeline(schedule='spmd_1f1b'), "
+                           "SpmdPipelineParallel,")
+        if exec_mode == "spmd_1f1b":
+            raise _item14d("Fleet.build_pipeline(exec_mode='spmd_1f1b')")
+        strategy = strategy or self.strategy or DistributedStrategy()
+        if not self._initialized:
+            self.init(is_collective=True, strategy=strategy)
+        cfgs = dict(strategy.pipeline_configs or {})
+        micro = int(cfgs.get("accumulate_steps", 1))
+        v = int(cfgs.get("virtual_pipeline_degree", 1))
+        inner = optimizer.inner_opt if isinstance(
+            optimizer, DistributedOptimizer) else optimizer
+        return PipelineParallel(
+            stages, loss_fn, inner, num_micro=micro, mesh=self.mesh,
+            schedule=schedule, virtual_pipeline_degree=v,
+            exec_mode=exec_mode or "dispatch")
 
     def build_sharding_plan(self, strategy=None):
         """A ShardingPlan over the fleet's mesh: the strategy's ZeRO

@@ -17,8 +17,9 @@ The chain's order and its conflict resolution are the JAX package's.
 The sharding meta-optimizer sets the ZeRO stage of the step's
 ShardingPlan and the tensor-parallel one leaves the tp axis to the
 mesh, as in the JAX package; the pipeline meta-optimizer raises
-NotImplementedError above degree 1: the pipeline comes with ROADMAP.md
-item 14b.
+NotImplementedError above degree 1: a pp axis over ranks comes with
+ROADMAP.md item 14d (the SPMD pipeline; the host-driven engine is
+Fleet.build_pipeline).
 """
 from __future__ import annotations
 
@@ -34,10 +35,10 @@ __all__ = ["TrainStepSpec", "MetaOptimizerBase", "StrategyCompiler",
            "chain_grad_transforms", "build_from_spec"]
 
 
-def _item14b(what):
+def _item14d(what):
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md item 14b "
-        "(the pipeline)")
+        f"{what} is not ported yet: it comes with ROADMAP.md item 14d "
+        "(the SPMD pipeline)")
 
 
 @dataclasses.dataclass
@@ -263,7 +264,7 @@ class PipelineOptimizer(MetaOptimizerBase):
     def apply(self, spec, strategy, fleet=None):
         degree = int(strategy.hybrid_configs.get("pp_degree", 1))
         if degree > 1:
-            raise _item14b(f"the pipeline meta-optimizer (degree {degree})")
+            raise _item14d(f"the pipeline meta-optimizer (degree {degree})")
         spec.grad_accum_steps = max(
             spec.grad_accum_steps,
             int(strategy.pipeline_configs.get("accumulate_steps", 1)))

@@ -39,7 +39,7 @@ from ..amp.auto_cast import amp_state, amp_state_scope
 from ..core.generator import next_seed, rewind_point, rewound, seed_scope
 
 __all__ = ["recompute", "recompute_sequential", "RecomputeFunction",
-           "checkpointed", "REMAT_POLICIES"]
+           "checkpointed", "remat_scope", "REMAT_POLICIES"]
 
 REMAT_POLICIES = (None, "nothing_saveable", "checkpoint_dots")
 
@@ -68,11 +68,19 @@ def _entered(*cms):
         yield
 
 
+def remat_scope(point, amp):
+    """The recompute's context: the seed scope rewound to `point` (a
+    rewind_point() value) and the AMP state `amp` (an amp_state() value),
+    as the forward it repeats entered them. The pipeline engine's
+    backward (pipeline_engine.py) enters it too."""
+    return _entered(rewound(point), amp_state_scope(amp))
+
+
 def _contexts(policy):
     """(forward, recompute) context managers for torch's checkpoint: the
     recompute rewinds the seed scope and re-enters the AMP state found
     here, at the segment's entry."""
-    fwd, rec = [], [rewound(rewind_point()), amp_state_scope(amp_state())]
+    fwd, rec = [], [remat_scope(rewind_point(), amp_state())]
     if policy == "checkpoint_dots":
         f, r = _ckpt.create_selective_checkpoint_contexts(_save_dots)
         fwd.append(f)

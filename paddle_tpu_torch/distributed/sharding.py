@@ -590,7 +590,7 @@ class MeshPlan:
     batch; 'fsdp' shards the batch AND params/grads/opt state; 'tp'
     follows the layer annotations (qkv col-, out row-sharded, embeddings
     fsdp x tp on the vocab dim); 'pp' shards the stacked stage dim of
-    the pipeline (its engine comes with ROADMAP.md item 14b).
+    the SPMD pipeline (its engine comes with ROADMAP.md item 14d).
     """
 
     def __init__(self, dp: int = 1, fsdp: int = 1, tp: int = 1,

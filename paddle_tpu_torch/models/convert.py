@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package into the port: a model's
+"""Carry weights from the JAX package into the port: a model's (or a
+pipeline stage's, models/ernie.py ErnieStageFirst/Middle/Last)
 state_dict by name (MoE blocks' gate, w1, b1, w2 and b2 included; a
 model made on a mesh whose tp or ep axis spans several ranks takes this
 rank's block of each split array), a rank's shard of every full array

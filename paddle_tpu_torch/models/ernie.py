@@ -33,7 +33,11 @@ The distributed forms, as the JAX model declares them:
   rank attends with its n/tp heads; the decoder's logits are
   all-gathered over the vocab.
 The pipeline stages (ErnieStageFirst/Middle/Last, ernie_pipeline_stages)
-come with ROADMAP.md item 14b.
+split ErnieForPretraining into heterogeneous stages for
+distributed/pipeline_engine.py's PipelineParallel: the embeddings on
+the first, the pooler and the MLM/NSP heads (an untied decoder) on the
+last, the blocks spread evenly; each stage's pipeline_local_loss() is
+its MoE blocks' weighted aux loss.
 """
 from __future__ import annotations
 
@@ -52,7 +56,8 @@ from ..nn.initializer import Normal
 
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieSelfAttention",
            "ErnieLayer", "ErnieScannedEncoder", "ErnieModel",
-           "ErnieForPretraining"]
+           "ErnieForPretraining", "ErnieStageFirst", "ErnieStageMiddle",
+           "ErnieStageLast", "ernie_pipeline_stages"]
 
 
 class ErnieConfig:
@@ -282,9 +287,11 @@ class ErnieScannedEncoder(nn.ScannedStack):
     ``load_from_layers`` imports unrolled weights; the additive
     attention mask rides as the blocks' side input."""
 
-    def __init__(self, config: ErnieConfig, device=None):
+    def __init__(self, config: ErnieConfig, num_blocks=None, device=None):
+        n = config.num_hidden_layers if num_blocks is None \
+            else int(num_blocks)
         super().__init__([ErnieLayer(config, device=device)
-                          for _ in range(config.num_hidden_layers)],
+                          for _ in range(n)],
                          op_name="ernie_scanned_encoder")
 
 
@@ -457,3 +464,161 @@ class ErnieForPretraining(nn.Layer):
         if nsp_labels is None:
             return mlm
         return mlm + F.cross_entropy(nsp_logits, nsp_labels.reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel stage decomposition
+# ---------------------------------------------------------------------------
+# As in the JAX package: the embeddings on the first stage, the heads on
+# the last, and the MLM decoder UNTIED from the word embeddings across a
+# split (tying would need a tied-grad all-reduce between the first and
+# the last stage every step).
+
+def _stage_blocks(config, num_blocks, first_index, device):
+    """A stage's run of encoder blocks: an ErnieScannedEncoder when
+    config.scan_layers (and the stage has blocks), else a LayerList
+    (the MoE placement counts from first_index)."""
+    if config.scan_layers and num_blocks > 0:
+        return ErnieScannedEncoder(config, num_blocks, device=device)
+    return nn.LayerList(
+        [ErnieLayer(config, use_moe=_is_moe_layer(config, first_index + j),
+                    device=device)
+         for j in range(num_blocks)])
+
+
+def _run_blocks(blocks, x, attention_mask):
+    if isinstance(blocks, nn.ScannedStack):
+        return blocks(x, attention_mask)
+    for b in blocks:
+        x = b(x, attention_mask)
+    return x
+
+
+def _stage_moe_aux(blocks):
+    """The weighted sum of the blocks' MoE aux losses from the last
+    forward (None for dense blocks): the pipeline engine's
+    pipeline_local_loss contract."""
+    if isinstance(blocks, nn.ScannedStack):
+        return None  # scan_layers excludes MoE by construction
+    total = None
+    for b in blocks:
+        if getattr(b, "use_moe", False) and b.moe.aux_loss is not None:
+            a = b.moe.aux_weight * b.moe.aux_loss
+            total = a if total is None else total + a
+    return total
+
+
+class ErnieStageFirst(nn.Layer):
+    """Embeddings + leading encoder blocks -> hidden states.
+
+    With an attention_mask, the additive [b, 1, 1, s] form is built here
+    once and passed on to later stages in the activation tuple."""
+
+    def __init__(self, config: ErnieConfig, num_blocks: int,
+                 first_index: int = 0, device=None):
+        super().__init__(device=device)
+        self.embeddings = ErnieEmbeddings(config, device=self._device)
+        self.blocks = _stage_blocks(config, num_blocks, first_index,
+                                    self._device)
+
+    def forward(self, input_ids, attention_mask=None):
+        x = self.embeddings(input_ids)
+        if attention_mask is not None:
+            am = attention_mask[:, None, None, :].float()
+            attention_mask = (1.0 - am) * -1e9
+        x = _run_blocks(self.blocks, x, attention_mask)
+        if attention_mask is not None:
+            return x, attention_mask
+        return x
+
+    def pipeline_local_loss(self):
+        return _stage_moe_aux(self.blocks)
+
+
+class ErnieStageMiddle(nn.Layer):
+    """A run of encoder blocks (hidden -> hidden)."""
+
+    def __init__(self, config: ErnieConfig, num_blocks: int,
+                 first_index: int = 0, device=None):
+        super().__init__(device=device)
+        self.blocks = _stage_blocks(config, num_blocks, first_index,
+                                    self._device)
+
+    def forward(self, x, attention_mask=None):
+        x = _run_blocks(self.blocks, x, attention_mask)
+        if attention_mask is not None:
+            return x, attention_mask
+        return x
+
+    def pipeline_local_loss(self):
+        return _stage_moe_aux(self.blocks)
+
+
+class ErnieStageLast(nn.Layer):
+    """Trailing blocks + pooler + MLM/NSP heads (hidden -> (mlm logits,
+    nsp logits)), the decoder a Linear of its own."""
+
+    def __init__(self, config: ErnieConfig, num_blocks: int,
+                 first_index: int = 0, device=None):
+        super().__init__(device=device)
+        dev = self._device
+        h = config.hidden_size
+        self.blocks = _stage_blocks(config, num_blocks, first_index, dev)
+        self.pooler = nn.Linear(h, h, device=dev)
+        self.mlm_transform = nn.Linear(h, h, device=dev)
+        self.mlm_norm = nn.LayerNorm(h, epsilon=config.layer_norm_eps,
+                                     device=dev)
+        self.decoder = nn.Linear(h, config.vocab_size, device=dev)
+        self.nsp = nn.Linear(h, 2, device=dev)
+
+    def forward(self, x, attention_mask=None):
+        x = _run_blocks(self.blocks, x, attention_mask)
+        pooled = F.tanh(self.pooler(x[:, 0]))
+        h = self.mlm_norm(F.gelu(self.mlm_transform(x)))
+        # the decoder matmul in 2D, as ErnieForPretraining.forward
+        b, s = h.shape[0], h.shape[1]
+        logits = self.decoder(h.reshape(-1, h.shape[-1])).reshape(b, s, -1)
+        return logits, self.nsp(pooled)
+
+    def pipeline_local_loss(self):
+        return _stage_moe_aux(self.blocks)
+
+
+class _Solo(nn.Layer):
+    """The one-stage split: the embeddings and every block with the
+    heads."""
+
+    def __init__(self, config: ErnieConfig, device=None):
+        super().__init__(device=device)
+        self.first = ErnieStageFirst(config, 0, device=self._device)
+        self.last = ErnieStageLast(config, config.num_hidden_layers,
+                                   first_index=0, device=self._device)
+
+    def forward(self, input_ids):
+        return self.last(self.first(input_ids))
+
+    def pipeline_local_loss(self):
+        return self.last.pipeline_local_loss()
+
+
+def ernie_pipeline_stages(config: ErnieConfig, num_stages: int, device=None):
+    """Split an ERNIE pretraining model into heterogeneous stages: the
+    blocks spread as evenly as possible (the first stages take one more
+    when they do not divide), the embeddings on stage 0, the pooler and
+    heads on the last."""
+    if num_stages < 1:
+        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+    L = config.num_hidden_layers
+    base, extra = divmod(L, num_stages)
+    counts = [base + (1 if i < extra else 0) for i in range(num_stages)]
+    if num_stages == 1:
+        return [_Solo(config, device=device)]
+    stages = [ErnieStageFirst(config, counts[0], device=device)]
+    start = counts[0]
+    for i in range(1, num_stages - 1):
+        stages.append(ErnieStageMiddle(config, counts[i], first_index=start,
+                                       device=device))
+        start += counts[i]
+    stages.append(ErnieStageLast(config, counts[-1], first_index=start,
+                                 device=device))
+    return stages

@@ -14,16 +14,21 @@ keeps (serving/programs.py keeps the same for the engine):
   from host ints baked in at capture;
 - no host synchronisation inside (.item(), host copies, nonzero);
 - no fallback: a capture that fails raises, naming the op.
+Python's cyclic collector is held off during a capture: a collection
+there can run an earlier graph's destructor, whose cudaGraphExecDestroy
+is not permitted while a stream captures and invalidates the capture
+(torch.cuda.graph no longer collects before it begins).
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
 
 from ..observability.sentinel import count_capture
 
-__all__ = ["StaticInputs", "warm_up", "capture"]
+__all__ = ["StaticInputs", "warm_up", "capture", "clone_outputs"]
 
 
 def _leaves(tree):
@@ -43,6 +48,16 @@ def _rebuild(tree, it):
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree, key=str)}
     return next(it) if isinstance(tree, torch.Tensor) else tree
+
+
+def clone_outputs(out):
+    """A replay's outputs (a tensor, or tuples and lists of them) cloned
+    out of the graph's own tensors, which the next replay overwrites."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (list, tuple)):
+        return type(out)(clone_outputs(x) for x in out)
+    return out
 
 
 class StaticInputs:
@@ -113,10 +128,15 @@ def capture(fn, device, generators=(), program="train", pool=None):
     for g in generators:
         graph.register_generator_state(g)
     t0 = time.perf_counter()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
             out = fn()
     except RuntimeError as e:
         raise RuntimeError(f"CUDA graph capture failed: {e}") from e
+    finally:
+        if collecting:
+            gc.enable()
     count_capture(program, time.perf_counter() - t0)
     return graph, out

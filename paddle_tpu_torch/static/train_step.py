@@ -91,8 +91,9 @@ tensors, the JAX step's global arrays: the model's, and the optimizer's
 state, gathered over the model and data axes (checkpoints keep one
 layout whatever the mesh); set_state_dict takes full tensors and keeps this
 rank's blocks. A scaler's overflow flag is the MAX over every axis of
-the mesh. The pp axis (the pipeline, ROADMAP.md item 14b) and sentry
-(item 17) raise NotImplementedError, as does an optimizer with a
+the mesh. The pp axis (the SPMD pipeline, ROADMAP.md item 14d; the
+host-driven pipeline is distributed/pipeline_engine.py's
+PipelineParallel) and sentry (item 17) raise NotImplementedError, as does an optimizer with a
 grad_clip (the JAX package's compiled step does not clip); aot_lower is
 not ported.
 """
@@ -120,7 +121,7 @@ from ..observability.sentinel import RecompileSentinel, signature_of
 from ..ops import flash_attention as _fa
 from ..optimizer.optimizer import Optimizer
 from ..serialization import from_numpy
-from .capture import StaticInputs, capture, warm_up
+from .capture import StaticInputs, capture, clone_outputs, warm_up
 
 __all__ = ["TrainStep"]
 
@@ -138,8 +139,8 @@ def _later(flag, where):
         f"TrainStep({flag}=...) is not ported yet: it comes with {where}")
 
 
-#: the mesh axes a TrainStep runs over; pp (the pipeline) comes with
-#: ROADMAP.md item 14b
+#: the mesh axes a TrainStep runs over; pp (the SPMD pipeline) comes with
+#: ROADMAP.md item 14d
 _STEP_AXES = ("dp", "fsdp", "tp", "ep", "sp")
 
 
@@ -155,9 +156,9 @@ def _check_axes(mesh):
             if ax not in _STEP_AXES and mesh.shape[ax] > 1]
     if "pp" in wide:
         raise NotImplementedError(
-            "TrainStep(mesh=...) over a pp axis of size > 1: the pipeline "
-            "comes with ROADMAP.md item 14b (pipeline.py, "
-            "pipeline_engine.py)")
+            "TrainStep(mesh=...) over a pp axis of size > 1: the SPMD "
+            "pipeline comes with ROADMAP.md item 14d; one process runs "
+            "stages through distributed.PipelineParallel")
     if wide:
         raise NotImplementedError(
             f"TrainStep(mesh=...) over axes {wide} of size > 1: the step "
@@ -820,12 +821,4 @@ class _EvalFn:
         static.fill(inputs)
         graph.replay()
         self.replays += 1
-        return _clone(out)
-
-
-def _clone(out):
-    if isinstance(out, torch.Tensor):
-        return out.clone()
-    if isinstance(out, (list, tuple)):
-        return type(out)(_clone(x) for x in out)
-    return out
+        return clone_outputs(out)

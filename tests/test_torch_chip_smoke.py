@@ -723,3 +723,164 @@ def test_ernie_param_count_is_the_models(cs):
     skipped = sum(t.numel() for t in (moe.w1, moe.b1, moe.w2, moe.b2)) // 2
     assert cs.active_params(mm) == \
         sum(p.numel() for p in mm.parameters()) - skipped
+
+
+def test_pipe_expected_counts_the_ernie_base_step(cs):
+    """4 stages x 8 microbatches of 12 blocks: 168 forwards (96 in F, 72
+    again in the non-last stages' B), 96 of each backward kernel, 60
+    dispatches, 15 graphs, held inputs min(M, S - s)."""
+    want = cs.pipe_expected(4, 8)
+    assert want["launches"] == {"flash_attn_fwd": 168,
+                                "flash_attn_bwd_dq": 96,
+                                "flash_attn_bwd_dkv": 96}
+    assert want["dispatches"] == 60 and want["graphs"] == 15
+    assert want["in_flight"] == [4, 3, 2, 1]
+    # one microbatch: no accumulating B or L graph
+    assert cs.pipe_expected(2, 1, L=2)["graphs"] == 2 + 1 + 2
+
+
+def test_stage_state_carries_ernie_into_the_stages(cs):
+    """stage_state cuts ErnieForPretraining's weights into the stages
+    (the decoder untied: the word embeddings transposed, the MLM bias):
+    at dropout 0 the chained stages compute the tied model's outputs."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
+                                         ernie_pipeline_stages)
+    cfg = ErnieConfig(vocab_size=96, hidden_size=16, num_hidden_layers=5,
+                      num_attention_heads=2, intermediate_size=24,
+                      max_position_embeddings=20, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    m = ErnieForPretraining(cfg, device="cpu").eval()
+    with torch.no_grad():
+        m.mlm_bias.normal_()
+    stages = ernie_pipeline_stages(cfg, 3, device="cpu")
+    for st, sd in zip(stages, cs.stage_state(m.state_dict(), 3)):
+        missing, extra = st.set_state_dict(sd)
+        assert not missing and not extra
+        st.eval()
+    ids = torch.randint(0, 96, (2, 7))
+    with torch.no_grad():
+        want = m(ids)
+        got = stages[2](stages[1](stages[0](ids)))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_untied_plain_is_the_stages_function(cs):
+    """_untied_plain (ErnieForPretraining with a decoder of its own)
+    takes every weight stage_state gives the stages and computes the
+    tied model's outputs there; after an SGD step its parameters match
+    the chained stages' (the same function, unsplit)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
+                                         ernie_pipeline_stages)
+    cfg = ErnieConfig(vocab_size=96, hidden_size=16, num_hidden_layers=4,
+                      num_attention_heads=2, intermediate_size=24,
+                      max_position_embeddings=20, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    m = ErnieForPretraining(cfg, device="cpu")
+    with torch.no_grad():
+        m.mlm_bias.normal_()
+    sd = {k: v.detach().clone() for k, v in m.state_dict().items()}
+    plain = cs._untied_plain(pt, cfg, sd, device="cpu")
+    stages = ernie_pipeline_stages(cfg, 2, device="cpu")
+    for st, ssd in zip(stages, cs.stage_state(sd, 2)):
+        st.set_state_dict(ssd)
+    ids = torch.randint(0, 96, (2, 7))
+    labels = torch.randint(0, 96, (2, 7))
+    with torch.no_grad():
+        for a, b in zip(plain(ids), m(ids)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for mod, run in ((plain, lambda: plain(ids)),
+                     (stages, lambda: stages[1](stages[0](ids)))):
+        params = list(plain.parameters()) if mod is plain else \
+            [p for st in stages for p in st.parameters()]
+        loss = cs._ernie_loss(run(), labels)
+        # the NSP head and the pooler take no part in the MLM loss
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                if g is not None:
+                    p -= 0.5 * g
+    got = plain.state_dict()
+    want = cs.stage_state(got, 2)
+    # stage_state takes the decoder from the (tied) word embeddings
+    want[-1]["decoder.weight"] = got["decoder.weight"]
+    for st, ssd in zip(stages, want):
+        assert sorted(st.state_dict()) == sorted(ssd)
+        for k, v in st.state_dict().items():
+            torch.testing.assert_close(v, ssd[k], rtol=1e-5, atol=1e-6,
+                                       msg=k)
+
+
+def _pipe_row():
+    want = {"launches": dict(_launches(96), flash_attn_fwd=168),
+            "dispatches": 60, "graphs": 15, "in_flight": [4, 3, 2, 1]}
+    return dict(expected=want,
+                captured_vs_eager=dict(losses_bit_equal=True,
+                                       params_bit_equal=True),
+                launches_per_step=dict(want["launches"]),
+                eager_launches_per_step=dict(want["launches"]),
+                routes_per_step={"fwd_wgmma": 168, "flash_fwd_simt": 0},
+                path_launches={"flash_attn_fwd": 402,
+                               "flash_attn_bwd_dq": 240,
+                               "flash_attn_bwd_dkv": 240},
+                dispatches=60, graphs=15, captures=15, sentinel_events=0,
+                in_flight=[4, 3, 2, 1],
+                plain_parity=dict(ok=True, max_rel=1e-7),
+                interleaved=dict(losses_ok=True), losses=[10.4, 10.3],
+                mfu=0.1)
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("bits", "bit-equal"), ("launches", "launched"),
+    ("route", "bf16"), ("path", "no kernel"), ("dispatches", "dispatches"),
+    ("graphs", "graphs"), ("sentinel", "sentinel"),
+    ("in_flight", "in-flight"), ("parity", "plain step"),
+    ("interleaved", "interleaved"), ("loss", "losses")])
+def test_pipeline_train_gates_name_each_failure(cs, breakage, word):
+    row = _pipe_row()
+    if breakage == "bits":
+        row["captured_vs_eager"]["params_bit_equal"] = False
+    elif breakage == "launches":
+        row["launches_per_step"]["flash_attn_bwd_dq"] = 95
+    elif breakage == "route":
+        row["routes_per_step"] = {"fwd_wgmma": 96, "flash_fwd_simt": 72}
+    elif breakage == "path":
+        row["path_launches"]["flash_attn_bwd_dkv"] = 0
+    elif breakage == "dispatches":
+        row["dispatches"] = 61
+    elif breakage == "graphs":
+        row["graphs"] = row["captures"] = 16
+    elif breakage == "sentinel":
+        row["sentinel_events"] = 1
+    elif breakage == "in_flight":
+        row["in_flight"] = [8, 8, 8, 8]
+    elif breakage == "parity":
+        row["plain_parity"].update(ok=False, max_rel=2e-5)
+    elif breakage == "interleaved":
+        row["interleaved"]["losses_ok"] = False
+    elif breakage == "loss":
+        row["losses"] = [float("nan")]
+    bad = cs.pipeline_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_profile_rounds_pad_their_windows_apart(cs):
+    """Every profiling round pads its window by PROFILE_PAD spin kernels,
+    well above the records the profiler was seen to lose at a window's
+    start (9), and the counts leave those out."""
+    assert cs.PROFILE_ROUNDS == 3 and cs.PROFILE_PAD >= 4 * 9
+    assert cs.device_profile.__defaults__ == (cs.PROFILE_PAD,)
+    names = ["spin_kernel(long)", "void (anonymous namespace)::fwd_wgmma<64>"]
+    assert cs.kernel_launches(n for n in names
+                              if cs.PAD_KERNEL not in n) == \
+        {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}

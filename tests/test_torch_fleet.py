@@ -265,12 +265,14 @@ def test_mesh_shapes_equal_jax():
 
 
 def test_refusals_cite_item_14():
-    """What waits for item 14 now is the pipeline (14b): build_pipeline
-    and the pipeline meta-optimizer above degree 1. The planner hooks
-    (build_mesh_plan, build_sharding_plan, DistributedStrategy.mesh_plan)
-    and the tensor-parallel meta-optimizer came with 14a and run."""
+    """What waits for item 14 now is the SPMD pipeline (14d):
+    build_pipeline's default 'spmd_1f1b' schedule and the pipeline
+    meta-optimizer above degree 1 (the host-driven schedules came with
+    14b). The planner hooks (build_mesh_plan, build_sharding_plan,
+    DistributedStrategy.mesh_plan) and the tensor-parallel
+    meta-optimizer came with 14a and run."""
     s = pfleet.DistributedStrategy()
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(NotImplementedError, match="item 14d"):
         pfleet.fleet.build_pipeline([], None, None)
     assert s.mesh_plan(1).sizes == {"dp": 1, "fsdp": 1, "tp": 1, "pp": 1}
     assert pfleet.fleet.build_mesh_plan().n_devices == 1
@@ -286,7 +288,7 @@ def test_refusals_cite_item_14():
             assert "tensor_parallel" in spec.applied
         else:
             s.hybrid_configs = dict(s.hybrid_configs, pp_degree=2)
-            with pytest.raises(NotImplementedError, match="item 14b"):
+            with pytest.raises(NotImplementedError, match="item 14d"):
                 pmeta.StrategyCompiler().compile(spec, s)
 
 

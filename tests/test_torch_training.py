@@ -395,7 +395,7 @@ def test_trainstep_state_dict_roundtrip_and_later_flags():
         TrainStep(m, _loss_fn, topt.AdamW(), sentry=object())
     # mesh= and grad_transform= are taken since the distributed slice,
     # sharding_plan= and the tp, ep, sp and fsdp axes since the planner
-    # (item 14a); a pp axis above size 1 waits for the pipeline (14b)
+    # (item 14a); a pp axis above size 1 waits for the SPMD pipeline (14d)
     from paddle_tpu_torch.distributed import (MeshPlan, ShardingPlan,
                                               build_mesh, set_mesh)
     TrainStep(m, _loss_fn, topt.AdamW(), mesh=build_mesh({"dp": 1}),
@@ -408,8 +408,53 @@ def test_trainstep_state_dict_roundtrip_and_later_flags():
                                              zero_stage=3))
         TrainStep(m, _loss_fn, topt.AdamW(),
                   sharding_plan=MeshPlan(dp=1).sharding_plan())
-        with pytest.raises(NotImplementedError, match="item 14b"):
+        with pytest.raises(NotImplementedError, match="item 14d"):
             TrainStep(m, _loss_fn, topt.AdamW(),
                       mesh=build_mesh({"dp": 1, "pp": 2}, devices=[0, 1]))
     finally:
         set_mesh(None)
+
+
+def test_capture_holds_the_collector_off(monkeypatch):
+    """static/capture.py's capture runs its body with Python's cyclic
+    collector disabled (a collection there could destroy an earlier
+    graph mid-capture) and restores it after, also when the body fails;
+    a collector that was off stays off. The CUDA graph calls are stood
+    in for, since no card is needed to check this."""
+    import contextlib
+    import gc
+    from paddle_tpu_torch.static import capture as cap
+
+    class FakeGraph:
+        def register_generator_state(self, g):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, pool=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(cap, "count_capture", lambda *a: None)
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        return 1
+
+    def failing():
+        seen.append(gc.isenabled())
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        assert cap.capture(body, "cuda")[1] == 1 and gc.isenabled()
+        with pytest.raises(RuntimeError, match="CUDA graph capture failed"):
+            cap.capture(failing, "cuda")
+        assert gc.isenabled()
+        gc.disable()
+        cap.capture(body, "cuda")
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert seen == [False, False, False]
