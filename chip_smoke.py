@@ -353,6 +353,28 @@ Phases, each of which fails the run on any mismatch:
    `mask_probe` at b 6): the three kernels at the microbatch's shape (b
    6, s 512, bf16, non-causal, p 0.1) against their plain versions.
 
+31. ResNet-50 training (`resnet_train`, after `pipeline_train`, before
+   `elastic_train`): bench.py's bench_resnet, resnet50(num_classes=1000)
+   + Momentum(0.1, momentum 0.9, weight_decay 1e-4) + TrainStep(O1 bf16)
+   at batch 64 x 3x224x224, inputs and labels in [0, 10) from numpy seed
+   0, random weights from SEED. From one start state the first call and
+   2 replays against 3 eager steps: losses, every parameter and every
+   BatchNorm running statistic bit-equal (the convolutions run under
+   torch's deterministic-algorithms flag, nn/functional/conv.py). Then
+   2 warm-up and 12 timed replays: images/s, host step ms beside the
+   device ms of a replay (torch.profiler, with the `convolutions
+   (cuDNN)` and `batch norm` categories), the idle share, kernel
+   launches a replay, MFU = 3 x 2 x multiply-adds (every convolution and
+   the fc, counted from the model's shapes by forward hooks, near the
+   4.1 G an image usually cited) x batch / step s / 989e12, peak
+   memory, 1 graph and 0 sentinel events; the same replays once with
+   the deterministic flag off (a second capture), to price it; the
+   captured eval forward (build_eval_fn) at the batch with the trained
+   running statistics. Last, resnet18(num_classes=10) at 4x3x32x32 f32,
+   3 steps captured on the card against the CPU, each from the CPU
+   step's state: losses, parameters and running statistics within 1e-3.
+   The path launches none of the flash-attention kernels.
+
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
@@ -1335,12 +1357,18 @@ def train_cpu_check(torch, pt, fa, moe=False):
 PROFILE_CATEGORIES = [
     ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
                                  "dkv_wgmma", "dq_simt", "dkv_simt")),
+    # cuDNN's convolution engines (implicit-GEMM fprop, dgrad, wgrad),
+    # ahead of the matmuls, whose xmma/sm90_ fragments they share
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv",
+                              "implicit_gemm", "implicit_convolve")),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "BatchNorm")),
     ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("embedding", ("embedding", "indexing_backward", "index")),
     ("reductions", ("reduce_kernel",)),
-    ("copies and casts", ("copy", "Memcpy", "Memset")),
+    ("copies and casts", ("copy", "Memcpy", "Memset", "nchwToNhwc",
+                          "nhwcToNchw")),
 ]
 
 
@@ -5039,6 +5067,298 @@ def pipeline_train_phase(torch, pt, fa, dense):
     return row
 
 
+# -- the vision path: ResNet-50 through the captured TrainStep ---------------
+
+RESNET = dict(depth=50, num_classes=1000)  # bench.py:194's resnet50
+RESNET_BATCH, RESNET_SIZE, RESNET_LABELS = 64, 224, 10
+RESNET_LR, RESNET_MOMENTUM, RESNET_WD = 0.1, 0.9, 1e-4
+RESNET_CHECK_STEPS = 3
+RESNET_WARMUP, RESNET_STEPS = 2, 12
+RESNET_CPU = dict(depth=18, num_classes=10, batch=4, size=32)
+RESNET_CPU_RTOL = 1e-3
+# the multiply-adds per 224x224 image usually cited for ResNet-50 (4.1 G),
+# and how far the count from the model's shapes may sit from it
+RESNET50_CITED_MACS, RESNET_MACS_SLACK = 4.1e9, 0.05
+
+
+def layer_macs(torch, model, shape, device):
+    """{layer name: multiply-adds per sample} of every convolution and
+    linear layer of `model`, from the output shapes of one eval forward
+    of a `shape` input under no_grad (hooks read the shapes): a
+    convolution's output elements x in_channels/groups x kernel size,
+    a linear layer's in x out features."""
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.layer.conv import _ConvNd
+    macs, hooks = {}, []
+
+    def hook(name):
+        def fn(mod, inputs, out):
+            per = out.numel() // out.shape[0]
+            if isinstance(mod, _ConvNd):
+                k = math.prod(mod.kernel_size)
+                cin = mod.in_channels // mod.groups
+                if mod.transpose:
+                    per = inputs[0].numel() // inputs[0].shape[0]
+                    cin = mod.out_channels // mod.groups
+                macs[name] = per * cin * k
+            else:
+                macs[name] = mod.in_features * mod.out_features
+        return fn
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, (_ConvNd, Linear)):
+            hooks.append(mod.register_forward_hook(hook(name)))
+    mode = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.zeros(shape, device=device))
+    finally:
+        model.train(mode)
+        for h in hooks:
+            h.remove()
+    return macs
+
+
+def train_flops(macs_per_sample, batch):
+    """A training step's FLOPs: 2 per multiply-add, 3 passes (the forward
+    and the backward's two products, input and weight gradients)."""
+    return 3 * 2 * macs_per_sample * batch
+
+
+def resnet_train_gates(row):
+    """The resnet_train phase's failures, each a message (empty: ok)."""
+    bad = []
+    cap = row["captured_vs_eager"]
+    if not (cap["losses_bit_equal"] and cap["params_bit_equal"]
+            and cap["buffers_bit_equal"]):
+        bad.append(f"the replay is not bit-equal to the eager step: {cap}")
+    if row["graphs"] != 1 or row["sentinel_events"] != 0:
+        bad.append(f"{row['graphs']} graphs and {row['sentinel_events']} "
+                   "sentinel events for one signature")
+    cpu = row["card_vs_cpu"]
+    if not cpu["max_rel"] <= RESNET_CPU_RTOL:
+        bad.append(f"card and CPU differ: {cpu}")
+    if not all(math.isfinite(v) for v in row["losses"]):
+        bad.append(f"non-finite losses {row['losses']}")
+    if abs(row["macs_per_image"] / RESNET50_CITED_MACS - 1) > \
+            RESNET_MACS_SLACK:
+        bad.append(f"{row['macs_per_image']} multiply-adds an image, not "
+                   f"near {RESNET50_CITED_MACS}")
+    if not 0 < row["mfu"] < 1:
+        bad.append(f"MFU {row['mfu']} outside (0, 1)")
+    ev = row["eval"]
+    if not (ev["finite"] and ev["shape"] == [RESNET_BATCH,
+                                             RESNET["num_classes"]]):
+        bad.append(f"the eval forward: {ev}")
+    if row["flash_launches"] and any(row["flash_launches"].values()):
+        bad.append(f"the vision path launched attention kernels: "
+                   f"{row['flash_launches']}")
+    return bad
+
+
+def _resnet(pt, device, depth, num_classes):
+    from paddle_tpu_torch.vision.models import resnet18, resnet50
+    pt.seed(SEED)
+    ctor = {18: resnet18, 50: resnet50}[depth]
+    return ctor(num_classes=num_classes, device=device).train()
+
+
+def _resnet_step(pt, model, amp=True):
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.static import TrainStep
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   parameters=model.parameters(), weight_decay=RESNET_WD)
+    kw = dict(amp_level="O1", amp_dtype="bfloat16") if amp else {}
+    return TrainStep(model, lambda out, y: cross_entropy(out, y), opt, **kw)
+
+
+def _resnet_batch(torch, batch, size, device):
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(batch, 3, size, size).astype(np.float32)
+    y = rng.randint(0, RESNET_LABELS, (batch,)).astype(np.int64)
+    return (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+
+
+def _running_stats(model):
+    return [t.detach().clone() for k, t in model.state_dict().items()
+            if k.endswith(("_mean", "_variance"))]
+
+
+def _resnet_replays(torch, step, x, y, warmup, steps):
+    """(seconds of `steps` replays after `warmup`, the last loss)."""
+    for _ in range(warmup):
+        step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step(x, y)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, float(loss)
+
+
+def _max_rel(a, b):
+    """The largest |a - b| over max(1, max|b|) of each pair of tensors
+    (compared on the host: one side may be on the card)."""
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max()
+                     / max(1.0, float(y.float().abs().max())))
+               for x, y in zip(a, b))
+
+
+def resnet_cpu_check(torch, pt):
+    """resnet18(num_classes=10) at 4x3x32x32, f32, from the same weights:
+    3 TrainStep steps on the card (captured) and on the CPU (eager),
+    each card step started from the CPU step's state before it
+    (state_dict: weights, running statistics, velocities): every loss,
+    parameter and running statistic within RESNET_CPU_RTOL (relative to
+    max(1, max|cpu|)). Not left to run free: at lr 0.1 this model's loss
+    grows (3.2, 7.3, 8.4), and the free run carries each step's
+    summation-order differences into the next, 1.7% apart in the third
+    loss (call 14a); the free card losses are printed beside."""
+    c = RESNET_CPU
+    cpu = _resnet(pt, "cpu", c["depth"], c["num_classes"])
+    card = _resnet(pt, "cuda", c["depth"], c["num_classes"])
+    card.set_state_dict({k: v.detach() for k, v in cpu.state_dict().items()})
+    s_cpu = _resnet_step(pt, cpu, amp=False)
+    s_card = _resnet_step(pt, card, amp=False)
+    xc, yc = _resnet_batch(torch, c["batch"], c["size"], "cpu")
+    xg, yg = _resnet_batch(torch, c["batch"], c["size"], "cuda")
+    free = [float(s_card(xg, yg)) for _ in range(RESNET_CHECK_STEPS)]
+    losses, params, stats = [], [], []
+    for _ in range(RESNET_CHECK_STEPS):
+        s_card.set_state_dict(s_cpu.state_dict())
+        lg, lc = float(s_card(xg, yg)), float(s_cpu(xc, yc))
+        losses.append(_rel_diff(lg, lc))
+        params.append(_max_rel(_snapshot(s_card), _snapshot(s_cpu)))
+        stats.append(_max_rel(_running_stats(card), _running_stats(cpu)))
+    graphs = s_card.programs
+    s_card.release()
+    return dict(model=f"resnet{c['depth']}", batch=c["batch"],
+                size=c["size"], dtype="float32", steps=RESNET_CHECK_STEPS,
+                started_from="the CPU step's state, each step",
+                loss_rel_diff=losses, params_max_rel=params,
+                running_stats_max_rel=stats, card_graphs=graphs,
+                max_rel=max(losses + params + stats),
+                free_card_losses=free, rtol=RESNET_CPU_RTOL)
+
+
+def resnet_train_phase(torch, pt, fa):
+    """ResNet-50 (bench.py's bench_resnet: resnet50(num_classes=1000),
+    batch 64 of 3x224x224 and labels in [0, 10) from numpy seed 0,
+    Momentum(0.1, momentum 0.9, weight_decay 1e-4), TrainStep O1 bf16)
+    through the captured TrainStep. From one start state (state_dict,
+    BatchNorm's running statistics in it), the first call and 2 replays
+    against 3 eager steps: losses, every parameter and every running
+    statistic bit-equal. Then RESNET_WARMUP + RESNET_STEPS replays on a
+    synchronised host clock: images/s, step ms, the device ms and
+    kernels of a replay (profile_step), the idle share, MFU (train_flops
+    over the multiply-adds counted from the model's shapes, against the
+    bf16 dense peak), peak memory over the first call, graphs, sentinel
+    events. The same replays once with conv.DETERMINISTIC off (a second
+    capture), to price the deterministic convolutions. The eval forward
+    (build_eval_fn, captured) at the batch, with the trained running
+    statistics: ms a batch. Last, resnet_cpu_check."""
+    from paddle_tpu_torch.nn.functional import conv as _conv
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = _resnet(pt, "cuda", RESNET["depth"], RESNET["num_classes"])
+    shape = (1, 3, RESNET_SIZE, RESNET_SIZE)
+    macs = layer_macs(torch, model, shape, "cuda")
+    per_image = sum(macs.values())
+    step = _resnet_step(pt, model)
+    x, y = _resnet_batch(torch, RESNET_BATCH, RESNET_SIZE, "cuda")
+    s0 = _to_cpu(step.state_dict())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa)
+    graph_losses = [float(step(x, y))]
+    peak = torch.cuda.max_memory_allocated()
+    graph_losses += [float(step(x, y))
+                     for _ in range(RESNET_CHECK_STEPS - 1)]
+    flash = dict(fa.launches)
+    graph_params, graph_stats = _snapshot(step), _running_stats(model)
+    step.set_state_dict(s0)
+    eager_losses = [float(step.eager_step(x, y))
+                    for _ in range(RESNET_CHECK_STEPS)]
+    eager_params, eager_stats = _snapshot(step), _running_stats(model)
+    cap = dict(steps=RESNET_CHECK_STEPS, graph_losses=graph_losses,
+               eager_losses=eager_losses,
+               losses_bit_equal=graph_losses == eager_losses,
+               params_bit_equal=_bit_equal(graph_params, eager_params),
+               params_max_abs_diff=_max_abs_diff(graph_params, eager_params),
+               buffers_bit_equal=_bit_equal(graph_stats, eager_stats),
+               buffers_max_abs_diff=_max_abs_diff(graph_stats, eager_stats),
+               running_stats=len(graph_stats))
+    del graph_params, eager_params, graph_stats, eager_stats
+    eager_ms = time_ms(lambda: step.eager_step(x, y), reps=3, warmup=1)
+    secs, last = _resnet_replays(torch, step, x, y, RESNET_WARMUP,
+                                RESNET_STEPS)
+    prof = profile_step(torch, step, x, y)
+    step_ms = secs / RESNET_STEPS * 1e3
+    flops = train_flops(per_image, RESNET_BATCH)
+    ev = step.build_eval_fn()
+    logits = ev(x)
+    eval_ms = time_ms(lambda: ev(x), reps=10, warmup=2)
+    row = dict(card=nvidia_smi(), model="resnet50", batch=RESNET_BATCH,
+               image=[3, RESNET_SIZE, RESNET_SIZE], amp="O1 bfloat16",
+               optimizer=f"Momentum({RESNET_LR}, momentum "
+                         f"{RESNET_MOMENTUM}, weight_decay {RESNET_WD})",
+               params=sum(p.numel() for p in step.params),
+               running_stats=sum(t.numel() for k, t in
+                                 model.state_dict().items()
+                                 if k.endswith(("_mean", "_variance"))),
+               captured_vs_eager=cap, graphs=step.programs,
+               captures=step.captures, replays=step.replays,
+               sentinel_events=step.recompile_sentinel.fired,
+               flash_launches=flash,
+               losses=graph_losses + [last], warmup_steps=RESNET_WARMUP,
+               timed_steps=RESNET_STEPS, step_ms=step_ms,
+               images_per_s=RESNET_BATCH * RESNET_STEPS / secs,
+               eager_step_ms=eager_ms,
+               device_ms_per_step=prof["device_ms"],
+               idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               kernel_launches_per_replay=prof["events"],
+               macs_per_image=per_image,
+               convolutions=sum(1 for k in macs if "fc" not in k),
+               flops_per_step=flops,
+               mfu=flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+               mfu_device=flops / (prof["device_ms"] / 1e3)
+               / PEAK_FLOPS["bfloat16"],
+               peak_memory_bytes=peak, peak_above_base_bytes=peak - base,
+               profile=_profile_row(prof, top=12),
+               eval=dict(ms_per_batch=eval_ms, programs=ev.programs,
+                         shape=list(logits.shape),
+                         finite=bool(torch.isfinite(logits).all())))
+    step.release()
+    del step, ev, logits
+    torch.cuda.empty_cache()
+    # the deterministic convolutions' price: a second capture without them
+    _conv.DETERMINISTIC = False
+    try:
+        free = _resnet_step(pt, model)
+        free(x, y)
+        secs_free, _ = _resnet_replays(torch, free, x, y, RESNET_WARMUP,
+                                      RESNET_STEPS)
+        free.release()
+    finally:
+        _conv.DETERMINISTIC = True
+    row["nondeterministic_conv"] = dict(
+        step_ms=secs_free / RESNET_STEPS * 1e3,
+        images_per_s=RESNET_BATCH * RESNET_STEPS / secs_free)
+    del model, free
+    torch.cuda.empty_cache()
+    row["card_vs_cpu"] = resnet_cpu_check(torch, pt)
+    row["seconds"] = time.perf_counter() - t0
+    emit({"resnet_train": row})
+    bad = resnet_train_gates(row)
+    if bad:
+        fail("resnet_train: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -5173,6 +5493,8 @@ def main():
     pipe_case, pipe_probe = pipe_kernel_phase(torch, fa, philox)
     pipe = pipeline_train_phase(torch, pt, fa, captured["ernie"])
     torch.cuda.empty_cache()
+    resnet = resnet_train_phase(torch, pt, fa)
+    torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
@@ -5214,7 +5536,8 @@ def main():
                    "sp_ulysses_per_step":
                        sp["ulysses"]["launches_per_step"][k],
                    "sp_ring_per_step": sp["ring"]["launches_per_step"][k],
-                   "pipeline_training": pipe["path_launches"][k]}
+                   "pipeline_training": pipe["path_launches"][k],
+                   "resnet_training": resnet["flash_launches"][k]}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1

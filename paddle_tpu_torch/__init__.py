@@ -28,9 +28,13 @@ pretraining with the vocab-chunked CE head and scanned stacks. On the
 card static.TrainStep captures each step as one CUDA graph per input
 signature (the kernels read their dropout seed from device memory), with
 remat (distributed.recompute) and the JAX package's ten optimizers.
+The vision path: conv, pooling, BatchNorm (running statistics carried
+through the captured step) and the vision.models zoo, with ResNet-50
+trained through the captured TrainStep.
 """
 from . import (amp, core, device, distributed, models, nn,  # noqa: F401
-               observability, ops, optimizer, quant, serving, static)
+               observability, ops, optimizer, quant, serving, static,
+               vision)
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
 from .core.generator import seed  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401

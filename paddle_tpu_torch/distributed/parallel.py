@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..nn.functional.norm import batch_stat_scope
 from .collective import Group as _Group
 from .env import (DATA_AXIS, axis_group, build_mesh, get_rank,
                   get_world_size, set_mesh)
@@ -160,6 +161,8 @@ class DataParallel(torch.nn.Module):
     ``comm_config`` (a comm.CommConfig), through the bucketed, planned,
     optionally quantized GradSynchronizer: its sum of the grads divided
     by the dp size first, with the int8_ef residuals kept across steps.
+    A BatchNorm in the layer averages its batch moments over dp (the
+    global batch's, as the JAX DataParallel's SPMD forward has them).
     scale_loss is the identity (the average is in the grads). With
     ``plan`` (a MeshPlan), the grads are averaged over the plan's data
     axes, dp and fsdp, and the replicas start equal over each."""
@@ -213,7 +216,12 @@ class DataParallel(torch.nn.Module):
                 _c.broadcast(t.data, src=0, group=pg)
 
     def forward(self, *inputs, **kwargs):
-        return self._layers(*inputs, **kwargs)
+        """The layer on this rank's batch; a BatchNorm in it averages its
+        batch moments over the data groups of more than one rank, so it
+        normalises over the global batch as the JAX package's does."""
+        groups = [pg for pg in self._data_groups() if dp_size(pg) > 1]
+        with batch_stat_scope(groups):
+            return self._layers(*inputs, **kwargs)
 
     def scale_loss(self, loss):
         return loss

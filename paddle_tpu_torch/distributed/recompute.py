@@ -18,6 +18,11 @@ explicit here (`checkpointed`):
 - the AMP state: the port's auto_cast is its own thread-local state,
   which the backward runs outside of, so the recompute re-enters the
   forward's (amp_state_scope).
+- BatchNorm's running statistics: jax.checkpoint recomputes without a
+  second buffer update, so a recompute runs under
+  frozen_running_stats (nn/functional/norm.py), and re-enters the
+  forward's batch_stat_scope (the groups a synced BatchNorm averages
+  its moments over).
 
 Policies, as the reference's RecomputeOptimizer picks them
 (paddle_tpu/distributed/fleet/meta_optimizers.py:205-210): None or
@@ -37,6 +42,7 @@ from torch.utils import checkpoint as _ckpt
 
 from ..amp.auto_cast import amp_state, amp_state_scope
 from ..core.generator import next_seed, rewind_point, rewound, seed_scope
+from ..nn.functional import norm as _norm
 
 __all__ = ["recompute", "recompute_sequential", "RecomputeFunction",
            "checkpointed", "remat_scope", "REMAT_POLICIES"]
@@ -68,19 +74,23 @@ def _entered(*cms):
         yield
 
 
-def remat_scope(point, amp):
+def remat_scope(point, amp, stat_groups=None):
     """The recompute's context: the seed scope rewound to `point` (a
-    rewind_point() value) and the AMP state `amp` (an amp_state() value),
-    as the forward it repeats entered them. The pipeline engine's
-    backward (pipeline_engine.py) enters it too."""
-    return _entered(rewound(point), amp_state_scope(amp))
+    rewind_point() value), the AMP state `amp` (an amp_state() value)
+    and the batch-stat groups `stat_groups`, as the forward it repeats
+    entered them, with BatchNorm's running statistics frozen. The
+    pipeline engine's backward (pipeline_engine.py) enters it too."""
+    return _entered(rewound(point), amp_state_scope(amp),
+                    _norm.batch_stat_scope(stat_groups),
+                    _norm.frozen_running_stats())
 
 
 def _contexts(policy):
     """(forward, recompute) context managers for torch's checkpoint: the
-    recompute rewinds the seed scope and re-enters the AMP state found
-    here, at the segment's entry."""
-    fwd, rec = [], [remat_scope(rewind_point(), amp_state())]
+    recompute rewinds the seed scope and re-enters the AMP state and the
+    batch-stat groups found here, at the segment's entry."""
+    fwd, rec = [], [remat_scope(rewind_point(), amp_state(),
+                                _norm.stat_groups())]
     if policy == "checkpoint_dots":
         f, r = _ckpt.create_selective_checkpoint_contexts(_save_dots)
         fwd.append(f)

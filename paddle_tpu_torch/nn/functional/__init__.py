@@ -1,9 +1,12 @@
-"""paddle.nn.functional subset the ported slices run (counterpart of
-paddle_tpu/nn/functional)."""
-from .activation import gelu, softmax, tanh  # noqa: F401
+"""paddle.nn.functional (counterpart of paddle_tpu/nn/functional): each
+module's names under the JAX package's __all__."""
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from . import activation, common, conv, loss, norm, pooling  # noqa: F401
 from .attention import (attention_dropout_impl,  # noqa: F401
                         flash_attention, scaled_dot_product_attention)
-from .common import dropout, embedding, linear  # noqa: F401
-from .loss import (cross_entropy, linear_cross_entropy,  # noqa: F401
-                   softmax_with_cross_entropy)
-from .norm import layer_norm  # noqa: F401
+from .loss import linear_cross_entropy  # noqa: F401

@@ -27,23 +27,38 @@ __all__ = ["Layer"]
 class Layer(nn.Module):
     """nn.Module with Paddle's parameter factory and state-dict loader.
 
-    `device` is resolved when the layer is built: None means the current
-    device, which is the CUDA card unless the CPU was asked for.
+    `device` is resolved the first time the layer asks for it (to make a
+    parameter or a buffer): None means the current device, which is the
+    CUDA card unless the CPU was asked for. A layer that holds no tensor
+    (a container, an activation, a pool) never asks.
     """
 
     def __init__(self, dtype="float32", device=None):
         super().__init__()
         self._dtype = _dtypes.convert_dtype(dtype)
-        self._device = resolve_device(device)
+        self._device_arg = device
+        self._resolved_device = None
+
+    @property
+    def _device(self) -> torch.device:
+        if self._resolved_device is None:
+            self._resolved_device = resolve_device(self._device_arg)
+        return self._resolved_device
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer: Optional[Initializer] = None):
         """Parameter factory (the JAX Layer.create_parameter without
         ParamAttr): `attr` may be None, False (no bias) or an
-        Initializer. Biases default to zeros, weights to XavierNormal."""
+        Initializer. An initializer given as `attr` wins; else
+        set_global_initializer's default, when set, overrides the
+        layer's. Biases default to zeros, weights to XavierNormal."""
         if attr is False and is_bias:
             return None
-        init = attr if isinstance(attr, Initializer) else default_initializer
+        from .. import initializer as _init_mod
+        if isinstance(attr, Initializer):
+            init = attr
+        else:
+            init = _init_mod._global_default(is_bias) or default_initializer
         if init is None:
             init = Constant(0.0) if is_bias else XavierNormal()
         dtype = _dtypes.convert_dtype(dtype) if dtype else self._dtype

@@ -40,6 +40,18 @@ The body, as the JAX `_build`'s `step`:
   "checkpoint_dots"): forward and loss run as one recompute region
   (distributed/recompute.py checkpointed), as jax.checkpoint wraps
   `_forward_loss`.
+- buffers (BatchNorm's running statistics, and every other state entry
+  that takes no gradient, as the JAX step threads its `buffers`): the
+  forward writes them in place (nn/functional/norm.py). Where the JAX
+  step differs from that, the step makes it equal: under
+  grad_accum_steps every microbatch starts from the step's initial
+  buffers and the step keeps the last microbatch's (the buffers are
+  restored before each later microbatch); a remat recompute writes no
+  second update (frozen_running_stats); a loss-scale skip keeps the
+  params and the optimizer state but the buffers advance, as the JAX
+  step's new_buffers do. On the card they are written inside the
+  captured graph, at the addresses the layer holds; state_dict and
+  set_state_dict carry them, and build_eval_fn normalises with them.
 - __call__ returns the loss as a device tensor (no .item()).
 - donate is accepted for the JAX signature: the step updates the params
   and the optimizer state in place anyway.
@@ -65,7 +77,10 @@ calls the step on its local batch; between the unscale and the update,
 where the JAX step calls its grad_transform, the grads are averaged over
 the data axes (dp, and fsdp when the mesh has it: one all-reduce AVG a
 grad and axis, NCCL on the card, captured in the step's graph), and so
-is the returned loss. That is the JAX step on the global batch.
+is the returned loss; a BatchNorm in the forward averages its batch
+moments over the same axes where they span more than one rank
+(nn/functional/norm.py batch_stat_scope). That is the JAX step on the
+global batch.
 grad_transform (grads, strategy_state, params) -> (grads,
 strategy_state) then runs by parameter name, its state riding
 strategy_state (and so state_dict); a comm sync transform
@@ -114,6 +129,7 @@ from ..distributed import sharding as _sh
 from ..distributed.env import get_mesh, set_mesh
 from ..distributed.parallel import dp_average_, dp_max_, dp_size
 from ..distributed.recompute import check_policy, checkpointed
+from ..nn.functional.norm import batch_stat_scope
 from ..observability import flight_recorder as _fr
 from ..observability import memory as _mem
 from ..observability import metrics as _obs
@@ -318,6 +334,15 @@ class TrainStep:
                  if p.requires_grad]
         self._param_names = [k for k, _ in named]
         self.params = [p for _, p in named]
+        # the JAX step's `buffers`: every state entry without a gradient
+        trainable = set(self._param_names)
+        self._state_buffers = [
+            t for k, t in layer.state_dict(keep_vars=True).items()
+            if k not in trainable and isinstance(t, torch.Tensor)]
+        # the data groups a BatchNorm averages its moments over: those of
+        # more than one rank
+        self._stat_groups = [pg for pg in self._data_groups
+                             if dp_size(pg) > 1]
         if optimizer._parameters is None:
             optimizer._parameters = list(self.params)
         if amp_level == "O2":
@@ -460,29 +485,11 @@ class TrainStep:
         int; or a SeedSlots, whose Draws stand for it): forward, loss,
         backward, unscale and finite check, the update with the skip
         select, the scale update. Returns the loss (f32 device tensor)."""
-        accum = self.grad_accum_steps
         scale = self.strategy_state["amp_scale"] \
             if self._scaler_cfg is not None else None
         for p in self.params:
             p.grad = None
-        loss_sum = None
-        for idx in range(accum):
-            ins = tuple(_microslice(a, idx, accum) for a in inputs)
-            lbls = tuple(_microslice(a, idx, accum) for a in labels)
-            path = () if accum == 1 else (idx,)
-            if isinstance(seed, SeedSlots):
-                base = Draw(path, seed)
-            else:
-                base = seed if accum == 1 else mix_seed(seed, idx)
-            with seed_scope(base):
-                loss = self._forward_loss(ins, lbls)
-            scaled = loss / accum if accum > 1 else loss
-            if scale is not None:
-                scaled = scaled * scale
-            scaled.backward()
-            loss = loss.detach()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        loss = loss_sum / accum if accum > 1 else loss_sum
+        loss = self._microbatches(inputs, labels, seed, scale)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         found_inf = None
@@ -505,6 +512,40 @@ class TrainStep:
             self._update_scaler(found_inf)
         self._found_inf = found_inf
         return loss
+
+    def _microbatches(self, inputs, labels, seed, scale):
+        """Forward, loss and backward of each microbatch, the gradients
+        summed in .grad; returns the mean loss. Each microbatch starts
+        from the step's initial buffers (restored in place before every
+        later one), so the step keeps the last one's update, as the JAX
+        step's scan over microbatches does."""
+        accum = self.grad_accum_steps
+        initial = None
+        if accum > 1 and self._state_buffers:
+            with torch.no_grad():
+                initial = [b.detach().clone() for b in self._state_buffers]
+        loss_sum = None
+        for idx in range(accum):
+            if idx and initial is not None:
+                with torch.no_grad():
+                    for b, b0 in zip(self._state_buffers, initial):
+                        b.copy_(b0)
+            ins = tuple(_microslice(a, idx, accum) for a in inputs)
+            lbls = tuple(_microslice(a, idx, accum) for a in labels)
+            path = () if accum == 1 else (idx,)
+            if isinstance(seed, SeedSlots):
+                base = Draw(path, seed)
+            else:
+                base = seed if accum == 1 else mix_seed(seed, idx)
+            with seed_scope(base), batch_stat_scope(self._stat_groups):
+                loss = self._forward_loss(ins, lbls)
+            scaled = loss / accum if accum > 1 else loss
+            if scale is not None:
+                scaled = scaled * scale
+            scaled.backward()
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        return loss_sum / accum if accum > 1 else loss_sum
 
     @torch.no_grad()
     def _sync_and_transform(self, grads):

@@ -884,3 +884,137 @@ def test_profile_rounds_pad_their_windows_apart(cs):
     assert cs.kernel_launches(n for n in names
                               if cs.PAD_KERNEL not in n) == \
         {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
+
+
+# -- resnet_train ---------------------------------------------------------------
+
+# ResNet-50's multiply-adds a 224x224 image: its 53 convolutions and the
+# fc, counted from the model's shapes (conv1 alone: 112 * 112 * 64
+# outputs x 3 * 7 * 7 = 118,013,952; the fc 2048 x 1000)
+RESNET50_MACS = 4_089_184_256
+
+
+def test_resnet50_macs_are_counted_from_the_shapes(cs):
+    import torch
+    from paddle_tpu_torch.vision.models import resnet50
+    model = resnet50(num_classes=1000, device="cpu")
+    macs = cs.layer_macs(torch, model, (1, 3, 224, 224), "cpu")
+    assert len(macs) == 54 and sum(1 for k in macs if k != "fc") == 53
+    assert macs["conv1"] == 118_013_952 and macs["fc"] == 2048 * 1000
+    assert sum(macs.values()) == RESNET50_MACS
+    assert abs(RESNET50_MACS / cs.RESNET50_CITED_MACS - 1) \
+        < cs.RESNET_MACS_SLACK
+    # a step is 3 x 2 flops a multiply-add: the forward and the two
+    # products of the backward
+    assert cs.train_flops(RESNET50_MACS, 64) == 6 * RESNET50_MACS * 64
+    assert model.training
+
+
+def test_layer_macs_count_groups_and_transposes(cs):
+    import torch
+    from paddle_tpu_torch import nn
+    model = nn.Sequential(nn.Conv2D(4, 8, 3, padding=1, groups=2,
+                                    device="cpu"),
+                          nn.Conv2DTranspose(8, 6, 2, stride=2, groups=2,
+                                             device="cpu"))
+    macs = cs.layer_macs(torch, model, (1, 4, 5, 5), "cpu")
+    # grouped: 8 x 5 x 5 outputs, each over 4 / 2 inputs x 9 taps
+    assert macs["0"] == 8 * 25 * 2 * 9
+    # transposed: each of the 8 x 5 x 5 inputs feeds 6 / 2 outputs x 4 taps
+    assert macs["1"] == 8 * 25 * 3 * 4
+
+
+def _resnet_row():
+    return dict(captured_vs_eager=dict(losses_bit_equal=True,
+                                       params_bit_equal=True,
+                                       buffers_bit_equal=True),
+                graphs=1, sentinel_events=0,
+                card_vs_cpu=dict(max_rel=1e-6),
+                losses=[7.1, 6.9], macs_per_image=RESNET50_MACS, mfu=0.3,
+                eval=dict(finite=True, shape=[64, 1000]),
+                flash_launches={"flash_attn_fwd": 0})
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("buffers", "bit-equal"), ("graphs", "graphs"),
+    ("sentinel", "sentinel"), ("cpu", "CPU"), ("loss", "losses"),
+    ("macs", "multiply-adds"), ("mfu", "MFU"), ("eval", "eval"),
+    ("flash", "attention")])
+def test_resnet_train_gates_name_each_failure(cs, breakage, word):
+    row = _resnet_row()
+    if breakage == "buffers":
+        row["captured_vs_eager"]["buffers_bit_equal"] = False
+    elif breakage == "graphs":
+        row["graphs"] = 2
+    elif breakage == "sentinel":
+        row["sentinel_events"] = 1
+    elif breakage == "cpu":
+        row["card_vs_cpu"]["max_rel"] = 2e-3
+    elif breakage == "loss":
+        row["losses"] = [7.1, float("nan")]
+    elif breakage == "macs":
+        row["macs_per_image"] = RESNET50_MACS // 2
+    elif breakage == "mfu":
+        row["mfu"] = 1.5
+    elif breakage == "eval":
+        row["eval"]["shape"] = [64, 10]
+    elif breakage == "flash":
+        row["flash_launches"]["flash_attn_fwd"] = 1
+    bad = cs.resnet_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+@pytest.mark.parametrize("name,category", [
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "convolutions (cuDNN)"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nchw",
+     "convolutions (cuDNN)"),
+    ("sm80_xmma_wgrad_implicit_gemm_indexed_bf16bf16_bf16f32_f32",
+     "convolutions (cuDNN)"),
+    ("void cudnn::cnn::conv2d_grouped_direct_kernel<float>",
+     "convolutions (cuDNN)"),
+    ("void at::native::batch_norm_collect_statistics_kernel<float>",
+     "batch norm"),
+    ("void at::native::batch_norm_backward_elemt_kernel<float>",
+     "batch norm"),
+    ("bn_fw_tr_1C11_kernel_NCHW<float, float, int>", "batch norm"),
+    ("void cudnn::ops::nchwToNhwcKernel<__nv_bfloat16>", "copies and casts"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "matmuls (cuBLAS)"),
+    ("nvjet_tst_192x192_64x3_1x2_h_bz_coopA_NTT", "matmuls (cuBLAS)"),
+    ("void at::native::(anonymous namespace)::layer_norm_kernel<float>",
+     "layer norm"),
+])
+def test_profile_categories_name_the_vision_kernels(cs, name, category):
+    """The two categories the vision path adds sit ahead of the matmuls
+    (cuDNN's engines share their xmma/sm90_ fragments), and the layout
+    transposes count as copies."""
+    got = next(c for c, keys in cs.PROFILE_CATEGORIES
+               if any(k in name for k in keys))
+    assert got == category
+
+
+def test_max_rel_is_relative_to_the_reference_above_one(cs):
+    import torch
+    a = [torch.tensor([1.0, 2.5]), torch.tensor([0.5])]
+    b = [torch.tensor([1.0, 2.0]), torch.tensor([0.25])]
+    # 0.5 over max(1, 2.0), and 0.25 over max(1, 0.25)
+    assert cs._max_rel(a, b) == 0.25
+
+
+def test_no_top_level_name_is_defined_twice():
+    """A phase's helper must not shadow another's: the later def wins
+    for every caller (call 14c failed in dp_train on a second
+    _timed_replays)."""
+    import ast
+    import collections
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    defs = collections.Counter(
+        n.name for n in tree.body
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
+    assigned = collections.Counter(
+        t.id for n in tree.body if isinstance(n, ast.Assign)
+        for t in n.targets if isinstance(t, ast.Name))
+    assert [k for k, v in (defs + assigned).items() if v > 1] == []
