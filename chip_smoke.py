@@ -375,6 +375,59 @@ Phases, each of which fails the run on any mismatch:
    step's state: losses, parameters and running statistics within 1e-3.
    The path launches none of the flash-attention kernels.
 
+32. Greedy NMS kernel (`nms_kernel`, in the kernel phases): csrc/nms.cu
+   (ops/nms.py greedy_nms_mask) against its plain version
+   (greedy_nms_mask_plain, the same loop in torch ops) on 640 problems
+   (YOLOv3's serving shape: 8 images x 80 classes) of K 400 and 1000
+   sorted candidates, pixel (normalized False) and unit boxes, threshold
+   0.45 with eta 1.0 and 0.7 with eta 0.9 (the decay applies above 0.5),
+   from numpy seed 0: the keep masks bit-equal, kernel ms
+   beside plain ms and the bound (the larger of the IoUs the valid
+   candidates need over the FP32 peak and the boxes', scores' and
+   mask's bytes over HBM's rate).
+
+33. YOLOv3 training (`yolo_train`, after `resnet_train`): BASELINE config
+   4, models.YOLOv3() at its defaults (80 classes, width 16, the COCO
+   anchors, ignore_thresh 0.7) + Adam(1e-3) + TrainStep(O1 bf16), batch
+   8, two size buckets 320 and 608 (the ends of PaddleDetection's
+   YOLOv3 multi-scale list), 50 gt slots an image (num_max_boxes) with
+   1-20 valid boxes drawn as examples/train_yolo.py's synth_batch draws
+   them, numpy seed 0. At each size, from one start state, the first
+   call and 2 replays against 3 eager steps: losses, every parameter and
+   every running statistic bit-equal. Then 6 steps at alternating
+   sizes: exactly 2 graphs and 0 sentinel events (the sentinel told
+   to expect one program a bucket). At each size, 2 warm-up and 12
+   timed replays: step ms, images/s, device ms and the idle share
+   (torch.profiler over 2 replays), kernel launches a replay, device
+   time by category, MFU = 3 x 2 x multiply-adds (every convolution,
+   counted from the model's shapes) x batch / step s / 989e12, peak
+   memory. 0 flash-attention launches. Last, width 4 at 2x3x64x64 f32,
+   3 Adam steps captured on the card against the CPU, each from the
+   CPU's state: losses, parameters and running statistics within 1e-3.
+
+34. hapi.Model.fit (`yolo_fit`): a fresh YOLOv3() through hapi.Model with
+   InputSpecs (img; gt_box, gt_label), prepare(Adam, loss,
+   amp_configs="O1"), one epoch of fit and one of evaluate over 64
+   synthetic images whose sizes are drawn from {320, 352, ..., 608}
+   (half at 320, the rest uniform over the others: a uniform draw would
+   leave the 320 bucket without a full batch), made in the loader's 2
+   thread workers; a collate pads each image to the smallest bucket of
+   (320, 608) that holds it and rescales its normalised boxes to the
+   padded canvas; BucketBatchSampler(boundaries=(320, 608), batch size
+   8, drop_last) batches them. The TrainStep holds 2 graphs, every loss
+   is finite; fit's images/s (host clock, the batches after both
+   captures) beside yolo_train's shows the loop's host cost (its
+   per-step .item()).
+
+35. YOLOv3 serving (`yolo_serve`): yolo_train's model in eval mode,
+   batch 8 at 608x608: ms a batch of the forward, decode (yolo_box over
+   the three heads), predict "hard" (multiclass_nms: per-class top-k,
+   the greedy kernel, the keep_top_k pack) and "matrix" (matrix_nms),
+   split by part. The hard path launches the NMS kernel once a predict
+   (counted from 0 around one predict); on its own sorted candidates
+   the kernel's keep mask, and multiclass_nms's rows, counts and
+   indices, are bit-equal to the plain version's.
+
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
@@ -5359,6 +5412,541 @@ def resnet_train_phase(torch, pt, fa):
     return row
 
 
+# -- YOLOv3, BASELINE config 4: the NMS kernel, training, fit, serving ---------
+
+# YOLOv3() at its defaults (models/yolo.py): 80 classes, width 16, the
+# COCO anchors, ignore_thresh 0.7
+YOLO_CLASSES = 80
+YOLO_BATCH = 8
+# the ends of PaddleDetection's YOLOv3 multi-scale list (320, 352, ...,
+# 608): the two size buckets
+YOLO_SIZES = (608, 320)
+YOLO_SCALES = tuple(range(320, 609, 32))
+# gt slots an image (PaddleDetection's num_max_boxes), valid boxes 1..20
+YOLO_SLOTS, YOLO_MAX_VALID = 50, 20
+YOLO_LR = 1e-3
+YOLO_CHECK_STEPS, YOLO_ALTERNATE = 3, 6
+YOLO_WARMUP, YOLO_STEPS = 2, 12
+YOLO_CPU = dict(width=4, num_classes=4, batch=2, size=64)
+YOLO_CPU_RTOL = 1e-3
+YOLO_FIT_IMAGES = 64
+# predict's defaults (models/yolo.py) and multiclass_nms's nms_top_k
+YOLO_SERVE = dict(batch=8, size=608, conf_thresh=0.05, nms_threshold=0.45,
+                  keep_top_k=100, nms_top_k=400)
+# the greedy NMS kernel's cases: 8 images x 80 classes of K candidates;
+# (iou_threshold, eta): predict's 0.45 without decay, and adaptive NMS,
+# whose eta decays the threshold only while it is above 0.5
+NMS_PROBLEMS, NMS_KS = 640, (400, 1000)
+NMS_THRESHOLDS = ((0.45, 1.0), (0.7, 0.9))
+# float operations of one IoU test in csrc/nms.cu: 2 max and 2 min (the
+# intersection's corners), 2 subtractions, 2 additions (the +1 offset),
+# 2 clamps at 0, the product, the union's addition and subtraction, the
+# division and the compare; each box's area is made once
+NMS_IOU_OPS = 15
+
+
+def yolo_synth_batch(np, rng, n, size, classes=YOLO_CLASSES,
+                     slots=YOLO_SLOTS, max_valid=YOLO_MAX_VALID):
+    """examples/train_yolo.py's synth_batch with `slots` gt slots and up
+    to `max_valid` valid boxes: images N(0, 0.1^2); per image 1 to
+    max_valid boxes, w and h uniform in [0.1, 0.5], the centre inside
+    the image, labels in [0, classes); padding rows all zero."""
+    imgs = rng.randn(n, 3, size, size).astype(np.float32) * 0.1
+    gt_box = np.zeros((n, slots, 4), np.float32)
+    gt_label = np.zeros((n, slots), np.int32)
+    for i in range(n):
+        k = rng.randint(1, max_valid + 1)
+        for j in range(k):
+            w, h = rng.uniform(0.1, 0.5, 2)
+            cx = rng.uniform(w / 2, 1 - w / 2)
+            cy = rng.uniform(h / 2, 1 - h / 2)
+            gt_box[i, j] = [cx, cy, w, h]
+            gt_label[i, j] = rng.randint(0, classes)
+    return imgs, gt_box, gt_label
+
+
+def _yolo_on(torch, arrays, device):
+    imgs, box, lbl = arrays
+    return (torch.from_numpy(imgs).to(device),
+            (torch.from_numpy(box).to(device),
+             torch.from_numpy(lbl).to(device)))
+
+
+def _yolo(pt, device, **kw):
+    from paddle_tpu_torch.models import YOLOv3
+    pt.seed(SEED)
+    return YOLOv3(device=device, **kw).train()
+
+
+def _yolo_step(pt, model, amp=True):
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.static import TrainStep
+    opt = Adam(learning_rate=YOLO_LR, parameters=model.parameters())
+    kw = dict(amp_level="O1", amp_dtype="bfloat16") if amp else {}
+    return TrainStep(model, lambda out, box, lbl: model.loss(out, box, lbl),
+                     opt, **kw)
+
+
+def nms_candidates(np, rng, p, k, normalized, invalid_frac=0.3):
+    """p problems of k candidates sorted by score (descending, scores
+    rounded to 1e-3 so ties are common), the last invalid_frac at -inf;
+    xyxy boxes with centres over the canvas (1 x 1, or YOLO_SERVE's
+    608 x 608 pixels) and sides of 2-32% of it."""
+    scale = 1.0 if normalized else float(YOLO_SERVE["size"])
+    c = rng.rand(p, k, 2) * scale
+    side = (rng.rand(p, k, 2) * 0.3 + 0.02) * scale
+    boxes = np.concatenate([c - side / 2, c + side / 2], -1)
+    scores = -np.sort(-np.round(rng.rand(p, k), 3), axis=-1)
+    scores[:, k - int(k * invalid_frac):] = -np.inf
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def nms_bound(valid, k):
+    """(bound ms, "bytes" or "operations", IoU tests, bytes) of greedy
+    NMS over problems with `valid` valid candidates each (a list): the
+    IoUs the valid candidates need (V (V - 1) / 2 a problem, NMS_IOU_OPS
+    each) over the FP32 peak, against the boxes and scores read and the
+    keep mask written once, over HBM's rate."""
+    pairs = sum(v * (v - 1) // 2 for v in valid)
+    nbytes = len(valid) * k * (16 + 4 + 1)
+    ops_ms = pairs * NMS_IOU_OPS / PEAK_FLOPS["float32"] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, pairs, nbytes
+
+
+def _nms_case(torch, nms, boxes, scores, normalized, thr, eta):
+    """The kernel against the plain version on one set of candidates."""
+    got = nms.greedy_nms_mask(boxes, scores, thr, normalized, eta)
+    want = nms.greedy_nms_mask_plain(boxes, scores, thr, normalized, eta)
+    torch.cuda.synchronize()
+    valid = (scores > float("-inf")).sum(-1).tolist()
+    k = scores.shape[-1]
+    bound, by, pairs, nbytes = nms_bound(valid, k)
+    ms = time_ms(lambda: nms.greedy_nms_mask(boxes, scores, thr,
+                                             normalized, eta), reps=20)
+    plain_ms = time_ms(lambda: nms.greedy_nms_mask_plain(
+        boxes, scores, thr, normalized, eta), reps=2, warmup=1)
+    return dict(problems=int(scores.numel() // k), k=k,
+                normalized=normalized, eta=eta, iou_threshold=thr,
+                valid_per_problem=sum(valid) / len(valid),
+                kept=int(got.sum()), masks_bit_equal=torch.equal(got, want),
+                mismatches=int((got != want).sum()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                iou_tests=pairs, bytes=nbytes, library_ms=None)
+
+
+def nms_kernel_phase(torch, nms):
+    """The greedy NMS kernel against its plain version: NMS_PROBLEMS
+    problems at each K of NMS_KS, unit and pixel boxes, each (threshold,
+    eta) of NMS_THRESHOLDS, from numpy seed 0. Launches here are
+    comparisons: not counted on any path."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    cases = []
+    for k in NMS_KS:
+        for normalized in (True, False):
+            boxes, scores = nms_candidates(np, rng, NMS_PROBLEMS, k,
+                                           normalized)
+            bx = torch.from_numpy(boxes).cuda()
+            sc = torch.from_numpy(scores).cuda()
+            for thr, eta in NMS_THRESHOLDS:
+                cases.append(_nms_case(torch, nms, bx, sc, normalized, thr,
+                                       eta))
+            del bx, sc
+    for c in cases:
+        emit({"nms_kernel_case": c})
+    bad = [c for c in cases if not c["masks_bit_equal"]]
+    if bad:
+        fail(f"the NMS kernel's keep mask differs from the plain "
+             f"version's: {bad}")
+    return cases
+
+
+def _yolo_graph_vs_eager(torch, step, model, x, y):
+    """From one start state: the first call and 2 replays at this shape
+    against 3 eager steps (losses, every parameter, every running
+    statistic)."""
+    s0 = _to_cpu(step.state_dict())
+    seeds = STEP_SEEDS[:YOLO_CHECK_STEPS]
+    graph = [float(step(x, y, seed=sd)) for sd in seeds]
+    gp, gs = _snapshot(step), _running_stats(model)
+    step.set_state_dict(s0)
+    eager = [float(step.eager_step(x, y, seed=sd)) for sd in seeds]
+    ep, es = _snapshot(step), _running_stats(model)
+    return dict(steps=YOLO_CHECK_STEPS, graph_losses=graph,
+                eager_losses=eager, losses_bit_equal=graph == eager,
+                params_bit_equal=_bit_equal(gp, ep),
+                params_max_abs_diff=_max_abs_diff(gp, ep),
+                buffers_bit_equal=_bit_equal(gs, es),
+                buffers_max_abs_diff=_max_abs_diff(gs, es))
+
+
+def yolo_cpu_check(torch, pt):
+    """YOLOv3 at width 4, 4 classes, 2x3x64x64, f32, from the same
+    weights: 3 Adam TrainStep steps on the card (captured) and on the
+    CPU, each card step started from the CPU step's state: every loss,
+    parameter and running statistic within YOLO_CPU_RTOL (relative to
+    max(1, max|cpu|))."""
+    import numpy as np
+    c = YOLO_CPU
+    kw = dict(num_classes=c["num_classes"], width=c["width"])
+    cpu = _yolo(pt, "cpu", **kw)
+    card = _yolo(pt, "cuda", **kw)
+    card.set_state_dict({k: v.detach() for k, v in cpu.state_dict().items()})
+    s_cpu = _yolo_step(pt, cpu, amp=False)
+    s_card = _yolo_step(pt, card, amp=False)
+    arrays = yolo_synth_batch(np, np.random.RandomState(SEED), c["batch"],
+                              c["size"], classes=c["num_classes"])
+    xc, yc = _yolo_on(torch, arrays, "cpu")
+    xg, yg = _yolo_on(torch, arrays, "cuda")
+    losses, params, stats = [], [], []
+    for _ in range(YOLO_CHECK_STEPS):
+        s_card.set_state_dict(s_cpu.state_dict())
+        lg, lc = float(s_card(xg, yg)), float(s_cpu(xc, yc))
+        losses.append(_rel_diff(lg, lc))
+        params.append(_max_rel(_snapshot(s_card), _snapshot(s_cpu)))
+        stats.append(_max_rel(_running_stats(card), _running_stats(cpu)))
+    graphs = s_card.programs
+    s_card.release()
+    return dict(width=c["width"], classes=c["num_classes"],
+                batch=c["batch"], size=c["size"], dtype="float32",
+                steps=YOLO_CHECK_STEPS,
+                started_from="the CPU step's state, each step",
+                loss_rel_diff=losses, params_max_rel=params,
+                running_stats_max_rel=stats, card_graphs=graphs,
+                max_rel=max(losses + params + stats), rtol=YOLO_CPU_RTOL)
+
+
+def yolo_train_gates(row):
+    """The yolo_train phase's failures, each a message (empty: ok)."""
+    bad = []
+    for size, cap in row["captured_vs_eager"].items():
+        if not (cap["losses_bit_equal"] and cap["params_bit_equal"]
+                and cap["buffers_bit_equal"]):
+            bad.append(f"the replay at {size} is not bit-equal to the "
+                       f"eager step: {cap}")
+    if row["graphs"] != len(YOLO_SIZES) or row["sentinel_events"] != 0:
+        bad.append(f"{row['graphs']} graphs and {row['sentinel_events']} "
+                   f"sentinel events for {len(YOLO_SIZES)} buckets")
+    if not row["card_vs_cpu"]["max_rel"] <= YOLO_CPU_RTOL:
+        bad.append(f"card and CPU differ: {row['card_vs_cpu']}")
+    if not all(math.isfinite(v) for v in row["losses"]):
+        bad.append(f"non-finite losses {row['losses']}")
+    if not all(0 < r["mfu"] < 1 for r in row["by_size"].values()):
+        bad.append("MFU outside (0, 1): " + str(
+            {k: r["mfu"] for k, r in row["by_size"].items()}))
+    if any(row["flash_launches"].values()) or row["nms_launches"]:
+        bad.append(f"the training path launched attention or NMS "
+                   f"kernels: {row['flash_launches']}, "
+                   f"{row['nms_launches']}")
+    return bad
+
+
+def yolo_train_phase(torch, pt, fa, nms):
+    """BASELINE config 4's training: YOLOv3() + Adam + TrainStep(O1 bf16)
+    over two size buckets (see the module's notes, phase 33). Returns
+    (row, model): the model, trained, goes on to yolo_serve."""
+    import numpy as np
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = _yolo(pt, "cuda")
+    macs = {s: sum(layer_macs(torch, model, (1, 3, s, s), "cuda").values())
+            for s in YOLO_SIZES}
+    step = _yolo_step(pt, model)
+    # one program a bucket is the contract: the sentinel fires past it
+    step.recompile_sentinel.observe(0, expected=len(YOLO_SIZES))
+    rng = np.random.RandomState(SEED)
+    data = {s: _yolo_on(torch, yolo_synth_batch(np, rng, YOLO_BATCH, s),
+                        "cuda") for s in YOLO_SIZES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa)
+    nms.launches["nms_greedy"] = 0
+    cap, losses = {}, []
+    for s in YOLO_SIZES:
+        x, y = data[s]
+        cap[s] = _yolo_graph_vs_eager(torch, step, model, x, y)
+        losses += cap[s]["graph_losses"]
+    peak = torch.cuda.max_memory_allocated()
+    for i in range(YOLO_ALTERNATE):
+        x, y = data[YOLO_SIZES[i % len(YOLO_SIZES)]]
+        losses.append(float(step(x, y)))
+    flash, nms_count = dict(fa.launches), nms.launches["nms_greedy"]
+    by_size = {}
+    for s in YOLO_SIZES:
+        x, y = data[s]
+        secs, last = _resnet_replays(torch, step, x, y, YOLO_WARMUP,
+                                    YOLO_STEPS)
+        prof = profile_step(torch, step, x, y)
+        step_ms = secs / YOLO_STEPS * 1e3
+        flops = train_flops(macs[s], YOLO_BATCH)
+        by_size[s] = dict(
+            step_ms=step_ms, images_per_s=YOLO_BATCH * YOLO_STEPS / secs,
+            device_ms_per_step=prof["device_ms"],
+            idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+            kernel_launches_per_replay=prof["events"],
+            macs_per_image=macs[s], flops_per_step=flops,
+            mfu=flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+            mfu_device=flops / (prof["device_ms"] / 1e3)
+            / PEAK_FLOPS["bfloat16"],
+            last_loss=last, profile=_profile_row(prof, top=12))
+    row = dict(card=nvidia_smi(), model="yolov3 (darknet-tiny, width 16)",
+               classes=YOLO_CLASSES, batch=YOLO_BATCH, sizes=YOLO_SIZES,
+               gt_slots=YOLO_SLOTS, amp="O1 bfloat16",
+               optimizer=f"Adam({YOLO_LR})",
+               params=sum(p.numel() for p in step.params),
+               captured_vs_eager=cap, graphs=step.programs,
+               captures=step.captures, replays=step.replays,
+               sentinel_events=step.recompile_sentinel.fired,
+               flash_launches=flash, nms_launches=nms_count,
+               losses=losses, warmup_steps=YOLO_WARMUP,
+               timed_steps=YOLO_STEPS, by_size=by_size,
+               peak_memory_bytes=peak, peak_above_base_bytes=peak - base)
+    step.release()
+    del step, data
+    torch.cuda.empty_cache()
+    row["card_vs_cpu"] = yolo_cpu_check(torch, pt)
+    row["seconds"] = time.perf_counter() - t0
+    emit({"yolo_train": row})
+    bad = yolo_train_gates(row)
+    if bad:
+        fail("yolo_train: " + "; ".join(bad))
+    return row, model
+
+
+def yolo_fit_sizes(np, n=YOLO_FIT_IMAGES, seed=SEED):
+    """n image sizes from YOLO_SCALES: half at the smallest (the 320
+    bucket holds only it), the rest uniform over the others."""
+    rest = len(YOLO_SCALES) - 1
+    p = [0.5] + [0.5 / rest] * rest
+    return [int(v) for v in np.random.RandomState(seed).choice(
+        YOLO_SCALES, size=n, p=p)]
+
+
+def yolo_pad_collate(np, buckets=tuple(sorted(YOLO_SIZES))):
+    """collate of (image [3, s, s], boxes [slots, 4], labels [slots])
+    samples: each image padded at the bottom and the right to the
+    smallest bucket that holds the batch's largest, its normalised cx,
+    cy, w, h scaled by s / canvas to stay on the same pixels."""
+    def collate(samples):
+        size = max(int(s[0].shape[-1]) for s in samples)
+        canvas = next(b for b in buckets if b >= size)
+        imgs = np.zeros((len(samples), 3, canvas, canvas), np.float32)
+        boxes = np.stack([s[1] for s in samples]).astype(np.float32)
+        labels = np.stack([s[2] for s in samples])
+        for i, (img, _, _) in enumerate(samples):
+            s = int(img.shape[-1])
+            imgs[i, :, :s, :s] = img
+            boxes[i] *= np.float32(s / canvas)
+        return imgs, boxes, labels
+    return collate
+
+
+def yolo_fit_gates(row):
+    bad = []
+    if row["graphs"] != len(YOLO_SIZES) or row["sentinel_events"] != 0:
+        bad.append(f"{row['graphs']} graphs and {row['sentinel_events']} "
+                   "sentinel events")
+    if not row["losses"] or not all(math.isfinite(v) for v in row["losses"]):
+        bad.append(f"fit's losses {row['losses']}")
+    if not math.isfinite(row["eval_loss"]):
+        bad.append(f"evaluate's loss {row['eval_loss']}")
+    if row["batches"] != row["expected_batches"]:
+        bad.append(f"{row['batches']} batches, the sampler has "
+                   f"{row['expected_batches']}")
+    return bad
+
+
+def yolo_fit_phase(torch, pt, train_row):
+    """hapi.Model.fit over io.DataLoader and io.BucketBatchSampler (see
+    the module's notes, phase 34)."""
+    import numpy as np
+    from paddle_tpu_torch import hapi, io
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.static import InputSpec
+    t0 = time.perf_counter()
+    sizes = yolo_fit_sizes(np)
+
+    class Images(io.Dataset):
+        """Image i: YOLO_FIT_IMAGES synthetic images made in the loader's
+        workers from numpy seed SEED + 1 + i."""
+
+        def __len__(self):
+            return len(sizes)
+
+        def __getitem__(self, i):
+            rng = np.random.RandomState(SEED + 1 + i)
+            imgs, box, lbl = yolo_synth_batch(np, rng, 1, sizes[i])
+            return imgs[0], box[0], lbl[0]
+
+    sampler = io.BucketBatchSampler(lengths=sizes,
+                                    boundaries=sorted(YOLO_SIZES),
+                                    batch_size=YOLO_BATCH, drop_last=True)
+    loader = io.DataLoader(Images(), batch_sampler=sampler,
+                           collate_fn=yolo_pad_collate(np), num_workers=2)
+    net = _yolo(pt, "cuda")
+    model = hapi.Model(
+        net, inputs=[InputSpec([None, 3, None, None], "float32", "img")],
+        labels=[InputSpec([None, YOLO_SLOTS, 4], "float32", "gt_box"),
+                InputSpec([None, YOLO_SLOTS], "int32", "gt_label")])
+    model.prepare(Adam(learning_rate=YOLO_LR, parameters=net.parameters()),
+                  loss=lambda p5, p4, p3, box, lbl: net.loss((p5, p4, p3),
+                                                             box, lbl),
+                  amp_configs="O1")
+    step = model._train_step
+    step.recompile_sentinel.observe(0, expected=len(YOLO_SIZES))
+    marks = []
+
+    class Clock(hapi.Callback):
+        def on_train_begin(self, logs=None):
+            marks.append((time.perf_counter(), step.captures, None))
+
+        def on_train_batch_end(self, n, logs=None):
+            marks.append((time.perf_counter(), step.captures,
+                          logs["loss"][0]))
+
+    fit_t0 = time.perf_counter()
+    model.fit(loader, epochs=1, verbose=0, callbacks=[Clock()])
+    fit_s = time.perf_counter() - fit_t0
+    replay_s = sum(b[0] - a[0] for a, b in zip(marks, marks[1:])
+                   if b[1] == a[1])
+    replays = sum(1 for a, b in zip(marks, marks[1:]) if b[1] == a[1])
+    ev = model.evaluate(loader, verbose=0)
+    row = dict(images=len(sizes), sizes_drawn={s: sizes.count(s)
+                                               for s in sorted(set(sizes))},
+               buckets=sorted(YOLO_SIZES), batch=YOLO_BATCH, workers=2,
+               batches=len(marks) - 1, expected_batches=len(sampler),
+               losses=[m[2] for m in marks[1:]], graphs=step.programs,
+               captures=step.captures,
+               sentinel_events=step.recompile_sentinel.fired,
+               fit_seconds=fit_s,
+               fit_images_per_s_replayed=(YOLO_BATCH * replays / replay_s
+                                          if replay_s else None),
+               replayed_batches=replays, eval_loss=ev["loss"][0],
+               train_images_per_s={s: train_row["by_size"][s]
+                                   ["images_per_s"] for s in YOLO_SIZES})
+    step.release()
+    del model, net, step
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    emit({"yolo_fit": row})
+    bad = yolo_fit_gates(row)
+    if bad:
+        fail("yolo_fit: " + "; ".join(bad))
+    return row
+
+
+def yolo_serve_gates(row):
+    bad = []
+    if row["launches_per_hard_predict"] != 1:
+        bad.append(f"a hard predict launched the NMS kernel "
+                   f"{row['launches_per_hard_predict']} times")
+    cmp = row["kernel_vs_plain"]
+    if not all(cmp[k] for k in ("masks_bit_equal", "rows_bit_equal",
+                                "counts_bit_equal", "index_bit_equal")):
+        bad.append(f"the NMS kernel's outputs differ from the plain "
+                   f"version's: {cmp}")
+    if not row["finite"]:
+        bad.append("non-finite detections")
+    if any(row["flash_launches"].values()):
+        bad.append(f"serving launched attention kernels: "
+                   f"{row['flash_launches']}")
+    return bad
+
+
+def yolo_serve_phase(torch, pt, fa, nms, model):
+    """YOLOv3 serving (see the module's notes, phase 35)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import detection as det
+    t0 = time.perf_counter()
+    c = YOLO_SERVE
+    model.eval()
+    rng = np.random.RandomState(SEED + 7)
+    x = torch.from_numpy(rng.randn(c["batch"], 3, c["size"], c["size"])
+                         .astype(np.float32) * 0.1).cuda()
+    im = torch.full((c["batch"], 2), c["size"], dtype=torch.int32,
+                    device="cuda")
+    kw = dict(conf_thresh=c["conf_thresh"], nms_threshold=c["nms_threshold"],
+              keep_top_k=c["keep_top_k"])
+    with torch.no_grad():
+        outs = model(x)
+        torch.cuda.synchronize()
+        _zero(fa)
+        nms.launches["nms_greedy"] = 0
+        dets, counts = model.predict(outs, im, nms_type="hard", **kw)
+        torch.cuda.synchronize()
+        launches = nms.launches["nms_greedy"]
+        flash = dict(fa.launches)
+        mdets, mcounts = model.predict(outs, im, nms_type="matrix", **kw)
+        allb, alls = model.decode(outs, im, c["conf_thresh"])
+        s, _, b, _ = det._per_class(allb, alls, c["nms_top_k"])
+        sm = torch.where(s > c["conf_thresh"], s,
+                         torch.full((), float("-inf"), device="cuda"))
+        keep_k = nms.greedy_nms_mask(b, sm, c["nms_threshold"], False, 1.0)
+        keep_p = nms.greedy_nms_mask_plain(b, sm, c["nms_threshold"], False,
+                                           1.0)
+        mc = dict(score_threshold=c["conf_thresh"],
+                  nms_threshold=c["nms_threshold"],
+                  keep_top_k=c["keep_top_k"], nms_top_k=c["nms_top_k"],
+                  background_label=-1, normalized=False, return_index=True)
+        out_k = det.multiclass_nms(allb, alls, **mc)
+        kernel_fn = det.greedy_nms_mask
+        det.greedy_nms_mask = nms.greedy_nms_mask_plain
+        try:
+            out_p = det.multiclass_nms(allb, alls, **mc)
+        finally:
+            det.greedy_nms_mask = kernel_fn
+        valid = (sm > float("-inf")).sum(-1).flatten().tolist()
+        bound, by, pairs, nbytes = nms_bound(valid, sm.shape[-1])
+        ms = dict(
+            forward=time_ms(lambda: model(x), reps=10),
+            decode=time_ms(lambda: model.decode(outs, im,
+                                                c["conf_thresh"]), reps=10),
+            per_class_top_k=time_ms(lambda: det._per_class(
+                allb, alls, c["nms_top_k"]), reps=10),
+            nms_kernel=time_ms(lambda: nms.greedy_nms_mask(
+                b, sm, c["nms_threshold"], False, 1.0), reps=20),
+            nms_plain=time_ms(lambda: nms.greedy_nms_mask_plain(
+                b, sm, c["nms_threshold"], False, 1.0), reps=2, warmup=1),
+            multiclass_nms=time_ms(lambda: det.multiclass_nms(
+                allb, alls, **mc), reps=10),
+            matrix_nms=time_ms(lambda: det.matrix_nms(
+                allb, alls, score_threshold=c["conf_thresh"],
+                post_threshold=c["conf_thresh"],
+                keep_top_k=c["keep_top_k"], background_label=-1,
+                normalized=False), reps=5),
+            predict_hard=time_ms(lambda: model.predict(
+                outs, im, nms_type="hard", **kw), reps=10),
+            predict_matrix=time_ms(lambda: model.predict(
+                outs, im, nms_type="matrix", **kw), reps=5))
+    ms["hard_total_with_forward"] = ms["forward"] + ms["predict_hard"]
+    row = dict(card=nvidia_smi(), batch=c["batch"], size=c["size"],
+               config=c, candidates=int(alls.shape[-1]),
+               problems=int(s.shape[0] * s.shape[1]), k=int(s.shape[-1]),
+               valid_per_problem=sum(valid) / len(valid),
+               launches_per_hard_predict=launches, flash_launches=flash,
+               detections_hard=counts.tolist(),
+               detections_matrix=mcounts.tolist(),
+               finite=bool(torch.isfinite(dets).all()
+                           and torch.isfinite(mdets).all()),
+               ms_per_batch=ms,
+               kernel_vs_plain=dict(
+                   masks_bit_equal=torch.equal(keep_k, keep_p),
+                   mismatches=int((keep_k != keep_p).sum()),
+                   rows_bit_equal=torch.equal(out_k[0], out_p[0]),
+                   counts_bit_equal=torch.equal(out_k[1], out_p[1]),
+                   index_bit_equal=torch.equal(out_k[2], out_p[2])),
+               nms_bound_ms=bound, nms_bound_by=by, nms_iou_tests=pairs,
+               nms_bytes=nbytes, seconds=time.perf_counter() - t0)
+    emit({"yolo_serve": row})
+    bad = yolo_serve_gates(row)
+    if bad:
+        fail("yolo_serve: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -5415,6 +6003,7 @@ def main():
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import nms
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -5443,6 +6032,7 @@ def main():
     bwd_cases = bwd_kernel_phase(torch, fa, philox)
     probes = mask_probe_phase(torch, fa)
     host_cost_phase(torch, fa)
+    nms_cases = nms_kernel_phase(torch, nms)
     _zero(fa)
     rows, launches_inf, launches_f32 = main_path(torch, pt, fa)
     train = train_path(torch, pt, fa)
@@ -5495,12 +6085,19 @@ def main():
     torch.cuda.empty_cache()
     resnet = resnet_train_phase(torch, pt, fa)
     torch.cuda.empty_cache()
+    yolo, yolo_model = yolo_train_phase(torch, pt, fa, nms)
+    yolo_fit_phase(torch, pt, yolo)
+    serve = yolo_serve_phase(torch, pt, fa, nms, yolo_model)
+    del yolo_model
+    torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
                      "of this run succeeded, the kernels' host calls "
                      "(sm_count, tensor-map encoding, "
-                     "cudaFuncSetAttribute) included",
+                     "cudaFuncSetAttribute) included; yolo_fit's "
+                     "DataLoader makes its CUDA calls on the consumer's "
+                     "thread, between steps, never inside a capture",
         tensor_maps="encoded once at capture over the graph pool's "
                     "addresses; held by the graph-vs-eager checks, "
                     "bit-equal: " + ", ".join(captured),
@@ -5537,7 +6134,9 @@ def main():
                        sp["ulysses"]["launches_per_step"][k],
                    "sp_ring_per_step": sp["ring"]["launches_per_step"][k],
                    "pipeline_training": pipe["path_launches"][k],
-                   "resnet_training": resnet["flash_launches"][k]}
+                   "resnet_training": resnet["flash_launches"][k],
+                   "yolo_training": yolo["flash_launches"][k],
+                   "yolo_serving": serve["flash_launches"][k]}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1
@@ -5607,6 +6206,27 @@ def main():
                  "kernel")
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
+    # greedy NMS: no Pallas origin; at the serving path's shape (640
+    # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates
+    # of a YOLOv3 batch of 8 at 608)
+    kernels.append(dict(
+        name="nms_greedy", route="cuda",
+        source="paddle_tpu_torch/csrc/nms.cu",
+        replaces="none: no Pallas kernel (the XLA fori_loop of "
+                 "paddle_tpu/ops/detection.py:488 _greedy_nms_mask)",
+        launches=serve["launches_per_hard_predict"],
+        max_abs_err=float(serve["kernel_vs_plain"]["mismatches"]),
+        ms=serve["ms_per_batch"]["nms_kernel"],
+        plain_ms=serve["ms_per_batch"]["nms_plain"],
+        bound_ms=serve["nms_bound_ms"], bound_by=serve["nms_bound_by"],
+        library_ms=None,
+        shape=f"{serve['problems']} problems x K {serve['k']}, pixel boxes, "
+              "eta 1.0 (YOLOv3 serving, batch 8 at 608)",
+        launches_by_path={"yolo_training": yolo["nms_launches"],
+                          "yolo_serving": serve["launches_per_hard_predict"]},
+        cases=nms_cases))
+    if serve["launches_per_hard_predict"] == 0:
+        fail("the serving path launched no nms_greedy kernel")
     emit({"kernels": kernels, "philox": "paddle_tpu_torch/csrc/philox.cuh "
           "replaces paddle_tpu/ops/pallas_kernels.py:157 (inside all three)",
           "mask_probes": probes + gpt_probes + [pipe_probe],

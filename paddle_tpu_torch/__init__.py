@@ -30,15 +30,20 @@ signature (the kernels read their dropout seed from device memory), with
 remat (distributed.recompute) and the JAX package's ten optimizers.
 The vision path: conv, pooling, BatchNorm (running statistics carried
 through the captured step) and the vision.models zoo, with ResNet-50
-trained through the captured TrainStep.
+trained through the captured TrainStep. Detection: models.YOLOv3 with
+the YOLO and NMS ops (ops.detection; greedy NMS is a hand-written
+kernel, ops.nms), interpolate, and the training surface PaddleDetection-
+and PaddleClas-shaped users drive: io (datasets, samplers, DataLoader),
+metric, jit.InputSpec and hapi.Model (fit, evaluate, predict).
 """
-from . import (amp, core, device, distributed, models, nn,  # noqa: F401
-               observability, ops, optimizer, quant, serving, static,
-               vision)
+from . import (amp, core, device, distributed, hapi, io, jit,  # noqa: F401
+               metric, models, nn, observability, ops, optimizer, quant,
+               serving, static, vision)
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
 from .core.generator import seed  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          is_compiled_with_cuda, set_device)
 from .framework import Parameter, Tensor, no_grad, to_tensor  # noqa: F401
+from .hapi import Model  # noqa: F401
 
 __version__ = "0.1.0"

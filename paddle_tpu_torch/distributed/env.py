@@ -16,12 +16,16 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _state = threading.local()
 _global_mesh: Optional["Mesh"] = None
+# every Mesh that holds process groups, so that a teardown can drop them
+# (parallel.py _destroy_at_exit) wherever a Mesh is still referenced
+_meshes_with_groups: "weakref.WeakSet" = weakref.WeakSet()
 
 # the canonical axis names, the reference's parallelism taxonomy
 DATA_AXIS = "dp"
@@ -82,6 +86,12 @@ class Mesh:
                 kind, sizes, mesh_dim_names=self.axis_names)
             for name in self.axis_names:
                 self._groups[name] = self.device_mesh.get_group(name)
+            _meshes_with_groups.add(self)
+
+    def _drop_groups(self):
+        """Forget this mesh's process groups (after they are destroyed)."""
+        self._groups.clear()
+        self.device_mesh = None
 
     def __contains__(self, axis) -> bool:
         return axis in self.shape

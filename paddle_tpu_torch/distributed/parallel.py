@@ -16,6 +16,7 @@ from __future__ import annotations
 import atexit
 import os
 import socket
+import time
 from typing import Optional
 
 import torch
@@ -82,14 +83,66 @@ def start_process_group(backend: Optional[str] = None):
     atexit.register(_destroy_at_exit)
 
 
+#: seconds a rank waits at exit for its peers (to arrive, and, on the rank
+#: that serves the store, to leave) before it tears down anyway: a peer
+#: that crashed never arrives
+EXIT_WAIT_S = 60.0
+
+
+def _store_count(store, key, add, expect, deadline):
+    """Add `add` to the store counter `key`, then wait until it reaches
+    `expect` or `deadline` passes; True when it reached it."""
+    n = store.add(key, add)
+    while n < expect and time.monotonic() < deadline:
+        time.sleep(0.005)
+        n = store.add(key, 0)
+    return n >= expect
+
+
 def _destroy_at_exit():
-    """Tear the process group down before the interpreter does: left to
-    interpreter shutdown, a gloo group's threads can still be running
-    when its destructor runs, which aborts the process ("terminate
-    called without an active exception") after its work is done."""
+    """Tear every process group down, threads and all, while the
+    interpreter is still whole.
+
+    destroy_process_group() only takes the groups out of torch's
+    registry. A gloo group's C++ object, and with it its threads (a tcp
+    loop and two workers a group, plus the store's server on rank 0),
+    lives on while anything references it: the global mesh, every Mesh
+    built over the world, the Groups of new_group, a TrainStep's or a
+    DataParallel's groups held in a cycle. Those references died only in
+    interpreter finalization, where the groups' destructors ran in
+    whatever order teardown reached them, with their threads still
+    running: now and then, under load, that aborted a rank whose work
+    was done ("terminate called without an active exception", exit 250
+    from the launcher). So: every rank arrives (a counter in the world's
+    store) before any rank destroys its groups; the groups are destroyed,
+    the port's references to them dropped and the cycles collected, which
+    joins their threads here; and the rank that serves the store leaves
+    last, once every rank has counted itself out."""
+    import gc
+
     import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    from torch.distributed import distributed_c10d as c10d
+    from . import collective, env
+    world, rank = dist.get_world_size(), dist.get_rank()
+    store = c10d._get_default_store() if world > 1 else None
+    deadline = time.monotonic() + EXIT_WAIT_S
+    if store is not None:
+        _store_count(store, "paddle_tpu_torch/exit/arrived", 1, world,
+                     deadline)
+    dist.destroy_process_group()
+    env.set_mesh(None)
+    for mesh in list(env._meshes_with_groups):
+        mesh._drop_groups()
+    for g in collective._groups.values():
+        g.pg = None
+    gc.collect()
+    if store is not None:
+        _store_count(store, "paddle_tpu_torch/exit/left", 1,
+                     world if rank == 0 else 0, deadline)
+        del store
+        gc.collect()
 
 
 def init_parallel_env(mesh_shape=None, backend: Optional[str] = None):

@@ -5,3 +5,4 @@ from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForPretraining,  # noqa: 
                     ErnieStageFirst, ErnieStageLast, ErnieStageMiddle,
                     ernie_pipeline_stages)
 from .gpt import GPTBlock, GPTConfig, GPTForCausalLM, GPTModel  # noqa: F401
+from .yolo import DarkNetTiny, YOLOv3, yolov3_default_anchors  # noqa: F401

@@ -1004,6 +1004,200 @@ def test_max_rel_is_relative_to_the_reference_above_one(cs):
     assert cs._max_rel(a, b) == 0.25
 
 
+# -- yolo_train, yolo_fit, yolo_serve and the NMS kernel ----------------------
+
+# YOLOv3() at its defaults: every convolution's multiply-adds an image,
+# counted from the model's shapes (21 convolutions)
+YOLO_MACS = {608: 4_742_881_536, 320: 1_313_817_600}
+
+
+def test_yolov3_macs_are_counted_from_the_shapes(cs):
+    import torch
+    from paddle_tpu_torch.models import YOLOv3
+    model = YOLOv3(device="cpu")
+    for size, want in YOLO_MACS.items():
+        macs = cs.layer_macs(torch, model, (1, 3, size, size), "cpu")
+        assert len(macs) == 21 and sum(macs.values()) == want
+    # the stem: 608 x 608 outputs x 16 channels x 3 inputs x 9 taps
+    assert cs.layer_macs(torch, model, (1, 3, 608, 608), "cpu")[
+        "backbone.stem.conv"] == 608 * 608 * 16 * 27
+
+
+def test_yolo_synth_batch_is_train_yolos_draw(cs):
+    import numpy as np
+    imgs, box, lbl = cs.yolo_synth_batch(np, np.random.RandomState(0), 8,
+                                         320)
+    assert imgs.shape == (8, 3, 320, 320) and box.shape == (8, 50, 4)
+    valid = (box[..., 2] > 0).sum(1)
+    assert valid.min() >= 1 and valid.max() <= cs.YOLO_MAX_VALID
+    v = box[box[..., 2] > 0]
+    assert (v[:, 2:] >= 0.1).all() and (v[:, 2:] <= 0.5).all()
+    assert (v[:, 0] - v[:, 2] / 2 >= 0).all() and \
+        (v[:, 0] + v[:, 2] / 2 <= 1).all()
+    assert lbl.dtype == np.int32 and lbl.max() < cs.YOLO_CLASSES
+    assert not box[box[..., 2] == 0].any()
+
+
+def test_yolo_fit_sizes_fill_both_buckets(cs):
+    import numpy as np
+    sizes = cs.yolo_fit_sizes(np)
+    assert len(sizes) == cs.YOLO_FIT_IMAGES
+    assert set(sizes) <= set(cs.YOLO_SCALES)
+    small = sum(1 for s in sizes if s <= 320)
+    assert small >= cs.YOLO_BATCH and len(sizes) - small >= cs.YOLO_BATCH
+
+
+def test_yolo_pad_collate_pads_and_rescales(cs):
+    import numpy as np
+    collate = cs.yolo_pad_collate(np)
+    img = np.ones((3, 352, 352), np.float32)
+    box = np.zeros((50, 4), np.float32)
+    box[0] = [0.5, 0.25, 0.2, 0.4]
+    lbl = np.zeros(50, np.int32)
+    small = (np.ones((3, 320, 320), np.float32), box.copy(), lbl)
+    imgs, boxes, labels = collate([(img, box, lbl), small])
+    # 352 needs the 608 canvas; the image sits at the top left
+    assert imgs.shape == (2, 3, 608, 608)
+    assert imgs[0, :, :352, :352].all() and not imgs[0, :, 352:].any()
+    # the same pixels: a normalised coordinate scales by 352 / 608
+    np.testing.assert_allclose(boxes[0, 0],
+                               np.float32(352 / 608) * box[0], rtol=1e-7)
+    assert not boxes[:, 1:].any()
+    imgs, boxes, _ = collate([small, small])
+    assert imgs.shape == (2, 3, 320, 320)
+    np.testing.assert_array_equal(boxes[0], box)
+
+
+def test_nms_candidates_are_sorted_with_an_invalid_tail(cs):
+    import numpy as np
+    boxes, scores = cs.nms_candidates(np, np.random.RandomState(0), 3, 40,
+                                      False)
+    assert boxes.shape == (3, 40, 4) and scores.shape == (3, 40)
+    assert (np.diff(scores[:, :28], axis=-1) <= 0).all()
+    assert np.isneginf(scores[:, 28:]).all()
+    assert np.isfinite(scores[:, :28]).all()
+    assert (boxes[..., 2:] > boxes[..., :2]).all()
+    assert boxes.max() < 608 * 1.2
+
+
+def test_nms_bound_counts_the_valid_pairs(cs):
+    bound, by, pairs, nbytes = cs.nms_bound([400] * 640, 400)
+    assert pairs == 640 * 400 * 399 // 2
+    assert nbytes == 640 * 400 * 21
+    assert by == "operations"
+    assert bound == pytest.approx(pairs * 15 / 67e12 * 1e3)
+    # no valid candidate: only the bytes
+    bound, by, pairs, _ = cs.nms_bound([0, 1], 400)
+    assert pairs == 0 and by == "bytes"
+
+
+def test_nms_kernel_case_on_the_cpu(cs, monkeypatch):
+    """_nms_case with the plain version on both sides and a host
+    clock: the row's fields and the bound."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import nms
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps, warmup=2: 1.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    boxes, scores = cs.nms_candidates(np, np.random.RandomState(1), 4, 30,
+                                      True)
+    row = cs._nms_case(torch, nms, torch.from_numpy(boxes),
+                       torch.from_numpy(scores), True, 0.7, 0.9)
+    assert row["masks_bit_equal"] and row["mismatches"] == 0
+    assert row["problems"] == 4 and row["k"] == 30
+    assert row["valid_per_problem"] == 21 and 0 < row["kept"] < 84
+    assert row["iou_tests"] == 4 * 21 * 20 // 2
+    assert (row["iou_threshold"], row["eta"]) == (0.7, 0.9)
+    # the decay of eta 0.9 applies above 0.5: it keeps fewer boxes
+    plain = cs._nms_case(torch, nms, torch.from_numpy(boxes),
+                         torch.from_numpy(scores), True, 0.7, 1.0)
+    assert row["kept"] < plain["kept"]
+
+
+def _yolo_row():
+    ok = dict(losses_bit_equal=True, params_bit_equal=True,
+              buffers_bit_equal=True)
+    return dict(captured_vs_eager={608: dict(ok), 320: dict(ok)},
+                graphs=2, sentinel_events=0, card_vs_cpu=dict(max_rel=1e-5),
+                losses=[900.0, 850.0], by_size={608: dict(mfu=0.02),
+                                                320: dict(mfu=0.01)},
+                flash_launches={"flash_attn_fwd": 0}, nms_launches=0)
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("replay", "bit-equal"), ("graphs", "graphs"),
+    ("sentinel", "sentinel"), ("cpu", "CPU"), ("loss", "losses"),
+    ("mfu", "MFU"), ("nms", "NMS")])
+def test_yolo_train_gates_name_each_failure(cs, breakage, word):
+    row = _yolo_row()
+    if breakage == "replay":
+        row["captured_vs_eager"][320]["params_bit_equal"] = False
+    elif breakage == "graphs":
+        row["graphs"] = 3
+    elif breakage == "sentinel":
+        row["sentinel_events"] = 1
+    elif breakage == "cpu":
+        row["card_vs_cpu"]["max_rel"] = 2e-3
+    elif breakage == "loss":
+        row["losses"] = [900.0, float("inf")]
+    elif breakage == "mfu":
+        row["by_size"][608]["mfu"] = 0.0
+    elif breakage == "nms":
+        row["nms_launches"] = 1
+    bad = cs.yolo_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("graphs", "graphs"), ("loss", "fit"),
+    ("eval", "evaluate"), ("batches", "batches")])
+def test_yolo_fit_gates_name_each_failure(cs, breakage, word):
+    row = dict(graphs=2, sentinel_events=0, losses=[900.0, 870.0],
+               eval_loss=860.0, batches=7, expected_batches=7)
+    if breakage == "graphs":
+        row["graphs"] = 1
+    elif breakage == "loss":
+        row["losses"] = [float("nan")]
+    elif breakage == "eval":
+        row["eval_loss"] = float("nan")
+    elif breakage == "batches":
+        row["batches"] = 6
+    bad = cs.yolo_fit_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("launches", "launched the NMS kernel"),
+    ("index", "outputs differ"), ("finite", "non-finite"),
+    ("flash", "attention")])
+def test_yolo_serve_gates_name_each_failure(cs, breakage, word):
+    row = dict(launches_per_hard_predict=1, finite=True,
+               flash_launches={"flash_attn_fwd": 0},
+               kernel_vs_plain=dict(masks_bit_equal=True,
+                                    rows_bit_equal=True,
+                                    counts_bit_equal=True,
+                                    index_bit_equal=True))
+    if breakage == "launches":
+        row["launches_per_hard_predict"] = 0
+    elif breakage == "index":
+        row["kernel_vs_plain"]["index_bit_equal"] = False
+    elif breakage == "finite":
+        row["finite"] = False
+    elif breakage == "flash":
+        row["flash_launches"]["flash_attn_fwd"] = 12
+    bad = cs.yolo_serve_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
 def test_no_top_level_name_is_defined_twice():
     """A phase's helper must not shadow another's: the later def wins
     for every caller (call 14c failed in dp_train on a second

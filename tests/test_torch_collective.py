@@ -19,6 +19,7 @@ shard_map's arrays, the groups of a two-axis mesh give the expected
 sums, and a JAX rank 0
 bootstraps a port peer through rendezvous (and the other way round).
 """
+import json
 import os
 import pickle
 import signal
@@ -73,6 +74,32 @@ def _sp_body(c, a):
 
 # -- the rank side: torch and the port only -----------------------------------
 
+def _os_threads():
+    """The names of this process's OS threads (gloo names its tcp loop
+    and workers, the store its server thread)."""
+    names = []
+    for t in sorted(os.listdir("/proc/self/task")):
+        try:
+            with open(f"/proc/self/task/{t}/comm") as f:
+                names.append(f.read().strip())
+        except OSError:
+            pass
+    return names
+
+
+def _record_threads_at_exit(out_dir, rank):
+    """At interpreter exit, after the port's teardown (atexit runs its
+    handlers last in, first out, and this one is registered before the
+    process group starts), write the threads still alive."""
+    import atexit
+    import json
+
+    def write():
+        with open(os.path.join(out_dir, f"threads{rank}.json"), "w") as f:
+            json.dump(_os_threads(), f)
+    atexit.register(write)
+
+
 def _rank_main(out_dir):
     """One rank: every call of _body, then the world group, shard_parallel,
     an explicit group and a two-axis mesh; the results pickled."""
@@ -85,9 +112,11 @@ def _rank_main(out_dir):
     torch.set_num_threads(1)
     pt.set_device("cpu")
     n = int(os.environ["WORLD_SIZE"])
+    _record_threads_at_exit(out_dir, int(os.environ["RANK"]))
     dist.init_parallel_env()
     rank = dist.get_rank()
-    res = {"rank": rank, "world": dist.get_world_size()}
+    res = {"rank": rank, "world": dist.get_world_size(),
+           "threads_in_work": _os_threads()}
     g = _inputs(n)
     x = torch.from_numpy(g["x"][rank * 4:(rank + 1) * 4])
     r = torch.from_numpy(g["r"])
@@ -170,6 +199,8 @@ def launch_ranks(n, out_dir, timeout=120):
     for r in range(n):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
+        with open(os.path.join(out_dir, f"threads{r}.json")) as f:
+            out[-1]["threads_at_exit"] = json.load(f)
     return out
 
 
@@ -320,6 +351,22 @@ def test_two_axis_mesh_groups(ranks):
             2 * h + chip + 1 for h in range(n // 2)))] * 2
         assert list(rep["chip_sum"]) == [float(4 * host + 3)] * 2
         np.testing.assert_array_equal(rep["sp2"], want)
+
+
+def test_exit_teardown_joins_every_gloo_thread(ranks):
+    """The rank left its groups, a mesh over two axes and a new_group in
+    its globals and module state. The exit teardown
+    (distributed/parallel.py _destroy_at_exit) destroys the groups and
+    drops those references, so by the time the interpreter finalizes no
+    gloo thread and no store thread is left: threads that outlived the
+    teardown were what aborted a finished rank under load."""
+    _, reports = ranks
+    for rep in reports:
+        during = rep["threads_in_work"]
+        assert any("gloo" in t for t in during), during
+        left = [t for t in rep["threads_at_exit"]
+                if "gloo" in t or "tcpstore" in t]
+        assert not left, (rep["rank"], rep["threads_at_exit"])
 
 
 def test_identity_at_world_size_one():

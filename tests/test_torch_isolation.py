@@ -80,7 +80,15 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.distributed.fleet.meta_optimizers, "
         "paddle_tpu_torch.distributed.fleet.metrics, "
         "paddle_tpu_torch.distributed.fleet.metrics.metric, "
-        "paddle_tpu_torch.distributed.fleet.utils.fs\n"
+        "paddle_tpu_torch.distributed.fleet.utils.fs, "
+        "paddle_tpu_torch.io, paddle_tpu_torch.io.dataset, "
+        "paddle_tpu_torch.io.sampler, paddle_tpu_torch.io.dataloader, "
+        "paddle_tpu_torch.metric, paddle_tpu_torch.jit, "
+        "paddle_tpu_torch.jit.api, paddle_tpu_torch.hapi, "
+        "paddle_tpu_torch.hapi.model, paddle_tpu_torch.hapi.callbacks, "
+        "paddle_tpu_torch.hapi.summary, paddle_tpu_torch.ops.detection, "
+        "paddle_tpu_torch.ops.nms, paddle_tpu_torch.models.yolo, "
+        "paddle_tpu_torch.vision.ops\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -170,6 +178,30 @@ def test_gpt_and_serving_need_cuda_unless_asked_for_the_cpu():
     assert "POOL cpu cpu" in out
     assert "OUT [[" in out
     assert "DEV cpu" in out
+
+
+def test_yolo_and_the_loader_need_cuda_unless_asked_for_the_cpu():
+    """YOLOv3 and a DataLoader's batches go to the card by default and
+    raise without one; asked for the CPU, hapi.Model fits and predicts
+    there, and hard NMS takes the plain version (no kernel launch)."""
+    out = _run(
+        "import numpy as np, torch, paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import YOLOv3\n"
+        "from paddle_tpu_torch.io import DataLoader, TensorDataset\n"
+        "from paddle_tpu_torch.ops import nms\n"
+        "data = TensorDataset([np.zeros((4, 3), np.float32)])\n"
+        "for fn in (lambda: YOLOv3(num_classes=2, width=2), "
+        "lambda: next(iter(DataLoader(data, batch_size=2)))):\n"
+        "    try:\n"
+        "        fn()\n"
+        "        raise SystemExit('no error without CUDA')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'set_device' in str(e), e\n"
+        "m = YOLOv3(num_classes=2, width=2, device='cpu').eval()\n"
+        "outs = m(torch.zeros(1, 3, 32, 32))\n"
+        "d, c = m.predict(outs, torch.tensor([[32, 32]]))\n"
+        "print('DET', tuple(d.shape), d.device.type, nms.launches)\n")
+    assert "DET (1, 100, 6) cpu {'nms_greedy': 0}" in out
 
 
 _IMPORT = re.compile(
