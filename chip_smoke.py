@@ -428,6 +428,38 @@ Phases, each of which fails the run on any mismatch:
    the kernel's keep mask, and multiclass_nms's rows, counts and
    indices, are bit-equal to the plain version's.
 
+36. The op library on the card (`ops_card`, after `yolo_serve`): every
+   case of tests/torch_ops_cases.py (the parity table that
+   tests/test_torch_ops_*.py hold against the JAX package on the CPU:
+   creation, math, manipulation, logic, search, stat and the in-place
+   forms) run by the port on the card and on the CPU, the outputs and
+   the gradients of sum(out * w) compared at the table's tolerances
+   (f32 elementwise 1e-6 x max(1, |ref|), reductions 1e-5, integers and
+   bools exact); every tensor output must be on the card, the creation
+   ops' included (the current place is the card). Each random op draws
+   on the card, in the shape asked for, and paddle.seed reproduces it.
+   The worst error over its limit is printed per tolerance class.
+
+37. BASELINE config 1 (`mnist_dygraph`): LeNet at its own widths on
+   vision.datasets.MNIST at MNIST's sizes (60000 train and 10000 test
+   synthetic 1x28x28 images, transforms.Normalize(127.5, 127.5)),
+   batch 64, optimizer.Adam(1e-3), random weights from SEED. The eager
+   loop as Paddle users write it (io.DataLoader, paddle.reshape,
+   F.cross_entropy, paddle.mean, backward, step, clear_grad) for one
+   epoch, its first 20 losses against the same 20 steps on the CPU from
+   the same weights and batches (MNIST_PARITY_RTOL, TF32 off); the test
+   accuracy under no_grad (paddle.argmax, and paddle.metric.accuracy
+   batch by batch) must beat tests/test_models_hapi.py:108's bar (0.5);
+   paddle.save/paddle.load of the state dict must give a model whose
+   outputs are bit-equal. Then hapi.Model(LeNet()).fit(train, epochs=1,
+   batch_size=64) (the captured TrainStep: 2 graphs, the last batch
+   holding 32 images) and evaluate, over the same bar. Recorded beside
+   the card's name and power limit: images/s of the eager epoch and of
+   fit (host clock, data loading included), and one eager step's device
+   time by category (device_profile over 20 steps at a fixed batch)
+   beside its step time, the idle share. The path launches none of the
+   port's own kernels (counted from 0 across the phase).
+
 Output: a JSON line per phase; then the
 `kernels` line, the card's nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
@@ -5947,6 +5979,343 @@ def yolo_serve_phase(torch, pt, fa, nms, model):
     return row
 
 
+OPS_CASES = os.path.join("tests", "torch_ops_cases.py")
+
+
+def load_ops_cases():
+    """tests/torch_ops_cases.py (numpy only): the op library's parity
+    table, the one tests/test_torch_ops_*.py hold against the JAX
+    package on the CPU."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_ops_cases", os.path.join(REPO, OPS_CASES))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _leaves(out):
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in _leaves(o)]
+    return [out]
+
+
+def ops_case_run(torch, pt, cases, case, device):
+    """One case of the table through the port on `device` (the current
+    place set to it, so the creation ops land there too): the outputs as
+    numpy, each tensor output's device type and, for a differentiable
+    case, the gradients of sum(out * w) (w drawn after the inputs from
+    the case's generator, as the CPU tests draw it)."""
+    import numpy as np
+    args, kwargs, rng = case.inputs()
+    grads = [] if case.grad else None
+
+    def conv(v):
+        if isinstance(v, cases.ARG):
+            return v.value
+        if isinstance(v, list):
+            return [conv(a) for a in v]
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(np.array(v)).to(device)
+            if grads is not None and v.dtype == np.float32:
+                t.requires_grad_(True)
+                grads.append(t)
+            return t
+        return v
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().resolve_conj().resolve_neg().numpy()
+        return np.asarray(x)
+    pt.set_device(device)
+    out = getattr(pt, case.fn)(*[conv(v) for v in args],
+                               **{n: conv(v) for n, v in kwargs.items()})
+    leaves = _leaves(out)
+    res = dict(out=[host(o) for o in leaves],
+               devices=[o.device.type for o in leaves
+                        if isinstance(o, torch.Tensor)])
+    if case.grad:
+        loss = None
+        for o in leaves:
+            if isinstance(o, torch.Tensor) and o.is_floating_point():
+                w = np.asarray(rng.randn(*o.shape), np.float32)
+                if o.requires_grad:
+                    term = (o * torch.from_numpy(w).to(o.device)).sum()
+                    loss = term if loss is None else loss + term
+        if loss is not None:
+            loss.backward()
+        res["grads"] = [None if t.grad is None else host(t.grad)
+                        for t in grads]
+    return res
+
+
+def ops_close(np, got, want, tol):
+    """(error text or None, the largest err / (tol x max(1, |want|))):
+    floats within tol x max(1, |want|) elementwise (NaN and infinities
+    where want has them), integers and bools exactly, the same shape and
+    dtype."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return f"{got.shape} {got.dtype} vs {want.shape} {want.dtype}", \
+            math.inf
+    if want.dtype.kind not in "fc":
+        return (None, 0.0) if np.array_equal(got, want) else \
+            (f"{got.tolist()} vs {want.tolist()}", math.inf)
+    g, w = got.astype(np.complex128), want.astype(np.complex128)
+    nan = np.isnan(w)
+    if not np.array_equal(np.isnan(g), nan):
+        return "NaN positions differ", math.inf
+    g, w = g[~nan], w[~nan]
+    inf = np.isinf(w)
+    if not np.array_equal(g[inf], w[inf]):
+        return "infinities differ", math.inf
+    err = np.abs(g[~inf] - w[~inf]) / (tol * np.maximum(1.0, np.abs(w[~inf])))
+    ratio = float(err.max()) if err.size else 0.0
+    return (None, ratio) if ratio <= 1.0 else \
+        (f"max err {ratio:.3g} x the limit", ratio)
+
+
+def ops_random_check(torch, pt, cases):
+    """Each random op on the card: on the card, the shape asked for,
+    and paddle.seed reproducing the draw."""
+    draws = {"rand": lambda: pt.rand([64, 32]),
+             "randn": lambda: pt.randn([64, 32]),
+             "standard_normal": lambda: pt.standard_normal([64, 32]),
+             "uniform": lambda: pt.uniform([64, 32], min=-2.0, max=3.0),
+             "normal": lambda: pt.normal(1.0, 2.0, [64, 32]),
+             "randint": lambda: pt.randint(0, 9, [64, 32]),
+             "randperm": lambda: pt.randperm(2048).reshape(64, 32),
+             "bernoulli": lambda: pt.bernoulli(
+                 torch.full((64, 32), 0.3, device="cuda")),
+             "multinomial": lambda: pt.multinomial(
+                 torch.full((64, 40), 0.025, device="cuda"), 32)}
+    bad = [n for n in cases.RANDOM if n not in draws]
+    for name, fn in draws.items():
+        pt.seed(SEED)
+        a = fn()
+        pt.seed(SEED)
+        b = fn()
+        if a.device.type != "cuda" or tuple(a.shape) != (64, 32) \
+                or not torch.equal(a, b):
+            bad.append(f"{name}: {a.device} {tuple(a.shape)} "
+                       f"reproduced {torch.equal(a, b)}")
+    return bad
+
+
+def ops_card_phase(torch, pt):
+    """Every case of the op library's parity table on the card against
+    the same case on the CPU, at the table's tolerances, and every
+    tensor output on the card (see the module's notes, phase 36)."""
+    import numpy as np
+    from paddle_tpu_torch.core import place as _place
+    t0 = time.perf_counter()
+    cases = load_ops_cases()
+    saved = _place._current_place
+    bad, worst, modules = [], {}, {}
+    try:
+        for case in cases.CASES:
+            card = ops_case_run(torch, pt, cases, case, "cuda")
+            cpu = ops_case_run(torch, pt, cases, case, "cpu")
+            modules[case.module] = modules.get(case.module, 0) + 1
+            off = [d for d in card["devices"] if d != "cuda"]
+            if off:
+                bad.append(f"{case.id}: outputs left on {off}")
+            tol = cases.TOLS[case.tol]
+            pairs = list(zip(card["out"], cpu["out"]))
+            if len(card["out"]) != len(cpu["out"]):
+                bad.append(f"{case.id}: {len(card['out'])} outputs vs "
+                           f"{len(cpu['out'])}")
+            if case.grad:
+                pairs += [(g if g is not None else np.zeros_like(c),
+                           c if c is not None else np.zeros_like(g))
+                          for g, c in zip(card["grads"], cpu["grads"])
+                          if g is not None or c is not None]
+            for i, (g, c) in enumerate(pairs):
+                msg, ratio = ops_close(np, g, c, tol)
+                worst[case.tol] = max(worst.get(case.tol, 0.0), ratio)
+                if msg:
+                    bad.append(f"{case.id}[{i}]: {msg}")
+        pt.set_device("cuda")
+        bad += ops_random_check(torch, pt, cases)
+    finally:
+        _place._current_place = saved
+    row = dict(cases=len(cases.CASES), by_module=modules,
+               random_ops=list(cases.RANDOM), tolerances=cases.TOLS,
+               worst_err_over_limit=worst, mismatches=len(bad),
+               seconds=time.perf_counter() - t0)
+    emit({"ops_card": row})
+    if bad:
+        fail("ops_card: " + "; ".join(bad[:20]))
+    return row
+
+
+MNIST_SIZES = (60000, 10000)     # MNIST's train and test sets
+MNIST_BATCH, MNIST_LR = 64, 1e-3
+MNIST_PARITY_STEPS, MNIST_PARITY_RTOL = 20, 1e-4
+MNIST_ACC_BAR = 0.5              # tests/test_models_hapi.py:108
+MNIST_PROFILED = 20
+
+
+def mnist_dygraph_gates(row):
+    bad = []
+    for route in ("eager", "fit"):
+        acc = row[route]["test_acc"]
+        if not acc > MNIST_ACC_BAR:
+            bad.append(f"{route}: test accuracy {acc} after one epoch")
+        if not all(math.isfinite(v) for v in row[route]["losses_head"]):
+            bad.append(f"{route}: losses {row[route]['losses_head']}")
+    if row["card_vs_cpu_max_rel"] > MNIST_PARITY_RTOL:
+        bad.append(f"the card's first {MNIST_PARITY_STEPS} steps differ "
+                   f"from the CPU's by {row['card_vs_cpu_max_rel']} "
+                   "relative")
+    if not row["save_load_bit_equal"]:
+        bad.append("paddle.save/paddle.load changed the model")
+    if any(row["custom_kernel_launches"].values()):
+        bad.append(f"launches {row['custom_kernel_launches']}")
+    return bad
+
+
+def mnist_sets(pt):
+    """MNIST's train and test sets at their real sizes (the synthetic
+    fallback), each image normalised by transforms.Normalize."""
+    from paddle_tpu_torch.vision import datasets, transforms
+    norm = transforms.Normalize(mean=[127.5], std=[127.5],
+                                data_format="CHW")
+    return [datasets.MNIST(mode=m, synthetic_size=n, transform=norm)
+            for m, n in zip(("train", "test"), MNIST_SIZES)]
+
+
+def lenet_step(pt, model, opt, x, y):
+    """One step of the dygraph loop as Paddle users write it; returns
+    the loss (a device tensor, detached, not read back)."""
+    import paddle_tpu_torch.nn.functional as F
+    loss = pt.mean(F.cross_entropy(model(x), pt.reshape(y, [-1])))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def lenet_test_acc(pt, model, loader):
+    """Accuracy over the test set under no_grad: paddle.argmax against
+    the labels, and paddle.metric.accuracy on each batch, weighted."""
+    hits, seen, metric = 0, 0, 0.0
+    with pt.no_grad():
+        for x, y in loader:
+            out = model(x)
+            hits += int(pt.sum(pt.equal(pt.argmax(out, axis=1),
+                                        pt.reshape(y, [-1]))))
+            metric += float(pt.metric.accuracy(out, pt.reshape(y, [-1, 1]))
+                            ) * len(y)
+            seen += len(y)
+    return hits / seen, metric / seen
+
+
+def mnist_dygraph_phase(torch, pt, fa, nms, smi):
+    """BASELINE config 1: LeNet on MNIST in dygraph, as the eager loop
+    and through hapi.Model.fit (see the module's notes, phase 37)."""
+    import tempfile
+    from paddle_tpu_torch.vision.models import LeNet
+    import paddle_tpu_torch.nn.functional as F
+    t0 = time.perf_counter()
+    _zero(fa)
+    nms.launches["nms_greedy"] = 0
+    train, test = mnist_sets(pt)
+    loader = pt.io.DataLoader(train, batch_size=MNIST_BATCH)
+    test_loader = pt.io.DataLoader(test, batch_size=MNIST_BATCH)
+    pt.seed(SEED)
+    model = LeNet()
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    # the first steps on the CPU from the same weights and batches
+    cpu_model = LeNet(device="cpu")
+    cpu_model.set_state_dict(start)
+    cpu_opt = pt.optimizer.Adam(learning_rate=MNIST_LR,
+                                parameters=cpu_model.parameters())
+    cpu_losses = []
+    for _, (x, y) in zip(range(MNIST_PARITY_STEPS),
+                         pt.io.DataLoader(train, batch_size=MNIST_BATCH,
+                                          places="cpu")):
+        cpu_losses.append(float(lenet_step(pt, cpu_model, cpu_opt, x, y)))
+    # the eager epoch on the card
+    opt = pt.optimizer.Adam(learning_rate=MNIST_LR,
+                            parameters=model.parameters())
+    torch.cuda.synchronize()
+    e0 = time.perf_counter()
+    losses = [lenet_step(pt, model, opt, x, y) for x, y in loader]
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - e0
+    losses = [float(v) for v in losses]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in
+              zip(losses[:MNIST_PARITY_STEPS], cpu_losses))
+    acc, metric_acc = lenet_test_acc(pt, model, test_loader)
+    # one step's device time by category, at a fixed batch
+    x, y = next(iter(loader))
+    prof = device_profile(torch, lambda: lenet_step(pt, model, opt, x, y),
+                          MNIST_PROFILED)
+    step_ms = time_ms(lambda: lenet_step(pt, model, opt, x, y),
+                      MNIST_PROFILED)
+    # paddle.save / paddle.load of the state dict
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        path = os.path.join(d, "lenet.pdparams")
+        pt.save(model.state_dict(), path)
+        again = LeNet()
+        again.set_state_dict(pt.load(path))
+    with pt.no_grad():
+        same = bool(torch.equal(again(x), model(x)))
+    del again, cpu_model
+    # hapi.Model.fit and evaluate
+    pt.seed(SEED)
+    net = LeNet()
+    hm = pt.Model(net)
+    hm.prepare(pt.optimizer.Adam(learning_rate=MNIST_LR,
+                                 parameters=net.parameters()),
+               lambda o, lbl: F.cross_entropy(o, lbl),
+               metrics=[pt.metric.Accuracy()])
+    fit_losses = []
+
+    class Losses(pt.callbacks.Callback):
+        def on_train_batch_end(self, n, logs=None):
+            fit_losses.append(logs["loss"][0])
+    # the last batch (60000 % 64 = 32 images) is a second signature
+    hm._train_step.recompile_sentinel.observe(0, expected=2)
+    torch.cuda.synchronize()
+    f0 = time.perf_counter()
+    hm.fit(train, epochs=1, batch_size=MNIST_BATCH, verbose=0,
+           callbacks=[Losses()])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - f0
+    ev = hm.evaluate(test, batch_size=MNIST_BATCH, verbose=0)
+    graphs = hm._train_step.programs
+    hm._train_step.release()
+    launches = dict(fa.launches, **nms.launches)
+    n = MNIST_SIZES[0]
+    row = dict(
+        card=smi, config="LeNet (paddle_tpu/vision/models/lenet.py) on "
+        "MNIST 60000/10000 1x28x28, Normalize, batch 64, Adam(1e-3)",
+        steps=len(losses),
+        eager=dict(images_per_s=n / eager_s, epoch_s=eager_s,
+                   losses_head=losses[:5], loss_last=losses[-1],
+                   test_acc=acc, metric_accuracy=metric_acc,
+                   step_ms_fixed_batch=step_ms,
+                   device_ms_per_step=prof["device_ms"],
+                   idle_share=1.0 - prof["device_ms"] / step_ms,
+                   categories=prof["categories"], top=prof["top"][:8],
+                   device_events_per_step=prof["events"]),
+        fit=dict(images_per_s=n / fit_s, epoch_s=fit_s,
+                 losses_head=fit_losses[:5], loss_last=fit_losses[-1],
+                 test_acc=ev["acc"], test_loss=ev["loss"][0],
+                 graphs=graphs),
+        card_vs_cpu_max_rel=rel, parity_steps=MNIST_PARITY_STEPS,
+        save_load_bit_equal=same, custom_kernel_launches=launches,
+        seconds=time.perf_counter() - t0)
+    emit({"mnist_dygraph": row})
+    bad = mnist_dygraph_gates(row)
+    if bad:
+        fail("mnist_dygraph: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -6090,6 +6459,9 @@ def main():
     serve = yolo_serve_phase(torch, pt, fa, nms, yolo_model)
     del yolo_model
     torch.cuda.empty_cache()
+    ops_card_phase(torch, pt)
+    mnist = mnist_dygraph_phase(torch, pt, fa, nms, smi)
+    torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
@@ -6136,7 +6508,8 @@ def main():
                    "pipeline_training": pipe["path_launches"][k],
                    "resnet_training": resnet["flash_launches"][k],
                    "yolo_training": yolo["flash_launches"][k],
-                   "yolo_serving": serve["flash_launches"][k]}
+                   "yolo_serving": serve["flash_launches"][k],
+                   "mnist_dygraph": mnist["custom_kernel_launches"][k]}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1
@@ -6223,7 +6596,9 @@ def main():
         shape=f"{serve['problems']} problems x K {serve['k']}, pixel boxes, "
               "eta 1.0 (YOLOv3 serving, batch 8 at 608)",
         launches_by_path={"yolo_training": yolo["nms_launches"],
-                          "yolo_serving": serve["launches_per_hard_predict"]},
+                          "yolo_serving": serve["launches_per_hard_predict"],
+                          "mnist_dygraph": mnist["custom_kernel_launches"][
+                              "nms_greedy"]},
         cases=nms_cases))
     if serve["launches_per_hard_predict"] == 0:
         fail("the serving path launched no nms_greedy kernel")

@@ -34,16 +34,103 @@ trained through the captured TrainStep. Detection: models.YOLOv3 with
 the YOLO and NMS ops (ops.detection; greedy NMS is a hand-written
 kernel, ops.nms), interpolate, and the training surface PaddleDetection-
 and PaddleClas-shaped users drive: io (datasets, samplers, DataLoader),
-metric, jit.InputSpec and hapi.Model (fit, evaluate, predict).
+metric, jit.InputSpec and hapi.Model (fit, evaluate, predict). The
+Paddle Tensor surface and the op library's first half: the creation,
+math, manipulation, logic, search and stat ops at the top level with
+Paddle's semantics (`import paddle_tpu_torch as paddle`;
+paddle.reshape, paddle.concat, paddle.argmax, ...), the Paddle names
+torch.Tensor lacks added to it as methods (ops/__init__.py says which
+and why), paddle.grad, the grad modes, save and load, ParamAttr,
+regularizer and paddle.batch; vision.datasets (synthetic when no file
+is given), vision.transforms and vision.image, with which LeNet trains
+on MNIST in dygraph and through Model.fit (BASELINE config 1).
 """
 from . import (amp, core, device, distributed, hapi, io, jit,  # noqa: F401
                metric, models, nn, observability, ops, optimizer, quant,
-               serving, static, vision)
+               regularizer, serving, static, vision)
+from . import ops as tensor  # noqa: F401
+from .batch import batch  # noqa: F401
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
 from .core.generator import seed  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
                          is_compiled_with_cuda, set_device)
-from .framework import Parameter, Tensor, no_grad, to_tensor  # noqa: F401
-from .hapi import Model  # noqa: F401
+from .distributed.parallel import DataParallel  # noqa: F401
+from .framework import (Parameter, Tensor, enable_grad,  # noqa: F401
+                        in_dygraph_mode, is_grad_enabled, no_grad,
+                        set_grad_enabled, to_tensor)
+from .hapi import Model, callbacks  # noqa: F401
+from .nn.param_attr import ParamAttr  # noqa: F401
+from .ops import *  # noqa: F401,F403
+from .ops.detection import nms  # noqa: F401
+from .serialization import load, save  # noqa: F401
+
+import torch as _torch  # noqa: E402
+
+bool8 = _torch.bool
+bfloat16 = _torch.bfloat16
+complex64 = _torch.complex64
+complex128 = _torch.complex128
+float16 = _torch.float16
+float32 = _torch.float32
+float64 = _torch.float64
+int8 = _torch.int8
+int16 = _torch.int16
+int32 = _torch.int32
+int64 = _torch.int64
+uint8 = _torch.uint8
 
 __version__ = "0.1.0"
+
+
+def is_tensor(x):
+    return isinstance(x, Tensor)
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def is_compiled_with_npu() -> bool:
+    return False
+
+
+def disable_static(place=None):
+    return None
+
+
+def enable_static():
+    raise NotImplementedError(
+        "paddle.enable_static: the static graph mode (static/program.py) "
+        "is not ported yet (ROADMAP.md item 18.4); the port runs dygraph")
+
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
+         create_graph=False, only_inputs=True, allow_unused=False,
+         no_grad_vars=None):
+    """paddle.grad (autograd_utils.partial_grad over torch.autograd)."""
+    from .autograd_utils import partial_grad
+    return partial_grad(outputs, inputs, grad_outputs, retain_graph,
+                        create_graph, allow_unused, no_grad_vars)
+
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    from .hapi.summary import summary as _summary
+    return _summary(net, input_size, dtypes, input)
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    return 0
+
+
+def monkey_patch_math_varbase():
+    """Reference internal: the Tensor operator overloads. torch.Tensor
+    has them; kept as an explicit no-op."""
+
+
+def monkey_patch_variable():
+    """Reference internal: static Variable operator overloads; kept as
+    an explicit no-op."""

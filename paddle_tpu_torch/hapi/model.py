@@ -8,7 +8,11 @@ input signature is one captured CUDA graph: a bucketed loader
 (io.BucketBatchSampler) gives one program a bucket. Evaluation and
 prediction run the network eagerly in eval mode under no_grad. The
 layer holds the step's live parameters (TrainStep updates them in
-place), so nothing is synced back before an eval or a save.
+place), so nothing is synced back before an eval; under ZeRO-3 and fsdp
+they are this rank's shards, which the step gathers for an eval
+forward. save and load go through the step's state_dict and
+set_state_dict when there is one: whole tensors, the optimizer's state
+included, cut back to this rank's blocks on load.
 
 Batches come from an io.DataLoader (a Dataset is wrapped in one): the
 inputs= specs (jit.InputSpec) say how many leading items of a batch are
@@ -247,20 +251,32 @@ class Model:
 
     # -- persistence ---------------------------------------------------------
     def save(self, path, training=True):
-        serialization.save(self.network.state_dict(), path + ".pdparams")
-        if training and self._optimizer is not None:
-            serialization.save(self._optimizer.state_dict(),
-                               path + ".pdopt")
+        if self._train_step is not None:
+            state = self._train_step.state_dict()
+            model, opt = state["model"], state["opt"]
+        else:
+            model = self.network.state_dict()
+            opt = self._optimizer.state_dict() \
+                if self._optimizer is not None else None
+        serialization.save(model, path + ".pdparams")
+        if training and opt is not None:
+            serialization.save(opt, path + ".pdopt")
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         """Weights (and the optimizer's state unless reset_optimizer) from
         `path`, written into the live tensors in place, so a captured
         step goes on reading them."""
-        self.network.set_state_dict(serialization.load(path + ".pdparams"))
+        model = serialization.load(path + ".pdparams")
+        opt = None
         if not reset_optimizer and self._optimizer is not None and \
                 os.path.exists(path + ".pdopt"):
-            self._optimizer.set_state_dict(
-                serialization.load(path + ".pdopt"))
+            opt = serialization.load(path + ".pdopt")
+        if self._train_step is not None:
+            self._train_step.set_state_dict({"model": model, "opt": opt})
+            return self
+        self.network.set_state_dict(model)
+        if opt is not None:
+            self._optimizer.set_state_dict(opt)
         return self
 
     def parameters(self, *args, **kwargs):

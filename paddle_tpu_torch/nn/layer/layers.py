@@ -47,14 +47,19 @@ class Layer(nn.Module):
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer: Optional[Initializer] = None):
-        """Parameter factory (the JAX Layer.create_parameter without
-        ParamAttr): `attr` may be None, False (no bias) or an
-        Initializer. An initializer given as `attr` wins; else
-        set_global_initializer's default, when set, overrides the
+        """Parameter factory (the JAX Layer.create_parameter): `attr` may
+        be None, False (no bias), a ParamAttr (its initializer and
+        trainable) or an Initializer. An initializer given by `attr` wins;
+        else set_global_initializer's default, when set, overrides the
         layer's. Biases default to zeros, weights to XavierNormal."""
+        from ..param_attr import ParamAttr
         if attr is False and is_bias:
             return None
         from .. import initializer as _init_mod
+        trainable = True
+        if isinstance(attr, ParamAttr):
+            trainable = attr.trainable
+            attr = attr.initializer
         if isinstance(attr, Initializer):
             init = attr
         else:
@@ -64,7 +69,7 @@ class Layer(nn.Module):
         dtype = _dtypes.convert_dtype(dtype) if dtype else self._dtype
         data = init(tuple(int(s) for s in shape), dtype, self._device,
                     default_generator(self._device))
-        return nn.Parameter(data)
+        return nn.Parameter(data, requires_grad=trainable)
 
     @torch.no_grad()
     def set_state_dict(self, state_dict):

@@ -10,10 +10,13 @@ optimizer.py). Adam, e.g.:
 with the bias-correction powers kept as per-param state (beta1_pow,
 beta2_pow), as in the JAX package, so nothing is read back to the host.
 AdamW is Adam with decoupled weight decay (optimizer.py). Lamb's trust
-ratio and Lars's local lr take per-tensor f32 norms (torch._foreach_norm)
-and decide their where(w > 0 & r > 0) branches on the device.
+ratio and Lars's local lr take per-tensor f32 norms (_WholeNorms:
+torch._foreach_norm, a shard's summed over its ranks) and decide their
+where(w > 0 & r > 0) branches on the device.
 """
 from __future__ import annotations
+
+from typing import Dict, List
 
 import torch
 
@@ -34,9 +37,42 @@ def _ema(olds, news, rho):
     return out
 
 
-def _norms(xs):
-    """Per-tensor f32 L2 norms as one [n] tensor."""
-    return torch.stack(torch._foreach_norm([x.float() for x in xs]))
+class _WholeNorms:
+    """The norms of a rule that reads whole-tensor norms (Lamb, Lars).
+
+    Under TrainStep's ZeRO / fsdp an optimizer param is this rank's
+    block of the parameter; the step registers each block (and its
+    master weight) with the groups of the ranks that hold the others
+    (shard_norms_over), and the block's squared norm is summed over them
+    before the square root, so the rule sees the whole tensor's norm, as
+    the JAX step's update on whole arrays does. All on the device."""
+
+    def shard_norms_over(self, tensors, groups):
+        reg = self.__dict__.setdefault("_norm_groups", {})
+        for t in tensors:
+            reg[id(t)] = tuple(groups)
+
+    def _norms(self, params, xs=None):
+        """Per-tensor f32 L2 norms of `xs` (default `params`) as one [n]
+        tensor; entry i is summed over params[i]'s groups."""
+        from ..distributed import collective as _c
+        xs = params if xs is None else xs
+        norms = torch.stack(torch._foreach_norm([x.float() for x in xs]))
+        reg = self.__dict__.get("_norm_groups", {})
+        by_groups: Dict[tuple, List[int]] = {}
+        for i, p in enumerate(params):
+            if reg.get(id(p)):
+                by_groups.setdefault(reg[id(p)], []).append(i)
+        if not by_groups:
+            return norms
+        out = list(norms.unbind(0))
+        for g, idx in by_groups.items():
+            sq = torch.stack([out[i] * out[i] for i in idx])
+            for pg in g:
+                _c._all_reduce_(sq, _c.ReduceOp.SUM, pg)
+            for i, v in zip(idx, sq.sqrt().unbind(0)):
+                out[i] = v
+        return torch.stack(out)
 
 
 def _trust(w, r):
@@ -238,7 +274,7 @@ class RMSProp(Optimizer):
         return torch._foreach_sub(params, mom), new_states
 
 
-class Lamb(Optimizer):
+class Lamb(_WholeNorms, Optimizer):
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
                  grad_clip=None, exclude_from_weight_decay_fn=None,
@@ -271,14 +307,14 @@ class Lamb(Optimizer):
         torch._foreach_add_(den, eps)
         r = torch._foreach_div(m_hat, den)
         torch._foreach_add_(r, torch._foreach_mul(params, self._lamb_wd))
-        trust = _trust(_norms(params), _norms(r))
+        trust = _trust(self._norms(params), self._norms(params, r))
         new_p = torch._foreach_sub(params, torch._foreach_mul(
             r, [lr * t for t in trust]))
         return new_p, {"moment1": m, "moment2": v, "beta1_pow": b1p,
                        "beta2_pow": b2p}
 
 
-class Lars(Optimizer):
+class Lars(_WholeNorms, Optimizer):
     """LARS (reference lars_momentum_op)."""
 
     def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
@@ -295,7 +331,7 @@ class Lars(Optimizer):
         return {"velocity": torch.zeros_like(param)}
 
     def update_rule(self, params, grads, states, lr):
-        w, g = _norms(params), _norms(grads)
+        w, g = self._norms(params), self._norms(params, grads)
         local = torch.where(
             (w > 0) & (g > 0),
             self._lars_coeff * w / (g + self._lars_wd * w + self._epsilon),

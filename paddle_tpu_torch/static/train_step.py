@@ -95,12 +95,20 @@ sequence (models/ernie.py); the step takes this rank's batch
 parameter whose state spec names a data axis is updated as a shard: the
 optimizer holds this rank's block of it (and its moments and master
 weight) along that axis, takes the same block of the averaged grad, and
-the updated blocks are all-gathered back into the parameter; a data
-axis of one rank still runs that path (a one-rank gather). The full
-gradient is all-reduced and sliced (where a reduce-scatter would move
-half the bytes), and the layer keeps its whole parameter between steps,
-so stage 3 and fsdp save the optimizer state's memory, not the
-parameters'. Over several ranks every rank calls the step, state_dict
+under stage 1 and 2 the updated blocks are all-gathered back into the
+parameter; a data axis of one rank still runs that path (a one-rank
+gather). Lamb's and Lars's norms are whole-tensor norms: each block's
+squared norms are summed over its ranks first (Optimizer._norms). Under
+stage 3 and fsdp (the param spec names the same data layout) the layer's
+parameter IS its block between steps: the body all-gathers the whole
+tensor for the forward and backward (inside the captured graph on the
+card) and drops it after, and the gradient goes through one
+reduce-scatter per axis instead of an all-reduce and a slice (with a
+grad_transform, which sees whole gradients as the JAX step's does, the
+all-reduce and slice stay). Outside the step a forward under no_grad
+(build_eval_fn's, hapi's evaluate and predict) gathers them the same
+way, and the layer's state_dict() gives whole tensors. Over
+several ranks every rank calls the step, state_dict
 and set_state_dict, in the same order. state_dict() returns full
 tensors, the JAX step's global arrays: the model's, and the optimizer's
 state, gathered over the model and data axes (checkpoints keep one
@@ -125,6 +133,7 @@ from ..amp.functional import (check_finite_and_unscale_tree,
 from ..core import generator as _generator
 from ..core.generator import Draw, SeedSlots, mix_seed, next_seed, seed_scope
 from ..core.place import host_tensor
+from ..distributed import collective as _c
 from ..distributed import sharding as _sh
 from ..distributed.env import get_mesh, set_mesh
 from ..distributed.parallel import dp_average_, dp_max_, dp_size
@@ -158,10 +167,6 @@ def _later(flag, where):
 #: the mesh axes a TrainStep runs over; pp (the SPMD pipeline) comes with
 #: ROADMAP.md item 14d
 _STEP_AXES = ("dp", "fsdp", "tp", "ep", "sp")
-
-
-#: optimizers whose rule reads whole-tensor norms (optimizers.py _norms)
-_NORM_RULES = ("Lamb", "Lars")
 
 
 def _check_axes(mesh):
@@ -300,9 +305,10 @@ class TrainStep:
         # the data axes' groups (batch order), and every axis group: the
         # grads and the loss are averaged over the first, a scaler's
         # overflow flag is the MAX over the second
-        self._data_groups = [] if mesh is None else [
-            mesh.group(ax) for ax in _sh.DATA_AXES
+        self._data_axes = [] if mesh is None else [
+            (ax, mesh.group(ax)) for ax in _sh.DATA_AXES
             if ax in mesh and mesh.group(ax) is not None]
+        self._data_groups = [pg for _, pg in self._data_axes]
         self._all_groups = [] if mesh is None else [
             mesh.group(ax) for ax in mesh.axis_names
             if mesh.group(ax) is not None]
@@ -334,6 +340,11 @@ class TrainStep:
                  if p.requires_grad]
         self._param_names = [k for k, _ in named]
         self.params = [p for _, p in named]
+        # a step built before over these parameters gives them back whole
+        for old in {id(o): o for o in (
+                getattr(p, "_resident_of", None) for p in self.params)
+                if o is not None}.values():
+            old._hand_back()
         # the JAX step's `buffers`: every state entry without a gradient
         trainable = set(self._param_names)
         self._state_buffers = [
@@ -352,8 +363,12 @@ class TrainStep:
             # init_state_tree makes it (and a snapshot taken before the
             # first step restores it)
             optimizer._state_of(p)
-        # ZeRO / fsdp: {param index: (data layout, the optimizer's shard)}
+        # ZeRO / fsdp: {param index: (data layout, the optimizer's shard)};
+        # _resident: the indices whose parameter IS its shard between
+        # steps (stage 3, fsdp)
         self._shards: Dict[int, Any] = {}
+        self._resident: set = set()
+        self._gathered = False
         if plan is not None:
             self._make_shards(plan)
         self._scaler_cfg = None
@@ -387,25 +402,126 @@ class TrainStep:
         """Under ZeRO >= 1 or fsdp: for each parameter whose state spec
         names a data axis with a process group, the optimizer's param is
         this rank's block of it, and its state (moments, master weight)
-        moves to that block."""
+        moves to that block; a norm rule (Lamb, Lars) sums the block's
+        squared norms over the layout's groups (shard_norms_over). Where
+        the param spec names the same data layout (stage 3, fsdp), the
+        layer's parameter becomes that block between steps: its
+        storage is the shard's (_resident), and hooks on the layer give
+        whole tensors outside the step (_install_whole_views)."""
         opt = self.optimizer
+        mesh = self.mesh
         for i, (name, p) in enumerate(zip(self._param_names, self.params)):
-            layout = _sh.layout_of(plan.state_spec(name, p), self.mesh,
+            layout = _sh.layout_of(plan.state_spec(name, p), mesh,
                                    _sh.DATA_AXES, min_size=1)
             if not layout:
                 continue
-            if type(opt).__name__ in _NORM_RULES:
-                raise NotImplementedError(
-                    f"{type(opt).__name__} scales each update by whole-"
-                    "tensor norms, which a shard's update does not see: "
-                    "ZeRO stage >= 1 and fsdp take an elementwise "
-                    "optimizer in the port")
-            shard = _sh.block_of(p.detach(), layout, self.mesh).clone()
+            shard = _sh.block_of(p.detach(), layout, mesh).clone()
             st = opt._accumulators.pop(id(p))
             opt._accumulators[id(shard)] = {
-                k: (_sh.block_of(v, layout, self.mesh).clone()
+                k: (_sh.block_of(v, layout, mesh).clone()
                     if v.dim() > 0 else v) for k, v in st.items()}
+            if hasattr(opt, "shard_norms_over"):
+                opt.shard_norms_over(
+                    [shard] + [v for k, v in opt._accumulators[id(shard)]
+                               .items() if k == "master_weight"],
+                    [mesh.group(a) for _, axes in layout for a in axes])
             self._shards[i] = (layout, shard)
+            if _sh.layout_of(plan.param_spec(name, p), mesh, _sh.DATA_AXES,
+                             min_size=1) == layout:
+                p.data = shard
+                p._resident_of = self
+                self._resident.add(i)
+        if self._resident:
+            self._install_whole_views()
+
+    def _hand_back(self):
+        """Another step is built over this one's layer: the resident
+        parameters become whole again and this step goes on as under
+        stage 1 (its shards are their blocks; programs re-captured)."""
+        self._gather_params()
+        for i in self._resident:
+            del self.params[i]._resident_of
+        for h in self._hooks:
+            h.remove()
+        self._resident, self._gathered = set(), False
+        self._programs.clear()
+
+    def _install_whole_views(self):
+        """Outside the step the layer acts as if it held its whole
+        parameters, as the JAX layer's global arrays do: a forward under
+        no_grad (an eval, hapi's evaluate and predict) gathers them and
+        drops them after, and state_dict() gives whole tensors
+        (state_dict(keep_vars=True), the live tensors, gives the shards).
+        Both are collectives: every rank calls them. A forward that
+        records a graph over parameters split across ranks raises: it
+        trains through the step."""
+        split = any(self.mesh.shape[a] > 1 for i in self._resident
+                    for _, axes in self._shards[i][0] for a in axes)
+        by_call = []
+
+        def gather(layer, args):
+            if self._gathered:
+                return
+            if torch.is_grad_enabled():
+                if split:
+                    raise RuntimeError(
+                        "the layer's parameters are this rank's ZeRO-3 / "
+                        "fsdp shards between steps: train it through its "
+                        "TrainStep, or run the forward under no_grad")
+                return
+            self._gather_params()
+            by_call.append(True)
+
+        def release(layer, args, out):
+            if by_call:
+                by_call.clear()
+                self._release_params()
+
+        def whole_state(layer, state, prefix, meta):
+            for i in self._resident:
+                k = prefix + self._param_names[i]
+                p = self.params[i]
+                if k in state and state[k] is not p and not self._gathered:
+                    state[k] = _sh.gather_of(p.detach(), self._shards[i][0],
+                                             self.mesh)
+
+        self._hooks = (
+            self.layer.register_forward_pre_hook(gather),
+            self.layer.register_forward_hook(release, always_call=True),
+            self.layer._register_state_dict_hook(whole_state))
+
+    def _gather_params(self):
+        """Each resident parameter's whole tensor (its model block),
+        all-gathered from the shards for the forward and backward (inside
+        the captured graph on the card)."""
+        for i in self._resident:
+            layout, shard = self._shards[i]
+            self.params[i].data = _sh.gather_of(shard, layout, self.mesh)
+        self._gathered = bool(self._resident)
+
+    def _release_params(self):
+        """The resident parameters back to their shards; the whole
+        tensors and their gradients are dropped (freed)."""
+        for i in self._resident:
+            p = self.params[i]
+            p.grad = None
+            p.data = self._shards[i][1]
+        self._gathered = False
+
+    @property
+    def _scattered(self):
+        """The indices whose gradient the sync reduce-scatters into its
+        block: the resident ones, unless a grad_transform runs (it sees
+        whole gradients, as the JAX step's does)."""
+        return self._resident if self.grad_transform is None else set()
+
+    def _full_param(self, i, p):
+        """Parameter i's full tensor: gathered over its data layout when
+        resident, then over its model axes (every rank calls it)."""
+        v = p.detach()
+        if i in self._resident:
+            v = _sh.gather_of(v, self._shards[i][0], self.mesh)
+        return _sh.gather_of(v, _sh.model_layout(p, self.mesh), self.mesh)
 
     def _opt_param(self, i):
         sh = self._shards.get(i)
@@ -419,20 +535,24 @@ class TrainStep:
 
     def _apply(self, grads, lr, skip):
         """The update: whole parameters in place, and under ZeRO / fsdp
-        the shards from their block of the grad, gathered back into the
-        parameters."""
+        the shards from their block of the grad (a reduce-scattered grad
+        already is one); a shard that is not resident is gathered back
+        into its parameter."""
         if not self._shards:
             self.optimizer.apply_gradients(self.params, grads, lr=lr,
                                            skip=skip)
             return
         mesh = self.mesh
         ps = [self._opt_param(i) for i in range(len(self.params))]
-        gs = [_sh.block_of(g, self._shards[i][0], mesh)
-              if i in self._shards else g for i, g in enumerate(grads)]
+        scattered = self._scattered
+        gs = [g if i not in self._shards or i in scattered
+              else _sh.block_of(g, self._shards[i][0], mesh)
+              for i, g in enumerate(grads)]
         self.optimizer.apply_gradients(ps, gs, lr=lr, skip=skip)
         with torch.no_grad():
             for i, (layout, shard) in self._shards.items():
-                self.params[i].copy_(_sh.gather_of(shard, layout, mesh))
+                if i not in self._resident:
+                    self.params[i].copy_(_sh.gather_of(shard, layout, mesh))
 
     @torch.no_grad()
     def _cast_down(self, amp_dtype):
@@ -489,9 +609,13 @@ class TrainStep:
             if self._scaler_cfg is not None else None
         for p in self.params:
             p.grad = None
-        loss = self._microbatches(inputs, labels, seed, scale)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        self._gather_params()
+        try:
+            loss = self._microbatches(inputs, labels, seed, scale)
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self.params]
+        finally:
+            self._release_params()
         found_inf = None
         if scale is not None:
             found_inf = check_finite_and_unscale_tree(grads, scale)
@@ -559,14 +683,23 @@ class TrainStep:
         written into strategy_state's tensors in place (a captured
         graph holds their addresses)."""
         fn = self.grad_transform
-        for pg in self._data_groups:
+        scatter = self._scattered
+        for ax, pg in self._data_axes:
             if fn is not None and getattr(fn, "syncs_dp_grads", False) \
                     and pg is self.mesh.group("dp"):
                 n = dp_size(pg)
                 if n > 1:
                     grads = [g / n for g in grads]
-            else:
-                dp_average_(grads, pg)
+                continue
+            todo = [g for i, g in enumerate(grads) if not (
+                i in scatter and ax in self._layout_axes(i))]
+            if not todo:
+                continue
+            done = _c._record("allreduce_avg", ax, *todo)
+            dp_average_(todo, pg)
+            done and done()
+        for i in scatter:
+            grads[i] = self._reduce_scatter(grads[i], self._shards[i][0])
         if fn is None:
             return grads
         names = self._param_names
@@ -574,6 +707,23 @@ class TrainStep:
                         dict(zip(names, self.params)))
         _load_state(self.strategy_state, state, self._device(), prune=True)
         return [new[k] for k in names]
+
+    def _layout_axes(self, i):
+        return {a for _, axes in self._shards[i][0] for a in axes}
+
+    def _reduce_scatter(self, g, layout):
+        """This rank's block of the average of `g` over the layout's
+        axes: one reduce-scatter (SUM, then / n) per axis, outer axis
+        first, along the layout's dim (block_of's order)."""
+        for dim, axes in layout:
+            for a in axes:
+                pg = self.mesh.group(a)
+                done = _c._record("reduce_scatter", a, g)
+                part = _c._reduce_scatter_dim0(g.movedim(dim, 0),
+                                               _c.ReduceOp.SUM, pg)
+                done and done()
+                g = part.movedim(0, dim).div_(_c._size(pg))
+        return g
 
     @torch.no_grad()
     def _update_scaler(self, found_inf):
@@ -754,7 +904,10 @@ class TrainStep:
         and the number of steps taken, so a step restored from it draws
         the masks the uninterrupted run drew at that step."""
         own = self.layer.state_dict(keep_vars=True)
-        return {"model": {k: _sh.full_value(v, self.mesh).detach().clone()
+        index = {id(p): i for i, p in enumerate(self.params)}
+        return {"model": {k: (self._full_param(index[id(v)], v)
+                              if id(v) in index else
+                              _sh.full_value(v, self.mesh)).detach().clone()
                           for k, v in own.items()},
                 "opt": self._full_opt_state(),
                 "strategy_state": _clone_tree(self.strategy_state),
@@ -797,17 +950,20 @@ class TrainStep:
         program goes on reading the restored values."""
         if state.get("model"):
             own = self.layer.state_dict(keep_vars=True)
+            index = {id(p): i for i, p in enumerate(self.params)}
             for k, v in state["model"].items():
                 if k in own:
-                    v = _as_tensor(v)
-                    lay = _sh.model_layout(own[k], self.mesh)
-                    if lay:
-                        v = _sh.block_of(v.to(own[k].device), lay,
-                                         self.mesh)
+                    v = _as_tensor(v).to(own[k].device)
+                    v = _sh.block_of(v, _sh.model_layout(own[k], self.mesh),
+                                     self.mesh)
+                    i = index.get(id(own[k]))
+                    if i in self._resident:
+                        v = _sh.block_of(v, self._shards[i][0], self.mesh)
                     own[k].copy_(v)
             for i, (layout, shard) in self._shards.items():
-                shard.copy_(_sh.block_of(self.params[i].detach(), layout,
-                                         self.mesh))
+                if i not in self._resident:
+                    shard.copy_(_sh.block_of(self.params[i].detach(),
+                                             layout, self.mesh))
         if state.get("opt") is not None:
             self._set_opt_state(state["opt"])
         if state.get("strategy_state") is not None:
@@ -835,7 +991,8 @@ class _EvalFn:
         return len(self._programs)
 
     def _forward(self, inputs):
-        layer = self.step.layer
+        step = self.step
+        layer = step.layer
         mode = layer.training
         layer.eval()
         try:

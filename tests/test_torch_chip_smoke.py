@@ -1212,3 +1212,110 @@ def test_no_top_level_name_is_defined_twice():
         t.id for n in tree.body if isinstance(n, ast.Assign)
         for t in n.targets if isinstance(t, ast.Name))
     assert [k for k, v in (defs + assigned).items() if v > 1] == []
+
+
+def _mnist_row():
+    return dict(eager=dict(test_acc=0.9, losses_head=[2.3, 2.2]),
+                fit=dict(test_acc=0.88, losses_head=[2.3, 2.1]),
+                card_vs_cpu_max_rel=2e-6, save_load_bit_equal=True,
+                custom_kernel_launches={"flash_attn_fwd": 0,
+                                        "nms_greedy": 0})
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("eager_acc", "eager: test accuracy"),
+    ("fit_acc", "fit: test accuracy"), ("loss", "losses"),
+    ("parity", "CPU"), ("save", "save"), ("launch", "launches")])
+def test_mnist_dygraph_gates_name_each_failure(cs, breakage, word):
+    row = _mnist_row()
+    if breakage == "eager_acc":
+        row["eager"]["test_acc"] = 0.5
+    elif breakage == "fit_acc":
+        row["fit"]["test_acc"] = 0.1
+    elif breakage == "loss":
+        row["fit"]["losses_head"] = [float("nan")]
+    elif breakage == "parity":
+        row["card_vs_cpu_max_rel"] = 1e-3
+    elif breakage == "save":
+        row["save_load_bit_equal"] = False
+    elif breakage == "launch":
+        row["custom_kernel_launches"]["nms_greedy"] = 1
+    bad = cs.mnist_dygraph_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_ops_close_holds_each_kind(cs):
+    import numpy as np
+    f = np.array([1.0, 2.0, np.nan, np.inf], np.float32)
+    assert cs.ops_close(np, f, f, 1e-6) == (None, 0.0)
+    msg, ratio = cs.ops_close(np, f + np.float32(1e-5), f, 1e-6)
+    assert msg and ratio > 1
+    assert cs.ops_close(np, f[:2] * (1 + 5e-7), f[:2], 1e-6)[0] is None
+    assert cs.ops_close(np, np.array([np.nan, 1.0]), np.array([1.0, 1.0]),
+                        1e-6)[0] == "NaN positions differ"
+    assert cs.ops_close(np, np.array([1, 2]), np.array([1, 3]), 1e-6)[0]
+    assert cs.ops_close(np, np.array([1, 2], np.int32),
+                        np.array([1, 2], np.int64), 1e-6)[0]
+
+
+def test_ops_cases_run_on_the_cpu_as_the_card_phase_runs_them(cs):
+    """ops_card's runner over the whole table with the CPU standing in
+    for the card: every case runs, its tensors stay on the device asked
+    for, and two runs agree exactly (the inputs and weights are drawn
+    from each case's own seed)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import place
+    cases = cs.load_ops_cases()
+    saved = place._current_place
+    try:
+        for case in cases.CASES:
+            a = cs.ops_case_run(torch, pt, cases, case, "cpu")
+            b = cs.ops_case_run(torch, pt, cases, case, "cpu")
+            assert set(a["devices"]) <= {"cpu"}, case.id
+            outs = list(zip(a["out"], b["out"])) + list(
+                zip(a.get("grads", []), b.get("grads", [])))
+            for x, y in outs:
+                if x is None:
+                    assert y is None, case.id
+                    continue
+                assert cs.ops_close(np, x, y, 1e-6) == (None, 0.0), case.id
+    finally:
+        place._current_place = saved
+
+
+def test_lenet_step_and_accuracy_on_the_cpu(cs):
+    """mnist_dygraph's loop and evaluation on a small MNIST on the CPU:
+    the loss falls over a few steps and the accuracies agree."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision import datasets, transforms
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.vision.models import LeNet
+    saved = place._current_place
+    pt.set_device("cpu")
+    try:
+        _lenet_on_the_cpu(cs, torch, pt, datasets, transforms, LeNet)
+    finally:
+        place._current_place = saved
+
+
+def _lenet_on_the_cpu(cs, torch, pt, datasets, transforms, LeNet):
+    norm = transforms.Normalize(mean=[127.5], std=[127.5])
+    train = datasets.MNIST(mode="train", synthetic_size=256, transform=norm)
+    test = datasets.MNIST(mode="test", synthetic_size=64, transform=norm)
+    torch.manual_seed(0)
+    model = LeNet(device="cpu")
+    opt = pt.optimizer.Adam(learning_rate=cs.MNIST_LR,
+                            parameters=model.parameters())
+    losses = [float(cs.lenet_step(pt, model, opt, x, y))
+              for _ in range(3) for x, y in pt.io.DataLoader(
+                  train, batch_size=cs.MNIST_BATCH)]
+    assert losses[-1] < losses[0]
+    acc, metric = cs.lenet_test_acc(pt, model, pt.io.DataLoader(
+        test, batch_size=cs.MNIST_BATCH))
+    assert 0.0 <= acc <= 1.0 and abs(acc - metric) < 1e-6

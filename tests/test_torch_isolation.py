@@ -88,7 +88,15 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.hapi.model, paddle_tpu_torch.hapi.callbacks, "
         "paddle_tpu_torch.hapi.summary, paddle_tpu_torch.ops.detection, "
         "paddle_tpu_torch.ops.nms, paddle_tpu_torch.models.yolo, "
-        "paddle_tpu_torch.vision.ops\n"
+        "paddle_tpu_torch.vision.ops, paddle_tpu_torch.ops.creation, "
+        "paddle_tpu_torch.ops.math, paddle_tpu_torch.ops.manipulation, "
+        "paddle_tpu_torch.ops.logic, paddle_tpu_torch.ops.search, "
+        "paddle_tpu_torch.ops.stat, paddle_tpu_torch.autograd_utils, "
+        "paddle_tpu_torch.regularizer, paddle_tpu_torch.batch, "
+        "paddle_tpu_torch.nn.param_attr, paddle_tpu_torch.vision.datasets, "
+        "paddle_tpu_torch.vision.transforms, "
+        "paddle_tpu_torch.vision.transforms.functional, "
+        "paddle_tpu_torch.vision.image\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -269,3 +277,30 @@ def test_planes_import_without_torch_and_generate_needs_the_card():
     assert "RAISED True" in out and "RAN" not in out
     # a CPU model runs the eager loop there and builds no program
     assert "CPU cpu 0" in out
+
+
+def test_creation_ops_and_config_1_need_cuda_unless_asked_for_the_cpu():
+    """The creation ops (and the random ones), LeNet and the MNIST
+    DataLoader's batches go to the card by default and raise without
+    one; asked for the CPU, they run there."""
+    out = _run(
+        "import torch, paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.vision.models import LeNet\n"
+        "from paddle_tpu_torch.vision.datasets import MNIST\n"
+        "ds = MNIST(mode='test', synthetic_size=8)\n"
+        "for fn in (lambda: pt.zeros([2]), lambda: pt.arange(3), "
+        "lambda: pt.eye(2), lambda: pt.randn([2]), "
+        "lambda: pt.full([2], 1.0), lambda: pt.linspace(0, 1, 3), "
+        "lambda: LeNet(), "
+        "lambda: next(iter(pt.io.DataLoader(ds, batch_size=4)))):\n"
+        "    try:\n"
+        "        fn()\n"
+        "        raise SystemExit('no error without CUDA')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'set_device' in str(e), e\n"
+        "pt.set_device('cpu')\n"
+        "x, y = next(iter(pt.io.DataLoader(ds, batch_size=4)))\n"
+        "out = LeNet()(x)\n"
+        "print('OUT', tuple(out.shape), out.device.type, "
+        "pt.zeros([2]).device.type, pt.randn([2]).device.type)\n")
+    assert "OUT (4, 10) cpu cpu cpu" in out
