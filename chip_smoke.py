@@ -25,14 +25,21 @@ Phases, each of which fails the run on any mismatch:
    causal and not, f32 (tolerance 1e-4) and bf16 (2e-2, the Pallas
    tests' bf16 tolerance), elementwise and row by row as in 4;
    head_dim 128 too, in bf16 also with dropout
-   0.1 (the training path's shapes, phase 4, cover head_dim 64). Times
+   0.1 (the training path's shapes, phase 4, cover head_dim 64); and
+   Transformer-base's attentions as MultiHeadAttention runs them: b 32,
+   n 8, h 64 at the encoder's (sq 128, sk 128), the decoder's
+   cross-attention (96, 128) and its mirror (128, 96), q, k and v
+   separate contiguous tensors (the layout is a case's own field, not a
+   consequence of sq and sk), f32 and bf16, dropout 0 and (bf16) 0.1.
+   Times
    with CUDA events after warm-up: the kernel, the plain version, and
    torch's scaled_dot_product_attention at the same dropout p as the
    library yardstick (timed here only; the port never calls it).
 4. Backward kernels and dropout: flash_attn_bwd_dq and flash_attn_bwd_dkv
    against flash_attention_bwd_plain at the training path's shapes (b 48,
    s 512 and 200, n 12, h 64, strided qkv views), causal and not, f32
-   and bf16, head_dim 128; with dropout p = 0.1 at a fixed seed the
+   and bf16, head_dim 128, the Transformer-base cases of 3; with
+   dropout p = 0.1 at a fixed seed the
    forward and the backward against the plain versions drawing the same
    Philox mask. Tolerance, row by row (a query row of O and dQ, a key
    row of dK and dV; a causal row holds about 1/sqrt(i + 1) of row 0):
@@ -56,10 +63,16 @@ Phases, each of which fails the run on any mismatch:
    SM clock from nvidia-smi).
    Mask probe: inputs on which each output element sums a few dropout
    links of equal weight run through the bf16 (tensor-core) and f32
-   (FFMA) forward, dQ and dK/dV kernels at b 48, s 512 and 200; each
+   (FFMA) forward, dQ and dK/dV kernels at b 48, s 512 and 200, and
+   at the Transformer-base shapes of 3 (b 32, separate q, k and v; the
+   probe's weights are 1/sk a link); each
    must agree with the plain version to within half a link's weight,
    so the kernels' own masks equal the plain Philox mask link for link.
-   The kept fraction over all links is reported too. The kernels get
+   The kept fraction over all links is reported too. `head_pad`: the
+   autograd entry at head_dims the kernels lack (32 and 96, run
+   zero-padded to 64 and 128), f32 and bf16 at p 0.1, O, lse and the
+   three gradients against the plain versions at the unpadded head_dim,
+   row by row; each kernel must launch. The kernels get
    the seed as a tensor on the card (seed_card), as a training step
    does; `host_cost` then times the forward wrapper's host side alone
    at GPT-2's 8x128 causal shape: at p 0, and at p 0.1 with an int seed
@@ -460,8 +473,63 @@ Phases, each of which fails the run on any mismatch:
    beside its step time, the idle share. The path launches none of the
    port's own kernels (counted from 0 across the phase).
 
+38. Transformer-base (`transformer_train`, after `mnist_dygraph`): the
+   base model of Vaswani et al. (2017) as their WMT'14 En-De run trains
+   it, written as user code against paddle.nn (`mt_model`):
+   nn.Transformer() at its defaults (d_model 512, 8 heads, 6 + 6
+   layers, FFN 2048, dropout 0.1, ReLU, post-norm), one Embedding(37000,
+   512) shared by source and target and scaled by sqrt(512), a fixed
+   sinusoid table, the output projection tied to the embedding
+   (paddle.matmul(h, emb.weight, transpose_y=True)), 63.1 M parameters;
+   nn.CrossEntropyLoss(soft_label=True) over F.label_smooth(F.one_hot(
+   label, 37000), 0.1); Adam(0.9, 0.98, 1e-9) under NoamDecay(512,
+   4000); TrainStep O1 bf16, batch 32 of 128 source and 96 target
+   synthetic token ids (one length bucket, no padding). Each encoder
+   self-attention and each cross-attention (sq 96, sk 128) takes
+   F.flash_attention, with in-kernel dropout; each causal decoder
+   self-attention takes SDPA, as in the JAX package. From one start
+   state, the first call and 3 replays against 4 eager steps at
+   STEP_SEEDS: losses and every parameter bit-equal; an eager step's
+   routes counted at nn.functional (12 flash_attention calls, 6 SDPA
+   calls); a replay's kernels counted on the card by torch.profiler, at
+   least 12 of each of the three (so the plain versions never stand
+   in). Then 2 warm-up and 10 timed replays (the scheduler stepped):
+   step ms beside the device ms, the idle share, source and target
+   tokens/s, MFU from mt_train_flops (2 x 3 x the multiply-adds counted
+   from the shapes), peak memory, device time by category. Card against
+   CPU: the same function at the CPU tests' tiny size (MT_TINY: d_model
+   32, 4 heads of 8, which the kernels run zero-padded to 64, 2 + 2
+   layers, FFN 64), vocab 97, batch 3 of 12 and 9 tokens, f32, dropout
+   0, weights from SEED, 4 TrainStep steps each (captured on the card):
+   losses within 1e-3 relative.
+39. LSTM seq2seq (`rnn_seq2seq`): an LSTM encoder-decoder at the
+   widths of PaddleNLP's machine_translation/seq2seq example on
+   IWSLT'15 En-Vi (vocabularies 17,191 and 7,709, 512 wide, 2 layers,
+   dropout 0.2; its attention, user code outside paddle.nn, left out),
+   user code against paddle.nn (`seq2seq_model`): nn.LSTM encoder, an
+   nn.LSTMCell decoder run by nn.RNN (teacher forcing) from the top
+   encoder layer's final state, nn.Linear output. 3 eager steps at batch
+   64 of 50 and 50 synthetic tokens, nn.CrossEntropyLoss, Adam(1e-3)
+   with ClipGradByGlobalNorm(5.0): ms a step, losses finite; at dropout
+   0 from the same weights, 3 steps on the card and on the CPU: losses
+   within 1e-3. dynamic_decode(BeamSearchDecoder(cell, 1, 2, beam 10,
+   the target embedding, the output Linear), max_step_num=50) of the 64
+   sentences on the card and on the CPU from the card's trained
+   weights: ms a decoded batch and a step, the steps taken (early exit
+   once every beam has finished), scores within 1e-3 relative, best
+   beams' ids equal wherever the best-beam lead exceeds 10 times the
+   largest card-CPU score gap in nats (the near-ties counted, and the
+   sentences whose best beams are equal), and every beam's ids of every
+   sentence re-scored on the CPU by teacher forcing to within 10 times
+   that gap plus the re-scoring's own, of the score the card gave it
+   (ids that are not the sequence their score belongs to fail).
+   The path launches none of the port's own kernels.
+
 Output: a JSON line per phase; then the
-`kernels` line, the card's nvidia-smi line, and last {"ok": true,
+`kernels` line (each flash kernel with its launches a Transformer-base
+step and its times at the cross-attention and encoder self-attention
+shapes), the card's
+nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
 package is not beside this file, it exits non-zero and prints no result.
 """
@@ -716,6 +784,54 @@ def fwd_bound(b, sq, sk, n, h, causal, dtype_name, dropout_p=0.0,
     return row
 
 
+# Transformer-base's attentions on the kernels, as MultiHeadAttention
+# runs them: b 32, n 8, h 64 at (sq, sk) of MT_SHAPES (the encoder's
+# self-attention at (128, 128), the decoder's cross-attention at (96,
+# 128), and its mirror (128, 96)), q, k and v separate contiguous
+# tensors (three Linears), f32 and bf16, dropout 0 and (bf16) the
+# training path's 0.1
+MT_SHAPES = ((128, 128), (96, 128), (128, 96))
+
+
+def mt_cases():
+    """(b, sq, n, h, causal, dtype, dropout p, sk, separate) of the
+    Transformer-base kernel cases."""
+    return [(32, sq, 8, 64, False, dt, p, sk, True)
+            for sq, sk in MT_SHAPES for dt in ("float32", "bfloat16")
+            for p in ((0.0, DROP_P) if dt == "bfloat16" else (0.0,))]
+
+
+def _unpack(case):
+    """(b, s, n, h, causal, dtype, p, sk, separate) of a kernel case
+    (b, s, n, h, causal, dtype, p[, sk, separate]): sk defaults to s and
+    separate (q, k and v separate tensors) to False (views of one
+    qkv)."""
+    return tuple(case) + ((case[1], False) if len(case) == 7 else ())
+
+
+def _layout(separate):
+    return "separate q, k, v" if separate else "qkv views"
+
+
+def attention_inputs(torch, gen, b, s, sk, n, h, dtype, separate):
+    """q [b, s, n, h], k and v [b, sk, n, h] from `gen`: separate
+    contiguous tensors where `separate` (MultiHeadAttention's three
+    projections), else strided views of one fused qkv tensor (the ERNIE
+    and GPT paths' layout, which needs sk == s)."""
+    if not separate and sk != s:
+        raise ValueError(f"views of one qkv take as many keys as queries, "
+                         f"got s {s}, sk {sk}")
+    dev = torch.device("cuda", 0)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+    if separate:
+        return draw((b, s, n, h)), draw((b, sk, n, h)), draw((b, sk, n, h))
+    qkv = draw((b, s, 3, n, h))
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
 def kernel_phase(torch, fa):
     dev = torch.device("cuda", 0)
     sd = seed_card(torch)
@@ -730,12 +846,10 @@ def kernel_phase(torch, fa):
               for dt in ("float32", "bfloat16") for causal in (False, True)
               for p in ((0.0, DROP_P) if dt == "bfloat16" else (0.0,))]
     rows = []
-    for b, s, nh, hd, causal, dt, p in cases:
-        dtype = getattr(torch, dt)
-        # the main path's layout: q, k, v as strided views of one qkv
-        qkv = torch.randn((b, s, 3, nh, hd), generator=gen, device=dev,
-                          dtype=torch.float32).to(dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    for case in cases + mt_cases():
+        b, s, nh, hd, causal, dt, p, sk, sep = _unpack(case)
+        q, k, v = attention_inputs(torch, gen, b, s, sk, nh, hd,
+                                   getattr(torch, dt), sep)
         scale = 1.0 / math.sqrt(hd)
         o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, sd)
         torch.cuda.synchronize()
@@ -748,9 +862,10 @@ def kernel_phase(torch, fa):
         ok = (rows_ok
               and torch.allclose(o.float(), o_ref.float(), atol=tol, rtol=tol)
               and torch.allclose(lse, lse_ref, atol=tol, rtol=tol))
-        row = dict(dtype=dt, b=b, s=s, n=nh, h=hd, causal=causal,
-                   dropout_p=p, max_abs_err=err_o, worst_row=ratio,
-                   lse_max_abs_err=err_lse, tol=tol, ok=bool(ok))
+        row = dict(dtype=dt, b=b, s=s, sk=sk, n=nh, h=hd, causal=causal,
+                   dropout_p=p, layout=_layout(sep), max_abs_err=err_o,
+                   worst_row=ratio, lse_max_abs_err=err_lse, tol=tol,
+                   ok=bool(ok))
         if not ok:
             emit({"kernel_case": row})
             fail(f"flash_attn_fwd disagrees with its plain version: {row}")
@@ -765,11 +880,11 @@ def kernel_phase(torch, fa):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale, dropout_p=p),
             reps=20)
-        bound = fwd_bound(b, s, s, nh, hd, causal, dt)
+        bound = fwd_bound(b, s, sk, nh, hd, causal, dt)
         row["bound_ms"], row["bound_by"] = bound["bound_ms"], bound["bound_by"]
         emit({"kernel_case": row})
         rows.append(row)
-        del qkv, q, k, v, o, lse, o_ref, lse_ref
+        del q, k, v, o, lse, o_ref, lse_ref
     torch.cuda.empty_cache()
     return rows
 
@@ -912,20 +1027,21 @@ def bwd_kernel_phase(torch, fa, philox):
     cases += [(b, 200, n, h, True, "bfloat16", DROP_P)]
     cases += [(8, 256, 8, 128, causal, dt, 0.0)
               for dt in ("float32", "bfloat16") for causal in (False, True)]
-    return [bwd_kernel_case(torch, fa, gen, case, philox) for case in cases]
+    return [bwd_kernel_case(torch, fa, gen, case, philox)
+            for case in cases + mt_cases()]
 
 
 def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
-    """One case (b, s, n, h, causal, dtype, dropout p) of the backward
-    kernels (and the forward, in bf16 and with dropout) against their
-    plain versions, with their times and bounds; emitted under `tag`."""
+    """One case (b, s, n, h, causal, dtype, dropout p[, sk, separate])
+    of the backward kernels (and the forward, in bf16 and with dropout)
+    against their plain versions, with their times and bounds; emitted
+    under `tag`. sk (the key length) defaults to s, and q, k and v to
+    views of one qkv tensor (_unpack, attention_inputs)."""
     sd = seed_card(torch)
     dev = torch.device("cuda", 0)
-    b_, s, nh, hd, causal, dt, p = case
+    b_, s, nh, hd, causal, dt, p, sk, sep = _unpack(case)
     dtype = getattr(torch, dt)
-    qkv = torch.randn((b_, s, 3, nh, hd), generator=gen, device=dev,
-                      dtype=torch.float32).to(dtype)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    q, k, v = attention_inputs(torch, gen, b_, s, sk, nh, hd, dtype, sep)
     do = torch.randn((b_, s, nh, hd), generator=gen, device=dev,
                      dtype=torch.float32).to(dtype)
     scale = 1.0 / math.sqrt(hd)
@@ -936,8 +1052,8 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
     ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                        scale, p, DROP_SEED)
     torch.cuda.synchronize()
-    row = dict(dtype=dt, b=b_, s=s, n=nh, h=hd, causal=causal,
-               dropout_p=p)
+    row = dict(dtype=dt, b=b_, s=s, sk=sk, n=nh, h=hd, causal=causal,
+               dropout_p=p, layout=_layout(sep))
     ok = True
     row["tol"] = TOL[dt]
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
@@ -995,7 +1111,7 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
                                   - time_ms(lib_f, reps=10))
     for kern in ("dq", "dkv"):
         row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = bwd_bound_ms(
-            kern, b_, s, s, nh, hd, causal, dt)
+            kern, b_, s, sk, nh, hd, causal, dt)
     if with_fwd:
         # the forward beside SDPA's forward at the same dropout p
         row["fwd_ms"] = time_ms(lambda: fa._flash_fwd_cuda(
@@ -1005,62 +1121,82 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
                 q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED),
             reps=2, warmup=1)
         row["fwd_library_ms"] = time_ms(lib_f, reps=20)
-        bound = fwd_bound(b_, s, s, nh, hd, causal, dt, p,
+        bound = fwd_bound(b_, s, sk, nh, hd, causal, dt, p,
                           philox if hd == 64 else None)
         row["fwd_bound_ms"], row["fwd_bound_by"] = (bound["bound_ms"],
                                                     bound["bound_by"])
         row["fwd_bound"] = bound
     emit({tag: row})
-    del qkv, q, k, v, do, o, lse, dq, dk, dv, ref
+    del q, k, v, do, o, lse, dq, dk, dv, ref
     torch.cuda.empty_cache()
     return row
 
 
 def mask_probe_phase(torch, fa):
     """The kernels' own dropout masks, link for link, at the training
-    path's shapes (b 48, s 512 and 200, non-causal; mask_probe_case)."""
+    path's shapes (b 48, s 512 and 200, non-causal; mask_probe_case) and
+    at Transformer-base's (b 32, n 8, h 64, MT_SHAPES, separate q, k
+    and v)."""
     b, n = TRAIN_BATCH[0], BASE["num_attention_heads"]
     h = BASE["hidden_size"] // n
-    return [mask_probe_case(torch, fa, b, n, h, s, dt, causal=False)
+    rows = [mask_probe_case(torch, fa, b, n, h, s, dt, causal=False)
             for dt in ("bfloat16", "float32") for s in (TRAIN_BATCH[1], 200)]
+    # Transformer-base (mt_cases' shapes and layout)
+    return rows + [mask_probe_case(torch, fa, 32, 8, 64, sq, dt,
+                                   causal=False, sk=sk, separate=True)
+                   for dt in ("bfloat16", "float32")
+                   for sq, sk in MT_SHAPES]
 
 
-def mask_probe_case(torch, fa, b, n, h, s, dt, causal):
-    """One probe of the kernels' dropout masks, link for link. q and k
-    live on disjoint halves of head_dim (q[i, c] = 1 where c < h/2 and
-    i % (h/2) == c; k[j, c] = 1 where c >= h/2 and j % (h/2) == c - h/2),
-    so QK^T = 0 and every probability of row i is 1/n_i, n_i the keys
-    it sees (s, or i + 1 causal).
+def mask_probe_case(torch, fa, b, n, h, s, dt, causal, sk=None,
+                    separate=False):
+    """One probe of the kernels' dropout masks, link for link, at s
+    queries and sk keys (sk defaults to s; causal needs sk == s). q and
+    k live on disjoint halves of head_dim (q[i, c] = 1 where c < h/2
+    and i % (h/2) == c; k[j, c] = 1 where c >= h/2 and j % (h/2) == c -
+    h/2), so QK^T = 0 and every probability of row i is 1/n_i, n_i the
+    keys it sees (sk, or i + 1 causal).
     Forward: v[j, c] = 1 where j % h == c, so O[i, c] is the number of
     kept links (i, j) with j % h == c, times w_i = 1 / (n_i (1 - p)).
-    Backward: v = 1 and dO[i, c] = n_i / s where i % h == c (1 when
-    non-causal), so every link weighs w = 1 / (s (1 - p)). Then dV[j, c]
+    Backward: v = 1 and dO[i, c] = n_i / sk where i % h == c (1 when
+    non-causal), so every link weighs w = 1 / (sk (1 - p)). Then dV[j, c]
     counts the kept links (i, j) with i % h == c (times w); dQ[i, c],
     c >= h/2, sums keep/(1-p) - delta_i over the keys j % (h/2) == c -
     h/2, and dK[j, c], c < h/2, over the rows i % (h/2) == c (times
-    scale n_i / s). Every link lands in one element of each output, so a
-    wrong bit moves that element by one link's weight (w_i for O, w for
-    dV, scale w for dQ and dK): each kernel must agree with the plain
+    scale n_i / sk). Every link lands in one element of each output, so
+    a wrong bit moves that element by one link's weight (w_i for O, w
+    for dV, scale w for dQ and dK): each kernel must agree with the plain
     version (the same Philox mask, f32 math, the same dO) to within half
     of it. Outputs stay small counts, so bf16 rounds them by far less
-    than that."""
+    than that. q, k and v are separate tensors where `separate`, else
+    views of one qkv tensor (attention_inputs)."""
+    sk = s if sk is None else sk
+    if causal and sk != s:
+        raise ValueError("the causal probe takes as many keys as queries")
+    if not separate and sk != s:
+        raise ValueError("views of one qkv take as many keys as queries")
     sd = seed_card(torch)
     half = h // 2
     dev = torch.device("cuda", 0)
     scale = 1.0 / math.sqrt(h)
     dtype = getattr(torch, dt)
     i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(sk, device=dev)[:, None]
     c = torch.arange(h, device=dev)[None, :]
-    seen = (i[:, 0] + 1 if causal else torch.full((s,), s, device=dev)
+    seen = (i[:, 0] + 1 if causal else torch.full((s,), sk, device=dev)
             ).double()
-    vpat = (i % h == c)[None, :, None, :]
-    qkv = torch.zeros((b, s, 3, n, h), device=dev, dtype=dtype)
-    qkv[:, :, 0] = ((c < half) & (i % half == c))[None, :, None, :]
-    qkv[:, :, 1] = ((c >= half) & (i % half == c - half))[None, :, None, :]
-    qkv[:, :, 2] = vpat
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if separate:
+        q = torch.zeros((b, s, n, h), device=dev, dtype=dtype)
+        k, v = (torch.zeros((b, sk, n, h), device=dev, dtype=dtype)
+                for _ in range(2))
+    else:
+        qkv = torch.zeros((b, s, 3, n, h), device=dev, dtype=dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    q[:] = ((c < half) & (i % half == c))[None, :, None, :]
+    k[:] = ((c >= half) & (j % half == c - half))[None, :, None, :]
+    v[:] = (j % h == c)[None, :, None, :]
     w_row = (1.0 / (seen * (1.0 - DROP_P)))[None, :, None, None]
-    w = 1.0 / (s * (1.0 - DROP_P))
+    w = 1.0 / (sk * (1.0 - DROP_P))
     o, _ = fa._flash_fwd_cuda(q, k, v, causal, scale, DROP_P, sd)
     o_ref, _ = fa.flash_attention_fwd_plain(
         q.float(), k.float(), v.float(), causal, scale, dropout_p=DROP_P,
@@ -1070,9 +1206,9 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal):
     links = b * n * int(seen.sum().item())
     kept = ((o.double() / w_row).round().sum() / links).item()
     del o_ref
-    qkv[:, :, 2] = 1
-    do = (vpat * (seen / s)[None, :, None, None]).expand(b, s, n, h) \
-        .to(dtype).contiguous()
+    v[:] = 1
+    do = ((i % h == c)[None, :, None, :] * (seen / sk)[None, :, None, None]
+          ).expand(b, s, n, h).to(dtype).contiguous()
     o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, DROP_P, DROP_SEED)
     got = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, DROP_P,
                              sd)
@@ -1082,18 +1218,75 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal):
     for name, a, r, unit in zip(("dq", "dk", "dv"), got, ref,
                                 (scale * w, scale * w, w)):
         err[name] = (a.float() - r).abs().max().item() / unit
-    row = dict(dtype=dt, b=b, s=s, n=n, h=h, causal=causal,
-               dropout_p=DROP_P, links=links, kept_fraction=kept,
-               expected=1.0 - DROP_P, max_err_in_links=err,
-               tol_in_links=0.5)
+    row = dict(dtype=dt, b=b, s=s, sk=sk, n=n, h=h, causal=causal,
+               dropout_p=DROP_P, layout=_layout(separate), links=links,
+               kept_fraction=kept, expected=1.0 - DROP_P,
+               max_err_in_links=err, tol_in_links=0.5)
     row["ok"] = (all(e < 0.5 for e in err.values())
                  and abs(kept - (1.0 - DROP_P)) < 1e-3)
     emit({"mask_probe": row})
     if not row["ok"]:
         fail(f"a kernel's dropout mask is off: {row}")
-    del qkv, q, k, v, o, lse, do, got, ref
+    del q, k, v, o, lse, do, got, ref
     torch.cuda.empty_cache()
     return row
+
+
+# head_dims the kernels lack, run zero-padded to kernel_head_dim:
+# nn.Transformer(256, 8)'s 32 and 96 (padded to 128), at the
+# cross-attention shape (b 32, n 8, sq 96, sk 128, separate q, k, v)
+PAD_HEAD_DIMS = (32, 96)
+
+
+def head_pad_phase(torch, fa):
+    """flash_attention_fwd (the autograd entry MultiHeadAttention
+    reaches) at each of PAD_HEAD_DIMS, f32 at p 0 and bf16 at p DROP_P:
+    O, lse and dQ, dK, dV through the kernels (each must launch) against
+    the plain versions at the unpadded head_dim, held row by row at
+    TOL."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    rows = []
+    for h in PAD_HEAD_DIMS:
+        for dt, p in (("float32", 0.0), ("bfloat16", DROP_P)):
+            sd = seed_card(torch)
+            q, k, v = (t.requires_grad_() for t in attention_inputs(
+                torch, gen, 32, 96, 128, 8, h, getattr(torch, dt), True))
+            do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+            before = dict(fa.launches)
+            o, lse = fa.flash_attention_fwd(q, k, v, dropout_p=p, seed=sd)
+            o.backward(do)
+            torch.cuda.synchronize()
+            launched = {n: fa.launches[n] - before[n] for n in fa.launches}
+            scale = 1.0 / math.sqrt(h)
+            qd, kd, vd = q.detach(), k.detach(), v.detach()
+            o_ref, lse_ref = fa.flash_attention_fwd_plain(
+                qd, kd, vd, False, scale, dropout_p=p, seed=DROP_SEED)
+            ref = fa.flash_attention_bwd_plain(
+                qd, kd, vd, o.detach(), lse, do, False, scale, p, DROP_SEED)
+            row = dict(dtype=dt, b=32, s=96, sk=128, n=8, h=h,
+                       kernel_head_dim=fa.kernel_head_dim(h), dropout_p=p,
+                       layout=_layout(True), launches=launched,
+                       lse_max_abs_err=(lse - lse_ref).abs().max().item(),
+                       tol=TOL[dt])
+            ok = row["lse_max_abs_err"] <= TOL[dt] and all(launched.values())
+            for name, got, want in zip(("o", "dq", "dk", "dv"),
+                                       (o, q.grad, k.grad, v.grad),
+                                       (o_ref, *ref)):
+                err, ratio, good = _row_err_ok(got, want, dt)
+                row[f"{name}_max_abs_err"], row[f"{name}_worst_row"] = \
+                    err, ratio
+                ok &= good
+            row["ok"] = bool(ok)
+            emit({"head_pad_case": row})
+            if not ok:
+                fail(f"flash attention at a padded head_dim disagrees with "
+                     f"its plain version or launched no kernel: {row}")
+            rows.append(row)
+            del q, k, v, do, o, lse, o_ref, lse_ref, ref
+    torch.cuda.empty_cache()
+    return rows
 
 
 def run_batches(torch, pt, fa, model, dtype_name, gen, keep):
@@ -6316,6 +6509,628 @@ def mnist_dygraph_phase(torch, pt, fa, nms, smi):
     return row
 
 
+# -- the rest of paddle.nn: Transformer-base and an LSTM seq2seq -------------------
+
+# Transformer-base as Vaswani et al. (2017) trained it on WMT'14 En-De:
+# paddle.nn.Transformer's defaults (d_model 512, 8 heads, 6 + 6 layers,
+# FFN 2048, dropout 0.1, ReLU, post-norm), one shared BPE vocabulary of
+# about 37,000 tokens, label smoothing 0.1, Adam(0.9, 0.98, 1e-9) under
+# the Noam schedule (4000 warm-up steps). Synthetic token ids from the
+# seed: one length bucket of 32 pairs, source 128 and target 96 tokens,
+# no padding.
+MT_VOCAB = 37000
+MT_BASE = dict(d_model=512, nhead=8, num_encoder_layers=6,
+               num_decoder_layers=6, dim_feedforward=2048, dropout=0.1)
+MT_BATCH, MT_SRC, MT_TGT = 32, 128, 96
+MT_SMOOTH, MT_NOAM_WARMUP = 0.1, 4000
+MT_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)
+MT_BOS = 1                       # ids 0-2: pad, bos, eos; words from 3
+MT_WARMUP, MT_STEPS = 2, 10
+# card against CPU: the CPU tests' tiny model (MT_TINY, head_dim 8, which
+# the kernels run zero-padded to 64), f32, dropout 0, weights from SEED
+MT_CPU_SHAPE = dict(vocab=97, batch=3, src=12, tgt=9)
+MT_CPU_STEPS, MT_CPU_RTOL = 4, 1e-3
+# the CPU tests' tiny MT model
+MT_TINY = dict(d_model=32, nhead=4, num_encoder_layers=2,
+               num_decoder_layers=2, dim_feedforward=64, dropout=0.0)
+# per step: 6 encoder self-attentions and 6 cross-attentions on the
+# kernels; the 6 causal decoder self-attentions on SDPA
+MT_FLASH_PER_STEP, MT_SDPA_PER_STEP = 12, 6
+
+
+def sinusoid_table(np, positions, d_model):
+    """The fixed sinusoid position table of Vaswani et al. (2017):
+    sin at even features, cos at odd, wavelengths 2 pi .. 10000 2 pi."""
+    pos = np.arange(positions)[:, None]
+    i = np.arange(d_model)[None, :]
+    angle = pos / np.power(10000.0, (2 * (i // 2)) / d_model)
+    table = np.where(i % 2 == 0, np.sin(angle), np.cos(angle))
+    return table.astype(np.float32)
+
+
+def mt_model(paddle, vocab, max_len, **cfg):
+    """A translation model written against the public nn API of
+    `paddle` (either package): paddle.nn.Transformer(**cfg), one
+    Embedding shared by source and target and scaled by sqrt(d_model),
+    the sinusoid table added (a buffer), dropout on the sums, the
+    decoder's causal mask from generate_square_subsequent_mask, and the
+    output projection tied to the embedding (matmul with transpose_y).
+    forward(src, tgt) -> logits [b, t, vocab]."""
+    import numpy as np
+    nn = paddle.nn
+    d = cfg.get("d_model", 512)
+    drop = cfg.get("dropout", 0.1)
+
+    class TranslationModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(vocab, d)
+            self.transformer = nn.Transformer(**cfg)
+            self.dropout = nn.Dropout(drop)
+            self.register_buffer(
+                "pos", paddle.to_tensor(sinusoid_table(np, max_len, d)))
+
+        def embed(self, ids):
+            x = self.emb(ids) * math.sqrt(d) + self.pos[:ids.shape[1]]
+            return self.dropout(x)
+
+        def forward(self, src, tgt):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt.shape[1])
+            h = self.transformer(self.embed(src), self.embed(tgt),
+                                 tgt_mask=mask)
+            return paddle.matmul(h, self.emb.weight, transpose_y=True)
+
+    return TranslationModel()
+
+
+def mt_loss(paddle, vocab, epsilon=MT_SMOOTH):
+    """Label-smoothed cross entropy: nn.CrossEntropyLoss(soft_label=True)
+    over F.label_smooth(F.one_hot(label, vocab), epsilon)."""
+    F = paddle.nn.functional
+    ce = paddle.nn.CrossEntropyLoss(soft_label=True)
+
+    def loss(logits, label):
+        return ce(logits, F.label_smooth(F.one_hot(label, vocab),
+                                         epsilon=epsilon))
+    return loss
+
+
+def mt_optimizer(paddle, d_model, warmup, learning_rate=1.0):
+    """(Adam(0.9, 0.98, 1e-9), its NoamDecay(d_model, warmup))."""
+    sched = paddle.optimizer.lr.NoamDecay(
+        d_model=d_model, warmup_steps=warmup, learning_rate=learning_rate)
+    return paddle.optimizer.Adam(learning_rate=sched, **MT_ADAM), sched
+
+
+def mt_batch(np, b, s_src, s_tgt, vocab, seed=SEED):
+    """(src [b, s_src], tgt_in [b, s_tgt], tgt_out [b, s_tgt]) int64 word
+    ids in [3, vocab) from numpy `seed`; tgt_in is tgt_out shifted right
+    behind MT_BOS (teacher forcing)."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(3, vocab, (b, s_src)).astype(np.int64)
+    out = rng.randint(3, vocab, (b, s_tgt)).astype(np.int64)
+    tin = np.concatenate([np.full((b, 1), MT_BOS, np.int64), out[:, :-1]],
+                         1)
+    return src, tin, out
+
+
+def mt_train_flops(b, s_src, s_tgt, vocab, d_model, dim_feedforward,
+                   num_encoder_layers, num_decoder_layers, **_):
+    """A training step's FLOPs, from the shapes: 2 per multiply-add and 3
+    passes (the forward and the backward's two products). Per encoder
+    token and layer: q, k, v, out projections 4 d^2, the FFN 2 d ff, and
+    QK^T and PV 2 s_src d. Per decoder token and layer: self-attention's
+    projections 4 d^2 and products 2 s_tgt d (SDPA computes the masked
+    half too), cross-attention's q and out projections 2 d^2 (its k and v
+    projections 2 d^2 run on each encoder token) and products 2 s_src d,
+    the FFN 2 d ff. The tied output projection d x vocab per target
+    token. The embedding gathers, norms, softmaxes and the loss are not
+    counted."""
+    d, ff = d_model, dim_feedforward
+    n_src, n_tgt = b * s_src, b * s_tgt
+    enc = num_encoder_layers * n_src * (4 * d * d + 2 * d * ff
+                                        + 2 * s_src * d)
+    dec = num_decoder_layers * (
+        n_tgt * (4 * d * d + 2 * s_tgt * d + 2 * d * d + 2 * s_src * d
+                 + 2 * d * ff) + n_src * 2 * d * d)
+    head = n_tgt * d * vocab
+    macs = enc + dec + head
+    return dict(macs_encoder=enc, macs_decoder=dec, macs_head=head,
+                macs=macs, flops=3 * 2 * macs)
+
+
+def transformer_train_gates(row):
+    """The transformer_train phase's failures, each a message (empty:
+    ok)."""
+    bad = []
+    cap = row["captured_vs_eager"]
+    if not (cap["losses_bit_equal"] and cap["params_bit_equal"]):
+        bad.append(f"the replay is not bit-equal to the eager step: {cap}")
+    if row["graphs"] != 1 or row["sentinel_events"] != 0:
+        bad.append(f"{row['graphs']} graphs and {row['sentinel_events']} "
+                   "sentinel events for one signature")
+    low = {k: v for k, v in row["launches_per_step"].items()
+           if not v >= MT_FLASH_PER_STEP}
+    if low:
+        bad.append(f"flash kernel launches a step below "
+                   f"{MT_FLASH_PER_STEP}: {low}")
+    routes = row["routes_per_eager_step"]
+    if routes != {"flash_attention": MT_FLASH_PER_STEP,
+                  "scaled_dot_product_attention": MT_SDPA_PER_STEP}:
+        bad.append(f"attention routes of an eager step: {routes}")
+    if not all(math.isfinite(v) for v in row["losses"]):
+        bad.append(f"non-finite losses {row['losses']}")
+    cpu = row["card_vs_cpu"]
+    if not cpu["max_rel"] <= MT_CPU_RTOL:
+        bad.append(f"card and CPU differ: {cpu}")
+    if not 0 < row["mfu"] < 1:
+        bad.append(f"MFU {row['mfu']} outside (0, 1)")
+    return bad
+
+
+class _OnCpu:
+    """The port's current place set to the CPU inside, restored after
+    (the entry points' default device)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.core import place
+        self.saved = place._current_place
+        place.set_device("cpu")
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.core import place
+        place._current_place = self.saved
+
+
+class _CountCalls:
+    """Counts the calls of functions of a module while active (the
+    attention routes MultiHeadAttention takes: it calls them through
+    the nn.functional module)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.counts = {n: 0 for n in names}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n in self.names:
+            def wrap(*a, _n=n, **k):
+                self.counts[_n] += 1
+                return self.saved[_n](*a, **k)
+            setattr(self.module, n, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def _mt_step(torch, pt, cfg, vocab, batch, device, amp=True, seed=SEED):
+    """(model, TrainStep, its NoamDecay, (src, tgt_in), (tgt_out,)) of
+    mt_model at `cfg` on `device`, weights from `seed`,
+    Noam(d_model, MT_NOAM_WARMUP)."""
+    import numpy as np
+    from paddle_tpu_torch.static import TrainStep
+    b, s, t = batch
+    pt.seed(seed)
+    model = mt_model(pt, vocab, max(s, t), **cfg)
+    opt, sched = mt_optimizer(pt, cfg["d_model"], MT_NOAM_WARMUP)
+    kw = dict(amp_level="O1", amp_dtype="bfloat16") if amp else {}
+    step = TrainStep(model, mt_loss(pt, vocab), opt, **kw)
+    src, tin, tout = (torch.from_numpy(a).to(device)
+                      for a in mt_batch(np, b, s, t, vocab))
+    return model, step, sched, (src, tin), (tout,)
+
+
+def transformer_cpu_check(torch, pt):
+    """mt_model at MT_TINY (head_dim 8), f32, dropout 0, weights from
+    SEED: MT_CPU_STEPS TrainStep steps on the card (captured) and on the
+    CPU (eager) from the same weights and batch, the scheduler stepped
+    after each: every loss within MT_CPU_RTOL relative. The card's
+    attention runs the f32 kernels at head_dim 8 padded to 64, at (sq
+    12, sk 12) and, cross, (9, 12)."""
+    sh = MT_CPU_SHAPE
+    batch = (sh["batch"], sh["src"], sh["tgt"])
+    with _OnCpu():
+        cpu_model, cpu, cpu_sched, cx, cy = _mt_step(
+            torch, pt, MT_TINY, sh["vocab"], batch, "cpu", amp=False)
+    card_model, card, card_sched, gx, gy = _mt_step(
+        torch, pt, MT_TINY, sh["vocab"], batch, "cuda", amp=False)
+    card_model.set_state_dict({k: v.detach() for k, v in
+                               cpu_model.state_dict().items()})
+    losses = {"card": [], "cpu": []}
+    for _ in range(MT_CPU_STEPS):
+        losses["card"].append(float(card(gx, gy)))
+        with _OnCpu():
+            losses["cpu"].append(float(cpu(cx, cy)))
+        card_sched.step()
+        cpu_sched.step()
+    graphs = card.programs
+    card.release()
+    rel = [_rel_diff(a, c) for a, c in zip(losses["card"], losses["cpu"])]
+    return dict(config=dict(MT_TINY, **sh), dtype="float32",
+                steps=MT_CPU_STEPS, losses_card=losses["card"],
+                losses_cpu=losses["cpu"], loss_rel_diff=rel,
+                max_rel=max(rel), card_graphs=graphs, rtol=MT_CPU_RTOL)
+
+
+def transformer_train_phase(torch, pt, fa):
+    """Transformer-base (MT_BASE, vocab MT_VOCAB, ~63 M parameters)
+    trained through the captured TrainStep, O1 bf16, at MT_BATCH pairs
+    of MT_SRC source and MT_TGT target tokens. From one start state the
+    first call and 3 replays against 4 eager steps at STEP_SEEDS:
+    losses and every parameter bit-equal. The attention routes of an
+    eager step counted at nn.functional (MT_FLASH_PER_STEP calls of
+    flash_attention, MT_SDPA_PER_STEP of scaled_dot_product_attention);
+    the kernels a replay launches counted on the card by torch.profiler
+    (profile_step). Then MT_WARMUP + MT_STEPS replays on a synchronised
+    host clock, the scheduler stepped after each: step ms beside the
+    device ms of a replay and its categories, the idle share, source and
+    target tokens/s, MFU from mt_train_flops, peak memory over the first
+    call. Last, transformer_cpu_check."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model, step, sched, x, y = _mt_step(torch, pt, MT_BASE, MT_VOCAB,
+                                        (MT_BATCH, MT_SRC, MT_TGT), "cuda")
+    s0 = _to_cpu(step.state_dict())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa)
+    graph_losses = []
+    for sd in STEP_SEEDS:
+        graph_losses.append(float(step(x, y, seed=sd)))
+        if len(graph_losses) == 1:
+            warm = dict(step.last_launches)
+            peak = torch.cuda.max_memory_allocated()
+    graph_params = _snapshot(step)
+    step.set_state_dict(s0)
+    F = pt.nn.functional
+    with _CountCalls(F, ("flash_attention",
+                         "scaled_dot_product_attention")) as routes:
+        eager_losses = [float(step.eager_step(x, y, seed=sd))
+                        for sd in STEP_SEEDS]
+    eager_params = _snapshot(step)
+    cap = dict(steps=len(STEP_SEEDS), step_seeds=STEP_SEEDS,
+               graph_losses=graph_losses, eager_losses=eager_losses,
+               losses_bit_equal=graph_losses == eager_losses,
+               params_bit_equal=_bit_equal(graph_params, eager_params),
+               params_max_abs_diff=_max_abs_diff(graph_params, eager_params))
+    del graph_params, eager_params
+    eager_ms = time_ms(lambda: step.eager_step(x, y), reps=3, warmup=1)
+    for _ in range(MT_WARMUP):
+        step(x, y)
+        sched.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(MT_STEPS):
+        last = step(x, y)
+        sched.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    prof = profile_step(torch, step, x, y)
+    step_ms = secs / MT_STEPS * 1e3
+    work = mt_train_flops(MT_BATCH, MT_SRC, MT_TGT, MT_VOCAB, **MT_BASE)
+    row = dict(card=nvidia_smi(), model="Transformer-base",
+               config=dict(MT_BASE, vocab=MT_VOCAB, tied_embeddings=True),
+               batch=MT_BATCH, src_len=MT_SRC, tgt_len=MT_TGT,
+               amp="O1 bfloat16", optimizer="Adam(0.9, 0.98, 1e-9), "
+               f"NoamDecay(512, {MT_NOAM_WARMUP})",
+               params=sum(p.numel() for p in step.params),
+               captured_vs_eager=cap, graphs=step.programs,
+               captures=step.captures, replays=step.replays,
+               sentinel_events=step.recompile_sentinel.fired,
+               routes_per_eager_step={k: v // len(STEP_SEEDS)
+                                      for k, v in routes.counts.items()},
+               warmup_launches=warm,
+               launches_per_step=prof["launches_per_replay"],
+               launches=_sum_launches([warm, prof["kernel_launches"]]),
+               counted_calls=COUNTED_CALLS,
+               losses=graph_losses + [float(last)],
+               warmup_steps=MT_WARMUP, timed_steps=MT_STEPS,
+               step_ms=step_ms, eager_step_ms=eager_ms,
+               device_ms_per_step=prof["device_ms"],
+               idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               tgt_tokens_per_s=MT_BATCH * MT_TGT * MT_STEPS / secs,
+               src_tokens_per_s=MT_BATCH * MT_SRC * MT_STEPS / secs,
+               work=work, mfu=work["flops"] / (step_ms / 1e3)
+               / PEAK_FLOPS["bfloat16"],
+               mfu_device=work["flops"] / (prof["device_ms"] / 1e3)
+               / PEAK_FLOPS["bfloat16"],
+               peak_memory_bytes=peak, peak_above_base_bytes=peak - base,
+               kernel_launches_per_replay=prof["events"],
+               profile=_profile_row(prof, top=12))
+    step.release()
+    del model, step, x, y
+    torch.cuda.empty_cache()
+    row["card_vs_cpu"] = transformer_cpu_check(torch, pt)
+    row["seconds"] = time.perf_counter() - t0
+    emit({"transformer_train": row})
+    bad = transformer_train_gates(row)
+    if bad:
+        fail("transformer_train: " + "; ".join(bad))
+    return row
+
+
+# An LSTM encoder-decoder at the widths of PaddleNLP's
+# machine_translation/seq2seq example on IWSLT'15 En-Vi (vocabularies
+# 17,191 and 7,709, embeddings and hidden 512, 2 layers, dropout 0.2,
+# Adam(1e-3), global-norm clip 5.0, beam 10); the example's attention is
+# user code outside paddle.nn and is left out. Synthetic token ids from
+# the seed, batch 64 of 50 source and 50 target tokens.
+S2S = dict(src_vocab=17191, tgt_vocab=7709, hidden=512, layers=2,
+           dropout=0.2)
+S2S_BATCH, S2S_LEN = 64, 50
+S2S_LR, S2S_CLIP = 1e-3, 5.0
+S2S_STEPS = 3
+S2S_BEAM, S2S_MAX_STEPS = 10, 50
+S2S_BOS, S2S_EOS = 1, 2
+S2S_RTOL = 1e-3
+# a near-tie: a best-beam lead within S2S_TIE_FACTOR times the two
+# devices' largest score difference; a re-score off its beam's score by
+# as many times that and the re-scoring's own (decode_agreement)
+S2S_TIE_FACTOR = 10
+# the CPU tests' tiny seq2seq
+S2S_TINY = dict(src_vocab=23, tgt_vocab=11, hidden=8, layers=2, dropout=0.0)
+
+
+def seq2seq_model(paddle, src_vocab, tgt_vocab, hidden, layers, dropout):
+    """An LSTM encoder-decoder written against the public nn API of
+    `paddle` (either package): Embedding(src_vocab, hidden) into
+    LSTM(hidden, hidden, layers, dropout); the decoder an
+    Embedding(tgt_vocab, hidden), one LSTMCell(hidden, hidden) run by
+    nn.RNN (teacher forcing) and seeded with the top encoder layer's
+    final (h, c), and Linear(hidden, tgt_vocab). forward(src, tgt_in) ->
+    logits [b, t, tgt_vocab]; encode(src) -> the decoder's first
+    state."""
+    nn = paddle.nn
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_emb = nn.Embedding(src_vocab, hidden)
+            self.encoder = nn.LSTM(hidden, hidden, num_layers=layers,
+                                   dropout=dropout)
+            self.tgt_emb = nn.Embedding(tgt_vocab, hidden)
+            self.decoder = nn.RNN(nn.LSTMCell(hidden, hidden))
+            self.out = nn.Linear(hidden, tgt_vocab)
+
+        def encode(self, src):
+            _, (h, c) = self.encoder(self.src_emb(src))
+            return h[-1], c[-1]
+
+        def forward(self, src, tgt_in):
+            y, _ = self.decoder(self.tgt_emb(tgt_in), self.encode(src))
+            return self.out(y)
+
+    return Seq2Seq()
+
+
+def seq2seq_batch(np, b, s, t, src_vocab, tgt_vocab, seed=SEED):
+    """(src [b, s], tgt_in [b, t], tgt_out [b, t]) int64 word ids from 3
+    up, from numpy `seed`; tgt_in is tgt_out shifted right behind
+    S2S_BOS."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(3, src_vocab, (b, s)).astype(np.int64)
+    out = rng.randint(3, tgt_vocab, (b, t)).astype(np.int64)
+    tin = np.concatenate([np.full((b, 1), S2S_BOS, np.int64), out[:, :-1]],
+                         1)
+    return src, tin, out
+
+
+def seq2seq_train(paddle, model, batch, steps, lr=S2S_LR, clip=S2S_CLIP):
+    """`steps` eager teacher-forced steps on one batch (src, tgt_in,
+    tgt_out tensors): nn.CrossEntropyLoss, Adam(lr) with
+    ClipGradByGlobalNorm(clip); the losses as floats."""
+    ce = paddle.nn.CrossEntropyLoss()
+    opt = paddle.optimizer.Adam(
+        learning_rate=lr, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(clip))
+    src, tin, tout = batch
+    losses = []
+    for _ in range(steps):
+        loss = ce(model(src, tin), tout)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return losses
+
+
+def beam_decode(paddle, model, src, beam=S2S_BEAM, max_steps=S2S_MAX_STEPS):
+    """dynamic_decode of a BeamSearchDecoder over the decoder's cell (the
+    target embedding in, the output Linear out), from encode(src):
+    (ids [b, T, beam], final scores [b, beam])."""
+    nn = paddle.nn
+    dec = nn.BeamSearchDecoder(model.decoder.cell, start_token=S2S_BOS,
+                               end_token=S2S_EOS, beam_size=beam,
+                               embedding_fn=model.tgt_emb,
+                               output_fn=model.out)
+    return nn.dynamic_decode(dec, inits=model.encode(src),
+                             max_step_num=max_steps)
+
+
+def seq2seq_rescore(np, paddle, model, src, ids):
+    """The teacher-forced score of every beam of ids [b, T, W] (word ids
+    from a decode) under `model` (either package): the sum of
+    log-softmax(model(src, [S2S_BOS, seq[:, :-1]])) at the beam's tokens
+    up to and including its first S2S_EOS, as beam search sums them (a
+    finished beam adds nothing more). float64 numpy [b, W]."""
+    ids = np.asarray(ids)
+    b = ids.shape[0]
+    out = []
+    for w in range(ids.shape[2]):
+        seq = ids[:, :, w]
+        tin = np.concatenate([np.full((b, 1), S2S_BOS, np.int64),
+                              seq[:, :-1]], 1)
+        logits = np.asarray(model(src, paddle.to_tensor(tin)).numpy(),
+                            np.float64)
+        mx = logits.max(-1, keepdims=True)
+        logp = logits - mx - np.log(np.exp(logits - mx).sum(-1,
+                                                            keepdims=True))
+        picked = np.take_along_axis(logp, seq[..., None], -1)[..., 0]
+        end = seq == S2S_EOS
+        live = (np.cumsum(end, 1) - end) == 0
+        out.append((picked * live).sum(1))
+    return np.stack(out, 1)
+
+
+def decode_agreement(np, ids, scores, ref_ids, ref_scores, rescored,
+                     ref_rescored, rtol=S2S_RTOL, factor=S2S_TIE_FACTOR):
+    """Card decode (ids [b, T, W], scores [b, W]) against the CPU's (ref_
+    ids, ref_scores), with every beam of each side re-scored on the CPU
+    by seq2seq_rescore (rescored, ref_rescored [b, W]).
+    - max_score_rel: the largest relative score difference, all beams;
+      gap: the largest absolute one (nats), the two devices'
+      disagreement.
+    - near_ties: the sentences whose CPU best beam leads the next by at
+      most tie = factor * gap nats (an order the two devices' sums, or
+      their pruning of candidates as close, may flip); checked, the
+      others; ids_differ, those of them whose best ids differ.
+    - rescore_off: the sentences with a card beam whose ids re-score off
+      the card's own score for that beam by more than rescore_tol =
+      factor * (gap + rescore_noise), rescore_noise the CPU's own
+      largest |re-score - score| (ids that are not the sequence the
+      score belongs to, as a wrong parent gather or gather_tree would
+      give). It holds every beam of every sentence, near-ties
+      included."""
+    diff = np.abs(scores - ref_scores)
+    rel = float(np.max(diff / np.maximum(np.abs(ref_scores), 1e-30)))
+    gap = float(diff.max())
+    same_len = ids.shape == ref_ids.shape
+    equal = np.array([bool(same_len and np.array_equal(ids[i, :, 0],
+                                                        ref_ids[i, :, 0]))
+                      for i in range(ref_ids.shape[0])])
+    rescore_noise = float(np.max(np.abs(ref_rescored - ref_scores)))
+    tie = factor * gap
+    rescore_tol = factor * (gap + rescore_noise)
+    margin = ref_scores[:, 0] - ref_scores[:, 1]
+    ties = margin <= tie
+    off = np.abs(rescored - scores).max(1)
+    return dict(max_score_rel=rel, gap=gap, rescore_noise=rescore_noise,
+                tie_factor=factor, tie=tie, near_ties=int(ties.sum()),
+                checked=int((~ties).sum()),
+                ids_differ=[int(i) for i in np.nonzero(~ties & ~equal)[0]],
+                rescore_tol=rescore_tol, rescore_max_off=float(off.max()),
+                rescore_off=[int(i) for i in np.nonzero(
+                    ~(off <= rescore_tol))[0]],
+                rescored_beams=int(rescored.size),
+                differ_margins=[float(m) for m in margin[~equal]],
+                margin_quantiles=[float(q) for q in np.quantile(
+                    margin, (0.0, 0.25, 0.5, 0.75, 1.0))],
+                same_steps=same_len, best_ids_equal=int(equal.sum()),
+                sentences=int(ref_ids.shape[0]))
+
+
+def rnn_seq2seq_gates(row):
+    """The rnn_seq2seq phase's failures, each a message (empty: ok)."""
+    bad = []
+    if not all(math.isfinite(v) for v in row["train_losses"]):
+        bad.append(f"non-finite losses {row['train_losses']}")
+    cpu = row["card_vs_cpu"]
+    if not cpu["max_rel"] <= S2S_RTOL:
+        bad.append(f"card and CPU training losses differ: {cpu}")
+    dec = row["decode_vs_cpu"]
+    if not dec["max_score_rel"] <= S2S_RTOL:
+        bad.append(f"card and CPU beam scores differ: {dec}")
+    if dec["ids_differ"]:
+        bad.append(f"beam ids differ beyond the near-ties: {dec}")
+    if dec["rescore_off"]:
+        bad.append(f"best ids re-score off their beam score: {dec}")
+    if not 0 < row["decode_steps"] <= S2S_MAX_STEPS:
+        bad.append(f"decode ran {row['decode_steps']} steps")
+    return bad
+
+
+def rnn_seq2seq_phase(torch, pt):
+    """The LSTM seq2seq (S2S) on the card, eager. Training: S2S_STEPS
+    teacher-forced steps at dropout 0.2 (ms a step, losses finite); then
+    card against CPU at dropout 0 from the same weights and batch
+    (S2S_STEPS steps each, losses within S2S_RTOL). Decoding: beam_decode
+    (beam S2S_BEAM, at most S2S_MAX_STEPS steps, early exit once every
+    beam has finished) of the 64 source sentences on the card and on
+    the CPU from the same weights (the card's, after its training):
+    ms a decoded batch, the steps taken, the scores within S2S_RTOL, the
+    best beams' ids equal beyond the near-ties, and every card beam's
+    ids re-scored on the CPU to its own score (decode_agreement).
+    The path launches none of the port's own kernels."""
+    import numpy as np
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import nms
+    t0 = time.perf_counter()
+    _zero(fa)
+    nms.launches["nms_greedy"] = 0
+    arrays = seq2seq_batch(np, S2S_BATCH, S2S_LEN, S2S_LEN,
+                           S2S["src_vocab"], S2S["tgt_vocab"])
+    card_batch = [torch.from_numpy(a).cuda() for a in arrays]
+    cpu_batch = [torch.from_numpy(a) for a in arrays]
+    pt.seed(SEED)
+    model = seq2seq_model(pt, **S2S)
+    params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    train_losses = seq2seq_train(pt, model, card_batch, S2S_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / S2S_STEPS * 1e3
+    # card against CPU, dropout 0, the same weights
+    f32 = dict(S2S, dropout=0.0)
+    pt.seed(SEED)
+    card = seq2seq_model(pt, **f32)
+    with _OnCpu():
+        cpu = seq2seq_model(pt, **f32)
+        cpu.set_state_dict({k: v.detach().cpu() for k, v in
+                            card.state_dict().items()})
+        lc = seq2seq_train(pt, cpu, cpu_batch, S2S_STEPS)
+    lg = seq2seq_train(pt, card, card_batch, S2S_STEPS)
+    rel = [_rel_diff(a, c) for a, c in zip(lg, lc)]
+    # decoding, from the card's trained weights on both
+    model.eval()
+    with _OnCpu(), torch.no_grad():
+        ref = seq2seq_model(pt, **S2S).eval()
+        ref.set_state_dict({k: v.detach().cpu() for k, v in
+                            model.state_dict().items()})
+        rid, rsc = beam_decode(pt, ref, cpu_batch[0])
+    with torch.no_grad():
+        beam_decode(pt, model, card_batch[0])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ids, sc = beam_decode(pt, model, card_batch[0])
+        torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t2) * 1e3
+    ids, sc = ids.cpu().numpy(), sc.cpu().numpy()
+    with _OnCpu(), torch.no_grad():
+        rescored, ref_rescored = (
+            seq2seq_rescore(np, pt, ref, cpu_batch[0], beams)
+            for beams in (ids, rid.numpy()))
+    agree = decode_agreement(np, ids, sc, rid.numpy(), rsc.numpy(),
+                             rescored, ref_rescored)
+    launches = dict(fa.launches, **nms.launches)
+    row = dict(card=nvidia_smi(), model="LSTM seq2seq", config=S2S,
+               params=params, batch=S2S_BATCH, src_len=S2S_LEN,
+               tgt_len=S2S_LEN, dtype="float32",
+               optimizer=f"Adam({S2S_LR}), ClipGradByGlobalNorm({S2S_CLIP})",
+               train_losses=train_losses, step_ms=step_ms,
+               card_vs_cpu=dict(dropout=0.0, losses_card=lg, losses_cpu=lc,
+                                loss_rel_diff=rel, max_rel=max(rel),
+                                rtol=S2S_RTOL),
+               beam=S2S_BEAM, max_step_num=S2S_MAX_STEPS,
+               decode_steps=int(ids.shape[1]), decode_ms=decode_ms,
+               decode_ms_per_step=decode_ms / int(ids.shape[1]),
+               decoded_tokens_per_s=S2S_BATCH * int(ids.shape[1])
+               / (decode_ms / 1e3),
+               decode_vs_cpu=agree, custom_kernel_launches=launches,
+               seconds=time.perf_counter() - t0)
+    emit({"rnn_seq2seq": row})
+    bad = rnn_seq2seq_gates(row)
+    if any(launches.values()):
+        bad.append(f"the seq2seq path launched the port's kernels: "
+                   f"{launches}")
+    if bad:
+        fail("rnn_seq2seq: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -6400,6 +7215,7 @@ def main():
     cases = kernel_phase(torch, fa)
     bwd_cases = bwd_kernel_phase(torch, fa, philox)
     probes = mask_probe_phase(torch, fa)
+    pad_cases = head_pad_phase(torch, fa)
     host_cost_phase(torch, fa)
     nms_cases = nms_kernel_phase(torch, nms)
     _zero(fa)
@@ -6462,6 +7278,10 @@ def main():
     ops_card_phase(torch, pt)
     mnist = mnist_dygraph_phase(torch, pt, fa, nms, smi)
     torch.cuda.empty_cache()
+    mt = transformer_train_phase(torch, pt, fa)
+    torch.cuda.empty_cache()
+    rnn_seq2seq_phase(torch, pt)
+    torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
@@ -6509,7 +7329,8 @@ def main():
                    "resnet_training": resnet["flash_launches"][k],
                    "yolo_training": yolo["flash_launches"][k],
                    "yolo_serving": serve["flash_launches"][k],
-                   "mnist_dygraph": mnist["custom_kernel_launches"][k]}
+                   "mnist_dygraph": mnist["custom_kernel_launches"][k],
+                   "transformer_training": mt["launches"][k]}
                for k in fa.launches}
     # every row at GPT-2 small's training shape: b 8, s 1024, n 12, h 64,
     # bf16 (the O1 path's attention), causal, dropout 0.1
@@ -6525,6 +7346,18 @@ def main():
                                      "non-causal dropout 0.1")
     for k, v in pipe_at.items():
         v.update(launches_per_step=pipe["launches_per_step"][k])
+    # at Transformer-base's two shapes on the kernels: b 32, n 8, h 64,
+    # bf16, dropout 0.1, separate q, k and v; the decoder's
+    # cross-attention (sq 96, sk 128) and the encoder's self-attention
+    # (sq = sk = 128)
+    mt_at = {}
+    for what, (sq, sk) in (("cross", MT_SHAPES[1]), ("self", MT_SHAPES[0])):
+        row = next(c for c in bwd_cases if c["dtype"] == "bfloat16"
+                   and c["s"] == sq and c["sk"] == sk and c["dropout_p"]
+                   and c["layout"] == _layout(True))
+        mt_at[what] = _kernels_at(row, f"b32 sq{sq} sk{sk} n8 h64 bfloat16 "
+                                       "non-causal dropout 0.1, separate "
+                                       "q, k and v")
     # no library call computes one backward kernel's outputs alone: the
     # backward rows carry SDPA's backward beside the whole backward
     common = dict(route="cuda", shape=shape)
@@ -6577,6 +7410,13 @@ def main():
         if by_path[kern["name"]]["pipeline_training"] == 0:
             fail(f"the pipeline training path launched no {kern['name']} "
                  "kernel")
+        if by_path[kern["name"]]["transformer_training"] == 0:
+            fail(f"the Transformer-base training path launched no "
+                 f"{kern['name']} kernel")
+        kern["transformer_training"] = dict(
+            launches_per_step=mt["launches_per_step"][kern["name"]],
+            **mt_at["cross"][kern["name"]],
+            self_attention=mt_at["self"][kern["name"]])
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     # greedy NMS: no Pallas origin; at the serving path's shape (640
@@ -6605,7 +7445,7 @@ def main():
     emit({"kernels": kernels, "philox": "paddle_tpu_torch/csrc/philox.cuh "
           "replaces paddle_tpu/ops/pallas_kernels.py:157 (inside all three)",
           "mask_probes": probes + gpt_probes + [pipe_probe],
-          "backward_cases": bwd_cases,
+          "backward_cases": bwd_cases, "head_pad_cases": pad_cases,
           "gpt_training_cases": gpt_kernel_rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -43,7 +43,12 @@ torch.Tensor lacks added to it as methods (ops/__init__.py says which
 and why), paddle.grad, the grad modes, save and load, ParamAttr,
 regularizer and paddle.batch; vision.datasets (synthetic when no file
 is given), vision.transforms and vision.image, with which LeNet trains
-on MNIST in dygraph and through Model.fit (BASELINE config 1).
+on MNIST in dygraph and through Model.fit (BASELINE config 1). The
+rest of paddle.nn: the losses and their layers, the remaining layers,
+the RNNs, nn.Transformer (MultiHeadAttention on the flash kernels when
+no mask is given), beam-search decoding and the weight norms, with
+Transformer-base trained through the captured TrainStep and an LSTM
+seq2seq trained and beam-decoded.
 """
 from . import (amp, core, device, distributed, hapi, io, jit,  # noqa: F401
                metric, models, nn, observability, ops, optimizer, quant,
@@ -59,6 +64,7 @@ from .framework import (Parameter, Tensor, enable_grad,  # noqa: F401
                         in_dygraph_mode, is_grad_enabled, no_grad,
                         set_grad_enabled, to_tensor)
 from .hapi import Model, callbacks  # noqa: F401
+from .nn.functional.extension import sequence_mask  # noqa: F401
 from .nn.param_attr import ParamAttr  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from .ops.detection import nms  # noqa: F401

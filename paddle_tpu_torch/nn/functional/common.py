@@ -1,15 +1,25 @@
-"""linear, dropout, embedding, one_hot, interpolate and upsample
-(counterpart of paddle_tpu/nn/functional/common.py)."""
+"""Common NN functionals: linear, the dropouts, embedding, pad,
+interpolate, im2col and its inverse, the pixel and channel shuffles, and
+the small similarity and sequence helpers (counterpart of
+paddle_tpu/nn/functional/common.py). Random draws come from the port's
+generators (core/generator.py scope_generator), so a TrainStep pins
+them to its step seed."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ...amp.auto_cast import amp_cast
+from ...core.dtypes import convert_dtype
 from ...core.generator import scope_generator
 
-__all__ = ["linear", "dropout", "embedding", "one_hot", "interpolate",
-           "upsample"]
+__all__ = [
+    "linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
+    "embedding", "one_hot", "pad", "interpolate", "upsample", "unfold",
+    "fold", "pixel_shuffle", "pixel_unshuffle", "channel_shuffle",
+    "cosine_similarity", "bilinear", "label_smooth", "class_center_sample",
+    "zeropad2d", "sequence_mask", "temporal_shift", "npair_loss",
+]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -35,14 +45,66 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             return x * (1.0 - p) if p > 0 else x
         return x
     if axis is not None:
-        raise NotImplementedError(
-            "axis-structured dropout is not ported yet (a later slice)")
-    keep = torch.empty(x.shape, dtype=torch.float32,
+        return _dropout_axis(x, p, axis, mode)
+    return _dropout_nd(x, p, tuple(range(x.dim())), mode)
+
+
+def _keep_mask(x, p, shape):
+    """A bool mask of `shape` that keeps each entry with probability
+    1 - p, drawn from the generator of x's device."""
+    return torch.empty(shape, dtype=torch.float32,
                        device=x.device).bernoulli_(
         1.0 - p, generator=scope_generator(x.device)).bool()
+
+
+def _dropout_nd(x, p, axes, mode):
+    """Dropout with one mask entry per index of the listed axes,
+    broadcast over the others (the JAX package's _dropout_nd)."""
+    shape = tuple(x.shape[i] if i in axes else 1 for i in range(x.dim()))
+    keep = _keep_mask(x, p, shape)
     scaled = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
+
+
+def _dropout_axis(x, p, axis, mode):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return _dropout_nd(x, p, tuple(a % x.dim() for a in axes), mode)
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
+    """Drops whole channels: one mask entry per (sample, channel)."""
+    if not training or p == 0.0:
+        return x
+    ch_axis = 1 if data_format == "NCHW" else 3
+    return _dropout_axis(x, float(p), (0, ch_axis), "upscale_in_train")
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
+    if not training or p == 0.0:
+        return x
+    ch_axis = 1 if data_format == "NCDHW" else 4
+    return _dropout_axis(x, float(p), (0, ch_axis), "upscale_in_train")
+
+
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None):
+    """Dropout that keeps SELU's self-normalisation: dropped entries take
+    -alpha * scale, then an affine map restores mean and variance."""
+    if not training or p == 0.0:
+        return x
+    p = float(p)
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    keep = 1.0 - p
+    mask = _keep_mask(x, p, x.shape)
+    a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
+    b = -a * alpha_p * (1 - keep)
+    return (a * torch.where(mask, x, torch.full((), alpha_p, dtype=x.dtype,
+                                                device=x.device))
+            + b).to(x.dtype)
 
 
 class _Embedding(torch.autograd.Function):
@@ -292,3 +354,143 @@ def upsample(x, size=None, scale_factor=None, mode="nearest",
              name=None):
     return interpolate(x, size, scale_factor, mode, align_corners,
                        align_mode, data_format)
+
+
+# paddle has F.pad: the op library's pad, imported here, below
+# take_along, because importing the op library imports this module's
+# take_along (ops/detection.py)
+from ...ops.manipulation import pad  # noqa: E402
+
+
+def _pair(v):
+    return (int(v), int(v)) if isinstance(v, (int, np.integer)) \
+        else tuple(int(i) for i in v)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col (reference operators/math/im2col.*): NCHW -> [N, C*kh*kw,
+    L], channels outermost. paddings: an int, (h, w), or (top, left,
+    bottom, right)."""
+    p = paddings
+    if isinstance(p, (int, np.integer)):
+        ph0 = ph1 = pw0 = pw1 = int(p)
+    elif len(p) == 2:
+        ph0 = ph1 = int(p[0])
+        pw0 = pw1 = int(p[1])
+    else:
+        ph0, pw0, ph1, pw1 = (int(i) for i in p)
+    xp = torch.nn.functional.pad(x, (pw0, pw1, ph0, ph1))
+    return torch.nn.functional.unfold(
+        xp, _pair(kernel_sizes), dilation=_pair(dilations), padding=0,
+        stride=_pair(strides))
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """col2im, unfold's adjoint: [N, C*kh*kw, L] -> [N, C, H, W], the
+    overlapping patches summed."""
+    return torch.nn.functional.fold(
+        x, _pair(output_sizes), _pair(kernel_sizes),
+        dilation=_pair(dilations), padding=_pair(paddings),
+        stride=_pair(strides))
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    r = upscale_factor
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        out = x.reshape(n, c // (r * r), r, r, h, w)
+        out = out.permute(0, 1, 4, 2, 5, 3)
+        return out.reshape(n, c // (r * r), h * r, w * r)
+    n, h, w, c = x.shape
+    out = x.reshape(n, h, w, r, r, c // (r * r))
+    out = out.permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(n, h * r, w * r, c // (r * r))
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    """NCHW only (data_format is accepted and not read, as in the JAX
+    package)."""
+    r = downscale_factor
+    n, c, h, w = x.shape
+    out = x.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+    return out.reshape(n, c * r * r, h // r, w // r)
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    """NCHW only, as in the JAX package."""
+    n, c, h, w = x.shape
+    out = x.reshape(n, groups, c // groups, h, w).transpose(1, 2)
+    return out.reshape(n, c, h, w)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8, name=None):
+    dot = (x1 * x2).sum(axis)
+    n1 = torch.sqrt((x1 * x1).sum(axis))
+    n2 = torch.sqrt((x2 * x2).sum(axis))
+    return dot / torch.clamp(n1 * n2, min=eps)
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """x1 W_o x2 for each output o; weight [out, in1, in2]."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * prior_dist
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """[..., ] lengths -> [..., maxlen] mask. maxlen is required, as in
+    the JAX package's functional (nn.functional.extension's
+    sequence_mask infers it)."""
+    if maxlen is None:
+        raise ValueError("maxlen must be provided inside jit; eager infers")
+    ar = torch.arange(int(maxlen), device=x.device)
+    return (ar < x[..., None]).to(convert_dtype(dtype))
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    """TSM's shift: of each segment's channels, the first c*ratio move one
+    step back in time, the next c*ratio one step forward (ref
+    temporal_shift_op.h: c1 = int(c*ratio), c2 = int(c*2*ratio))."""
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    elif data_format != "NCHW":
+        raise ValueError(f"unsupported data_format {data_format!r}")
+    nt, c, h, w = x.shape
+    xr = x.reshape(nt // seg_num, seg_num, c, h, w)
+    c1 = int(c * shift_ratio)
+    c2 = int(c * 2 * shift_ratio)
+    left = torch.cat([xr[:, 1:, :c1], torch.zeros_like(xr[:, :1, :c1])], 1)
+    right = torch.cat([torch.zeros_like(xr[:, :1, c1:c2]),
+                       xr[:, :-1, c1:c2]], 1)
+    out = torch.cat([left, right, xr[:, :, c2:]], 2).reshape(nt, c, h, w)
+    if data_format == "NHWC":
+        out = out.permute(0, 2, 3, 1)
+    return out
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002, name=None):
+    sim = anchor @ positive.t()
+    target = (labels[:, None] == labels[None, :]).to(sim.dtype)
+    target = target / target.sum(1, keepdim=True)
+    ce = -(target * torch.log_softmax(sim, 1)).sum(1).mean()
+    reg = l2_reg * ((anchor * anchor).sum(1).mean()
+                    + (positive * positive).sum(1).mean()) / 2
+    return ce + reg
+
+
+def zeropad2d(x, padding, data_format="NCHW", name=None):
+    return pad(x, padding, mode="constant", value=0.0,
+               data_format=data_format)
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    raise NotImplementedError(
+        "class_center_sample requires dynamic shapes; planned as a "
+        "bucketed variant")

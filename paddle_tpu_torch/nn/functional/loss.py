@@ -1,6 +1,12 @@
-"""Softmax cross-entropy and the vocab-chunked projection + CE
-(counterpart of paddle_tpu/nn/functional/loss.py: cross_entropy,
-softmax_with_cross_entropy and linear_cross_entropy).
+"""Loss functionals (counterpart of paddle_tpu/nn/functional/loss.py).
+
+The element-wise losses (BCE, NLL, MSE, L1, smooth L1, KL, the margin,
+embedding, focal, dice, triplet, Poisson and Gaussian NLL losses) and
+CTC are the JAX package's compositions in torch ops; CTC's dynamic
+programme runs as a Python loop over time (the JAX package's lax.scan),
+so it runs on either device. Those the JAX package's AMP black list
+names (bce_loss, bce_with_logits, nll_loss_op, mse_loss_op, l1_loss_op,
+kldiv_loss_op, ctc_loss_op) compute in float32 under auto_cast.
 
 Hard labels over the last axis take the fused path. The JAX package's
 `_softmax_ce_fused` custom VJP keeps the [N, vocab] logits in their
@@ -23,12 +29,23 @@ the backward rematerialises each block (_LinearCE).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ...amp.auto_cast import amp_cast
 
-__all__ = ["cross_entropy", "softmax_with_cross_entropy",
-           "linear_cross_entropy"]
+__all__ = [
+    "hsigmoid_loss",
+    "cross_entropy", "softmax_with_cross_entropy", "binary_cross_entropy",
+    "binary_cross_entropy_with_logits", "nll_loss", "mse_loss", "l1_loss",
+    "smooth_l1_loss", "kl_div", "margin_ranking_loss", "hinge_embedding_loss",
+    "cosine_embedding_loss", "ctc_loss", "log_loss", "square_error_cost",
+    "sigmoid_focal_loss", "softmax_with_cross_entropy_label_smooth",
+    "triplet_margin_loss", "triplet_margin_with_distance_loss",
+    "multi_label_soft_margin_loss", "soft_margin_loss", "dice_loss",
+    "poisson_nll_loss", "gaussian_nll_loss", "linear_cross_entropy",
+]
 
 _CHUNK_ELEMS = 1 << 26
 # the padded vocab columns' bias: exp(-1e30 - m) == 0 in the logsumexp
@@ -192,6 +209,283 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             return loss.sum() / torch.clamp(norm.sum(), min=1e-10)
         return loss.sum() / torch.clamp(norm.sum().to(loss.dtype), min=1.0)
     return loss.sum() if reduction == "sum" else loss
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def _softplus_neg_abs(x):
+    """log(1 + exp(-|x|)), the stable tail of the logistic losses."""
+    return torch.log1p(torch.exp(-x.abs()))
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean",
+                         name=None):
+    input, label, weight = amp_cast("bce_loss", input, label, weight)
+    eps = 1e-12
+    loss = -(label * torch.log(torch.clamp(input, min=eps))
+             + (1 - label) * torch.log(torch.clamp(1 - input, min=eps)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    logit, label, weight, pos_weight = amp_cast(
+        "bce_with_logits", logit, label, weight, pos_weight)
+    max_val = torch.clamp(-logit, min=0.0)
+    if pos_weight is not None:
+        log_w = (pos_weight - 1.0) * label + 1.0
+        loss = (1 - label) * logit + log_w * (_softplus_neg_abs(logit)
+                                              + max_val)
+    else:
+        loss = (1 - label) * logit + max_val + _softplus_neg_abs(logit)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
+             name=None):
+    """input [N, C] log-probabilities, label [N]. "mean" divides by the
+    valid rows' summed weights (their count without weight)."""
+    input, weight = amp_cast("nll_loss_op", input, weight)
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label)).long()
+    loss = -input.gather(1, safe[:, None])[:, 0]
+    if weight is not None:
+        w = weight[safe]
+        loss = torch.where(valid, loss * w, 0.0)
+        if reduction == "mean":
+            return loss.sum() / torch.where(valid, w, 0.0).sum()
+    loss = torch.where(valid, loss, 0.0)
+    if reduction == "mean":
+        return loss.sum() / torch.clamp(valid.sum().to(loss.dtype), min=1.0)
+    return _reduce(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    input, label = amp_cast("mse_loss_op", input, label)
+    d = input - label
+    return _reduce(d * d, reduction)
+
+
+def l1_loss(input, label, reduction="mean", name=None):
+    input, label = amp_cast("l1_loss_op", input, label)
+    return _reduce((input - label).abs(), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
+    d = (input - label).abs()
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean", log_target=False, name=None):
+    input, label = amp_cast("kldiv_loss_op", input, label)
+    if log_target:
+        loss = torch.exp(label) * (label - input)
+    else:
+        loss = label * (torch.log(torch.clamp(label, min=1e-30)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
+                        name=None):
+    loss = torch.clamp(-label * (input - other) + margin, min=0.0)
+    return _reduce(loss, reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
+                         name=None):
+    loss = torch.where(label == 1.0, input,
+                       torch.clamp(margin - input, min=0.0))
+    return _reduce(loss, reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0, reduction="mean",
+                          name=None):
+    cos = ((input1 * input2).sum(-1)
+           / torch.clamp(torch.linalg.vector_norm(input1, dim=-1)
+                         * torch.linalg.vector_norm(input2, dim=-1),
+                         min=1e-12))
+    loss = torch.where(label == 1, 1 - cos, torch.clamp(cos - margin,
+                                                        min=0.0))
+    return _reduce(loss, reduction)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return -(label * torch.log(input + epsilon)
+             + (1 - label) * torch.log(1 - input + epsilon))
+
+
+def square_error_cost(input, label):
+    d = input - label
+    return d * d
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    p = torch.sigmoid(logit)
+    ce = (1 - label) * logit + torch.clamp(-logit, min=0.0) \
+        + _softplus_neg_abs(logit)
+    p_t = p * label + (1 - p) * (1 - label)
+    loss = ce * torch.pow(1 - p_t, gamma)
+    if alpha >= 0:
+        loss = (alpha * label + (1 - alpha) * (1 - label)) * loss
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    """input [..., C] probabilities, label [..., 1] class ids."""
+    lbl = torch.nn.functional.one_hot(label.squeeze(-1).long(),
+                                      input.shape[-1]).to(input.dtype)
+    dims = tuple(range(1, input.dim()))
+    inter = (input * lbl).sum(dims)
+    denom = input.sum(dims) + lbl.sum(dims)
+    return (1 - (2 * inter + epsilon) / (denom + epsilon)).mean()
+
+
+def soft_margin_loss(input, label, reduction="mean", name=None):
+    return _reduce(torch.log1p(torch.exp(-label * input)), reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,
+                                 reduction="mean", name=None):
+    ls = torch.nn.functional.logsigmoid
+    loss = -(label * ls(input) + (1 - label) * ls(-input)).mean(-1)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    def dist(a, b):
+        return torch.pow(torch.pow((a - b).abs() + epsilon, p).sum(-1),
+                         1.0 / p)
+    d_pos = dist(input, positive)
+    d_neg = dist(input, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, dist(positive, negative))
+    return _reduce(torch.clamp(d_pos - d_neg + margin, min=0.0), reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean",
+                                      name=None):
+    if distance_function is None:
+        return triplet_margin_loss(input, positive, negative, margin=margin,
+                                   swap=swap, reduction=reduction)
+    d_pos = distance_function(input, positive)
+    d_neg = distance_function(input, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, distance_function(positive, negative))
+    return _reduce(torch.clamp(d_pos - d_neg + margin, min=0.0), reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True, full=False, epsilon=1e-8,
+                     reduction="mean", name=None):
+    if log_input:
+        loss = torch.exp(input) - label * input
+    else:
+        loss = input - label * torch.log(input + epsilon)
+    if full:
+        lab1 = torch.clamp(label, min=1.0)
+        stirling = (label * torch.log(lab1) - label
+                    + 0.5 * torch.log(2 * math.pi * lab1))
+        loss = loss + torch.where(label > 1, stirling, 0.0)
+    return _reduce(loss, reduction)
+
+
+def gaussian_nll_loss(input, label, variance, full=False, epsilon=1e-6,
+                      reduction="mean", name=None):
+    var = torch.clamp(variance, min=epsilon)
+    d = input - label
+    loss = 0.5 * (torch.log(var) + d * d / var)
+    if full:
+        loss = loss + 0.5 * math.log(2 * math.pi)
+    return _reduce(loss, reduction)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False, name=None):
+    """CTC loss (reference warpctc_op) by the forward recursion in log
+    space over the blank-extended labels: log_probs [T, B, C] (Paddle's
+    layout), labels [B, L]. Each sample's alphas freeze past its input
+    length; its loss is -log of the two end states at 2 * label_length
+    and the one before it."""
+    (log_probs,) = amp_cast("ctc_loss_op", log_probs)
+    t_steps, b, _ = log_probs.shape
+    n_lab = labels.shape[1]
+    s = 2 * n_lab + 1
+    dev = log_probs.device
+    ext = torch.full((b, s), blank, dtype=torch.int64, device=dev)
+    ext[:, 1::2] = labels.long()
+    neg_inf = -1e30
+    lp_ext = log_probs.permute(1, 0, 2).gather(
+        2, ext[:, None, :].expand(b, t_steps, s))        # [B, T, S]
+    same_as_prev2 = torch.cat(
+        [torch.ones((b, 2), dtype=torch.bool, device=dev),
+         ext[:, 2:] == ext[:, :-2]], 1)
+    fill = torch.full((b, 2), neg_inf, dtype=log_probs.dtype, device=dev)
+    # t = 0: the leading blank and the first label (when there is one)
+    head = lp_ext[:, 0, :min(2, s)]
+    alpha = torch.cat([head, torch.full((b, s - head.shape[1]), neg_inf,
+                                        dtype=log_probs.dtype,
+                                        device=dev)], 1)
+    in_len = input_lengths.to(dev)
+    for t in range(1, t_steps):
+        shift1 = torch.cat([fill[:, :1], alpha[:, :-1]], 1)
+        shift2 = torch.where(same_as_prev2, neg_inf,
+                             torch.cat([fill, alpha[:, :-2]], 1))
+        new = torch.logaddexp(torch.logaddexp(alpha, shift1), shift2) \
+            + lp_ext[:, t]
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+    end = 2 * label_lengths.to(dev).long()
+    a_last = alpha.gather(1, end[:, None])[:, 0]
+    a_last2 = alpha.gather(1, torch.clamp(end - 1, min=0)[:, None])[:, 0]
+    ll = torch.logaddexp(a_last, torch.where(label_lengths.to(dev) > 0,
+                                             a_last2, neg_inf))
+    loss = -ll
+    if norm_by_times:
+        loss = loss / in_len.to(loss.dtype)
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy_label_smooth(logits, label, epsilon=0.1):
+    from .common import label_smooth, one_hot
+    smooth = label_smooth(one_hot(label, logits.shape[-1]), epsilon=epsilon)
+    return cross_entropy(logits, smooth, soft_label=True)
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """paddle.nn.functional.hsigmoid_loss (reference
+    hierarchical_sigmoid_op) over the default complete binary tree;
+    custom-tree path tables are not supported, as in the JAX package."""
+    if path_table is not None or path_code is not None:
+        raise NotImplementedError(
+            "custom-tree hsigmoid (path_table/path_code) is not "
+            "supported; use the default complete binary tree")
+    from ...ops.loss_extra import hierarchical_sigmoid
+    cost, _ = hierarchical_sigmoid(input, label, weight, bias,
+                                   num_classes=num_classes)
+    return cost
 
 
 # -- vocab-chunked fused projection + CE ------------------------------------

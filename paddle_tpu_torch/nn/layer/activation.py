@@ -38,8 +38,21 @@ Silu = _simple("Silu", "silu")
 Mish = _simple("Mish", "mish")
 Tanhshrink = _simple("Tanhshrink", "tanhshrink")
 Hardswish = _simple("Hardswish", "hardswish")
-Tanh = _simple("Tanh", "tanh")
-Hardsigmoid = _simple("Hardsigmoid", "hardsigmoid")
+
+
+class Tanh(Layer):
+    """No arguments of its own: the JAX Tanh keeps Layer's (name_scope,
+    dtype)."""
+
+    def forward(self, x):
+        return F.tanh(x)
+
+
+class Hardsigmoid(Layer):
+    """No arguments of its own, as Tanh."""
+
+    def forward(self, x):
+        return F.hardsigmoid(x)
 
 
 class ELU(Layer):

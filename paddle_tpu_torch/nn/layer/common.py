@@ -1,14 +1,27 @@
 """Common layers (counterpart of paddle_tpu/nn/layer/common.py)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import functional as F
 from ..initializer import XavierNormal
 from .layers import Layer
 
-__all__ = ["Linear", "Dropout", "Embedding", "Upsample",
-           "UpsamplingNearest2D", "UpsamplingBilinear2D"]
+__all__ = [
+    "PairwiseDistance",
+    "Linear", "Dropout", "Dropout2D", "Dropout3D", "AlphaDropout",
+    "Embedding", "Flatten", "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D",
+    "Upsample", "UpsamplingNearest2D", "UpsamplingBilinear2D",
+    "CosineSimilarity", "Bilinear", "Identity", "PixelShuffle",
+    "PixelUnshuffle", "ChannelShuffle", "Unfold", "Fold",
+]
+
+
+class Identity(Layer):
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -48,6 +61,37 @@ class Dropout(Layer):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
 
 
 class Embedding(Layer):
@@ -102,3 +146,143 @@ class UpsamplingBilinear2D(Upsample):
                  name=None):
         super().__init__(size, scale_factor, "bilinear", True,
                          data_format=data_format)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        from ...ops.manipulation import flatten
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+class _PadNd(Layer):
+    data_format_default = "NCHW"
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format=None, name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format or self.data_format_default
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadNd):
+    data_format_default = "NCL"
+
+
+class Pad2D(_PadNd):
+    data_format_default = "NCHW"
+
+
+class Pad3D(_PadNd):
+    data_format_default = "NCDHW"
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, mode="constant", value=0.0,
+                         data_format=data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Bilinear(Layer):
+    """out_o = x1 W_o x2 + b_o, weight [out, in1, in2]."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, device=None,
+                 dtype="float32"):
+        super().__init__(dtype=dtype, device=device)
+        self.weight = self.create_parameter(
+            (out_features, in1_features, in2_features), attr=weight_attr)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            (out_features,), is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
+
+
+class PairwiseDistance(Layer):
+    """p-norm distance between row pairs (reference nn.PairwiseDistance
+    over p_norm_op on x - y): epsilon is added to the difference, and p
+    may be inf."""
+
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = float(p)
+        self.epsilon = float(epsilon)
+        self.keepdim = bool(keepdim)
+
+    def forward(self, x, y):
+        d = (x - y + self.epsilon).abs()
+        if math.isinf(self.p):
+            return d.amax(-1, keepdim=self.keepdim)
+        return (d ** self.p).sum(-1, keepdim=self.keepdim) ** (1.0 / self.p)

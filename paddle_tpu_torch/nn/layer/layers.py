@@ -27,14 +27,17 @@ __all__ = ["Layer"]
 class Layer(nn.Module):
     """nn.Module with Paddle's parameter factory and state-dict loader.
 
-    `device` is resolved the first time the layer asks for it (to make a
-    parameter or a buffer): None means the current device, which is the
-    CUDA card unless the CPU was asked for. A layer that holds no tensor
-    (a container, an activation, a pool) never asks.
+    `name_scope` and `dtype` are the JAX Layer's positional parameters
+    (Paddle's `super().__init__("encoder")` names the scope). `device`,
+    keyword-only, is resolved the first time the layer asks for it (to
+    make a parameter or a buffer): None means the current device, which
+    is the CUDA card unless the CPU was asked for. A layer that holds no
+    tensor (a container, an activation, a pool) never asks.
     """
 
-    def __init__(self, dtype="float32", device=None):
+    def __init__(self, name_scope=None, dtype="float32", *, device=None):
         super().__init__()
+        self._name_scope = name_scope or type(self).__name__.lower()
         self._dtype = _dtypes.convert_dtype(dtype)
         self._device_arg = device
         self._resolved_device = None

@@ -4,9 +4,9 @@ paddle_tpu/ops).
 The op modules of Paddle's Tensor surface: creation, math,
 manipulation, logic, search and stat, each the JAX package's module in
 torch ops, with Paddle's semantics. `__all__` is the union of their
-lists with the detection and beam-search ops and the in-place forms
-reshape_, squeeze_, unsqueeze_, scatter_ and tanh_; the package's top
-level exports it, as the JAX package's does (`from .ops import *`).
+lists with the detection, vision-sampling and beam-search ops and the
+in-place forms reshape_, squeeze_, unsqueeze_, scatter_ and tanh_; the
+package's top level exports it, as the JAX package's does (`from .ops import *`).
 ops.nms stays the NMS kernel's module; paddle_tpu_torch.nms is the
 detection op. The kernels: flash_attention, philox and nms (csrc/).
 

@@ -25,7 +25,9 @@ the JAX package.
   the backward reads the same tensor as the forward (kept in ctx).
   For CUDA tensors the forward and the backward launch the kernels or
   raise; for CPU tensors they run the plain versions. There is no
-  fallback from one to the other.
+  fallback from one to the other. The kernels take head_dim 64 and
+  128; on the card a smaller head_dim runs zero-padded up to the
+  next of them (kernel_head_dim), as the Pallas wrapper pads to 128.
 - flash_attention_fwd_plain / flash_attention_bwd_plain: the same math
   in plain PyTorch (blockwise, f32 accumulators, the Philox mask of
   ops/philox.py). The CPU tier and chip_smoke.py use them; the main path
@@ -46,9 +48,12 @@ from . import philox as _philox
 
 __all__ = ["flash_attention_mha", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "launches", "SUPPORTED_HEAD_DIMS"]
+           "launches", "SUPPORTED_HEAD_DIMS", "kernel_head_dim"]
 
 SUPPORTED_HEAD_DIMS = (64, 128)
+# the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
+# (the kernels'; the CPU's plain version takes any head_dim)
+_PADDED_ON = ("cuda",)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
@@ -390,23 +395,40 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def kernel_head_dim(h):
+    """The head_dim the kernels run h at: the smallest of
+    SUPPORTED_HEAD_DIMS that holds h, or h itself above them (the
+    kernels then refuse it)."""
+    return next((d for d in SUPPORTED_HEAD_DIMS if d >= h), h)
+
+
 def flash_attention_fwd(query, key, value, causal=False, scale=None,
                         dropout_p=0.0, seed=None):
     """Flash attention over [b, s, n, h]: returns (O, lse) with O in the
     input dtype and lse f32 [b, n, sq], differentiable in q, k, v.
-    scale defaults to 1/sqrt(h). Causal masking is top-left aligned
+    scale defaults to 1/sqrt(h). On the card a head_dim below 128 that
+    the kernels lack runs zero-padded to kernel_head_dim(h), the output
+    sliced back; the CPU's plain version takes any h. Causal masking is top-left aligned
     (row >= col), as in the Pallas kernel. dropout_p drops attention
     links with the Philox mask of `seed` (0 when None, as the Pallas
     wrapper defaults it): an int, a 0-d int64 tensor, or a Draw of a
     captured step (core/generator.py seed_tensor)."""
     _check(query, key, value)
     _check_dropout(dropout_p)
-    _device_of(query)
+    h = query.shape[-1]
     if scale is None:
-        scale = 1.0 / math.sqrt(query.shape[-1])
-    return _FlashAttention.apply(query, key, value, bool(causal),
-                                 float(scale), float(dropout_p),
-                                 _seed_arg(seed, dropout_p, query.device))
+        scale = 1.0 / math.sqrt(h)
+    hp = kernel_head_dim(h) if _device_of(query) in _PADDED_ON else h
+    if hp != h:
+        # zero columns are exact no-ops for QK^T, PV and the three
+        # gradients (the Pallas wrapper pads to 128 lanes the same way);
+        # pad's backward slices them off the gradients
+        query, key, value = (torch.nn.functional.pad(t, (0, hp - h))
+                             for t in (query, key, value))
+    o, lse = _FlashAttention.apply(query, key, value, bool(causal),
+                                   float(scale), float(dropout_p),
+                                   _seed_arg(seed, dropout_p, query.device))
+    return (o[..., :h] if hp != h else o), lse
 
 
 def flash_attention_mha(query, key, value, causal=False, scale=None,

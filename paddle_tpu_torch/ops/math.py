@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp.auto_cast import amp_cast
 from ..core import dtypes as _dtypes
 from ._args import axis_of, tensor_of
 
@@ -84,7 +85,9 @@ def ldexp(x, y, name=None):
 # -- matmul family -----------------------------------------------------------
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
-    x, y = _pair(x, y)
+    """An AMP white-list op ("matmul_v2", as the JAX package registers
+    it): under auto_cast its inputs are cast to the AMP dtype."""
+    x, y = amp_cast("matmul_v2", *_pair(x, y))
     if transpose_x and x.dim() > 1:
         x = x.transpose(-1, -2)
     if transpose_y and y.dim() > 1:
@@ -93,7 +96,9 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
 
 
 def addmm(input, x, y, beta=1.0, alpha=1.0, name=None):
-    return beta * tensor_of(input) + alpha * torch.matmul(*_pair(x, y))
+    """An AMP white-list op, as matmul."""
+    input, x, y = amp_cast("addmm", tensor_of(input), *_pair(x, y))
+    return beta * input + alpha * torch.matmul(x, y)
 
 
 def inner(x, y, name=None):

@@ -1319,3 +1319,258 @@ def _lenet_on_the_cpu(cs, torch, pt, datasets, transforms, LeNet):
     acc, metric = cs.lenet_test_acc(pt, model, pt.io.DataLoader(
         test, batch_size=cs.MNIST_BATCH))
     assert 0.0 <= acc <= 1.0 and abs(acc - metric) < 1e-6
+
+
+# -- the rest of paddle.nn: Transformer-base and the LSTM seq2seq ---------------
+
+def _mt_row():
+    flash = {"flash_attn_fwd": 12, "flash_attn_bwd_dq": 12,
+             "flash_attn_bwd_dkv": 12}
+    return dict(captured_vs_eager=dict(losses_bit_equal=True,
+                                       params_bit_equal=True),
+                graphs=1, sentinel_events=0, launches_per_step=flash,
+                routes_per_eager_step={"flash_attention": 12,
+                                       "scaled_dot_product_attention": 6},
+                losses=[10.6, 10.5], card_vs_cpu=dict(max_rel=2e-6),
+                mfu=0.3)
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("replay", "bit-equal"), ("graphs", "graphs"),
+    ("launch", "below"), ("zero", "below"), ("route", "routes"),
+    ("loss", "non-finite"), ("cpu", "CPU"), ("mfu", "MFU")])
+def test_transformer_train_gates_name_each_failure(cs, breakage, word):
+    row = _mt_row()
+    if breakage == "replay":
+        row["captured_vs_eager"]["params_bit_equal"] = False
+    elif breakage == "graphs":
+        row["graphs"] = 2
+    elif breakage == "launch":
+        row["launches_per_step"]["flash_attn_bwd_dq"] = 11
+    elif breakage == "zero":
+        # the plain version standing in: no kernel on the card at all
+        row["launches_per_step"] = {k: 0 for k in
+                                    row["launches_per_step"]}
+    elif breakage == "route":
+        row["routes_per_eager_step"]["scaled_dot_product_attention"] = 18
+    elif breakage == "loss":
+        row["losses"] = [float("nan")]
+    elif breakage == "cpu":
+        row["card_vs_cpu"]["max_rel"] = 2e-3
+    elif breakage == "mfu":
+        row["mfu"] = 1.5
+    bad = cs.transformer_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def _s2s_row(cs):
+    return dict(train_losses=[9.0, 8.9, 8.8],
+                card_vs_cpu=dict(max_rel=1e-6),
+                decode_vs_cpu=dict(max_score_rel=1e-6, near_ties=2,
+                                   checked=62, ids_differ=[],
+                                   rescore_off=[]),
+                decode_steps=cs.S2S_MAX_STEPS)
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("loss", "non-finite"), ("train", "training losses"),
+    ("scores", "beam scores"), ("ids", "ids differ"),
+    ("rescore", "re-score"),
+    ("steps", "steps")])
+def test_rnn_seq2seq_gates_name_each_failure(cs, breakage, word):
+    row = _s2s_row(cs)
+    if breakage == "loss":
+        row["train_losses"][1] = float("inf")
+    elif breakage == "train":
+        row["card_vs_cpu"]["max_rel"] = 5e-3
+    elif breakage == "scores":
+        row["decode_vs_cpu"]["max_score_rel"] = 2e-3
+    elif breakage == "ids":
+        row["decode_vs_cpu"]["ids_differ"] = [7]
+    elif breakage == "rescore":
+        row["decode_vs_cpu"]["rescore_off"] = [3]
+    elif breakage == "steps":
+        row["decode_steps"] = 0
+    bad = cs.rnn_seq2seq_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_decode_agreement_sets_the_near_ties_apart(cs):
+    """Near-ties are leads within S2S_TIE_FACTOR times the largest score
+    difference (absolute nats, not relative to the score); ids are
+    checked beyond them, and every beam's ids must re-score to its own
+    score, near-ties included."""
+    import numpy as np
+    ref_ids = np.zeros((3, 4, 2), np.int64)
+    ref_sc = np.array([[-400.0, -401.0], [-400.0, -400.0005],
+                       [-300.0, -300.3]])
+    sc = ref_sc + np.array([[1e-4, 0.0], [0.0, 0.0], [-2e-4, 0.0]])
+    ids = ref_ids.copy()
+    ids[1, 2, 0] = 5            # a near-tie: its best beam may differ
+    row = cs.decode_agreement(np, ids, sc, ref_ids, ref_sc, sc, ref_sc)
+    assert row["gap"] == pytest.approx(2e-4)
+    assert row["tie"] == pytest.approx(cs.S2S_TIE_FACTOR * 2e-4)
+    assert row["near_ties"] == 1 and row["checked"] == 2
+    assert row["ids_differ"] == [] and row["rescore_off"] == []
+    assert row["rescored_beams"] == 6
+    # a lead of 0.3 nats at 1e-3 relative of -300 would have been a tie
+    ids[2, 0, 0] = 6            # not a tie: a real difference
+    assert cs.decode_agreement(np, ids, sc, ref_ids, ref_sc, sc,
+                               ref_sc)["ids_differ"] == [2]
+    # a near-tie's second beam whose ids are not the sequence its score
+    # belongs to
+    off = sc.copy()
+    off[1, 1] += 0.05
+    assert cs.decode_agreement(np, ids, sc, ref_ids, ref_sc, off,
+                               ref_sc)["rescore_off"] == [1]
+    # a decode of other length: no best beam is equal, every lead beyond
+    # the (zero) gap counts
+    short = cs.decode_agreement(np, ids[:, :3], ref_sc, ref_ids, ref_sc,
+                                ref_sc, ref_sc)
+    assert not short["same_steps"] and short["ids_differ"] == [0, 1, 2]
+    far = cs.decode_agreement(np, ids, ref_sc * 1.01, ref_ids, ref_sc,
+                              ref_sc * 1.01, ref_sc)
+    assert far["max_score_rel"] == pytest.approx(0.01)
+
+
+def test_cross_cases_are_the_decoders_shapes(cs):
+    """mt_cases: Transformer-base's encoder self-attention and decoder
+    cross-attention shapes, with separate q, k and v tensors (the
+    layout MultiHeadAttention passes), whatever sq and sk are."""
+    cases = cs.mt_cases()
+    assert {(c[1], c[7]) for c in cases} == {(128, 128), (96, 128),
+                                             (128, 96)}
+    assert all(c[0] == 32 and c[2] == 8 and c[3] == 64 and not c[4]
+               and c[8] for c in cases)
+    assert {(c[5], c[6]) for c in cases} == {
+        ("float32", 0.0), ("bfloat16", 0.0), ("bfloat16", cs.DROP_P)}
+    assert len(cases) == 9
+    assert cs._unpack((2, 16, 2, 64, True, "float32", 0.0)) == (
+        2, 16, 2, 64, True, "float32", 0.0, 16, False)
+    assert cs._layout(True) == "separate q, k, v"
+    with pytest.raises(ValueError, match="causal"):
+        cs.mask_probe_case(None, None, 2, 2, 64, 96, "bfloat16", True,
+                           sk=128, separate=True)
+    with pytest.raises(ValueError, match="views"):
+        cs.mask_probe_case(None, None, 2, 2, 64, 96, "bfloat16", False,
+                           sk=128)
+    with pytest.raises(ValueError, match="views"):
+        cs.attention_inputs(None, None, 2, 96, 128, 2, 64, None, False)
+
+
+def _on_the_cpu(fn):
+    """fn(np, torch, pt) with the port's place set to the CPU, restored
+    after."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import place
+    saved = place._current_place
+    pt.set_device("cpu")
+    try:
+        fn(np, torch, pt)
+    finally:
+        place._current_place = saved
+
+
+def test_transformer_model_on_the_cpu_at_small_widths(cs):
+    """transformer_train's model and step (mt_model, O1 bf16, dropout
+    0.1, the Noam-scheduled Adam) take steps on the CPU, the 2 + 2
+    layers' attention routes counted as the card phase counts them."""
+    def run(np, torch, pt):
+        cfg = dict(cs.MT_TINY, dropout=0.1)
+        _, step, _, x, y = cs._mt_step(torch, pt, cfg, 97, (3, 12, 9),
+                                       "cpu")
+        with cs._CountCalls(pt.nn.functional, (
+                "flash_attention", "scaled_dot_product_attention")) as r:
+            losses = [float(step(x, y, seed=s)) for s in cs.STEP_SEEDS[:2]]
+        assert all(np.isfinite(losses))
+        assert r.counts == {"flash_attention": 4 * 2,
+                            "scaled_dot_product_attention": 2 * 2}
+    _on_the_cpu(run)
+
+
+def _s2s_pair(cs, np, pt):
+    import paddle_tpu as jp
+    from paddle_tpu_torch.models import load_jax_params
+    jp.seed(3)
+    jm = cs.seq2seq_model(jp, **cs.S2S_TINY)
+    tm = cs.seq2seq_model(pt, **cs.S2S_TINY)
+    load_jax_params(tm, {k: np.asarray(v.numpy())
+                         for k, v in jm.state_dict().items()})
+    return jp, jm, tm, cs.seq2seq_batch(np, 4, 7, 6, 23, 11)
+
+
+def test_seq2seq_model_trains_on_the_cpu_as_in_jax(cs):
+    """rnn_seq2seq's model and eager steps at S2S_TINY in both packages
+    from the same weights: the losses of 2 steps at 1e-5."""
+    def run(np, torch, pt):
+        jp, jm, tm, arrays = _s2s_pair(cs, np, pt)
+        jl = cs.seq2seq_train(jp, jm, [jp.to_tensor(a) for a in arrays], 2)
+        tl = cs.seq2seq_train(pt, tm, [torch.from_numpy(a)
+                                       for a in arrays], 2)
+        np.testing.assert_allclose(tl, jl, rtol=1e-5)
+        assert tl[-1] < tl[0]
+    _on_the_cpu(run)
+
+
+def test_seq2seq_beam_decode_on_the_cpu_as_in_jax(cs):
+    """rnn_seq2seq's beam_decode at S2S_TINY in both packages from the
+    same weights: ids equal, scores at 1e-5 (decode_agreement)."""
+    def run(np, torch, pt):
+        jp, jm, tm, arrays = _s2s_pair(cs, np, pt)
+        jm.eval()
+        tm.eval()
+        jids, jsc = cs.beam_decode(jp, jm, jp.to_tensor(arrays[0]), beam=3,
+                                   max_steps=8)
+        with torch.no_grad():
+            tids, tsc = cs.beam_decode(pt, tm, torch.from_numpy(arrays[0]),
+                                       beam=3, max_steps=8)
+        src = arrays[0]
+        with torch.no_grad():
+            trs = cs.seq2seq_rescore(np, pt, tm, torch.from_numpy(src),
+                                     tids.numpy())
+        jrs = cs.seq2seq_rescore(np, jp, jm, jp.to_tensor(src),
+                                 np.asarray(jids.numpy()))
+        agree = cs.decode_agreement(np, tids.numpy(), tsc.numpy(),
+                                    np.asarray(jids.numpy()),
+                                    np.asarray(jsc.numpy()), trs, jrs,
+                                    rtol=1e-5)
+        assert agree["ids_differ"] == [] and agree["max_score_rel"] < 1e-5
+        assert agree["best_ids_equal"] == 4 and agree["rescore_off"] == []
+        # the re-score is each beam's score of the same ids, in both
+        # packages
+        np.testing.assert_allclose(trs, tsc.numpy(), rtol=1e-5)
+        np.testing.assert_allclose(jrs, np.asarray(jsc.numpy()), rtol=1e-5)
+    _on_the_cpu(run)
+
+
+def test_seq2seq_rescore_catches_a_wrong_back_trace(cs, monkeypatch):
+    """A gather_tree that ignores the parent pointers gives ids that are
+    not the sequences their beam scores belong to: decode_agreement's
+    re-score names those sentences, near-ties or not."""
+    def run(np, torch, pt):
+        from paddle_tpu_torch.nn import decode
+        _, _, tm, arrays = _s2s_pair(cs, np, pt)
+        tm.eval()
+        src = torch.from_numpy(arrays[0])
+
+        def go():
+            with torch.no_grad():
+                ids, sc = cs.beam_decode(pt, tm, src, beam=3, max_steps=8)
+                ids, sc = ids.numpy(), sc.numpy()
+                return ids, sc, cs.seq2seq_rescore(np, pt, tm, src, ids)
+        ids, sc, rs = go()
+        monkeypatch.setattr(decode, "gather_tree", lambda i, p: i)
+        bids, bsc, brs = go()
+        ok = cs.decode_agreement(np, ids, sc, ids, sc, rs, rs)
+        bad = cs.decode_agreement(np, bids, bsc, ids, sc, brs, rs)
+        assert ok["rescore_off"] == [] and bad["max_score_rel"] == 0.0
+        assert bad["rescore_off"] != []
+    _on_the_cpu(run)

@@ -267,3 +267,75 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, causal,
                                                   dropout_p=p, seed=5)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=tol)
+
+
+def test_kernel_head_dim_pads_to_the_smallest_kernel_width():
+    assert [fa.kernel_head_dim(h) for h in (8, 32, 64, 65, 96, 128, 256)] \
+        == [64, 64, 64, 128, 128, 128, 256]
+
+
+@pytest.mark.parametrize("h,causal,p", [(8, False, 0.0), (32, True, 0.1),
+                                        (96, False, 0.1)])
+def test_padded_head_dim_equals_unpadded(monkeypatch, h, causal, p):
+    """The card's padding of head_dim (zero columns up to
+    kernel_head_dim), run on the plain version: O, lse and the three
+    gradients equal the unpadded run's at 1e-5, with the scale of the
+    original head_dim."""
+    q0, k0, v0 = _data(2, 24, 20, 2, h, seed=8)
+    w = torch.from_numpy(np.random.RandomState(9).randn(2, 24, 2, h)
+                         .astype(np.float32))
+
+    def run():
+        q, k, v = (torch.from_numpy(a).requires_grad_()
+                   for a in (q0, k0, v0))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        dropout_p=p, seed=3)
+        (o * w).sum().backward()
+        return [o.detach(), lse, q.grad, k.grad, v.grad]
+
+    ref = run()
+    widths = []
+    plain = fa.flash_attention_fwd_plain
+
+    def spy(q, *a, **kw):
+        widths.append(q.shape[-1])
+        return plain(q, *a, **kw)
+    monkeypatch.setattr(fa, "_PADDED_ON", ("cuda", "cpu"))
+    monkeypatch.setattr(fa, "flash_attention_fwd_plain", spy)
+    got = run()
+    assert widths == [fa.kernel_head_dim(h)]
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in ref]
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_head_dim_32_runs_padded_on_card(cuda_device, dtype, tol):
+    """A head_dim the kernels lack (32, as nn.Transformer(256, 8) has)
+    runs on them zero-padded to 64: O and the gradients against the
+    plain version at head_dim 32."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((2, 96, 4, 32), generator=g,
+                           device=cuda_device).to(dtype).requires_grad_()
+               for _ in range(3))
+    do = torch.randn((2, 96, 4, 32), generator=g,
+                     device=cuda_device).to(dtype)
+    before = dict(fa.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, dropout_p=0.1, seed=5)
+    o.backward(do)
+    assert all(fa.launches[n] > before[n] for n in fa.launches)
+    scale = 1.0 / math.sqrt(32)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(
+        q.detach(), k.detach(), v.detach(), False, scale, dropout_p=0.1,
+        seed=5)
+    grads = fa.flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), o_ref, lse_ref, do, False,
+        scale, 0.1, 5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=tol)
+    for got, want in zip((q.grad, k.grad, v.grad), grads):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)

@@ -96,7 +96,15 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.nn.param_attr, paddle_tpu_torch.vision.datasets, "
         "paddle_tpu_torch.vision.transforms, "
         "paddle_tpu_torch.vision.transforms.functional, "
-        "paddle_tpu_torch.vision.image\n"
+        "paddle_tpu_torch.vision.image, paddle_tpu_torch.nn.layer.rnn, "
+        "paddle_tpu_torch.nn.layer.transformer, "
+        "paddle_tpu_torch.nn.layer.loss, paddle_tpu_torch.nn.layer.common, "
+        "paddle_tpu_torch.nn.decode, paddle_tpu_torch.nn.utils, "
+        "paddle_tpu_torch.nn.extension, paddle_tpu_torch.nn.vision, "
+        "paddle_tpu_torch.nn.weight_norm_hook, "
+        "paddle_tpu_torch.nn.functional.extension, "
+        "paddle_tpu_torch.nn.functional.common, "
+        "paddle_tpu_torch.ops.rnn_ops, paddle_tpu_torch.ops.loss_extra\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
@@ -304,3 +312,39 @@ def test_creation_ops_and_config_1_need_cuda_unless_asked_for_the_cpu():
         "print('OUT', tuple(out.shape), out.device.type, "
         "pt.zeros([2]).device.type, pt.randn([2]).device.type)\n")
     assert "OUT (4, 10) cpu cpu cpu" in out
+
+
+def test_the_rest_of_nn_needs_cuda_unless_asked_for_the_cpu():
+    """The layers this slice adds make their parameters on the card by
+    default and raise without one (the RNNs, MultiHeadAttention, the
+    Transformer, Bilinear, HSigmoidLoss); device="cpu", or the CPU
+    asked for, builds them there. The causal mask goes to the current
+    device too."""
+    out = _run(
+        "import paddle_tpu_torch as pt, paddle_tpu_torch.nn as nn\n"
+        "makers = [lambda **k: nn.Bilinear(3, 4, 5, **k),\n"
+        "          lambda **k: nn.HSigmoidLoss(4, 6, **k),\n"
+        "          lambda **k: nn.LSTM(4, 8, num_layers=2, **k),\n"
+        "          lambda **k: nn.GRUCell(4, 8, **k),\n"
+        "          lambda **k: nn.SimpleRNN(4, 8, **k),\n"
+        "          lambda **k: nn.MultiHeadAttention(8, 2, **k),\n"
+        "          lambda **k: nn.TransformerDecoderLayer(8, 2, 16, **k),\n"
+        "          lambda **k: nn.Transformer(16, 2, 1, 1, 32, **k)]\n"
+        "for make in makers:\n"
+        "    try:\n"
+        "        make()\n"
+        "        raise SystemExit('built without a card')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'set_device' in str(e), e\n"
+        "    assert {p.device.type for p in "
+        "make(device='cpu').parameters()} == {'cpu'}\n"
+        "try:\n"
+        "    nn.Transformer.generate_square_subsequent_mask(4)\n"
+        "    raise SystemExit('mask without a card')\n"
+        "except RuntimeError:\n"
+        "    pass\n"
+        "pt.set_device('cpu')\n"
+        "print('OK', nn.Transformer(16, 2, 1, 1, 32).decoder.layers[0]"
+        ".cross_attn.q_proj.weight.device.type, "
+        "nn.Transformer.generate_square_subsequent_mask(4).device.type)\n")
+    assert "OK cpu cpu" in out

@@ -47,6 +47,10 @@ HOMONYMS = {
                  "paddle_tpu.histogram is an op (18.1's second half)",
     "det": "models.yolo's detection-ops alias; paddle_tpu.det is linalg's",
     "utils": "distributed.fleet.utils; paddle_tpu.utils is item 18.6",
+    "sigmoid_focal_loss": "nn.functional's (logit, label, normalizer, "
+                          "...) loss; paddle_tpu.sigmoid_focal_loss is "
+                          "ops/detection.py's (x, label, fg_num), not "
+                          "ported",
 }
 
 

@@ -3,12 +3,20 @@ tests/torch_ops_cases.py run through the JAX package (plain XLA on the
 CPU) and through paddle_tpu_torch on the CPU, values, shapes and (for
 differentiable cases) the gradients of sum(out * w) compared at the
 case's tolerance."""
+import functools
+
 import numpy as np
 import torch
 
 import paddle_tpu as jp
 import paddle_tpu_torch as pt
 from torch_ops_cases import ARG, TOLS
+
+
+def resolve(pkg, name):
+    """The callable `name` of a package: a top-level op, or a dotted
+    path below it (nn.functional.mse_loss)."""
+    return functools.reduce(getattr, name.split("."), pkg)
 
 
 def _leaves(out):
@@ -58,7 +66,7 @@ def run_jax(case):
     grads = [] if case.grad else None
     a = [_convert(v, _jax_make, grads) for v in args]
     k = {n: _convert(v, _jax_make, grads) for n, v in kwargs.items()}
-    out = getattr(jp, case.fn)(*a, **k)
+    out = resolve(jp, case.fn)(*a, **k)
     res = {"out": [_np_jax(o) for o in _leaves(out)]}
     if case.grad:
         loss = None
@@ -89,7 +97,7 @@ def run_torch(case, device="cpu"):
         return t.requires_grad_(True) if grad else t
     a = [_convert(v, make, grads) for v in args]
     k = {n: _convert(v, make, grads) for n, v in kwargs.items()}
-    out = getattr(pt, case.fn)(*a, **k)
+    out = resolve(pt, case.fn)(*a, **k)
     leaves = _leaves(out)
     res = {"out": [_np_torch(o) for o in leaves],
            "devices": [o.device.type for o in leaves
