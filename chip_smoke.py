@@ -15,7 +15,8 @@ Phases, each of which fails the run on any mismatch:
    for sm_90a into build/paddle_tpu_torch/ (one nvcc per source, all
    started together), with ptxas's register and spill report. A spill
    or a wgmma serialisation (ptxas C7515/C7512) in a head_dim-64 bf16
-   wgmma kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) fails the run. From
+   wgmma kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) fails the run, as does
+   a spill in any of the 24 head_dim-256 kernels (phase 40). From
    the built forward's SASS (cuobjdump -sass), the instructions per
    Philox4x32-10 call of the dropout kernel's keep-bit loop, for the
    forward's Philox floor (see 4).
@@ -524,11 +525,39 @@ Phases, each of which fails the run on any mismatch:
    that gap plus the re-scoring's own, of the score the card gave it
    (ids that are not the sequence their score belongs to fail).
    The path launches none of the port's own kernels.
+40. Head_dim 256 (`d256_case`, `mask_probe` at h 256, after `head_pad`):
+   csrc/flash_attn_d256.cu's FFMA forward, dQ and dK/dV kernels (bf16
+   read and written as bf16, computed in f32) at b 8, s 1024, n 8, h
+   256, strided qkv views, f32 and bf16, p 0 and 0.1, causal and not,
+   each held row by row against the plain versions at TOL (the forward
+   too) and timed beside the bound and SDPA; the mask probes at that
+   shape; `head_pad` runs head_dims 192 and 256 through
+   flash_attention_fwd (192 padded to 256); ptxas must report the 24
+   instantiations of the file with no spill.
+41. AMP on the card (`amp_card`, after `ops_card`): each op the JAX
+   package registers under a name on its AMP lists (AMP_OPS) under
+   auto_cast O1 and O2 from bf16 and f32 inputs: the lists' output
+   dtype. `ops_card` runs the op library's second half too (linalg,
+   einsum, sequence, misc, loss_extra, extras, amp_ops; a dotted case
+   name is a path below the top level).
+42. CoNLL-2005 SRL (`srl_train`, after `rnn_seq2seq`): the book's
+   db-LSTM + linear-chain CRF at its widths (SRL) on the synthetic
+   paddle.text.Conll05st: one epoch (51 batches of 10 sentences of 30
+   tokens) through the captured TrainStep in f32 and the same steps
+   eagerly from the same weights, losses and parameters bit-equal; the
+   first 4 losses card against CPU within 1e-4; ms a step captured and
+   eager, tokens/s, device ms by category and the idle share; the 64
+   test sentences Viterbi-decoded on the card (ms a batch of 10, token
+   accuracy), every path re-scored on the CPU in float64 within 1e-4 of
+   its Viterbi score, and equal to the CPU's decode wherever the CPU's
+   top-two margin exceeds 10 times the card-CPU score gap; the mean of
+   the last 10 losses below the first 10's. No kernel of the port runs
+   on this path.
 
 Output: a JSON line per phase; then the
 `kernels` line (each flash kernel with its launches a Transformer-base
 step and its times at the cross-attention and encoder self-attention
-shapes), the card's
+shapes, and its head_dim-256 cases), the card's
 nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
 package is not beside this file, it exits non-zero and prints no result.
@@ -539,6 +568,8 @@ import os
 import subprocess
 import sys
 import time
+
+import functools
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1031,12 +1062,14 @@ def bwd_kernel_phase(torch, fa, philox):
             for case in cases + mt_cases()]
 
 
-def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
+def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case",
+                    with_fwd=None):
     """One case (b, s, n, h, causal, dtype, dropout p[, sk, separate])
-    of the backward kernels (and the forward, in bf16 and with dropout)
-    against their plain versions, with their times and bounds; emitted
-    under `tag`. sk (the key length) defaults to s, and q, k and v to
-    views of one qkv tensor (_unpack, attention_inputs)."""
+    of the backward kernels (and the forward, in bf16 and with dropout,
+    or as with_fwd says) against their plain versions, with their times
+    and bounds; emitted under `tag`. sk (the key length) defaults to s,
+    and q, k and v to views of one qkv tensor (_unpack,
+    attention_inputs)."""
     sd = seed_card(torch)
     dev = torch.device("cuda", 0)
     b_, s, nh, hd, causal, dt, p, sk, sep = _unpack(case)
@@ -1060,7 +1093,8 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
         err, ratio, good = _row_err_ok(got, want, dt)
         row[f"{name}_max_abs_err"], row[f"{name}_worst_row"] = err, ratio
         ok &= good
-    with_fwd = bool(p) or dt == "bfloat16"
+    if with_fwd is None:
+        with_fwd = bool(p) or dt == "bfloat16"
     if with_fwd:
         o_ref, lse_ref = fa.flash_attention_fwd_plain(
             q, k, v, causal, scale, dropout_p=p, seed=DROP_SEED)
@@ -1080,7 +1114,7 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case"):
     row["dq_repeatable"] = bool(torch.equal(dq2, dq))
     row["delta_max_abs_err"] = row["delta_tol"] = None
     delta_ok = True
-    if fa._delta_in_kernel(dtype):
+    if fa._delta_in_kernel(dtype, hd):
         ref_delta = fa._bwd_delta(o, do)
         big = max(1.0, ref_delta.abs().max().item())
         row["delta_max_abs_err"] = (delta - ref_delta).abs().max().item()
@@ -1232,10 +1266,72 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal, sk=None,
     return row
 
 
-# head_dims the kernels lack, run zero-padded to kernel_head_dim:
-# nn.Transformer(256, 8)'s 32 and 96 (padded to 128), at the
-# cross-attention shape (b 32, n 8, sq 96, sk 128, separate q, k, v)
-PAD_HEAD_DIMS = (32, 96)
+# head_dims run through kernel_head_dim at the cross-attention shape (b
+# 32, n 8, sq 96, sk 128, separate q, k, v): nn.Transformer(256, 8)'s 32
+# and 96 (padded to 64 and 128), 192 (padded to 256) and 256 itself
+# (nn.MultiHeadAttention(4096, 16)'s head width)
+PAD_HEAD_DIMS = (32, 96, 192, 256)
+# head_dim 256 on csrc/flash_attn_d256.cu's kernels: b, s, n, h
+D256_SHAPE = (8, 1024, 8, 256)
+D256_SOURCE = "flash_attn_d256"
+# its instantiations: 3 kernels x 2 dtypes x causal x dropout
+D256_INSTANTIATIONS = 24
+
+
+def d256_kernel_phase(torch, fa):
+    """The forward, dQ and dK/dV kernels at head_dim 256 against their
+    plain versions, row by row at TOL (bwd_kernel_case, the forward
+    always held too), in f32 and bf16, at p 0 and DROP_P, causal and
+    not, at D256_SHAPE, with their times beside the bound and SDPA's;
+    each case must launch each kernel once more."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    b, s, n, h = D256_SHAPE
+    rows = []
+    for dt in ("float32", "bfloat16"):
+        for p in (0.0, DROP_P):
+            for causal in (False, True):
+                before = dict(fa.launches)
+                row = bwd_kernel_case(torch, fa, gen,
+                                      (b, s, n, h, causal, dt, p), None,
+                                      tag="d256_case", with_fwd=True)
+                # every kernel launched in the case (its timings too)
+                row["launched"] = {k: fa.launches[k] - before[k]
+                                   for k in fa.launches}
+                if not all(row["launched"].values()):
+                    fail(f"a head_dim-256 case launched no kernel of one "
+                         f"kind: {row['launched']}")
+                rows.append(row)
+    return rows
+
+
+def d256_mask_probe_phase(torch, fa):
+    """The head_dim-256 kernels' own dropout masks, link for link
+    (mask_probe_case), f32 and bf16, causal and not, at D256_SHAPE."""
+    b, s, n, h = D256_SHAPE
+    return [mask_probe_case(torch, fa, b, n, h, s, dt, causal=causal)
+            for dt in ("bfloat16", "float32") for causal in (False, True)]
+
+
+def d256_kernel_rows(cases):
+    """{kernel: [per-case times, errors and bounds]} of the head_dim-256
+    cases, for the `kernels` line's rows."""
+    keys = {"flash_attn_fwd": ("fwd", "o"), "flash_attn_bwd_dq": ("dq", "dq"),
+            "flash_attn_bwd_dkv": ("dkv", "dk")}
+    out = {}
+    for name, (t, e) in keys.items():
+        out[name] = [dict(
+            dtype=c["dtype"], causal=c["causal"], dropout_p=c["dropout_p"],
+            ms=c[f"{t}_ms"], plain_ms=c[f"{t}_plain_ms"],
+            bound_ms=c[f"{t}_bound_ms"], bound_by=c[f"{t}_bound_by"],
+            library_ms=c["fwd_library_ms"] if t == "fwd" else None,
+            backward_library_ms=(None if t == "fwd"
+                                 else c["backward_library_ms"]),
+            max_abs_err=(c[f"{e}_max_abs_err"] if t != "dkv" else
+                         max(c["dk_max_abs_err"], c["dv_max_abs_err"])))
+            for c in cases]
+    return out
 
 
 def head_pad_phase(torch, fa):
@@ -1652,9 +1748,10 @@ PROFILE_CATEGORIES = [
 
 # the device kernels each wrapper launches, by the fragments of their
 # names that torch.profiler shows (bf16 wgmma, f32 simt)
-KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt"),
-                 "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt"),
-                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt")}
+KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
+                                    "fwd_d256"),
+                 "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_d256"),
+                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt", "dkv_d256")}
 # what a training run's `launches` counts
 COUNTED_CALLS = ("the first call's warm-up (the wrappers' count) and two "
                  "replays under torch.profiler (kernels counted on the "
@@ -6221,8 +6318,9 @@ def ops_case_run(torch, pt, cases, case, device):
             return x.detach().cpu().resolve_conj().resolve_neg().numpy()
         return np.asarray(x)
     pt.set_device(device)
-    out = getattr(pt, case.fn)(*[conv(v) for v in args],
-                               **{n: conv(v) for n, v in kwargs.items()})
+    fn = functools.reduce(getattr, case.fn.split("."), pt)
+    out = fn(*[conv(v) for v in args],
+             **{n: conv(v) for n, v in kwargs.items()})
     leaves = _leaves(out)
     res = dict(out=[host(o) for o in leaves],
                devices=[o.device.type for o in leaves
@@ -6507,6 +6605,73 @@ def mnist_dygraph_phase(torch, pt, fa, nms, smi):
     if bad:
         fail("mnist_dygraph: " + "; ".join(bad))
     return row
+
+
+# -- the op library's AMP casts on the card --------------------------------------
+
+# the ops whose JAX op is registered under a name on the AMP lists:
+# registered name -> (top-level function, argument shapes; "pos" draws
+# from [0.5, 2), a string passes as it is), keywords
+AMP_OPS = {
+    "exp": ("exp", ["pos"], {}), "log": ("log", ["pos"], {}),
+    "log2": ("log2", ["pos"], {}), "log10": ("log10", ["pos"], {}),
+    "log1p": ("log1p", ["pos"], {}), "square": ("square", ["pos"], {}),
+    "sqrt": ("sqrt", ["pos"], {}), "rsqrt": ("rsqrt", ["pos"], {}),
+    "reciprocal": ("reciprocal", ["pos"], {}),
+    "elementwise_pow": ("pow", ["pos", "pos"], {}),
+    "cumsum": ("cumsum", ["pos"], {"axis": 1}),
+    "logsumexp": ("logsumexp", ["pos"], {"axis": 1}),
+    "reduce_sum": ("sum", ["pos"], {"axis": 0}),
+    "reduce_mean": ("mean", ["pos"], {}),
+    "reduce_prod": ("prod", ["pos"], {"axis": 1}),
+    "p_norm": ("norm", [(3, 4)], {"p": 2, "axis": 1}),
+    "matmul_v2": ("matmul", [(3, 4), (4, 5)], {}),
+    "addmm": ("addmm", [(3, 5), (3, 4), (4, 5)], {}),
+    "bmm": ("bmm", [(2, 3, 4), (2, 4, 5)], {}),
+    "mv": ("mv", [(3, 4), (4,)], {}),
+    "einsum": ("einsum", ["ij,jk->ik", (3, 4), (4, 5)], {}),
+}
+
+
+def amp_card_phase(torch, pt):
+    """Each AMP_OPS op on the card under auto_cast O1 and O2 (bf16), from
+    bf16 and f32 inputs: its output dtype must be the one the AMP lists
+    give (O1: white-list ops bf16, black-list f32; O2: black-list f32,
+    the others bf16), as the JAX registry's hook casts; outside
+    auto_cast, the input dtype."""
+    from paddle_tpu_torch.amp.auto_cast import AMP_BLACK_LIST, AMP_WHITE_LIST
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 29)
+    bad, rows = [], []
+    for name, (fn, shapes, kw) in AMP_OPS.items():
+        for dt in ("float32", "bfloat16"):
+            def make(s):
+                if isinstance(s, str) and s != "pos":
+                    return s
+                if s == "pos":
+                    x = torch.rand((3, 4), generator=gen, device="cuda")
+                    x = x * 1.5 + 0.5
+                else:
+                    x = torch.randn(s, generator=gen, device="cuda")
+                return x.to(getattr(torch, dt))
+            args = [make(s) for s in shapes]
+            got = {"none": str(getattr(pt, fn)(*args, **kw).dtype)}
+            want = {"none": f"torch.{dt}"}
+            for level in ("O1", "O2"):
+                with pt.amp.auto_cast(level=level, dtype="bfloat16"):
+                    got[level] = str(getattr(pt, fn)(*args, **kw).dtype)
+                black = name in AMP_BLACK_LIST
+                low = name in AMP_WHITE_LIST if level == "O1" else not black
+                want[level] = ("torch.float32" if black else
+                               "torch.bfloat16" if low else f"torch.{dt}")
+            rows.append(dict(op=name, fn=fn, dtype=dt, got=got))
+            if got != want:
+                bad.append(f"{name} {dt}: {got} vs {want}")
+    emit({"amp_card": dict(ops=len(AMP_OPS), cases=len(rows),
+                           device=str(args[-1].device), mismatches=bad)})
+    if bad:
+        fail("amp_card: " + "; ".join(bad))
+    return rows
 
 
 # -- the rest of paddle.nn: Transformer-base and an LSTM seq2seq -------------------
@@ -7131,6 +7296,399 @@ def rnn_seq2seq_phase(torch, pt):
     return row
 
 
+# -- paddle.text and the op library's second half: the CoNLL-2005 SRL -----
+
+# PaddlePaddle's semantic-role labeller, the book's chapter 07
+# (label_semantic_roles, a tests/book model of the Fluid era): a db-LSTM
+# over CoNLL-2005 with a linear-chain CRF, at the book's widths. Eight
+# embeddings (the word and its five context words share one [44,068 x
+# 32] table, the predicate a [3,162 x 32] one, the mark a [2 x 5] one),
+# hidden_0 the sum of eight fc(., 512, tanh), then 8 LSTMs of 128 units
+# on 512-wide gate projections (dynamic_lstm(size=512)), alternating in
+# direction, each after the first fed fc(mix) + fc(lstm); feature_out
+# the sum of two fc(., 9, tanh), the loss the mean of linear_chain_crf
+# (the transition [11, 9], trained at 1e-3 times the rate as the book's
+# crfw), decoded by viterbi_decode. SGD at 0.01 (the book's decay, x0.5
+# every 100,000 steps, does not fire within an epoch), batch 10, the
+# synthetic train split (paddle.text.Conll05st: 512 sentences of 30
+# tokens, 9 labels). Stated differences from the book: ops.lstm's
+# standard activations (sigmoid gates, tanh candidate and cell) where
+# dynamic_lstm had a relu candidate and a sigmoid cell; dense embeddings
+# (not is_sparse); the word table trained from random weights (no
+# pretrained emb in the repository).
+SRL = dict(word_dict_len=44068, pred_dict_len=3162, mark_dict_len=2,
+           label_dict_len=9, word_dim=32, mark_dim=5, hidden_dim=512,
+           depth=8)
+SRL_BATCH, SRL_LR, SRL_CRF_LR = 10, 0.01, 1e-3
+SRL_TIMED = 20
+SRL_CPU_STEPS, SRL_CPU_RTOL = 4, 1e-4
+# a Viterbi score's re-score on the CPU (float64) against the card's
+# score, relative
+SRL_RESCORE_RTOL = 1e-4
+# a path may differ from the CPU's only where the CPU's top-two margin is
+# within this many times the two devices' largest score difference
+SRL_TIE_FACTOR = 10
+SRL_LOSS_WINDOW = 10
+# the CPU tests' tiny model: the synthetic split's id ranges (words below
+# 1,000, predicates below 100)
+SRL_TINY = dict(word_dict_len=1000, pred_dict_len=100, mark_dict_len=2,
+                label_dict_len=9, word_dim=8, mark_dim=5, hidden_dim=32,
+                depth=2)
+
+
+def srl_model(paddle, word_dict_len, pred_dict_len, mark_dict_len,
+              label_dict_len, word_dim, mark_dim, hidden_dim, depth):
+    """The book's db-LSTM + CRF written against the public API of
+    `paddle` (either package). forward(word, ctx_n2, ctx_n1, ctx_0,
+    ctx_p1, ctx_p2, predicate, mark, length) -> (feature_out [b, t,
+    labels], transition [labels + 2, labels]).
+
+    Each LSTM is dynamic_lstm's recurrence over input already projected
+    to the gate width: ops.rnn_ops.lstm with an identity input weight,
+    so the gates are x_t + h W_hh^T + b. The book trains crfw at
+    ParamAttr(learning_rate=1e-3); neither package's optimizers read a
+    parameter's learning rate, so the transition is crfw = a u with a =
+    sqrt(SRL_CRF_LR), which under SGD moves crfw at exactly SRL_CRF_LR
+    times the rate."""
+    nn = paddle.nn
+    lstm = paddle.ops.rnn_ops.lstm
+    gates = hidden_dim
+    units = hidden_dim // 4
+    scale = math.sqrt(SRL_CRF_LR)
+
+    class GateLSTM(nn.Layer):
+        def __init__(self, reverse):
+            super().__init__()
+            self.weight_hh = self.create_parameter([gates, units])
+            self.bias = self.create_parameter([gates], is_bias=True)
+            self.reverse = reverse
+
+        def forward(self, x, length):
+            out, _, _ = lstm(x, paddle.eye(gates), self.weight_hh,
+                             self.bias, paddle.zeros([gates]),
+                             sequence_length=length,
+                             is_reverse=self.reverse)
+            return out
+
+    class DbLstmSRL(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word_emb = nn.Embedding(word_dict_len, word_dim)
+            self.pred_emb = nn.Embedding(pred_dict_len, word_dim)
+            self.mark_emb = nn.Embedding(mark_dict_len, mark_dim)
+            self.emb_fc = nn.LayerList(
+                [nn.Linear(word_dim, hidden_dim) for _ in range(7)]
+                + [nn.Linear(mark_dim, hidden_dim)])
+            self.lstms = nn.LayerList([GateLSTM(i % 2 == 1)
+                                       for i in range(depth)])
+            self.mix_fc = nn.LayerList([nn.Linear(hidden_dim, hidden_dim)
+                                        for _ in range(depth - 1)])
+            self.lstm_fc = nn.LayerList([nn.Linear(units, hidden_dim)
+                                         for _ in range(depth - 1)])
+            self.out_mix = nn.Linear(hidden_dim, label_dict_len)
+            self.out_lstm = nn.Linear(units, label_dict_len)
+            self.crfw = self.create_parameter(
+                [label_dict_len + 2, label_dict_len])
+
+        def forward(self, word, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2,
+                    predicate, mark, length):
+            embs = [self.word_emb(x) for x in (word, ctx_n2, ctx_n1,
+                                               ctx_0, ctx_p1, ctx_p2)]
+            embs += [self.pred_emb(predicate), self.mark_emb(mark)]
+            hidden = None
+            for fc, e in zip(self.emb_fc, embs):
+                h = paddle.tanh(fc(e))
+                hidden = h if hidden is None else hidden + h
+            mix, out = hidden, self.lstms[0](hidden, length)
+            for i in range(1, depth):
+                mix = paddle.tanh(self.mix_fc[i - 1](mix)) + \
+                    paddle.tanh(self.lstm_fc[i - 1](out))
+                out = self.lstms[i](mix, length)
+            feature = paddle.tanh(self.out_mix(mix)) + \
+                paddle.tanh(self.out_lstm(out))
+            return feature, self.crfw * scale
+
+    return DbLstmSRL()
+
+
+def srl_param_count(word_dict_len, pred_dict_len, mark_dict_len,
+                    label_dict_len, word_dim, mark_dim, hidden_dim, depth):
+    """srl_model's parameters, from the widths: the three tables, the
+    eight input fcs, `depth` LSTMs (recurrent [gates, units] and a gate
+    bias), depth - 1 pairs of mixing fcs, the two output fcs and crfw."""
+    h, u, lab = hidden_dim, hidden_dim // 4, label_dict_len
+    return (word_dict_len * word_dim + pred_dict_len * word_dim
+            + mark_dict_len * mark_dim + 7 * (word_dim * h + h)
+            + (mark_dim * h + h) + depth * (h * u + h)
+            + (depth - 1) * ((h * h + h) + (u * h + h))
+            + (h * lab + lab) + (u * lab + lab) + (lab + 2) * lab)
+
+
+def srl_loss(paddle):
+    """loss((feature, transition), label, length): the mean of
+    linear_chain_crf's nll over the batch."""
+    def loss(out, label, length):
+        feature, transition = out
+        return paddle.mean(paddle.linear_chain_crf(feature, transition,
+                                                   label, length))
+    return loss
+
+
+def srl_arrays(np, dataset):
+    """The dataset's nine fields stacked, each [n, 30] int64, and the
+    lengths [n] (every synthetic sentence is MAX_LEN long)."""
+    fields = [np.stack([np.asarray(item[k]) for item in dataset]).astype(
+        np.int64) for k in range(9)]
+    n, t = fields[0].shape
+    return fields, np.full((n,), t, np.int64)
+
+
+def srl_batch(fields, lengths, lo, hi, make):
+    """(inputs, labels) of items [lo, hi) for TrainStep, through make (a
+    numpy array -> tensor): inputs the eight id fields and the lengths,
+    labels the label ids and the lengths."""
+    length = make(lengths[lo:hi])
+    x = tuple(make(f[lo:hi]) for f in fields[:8]) + (length,)
+    return x, (make(fields[8][lo:hi]), length)
+
+
+def srl_path_score(np, em, trans, path, n):
+    """A tag path's CRF score, float64: start, emissions, pairwise and
+    stop scores over its first n tags."""
+    start, stop, pair = trans[0], trans[1], trans[2:]
+    p = np.asarray(path[:n])
+    return float(start[p[0]] + em[np.arange(n), p].sum()
+                 + pair[p[:-1], p[1:]].sum() + stop[p[-1]])
+
+
+def viterbi_top2(np, em, trans, n):
+    """(best, second best) path scores of one sentence's first n tags,
+    float64: a 2-best Viterbi (each tag keeps its two best distinct
+    partial paths)."""
+    start, stop, pair = trans[0], trans[1], trans[2:]
+    k = em.shape[1]
+    top = np.full((k, 2), -np.inf)
+    top[:, 0] = start + em[0]
+    for t in range(1, n):
+        cand = (top[:, None, :] + pair[:, :, None]).transpose(1, 0, 2)
+        cand = np.sort(cand.reshape(k, -1), axis=1)[:, ::-1][:, :2]
+        top = cand + em[t][:, None]
+    final = np.sort((top + stop[:, None]).ravel())[::-1]
+    return float(final[0]), float(final[1])
+
+
+def srl_decode_agreement(np, card, cpu, trans_cpu, em_cpu, lengths,
+                         rtol=SRL_RESCORE_RTOL, factor=SRL_TIE_FACTOR):
+    """Card Viterbi (scores, paths) against the CPU's on the same
+    weights: every card path re-scored on the CPU's emission and
+    transition in float64 must equal the card's score within rtol; a
+    sentence's paths may differ only where the CPU's top-two margin
+    (viterbi_top2) is within factor times the largest card-CPU score
+    difference (the gap)."""
+    scores, paths = card
+    ref_scores, ref_paths = cpu
+    gap = float(np.abs(scores - ref_scores).max())
+    rescored = np.array([srl_path_score(np, em_cpu[i], trans_cpu, paths[i],
+                                        int(lengths[i]))
+                         for i in range(len(scores))])
+    rel = np.abs(rescored - scores) / np.maximum(np.abs(scores), 1.0)
+    margins = np.array([np.subtract(*viterbi_top2(np, em_cpu[i], trans_cpu,
+                                                  int(lengths[i])))
+                        for i in range(len(scores))])
+    differ = np.array([not np.array_equal(paths[i], ref_paths[i])
+                       for i in range(len(scores))])
+    tie = factor * gap
+    return dict(sentences=len(scores), gap=gap, rescore_max_rel=float(
+        rel.max()), rescore_rtol=rtol,
+        rescore_off=[int(i) for i in np.nonzero(~(rel <= rtol))[0]],
+        tie_factor=factor, tie=tie, near_ties=int((margins <= tie).sum()),
+        paths_differ=[int(i) for i in np.nonzero(differ)[0]],
+        differ_outside_ties=[int(i) for i in np.nonzero(
+            differ & (margins > tie))[0]],
+        margin_quantiles=[float(q) for q in np.quantile(
+            margins, (0.0, 0.25, 0.5, 0.75, 1.0))])
+
+
+def srl_train_gates(row):
+    """The srl_train phase's failures, each a message (empty: ok)."""
+    bad = []
+    cap = row["captured_vs_eager"]
+    if not (cap["losses_bit_equal"] and cap["params_bit_equal"]):
+        bad.append("the replays are not bit-equal to the eager steps "
+                   f"(params max abs diff {cap['params_max_abs_diff']})")
+    if row["graphs"] != 1 or row["sentinel_events"] != 0:
+        bad.append(f"{row['graphs']} graphs and {row['sentinel_events']} "
+                   "sentinel events for one signature")
+    if row["params"] != row["params_book"]:
+        bad.append(f"{row['params']} parameters, the book's widths give "
+                   f"{row['params_book']}")
+    if not all(math.isfinite(v) for v in cap["graph_losses"]):
+        bad.append("non-finite losses")
+    cpu = row["card_vs_cpu"]
+    if not cpu["max_rel"] <= SRL_CPU_RTOL:
+        bad.append(f"card and CPU losses differ: {cpu}")
+    dec = row["decode_vs_cpu"]
+    if dec["rescore_off"]:
+        bad.append(f"Viterbi scores off their paths' CRF re-score: {dec}")
+    if dec["differ_outside_ties"]:
+        bad.append(f"paths differ from the CPU's outside near-ties: {dec}")
+    if not row["loss_last_window"] < row["loss_first_window"]:
+        bad.append(f"the loss did not fall: first {row['loss_first_window']}"
+                   f", last {row['loss_last_window']}")
+    if any(row["custom_kernel_launches"].values()):
+        bad.append(f"the SRL path launched the port's kernels: "
+                   f"{row['custom_kernel_launches']}")
+    return bad
+
+
+def _srl_step(pt, cfg):
+    """(model, TrainStep) of srl_model at cfg on the current device,
+    weights from SEED: SGD(SRL_LR) over every parameter, f32."""
+    from paddle_tpu_torch.static import TrainStep
+    pt.seed(SEED)
+    model = srl_model(pt, **cfg)
+    opt = pt.optimizer.SGD(learning_rate=SRL_LR,
+                           parameters=model.parameters())
+    return model, TrainStep(model, srl_loss(pt), opt)
+
+
+def srl_train_phase(torch, pt, fa, nms):
+    """The CoNLL-2005 SRL db-LSTM + CRF (SRL) trained one epoch of the
+    synthetic train split (51 full batches of SRL_BATCH) through the
+    captured TrainStep in f32, then the same steps eagerly from the same
+    weights: every loss and the trained parameters bit-equal. The card
+    against the CPU on the first SRL_CPU_STEPS losses (SRL_CPU_RTOL
+    relative). Then SRL_TIMED replays on a synchronised host clock (ms a
+    step, tokens/s), the device ms of a replay by category and the idle
+    share (profile_step), and the 64 test sentences Viterbi-decoded in
+    batches of SRL_BATCH on the card (ms a batch, token accuracy),
+    against the CPU's decode on the same weights
+    (srl_decode_agreement). The loss's last SRL_LOSS_WINDOW steps must
+    average below its first."""
+    import numpy as np
+    t0 = time.perf_counter()
+    train = pt.text.Conll05st(mode="train")
+    test = pt.text.Conll05st(mode="test")
+    fields, lengths = srl_arrays(np, train)
+    steps = len(lengths) // SRL_BATCH
+
+    def card(a):
+        return torch.from_numpy(a).cuda()
+
+    batches = [srl_batch(fields, lengths, i * SRL_BATCH,
+                         (i + 1) * SRL_BATCH, card) for i in range(steps)]
+    model, step = _srl_step(pt, SRL)
+    s0 = _to_cpu(step.state_dict())
+    _zero(fa)
+    nms.launches["nms_greedy"] = 0
+    graph_losses = [float(step(x, y)) for x, y in batches]
+    graph_params = _snapshot(step)
+    step.set_state_dict(s0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eager_losses = [float(step.eager_step(x, y)) for x, y in batches]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) / steps * 1e3
+    eager_params = _snapshot(step)
+    cap = dict(steps=steps, graph_losses=graph_losses,
+               eager_losses=eager_losses,
+               losses_bit_equal=graph_losses == eager_losses,
+               params_bit_equal=_bit_equal(graph_params, eager_params),
+               params_max_abs_diff=_max_abs_diff(graph_params, eager_params))
+    del graph_params, eager_params
+    launches = dict(fa.launches, **nms.launches)
+    x, y = batches[0]
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(SRL_TIMED):
+        step(*batches[i % steps])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    prof = profile_step(torch, step, x, y)
+    step_ms = secs / SRL_TIMED * 1e3
+    tokens = SRL_BATCH * fields[0].shape[1]
+    # decode the test split on the card, in batches of SRL_BATCH
+    tf, tl = srl_arrays(np, test)
+    model.eval()
+    paths, scores, ems = [], [], []
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        for lo in range(0, len(tl), SRL_BATCH):
+            xb, _ = srl_batch(tf, tl, lo, lo + SRL_BATCH, card)
+            em, trans = model(*xb)
+            sc, pa = pt.viterbi_decode(em, trans, xb[-1])
+            paths.append(pa)
+            scores.append(sc)
+            ems.append(em)
+        torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t2) * 1e3 / len(paths)
+    paths = torch.cat(paths).cpu().numpy()
+    scores = torch.cat(scores).double().cpu().numpy()
+    acc = float((paths == tf[8]).mean())
+    trained = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    graphs, sentinel = step.programs, step.recompile_sentinel.fired
+    step.release()
+    del step, batches
+    torch.cuda.empty_cache()
+    # the CPU: the first steps from s0, and the decode on the trained
+    # weights
+    with _OnCpu():
+        cpu_model, cpu_step = _srl_step(pt, SRL)
+        cpu_step.set_state_dict(s0)
+        cpu_losses = [float(cpu_step.eager_step(*srl_batch(
+            fields, lengths, i * SRL_BATCH, (i + 1) * SRL_BATCH,
+            torch.from_numpy))) for i in range(SRL_CPU_STEPS)]
+        cpu_model.set_state_dict(trained)
+        cpu_model.eval()
+        with torch.no_grad():
+            xc, _ = srl_batch(tf, tl, 0, len(tl), torch.from_numpy)
+            em_cpu, trans_cpu = cpu_model(*xc)
+            ref_scores, ref_paths = pt.viterbi_decode(em_cpu, trans_cpu,
+                                                      xc[-1])
+    rel = [_rel_diff(a, c) for a, c in
+           zip(graph_losses[:SRL_CPU_STEPS], cpu_losses)]
+    agree = srl_decode_agreement(
+        np, (scores, paths), (ref_scores.double().numpy(),
+                              ref_paths.numpy()),
+        trans_cpu.double().numpy(), em_cpu.double().numpy(), tl)
+    first = sum(graph_losses[:SRL_LOSS_WINDOW]) / SRL_LOSS_WINDOW
+    last = sum(graph_losses[-SRL_LOSS_WINDOW:]) / SRL_LOSS_WINDOW
+    row = dict(card=nvidia_smi(), model="db-LSTM + CRF (book ch. 07)",
+               config=SRL, dataset="paddle.text.Conll05st synthetic",
+               train_sentences=len(lengths), test_sentences=len(tl),
+               batch=SRL_BATCH, seq_len=int(fields[0].shape[1]),
+               dtype="float32", optimizer=f"SGD({SRL_LR}), crfw at "
+               f"{SRL_CRF_LR}x", params=sum(p.numel() for p in
+                                            model.parameters()),
+               params_book=srl_param_count(**SRL),
+               captured_vs_eager=cap, graphs=graphs,
+               sentinel_events=sentinel, loss_first_window=first, loss_last_window=last,
+               step_ms=step_ms, eager_step_ms=eager_ms,
+               tokens_per_s=tokens / (step_ms / 1e3),
+               eager_tokens_per_s=tokens / (eager_ms / 1e3),
+               device_ms_per_step=prof["device_ms"],
+               idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               kernel_launches_per_replay=prof["events"],
+               profile=_profile_row(prof, top=12),
+               decode_ms_per_batch=decode_ms, decode_batches=len(
+                   range(0, len(tl), SRL_BATCH)),
+               token_accuracy=acc,
+               card_vs_cpu=dict(steps=SRL_CPU_STEPS,
+                                losses_card=graph_losses[:SRL_CPU_STEPS],
+                                losses_cpu=cpu_losses, loss_rel_diff=rel,
+                                max_rel=max(rel), rtol=SRL_CPU_RTOL),
+               decode_vs_cpu=agree, custom_kernel_launches=launches,
+               seconds=time.perf_counter() - t0)
+    emit({"srl_train": row})
+    bad = srl_train_gates(row)
+    if bad:
+        fail("srl_train: " + "; ".join(bad))
+    return row
+
+
 def philox_phase(torch, build):
     """(instructions per Philox4x32-10 call, SMs, max SM clock MHz): the
     call's instructions counted in the SASS of the head_dim-64 dropout
@@ -7209,6 +7767,13 @@ def main():
         if serial:
             fail(f"ptxas serialises the wgmma of a head_dim-64 kernel: "
                  f"{serial}")
+        if name == D256_SOURCE:
+            spills = ptxas_spills(info["log"])
+            d256_spill = [f for f, st, ld in spills if st or ld]
+            if len(spills) != D256_INSTANTIATIONS or d256_spill:
+                fail(f"ptxas: {len(spills)} head_dim-256 kernels reported "
+                     f"(want {D256_INSTANTIATIONS}), spilling: "
+                     f"{d256_spill}")
     emit({"build_seconds": build_s})
     philox = philox_phase(torch, _build)
 
@@ -7216,6 +7781,8 @@ def main():
     bwd_cases = bwd_kernel_phase(torch, fa, philox)
     probes = mask_probe_phase(torch, fa)
     pad_cases = head_pad_phase(torch, fa)
+    d256_cases = d256_kernel_phase(torch, fa)
+    d256_probes = d256_mask_probe_phase(torch, fa)
     host_cost_phase(torch, fa)
     nms_cases = nms_kernel_phase(torch, nms)
     _zero(fa)
@@ -7276,11 +7843,14 @@ def main():
     del yolo_model
     torch.cuda.empty_cache()
     ops_card_phase(torch, pt)
+    amp_card_phase(torch, pt)
     mnist = mnist_dygraph_phase(torch, pt, fa, nms, smi)
     torch.cuda.empty_cache()
     mt = transformer_train_phase(torch, pt, fa)
     torch.cuda.empty_cache()
     rnn_seq2seq_phase(torch, pt)
+    torch.cuda.empty_cache()
+    srl_train_phase(torch, pt, fa, nms)
     torch.cuda.empty_cache()
     elastic_train_phase(torch)
     emit({"capture_hazards": dict(
@@ -7358,6 +7928,7 @@ def main():
         mt_at[what] = _kernels_at(row, f"b32 sq{sq} sk{sk} n8 h64 bfloat16 "
                                        "non-causal dropout 0.1, separate "
                                        "q, k and v")
+    d256_rows = d256_kernel_rows(d256_cases)
     # no library call computes one backward kernel's outputs alone: the
     # backward rows carry SDPA's backward beside the whole backward
     common = dict(route="cuda", shape=shape)
@@ -7417,6 +7988,12 @@ def main():
             launches_per_step=mt["launches_per_step"][kern["name"]],
             **mt_at["cross"][kern["name"]],
             self_attention=mt_at["self"][kern["name"]])
+        # head_dim 256 (csrc/flash_attn_d256.cu): no model of either
+        # package reaches it; the kernel cases' rows at D256_SHAPE
+        kern["head_dim_256"] = dict(
+            source="paddle_tpu_torch/csrc/flash_attn_d256.cu",
+            shape="b{} s{} n{} h{}, qkv views".format(*D256_SHAPE),
+            cases=d256_rows[kern["name"]])
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     # greedy NMS: no Pallas origin; at the serving path's shape (640
@@ -7444,7 +8021,7 @@ def main():
         fail("the serving path launched no nms_greedy kernel")
     emit({"kernels": kernels, "philox": "paddle_tpu_torch/csrc/philox.cuh "
           "replaces paddle_tpu/ops/pallas_kernels.py:157 (inside all three)",
-          "mask_probes": probes + gpt_probes + [pipe_probe],
+          "mask_probes": probes + gpt_probes + [pipe_probe] + d256_probes,
           "backward_cases": bwd_cases, "head_pad_cases": pad_cases,
           "gpt_training_cases": gpt_kernel_rows})
     print(smi, flush=True)

@@ -48,11 +48,17 @@ rest of paddle.nn: the losses and their layers, the remaining layers,
 the RNNs, nn.Transformer (MultiHeadAttention on the flash kernels when
 no mask is given), beam-search decoding and the weight norms, with
 Transformer-base trained through the captured TrainStep and an LSTM
-seq2seq trained and beam-decoded.
+seq2seq trained and beam-decoded. The op library's second half: linalg
+(and the paddle.linalg namespace), einsum, the control-flow ops (which
+select on the device inside a CUDA-graph capture), tensor arrays, the
+sequence ops, the long-tail misc and loss ops, the CRF and Viterbi
+decoding with the rest of extras, and the AMP graph ops, with the op
+library's AMP casts; paddle.text's datasets, with which the CoNLL-2005
+semantic-role labeller (db-LSTM + linear-chain CRF) trains and decodes.
 """
 from . import (amp, core, device, distributed, hapi, io, jit,  # noqa: F401
-               metric, models, nn, observability, ops, optimizer, quant,
-               regularizer, serving, static, vision)
+               linalg, metric, models, nn, observability, ops, optimizer,
+               quant, regularizer, serving, static, text, vision)
 from . import ops as tensor  # noqa: F401
 from .batch import batch  # noqa: F401
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401

@@ -1,0 +1,584 @@
+// Flash attention at head_dim 256 for Hopper (sm_90a): the forward, dQ
+// and dK/dV kernels of flash_attn_fwd.cu and flash_attn_bwd.cu for a
+// head_dim their designs do not fit, in float32 and bfloat16.
+//
+// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
+// `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
+// Pallas wrapper pads to 256 (pallas_kernels.py:486 pads any head_dim to
+// a multiple of 128; ops/flash_attention.py's kernel_head_dim pads a
+// head_dim of 129 to 255 up to 256). The same function as the kernels
+// at 64 and 128: the key bound `col < sk`, the query bound `row < sq`,
+// the causal rule `row >= col` (top-left), masking with -1e30, l_safe =
+// max(l, 1e-30), lse = m + log(l_safe), and dropout from the shared
+// Philox keep bits of philox.cuh (seed, b*n + head, row, col), l summing
+// the un-dropped probabilities and the kept ones scaled by 1/(1-p); the
+// backward recomputes P = exp(Q K^T * scale - lse) and dS = P * (keep *
+// dP / (1-p) - delta), with delta = rowsum(dO * O) given by the caller
+// in both dtypes.
+//
+// Why a kernel of its own. At D = 256 the designs at 64 and 128 do not
+// fit: the f32 dQ and dK/dV kernels of flash_attn_bwd.cu would need
+// 361,472 and 363,008 bytes of shared memory a CTA (the H100 gives
+// 232,448), the bf16 forward's ring of two stages about 265 KB, and the
+// bf16 wgmma backward already spills registers at 128.
+//
+// What bounds it on an H100. The forward does 4*b*n*sq*sk*256 flops
+// (half that, causal) against (3*b*s*n + b*sq*n)*256 elements moved, so
+// at b 8, s 1024, n 8 it is bound by operations in both dtypes: 1.03 ms
+// at f32's 67 TFLOP/s, 0.07 ms at bf16's 989 on the tensor cores, which
+// these kernels do not use. The backward does 3 (dQ) and 4 (dK/dV) such
+// products. What sets this design's pace is shared memory, not the FP32
+// pipes: a score is 4 float4 loads for 16 FMAs, a product column 6 loads
+// for 32, so the SM's 128 bytes of shared memory a clock feed about a
+// quarter of its FMA rate.
+//
+// The design: simple and exact, not fast. Every kernel is FFMA in f32,
+// templated on the element type T: a bf16 input is read as bf16 and
+// widened to f32 in shared memory, every product and the softmax run in
+// f32, and the results are rounded to T once when written (the plain
+// versions compute the same way). A CTA of 256 threads holds tiles of
+// 32 rows x 256 in shared memory, row-major with a stride of 260 floats
+// (16-byte rows for float4 reads, rows 4 banks apart). Thread (r, c) =
+// (tid / 16, tid % 16) owns a 2x2 block of the 32x32 scores, rows 2r and
+// 2r+1, columns 2c and 2c+1: one Philox 2x2 block, and a score is a
+// float4 walk along D of two rows against two rows (4 loads for 16
+// FMAs). Products into a [32 x 256] result (O, dQ, dK, dV) give each
+// thread two rows and the 16 columns 4c + 64g + (0..3), g < 4, so a
+// warp's float4 reads of a row are contiguous.
+//  * fwd_d256: a CTA owns 32 query rows of one (batch, head) and walks
+//    the 32-key tiles with the running (m, l, O) in registers (104,064
+//    bytes of shared memory: two CTAs an SM).
+//  * dq_d256: a CTA owns 32 query rows and walks the key tiles: S and dP
+//    from Q, dO, K and V, dS through shared memory, dQ += dS K (137,344
+//    bytes).
+//  * dkv_d256: a CTA owns 32 keys and walks the query tiles: S^T and dP^T,
+//    dropout(P)^T and dS^T through shared memory, dV += dropout(P)^T dO
+//    and dK += dS^T Q (141,824 bytes).
+// No atomics, so the gradients are the same from run to run.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+#include "philox.cuh"
+
+namespace {
+
+using flash::kNeg;
+using flash::Strides;
+
+constexpr int kD = 256;         // head_dim
+constexpr int kT = 32;          // rows (queries or keys) of a tile
+constexpr int kLd = kD + 4;     // row stride of a [kT x kD] tile (floats)
+constexpr int kPLd = kT + 1;    // row stride of a [kT x kT] score tile
+constexpr int kThreads = 256;   // 16 row pairs x 16 column pairs
+constexpr int kTile = kT * kLd;
+constexpr int kScores = kT * kPLd;
+
+constexpr size_t kFwdSmem = (3 * kTile + kScores) * sizeof(float);
+constexpr size_t kDqSmem = (4 * kTile + kScores) * sizeof(float);
+constexpr size_t kDkvSmem =
+    (4 * kTile + 2 * kScores + 2 * kT) * sizeof(float);
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// kT rows of a [s, D] head (row stride row_stride elements) from row0,
+// widened to f32 and multiplied by mul, into dst[row * kLd + d]; rows at
+// or past `limit` read as zeros
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long long row_stride, int row0,
+                                          int limit, float mul, int tid) {
+  for (int e = tid; e < kT * kD; e += kThreads) {
+    const int row = e / kD, d = e % kD;
+    float x = 0.f;
+    if (row0 + row < limit)
+      x = to_f(src[(long long)(row0 + row) * row_stride + d]) * mul;
+    dst[row * kLd + d] = x;
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// s[i][j] = A[2a + i] . B[2b + j] over D, rows of [kT][kLd] tiles
+__device__ __forceinline__ void scores(float s[2][2], const float* A, int a,
+                                       const float* B, int b) {
+  const float* a0 = A + (2 * a) * kLd;
+  const float* b0 = B + (2 * b) * kLd;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kD; d += 4) {
+    const float4 x0 = ld4(a0 + d), x1 = ld4(a0 + kLd + d);
+    const float4 y0 = ld4(b0 + d), y1 = ld4(b0 + kLd + d);
+    s[0][0] = dot4(x0, y0, s[0][0]);
+    s[0][1] = dot4(x0, y1, s[0][1]);
+    s[1][0] = dot4(x1, y0, s[1][0]);
+    s[1][1] = dot4(x1, y1, s[1][1]);
+  }
+}
+
+// acc[i][4g + e] += P[2r + i][kk] * B[kk][64g + 4c + e] over the kT
+// columns kk of a [kT][kPLd] score tile P and the rows of a tile B
+__device__ __forceinline__ void accumulate(float acc[2][16], const float* P,
+                                           int r, const float* B, int c) {
+#pragma unroll 4
+  for (int kk = 0; kk < kT; ++kk) {
+    const float p0 = P[(2 * r) * kPLd + kk], p1 = P[(2 * r + 1) * kPLd + kk];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float4 x = ld4(B + kk * kLd + g * 64 + c * 4);
+      acc[0][g * 4 + 0] = fmaf(p0, x.x, acc[0][g * 4 + 0]);
+      acc[0][g * 4 + 1] = fmaf(p0, x.y, acc[0][g * 4 + 1]);
+      acc[0][g * 4 + 2] = fmaf(p0, x.z, acc[0][g * 4 + 2]);
+      acc[0][g * 4 + 3] = fmaf(p0, x.w, acc[0][g * 4 + 3]);
+      acc[1][g * 4 + 0] = fmaf(p1, x.x, acc[1][g * 4 + 0]);
+      acc[1][g * 4 + 1] = fmaf(p1, x.y, acc[1][g * 4 + 1]);
+      acc[1][g * 4 + 2] = fmaf(p1, x.z, acc[1][g * 4 + 2]);
+      acc[1][g * 4 + 3] = fmaf(p1, x.w, acc[1][g * 4 + 3]);
+    }
+  }
+}
+
+// row `i` of acc (columns 64g + 4c + e) times mul, into out_row
+template <typename T>
+__device__ __forceinline__ void store_row(T* out_row, const float* acc,
+                                          int c, float mul) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      put(&out_row[g * 64 + c * 4 + e], acc[g * 4 + e] * mul);
+}
+
+__device__ __forceinline__ bool link_ok(bool causal, int row, int col,
+                                        int sq, int sk) {
+  return row < sq && col < sk && (!causal || row >= col);
+}
+
+// tiles of kT keys a causal kT-row query tile from q0 can see
+__device__ __forceinline__ int key_tiles(bool causal, int sk, int q0) {
+  const int nk = (sk + kT - 1) / kT;
+  const int last = q0 / kT + 1;  // q0 is a multiple of kT
+  return causal && last < nk ? last : nk;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  void* o;
+  float* lse;
+  const float* delta;
+  void *dq, *dk, *dv;
+  Strides qs, ks, vs, dos, dqs, dks, dvs;
+  int n_heads, sq, sk;
+  float scale;
+  DropParams dp;
+};
+
+// ---------------------------------------------------------------- forward
+
+template <typename T, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kThreads) fwd_d256(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_f[];
+  float* Qs = reinterpret_cast<float*>(smem_f);  // q * scale
+  float* Ks = Qs + kTile;
+  float* Vs = Ks + kTile;
+  float* Ps = Vs + kTile;  // [kT][kPLd] dropout(p)
+
+  const int bh = blockIdx.x;
+  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
+  const int q0 = blockIdx.y * kT;
+  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
+  const int sq = a.sq, sk = a.sk;
+  const DropParams dp = drop_params<DROP>(a.dp);
+  const T* qb = static_cast<const T*>(a.q) + bi * a.qs.b + hi * a.qs.n;
+  const T* kb = static_cast<const T*>(a.k) + bi * a.ks.b + hi * a.ks.n;
+  const T* vb = static_cast<const T*>(a.v) + bi * a.vs.b + hi * a.vs.n;
+
+  load_rows(Qs, qb, a.qs.s, q0, sq, a.scale, tid);
+  float acc[2][16], m[2], lpart[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = kNeg;
+    lpart[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nk = key_tiles(CAUSAL, sk, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();  // the last tile's reads are done
+    load_rows(Ks, kb, a.ks.s, k0, sk, 1.f, tid);
+    load_rows(Vs, vb, a.vs.s, k0, sk, 1.f, tid);
+    __syncthreads();
+
+    float s[2][2];
+    scores(s, Qs, r, Ks, c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + 2 * r + i;
+      bool ok[2];
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k0 + 2 * c + j;
+        ok[j] = col < sk && (!CAUSAL || row >= col);
+        s[i][j] = ok[j] ? s[i][j] : kNeg;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // the 16 lanes of a row pair share its rows
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        ps += s[i][j];
+      }
+      lpart[i] = lpart[i] * corr + ps;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[i][j] *= corr;
+    }
+    if (DROP) {
+      const int row = q0 + 2 * r, col = k0 + 2 * c;
+      const uint4 w = drop_block(dp, bh, row, col);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          s[i][j] = drop_keep(dp, w, row + i, col + j) ? s[i][j] * dp.rinv
+                                                       : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) Ps[(2 * r + i) * kPLd + 2 * c + j] = s[i][j];
+    __syncthreads();
+    accumulate(acc, Ps, r, Vs, c);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lpart[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    const float l_safe = fmaxf(l, 1e-30f);
+    const int row = q0 + 2 * r + i;
+    if (row < sq) {
+      T* orow = static_cast<T*>(a.o) +
+                ((long long)(bi * sq + row) * a.n_heads + hi) * kD;
+      store_row(orow, acc[i], c, 1.f / l_safe);
+      if (c == 0) a.lse[(long long)bh * sq + row] = m[i] + logf(l_safe);
+    }
+  }
+}
+
+// -------------------------------------------------------------------- dQ
+
+template <typename T, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kThreads) dq_d256(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_q[];
+  float* Qs = reinterpret_cast<float*>(smem_q);
+  float* dOs = Qs + kTile;
+  float* Ks = dOs + kTile;
+  float* Vs = Ks + kTile;
+  float* dSs = Vs + kTile;  // [kT][kPLd], query-major
+
+  const int bh = blockIdx.x;
+  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
+  const int q0 = blockIdx.y * kT;
+  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
+  const int sq = a.sq, sk = a.sk;
+  const DropParams dp = drop_params<DROP>(a.dp);
+  const T* qb = static_cast<const T*>(a.q) + bi * a.qs.b + hi * a.qs.n;
+  const T* kb = static_cast<const T*>(a.k) + bi * a.ks.b + hi * a.ks.n;
+  const T* vb = static_cast<const T*>(a.v) + bi * a.vs.b + hi * a.vs.n;
+  const T* db = static_cast<const T*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
+
+  load_rows(Qs, qb, a.qs.s, q0, sq, 1.f, tid);
+  load_rows(dOs, db, a.dos.s, q0, sq, 1.f, tid);
+  float lse_r[2], dl_r[2], acc[2][16];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + 2 * r + i;
+    lse_r[i] = row < sq ? a.lse[(long long)bh * sq + row] : 0.f;
+    dl_r[i] = row < sq ? a.delta[(long long)bh * sq + row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nk = key_tiles(CAUSAL, sk, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();
+    load_rows(Ks, kb, a.ks.s, k0, sk, 1.f, tid);
+    load_rows(Vs, vb, a.vs.s, k0, sk, 1.f, tid);
+    __syncthreads();
+
+    float s[2][2], dpv[2][2];
+    scores(s, Qs, r, Ks, c);
+    scores(dpv, dOs, r, Vs, c);
+    const int row0 = q0 + 2 * r, col0 = k0 + 2 * c;
+    if (DROP) {
+      const uint4 w = drop_block(dp, bh, row0, col0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          dpv[i][j] = drop_keep(dp, w, row0 + i, col0 + j)
+                          ? dpv[i][j] * dp.rinv : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool ok = link_ok(CAUSAL, row0 + i, col0 + j, sq, sk);
+        const float p = ok ? expf(s[i][j] * a.scale - lse_r[i]) : 0.f;
+        dSs[(2 * r + i) * kPLd + 2 * c + j] = p * (dpv[i][j] - dl_r[i]);
+      }
+    __syncthreads();
+    accumulate(acc, dSs, r, Ks, c);
+  }
+
+  T* out = static_cast<T*>(a.dq) + bi * a.dqs.b + hi * a.dqs.n;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + 2 * r + i;
+    if (row < sq) store_row(out + (long long)row * a.dqs.s, acc[i], c, a.scale);
+  }
+}
+
+// ----------------------------------------------------------------- dK, dV
+
+template <typename T, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kThreads) dkv_d256(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_kv[];
+  float* Ks = reinterpret_cast<float*>(smem_kv);
+  float* Vs = Ks + kTile;
+  float* Qs = Vs + kTile;
+  float* dOs = Qs + kTile;
+  float* Ps = dOs + kTile;   // [kT][kPLd] dropout(P)^T, key-major
+  float* dSs = Ps + kScores;  // [kT][kPLd] dS^T, key-major
+  float* lse_s = dSs + kScores;
+  float* dl_s = lse_s + kT;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
+  const int k0 = blockIdx.y * kT;
+  // keys 2r, 2r+1 of the CTA's tile; queries 2c, 2c+1 of the walked one
+  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
+  const int sq = a.sq, sk = a.sk;
+  const DropParams dp = drop_params<DROP>(a.dp);
+  const T* qb = static_cast<const T*>(a.q) + bi * a.qs.b + hi * a.qs.n;
+  const T* kb = static_cast<const T*>(a.k) + bi * a.ks.b + hi * a.ks.n;
+  const T* vb = static_cast<const T*>(a.v) + bi * a.vs.b + hi * a.vs.n;
+  const T* db = static_cast<const T*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
+
+  load_rows(Ks, kb, a.ks.s, k0, sk, 1.f, tid);
+  load_rows(Vs, vb, a.vs.s, k0, sk, 1.f, tid);
+  float dk[2][16], dv[2][16];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  const int nq = (sq + kT - 1) / kT;
+  // causal: the query tiles whose last row reaches this tile's first key
+  for (int qt = CAUSAL ? k0 / kT : 0; qt < nq; ++qt) {
+    const int i0 = qt * kT;
+    __syncthreads();
+    load_rows(Qs, qb, a.qs.s, i0, sq, 1.f, tid);
+    load_rows(dOs, db, a.dos.s, i0, sq, 1.f, tid);
+    if (tid < kT) {
+      const bool in = i0 + tid < sq;
+      lse_s[tid] = in ? a.lse[(long long)bh * sq + i0 + tid] : 0.f;
+      dl_s[tid] = in ? a.delta[(long long)bh * sq + i0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    // s[j][i]: key 2r + j against query 2c + i
+    float s[2][2], dpv[2][2];
+    scores(s, Ks, r, Qs, c);
+    scores(dpv, Vs, r, dOs, c);
+    const int key0 = k0 + 2 * r, qrow0 = i0 + 2 * c;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (DROP) w = drop_block(dp, bh, qrow0, key0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bool ok = link_ok(CAUSAL, qrow0 + i, key0 + j, sq, sk);
+        const float p =
+            ok ? expf(s[j][i] * a.scale - lse_s[2 * c + i]) : 0.f;
+        float pd = p, g = dpv[j][i];
+        if (DROP) {
+          const bool keep = drop_keep(dp, w, qrow0 + i, key0 + j);
+          pd = keep ? p * dp.rinv : 0.f;
+          g = keep ? g * dp.rinv : 0.f;
+        }
+        Ps[(2 * r + j) * kPLd + 2 * c + i] = pd;
+        dSs[(2 * r + j) * kPLd + 2 * c + i] = p * (g - dl_s[2 * c + i]);
+      }
+    __syncthreads();
+    accumulate(dv, Ps, r, dOs, c);
+    accumulate(dk, dSs, r, Qs, c);
+  }
+
+  T* dkb = static_cast<T*>(a.dk) + bi * a.dks.b + hi * a.dks.n;
+  T* dvb = static_cast<T*>(a.dv) + bi * a.dvs.b + hi * a.dvs.n;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int key = k0 + 2 * r + j;
+    if (key >= sk) continue;
+    store_row(dkb + (long long)key * a.dks.s, dk[j], c, a.scale);
+    store_row(dvb + (long long)key * a.dvs.s, dv[j], c, 1.f);
+  }
+}
+
+// ------------------------------------------------------------- launching
+
+template <typename Kern>
+cudaError_t go(Kern kern, dim3 grid, size_t smem, cudaStream_t stream,
+               const Args& a) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+enum Which { kFwd, kDq, kDkv };
+
+template <typename T, bool C, bool P>
+cudaError_t launch(Which which, int bn, const Args& a, cudaStream_t st) {
+  if (which == kFwd)
+    return go(fwd_d256<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT), kFwdSmem,
+              st, a);
+  if (which == kDq)
+    return go(dq_d256<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT), kDqSmem, st,
+              a);
+  return go(dkv_d256<T, C, P>, dim3(bn, (a.sk + kT - 1) / kT), kDkvSmem, st,
+            a);
+}
+
+int dispatch(Which which, int dtype, int b, int d, int causal, int dropout,
+             const Args& a, void* stream_ptr) {
+  if ((dtype != 0 && dtype != 1) || d != kD) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  const int bn = b * a.n_heads;
+#define PT_GO(T, C, P) launch<T, C, P>(which, bn, a, st)
+#define PT_DROP(T, C) (dropout ? PT_GO(T, C, true) : PT_GO(T, C, false))
+#define PT_CAUSAL(T) (causal ? PT_DROP(T, true) : PT_DROP(T, false))
+  const cudaError_t e =
+      dtype == 1 ? PT_CAUSAL(__nv_bfloat16) : PT_CAUSAL(float);
+#undef PT_CAUSAL
+#undef PT_DROP
+#undef PT_GO
+  return (int)e;
+}
+
+DropParams drop_args(unsigned int threshold, const void* seed, float rinv) {
+  return DropParams{threshold, static_cast<const uint32_t*>(seed), 0u, 0u,
+                    rinv};
+}
+
+}  // namespace
+
+// The three entries take the arguments of pt_flash_attn_fwd,
+// pt_flash_attn_bwd_dq and pt_flash_attn_bwd_dkv (flash_attn_fwd.cu,
+// flash_attn_bwd.cu), for d = 256. dtype: 0 = float32, 1 = bfloat16.
+// Strides are element strides (batch, seq, head) of [b, s, n, h] tensors
+// whose head_dim stride is 1; O is written contiguous [b, sq, n, h], lse
+// f32 [b, n, sq]. Unlike the bf16 dQ kernel at 64 and 128, the dQ entry
+// here reads delta = rowsum(dO * O) in both dtypes (o is not read).
+// Returns 0 on success, a cudaError_t code if a launch was refused, or -1
+// for a dtype / head_dim this file has no kernel for.
+extern "C" int pt_flash_attn_fwd_d256(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int b, int n, int sq, int sk, int d,
+    long long q_sb, long long q_ss, long long q_sn,
+    long long k_sb, long long k_ss, long long k_sn,
+    long long v_sb, long long v_ss, long long v_sn,
+    float scale, int causal, int dropout, unsigned int threshold,
+    const void* seed, float rinv, void* stream_ptr) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
+  a.qs = {q_sb, q_ss, q_sn}; a.ks = {k_sb, k_ss, k_sn};
+  a.vs = {v_sb, v_ss, v_sn};
+  a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
+  a.dp = drop_args(threshold, seed, rinv);
+  return dispatch(kFwd, dtype, b, d, causal, dropout, a, stream_ptr);
+}
+
+extern "C" int pt_flash_attn_bwd_dq_d256(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, int dtype,
+    int b, int n, int sq, int sk, int d,
+    long long q_sb, long long q_ss, long long q_sn,
+    long long k_sb, long long k_ss, long long k_sn,
+    long long v_sb, long long v_ss, long long v_sn,
+    long long o_sb, long long o_ss, long long o_sn,
+    long long do_sb, long long do_ss, long long do_sn,
+    long long dq_sb, long long dq_ss, long long dq_sn,
+    float scale, int causal, int dropout, unsigned int threshold,
+    const void* seed, float rinv, void* stream_ptr) {
+  (void)o; (void)o_sb; (void)o_ss; (void)o_sn;
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = const_cast<float*>(lse); a.delta = delta; a.dq = dq;
+  a.qs = {q_sb, q_ss, q_sn}; a.ks = {k_sb, k_ss, k_sn};
+  a.vs = {v_sb, v_ss, v_sn}; a.dos = {do_sb, do_ss, do_sn};
+  a.dqs = {dq_sb, dq_ss, dq_sn};
+  a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
+  a.dp = drop_args(threshold, seed, rinv);
+  return dispatch(kDq, dtype, b, d, causal, dropout, a, stream_ptr);
+}
+
+extern "C" int pt_flash_attn_bwd_dkv_d256(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int dtype,
+    int b, int n, int sq, int sk, int d,
+    long long q_sb, long long q_ss, long long q_sn,
+    long long k_sb, long long k_ss, long long k_sn,
+    long long v_sb, long long v_ss, long long v_sn,
+    long long do_sb, long long do_ss, long long do_sn,
+    long long dk_sb, long long dk_ss, long long dk_sn,
+    long long dv_sb, long long dv_ss, long long dv_sn,
+    float scale, int causal, int dropout, unsigned int threshold,
+    const void* seed, float rinv, void* stream_ptr) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = const_cast<float*>(lse); a.delta = delta; a.dk = dk; a.dv = dv;
+  a.qs = {q_sb, q_ss, q_sn}; a.ks = {k_sb, k_ss, k_sn};
+  a.vs = {v_sb, v_ss, v_sn}; a.dos = {do_sb, do_ss, do_sn};
+  a.dks = {dk_sb, dk_ss, dk_sn}; a.dvs = {dv_sb, dv_ss, dv_sn};
+  a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
+  a.dp = drop_args(threshold, seed, rinv);
+  return dispatch(kDkv, dtype, b, d, causal, dropout, a, stream_ptr);
+}

@@ -2,13 +2,17 @@
 paddle_tpu/ops).
 
 The op modules of Paddle's Tensor surface: creation, math,
-manipulation, logic, search and stat, each the JAX package's module in
-torch ops, with Paddle's semantics. `__all__` is the union of their
-lists with the detection, vision-sampling and beam-search ops and the
-in-place forms reshape_, squeeze_, unsqueeze_, scatter_ and tanh_; the
-package's top level exports it, as the JAX package's does (`from .ops import *`).
-ops.nms stays the NMS kernel's module; paddle_tpu_torch.nms is the
-detection op. The kernels: flash_attention, philox and nms (csrc/).
+manipulation, logic, search, linalg and stat, each the JAX package's
+module in torch ops, with Paddle's semantics. `__all__` is the union of
+their lists with the detection, sequence, extras (vision sampling, CRF,
+beam search, special functions) and amp_ops lists, einsum, the control
+-flow ops (cond, while_loop, bounded_while_loop, case, switch_case, scan,
+fori_loop) and the in-place forms reshape_, squeeze_, unsqueeze_,
+scatter_ and tanh_; the package's top level exports it, as the JAX
+package's does (`from .ops import *`). loss_extra, misc_ops and
+tensor_array are star-imported here and stay below the top level, as
+there. ops.nms stays the NMS kernel's module; paddle_tpu_torch.nms is
+the detection op. The kernels: flash_attention, philox and nms (csrc/).
 
 The Tensor decision. The port's Tensor IS torch.Tensor. The JAX package
 sets every op of these modules on its own Tensor as a method and routes
@@ -34,22 +38,33 @@ else in torch. So:
   docstring below); SAME_AS_TORCH lists the others.
   tests/test_torch_ops_surface.py pins both against torch.Tensor.
 """
-from . import (creation, detection, extras, flash_attention,  # noqa: F401
-               logic, manipulation, math, nms, search, stat)
+from . import (amp_ops, control_flow, creation, detection,  # noqa: F401
+               extras, flash_attention, linalg,
+               logic, loss_extra, manipulation, math, misc_ops, nms, search,
+               sequence, stat, tensor_array)
+from .amp_ops import *  # noqa: F401,F403
+from .control_flow import (bounded_while_loop, case, cond,  # noqa: F401
+                           fori_loop, scan, switch_case, while_loop)
 from .creation import *  # noqa: F401,F403
 from .detection import (box_clip, box_coder, iou_similarity,  # noqa: F401
                         matrix_nms, multiclass_nms, yolo_box, yolov3_loss)
+from .einsum import einsum  # noqa: F401
 from .extras import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
+from .loss_extra import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
+from .misc_ops import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 from .stat import *  # noqa: F401,F403
+from .tensor_array import *  # noqa: F401,F403
 from ..framework import add_methods as _add_methods
 from ..framework import to_tensor  # noqa: F401
 
 #: the op modules whose functions become Tensor methods
-SURFACE = (creation, math, manipulation, logic, search, stat)
+SURFACE = (creation, math, manipulation, logic, search, linalg, stat)
 
 #: torch.Tensor methods whose meaning differs from Paddle's function of
 #: the same name (torch's stays on the Tensor; the function is Paddle's)
@@ -98,14 +113,30 @@ COLLISIONS = {
     "multiply_": "torch: recorded by autograd; Paddle: a write outside it",
     "chunk": "torch: uneven chunks allowed; Paddle: equal sections",
     "diag": "torch: no padding_value",
+    "norm": "torch: p=2 with no dim is the flattened vector's 2-norm; "
+            "Paddle: of a matrix, its spectral norm (jnp.linalg.norm)",
+    "slogdet": "torch: (sign, logabsdet); Paddle: the two stacked [2, ...]",
+    "svd": "torch: svd(some=True); Paddle: svd(full_matrices=False), the "
+           "second argument's sense reversed",
+    "qr": "torch: qr(some=True); Paddle: qr(mode='reduced')",
+    "eig": "torch: removed (raises); Paddle: torch.linalg.eig",
+    "solve": "torch: removed (raises); Paddle: x out = y",
+    "lstsq": "torch: removed (raises); Paddle: (solution, residuals, rank, "
+             "singular values)",
+    "triangular_solve": "torch: x.triangular_solve(A) solves A out = x and "
+                        "returns (out, A); Paddle: x out = y, x the matrix",
+    "histogram": "torch: (hist, bin_edges) floats over range=; Paddle: "
+                 "int64 counts over min/max",
 }
 
 #: torch.Tensor methods with Paddle's meaning (argument names aside)
 SAME_AS_TORCH = frozenset("""
 abs acos acosh add addmm all amax amin angle any argmax argmin argsort
-asin asinh atan atan2 atanh bernoulli bitwise_and bitwise_left_shift
-bitwise_not bitwise_or bitwise_right_shift bitwise_xor broadcast_to ceil
-clip conj copysign cos cosh cummax cummin deg2rad diagflat diff divide erf
+asin asinh atan atan2 atanh bernoulli bincount bitwise_and
+bitwise_left_shift bitwise_not bitwise_or bitwise_right_shift bitwise_xor
+bmm broadcast_to ceil cholesky cholesky_solve clip conj copysign corrcoef
+cos cosh cov cross det dist inverse lu matrix_power mv cummax cummin
+deg2rad diagflat diff divide erf
 erfinv exp expand_as expm1 flip floor floor_divide fmax fmin frac gcd
 greater_equal heaviside hypot inner isclose isfinite isinf isnan isreal
 kron lcm ldexp lerp less_equal log log10 log1p log2 logaddexp logcumsumexp
@@ -164,12 +195,16 @@ def unsqueeze_(x, axis, name=None):
 scatter_ = _inplace(manipulation.scatter)
 tanh_ = _inplace(math.tanh)
 
-#: Paddle's in-place methods torch lacks (x.scale_(...), x.reshape_(...))
+#: Paddle's in-place methods torch lacks (x.scale_(...), x.reshape_(...)),
+#: and x.cond(), the matrix condition number, as the JAX package sets it
+#: (the top-level cond is the control-flow op)
 METHODS_ADDED += _add_methods({"scale_": _inplace(math.scale),
-                               "reshape_": reshape_})
+                               "reshape_": reshape_, "cond": linalg.cond})
 
 __all__ = (creation.__all__ + math.__all__ + manipulation.__all__
-           + logic.__all__ + search.__all__ + stat.__all__
-           + extras.__all__
+           + logic.__all__ + search.__all__ + linalg.__all__ + stat.__all__
            + [n for n in detection.__all__ if n != "nms"]
-           + ["reshape_", "squeeze_", "unsqueeze_", "scatter_", "tanh_"])
+           + sequence.__all__ + extras.__all__ + amp_ops.__all__
+           + ["einsum", "cond", "while_loop", "bounded_while_loop",
+              "case", "switch_case", "scan", "fori_loop",
+              "reshape_", "squeeze_", "unsqueeze_", "scatter_", "tanh_"])

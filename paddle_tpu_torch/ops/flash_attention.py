@@ -9,6 +9,9 @@ nvcc at first use (ops/_build.py) and called through ctypes:
   the dQ one computing delta too);
 - in bf16 all three are wgmma kernels fed by TMA, on one pipeline
   (csrc/flash_wgmma.cuh); in f32 exact FFMA kernels;
+- at head_dim 256, where those designs do not fit, all three run as the
+  FFMA kernels of csrc/flash_attn_d256.cu in both dtypes (bf16 read and
+  written as bf16, computed in f32), under the same launch counts;
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -25,9 +28,10 @@ the JAX package.
   the backward reads the same tensor as the forward (kept in ctx).
   For CUDA tensors the forward and the backward launch the kernels or
   raise; for CPU tensors they run the plain versions. There is no
-  fallback from one to the other. The kernels take head_dim 64 and
-  128; on the card a smaller head_dim runs zero-padded up to the
-  next of them (kernel_head_dim), as the Pallas wrapper pads to 128.
+  fallback from one to the other. The kernels take head_dim 64, 128
+  and 256; on the card a smaller head_dim runs zero-padded up to the
+  next of them (kernel_head_dim), as the Pallas wrapper pads to a
+  multiple of 128. Above 256 the card refuses (no kernel).
 - flash_attention_fwd_plain / flash_attention_bwd_plain: the same math
   in plain PyTorch (blockwise, f32 accumulators, the Philox mask of
   ops/philox.py). The CPU tier and chip_smoke.py use them; the main path
@@ -50,7 +54,10 @@ __all__ = ["flash_attention_mha", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
            "launches", "SUPPORTED_HEAD_DIMS", "kernel_head_dim"]
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
+# the head_dim of csrc/flash_attn_d256.cu's kernels (its entries carry the
+# suffix _d256 and take the arguments of the others)
+_D256 = 256
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
 # (the kernels'; the CPU's plain version takes any head_dim)
 _PADDED_ON = ("cuda",)
@@ -68,6 +75,7 @@ _ARGTYPES = {
     "pt_flash_attn_bwd_dq": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
     "pt_flash_attn_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
 }
+_ARGTYPES.update({f"{k}_d256": v for k, v in _ARGTYPES.items()})
 
 
 def _check(q, k, v):
@@ -230,6 +238,14 @@ def _entry(lib_name, fn_name):
     return fn
 
 
+def _kernel_entry(lib_name, fn_name, h):
+    """(source, entry) of the kernel at head_dim h: csrc/<lib_name>.cu's
+    fn_name, or its _d256 twin in csrc/flash_attn_d256.cu at 256."""
+    if h == _D256:
+        return "flash_attn_d256", f"{fn_name}_d256"
+    return lib_name, fn_name
+
+
 def _launch(lib_name, fn_name, q, args):
     """Call the C entry fn_name of csrc/<lib_name>.cu with args and the
     current stream of q's card; raise if the launch was refused."""
@@ -271,7 +287,7 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
     seed_t = _seed_arg(seed, dropout_p, q.device)
     o = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-    _launch("flash_attn_fwd", "pt_flash_attn_fwd", q,
+    _launch(*_kernel_entry("flash_attn_fwd", "pt_flash_attn_fwd", h), q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
              *_strides(q, k, v), *_tail(causal, scale, dropout_p, seed_t)])
@@ -286,12 +302,13 @@ def _bwd_delta(o, do):
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _delta_in_kernel(dtype):
-    """True when the dQ kernel computes delta for this dtype: the dQ
-    entry's delta buffer is then its output (bf16, dq_wgmma), else its
-    input, filled by _bwd_delta (f32, dq_simt). csrc/flash_attn_bwd.cu's
+def _delta_in_kernel(dtype, head_dim=None):
+    """True when the dQ kernel computes delta for this dtype and
+    head_dim: the dQ entry's delta buffer is then its output (bf16 at 64
+    and 128, dq_wgmma), else its input, filled by _bwd_delta (f32,
+    dq_simt; both dtypes at 256, dq_d256). csrc/flash_attn_bwd.cu's
     launch_dq picks the kernel by the same dtype rule."""
-    return dtype == torch.bfloat16
+    return dtype == torch.bfloat16 and head_dim != _D256
 
 
 def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
@@ -304,12 +321,12 @@ def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
     q, k, v, o, do = (_kernel_input(t) for t in (q, k, v, o, do))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
-    if _delta_in_kernel(q.dtype):
+    if _delta_in_kernel(q.dtype, h):
         delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     else:
         delta = _bwd_delta(o, do)
     dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
-    _launch("flash_attn_bwd", "pt_flash_attn_bwd_dq", q,
+    _launch(*_kernel_entry("flash_attn_bwd", "pt_flash_attn_bwd_dq", h), q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              _KERNEL_DTYPES[q.dtype], b, n, sq, k.shape[1], h,
@@ -331,7 +348,8 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
     lse = lse.contiguous()
     dk = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
-    _launch("flash_attn_bwd", "pt_flash_attn_bwd_dkv", q,
+    _launch(*_kernel_entry("flash_attn_bwd", "pt_flash_attn_bwd_dkv", h),
+            q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
@@ -406,9 +424,10 @@ def flash_attention_fwd(query, key, value, causal=False, scale=None,
                         dropout_p=0.0, seed=None):
     """Flash attention over [b, s, n, h]: returns (O, lse) with O in the
     input dtype and lse f32 [b, n, sq], differentiable in q, k, v.
-    scale defaults to 1/sqrt(h). On the card a head_dim below 128 that
+    scale defaults to 1/sqrt(h). On the card a head_dim up to 256 that
     the kernels lack runs zero-padded to kernel_head_dim(h), the output
-    sliced back; the CPU's plain version takes any h. Causal masking is top-left aligned
+    sliced back (above 256 the kernels refuse it); the CPU's plain
+    version takes any h. Causal masking is top-left aligned
     (row >= col), as in the Pallas kernel. dropout_p drops attention
     links with the Philox mask of `seed` (0 when None, as the Pallas
     wrapper defaults it): an int, a 0-d int64 tensor, or a Draw of a

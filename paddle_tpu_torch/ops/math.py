@@ -8,6 +8,13 @@ tensor as a 0-d tensor, so the tensor's dtype wins within its kind (as
 JAX's weak types do). Reductions take `axis` as an int, a list or a
 tuple (None: every axis) and `keepdim`. An integer sum is int64 where
 the JAX package (x64 off) gives int32.
+
+AMP: the ops the JAX package registers under a name on its AMP lists
+(matmul_v2 and addmm white; exp, log, log2, log10, log1p,
+elementwise_pow, square, sqrt, rsqrt, reciprocal, cumsum, logsumexp,
+reduce_sum, reduce_mean and reduce_prod black) cast their tensor inputs
+with amp_cast(<that name>, ...), as the JAX registry's AMP hook does
+under auto_cast.
 """
 from __future__ import annotations
 
@@ -44,9 +51,11 @@ def _pair(x, y):
 
 # -- binary elementwise ------------------------------------------------------
 
-def _binary(fn, same_dtype=False):
+def _binary(fn, same_dtype=False, amp=None):
     def op(x, y, name=None):
         x, y = _pair(x, y)
+        if amp is not None:
+            x, y = amp_cast(amp, x, y)
         if same_dtype and y.dtype != x.dtype:
             dt = torch.promote_types(x.dtype, y.dtype)
             x, y = x.to(dt), y.to(dt)
@@ -61,7 +70,7 @@ divide = _binary(torch.true_divide)
 floor_divide = _binary(torch.floor_divide)
 mod = _binary(torch.remainder)
 remainder = mod
-pow = _binary(torch.pow)
+pow = _binary(torch.pow, amp="elementwise_pow")
 float_power = pow
 maximum = _binary(torch.maximum)
 minimum = _binary(torch.minimum)
@@ -121,9 +130,14 @@ def kron(x, y, name=None):
 
 # -- unary -------------------------------------------------------------------
 
-def _unary(fn):
+def _unary(fn, amp=None):
+    """op(x): fn of x as a tensor; `amp` is the JAX op's registered name
+    when it is on an AMP list (x is cast as auto_cast says)."""
     def op(x, name=None):
-        return fn(tensor_of(x))
+        x = tensor_of(x)
+        if amp is not None:
+            (x,) = amp_cast(amp, x)
+        return fn(x)
     return op
 
 
@@ -134,14 +148,14 @@ def _real_only(fn, otherwise):
 
 
 abs = _unary(torch.abs)
-sqrt = _unary(torch.sqrt)
-rsqrt = _unary(torch.rsqrt)
-exp = _unary(torch.exp)
+sqrt = _unary(torch.sqrt, amp="sqrt")
+rsqrt = _unary(torch.rsqrt, amp="rsqrt")
+exp = _unary(torch.exp, amp="exp")
 expm1 = _unary(torch.expm1)
-log = _unary(torch.log)
-log2 = _unary(torch.log2)
-log10 = _unary(torch.log10)
-log1p = _unary(torch.log1p)
+log = _unary(torch.log, amp="log")
+log2 = _unary(torch.log2, amp="log2")
+log10 = _unary(torch.log10, amp="log10")
+log1p = _unary(torch.log1p, amp="log1p")
 sin = _unary(torch.sin)
 cos = _unary(torch.cos)
 tan = _unary(torch.tan)
@@ -159,8 +173,8 @@ ceil = _unary(torch.ceil)
 round = _unary(torch.round)
 trunc = _unary(torch.trunc)
 sign = _unary(torch.sign)
-square = _unary(torch.square)
-reciprocal = _unary(lambda x: 1.0 / x)
+square = _unary(torch.square, amp="square")
+reciprocal = _unary(lambda x: 1.0 / x, amp="reciprocal")
 neg = _unary(torch.neg)
 erf = _unary(torch.erf)
 erfinv = _unary(torch.erfinv)
@@ -238,10 +252,12 @@ def _dims(x, axis):
     return ax if isinstance(ax, tuple) else (ax,)
 
 
-def _reduce(fn, x, axis, keepdim):
+def _reduce(fn, x, axis, keepdim, amp=None):
     """fn(x, dim=dims, keepdim=) over the dims of `axis`; an empty axis
-    list reduces nothing, as in jnp."""
+    list reduces nothing, as in jnp. `amp` as in _unary."""
     x = tensor_of(x)
+    if amp is not None:
+        (x,) = amp_cast(amp, x)
     dims = _dims(x, axis)
     if not dims:
         return x
@@ -259,11 +275,12 @@ def _float(x):
 
 
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):
-    return _cast(_reduce(torch.sum, x, axis, keepdim), dtype)
+    return _cast(_reduce(torch.sum, x, axis, keepdim, "reduce_sum"), dtype)
 
 
 def mean(x, axis=None, keepdim=False, name=None):
-    return _reduce(torch.mean, _float(tensor_of(x)), axis, keepdim)
+    return _reduce(torch.mean, _float(tensor_of(x)), axis, keepdim,
+                   "reduce_mean")
 
 
 def max(x, axis=None, keepdim=False, name=None):
@@ -285,7 +302,7 @@ def _prod(x, dim, keepdim):
 
 
 def prod(x, axis=None, keepdim=False, dtype=None, name=None):
-    return _cast(_reduce(_prod, x, axis, keepdim), dtype)
+    return _cast(_reduce(_prod, x, axis, keepdim, "reduce_prod"), dtype)
 
 
 def nansum(x, axis=None, dtype=None, keepdim=False, name=None):
@@ -297,7 +314,7 @@ def nanmean(x, axis=None, keepdim=False, name=None):
 
 
 def logsumexp(x, axis=None, keepdim=False, name=None):
-    return _reduce(torch.logsumexp, x, axis, keepdim)
+    return _reduce(torch.logsumexp, x, axis, keepdim, "logsumexp")
 
 
 def count_nonzero(x, axis=None, keepdim=False, name=None):
@@ -314,6 +331,7 @@ def _flat_axis(x, axis):
 
 
 def cumsum(x, axis=None, dtype=None, name=None):
+    (x,) = amp_cast("cumsum", tensor_of(x))
     x, axis = _flat_axis(x, axis)
     return _cast(torch.cumsum(x, axis), dtype)
 

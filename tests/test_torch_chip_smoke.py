@@ -1574,3 +1574,92 @@ def test_seq2seq_rescore_catches_a_wrong_back_trace(cs, monkeypatch):
         assert ok["rescore_off"] == [] and bad["max_score_rel"] == 0.0
         assert bad["rescore_off"] != []
     _on_the_cpu(run)
+
+
+# -- the op library's second half: head_dim 256 and the CoNLL-2005 SRL ----
+
+def test_head_dim_256_cases_and_rows(cs):
+    """head_pad runs 192 (padded to 256) and 256; the d256 file's
+    instantiations are its 3 kernels x 2 dtypes x causal x dropout; the
+    kernels line's rows carry each case's times, bound and SDPA's."""
+    assert {192, 256} <= set(cs.PAD_HEAD_DIMS) and cs.D256_SHAPE[3] == 256
+    assert cs.D256_INSTANTIATIONS == 3 * 2 * 2 * 2
+    case = dict(dtype="bfloat16", causal=True, dropout_p=0.1, fwd_ms=4.5,
+                fwd_plain_ms=30.0, fwd_bound_ms=0.04, fwd_bound_by="bytes",
+                fwd_library_ms=0.3, dq_ms=6.0, dq_plain_ms=20.0,
+                dq_bound_ms=0.05, dq_bound_by="operations", dkv_ms=6.2,
+                dkv_plain_ms=21.0, dkv_bound_ms=0.06,
+                dkv_bound_by="operations", backward_library_ms=0.4,
+                o_max_abs_err=1e-3, dq_max_abs_err=2e-3,
+                dk_max_abs_err=3e-3, dv_max_abs_err=4e-3)
+    rows = cs.d256_kernel_rows([case])
+    assert rows["flash_attn_fwd"][0]["library_ms"] == 0.3
+    assert rows["flash_attn_bwd_dq"][0]["backward_library_ms"] == 0.4
+    assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 4e-3
+    assert rows["flash_attn_bwd_dkv"][0]["bound_by"] == "operations"
+
+
+def _srl_row():
+    return dict(
+        captured_vs_eager=dict(losses_bit_equal=True, params_bit_equal=True,
+                               params_max_abs_diff=0.0,
+                               graph_losses=[30.0, 20.0]),
+        graphs=1, sentinel_events=0, params=100, params_book=100,
+        loss_first_window=30.0,
+        loss_last_window=10.0, card_vs_cpu=dict(max_rel=2e-6),
+        decode_vs_cpu=dict(rescore_off=[], differ_outside_ties=[]),
+        custom_kernel_launches={"flash_attn_fwd": 0, "nms_greedy": 0})
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("replay", "bit-equal"), ("graphs", "graphs"),
+    ("params", "widths"), ("nan", "non-finite"), ("cpu", "CPU"), ("rescore", "re-score"),
+    ("paths", "near-ties"), ("loss", "did not fall"),
+    ("launch", "kernels")])
+def test_srl_train_gates_name_each_failure(cs, breakage, word):
+    row = _srl_row()
+    if breakage == "replay":
+        row["captured_vs_eager"]["params_bit_equal"] = False
+    elif breakage == "graphs":
+        row["graphs"] = 2
+    elif breakage == "params":
+        row["params"] = 99
+    elif breakage == "nan":
+        row["captured_vs_eager"]["graph_losses"][1] = float("nan")
+    elif breakage == "cpu":
+        row["card_vs_cpu"]["max_rel"] = 1e-3
+    elif breakage == "rescore":
+        row["decode_vs_cpu"]["rescore_off"] = [4]
+    elif breakage == "paths":
+        row["decode_vs_cpu"]["differ_outside_ties"] = [9]
+    elif breakage == "loss":
+        row["loss_last_window"] = 31.0
+    elif breakage == "launch":
+        row["custom_kernel_launches"]["flash_attn_fwd"] = 3
+    bad = cs.srl_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_srl_model_at_the_books_widths(cs):
+    """srl_param_count at the book's widths, term by term: the three
+    tables, the eight input fcs, 8 LSTMs (recurrent [512, 128] and a
+    bias), the 7 mixing pairs of fcs, the two output fcs and crfw [11,
+    9]; and the model srl_model builds at a small size has as many."""
+    c = cs.SRL
+    h, u, lab = c["hidden_dim"], c["hidden_dim"] // 4, c["label_dict_len"]
+    want = (c["word_dict_len"] * c["word_dim"]
+            + c["pred_dict_len"] * c["word_dim"]
+            + c["mark_dict_len"] * c["mark_dim"]
+            + 7 * (c["word_dim"] * h + h) + (c["mark_dim"] * h + h)
+            + c["depth"] * (h * u + h)
+            + (c["depth"] - 1) * ((h * h + h) + (u * h + h))
+            + (h * lab + lab) + (u * lab + lab) + (lab + 2) * lab)
+    assert cs.srl_param_count(**c) == want
+    import paddle_tpu_torch as pt
+    pt.set_device("cpu")
+    m = cs.srl_model(pt, **cs.SRL_TINY)
+    assert sum(p.numel() for p in m.parameters()) == \
+        cs.srl_param_count(**cs.SRL_TINY)

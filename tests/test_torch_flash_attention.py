@@ -252,7 +252,9 @@ def cuda_device():
                                           (200, True, 64, 0.0),
                                           (512, False, 64, 0.1),
                                           (200, True, 128, 0.1),
-                                          (256, False, 128, 0.0)])
+                                          (256, False, 128, 0.0),
+                                          (200, True, 256, 0.1),
+                                          (256, False, 256, 0.0)])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, causal,
                                       h, p):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -270,12 +272,43 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, causal,
 
 
 def test_kernel_head_dim_pads_to_the_smallest_kernel_width():
-    assert [fa.kernel_head_dim(h) for h in (8, 32, 64, 65, 96, 128, 256)] \
-        == [64, 64, 64, 128, 128, 128, 256]
+    assert [fa.kernel_head_dim(h)
+            for h in (8, 32, 64, 65, 96, 128, 129, 192, 256, 320)] \
+        == [64, 64, 64, 128, 128, 128, 256, 256, 256, 320]
+
+
+def test_head_dim_above_256_is_refused_by_the_kernels():
+    """No kernel takes head_dim above 256: the wrappers' check raises
+    before any launch (the card runs no plain version instead)."""
+    q = torch.zeros(1, 4, 2, 320)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check_kernel("flash_attn_fwd", q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._flash_fwd_cuda(q, q, q, False, 0.05)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
+    """At head_dim 256 the wrappers call csrc/flash_attn_d256.cu's three
+    entries with the arguments of the others, and the dQ entry reads
+    delta from torch ops in both dtypes (it does not compute it)."""
+    calls = _record_launches(monkeypatch)
+    q, k, v = (torch.randn(1, 8, 2, 256).to(dtype) for _ in range(3))
+    o, lse = fa._flash_fwd_cuda(q, k, v, True, 0.0625)
+    fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), True, 0.0625)
+    assert [c[:2] for c in calls] == [
+        ("flash_attn_d256", "pt_flash_attn_fwd_d256"),
+        ("flash_attn_d256", "pt_flash_attn_bwd_dq_d256"),
+        ("flash_attn_d256", "pt_flash_attn_bwd_dkv_d256")]
+    assert [len(c[2]) + 1 for c in calls] == [
+        len(fa._ARGTYPES[c[1]]) for c in calls]
+    assert not fa._delta_in_kernel(dtype, 256)
+    assert fa._delta_in_kernel(torch.bfloat16, 128)
 
 
 @pytest.mark.parametrize("h,causal,p", [(8, False, 0.0), (32, True, 0.1),
-                                        (96, False, 0.1)])
+                                        (96, False, 0.1), (192, True, 0.1),
+                                        (256, False, 0.1)])
 def test_padded_head_dim_equals_unpadded(monkeypatch, h, causal, p):
     """The card's padding of head_dim (zero columns up to
     kernel_head_dim), run on the plain version: O, lse and the three

@@ -1,5 +1,7 @@
 """The op parity tables of paddle_tpu_torch's op library (creation,
-math, manipulation, logic, search, stat and the in-place forms), shared
+math, manipulation, logic, search, stat, the in-place forms, and the
+second half: linalg and einsum, sequence, misc, loss_extra, extras and
+amp_ops; a dotted name is a path below the top level), shared
 by tests/test_torch_ops_*.py (the port on the CPU against the JAX
 package) and chip_smoke.py's ops_card phase (the port on the card
 against the port on the CPU). Numpy only: this module imports neither
@@ -525,6 +527,268 @@ C("squeeze_", R(1, 3, 1), grad=False)
 C("unsqueeze_", R(*A), 1, grad=False)
 C("scatter_", R(5, 3), np.array([3, 0], np.int64), R(2, 3), grad=False)
 C("tanh_", R(*A), grad=False)
+
+
+# -- the op library's second half ---------------------------------------------
+# constant, well-conditioned matrices for the decompositions (from a
+# seeded generator of their own, so the cases above keep their inputs)
+_RS = np.random.RandomState(18)
+
+
+def _spd(n, *batch):
+    a = _RS.randn(*batch, n, n)
+    return (a @ np.swapaxes(a, -1, -2) + n * np.eye(n)).astype(np.float32)
+
+
+SPD3, SPD4B = _spd(3), _spd(4, 2)
+WELL3 = (_RS.randn(3, 3) + 3 * np.eye(3)).astype(np.float32)
+LOWER4 = (np.tril(_RS.randn(4, 4)) + 4 * np.eye(4)).astype(np.float32)
+CHOL3 = np.linalg.cholesky(SPD3).astype(np.float32)
+
+section("linalg")
+C("bmm", R(2, 3, 4), R(2, 4, 5), tol="reduce")
+C("mv", R(3, 4), R(4), tol="reduce")
+C("norm", R(3, 4), tol="reduce")
+C("norm", R(3, 4), 2, 1, tol="reduce", tag="p2-axis1")
+C("norm", R(2, 3, 4), 3, -1, keepdim=True, tol="reduce", tag="p3")
+C("norm", R(5), ARG(float("inf")), tol="reduce", tag="inf-1d")
+C("norm", R(3, 4), ARG("inf"), 1, tol="reduce", tag="inf-str")
+C("norm", R(3, 4), ARG("fro"), ARG([0, 1]), keepdim=True, tol="reduce",
+  tag="fro-pair")
+C("norm", R(3, 4), 1, ARG([0, 1]), tol="reduce", grad=False, tag="1-pair")
+C("norm", R(3, 4), 0, 1, grad=False, tag="p0")
+C("norm", R(4, 4), 2, tol="reduce", grad=False, tag="spectral")
+C("vector_norm", R(2, 3), 2.0, 1, tol="reduce")
+C("vector_norm", R(6), tol="reduce")
+C("matrix_norm", R(2, 3, 4), tol="reduce")
+C("matrix_norm", R(3, 4), ARG("nuc"), tol="reduce", grad=False)
+C("dist", R(3, 4), R(3, 4), tol="reduce")
+C("dist", R(3, 4), R(3, 4), 3, tol="reduce", tag="p3")
+C("dist", R(3, 4), R(3, 4), 0, grad=False, tag="p0")
+C("dist", R(3, 4), R(3, 4), ARG(float("inf")), tol="reduce", tag="inf")
+C("cholesky", SPD3, tol="reduce", grad=False)
+C("cholesky", SPD4B, upper=True, tol="reduce", grad=False, tag="upper")
+C("cholesky_solve", R(3, 2), CHOL3, tol="reduce")
+C("cholesky_solve", R(3, 2), CHOL3.T.copy(), upper=True, tol="reduce",
+  tag="upper")
+C("inverse", SPD3, tol="reduce")
+C("inverse", SPD4B, tol="reduce", tag="batch")
+C("det", WELL3, tol="reduce")
+C("det", SPD4B, tol="reduce", tag="batch")
+C("slogdet", WELL3, tol="reduce")
+C("lu", WELL3, tol="reduce", grad=False)
+C("eigvalsh", SPD3, tol="reduce", grad=False)
+C("eigvalsh", SPD4B, ARG("U"), tol="reduce", grad=False, tag="upper")
+C("solve", WELL3, R(3, 2), tol="reduce")
+C("triangular_solve", LOWER4, R(4, 2), upper=False, tol="reduce")
+C("triangular_solve", LOWER4.T.copy(), R(4, 2), tol="reduce", tag="upper")
+C("triangular_solve", LOWER4, R(4, 2), upper=False, transpose=True,
+  tol="reduce", tag="transpose")
+C("triangular_solve", LOWER4, R(4, 2), upper=False, unitriangular=True,
+  tol="reduce", tag="unit")
+C("lstsq", R(5, 3), R(5, 2), tol="reduce", grad=False)
+C("lstsq", R(5, 3), R(5), tol="reduce", grad=False, tag="vector")
+C("matrix_power", WELL3, 3, tol="reduce")
+C("matrix_power", SPD3, -2, tol="reduce", tag="negative")
+C("matrix_rank", R(4, 3), grad=False)
+C("matrix_rank", np.ones((3, 3), np.float32), grad=False, tag="rank1")
+C("pinv", R(4, 3), tol="reduce", grad=False)
+C("cross", R(3, 4), R(3, 4))
+C("cross", R(2, 3), R(2, 3), axis=1, tag="axis")
+C("corrcoef", R(3, 5), tol="reduce")
+C("corrcoef", R(5, 3), rowvar=False, tol="reduce", tag="cols")
+C("cov", R(3, 5), tol="reduce")
+C("cov", R(5, 3), rowvar=False, ddof=False, tol="reduce", tag="cols")
+C("histogram", R(20), bins=5, grad=False)
+C("histogram", R(20), 4, -1.0, 1.0, grad=False, tag="range")
+C("histogramdd", R(10, 2), bins=3, grad=False)
+C("bincount", I(0, 6, 10), grad=False)
+C("bincount", I(0, 6, 10), R(10), minlength=8, grad=False, tag="weights")
+C("multi_dot", [R(2, 3), R(3, 4), R(4, 2)], tol="reduce")
+C("linalg.cond", WELL3, tol="reduce", grad=False)
+C("linalg.cond", WELL3, ARG("fro"), tol="reduce", grad=False, tag="fro")
+C("einsum", ARG("ij,jk->ik"), R(2, 3), R(3, 4), tol="reduce")
+C("einsum", ARG("bij,bkj->bik"), R(2, 3, 4), R(2, 5, 4), tol="reduce",
+  tag="batch")
+C("einsum", ARG("ii->i"), R(3, 3), tag="diag")
+C("einsum", ARG("i,j->ij"), R(3), R(4), tag="outer")
+
+section("sequence")
+C("sequence_mask", np.array([2, 0, 4], np.int64), grad=False)
+C("sequence_mask", np.array([1, 3], np.int64), maxlen=5, dtype=ARG("bool"),
+  grad=False, tag="bool")
+C("sequence_pad", R(9, 3), 0.0, np.array([2, 3, 4], np.int64))
+C("sequence_pad", R(9, 3), -1.0, np.array([2, 3, 4], np.int64), maxlen=5,
+  tag="maxlen")
+C("sequence_unpad", R(3, 4, 2), np.array([2, 4, 1], np.int64))
+for _pool in ("sum", "average", "sqrt", "max", "min", "last", "first"):
+    C("sequence_pool", R(3, 5, 2), ARG(_pool),
+      np.array([2, 5, 1], np.int64), tag=_pool)
+C("sequence_pool", R(3, 5, 2), ARG("max"), np.array([2, 5, 0], np.int64),
+  pad_value=-7.0, grad=False, tag="empty")
+C("sequence_pool", R(2, 4, 3), ARG("average"), tag="no-length")
+C("sequence_first_step", R(3, 4, 2), np.array([1, 4, 2], np.int64))
+C("sequence_last_step", R(3, 4, 2), np.array([1, 4, 2], np.int64))
+C("sequence_softmax", R(3, 5), np.array([2, 5, 3], np.int64))
+C("sequence_softmax", R(2, 4, 1), np.array([3, 1], np.int64), tag="3d")
+C("sequence_reverse", R(3, 5, 2), np.array([2, 5, 3], np.int64))
+C("sequence_reverse", R(2, 4), tag="no-length")
+C("sequence_expand", R(3, 2), np.array([2, 0, 3], np.int64))
+C("sequence_expand_as", R(3, 2), R(3, 4, 1))
+# a list argument: the JAX registry takes no gradient through it, so the
+# port's gradients of the list-taking ops are held in
+# tests/test_torch_ops_extras.py instead
+C("sequence_concat", [R(2, 3, 2), R(2, 4, 2)],
+  [np.array([1, 3], np.int64), np.array([4, 2], np.int64)], grad=False)
+C("sequence_concat", [R(2, 3, 2), R(2, 4, 2)], grad=False, tag="no-length")
+C("sequence_slice", R(3, 6, 2), np.array([1, 0, 2], np.int64),
+  np.array([2, 4, 3], np.int64))
+C("sequence_reshape", R(2, 4, 6), 3)
+C("sequence_enumerate", I(0, 9, 2, 5), 3, grad=False)
+C("sequence_enumerate", I(0, 9, 2, 5), 2, pad_value=-1, grad=False,
+  tag="pad")
+
+section("misc")
+M = "ops.misc_ops."
+C(M + "print_op", R(2, 3), message=ARG("x: "))
+C(M + "select_input", [R(2, 3), R(2, 3), R(2, 3)], np.array(1, np.int64))
+C(M + "select_input", [R(2, 3), R(2, 3)], np.array(5, np.int64),
+  tag="clamped")
+C(M + "select_output", R(2, 3), np.array(1, np.int64), n_out=3)
+C(M + "partial_concat", [R(2, 5), R(2, 5)], start_index=1, length=2)
+C(M + "partial_concat", [R(2, 5), R(2, 5)], tag="all")
+C(M + "partial_sum", [R(2, 5), R(2, 5), R(2, 5)], start_index=-3, length=2)
+C(M + "pad_constant_like", R(3, 4), R(2, 3), pad_value=1.5)
+C(M + "space_to_depth", R(1, 2, 4, 6), 2)
+C(M + "conv_shift", R(2, 7), R(2, 3))
+C(M + "row_conv", R(2, 5, 3), R(2, 3))
+C(M + "add_position_encoding", R(2, 5, 6), alpha=0.5, beta=2.0)
+C(M + "add_position_encoding", R(2, 4, 5), tag="odd")
+C(M + "filter_by_instag", R(4, 3), np.array([1, 2, 0, 1], np.int64),
+  np.array([1, 2, 3, 2], np.int64), np.array([2], np.int64), grad=False)
+C(M + "filter_by_instag", R(2, 3), np.array([1, 1], np.int64),
+  np.array([1, 3], np.int64), np.array([2], np.int64),
+  out_val_if_empty=-1, grad=False, tag="empty")
+C(M + "split_ids", I(0, 10, 8), 3, grad=False)
+C(M + "merge_ids", np.array([3, 5, 7, 9, 4], np.int64),
+  [np.array([3, 9], np.int64), np.array([5, 7], np.int64)],
+  [R(2, 4), R(2, 4)], grad=False)
+C(M + "spp", R(1, 2, 4, 4), 2)
+C(M + "spp", R(1, 2, 6, 6), 3, pooling_type=ARG("avg"), tag="avg")
+C(M + "sequence_conv", R(2, 5, 3), R(9, 4), np.array([3, 5], np.int64))
+C(M + "sequence_conv", R(2, 5, 3), R(6, 4), context_length=2,
+  context_start=0, tag="start")
+C(M + "sequence_scatter", R(2, 6), I(0, 6, 2, 3), R(2, 3))
+C(M + "sequence_scatter", R(2, 6), I(0, 6, 2, 3), R(2, 3),
+  np.array([2, 3], np.int64), tag="length")
+C(M + "sequence_topk_avg_pooling", R(2, 3, 6), topks=ARG((1, 3)))
+C(M + "l1_norm", R(3, 4), tol="reduce")
+C(M + "squared_l2_norm", R(3, 4), tol="reduce")
+C(M + "squared_l2_distance", R(3, 4), R(3, 4), tol="reduce")
+C(M + "squared_l2_distance", R(3, 4), R(1, 4), tol="reduce", tag="bcast")
+
+section("loss_extra")
+L = "ops.loss_extra."
+C(L + "hinge_loss", R(4, 1), I(0, 2, 4, 1, dtype=np.float32))
+C(L + "huber_loss", R(4, 3), R(4, 3), delta=0.5)
+C(L + "modified_huber_loss", U(-3, 3, 6, 1), I(0, 2, 6, 1, dtype=np.float32))
+C(L + "rank_loss", I(0, 2, 4, 1, dtype=np.float32), R(4, 1), R(4, 1))
+C(L + "bpr_loss", R(4, 5), I(0, 5, 4, 1), tol="reduce")
+C(L + "center_loss", R(4, 3), I(0, 3, 4), R(3, 3), alpha=0.1)
+C(L + "center_loss", R(4, 3), I(0, 3, 4), R(3, 3), need_update=False,
+  tag="no-update")
+C(L + "teacher_student_sigmoid_loss", R(6, 1),
+  np.array([[-2.0], [-0.5], [0.3], [1.2], [0.0], [1.0]], np.float32))
+C(L + "fsp", R(2, 3, 4, 4), R(2, 2, 4, 4), tol="reduce")
+C(L + "cvm", U(0, 5, 4, 5), None)
+C(L + "cvm", U(0, 5, 4, 5), None, use_cvm=False, tag="drop")
+C(L + "data_norm", R(4, 3), U(1, 5, 3), R(3), U(1, 3, 3))
+C(L + "sample_logits", R(3, 10), I(0, 10, 3, 1),
+  use_customized_samples=True, customized_samples=I(0, 10, 3, 4),
+  customized_probabilities=U(0.05, 0.5, 3, 4), tol="reduce")
+C(L + "hierarchical_sigmoid", R(4, 3), I(0, 5, 4), R(4, 3), num_classes=5,
+  tol="reduce")
+C(L + "match_matrix_tensor", R(2, 3, 4), R(2, 5, 6), R(4, 2, 6),
+  tol="reduce")
+
+section("extras")
+C("affine_channel", R(2, 3, 4, 4), R(3), R(3))
+C("affine_channel", R(2, 4, 4, 3), R(3), R(3), data_format=ARG("NHWC"),
+  tag="nhwc")
+C("multiplex", [R(4, 3), R(4, 3), R(4, 3)],
+  np.array([[2], [0], [1], [2]], np.int64), grad=False)
+SEG = np.array([0, 0, 1, 1, 1, 2], np.int64)
+for _fn in ("segment_sum", "segment_mean", "segment_max", "segment_min"):
+    C(_fn, R(6, 3), SEG)
+    C(_fn, R(6, 3), np.array([0, 0, 3, 3, 3, 3], np.int64), grad=False,
+      tag="empty")
+C("linear_chain_crf", R(2, 4, 3), R(5, 3), I(0, 3, 2, 4),
+  np.array([4, 2], np.int64), tol="reduce")
+C("linear_chain_crf", R(3, 5, 4), R(6, 4), I(0, 4, 3, 5), tol="reduce",
+  tag="full")
+C("viterbi_decode", R(2, 4, 3), R(5, 3), np.array([4, 2], np.int64),
+  tol="reduce")
+C("viterbi_decode", R(2, 5, 3), R(3, 3), include_bos_eos_tag=False,
+  tol="reduce", tag="no-bos-eos")
+C("gather_tree", I(0, 7, 4, 2, 3), I(0, 3, 4, 2, 3), grad=False)
+C("beam_search_step", R(2, 3, 7), R(2, 3), beam_size=3)
+C("diagonal", R(3, 4), 1)
+C("diagonal", R(2, 3, 4), 0, 1, 2, tag="axes")
+C("diag_embed", R(2, 3))
+C("diag_embed", R(2, 3), 1, tag="offset")
+C("affine_grid", R(2, 2, 3), ARG([2, 1, 3, 4]))
+C("affine_grid", R(2, 2, 3), ARG([2, 1, 3, 4]), align_corners=False,
+  tag="corners")
+C("grid_sample", R(1, 2, 4, 4), U(-0.9, 0.9, 1, 3, 3, 2), tol="reduce")
+C("bucketize", R(6), np.array([-1.0, 0.0, 1.0], np.float32), grad=False)
+C("bucketize", np.array([-1.0, 0.0, 0.5, 1.0], np.float32),
+  np.array([-1.0, 0.0, 1.0], np.float32), out_int32=True, right=True,
+  grad=False, tag="right")
+C("renorm", R(3, 4), 2.0, 0, 1.0)
+C("renorm", R(3, 4), 1.0, 1, 0.5, tag="p1")
+C("lgamma", U(0.5, 4, 3, 4))
+C("lgamma", I(1, 6, 4), grad=False, tag="int")
+C("digamma", U(0.5, 4, 3, 4), tol="reduce")
+C("polygamma", U(0.5, 4, 3, 4), 1, tol="reduce")
+C("logit", U(0.1, 0.9, 3, 4))
+C("logit", U(0.0, 1.0, 3, 4), eps=0.2, tag="eps")
+C("frexp", U(-9, 9, 3, 4), grad=False)
+C("trapezoid", R(3, 5), tol="reduce")
+C("trapezoid", R(3, 5), np.array([0.0, 0.5, 1.5, 2.0, 4.0], np.float32),
+  tol="reduce", tag="x")
+C("trapezoid", R(4, 3), dx=0.5, axis=0, tol="reduce", tag="dx")
+C("cumulative_trapezoid", R(3, 5), tol="reduce")
+C("cumulative_trapezoid", R(3, 5),
+  np.array([0.0, 0.5, 1.5, 2.0, 4.0], np.float32), tol="reduce", tag="x")
+C("cumulative_trapezoid", R(4, 3), dx=0.5, axis=0, tol="reduce", tag="dx")
+C("vander", R(4), tol="reduce")
+C("vander", R(4), 3, increasing=True, tol="reduce", tag="n")
+C("cdist", R(3, 2), R(4, 2), tol="reduce")
+C("cdist", R(3, 2), R(4, 2), 1.0, tol="reduce", tag="p1")
+C("cdist", R(2, 3, 2), R(2, 4, 2), ARG(float("inf")), tol="reduce",
+  tag="inf")
+C("block_diag", [R(2, 2), R(1, 3)], grad=False)
+C("householder_product", R(4, 3), R(3), tol="reduce")
+C("py_func", ARG(np.sin), R(3, 4), grad=False)
+
+section("amp_ops")
+C("check_finite_and_unscale", R(3), R(2, 2), scale=np.array(4.0, np.float32),
+  grad=False)
+C("check_finite_and_unscale", np.array([1.0, np.inf], np.float32), R(2),
+  scale=np.array(2.0, np.float32), grad=False, tag="inf")
+for _found in (False, True):
+    C("update_loss_scaling", np.array(_found), np.array(1024.0, np.float32),
+      np.array(3, np.int32), np.array(0, np.int32), incr_every_n_steps=4,
+      grad=False, tag=f"found-{_found}")
+C("update_loss_scaling", np.array(False), np.array(8.0, np.float32),
+  np.array(3, np.int32), np.array(0, np.int32), incr_every_n_steps=4,
+  grad=False, tag="grow")
+C("update_loss_scaling", np.array(True), np.array(8.0, np.float32),
+  np.array(3, np.int32), np.array(1, np.int32), decr_every_n_nan_or_inf=2,
+  grad=False, tag="shrink")
+C("update_loss_scaling", np.array(True), np.array(8.0, np.float32),
+  np.array(3, np.int32), np.array(1, np.int32), stop_update=True,
+  grad=False, tag="stop")
 
 
 def by_module(name):
