@@ -553,11 +553,40 @@ Phases, each of which fails the run on any mismatch:
    top-two margin exceeds 10 times the card-CPU score gap; the mean of
    the last 10 losses below the first 10's. No kernel of the port runs
    on this path.
+43. Head_dim above 256 (`wide_case`, `mask_probe` at h 512 and 1024,
+   after `d256_case`): csrc/flash_attn_wide.cu's forward, dQ and dK/dV
+   kernels at WIDE_SHAPE (b 2, s 512, n 4) against their plain
+   versions, row by row at TOL, f32 and bf16, p 0 and 0.1, causal and
+   not: at h 512 and 1024 on the kernels' entries (bwd_kernel_case, the
+   dQ kernel's own delta held too), at 320 through the autograd entry
+   (padded to 512; pad_case); each case launches every kernel; ptxas
+   reports no spill in the 24 instantiations.
+44. Captured while_loop (`graph_while`, after the head_dim cases):
+   ops.control_flow.while_loop inside static/capture.py's capture, a
+   conditional WHILE node (csrc/graph_while.cu): Collatz steps of 4
+   lanes, replayed with COLLATZ_INPUTS (trip counts 118, 178, 0, 350),
+   every replay equal to the eager loop; one graph, no sentinel event;
+   a replay's ms against the eager loop's.
+45. Anatomy and the sentry (`anatomy`, then `sentry_train`, after
+   `optimizers`): captured_train's ERNIE-base step without the sentry
+   (its FLOPs, device ms and bytes by scope; ThroughputMeter's MFU; the
+   calibration probes on the card and the audit of the step), then with
+   TrainStep(sentry=NumericSentry(...)): bit-equal parameters, the
+   statistics and fingerprints against their host twins, the sentry's
+   cost, a poisoned step flagged, and card against CPU (see
+   anatomy_phase and sentry_train_phase).
+46. Optimizer extras (`optimizer_extras`, after `sentry_train`): EMA,
+   ModelAverage and Lookahead over ERNIE-base's parameters after
+   captured steps against a CPU recomputation.
+   `elastic_train` (29) gains the numeric case: the worker's --sentry
+   and a NaN gradient at step 5, exit 13, a NUMERIC verdict and the
+   resume from the newest health-stamped checkpoint.
 
 Output: a JSON line per phase; then the
 `kernels` line (each flash kernel with its launches a Transformer-base
 step and its times at the cross-attention and encoder self-attention
-shapes, and its head_dim-256 cases), the card's
+shapes, its head_dim-256 cases and those above 256; the captured
+loop's set_condition kernel; the run's phase_seconds), the card's
 nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
 package is not beside this file, it exits non-zero and prints no result.
@@ -667,6 +696,21 @@ _SEED_CARD = None
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class _PhaseClock:
+    """Seconds of each stretch of the run (phase_seconds, printed with
+    the kernels line), for keeping the whole run inside its time
+    limit."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.laps[name] = round(now - self.t, 1)
+        self.t = now
 
 
 def fail(msg):
@@ -1334,53 +1378,212 @@ def d256_kernel_rows(cases):
     return out
 
 
+# head_dim above 256 on csrc/flash_attn_wide.cu's kernels: b, s, n at
+# every head_dim of WIDE_HEAD_DIMS (320 runs zero-padded to 512 through
+# the autograd entry, the others on the kernels' own entries); the shape
+# is small because the design recomputes the scores once per 256-wide
+# chunk of the output (D / 256 times the head_dim-256 kernels' products)
+WIDE_SHAPE = (2, 512, 4)
+WIDE_HEAD_DIMS = (320, 512, 1024)
+WIDE_SOURCE = "flash_attn_wide"
+GRAPH_WHILE_SOURCE = "graph_while"
+# its instantiations: 3 kernels x 2 dtypes x causal x dropout
+WIDE_INSTANTIATIONS = 24
+
+
+def wide_kernel_phase(torch, fa):
+    """The forward, dQ and dK/dV kernels above head_dim 256 against their
+    plain versions, row by row at TOL, f32 and bf16, p 0 and DROP_P,
+    causal and not, at WIDE_SHAPE: bwd_kernel_case at the head_dims the
+    kernels take (512, 1024; the dQ kernel's own delta held too), and
+    the autograd entry at 320 (pad_case: padded to 512 on the card,
+    against the plain versions at 320). Each case must launch every
+    kernel."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 29)
+    b, s, n = WIDE_SHAPE
+    rows = []
+    for h in WIDE_HEAD_DIMS:
+        for dt in ("float32", "bfloat16"):
+            for p in (0.0, DROP_P):
+                for causal in (False, True):
+                    before = dict(fa.launches)
+                    if fa.kernel_head_dim(h) == h:
+                        row = bwd_kernel_case(
+                            torch, fa, gen, (b, s, n, h, causal, dt, p),
+                            None, tag="wide_case", with_fwd=True)
+                    else:
+                        row = pad_case(torch, fa, gen, b, s, s, n, h, dt, p,
+                                       causal, tag="wide_case")
+                    row["launched"] = {k: fa.launches[k] - before[k]
+                                       for k in fa.launches}
+                    if not all(row["launched"].values()):
+                        fail(f"a head_dim-{h} case launched no kernel of "
+                             f"one kind: {row['launched']}")
+                    rows.append(row)
+    return rows
+
+
+def wide_mask_probe_phase(torch, fa):
+    """The wide kernels' own dropout masks, link for link
+    (mask_probe_case), f32 and bf16, causal and not, at head_dims 512
+    and 1024 of WIDE_SHAPE."""
+    b, s, n = WIDE_SHAPE
+    return [mask_probe_case(torch, fa, b, n, h, s, dt, causal=causal)
+            for h in WIDE_HEAD_DIMS if fa.kernel_head_dim(h) == h
+            for dt in ("bfloat16", "float32") for causal in (False, True)]
+
+
+def wide_kernel_rows(cases):
+    """{kernel: rows} of the wide cases on the kernels' own entries (the
+    padded 320 cases time the autograd entry as a whole)."""
+    return d256_kernel_rows([c for c in cases if "fwd_ms" in c])
+
+
+def pad_case(torch, fa, gen, b, s, sk, n, h, dt, p, causal,
+             tag="head_pad_case", separate=True):
+    """flash_attention_fwd, the autograd entry, at a head_dim the kernels
+    run padded: O, lse and dQ, dK, dV through the kernels against the
+    plain versions at the unpadded head_dim, row by row at TOL; the
+    launches it made; and the entry's forward + backward time."""
+    sd = seed_card(torch)
+    dev = torch.device("cuda", 0)
+    q, k, v = (t.requires_grad_() for t in attention_inputs(
+        torch, gen, b, s, sk, n, h, getattr(torch, dt), separate))
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    before = dict(fa.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, dropout_p=p,
+                                    seed=sd)
+    o.backward(do)
+    torch.cuda.synchronize()
+    launched = {name: fa.launches[name] - before[name]
+                for name in fa.launches}
+    scale = 1.0 / math.sqrt(h)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(
+        qd, kd, vd, causal, scale, dropout_p=p, seed=DROP_SEED)
+    ref = fa.flash_attention_bwd_plain(
+        qd, kd, vd, o.detach(), lse, do, causal, scale, p, DROP_SEED)
+    row = dict(dtype=dt, b=b, s=s, sk=sk, n=n, h=h,
+               kernel_head_dim=fa.kernel_head_dim(h), causal=causal,
+               dropout_p=p, layout=_layout(separate), launches=launched,
+               lse_max_abs_err=(lse - lse_ref).abs().max().item(),
+               tol=TOL[dt])
+    ok = row["lse_max_abs_err"] <= TOL[dt] and all(launched.values())
+    for name, got, want in zip(("o", "dq", "dk", "dv"),
+                               (o, q.grad, k.grad, v.grad), (o_ref, *ref)):
+        err, ratio, good = _row_err_ok(got, want, dt)
+        row[f"{name}_max_abs_err"], row[f"{name}_worst_row"] = err, ratio
+        ok &= good
+    row["ok"] = bool(ok)
+
+    def entry():
+        out, _ = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        dropout_p=p, seed=sd)
+        out.backward(do)
+    row["entry_fwd_bwd_ms"] = time_ms(entry, reps=3, warmup=1)
+    emit({tag: row})
+    if not ok:
+        fail(f"flash attention at a padded head_dim disagrees with its "
+             f"plain version or launched no kernel: {row}")
+    del q, k, v, do, o, lse, o_ref, lse_ref, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+# the captured while_loop (csrc/graph_while.cu): Collatz trip counts, a
+# batch of starting values per replay (the loop runs until every lane
+# reached 1), each replay's inputs giving other trip counts
+COLLATZ_INPUTS = ([27, 97, 1, 6], [871, 3, 7, 9], [1, 1, 1, 1],
+                  [6171, 77031, 2, 5])
+COLLATZ_TIMED = 20
+
+
+def _collatz(torch, tcf, x):
+    """(steps per lane, the lanes' final values, trips): while any lane
+    of x is above 1, every such lane takes one Collatz step and counts
+    it."""
+    def cond(v, c, t):
+        return (v != 1).any()
+
+    def body(v, c, t):
+        live = v != 1
+        nxt = torch.where(v % 2 == 0, v // 2, 3 * v + 1)
+        return torch.where(live, nxt, v), c + live.to(c.dtype), t + 1
+    zero = torch.zeros_like(x)
+    return tcf.while_loop(cond, body, [x, zero, zero[:1].sum()])
+
+
+def graph_while_phase(torch, pt):
+    """while_loop inside a CUDA-graph capture (static/capture.py's
+    capture): one graph holding a conditional WHILE node, replayed with
+    inputs whose trip counts differ; every replay's steps, values and
+    trip count equal the eager (host) loop's, one graph is captured and
+    the sentinel fires no event. Times: a replay against the eager loop
+    on the same input."""
+    from paddle_tpu_torch.ops import control_flow as tcf
+    from paddle_tpu_torch.observability.sentinel import RecompileSentinel
+    from paddle_tpu_torch.static import capture as cap
+    dev = torch.device("cuda", 0)
+    inp = torch.tensor(COLLATZ_INPUTS[0], dtype=torch.int64, device=dev)
+    before = dict(tcf.launches)
+    graph, out = cap.capture(lambda: _collatz(torch, tcf, inp), dev,
+                             program="graph_while")
+    captured = {k: tcf.launches[k] - before[k] for k in tcf.launches}
+    sentinel = RecompileSentinel("graph_while")
+    rows = []
+    for vals in COLLATZ_INPUTS:
+        inp.copy_(torch.tensor(vals, dtype=torch.int64))
+        graph.replay()
+        got = [t.clone() for t in out]
+        want = _collatz(torch, tcf, torch.tensor(vals, dtype=torch.int64,
+                                                 device=dev))
+        sentinel.observe(1, expected=1, signature=("collatz", len(vals)))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        rows.append(dict(inputs=vals, steps=got[1].tolist(),
+                         trips=int(got[2]), equal_to_eager=same))
+        if not same:
+            emit({"graph_while": rows})
+            fail(f"the captured while_loop differs from the eager loop on "
+                 f"{vals}: {[t.tolist() for t in got]} against "
+                 f"{[t.tolist() for t in want]}")
+    inp.copy_(torch.tensor(COLLATZ_INPUTS[-1], dtype=torch.int64))
+    ms = time_ms(graph.replay, reps=COLLATZ_TIMED)
+    eager_ms = time_ms(lambda: _collatz(torch, tcf, inp), reps=3, warmup=1)
+    trips = rows[-1]["trips"]
+    carry_bytes = 3 * inp.numel() * 8
+    # each trip reads and writes the carries once; its integer ops (about
+    # 8 a lane) priced at the FP32 pipes' rate
+    bound = _bound(trips * 2 * carry_bytes, trips * 8 * inp.numel(),
+                   "float32")
+    row = dict(rows=rows, graphs=1, sentinel_fired=sentinel.fired,
+               set_condition_launches_captured=captured,
+               replay_ms=ms, eager_loop_ms=eager_ms, trips_timed=trips,
+               bound_ms=bound[0], bound_by=bound[1],
+               cuda_versions=tcf._graph_lib_checked[0])
+    emit({"graph_while": row})
+    if sentinel.fired or len(set(r["trips"] for r in rows)) < 3:
+        fail(f"graph_while: {sentinel.fired} sentinel events, or too few "
+             f"distinct trip counts: {rows}")
+    del graph, out
+    torch.cuda.empty_cache()
+    return row
+
+
 def head_pad_phase(torch, fa):
     """flash_attention_fwd (the autograd entry MultiHeadAttention
-    reaches) at each of PAD_HEAD_DIMS, f32 at p 0 and bf16 at p DROP_P:
-    O, lse and dQ, dK, dV through the kernels (each must launch) against
-    the plain versions at the unpadded head_dim, held row by row at
-    TOL."""
+    reaches) at each of PAD_HEAD_DIMS, f32 at p 0 and bf16 at p DROP_P,
+    at the cross-attention shape (b 32, sq 96, sk 128, n 8, separate q,
+    k, v): O, lse and dQ, dK, dV through the kernels (each must launch)
+    against the plain versions at the unpadded head_dim, held row by
+    row at TOL (pad_case)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
-    rows = []
-    for h in PAD_HEAD_DIMS:
-        for dt, p in (("float32", 0.0), ("bfloat16", DROP_P)):
-            sd = seed_card(torch)
-            q, k, v = (t.requires_grad_() for t in attention_inputs(
-                torch, gen, 32, 96, 128, 8, h, getattr(torch, dt), True))
-            do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-            before = dict(fa.launches)
-            o, lse = fa.flash_attention_fwd(q, k, v, dropout_p=p, seed=sd)
-            o.backward(do)
-            torch.cuda.synchronize()
-            launched = {n: fa.launches[n] - before[n] for n in fa.launches}
-            scale = 1.0 / math.sqrt(h)
-            qd, kd, vd = q.detach(), k.detach(), v.detach()
-            o_ref, lse_ref = fa.flash_attention_fwd_plain(
-                qd, kd, vd, False, scale, dropout_p=p, seed=DROP_SEED)
-            ref = fa.flash_attention_bwd_plain(
-                qd, kd, vd, o.detach(), lse, do, False, scale, p, DROP_SEED)
-            row = dict(dtype=dt, b=32, s=96, sk=128, n=8, h=h,
-                       kernel_head_dim=fa.kernel_head_dim(h), dropout_p=p,
-                       layout=_layout(True), launches=launched,
-                       lse_max_abs_err=(lse - lse_ref).abs().max().item(),
-                       tol=TOL[dt])
-            ok = row["lse_max_abs_err"] <= TOL[dt] and all(launched.values())
-            for name, got, want in zip(("o", "dq", "dk", "dv"),
-                                       (o, q.grad, k.grad, v.grad),
-                                       (o_ref, *ref)):
-                err, ratio, good = _row_err_ok(got, want, dt)
-                row[f"{name}_max_abs_err"], row[f"{name}_worst_row"] = \
-                    err, ratio
-                ok &= good
-            row["ok"] = bool(ok)
-            emit({"head_pad_case": row})
-            if not ok:
-                fail(f"flash attention at a padded head_dim disagrees with "
-                     f"its plain version or launched no kernel: {row}")
-            rows.append(row)
-            del q, k, v, do, o, lse, o_ref, lse_ref, ref
+    rows = [pad_case(torch, fa, gen, 32, 96, 128, 8, h, dt, p, False)
+            for h in PAD_HEAD_DIMS
+            for dt, p in (("float32", 0.0), ("bfloat16", DROP_P))]
     torch.cuda.empty_cache()
     return rows
 
@@ -3499,6 +3702,428 @@ def captured_train_phase(torch, pt, fa, kind, key="captured_train",
     return row, model, step, x, y
 
 
+# the sentry on ERNIE-base's captured step (sentry_train): the
+# fingerprint period, the replays after the first call (its warm-up and
+# capture), their step seeds, the poisoned leaf's name token (an ffn
+# weight: scope mlp) and the card-against-CPU check's batch (f32)
+SENTRY_K = 4
+SENTRY_REPLAYS = 12
+SENTRY_SEEDS = [SEED + 300 + i for i in range(1 + SENTRY_REPLAYS)]
+SENTRY_POISON = "ffn_in"
+SENTRY_CPU_BATCH = (2, 512)
+# ERNIE-base's parameters as bench.py counts them (PERF.md section 2)
+BENCH_N = 110_111_042
+
+
+def _host_tree(step, grads):
+    """{name: host tensor} of the step's gradients (zeros where a
+    parameter took none, as the step's body uses) or parameters."""
+    import torch
+    out = {}
+    for k, p in zip(step._param_names, step.params):
+        t = p if not grads else (p.grad if p.grad is not None
+                                 else torch.zeros_like(p))
+        out[k] = t.detach().cpu()
+    return out
+
+
+def _stats_agree(got, want, l2_rtol):
+    """(ok, worst l2 relative gap): per-scope rows of a sentry output
+    against host_stats_by_scope's: the same scopes, counts and max-abs
+    exact, l2 within l2_rtol relative."""
+    if set(got) != set(want):
+        return False, None
+    worst = 0.0
+    ok = True
+    for sc in want:
+        ok &= got[sc]["nonfinite"] == want[sc]["nonfinite"]
+        ok &= got[sc]["max_abs"] == want[sc]["max_abs"]
+        gap = abs(got[sc]["l2"] - want[sc]["l2"]) / max(want[sc]["l2"],
+                                                        1e-30)
+        worst = max(worst, gap)
+    return bool(ok and worst <= l2_rtol), worst
+
+
+def _kept_sentry(S, **cfg):
+    """A NumericSentry that keeps each consumed step's host values while
+    .keep is set (an extra device-to-host copy a step)."""
+    class Kept(S.NumericSentry):
+        def __init__(self, config):
+            super().__init__(config)
+            self.kept, self.keep = [], True
+
+        def consume(self, step, out):
+            if self.keep:
+                self.kept.append(S.unpack(out))
+            return super().consume(step, out)
+    return Kept(S.SentryConfig(**cfg))
+
+
+def _timed_calls(torch, step, x, y, n):
+    """(step ms, seconds) of n calls on a synchronised host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(x, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return secs / n * 1e3, secs
+
+
+def sentry_train_phase(torch, pt, fa):
+    """ERNIE-base pretraining under the numeric sentry: captured_train's
+    step (48x512, O1 bf16, dropout 0.1, AdamW) with
+    TrainStep(sentry=NumericSentry(SentryConfig(fingerprint_every=
+    SENTRY_K))), the first call (warm-up and capture) and SENTRY_REPLAYS
+    replays, against the same calls of the same step without the sentry
+    (anatomy_phase's step, run first): the parameters after them bit for
+    bit; each step's per-scope statistics against host_stats_by_scope of
+    that step's gradients and parameters copied to the host (counts and
+    max-abs exact, l2 at 1e-4 relative); each fresh fingerprint against
+    host_fingerprint of the parameters, bit for bit; 1 graph, 0 sentinel
+    events, and the kernels a replay ran (each flash kernel once a
+    layer). Cost: step ms and device ms of timed replays with the sentry
+    against the plain step's, the sentry's share of the step and its
+    kernels a replay. Then one step with a NaN written into an ffn_in
+    weight's gradient (chaos nan_grad through the TrainStep's grad_hook)
+    must be flagged at that step, name its scope (mlp) and stamp the
+    health unhealthy. Last, one f32 step of ERNIE-base at
+    SENTRY_CPU_BATCH, dropout 0, from the same weights on the card and
+    on the CPU: the sentry's per-scope statistics agree at 1e-3
+    relative."""
+    from paddle_tpu_torch.distributed import chaos
+    from paddle_tpu_torch.observability import sentry as S
+    plain = anatomy_phase(torch, pt, fa)
+    sen = _kept_sentry(S, fingerprint_every=SENTRY_K)
+    model = _train_model(pt, "ernie")
+    step, x, y, (b, s), layers = _train_step(torch, "ernie", model,
+                                             sentry=sen)
+    stats_ok, worst, fps = True, 0.0, []
+    for i, sd in enumerate(SENTRY_SEEDS):
+        step(x, y, seed=sd)
+        host = sen.kept[-1]
+        for fam, grads in (("grad", True), ("param", False)):
+            want = S.host_stats_by_scope(_host_tree(step, grads))
+            ok, gap = _stats_agree(host[fam], want, 1e-4)
+            stats_ok &= ok
+            worst = max(worst, gap or 0.0)
+        if host["fp_fresh"]:
+            fps.append(dict(step=i, fingerprint=host["fp"],
+                            host=S.host_fingerprint(_host_tree(step,
+                                                               False))))
+        if i == 0:
+            warm = dict(step.last_launches)
+    params_equal = _bit_equal(_snapshot(step),
+                              [t.to("cuda") for t in plain["params"]])
+    sen.keep = False
+    ms, _ = _timed_calls(torch, step, x, y, SENTRY_REPLAYS)
+    prof = profile_step(torch, step, x, y)
+    _expect_launches("ernie sentry", [warm, prof["launches_per_replay"]],
+                     layers)
+    # the poisoned step: a NaN in one ffn_in weight's gradient
+    before = sen.monitor.health_stamp()
+    at = step._steps_done
+    plan = chaos.ChaosPlan("nan_grad", step=at, rank=0, every=False,
+                           stall_s=0.0, scope=SENTRY_POISON)
+    step.grad_hook = lambda g: chaos.apply_numeric(g, "nan_grad", plan)
+    step(x, y)
+    step.grad_hook = None
+    flagged = [a for a in sen.monitor.anomalies if a["step"] == at]
+    stamp = sen.monitor.health_stamp()
+    poison = dict(step=at, anomalies=[{k: v for k, v in a.items()
+                                       if k != "ts"} for a in flagged],
+                  health_before=before, health=stamp)
+    poison_ok = (any(a["kind"] == "nonfinite" and a["scope"] == "mlp"
+                     and a["stream"] == "grad.nonfinite" for a in flagged)
+                 and before["healthy"] and not stamp["healthy"])
+    row = dict(model="ernie", batch=b, seq=s, amp="O1 bfloat16",
+               dropout=0.1, fingerprint_every=SENTRY_K,
+               replays_checked=SENTRY_REPLAYS, graphs=step.programs,
+               sentinel_events=step.recompile_sentinel.fired,
+               params_bit_equal_to_plain=params_equal,
+               stats_equal_host=stats_ok, stats_l2_worst_rel_gap=worst,
+               stats_l2_tol=1e-4, fingerprints=fps,
+               fingerprints_equal_host=all(f["fingerprint"] == f["host"]
+                                           for f in fps),
+               step_ms=ms, plain_step_ms=plain["step_ms"],
+               device_ms_per_step=prof["device_ms"],
+               plain_device_ms_per_step=plain["device_ms"],
+               sentry_device_share=(prof["device_ms"] - plain["device_ms"])
+               / prof["device_ms"],
+               sentry_kernels_per_replay=(prof["events"]
+                                          - plain["events"]),
+               kernels_per_replay=prof["events"],
+               plain_kernels_per_replay=plain["events"],
+               launches_per_replay=prof["launches_per_replay"],
+               poisoned=poison, poisoned_ok=poison_ok)
+    step.release()
+    del model, step
+    torch.cuda.empty_cache()
+    row["card_vs_cpu"] = _sentry_card_vs_cpu(torch, pt, S)
+    row["ok"] = bool(
+        row["graphs"] == 1 and row["sentinel_events"] == 0
+        and params_equal and stats_ok and fps
+        and row["fingerprints_equal_host"] and poison_ok
+        and row["card_vs_cpu"]["ok"])
+    emit({"sentry_train": row})
+    if not row["ok"]:
+        fail(f"sentry_train: {row}")
+    return row, plain
+
+
+def _sentry_card_vs_cpu(torch, pt, S):
+    """One f32 TrainStep step of ERNIE-base at SENTRY_CPU_BATCH, dropout
+    0, with the sentry, from the same weights on the card and on the
+    CPU: the per-scope statistics of both within 1e-3 relative (counts
+    exact)."""
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import TrainStep
+    cfg = ErnieConfig.base(**BASE, hidden_dropout_prob=0.0,
+                           attention_probs_dropout_prob=0.0)
+    pt.seed(SEED + 3)
+    gm = ErnieForPretraining(cfg, device="cuda").train()
+    cm = ErnieForPretraining(cfg, device="cpu").train()
+    cm.load_state_dict({k: v.cpu() for k, v in gm.state_dict().items()})
+    b, s = SENTRY_CPU_BATCH
+    got = {}
+    t0 = time.perf_counter()
+    for name, m, dev in (("card", gm, "cuda"), ("cpu", cm, "cpu")):
+        sen = _kept_sentry(S, fingerprint_every=1)
+        st = TrainStep(m, _ernie_loss, AdamW(learning_rate=1e-4,
+                                             weight_decay=0.01),
+                       sentry=sen)
+        xx, yy = _train_batch(torch, cfg.vocab_size, b, s, dev)
+        st.eager_step(xx, yy, seed=SEED)
+        st.sentry.consume(0, st._sentry_out)
+        got[name] = sen.kept[-1]
+        del st
+    worst, ok = 0.0, True
+    for fam in ("grad", "param"):
+        a, c = got["card"][fam], got["cpu"][fam]
+        ok &= set(a) == set(c)
+        for sc in c:
+            ok &= a[sc]["nonfinite"] == c[sc]["nonfinite"]
+            for stat in ("max_abs", "l2"):
+                gap = abs(a[sc][stat] - c[sc][stat]) / max(
+                    abs(c[sc][stat]), 1e-30)
+                worst = max(worst, gap)
+    del gm, cm
+    torch.cuda.empty_cache()
+    return dict(batch=[b, s], dtype="float32", dropout=0.0,
+                max_rel_gap=worst, tol=1e-3, seconds=time.perf_counter()
+                - t0, ok=bool(ok and worst <= 1e-3))
+
+
+def anatomy_phase(torch, pt, fa):
+    """The port's tracing of captured_train's ERNIE-base step (no
+    sentry; sentry_train holds its sentry step against this one): the
+    first call and SENTRY_REPLAYS replays with SENTRY_SEEDS (the
+    parameters after them kept for sentry_train), timed replays and a
+    profiled pair (step ms, device ms, device events); then
+    train_step_memory (the step from shapes alone: predicted peak and
+    top scopes) beside the temp peak of a real eager step
+    (torch.cuda.max_memory_allocated over it, the graph released
+    first); train_step_anatomy of an eager step under torch.profiler:
+    FLOPs by scope, their sum against mfu.step_flops of another eager
+    step and against bench.py's tokens x (6N + 12 L h s), device ms by
+    scope (xprof.attribute_device_time) against the profiler's own
+    device total of that trace (within 1%); ThroughputMeter's tokens/s
+    and MFU over the timed replays against chip_peak_flops() of the
+    card; and the calibration probes on the card (build_table,
+    synthetic=False), whose Calibration predicts the step
+    (MeshPlan(dp=1).predict) and audit reports the relative errors
+    against the measured step time and peak."""
+    from paddle_tpu_torch.distributed.sharding import MeshPlan, ModelDims
+    from paddle_tpu_torch.observability import (anatomy, calibration,
+                                                memory, mfu)
+    model = _train_model(pt, "ernie")
+    step, x, y, (b, s), layers = _train_step(torch, "ernie", model)
+    for sd in SENTRY_SEEDS:
+        step(x, y, seed=sd)
+    params = [p.detach().cpu() for p in step.params]
+    ms, secs = _timed_calls(torch, step, x, y, SENTRY_REPLAYS)
+    prof = profile_step(torch, step, x, y)
+    tokens = b * s
+    meter = mfu.ThroughputMeter(tokens, peak_flops=mfu.chip_peak_flops(),
+                                n_devices=1)
+    step.release()
+    torch.cuda.empty_cache()
+    # memory: predicted from shapes alone, and a real eager step's peak
+    mem = memory.train_step_memory(step, x, y, program="train_step")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step.eager_step(x, y, seed=SEED)
+    torch.cuda.synchronize()
+    real_temp = torch.cuda.max_memory_allocated() - before
+    args = mem["arguments"]["total_bytes"]
+    # FLOPs and device ms by scope, then the whole step's FLOPs
+    anat = anatomy.train_step_anatomy(step, x, y, seed=SEED, profile=True)
+    flops = mfu.step_flops(step.eager_step, x, y, seed=SEED)
+    meter.flops_per_step = flops
+    for _ in range(SENTRY_REPLAYS):
+        meter.step(secs / SENTRY_REPLAYS)
+    thr = meter.report()
+    bench_flops = tokens * train_flops_per_token(
+        BENCH_N, layers, model.config.hidden_size, s)
+    dev = anat["device_ms"]
+    dev_sum = sum(dev["per_scope_ms"].values())
+    # calibration on the card, the step predicted and audited
+    t0 = time.perf_counter()
+    table = calibration.build_table(synthetic=False)
+    calib = calibration.Calibration(table)
+    dims = ModelDims(n_params=BENCH_N, hidden=model.config.hidden_size,
+                     n_layers=layers, seq=s, batch=b)
+    receipt = MeshPlan(dp=1).predict(dims, calibration=calib)
+    aud = calibration.audit(receipt, {"step_time_s": ms / 1e3,
+                                      "hbm_bytes": args + real_temp,
+                                      "wire_bytes": 0.0})
+    probe_s = time.perf_counter() - t0
+    row = dict(
+        model="ernie", batch=b, seq=s, amp="O1 bfloat16", dropout=0.1,
+        source=anat["source"], step_ms=ms, device_ms=prof["device_ms"],
+        events=prof["events"],
+        flops_by_scope={k: v["flops"] for k, v in anat["scopes"].items()},
+        flops_share={k: v["share"] for k, v in anat["scopes"].items()},
+        flops_total=anat["total_flops"], step_flops=flops,
+        bench_formula_flops=bench_flops,
+        flops_over_bench_formula=flops / bench_flops,
+        device_ms_by_scope=dev["per_scope_ms"],
+        device_ms_by_scope_sum=dev_sum,
+        profiler_device_ms=dev["profiler_device_ms"],
+        device_sum_rel_gap=abs(dev_sum - dev["profiler_device_ms"])
+        / dev["profiler_device_ms"],
+        eager_device_busy_ms=dev["device_busy_ms"],
+        eager_idle_ms=dev["idle_ms"],
+        throughput=dict(thr, tokens_per_s=thr["examples_per_sec"],
+                        peak_flops=meter.peak_flops_total,
+                        card=torch.cuda.get_device_name(0)),
+        memory=dict(predicted_peak_bytes=mem["peak_bytes"],
+                    predicted_argument_bytes=args,
+                    predicted_temp_bytes=mem["total_bytes"],
+                    top_scopes=[dict(scope=k, bytes=v["bytes"],
+                                     share=v["share"])
+                                for k, v in list(mem["scopes"].items())[:5]],
+                    real_temp_bytes=real_temp,
+                    real_peak_bytes=args + real_temp,
+                    predicted_over_real=mem["peak_bytes"]
+                    / (args + real_temp),
+                    temp_predicted_over_real=mem["total_bytes"]
+                    / real_temp),
+        calibration=dict(device_kind=table["device_kind"],
+                         hbm_copy_bytes_per_s=table[
+                             "hbm_copy_bytes_per_s"],
+                         matmul_flops_per_s=table["matmul_flops_per_s"],
+                         predicted_step_s=receipt.predicted_step_time_s,
+                         predicted_hbm_bytes=receipt.predicted_hbm_bytes,
+                         audit=aud, seconds=probe_s))
+    row["ok"] = bool(
+        anat["total_flops"] == flops and flops > 0
+        and row["device_sum_rel_gap"] <= 0.01
+        and {"attn", "mlp", "mlm_head_ce"} <= set(anat["scopes"])
+        and {"attn", "mlp", "embed", "mlm_head_ce",
+             "optimizer"} <= set(dev["per_scope_ms"])
+        and mem["peak_bytes"] > 0 and 0 < thr["mfu"] < 1
+        and aud["metrics_joined"] == 3)
+    emit({"anatomy": row})
+    if not row["ok"]:
+        fail(f"anatomy: {row}")
+    out = dict(row, params=params)
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+# the optimizer extras over ERNIE-base's captured step: steps, EMA
+# decay, ModelAverage's window, Lookahead's k and alpha
+EXTRAS_STEPS = 4
+EXTRAS_DECAY = 0.9
+EXTRAS_K, EXTRAS_ALPHA = 2, 0.5
+
+
+def optimizer_extras_phase(torch, pt):
+    """EMA, ModelAverage and Lookahead over ERNIE-base's parameters after
+    captured steps (captured_train's step, EXTRAS_STEPS calls: the first
+    captures, the rest replay), each updated after every step; then
+    apply() and restore() hold values equal to a CPU recomputation of
+    the same updates in float64 from the per-step parameters copied to
+    the host (EMA: d s + (1 - d) p; ModelAverage's window with its
+    restarts; Lookahead's slow weights, written into the parameters at
+    every k-th step), at 1e-6 relative to each tensor's largest value,
+    and restore() gives back the live parameters bit for bit, at the
+    same addresses."""
+    from paddle_tpu_torch.optimizer import (ExponentialMovingAverage,
+                                            LookaheadOptimizer,
+                                            ModelAverage)
+    model = _train_model(pt, "ernie")
+    step, x, y, _, _ = _train_step(torch, "ernie", model)
+    params = step.params
+    ema = ExponentialMovingAverage(params, decay=EXTRAS_DECAY)
+    avg = ModelAverage(parameters=params, min_average_window=2,
+                       max_average_window=3)
+    look = LookaheadOptimizer(step.optimizer, alpha=EXTRAS_ALPHA,
+                              k=EXTRAS_K)
+    look.start()
+
+    def gap(live, want):
+        return max(float((t.detach().cpu().double() - w).abs().max()
+                         / max(float(w.abs().max()), 1e-30))
+                   for t, w in zip(live, want))
+    # the CPU recomputation from the parameters each update saw (the
+    # Lookahead sync rewrites them after)
+    shadow = [p.detach().cpu().double() for p in params]
+    slow = [t.clone() for t in shadow]
+    total = [torch.zeros_like(t) for t in shadow]
+    window, look_gap = 0, 0.0
+    for i in range(EXTRAS_STEPS):
+        step(x, y, seed=SEED + 400 + i)
+        fast = [p.detach().cpu().double() for p in params]
+        ema.update()
+        avg.step()
+        look.sync()
+        shadow = [EXTRAS_DECAY * sh + (1 - EXTRAS_DECAY) * f
+                  for sh, f in zip(shadow, fast)]
+        window += 1
+        total = [t + f for t, f in zip(total, fast)]
+        limit = max(avg.min_window, min(avg.max_window,
+                                        int(avg.rate * (i + 1)) or 1))
+        if window > limit:
+            total, window = [t / window for t in total], 1
+        if (i + 1) % EXTRAS_K == 0:
+            slow = [sl + EXTRAS_ALPHA * (f - sl)
+                    for sl, f in zip(slow, fast)]
+            look_gap = max(look_gap, gap(params, slow))
+    mean = [t / window for t in total]
+    live = [p.detach().clone() for p in params]
+    ptrs = [p.data_ptr() for p in params]
+    with ema.apply():
+        ema_gap = gap(params, shadow)
+    restored = _bit_equal(live, [p.detach() for p in params])
+    with avg.apply():
+        avg_gap = gap(params, mean)
+    restored &= _bit_equal(live, [p.detach() for p in params])
+    same_ptrs = [p.data_ptr() for p in params] == ptrs
+    row = dict(model="ernie", steps=EXTRAS_STEPS, captured=True,
+               graphs=step.programs, ema_decay=EXTRAS_DECAY,
+               ema_max_rel_gap=ema_gap, window=window,
+               average_max_rel_gap=avg_gap, lookahead_k=EXTRAS_K,
+               lookahead_alpha=EXTRAS_ALPHA,
+               lookahead_syncs=EXTRAS_STEPS // EXTRAS_K,
+               lookahead_max_rel_gap=look_gap, tol=1e-6,
+               restore_bit_equal=restored, addresses_kept=same_ptrs)
+    row["ok"] = bool(ema_gap <= 1e-6 and avg_gap <= 1e-6
+                     and look_gap <= 1e-6 and restored and same_ptrs
+                     and step.programs == 1)
+    emit({"optimizer_extras": row})
+    step.release()
+    del model, step
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        fail(f"optimizer_extras: {row}")
+    return row
+
+
 # the overflow: an infinite scale makes every gradient of that step
 # non-finite (a finite one, even 2^127, may not: the loss's own gradient
 # is small)
@@ -3881,7 +4506,12 @@ def ernie_determinism_phase(torch, pt):
 # (name, chaos mode, the step it strikes at)
 ELASTIC_STEPS, ELASTIC_EVERY = 8, 2
 ELASTIC_RUNS = [("control", None, None), ("kill", "kill", 5),
-                ("corrupt_ckpt", "corrupt_ckpt", 6)]
+                ("corrupt_ckpt", "corrupt_ckpt", 6),
+                ("numeric", "nan_grad", 5)]
+# the numeric run's worker arms the sentry (--sentry) with this
+# fingerprint period: a checkpoint is stamped healthy after
+# ELASTIC_PROBE + 1 clean steps (step 3's is, step 1's is not)
+ELASTIC_PROBE = 2
 ELASTIC_TIMEOUT = 420
 ELASTIC_WORKER = os.path.join("paddle_tpu_torch", "distributed",
                               "elastic_worker.py")
@@ -3940,6 +4570,8 @@ def _elastic_run(name, mode, at, tmp):
            "--device", ELASTIC_MODEL[1],
            "--steps", str(ELASTIC_STEPS), "--ckpt-every", str(ELASTIC_EVERY),
            "--batch", str(b), "--seq", str(s)]
+    if mode == "nan_grad":
+        cmd += ["--sentry", "--sentry-probe-every", str(ELASTIC_PROBE)]
     t0 = time.perf_counter()
     rc, sout, serr = _run_group(cmd, env, ELASTIC_TIMEOUT)
     secs = time.perf_counter() - t0
@@ -3968,8 +4600,9 @@ def _elastic_row(run, control):
         bad.append(f"{name}: {len(incs)} incarnations (done "
                    f"{[i['done'] for i in incs]}), expected {want_incs}")
     want_rc = 0 if run["mode"] is None else 1
+    verdict = "numeric" if run["mode"] == "nan_grad" else "crash"
     if len(run["receipts"]) != want_rc or any(
-            r["verdict"]["kind"] != "crash" for r in run["receipts"]):
+            r["verdict"]["kind"] != verdict for r in run["receipts"]):
         bad.append(f"{name}: receipts "
                    f"{[(r['action'], r['verdict']) for r in run['receipts']]}")
     per_layer = GPT_TRAIN["num_layers"]
@@ -3991,9 +4624,28 @@ def _elastic_row(run, control):
     if resumed is not None:
         cands = resumed["candidate_steps"]
         # the newest intact candidate: the primary after a kill, the
-        # one past the corrupted primary after corrupt_ckpt
+        # one past the corrupted primary after corrupt_ckpt; after the
+        # numeric fault the newest health-stamped one (the fault's own
+        # step was committed stamped unhealthy)
         want_at = cands[0] if run["mode"] == "kill" else (
             cands[1] if len(cands) > 1 else None)
+        if run["mode"] == "nan_grad":
+            fault = incs[0].get("fault") or {}
+            want_at = ELASTIC_PROBE + 1
+            row_fault = dict(
+                step=fault.get("step"), reason=fault.get("reason"),
+                health=fault.get("health"),
+                anomalies=[a.get("kind") for a in fault.get("anomalies",
+                                                            [])],
+                require_healthy=resumed["require_healthy"],
+                resume_health=resumed["resume_health"])
+            if fault.get("step") != run["at"] or \
+                    "nonfinite" not in str(fault.get("reason")) or \
+                    (fault.get("health") or {}).get("healthy") is not False \
+                    or not resumed["require_healthy"] or \
+                    not (resumed["resume_health"] or {}).get("healthy") \
+                    or cands[0] != run["at"]:
+                bad.append(f"{name}: fault {row_fault}, candidates {cands}")
         if resumed["resume_step"] is None or \
                 resumed["resume_step"] != want_at:
             bad.append(f"{name}: resumed from {resumed['resume_step']}, "
@@ -4001,6 +4653,8 @@ def _elastic_row(run, control):
         died = [p for p in run["progress"] if p["inc"] == 0]
         back = [p for p in run["progress"] if p["inc"] == 1
                 and p["phase"] == "end"]
+        if run["mode"] == "nan_grad":
+            row["fault"] = row_fault
         row.update(resume_step=resumed["resume_step"],
                    candidate_steps=cands,
                    restore_ms=resumed["restore_ms"],
@@ -4020,6 +4674,12 @@ def _elastic_row(run, control):
         bad.append(f"{name}: losses {row['losses']} against the control's "
                    f"{[ctrl[str(k)] for k in range(ELASTIC_STEPS)]}")
     if control is not None:
+        # the sentry's own state (its step counter and fingerprint in
+        # strategy_state) is not the control's: the rest must be equal
+        own = {k: v for k, v in run["manifest"].items()
+               if "sentry_" not in k}
+        row["sentry_leaves"] = len(run["manifest"]) - len(own)
+        run = dict(run, manifest=own)
         same = sorted(k for k in run["manifest"]
                       if run["manifest"][k] == control["manifest"].get(k))
         row["manifest_leaves"] = len(run["manifest"])
@@ -4043,9 +4703,13 @@ def _elastic_row(run, control):
 def elastic_train_phase(torch):
     """GPT-2 small (GPT_TRAIN, O1 bf16, AdamW) at GPT_TRAIN_BATCH through
     `python -m paddle_tpu_torch.distributed.launch --elastic` and the
-    drill worker: a control run, a kill at step 5 and a corrupt_ckpt at
-    step 6, each with an async save every ELASTIC_EVERY steps into a
-    temporary directory."""
+    drill worker: a control run, a kill at step 5, a corrupt_ckpt at
+    step 6 and the numeric case (the worker's --sentry, a NaN in rank
+    0's gradients at step 5: the sentry's fault at step 5, exit 13, the
+    step committed stamped unhealthy, a NUMERIC verdict, and the relaunch
+    with PD_ROLLBACK_HEALTHY=1 resuming from the newest healthy stamp,
+    step 3, bit-equal to the control after it), each with an async save
+    every ELASTIC_EVERY steps into a temporary directory."""
     import tempfile
     torch.cuda.empty_cache()
     runs = {}
@@ -7767,29 +8431,43 @@ def main():
         if serial:
             fail(f"ptxas serialises the wgmma of a head_dim-64 kernel: "
                  f"{serial}")
-        if name == D256_SOURCE:
+        for src, want, what in ((D256_SOURCE, D256_INSTANTIATIONS,
+                                 "head_dim-256"),
+                                (WIDE_SOURCE, WIDE_INSTANTIATIONS,
+                                 "head_dim above 256"),
+                                (GRAPH_WHILE_SOURCE, 1, "graph_while")):
+            if name != src:
+                continue
             spills = ptxas_spills(info["log"])
-            d256_spill = [f for f, st, ld in spills if st or ld]
-            if len(spills) != D256_INSTANTIATIONS or d256_spill:
-                fail(f"ptxas: {len(spills)} head_dim-256 kernels reported "
-                     f"(want {D256_INSTANTIATIONS}), spilling: "
-                     f"{d256_spill}")
+            spilling = [f for f, st, ld in spills if st or ld]
+            if len(spills) != want or spilling:
+                fail(f"ptxas: {len(spills)} {what} kernels reported "
+                     f"(want {want}), spilling: {spilling}")
     emit({"build_seconds": build_s})
     philox = philox_phase(torch, _build)
 
+    clock = _PhaseClock()
     cases = kernel_phase(torch, fa)
     bwd_cases = bwd_kernel_phase(torch, fa, philox)
     probes = mask_probe_phase(torch, fa)
     pad_cases = head_pad_phase(torch, fa)
     d256_cases = d256_kernel_phase(torch, fa)
     d256_probes = d256_mask_probe_phase(torch, fa)
+    clock.lap("head_dim_256")
+    wide_cases = wide_kernel_phase(torch, fa)
+    wide_probes = wide_mask_probe_phase(torch, fa)
+    clock.lap("head_dim_wide")
+    graph_while = graph_while_phase(torch, pt)
+    clock.lap("graph_while")
     host_cost_phase(torch, fa)
     nms_cases = nms_kernel_phase(torch, nms)
     _zero(fa)
+    clock.lap("kernel_cases")
     rows, launches_inf, launches_f32 = main_path(torch, pt, fa)
     train = train_path(torch, pt, fa)
     torch.cuda.empty_cache()
     train_cpu_check(torch, pt, fa)
+    clock.lap("ernie_paths")
     gpt_rows, gpt_cases, gpt_model, gpt_launches = gpt_forward_phase(
         torch, pt, fa)
     generate_phase(torch, pt, fa, gpt_model)
@@ -7801,6 +8479,7 @@ def main():
     torch.cuda.empty_cache()
     fleet_phase(torch, pt, gpt_model, serving_row, parity)
     loadgen_phase(torch, pt, gpt_model)
+    clock.lap("gpt_serving")
     del gpt_model, parity
     torch.cuda.empty_cache()
     gpt_kernel_rows, gpt_probes = gpt_train_kernels_phase(torch, fa, philox)
@@ -7809,6 +8488,7 @@ def main():
     dense = {"ernie": train, "gpt": gpt_train}
     _, chunked = chunked_ce_phase(torch, pt, fa, dense)
     scanned = scan_layers_phase(torch, pt, fa, dense)
+    clock.lap("gpt_training")
     ernie_determinism_phase(torch, pt)
     captured = {}
     for kind in ("ernie", "gpt"):
@@ -7824,6 +8504,11 @@ def main():
              for kind in ("gpt", "ernie")}
     lr_schedule_phase(torch, pt)
     optimizers_phase(torch)
+    clock.lap("captured_training")
+    sentry, plain = sentry_train_phase(torch, pt, fa)
+    clock.lap("sentry_and_anatomy")
+    optimizer_extras_phase(torch, pt)
+    clock.lap("optimizer_extras")
     dp = dp_train_phase(torch, pt, fa)
     torch.cuda.empty_cache()
     with _OneRankGroup():
@@ -7835,6 +8520,7 @@ def main():
     pipe_case, pipe_probe = pipe_kernel_phase(torch, fa, philox)
     pipe = pipeline_train_phase(torch, pt, fa, captured["ernie"])
     torch.cuda.empty_cache()
+    clock.lap("parallel_training")
     resnet = resnet_train_phase(torch, pt, fa)
     torch.cuda.empty_cache()
     yolo, yolo_model = yolo_train_phase(torch, pt, fa, nms)
@@ -7842,6 +8528,7 @@ def main():
     serve = yolo_serve_phase(torch, pt, fa, nms, yolo_model)
     del yolo_model
     torch.cuda.empty_cache()
+    clock.lap("vision")
     ops_card_phase(torch, pt)
     amp_card_phase(torch, pt)
     mnist = mnist_dygraph_phase(torch, pt, fa, nms, smi)
@@ -7852,7 +8539,9 @@ def main():
     torch.cuda.empty_cache()
     srl_train_phase(torch, pt, fa, nms)
     torch.cuda.empty_cache()
+    clock.lap("ops_and_text_models")
     elastic_train_phase(torch)
+    clock.lap("elastic_train")
     emit({"capture_hazards": dict(
         capture_mode="global (torch.cuda.graph's default): every capture "
                      "of this run succeeded, the kernels' host calls "
@@ -7929,6 +8618,7 @@ def main():
                                        "non-causal dropout 0.1, separate "
                                        "q, k and v")
     d256_rows = d256_kernel_rows(d256_cases)
+    wide_rows = wide_kernel_rows(wide_cases)
     # no library call computes one backward kernel's outputs alone: the
     # backward rows carry SDPA's backward beside the whole backward
     common = dict(route="cuda", shape=shape)
@@ -7994,6 +8684,14 @@ def main():
             source="paddle_tpu_torch/csrc/flash_attn_d256.cu",
             shape="b{} s{} n{} h{}, qkv views".format(*D256_SHAPE),
             cases=d256_rows[kern["name"]])
+        # above head_dim 256 (csrc/flash_attn_wide.cu): the kernel cases
+        # at 512 and 1024 (320 runs padded to 512 through the autograd
+        # entry: wide_case rows with entry_fwd_bwd_ms)
+        kern["head_dim_wide"] = dict(
+            source="paddle_tpu_torch/csrc/flash_attn_wide.cu",
+            shape="b{} s{} n{}, h 512 and 1024, qkv views".format(
+                *WIDE_SHAPE),
+            cases=wide_rows[kern["name"]])
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     # greedy NMS: no Pallas origin; at the serving path's shape (640
@@ -8019,9 +8717,32 @@ def main():
         cases=nms_cases))
     if serve["launches_per_hard_predict"] == 0:
         fail("the serving path launched no nms_greedy kernel")
+    # the captured while_loop's one kernel: set_condition, recorded before
+    # the WHILE node and as its body's last kernel; a replay runs it once
+    # a trip on the card (no Pallas origin: lax.while_loop's device loop)
+    kernels.append(dict(
+        name="graph_while_set_condition", route="cuda",
+        source="paddle_tpu_torch/csrc/graph_while.cu",
+        replaces="none: no Pallas kernel (lax.while_loop of "
+                 "paddle_tpu/ops/control_flow.py:61-75)",
+        launches=graph_while["set_condition_launches_captured"][
+            "graph_while_set_condition"],
+        max_abs_err=0.0, ms=graph_while["replay_ms"],
+        plain_ms=graph_while["eager_loop_ms"],
+        bound_ms=graph_while["bound_ms"],
+        bound_by=graph_while["bound_by"], library_ms=None,
+        shape="Collatz steps of {} lanes, {} trips a replay".format(
+            len(COLLATZ_INPUTS[-1]), graph_while["trips_timed"]),
+        what="ms: one replay of the captured loop (every trip on the "
+             "card); plain_ms: the eager loop (a host read a trip)"))
+    if not graph_while["set_condition_launches_captured"][
+            "graph_while_set_condition"]:
+        fail("the captured while_loop recorded no set_condition kernel")
     emit({"kernels": kernels, "philox": "paddle_tpu_torch/csrc/philox.cuh "
           "replaces paddle_tpu/ops/pallas_kernels.py:157 (inside all three)",
-          "mask_probes": probes + gpt_probes + [pipe_probe] + d256_probes,
+          "mask_probes": probes + gpt_probes + [pipe_probe] + d256_probes
+          + wide_probes,
+          "phase_seconds": clock.laps,
           "backward_cases": bwd_cases, "head_pad_cases": pad_cases,
           "gpt_training_cases": gpt_kernel_rows})
     print(smi, flush=True)

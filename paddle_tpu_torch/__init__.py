@@ -56,9 +56,10 @@ decoding with the rest of extras, and the AMP graph ops, with the op
 library's AMP casts; paddle.text's datasets, with which the CoNLL-2005
 semantic-role labeller (db-LSTM + linear-chain CRF) trains and decodes.
 """
-from . import (amp, core, device, distributed, hapi, io, jit,  # noqa: F401
-               linalg, metric, models, nn, observability, ops, optimizer,
-               quant, regularizer, serving, static, text, vision)
+from . import (amp, core, device, distributed, hapi, incubate,  # noqa: F401
+               io, jit, linalg, metric, models, nn, observability, ops,
+               optimizer, profiler, quant, regularizer, serving, static,
+               text, vision)
 from . import ops as tensor  # noqa: F401
 from .batch import batch  # noqa: F401
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401

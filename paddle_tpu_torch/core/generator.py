@@ -214,7 +214,10 @@ def _generator(device, s: int) -> torch.Generator:
 def scope_generator(device) -> torch.Generator:
     """The generator a random op on `device` draws from: inside a
     seed_scope a fresh one seeded from next_seed() (a Draw's own
-    generator inside a SeedSlots scope), else the default."""
+    generator inside a SeedSlots scope), else the default. None on the
+    meta device (a step traced from shapes alone draws nothing)."""
+    if torch.device(device).type == "meta":
+        return None
     if not _scopes():
         return default_generator(device)
     s = next_seed(device)

@@ -46,8 +46,10 @@ Faults:
 The numeric trio is returned to the training loop
 (``maybe_inject_numeric`` names the fault, ``apply_numeric`` perturbs a
 name -> tensor dict: torch tensors on any device, or numpy arrays), so
-the loop applies it where a corrupted card would have produced it. The
-drill that watches for it comes with the sentry (ROADMAP.md item 17).
+the loop applies it where a corrupted card would have produced it: the
+elastic worker's sentry drill (distributed/elastic_worker.py --sentry)
+applies nan_grad and scale_grad through the TrainStep's grad_hook,
+between the backward and the update.
 
 The injection point (``maybe_inject``) is called by the training loop
 once per step; it is a no-op (one parse-once read) when no plan is

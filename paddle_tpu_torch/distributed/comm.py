@@ -29,8 +29,8 @@ package outside a shard_map.
 Receipts: ``comm.algo{algo,compress}``, ``comm.fused_buckets`` and
 ``comm.wire_bytes`` through the metrics plane, and a collective.enter/
 exit pair with a per-(axis, op) seq through the flight recorder, per
-fused collective. The JAX package's anatomy scope ("grad_sync",
-"param_gather") is a torch.profiler.record_function range here.
+fused collective, each under the JAX package's anatomy scope
+("grad_sync", "param_gather"; observability.anatomy.scope).
 """
 from __future__ import annotations
 
@@ -40,9 +40,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function as _scope
 
 from ..observability import metrics as _obs
+from ..observability.anatomy import scope as _scope
 from . import collective as _c
 from .collective import Group, _record
 from .env import DATA_AXIS, axis_group, current_axis_name

@@ -25,6 +25,23 @@ changes the trajectory. Every rank trains on the whole global batch (the
 update an all-reduced data-parallel step makes) and logs its own shard
 of example ids.
 
+``--sentry`` arms the numeric-integrity plane (the JAX drill worker's,
+tests/elastic_worker.py): the TrainStep carries an
+observability.sentry.NumericSentry (per-scope grad/param statistics and
+the every-``--sentry-probe-every`` fingerprint inside the captured
+step, fatal on a non-finite gradient), every checkpoint's manifest
+carries the monitor's health stamp (``save_sharded(health=)``), the
+ranks exchange their fingerprints over the fleet KV at each probe and
+judge them, and ``PD_ROLLBACK_HEALTHY=1`` (the launcher's NUMERIC
+remediation) resumes through ``load_at_or_before(require_healthy=True)``.
+Numeric chaos (PD_CHAOS_MODE nan_grad or scale_grad) strikes the
+unscaled gradients between the backward and the update, through the
+TrainStep's grad_hook (chaos.maybe_inject_numeric, apply_numeric). A
+confirmed fault (the sentry's NumericFault, or this rank named by the
+fingerprint vote) quarantines the rank: the step's state is committed
+stamped unhealthy, a fault capture and the flight recorder's dump are
+written, and the process exits 13.
+
 ``--model gpt2`` is GPT-2 small (vocab 50304, hidden 768, 12 layers, 12
 heads) under O1 bf16; ``tiny`` is a 2-layer GPT in f32. Both train with
 dropout 0.1 and AdamW(1e-4, weight decay 0.01). The device defaults to
@@ -72,6 +89,10 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--amp", choices=("O1", "none"), default=None,
                     help="default: O1 bf16 on the card, f32 on the CPU")
+    ap.add_argument("--sentry", action="store_true",
+                    help="arm the numeric-integrity sentry")
+    ap.add_argument("--sentry-probe-every", type=int, default=2,
+                    help="the sentry's fingerprint period (steps)")
     return ap.parse_args(argv)
 
 
@@ -93,9 +114,21 @@ def build(args):
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
     amp = args.amp or ("O1" if args.device.startswith("cuda") else "none")
+    sentry = None
+    if getattr(args, "sentry", False):
+        from paddle_tpu_torch.observability import sentry as sentry_mod
+        # the JAX drill's monitor: a warming-up model's streams trend, so
+        # the z threshold is wide; a healthy stamp needs a clean run past
+        # one probe period
+        k = int(args.sentry_probe_every)
+        sentry = sentry_mod.NumericSentry(sentry_mod.SentryConfig(
+            window=8, min_warmup=4,
+            z_threshold=float(os.environ.get("PD_SENTRY_Z", "20")),
+            fingerprint_every=k, min_clean_for_healthy=k + 1,
+            fatal_nonfinite=True))
     step = TrainStep(model, GPTForCausalLM.lm_loss, opt,
                      amp_level=None if amp == "none" else amp,
-                     amp_dtype="bfloat16")
+                     amp_dtype="bfloat16", sentry=sentry)
     return model, step
 
 
@@ -112,6 +145,7 @@ def run(args, rank=0, world=1, slot=0, incarnation=0, hb=None):
     from paddle_tpu_torch.distributed import chaos
     from paddle_tpu_torch.distributed import checkpoint as dckpt
     from paddle_tpu_torch.observability import goodput
+    from paddle_tpu_torch.observability.sentry import NumericFault
 
     model, step = build(args)
     gb, seq = int(args.batch), int(args.seq)
@@ -120,6 +154,9 @@ def run(args, rank=0, world=1, slot=0, incarnation=0, hb=None):
     cursor = dckpt.DataShardCursor(dataset_size=gb * DATASET_BATCHES,
                                    global_batch=gb)
     start, resume_step, restore_ms = 0, None, None
+    # numeric remediation (launch.py sets it on a NUMERIC verdict):
+    # resume only onto a health-stamped candidate
+    require_healthy = os.environ.get("PD_ROLLBACK_HEALTHY") == "1"
     t0 = time.perf_counter()
     state, topo = dckpt.load_with_topology(ckpt)
     if topo is not None:
@@ -135,8 +172,9 @@ def run(args, rank=0, world=1, slot=0, incarnation=0, hb=None):
                 os.path.join(args.ckpt_dir, f"slot{int(s)}"))
             cut = min(cut, int(other["step"])
                       if other and other.get("step") is not None else 0)
-        if cut < int(topo["step"]):
-            state, topo = dckpt.load_at_or_before(ckpt, cut)
+        if cut < int(topo["step"]) or require_healthy:
+            state, topo = dckpt.load_at_or_before(
+                ckpt, cut, require_healthy=require_healthy)
         step.set_state_dict(state["train"])
         cursor = dckpt.DataShardCursor.from_state(topo["data_cursor"])
         resume_step = int(topo["step"])
@@ -151,7 +189,9 @@ def run(args, rank=0, world=1, slot=0, incarnation=0, hb=None):
            "resume_step": resume_step, "restore_ms": restore_ms,
            "candidate_steps": _candidate_steps(ckpt),
            "losses": {}, "saves": [], "warmup_launches": None,
-           "done": False}
+           "require_healthy": require_healthy,
+           "resume_health": (topo or {}).get("health"),
+           "fingerprints": {}, "done": False}
     out = os.path.join(args.out_dir, f"inc{incarnation}_slot{slot}.json")
 
     def dump():
@@ -163,6 +203,7 @@ def run(args, rank=0, world=1, slot=0, incarnation=0, hb=None):
             json.dump(rec, f)
         os.replace(out + ".tmp", out)
 
+    kv = kv_of(world) if step.sentry is not None else None
     for s in range(start, args.steps):
         _append(progress, {"step": s, "phase": "begin", "t": time.time(),
                            "inc": incarnation})
@@ -171,8 +212,25 @@ def run(args, rank=0, world=1, slot=0, incarnation=0, hb=None):
         i = cursor.epoch * DATASET_BATCHES + cursor.offset // gb
         x, y = batch(i, gb, seq, vocab)
         ids = cursor.indices(rank, world)
-        loss = float(step(torch.from_numpy(x).to(args.device),
-                          torch.from_numpy(y).to(args.device)))
+        nmode = chaos.maybe_inject_numeric(s, rank=rank,
+                                           incarnation=incarnation)
+        if nmode in ("nan_grad", "scale_grad"):
+            # numeric chaos between the backward and the update, where a
+            # corrupted chip's gradients would surface
+            step.grad_hook = lambda g, m=nmode: chaos.apply_numeric(g, m)
+        fault = None
+        try:
+            loss = float(step(torch.from_numpy(x).to(args.device),
+                              torch.from_numpy(y).to(args.device)))
+        except NumericFault as e:
+            fault, loss = e, float("nan")
+        step.grad_hook = None
+        if fault is not None:
+            _quarantine(dckpt, rec, step, ckpt, s, cursor, world, gb,
+                        args, slot, rank, str(fault), x, y, dump)
+        if step.sentry is not None:
+            _probe(step, rec, kv, rank, world, s, args, dckpt, ckpt, cursor,
+                   gb, slot, x, y, dump)
         if rec["warmup_launches"] is None:
             # the first call's warm-up (an eager step), as the wrappers
             # counted it; its capture records the same launches again
@@ -203,17 +261,108 @@ def _save(dckpt, rec, step, ckpt, s, cursor, world, gb):
         dckpt.wait_pending()
         rec["saves"][-1]["write_ms"] = dckpt.last_save["write_ms"]
     join_ms = (time.perf_counter() - t0) * 1e3
+    mon = step.sentry.monitor if step.sentry is not None else None
     dckpt.save_sharded(
         {"train": step.state_dict()}, ckpt, async_write=True,
         topology=dckpt.topology_manifest(
             step=s, data_cursor=cursor.state_dict(), dp=world,
-            global_batch=gb))
+            global_batch=gb,
+            health=mon.health_stamp(step=s) if mon is not None else None))
     rec["saves"].append({"step": s,
                          "call_ms": (time.perf_counter() - t0) * 1e3,
                          "block_ms": dckpt.last_save["block_ms"],
                          "join_ms": join_ms,
                          "bytes": dckpt.last_save["nbytes"],
                          "write_ms": None})
+
+
+def kv_of(world):
+    """The fleet KV client of the launcher's heartbeat endpoint, when
+    there are peers to exchange fingerprints with."""
+    endpoint = os.environ.get("PADDLE_HEARTBEAT_ENDPOINT")
+    if not endpoint or world <= 1:
+        return None
+    from paddle_tpu_torch.distributed.fleet.utils.http_server import \
+        KVClient
+    return KVClient(endpoint, timeout=2.0)
+
+
+def _exchange_fingerprints(kv, rank, world, s, fp, timeout=5.0,
+                           poll=0.05):
+    """Publish this rank's fingerprint for step s over the fleet KV and
+    collect the peers' for the same step (best effort: a dead peer or a
+    KV outage gives a partial dict)."""
+    if kv is None:
+        return {}
+    epoch = os.environ.get("PD_GANG_EPOCH", "0")
+    try:
+        kv.put(f"fp/{epoch}/{s}/{rank}", str(fp))
+    except Exception:
+        return {}
+    peers = {}
+    deadline = time.time() + timeout
+    for r in range(world):
+        while r != rank and time.time() < deadline:
+            try:
+                v = kv.get(f"fp/{epoch}/{s}/{r}")
+            except Exception:
+                return peers
+            if v is not None:
+                peers[r] = int(v)
+                break
+            time.sleep(poll)
+    return peers
+
+
+def _probe(step, rec, kv, rank, world, s, args, dckpt, ckpt, cursor, gb,
+           slot, x, y, dump):
+    """At a fresh fingerprint (the in-graph probe's step): record it,
+    exchange it with the peers, and quarantine this rank when the vote
+    names it."""
+    mon = step.sentry.monitor
+    if mon.last_fingerprint_step != s:
+        return
+    fp = mon.last_fingerprint
+    rec["fingerprints"][str(s)] = fp
+    peers = _exchange_fingerprints(kv, rank, world, s, fp)
+    if peers and mon.judge_fingerprints(rank, fp, peers, step=s) == rank:
+        _quarantine(dckpt, rec, step, ckpt, s, cursor, world, gb, args,
+                    slot, rank, "fingerprint divergence (cross-replica "
+                    "minority)", x, y, dump)
+
+
+def _quarantine(dckpt, rec, step, ckpt, s, cursor, world, gb, args, slot,
+                rank, reason, x, y, dump):
+    """Self-quarantine on a confirmed numeric fault: the step's state is
+    committed stamped unhealthy (the monitor's stamp after the anomaly),
+    a fault capture (params, the batch, the observed stats) and the
+    flight recorder's dump are written, and the process exits 13 so the
+    supervisor reads a NUMERIC verdict."""
+    from paddle_tpu_torch.observability import flight_recorder as fr
+    from paddle_tpu_torch.observability import sentry as sentry_mod
+    mon = step.sentry.monitor
+    cursor.advance()
+    _save(dckpt, rec, step, ckpt, s, cursor, world, gb)
+    dckpt.wait_pending()
+    rec["fault"] = {"step": s, "reason": reason,
+                    "health": mon.health_stamp(step=s),
+                    "anomalies": mon.anomalies[-6:]}
+    dump()
+    names = step._param_names
+    params = {k: p.detach() for k, p in zip(names, step.params)}
+    observed = {"reason": reason,
+                "param": sentry_mod.host_stats_by_scope(params),
+                "anomalies": mon.anomalies[-6:]}
+    try:
+        sentry_mod.write_fault_capture(
+            os.path.join(args.out_dir, f"fault_slot{slot}.npz"), params,
+            {"x": x, "y": y}, observed=observed, step=s, rank=rank,
+            meta={"model": args.model})
+    except OSError:
+        pass  # the dump below still carries the verdict's evidence
+    fr.record("sentry.fault", step=int(s), rank=int(rank), reason=reason)
+    fr.dump(reason="numeric_fault")
+    os._exit(13)
 
 
 def _candidate_steps(ckpt):

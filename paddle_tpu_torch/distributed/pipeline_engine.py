@@ -51,7 +51,11 @@ All stages run on one device (mesh=None: stage_submeshes gives every
 stage the engine's device; activations move with .to(device,
 non_blocking=True), place_input). One rank per stage over p2p, the
 one-program engine (exec_mode="spmd_1f1b", plan=) and the pipeline.py
-schedules come with ROADMAP.md item 14d; sentry= with item 17.
+schedules come with ROADMAP.md item 14d. sentry= is accepted and kept,
+unused, as the JAX dispatch engine keeps it (its sentry instruments the
+one-program spmd_1f1b engine only, item 14d here). The update runs under
+the anatomy scopes the JAX engine opens: the unscale and the skip select
+under ``loss_scale``, the rule under ``optimizer``.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ from ..core.generator import Draw, SeedSlots, fold_seed, next_seed, seed_scope
 from ..core.place import resolve_device
 from ..observability import flight_recorder as _fr
 from ..observability import metrics as _obs
+from ..observability.anatomy import scope as _scope
 from ..observability.sentinel import RecompileSentinel, signature_of
 from ..static.capture import StaticInputs, capture, clone_outputs, warm_up
 from .recompute import remat_scope
@@ -458,17 +463,21 @@ class _Stage:
         """U: the microbatch mean of the accumulated gradients, unscaled,
         through the optimizer, gated by found_inf on the device (None:
         no gate)."""
-        denom = scale * num_micro
-        grads = [g / denom for g in self.grads]
-        optimizer.apply_gradients(self.params, grads, lr=lr, skip=found_inf)
+        with _scope("loss_scale"):
+            denom = scale * num_micro
+            grads = [g / denom for g in self.grads]
+        with _scope("optimizer"):
+            optimizer.apply_gradients(self.params, grads, lr=lr,
+                                      skip=found_inf)
 
     def found_inf(self):
         """Whether any accumulated gradient holds a non-finite value (a
         0-d bool device tensor)."""
         if not self.grads:
             return torch.zeros((), dtype=torch.bool, device=self.device)
-        return ~torch.stack([torch.isfinite(g).all()
-                             for g in self.grads]).all()
+        with _scope("loss_scale"):
+            return ~torch.stack([torch.isfinite(g).all()
+                                 for g in self.grads]).all()
 
 
 class _Program:
@@ -528,11 +537,6 @@ class PipelineParallel:
                 + (", plan=...)" if plan is not None else ")")
                 + f": the one-program pipeline comes with {_ITEM_14D}; "
                 "exec_mode='dispatch' runs the host-driven engine")
-        if sentry is not None:
-            raise NotImplementedError(
-                "PipelineParallel(sentry=...): the numeric-integrity "
-                "sentry comes with ROADMAP.md item 17 "
-                "(observability/sentry.py)")
         if param_spec_fn is not None:
             raise NotImplementedError(
                 "PipelineParallel(param_spec_fn=...) places parameters on "
@@ -544,6 +548,8 @@ class PipelineParallel:
         self.num_micro = int(num_micro)
         self.schedule_policy = schedule
         self.optimizer = optimizer
+        # kept, unused, as the JAX dispatch engine keeps it
+        self.sentry = sentry
         self.virtual_pipeline_degree = v = int(virtual_pipeline_degree)
         if v > 1:
             if len(stages) % v != 0:

@@ -530,22 +530,27 @@ def estimate_layout(sizes: Dict[str, int], dims: ModelDims,
     compute_equiv = flops / _FLOPS_PER_WIRE_BYTE / n_dev
     penalty = bubble / max(1.0 - bubble, 1e-6) * compute_equiv
 
+    # absolute estimates ride every candidate: analytic always, the
+    # calibrated one when a table matched
     from ..observability import calibration as _calibration
     analytic_t = _calibration.predict_step_time_s(
         sizes, dims, wire_by_axis, None, num_micro=num_micro,
         compress=compress)["total_s"]
+    calibrated_t = None
+    used = "analytic"
     if calibration is not None:
-        # raises: calibrated ranking comes with item 17
-        _calibration.predict_step_time_s(
+        calibrated_t = _calibration.predict_step_time_s(
             sizes, dims, wire_by_axis, calibration, num_micro=num_micro,
-            compress=compress)
+            compress=compress)["total_s"]
+        used = "calibrated"
 
     return LayoutCost(sizes={a: sizes.get(a, 1) for a in LOGICAL_AXES},
                       hbm_per_chip=hbm, wire_per_chip=wire,
                       bubble_penalty=penalty,
                       feasible=hbm <= hbm_bytes_per_chip,
                       wire_by_axis=wire_by_axis,
-                      analytic_step_time_s=analytic_t)
+                      analytic_step_time_s=analytic_t,
+                      calibrated_step_time_s=calibrated_t, used=used)
 
 
 def choose_layout(n_devices: int, dims: ModelDims,
@@ -554,7 +559,9 @@ def choose_layout(n_devices: int, dims: ModelDims,
                   calibration=None
                   ) -> Tuple[Dict[str, int], List[LayoutCost]]:
     """Pick the cheapest feasible layout; raise with the full report if
-    nothing fits."""
+    nothing fits. With a matching observability.calibration.Calibration
+    the rank key is the calibrated absolute step time; without one, the
+    analytic byte cost. Feasibility is byte math either way."""
     reports = [estimate_layout(c, dims, hbm_bytes_per_chip,
                                compress=compress, num_micro=num_micro,
                                calibration=calibration)
@@ -569,8 +576,15 @@ def choose_layout(n_devices: int, dims: ModelDims,
                           tight.sizes, int(tight.hbm_per_chip)))
     # deterministic tie-break: prefer fewer pipeline stages, then less
     # tp, then less fsdp — the simplest layout that is also cheapest
-    best = min(feasible, key=lambda r: (r.cost, r.sizes["pp"],
-                                        r.sizes["tp"], r.sizes["fsdp"]))
+    if calibration is not None:
+        best = min(feasible,
+                   key=lambda r: (r.calibrated_step_time_s,
+                                  r.sizes["pp"], r.sizes["tp"],
+                                  r.sizes["fsdp"]))
+    else:
+        best = min(feasible, key=lambda r: (r.cost, r.sizes["pp"],
+                                            r.sizes["tp"],
+                                            r.sizes["fsdp"]))
     return dict(best.sizes), reports
 
 
@@ -623,17 +637,15 @@ class MeshPlan:
              calibration="auto") -> "MeshPlan":
         """layout="auto": cost-model search over the factorizations of
         the device count; the losing candidates ride along in .report.
-        ``calibration="auto"`` reads the committed table: a mismatch
-        warns and ranks with the analytic constants (a match, or a
-        Calibration passed in, raises NotImplementedError: item 17);
-        None forces the analytic ranking."""
+        ``calibration="auto"`` reads the committed table when it matches
+        the live (device_kind, topology): a mismatch warns and ranks with
+        the analytic constants. None forces the analytic ranking; a
+        Calibration pins one."""
         calib = calibration
         if isinstance(calib, str) and calib == "auto":
             from ..observability import calibration as _calibration
             try:
                 calib = _calibration.load_for(n_devices=n_devices)
-            except NotImplementedError:
-                raise
             except Exception:
                 calib = None
         sizes, reports = choose_layout(
@@ -646,12 +658,13 @@ class MeshPlan:
         plan.dims = dims
         cls._ledger_layout(n_devices, dims, hbm_bytes_per_chip,
                            compress, num_micro, max_tp, max_pp,
-                           sizes, reports)
+                           calib, sizes, reports)
         return plan
 
     @staticmethod
     def _ledger_layout(n_devices, dims, hbm_bytes_per_chip, compress,
-                       num_micro, max_tp, max_pp, sizes, reports):
+                       num_micro, max_tp, max_pp, calib, sizes,
+                       reports):
         """Ledger the layout pick (observability.decisions): the losing
         candidates and the ranking rule are the evidence."""
         from ..observability import decisions as _dec
@@ -672,7 +685,9 @@ class MeshPlan:
             return "improved" if abs(err) <= 0.2 else "worse"
 
         _dec.record(
-            "planner.layout", "layout", rule="analytic byte-cost ranking",
+            "planner.layout", "layout",
+            rule=("calibrated step-time ranking" if calib is not None
+                  else "analytic byte-cost ranking"),
             evidence={
                 "inputs": {
                     "n_devices": int(n_devices),
@@ -681,7 +696,8 @@ class MeshPlan:
                     "compress": compress,
                     "num_micro": int(num_micro),
                     "max_tp": int(max_tp), "max_pp": int(max_pp),
-                    "calibration": None},
+                    "calibration": (dict(calib.table)
+                                    if calib is not None else None)},
                 "decision": {
                     "action": "layout", "sizes": dict(sizes),
                     "candidates": [r.as_dict() for r in reports]}},
@@ -821,8 +837,10 @@ class MeshPlan:
                 num_micro: int = 4, calibration="inherit",
                 hbm_bytes_per_chip: float = float("inf")):
         """Score THIS plan's layout and return the PlanReceipt (step
-        time, HBM peak and wire bytes, analytic). auto() plans carry
-        their dims; manual plans pass them (or ModelDims.infer)."""
+        time, HBM peak and wire bytes). auto() plans carry their dims;
+        manual plans pass them (or ModelDims.infer).
+        ``calibration="inherit"`` uses whatever ranked the plan; "auto"
+        re-resolves the committed table; None forces analytic."""
         from ..observability import calibration as _calibration
         dims = dims if dims is not None else self.dims
         if dims is None:
@@ -836,16 +854,18 @@ class MeshPlan:
         elif isinstance(calib, str) and calib == "auto":
             try:
                 calib = _calibration.load_for(n_devices=self.n_devices)
-            except NotImplementedError:
-                raise
             except Exception:
                 calib = None
         cost = estimate_layout(self.sizes, dims, hbm_bytes_per_chip,
                                compress=self.compress,
                                num_micro=num_micro, calibration=calib)
-        ident = _calibration.device_identity()
-        kind = ident["device_kind"]
-        topo = _calibration.topology_fingerprint(kind, ident["n_devices"])
+        if calib is not None:
+            kind, topo = calib.device_kind, calib.topology
+        else:
+            ident = _calibration.device_identity()
+            kind = ident["device_kind"]
+            topo = _calibration.topology_fingerprint(kind,
+                                                     ident["n_devices"])
         receipt = _calibration.PlanReceipt(
             sizes=dict(self.sizes),
             predicted_step_time_s=cost.step_time_s,
@@ -856,7 +876,7 @@ class MeshPlan:
             used=cost.used,
             device_kind=kind,
             topology=topo,
-            calibration_match=False,
+            calibration_match=calib is not None,
             breakdown={"wire_by_axis": {a: dict(r) for a, r in
                                         cost.wire_by_axis.items()},
                        "bubble_penalty": round(cost.bubble_penalty),
@@ -870,6 +890,9 @@ class MeshPlan:
              "n_devices": self.n_devices, "compress": self.compress}
         if self.report:
             d["report"] = [r.as_dict() for r in self.report]
+        if self.calibration is not None:
+            d["calibration"] = {"topology": self.calibration.topology,
+                                "synthetic": self.calibration.synthetic}
         if self.receipt is not None:
             d["receipt"] = self.receipt.as_dict()
         return d

@@ -53,6 +53,7 @@ from ..distributed.sharding import PartitionSpec as P
 from ..distributed.sharding import annotate
 from ..nn import functional as F
 from ..nn.initializer import Normal
+from ..observability.anatomy import scope as _scope
 
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieSelfAttention",
            "ErnieLayer", "ErnieScannedEncoder", "ErnieModel",
@@ -182,6 +183,12 @@ class ErnieSelfAttention(nn.Layer):
                                 P(TENSOR_AXIS, None))
 
     def forward(self, x, attn_mask=None, kv_lens=None):
+        # anatomy scope: the qkv/proj matmuls and the attention math
+        # attribute to "attn", their backward too (anatomy.count_flops)
+        with _scope("attn"):
+            return self._forward(x, attn_mask, kv_lens)
+
+    def _forward(self, x, attn_mask=None, kv_lens=None):
         b, s, h = x.shape
         pg = tp_group(self.qkv.weight)
         if pg is None:
@@ -276,8 +283,10 @@ class ErnieLayer(nn.Layer):
 
     def forward(self, x, attn_mask=None, kv_lens=None):
         attn = self.attention(x, attn_mask, kv_lens=kv_lens)
-        x = self.attn_norm(x + self.dropout(attn))
-        return self.ffn_norm(x + self.dropout(self._ffn(x)))
+        with _scope("attn"):
+            x = self.attn_norm(x + self.dropout(attn))
+        with _scope("mlp"):
+            return self.ffn_norm(x + self.dropout(self._ffn(x)))
 
 
 class ErnieScannedEncoder(nn.ScannedStack):
@@ -312,6 +321,10 @@ class ErnieEmbeddings(nn.Layer):
         self.dropout = nn.Dropout(config.hidden_dropout_prob, device=dev)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        with _scope("embed"):
+            return self._forward(input_ids, token_type_ids, position_ids)
+
+    def _forward(self, input_ids, token_type_ids=None, position_ids=None):
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(
@@ -410,6 +423,10 @@ class ErnieForPretraining(nn.Layer):
                 attention_mask=None, seq_lens=None):
         seq, pooled = self.ernie(input_ids, token_type_ids, position_ids,
                                  attention_mask, seq_lens=seq_lens)
+        with _scope("mlm_head_ce"):
+            return self._head(seq, pooled)
+
+    def _head(self, seq, pooled):
         h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
         if self.config.chunked_ce:
             # the decoder matmul moves into chunked_pretraining_loss
@@ -434,12 +451,14 @@ class ErnieForPretraining(nn.Layer):
         """MLM cross-entropy over [b*s, vocab] (mean over the labels that
         are not ignore_index), plus NSP's when nsp_labels are given."""
         logits, nsp_logits = outputs
-        mlm = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                              mlm_labels.reshape(-1),
-                              ignore_index=ignore_index)
-        if nsp_labels is None:
-            return mlm
-        return mlm + F.cross_entropy(nsp_logits, nsp_labels.reshape(-1))
+        with _scope("mlm_head_ce"):
+            mlm = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  mlm_labels.reshape(-1),
+                                  ignore_index=ignore_index)
+            if nsp_labels is None:
+                return mlm
+            return mlm + F.cross_entropy(nsp_logits,
+                                         nsp_labels.reshape(-1))
 
     def chunked_pretraining_loss(self, outputs, mlm_labels,
                                  nsp_labels=None, ignore_index=-100):
@@ -454,16 +473,18 @@ class ErnieForPretraining(nn.Layer):
                 "chunked_ce streams the whole vocab through each rank; "
                 "with the word embeddings split over tp, use the dense "
                 "pretraining_loss")
-        w_t = self.ernie.embeddings.word_embeddings.weight.t()
-        mlm = F.linear_cross_entropy(
-            h.reshape(-1, h.shape[-1]), w_t, self.mlm_bias,
-            mlm_labels.reshape(-1),
-            vocab_block=min(self.config.ce_vocab_block,
-                            self.config.vocab_size),
-            ignore_index=ignore_index)
-        if nsp_labels is None:
-            return mlm
-        return mlm + F.cross_entropy(nsp_logits, nsp_labels.reshape(-1))
+        with _scope("mlm_head_ce"):
+            w_t = self.ernie.embeddings.word_embeddings.weight.t()
+            mlm = F.linear_cross_entropy(
+                h.reshape(-1, h.shape[-1]), w_t, self.mlm_bias,
+                mlm_labels.reshape(-1),
+                vocab_block=min(self.config.ce_vocab_block,
+                                self.config.vocab_size),
+                ignore_index=ignore_index)
+            if nsp_labels is None:
+                return mlm
+            return mlm + F.cross_entropy(nsp_logits,
+                                         nsp_labels.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -573,12 +594,14 @@ class ErnieStageLast(nn.Layer):
 
     def forward(self, x, attention_mask=None):
         x = _run_blocks(self.blocks, x, attention_mask)
-        pooled = F.tanh(self.pooler(x[:, 0]))
-        h = self.mlm_norm(F.gelu(self.mlm_transform(x)))
-        # the decoder matmul in 2D, as ErnieForPretraining.forward
-        b, s = h.shape[0], h.shape[1]
-        logits = self.decoder(h.reshape(-1, h.shape[-1])).reshape(b, s, -1)
-        return logits, self.nsp(pooled)
+        with _scope("mlm_head_ce"):
+            pooled = F.tanh(self.pooler(x[:, 0]))
+            h = self.mlm_norm(F.gelu(self.mlm_transform(x)))
+            # the decoder matmul in 2D, as ErnieForPretraining.forward
+            b, s = h.shape[0], h.shape[1]
+            logits = self.decoder(h.reshape(-1, h.shape[-1])).reshape(
+                b, s, -1)
+            return logits, self.nsp(pooled)
 
     def pipeline_local_loss(self):
         return _stage_moe_aux(self.blocks)

@@ -209,7 +209,8 @@ _IMPLS = ("kernel", "blockwise", "sdpa")
 def attention_dropout_impl(device="cuda") -> str:
     """Which implementation training-mode attention dropout dispatches
     to for tensors on `device`. Tensors on the card always run the CUDA
-    kernels ("kernel"): the card has no other route. For CPU tensors the
+    kernels ("kernel"): the card has no other route; meta tensors (a card
+    step traced from shapes alone) take the same route. For CPU tensors the
     default is "blockwise" (the plain blockwise flash dropout), and
     PD_ATTN_DROPOUT_IMPL may pick "sdpa" (materialized probabilities) or
     "kernel" (the autograd Function, whose CPU half is the plain
@@ -220,7 +221,8 @@ def attention_dropout_impl(device="cuda") -> str:
         raise ValueError(
             f"PD_ATTN_DROPOUT_IMPL={forced!r}: must be kernel, "
             "blockwise, or sdpa")
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type in ("cuda", "meta"):
+        # the meta device traces a card step (TrainStep.aot_lower)
         return "kernel"
     return forced or "blockwise"
 

@@ -15,10 +15,25 @@ paddle_tpu/observability/memory.py's live and forensics tiers).
    free and total bytes parsed from torch's message) and writes a
    post-mortem receipt with the live sample and a remediation hint.
 
-The static tier of the JAX module (per-scope attribution from a compiled
-executable's buffer assignment, ``anatomy``, ``sentry.scope_of_param``)
-reads XLA's HLO, which a CUDA graph does not have: it is ROADMAP.md
-queue A item 17 and is not here, so a receipt's ``top_scope`` is None.
+3. **Static tier**: ``train_step_memory`` traces a TrainStep from shapes
+   alone (``TrainStep.aot_lower``: a twin of the step on the meta
+   device) under a TorchDispatchMode that follows every storage an op
+   makes: its bytes, its scope (anatomy.op_scope: the scope open at a
+   forward op, the forward's scope for a backward op) and its death (a
+   weak reference on the storage). The step's temp peak is the largest
+   sum of live storages; each scope gets the bytes it holds live at that
+   peak, so the rows sum to the peak. The arguments (parameters,
+   buffers, optimizer and strategy state, inputs) are attributed by
+   parameter name (sentry.scope_of_param). ``peak_bytes`` = argument
+   bytes + the temp peak. The result is registered under its program, so
+   an OOM receipt names the top scopes (``top_scope``) and the hint
+   reads them.
+
+What the JAX module reads from XLA and the port has no counterpart of:
+``memory_analysis_dict`` (a compiled executable's buffer assignment) and
+the HLO attribution (``attribute_hlo_memory``, ``attribute_arguments``,
+``attribute_compiled_memory``, ``compile_step``); the meta trace above
+takes their place, with the live storages where XLA's buffers were.
 
 Cost discipline: the module imports no torch (it reads an
 already-imported one from sys.modules); ``sample()`` is one gate read
@@ -41,6 +56,8 @@ __all__ = [
     "device_memory_stats", "host_rss_bytes", "sample",
     "is_oom", "parse_oom", "remediation_hint", "oom_postmortem",
     "handle_dispatch_oom", "default_oom_path",
+    "train_step_memory", "program_memory", "register_attribution",
+    "attribution_of", "publish", "format_table",
 ]
 
 GIB = float(2 ** 30)
@@ -223,10 +240,12 @@ def default_oom_path(program: str) -> str:
         d, f"oom_{safe}_rank{_fr._rank()}_pid{os.getpid()}.json")
 
 
-def oom_postmortem(program: str, exc: BaseException, **context) -> dict:
+def oom_postmortem(program: str, exc: BaseException, top_k: int = 5,
+                   **context) -> dict:
     """The post-mortem receipt: program, requested vs free, the live
-    memory sample and the remediation hint. ``top_scope`` is None: the
-    per-scope attribution is the static tier (item 17)."""
+    memory sample, the top-k scopes of the program's last registered
+    static attribution (``top_scope``: the largest that is not
+    ``unattributed``; None without one) and the remediation hint."""
     msg = f"{type(exc).__name__}: {exc}"
     doc: Dict[str, Any] = {
         "version": 1,
@@ -239,8 +258,18 @@ def oom_postmortem(program: str, exc: BaseException, **context) -> dict:
     doc.update({k: v for k, v in context.items() if v is not None})
     doc["devices"] = device_memory_stats()
     doc["host_rss_bytes"] = host_rss_bytes()
-    doc["top_scope"] = None
-    doc["hint"] = remediation_hint(program, None)
+    top_scope = None
+    att = attribution_of(program)
+    if att is not None:
+        rows = list(att.get("scopes", {}).items())[:top_k]
+        doc["top_scopes"] = [
+            {"scope": n, "bytes": r["bytes"],
+             "share": round(r["share"], 4)} for n, r in rows]
+        non_stray = [n for n, _ in rows if n != "unattributed"]
+        top_scope = non_stray[0] if non_stray else None
+        doc["peak_bytes_static"] = att.get("peak_bytes")
+    doc["top_scope"] = top_scope
+    doc["hint"] = remediation_hint(program, top_scope)
     return doc
 
 
@@ -284,3 +313,209 @@ def handle_dispatch_oom(program: str, exc: BaseException,
     except Exception:  # pragma: no cover — disk full IS the incident
         pass
     return doc
+
+
+# ---------------------------------------------------------------------------
+# static tier: the step traced from shapes alone
+# ---------------------------------------------------------------------------
+
+def _storage_key(t):
+    st = t.untyped_storage()
+    return st._cdata, st
+
+
+class _LiveBytes:
+    """The storages a traced run makes, live and at the peak, by scope."""
+
+    def __init__(self, held):
+        self.held = set(held)          # argument storages: not temps
+        self.live: Dict[int, tuple] = {}
+        self.by_scope: Dict[str, float] = {}
+        self.count: Dict[str, int] = {}
+        self.total = 0.0
+        self.peak = 0.0
+        self.at_peak: Dict[str, float] = {}
+        self.count_at_peak: Dict[str, int] = {}
+        self._refs = []
+
+    def made(self, t, scope_name):
+        import weakref
+        key, st = _storage_key(t)
+        if key in self.held or key in self.live:
+            return
+        nbytes = float(st.nbytes())
+        self.live[key] = (nbytes, scope_name)
+        self.total += nbytes
+        self.by_scope[scope_name] = self.by_scope.get(scope_name, 0.0) \
+            + nbytes
+        self.count[scope_name] = self.count.get(scope_name, 0) + 1
+        self._refs.append(weakref.ref(st, lambda _r, k=key: self.died(k)))
+        if self.total > self.peak:
+            self.peak = self.total
+            self.at_peak = dict(self.by_scope)
+            self.count_at_peak = dict(self.count)
+
+    def died(self, key):
+        got = self.live.pop(key, None)
+        if got is None:
+            return
+        nbytes, scope_name = got
+        self.total -= nbytes
+        self.by_scope[scope_name] -= nbytes
+        self.count[scope_name] -= 1
+
+
+def _traced_peak(lowered):
+    """(arguments table, _LiveBytes) of one run of a lowered step under
+    the storage-following dispatch mode, the scopes read as
+    anatomy.count_flops reads them."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from . import anatomy
+    from .sentry import scope_of_param
+
+    args = lowered.arguments()
+    per: Dict[str, float] = {}
+    held = set()
+    total = 0.0
+    for name, t in args.items():
+        key, st = _storage_key(t)
+        if key in held:
+            continue
+        held.add(key)
+        # an optimizer state's name is "<param>/<key>"; a strategy
+        # entry's "strategy/<key>": both by their parameter's scope
+        sc = scope_of_param(name)
+        per[sc] = per.get(sc, 0.0) + float(st.nbytes())
+        total += float(st.nbytes())
+    arguments = {
+        "scopes": {k: {"bytes": v, "share": (v / total) if total else 0.0,
+                       "donated_bytes": 0.0}
+                   for k, v in sorted(per.items(), key=lambda kv: -kv[1])},
+        "total_bytes": total,
+    }
+    live = _LiveBytes(held)
+
+    class _Follow(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            sc = anatomy.op_scope()
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    live.made(t, sc)
+            return out
+
+    from ..ops import flash_attention as _fa
+    # a silent listener: flash attention's plain versions (the CPU) then
+    # run unseen, as a kernel's work is, and only its outputs count
+    quiet = (lambda flops, scope=None: None)
+    _fa.flop_sinks.append(quiet)
+    try:
+        with anatomy.tag_scopes(), _Follow():
+            lowered.run()
+    finally:
+        _fa.flop_sinks.remove(quiet)
+    return arguments, live
+
+
+def train_step_memory(step, inputs, labels=(), *,
+                      publish_gauges: bool = False,
+                      program: str = "train_step", lowered=None) -> dict:
+    """Per-scope memory table of a TrainStep's step, from shapes alone
+    (step.aot_lower, unless ``lowered`` is given): the bytes each scope
+    holds live at the step's temp peak (shares sum to 1.0, an
+    ``unattributed`` row for ops outside any scope), the arguments by
+    parameter scope, and ``peak_bytes`` = arguments + temp peak. The
+    result is registered under ``program`` for the OOM receipt."""
+    if lowered is None:
+        lowered = step.aot_lower(inputs, labels)
+    return program_memory(program, lowered, publish_gauges=publish_gauges)
+
+
+def program_memory(program: str, lowered, *,
+                   publish_gauges: bool = False) -> dict:
+    """Generic program entry: a lowered program (run() and arguments(),
+    as TrainStep.aot_lower gives) traced, attributed and registered
+    under ``program``."""
+    arguments, live = _traced_peak(lowered)
+    peak = live.peak
+    rows = {name: {"bytes": b, "share": (b / peak) if peak else 0.0,
+                   "ops": int(live.count_at_peak.get(name, 0))}
+            for name, b in live.at_peak.items() if b > 0}
+    arg_bytes = arguments["total_bytes"]
+    out = {
+        "scopes": dict(sorted(rows.items(), key=lambda kv: -kv[1]["bytes"])),
+        "total_bytes": peak,
+        "unattributed_share": rows.get("unattributed", {}).get("share",
+                                                              0.0),
+        "memory": {"argument_bytes": arg_bytes, "output_bytes": 0.0,
+                   "temp_bytes": peak, "peak_bytes": arg_bytes + peak,
+                   "peak_is_exact": False},
+        "peak_bytes": arg_bytes + peak,
+        "arguments": arguments,
+    }
+    register_attribution(program, out)
+    if publish_gauges:
+        publish(out, program=program)
+    return out
+
+
+# the last static attribution per program: the OOM receipt's evidence
+_ATTRIBUTIONS: Dict[str, dict] = {}
+
+
+def register_attribution(program: str, result: dict) -> dict:
+    _ATTRIBUTIONS[str(program)] = result
+    return result
+
+
+def attribution_of(program: str) -> Optional[dict]:
+    return _ATTRIBUTIONS.get(str(program))
+
+
+def publish(result: dict, program: str = "train_step",
+            prefix: str = "memory"):
+    """Route a memory table through the metrics runtime, always-on:
+    ``memory.temp_share{scope=,program=}`` gauges plus the per-program
+    totals."""
+    for name, row in result.get("scopes", {}).items():
+        metrics.gauge(f"{prefix}.temp_share", _always=True,
+                      program=program,
+                      scope=name).set(round(row["share"], 6))
+    ma = result.get("memory") or {}
+    for key in ("argument_bytes", "output_bytes", "temp_bytes",
+                "peak_bytes"):
+        if key in ma:
+            metrics.gauge(f"{prefix}.{key}", _always=True,
+                          program=program).set(ma[key])
+    return result
+
+
+def format_table(result: dict, title: str = "memory anatomy") -> str:
+    """Human-readable memory share table."""
+    ma = result.get("memory") or {}
+    lines = [
+        f"{title}: peak {ma.get('peak_bytes', 0) / GIB:.4f} GiB "
+        f"(arg {ma.get('argument_bytes', 0) / GIB:.4f}, "
+        f"temp {ma.get('temp_bytes', 0) / GIB:.4f}, "
+        f"out {ma.get('output_bytes', 0) / GIB:.4f}"
+        + ("" if ma.get("peak_is_exact") else "; peak reconstructed")
+        + ")"]
+    lines.append(f"  {'scope':<14} {'share':>7} {'mbytes':>10} "
+                 f"{'ops':>5}")
+    for name, row in result.get("scopes", {}).items():
+        lines.append(
+            f"  {name:<14} {row['share']:>6.1%} "
+            f"{row['bytes'] / 1e6:>10.2f} {row['ops']:>5}")
+    args = result.get("arguments")
+    if args:
+        lines.append(f"  arguments ({args['total_bytes'] / 1e6:.2f} MB "
+                     "by param scope):")
+        for name, row in args["scopes"].items():
+            lines.append(
+                f"    {name:<12} {row['share']:>6.1%} "
+                f"{row['bytes'] / 1e6:>10.2f} MB "
+                f"(donated {row['donated_bytes'] / 1e6:.2f})")
+    return "\n".join(lines)

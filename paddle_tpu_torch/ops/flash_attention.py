@@ -12,6 +12,10 @@ nvcc at first use (ops/_build.py) and called through ctypes:
 - at head_dim 256, where those designs do not fit, all three run as the
   FFMA kernels of csrc/flash_attn_d256.cu in both dtypes (bf16 read and
   written as bf16, computed in f32), under the same launch counts;
+- above 256, at a multiple of 256, as the FFMA kernels of
+  csrc/flash_attn_wide.cu (the output's head_dim split over the grid in
+  256-wide chunks, the products over the whole head_dim summed chunk by
+  chunk, so shared memory does not grow with it);
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -28,43 +32,63 @@ the JAX package.
   the backward reads the same tensor as the forward (kept in ctx).
   For CUDA tensors the forward and the backward launch the kernels or
   raise; for CPU tensors they run the plain versions. There is no
-  fallback from one to the other. The kernels take head_dim 64, 128
-  and 256; on the card a smaller head_dim runs zero-padded up to the
-  next of them (kernel_head_dim), as the Pallas wrapper pads to a
-  multiple of 128. Above 256 the card refuses (no kernel).
+  fallback from one to the other. The kernels take head_dim 64, 128,
+  256 and the multiples of 256 above it; on the card any other head_dim
+  runs zero-padded up to the next of them (kernel_head_dim), as the
+  Pallas wrapper pads to a multiple of 128.
 - flash_attention_fwd_plain / flash_attention_bwd_plain: the same math
   in plain PyTorch (blockwise, f32 accumulators, the Philox mask of
   ops/philox.py). The CPU tier and chip_smoke.py use them; the main path
   on a card never does.
 - launches counts kernel launches per kernel, so a run can show that its
   main path went through the kernels.
+- attention_flops and flop_sinks: the FLOPs the kernels are credited
+  with (FlopCounterMode cannot see into the autograd Function), handed
+  to every sink in flop_sinks at each forward and backward
+  (observability.mfu.step_flops and anatomy.count_flops install one,
+  memory's static trace a silent one); while a sink listens, the plain
+  versions run outside the dispatch modes, so the listeners see the
+  Function's outputs (copied out where they see them) and nothing of
+  the plain versions' own work, as a kernel's.
+- On the meta device (a step traced from shapes alone, TrainStep's
+  aot_lower) the Function returns tensors of the right shapes and
+  computes nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
 import torch
 
 from ..core.generator import seed_tensor
+from ..observability.anatomy import current_scope
 from . import _build
 from . import philox as _philox
 
 __all__ = ["flash_attention_mha", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "launches", "SUPPORTED_HEAD_DIMS", "kernel_head_dim"]
+           "launches", "SUPPORTED_HEAD_DIMS", "kernel_head_dim",
+           "attention_flops", "flop_sinks"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 # the head_dim of csrc/flash_attn_d256.cu's kernels (its entries carry the
-# suffix _d256 and take the arguments of the others)
+# suffix _d256 and take the arguments of the others); above it,
+# csrc/flash_attn_wide.cu's (suffix _wide) take every multiple of it
 _D256 = 256
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
-# (the kernels'; the CPU's plain version takes any head_dim)
-_PADDED_ON = ("cuda",)
+# (the kernels', and the meta device, which traces a card step; the
+# CPU's plain version takes any head_dim)
+_PADDED_ON = ("cuda", "meta")
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
             "flash_attn_bwd_dkv": 0}
+
+#: callables sink(flops, scope=None) told the kernels' FLOPs at each
+#: forward (scope None: the caller's) and backward (the forward's scope)
+flop_sinks = []
 
 _VP, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_uint)
@@ -75,7 +99,8 @@ _ARGTYPES = {
     "pt_flash_attn_bwd_dq": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
     "pt_flash_attn_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
 }
-_ARGTYPES.update({f"{k}_d256": v for k, v in _ARGTYPES.items()})
+_ARGTYPES.update({f"{k}_{w}": v for k, v in list(_ARGTYPES.items())
+                  for w in ("d256", "wide")})
 
 
 def _check(q, k, v):
@@ -222,9 +247,10 @@ def _check_kernel(name, q, k):
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if h not in SUPPORTED_HEAD_DIMS:
+    if kernel_head_dim(h) != h:
         raise ValueError(f"{name} kernel takes head_dim in "
-                         f"{SUPPORTED_HEAD_DIMS}, got {h}")
+                         f"{SUPPORTED_HEAD_DIMS} or a multiple of {_D256} "
+                         f"above it, got {h}")
     if sq == 0 or k.shape[1] == 0 or b * n == 0:
         raise ValueError(f"{name}: empty input q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
@@ -240,9 +266,12 @@ def _entry(lib_name, fn_name):
 
 def _kernel_entry(lib_name, fn_name, h):
     """(source, entry) of the kernel at head_dim h: csrc/<lib_name>.cu's
-    fn_name, or its _d256 twin in csrc/flash_attn_d256.cu at 256."""
+    fn_name, its _d256 twin in csrc/flash_attn_d256.cu at 256, or its
+    _wide twin in csrc/flash_attn_wide.cu above 256."""
     if h == _D256:
         return "flash_attn_d256", f"{fn_name}_d256"
+    if h > _D256:
+        return "flash_attn_wide", f"{fn_name}_wide"
     return lib_name, fn_name
 
 
@@ -305,9 +334,12 @@ def _bwd_delta(o, do):
 def _delta_in_kernel(dtype, head_dim=None):
     """True when the dQ kernel computes delta for this dtype and
     head_dim: the dQ entry's delta buffer is then its output (bf16 at 64
-    and 128, dq_wgmma), else its input, filled by _bwd_delta (f32,
-    dq_simt; both dtypes at 256, dq_d256). csrc/flash_attn_bwd.cu's
-    launch_dq picks the kernel by the same dtype rule."""
+    and 128, dq_wgmma; both dtypes above 256, dq_wide), else its input,
+    filled by _bwd_delta (f32, dq_simt; both dtypes at 256, dq_d256).
+    csrc/flash_attn_bwd.cu's launch_dq picks the kernel by the same
+    dtype rule."""
+    if head_dim is not None and head_dim > _D256:
+        return True
     return dtype == torch.bfloat16 and head_dim != _D256
 
 
@@ -374,29 +406,70 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, dropout_p=0.0,
 # ------------------------------------------------------------ autograd
 
 def _device_of(t):
-    if t.device.type not in ("cuda", "cpu"):
+    if t.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {t.device}")
     return t.device.type
+
+
+def attention_flops(b, sq, sk, n, h, causal, backward=False):
+    """The FLOPs a flash-attention call is credited with: 4 b n sq sk h
+    for the forward (Q K^T and P V), 2.5 times that for the backward,
+    halved when causal."""
+    f = 4.0 * b * n * sq * sk * h * (2.5 if backward else 1.0)
+    return f / 2 if causal else f
+
+
+def _report_flops(q, k, causal, backward=False, scope=None):
+    b, sq, n, h = q.shape
+    f = attention_flops(b, sq, k.shape[1], n, h, causal, backward)
+    for sink in list(flop_sinks):
+        sink(f, scope)
+
+
+def _unobserved():
+    """The dispatch modes set aside while a FLOP sink listens (the plain
+    versions' matmuls are the kernels' work, already credited)."""
+    if not flop_sinks:
+        return contextlib.nullcontext()
+    from torch.utils._python_dispatch import _disable_current_modes
+    return _disable_current_modes()
 
 
 class _FlashAttention(torch.autograd.Function):
     """The `_flash_mha` custom VJP: the forward saves (q, k, v, O, lse)
     and the seed tensor (None at p 0); the backward regenerates the
     dropout mask from that same tensor. CUDA tensors launch the kernels,
-    CPU tensors run the plain versions."""
+    CPU tensors run the plain versions, meta tensors give shapes."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
-        if _device_of(q) == "cuda":
+        dev = _device_of(q)
+        if dev == "cuda":
             o, lse = _flash_fwd_cuda(q, k, v, causal, scale, dropout_p, seed)
+        elif dev == "meta":
+            b, sq, n, _ = q.shape
+            o = torch.empty_like(q)
+            lse = torch.empty((b, n, sq), dtype=torch.float32, device="meta")
         else:
-            o, lse = flash_attention_fwd_plain(q, k, v, causal, scale,
-                                               dropout_p=dropout_p,
-                                               seed=seed)
+            with _unobserved():
+                o, lse = flash_attention_fwd_plain(q, k, v, causal, scale,
+                                                   dropout_p=dropout_p,
+                                                   seed=seed)
+            if flop_sinks:
+                # the outputs made where the listeners see them, as the
+                # kernels' wrappers make theirs
+                o, lse = o.clone(), lse.clone()
         ctx.save_for_backward(q, k, v, o, lse, seed)
         ctx.args = (causal, scale, dropout_p)
         ctx.mark_non_differentiable(lse)
+        # the backward's kernels run under the forward's scope (a
+        # record_function range a profiler sees)
+        ctx.scope = current_scope()
+        if flop_sinks:
+            from ..observability.anatomy import op_scope
+            ctx.flop_scope = op_scope()
+            _report_flops(q, k, causal)
         return o, lse
 
     @staticmethod
@@ -404,30 +477,42 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, seed = ctx.saved_tensors
         causal, scale, dropout_p = ctx.args
         if q.device.type == "cuda":
-            dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
-                                         dropout_p, seed)
+            with (torch.profiler.record_function(ctx.scope) if ctx.scope
+                  else contextlib.nullcontext()):
+                dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal,
+                                             scale, dropout_p, seed)
+        elif q.device.type == "meta":
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         else:
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                   causal, scale,
-                                                   dropout_p, seed)
+            with _unobserved():
+                dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       causal, scale,
+                                                       dropout_p, seed)
+            if flop_sinks:
+                dq, dk, dv = dq.clone(), dk.clone(), dv.clone()
+        if flop_sinks:
+            _report_flops(q, k, causal, backward=True,
+                          scope=getattr(ctx, "flop_scope", None))
         return dq, dk, dv, None, None, None, None
 
 
 def kernel_head_dim(h):
     """The head_dim the kernels run h at: the smallest of
-    SUPPORTED_HEAD_DIMS that holds h, or h itself above them (the
-    kernels then refuse it)."""
-    return next((d for d in SUPPORTED_HEAD_DIMS if d >= h), h)
+    SUPPORTED_HEAD_DIMS that holds h, or above 256 the next multiple of
+    256 (a multiple of 128, as the Pallas wrapper pads, and further:
+    zero columns are exact; csrc/flash_attn_wide.cu's chunk width)."""
+    if h > _D256:
+        return -(-h // _D256) * _D256
+    return next(d for d in SUPPORTED_HEAD_DIMS if d >= h)
 
 
 def flash_attention_fwd(query, key, value, causal=False, scale=None,
                         dropout_p=0.0, seed=None):
     """Flash attention over [b, s, n, h]: returns (O, lse) with O in the
     input dtype and lse f32 [b, n, sq], differentiable in q, k, v.
-    scale defaults to 1/sqrt(h). On the card a head_dim up to 256 that
-    the kernels lack runs zero-padded to kernel_head_dim(h), the output
-    sliced back (above 256 the kernels refuse it); the CPU's plain
-    version takes any h. Causal masking is top-left aligned
+    scale defaults to 1/sqrt(h). On the card a head_dim that the
+    kernels lack runs zero-padded to kernel_head_dim(h), the output
+    sliced back; the CPU's plain version takes any h. Causal masking is top-left aligned
     (row >= col), as in the Pallas kernel. dropout_p drops attention
     links with the Philox mask of `seed` (0 when None, as the Pallas
     wrapper defaults it): an int, a 0-d int64 tensor, or a Draw of a

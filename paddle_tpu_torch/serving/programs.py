@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..models.generation import _NEG, _attend, _ln, _mm, _pick, _prefill
+from ..observability.anatomy import scope as _scope
 from ..static.capture import capture, warm_up
 
 __all__ = ["make_decode_fn", "make_prefill_fn", "make_chunk_fn",
@@ -101,30 +102,37 @@ def make_decode_fn(eps: float, n_heads: int, block_size: int,
         hd = params["wte"].shape[1] // n_heads
         scale = 1.0 / math.sqrt(hd)
         wpe = params["wpe"]
-        x = (params["wte"][toks]
-             + wpe[positions.clamp(max=wpe.shape[0] - 1)])[:, None, :]
+        # the JAX program's anatomy scopes: embed, attn and mlp per
+        # layer, lm_head
+        with _scope("embed"):
+            x = (params["wte"][toks]
+                 + wpe[positions.clamp(max=wpe.shape[0] - 1)])[:, None, :]
         bi = torch.arange(b, device=toks.device)
         col = (positions // block_size).clamp(max=tables.shape[1] - 1)
         blk = tables[bi, col]                            # [B]
         off = positions % block_size                     # [B]
         for bp, (kp, vp) in zip(params["blocks"], pools):
-            xn = _ln(x, bp["ln1_w"], bp["ln1_b"], eps)
-            qkv = (_mm(xn, bp, "qkv") + bp["qkv_b"]).reshape(
-                b, 1, 3, n_heads, hd)
-            q = qkv[:, :, 0].permute(0, 2, 1, 3)         # [B,nh,1,hd]
-            kp[blk, off] = qkv[:, 0, 1]
-            vp[blk, off] = qkv[:, 0, 2]
-            kc = _gathered(kp, tables, n_heads, hd)
-            vc = _gathered(vp, tables, n_heads, hd)
-            ctx = _attend(q, kc, vc, positions + 1, scale)
-            ctx = ctx.permute(0, 2, 1, 3).reshape(b, 1, -1)
-            x = x + _mm(ctx, bp, "proj") + bp["proj_b"]
-            ff = _ln(x, bp["ln2_w"], bp["ln2_b"], eps)
-            ff = torch.nn.functional.gelu(_mm(ff, bp, "fc1") + bp["fc1_b"])
-            x = x + _mm(ff, bp, "fc2") + bp["fc2_b"]
-        h = _ln(x, params["lnf_w"], params["lnf_b"], eps)
-        logits = h[:, 0] @ params["wte"].T
-        return _pick(logits, noise, temperature, top_k, top_p)
+            with _scope("attn"):
+                xn = _ln(x, bp["ln1_w"], bp["ln1_b"], eps)
+                qkv = (_mm(xn, bp, "qkv") + bp["qkv_b"]).reshape(
+                    b, 1, 3, n_heads, hd)
+                q = qkv[:, :, 0].permute(0, 2, 1, 3)     # [B,nh,1,hd]
+                kp[blk, off] = qkv[:, 0, 1]
+                vp[blk, off] = qkv[:, 0, 2]
+                kc = _gathered(kp, tables, n_heads, hd)
+                vc = _gathered(vp, tables, n_heads, hd)
+                ctx = _attend(q, kc, vc, positions + 1, scale)
+                ctx = ctx.permute(0, 2, 1, 3).reshape(b, 1, -1)
+                x = x + _mm(ctx, bp, "proj") + bp["proj_b"]
+            with _scope("mlp"):
+                ff = _ln(x, bp["ln2_w"], bp["ln2_b"], eps)
+                ff = torch.nn.functional.gelu(_mm(ff, bp, "fc1")
+                                              + bp["fc1_b"])
+                x = x + _mm(ff, bp, "fc2") + bp["fc2_b"]
+        with _scope("lm_head"):
+            h = _ln(x, params["lnf_w"], params["lnf_b"], eps)
+            logits = h[:, 0] @ params["wte"].T
+            return _pick(logits, noise, temperature, top_k, top_p)
 
     def run(pools, tables, toks, positions, params, noise=None):
         out = []
@@ -160,19 +168,23 @@ def make_prefill_fn(eps: float, n_heads: int, block_size: int,
                 f"prefill bucket {s} is not a multiple of "
                 f"block_size {block_size}")
         nblk = s // block_size
-        x, caches = _prefill(params, eps, n_heads, ids, s,
-                             prompt_lens=prompt_lens)
-        pages = tables[:, :nblk]
-        for (kp, vp), (kc, vc) in zip(pools, caches):
-            # [A, nh, S, hd] -> page chunks [A, nblk, bs, nh, hd]
-            shape = (a, nblk, block_size, kc.shape[1], kc.shape[3])
-            kp[pages] = kc.permute(0, 2, 1, 3).reshape(shape)
-            vp[pages] = vc.permute(0, 2, 1, 3).reshape(shape)
-        bi = torch.arange(a, device=ids.device)
-        last = x[bi, prompt_lens - 1][:, None]
-        h = _ln(last, params["lnf_w"], params["lnf_b"], eps)
-        logits = h[:, 0] @ params["wte"].T
-        return _pick(logits, noise, temperature, top_k, top_p)
+        # the JAX program's anatomy scopes: the forward and the page
+        # writes under attn, the head under lm_head
+        with _scope("attn"):
+            x, caches = _prefill(params, eps, n_heads, ids, s,
+                                 prompt_lens=prompt_lens)
+            pages = tables[:, :nblk]
+            for (kp, vp), (kc, vc) in zip(pools, caches):
+                # [A, nh, S, hd] -> page chunks [A, nblk, bs, nh, hd]
+                shape = (a, nblk, block_size, kc.shape[1], kc.shape[3])
+                kp[pages] = kc.permute(0, 2, 1, 3).reshape(shape)
+                vp[pages] = vc.permute(0, 2, 1, 3).reshape(shape)
+        with _scope("lm_head"):
+            bi = torch.arange(a, device=ids.device)
+            last = x[bi, prompt_lens - 1][:, None]
+            h = _ln(last, params["lnf_w"], params["lnf_b"], eps)
+            logits = h[:, 0] @ params["wte"].T
+            return _pick(logits, noise, temperature, top_k, top_p)
 
     return run
 
@@ -214,37 +226,43 @@ def make_chunk_fn(eps: float, n_heads: int, block_size: int,
         positions = starts[:, None] + offs[None, :]          # [B, S]
         valid = offs[None, :] < lens[:, None]                # [B, S]
         wpe = params["wpe"]
-        x = (params["wte"][toks]
-             + wpe[positions.clamp(max=wpe.shape[0] - 1)])  # [B, S, H]
+        with _scope("embed"):
+            x = (params["wte"][toks]
+                 + wpe[positions.clamp(max=wpe.shape[0] - 1)])  # [B,S,H]
         bi = torch.arange(b, device=dev)
         col = (positions // block_size).clamp(max=tables.shape[1] - 1)
         blk = torch.where(valid, tables[bi[:, None], col], 0)  # [B, S]
         off = positions % block_size
         for bp, (kp, vp) in zip(params["blocks"], pools):
-            xn = _ln(x, bp["ln1_w"], bp["ln1_b"], eps)
-            qkv = (_mm(xn, bp, "qkv") + bp["qkv_b"]).reshape(
-                b, s, 3, n_heads, hd)
-            q = qkv[:, :, 0].permute(0, 2, 1, 3)         # [B,nh,S,hd]
-            kp[blk, off] = qkv[:, :, 1]
-            vp[blk, off] = qkv[:, :, 2]
-            kc = _gathered(kp, tables, n_heads, hd)
-            vc = _gathered(vp, tables, n_heads, hd)
-            att = torch.einsum("bnqh,bnkh->bnqk", q, kc) * scale
-            kpos = torch.arange(kc.shape[2], device=dev)
-            mask = kpos[None, None, None, :] <= positions[:, None, :, None]
-            att = torch.where(mask, att, _NEG)
-            p = torch.softmax(att.float(), dim=-1).to(x.dtype)
-            ctx = torch.einsum("bnqk,bnkh->bnqh", p, vc)
-            ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, -1)
-            x = x + _mm(ctx, bp, "proj") + bp["proj_b"]
-            ff = _ln(x, bp["ln2_w"], bp["ln2_b"], eps)
-            ff = torch.nn.functional.gelu(_mm(ff, bp, "fc1") + bp["fc1_b"])
-            x = x + _mm(ff, bp, "fc2") + bp["fc2_b"]
-        h = _ln(x, params["lnf_w"], params["lnf_b"], eps)
-        logits = h @ params["wte"].T                         # [B, S, V]
-        all_tok = torch.argmax(logits.float(), dim=-1)
-        last = logits[bi, lens - 1]                          # [B, V]
-        return all_tok, _pick(last, noise, temperature, top_k, top_p)
+            with _scope("attn"):
+                xn = _ln(x, bp["ln1_w"], bp["ln1_b"], eps)
+                qkv = (_mm(xn, bp, "qkv") + bp["qkv_b"]).reshape(
+                    b, s, 3, n_heads, hd)
+                q = qkv[:, :, 0].permute(0, 2, 1, 3)     # [B,nh,S,hd]
+                kp[blk, off] = qkv[:, :, 1]
+                vp[blk, off] = qkv[:, :, 2]
+                kc = _gathered(kp, tables, n_heads, hd)
+                vc = _gathered(vp, tables, n_heads, hd)
+                att = torch.einsum("bnqh,bnkh->bnqk", q, kc) * scale
+                kpos = torch.arange(kc.shape[2], device=dev)
+                mask = (kpos[None, None, None, :]
+                        <= positions[:, None, :, None])
+                att = torch.where(mask, att, _NEG)
+                p = torch.softmax(att.float(), dim=-1).to(x.dtype)
+                ctx = torch.einsum("bnqk,bnkh->bnqh", p, vc)
+                ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, -1)
+                x = x + _mm(ctx, bp, "proj") + bp["proj_b"]
+            with _scope("mlp"):
+                ff = _ln(x, bp["ln2_w"], bp["ln2_b"], eps)
+                ff = torch.nn.functional.gelu(_mm(ff, bp, "fc1")
+                                              + bp["fc1_b"])
+                x = x + _mm(ff, bp, "fc2") + bp["fc2_b"]
+        with _scope("lm_head"):
+            h = _ln(x, params["lnf_w"], params["lnf_b"], eps)
+            logits = h @ params["wte"].T                     # [B, S, V]
+            all_tok = torch.argmax(logits.float(), dim=-1)
+            last = logits[bi, lens - 1]                      # [B, V]
+            return all_tok, _pick(last, noise, temperature, top_k, top_p)
 
     return run
 

@@ -18,17 +18,38 @@ Python's cyclic collector is held off during a capture: a collection
 there can run an earlier graph's destructor, whose cudaGraphExecDestroy
 is not permitted while a stream captures and invalidates the capture
 (torch.cuda.graph no longer collects before it begins).
+What a capture's ops must keep alive for as long as its graph (a
+while_loop's body stream and memory pool, ops/control_flow.py) is handed
+to `hold` and released when the graph is collected.
 """
 from __future__ import annotations
 
 import gc
+import threading
 import time
+import weakref
 
 import torch
 
 from ..observability.sentinel import count_capture
 
-__all__ = ["StaticInputs", "warm_up", "capture", "clone_outputs"]
+__all__ = ["StaticInputs", "warm_up", "capture", "clone_outputs", "hold"]
+
+_held = threading.local()
+# what was held outside a `capture` (a torch.cuda.graph of the caller's
+# own): kept for the life of the process
+_held_forever = []
+
+
+def hold(obj):
+    """Keep obj alive for as long as the graph being captured, and call
+    its release() when that graph is collected."""
+    getattr(_held, "items", _held_forever).append(obj)
+
+
+def _release(items):
+    for obj in items:
+        obj.release()
 
 
 def _leaves(tree):
@@ -130,13 +151,23 @@ def capture(fn, device, generators=(), program="train", pool=None):
     t0 = time.perf_counter()
     collecting = gc.isenabled()
     gc.disable()
+    outer = getattr(_held, "items", None)
+    _held.items = items = []
     try:
         with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
             out = fn()
     except RuntimeError as e:
+        _release(items)
         raise RuntimeError(f"CUDA graph capture failed: {e}") from e
     finally:
+        if outer is None:
+            del _held.items
+        else:
+            _held.items = outer
         if collecting:
             gc.enable()
+    if items:
+        graph._held = items
+        weakref.finalize(graph, _release, items)
     count_capture(program, time.perf_counter() - t0)
     return graph, out

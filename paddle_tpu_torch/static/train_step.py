@@ -116,9 +116,38 @@ layout whatever the mesh); set_state_dict takes full tensors and keeps this
 rank's blocks. A scaler's overflow flag is the MAX over every axis of
 the mesh. The pp axis (the SPMD pipeline, ROADMAP.md item 14d; the
 host-driven pipeline is distributed/pipeline_engine.py's
-PipelineParallel) and sentry (item 17) raise NotImplementedError, as does an optimizer with a
-grad_clip (the JAX package's compiled step does not clip); aot_lower is
-not ported.
+PipelineParallel) raises NotImplementedError, as does an optimizer with a
+grad_clip (the JAX package's compiled step does not clip).
+
+sentry (an observability.sentry.NumericSentry): its state (the sentry's
+step counter and fingerprint) rides strategy_state; inside the step,
+after the loss-scale unscale and before the gradient sync and
+grad_transform, the per-scope statistics of the pre-sync gradients are
+taken, and after the update NumericSentry.instrument adds the new
+parameters' statistics and the every-K fingerprint, all on the card and
+captured with the step. After each call, eager or replayed, consume
+reads them in one copy to the host and feeds the monitor. The sentry only
+reads: the parameters after N steps are bit-equal to a sentry-less
+step's. set_state_dict re-seeds the sentry's entries a restored state
+lacks, as the JAX step does.
+
+grad_hook (an attribute, None by default): a host callable that takes
+the unscaled gradients by name and returns them, run between the
+backward and the sentry's statistics (the host callback of the JAX
+drill worker, where numeric chaos strikes). A step called while one is
+set runs the eager body, since a captured replay runs no host code; the
+eager body is the one a replay is held against, so the trajectory is
+the same.
+
+Anatomy: the unscale and the scale update run under the
+``loss_scale`` scope, the update under ``optimizer``
+(observability.anatomy), the JAX step's scopes.
+
+aot_lower(inputs, labels): the step traced from shapes alone, the JAX
+step's lower from avals: a twin of this step (the layer, optimizer,
+scaler and sentry, without a mesh or grad_transform) on the meta device,
+whose run() goes through the body once allocating nothing;
+observability.memory.train_step_memory reads it.
 """
 from __future__ import annotations
 
@@ -142,7 +171,9 @@ from ..nn.functional.norm import batch_stat_scope
 from ..observability import flight_recorder as _fr
 from ..observability import memory as _mem
 from ..observability import metrics as _obs
+from ..observability.anatomy import scope as _scope
 from ..observability.sentinel import RecompileSentinel, signature_of
+from ..observability.sentry import stats_by_scope
 from ..ops import flash_attention as _fa
 from ..optimizer.optimizer import Optimizer
 from ..serialization import from_numpy
@@ -157,11 +188,6 @@ def _microslice(a, idx, accum):
         return a
     micro = a.shape[0] // accum
     return a[idx * micro:(idx + 1) * micro]
-
-
-def _later(flag, where):
-    return NotImplementedError(
-        f"TrainStep({flag}=...) is not ported yet: it comes with {where}")
 
 
 #: the mesh axes a TrainStep runs over; pp (the SPMD pipeline) comes with
@@ -257,7 +283,8 @@ def _delta(before):
 class _Program:
     """One captured step: graph, static inputs, seed slots, the 0-d f32
     lr buffer and the loss output."""
-    __slots__ = ("graph", "inputs", "slots", "lr", "loss", "found_inf")
+    __slots__ = ("graph", "inputs", "slots", "lr", "loss", "found_inf",
+                 "sentry_out")
 
 
 class TrainStep:
@@ -286,9 +313,6 @@ class TrainStep:
                  strategy_state: Optional[Dict[str, Any]] = None,
                  remat: bool = False, remat_policy=None, scaler=None,
                  sentry=None):
-        if sentry is not None:
-            raise _later("sentry",
-                         "ROADMAP.md item 17 (observability/sentry.py)")
         plan = _plan_of(sharding_plan)
         if plan is not None:
             if mesh is not None and mesh is not plan.mesh:
@@ -382,6 +406,13 @@ class TrainStep:
                 "dynamic": bool(scaler._dynamic),
             }
             self._init_scaler_state()
+        # numeric-integrity sentry (observability.sentry.NumericSentry):
+        # its state rides strategy_state as card tensors
+        self.sentry = sentry
+        if sentry is not None:
+            sentry.init_state(self.strategy_state, self._device())
+        self._sentry_out = None
+        self.grad_hook = None
         self.recompile_sentinel = RecompileSentinel("train")
         self._programs: Dict[Any, Optional[_Program]] = {}
         self.captures = 0
@@ -618,23 +649,40 @@ class TrainStep:
             self._release_params()
         found_inf = None
         if scale is not None:
-            found_inf = check_finite_and_unscale_tree(grads, scale)
-            if self._all_groups:
-                # one rank's overflow skips the step on every rank (the
-                # averaged grads carry it everywhere)
-                flag = found_inf.to(torch.float32)
-                for pg in self._all_groups:
-                    dp_max_(flag, pg)
-                found_inf = flag > 0
+            with _scope("loss_scale"):
+                found_inf = check_finite_and_unscale_tree(grads, scale)
+                if self._all_groups:
+                    # one rank's overflow skips the step on every rank
+                    # (the averaged grads carry it everywhere)
+                    flag = found_inf.to(torch.float32)
+                    for pg in self._all_groups:
+                        dp_max_(flag, pg)
+                    found_inf = flag > 0
+        if self.grad_hook is not None:
+            named = self.grad_hook(dict(zip(self._param_names, grads)))
+            grads = [named[k] for k in self._param_names]
+        # the sentry's pre-sync tell: after the sync every replica holds
+        # the same (possibly already poisoned) gradients
+        gstats = None
+        if self.sentry is not None:
+            with torch.no_grad():
+                gstats = stats_by_scope(dict(zip(self._param_names, grads)))
         grads = self._sync_and_transform(grads)
         if self._data_groups:
             loss = loss.clone()
             for pg in self._data_groups:
                 dp_average_([loss], pg)
-        self._apply(grads, lr, found_inf)
+        with _scope("optimizer"):
+            self._apply(grads, lr, found_inf)
         if found_inf is not None:
-            self._update_scaler(found_inf)
+            with _scope("loss_scale"):
+                self._update_scaler(found_inf)
         self._found_inf = found_inf
+        if self.sentry is not None:
+            with torch.no_grad():
+                self._sentry_out, _ = self.sentry.instrument(
+                    None, dict(zip(self._param_names, self.params)), loss,
+                    self.strategy_state, grad_stats=gstats)
         return loss
 
     def _microbatches(self, inputs, labels, seed, scale):
@@ -782,6 +830,8 @@ class TrainStep:
                            scale=scale_v)
             if _obs._enabled:
                 _obs.gauge("amp.loss_scale.scale").set(scale_v)
+        if self.sentry is not None:
+            self.sentry.consume(self._steps_done, self._sentry_out)
         self._steps_done += 1
         if _obs._enabled:
             _obs.counter("train.steps_total").add(1)
@@ -792,6 +842,9 @@ class TrainStep:
     def _dispatch(self, key, inputs, labels, seed):
         if self._device().type != "cuda":
             self._programs.setdefault(key, None)
+            return self.eager_step(inputs, labels, seed)
+        if self.grad_hook is not None:
+            # host code between the backward and the update: eager
             return self.eager_step(inputs, labels, seed)
         step_seed = next_seed(self._device()) if seed is None else int(seed)
         prog = self._programs.get(key)
@@ -815,6 +868,7 @@ class TrainStep:
         self.last_launches = _delta(before)
         self.last_lr = None
         warm_grads = [p.grad for p in self.params]
+        warm_sentry = self._sentry_out
         prog.slots.freeze()
         steps = self.optimizer._step_count
         before = _launch_counts()
@@ -825,6 +879,7 @@ class TrainStep:
         # the graph's own flag; this call's step is the warm-up's
         prog.found_inf = self._found_inf
         self._found_inf = warm_found_inf
+        prog.sentry_out, self._sentry_out = self._sentry_out, warm_sentry
         self.capture_launches = _delta(before)
         self.optimizer._step_count = steps
         with torch.no_grad():
@@ -843,6 +898,7 @@ class TrainStep:
         prog.lr.fill_(self.optimizer.get_lr())
         prog.graph.replay()
         self._found_inf = prog.found_inf
+        self._sentry_out = prog.sentry_out
         self.optimizer._step_count += 1
         self.replays += 1
         self.last_launches = None
@@ -859,6 +915,40 @@ class TrainStep:
         self._programs.clear()
         for p in self.params:
             p.grad = None
+
+    # -- the step from shapes alone ------------------------------------------
+    def aot_lower(self, inputs, labels=()):
+        """The step traced from shapes alone (the JAX step's lower from
+        avals): a _LoweredStep holding a twin of this step on the meta
+        device (the layer deep-copied with every parameter and buffer
+        replaced by a meta tensor of its shape and dtype, the optimizer
+        and its hyperparameters with empty state, the scaler and the
+        sentry; no mesh, no grad_transform) and meta inputs of the
+        inputs' shapes. Nothing of the step's own state is touched and
+        nothing is allocated."""
+        import copy
+        memo = {}
+        for t in list(self.layer.parameters()) + list(self.layer.buffers()):
+            meta = torch.empty_like(t, device="meta")
+            if isinstance(t, torch.nn.Parameter):
+                meta = torch.nn.Parameter(meta,
+                                          requires_grad=t.requires_grad)
+            memo[id(t)] = meta
+        layer = copy.deepcopy(self.layer, memo)
+        opt = copy.copy(self.optimizer)
+        opt._accumulators, opt._parameters = {}, None
+        twin = TrainStep(layer, self.loss_fn, opt, amp_level=self.amp_level,
+                         amp_dtype=self.amp_dtype,
+                         grad_accum_steps=self.grad_accum_steps,
+                         remat=self.remat, remat_policy=self.remat_policy,
+                         sentry=self.sentry)
+        if self._scaler_cfg is not None:
+            twin._scaler_cfg = dict(self._scaler_cfg)
+            twin._init_scaler_state()
+        meta = lambda t: (torch.empty_like(t, device="meta")  # noqa: E731
+                          if isinstance(t, torch.Tensor) else t)
+        return _LoweredStep(twin, tuple(meta(t) for t in _as_tuple(inputs)),
+                            tuple(meta(t) for t in _as_tuple(labels)))
 
     # -- eval -----------------------------------------------------------------
     def build_eval_fn(self):
@@ -971,10 +1061,46 @@ class TrainStep:
                         self._device())
             if self._scaler_cfg is not None:
                 self._init_scaler_state()
+            if self.sentry is not None:
+                self.sentry.init_state(self.strategy_state, self._device())
         if state.get("seed") is not None:
             _generator.set_state(state["seed"])
         if state.get("step") is not None:
             self._steps_done = int(state["step"])
+
+
+class _LoweredStep:
+    """TrainStep.aot_lower's result: the meta twin and its inputs.
+    run() goes through the twin's body once (forward, backward, unscale,
+    update, sentry) on meta tensors and returns the loss; arguments()
+    names every tensor the step holds before it runs."""
+
+    def __init__(self, step: "TrainStep", inputs, labels):
+        self.step, self.inputs, self.labels = step, inputs, labels
+
+    def arguments(self):
+        """{name: meta tensor}: the parameters and buffers (by state-dict
+        name), each parameter's optimizer state (name/key), the strategy
+        state (strategy/key) and the inputs (input/i, label/i)."""
+        st = self.step
+        out = {k: v for k, v in
+               st.layer.state_dict(keep_vars=True).items()
+               if isinstance(v, torch.Tensor)}
+        for name, state in zip(st._param_names, st.optimizer_states()):
+            out.update({f"{name}/{k}": v for k, v in state.items()
+                        if isinstance(v, torch.Tensor)})
+        out.update({f"strategy/{k}": v
+                    for k, v in st.strategy_state.items()
+                    if isinstance(v, torch.Tensor)})
+        out.update({f"input/{i}": t for i, t in enumerate(self.inputs)
+                    if isinstance(t, torch.Tensor)})
+        out.update({f"label/{i}": t for i, t in enumerate(self.labels)
+                    if isinstance(t, torch.Tensor)})
+        return out
+
+    def run(self):
+        lr = torch.empty((), dtype=torch.float32, device="meta")
+        return self.step._body(self.inputs, self.labels, lr, 0)
 
 
 class _EvalFn:

@@ -1663,3 +1663,81 @@ def test_srl_model_at_the_books_widths(cs):
     m = cs.srl_model(pt, **cs.SRL_TINY)
     assert sum(p.numel() for p in m.parameters()) == \
         cs.srl_param_count(**cs.SRL_TINY)
+
+
+# -- item 17 with item 7's rest: head_dim above 256, the captured loop,
+# the sentry ---------------------------------------------------------------
+
+def test_wide_cases_and_rows(cs):
+    """The wide kernels' instantiations are 3 kernels x 2 dtypes x causal
+    x dropout; 320 runs padded (no kernel row), 512 and 1024 on the
+    kernels' entries give the kernels line's rows."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    assert cs.WIDE_INSTANTIATIONS == 3 * 2 * 2 * 2
+    assert [fa.kernel_head_dim(h) for h in cs.WIDE_HEAD_DIMS] == \
+        [512, 512, 1024]
+    kernel = dict(dtype="float32", causal=False, dropout_p=0.0, fwd_ms=1.6,
+                  fwd_plain_ms=1.3, fwd_bound_ms=0.1, fwd_bound_by="operations",
+                  fwd_library_ms=0.2, dq_ms=2.0, dq_plain_ms=3.0,
+                  dq_bound_ms=0.2, dq_bound_by="operations", dkv_ms=2.1,
+                  dkv_plain_ms=3.1, dkv_bound_ms=0.2,
+                  dkv_bound_by="operations", backward_library_ms=0.7,
+                  o_max_abs_err=1e-6, dq_max_abs_err=2e-6,
+                  dk_max_abs_err=3e-6, dv_max_abs_err=1e-6)
+    padded = dict(h=320, kernel_head_dim=512, entry_fwd_bwd_ms=4.0)
+    rows = cs.wide_kernel_rows([padded, kernel])
+    assert [len(v) for v in rows.values()] == [1, 1, 1]
+    assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 3e-6
+
+
+def test_collatz_loop_counts_the_trips_on_the_cpu(cs):
+    """graph_while's loop, eagerly: steps per lane and the trips (the
+    largest lane's steps)."""
+    import torch
+    from paddle_tpu_torch.ops import control_flow as tcf
+    vals, steps, trips = cs._collatz(torch, tcf, torch.tensor([27, 97, 1, 6]))
+    assert steps.tolist() == [111, 118, 0, 8]
+    assert vals.tolist() == [1, 1, 1, 1] and int(trips) == 118
+
+
+def test_stats_agree_is_exact_on_counts_and_max(cs):
+    want = {"mlp": {"nonfinite": 0, "max_abs": 2.5, "l2": 10.0}}
+    ok, gap = cs._stats_agree({"mlp": dict(want["mlp"], l2=10.00001)},
+                              want, 1e-4)
+    assert ok and gap == pytest.approx(1e-6)
+    for bad in ({"nonfinite": 1}, {"max_abs": 2.5000001}, {"l2": 10.01}):
+        assert not cs._stats_agree({"mlp": dict(want["mlp"], **bad)},
+                                   want, 1e-4)[0]
+    assert not cs._stats_agree({}, want, 1e-4)[0]
+
+
+def _numeric_run(healthy=True):
+    control, kill = _elastic_runs()
+    fault = dict(step=5, reason="numeric fault at step 5: nonfinite "
+                 "(grad.nonfinite)", health={"healthy": False},
+                 anomalies=[{"kind": "nonfinite"}])
+    first, second = kill["incs"]
+    first = dict(first, fault=fault)
+    second = dict(second, candidate_steps=[5, 3, 1], require_healthy=True,
+                  resume_health={"healthy": healthy})
+    run = dict(kill, name="numeric", mode="nan_grad", incs=[first, second],
+               receipts=[{"action": "respawn_gang", "backoff_s": 0.1,
+                          "verdict": {"kind": "numeric", "rank": 0}}],
+               manifest=dict(kill["manifest"],
+                             **{"['train']['strategy_state']['sentry_fp']":
+                                {"crc32": 9}}))
+    return control, run
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("unhealthy", "fault"), ("verdict", "receipts")])
+def test_elastic_numeric_case_gates(cs, breakage, word):
+    control, run = _numeric_run(healthy=breakage != "unhealthy")
+    if breakage == "verdict":
+        run["receipts"][0]["verdict"]["kind"] = "crash"
+    row, bad = cs._elastic_row(run, control)
+    if breakage is None:
+        assert bad == [] and row["resume_step"] == cs.ELASTIC_PROBE + 1
+        assert row["fault"]["step"] == 5 and row["sentry_leaves"] == 1
+    else:
+        assert len(bad) == 1 and word in bad[0], bad

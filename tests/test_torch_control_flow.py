@@ -5,7 +5,10 @@ every branch and select with torch.where, which static_branches() forces
 here on CPU tensors (held against the JAX ops traced under jax.jit,
 lax.cond and lax.switch, out-of-range indices included, and the
 gradients through the select against the eager branch's). while_loop
-refuses to run under a capture; bounded_while_loop, fori_loop and scan
+under the capture contract refuses carries that require grad (no
+reverse mode, as lax.while_loop) and otherwise loops on the host for CPU
+tensors (on the card it becomes a conditional graph node, held by
+chip_smoke.py); bounded_while_loop, fori_loop and scan
 against the JAX ops (f32, 1e-6), with their gradients (the JAX ops
 record no tape) against the loop written out in torch."""
 import jax
@@ -139,21 +142,47 @@ def test_switch_case_both_modes(index, with_default, as_dict):
     _close(sel, _jit(traced, np.asarray(index, np.int32), A))
 
 
-def test_while_loop_eager_and_refused_under_capture():
+def test_while_loop_eager_and_under_static_branches():
+    """Eagerly, and under static_branches() (the capture contract on the
+    CPU, which has no graph to capture into: the CPU predicate is read
+    on the host), the loop equals the JAX op's lax.while_loop. On the
+    card a capture runs it as a conditional WHILE node (chip_smoke.py's
+    graph_while phase)."""
     def cond_fn(i, x):
         return i < 4
 
     def body(i, x):
         return i + 1, x * 1.5
-    i, x = tcf.while_loop(cond_fn, body, [torch.tensor(0),
-                                          torch.from_numpy(A)])
     ji, jx = jcf.while_loop(cond_fn, body, [jp.to_tensor(0),
                                             jp.to_tensor(A)])
+    i, x = tcf.while_loop(cond_fn, body, [torch.tensor(0),
+                                          torch.from_numpy(A)])
     assert int(i) == int(ji.numpy()) == 4
     _close(x, jx.numpy())
+    with tcf.static_branches():
+        si, sx = tcf.while_loop(cond_fn, body, [torch.tensor(0),
+                                                torch.from_numpy(A)])
+    assert int(si) == 4
+    _close(sx, jx.numpy())
+    assert tcf.launches["graph_while_set_condition"] == 0
+
+
+def test_while_loop_refuses_carries_that_require_grad_under_capture():
+    """lax.while_loop has no reverse mode: under the capture contract a
+    carry that requires grad raises a clear error (eagerly the host loop
+    stays differentiable, as before)."""
+    x = torch.from_numpy(A).requires_grad_()
+
+    def body(i, v):
+        return i + 1, v * 1.5
     with tcf.static_branches(), pytest.raises(RuntimeError,
-                                              match="capture"):
-        tcf.while_loop(cond_fn, body, [torch.tensor(0), torch.from_numpy(A)])
+                                              match="reverse mode"):
+        tcf.while_loop(lambda i, v: i < 3, body, [torch.tensor(0), x])
+    with tcf.static_branches(), torch.no_grad():
+        tcf.while_loop(lambda i, v: i < 3, body, [torch.tensor(0), x])
+    _, y = tcf.while_loop(lambda i, v: i < 3, body, [torch.tensor(0), x])
+    y.sum().backward()
+    _close(x.grad, np.full_like(A, 1.5 ** 3))
 
 
 def test_bounded_while_loop_values_and_grads():

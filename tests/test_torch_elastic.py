@@ -347,3 +347,85 @@ def test_heartbeat_monitor_names_the_silent_worker():
             assert mon.alive() == [0]
             mon.revive(1)
             assert mon.dead == []
+
+
+# -- the numeric drill ----------------------------------------------------------
+
+DRILL = ["--model", "tiny", "--device", "cpu", "--steps", "6",
+         "--ckpt-every", "2", "--batch", "4", "--seq", "16", "--sentry",
+         "--sentry-probe-every", "1"]
+
+
+def test_numeric_drill_quarantines_and_resumes_healthy(monkeypatch,
+                                                       tmp_path):
+    """The sentry drill on 2 ranks under `launch --elastic` (CPU, the
+    tiny GPT TrainStep with the sentry armed): a NaN in rank 0's
+    gradients at step 3 (PD_CHAOS_MODE nan_grad) is flagged at step 3
+    (NumericFault, the grad stream's nonfinite row), the rank commits
+    the step stamped unhealthy and exits 13; the doctor's verdict over
+    the dumps is NUMERIC for rank 0 (the port's collect_diagnosis and the
+    JAX package's on the same dumps agree); the gang respawns with
+    PD_ROLLBACK_HEALTHY=1 and rank 0 resumes from the newest
+    health-stamped checkpoint at or before step 3 (step 1, whose stamp
+    has the two clean steps a probe period of 1 asks for) and goes on
+    bit-equal to a control run; the ranks' probe fingerprints agreed."""
+    import glob
+    import json as _json
+    from paddle_tpu_torch.distributed import elastic_worker, launch
+    from paddle_tpu_torch.observability import decisions
+    for var in ("PD_CHAOS_EVERY", "CUDA_VISIBLE_DEVICES",
+                "PD_ROLLBACK_HEALTHY"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PD_ELASTIC_DIR", str(tmp_path / "receipts"))
+    monkeypatch.setenv("PD_FR_DIR", str(tmp_path / "flight"))
+    was = decisions.enabled()
+    control = elastic_worker.run(elastic_worker.parse_args(
+        DRILL + ["--ckpt-dir", str(tmp_path / "c_ckpt"),
+                 "--out-dir", str(tmp_path / "c_out")]))
+    monkeypatch.setenv("PD_CHAOS_MODE", "nan_grad")
+    monkeypatch.setenv("PD_CHAOS_STEP", "3")
+    monkeypatch.setenv("PD_CHAOS_RANK", "0")
+    out = tmp_path / "out"
+    try:
+        with pytest.raises(SystemExit) as ex:
+            launch.launch(["--elastic", "--nproc_per_node", "2",
+                           "--heartbeat_timeout", "20",
+                           "--restart_backoff", "0.05",
+                           "--dump_grace", "0.2", elastic_worker.__file__,
+                           "--ckpt-dir", str(tmp_path / "ckpt"),
+                           "--out-dir", str(out), *DRILL])
+    finally:
+        decisions.reset()
+        decisions.enable(was)
+    assert ex.value.code == 0
+    (rec,) = [_json.load(open(f)) for f in glob.glob(
+        str(tmp_path / "receipts" / "receipt_*.json"))]
+    assert rec["verdict"]["kind"] == "numeric"
+    assert rec["verdict"]["rank"] == 0
+    first = _json.load(open(out / "inc0_slot0.json"))
+    second = _json.load(open(out / "inc1_slot0.json"))
+    fault = first["fault"]
+    assert fault["step"] == 3 and "nonfinite" in fault["reason"]
+    assert fault["health"]["healthy"] is False
+    assert [a["kind"] for a in fault["anomalies"]] == ["nonfinite"]
+    assert second["require_healthy"] is True
+    assert second["resume_step"] == 1
+    assert second["resume_health"]["healthy"] is True
+    # the newest candidate on disk was the unhealthy step-3 commit
+    assert second["candidate_steps"][0] == 3
+    assert sorted(int(s) for s in second["losses"]) == list(range(2, 6))
+    losses = {**first["losses"], **second["losses"]}
+    assert losses == control["losses"]
+    # the probe steps' fingerprints agreed across the ranks (rank 0's
+    # control run computes the same)
+    other = _json.load(open(out / "inc0_slot1.json"))
+    for s in ("0", "1", "2"):
+        assert first["fingerprints"][s] == other["fingerprints"][s] == \
+            control["fingerprints"][s]
+    assert (out / "fault_slot0.npz").exists()
+    # the doctor bridge: the same verdict from the JAX package's merge
+    flight = str(tmp_path / "flight")
+    got = pel.collect_diagnosis(flight)["verdict"]
+    want = jel.collect_diagnosis(flight)["verdict"]
+    assert got["kind"] == want["kind"] == "numeric"
+    assert got["rank"] == want["rank"] == 0

@@ -254,7 +254,10 @@ def cuda_device():
                                           (200, True, 128, 0.1),
                                           (256, False, 128, 0.0),
                                           (200, True, 256, 0.1),
-                                          (256, False, 256, 0.0)])
+                                          (256, False, 256, 0.0),
+                                          (200, True, 320, 0.1),
+                                          (256, False, 512, 0.0),
+                                          (128, True, 1024, 0.1)])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, causal,
                                       h, p):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -273,18 +276,55 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, causal,
 
 def test_kernel_head_dim_pads_to_the_smallest_kernel_width():
     assert [fa.kernel_head_dim(h)
-            for h in (8, 32, 64, 65, 96, 128, 129, 192, 256, 320)] \
-        == [64, 64, 64, 128, 128, 128, 256, 256, 256, 320]
+            for h in (8, 32, 64, 65, 96, 128, 129, 192, 256, 320, 512,
+                      1024)] \
+        == [64, 64, 64, 128, 128, 128, 256, 256, 256, 512, 512, 1024]
 
 
-def test_head_dim_above_256_is_refused_by_the_kernels():
-    """No kernel takes head_dim above 256: the wrappers' check raises
-    before any launch (the card runs no plain version instead)."""
+@pytest.mark.parametrize("h", [320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_above_256_matches_pallas_interpret(h, causal):
+    """Above head_dim 256 (csrc/flash_attn_wide.cu on the card, padded to
+    a multiple of 256), the plain path the CPU runs: O and lse against
+    the Pallas kernel in interpret mode (which pads to a multiple of
+    128), and dQ, dK, dV against jax.grad of it, at 1e-4 in f32."""
+    from test_torch_flash_backward import _check as _check_grads
+    q, k, v = _data(2, 24, 40, 2, h, seed=11)
+    _check(q, k, v, causal)
+    w = np.random.RandomState(12).randn(2, 24, 2, h).astype(np.float32)
+    _check_grads(q, k, v, w, causal)
+
+
+def test_head_dim_above_256_refuses_widths_the_wide_kernels_lack():
+    """The wide kernels take multiples of 256 above 256: another width
+    reaches them only through the padding of flash_attention_fwd, and
+    the wrappers' check raises before any launch."""
     q = torch.zeros(1, 4, 2, 320)
     with pytest.raises(ValueError, match="head_dim"):
         fa._check_kernel("flash_attn_fwd", q, q)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa._flash_fwd_cuda(q, q, q, False, 0.05)
+    fa._check_kernel("flash_attn_fwd", torch.zeros(1, 4, 2, 768),
+                     torch.zeros(1, 4, 2, 768))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_above_256_launches_the_wide_entries(monkeypatch, dtype):
+    """Above 256 the wrappers call csrc/flash_attn_wide.cu's three
+    entries with the arguments of the others, and the dQ entry computes
+    delta itself in both dtypes (its buffer is the dK/dV entry's)."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
+        "delta computed by torch ops above head_dim 256"))
+    q, k, v = (torch.randn(1, 8, 2, 512).to(dtype) for _ in range(3))
+    o, lse = fa._flash_fwd_cuda(q, k, v, False, 0.05)
+    fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), False, 0.05)
+    assert [c[:2] for c in calls] == [
+        ("flash_attn_wide", "pt_flash_attn_fwd_wide"),
+        ("flash_attn_wide", "pt_flash_attn_bwd_dq_wide"),
+        ("flash_attn_wide", "pt_flash_attn_bwd_dkv_wide")]
+    assert [len(c[2]) + 1 for c in calls] == [
+        len(fa._ARGTYPES[c[1]]) for c in calls]
+    assert calls[1][2][6] == calls[2][2][5]   # the dQ entry's delta
+    assert fa._delta_in_kernel(dtype, 512)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -51,6 +51,14 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.observability.pulse_server, "
         "paddle_tpu_torch.observability.watchdog, "
         "paddle_tpu_torch.observability.memory, "
+        "paddle_tpu_torch.observability.anatomy, "
+        "paddle_tpu_torch.observability.xprof, "
+        "paddle_tpu_torch.observability.mfu, "
+        "paddle_tpu_torch.observability.sentry, "
+        "paddle_tpu_torch.observability.calibration, "
+        "paddle_tpu_torch.profiler, paddle_tpu_torch.incubate, "
+        "paddle_tpu_torch.optimizer.extras, "
+        "paddle_tpu_torch.ops.control_flow, "
         "paddle_tpu_torch.nn.clip, paddle_tpu_torch.nn.layer.scanned, "
         "paddle_tpu_torch.nn.functional.loss, "
         "paddle_tpu_torch.distributed, "

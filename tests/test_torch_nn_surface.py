@@ -1,12 +1,15 @@
 """paddle_tpu_torch.nn's surface against paddle_tpu.nn's, and the repairs
 of the nn surface's faults.
 
-- Coverage: every public name of paddle_tpu.nn and of
-  paddle_tpu.nn.functional exists in the port's counterpart (no named
-  exception is needed any more: EXCEPTIONS is empty), and the names F
+- Coverage: every public name of paddle_tpu.nn, paddle_tpu.nn.functional
+  and the other modules of PAIRS exists in the port's counterpart, but
+  for the named EXCEPTIONS (the JAX static planes' readers of XLA's HLO
+  and cost analysis, and the JAX modules' own imports), and the names F
   shares with the op library are the same objects.
 - Signature pins: for every public callable that both packages define
-  in the top level, nn and nn.functional, the JAX parameter names, in
+  in the top level, nn, nn.functional, the observability planes
+  (sentry, anatomy, xprof, mfu, calibration, memory), the profiler,
+  optimizer.extras and incubate, the JAX parameter names, in
   order, are a prefix of the port's, and the port adds only trailing
   `device`, `dtype` and `generator` keywords. INTENDED lists the
   differences that are the port's idiom, each with its reason; the test
@@ -34,8 +37,40 @@ import paddle_tpu_torch as pt
 import paddle_tpu_torch.nn as tnn
 import paddle_tpu_torch.nn.functional as F
 
-#: public names of the JAX nn / nn.functional the port leaves out
-EXCEPTIONS = {"nn": {}, "nn.functional": {}}
+#: names the JAX module imports for its own use (not API)
+_IMPORTS = ("Any", "Iterable", "List", "Mapping", "Tuple",
+            "contextmanager", "logger", "logging", "jnp", "no_grad")
+#: public names of the JAX modules the port leaves out, with the reason
+EXCEPTIONS = {
+    "nn": {}, "nn.functional": {},
+    "observability": {}, "observability.sentry": {},
+    "observability.anatomy": dict(
+        dict.fromkeys(_IMPORTS, "the JAX module's import"),
+        attribute_hlo_text="prices an executable's HLO text; a CUDA graph "
+                           "has none (count_flops over the eager step)",
+        attribute_compiled="as attribute_hlo_text",
+        compile_uncached="jax's compilation cache; nothing to bypass"),
+    "observability.xprof": {},
+    "observability.mfu": dict(
+        flops_of_compiled="XLA's cost analysis (step_flops counts the "
+                          "call with FlopCounterMode)"),
+    "observability.calibration": dict(List="the JAX module's import"),
+    "observability.memory": dict(
+        dict.fromkeys(_IMPORTS, "the JAX module's import"),
+        scope_of_op_name="the JAX module's import of anatomy's",
+        scope_of_param="the JAX module's import of sentry's",
+        attribute_hlo_memory="reads HLO buffers (the meta-device trace "
+                             "takes their place)",
+        attribute_arguments="reads the jax flat-arg table (the lowered "
+                            "step's arguments() take its place)",
+        attribute_compiled_memory="as attribute_hlo_memory",
+        compile_step="an AOT compile (TrainStep.aot_lower)",
+        compile_uncached="jax's compilation cache",
+        memory_analysis_dict="XLA's buffer assignment"),
+    "profiler": {},
+    "optimizer.extras": dict.fromkeys(_IMPORTS, "the JAX module's import"),
+    "incubate": {}, "incubate.optimizer": {},
+}
 
 #: signature differences that are the port's idiom, by (module, name)
 INTENDED = {
@@ -54,9 +89,38 @@ INTENDED = {
                                          "replaces the JAX key=",
     ("nn.functional", "tanh_"): "takes Paddle's name= as the port's "
                                 "functionals do; the JAX one takes x alone",
+    ("observability.anatomy", "train_step_anatomy"):
+        "adds seed= (the eager step's dropout seed) and profile= (device "
+        "ms through xprof): the table comes from a step that runs",
+    ("observability.calibration", "compiled_collective_bytes"):
+        "takes the grads and a CommConfig: the port reads the comm "
+        "planner's buckets where the JAX module reads HLO",
+    ("observability.memory", "train_step_memory"):
+        "no compiled=: the meta trace is the lowering, there is no "
+        "compile to reuse",
 }
 
-PAIRS = [("", jp, pt), ("nn", jnn, tnn), ("nn.functional", JF, F)]
+import paddle_tpu.incubate as jinc  # noqa: E402
+import paddle_tpu.observability as jobs  # noqa: E402
+import paddle_tpu.optimizer.extras as jextras  # noqa: E402
+import paddle_tpu.profiler as jprof  # noqa: E402
+import paddle_tpu_torch.incubate as tinc  # noqa: E402
+import paddle_tpu_torch.observability as tobs  # noqa: E402
+import paddle_tpu_torch.optimizer.extras as textras  # noqa: E402
+import paddle_tpu_torch.profiler as tprof  # noqa: E402
+
+PAIRS = [("", jp, pt), ("nn", jnn, tnn), ("nn.functional", JF, F),
+         ("observability", jobs, tobs),
+         ("observability.sentry", jobs.sentry, tobs.sentry),
+         ("observability.anatomy", jobs.anatomy, tobs.anatomy),
+         ("observability.xprof", jobs.xprof, tobs.xprof),
+         ("observability.mfu", jobs.mfu, tobs.mfu),
+         ("observability.calibration", jobs.calibration, tobs.calibration),
+         ("observability.memory", jobs.memory, tobs.memory),
+         ("profiler", jprof, tprof),
+         ("optimizer.extras", jextras, textras),
+         ("incubate", jinc, tinc), ("incubate.optimizer", jinc.optimizer,
+                                    tinc.optimizer)]
 EXTRA_OK = {"device", "dtype", "generator"}
 
 

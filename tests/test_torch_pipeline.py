@@ -573,7 +573,6 @@ def _refusal_cases():
 @pytest.mark.parametrize("kw,item", [
     (dict(exec_mode="spmd_1f1b"), "item 14d"),
     (dict(exec_mode="spmd_1f1b", plan=object()), "item 14d"),
-    (dict(sentry=object()), "item 17"),
     (dict(param_spec_fn=lambda n, t: None), "item 14d"),
     (dict(mesh="pp2"), "item 14d"),
     (dict(mesh="dp2"), "item 14d")])
@@ -585,6 +584,25 @@ def test_refusals_name_their_item(kw, item):
         kw["mesh"] = build_mesh({"dp": 2}, devices=[0, 1])
     with pytest.raises(NotImplementedError, match=item):
         PP(ts, _tmse, opt, num_micro=2, device="cpu", **kw)
+
+
+def test_sentry_is_kept_unused_as_in_the_jax_engine():
+    """The dispatch engine keeps sentry= and leaves it unused, as the JAX
+    dispatch engine does (its sentry instruments the spmd_1f1b engine
+    only): the same losses with and without it."""
+    sen = object()
+    jpp = jpe.PipelineParallel(_jax_mlp(MLP3), _jmse, paddle.optimizer.SGD(
+        learning_rate=1e-2, parameters=None), num_micro=2, sentry=sen)
+    assert jpp.sentry is sen
+    losses = []
+    for s in (None, sen):
+        ts, opt, _ = _refusal_cases()
+        eng = PP(ts, _tmse, opt, num_micro=2, device="cpu", sentry=s)
+        assert eng.sentry is s
+        x, y = _data(2, 8, 8, 4)
+        losses.append(float(eng.train_batch(torch.from_numpy(x),
+                                            torch.from_numpy(y))))
+    assert losses[0] == losses[1]
 
 
 @pytest.mark.parametrize("kw,word", [

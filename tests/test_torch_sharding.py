@@ -12,8 +12,9 @@ estimate_layout, choose_layout, MeshPlan.auto with calibration=None)
 must pick the same winner with costs and analytic step times within
 1e-9 relative. calibration="auto" warns and falls back to the analytic
 ranking where the committed table does not match (both packages); where
-it matches (cpu, 8 devices) the JAX package ranks with the table and the
-port raises NotImplementedError (item 17). The fleet's mesh_plan,
+it matches (cpu, 8 devices) both packages rank with the table: the same
+winner, calibrated estimates within 1e-9 relative and the same
+receipt. The fleet's mesh_plan,
 build_mesh_plan and build_sharding_plan give the JAX fleet's plans.
 """
 import warnings
@@ -204,11 +205,31 @@ def test_auto_warns_and_falls_back_where_the_table_does_not_match():
 
 
 def test_a_matching_table_or_a_calibration_is_item_17():
-    dims = ps.ModelDims(**DIMS[0])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ps.MeshPlan.auto(8, dims, 16 * GiB)          # cpu-8dev matches
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ps.estimate_layout({"dp": 8}, dims, 16 * GiB, calibration=object())
+    """Item 17 ported the calibrated ranking: the committed cpu-8dev table
+    matches 8 devices, and both packages rank with it alike."""
+    from paddle_tpu.observability import calibration as jcal
+    from paddle_tpu_torch.observability import calibration as tcal
+    dims = DIMS[0]
+    jp = js.MeshPlan.auto(8, js.ModelDims(**dims), 16 * GiB)
+    tp = ps.MeshPlan.auto(8, ps.ModelDims(**dims), 16 * GiB)
+    assert jp.calibration is not None and tp.calibration is not None
+    assert tp.calibration.table == jp.calibration.table
+    assert tp.sizes == jp.sizes
+    for a, b in zip(jp.report, tp.report):
+        assert b.used == a.used == "calibrated"
+        assert _rel(b.calibrated_step_time_s, a.calibrated_step_time_s) \
+            <= 1e-9
+    jr, tr = jp.predict(), tp.predict()
+    assert tr.used == jr.used == "calibrated" and tr.calibration_match
+    assert (tr.device_kind, tr.topology) == (jr.device_kind, jr.topology)
+    assert _rel(tr.predicted_step_time_s, jr.predicted_step_time_s) <= 1e-9
+    assert tp.describe()["calibration"] == jp.describe()["calibration"]
+    calib = tcal.Calibration(jcal.build_table("cpu", 8))
+    a = js.estimate_layout({"dp": 8}, js.ModelDims(**dims), 16 * GiB,
+                           calibration=jcal.Calibration(calib.table))
+    b = ps.estimate_layout({"dp": 8}, ps.ModelDims(**dims), 16 * GiB,
+                           calibration=calib)
+    assert _rel(b.calibrated_step_time_s, a.calibrated_step_time_s) <= 1e-9
     with pytest.raises(NotImplementedError, match="14c"):
         ps.MeshPlan(dp=2).resync_assignments({})
 

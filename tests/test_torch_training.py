@@ -391,8 +391,10 @@ def test_trainstep_state_dict_roundtrip_and_later_flags():
     st.set_state_dict(ck)
     b = st(torch.from_numpy(ids), torch.from_numpy(lbl)).item()
     assert a == b
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TrainStep(m, _loss_fn, topt.AdamW(), sentry=object())
+    # sentry= is taken since item 17 (tests/test_torch_sentry.py holds it)
+    from paddle_tpu_torch.observability.sentry import NumericSentry
+    armed = TrainStep(m, _loss_fn, topt.AdamW(), sentry=NumericSentry())
+    assert "sentry_step" in armed.strategy_state
     # mesh= and grad_transform= are taken since the distributed slice,
     # sharding_plan= and the tp, ep, sp and fsdp axes since the planner
     # (item 14a); a pp axis above size 1 waits for the SPMD pipeline (14d)
