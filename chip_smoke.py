@@ -15,8 +15,10 @@ Phases, each of which fails the run on any mismatch:
    for sm_90a into build/paddle_tpu_torch/ (one nvcc per source, all
    started together), with ptxas's register and spill report. A spill
    or a wgmma serialisation (ptxas C7515/C7512) in a head_dim-64 bf16
-   wgmma kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) fails the run, as does
-   a spill in any of the 24 head_dim-256 kernels (phase 40). From
+   wgmma kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) fails the run, as do
+   a spill in any of the 16 head_dim-256 FFMA kernels and a spill or a
+   serialisation in any of the 8 head_dim-256 wgmma kernels (phase
+   40). From
    the built forward's SASS (cuobjdump -sass), the instructions per
    Philox4x32-10 call of the dropout kernel's keep-bit loop, for the
    forward's Philox floor (see 4).
@@ -525,15 +527,27 @@ Phases, each of which fails the run on any mismatch:
    that gap plus the re-scoring's own, of the score the card gave it
    (ids that are not the sequence their score belongs to fail).
    The path launches none of the port's own kernels.
-40. Head_dim 256 (`d256_case`, `mask_probe` at h 256, after `head_pad`):
-   csrc/flash_attn_d256.cu's FFMA forward, dQ and dK/dV kernels (bf16
-   read and written as bf16, computed in f32) at b 8, s 1024, n 8, h
-   256, strided qkv views, f32 and bf16, p 0 and 0.1, causal and not,
-   each held row by row against the plain versions at TOL (the forward
-   too) and timed beside the bound and SDPA; the mask probes at that
-   shape; `head_pad` runs head_dims 192 and 256 through
-   flash_attention_fwd (192 padded to 256); ptxas must report the 24
-   instantiations of the file with no spill.
+40. Head_dim 256 (`d256_case`, `d256_routes`, `mask_probe` at h 256,
+   `encoder_256`, after `head_pad`): in bf16 csrc/flash_attn_wg256.cu's
+   wgmma forward and dQ (the dQ kernel computing delta) and
+   csrc/flash_attn_d256.cu's FFMA dK/dV (bf16 read and written as bf16,
+   computed in f32), in f32 that file's three FFMA kernels, at b 8, s
+   1024, n 8, h 256, strided qkv views, f32 and bf16, p 0 and 0.1,
+   causal and not, and in bf16 at encoder_256's attention (b 8, s 1024,
+   n 16, p 0.1, separate q, k and v), each held row by row against the
+   plain versions at TOL (the forward too; in bf16 the dQ kernel's own
+   delta too) and timed beside the bound and SDPA; `d256_routes`: the
+   kernels a forward and backward runs in each dtype, by name, counted
+   by torch.profiler; the mask probes at D256_SHAPE; `head_pad` runs
+   head_dims 192 and 256 through flash_attention_fwd (192 padded to
+   256); ptxas must report the 16 instantiations of the FFMA file and
+   the 8 of the wgmma file with no spill. `encoder_256`:
+   nn.TransformerEncoderLayer(4096, 16, 16384) (head_dim 256), 8 x 1024
+   tokens, O1 bf16, dropout 0.1, AdamW, one captured TrainStep step and
+   one replay bit-equal to two eager steps; a replay's attention
+   kernels counted by torch.profiler (the wgmma forward and dQ and the
+   FFMA dK/dV, once each); step ms, device ms by category and
+   attention's share of it.
 41. AMP on the card (`amp_card`, after `ops_card`): each op the JAX
    package registers under a name on its AMP lists (AMP_OPS) under
    auto_cast O1 and O2 from bf16 and f32 inputs: the lists' output
@@ -585,8 +599,10 @@ Phases, each of which fails the run on any mismatch:
 Output: a JSON line per phase; then the
 `kernels` line (each flash kernel with its launches a Transformer-base
 step and its times at the cross-attention and encoder self-attention
-shapes, its head_dim-256 cases and those above 256; the captured
-loop's set_condition kernel; the run's phase_seconds), the card's
+shapes, its head_dim-256 cases and those above 256; the head_dim-256
+bf16 path's three kernels, wgmma forward and dQ and FFMA dK/dV, with
+encoder_256's launches and their times at its attention shape; the
+captured loop's set_condition kernel; the run's phase_seconds), the card's
 nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
 package is not beside this file, it exits non-zero and prints no result.
@@ -1315,44 +1331,87 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal, sk=None,
 # and 96 (padded to 64 and 128), 192 (padded to 256) and 256 itself
 # (nn.MultiHeadAttention(4096, 16)'s head width)
 PAD_HEAD_DIMS = (32, 96, 192, 256)
-# head_dim 256 on csrc/flash_attn_d256.cu's kernels: b, s, n, h
+# head_dim 256: b, s, n, h of the kernel cases; in bf16 the forward and
+# dQ on csrc/flash_attn_wg256.cu's wgmma kernels, in f32 and bf16's
+# dK/dV on csrc/flash_attn_d256.cu's FFMA kernels
 D256_SHAPE = (8, 1024, 8, 256)
 D256_SOURCE = "flash_attn_d256"
-# its instantiations: 3 kernels x 2 dtypes x causal x dropout
-D256_INSTANTIATIONS = 24
+# its instantiations: 3 kernels in f32 and dK/dV in bf16, x causal x
+# dropout
+D256_INSTANTIATIONS = 16
+WG256_SOURCE = "flash_attn_wg256"
+# its instantiations: the forward and dQ x causal x dropout
+WG256_INSTANTIATIONS = 8
+# the device kernels of each wrapper at head_dim 256, by dtype
+D256_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wg256",
+                            "flash_attn_bwd_dq": "dq_wg256",
+                            "flash_attn_bwd_dkv": "dkv_d256"},
+               "float32": {"flash_attn_fwd": "fwd_d256",
+                           "flash_attn_bwd_dq": "dq_d256",
+                           "flash_attn_bwd_dkv": "dkv_d256"}}
 
 
 def d256_kernel_phase(torch, fa):
     """The forward, dQ and dK/dV kernels at head_dim 256 against their
     plain versions, row by row at TOL (bwd_kernel_case, the forward
-    always held too), in f32 and bf16, at p 0 and DROP_P, causal and
-    not, at D256_SHAPE, with their times beside the bound and SDPA's;
-    each case must launch each kernel once more."""
+    always held too; in bf16 the dQ kernel's own delta too), in f32 and
+    bf16, at p 0 and DROP_P, causal and not, at D256_SHAPE, and in bf16
+    at the attention shape of the encoder_256 phase (ENC256_ATTN), with
+    their times beside the bound and SDPA's; each case must launch each
+    kernel once more. Then d256_routes."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 23)
     b, s, n, h = D256_SHAPE
+    cases = [(b, s, n, h, causal, dt, p) for dt in ("float32", "bfloat16")
+             for p in (0.0, DROP_P) for causal in (False, True)]
+    cases.append(ENC256_ATTN)
     rows = []
-    for dt in ("float32", "bfloat16"):
-        for p in (0.0, DROP_P):
-            for causal in (False, True):
-                before = dict(fa.launches)
-                row = bwd_kernel_case(torch, fa, gen,
-                                      (b, s, n, h, causal, dt, p), None,
-                                      tag="d256_case", with_fwd=True)
-                # every kernel launched in the case (its timings too)
-                row["launched"] = {k: fa.launches[k] - before[k]
-                                   for k in fa.launches}
-                if not all(row["launched"].values()):
-                    fail(f"a head_dim-256 case launched no kernel of one "
-                         f"kind: {row['launched']}")
-                rows.append(row)
+    for case in cases:
+        before = dict(fa.launches)
+        row = bwd_kernel_case(torch, fa, gen, case, None, tag="d256_case",
+                              with_fwd=True)
+        # every kernel launched in the case (its timings too)
+        row["launched"] = {k: fa.launches[k] - before[k]
+                           for k in fa.launches}
+        if not all(row["launched"].values()):
+            fail(f"a head_dim-256 case launched no kernel of one kind: "
+                 f"{row['launched']}")
+        rows.append(row)
+    d256_routes(torch, fa)
     return rows
+
+
+def d256_routes(torch, fa):
+    """The device kernels one forward and backward at head_dim 256 ran in
+    each dtype, by name, counted by torch.profiler: D256_ROUTES' kernels
+    once each, and no other kernel of KERNEL_EVENTS."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+    out = {}
+    for dt, want in D256_ROUTES.items():
+        q, k, v = attention_inputs(torch, gen, 2, 256, 256, 2, 256,
+                                   getattr(torch, dt), False)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+
+        def fwd_bwd():
+            o, lse = fa._flash_fwd_cuda(q, k, v, False, 0.0625)
+            fa._flash_bwd_cuda(q, k, v, o, lse, do, False, 0.0625)
+        routes = device_profile(torch, fwd_bwd, 1)["routes"]
+        out[dt] = {key: n for key, n in routes.items() if n}
+        if out[dt] != {name: 1 for name in want.values()}:
+            emit({"d256_routes": out})
+            fail(f"a {dt} forward and backward at head_dim 256 ran "
+                 f"{out[dt]}, expected {sorted(want.values())} once each")
+    emit({"d256_routes": out})
+    return out
 
 
 def d256_mask_probe_phase(torch, fa):
     """The head_dim-256 kernels' own dropout masks, link for link
-    (mask_probe_case), f32 and bf16, causal and not, at D256_SHAPE."""
+    (mask_probe_case), f32 and bf16 (the wgmma forward and dQ, the FFMA
+    dK/dV), causal and not, at D256_SHAPE."""
     b, s, n, h = D256_SHAPE
     return [mask_probe_case(torch, fa, b, n, h, s, dt, causal=causal)
             for dt in ("bfloat16", "float32") for causal in (False, True)]
@@ -1360,13 +1419,17 @@ def d256_mask_probe_phase(torch, fa):
 
 def d256_kernel_rows(cases):
     """{kernel: [per-case times, errors and bounds]} of the head_dim-256
-    cases, for the `kernels` line's rows."""
+    cases, for the `kernels` line's rows; `kernel` names the device
+    kernel of the case's dtype (D256_ROUTES; wide_kernel_rows: none)."""
     keys = {"flash_attn_fwd": ("fwd", "o"), "flash_attn_bwd_dq": ("dq", "dq"),
             "flash_attn_bwd_dkv": ("dkv", "dk")}
     out = {}
     for name, (t, e) in keys.items():
         out[name] = [dict(
-            dtype=c["dtype"], causal=c["causal"], dropout_p=c["dropout_p"],
+            kernel=(D256_ROUTES[c["dtype"]][name] if c["h"] == 256
+                    else None),
+            dtype=c["dtype"], b=c["b"], n=c["n"], layout=c["layout"],
+            causal=c["causal"], dropout_p=c["dropout_p"],
             ms=c[f"{t}_ms"], plain_ms=c[f"{t}_plain_ms"],
             bound_ms=c[f"{t}_bound_ms"], bound_by=c[f"{t}_bound_by"],
             library_ms=c["fwd_library_ms"] if t == "fwd" else None,
@@ -1376,6 +1439,143 @@ def d256_kernel_rows(cases):
                          max(c["dk_max_abs_err"], c["dv_max_abs_err"])))
             for c in cases]
     return out
+
+
+# A training step at head_dim 256 (nn.MultiHeadAttention(4096, 16)'s
+# head width): nn.TransformerEncoderLayer(4096, 16, 16384) of the port's
+# nn (paddle's post-norm, ReLU, dropout 0.1 on the residuals, the FFN
+# and the attention weights), 8 sequences of 1024 tokens, O1 bf16,
+# AdamW(1e-4, weight decay 0.01), an MSE loss against a target; random
+# weights, inputs and target from SEED
+ENC256 = dict(d_model=4096, nhead=16, dim_feedforward=16384, dropout=0.1)
+ENC256_BATCH = (8, 1024)
+ENC256_WARMUP, ENC256_STEPS = 2, 5
+# its attention as the kernels see it: b, sq, n, h, causal, dtype, p,
+# sk, separate q, k and v (MultiHeadAttention's three projections)
+ENC256_ATTN = (8, 1024, 16, 256, False, "bfloat16", DROP_P, 1024, True)
+
+
+def encoder_256_phase(torch, pt, fa):
+    """One layer of ENC256 trained through the captured TrainStep at
+    ENC256_BATCH. From one start state, the first call (its eager
+    warm-up, then the capture) and one replay at STEP_SEEDS[:2] against
+    two eager steps: losses and every parameter bit-equal. The attention
+    kernels a replay runs, counted on the card by torch.profiler
+    (profile_step): each of the three once, by the names D256_ROUTES
+    gives bf16 (the wgmma forward and dQ, the FFMA dK/dV). Then
+    ENC256_WARMUP + ENC256_STEPS replays on a synchronised host clock:
+    step ms beside a replay's device ms by category and attention's
+    share of it, the idle share, tokens/s, peak memory over the first
+    call. The kernels' counts are zeroed just before the path."""
+    from paddle_tpu_torch.static import TrainStep
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    b, s = ENC256_BATCH
+    d = ENC256["d_model"]
+    pt.seed(SEED)
+    model = pt.nn.TransformerEncoderLayer(**ENC256, device="cuda")
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters(),
+                             weight_decay=0.01)
+    step = TrainStep(model, pt.nn.functional.mse_loss, opt,
+                     amp_level="O1", amp_dtype="bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x, y = (torch.randn((b, s, d), generator=gen, device="cuda")
+            for _ in range(2))
+    seeds = STEP_SEEDS[:2]
+    s0 = step.state_dict()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa)
+    graph_losses = []
+    for sd in seeds:
+        graph_losses.append(float(step(x, y, seed=sd)))
+        if len(graph_losses) == 1:
+            warm = dict(step.last_launches)
+            peak = torch.cuda.max_memory_allocated()
+    graph_params = _snapshot(step)
+    step.set_state_dict(s0)
+    del s0
+    eager_losses = [float(step.eager_step(x, y, seed=sd)) for sd in seeds]
+    eager_params = _snapshot(step)
+    cap = dict(steps=len(seeds), step_seeds=seeds,
+               graph_losses=graph_losses, eager_losses=eager_losses,
+               losses_bit_equal=graph_losses == eager_losses,
+               params_bit_equal=_bit_equal(graph_params, eager_params),
+               params_max_abs_diff=_max_abs_diff(graph_params, eager_params))
+    del graph_params, eager_params
+    prof = profile_step(torch, step, x, y)
+    for _ in range(ENC256_WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(ENC256_STEPS):
+        last = step(x, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    step_ms = secs / ENC256_STEPS * 1e3
+    attn_ms = prof["categories"].get("flash attention kernels", 0.0)
+    kernel_ms = {name: sum(r["ms"] for r in prof["top"] if name in r["name"])
+                 for name in D256_ROUTES["bfloat16"].values()}
+    row = dict(card=nvidia_smi(), model="nn.TransformerEncoderLayer",
+               config=dict(ENC256, head_dim=d // ENC256["nhead"]),
+               batch=b, seq=s, amp="O1 bfloat16",
+               optimizer="AdamW(1e-4, weight_decay=0.01)", loss="mse_loss",
+               params=sum(p.numel() for p in step.params),
+               captured_vs_eager=cap, graphs=step.programs,
+               captures=step.captures, replays=step.replays,
+               sentinel_events=step.recompile_sentinel.fired,
+               warmup_launches=warm,
+               launches_per_step=prof["launches_per_replay"],
+               routes_per_step={k: v for k, v in
+                                prof["routes_per_replay"].items() if v},
+               launches=_sum_launches([warm, prof["kernel_launches"]]),
+               counted_calls=COUNTED_CALLS,
+               losses=graph_losses + [float(last)],
+               warmup_steps=ENC256_WARMUP, timed_steps=ENC256_STEPS,
+               step_ms=step_ms, device_ms_per_step=prof["device_ms"],
+               idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               attention_ms_per_step=attn_ms,
+               attention_share=attn_ms / prof["device_ms"],
+               attention_kernel_ms=kernel_ms,
+               tokens_per_s=b * s * ENC256_STEPS / secs,
+               peak_memory_bytes=peak, peak_above_base_bytes=peak - base,
+               kernel_launches_per_replay=prof["events"],
+               profile=_profile_row(prof, top=12))
+    step.release()
+    del model, step, x, y
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    emit({"encoder_256": row})
+    bad = encoder_256_gates(row)
+    if bad:
+        fail("encoder_256: " + "; ".join(bad))
+    return row
+
+
+def encoder_256_gates(row):
+    """The encoder_256 phase's failures, each a message (empty: ok)."""
+    bad = []
+    cap = row["captured_vs_eager"]
+    if not (cap["losses_bit_equal"] and cap["params_bit_equal"]):
+        bad.append(f"the replay is not bit-equal to the eager step: {cap}")
+    if row["graphs"] != 1 or row["sentinel_events"] != 0:
+        bad.append(f"{row['graphs']} graphs and {row['sentinel_events']} "
+                   "sentinel events for one signature")
+    one = {k: 1 for k in KERNEL_EVENTS}
+    if row["launches_per_step"] != one or row["warmup_launches"] != one:
+        bad.append(f"attention launches a step {row['launches_per_step']}"
+                   f" (warm-up {row['warmup_launches']}), expected one of "
+                   "each")
+    want = {name: 1 for name in D256_ROUTES["bfloat16"].values()}
+    if row["routes_per_step"] != want:
+        bad.append(f"a replay ran {row['routes_per_step']}, expected "
+                   f"{want}")
+    if not all(math.isfinite(v) for v in row["losses"]):
+        bad.append(f"non-finite losses {row['losses']}")
+    return bad
 
 
 # head_dim above 256 on csrc/flash_attn_wide.cu's kernels: b, s, n at
@@ -1933,7 +2133,10 @@ def train_cpu_check(torch, pt, fa, moe=False):
 # kernel-name fragments of the profile's categories, first match wins
 PROFILE_CATEGORIES = [
     ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
-                                 "dkv_wgmma", "dq_simt", "dkv_simt")),
+                                 "dkv_wgmma", "dq_simt", "dkv_simt",
+                                 "fwd_wg256", "dq_wg256", "fwd_d256",
+                                 "dq_d256", "dkv_d256", "fwd_wide",
+                                 "dq_wide", "dkv_wide")),
     # cuDNN's convolution engines (implicit-GEMM fprop, dgrad, wgrad),
     # ahead of the matmuls, whose xmma/sm90_ fragments they share
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv",
@@ -1950,11 +2153,15 @@ PROFILE_CATEGORIES = [
 
 
 # the device kernels each wrapper launches, by the fragments of their
-# names that torch.profiler shows (bf16 wgmma, f32 simt)
+# names that torch.profiler shows (bf16 wgmma, f32 simt; at head_dim 256
+# the bf16 wg256 forward and dQ and the d256 FFMA kernels; above it the
+# wide FFMA kernels)
 KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
-                                    "fwd_d256"),
-                 "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_d256"),
-                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt", "dkv_d256")}
+                                    "fwd_wg256", "fwd_d256", "fwd_wide"),
+                 "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_wg256",
+                                       "dq_d256", "dq_wide"),
+                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt", "dkv_d256",
+                                        "dkv_wide")}
 # what a training run's `launches` counts
 COUNTED_CALLS = ("the first call's warm-up (the wrappers' count) and two "
                  "replays under torch.profiler (kernels counted on the "
@@ -2061,7 +2268,8 @@ def profile_step(torch, step, x, y, runs=PROFILED_REPLAYS):
     PROFILE_ROUNDS rounds; the profile is the round with the most device
     events, `launches_per_replay` the flash-attention kernels a replay
     ran, counted on the card (a replay does not pass through the
-    wrappers; max_counts over the rounds). Fails unless every profiled
+    wrappers; max_counts over the rounds), `routes_per_replay` the same
+    by kernel name (KERNEL_EVENTS). Fails unless every profiled
     call was a replay, the profiler saw device time inside them and a
     replay ran the launches its capture recorded
     (TrainStep.capture_launches)."""
@@ -2078,8 +2286,10 @@ def profile_step(torch, step, x, y, runs=PROFILED_REPLAYS):
              "captured step")
     prof["kernel_launches"] = max_counts([r["kernel_launches"]
                                           for r in rounds])
+    prof["routes"] = max_counts([r["routes"] for r in rounds])
     prof["device_events_by_round"] = [r["device_events"] for r in rounds]
     prof["launches_per_replay"] = per_call(prof["kernel_launches"], runs)
+    prof["routes_per_replay"] = per_call(prof["routes"], runs)
     if prof["launches_per_replay"] != step.capture_launches:
         fail(f"a replay ran {prof['launches_per_replay']} kernels, its "
              f"capture recorded {step.capture_launches}")
@@ -8432,7 +8642,9 @@ def main():
             fail(f"ptxas serialises the wgmma of a head_dim-64 kernel: "
                  f"{serial}")
         for src, want, what in ((D256_SOURCE, D256_INSTANTIATIONS,
-                                 "head_dim-256"),
+                                 "head_dim-256 FFMA"),
+                                (WG256_SOURCE, WG256_INSTANTIATIONS,
+                                 "head_dim-256 wgmma"),
                                 (WIDE_SOURCE, WIDE_INSTANTIATIONS,
                                  "head_dim above 256"),
                                 (GRAPH_WHILE_SOURCE, 1, "graph_while")):
@@ -8443,6 +8655,9 @@ def main():
             if len(spills) != want or spilling:
                 fail(f"ptxas: {len(spills)} {what} kernels reported "
                      f"(want {want}), spilling: {spilling}")
+            if src == WG256_SOURCE and ptxas_serialised(info["log"]):
+                fail(f"ptxas serialises the wgmma of a head_dim-256 "
+                     f"kernel: {ptxas_serialised(info['log'])}")
     emit({"build_seconds": build_s})
     philox = philox_phase(torch, _build)
 
@@ -8453,6 +8668,7 @@ def main():
     pad_cases = head_pad_phase(torch, fa)
     d256_cases = d256_kernel_phase(torch, fa)
     d256_probes = d256_mask_probe_phase(torch, fa)
+    enc256 = encoder_256_phase(torch, pt, fa)
     clock.lap("head_dim_256")
     wide_cases = wide_kernel_phase(torch, fa)
     wide_probes = wide_mask_probe_phase(torch, fa)
@@ -8678,11 +8894,16 @@ def main():
             launches_per_step=mt["launches_per_step"][kern["name"]],
             **mt_at["cross"][kern["name"]],
             self_attention=mt_at["self"][kern["name"]])
-        # head_dim 256 (csrc/flash_attn_d256.cu): no model of either
-        # package reaches it; the kernel cases' rows at D256_SHAPE
+        # head_dim 256: the kernel cases' rows at D256_SHAPE and at the
+        # encoder_256 phase's attention (each row names its device
+        # kernel: the bf16 forward and dQ on csrc/flash_attn_wg256.cu,
+        # the rest on csrc/flash_attn_d256.cu); the launches of the
+        # encoder_256 path
         kern["head_dim_256"] = dict(
-            source="paddle_tpu_torch/csrc/flash_attn_d256.cu",
+            sources=["paddle_tpu_torch/csrc/flash_attn_wg256.cu",
+                     "paddle_tpu_torch/csrc/flash_attn_d256.cu"],
             shape="b{} s{} n{} h{}, qkv views".format(*D256_SHAPE),
+            launches_encoder_256=enc256["launches"][kern["name"]],
             cases=d256_rows[kern["name"]])
         # above head_dim 256 (csrc/flash_attn_wide.cu): the kernel cases
         # at 512 and 1024 (320 runs padded to 512 through the autograd
@@ -8694,6 +8915,42 @@ def main():
             cases=wide_rows[kern["name"]])
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
+    # the kernels of the head_dim-256 bf16 path (encoder_256): the wgmma
+    # forward and dQ of csrc/flash_attn_wg256.cu and the FFMA dK/dV of
+    # csrc/flash_attn_d256.cu, timed at that path's attention shape
+    # (ENC256_ATTN); launches: the encoder_256 path's (COUNTED_CALLS)
+    layer = next(c for c in d256_cases if c["n"] == ENC256_ATTN[2])
+    layer_shape = ("b{} sq{} n{} h{} bfloat16 non-causal dropout {}, "
+                   "separate q, k and v".format(*ENC256_ATTN[:4],
+                                                ENC256_ATTN[6]))
+    for name, wrapper, src, line, t, outs in (
+            ("flash_attn_fwd_wg256", "flash_attn_fwd", "flash_attn_wg256",
+             175, "fwd", ("o",)),
+            ("flash_attn_bwd_dq_wg256", "flash_attn_bwd_dq",
+             "flash_attn_wg256", 283, "dq", ("dq",)),
+            ("flash_attn_bwd_dkv_d256", "flash_attn_bwd_dkv",
+             "flash_attn_d256", 319, "dkv", ("dk", "dv"))):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"paddle_tpu_torch/csrc/{src}.cu",
+            replaces=f"paddle_tpu/ops/pallas_kernels.py:{line} (head_dim "
+                     "256, the Pallas wrapper's padding at :486-493)",
+            device_kernel=D256_ROUTES["bfloat16"][wrapper],
+            launches=enc256["launches"][wrapper],
+            launches_per_step=enc256["launches_per_step"][wrapper],
+            max_abs_err=max(layer[f"{o}_max_abs_err"] for o in outs),
+            ms=layer[f"{t}_ms"], plain_ms=layer[f"{t}_plain_ms"],
+            bound_ms=layer[f"{t}_bound_ms"],
+            bound_by=layer[f"{t}_bound_by"],
+            library_ms=layer["fwd_library_ms"] if t == "fwd" else None,
+            backward_ms=None if t == "fwd" else layer["backward_ms"],
+            backward_library_ms=(None if t == "fwd"
+                                 else layer["backward_library_ms"]),
+            shape=layer_shape,
+            encoder_256_step_ms=enc256["step_ms"],
+            encoder_256_attention_share=enc256["attention_share"]))
+        if enc256["launches"][wrapper] == 0:
+            fail(f"the encoder_256 path launched no {name} kernel")
     # greedy NMS: no Pallas origin; at the serving path's shape (640
     # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates
     # of a YOLOv3 batch of 8 at 608)

@@ -463,20 +463,6 @@ struct Layout {
   static constexpr int kBytes = kBar + (4 + 2 * S) * 8 + 1024;
 };
 
-// sum of the products of 8 bf16 pairs, in f32
-__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(b[i]);
-    s = fmaf(u.x, w.x, s);
-    s = fmaf(u.y, w.y, s);
-  }
-  return s;
-}
-
 // The tensor maps of the owned tiles (Q, dO for dQ; K, V for dK/dV) and
 // of the streamed ones (the other two)
 struct Maps {

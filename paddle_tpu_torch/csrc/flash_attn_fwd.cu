@@ -303,34 +303,11 @@ struct FwdLayout {
   static constexpr int kBytes = kBar + (4 + 2 * S) * 8 + 1024;
 };
 
-// The larger of each of a thread's two rows' raw scores (slot i is in
-// row (i / 2) % 2), NEG: of the negated scores; on an EDGE tile over the
-// links below hi[r] only (see slot_ok)
-// (four partial maxima a row, so the dependent chains are short)
-template <bool NEG, bool EDGE>
-__device__ __forceinline__ void row_max(const float* s, const int* hi,
-                                        float* mx) {
-  const int lo[2] = {0, 0};
-  float part[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) part[r][k] = mx[r];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    float& x = part[(i >> 1) & 1][(i & 1) | ((i >> 1) & 2)];
-    if (!EDGE || slot_ok(i, lo, hi)) x = fmaxf(x, NEG ? -s[i] : s[i]);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    mx[r] = fmaxf(fmaxf(part[r][0], part[r][1]),
-                  fmaxf(part[r][2], part[r][3]));
-}
-
 // The probabilities of a tile, p = 2^(s * scale2 - m) of each row, and
 // their row sums; EDGE: 0 past hi[r]. With DROP, p is 0 for a dropped
 // link and times rinv for a kept one (bit i of keep); the sums are of
-// the un-dropped probabilities.
+// the un-dropped probabilities. (The row maxima m come from
+// flash_wgmma.cuh's row_max.)
 template <bool DROP, bool EDGE>
 __device__ __forceinline__ void row_probs(const float* s, float scale2,
                                           const float* m, const int* hi,
@@ -353,37 +330,16 @@ __device__ __forceinline__ void row_probs(const float* s, float scale2,
 }
 
 // The online softmax of one k-tile for a consumer thread's two rows:
-// the row maxima m (base-2 units of the scaled logits) and the per-lane
-// partial sums l move on, p gets the probabilities (row_probs) and corr
-// the factor by which the rows' earlier O shrinks. The maxima come from
-// the raw scores, max(s * scale2) = |scale2| max(+-s); only an edge
-// tile (one that crosses the key bound or the diagonal) masks, and a
-// masked probability is exactly 0.
+// the row maxima m and corr move on (flash_wgmma.cuh's online_max), the
+// per-lane partial sums l too, and p gets the probabilities (row_probs).
+// A masked probability is exactly 0.
 template <bool DROP>
 __device__ __forceinline__ void softmax_tile(const float* s, float scale2,
                                              bool edge, const int* hi,
                                              uint32_t keep, float rinv,
                                              float* m, float* l, float* corr,
                                              float* p) {
-  float mx[2] = {kNeg, kNeg};
-  if (scale2 >= 0.f) {
-    if (edge) row_max<false, true>(s, hi, mx);
-    else row_max<false, false>(s, hi, mx);
-  } else {
-    if (edge) row_max<true, true>(s, hi, mx);
-    else row_max<true, false>(s, hi, mx);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // the 4 lanes of a quad share a row
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    // a row with no link in this tile gets at most kNeg * |scale2|,
-    // below any real logit: a real m stays, and its p are 0 anyway
-    const float m_new = fmaxf(m[r], mx[r] * fabsf(scale2));
-    corr[r] = ex2(m[r] - m_new);
-    m[r] = m_new;
-  }
+  online_max(s, scale2, edge, hi, m, corr);
   float ps[2];
   if (edge) row_probs<DROP, true>(s, scale2, m, hi, keep, rinv, ps, p);
   else row_probs<DROP, false>(s, scale2, m, hi, keep, rinv, ps, p);

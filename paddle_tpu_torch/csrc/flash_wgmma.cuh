@@ -1,6 +1,9 @@
 // The warp-specialised wgmma pipeline shared by the bf16 flash-attention
 // kernels: the forward (fwd_wgmma, flash_attn_fwd.cu) and the dQ and
-// dK/dV backward (dq_wgmma, dkv_wgmma, flash_attn_bwd.cu).
+// dK/dV backward (dq_wgmma, dkv_wgmma, flash_attn_bwd.cu) at head_dim 64
+// and 128, and the forward and dQ at 256 (fwd_wg256, dq_wg256,
+// flash_attn_wg256.cu: one owned buffer, dQ on 32-row streamed tiles,
+// a register split of their own).
 //
 // A CTA of 384 threads owns kOwn = 128 rows of one (batch, head): query
 // rows for the forward and dQ, keys for dK/dV. Warpgroups 0 and 1 are
@@ -82,11 +85,12 @@ __device__ __forceinline__ void release(uint32_t empty, int lane) {
   if (lane == 0) mbar_arrive(empty);
 }
 
-// the register A fragments of k-steps 0..3 from a thread's 32 score
+// the register A fragments of k-steps 0..K-1 from a thread's 8 K score
 // slots (slot 4 c + e is column 8 c + 2 t + e % 2 of row g + 8 (e / 2))
+template <int K = 4>
 __device__ __forceinline__ void pack_a(uint32_t (*f)[4], const float* x) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < K; ++j) {
     f[j][0] = pack_bf16(x[8 * j], x[8 * j + 1]);
     f[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
     f[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
@@ -96,15 +100,16 @@ __device__ __forceinline__ void pack_a(uint32_t (*f)[4], const float* x) {
 
 // The keep bits of one stage for two consumer lanes, g0 and g0 + 1, of
 // consumer thread pair p (0..127): bit 4 c + e of a lane's word is its
-// score slot 4 c + e, as the slot layout above. Their owned rows (query
-// rows for the forward and dQ, keys for dK/dV) share row >> 1, so both
-// take their bits from the same two 2x2 Philox blocks per column chunk:
-// 16 Philox calls per pair and stage. With KEYS_OWNED the link is
+// score slot 4 c + e, as the slot layout above, over C column chunks of
+// 8 (a stage of 8 C streamed rows). Their owned rows (query rows for the
+// forward and dQ, keys for dK/dV) share row >> 1, so both take their
+// bits from the same two 2x2 Philox blocks per column chunk: 2 C Philox
+// calls per pair and stage. With KEYS_OWNED the link is
 // (streamed query, owned key), else (owned row, streamed key). The owned
 // row r0 and the streamed column x are even, so a link's word in its
 // block, (row & 1) * 2 + (col & 1) as philox.cuh's drop_keep takes it,
 // is known at compile time here.
-template <bool KEYS_OWNED>
+template <bool KEYS_OWNED, int C = 8>
 __device__ __forceinline__ void keep_words(const DropParams& dp, int bh,
                                            int own0, int strm0, int p,
                                            uint32_t* words) {
@@ -113,7 +118,7 @@ __device__ __forceinline__ void keep_words(const DropParams& dp, int bh,
   const int r0 = own0 + wg * 64 + w * 16 + g0;
   uint32_t m[2] = {0u, 0u};
 #pragma unroll 2
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < C; ++c) {
     const int x = strm0 + c * 8 + 2 * t;
     uint32_t nib[2] = {0u, 0u};  // slots 4 c .. 4 c + 3 of lanes g0, g0 + 1
 #pragma unroll
@@ -135,6 +140,20 @@ __device__ __forceinline__ void keep_words(const DropParams& dp, int bh,
   const int lane0 = wg * 128 + w * 32 + g0 * 4 + t;
   words[lane0] = m[0];
   words[lane0 + 4] = m[1];
+}
+
+// sum of the products of 8 bf16 pairs, in f32 (the dQ kernels' delta)
+__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(b[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
 }
 
 // write a warpgroup's 64 x D f32 accumulators (D / 64 halves) as bf16
@@ -169,40 +188,53 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base,
   store_acc_rows<D>(base, row_stride, acc, rows, limit, muls, t);
 }
 
-// S (or dP) of a warpgroup's 64 owned rows against a 64-row streamed
-// tile over D: both K-major in shared memory
-template <int D>
+// S (or dP) of a warpgroup's 64 owned rows against an R-row streamed
+// tile (R 64 or 32: 32 or 16 score slots a thread) over D: both K-major
+// in shared memory
+template <int D, int R = kStrm>
 __device__ __forceinline__ void scores(float* s, uint32_t own,
                                        uint32_t strm) {
-  wgmma_ss<false>(s, sw128_desc(own), sw128_desc(strm));
+  static_assert(R == 64 || R == 32, "a streamed tile is 64 or 32 rows");
+  // k-step kk: half kk / 4 of both tiles, its 32-byte column kk % 4
+  auto da = [&](int kk) {
+    return sw128_desc(own + (kk >> 2) * kOwn * kLine + (kk & 3) * 32);
+  };
+  auto db = [&](int kk) {
+    return sw128_desc(strm + (kk >> 2) * R * kLine + (kk & 3) * 32);
+  };
+  if constexpr (R == 64) {
+    wgmma_ss<false>(s, da(0), db(0));
 #pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk) {
-    const int h = kk >> 2, j = kk & 3;
-    wgmma_ss<true>(s, sw128_desc(own + h * kOwn * kLine + j * 32),
-                   sw128_desc(strm + h * kStrm * kLine + j * 32));
+    for (int kk = 1; kk < D / 16; ++kk) wgmma_ss<true>(s, da(kk), db(kk));
+  } else {
+    wgmma_ss_n32<false>(s, da(0), db(0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss_n32<true>(s, da(kk), db(kk));
   }
 }
 
-// acc += X B, X the 64 x 64 bf16 fragments f, B a 64-row streamed tile
-// [64 lines][D] read MN-major
-template <int D>
+// acc += X B, X the 64 x R bf16 fragments f (R / 16 k-steps), B an R-row
+// streamed tile [R lines][D] read MN-major
+template <int D, int R = kStrm>
 __device__ __forceinline__ void accumulate(float (*acc)[32],
                                            uint32_t (*f)[4], uint32_t strm) {
 #pragma unroll
   for (int h = 0; h < D / 64; ++h)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < R / 16; ++j)
       wgmma_rs_t(acc[h], f[j],
-                 sw128_desc(strm + h * kStrm * kLine + j * 16 * kLine));
+                 sw128_desc(strm + h * R * kLine + j * 16 * kLine));
 }
 
-// Materialise all 16 bf16 A fragments of an accumulate product before it
-// is issued: else the compiler may re-pack them one k-step at a time
-// into registers of an accumulator, and ptxas then serialises every
-// wgmma of the kernel.
+// Materialise all bf16 A fragments (K k-steps) of an accumulate product
+// before it is issued: else the compiler may re-pack them one k-step at
+// a time into registers of an accumulator, and ptxas then serialises
+// every wgmma of the kernel.
+template <int K = 4>
 __device__ __forceinline__ void pin_frags(uint32_t (*f)[4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < K; ++j)
 #pragma unroll
     for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(f[j][k]) :: "memory");
 }
@@ -220,6 +252,60 @@ __device__ __forceinline__ bool slot_ok(int i, const int* lo, const int* hi) {
   return x >= lo[r] && x < hi[r];
 }
 
+// The larger of each of a thread's two rows' raw scores (slot i is in
+// row (i / 2) % 2), NEG: of the negated scores; on an EDGE tile over the
+// links below hi[r] only (see slot_ok)
+// (four partial maxima a row, so the dependent chains are short)
+template <bool NEG, bool EDGE>
+__device__ __forceinline__ void row_max(const float* s, const int* hi,
+                                        float* mx) {
+  const int lo[2] = {0, 0};
+  float part[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) part[r][k] = mx[r];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float& x = part[(i >> 1) & 1][(i & 1) | ((i >> 1) & 2)];
+    if (!EDGE || slot_ok(i, lo, hi)) x = fmaxf(x, NEG ? -s[i] : s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    mx[r] = fmaxf(fmaxf(part[r][0], part[r][1]),
+                  fmaxf(part[r][2], part[r][3]));
+}
+
+// The maxima half of a k-tile's online softmax for a consumer thread's
+// two rows: the row maxima m (base-2 units of the scaled logits) move on
+// and corr gets the factor by which the rows' earlier O and l shrink.
+// The maxima come from the raw scores, max(s * scale2) = |scale2|
+// max(+-s); only an edge tile (one that crosses the key bound or the
+// diagonal) masks, over the links below hi[r].
+__device__ __forceinline__ void online_max(const float* s, float scale2,
+                                           bool edge, const int* hi,
+                                           float* m, float* corr) {
+  float mx[2] = {kNeg, kNeg};
+  if (scale2 >= 0.f) {
+    if (edge) row_max<false, true>(s, hi, mx);
+    else row_max<false, false>(s, hi, mx);
+  } else {
+    if (edge) row_max<true, true>(s, hi, mx);
+    else row_max<true, false>(s, hi, mx);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the 4 lanes of a quad share a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // a row with no link in this tile gets at most kNeg * |scale2|,
+    // below any real logit: a real m stays, and its p are 0 anyway
+    const float m_new = fmaxf(m[r], mx[r] * fabsf(scale2));
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+}
+
 // One CTA per SM walks over work items (a (batch, head) and one block of
 // its rows), item = blockIdx.x + i * gridDim.x: the items of one (batch,
 // head) are neighbours, so the CTAs on the card at once share their
@@ -234,15 +320,15 @@ __device__ __forceinline__ int item_block(int item, int nblk) {
 }
 
 // A work item: its (batch, head), its block of kOwn owned rows from own0,
-// and the streamed tiles [first, last) that meet them: for the forward
-// and dQ the k-tiles (under a causal mask, up to the block's last row),
-// for dK/dV the q-tiles (under a causal mask, from the block's first key
-// on). Args has the kernel's n_heads, sq and sk.
+// and the R-row streamed tiles [first, last) that meet them: for the
+// forward and dQ the k-tiles (under a causal mask, up to the block's
+// last row), for dK/dV the q-tiles (under a causal mask, from the
+// block's first key on). Args has the kernel's n_heads, sq and sk.
 struct Item {
   int bh, bi, hi, own0, first, last;
 };
 
-template <bool DKV, bool CAUSAL, typename Args>
+template <bool DKV, bool CAUSAL, int R = kStrm, typename Args>
 __device__ __forceinline__ Item work_item(const Args& a, int item,
                                           int nblk) {
   Item it;
@@ -250,10 +336,10 @@ __device__ __forceinline__ Item work_item(const Args& a, int item,
   it.bi = it.bh / a.n_heads;
   it.hi = it.bh % a.n_heads;
   it.own0 = item_block(item, nblk) * kOwn;
-  it.first = DKV && CAUSAL ? it.own0 / kStrm : 0;
-  it.last = ((DKV ? a.sq : a.sk) + kStrm - 1) / kStrm;
+  it.first = DKV && CAUSAL ? it.own0 / R : 0;
+  it.last = ((DKV ? a.sq : a.sk) + R - 1) / R;
   if (!DKV && CAUSAL)
-    it.last = min(it.last, (it.own0 + kOwn - 1) / kStrm + 1);
+    it.last = min(it.last, (it.own0 + kOwn - 1) / R + 1);
   return it;
 }
 

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels: TMA
 // tensor maps and loads, mbarriers, wgmma descriptors and the
-// m64n64k16 bf16 products, setmaxnreg.
+// m64n64k16 and m64n32k16 bf16 products, setmaxnreg.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzling: a tile
 // of R rows x 64 bf16 is R lines of 128 bytes, and the 16-byte chunk c of
@@ -95,7 +95,8 @@ __device__ __forceinline__ void regs_inc() {
 // Descriptor of a 128-byte-swizzled operand starting at shared address
 // `addr`. Both offsets are 1024 bytes: the stride between groups of 8
 // lines, whichever of the two fields the operand's major mode reads it
-// from (the other one is not used by an m64n64k16 product).
+// from (the other one is not used by the m64n64k16 and m64n32k16
+// products here).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   constexpr uint64_t kOff = 1024 >> 4;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (kOff << 16) | (kOff << 32) |
@@ -122,11 +123,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// keep the compiler from moving accesses of an accumulator across the
-// asynchronous product that owns it
+// keep the compiler from moving accesses of an accumulator (of N
+// registers) across the asynchronous product that owns it
+template <int N = 32>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 #define PT_WG_ACC32(d)                                                      \
@@ -227,6 +229,49 @@ __device__ __forceinline__ void wgmma_rs_t(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define PT_WG_ACC16(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+#define PT_WG_OUT16(d)                                                      \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),   \
+      "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),          \
+      "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+
+#define PT_WG_REGS16                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// wgmma_ss at N = 32 (m64n32k16): d = A B^T (ACC: d += A B^T), A [64 x
+// 16] and B [32 x 16] both K-major in shared memory; slot i of a thread's
+// 16 is row 16 w + g + 8 ((i % 4) / 2), column 8 (i / 4) + 2 t + i % 2
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " PT_WG_REGS16
+        ", %16, %17, 1, 1, 1, 0, 0;\n"
+        "}\n"
+        : PT_WG_ACC16(d)
+        : "l"(da), "l"(db));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " PT_WG_REGS16
+        ", %16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : PT_WG_OUT16(d)
+        : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+#undef PT_WG_REGS16
+#undef PT_WG_OUT16
+#undef PT_WG_ACC16
 #undef PT_WG_REGS32
 #undef PT_WG_OUT32
 #undef PT_WG_ACC32

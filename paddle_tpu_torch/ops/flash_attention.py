@@ -9,9 +9,12 @@ nvcc at first use (ops/_build.py) and called through ctypes:
   the dQ one computing delta too);
 - in bf16 all three are wgmma kernels fed by TMA, on one pipeline
   (csrc/flash_wgmma.cuh); in f32 exact FFMA kernels;
-- at head_dim 256, where those designs do not fit, all three run as the
-  FFMA kernels of csrc/flash_attn_d256.cu in both dtypes (bf16 read and
-  written as bf16, computed in f32), under the same launch counts;
+- at head_dim 256, where those designs do not fit: in bf16 the forward
+  and dQ run as the wgmma kernels of csrc/flash_attn_wg256.cu (on the
+  same pipeline, one owned buffer, dQ on 32-row tiles) and dK/dV as the
+  FFMA kernel of csrc/flash_attn_d256.cu (bf16 read and written as bf16,
+  computed in f32); in f32 all three run as that file's FFMA kernels;
+  under the same launch counts;
 - above 256, at a multiple of 256, as the FFMA kernels of
   csrc/flash_attn_wide.cu (the output's head_dim split over the grid in
   256-wide chunks, the products over the whole head_dim summed chunk by
@@ -74,9 +77,13 @@ __all__ = ["flash_attention_mha", "flash_attention_fwd",
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 # the head_dim of csrc/flash_attn_d256.cu's kernels (its entries carry the
-# suffix _d256 and take the arguments of the others); above it,
-# csrc/flash_attn_wide.cu's (suffix _wide) take every multiple of it
+# suffix _d256 and take the arguments of the others) and of
+# csrc/flash_attn_wg256.cu's bf16 forward and dQ (suffix _wg256); above
+# it, csrc/flash_attn_wide.cu's (suffix _wide) take every multiple of it
 _D256 = 256
+# the entries csrc/flash_attn_wg256.cu has (bf16 only): dK/dV at 256
+# stays on flash_attn_d256.cu in both dtypes
+_WG256_ENTRIES = ("pt_flash_attn_fwd", "pt_flash_attn_bwd_dq")
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
 # (the kernels', and the meta device, which traces a card step; the
 # CPU's plain version takes any head_dim)
@@ -101,6 +108,7 @@ _ARGTYPES = {
 }
 _ARGTYPES.update({f"{k}_{w}": v for k, v in list(_ARGTYPES.items())
                   for w in ("d256", "wide")})
+_ARGTYPES.update({f"{k}_wg256": _ARGTYPES[k] for k in _WG256_ENTRIES})
 
 
 def _check(q, k, v):
@@ -264,11 +272,15 @@ def _entry(lib_name, fn_name):
     return fn
 
 
-def _kernel_entry(lib_name, fn_name, h):
-    """(source, entry) of the kernel at head_dim h: csrc/<lib_name>.cu's
-    fn_name, its _d256 twin in csrc/flash_attn_d256.cu at 256, or its
-    _wide twin in csrc/flash_attn_wide.cu above 256."""
+def _kernel_entry(lib_name, fn_name, h, dtype):
+    """(source, entry) of the kernel at head_dim h for dtype:
+    csrc/<lib_name>.cu's fn_name; at 256 its _wg256 twin in
+    csrc/flash_attn_wg256.cu for the bf16 forward and dQ, else its _d256
+    twin in csrc/flash_attn_d256.cu; its _wide twin in
+    csrc/flash_attn_wide.cu above 256."""
     if h == _D256:
+        if dtype == torch.bfloat16 and fn_name in _WG256_ENTRIES:
+            return "flash_attn_wg256", f"{fn_name}_wg256"
         return "flash_attn_d256", f"{fn_name}_d256"
     if h > _D256:
         return "flash_attn_wide", f"{fn_name}_wide"
@@ -316,7 +328,8 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
     seed_t = _seed_arg(seed, dropout_p, q.device)
     o = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-    _launch(*_kernel_entry("flash_attn_fwd", "pt_flash_attn_fwd", h), q,
+    _launch(*_kernel_entry("flash_attn_fwd", "pt_flash_attn_fwd", h,
+                           q.dtype), q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,
              *_strides(q, k, v), *_tail(causal, scale, dropout_p, seed_t)])
@@ -333,14 +346,14 @@ def _bwd_delta(o, do):
 
 def _delta_in_kernel(dtype, head_dim=None):
     """True when the dQ kernel computes delta for this dtype and
-    head_dim: the dQ entry's delta buffer is then its output (bf16 at 64
-    and 128, dq_wgmma; both dtypes above 256, dq_wide), else its input,
-    filled by _bwd_delta (f32, dq_simt; both dtypes at 256, dq_d256).
-    csrc/flash_attn_bwd.cu's launch_dq picks the kernel by the same
-    dtype rule."""
+    head_dim: the dQ entry's delta buffer is then its output (bf16 at 64,
+    128 and 256, dq_wgmma and dq_wg256; both dtypes above 256, dq_wide),
+    else its input, filled by _bwd_delta (f32 up to 256, dq_simt and
+    dq_d256). csrc/flash_attn_bwd.cu's launch_dq and _kernel_entry pick
+    the kernel by the same dtype rule."""
     if head_dim is not None and head_dim > _D256:
         return True
-    return dtype == torch.bfloat16 and head_dim != _D256
+    return dtype == torch.bfloat16
 
 
 def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
@@ -358,7 +371,8 @@ def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
     else:
         delta = _bwd_delta(o, do)
     dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
-    _launch(*_kernel_entry("flash_attn_bwd", "pt_flash_attn_bwd_dq", h), q,
+    _launch(*_kernel_entry("flash_attn_bwd", "pt_flash_attn_bwd_dq", h,
+                           q.dtype), q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              _KERNEL_DTYPES[q.dtype], b, n, sq, k.shape[1], h,
@@ -380,8 +394,8 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
     lse = lse.contiguous()
     dk = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
-    _launch(*_kernel_entry("flash_attn_bwd", "pt_flash_attn_bwd_dkv", h),
-            q,
+    _launch(*_kernel_entry("flash_attn_bwd", "pt_flash_attn_bwd_dkv", h,
+                           q.dtype), q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _KERNEL_DTYPES[q.dtype], b, n, sq, sk, h,

@@ -1580,11 +1580,15 @@ def test_seq2seq_rescore_catches_a_wrong_back_trace(cs, monkeypatch):
 
 def test_head_dim_256_cases_and_rows(cs):
     """head_pad runs 192 (padded to 256) and 256; the d256 file's
-    instantiations are its 3 kernels x 2 dtypes x causal x dropout; the
-    kernels line's rows carry each case's times, bound and SDPA's."""
+    instantiations are its 3 f32 kernels and its bf16 dK/dV x causal x
+    dropout, the wg256 file's its bf16 forward and dQ x causal x
+    dropout; the kernels line's rows carry each case's device kernel,
+    times, bound and SDPA's."""
     assert {192, 256} <= set(cs.PAD_HEAD_DIMS) and cs.D256_SHAPE[3] == 256
-    assert cs.D256_INSTANTIATIONS == 3 * 2 * 2 * 2
-    case = dict(dtype="bfloat16", causal=True, dropout_p=0.1, fwd_ms=4.5,
+    assert cs.D256_INSTANTIATIONS == (3 + 1) * 2 * 2
+    assert cs.WG256_INSTANTIATIONS == 2 * 2 * 2
+    case = dict(dtype="bfloat16", b=8, n=8, h=256, layout="qkv views",
+                causal=True, dropout_p=0.1, fwd_ms=4.5,
                 fwd_plain_ms=30.0, fwd_bound_ms=0.04, fwd_bound_by="bytes",
                 fwd_library_ms=0.3, dq_ms=6.0, dq_plain_ms=20.0,
                 dq_bound_ms=0.05, dq_bound_by="operations", dkv_ms=6.2,
@@ -1592,11 +1596,81 @@ def test_head_dim_256_cases_and_rows(cs):
                 dkv_bound_by="operations", backward_library_ms=0.4,
                 o_max_abs_err=1e-3, dq_max_abs_err=2e-3,
                 dk_max_abs_err=3e-3, dv_max_abs_err=4e-3)
-    rows = cs.d256_kernel_rows([case])
+    rows = cs.d256_kernel_rows([case, dict(case, dtype="float32")])
+    assert [[r["kernel"] for r in rows[k]] for k in cs.KERNEL_EVENTS] == [
+        ["fwd_wg256", "fwd_d256"], ["dq_wg256", "dq_d256"],
+        ["dkv_d256", "dkv_d256"]]
     assert rows["flash_attn_fwd"][0]["library_ms"] == 0.3
     assert rows["flash_attn_bwd_dq"][0]["backward_library_ms"] == 0.4
     assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 4e-3
     assert rows["flash_attn_bwd_dkv"][0]["bound_by"] == "operations"
+
+
+@pytest.mark.parametrize("name,wrapper", [
+    ("void (anonymous namespace)::fwd_wg256<false, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, Args)", "flash_attn_fwd"),
+    ("void (anonymous namespace)::dq_wg256<true, false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Args)",
+     "flash_attn_bwd_dq"),
+    ("void (anonymous namespace)::dkv_d256<__nv_bfloat16, false, true>("
+     "Args)", "flash_attn_bwd_dkv"),
+    ("void (anonymous namespace)::fwd_d256<float, true, false>(Args)",
+     "flash_attn_fwd"),
+    ("void (anonymous namespace)::dq_wide<float, false, false>(WideArgs)",
+     "flash_attn_bwd_dq"),
+])
+def test_head_dim_256_kernels_count_for_their_wrapper(cs, name, wrapper):
+    """The head_dim-256 and wide kernels' profiler names count for the
+    wrapper that launches them, by the route D256_ROUTES names, and
+    their time for the attention category."""
+    got = cs.kernel_launches([name])
+    assert got == {k: int(k == wrapper) for k in cs.KERNEL_EVENTS}
+    cat = next(c for c, keys in cs.PROFILE_CATEGORIES
+               if any(k in name for k in keys))
+    assert cat == "flash attention kernels"
+    if "256" in name:
+        dtype = "float32" if "float" in name else "bfloat16"
+        assert cs.D256_ROUTES[dtype][wrapper] in name
+
+
+def _encoder_256_row():
+    one = {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 1,
+           "flash_attn_bwd_dkv": 1}
+    return dict(
+        captured_vs_eager=dict(losses_bit_equal=True, params_bit_equal=True),
+        graphs=1, sentinel_events=0, launches_per_step=dict(one),
+        warmup_launches=dict(one),
+        routes_per_step={"fwd_wg256": 1, "dq_wg256": 1, "dkv_d256": 1},
+        losses=[2.0, 1.98, 1.7])
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("replay", "bit-equal"), ("graphs", "graphs"),
+    ("launches", "one of each"), ("route", "expected"),
+    ("nan", "non-finite")])
+def test_encoder_256_gates_name_each_failure(cs, breakage, word):
+    """The head_dim-256 training phase fails on a replay that is not
+    bit-equal to eager, a second graph, a kernel launched other than
+    once a step, another route than the wgmma forward and dQ and the
+    FFMA dK/dV (an FFMA forward in bf16 would be the old route), and a
+    non-finite loss."""
+    row = _encoder_256_row()
+    if breakage == "replay":
+        row["captured_vs_eager"]["losses_bit_equal"] = False
+    elif breakage == "graphs":
+        row["graphs"] = 2
+    elif breakage == "launches":
+        row["launches_per_step"]["flash_attn_bwd_dq"] = 2
+    elif breakage == "route":
+        row["routes_per_step"] = {"fwd_d256": 1, "dq_wg256": 1,
+                                  "dkv_d256": 1}
+    elif breakage == "nan":
+        row["losses"][2] = float("nan")
+    bad = cs.encoder_256_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
 
 
 def _srl_row():
@@ -1676,7 +1750,8 @@ def test_wide_cases_and_rows(cs):
     assert cs.WIDE_INSTANTIATIONS == 3 * 2 * 2 * 2
     assert [fa.kernel_head_dim(h) for h in cs.WIDE_HEAD_DIMS] == \
         [512, 512, 1024]
-    kernel = dict(dtype="float32", causal=False, dropout_p=0.0, fwd_ms=1.6,
+    kernel = dict(dtype="float32", b=2, n=4, h=1024, layout="qkv views",
+                  causal=False, dropout_p=0.0, fwd_ms=1.6,
                   fwd_plain_ms=1.3, fwd_bound_ms=0.1, fwd_bound_by="operations",
                   fwd_library_ms=0.2, dq_ms=2.0, dq_plain_ms=3.0,
                   dq_bound_ms=0.2, dq_bound_by="operations", dkv_ms=2.1,
@@ -1688,6 +1763,7 @@ def test_wide_cases_and_rows(cs):
     rows = cs.wide_kernel_rows([padded, kernel])
     assert [len(v) for v in rows.values()] == [1, 1, 1]
     assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 3e-6
+    assert rows["flash_attn_fwd"][0]["kernel"] is None
 
 
 def test_collatz_loop_counts_the_trips_on_the_cpu(cs):

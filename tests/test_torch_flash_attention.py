@@ -329,20 +329,31 @@ def test_head_dim_above_256_launches_the_wide_entries(monkeypatch, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
-    """At head_dim 256 the wrappers call csrc/flash_attn_d256.cu's three
-    entries with the arguments of the others, and the dQ entry reads
-    delta from torch ops in both dtypes (it does not compute it)."""
+    """At head_dim 256 the wrappers call entries with the arguments of
+    the others: in bf16 csrc/flash_attn_wg256.cu's forward and dQ (the
+    wgmma kernels; the dQ entry computes delta, and its delta buffer is
+    the one the dK/dV entry reads), then csrc/flash_attn_d256.cu's dK/dV;
+    in f32 the three entries of csrc/flash_attn_d256.cu, the dQ entry
+    reading delta from torch ops."""
     calls = _record_launches(monkeypatch)
+    if dtype == torch.bfloat16:
+        monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
+            "delta computed by torch ops in bf16 at head_dim 256"))
     q, k, v = (torch.randn(1, 8, 2, 256).to(dtype) for _ in range(3))
     o, lse = fa._flash_fwd_cuda(q, k, v, True, 0.0625)
     fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), True, 0.0625)
+    fwd_dq = (("flash_attn_wg256", "_wg256") if dtype == torch.bfloat16
+              else ("flash_attn_d256", "_d256"))
     assert [c[:2] for c in calls] == [
-        ("flash_attn_d256", "pt_flash_attn_fwd_d256"),
-        ("flash_attn_d256", "pt_flash_attn_bwd_dq_d256"),
+        (fwd_dq[0], "pt_flash_attn_fwd" + fwd_dq[1]),
+        (fwd_dq[0], "pt_flash_attn_bwd_dq" + fwd_dq[1]),
         ("flash_attn_d256", "pt_flash_attn_bwd_dkv_d256")]
     assert [len(c[2]) + 1 for c in calls] == [
         len(fa._ARGTYPES[c[1]]) for c in calls]
-    assert not fa._delta_in_kernel(dtype, 256)
+    assert calls[1][2][6] == calls[2][2][5]   # the dQ entry's delta
+    assert calls[0][2][5] == calls[1][2][8] == calls[2][2][8] \
+        == fa._KERNEL_DTYPES[dtype]
+    assert fa._delta_in_kernel(dtype, 256) == (dtype == torch.bfloat16)
     assert fa._delta_in_kernel(torch.bfloat16, 128)
 
 
