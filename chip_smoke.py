@@ -16,9 +16,9 @@ Phases, each of which fails the run on any mismatch:
    started together), with ptxas's register and spill report. A spill
    or a wgmma serialisation (ptxas C7515/C7512) in a head_dim-64 bf16
    wgmma kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) fails the run, as do
-   a spill in any of the 16 head_dim-256 FFMA kernels and a spill or a
-   serialisation in any of the 8 head_dim-256 wgmma kernels (phase
-   40). From
+   a spill in any of the 12 head_dim-256 FFMA kernels or the 20 above
+   it, and a spill or a serialisation in any of the 12 head_dim-256
+   wgmma kernels or the 4 above it (phases 40 and 43). From
    the built forward's SASS (cuobjdump -sass), the instructions per
    Philox4x32-10 call of the dropout kernel's keep-bit loop, for the
    forward's Philox floor (see 4).
@@ -529,9 +529,8 @@ Phases, each of which fails the run on any mismatch:
    The path launches none of the port's own kernels.
 40. Head_dim 256 (`d256_case`, `d256_routes`, `mask_probe` at h 256,
    `encoder_256`, after `head_pad`): in bf16 csrc/flash_attn_wg256.cu's
-   wgmma forward and dQ (the dQ kernel computing delta) and
-   csrc/flash_attn_d256.cu's FFMA dK/dV (bf16 read and written as bf16,
-   computed in f32), in f32 that file's three FFMA kernels, at b 8, s
+   wgmma forward, dQ (computing delta) and dK/dV, in f32
+   csrc/flash_attn_d256.cu's three FFMA kernels, at b 8, s
    1024, n 8, h 256, strided qkv views, f32 and bf16, p 0 and 0.1,
    causal and not, and in bf16 at encoder_256's attention (b 8, s 1024,
    n 16, p 0.1, separate q, k and v), each held row by row against the
@@ -540,14 +539,13 @@ Phases, each of which fails the run on any mismatch:
    kernels a forward and backward runs in each dtype, by name, counted
    by torch.profiler; the mask probes at D256_SHAPE; `head_pad` runs
    head_dims 192 and 256 through flash_attention_fwd (192 padded to
-   256); ptxas must report the 16 instantiations of the FFMA file and
-   the 8 of the wgmma file with no spill. `encoder_256`:
+   256); ptxas must report the 12 instantiations of the FFMA file and
+   the 12 of the wgmma file with no spill. `encoder_256`:
    nn.TransformerEncoderLayer(4096, 16, 16384) (head_dim 256), 8 x 1024
    tokens, O1 bf16, dropout 0.1, AdamW, one captured TrainStep step and
    one replay bit-equal to two eager steps; a replay's attention
-   kernels counted by torch.profiler (the wgmma forward and dQ and the
-   FFMA dK/dV, once each); step ms, device ms by category and
-   attention's share of it.
+   kernels counted by torch.profiler (the three wgmma kernels, once
+   each); step ms, device ms by category and attention's share of it.
 41. AMP on the card (`amp_card`, after `ops_card`): each op the JAX
    package registers under a name on its AMP lists (AMP_OPS) under
    auto_cast O1 and O2 from bf16 and f32 inputs: the lists' output
@@ -568,13 +566,21 @@ Phases, each of which fails the run on any mismatch:
    the last 10 losses below the first 10's. No kernel of the port runs
    on this path.
 43. Head_dim above 256 (`wide_case`, `mask_probe` at h 512 and 1024,
-   after `d256_case`): csrc/flash_attn_wide.cu's forward, dQ and dK/dV
-   kernels at WIDE_SHAPE (b 2, s 512, n 4) against their plain
-   versions, row by row at TOL, f32 and bf16, p 0 and 0.1, causal and
-   not: at h 512 and 1024 on the kernels' entries (bwd_kernel_case, the
-   dQ kernel's own delta held too), at 320 through the autograd entry
-   (padded to 512; pad_case); each case launches every kernel; ptxas
-   reports no spill in the 24 instantiations.
+   `encoder_wide`, after `d256_case`): the bf16 forward on
+   csrc/flash_attn_wgwide.cu's wgmma kernel, the f32 forward and both
+   dtypes' dQ and dK/dV on csrc/flash_attn_wide.cu's FFMA kernels, at
+   WIDE_SHAPE (b 2, s 512, n 4) against their plain versions, row by
+   row at TOL, f32 and bf16, p 0 and 0.1, causal and not: at h 512 and
+   1024 on the kernels' entries (bwd_kernel_case, the dQ kernel's own
+   delta held too; the bf16 forward also timed alone on the card,
+   fwd_device_ms), at 320 through the autograd entry (padded to 512;
+   pad_case), and in bf16 at encoder_wide's attention (b 8, s 1024, n 8,
+   h 512, p 0.1, separate q, k and v); each case launches every kernel;
+   ptxas reports no spill in the 20 FFMA and 4 wgmma instantiations and
+   no serialisation in the 4. `encoder_wide`: encoder_256's step at
+   nn.TransformerEncoderLayer(4096, 8, 16384) (head_dim 512), its
+   replay holding the wgmma forward and the FFMA dQ and dK/dV once
+   each.
 44. Captured while_loop (`graph_while`, after the head_dim cases):
    ops.control_flow.while_loop inside static/capture.py's capture, a
    conditional WHILE node (csrc/graph_while.cu): Collatz steps of 4
@@ -599,9 +605,10 @@ Phases, each of which fails the run on any mismatch:
 Output: a JSON line per phase; then the
 `kernels` line (each flash kernel with its launches a Transformer-base
 step and its times at the cross-attention and encoder self-attention
-shapes, its head_dim-256 cases and those above 256; the head_dim-256
-bf16 path's three kernels, wgmma forward and dQ and FFMA dK/dV, with
-encoder_256's launches and their times at its attention shape; the
+shapes, its head_dim-256 cases and those above 256; the kernels of the
+bf16 paths at head_dim 256 (the three wgmma kernels) and 512 (the wgmma
+forward, the FFMA dQ and dK/dV), with encoder_256's and encoder_wide's
+launches and their times at their attention shapes; the
 captured loop's set_condition kernel; the run's phase_seconds), the card's
 nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
@@ -1331,21 +1338,20 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal, sk=None,
 # and 96 (padded to 64 and 128), 192 (padded to 256) and 256 itself
 # (nn.MultiHeadAttention(4096, 16)'s head width)
 PAD_HEAD_DIMS = (32, 96, 192, 256)
-# head_dim 256: b, s, n, h of the kernel cases; in bf16 the forward and
-# dQ on csrc/flash_attn_wg256.cu's wgmma kernels, in f32 and bf16's
-# dK/dV on csrc/flash_attn_d256.cu's FFMA kernels
+# head_dim 256: b, s, n, h of the kernel cases; in bf16 the three
+# kernels on csrc/flash_attn_wg256.cu's wgmma kernels, in f32 on
+# csrc/flash_attn_d256.cu's FFMA kernels
 D256_SHAPE = (8, 1024, 8, 256)
 D256_SOURCE = "flash_attn_d256"
-# its instantiations: 3 kernels in f32 and dK/dV in bf16, x causal x
-# dropout
-D256_INSTANTIATIONS = 16
+# its instantiations: 3 kernels in f32 x causal x dropout
+D256_INSTANTIATIONS = 12
 WG256_SOURCE = "flash_attn_wg256"
-# its instantiations: the forward and dQ x causal x dropout
-WG256_INSTANTIATIONS = 8
+# its instantiations: the forward, dQ and dK/dV x causal x dropout
+WG256_INSTANTIATIONS = 12
 # the device kernels of each wrapper at head_dim 256, by dtype
 D256_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wg256",
                             "flash_attn_bwd_dq": "dq_wg256",
-                            "flash_attn_bwd_dkv": "dkv_d256"},
+                            "flash_attn_bwd_dkv": "dkv_wg256"},
                "float32": {"flash_attn_fwd": "fwd_d256",
                            "flash_attn_bwd_dq": "dq_d256",
                            "flash_attn_bwd_dkv": "dkv_d256"}}
@@ -1410,8 +1416,8 @@ def d256_routes(torch, fa):
 
 def d256_mask_probe_phase(torch, fa):
     """The head_dim-256 kernels' own dropout masks, link for link
-    (mask_probe_case), f32 and bf16 (the wgmma forward and dQ, the FFMA
-    dK/dV), causal and not, at D256_SHAPE."""
+    (mask_probe_case), f32 (the FFMA kernels) and bf16 (the wgmma
+    kernels), causal and not, at D256_SHAPE."""
     b, s, n, h = D256_SHAPE
     return [mask_probe_case(torch, fa, b, n, h, s, dt, causal=causal)
             for dt in ("bfloat16", "float32") for causal in (False, True)]
@@ -1419,19 +1425,21 @@ def d256_mask_probe_phase(torch, fa):
 
 def d256_kernel_rows(cases):
     """{kernel: [per-case times, errors and bounds]} of the head_dim-256
-    cases, for the `kernels` line's rows; `kernel` names the device
-    kernel of the case's dtype (D256_ROUTES; wide_kernel_rows: none)."""
+    cases (and above it, wide_kernel_rows), for the `kernels` line's
+    rows; `kernel` names the device kernel of the case's dtype
+    (D256_ROUTES, WIDE_ROUTES)."""
     keys = {"flash_attn_fwd": ("fwd", "o"), "flash_attn_bwd_dq": ("dq", "dq"),
             "flash_attn_bwd_dkv": ("dkv", "dk")}
     out = {}
     for name, (t, e) in keys.items():
         out[name] = [dict(
-            kernel=(D256_ROUTES[c["dtype"]][name] if c["h"] == 256
-                    else None),
+            kernel=(D256_ROUTES if c["h"] == 256
+                    else WIDE_ROUTES)[c["dtype"]][name],
             dtype=c["dtype"], b=c["b"], n=c["n"], layout=c["layout"],
             causal=c["causal"], dropout_p=c["dropout_p"],
             ms=c[f"{t}_ms"], plain_ms=c[f"{t}_plain_ms"],
             bound_ms=c[f"{t}_bound_ms"], bound_by=c[f"{t}_bound_by"],
+            device_ms=c.get(f"{t}_device_ms"),
             library_ms=c["fwd_library_ms"] if t == "fwd" else None,
             backward_library_ms=(None if t == "fwd"
                                  else c["backward_library_ms"]),
@@ -1453,28 +1461,36 @@ ENC256_WARMUP, ENC256_STEPS = 2, 5
 # its attention as the kernels see it: b, sq, n, h, causal, dtype, p,
 # sk, separate q, k and v (MultiHeadAttention's three projections)
 ENC256_ATTN = (8, 1024, 16, 256, False, "bfloat16", DROP_P, 1024, True)
+# the same step above head_dim 256: nn.TransformerEncoderLayer(4096, 8,
+# 16384), head_dim 512 (nn.MultiHeadAttention(4096, 8)'s head width), on
+# the wgmma forward of csrc/flash_attn_wgwide.cu and the FFMA dQ and
+# dK/dV of csrc/flash_attn_wide.cu
+ENCWIDE = dict(ENC256, nhead=8)
+ENCWIDE_ATTN = (8, 1024, 8, 512, False, "bfloat16", DROP_P, 1024, True)
 
 
-def encoder_256_phase(torch, pt, fa):
-    """One layer of ENC256 trained through the captured TrainStep at
-    ENC256_BATCH. From one start state, the first call (its eager
-    warm-up, then the capture) and one replay at STEP_SEEDS[:2] against
-    two eager steps: losses and every parameter bit-equal. The attention
-    kernels a replay runs, counted on the card by torch.profiler
-    (profile_step): each of the three once, by the names D256_ROUTES
-    gives bf16 (the wgmma forward and dQ, the FFMA dK/dV). Then
-    ENC256_WARMUP + ENC256_STEPS replays on a synchronised host clock:
-    step ms beside a replay's device ms by category and attention's
-    share of it, the idle share, tokens/s, peak memory over the first
-    call. The kernels' counts are zeroed just before the path."""
+def encoder_256_phase(torch, pt, fa, key="encoder_256"):
+    """One layer of ENCODERS[key]'s config trained through the captured
+    TrainStep at ENC256_BATCH. From one start state, the first call (its
+    eager warm-up, then the capture) and one replay at STEP_SEEDS[:2]
+    against two eager steps: losses and every parameter bit-equal. The
+    attention kernels a replay runs, counted on the card by
+    torch.profiler (profile_step): each of the three once, by the names
+    ENCODERS[key] gives (at head_dim 256 the three wgmma kernels; at 512
+    the wgmma forward and the FFMA dQ and dK/dV). Then ENC256_WARMUP +
+    ENC256_STEPS replays on a synchronised host clock: step ms beside a
+    replay's device ms by category and attention's share of it, the idle
+    share, tokens/s, peak memory over the first call. The kernels'
+    counts are zeroed just before the path."""
     from paddle_tpu_torch.static import TrainStep
+    cfg, routes = ENCODERS[key]
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     b, s = ENC256_BATCH
-    d = ENC256["d_model"]
+    d = cfg["d_model"]
     pt.seed(SEED)
-    model = pt.nn.TransformerEncoderLayer(**ENC256, device="cuda")
+    model = pt.nn.TransformerEncoderLayer(**cfg, device="cuda")
     opt = pt.optimizer.AdamW(learning_rate=1e-4,
                              parameters=model.parameters(),
                              weight_decay=0.01)
@@ -1518,9 +1534,9 @@ def encoder_256_phase(torch, pt, fa):
     step_ms = secs / ENC256_STEPS * 1e3
     attn_ms = prof["categories"].get("flash attention kernels", 0.0)
     kernel_ms = {name: sum(r["ms"] for r in prof["top"] if name in r["name"])
-                 for name in D256_ROUTES["bfloat16"].values()}
+                 for name in routes.values()}
     row = dict(card=nvidia_smi(), model="nn.TransformerEncoderLayer",
-               config=dict(ENC256, head_dim=d // ENC256["nhead"]),
+               config=dict(cfg, head_dim=d // cfg["nhead"]),
                batch=b, seq=s, amp="O1 bfloat16",
                optimizer="AdamW(1e-4, weight_decay=0.01)", loss="mse_loss",
                params=sum(p.numel() for p in step.params),
@@ -1548,15 +1564,16 @@ def encoder_256_phase(torch, pt, fa):
     del model, step, x, y
     torch.cuda.empty_cache()
     row["seconds"] = time.perf_counter() - t0
-    emit({"encoder_256": row})
-    bad = encoder_256_gates(row)
+    emit({key: row})
+    bad = encoder_256_gates(row, routes)
     if bad:
-        fail("encoder_256: " + "; ".join(bad))
+        fail(f"{key}: " + "; ".join(bad))
     return row
 
 
-def encoder_256_gates(row):
-    """The encoder_256 phase's failures, each a message (empty: ok)."""
+def encoder_256_gates(row, routes=D256_ROUTES["bfloat16"]):
+    """The encoder_256 (or encoder_wide) phase's failures, each a message
+    (empty: ok); routes: the kernel names a replay must run once each."""
     bad = []
     cap = row["captured_vs_eager"]
     if not (cap["losses_bit_equal"] and cap["params_bit_equal"]):
@@ -1569,7 +1586,7 @@ def encoder_256_gates(row):
         bad.append(f"attention launches a step {row['launches_per_step']}"
                    f" (warm-up {row['warmup_launches']}), expected one of "
                    "each")
-    want = {name: 1 for name in D256_ROUTES["bfloat16"].values()}
+    want = {name: 1 for name in routes.values()}
     if row["routes_per_step"] != want:
         bad.append(f"a replay ran {row['routes_per_step']}, expected "
                    f"{want}")
@@ -1578,17 +1595,87 @@ def encoder_256_gates(row):
     return bad
 
 
-# head_dim above 256 on csrc/flash_attn_wide.cu's kernels: b, s, n at
-# every head_dim of WIDE_HEAD_DIMS (320 runs zero-padded to 512 through
-# the autograd entry, the others on the kernels' own entries); the shape
-# is small because the design recomputes the scores once per 256-wide
-# chunk of the output (D / 256 times the head_dim-256 kernels' products)
+def encoder_kernel_rows(paths, cases):
+    """The `kernels` line's rows of the bf16 paths at head_dim 256
+    (encoder_256: the three wgmma kernels of csrc/flash_attn_wg256.cu)
+    and 512 (encoder_wide: the wgmma forward of
+    csrc/flash_attn_wgwide.cu, the FFMA dQ and dK/dV of
+    csrc/flash_attn_wide.cu): paths maps each phase to its row, and
+    each kernel is timed at its path's attention shape (ENC256_ATTN,
+    ENCWIDE_ATTN: the kernel case of `cases` at that shape); launches:
+    the path's (COUNTED_CALLS). Fails if a path launched no kernel of
+    one kind."""
+    pallas = {"fwd": 175, "dq": 283, "dkv": 319}
+    outs = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    srcs = {"wg256": "flash_attn_wg256", "wgwide": "flash_attn_wgwide",
+            "wide": "flash_attn_wide"}
+    rows = []
+    for key, attn in (("encoder_256", ENC256_ATTN),
+                      ("encoder_wide", ENCWIDE_ATTN)):
+        path = paths[key]
+        layer = next(c for c in cases if "fwd_ms" in c
+                     and c["n"] == attn[2] and c["h"] == attn[3]
+                     and c["dtype"] == attn[5]
+                     and c["layout"] == _layout(attn[8]))
+        layer_shape = ("b{} sq{} n{} h{} bfloat16 non-causal dropout {}, "
+                       "separate q, k and v".format(*attn[:4], attn[6]))
+        for wrapper, route in ENCODERS[key][1].items():
+            t = wrapper.rsplit("_", 1)[-1]
+            tail = route.split("_", 1)[1]
+            name = f"{wrapper}_{tail}"
+            rows.append(dict(
+                name=name, route="cuda",
+                source=f"paddle_tpu_torch/csrc/{srcs[tail]}.cu",
+                replaces=f"paddle_tpu/ops/pallas_kernels.py:{pallas[t]} "
+                         "(head_dim {}, the Pallas wrapper's padding at "
+                         ":486-493)".format(attn[3]),
+                device_kernel=route,
+                launches=path["launches"][wrapper],
+                launches_per_step=path["launches_per_step"][wrapper],
+                max_abs_err=max(layer[f"{o}_max_abs_err"]
+                                for o in outs[t]),
+                ms=layer[f"{t}_ms"], plain_ms=layer[f"{t}_plain_ms"],
+                device_ms=layer.get(f"{t}_device_ms"),
+                bound_ms=layer[f"{t}_bound_ms"],
+                bound_by=layer[f"{t}_bound_by"],
+                library_ms=layer["fwd_library_ms"] if t == "fwd" else None,
+                backward_ms=None if t == "fwd" else layer["backward_ms"],
+                backward_library_ms=(None if t == "fwd"
+                                     else layer["backward_library_ms"]),
+                shape=layer_shape, path=key,
+                path_step_ms=path["step_ms"],
+                path_attention_share=path["attention_share"]))
+            if path["launches"][wrapper] == 0:
+                fail(f"the {key} path launched no {name} kernel")
+    return rows
+
+
+# head_dim above 256 on csrc/flash_attn_wide.cu's FFMA kernels and
+# csrc/flash_attn_wgwide.cu's bf16 forward: b, s, n at every head_dim of
+# WIDE_HEAD_DIMS (320 runs zero-padded to 512 through the autograd
+# entry, the others on the kernels' own entries); the shape is small
+# because the FFMA design recomputes the scores once per 256-wide chunk
+# of the output (D / 256 times the head_dim-256 kernels' products)
 WIDE_SHAPE = (2, 512, 4)
 WIDE_HEAD_DIMS = (320, 512, 1024)
 WIDE_SOURCE = "flash_attn_wide"
 GRAPH_WHILE_SOURCE = "graph_while"
-# its instantiations: 3 kernels x 2 dtypes x causal x dropout
-WIDE_INSTANTIATIONS = 24
+# its instantiations: 3 kernels in f32 and dQ and dK/dV in bf16, x
+# causal x dropout
+WIDE_INSTANTIATIONS = 20
+# the bf16 forward above 256 (wgmma): causal x dropout
+WGWIDE_SOURCE = "flash_attn_wgwide"
+WGWIDE_INSTANTIATIONS = 4
+# the device kernels of each wrapper above head_dim 256, by dtype
+WIDE_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wgwide",
+                            "flash_attn_bwd_dq": "dq_wide",
+                            "flash_attn_bwd_dkv": "dkv_wide"},
+               "float32": {"flash_attn_fwd": "fwd_wide",
+                           "flash_attn_bwd_dq": "dq_wide",
+                           "flash_attn_bwd_dkv": "dkv_wide"}}
+# phase -> (layer config, the bf16 kernels a step runs)
+ENCODERS = {"encoder_256": (ENC256, D256_ROUTES["bfloat16"]),
+            "encoder_wide": (ENCWIDE, WIDE_ROUTES["bfloat16"])}
 
 
 def wide_kernel_phase(torch, fa):
@@ -1597,32 +1684,53 @@ def wide_kernel_phase(torch, fa):
     causal and not, at WIDE_SHAPE: bwd_kernel_case at the head_dims the
     kernels take (512, 1024; the dQ kernel's own delta held too), and
     the autograd entry at 320 (pad_case: padded to 512 on the card,
-    against the plain versions at 320). Each case must launch every
-    kernel."""
+    against the plain versions at 320); and in bf16 at the attention
+    shape of the encoder_wide phase (ENCWIDE_ATTN). Each case must launch
+    every kernel. The bf16 forward's cases also time its kernel alone
+    (fwd_device_ms)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 29)
     b, s, n = WIDE_SHAPE
+    cases = [((b, s, n, h, causal, dt, p) if fa.kernel_head_dim(h) == h
+              else (b, s, n, h, causal, dt, p, s, True))
+             for h in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")
+             for p in (0.0, DROP_P) for causal in (False, True)]
+    cases.append(ENCWIDE_ATTN)
     rows = []
-    for h in WIDE_HEAD_DIMS:
-        for dt in ("float32", "bfloat16"):
-            for p in (0.0, DROP_P):
-                for causal in (False, True):
-                    before = dict(fa.launches)
-                    if fa.kernel_head_dim(h) == h:
-                        row = bwd_kernel_case(
-                            torch, fa, gen, (b, s, n, h, causal, dt, p),
-                            None, tag="wide_case", with_fwd=True)
-                    else:
-                        row = pad_case(torch, fa, gen, b, s, s, n, h, dt, p,
-                                       causal, tag="wide_case")
-                    row["launched"] = {k: fa.launches[k] - before[k]
-                                       for k in fa.launches}
-                    if not all(row["launched"].values()):
-                        fail(f"a head_dim-{h} case launched no kernel of "
-                             f"one kind: {row['launched']}")
-                    rows.append(row)
+    for case in cases:
+        b_, s_, n_, h, causal, dt, p, sk, sep = _unpack(case)
+        before = dict(fa.launches)
+        if fa.kernel_head_dim(h) == h:
+            row = bwd_kernel_case(torch, fa, gen, case, None,
+                                  tag="wide_case", with_fwd=True)
+            if dt == "bfloat16":
+                row["fwd_device_ms"] = fwd_device_ms(torch, fa, gen, case)
+        else:
+            row = pad_case(torch, fa, gen, b_, s_, sk, n_, h, dt, p, causal,
+                           tag="wide_case", separate=sep)
+        row["launched"] = {k: fa.launches[k] - before[k]
+                           for k in fa.launches}
+        if not all(row["launched"].values()):
+            fail(f"a head_dim-{h} case launched no kernel of one kind: "
+                 f"{row['launched']}")
+        rows.append(row)
     return rows
+
+
+def fwd_device_ms(torch, fa, gen, case, runs=5):
+    """Device ms of one forward kernel at `case` (bwd_kernel_case's
+    tuple), by torch.profiler: the kernel alone, where time_ms also
+    counts the host's cost of each call, which is more than the kernel's
+    at WIDE_SHAPE."""
+    b, s, n, h, causal, dt, p, sk, sep = _unpack(case)
+    q, k, v = attention_inputs(torch, gen, b, s, sk, n, h,
+                               getattr(torch, dt), sep)
+    sd = seed_card(torch)
+    kern = WIDE_ROUTES[dt]["flash_attn_fwd"]
+    prof = device_profile(torch, lambda: fa._flash_fwd_cuda(
+        q, k, v, causal, 1.0 / math.sqrt(h), p, sd), runs)
+    return sum(r["ms"] for r in prof["top"] if kern in r["name"])
 
 
 def wide_mask_probe_phase(torch, fa):
@@ -2134,9 +2242,10 @@ def train_cpu_check(torch, pt, fa, moe=False):
 PROFILE_CATEGORIES = [
     ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
                                  "dkv_wgmma", "dq_simt", "dkv_simt",
-                                 "fwd_wg256", "dq_wg256", "fwd_d256",
-                                 "dq_d256", "dkv_d256", "fwd_wide",
-                                 "dq_wide", "dkv_wide")),
+                                 "fwd_wg256", "dq_wg256", "dkv_wg256",
+                                 "fwd_d256", "dq_d256", "dkv_d256",
+                                 "fwd_wgwide", "fwd_wide", "dq_wide",
+                                 "dkv_wide")),
     # cuDNN's convolution engines (implicit-GEMM fprop, dgrad, wgrad),
     # ahead of the matmuls, whose xmma/sm90_ fragments they share
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv",
@@ -2154,13 +2263,15 @@ PROFILE_CATEGORIES = [
 
 # the device kernels each wrapper launches, by the fragments of their
 # names that torch.profiler shows (bf16 wgmma, f32 simt; at head_dim 256
-# the bf16 wg256 forward and dQ and the d256 FFMA kernels; above it the
-# wide FFMA kernels)
+# the bf16 wg256 and the f32 d256 FFMA kernels; above it the bf16 wgwide
+# forward and the wide FFMA kernels)
 KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
-                                    "fwd_wg256", "fwd_d256", "fwd_wide"),
+                                    "fwd_wg256", "fwd_d256", "fwd_wgwide",
+                                    "fwd_wide"),
                  "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_wg256",
                                        "dq_d256", "dq_wide"),
-                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt", "dkv_d256",
+                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt",
+                                        "dkv_wg256", "dkv_d256",
                                         "dkv_wide")}
 # what a training run's `launches` counts
 COUNTED_CALLS = ("the first call's warm-up (the wrappers' count) and two "
@@ -8646,7 +8757,9 @@ def main():
                                 (WG256_SOURCE, WG256_INSTANTIATIONS,
                                  "head_dim-256 wgmma"),
                                 (WIDE_SOURCE, WIDE_INSTANTIATIONS,
-                                 "head_dim above 256"),
+                                 "head_dim above 256 FFMA"),
+                                (WGWIDE_SOURCE, WGWIDE_INSTANTIATIONS,
+                                 "head_dim above 256 wgmma"),
                                 (GRAPH_WHILE_SOURCE, 1, "graph_while")):
             if name != src:
                 continue
@@ -8655,9 +8768,10 @@ def main():
             if len(spills) != want or spilling:
                 fail(f"ptxas: {len(spills)} {what} kernels reported "
                      f"(want {want}), spilling: {spilling}")
-            if src == WG256_SOURCE and ptxas_serialised(info["log"]):
-                fail(f"ptxas serialises the wgmma of a head_dim-256 "
-                     f"kernel: {ptxas_serialised(info['log'])}")
+            if (src in (WG256_SOURCE, WGWIDE_SOURCE)
+                    and ptxas_serialised(info["log"])):
+                fail(f"ptxas serialises the wgmma of a {what} kernel: "
+                     f"{ptxas_serialised(info['log'])}")
     emit({"build_seconds": build_s})
     philox = philox_phase(torch, _build)
 
@@ -8672,6 +8786,7 @@ def main():
     clock.lap("head_dim_256")
     wide_cases = wide_kernel_phase(torch, fa)
     wide_probes = wide_mask_probe_phase(torch, fa)
+    encwide = encoder_256_phase(torch, pt, fa, "encoder_wide")
     clock.lap("head_dim_wide")
     graph_while = graph_while_phase(torch, pt)
     clock.lap("graph_while")
@@ -8896,61 +9011,32 @@ def main():
             self_attention=mt_at["self"][kern["name"]])
         # head_dim 256: the kernel cases' rows at D256_SHAPE and at the
         # encoder_256 phase's attention (each row names its device
-        # kernel: the bf16 forward and dQ on csrc/flash_attn_wg256.cu,
-        # the rest on csrc/flash_attn_d256.cu); the launches of the
-        # encoder_256 path
+        # kernel: bf16 on csrc/flash_attn_wg256.cu, f32 on
+        # csrc/flash_attn_d256.cu); the launches of the encoder_256 path
         kern["head_dim_256"] = dict(
             sources=["paddle_tpu_torch/csrc/flash_attn_wg256.cu",
                      "paddle_tpu_torch/csrc/flash_attn_d256.cu"],
             shape="b{} s{} n{} h{}, qkv views".format(*D256_SHAPE),
             launches_encoder_256=enc256["launches"][kern["name"]],
             cases=d256_rows[kern["name"]])
-        # above head_dim 256 (csrc/flash_attn_wide.cu): the kernel cases
-        # at 512 and 1024 (320 runs padded to 512 through the autograd
-        # entry: wide_case rows with entry_fwd_bwd_ms)
+        # above head_dim 256: the kernel cases at 512 and 1024 and at the
+        # encoder_wide phase's attention (the bf16 forward on
+        # csrc/flash_attn_wgwide.cu, the rest on csrc/flash_attn_wide.cu;
+        # 320 runs padded to 512 through the autograd entry: wide_case
+        # rows with entry_fwd_bwd_ms); the launches of the encoder_wide
+        # path
         kern["head_dim_wide"] = dict(
-            source="paddle_tpu_torch/csrc/flash_attn_wide.cu",
+            sources=["paddle_tpu_torch/csrc/flash_attn_wgwide.cu",
+                     "paddle_tpu_torch/csrc/flash_attn_wide.cu"],
             shape="b{} s{} n{}, h 512 and 1024, qkv views".format(
                 *WIDE_SHAPE),
+            launches_encoder_wide=encwide["launches"][kern["name"]],
             cases=wide_rows[kern["name"]])
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
-    # the kernels of the head_dim-256 bf16 path (encoder_256): the wgmma
-    # forward and dQ of csrc/flash_attn_wg256.cu and the FFMA dK/dV of
-    # csrc/flash_attn_d256.cu, timed at that path's attention shape
-    # (ENC256_ATTN); launches: the encoder_256 path's (COUNTED_CALLS)
-    layer = next(c for c in d256_cases if c["n"] == ENC256_ATTN[2])
-    layer_shape = ("b{} sq{} n{} h{} bfloat16 non-causal dropout {}, "
-                   "separate q, k and v".format(*ENC256_ATTN[:4],
-                                                ENC256_ATTN[6]))
-    for name, wrapper, src, line, t, outs in (
-            ("flash_attn_fwd_wg256", "flash_attn_fwd", "flash_attn_wg256",
-             175, "fwd", ("o",)),
-            ("flash_attn_bwd_dq_wg256", "flash_attn_bwd_dq",
-             "flash_attn_wg256", 283, "dq", ("dq",)),
-            ("flash_attn_bwd_dkv_d256", "flash_attn_bwd_dkv",
-             "flash_attn_d256", 319, "dkv", ("dk", "dv"))):
-        kernels.append(dict(
-            name=name, route="cuda",
-            source=f"paddle_tpu_torch/csrc/{src}.cu",
-            replaces=f"paddle_tpu/ops/pallas_kernels.py:{line} (head_dim "
-                     "256, the Pallas wrapper's padding at :486-493)",
-            device_kernel=D256_ROUTES["bfloat16"][wrapper],
-            launches=enc256["launches"][wrapper],
-            launches_per_step=enc256["launches_per_step"][wrapper],
-            max_abs_err=max(layer[f"{o}_max_abs_err"] for o in outs),
-            ms=layer[f"{t}_ms"], plain_ms=layer[f"{t}_plain_ms"],
-            bound_ms=layer[f"{t}_bound_ms"],
-            bound_by=layer[f"{t}_bound_by"],
-            library_ms=layer["fwd_library_ms"] if t == "fwd" else None,
-            backward_ms=None if t == "fwd" else layer["backward_ms"],
-            backward_library_ms=(None if t == "fwd"
-                                 else layer["backward_library_ms"]),
-            shape=layer_shape,
-            encoder_256_step_ms=enc256["step_ms"],
-            encoder_256_attention_share=enc256["attention_share"]))
-        if enc256["launches"][wrapper] == 0:
-            fail(f"the encoder_256 path launched no {name} kernel")
+    kernels += encoder_kernel_rows(
+        {"encoder_256": enc256, "encoder_wide": encwide},
+        d256_cases + wide_cases)
     # greedy NMS: no Pallas origin; at the serving path's shape (640
     # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates
     # of a YOLOv3 batch of 8 at 608)

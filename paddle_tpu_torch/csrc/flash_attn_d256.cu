@@ -1,9 +1,9 @@
 // Flash attention at head_dim 256 for Hopper (sm_90a): the forward, dQ
 // and dK/dV kernels of flash_attn_fwd.cu and flash_attn_bwd.cu for a
-// head_dim their designs do not fit, on the FFMA pipes: all three in
-// float32, and dK/dV in bfloat16. The bf16 forward and dQ at 256 run on
-// the tensor cores in flash_attn_wg256.cu (ops/flash_attention.py's
-// _kernel_entry sends them there), so this file does not build them.
+// head_dim their designs do not fit, on the FFMA pipes, in float32. The
+// bf16 kernels at 256 run on the tensor cores in flash_attn_wg256.cu
+// (ops/flash_attention.py's _kernel_entry sends them there), so this
+// file does not build them.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
 // `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
@@ -17,7 +17,7 @@
 // the un-dropped probabilities and the kept ones scaled by 1/(1-p); the
 // backward recomputes P = exp(Q K^T * scale - lse) and dS = P * (keep *
 // dP / (1-p) - delta), with delta = rowsum(dO * O) given by the caller
-// (in bf16 the dQ kernel of flash_attn_wg256.cu writes it).
+// (from torch ops).
 //
 // Why a kernel of its own. At D = 256 the designs at 64 and 128 do not
 // fit: the f32 dQ and dK/dV kernels of flash_attn_bwd.cu would need
@@ -36,11 +36,8 @@
 // quarter of its FMA rate.
 //
 // The design: simple and exact, not fast. Every kernel is FFMA in f32,
-// templated on the element type T (float for all three, and
-// __nv_bfloat16 for dK/dV): a bf16 input is read as bf16 and widened to
-// f32 in shared memory, every product runs in f32, and the results are
-// rounded to T once when written (the plain versions compute the same
-// way). A CTA of 256 threads holds tiles of
+// templated on the element type T as flash_ffma.cuh's tiles are (built
+// for float only here). A CTA of 256 threads holds tiles of
 // 32 rows x 256 in shared memory, row-major with a stride of 260 floats
 // (16-byte rows for float4 reads, rows 4 banks apart). Thread (r, c) =
 // (tid / 16, tid % 16) owns a 2x2 block of the 32x32 scores, rows 2r and
@@ -64,7 +61,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 #include "flash_ffma.cuh"
 #include "philox.cuh"
@@ -353,33 +349,27 @@ __global__ void __launch_bounds__(kThreads) dkv_d256(Args a) {
 
 enum Which { kFwd, kDq, kDkv };
 
-// the forward and dQ are built for float only, dK/dV for both types
-template <typename T, bool C, bool P>
+template <bool C, bool P>
 cudaError_t launch(Which which, int bn, const Args& a, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, float>) {
-    if (which == kFwd)
-      return go(fwd_d256<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT),
-                kFwdSmem, st, a);
-    if (which == kDq)
-      return go(dq_d256<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT), kDqSmem,
-                st, a);
-  }
-  return go(dkv_d256<T, C, P>, dim3(bn, (a.sk + kT - 1) / kT), kDkvSmem, st,
-            a);
+  if (which == kFwd)
+    return go(fwd_d256<float, C, P>, dim3(bn, (a.sq + kT - 1) / kT),
+              kFwdSmem, st, a);
+  if (which == kDq)
+    return go(dq_d256<float, C, P>, dim3(bn, (a.sq + kT - 1) / kT),
+              kDqSmem, st, a);
+  return go(dkv_d256<float, C, P>, dim3(bn, (a.sk + kT - 1) / kT),
+            kDkvSmem, st, a);
 }
 
-// dtype 0 (float32) for every entry, dtype 1 (bfloat16) for dK/dV only
+// dtype 0 (float32) only
 int dispatch(Which which, int dtype, int b, int d, int causal, int dropout,
              const Args& a, void* stream_ptr) {
-  if (d != kD || !(dtype == 0 || (dtype == 1 && which == kDkv))) return -1;
+  if (d != kD || dtype != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int bn = b * a.n_heads;
-#define PT_GO(T, C, P) launch<T, C, P>(which, bn, a, st)
-#define PT_DROP(T, C) (dropout ? PT_GO(T, C, true) : PT_GO(T, C, false))
-#define PT_CAUSAL(T) (causal ? PT_DROP(T, true) : PT_DROP(T, false))
-  const cudaError_t e =
-      dtype == 1 ? PT_CAUSAL(__nv_bfloat16) : PT_CAUSAL(float);
-#undef PT_CAUSAL
+#define PT_GO(C, P) launch<C, P>(which, bn, a, st)
+#define PT_DROP(C) (dropout ? PT_GO(C, true) : PT_GO(C, false))
+  const cudaError_t e = causal ? PT_DROP(true) : PT_DROP(false);
 #undef PT_DROP
 #undef PT_GO
   return (int)e;
@@ -394,13 +384,12 @@ DropParams drop_args(unsigned int threshold, const void* seed, float rinv) {
 
 // The three entries take the arguments of pt_flash_attn_fwd,
 // pt_flash_attn_bwd_dq and pt_flash_attn_bwd_dkv (flash_attn_fwd.cu,
-// flash_attn_bwd.cu), for d = 256. dtype: 0 = float32 (all three), 1 =
-// bfloat16 (pt_flash_attn_bwd_dkv_d256 only; the bf16 forward and dQ are
-// flash_attn_wg256.cu's entries). Strides are element strides (batch,
-// seq, head) of [b, s, n, h] tensors whose head_dim stride is 1; O is
-// written contiguous [b, sq, n, h], lse f32 [b, n, sq]. Unlike the bf16
-// dQ kernels, the f32 dQ entry here reads delta = rowsum(dO * O) (o is
-// not read); the dK/dV entry reads delta in both dtypes. Returns 0 on
+// flash_attn_bwd.cu), for d = 256 and dtype 0 (float32; the bf16 kernels
+// are flash_attn_wg256.cu's entries). Strides are element strides
+// (batch, seq, head) of [b, s, n, h] tensors whose head_dim stride is 1;
+// O is written contiguous [b, sq, n, h], lse f32 [b, n, sq]. Unlike the
+// bf16 dQ kernels, the dQ entry here reads delta = rowsum(dO * O) (o is
+// not read), as the dK/dV entry does. Returns 0 on
 // success, a cudaError_t code if a launch was refused, or -1 for a dtype
 // / head_dim this file has no kernel for.
 extern "C" int pt_flash_attn_fwd_d256(

@@ -1,28 +1,31 @@
 // Flash attention at head_dim 256 in bf16 on Hopper's tensor cores
-// (sm_90a): the forward (O and lse) and the dQ kernel (dQ and delta), on
-// the warp-specialised wgmma pipeline of flash_wgmma.cuh.
+// (sm_90a): the forward (O and lse), the dQ kernel (dQ and delta) and
+// the dK/dV kernel, on the warp-specialised wgmma pipeline of
+// flash_wgmma.cuh.
 //
-// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175) and
-// `_dq_kernel` (:283) at the head_dims the Pallas wrapper pads to 256
-// (:486-493; ops/flash_attention.py's kernel_head_dim pads 129-255 to
-// 256), in bf16. The same function as fwd_wgmma and dq_wgmma at 64 and
-// 128 (flash_attn_fwd.cu, flash_attn_bwd.cu): the key bound `col < sk`,
+// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
+// `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
+// Pallas wrapper pads to 256 (:486-493; ops/flash_attention.py's
+// kernel_head_dim pads 129-255 to 256), in bf16. The same function as
+// fwd_wgmma, dq_wgmma and dkv_wgmma at 64 and 128 (flash_attn_fwd.cu,
+// flash_attn_bwd.cu): the key bound `col < sk`,
 // the query bound `row < sq`, the top-left causal rule `row >= col`
 // (k-tiles above a warpgroup's rows skipped), masking with -1e30,
 // `l_safe = max(l, 1e-30)`, lse = m + log(l_safe); dropout from
 // philox.cuh's keep bits of (seed, b*n + head, row, col) with the seed
 // read from device memory, l summing the un-dropped probabilities and
 // the kept ones scaled by 1/(1-p); dQ = sum_j dS K * scale with dS =
-// P * (keep * dP / (1-p) - delta) and P recomputed from lse. q, k, v
-// and dO are read as strided [b, s, n, h] views through TMA tensor maps,
-// with no copy. The dK/dV kernel at 256 (both dtypes) and the f32
-// forward and dQ stay in flash_attn_d256.cu.
+// P * (keep * dP / (1-p) - delta) and P recomputed from lse; dV = sum_i
+// dropout(P)^T dO and dK = sum_i dS^T Q * scale, with the delta the dQ
+// kernel wrote. q, k, v and dO are read as strided [b, s, n, h] views
+// through TMA tensor maps, with no copy. The f32 kernels at 256 stay in
+// flash_attn_d256.cu.
 //
 // What bounds it on an H100. At b 8, s 1024, n 8, h 256 the forward does
 // 4 b n s^2 h = 68.7 GFLOP against 4 b s n h x 2 bytes (134 MB): 0.0695
 // ms at 989 TFLOP/s, 0.040 ms at 3.35 TB/s, so it is bound by
-// operations; dQ does 3 such products (0.104 ms) against about 1.5 times
-// the bytes, bound by operations too.
+// operations; dQ does 3 such products (0.104 ms) and dK/dV 4 (0.139 ms)
+// against about 1.5 times the bytes, bound by operations too.
 //
 // Where the 64/128 design breaks at 256, and what this one does.
 //  * Shared memory. A 128-row tile over head_dim 256 is 64 KB (4
@@ -60,8 +63,29 @@
 //    thread pair and 64-key stage in the forward, 8 a 32-key stage in
 //    dQ) and, in dQ, lse * log2(e) and delta = rowsum(dO * O) in f32 of
 //    the item's 128 rows, which dQ uses and writes to [b, n, sq] for
-//    dkv_d256 to read.
-// No atomics: dQ is the same from run to run.
+//    dkv_wg256 to read.
+//  * dK/dV. dkv_wgmma keeps dK and dV of 64 keys in one consumer
+//    warpgroup: at 256 that is two [64 x 256] f32 accumulators, 256
+//    registers a thread. Here both consumer warpgroups own the same 64
+//    keys (a CTA's K and V, 65,536 bytes, one buffer): warpgroup 0
+//    accumulates dV += dropout(P)^T dO, warpgroup 1 dK += dS^T Q, 128
+//    registers each. Per 32-query tile each computes S^T = K Q^T
+//    itself (m64n32k16 over the 16 k-steps of head_dim), warpgroup 1
+//    also dP^T = V dO^T; P^T, or dS^T, is packed to bf16 A fragments
+//    and the product into the accumulator is 4 m64n64k16 per 16
+//    queries with dO or Q read MN-major. That is 5 products a tile
+//    against the 4 the function needs (S^T twice). Handing P^T from
+//    warpgroup 0 to 1 through shared memory instead (4 products, a
+//    barrier a tile, 3 ring stages to make room) measured 5-7% slower
+//    on an H100 at b 8, s 1024, n 8 and 16 (PERF.md): warpgroup
+//    1 then waits for warpgroup 0's S^T and exponentials on every tile,
+//    where it ran its own S^T beside them. A 4-stage
+//    ring of 32-row Q and dO tiles (131,072 bytes), the stage's keep
+//    words (one warpgroup's: both read the same bits), lse and delta
+//    of its 32 queries: 202,848 bytes. The producer's 128 threads
+//    compute the keep bits, 4 Philox calls each a stage (with 64
+//    threads at 8 calls, the keep bits set the pace at p 0.1).
+// No atomics: dQ, dK and dV are the same from run to run.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,10 +116,11 @@ static_assert(kProducers * kProdRegs + kConsumers * kConsRegs <=
 struct Args {
   void* o;            // forward: O written, contiguous; dQ: O read (os)
   const void* dout;   // dQ: read through dos
-  float* lse;         // forward: written; dQ: read
-  float* delta;       // dQ: written
+  float* lse;         // forward: written; dQ, dK/dV: read
+  float* delta;       // dQ: written; dK/dV: read
   void* dq;           // dQ: written through dqs
-  Strides os, dos, dqs;
+  void *dk, *dv;      // dK/dV: written through dks, dvs
+  Strides os, dos, dqs, dks, dvs;
   int batch, n_heads, sq, sk;
   float scale;
   DropParams dp;
@@ -120,7 +145,30 @@ struct Layout {
 };
 using FwdLayout = Layout<kStrm, 1>;
 using DqLayout = Layout<kDqStrm, 2>;
-static_assert(FwdLayout::kBytes <= 232448 && DqLayout::kBytes <= 232448,
+
+constexpr int kKeys = 64;     // keys a dK/dV CTA owns (both consumers)
+constexpr int kDkvStrm = 32;  // rows of dK/dV's streamed Q, dO tiles
+constexpr int kDkvS = 4;      // stages of its ring
+// a dK/dV stage's keep words: one warpgroup's 128 (both consumer
+// warpgroups read the same bits), each in two halves of 8 bits
+constexpr int kKeepWords = 128;
+
+// dK/dV's shared memory: the owned K and V tiles [kH][kKeys lines][128
+// bytes] at 0 and kOwnTile; the Q and dO tiles of stage st at kStrmAt +
+// (i * kDkvS + st) * kStrmTile; the stage's keep words (u32 [128]) at
+// kKeep (u32 [2][128]: the bits of query chunks 0 and 1, and of 2 and
+// 3); its lse * log2(e) and delta (f32 [2][32]) at kStat.
+struct DkvLayout {
+  static constexpr int kOwnTile = kH * kKeys * kLine;
+  static constexpr int kStrmTile = kH * kDkvStrm * kLine;
+  static constexpr int kStrmAt = 2 * kOwnTile;
+  static constexpr int kKeep = kStrmAt + 2 * kDkvS * kStrmTile;
+  static constexpr int kStat = kKeep + kDkvS * 2 * kKeepWords * 4;
+  static constexpr int kBar = kStat + kDkvS * 2 * kDkvStrm * 4;
+  static constexpr int kBytes = kBar + (4 + 2 * kDkvS) * 8 + 1024;
+};
+static_assert(FwdLayout::kBytes <= 232448 && DqLayout::kBytes <= 232448 &&
+                  DkvLayout::kBytes <= 232448,
               "more shared memory than a CTA may use");
 
 // Warpgroup 2 of both kernels: for each work item one thread loads the
@@ -199,39 +247,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
       mbar_arrive(bars.full(st));
     }
   }
-}
-
-// The probabilities of a 64-key tile, p = 2^(s * scale2 - m) of each row
-// (EDGE: 0 past hi[r]; DROP: 0 for a dropped link, times rinv for a kept
-// one, bit i of keep), packed to the bf16 A fragments f of O += P V as
-// they are computed (flash_attn_fwd.cu's row_probs keeps them in f32
-// first: here those 32 registers go to O), and their un-dropped row
-// sums ps
-template <bool DROP, bool EDGE>
-__device__ __forceinline__ void probs_a(const float* s, float scale2,
-                                        const float* m, const int* hi,
-                                        uint32_t keep, float rinv,
-                                        float* ps, uint32_t (*f)[4]) {
-  const int lo[2] = {0, 0};
-  float part[2][4] = {};  // four partial sums a row
-#pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int r = (i >> 1) & 1;
-    float e[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      float x = ex2(fmaf(s[i + u], scale2, -m[r]));
-      if (EDGE && !slot_ok(i + u, lo, hi)) x = 0.f;
-      part[r][u | ((i >> 1) & 2)] += x;
-      if (DROP) x = ((keep >> (i + u)) & 1) ? x * rinv : 0.f;
-      e[u] = x;
-    }
-    // slots 8 j + 2 k and + 1 are A fragment register k of k-step j
-    f[i >> 3][(i >> 1) & 3] = pack_bf16(e[0], e[1]);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    ps[r] = (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
 }
 
 // Warpgroup 2 produces (produce). Warpgroups 0 and 1 consume 64 query
@@ -473,14 +488,219 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// Warpgroup 2 of dkv_wg256: for each work item one thread loads the
+// owned K and V tiles of its 64 keys once the consumers have released
+// the buffer, and the 32-row Q and dO tiles into the ring; threads 0..31
+// stage the tile's lse * log2(e), 32..63 its delta, and all 128 compute
+// its keep bits: thread p those of keep_words' pair p % 64 (of one
+// warpgroup: both consumer warpgroups read the same words) over query
+// chunks 2 (p / 64) and 2 (p / 64) + 1 of the tile's 4.
+template <bool CAUSAL, bool DROP>
+__device__ __forceinline__ void produce_dkv(const CUtensorMap* tq,
+                                            const CUtensorMap* tdo,
+                                            const CUtensorMap* tk,
+                                            const CUtensorMap* tv,
+                                            const Args& a,
+                                            unsigned char* sm) {
+  using L = DkvLayout;
+  constexpr int R = kDkvStrm;
+  const uint32_t base = smem_u32(sm);
+  const Bars<kDkvS> bars{base + L::kBar};
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(sm + L::kKeep);
+  float* stat_s = reinterpret_cast<float*>(sm + L::kStat);
+  const DropParams dp = drop_params<DROP>(a.dp);
+  const int p = threadIdx.x - kConsumers;
+  const int sq = a.sq;
+  const int nblk = (a.sk + kKeys - 1) / kKeys;
+  const int items = a.batch * a.n_heads * nblk;
+  int tile = 0, n = 0;  // streamed tiles and items of this CTA so far
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const Item it = work_item<true, CAUSAL, R, kKeys>(a, item, nblk);
+    mbar_wait(bars.own_empty(0), (n & 1) ^ 1);
+    if (p == 0) {
+      mbar_expect_tx(bars.own_full(0), 2 * L::kOwnTile);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < kH; ++h)
+          tma_load_4d(base + i * L::kOwnTile + h * kKeys * kLine,
+                      i ? tv : tk, bars.own_full(0), h * 64, it.hi,
+                      it.own0, it.bi);
+    }
+    mbar_arrive(bars.own_full(0));
+    for (int j = it.first; j < it.last; ++j, ++tile) {
+      const int st = tile % kDkvS, s0 = j * R;
+      mbar_wait(bars.empty(st), ((tile / kDkvS) & 1) ^ 1);
+      if (p == 0) {
+        mbar_expect_tx(bars.full(st), 2 * L::kStrmTile);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < kH; ++h)
+            tma_load_4d(base + L::kStrmAt + (i * kDkvS + st) * L::kStrmTile +
+                            h * R * kLine,
+                        i ? tdo : tq, bars.full(st), h * 64, it.hi, s0,
+                        it.bi);
+      }
+      if (p < 2 * R) {
+        const int i = s0 + (p & (R - 1));
+        float x = 0.f;
+        if (i < sq)
+          x = p < R ? a.lse[(long long)it.bh * sq + i] * kLog2e
+                    : a.delta[(long long)it.bh * sq + i];
+        stat_s[st * 2 * R + p] = x;
+      }
+      if (DROP) {
+        const int half = p >> 6;
+        keep_words<true, R / 16>(
+            dp, it.bh, it.own0, s0 + half * R / 2, p & 63,
+            keep_s + (2 * st + half) * kKeepWords);
+      }
+      mbar_arrive(bars.full(st));
+    }
+  }
+}
+
+// A consumer warpgroup of dkv_wg256 over the CTA's 64 keys: DK
+// (warpgroup 1) accumulates dK += dS^T Q from S^T = K Q^T and dP^T =
+// V dO^T, else (warpgroup 0) dV += dropout(P)^T dO from S^T alone, per
+// 32-query tile; then writes its accumulator (dK times scale).
+template <bool DK, bool CAUSAL, bool DROP>
+__device__ __forceinline__ void consume_dkv(const Args& a,
+                                            unsigned char* sm) {
+  using L = DkvLayout;
+  constexpr int R = kDkvStrm;
+  const uint32_t base = smem_u32(sm);
+  const Bars<kDkvS> bars{base + L::kBar};
+  const uint32_t* keep_s = reinterpret_cast<const uint32_t*>(sm + L::kKeep);
+  const float* stat_s = reinterpret_cast<const float*>(sm + L::kStat);
+  const int sq = a.sq, sk = a.sk;
+  const int nblk = (sk + kKeys - 1) / kKeys;
+  const int items = a.batch * a.n_heads * nblk;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale2 = a.scale * kLog2e;
+  const uint32_t own_k = base, own_v = base + L::kOwnTile;
+  int tile = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const Item it = work_item<true, CAUSAL, R, kKeys>(a, item, nblk);
+    const int wrow = it.own0 + warp * 16;  // the warp's first key
+    const int rows[2] = {wrow + g, wrow + g + 8};
+    float acc[kH][32];
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+    mbar_wait(bars.own_full(0), n & 1);
+    for (int j = it.first; j < it.last; ++j, ++tile) {
+      const int st = tile % kDkvS, s0 = j * R;
+      const uint32_t strm_q = base + L::kStrmAt + st * L::kStrmTile;
+      const uint32_t strm_do = strm_q + kDkvS * L::kStrmTile;
+      mbar_wait(bars.full(st), (tile / kDkvS) & 1);
+      // S^T = K Q^T (and dP^T = V dO^T)
+      float s[16];
+      [[maybe_unused]] float dp[16];
+      wgmma_fence();
+      scores<kD, R, kKeys>(s, own_k, strm_q);
+      if constexpr (DK) scores<kD, R, kKeys>(dp, own_v, strm_do);
+      wgmma_commit();
+      uint32_t keep = 0u;
+      if (DROP) {
+        const uint32_t* w = keep_s + 2 * st * kKeepWords + (tid & 127);
+        keep = w[0] | (w[kKeepWords] << 8);
+      }
+      wgmma_wait<0>();
+      fence_acc<16>(s);
+      if constexpr (DK) fence_acc<16>(dp);
+      // the warpgroup's last read of K and V
+      if (j == it.last - 1) release(bars.own_empty(0), lane);
+      // the scores are only read from here on (flash_attn_bwd.cu)
+      const bool edge = s0 + R > sq || it.own0 + kKeys > sk ||
+                        (CAUSAL && s0 < wrow + 15);
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lo[r] = CAUSAL ? rows[r] - s0 - 2 * t : -R;
+        hi[r] = rows[r] < sk ? sq - s0 - 2 * t : -R;
+      }
+      const float* lsec = stat_s + st * 2 * R;
+      const float* dlc = lsec + R;
+      float x[16];  // dS^T, or dropout(P)^T
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int qi = (i >> 2) * 8 + 2 * t + (i & 1);
+        float pr = ex2(fmaf(s[i], scale2, -lsec[qi]));
+        if (edge && !slot_ok(i, lo, hi)) pr = 0.f;
+        const bool kept = !DROP || ((keep >> i) & 1);
+        if constexpr (DK) {
+          float d = dp[i];
+          if (DROP) d = kept ? d * a.dp.rinv : 0.f;
+          x[i] = pr * (d - dlc[qi]);
+        } else {
+          x[i] = DROP ? (kept ? pr * a.dp.rinv : 0.f) : pr;
+        }
+      }
+      // dK += dS^T Q, or dV += dropout(P)^T dO
+      uint32_t f[R / 16][4];
+      pack_a<R / 16>(f, x);
+      pin_frags<R / 16>(f);
+      wgmma_fence();
+      accumulate<kD, R>(acc, f, DK ? strm_q : strm_do);
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(bars.empty(st), lane);
+    }
+    // keys that no query sees (causal, sq < sk) release the buffer here
+    if (it.first >= it.last) release(bars.own_empty(0), lane);
+    fence_accs<kD>(acc);
+    if constexpr (DK)
+      store_acc<kD>(static_cast<__nv_bfloat16*>(a.dk) + it.bi * a.dks.b +
+                        it.hi * a.dks.n,
+                    a.dks.s, acc, rows, sk, a.scale, t);
+    else
+      store_acc<kD>(static_cast<__nv_bfloat16*>(a.dv) + it.bi * a.dvs.b +
+                        it.hi * a.dvs.n,
+                    a.dvs.s, acc, rows, sk, 1.f, t);
+  }
+}
+
+// Warpgroup 2 produces (produce_dkv). Warpgroups 0 and 1 consume the
+// same 64 keys: 0 accumulates dV, 1 dK (consume_dkv).
+template <bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_wg256(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_wg256[];
+  unsigned char* sm = align1024(smem_wg256);
+  const Bars<kDkvS> bars{smem_u32(sm) + DkvLayout::kBar};
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (wg == 2) {
+    regs_dec<kProdRegs>();
+    produce_dkv<CAUSAL, DROP>(&tq, &tdo, &tk, &tv, a, sm);
+    return;
+  }
+  regs_inc<kConsRegs>();
+  if (wg == 0)
+    consume_dkv<false, CAUSAL, DROP>(a, sm);
+  else
+    consume_dkv<true, CAUSAL, DROP>(a, sm);
+}
+
 // ------------------------------------------------------------ launching
 
-// one CTA per SM, or one per work item when there are fewer
-cudaError_t grid_of(const Args& a, dim3* grid) {
+// one CTA per SM, or one per work item (rows blocks of `rows` over s
+// rows of each (batch, head)) when there are fewer
+cudaError_t grid_of(const Args& a, int s, int rows, dim3* grid) {
   int sms = 0;
   const cudaError_t e = sm_count(&sms);
-  const long long items =
-      (long long)a.batch * a.n_heads * ((a.sq + kOwn - 1) / kOwn);
+  const long long items = (long long)a.batch * a.n_heads *
+                          ((s + rows - 1) / rows);
   *grid = dim3((unsigned)(items < sms ? items : sms));
   return e;
 }
@@ -497,7 +717,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
       bf16_rows_map(&tv, v, b, a.sk, n, kD, vs.b, vs.s, vs.n, kStrm))
     return cudaErrorInvalidValue;
   dim3 grid;
-  const cudaError_t e = grid_of(a, &grid);
+  const cudaError_t e = grid_of(a, a.sq, kOwn, &grid);
   if (e != cudaSuccess) return e;
   return go(fwd_wg256<C, P>, grid, kWgThreads, FwdLayout::kBytes, stream,
             tq, tk, tv, a);
@@ -517,24 +737,45 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       bf16_rows_map(&tv, v, b, a.sk, n, kD, vs.b, vs.s, vs.n, kDqStrm))
     return cudaErrorInvalidValue;
   dim3 grid;
-  const cudaError_t e = grid_of(a, &grid);
+  const cudaError_t e = grid_of(a, a.sq, kOwn, &grid);
   if (e != cudaSuccess) return e;
   return go(dq_wg256<C, P>, grid, kWgThreads, DqLayout::kBytes, stream, tq,
             tdo, tk, tv, a);
 }
 
+template <bool C, bool P>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const Strides& qs, const Strides& ks,
+                       const Strides& vs, const Args& a,
+                       cudaStream_t stream) {
+  const int b = a.batch, n = a.n_heads;
+  CUtensorMap tq, tdo, tk, tv;
+  if (bf16_rows_map(&tq, q, b, a.sq, n, kD, qs.b, qs.s, qs.n, kDkvStrm) ||
+      bf16_rows_map(&tdo, a.dout, b, a.sq, n, kD, a.dos.b, a.dos.s, a.dos.n,
+                    kDkvStrm) ||
+      bf16_rows_map(&tk, k, b, a.sk, n, kD, ks.b, ks.s, ks.n, kKeys) ||
+      bf16_rows_map(&tv, v, b, a.sk, n, kD, vs.b, vs.s, vs.n, kKeys))
+    return cudaErrorInvalidValue;
+  dim3 grid;
+  const cudaError_t e = grid_of(a, a.sk, kKeys, &grid);
+  if (e != cudaSuccess) return e;
+  return go(dkv_wg256<C, P>, grid, kWgThreads, DkvLayout::kBytes, stream,
+            tq, tdo, tk, tv, a);
+}
+
 }  // namespace
 
-// The two entries take the arguments of pt_flash_attn_fwd and
-// pt_flash_attn_bwd_dq (flash_attn_fwd.cu, flash_attn_bwd.cu) and run
-// only dtype 1 (bfloat16) at d = 256; ops/flash_attention.py's
-// _kernel_entry sends those here. Strides are element strides (batch,
-// seq, head) of [b, s, n, h] tensors whose head_dim stride is 1, in the
-// layout the tensor maps describe: multiples of 8 elements, and a
-// dimension of size 1 given the stride a packed tensor would have. The
-// forward writes O contiguous [b, sq, n, h] and lse f32 [b, n, sq]; the
-// dQ entry reads o for delta = rowsum(dO * O) and writes delta f32 [b,
-// n, sq], which the dK/dV entry then reads. dropout != 0 draws the keep
+// The three entries take the arguments of pt_flash_attn_fwd,
+// pt_flash_attn_bwd_dq and pt_flash_attn_bwd_dkv (flash_attn_fwd.cu,
+// flash_attn_bwd.cu) and run only dtype 1 (bfloat16) at d = 256;
+// ops/flash_attention.py's _kernel_entry sends those here. Strides are
+// element strides (batch, seq, head) of [b, s, n, h] tensors whose
+// head_dim stride is 1, in the layout the tensor maps describe:
+// multiples of 8 elements, and a dimension of size 1 given the stride a
+// packed tensor would have. The forward writes O contiguous [b, sq, n,
+// h] and lse f32 [b, n, sq]; the dQ entry reads o for delta = rowsum(dO
+// * O) and writes delta f32 [b, n, sq], which the dK/dV entry, launched
+// after it on the same stream, then reads. dropout != 0 draws the keep
 // bits from the threshold and the 64-bit seed at `seed` in device memory
 // (lo, hi; read by the kernel); rinv = 1 / (1 - p). Returns 0 on
 // success, a cudaError_t code if a launch or a tensor map was refused,
@@ -587,6 +828,38 @@ extern "C" int pt_flash_attn_bwd_dq_wg256(
   a.dp = {threshold, static_cast<const uint32_t*>(seed), 0u, 0u, rinv};
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
 #define PT_GO(C, P) launch_dq<C, P>(q, k, v, qs, ks, vs, a, st)
+  const cudaError_t e =
+      causal ? (dropout ? PT_GO(true, true) : PT_GO(true, false))
+             : (dropout ? PT_GO(false, true) : PT_GO(false, false));
+#undef PT_GO
+  return (int)e;
+}
+
+extern "C" int pt_flash_attn_bwd_dkv_wg256(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int dtype,
+    int b, int n, int sq, int sk, int d,
+    long long q_sb, long long q_ss, long long q_sn,
+    long long k_sb, long long k_ss, long long k_sn,
+    long long v_sb, long long v_ss, long long v_sn,
+    long long do_sb, long long do_ss, long long do_sn,
+    long long dk_sb, long long dk_ss, long long dk_sn,
+    long long dv_sb, long long dv_ss, long long dv_sn,
+    float scale, int causal, int dropout, unsigned int threshold,
+    const void* seed, float rinv, void* stream_ptr) {
+  if (dtype != 1 || d != kD) return -1;
+  const Strides qs{q_sb, q_ss, q_sn}, ks{k_sb, k_ss, k_sn},
+      vs{v_sb, v_ss, v_sn};
+  Args a{};
+  a.dout = dout;
+  a.lse = const_cast<float*>(lse); a.delta = const_cast<float*>(delta);
+  a.dk = dk; a.dv = dv;
+  a.dos = {do_sb, do_ss, do_sn};
+  a.dks = {dk_sb, dk_ss, dk_sn}; a.dvs = {dv_sb, dv_ss, dv_sn};
+  a.batch = b; a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
+  a.dp = {threshold, static_cast<const uint32_t*>(seed), 0u, 0u, rinv};
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+#define PT_GO(C, P) launch_dkv<C, P>(q, k, v, qs, ks, vs, a, st)
   const cudaError_t e =
       causal ? (dropout ? PT_GO(true, true) : PT_GO(true, false))
              : (dropout ? PT_GO(false, true) : PT_GO(false, false));

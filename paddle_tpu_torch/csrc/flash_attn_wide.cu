@@ -1,7 +1,10 @@
 // Flash attention above head_dim 256 for Hopper (sm_90a): the forward,
 // dQ and dK/dV kernels at any head_dim D that is a multiple of 256 above
 // it (ops/flash_attention.py's kernel_head_dim pads 257 and up to the
-// next one), in float32 and bfloat16.
+// next one), in float32, and dQ and dK/dV in bfloat16. The bf16
+// forward runs on the tensor cores in flash_attn_wgwide.cu
+// (ops/flash_attention.py's _kernel_entry sends it there), so this file
+// does not build it.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
 // `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
@@ -36,6 +39,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_ffma.cuh"
 #include "philox.cuh"
@@ -366,11 +371,14 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_wide(WideArgs a) {
 
 enum Which { kFwd, kDq, kDkv };
 
+// the forward is built for float only, dQ and dK/dV for both types
 template <typename T, bool C, bool P>
 cudaError_t launch(Which which, int bn, const WideArgs& a, cudaStream_t st) {
-  if (which == kFwd)
-    return go(fwd_wide<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
-              kFwdSmem, st, a);
+  if constexpr (std::is_same_v<T, float>) {
+    if (which == kFwd)
+      return go(fwd_wide<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
+                kFwdSmem, st, a);
+  }
   if (which == kDq)
     return go(dq_wide<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
               kDqSmem, st, a);
@@ -378,9 +386,11 @@ cudaError_t launch(Which which, int bn, const WideArgs& a, cudaStream_t st) {
             kDkvSmem, st, a);
 }
 
+// dtype 0 (float32) for every entry, dtype 1 (bfloat16) for dQ and dK/dV
 int dispatch(Which which, int dtype, int b, int d, int causal, int dropout,
              WideArgs& a, void* stream_ptr) {
-  if ((dtype != 0 && dtype != 1) || d <= kD || d % kD) return -1;
+  if (!(dtype == 0 || (dtype == 1 && which != kFwd)) || d <= kD || d % kD)
+    return -1;
   a.nc = d / kD;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int bn = b * a.n_heads;
@@ -405,9 +415,10 @@ DropParams drop_args(unsigned int threshold, const void* seed, float rinv) {
 // The three entries take the arguments of pt_flash_attn_fwd,
 // pt_flash_attn_bwd_dq and pt_flash_attn_bwd_dkv (flash_attn_fwd.cu,
 // flash_attn_bwd.cu), for d a multiple of 256 above 256. dtype: 0 =
-// float32, 1 = bfloat16. Strides are element strides (batch, seq, head) of
-// [b, s, n, h] tensors whose head_dim stride is 1; O is written
-// contiguous [b, sq, n, d], lse f32 [b, n, sq]. The dQ entry computes
+// float32 (all three), 1 = bfloat16 (dQ and dK/dV; the bf16 forward is
+// flash_attn_wgwide.cu's entry). Strides are element strides (batch,
+// seq, head) of [b, s, n, h] tensors whose head_dim stride is 1; O is
+// written contiguous [b, sq, n, d], lse f32 [b, n, sq]. The dQ entry computes
 // delta = rowsum(dO * O) from o and writes it (as the bf16 dQ kernel at 64
 // and 128 does) for the dK/dV entry to read. Returns 0 on success, a
 // cudaError_t code if a launch was refused, or -1 for a dtype / head_dim

@@ -1,9 +1,11 @@
 // The warp-specialised wgmma pipeline shared by the bf16 flash-attention
 // kernels: the forward (fwd_wgmma, flash_attn_fwd.cu) and the dQ and
 // dK/dV backward (dq_wgmma, dkv_wgmma, flash_attn_bwd.cu) at head_dim 64
-// and 128, and the forward and dQ at 256 (fwd_wg256, dq_wg256,
-// flash_attn_wg256.cu: one owned buffer, dQ on 32-row streamed tiles,
-// a register split of their own).
+// and 128, the forward, dQ and dK/dV at 256 (fwd_wg256, dq_wg256,
+// dkv_wg256, flash_attn_wg256.cu: one owned buffer, the backward on
+// 32-row streamed tiles, dK/dV on 64 owned keys, a register split of
+// their own), and the forward above 256 (fwd_wgwide,
+// flash_attn_wgwide.cu: Q and K streamed in 64-column sub-tiles).
 //
 // A CTA of 384 threads owns kOwn = 128 rows of one (batch, head): query
 // rows for the forward and dQ, keys for dK/dV. Warpgroups 0 and 1 are
@@ -190,14 +192,14 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base,
 
 // S (or dP) of a warpgroup's 64 owned rows against an R-row streamed
 // tile (R 64 or 32: 32 or 16 score slots a thread) over D: both K-major
-// in shared memory
-template <int D, int R = kStrm>
+// in shared memory, the owned tile's halves O lines apart
+template <int D, int R = kStrm, int O = kOwn>
 __device__ __forceinline__ void scores(float* s, uint32_t own,
                                        uint32_t strm) {
   static_assert(R == 64 || R == 32, "a streamed tile is 64 or 32 rows");
   // k-step kk: half kk / 4 of both tiles, its 32-byte column kk % 4
   auto da = [&](int kk) {
-    return sw128_desc(own + (kk >> 2) * kOwn * kLine + (kk & 3) * 32);
+    return sw128_desc(own + (kk >> 2) * O * kLine + (kk & 3) * 32);
   };
   auto db = [&](int kk) {
     return sw128_desc(strm + (kk >> 2) * R * kLine + (kk & 3) * 32);
@@ -306,6 +308,39 @@ __device__ __forceinline__ void online_max(const float* s, float scale2,
   }
 }
 
+// The probabilities of a 64-key tile, p = 2^(s * scale2 - m) of each row
+// (EDGE: 0 past hi[r]; DROP: 0 for a dropped link, times rinv for a kept
+// one, bit i of keep), packed to the bf16 A fragments f of O += P V as
+// they are computed (flash_attn_fwd.cu's row_probs keeps them in f32
+// first: at head_dim 256 and above those 32 registers go to O), and
+// their un-dropped row sums ps
+template <bool DROP, bool EDGE>
+__device__ __forceinline__ void probs_a(const float* s, float scale2,
+                                        const float* m, const int* hi,
+                                        uint32_t keep, float rinv,
+                                        float* ps, uint32_t (*f)[4]) {
+  const int lo[2] = {0, 0};
+  float part[2][4] = {};  // four partial sums a row
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = (i >> 1) & 1;
+    float e[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float x = ex2(fmaf(s[i + u], scale2, -m[r]));
+      if (EDGE && !slot_ok(i + u, lo, hi)) x = 0.f;
+      part[r][u | ((i >> 1) & 2)] += x;
+      if (DROP) x = ((keep >> (i + u)) & 1) ? x * rinv : 0.f;
+      e[u] = x;
+    }
+    // slots 8 j + 2 k and + 1 are A fragment register k of k-step j
+    f[i >> 3][(i >> 1) & 3] = pack_bf16(e[0], e[1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    ps[r] = (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
+}
+
 // One CTA per SM walks over work items (a (batch, head) and one block of
 // its rows), item = blockIdx.x + i * gridDim.x: the items of one (batch,
 // head) are neighbours, so the CTAs on the card at once share their
@@ -319,7 +354,7 @@ __device__ __forceinline__ int item_block(int item, int nblk) {
   return (item + item / nblk) % nblk;
 }
 
-// A work item: its (batch, head), its block of kOwn owned rows from own0,
+// A work item: its (batch, head), its block of O owned rows from own0,
 // and the R-row streamed tiles [first, last) that meet them: for the
 // forward and dQ the k-tiles (under a causal mask, up to the block's
 // last row), for dK/dV the q-tiles (under a causal mask, from the
@@ -328,18 +363,19 @@ struct Item {
   int bh, bi, hi, own0, first, last;
 };
 
-template <bool DKV, bool CAUSAL, int R = kStrm, typename Args>
+template <bool DKV, bool CAUSAL, int R = kStrm, int O = kOwn,
+          typename Args>
 __device__ __forceinline__ Item work_item(const Args& a, int item,
                                           int nblk) {
   Item it;
   it.bh = item / nblk;
   it.bi = it.bh / a.n_heads;
   it.hi = it.bh % a.n_heads;
-  it.own0 = item_block(item, nblk) * kOwn;
+  it.own0 = item_block(item, nblk) * O;
   it.first = DKV && CAUSAL ? it.own0 / R : 0;
   it.last = ((DKV ? a.sq : a.sk) + R - 1) / R;
   if (!DKV && CAUSAL)
-    it.last = min(it.last, (it.own0 + kOwn - 1) / R + 1);
+    it.last = min(it.last, (it.own0 + O - 1) / R + 1);
   return it;
 }
 

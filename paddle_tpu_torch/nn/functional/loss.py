@@ -21,7 +21,10 @@ whole [b*s, 30528] tensor.
 
 Soft labels, class weights, label smoothing, use_softmax=False and
 return_softmax take the general path, in f32 as the JAX package's
-general path computes them (a plain log_softmax composition).
+general path computes them (a plain log_softmax composition). So does
+any class axis other than the last ([N, C, H, W] at axis 1): the
+log-softmax, the picked label and the smoothing's one-hot all lie along
+that axis, and the label may keep a 1 there.
 
 linear_cross_entropy never builds the [N, vocab] logits at all: the head
 projection streams through vocab blocks with an online logsumexp, and
@@ -107,9 +110,12 @@ def _fused_hard_label_ce(logits, label, ignore_index):
     return loss.reshape(lbl.shape), valid
 
 
-def _check_last_axis(axis, ndim, what):
-    if axis % ndim != ndim - 1:
-        raise NotImplementedError(f"{what}: only the last axis is ported")
+def _hard_labels(label, logits, axis):
+    """Hard labels with the class axis squeezed out where they keep a 1
+    there."""
+    if label.dim() == logits.dim() and label.shape[axis] == 1:
+        return label.squeeze(axis)
+    return label
 
 
 def _is_soft(logits, label, soft_label):
@@ -120,55 +126,58 @@ def _is_soft(logits, label, soft_label):
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, axis=-1,
                                return_softmax=False, name=None):
-    """Per-row loss with a trailing 1 dim, as Paddle returns it; with
-    return_softmax, (loss, softmax(logits)). An AMP black-list op
+    """Per-row loss with a 1 at the class axis `axis` (trailing for the
+    last), as Paddle returns it; with return_softmax, (loss,
+    softmax(logits) over `axis`). An AMP black-list op
     ("softmax_with_cross_entropy_op"): float32 under auto_cast."""
-    _check_last_axis(axis, logits.dim(), "softmax_with_cross_entropy")
+    axis = axis % logits.dim()
     (logits,) = amp_cast("softmax_with_cross_entropy_op", logits)
-    if not soft_label and not return_softmax:
+    if not soft_label and not return_softmax and axis == logits.dim() - 1:
         loss, _ = _fused_hard_label_ce(logits, label, ignore_index)
         return loss[..., None]
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = torch.log_softmax(logits, dim=axis)
     if soft_label:
-        loss = -(label * logp).sum(-1, keepdim=True)
+        loss = -(label * logp).sum(axis, keepdim=True)
     else:
-        lbl = label.squeeze(-1) if label.dim() == logits.dim() else label
-        ignored = lbl == ignore_index
-        safe = torch.where(ignored, torch.zeros_like(lbl), lbl)
-        picked = logp.gather(-1, safe[..., None].to(torch.int64))
-        loss = torch.where(ignored[..., None], 0.0, -picked)
+        lbl = label.squeeze(axis) if label.dim() == logits.dim() else label
+        ignored = (lbl == ignore_index).unsqueeze(axis)
+        safe = torch.where(ignored, 0, lbl.unsqueeze(axis))
+        picked = logp.gather(axis, safe.to(torch.int64))
+        loss = torch.where(ignored, 0.0, -picked)
     if return_softmax:
-        return loss, torch.softmax(logits, dim=-1)
+        return loss, torch.softmax(logits, dim=axis)
     return loss
 
 
 def _general_ce(logits, label, weight, ignore_index, soft, use_softmax,
-                label_smoothing):
-    """The JAX package's general cross_entropy path (f32): per-row loss,
-    and for weighted hard labels the per-row weight (None otherwise)."""
+                label_smoothing, axis):
+    """The JAX package's general cross_entropy path (f32) over the class
+    axis `axis` (non-negative): per-row loss, and for weighted hard
+    labels the per-row weight (None otherwise)."""
     if logits.is_floating_point() and logits.dtype != torch.float32:
         logits = logits.float()
-    logp = (torch.log_softmax(logits, dim=-1) if use_softmax
+    logp = (torch.log_softmax(logits, dim=axis) if use_softmax
             else torch.log(torch.clamp(logits, min=1e-30)))
-    n_classes = logits.shape[-1]
+    n_classes = logits.shape[axis]
     if soft:
         lbl = label
         if label_smoothing > 0:
             lbl = lbl * (1 - label_smoothing) + label_smoothing / n_classes
-        loss = -(lbl * logp).sum(-1)
+        loss = -(lbl * logp).sum(axis)
         if weight is not None:
-            loss = loss * (lbl * weight).sum(-1)
+            # the class weights along the class axis
+            w = weight.reshape((-1,) + (1,) * (logits.dim() - 1 - axis))
+            loss = loss * (lbl * w).sum(axis)
         return loss, None
-    lbl = label.squeeze(-1) if (label.dim() == logits.dim()
-                                and label.shape[-1] == 1) else label
+    lbl = _hard_labels(label, logits, axis)
     valid = lbl != ignore_index
     safe = torch.where(valid, lbl, torch.zeros_like(lbl)).to(torch.int64)
     if label_smoothing > 0:
         onehot = torch.nn.functional.one_hot(safe, n_classes).to(logp.dtype)
         smooth = onehot * (1 - label_smoothing) + label_smoothing / n_classes
-        loss = -(smooth * logp).sum(-1)
+        loss = -(smooth.movedim(-1, axis) * logp).sum(axis)
     else:
-        loss = -logp.gather(-1, safe[..., None])[..., 0]
+        loss = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
     loss = torch.where(valid, loss, 0.0)
     if weight is None:
         return loss, valid
@@ -179,29 +188,30 @@ def _general_ce(logits, label, weight, ignore_index, soft, use_softmax,
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
-    """Softmax cross-entropy over the last axis.
+    """Softmax cross-entropy over the class axis `axis`.
 
-    Hard labels with no weight and no smoothing take the fused path:
-    bf16 logits stay bf16 (cross_entropy is on neither AMP list) and
-    "mean" averages over the rows whose label is not ignore_index. The
-    other forms compute in f32: soft labels (soft_label, or float labels
-    shaped like the logits), class `weight` ("mean" divides by the
-    summed weights of the valid rows), label_smoothing and
-    use_softmax=False (the input is probabilities)."""
-    _check_last_axis(axis, input.dim(), "cross_entropy")
+    Hard labels over the last axis with no weight and no smoothing take
+    the fused path: bf16 logits stay bf16 (cross_entropy is on neither
+    AMP list) and "mean" averages over the rows whose label is not
+    ignore_index. The other forms compute in f32: soft labels
+    (soft_label, or float labels shaped like the logits), class `weight`
+    ("mean" divides by the summed weights of the valid rows),
+    label_smoothing, use_softmax=False (the input is probabilities) and
+    any other class axis."""
+    axis = axis % input.dim()
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none, got "
                          f"{reduction!r}")
     soft = _is_soft(input, label, soft_label)
     if (use_softmax and not soft and weight is None
-            and not label_smoothing):
+            and not label_smoothing and axis == input.dim() - 1):
         loss, valid = _fused_hard_label_ce(input, label, ignore_index)
         if reduction == "mean":
             return loss.sum() / torch.clamp(valid.sum().to(loss.dtype),
                                             min=1.0)
         return loss.sum() if reduction == "sum" else loss
     loss, norm = _general_ce(input, label, weight, ignore_index, soft,
-                             use_softmax, label_smoothing)
+                             use_softmax, label_smoothing, axis)
     if reduction == "mean":
         if norm is None:
             return loss.mean()

@@ -9,16 +9,17 @@ nvcc at first use (ops/_build.py) and called through ctypes:
   the dQ one computing delta too);
 - in bf16 all three are wgmma kernels fed by TMA, on one pipeline
   (csrc/flash_wgmma.cuh); in f32 exact FFMA kernels;
-- at head_dim 256, where those designs do not fit: in bf16 the forward
-  and dQ run as the wgmma kernels of csrc/flash_attn_wg256.cu (on the
-  same pipeline, one owned buffer, dQ on 32-row tiles) and dK/dV as the
-  FFMA kernel of csrc/flash_attn_d256.cu (bf16 read and written as bf16,
-  computed in f32); in f32 all three run as that file's FFMA kernels;
-  under the same launch counts;
-- above 256, at a multiple of 256, as the FFMA kernels of
-  csrc/flash_attn_wide.cu (the output's head_dim split over the grid in
-  256-wide chunks, the products over the whole head_dim summed chunk by
-  chunk, so shared memory does not grow with it);
+- at head_dim 256, where those designs do not fit: in bf16 all three
+  run as the wgmma kernels of csrc/flash_attn_wg256.cu (on the same
+  pipeline, one owned buffer, the backward on 32-row tiles, dK/dV with
+  both consumer warpgroups on the same 64 keys); in f32 as the FFMA
+  kernels of csrc/flash_attn_d256.cu; under the same launch counts;
+- above 256, at a multiple of 256 (the output's head_dim split over the
+  grid in 256-wide chunks, the products over the whole head_dim summed
+  chunk by chunk, so shared memory does not grow with it): the bf16
+  forward as the wgmma kernel of csrc/flash_attn_wgwide.cu, the f32
+  forward and both dtypes' dQ and dK/dV as the FFMA kernels of
+  csrc/flash_attn_wide.cu;
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -76,14 +77,15 @@ __all__ = ["flash_attention_mha", "flash_attention_fwd",
            "attention_flops", "flop_sinks"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-# the head_dim of csrc/flash_attn_d256.cu's kernels (its entries carry the
-# suffix _d256 and take the arguments of the others) and of
-# csrc/flash_attn_wg256.cu's bf16 forward and dQ (suffix _wg256); above
-# it, csrc/flash_attn_wide.cu's (suffix _wide) take every multiple of it
+# the head_dim of csrc/flash_attn_d256.cu's f32 kernels (its entries carry
+# the suffix _d256 and take the arguments of the others) and of
+# csrc/flash_attn_wg256.cu's bf16 ones (suffix _wg256); above it,
+# csrc/flash_attn_wide.cu's (suffix _wide) and the bf16 forward of
+# csrc/flash_attn_wgwide.cu (suffix _wgwide) take every multiple of it
 _D256 = 256
-# the entries csrc/flash_attn_wg256.cu has (bf16 only): dK/dV at 256
-# stays on flash_attn_d256.cu in both dtypes
-_WG256_ENTRIES = ("pt_flash_attn_fwd", "pt_flash_attn_bwd_dq")
+# the entries csrc/flash_attn_wgwide.cu has (bf16 only): dQ and dK/dV
+# above 256 stay on flash_attn_wide.cu in both dtypes
+_WGWIDE_ENTRIES = ("pt_flash_attn_fwd",)
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
 # (the kernels', and the meta device, which traces a card step; the
 # CPU's plain version takes any head_dim)
@@ -107,8 +109,8 @@ _ARGTYPES = {
     "pt_flash_attn_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
 }
 _ARGTYPES.update({f"{k}_{w}": v for k, v in list(_ARGTYPES.items())
-                  for w in ("d256", "wide")})
-_ARGTYPES.update({f"{k}_wg256": _ARGTYPES[k] for k in _WG256_ENTRIES})
+                  for w in ("d256", "wg256", "wide")})
+_ARGTYPES.update({f"{k}_wgwide": _ARGTYPES[k] for k in _WGWIDE_ENTRIES})
 
 
 def _check(q, k, v):
@@ -275,14 +277,18 @@ def _entry(lib_name, fn_name):
 def _kernel_entry(lib_name, fn_name, h, dtype):
     """(source, entry) of the kernel at head_dim h for dtype:
     csrc/<lib_name>.cu's fn_name; at 256 its _wg256 twin in
-    csrc/flash_attn_wg256.cu for the bf16 forward and dQ, else its _d256
-    twin in csrc/flash_attn_d256.cu; its _wide twin in
-    csrc/flash_attn_wide.cu above 256."""
+    csrc/flash_attn_wg256.cu in bf16, its _d256 twin in
+    csrc/flash_attn_d256.cu in f32; above 256 its _wgwide twin in
+    csrc/flash_attn_wgwide.cu for the bf16 forward, else its _wide twin
+    in csrc/flash_attn_wide.cu."""
+    bf16 = dtype == torch.bfloat16
     if h == _D256:
-        if dtype == torch.bfloat16 and fn_name in _WG256_ENTRIES:
+        if bf16:
             return "flash_attn_wg256", f"{fn_name}_wg256"
         return "flash_attn_d256", f"{fn_name}_d256"
     if h > _D256:
+        if bf16 and fn_name in _WGWIDE_ENTRIES:
+            return "flash_attn_wgwide", f"{fn_name}_wgwide"
         return "flash_attn_wide", f"{fn_name}_wide"
     return lib_name, fn_name
 

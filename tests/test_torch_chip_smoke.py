@@ -1580,13 +1580,12 @@ def test_seq2seq_rescore_catches_a_wrong_back_trace(cs, monkeypatch):
 
 def test_head_dim_256_cases_and_rows(cs):
     """head_pad runs 192 (padded to 256) and 256; the d256 file's
-    instantiations are its 3 f32 kernels and its bf16 dK/dV x causal x
-    dropout, the wg256 file's its bf16 forward and dQ x causal x
-    dropout; the kernels line's rows carry each case's device kernel,
-    times, bound and SDPA's."""
+    instantiations are its 3 f32 kernels x causal x dropout, the wg256
+    file's its 3 bf16 kernels x causal x dropout; the kernels line's
+    rows carry each case's device kernel, times, bound and SDPA's."""
     assert {192, 256} <= set(cs.PAD_HEAD_DIMS) and cs.D256_SHAPE[3] == 256
-    assert cs.D256_INSTANTIATIONS == (3 + 1) * 2 * 2
-    assert cs.WG256_INSTANTIATIONS == 2 * 2 * 2
+    assert cs.D256_INSTANTIATIONS == 3 * 2 * 2
+    assert cs.WG256_INSTANTIATIONS == 3 * 2 * 2
     case = dict(dtype="bfloat16", b=8, n=8, h=256, layout="qkv views",
                 causal=True, dropout_p=0.1, fwd_ms=4.5,
                 fwd_plain_ms=30.0, fwd_bound_ms=0.04, fwd_bound_by="bytes",
@@ -1599,7 +1598,7 @@ def test_head_dim_256_cases_and_rows(cs):
     rows = cs.d256_kernel_rows([case, dict(case, dtype="float32")])
     assert [[r["kernel"] for r in rows[k]] for k in cs.KERNEL_EVENTS] == [
         ["fwd_wg256", "fwd_d256"], ["dq_wg256", "dq_d256"],
-        ["dkv_d256", "dkv_d256"]]
+        ["dkv_wg256", "dkv_d256"]]
     assert rows["flash_attn_fwd"][0]["library_ms"] == 0.3
     assert rows["flash_attn_bwd_dq"][0]["backward_library_ms"] == 0.4
     assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 4e-3
@@ -1612,8 +1611,13 @@ def test_head_dim_256_cases_and_rows(cs):
     ("void (anonymous namespace)::dq_wg256<true, false>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Args)",
      "flash_attn_bwd_dq"),
-    ("void (anonymous namespace)::dkv_d256<__nv_bfloat16, false, true>("
-     "Args)", "flash_attn_bwd_dkv"),
+    ("void (anonymous namespace)::dkv_wg256<false, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Args)",
+     "flash_attn_bwd_dkv"),
+    ("void (anonymous namespace)::dkv_d256<float, false, true>(Args)",
+     "flash_attn_bwd_dkv"),
+    ("void (anonymous namespace)::fwd_wgwide<true, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, Args)", "flash_attn_fwd"),
     ("void (anonymous namespace)::fwd_d256<float, true, false>(Args)",
      "flash_attn_fwd"),
     ("void (anonymous namespace)::dq_wide<float, false, false>(WideArgs)",
@@ -1621,16 +1625,16 @@ def test_head_dim_256_cases_and_rows(cs):
 ])
 def test_head_dim_256_kernels_count_for_their_wrapper(cs, name, wrapper):
     """The head_dim-256 and wide kernels' profiler names count for the
-    wrapper that launches them, by the route D256_ROUTES names, and
-    their time for the attention category."""
+    wrapper that launches them, by the route D256_ROUTES or WIDE_ROUTES
+    names, and their time for the attention category."""
     got = cs.kernel_launches([name])
     assert got == {k: int(k == wrapper) for k in cs.KERNEL_EVENTS}
     cat = next(c for c, keys in cs.PROFILE_CATEGORIES
                if any(k in name for k in keys))
     assert cat == "flash attention kernels"
-    if "256" in name:
-        dtype = "float32" if "float" in name else "bfloat16"
-        assert cs.D256_ROUTES[dtype][wrapper] in name
+    dtype = "float32" if "float" in name else "bfloat16"
+    routes = cs.D256_ROUTES if "256" in name else cs.WIDE_ROUTES
+    assert routes[dtype][wrapper] in name
 
 
 def _encoder_256_row():
@@ -1640,7 +1644,7 @@ def _encoder_256_row():
         captured_vs_eager=dict(losses_bit_equal=True, params_bit_equal=True),
         graphs=1, sentinel_events=0, launches_per_step=dict(one),
         warmup_launches=dict(one),
-        routes_per_step={"fwd_wg256": 1, "dq_wg256": 1, "dkv_d256": 1},
+        routes_per_step={"fwd_wg256": 1, "dq_wg256": 1, "dkv_wg256": 1},
         losses=[2.0, 1.98, 1.7])
 
 
@@ -1651,9 +1655,8 @@ def _encoder_256_row():
 def test_encoder_256_gates_name_each_failure(cs, breakage, word):
     """The head_dim-256 training phase fails on a replay that is not
     bit-equal to eager, a second graph, a kernel launched other than
-    once a step, another route than the wgmma forward and dQ and the
-    FFMA dK/dV (an FFMA forward in bf16 would be the old route), and a
-    non-finite loss."""
+    once a step, another route than the three wgmma kernels (an FFMA
+    dK/dV in bf16 would be the old route), and a non-finite loss."""
     row = _encoder_256_row()
     if breakage == "replay":
         row["captured_vs_eager"]["losses_bit_equal"] = False
@@ -1662,7 +1665,7 @@ def test_encoder_256_gates_name_each_failure(cs, breakage, word):
     elif breakage == "launches":
         row["launches_per_step"]["flash_attn_bwd_dq"] = 2
     elif breakage == "route":
-        row["routes_per_step"] = {"fwd_d256": 1, "dq_wg256": 1,
+        row["routes_per_step"] = {"fwd_wg256": 1, "dq_wg256": 1,
                                   "dkv_d256": 1}
     elif breakage == "nan":
         row["losses"][2] = float("nan")
@@ -1743,11 +1746,14 @@ def test_srl_model_at_the_books_widths(cs):
 # the sentry ---------------------------------------------------------------
 
 def test_wide_cases_and_rows(cs):
-    """The wide kernels' instantiations are 3 kernels x 2 dtypes x causal
-    x dropout; 320 runs padded (no kernel row), 512 and 1024 on the
-    kernels' entries give the kernels line's rows."""
+    """The wide FFMA kernels' instantiations are 3 kernels in f32 and dQ
+    and dK/dV in bf16, x causal x dropout, the wgmma forward's causal x
+    dropout; 320 runs padded (no kernel row), 512 and 1024 on the
+    kernels' entries give the kernels line's rows, each naming its
+    device kernel."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    assert cs.WIDE_INSTANTIATIONS == 3 * 2 * 2 * 2
+    assert cs.WIDE_INSTANTIATIONS == (3 + 2) * 2 * 2
+    assert cs.WGWIDE_INSTANTIATIONS == 2 * 2
     assert [fa.kernel_head_dim(h) for h in cs.WIDE_HEAD_DIMS] == \
         [512, 512, 1024]
     kernel = dict(dtype="float32", b=2, n=4, h=1024, layout="qkv views",
@@ -1763,7 +1769,10 @@ def test_wide_cases_and_rows(cs):
     rows = cs.wide_kernel_rows([padded, kernel])
     assert [len(v) for v in rows.values()] == [1, 1, 1]
     assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 3e-6
-    assert rows["flash_attn_fwd"][0]["kernel"] is None
+    assert rows["flash_attn_fwd"][0]["kernel"] == "fwd_wide"
+    bf16 = cs.wide_kernel_rows([dict(kernel, dtype="bfloat16")])
+    assert [r[0]["kernel"] for r in bf16.values()] == [
+        "fwd_wgwide", "dq_wide", "dkv_wide"]
 
 
 def test_collatz_loop_counts_the_trips_on_the_cpu(cs):
@@ -1817,3 +1826,67 @@ def test_elastic_numeric_case_gates(cs, breakage, word):
         assert row["fault"]["step"] == 5 and row["sentry_leaves"] == 1
     else:
         assert len(bad) == 1 and word in bad[0], bad
+
+
+def _path_row(routes):
+    one = {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 1,
+           "flash_attn_bwd_dkv": 1}
+    return dict(launches=dict(one), launches_per_step=dict(one),
+                step_ms=33.0, attention_share=0.06,
+                routes_per_step={name: 1 for name in routes.values()})
+
+
+def _attn_case(attn):
+    b, s, n, h, causal, dt, p, sk, sep = attn
+    case = dict(dtype=dt, b=b, s=s, sk=sk, n=n, h=h, causal=causal,
+                dropout_p=p, layout=("separate q, k, v" if sep
+                                     else "qkv views"),
+                backward_ms=1.5, backward_library_ms=1.4,
+                fwd_library_ms=0.5, fwd_device_ms=0.3)
+    for t in ("fwd", "dq", "dkv"):
+        case.update({f"{t}_ms": 0.4, f"{t}_plain_ms": 20.0,
+                     f"{t}_bound_ms": 0.1, f"{t}_bound_by": "operations"})
+    for o in ("o", "dq", "dk", "dv"):
+        case[f"{o}_max_abs_err"] = 1e-3
+    return case
+
+
+def test_encoder_kernel_rows_name_each_paths_kernels(cs):
+    """The kernels line's rows of the two bf16 encoder paths: at head_dim
+    256 the three wgmma kernels of flash_attn_wg256.cu, at 512 the wgmma
+    forward of flash_attn_wgwide.cu and the FFMA dQ and dK/dV of
+    flash_attn_wide.cu, each with its path's launches and the times of
+    the case at the path's attention shape; a path that launched no
+    kernel of one kind fails."""
+    paths = {key: _path_row(routes)
+             for key, (_, routes) in cs.ENCODERS.items()}
+    cases = [_attn_case(cs.ENC256_ATTN), _attn_case(cs.ENCWIDE_ATTN)]
+    rows = cs.encoder_kernel_rows(paths, cases)
+    assert [(r["name"], r["source"].rsplit("/", 1)[1], r["path"])
+            for r in rows] == [
+        ("flash_attn_fwd_wg256", "flash_attn_wg256.cu", "encoder_256"),
+        ("flash_attn_bwd_dq_wg256", "flash_attn_wg256.cu", "encoder_256"),
+        ("flash_attn_bwd_dkv_wg256", "flash_attn_wg256.cu", "encoder_256"),
+        ("flash_attn_fwd_wgwide", "flash_attn_wgwide.cu", "encoder_wide"),
+        ("flash_attn_bwd_dq_wide", "flash_attn_wide.cu", "encoder_wide"),
+        ("flash_attn_bwd_dkv_wide", "flash_attn_wide.cu", "encoder_wide")]
+    assert all(r["launches"] == 1 for r in rows)
+    assert rows[3]["device_ms"] == 0.3 and rows[4]["library_ms"] is None
+    assert rows[2]["replaces"].startswith(
+        "paddle_tpu/ops/pallas_kernels.py:319 (head_dim 256")
+    paths["encoder_wide"]["launches"]["flash_attn_bwd_dkv"] = 0
+    with pytest.raises(SystemExit):
+        cs.encoder_kernel_rows(paths, cases)
+
+
+def test_encoder_wide_gates_take_its_routes(cs):
+    """encoder_wide's replay must run the wgmma forward and the FFMA dQ
+    and dK/dV once each: the head_dim-256 routes there are a failure."""
+    routes = cs.ENCODERS["encoder_wide"][1]
+    row = dict(_encoder_256_row(),
+               routes_per_step={name: 1 for name in routes.values()})
+    assert cs.encoder_256_gates(row, routes) == []
+    assert cs.ENCWIDE["d_model"] // cs.ENCWIDE["nhead"] == \
+        cs.ENCWIDE_ATTN[3] == 512
+    bad = cs.encoder_256_gates(_encoder_256_row(), routes)
+    assert len(bad) == 1 and "expected" in bad[0]

@@ -308,17 +308,22 @@ def test_head_dim_above_256_refuses_widths_the_wide_kernels_lack():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_above_256_launches_the_wide_entries(monkeypatch, dtype):
-    """Above 256 the wrappers call csrc/flash_attn_wide.cu's three
-    entries with the arguments of the others, and the dQ entry computes
-    delta itself in both dtypes (its buffer is the dK/dV entry's)."""
+    """Above 256 the wrappers call entries with the arguments of the
+    others: the forward in bf16 csrc/flash_attn_wgwide.cu's (the wgmma
+    kernel), in f32 csrc/flash_attn_wide.cu's; dQ and dK/dV
+    csrc/flash_attn_wide.cu's in both dtypes, the dQ entry computing
+    delta itself (its buffer is the dK/dV entry's)."""
     calls = _record_launches(monkeypatch)
     monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
         "delta computed by torch ops above head_dim 256"))
     q, k, v = (torch.randn(1, 8, 2, 512).to(dtype) for _ in range(3))
     o, lse = fa._flash_fwd_cuda(q, k, v, False, 0.05)
     fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), False, 0.05)
+    fwd = (("flash_attn_wgwide", "pt_flash_attn_fwd_wgwide")
+           if dtype == torch.bfloat16
+           else ("flash_attn_wide", "pt_flash_attn_fwd_wide"))
     assert [c[:2] for c in calls] == [
-        ("flash_attn_wide", "pt_flash_attn_fwd_wide"),
+        fwd,
         ("flash_attn_wide", "pt_flash_attn_bwd_dq_wide"),
         ("flash_attn_wide", "pt_flash_attn_bwd_dkv_wide")]
     assert [len(c[2]) + 1 for c in calls] == [
@@ -330,11 +335,11 @@ def test_head_dim_above_256_launches_the_wide_entries(monkeypatch, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
     """At head_dim 256 the wrappers call entries with the arguments of
-    the others: in bf16 csrc/flash_attn_wg256.cu's forward and dQ (the
-    wgmma kernels; the dQ entry computes delta, and its delta buffer is
-    the one the dK/dV entry reads), then csrc/flash_attn_d256.cu's dK/dV;
-    in f32 the three entries of csrc/flash_attn_d256.cu, the dQ entry
-    reading delta from torch ops."""
+    the others: in bf16 the three entries of csrc/flash_attn_wg256.cu
+    (the wgmma kernels; the dQ entry computes delta, and its delta buffer
+    is the one the dK/dV entry reads); in f32 the three entries of
+    csrc/flash_attn_d256.cu, the dQ entry reading delta from torch
+    ops."""
     calls = _record_launches(monkeypatch)
     if dtype == torch.bfloat16:
         monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
@@ -342,12 +347,12 @@ def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
     q, k, v = (torch.randn(1, 8, 2, 256).to(dtype) for _ in range(3))
     o, lse = fa._flash_fwd_cuda(q, k, v, True, 0.0625)
     fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), True, 0.0625)
-    fwd_dq = (("flash_attn_wg256", "_wg256") if dtype == torch.bfloat16
-              else ("flash_attn_d256", "_d256"))
+    src, tail = (("flash_attn_wg256", "_wg256") if dtype == torch.bfloat16
+                 else ("flash_attn_d256", "_d256"))
     assert [c[:2] for c in calls] == [
-        (fwd_dq[0], "pt_flash_attn_fwd" + fwd_dq[1]),
-        (fwd_dq[0], "pt_flash_attn_bwd_dq" + fwd_dq[1]),
-        ("flash_attn_d256", "pt_flash_attn_bwd_dkv_d256")]
+        (src, "pt_flash_attn_fwd" + tail),
+        (src, "pt_flash_attn_bwd_dq" + tail),
+        (src, "pt_flash_attn_bwd_dkv" + tail)]
     assert [len(c[2]) + 1 for c in calls] == [
         len(fa._ARGTYPES[c[1]]) for c in calls]
     assert calls[1][2][6] == calls[2][2][5]   # the dQ entry's delta

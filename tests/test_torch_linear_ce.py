@@ -207,12 +207,6 @@ def test_softmax_with_cross_entropy_return_softmax_matches_jax(soft):
     torch.testing.assert_close(one, tl)
 
 
-def test_cross_entropy_other_axis_still_raises():
-    x = torch.zeros(2, 3, 4)
-    with pytest.raises(NotImplementedError, match="last axis"):
-        F.cross_entropy(x, torch.zeros(2, 4, dtype=torch.long), axis=1)
-
-
 def test_softmax_with_cross_entropy_is_black_listed_under_o1():
     """An AMP black-list op in both packages: under O1 bf16 logits are
     cast to f32, so the returned softmax is f32."""
