@@ -566,21 +566,23 @@ Phases, each of which fails the run on any mismatch:
    the last 10 losses below the first 10's. No kernel of the port runs
    on this path.
 43. Head_dim above 256 (`wide_case`, `mask_probe` at h 512 and 1024,
-   `encoder_wide`, after `d256_case`): the bf16 forward on
-   csrc/flash_attn_wgwide.cu's wgmma kernel, the f32 forward and both
-   dtypes' dQ and dK/dV on csrc/flash_attn_wide.cu's FFMA kernels, at
+   `wide_hard_case`, `wide_routes`, `encoder_wide`, after `d256_case`):
+   the bf16 forward, dQ and dK/dV on csrc/flash_attn_wgwide.cu's wgmma
+   kernels, the f32 ones on csrc/flash_attn_wide.cu's FFMA kernels, at
    WIDE_SHAPE (b 2, s 512, n 4) against their plain versions, row by
    row at TOL, f32 and bf16, p 0 and 0.1, causal and not: at h 512 and
    1024 on the kernels' entries (bwd_kernel_case, the dQ kernel's own
-   delta held too; the bf16 forward also timed alone on the card,
-   fwd_device_ms), at 320 through the autograd entry (padded to 512;
+   delta held too; the bf16 kernels also timed alone on the card,
+   wide_device_ms), at 320 through the autograd entry (padded to 512;
    pad_case), and in bf16 at encoder_wide's attention (b 8, s 1024, n 8,
-   h 512, p 0.1, separate q, k and v); each case launches every kernel;
-   ptxas reports no spill in the 20 FFMA and 4 wgmma instantiations and
-   no serialisation in the 4. `encoder_wide`: encoder_256's step at
-   nn.TransformerEncoderLayer(4096, 8, 16384) (head_dim 512), its
-   replay holding the wgmma forward and the FFMA dQ and dK/dV once
-   each.
+   h 512, p 0.1, separate q, k and v); in bf16 at WIDE_HARD_CASES
+   (causal cross-attention both ways, s 200, one head, D 768); each case
+   launches every kernel, and a forward and backward at D 768 runs
+   WIDE_ROUTES' kernels by name; ptxas reports no spill in the 12 FFMA
+   and 12 wgmma instantiations and no serialisation in the 12.
+   `encoder_wide`: encoder_256's step at nn.TransformerEncoderLayer(4096,
+   8, 16384) (head_dim 512), its replay holding the three wgmma kernels
+   above 256 once each.
 44. Captured while_loop (`graph_while`, after the head_dim cases):
    ops.control_flow.while_loop inside static/capture.py's capture, a
    conditional WHILE node (csrc/graph_while.cu): Collatz steps of 4
@@ -606,8 +608,8 @@ Output: a JSON line per phase; then the
 `kernels` line (each flash kernel with its launches a Transformer-base
 step and its times at the cross-attention and encoder self-attention
 shapes, its head_dim-256 cases and those above 256; the kernels of the
-bf16 paths at head_dim 256 (the three wgmma kernels) and 512 (the wgmma
-forward, the FFMA dQ and dK/dV), with encoder_256's and encoder_wide's
+bf16 paths at head_dim 256 and 512 (three wgmma kernels each), with
+encoder_256's and encoder_wide's
 launches and their times at their attention shapes; the
 captured loop's set_condition kernel; the run's phase_seconds), the card's
 nvidia-smi line, and last {"ok": true,
@@ -1364,7 +1366,7 @@ def d256_kernel_phase(torch, fa):
     bf16, at p 0 and DROP_P, causal and not, at D256_SHAPE, and in bf16
     at the attention shape of the encoder_256 phase (ENC256_ATTN), with
     their times beside the bound and SDPA's; each case must launch each
-    kernel once more. Then d256_routes."""
+    kernel once more. Then kernel_routes at 256 (`d256_routes`)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 23)
@@ -1384,33 +1386,35 @@ def d256_kernel_phase(torch, fa):
             fail(f"a head_dim-256 case launched no kernel of one kind: "
                  f"{row['launched']}")
         rows.append(row)
-    d256_routes(torch, fa)
+    kernel_routes(torch, fa, D256_ROUTES, 256, "d256_routes")
     return rows
 
 
-def d256_routes(torch, fa):
-    """The device kernels one forward and backward at head_dim 256 ran in
-    each dtype, by name, counted by torch.profiler: D256_ROUTES' kernels
-    once each, and no other kernel of KERNEL_EVENTS."""
+def kernel_routes(torch, fa, routes, h, tag):
+    """The device kernels one forward and backward at head_dim h ran in
+    each dtype, by name, counted by torch.profiler: the kernels of
+    routes[dtype] once each, and no other kernel of KERNEL_EVENTS;
+    emitted under `tag`."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 31)
+    scale = 1.0 / math.sqrt(h)
     out = {}
-    for dt, want in D256_ROUTES.items():
-        q, k, v = attention_inputs(torch, gen, 2, 256, 256, 2, 256,
+    for dt, want in routes.items():
+        q, k, v = attention_inputs(torch, gen, 2, 256, 256, 2, h,
                                    getattr(torch, dt), False)
         do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
 
         def fwd_bwd():
-            o, lse = fa._flash_fwd_cuda(q, k, v, False, 0.0625)
-            fa._flash_bwd_cuda(q, k, v, o, lse, do, False, 0.0625)
-        routes = device_profile(torch, fwd_bwd, 1)["routes"]
-        out[dt] = {key: n for key, n in routes.items() if n}
+            o, lse = fa._flash_fwd_cuda(q, k, v, False, scale)
+            fa._flash_bwd_cuda(q, k, v, o, lse, do, False, scale)
+        seen = device_profile(torch, fwd_bwd, 1)["routes"]
+        out[dt] = {key: n for key, n in seen.items() if n}
         if out[dt] != {name: 1 for name in want.values()}:
-            emit({"d256_routes": out})
-            fail(f"a {dt} forward and backward at head_dim 256 ran "
+            emit({tag: out})
+            fail(f"a {dt} forward and backward at head_dim {h} ran "
                  f"{out[dt]}, expected {sorted(want.values())} once each")
-    emit({"d256_routes": out})
+    emit({tag: out})
     return out
 
 
@@ -1435,7 +1439,8 @@ def d256_kernel_rows(cases):
         out[name] = [dict(
             kernel=(D256_ROUTES if c["h"] == 256
                     else WIDE_ROUTES)[c["dtype"]][name],
-            dtype=c["dtype"], b=c["b"], n=c["n"], layout=c["layout"],
+            dtype=c["dtype"], b=c["b"], s=c["s"], sk=c["sk"], n=c["n"],
+            h=c["h"], layout=c["layout"],
             causal=c["causal"], dropout_p=c["dropout_p"],
             ms=c[f"{t}_ms"], plain_ms=c[f"{t}_plain_ms"],
             bound_ms=c[f"{t}_bound_ms"], bound_by=c[f"{t}_bound_by"],
@@ -1463,8 +1468,7 @@ ENC256_WARMUP, ENC256_STEPS = 2, 5
 ENC256_ATTN = (8, 1024, 16, 256, False, "bfloat16", DROP_P, 1024, True)
 # the same step above head_dim 256: nn.TransformerEncoderLayer(4096, 8,
 # 16384), head_dim 512 (nn.MultiHeadAttention(4096, 8)'s head width), on
-# the wgmma forward of csrc/flash_attn_wgwide.cu and the FFMA dQ and
-# dK/dV of csrc/flash_attn_wide.cu
+# the three wgmma kernels of csrc/flash_attn_wgwide.cu
 ENCWIDE = dict(ENC256, nhead=8)
 ENCWIDE_ATTN = (8, 1024, 8, 512, False, "bfloat16", DROP_P, 1024, True)
 
@@ -1476,8 +1480,8 @@ def encoder_256_phase(torch, pt, fa, key="encoder_256"):
     against two eager steps: losses and every parameter bit-equal. The
     attention kernels a replay runs, counted on the card by
     torch.profiler (profile_step): each of the three once, by the names
-    ENCODERS[key] gives (at head_dim 256 the three wgmma kernels; at 512
-    the wgmma forward and the FFMA dQ and dK/dV). Then ENC256_WARMUP +
+    ENCODERS[key] gives (the three wgmma kernels of head_dim 256, or of
+    512). Then ENC256_WARMUP +
     ENC256_STEPS replays on a synchronised host clock: step ms beside a
     replay's device ms by category and attention's share of it, the idle
     share, tokens/s, peak memory over the first call. The kernels'
@@ -1598,9 +1602,8 @@ def encoder_256_gates(row, routes=D256_ROUTES["bfloat16"]):
 def encoder_kernel_rows(paths, cases):
     """The `kernels` line's rows of the bf16 paths at head_dim 256
     (encoder_256: the three wgmma kernels of csrc/flash_attn_wg256.cu)
-    and 512 (encoder_wide: the wgmma forward of
-    csrc/flash_attn_wgwide.cu, the FFMA dQ and dK/dV of
-    csrc/flash_attn_wide.cu): paths maps each phase to its row, and
+    and 512 (encoder_wide: the three of csrc/flash_attn_wgwide.cu):
+    paths maps each phase to its row, and
     each kernel is timed at its path's attention shape (ENC256_ATTN,
     ENCWIDE_ATTN: the kernel case of `cases` at that shape); launches:
     the path's (COUNTED_CALLS). Fails if a path launched no kernel of
@@ -1650,26 +1653,37 @@ def encoder_kernel_rows(paths, cases):
     return rows
 
 
-# head_dim above 256 on csrc/flash_attn_wide.cu's FFMA kernels and
-# csrc/flash_attn_wgwide.cu's bf16 forward: b, s, n at every head_dim of
-# WIDE_HEAD_DIMS (320 runs zero-padded to 512 through the autograd
-# entry, the others on the kernels' own entries); the shape is small
-# because the FFMA design recomputes the scores once per 256-wide chunk
-# of the output (D / 256 times the head_dim-256 kernels' products)
+# head_dim above 256 on csrc/flash_attn_wide.cu's f32 FFMA kernels and
+# csrc/flash_attn_wgwide.cu's bf16 wgmma kernels: b, s, n at every
+# head_dim of WIDE_HEAD_DIMS (320 runs zero-padded to 512 through the
+# autograd entry, the others on the kernels' own entries); the shape is
+# small because the FFMA design recomputes the scores once per 256-wide
+# chunk of the output (D / 256 times the head_dim-256 kernels' products)
 WIDE_SHAPE = (2, 512, 4)
 WIDE_HEAD_DIMS = (320, 512, 1024)
 WIDE_SOURCE = "flash_attn_wide"
 GRAPH_WHILE_SOURCE = "graph_while"
-# its instantiations: 3 kernels in f32 and dQ and dK/dV in bf16, x
-# causal x dropout
-WIDE_INSTANTIATIONS = 20
-# the bf16 forward above 256 (wgmma): causal x dropout
+# its instantiations: 3 kernels in f32 x causal x dropout
+WIDE_INSTANTIATIONS = 12
+# the bf16 kernels above 256 (wgmma): 3 x causal x dropout
 WGWIDE_SOURCE = "flash_attn_wgwide"
-WGWIDE_INSTANTIATIONS = 4
+WGWIDE_INSTANTIATIONS = 12
+# bf16 cases above 256 that the WIDE_SHAPE cases do not reach, on the
+# kernels' own entries: causal cross-attention with sq < sk (key blocks
+# no query sees) and sq > sk, a ragged length (200: not a multiple of
+# the 32- and 64-row tiles), a single head (qkv views: its strides given
+# as a packed tensor's) and D 768 (three chunks)
+WIDE_HARD_CASES = [(2, 384, 4, 512, True, "bfloat16", DROP_P, 640, True),
+                   (2, 640, 4, 512, True, "bfloat16", 0.0, 384, True),
+                   (2, 200, 4, 1024, True, "bfloat16", DROP_P),
+                   (2, 200, 4, 1024, False, "bfloat16", 0.0),
+                   (4, 512, 1, 512, True, "bfloat16", DROP_P),
+                   (2, 512, 4, 768, False, "bfloat16", DROP_P),
+                   (2, 512, 4, 768, True, "bfloat16", 0.0)]
 # the device kernels of each wrapper above head_dim 256, by dtype
 WIDE_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wgwide",
-                            "flash_attn_bwd_dq": "dq_wide",
-                            "flash_attn_bwd_dkv": "dkv_wide"},
+                            "flash_attn_bwd_dq": "dq_wgwide",
+                            "flash_attn_bwd_dkv": "dkv_wgwide"},
                "float32": {"flash_attn_fwd": "fwd_wide",
                            "flash_attn_bwd_dq": "dq_wide",
                            "flash_attn_bwd_dkv": "dkv_wide"}}
@@ -1686,8 +1700,8 @@ def wide_kernel_phase(torch, fa):
     the autograd entry at 320 (pad_case: padded to 512 on the card,
     against the plain versions at 320); and in bf16 at the attention
     shape of the encoder_wide phase (ENCWIDE_ATTN). Each case must launch
-    every kernel. The bf16 forward's cases also time its kernel alone
-    (fwd_device_ms)."""
+    every kernel. The bf16 cases also time each kernel alone
+    (wide_device_ms)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 29)
@@ -1705,7 +1719,8 @@ def wide_kernel_phase(torch, fa):
             row = bwd_kernel_case(torch, fa, gen, case, None,
                                   tag="wide_case", with_fwd=True)
             if dt == "bfloat16":
-                row["fwd_device_ms"] = fwd_device_ms(torch, fa, gen, case)
+                for t, ms in wide_device_ms(torch, fa, gen, case).items():
+                    row[f"{t}_device_ms"] = ms
         else:
             row = pad_case(torch, fa, gen, b_, s_, sk, n_, h, dt, p, causal,
                            tag="wide_case", separate=sep)
@@ -1718,19 +1733,52 @@ def wide_kernel_phase(torch, fa):
     return rows
 
 
-def fwd_device_ms(torch, fa, gen, case, runs=5):
-    """Device ms of one forward kernel at `case` (bwd_kernel_case's
-    tuple), by torch.profiler: the kernel alone, where time_ms also
-    counts the host's cost of each call, which is more than the kernel's
-    at WIDE_SHAPE."""
+def wide_device_ms(torch, fa, gen, case, runs=5):
+    """{fwd, dq, dkv: device ms} of the forward, dQ and dK/dV kernels at
+    `case` (bwd_kernel_case's tuple), by torch.profiler over a forward
+    and backward: each kernel alone, where time_ms also counts the
+    host's cost of each call, which is more than the kernel's at
+    WIDE_SHAPE."""
     b, s, n, h, causal, dt, p, sk, sep = _unpack(case)
     q, k, v = attention_inputs(torch, gen, b, s, sk, n, h,
                                getattr(torch, dt), sep)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     sd = seed_card(torch)
-    kern = WIDE_ROUTES[dt]["flash_attn_fwd"]
-    prof = device_profile(torch, lambda: fa._flash_fwd_cuda(
-        q, k, v, causal, 1.0 / math.sqrt(h), p, sd), runs)
-    return sum(r["ms"] for r in prof["top"] if kern in r["name"])
+    scale = 1.0 / math.sqrt(h)
+    o, lse = fa._flash_fwd_cuda(q, k, v, causal, scale, p, sd)
+
+    def fwd_bwd():
+        fa._flash_fwd_cuda(q, k, v, causal, scale, p, sd)
+        fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, p, sd)
+    top = device_profile(torch, fwd_bwd, runs)["top"]
+    return {t: sum(r["ms"] for r in top if WIDE_ROUTES[dt][name] in r["name"])
+            for t, name in (("fwd", "flash_attn_fwd"),
+                            ("dq", "flash_attn_bwd_dq"),
+                            ("dkv", "flash_attn_bwd_dkv"))}
+
+
+def wide_hard_phase(torch, fa):
+    """The bf16 kernels above head_dim 256 at WIDE_HARD_CASES, on their
+    own entries: bwd_kernel_case against the plain versions row by row
+    at TOL (the dQ kernel's own delta and a second dq launch too), each
+    case launching every kernel; then the device kernels a forward and
+    backward at D 768 runs in each dtype, by name (kernel_routes)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 37)
+    rows = []
+    for case in WIDE_HARD_CASES:
+        before = dict(fa.launches)
+        row = bwd_kernel_case(torch, fa, gen, case, None,
+                              tag="wide_hard_case", with_fwd=True)
+        row["launched"] = {k: fa.launches[k] - before[k]
+                           for k in fa.launches}
+        if not all(row["launched"].values()):
+            fail(f"a head_dim-{case[3]} case launched no kernel of one "
+                 f"kind: {row['launched']}")
+        rows.append(row)
+    kernel_routes(torch, fa, WIDE_ROUTES, 768, "wide_routes")
+    return rows
 
 
 def wide_mask_probe_phase(torch, fa):
@@ -2244,8 +2292,8 @@ PROFILE_CATEGORIES = [
                                  "dkv_wgmma", "dq_simt", "dkv_simt",
                                  "fwd_wg256", "dq_wg256", "dkv_wg256",
                                  "fwd_d256", "dq_d256", "dkv_d256",
-                                 "fwd_wgwide", "fwd_wide", "dq_wide",
-                                 "dkv_wide")),
+                                 "fwd_wgwide", "dq_wgwide", "dkv_wgwide",
+                                 "fwd_wide", "dq_wide", "dkv_wide")),
     # cuDNN's convolution engines (implicit-GEMM fprop, dgrad, wgrad),
     # ahead of the matmuls, whose xmma/sm90_ fragments they share
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv",
@@ -2264,15 +2312,15 @@ PROFILE_CATEGORIES = [
 # the device kernels each wrapper launches, by the fragments of their
 # names that torch.profiler shows (bf16 wgmma, f32 simt; at head_dim 256
 # the bf16 wg256 and the f32 d256 FFMA kernels; above it the bf16 wgwide
-# forward and the wide FFMA kernels)
+# and the f32 wide FFMA kernels)
 KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
                                     "fwd_wg256", "fwd_d256", "fwd_wgwide",
                                     "fwd_wide"),
                  "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_wg256",
-                                       "dq_d256", "dq_wide"),
+                                       "dq_d256", "dq_wgwide", "dq_wide"),
                  "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt",
                                         "dkv_wg256", "dkv_d256",
-                                        "dkv_wide")}
+                                        "dkv_wgwide", "dkv_wide")}
 # what a training run's `launches` counts
 COUNTED_CALLS = ("the first call's warm-up (the wrappers' count) and two "
                  "replays under torch.profiler (kernels counted on the "
@@ -8786,6 +8834,7 @@ def main():
     clock.lap("head_dim_256")
     wide_cases = wide_kernel_phase(torch, fa)
     wide_probes = wide_mask_probe_phase(torch, fa)
+    wide_hard = wide_hard_phase(torch, fa)
     encwide = encoder_256_phase(torch, pt, fa, "encoder_wide")
     clock.lap("head_dim_wide")
     graph_while = graph_while_phase(torch, pt)
@@ -8949,7 +8998,7 @@ def main():
                                        "non-causal dropout 0.1, separate "
                                        "q, k and v")
     d256_rows = d256_kernel_rows(d256_cases)
-    wide_rows = wide_kernel_rows(wide_cases)
+    wide_rows = wide_kernel_rows(wide_cases + wide_hard)
     # no library call computes one backward kernel's outputs alone: the
     # backward rows carry SDPA's backward beside the whole backward
     common = dict(route="cuda", shape=shape)
@@ -9019,17 +9068,16 @@ def main():
             shape="b{} s{} n{} h{}, qkv views".format(*D256_SHAPE),
             launches_encoder_256=enc256["launches"][kern["name"]],
             cases=d256_rows[kern["name"]])
-        # above head_dim 256: the kernel cases at 512 and 1024 and at the
-        # encoder_wide phase's attention (the bf16 forward on
-        # csrc/flash_attn_wgwide.cu, the rest on csrc/flash_attn_wide.cu;
-        # 320 runs padded to 512 through the autograd entry: wide_case
-        # rows with entry_fwd_bwd_ms); the launches of the encoder_wide
-        # path
+        # above head_dim 256: the kernel cases at 512 and 1024, at the
+        # encoder_wide phase's attention and at WIDE_HARD_CASES (bf16 on
+        # csrc/flash_attn_wgwide.cu, f32 on csrc/flash_attn_wide.cu; 320
+        # runs padded to 512 through the autograd entry: wide_case rows
+        # with entry_fwd_bwd_ms); the launches of the encoder_wide path
         kern["head_dim_wide"] = dict(
             sources=["paddle_tpu_torch/csrc/flash_attn_wgwide.cu",
                      "paddle_tpu_torch/csrc/flash_attn_wide.cu"],
-            shape="b{} s{} n{}, h 512 and 1024, qkv views".format(
-                *WIDE_SHAPE),
+            shape="b{} s{} n{}, h 512 and 1024, qkv views; each case "
+                  "row names its shape".format(*WIDE_SHAPE),
             launches_encoder_wide=encwide["launches"][kern["name"]],
             cases=wide_rows[kern["name"]])
     if launches_inf == 0:

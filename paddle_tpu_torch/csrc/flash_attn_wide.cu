@@ -1,10 +1,10 @@
-// Flash attention above head_dim 256 for Hopper (sm_90a): the forward,
-// dQ and dK/dV kernels at any head_dim D that is a multiple of 256 above
-// it (ops/flash_attention.py's kernel_head_dim pads 257 and up to the
-// next one), in float32, and dQ and dK/dV in bfloat16. The bf16
-// forward runs on the tensor cores in flash_attn_wgwide.cu
-// (ops/flash_attention.py's _kernel_entry sends it there), so this file
-// does not build it.
+// Flash attention above head_dim 256 for Hopper (sm_90a) in float32: the
+// forward, dQ and dK/dV kernels at any head_dim D that is a multiple of
+// 256 above it (ops/flash_attention.py's kernel_head_dim pads 257 and up
+// to the next one). The bf16 forward, dQ and dK/dV run on the tensor
+// cores in flash_attn_wgwide.cu (ops/flash_attention.py's _kernel_entry
+// sends them there), so this file builds f32 only: tensor cores would
+// change the f32 kernels' rounding.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
 // `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
@@ -36,11 +36,8 @@
 // flash_ffma.cuh's, as in flash_attn_d256.cu. No atomics, so the
 // gradients are the same from run to run.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "flash_ffma.cuh"
 #include "philox.cuh"
@@ -371,36 +368,29 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_wide(WideArgs a) {
 
 enum Which { kFwd, kDq, kDkv };
 
-// the forward is built for float only, dQ and dK/dV for both types
-template <typename T, bool C, bool P>
+template <bool C, bool P>
 cudaError_t launch(Which which, int bn, const WideArgs& a, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, float>) {
-    if (which == kFwd)
-      return go(fwd_wide<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
-                kFwdSmem, st, a);
-  }
+  if (which == kFwd)
+    return go(fwd_wide<float, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
+              kFwdSmem, st, a);
   if (which == kDq)
-    return go(dq_wide<T, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
+    return go(dq_wide<float, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
               kDqSmem, st, a);
-  return go(dkv_wide<T, C, P>, dim3(bn, (a.sk + kT - 1) / kT, a.nc),
+  return go(dkv_wide<float, C, P>, dim3(bn, (a.sk + kT - 1) / kT, a.nc),
             kDkvSmem, st, a);
 }
 
-// dtype 0 (float32) for every entry, dtype 1 (bfloat16) for dQ and dK/dV
+// dtype 0 (float32) only
 int dispatch(Which which, int dtype, int b, int d, int causal, int dropout,
              WideArgs& a, void* stream_ptr) {
-  if (!(dtype == 0 || (dtype == 1 && which != kFwd)) || d <= kD || d % kD)
-    return -1;
+  if (dtype != 0 || d <= kD || d % kD) return -1;
   a.nc = d / kD;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int bn = b * a.n_heads;
-#define PT_GO(T, C, P) launch<T, C, P>(which, bn, a, st)
-#define PT_DROP(T, C) (dropout ? PT_GO(T, C, true) : PT_GO(T, C, false))
-#define PT_CAUSAL(T) (causal ? PT_DROP(T, true) : PT_DROP(T, false))
+#define PT_GO(C, P) launch<C, P>(which, bn, a, st)
   const cudaError_t e =
-      dtype == 1 ? PT_CAUSAL(__nv_bfloat16) : PT_CAUSAL(float);
-#undef PT_CAUSAL
-#undef PT_DROP
+      causal ? (dropout ? PT_GO(true, true) : PT_GO(true, false))
+             : (dropout ? PT_GO(false, true) : PT_GO(false, false));
 #undef PT_GO
   return (int)e;
 }
@@ -414,15 +404,14 @@ DropParams drop_args(unsigned int threshold, const void* seed, float rinv) {
 
 // The three entries take the arguments of pt_flash_attn_fwd,
 // pt_flash_attn_bwd_dq and pt_flash_attn_bwd_dkv (flash_attn_fwd.cu,
-// flash_attn_bwd.cu), for d a multiple of 256 above 256. dtype: 0 =
-// float32 (all three), 1 = bfloat16 (dQ and dK/dV; the bf16 forward is
-// flash_attn_wgwide.cu's entry). Strides are element strides (batch,
-// seq, head) of [b, s, n, h] tensors whose head_dim stride is 1; O is
-// written contiguous [b, sq, n, d], lse f32 [b, n, sq]. The dQ entry computes
-// delta = rowsum(dO * O) from o and writes it (as the bf16 dQ kernel at 64
-// and 128 does) for the dK/dV entry to read. Returns 0 on success, a
-// cudaError_t code if a launch was refused, or -1 for a dtype / head_dim
-// this file has no kernel for.
+// flash_attn_bwd.cu), for d a multiple of 256 above 256 and dtype 0
+// (float32; bfloat16 is flash_attn_wgwide.cu's). Strides are element
+// strides (batch, seq, head) of [b, s, n, h] tensors whose head_dim
+// stride is 1; O is written contiguous [b, sq, n, d], lse f32 [b, n,
+// sq]. The dQ entry computes delta = rowsum(dO * O) from o and writes it
+// (as the bf16 dQ kernels do) for the dK/dV entry to read. Returns 0 on
+// success, a cudaError_t code if a launch was refused, or -1 for a dtype
+// / head_dim this file has no kernel for.
 extern "C" int pt_flash_attn_fwd_wide(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int dtype, int b, int n, int sq, int sk, int d,

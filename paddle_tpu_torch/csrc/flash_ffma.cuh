@@ -8,7 +8,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,13 +33,7 @@ constexpr size_t kDkvSmem =
     (4 * kTile + 2 * kScores + 2 * kT) * sizeof(float);
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // kT rows of a [s, D] head (row stride row_stride elements) from row0,
 // widened to f32 and multiplied by mul, into dst[row * kLd + d]; rows at

@@ -4,8 +4,9 @@
 // and 128, the forward, dQ and dK/dV at 256 (fwd_wg256, dq_wg256,
 // dkv_wg256, flash_attn_wg256.cu: one owned buffer, the backward on
 // 32-row streamed tiles, dK/dV on 64 owned keys, a register split of
-// their own), and the forward above 256 (fwd_wgwide,
-// flash_attn_wgwide.cu: Q and K streamed in 64-column sub-tiles).
+// their own), and the forward, dQ and dK/dV above 256 (fwd_wgwide,
+// dq_wgwide, dkv_wgwide, flash_attn_wgwide.cu: a CTA per 256-wide output
+// chunk, the scores' operands streamed in 64-column sub-tiles).
 //
 // A CTA of 384 threads owns kOwn = 128 rows of one (batch, head): query
 // rows for the forward and dQ, keys for dK/dV. Warpgroups 0 and 1 are

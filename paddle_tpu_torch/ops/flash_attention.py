@@ -16,10 +16,9 @@ nvcc at first use (ops/_build.py) and called through ctypes:
   kernels of csrc/flash_attn_d256.cu; under the same launch counts;
 - above 256, at a multiple of 256 (the output's head_dim split over the
   grid in 256-wide chunks, the products over the whole head_dim summed
-  chunk by chunk, so shared memory does not grow with it): the bf16
-  forward as the wgmma kernel of csrc/flash_attn_wgwide.cu, the f32
-  forward and both dtypes' dQ and dK/dV as the FFMA kernels of
-  csrc/flash_attn_wide.cu;
+  chunk by chunk, so shared memory does not grow with it): in bf16 all
+  three as the wgmma kernels of csrc/flash_attn_wgwide.cu, in f32 as
+  the FFMA kernels of csrc/flash_attn_wide.cu;
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -80,12 +79,10 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256)
 # the head_dim of csrc/flash_attn_d256.cu's f32 kernels (its entries carry
 # the suffix _d256 and take the arguments of the others) and of
 # csrc/flash_attn_wg256.cu's bf16 ones (suffix _wg256); above it,
-# csrc/flash_attn_wide.cu's (suffix _wide) and the bf16 forward of
-# csrc/flash_attn_wgwide.cu (suffix _wgwide) take every multiple of it
+# csrc/flash_attn_wide.cu's f32 ones (suffix _wide) and
+# csrc/flash_attn_wgwide.cu's bf16 ones (suffix _wgwide) take every
+# multiple of it
 _D256 = 256
-# the entries csrc/flash_attn_wgwide.cu has (bf16 only): dQ and dK/dV
-# above 256 stay on flash_attn_wide.cu in both dtypes
-_WGWIDE_ENTRIES = ("pt_flash_attn_fwd",)
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
 # (the kernels', and the meta device, which traces a card step; the
 # CPU's plain version takes any head_dim)
@@ -109,8 +106,7 @@ _ARGTYPES = {
     "pt_flash_attn_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
 }
 _ARGTYPES.update({f"{k}_{w}": v for k, v in list(_ARGTYPES.items())
-                  for w in ("d256", "wg256", "wide")})
-_ARGTYPES.update({f"{k}_wgwide": _ARGTYPES[k] for k in _WGWIDE_ENTRIES})
+                  for w in ("d256", "wg256", "wide", "wgwide")})
 
 
 def _check(q, k, v):
@@ -279,15 +275,15 @@ def _kernel_entry(lib_name, fn_name, h, dtype):
     csrc/<lib_name>.cu's fn_name; at 256 its _wg256 twin in
     csrc/flash_attn_wg256.cu in bf16, its _d256 twin in
     csrc/flash_attn_d256.cu in f32; above 256 its _wgwide twin in
-    csrc/flash_attn_wgwide.cu for the bf16 forward, else its _wide twin
-    in csrc/flash_attn_wide.cu."""
+    csrc/flash_attn_wgwide.cu in bf16, its _wide twin in
+    csrc/flash_attn_wide.cu in f32."""
     bf16 = dtype == torch.bfloat16
     if h == _D256:
         if bf16:
             return "flash_attn_wg256", f"{fn_name}_wg256"
         return "flash_attn_d256", f"{fn_name}_d256"
     if h > _D256:
-        if bf16 and fn_name in _WGWIDE_ENTRIES:
+        if bf16:
             return "flash_attn_wgwide", f"{fn_name}_wgwide"
         return "flash_attn_wide", f"{fn_name}_wide"
     return lib_name, fn_name
@@ -353,7 +349,8 @@ def _bwd_delta(o, do):
 def _delta_in_kernel(dtype, head_dim=None):
     """True when the dQ kernel computes delta for this dtype and
     head_dim: the dQ entry's delta buffer is then its output (bf16 at 64,
-    128 and 256, dq_wgmma and dq_wg256; both dtypes above 256, dq_wide),
+    128 and 256, dq_wgmma and dq_wg256; above 256 dq_wgwide in bf16 and
+    dq_wide in f32),
     else its input, filled by _bwd_delta (f32 up to 256, dq_simt and
     dq_d256). csrc/flash_attn_bwd.cu's launch_dq and _kernel_entry pick
     the kernel by the same dtype rule."""

@@ -163,7 +163,9 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                                    "pt_flash_attn_fwd_wg256",
                                    "pt_flash_attn_bwd_dq_wg256",
                                    "pt_flash_attn_bwd_dkv_wg256",
-                                   "pt_flash_attn_fwd_wgwide"])
+                                   "pt_flash_attn_fwd_wgwide",
+                                   "pt_flash_attn_bwd_dq_wgwide",
+                                   "pt_flash_attn_bwd_dkv_wgwide"])
 def test_ctypes_signatures_match_the_c_entries(entry):
     """The wrappers' argtypes against the extern "C" parameter lists, so
     a marshalling slip shows here and not only on the card."""

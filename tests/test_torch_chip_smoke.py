@@ -1586,7 +1586,8 @@ def test_head_dim_256_cases_and_rows(cs):
     assert {192, 256} <= set(cs.PAD_HEAD_DIMS) and cs.D256_SHAPE[3] == 256
     assert cs.D256_INSTANTIATIONS == 3 * 2 * 2
     assert cs.WG256_INSTANTIATIONS == 3 * 2 * 2
-    case = dict(dtype="bfloat16", b=8, n=8, h=256, layout="qkv views",
+    case = dict(dtype="bfloat16", b=8, s=1024, sk=1024, n=8, h=256,
+                layout="qkv views",
                 causal=True, dropout_p=0.1, fwd_ms=4.5,
                 fwd_plain_ms=30.0, fwd_bound_ms=0.04, fwd_bound_by="bytes",
                 fwd_library_ms=0.3, dq_ms=6.0, dq_plain_ms=20.0,
@@ -1603,6 +1604,8 @@ def test_head_dim_256_cases_and_rows(cs):
     assert rows["flash_attn_bwd_dq"][0]["backward_library_ms"] == 0.4
     assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 4e-3
     assert rows["flash_attn_bwd_dkv"][0]["bound_by"] == "operations"
+    assert (rows["flash_attn_fwd"][0]["s"], rows["flash_attn_fwd"][0]["h"]) \
+        == (1024, 256)
 
 
 @pytest.mark.parametrize("name,wrapper", [
@@ -1622,6 +1625,12 @@ def test_head_dim_256_cases_and_rows(cs):
      "flash_attn_fwd"),
     ("void (anonymous namespace)::dq_wide<float, false, false>(WideArgs)",
      "flash_attn_bwd_dq"),
+    ("void (anonymous namespace)::dq_wgwide<true, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Args)",
+     "flash_attn_bwd_dq"),
+    ("void (anonymous namespace)::dkv_wgwide<false, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Args)",
+     "flash_attn_bwd_dkv"),
 ])
 def test_head_dim_256_kernels_count_for_their_wrapper(cs, name, wrapper):
     """The head_dim-256 and wide kernels' profiler names count for the
@@ -1746,17 +1755,23 @@ def test_srl_model_at_the_books_widths(cs):
 # the sentry ---------------------------------------------------------------
 
 def test_wide_cases_and_rows(cs):
-    """The wide FFMA kernels' instantiations are 3 kernels in f32 and dQ
-    and dK/dV in bf16, x causal x dropout, the wgmma forward's causal x
-    dropout; 320 runs padded (no kernel row), 512 and 1024 on the
-    kernels' entries give the kernels line's rows, each naming its
-    device kernel."""
+    """The wide FFMA kernels' instantiations are 3 kernels in f32 x
+    causal x dropout, the wgmma kernels' 3 in bf16 x causal x dropout;
+    320 runs padded (no kernel row), 512 and 1024 on the kernels'
+    entries give the kernels line's rows, each naming its device kernel
+    and its case's shape; the hard bf16 cases run on the kernels' own
+    head_dims, cross-attention on separate q, k and v."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    assert cs.WIDE_INSTANTIATIONS == (3 + 2) * 2 * 2
-    assert cs.WGWIDE_INSTANTIATIONS == 2 * 2
+    assert cs.WIDE_INSTANTIATIONS == 3 * 2 * 2
+    assert cs.WGWIDE_INSTANTIATIONS == 3 * 2 * 2
+    hard = [cs._unpack(c) for c in cs.WIDE_HARD_CASES]
+    assert all(fa.kernel_head_dim(c[3]) == c[3] > 256 and c[5] == "bfloat16"
+               and (c[8] or c[1] == c[7]) for c in hard)
+    assert {768} <= {c[3] for c in hard} and min(c[2] for c in hard) == 1
     assert [fa.kernel_head_dim(h) for h in cs.WIDE_HEAD_DIMS] == \
         [512, 512, 1024]
-    kernel = dict(dtype="float32", b=2, n=4, h=1024, layout="qkv views",
+    kernel = dict(dtype="float32", b=2, s=512, sk=512, n=4, h=1024,
+                  layout="qkv views",
                   causal=False, dropout_p=0.0, fwd_ms=1.6,
                   fwd_plain_ms=1.3, fwd_bound_ms=0.1, fwd_bound_by="operations",
                   fwd_library_ms=0.2, dq_ms=2.0, dq_plain_ms=3.0,
@@ -1772,7 +1787,8 @@ def test_wide_cases_and_rows(cs):
     assert rows["flash_attn_fwd"][0]["kernel"] == "fwd_wide"
     bf16 = cs.wide_kernel_rows([dict(kernel, dtype="bfloat16")])
     assert [r[0]["kernel"] for r in bf16.values()] == [
-        "fwd_wgwide", "dq_wide", "dkv_wide"]
+        "fwd_wgwide", "dq_wgwide", "dkv_wgwide"]
+    assert rows["flash_attn_fwd"][0]["h"] == 1024
 
 
 def test_collatz_loop_counts_the_trips_on_the_cpu(cs):
@@ -1853,9 +1869,8 @@ def _attn_case(attn):
 
 def test_encoder_kernel_rows_name_each_paths_kernels(cs):
     """The kernels line's rows of the two bf16 encoder paths: at head_dim
-    256 the three wgmma kernels of flash_attn_wg256.cu, at 512 the wgmma
-    forward of flash_attn_wgwide.cu and the FFMA dQ and dK/dV of
-    flash_attn_wide.cu, each with its path's launches and the times of
+    256 the three wgmma kernels of flash_attn_wg256.cu, at 512 the three
+    of flash_attn_wgwide.cu, each with its path's launches and the times of
     the case at the path's attention shape; a path that launched no
     kernel of one kind fails."""
     paths = {key: _path_row(routes)
@@ -1868,8 +1883,9 @@ def test_encoder_kernel_rows_name_each_paths_kernels(cs):
         ("flash_attn_bwd_dq_wg256", "flash_attn_wg256.cu", "encoder_256"),
         ("flash_attn_bwd_dkv_wg256", "flash_attn_wg256.cu", "encoder_256"),
         ("flash_attn_fwd_wgwide", "flash_attn_wgwide.cu", "encoder_wide"),
-        ("flash_attn_bwd_dq_wide", "flash_attn_wide.cu", "encoder_wide"),
-        ("flash_attn_bwd_dkv_wide", "flash_attn_wide.cu", "encoder_wide")]
+        ("flash_attn_bwd_dq_wgwide", "flash_attn_wgwide.cu", "encoder_wide"),
+        ("flash_attn_bwd_dkv_wgwide", "flash_attn_wgwide.cu",
+         "encoder_wide")]
     assert all(r["launches"] == 1 for r in rows)
     assert rows[3]["device_ms"] == 0.3 and rows[4]["library_ms"] is None
     assert rows[2]["replaces"].startswith(
@@ -1880,8 +1896,8 @@ def test_encoder_kernel_rows_name_each_paths_kernels(cs):
 
 
 def test_encoder_wide_gates_take_its_routes(cs):
-    """encoder_wide's replay must run the wgmma forward and the FFMA dQ
-    and dK/dV once each: the head_dim-256 routes there are a failure."""
+    """encoder_wide's replay must run the three wgmma kernels above 256
+    once each: the head_dim-256 routes there are a failure."""
     routes = cs.ENCODERS["encoder_wide"][1]
     row = dict(_encoder_256_row(),
                routes_per_step={name: 1 for name in routes.values()})

@@ -309,27 +309,57 @@ def test_head_dim_above_256_refuses_widths_the_wide_kernels_lack():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_above_256_launches_the_wide_entries(monkeypatch, dtype):
     """Above 256 the wrappers call entries with the arguments of the
-    others: the forward in bf16 csrc/flash_attn_wgwide.cu's (the wgmma
-    kernel), in f32 csrc/flash_attn_wide.cu's; dQ and dK/dV
-    csrc/flash_attn_wide.cu's in both dtypes, the dQ entry computing
-    delta itself (its buffer is the dK/dV entry's)."""
+    others: in bf16 the three entries of csrc/flash_attn_wgwide.cu (the
+    wgmma kernels), in f32 the three of csrc/flash_attn_wide.cu; in both
+    the dQ entry computes delta itself (its buffer is the dK/dV
+    entry's)."""
     calls = _record_launches(monkeypatch)
     monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
         "delta computed by torch ops above head_dim 256"))
     q, k, v = (torch.randn(1, 8, 2, 512).to(dtype) for _ in range(3))
     o, lse = fa._flash_fwd_cuda(q, k, v, False, 0.05)
     fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), False, 0.05)
-    fwd = (("flash_attn_wgwide", "pt_flash_attn_fwd_wgwide")
-           if dtype == torch.bfloat16
-           else ("flash_attn_wide", "pt_flash_attn_fwd_wide"))
+    src, tail = (("flash_attn_wgwide", "_wgwide") if dtype == torch.bfloat16
+                 else ("flash_attn_wide", "_wide"))
     assert [c[:2] for c in calls] == [
-        fwd,
-        ("flash_attn_wide", "pt_flash_attn_bwd_dq_wide"),
-        ("flash_attn_wide", "pt_flash_attn_bwd_dkv_wide")]
+        (src, "pt_flash_attn_fwd" + tail),
+        (src, "pt_flash_attn_bwd_dq" + tail),
+        (src, "pt_flash_attn_bwd_dkv" + tail)]
     assert [len(c[2]) + 1 for c in calls] == [
         len(fa._ARGTYPES[c[1]]) for c in calls]
     assert calls[1][2][6] == calls[2][2][5]   # the dQ entry's delta
     assert fa._delta_in_kernel(dtype, 512)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_head_dim_768_matches_pallas_interpret(causal):
+    """bf16 at head_dim 768 (three 256-wide chunks, an odd count, on the
+    card's csrc/flash_attn_wgwide.cu), cross-attention with ragged
+    lengths (sq 40, sk 24), the plain path the CPU runs on bf16 tensors:
+    O against the Pallas kernel in interpret mode and dQ, dK, dV against
+    jax.grad of it, both on the same bf16-rounded inputs in f32.
+    Tolerance: 2e-2 of each output's largest magnitude (chip_smoke.py's
+    bf16 TOL); the port computes in f32 and rounds its outputs to bf16
+    (2^-9 relative)."""
+    from test_torch_flash_backward import _jax_grads
+    q, k, v = _data(2, 40, 24, 2, 768, seed=21)
+    w = np.random.RandomState(22).randn(2, 40, 2, 768).astype(np.float32)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, w)]
+    q, k, v, w = (t.float().numpy() for t in bf)
+    want = [np.asarray(pk.flash_attention_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        interpret=True))] + _jax_grads(q, k, v, w, causal)
+    ts = [t.requires_grad_(True) for t in bf[:3]]
+    before = dict(fa.launches)
+    o = fa.flash_attention_mha(*ts, causal=causal)
+    (o.float() * bf[3].float()).sum().backward()
+    assert fa.launches == before
+    for name, got, ref in zip(("o", "dq", "dk", "dv"),
+                              [o] + [t.grad for t in ts], want):
+        assert got.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(got.detach().float().numpy(), ref,
+                                   atol=2e-2 * np.abs(ref).max(), rtol=0,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
