@@ -566,23 +566,28 @@ Phases, each of which fails the run on any mismatch:
    the last 10 losses below the first 10's. No kernel of the port runs
    on this path.
 43. Head_dim above 256 (`wide_case`, `mask_probe` at h 512 and 1024,
-   `wide_hard_case`, `wide_routes`, `encoder_wide`, after `d256_case`):
-   the bf16 forward, dQ and dK/dV on csrc/flash_attn_wgwide.cu's wgmma
-   kernels, the f32 ones on csrc/flash_attn_wide.cu's FFMA kernels, at
-   WIDE_SHAPE (b 2, s 512, n 4) against their plain versions, row by
-   row at TOL, f32 and bf16, p 0 and 0.1, causal and not: at h 512 and
-   1024 on the kernels' entries (bwd_kernel_case, the dQ kernel's own
-   delta held too; the bf16 kernels also timed alone on the card,
-   wide_device_ms), at 320 through the autograd entry (padded to 512;
-   pad_case), and in bf16 at encoder_wide's attention (b 8, s 1024, n 8,
-   h 512, p 0.1, separate q, k and v); in bf16 at WIDE_HARD_CASES
-   (causal cross-attention both ways, s 200, one head, D 768); each case
-   launches every kernel, and a forward and backward at D 768 runs
-   WIDE_ROUTES' kernels by name; ptxas reports no spill in the 12 FFMA
-   and 12 wgmma instantiations and no serialisation in the 12.
+   `wide_hard_case`, `wide_routes`, `sdpa_f32_routes`, `encoder_wide`,
+   `encoder_wide_f32`, after `d256_case`): the bf16 forward, dQ and
+   dK/dV on csrc/flash_attn_wgwide.cu's wgmma kernels, the f32 ones on
+   csrc/flash_attn_wide.cu's FFMA kernels (the backward a cluster of
+   chunk CTAs per row block), at WIDE_SHAPE (b 2, s 512, n 4) against
+   their plain versions, row by row at TOL, f32 and bf16, p 0 and 0.1,
+   causal and not: at h 512 and 1024 on the kernels' entries
+   (bwd_kernel_case, the dQ kernel's own delta held too; each kernel
+   also timed alone on the card, wide_device_ms), at 320 through the
+   autograd entry (padded to 512; pad_case), and at encoder_wide's
+   attention (b 8, s 1024, n 8, h 512, p 0.1, separate q, k and v) in
+   both dtypes; at WIDE_HARD_CASES in both dtypes (causal
+   cross-attention both ways, s 200, one head, D 768) and in f32 at D
+   2304 (nine chunks, two a CTA); each case launches every kernel, and a
+   forward and backward at D 768 runs WIDE_ROUTES' kernels by name;
+   ptxas reports no spill in the 12 FFMA and 12 wgmma instantiations
+   and no serialisation in the 12. `sdpa_f32_routes`: the kernels SDPA's
+   f32 forward and backward run at h 512 and 1024, by name.
    `encoder_wide`: encoder_256's step at nn.TransformerEncoderLayer(4096,
    8, 16384) (head_dim 512), its replay holding the three wgmma kernels
-   above 256 once each.
+   above 256 once each; `encoder_wide_f32`: the same step in f32 with no
+   AMP, holding the three FFMA kernels above 256 once each.
 44. Captured while_loop (`graph_while`, after the head_dim cases):
    ops.control_flow.while_loop inside static/capture.py's capture, a
    conditional WHILE node (csrc/graph_while.cu): Collatz steps of 4
@@ -1449,7 +1454,8 @@ def d256_kernel_rows(cases):
             backward_library_ms=(None if t == "fwd"
                                  else c["backward_library_ms"]),
             max_abs_err=(c[f"{e}_max_abs_err"] if t != "dkv" else
-                         max(c["dk_max_abs_err"], c["dv_max_abs_err"])))
+                         max(c["dk_max_abs_err"], c["dv_max_abs_err"])),
+            cluster=c.get("cluster"))
             for c in cases]
     return out
 
@@ -1471,23 +1477,27 @@ ENC256_ATTN = (8, 1024, 16, 256, False, "bfloat16", DROP_P, 1024, True)
 # the three wgmma kernels of csrc/flash_attn_wgwide.cu
 ENCWIDE = dict(ENC256, nhead=8)
 ENCWIDE_ATTN = (8, 1024, 8, 512, False, "bfloat16", DROP_P, 1024, True)
+# encoder_wide's step in f32 with no AMP (encoder_wide_f32): the three f32
+# kernels of csrc/flash_attn_wide.cu at ENCWIDE_ATTN's shape
+ENCWIDE_ATTN_F32 = ENCWIDE_ATTN[:5] + ("float32",) + ENCWIDE_ATTN[6:]
 
 
 def encoder_256_phase(torch, pt, fa, key="encoder_256"):
     """One layer of ENCODERS[key]'s config trained through the captured
-    TrainStep at ENC256_BATCH. From one start state, the first call (its
+    TrainStep at ENC256_BATCH, O1 bf16 or f32 with no AMP as ENCODERS
+    says. From one start state, the first call (its
     eager warm-up, then the capture) and one replay at STEP_SEEDS[:2]
     against two eager steps: losses and every parameter bit-equal. The
     attention kernels a replay runs, counted on the card by
     torch.profiler (profile_step): each of the three once, by the names
     ENCODERS[key] gives (the three wgmma kernels of head_dim 256, or of
-    512). Then ENC256_WARMUP +
+    512; in f32 the three FFMA kernels above 256). Then ENC256_WARMUP +
     ENC256_STEPS replays on a synchronised host clock: step ms beside a
     replay's device ms by category and attention's share of it, the idle
     share, tokens/s, peak memory over the first call. The kernels'
     counts are zeroed just before the path."""
     from paddle_tpu_torch.static import TrainStep
-    cfg, routes = ENCODERS[key]
+    cfg, routes, amp, _ = ENCODERS[key]
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -1499,7 +1509,7 @@ def encoder_256_phase(torch, pt, fa, key="encoder_256"):
                              parameters=model.parameters(),
                              weight_decay=0.01)
     step = TrainStep(model, pt.nn.functional.mse_loss, opt,
-                     amp_level="O1", amp_dtype="bfloat16")
+                     amp_level=amp, amp_dtype="bfloat16")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     x, y = (torch.randn((b, s, d), generator=gen, device="cuda")
@@ -1541,7 +1551,8 @@ def encoder_256_phase(torch, pt, fa, key="encoder_256"):
                  for name in routes.values()}
     row = dict(card=nvidia_smi(), model="nn.TransformerEncoderLayer",
                config=dict(cfg, head_dim=d // cfg["nhead"]),
-               batch=b, seq=s, amp="O1 bfloat16",
+               batch=b, seq=s,
+               amp=f"{amp} bfloat16" if amp else "none (float32)",
                optimizer="AdamW(1e-4, weight_decay=0.01)", loss="mse_loss",
                params=sum(p.numel() for p in step.params),
                captured_vs_eager=cap, graphs=step.programs,
@@ -1600,28 +1611,28 @@ def encoder_256_gates(row, routes=D256_ROUTES["bfloat16"]):
 
 
 def encoder_kernel_rows(paths, cases):
-    """The `kernels` line's rows of the bf16 paths at head_dim 256
+    """The `kernels` line's rows of the paths at head_dim 256
     (encoder_256: the three wgmma kernels of csrc/flash_attn_wg256.cu)
-    and 512 (encoder_wide: the three of csrc/flash_attn_wgwide.cu):
-    paths maps each phase to its row, and
-    each kernel is timed at its path's attention shape (ENC256_ATTN,
-    ENCWIDE_ATTN: the kernel case of `cases` at that shape); launches:
-    the path's (COUNTED_CALLS). Fails if a path launched no kernel of
-    one kind."""
+    and 512 (encoder_wide: the three of csrc/flash_attn_wgwide.cu;
+    encoder_wide_f32: the three FFMA kernels of csrc/flash_attn_wide.cu):
+    paths maps each phase to its row, and each kernel is timed at its
+    path's attention shape (ENCODERS[key][3]: the kernel case of `cases`
+    at that shape); launches: the path's (COUNTED_CALLS). Fails if a
+    path launched no kernel of one kind."""
     pallas = {"fwd": 175, "dq": 283, "dkv": 319}
     outs = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
     srcs = {"wg256": "flash_attn_wg256", "wgwide": "flash_attn_wgwide",
             "wide": "flash_attn_wide"}
     rows = []
-    for key, attn in (("encoder_256", ENC256_ATTN),
-                      ("encoder_wide", ENCWIDE_ATTN)):
-        path = paths[key]
+    for key, path in paths.items():
+        attn = ENCODERS[key][3]
         layer = next(c for c in cases if "fwd_ms" in c
                      and c["n"] == attn[2] and c["h"] == attn[3]
                      and c["dtype"] == attn[5]
                      and c["layout"] == _layout(attn[8]))
-        layer_shape = ("b{} sq{} n{} h{} bfloat16 non-causal dropout {}, "
-                       "separate q, k and v".format(*attn[:4], attn[6]))
+        layer_shape = ("b{} sq{} n{} h{} {} non-causal dropout {}, "
+                       "separate q, k and v".format(*attn[:4], attn[5],
+                                                    attn[6]))
         for wrapper, route in ENCODERS[key][1].items():
             t = wrapper.rsplit("_", 1)[-1]
             tail = route.split("_", 1)[1]
@@ -1657,8 +1668,9 @@ def encoder_kernel_rows(paths, cases):
 # csrc/flash_attn_wgwide.cu's bf16 wgmma kernels: b, s, n at every
 # head_dim of WIDE_HEAD_DIMS (320 runs zero-padded to 512 through the
 # autograd entry, the others on the kernels' own entries); the shape is
-# small because the FFMA design recomputes the scores once per 256-wide
-# chunk of the output (D / 256 times the head_dim-256 kernels' products)
+# small because the f32 forward recomputes the scores once per 256-wide
+# chunk of the output (the f32 backward's cluster of chunk CTAs sums
+# them once) and the plain versions run beside every case
 WIDE_SHAPE = (2, 512, 4)
 WIDE_HEAD_DIMS = (320, 512, 1024)
 WIDE_SOURCE = "flash_attn_wide"
@@ -1680,6 +1692,13 @@ WIDE_HARD_CASES = [(2, 384, 4, 512, True, "bfloat16", DROP_P, 640, True),
                    (4, 512, 1, 512, True, "bfloat16", DROP_P),
                    (2, 512, 4, 768, False, "bfloat16", DROP_P),
                    (2, 512, 4, 768, True, "bfloat16", 0.0)]
+# their f32 twins on csrc/flash_attn_wide.cu's cluster backward, and D
+# 2304 (nine chunks: more than a portable cluster of 8 CTAs, so a CTA
+# owns two; fa.wide_cluster) at a small shape, p 0 and DROP_P, causal and
+# not
+WIDE_HARD_CASES_F32 = [c[:5] + ("float32",) + c[6:] for c in WIDE_HARD_CASES]
+WIDE_2304_CASES = [(1, 128, 2, 2304, causal, "float32", p)
+                   for p in (0.0, DROP_P) for causal in (False, True)]
 # the device kernels of each wrapper above head_dim 256, by dtype
 WIDE_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wgwide",
                             "flash_attn_bwd_dq": "dq_wgwide",
@@ -1687,9 +1706,14 @@ WIDE_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wgwide",
                "float32": {"flash_attn_fwd": "fwd_wide",
                            "flash_attn_bwd_dq": "dq_wide",
                            "flash_attn_bwd_dkv": "dkv_wide"}}
-# phase -> (layer config, the bf16 kernels a step runs)
-ENCODERS = {"encoder_256": (ENC256, D256_ROUTES["bfloat16"]),
-            "encoder_wide": (ENCWIDE, WIDE_ROUTES["bfloat16"])}
+# phase -> (layer config, the kernels a step runs, AMP level, its
+# attention as the kernel cases see it)
+ENCODERS = {"encoder_256": (ENC256, D256_ROUTES["bfloat16"], "O1",
+                            ENC256_ATTN),
+            "encoder_wide": (ENCWIDE, WIDE_ROUTES["bfloat16"], "O1",
+                             ENCWIDE_ATTN),
+            "encoder_wide_f32": (ENCWIDE, WIDE_ROUTES["float32"], None,
+                                 ENCWIDE_ATTN_F32)}
 
 
 def wide_kernel_phase(torch, fa):
@@ -1698,10 +1722,10 @@ def wide_kernel_phase(torch, fa):
     causal and not, at WIDE_SHAPE: bwd_kernel_case at the head_dims the
     kernels take (512, 1024; the dQ kernel's own delta held too), and
     the autograd entry at 320 (pad_case: padded to 512 on the card,
-    against the plain versions at 320); and in bf16 at the attention
-    shape of the encoder_wide phase (ENCWIDE_ATTN). Each case must launch
-    every kernel. The bf16 cases also time each kernel alone
-    (wide_device_ms)."""
+    against the plain versions at 320); and at the attention shape of the
+    encoder_wide phases (ENCWIDE_ATTN in bf16, ENCWIDE_ATTN_F32). Each
+    case must launch every kernel, and times each kernel alone
+    (wide_device_ms); an f32 row names its cluster (fa.wide_cluster)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 29)
@@ -1710,7 +1734,7 @@ def wide_kernel_phase(torch, fa):
               else (b, s, n, h, causal, dt, p, s, True))
              for h in WIDE_HEAD_DIMS for dt in ("float32", "bfloat16")
              for p in (0.0, DROP_P) for causal in (False, True)]
-    cases.append(ENCWIDE_ATTN)
+    cases += [ENCWIDE_ATTN, ENCWIDE_ATTN_F32]
     rows = []
     for case in cases:
         b_, s_, n_, h, causal, dt, p, sk, sep = _unpack(case)
@@ -1718,9 +1742,9 @@ def wide_kernel_phase(torch, fa):
         if fa.kernel_head_dim(h) == h:
             row = bwd_kernel_case(torch, fa, gen, case, None,
                                   tag="wide_case", with_fwd=True)
-            if dt == "bfloat16":
-                for t, ms in wide_device_ms(torch, fa, gen, case).items():
-                    row[f"{t}_device_ms"] = ms
+            for t, ms in wide_device_ms(torch, fa, gen, case).items():
+                row[f"{t}_device_ms"] = ms
+            _wide_cluster_of(fa, row)
         else:
             row = pad_case(torch, fa, gen, b_, s_, sk, n_, h, dt, p, causal,
                            tag="wide_case", separate=sep)
@@ -1731,6 +1755,14 @@ def wide_kernel_phase(torch, fa):
                  f"{row['launched']}")
         rows.append(row)
     return rows
+
+
+def _wide_cluster_of(fa, row):
+    """The cluster an f32 row above 256 ran its backward in (size and
+    chunks a CTA, fa.wide_cluster); None in bf16."""
+    row["cluster"] = (dict(zip(("size", "chunks_per_cta"),
+                               fa.wide_cluster(row["h"])))
+                      if row["dtype"] == "float32" else None)
 
 
 def wide_device_ms(torch, fa, gen, case, runs=5):
@@ -1758,19 +1790,21 @@ def wide_device_ms(torch, fa, gen, case, runs=5):
 
 
 def wide_hard_phase(torch, fa):
-    """The bf16 kernels above head_dim 256 at WIDE_HARD_CASES, on their
-    own entries: bwd_kernel_case against the plain versions row by row
-    at TOL (the dQ kernel's own delta and a second dq launch too), each
-    case launching every kernel; then the device kernels a forward and
-    backward at D 768 runs in each dtype, by name (kernel_routes)."""
+    """The kernels above head_dim 256 at WIDE_HARD_CASES, in bf16 and f32
+    (WIDE_HARD_CASES_F32), and at D 2304 in f32 (WIDE_2304_CASES), on
+    their own entries: bwd_kernel_case against the plain versions row by
+    row at TOL (the dQ kernel's own delta and a second dq launch too),
+    each case launching every kernel; then the device kernels a forward
+    and backward at D 768 runs in each dtype, by name (kernel_routes)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 37)
     rows = []
-    for case in WIDE_HARD_CASES:
+    for case in WIDE_HARD_CASES + WIDE_HARD_CASES_F32 + WIDE_2304_CASES:
         before = dict(fa.launches)
         row = bwd_kernel_case(torch, fa, gen, case, None,
                               tag="wide_hard_case", with_fwd=True)
+        _wide_cluster_of(fa, row)
         row["launched"] = {k: fa.launches[k] - before[k]
                            for k in fa.launches}
         if not all(row["launched"].values()):
@@ -1779,6 +1813,38 @@ def wide_hard_phase(torch, fa):
         rows.append(row)
     kernel_routes(torch, fa, WIDE_ROUTES, 768, "wide_routes")
     return rows
+
+
+def sdpa_f32_routes_phase(torch):
+    """The device kernels of SDPA's f32 forward, and of its forward and
+    backward, at WIDE_SHAPE and head_dim 512 and 1024 (non-causal, p 0,
+    TF32 off as main sets it), by name with their device ms a call
+    (torch.profiler): the route behind the f32 rows' library column,
+    whose products may run on the tensor cores (3xTF32) where the wide
+    kernels run exact FFMA."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 41)
+    b, s, n = WIDE_SHAPE
+    out = {}
+    for h in (512, 1024):
+        q, k, v = attention_inputs(torch, gen, b, s, s, n, h, torch.float32,
+                                   False)
+        do = torch.randn(q.shape, generator=gen, device=dev)
+        fwd, fwd_bwd = _sdpa_fb(torch, q, k, v, do, False,
+                                1.0 / math.sqrt(h), 0.0)
+        out[h] = {what: [dict(name=r["name"], ms=r["ms"], calls=r["calls"])
+                         for r in device_profile(torch, fn, 3)["top"][:8]]
+                  for what, fn in (("forward", fwd),
+                                   ("forward_backward", fwd_bwd))}
+        del q, k, v, do
+    out["flags"] = dict(
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        flash_sdp=torch.backends.cuda.flash_sdp_enabled(),
+        mem_efficient_sdp=torch.backends.cuda.mem_efficient_sdp_enabled(),
+        math_sdp=torch.backends.cuda.math_sdp_enabled())
+    emit({"sdpa_f32_routes": out})
+    return out
 
 
 def wide_mask_probe_phase(torch, fa):
@@ -8835,7 +8901,9 @@ def main():
     wide_cases = wide_kernel_phase(torch, fa)
     wide_probes = wide_mask_probe_phase(torch, fa)
     wide_hard = wide_hard_phase(torch, fa)
+    sdpa_routes = sdpa_f32_routes_phase(torch)
     encwide = encoder_256_phase(torch, pt, fa, "encoder_wide")
+    encwide_f32 = encoder_256_phase(torch, pt, fa, "encoder_wide_f32")
     clock.lap("head_dim_wide")
     graph_while = graph_while_phase(torch, pt)
     clock.lap("graph_while")
@@ -9069,22 +9137,25 @@ def main():
             launches_encoder_256=enc256["launches"][kern["name"]],
             cases=d256_rows[kern["name"]])
         # above head_dim 256: the kernel cases at 512 and 1024, at the
-        # encoder_wide phase's attention and at WIDE_HARD_CASES (bf16 on
-        # csrc/flash_attn_wgwide.cu, f32 on csrc/flash_attn_wide.cu; 320
-        # runs padded to 512 through the autograd entry: wide_case rows
-        # with entry_fwd_bwd_ms); the launches of the encoder_wide path
+        # encoder_wide phases' attention, at WIDE_HARD_CASES and at D
+        # 2304 (bf16 on csrc/flash_attn_wgwide.cu, f32 on
+        # csrc/flash_attn_wide.cu; 320 runs padded to 512 through the
+        # autograd entry: wide_case rows with entry_fwd_bwd_ms); the
+        # launches of the encoder_wide paths
         kern["head_dim_wide"] = dict(
             sources=["paddle_tpu_torch/csrc/flash_attn_wgwide.cu",
                      "paddle_tpu_torch/csrc/flash_attn_wide.cu"],
             shape="b{} s{} n{}, h 512 and 1024, qkv views; each case "
                   "row names its shape".format(*WIDE_SHAPE),
             launches_encoder_wide=encwide["launches"][kern["name"]],
+            launches_encoder_wide_f32=encwide_f32["launches"][
+                kern["name"]],
             cases=wide_rows[kern["name"]])
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     kernels += encoder_kernel_rows(
-        {"encoder_256": enc256, "encoder_wide": encwide},
-        d256_cases + wide_cases)
+        {"encoder_256": enc256, "encoder_wide": encwide,
+         "encoder_wide_f32": encwide_f32}, d256_cases + wide_cases)
     # greedy NMS: no Pallas origin; at the serving path's shape (640
     # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates
     # of a YOLOv3 batch of 8 at 608)
@@ -9133,6 +9204,7 @@ def main():
           "replaces paddle_tpu/ops/pallas_kernels.py:157 (inside all three)",
           "mask_probes": probes + gpt_probes + [pipe_probe] + d256_probes
           + wide_probes,
+          "sdpa_f32_routes": sdpa_routes,
           "phase_seconds": clock.laps,
           "backward_cases": bwd_cases, "head_pad_cases": pad_cases,
           "gpt_training_cases": gpt_kernel_rows})

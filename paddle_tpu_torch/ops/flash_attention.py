@@ -15,10 +15,12 @@ nvcc at first use (ops/_build.py) and called through ctypes:
   both consumer warpgroups on the same 64 keys); in f32 as the FFMA
   kernels of csrc/flash_attn_d256.cu; under the same launch counts;
 - above 256, at a multiple of 256 (the output's head_dim split over the
-  grid in 256-wide chunks, the products over the whole head_dim summed
-  chunk by chunk, so shared memory does not grow with it): in bf16 all
-  three as the wgmma kernels of csrc/flash_attn_wgwide.cu, in f32 as
-  the FFMA kernels of csrc/flash_attn_wide.cu;
+  grid in 256-wide chunks, so shared memory does not grow with it): in
+  bf16 all three as the wgmma kernels of csrc/flash_attn_wgwide.cu
+  (the products over the whole head_dim summed chunk by chunk), in f32
+  as the FFMA kernels of csrc/flash_attn_wide.cu, whose dQ and dK/dV
+  run the chunk CTAs of a row block as one thread-block cluster that
+  sums its partial scores in distributed shared memory (wide_cluster);
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -83,6 +85,9 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256)
 # csrc/flash_attn_wgwide.cu's bf16 ones (suffix _wgwide) take every
 # multiple of it
 _D256 = 256
+# the largest thread-block cluster of the f32 backward above 256
+# (wide_cluster): the portable cluster size
+_WIDE_CLUSTER_MAX = 8
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
 # (the kernels', and the meta device, which traces a card step; the
 # CPU's plain version takes any head_dim)
@@ -242,9 +247,11 @@ def _tma_ok(t):
 
 def _kernel_input(t):
     """t itself when the kernels can read it through its strides (a unit
-    head_dim stride in f32; _tma_ok in bf16), else a packed copy in fresh
-    (aligned) memory."""
-    ok = t.stride(3) == 1 if t.dtype == torch.float32 else _tma_ok(t)
+    head_dim stride in f32 up to head_dim 256; _tma_ok in bf16 and above
+    256, where the f32 backward copies whole 16-byte rows), else a packed
+    copy in fresh (aligned) memory."""
+    ok = (t.stride(3) == 1 if t.dtype == torch.float32
+          and t.shape[3] <= _D256 else _tma_ok(t))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -521,6 +528,21 @@ def kernel_head_dim(h):
     if h > _D256:
         return -(-h // _D256) * _D256
     return next(d for d in SUPPORTED_HEAD_DIMS if d >= h)
+
+
+def wide_cluster(h):
+    """(cluster size, chunks a CTA) of the f32 dQ and dK/dV kernels at a
+    head_dim h above 256 that they take (a multiple of 256): the twin of
+    csrc/flash_attn_wide.cu's cluster_of. The h / 256 chunk CTAs of a
+    row block run as one thread-block cluster; above the portable
+    cluster size (_WIDE_CLUSTER_MAX CTAs) each CTA owns ceil(nc / 8)
+    chunks."""
+    if h <= _D256 or h % _D256:
+        raise ValueError(f"the wide kernels take a multiple of {_D256} "
+                         f"above it, got head_dim {h}")
+    nc = h // _D256
+    per = -(-nc // _WIDE_CLUSTER_MAX)
+    return -(-nc // per), per
 
 
 def flash_attention_fwd(query, key, value, causal=False, scale=None,

@@ -1789,6 +1789,37 @@ def test_wide_cases_and_rows(cs):
     assert [r[0]["kernel"] for r in bf16.values()] == [
         "fwd_wgwide", "dq_wgwide", "dkv_wgwide"]
     assert rows["flash_attn_fwd"][0]["h"] == 1024
+    cs._wide_cluster_of(fa, kernel)
+    rows = cs.wide_kernel_rows([kernel])
+    assert rows["flash_attn_bwd_dq"][0]["cluster"] == {
+        "size": 4, "chunks_per_cta": 1}
+
+
+def test_wide_f32_hard_cases_and_cluster_rows(cs):
+    """The f32 hard cases are WIDE_HARD_CASES' twins in f32 (the same
+    shapes on the cluster backward); D 2304 has nine chunks, more than a
+    portable cluster, so a CTA owns two (a cluster of 5), at p 0 and
+    DROP_P, causal and not; an f32 row names its cluster, a bf16 row
+    none."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    assert [c[:5] + c[6:] for c in cs.WIDE_HARD_CASES_F32] == \
+        [c[:5] + c[6:] for c in cs.WIDE_HARD_CASES]
+    assert {c[5] for c in cs.WIDE_HARD_CASES_F32} == {"float32"}
+    big = [cs._unpack(c) for c in cs.WIDE_2304_CASES]
+    assert {(c[4], c[6]) for c in big} == {
+        (causal, p) for causal in (False, True) for p in (0.0, cs.DROP_P)}
+    assert all(c[3] == 2304 and c[5] == "float32" for c in big)
+    assert fa.wide_cluster(2304) == (5, 2)
+    row = dict(dtype="float32", h=2304)
+    cs._wide_cluster_of(fa, row)
+    assert row["cluster"] == {"size": 5, "chunks_per_cta": 2}
+    row = dict(dtype="bfloat16", h=1024)
+    cs._wide_cluster_of(fa, row)
+    assert row["cluster"] is None
+    assert cs.ENCWIDE_ATTN_F32[5] == "float32" and \
+        cs.ENCWIDE_ATTN_F32[:5] == cs.ENCWIDE_ATTN[:5]
+    assert cs.ENCODERS["encoder_wide_f32"][1] == cs.WIDE_ROUTES["float32"]
+    assert cs.ENCODERS["encoder_wide_f32"][2] is None
 
 
 def test_collatz_loop_counts_the_trips_on_the_cpu(cs):
@@ -1868,14 +1899,15 @@ def _attn_case(attn):
 
 
 def test_encoder_kernel_rows_name_each_paths_kernels(cs):
-    """The kernels line's rows of the two bf16 encoder paths: at head_dim
-    256 the three wgmma kernels of flash_attn_wg256.cu, at 512 the three
-    of flash_attn_wgwide.cu, each with its path's launches and the times of
-    the case at the path's attention shape; a path that launched no
-    kernel of one kind fails."""
-    paths = {key: _path_row(routes)
-             for key, (_, routes) in cs.ENCODERS.items()}
-    cases = [_attn_case(cs.ENC256_ATTN), _attn_case(cs.ENCWIDE_ATTN)]
+    """The kernels line's rows of the encoder paths: at head_dim 256 the
+    three bf16 wgmma kernels of flash_attn_wg256.cu, at 512 the three of
+    flash_attn_wgwide.cu and, in f32 (encoder_wide_f32), the three FFMA
+    kernels of flash_attn_wide.cu, each with its path's launches and the
+    times of the case at the path's attention shape (in its dtype); a
+    path that launched no kernel of one kind fails."""
+    paths = {key: _path_row(entry[1]) for key, entry in cs.ENCODERS.items()}
+    cases = [_attn_case(cs.ENC256_ATTN), _attn_case(cs.ENCWIDE_ATTN),
+             _attn_case(cs.ENCWIDE_ATTN_F32)]
     rows = cs.encoder_kernel_rows(paths, cases)
     assert [(r["name"], r["source"].rsplit("/", 1)[1], r["path"])
             for r in rows] == [
@@ -1885,7 +1917,13 @@ def test_encoder_kernel_rows_name_each_paths_kernels(cs):
         ("flash_attn_fwd_wgwide", "flash_attn_wgwide.cu", "encoder_wide"),
         ("flash_attn_bwd_dq_wgwide", "flash_attn_wgwide.cu", "encoder_wide"),
         ("flash_attn_bwd_dkv_wgwide", "flash_attn_wgwide.cu",
-         "encoder_wide")]
+         "encoder_wide"),
+        ("flash_attn_fwd_wide", "flash_attn_wide.cu", "encoder_wide_f32"),
+        ("flash_attn_bwd_dq_wide", "flash_attn_wide.cu", "encoder_wide_f32"),
+        ("flash_attn_bwd_dkv_wide", "flash_attn_wide.cu",
+         "encoder_wide_f32")]
+    assert [r["shape"].split()[4] for r in rows] == \
+        ["bfloat16"] * 6 + ["float32"] * 3
     assert all(r["launches"] == 1 for r in rows)
     assert rows[3]["device_ms"] == 0.3 and rows[4]["library_ms"] is None
     assert rows[2]["replaces"].startswith(

@@ -281,7 +281,55 @@ def test_kernel_head_dim_pads_to_the_smallest_kernel_width():
         == [64, 64, 64, 128, 128, 128, 256, 256, 256, 512, 512, 1024]
 
 
-@pytest.mark.parametrize("h", [320, 512])
+@pytest.mark.parametrize("h,want", [(512, (2, 1)), (768, (3, 1)),
+                                    (1024, (4, 1)), (2048, (8, 1)),
+                                    (2304, (5, 2)), (4096, (8, 2)),
+                                    (4352, (6, 3))])
+def test_wide_cluster_covers_every_chunk_in_a_portable_cluster(h, want):
+    """The f32 dQ and dK/dV above 256 run the h / 256 chunk CTAs of a row
+    block as one cluster of at most 8 (the portable size): every chunk
+    owned by exactly one CTA, no CTA without one, and the fewest chunks
+    a CTA that fit (csrc/flash_attn_wide.cu's cluster_of)."""
+    size, per = fa.wide_cluster(h)
+    nc = h // 256
+    assert (size, per) == want
+    assert size <= 8 and (size - 1) * per < nc <= size * per
+    assert per == -(-nc // 8)
+
+
+def _f32_odd_offset(h):
+    # packed, but one element into its storage: 4 bytes off 16
+    return torch.randn(1 + 2 * 8 * 2 * h)[1:].view(2, 8, 2, h)
+
+
+@pytest.mark.parametrize("make,copied", [
+    (lambda: torch.randn(2, 8, 3, 2, 512)[:, :, 1], False),  # fused qkv view
+    (lambda: torch.randn(2, 8, 2, 512), False),              # packed
+    (lambda: _f32_odd_offset(512), True),                    # base not 16 B
+    (lambda: torch.randn(2, 8, 2, 513)[..., :512], True),    # rows not 16 B
+    (lambda: _f32_odd_offset(256), False),                   # at 256: as is
+])
+def test_f32_kernel_input_above_256_is_16_byte_aligned(make, copied):
+    """Above head_dim 256 the f32 backward copies whole 16-byte rows into
+    shared memory (csrc/flash_attn_wide.cu refuses any other): a view
+    whose base or strides are not whole 16-byte multiples is copied into
+    fresh packed memory; up to 256 the f32 kernels read any view with a
+    unit head_dim stride as it is."""
+    t = make()
+    got = fa._kernel_input(t)
+    assert (got.data_ptr() != t.data_ptr()) == copied
+    assert torch.equal(got, t)
+    if t.shape[3] > 256:
+        assert fa._tma_ok(got)
+
+
+@pytest.mark.parametrize("h", [256, 320, 64])
+def test_wide_cluster_refuses_widths_the_wide_kernels_lack(h):
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.wide_cluster(h)
+
+
+@pytest.mark.parametrize("h", [320, 512, 1024, 2304])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_above_256_matches_pallas_interpret(h, causal):
     """Above head_dim 256 (csrc/flash_attn_wide.cu on the card, padded to
