@@ -530,7 +530,8 @@ Phases, each of which fails the run on any mismatch:
 40. Head_dim 256 (`d256_case`, `d256_routes`, `mask_probe` at h 256,
    `encoder_256`, after `head_pad`): in bf16 csrc/flash_attn_wg256.cu's
    wgmma forward, dQ (computing delta) and dK/dV, in f32
-   csrc/flash_attn_d256.cu's three FFMA kernels, at b 8, s
+   csrc/flash_attn_wide.cu's cluster forward (a cluster of one CTA) and
+   csrc/flash_attn_d256.cu's FFMA dQ and dK/dV, at b 8, s
    1024, n 8, h 256, strided qkv views, f32 and bf16, p 0 and 0.1,
    causal and not, and in bf16 at encoder_256's attention (b 8, s 1024,
    n 16, p 0.1, separate q, k and v), each held row by row against the
@@ -539,7 +540,7 @@ Phases, each of which fails the run on any mismatch:
    kernels a forward and backward runs in each dtype, by name, counted
    by torch.profiler; the mask probes at D256_SHAPE; `head_pad` runs
    head_dims 192 and 256 through flash_attention_fwd (192 padded to
-   256); ptxas must report the 12 instantiations of the FFMA file and
+   256); ptxas must report the 8 instantiations of the FFMA file and
    the 12 of the wgmma file with no spill. `encoder_256`:
    nn.TransformerEncoderLayer(4096, 16, 16384) (head_dim 256), 8 x 1024
    tokens, O1 bf16, dropout 0.1, AdamW, one captured TrainStep step and
@@ -569,8 +570,8 @@ Phases, each of which fails the run on any mismatch:
    `wide_hard_case`, `wide_routes`, `sdpa_f32_routes`, `encoder_wide`,
    `encoder_wide_f32`, after `d256_case`): the bf16 forward, dQ and
    dK/dV on csrc/flash_attn_wgwide.cu's wgmma kernels, the f32 ones on
-   csrc/flash_attn_wide.cu's FFMA kernels (the backward a cluster of
-   chunk CTAs per row block), at WIDE_SHAPE (b 2, s 512, n 4) against
+   csrc/flash_attn_wide.cu's FFMA kernels (each a cluster of chunk CTAs
+   per row block), at WIDE_SHAPE (b 2, s 512, n 4) against
    their plain versions, row by row at TOL, f32 and bf16, p 0 and 0.1,
    causal and not: at h 512 and 1024 on the kernels' entries
    (bwd_kernel_case, the dQ kernel's own delta held too; each kernel
@@ -1346,12 +1347,13 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal, sk=None,
 # (nn.MultiHeadAttention(4096, 16)'s head width)
 PAD_HEAD_DIMS = (32, 96, 192, 256)
 # head_dim 256: b, s, n, h of the kernel cases; in bf16 the three
-# kernels on csrc/flash_attn_wg256.cu's wgmma kernels, in f32 on
-# csrc/flash_attn_d256.cu's FFMA kernels
+# kernels on csrc/flash_attn_wg256.cu's wgmma kernels, in f32 the forward
+# on csrc/flash_attn_wide.cu's cluster forward (a cluster of one CTA),
+# dQ and dK/dV on csrc/flash_attn_d256.cu's FFMA kernels
 D256_SHAPE = (8, 1024, 8, 256)
 D256_SOURCE = "flash_attn_d256"
-# its instantiations: 3 kernels in f32 x causal x dropout
-D256_INSTANTIATIONS = 12
+# its instantiations: 2 kernels (dQ, dK/dV) in f32 x causal x dropout
+D256_INSTANTIATIONS = 8
 WG256_SOURCE = "flash_attn_wg256"
 # its instantiations: the forward, dQ and dK/dV x causal x dropout
 WG256_INSTANTIATIONS = 12
@@ -1359,7 +1361,7 @@ WG256_INSTANTIATIONS = 12
 D256_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wg256",
                             "flash_attn_bwd_dq": "dq_wg256",
                             "flash_attn_bwd_dkv": "dkv_wg256"},
-               "float32": {"flash_attn_fwd": "fwd_d256",
+               "float32": {"flash_attn_fwd": "fwd_wide",
                            "flash_attn_bwd_dq": "dq_d256",
                            "flash_attn_bwd_dkv": "dkv_d256"}}
 
@@ -1384,6 +1386,7 @@ def d256_kernel_phase(torch, fa):
         before = dict(fa.launches)
         row = bwd_kernel_case(torch, fa, gen, case, None, tag="d256_case",
                               with_fwd=True)
+        kernel_clusters(torch, fa, row)
         # every kernel launched in the case (its timings too)
         row["launched"] = {k: fa.launches[k] - before[k]
                            for k in fa.launches}
@@ -1432,11 +1435,25 @@ def d256_mask_probe_phase(torch, fa):
             for dt in ("bfloat16", "float32") for causal in (False, True)]
 
 
+def kernel_clusters(torch, fa, row):
+    """Set row["clusters"]: the cluster ({size, chunks_per_cta}) each of
+    the row's three kernels ran in, by wrapper name (fa.kernel_cluster:
+    csrc/flash_attn_wide.cu's f32 kernels, the forward a cluster of one
+    at 256), None for a kernel that runs none."""
+    dt = getattr(torch, row["dtype"])
+    row["clusters"] = {}
+    for name in KERNEL_EVENTS:
+        cl = fa.kernel_cluster(f"pt_{name}", row["h"], dt)
+        row["clusters"][name] = (None if cl is None else
+                                 dict(zip(("size", "chunks_per_cta"), cl)))
+
+
 def d256_kernel_rows(cases):
     """{kernel: [per-case times, errors and bounds]} of the head_dim-256
     cases (and above it, wide_kernel_rows), for the `kernels` line's
     rows; `kernel` names the device kernel of the case's dtype
-    (D256_ROUTES, WIDE_ROUTES)."""
+    (D256_ROUTES, WIDE_ROUTES), `cluster` its cluster (kernel_clusters;
+    None in a row without them)."""
     keys = {"flash_attn_fwd": ("fwd", "o"), "flash_attn_bwd_dq": ("dq", "dq"),
             "flash_attn_bwd_dkv": ("dkv", "dk")}
     out = {}
@@ -1455,7 +1472,7 @@ def d256_kernel_rows(cases):
                                  else c["backward_library_ms"]),
             max_abs_err=(c[f"{e}_max_abs_err"] if t != "dkv" else
                          max(c["dk_max_abs_err"], c["dv_max_abs_err"])),
-            cluster=c.get("cluster"))
+            cluster=c.get("clusters", {}).get(name))
             for c in cases]
     return out
 
@@ -1668,9 +1685,7 @@ def encoder_kernel_rows(paths, cases):
 # csrc/flash_attn_wgwide.cu's bf16 wgmma kernels: b, s, n at every
 # head_dim of WIDE_HEAD_DIMS (320 runs zero-padded to 512 through the
 # autograd entry, the others on the kernels' own entries); the shape is
-# small because the f32 forward recomputes the scores once per 256-wide
-# chunk of the output (the f32 backward's cluster of chunk CTAs sums
-# them once) and the plain versions run beside every case
+# small because the plain versions run beside every case
 WIDE_SHAPE = (2, 512, 4)
 WIDE_HEAD_DIMS = (320, 512, 1024)
 WIDE_SOURCE = "flash_attn_wide"
@@ -1725,7 +1740,7 @@ def wide_kernel_phase(torch, fa):
     against the plain versions at 320); and at the attention shape of the
     encoder_wide phases (ENCWIDE_ATTN in bf16, ENCWIDE_ATTN_F32). Each
     case must launch every kernel, and times each kernel alone
-    (wide_device_ms); an f32 row names its cluster (fa.wide_cluster)."""
+    (wide_device_ms); an f32 row names its clusters (kernel_clusters)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 29)
@@ -1744,7 +1759,7 @@ def wide_kernel_phase(torch, fa):
                                   tag="wide_case", with_fwd=True)
             for t, ms in wide_device_ms(torch, fa, gen, case).items():
                 row[f"{t}_device_ms"] = ms
-            _wide_cluster_of(fa, row)
+            kernel_clusters(torch, fa, row)
         else:
             row = pad_case(torch, fa, gen, b_, s_, sk, n_, h, dt, p, causal,
                            tag="wide_case", separate=sep)
@@ -1755,14 +1770,6 @@ def wide_kernel_phase(torch, fa):
                  f"{row['launched']}")
         rows.append(row)
     return rows
-
-
-def _wide_cluster_of(fa, row):
-    """The cluster an f32 row above 256 ran its backward in (size and
-    chunks a CTA, fa.wide_cluster); None in bf16."""
-    row["cluster"] = (dict(zip(("size", "chunks_per_cta"),
-                               fa.wide_cluster(row["h"])))
-                      if row["dtype"] == "float32" else None)
 
 
 def wide_device_ms(torch, fa, gen, case, runs=5):
@@ -1804,7 +1811,7 @@ def wide_hard_phase(torch, fa):
         before = dict(fa.launches)
         row = bwd_kernel_case(torch, fa, gen, case, None,
                               tag="wide_hard_case", with_fwd=True)
-        _wide_cluster_of(fa, row)
+        kernel_clusters(torch, fa, row)
         row["launched"] = {k: fa.launches[k] - before[k]
                            for k in fa.launches}
         if not all(row["launched"].values()):
@@ -2357,7 +2364,7 @@ PROFILE_CATEGORIES = [
     ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
                                  "dkv_wgmma", "dq_simt", "dkv_simt",
                                  "fwd_wg256", "dq_wg256", "dkv_wg256",
-                                 "fwd_d256", "dq_d256", "dkv_d256",
+                                 "dq_d256", "dkv_d256",
                                  "fwd_wgwide", "dq_wgwide", "dkv_wgwide",
                                  "fwd_wide", "dq_wide", "dkv_wide")),
     # cuDNN's convolution engines (implicit-GEMM fprop, dgrad, wgrad),
@@ -2377,11 +2384,10 @@ PROFILE_CATEGORIES = [
 
 # the device kernels each wrapper launches, by the fragments of their
 # names that torch.profiler shows (bf16 wgmma, f32 simt; at head_dim 256
-# the bf16 wg256 and the f32 d256 FFMA kernels; above it the bf16 wgwide
-# and the f32 wide FFMA kernels)
+# the bf16 wg256 kernels, the f32 wide forward and d256 FFMA backward;
+# above it the bf16 wgwide and the f32 wide FFMA kernels)
 KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
-                                    "fwd_wg256", "fwd_d256", "fwd_wgwide",
-                                    "fwd_wide"),
+                                    "fwd_wg256", "fwd_wgwide", "fwd_wide"),
                  "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_wg256",
                                        "dq_d256", "dq_wgwide", "dq_wide"),
                  "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt",
@@ -9129,9 +9135,13 @@ def main():
         # head_dim 256: the kernel cases' rows at D256_SHAPE and at the
         # encoder_256 phase's attention (each row names its device
         # kernel: bf16 on csrc/flash_attn_wg256.cu, f32 on
-        # csrc/flash_attn_d256.cu); the launches of the encoder_256 path
+        # csrc/flash_attn_wide.cu's forward, a cluster of one, and
+        # csrc/flash_attn_d256.cu's backward); the launches of the
+        # encoder_256 path
         kern["head_dim_256"] = dict(
             sources=["paddle_tpu_torch/csrc/flash_attn_wg256.cu",
+                     "paddle_tpu_torch/csrc/flash_attn_wide.cu"
+                     if kern["name"] == "flash_attn_fwd" else
                      "paddle_tpu_torch/csrc/flash_attn_d256.cu"],
             shape="b{} s{} n{} h{}, qkv views".format(*D256_SHAPE),
             launches_encoder_256=enc256["launches"][kern["name"]],

@@ -5,11 +5,15 @@ Run it from the root of a checkout (`python3 flash_kernel_times.py`);
 it builds that checkout's csrc/ (ops/_build.py), prints each source's ptxas
 lines, then for every case a forward and backward under torch.profiler
 (chip_smoke.device_profile, five calls after a warm-up) and each flash
-kernel's device ms a call, by name, one JSON line a case. To compare two
-trees on one card, unpack the older one with `git archive` under a
-git-ignored directory and run the script from each root in turns within
-one command (older, newer, newer, older): it imports the chip_smoke.py
-and the package of the tree it runs from.
+kernel's device ms a call, by name, one JSON line a case. The cases are
+chip_smoke.py's kernel shapes, its encoder phases' attention
+(ENC256_ATTN, ENCWIDE_ATTN and ENCWIDE_ATTN_F32) and the f32 head_dim
+256 cases at p 0 and 0.1, causal and not. To compare two trees on one
+card, unpack the older one with `git archive` under a git-ignored
+directory and run the script from each root in turns within one command
+(older, newer, newer, older): it imports the chip_smoke.py and the
+package of the tree it runs from (the working directory), so the newer
+tree's script may time the older tree's kernels at the same cases.
 """
 import json
 import math
@@ -25,9 +29,11 @@ CASES = [(48, 512, 12, 64, False, "bfloat16", 0.1, 512, False),
          (8, 256, 8, 128, False, "bfloat16", 0.0, 256, False),
          (8, 256, 8, 128, False, "float32", 0.0, 256, False),
          (8, 1024, 8, 256, False, "bfloat16", 0.0, 1024, False),
-         (8, 1024, 8, 256, False, "float32", 0.0, 1024, False),
          (8, 1024, 16, 256, False, "bfloat16", 0.1, 1024, True),
-         (8, 1024, 8, 512, False, "bfloat16", 0.1, 1024, True)]
+         (8, 1024, 8, 512, False, "bfloat16", 0.1, 1024, True),
+         (8, 1024, 8, 512, False, "float32", 0.1, 1024, True)]
+CASES += [(8, 1024, 8, 256, causal, "float32", p, 1024, False)
+          for p in (0.0, 0.1) for causal in (False, True)]
 CASES += [(2, 512, 4, h, causal, dt, p, 512, False)
           for h in (512, 1024) for dt in ("float32", "bfloat16")
           for p in (0.0, 0.1) for causal in (False, True)]

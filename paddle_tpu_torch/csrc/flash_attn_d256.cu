@@ -1,36 +1,32 @@
-// Flash attention at head_dim 256 for Hopper (sm_90a): the forward, dQ
-// and dK/dV kernels of flash_attn_fwd.cu and flash_attn_bwd.cu for a
-// head_dim their designs do not fit, on the FFMA pipes, in float32. The
-// bf16 kernels at 256 run on the tensor cores in flash_attn_wg256.cu
-// (ops/flash_attention.py's _kernel_entry sends them there), so this
-// file does not build them.
+// Flash attention at head_dim 256 for Hopper (sm_90a): the f32 dQ and
+// dK/dV kernels of flash_attn_bwd.cu for a head_dim their designs do not
+// fit, on the FFMA pipes. The bf16 kernels at 256 run on the tensor
+// cores in flash_attn_wg256.cu, and the f32 forward at 256 is
+// flash_attn_wide.cu's fwd_wide as a cluster of one CTA
+// (ops/flash_attention.py's _kernel_entry sends them there), so this file
+// builds the f32 backward only.
 //
-// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
-// `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
-// Pallas wrapper pads to 256 (pallas_kernels.py:486 pads any head_dim to
-// a multiple of 128; ops/flash_attention.py's kernel_head_dim pads a
-// head_dim of 129 to 255 up to 256). The same function as the kernels
-// at 64 and 128: the key bound `col < sk`, the query bound `row < sq`,
-// the causal rule `row >= col` (top-left), masking with -1e30, l_safe =
-// max(l, 1e-30), lse = m + log(l_safe), and dropout from the shared
-// Philox keep bits of philox.cuh (seed, b*n + head, row, col), l summing
-// the un-dropped probabilities and the kept ones scaled by 1/(1-p); the
-// backward recomputes P = exp(Q K^T * scale - lse) and dS = P * (keep *
-// dP / (1-p) - delta), with delta = rowsum(dO * O) given by the caller
-// (from torch ops).
+// Replaces: paddle_tpu/ops/pallas_kernels.py `_dq_kernel` (:283) and
+// `_dkv_kernel` (:319) at the head_dims the Pallas wrapper pads to 256
+// (pallas_kernels.py:486 pads any head_dim to a multiple of 128;
+// ops/flash_attention.py's kernel_head_dim pads a head_dim of 129 to 255
+// up to 256). The same function as the kernels at 64 and 128: the key
+// bound `col < sk`, the query bound `row < sq`, the causal rule `row >=
+// col` (top-left), dropout from the shared Philox keep bits of
+// philox.cuh (seed, b*n + head, row, col), the kept probabilities scaled
+// by 1/(1-p); the backward recomputes P = exp(Q K^T * scale - lse) and
+// dS = P * (keep * dP / (1-p) - delta), with delta = rowsum(dO * O)
+// given by the caller (from torch ops).
 //
 // Why a kernel of its own. At D = 256 the designs at 64 and 128 do not
 // fit: the f32 dQ and dK/dV kernels of flash_attn_bwd.cu would need
 // 361,472 and 363,008 bytes of shared memory a CTA (the H100 gives
-// 232,448), and the bf16 wgmma dK/dV holds two [64 x 256] f32
-// accumulators a consumer warpgroup (256 registers a thread).
+// 232,448).
 //
-// What bounds it on an H100. The forward does 4*b*n*sq*sk*256 flops
-// (half that, causal) against (3*b*s*n + b*sq*n)*256 elements moved, so
-// at b 8, s 1024, n 8 it is bound by operations in both dtypes: 1.03 ms
-// at f32's 67 TFLOP/s, 0.07 ms at bf16's 989 on the tensor cores, which
-// these kernels do not use. The backward does 3 (dQ) and 4 (dK/dV) such
-// products. What sets this design's pace is shared memory, not the FP32
+// What bounds it on an H100. The backward does 3 (dQ) and 4 (dK/dV)
+// products of 2*b*n*sq*sk*256 flops (half that, causal), so at b 8, s
+// 1024, n 8 it is bound by operations: 0.51 ms a product at f32's 67
+// TFLOP/s. What sets this design's pace is shared memory, not the FP32
 // pipes: a score is 4 float4 loads for 16 FMAs, a product column 6 loads
 // for 32, so the SM's 128 bytes of shared memory a clock feed about a
 // quarter of its FMA rate.
@@ -43,12 +39,9 @@
 // (tid / 16, tid % 16) owns a 2x2 block of the 32x32 scores, rows 2r and
 // 2r+1, columns 2c and 2c+1: one Philox 2x2 block, and a score is a
 // float4 walk along D of two rows against two rows (4 loads for 16
-// FMAs). Products into a [32 x 256] result (O, dQ, dK, dV) give each
-// thread two rows and the 16 columns 4c + 64g + (0..3), g < 4, so a
-// warp's float4 reads of a row are contiguous.
-//  * fwd_d256: a CTA owns 32 query rows of one (batch, head) and walks
-//    the 32-key tiles with the running (m, l, O) in registers (104,064
-//    bytes of shared memory: two CTAs an SM).
+// FMAs). Products into a [32 x 256] result (dQ, dK, dV) give each thread
+// two rows and the 16 columns 4c + 64g + (0..3), g < 4, so a warp's
+// float4 reads of a row are contiguous.
 //  * dq_d256: a CTA owns 32 query rows and walks the key tiles: S and dP
 //    from Q, dO, K and V, dS through shared memory, dQ += dS K (137,344
 //    bytes).
@@ -78,110 +71,6 @@ struct Args {
   float scale;
   DropParams dp;
 };
-
-// ---------------------------------------------------------------- forward
-
-template <typename T, bool CAUSAL, bool DROP>
-__global__ void __launch_bounds__(kThreads) fwd_d256(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_f[];
-  float* Qs = reinterpret_cast<float*>(smem_f);  // q * scale
-  float* Ks = Qs + kTile;
-  float* Vs = Ks + kTile;
-  float* Ps = Vs + kTile;  // [kT][kPLd] dropout(p)
-
-  const int bh = blockIdx.x;
-  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
-  const int q0 = blockIdx.y * kT;
-  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
-  const int sq = a.sq, sk = a.sk;
-  const DropParams dp = drop_params<DROP>(a.dp);
-  const T* qb = static_cast<const T*>(a.q) + bi * a.qs.b + hi * a.qs.n;
-  const T* kb = static_cast<const T*>(a.k) + bi * a.ks.b + hi * a.ks.n;
-  const T* vb = static_cast<const T*>(a.v) + bi * a.vs.b + hi * a.vs.n;
-
-  load_rows(Qs, qb, a.qs.s, q0, sq, a.scale, tid);
-  float acc[2][16], m[2], lpart[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m[i] = kNeg;
-    lpart[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = key_tiles(CAUSAL, sk, q0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();  // the last tile's reads are done
-    load_rows(Ks, kb, a.ks.s, k0, sk, 1.f, tid);
-    load_rows(Vs, vb, a.vs.s, k0, sk, 1.f, tid);
-    __syncthreads();
-
-    float s[2][2];
-    scores(s, Qs, r, Ks, c);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + 2 * r + i;
-      bool ok[2];
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = k0 + 2 * c + j;
-        ok[j] = col < sk && (!CAUSAL || row >= col);
-        s[i][j] = ok[j] ? s[i][j] : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 lanes of a row pair share its rows
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps += s[i][j];
-      }
-      lpart[i] = lpart[i] * corr + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] *= corr;
-    }
-    if (DROP) {
-      const int row = q0 + 2 * r, col = k0 + 2 * c;
-      const uint4 w = drop_block(dp, bh, row, col);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          s[i][j] = drop_keep(dp, w, row + i, col + j) ? s[i][j] * dp.rinv
-                                                       : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) Ps[(2 * r + i) * kPLd + 2 * c + j] = s[i][j];
-    __syncthreads();
-    accumulate(acc, Ps, r, Vs, c);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = lpart[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    const float l_safe = fmaxf(l, 1e-30f);
-    const int row = q0 + 2 * r + i;
-    if (row < sq) {
-      T* orow = static_cast<T*>(a.o) +
-                ((long long)(bi * sq + row) * a.n_heads + hi) * kD;
-      store_row(orow, acc[i], c, 1.f / l_safe);
-      if (c == 0) a.lse[(long long)bh * sq + row] = m[i] + logf(l_safe);
-    }
-  }
-}
 
 // -------------------------------------------------------------------- dQ
 
@@ -347,13 +236,10 @@ __global__ void __launch_bounds__(kThreads) dkv_d256(Args a) {
 
 // ------------------------------------------------------------- launching
 
-enum Which { kFwd, kDq, kDkv };
+enum Which { kDq, kDkv };
 
 template <bool C, bool P>
 cudaError_t launch(Which which, int bn, const Args& a, cudaStream_t st) {
-  if (which == kFwd)
-    return go(fwd_d256<float, C, P>, dim3(bn, (a.sq + kT - 1) / kT),
-              kFwdSmem, st, a);
   if (which == kDq)
     return go(dq_d256<float, C, P>, dim3(bn, (a.sq + kT - 1) / kT),
               kDqSmem, st, a);
@@ -382,33 +268,16 @@ DropParams drop_args(unsigned int threshold, const void* seed, float rinv) {
 
 }  // namespace
 
-// The three entries take the arguments of pt_flash_attn_fwd,
-// pt_flash_attn_bwd_dq and pt_flash_attn_bwd_dkv (flash_attn_fwd.cu,
-// flash_attn_bwd.cu), for d = 256 and dtype 0 (float32; the bf16 kernels
-// are flash_attn_wg256.cu's entries). Strides are element strides
-// (batch, seq, head) of [b, s, n, h] tensors whose head_dim stride is 1;
-// O is written contiguous [b, sq, n, h], lse f32 [b, n, sq]. Unlike the
+// The two entries take the arguments of pt_flash_attn_bwd_dq and
+// pt_flash_attn_bwd_dkv (flash_attn_bwd.cu), for d = 256 and dtype 0
+// (float32; the bf16 kernels are flash_attn_wg256.cu's entries, the f32
+// forward flash_attn_wide.cu's pt_flash_attn_fwd_wide). Strides are
+// element strides (batch, seq, head) of [b, s, n, h] tensors whose
+// head_dim stride is 1; lse is f32 [b, n, sq]. Unlike the
 // bf16 dQ kernels, the dQ entry here reads delta = rowsum(dO * O) (o is
 // not read), as the dK/dV entry does. Returns 0 on
 // success, a cudaError_t code if a launch was refused, or -1 for a dtype
 // / head_dim this file has no kernel for.
-extern "C" int pt_flash_attn_fwd_d256(
-    const void* q, const void* k, const void* v, void* o, float* lse,
-    int dtype, int b, int n, int sq, int sk, int d,
-    long long q_sb, long long q_ss, long long q_sn,
-    long long k_sb, long long k_ss, long long k_sn,
-    long long v_sb, long long v_ss, long long v_sn,
-    float scale, int causal, int dropout, unsigned int threshold,
-    const void* seed, float rinv, void* stream_ptr) {
-  Args a{};
-  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
-  a.qs = {q_sb, q_ss, q_sn}; a.ks = {k_sb, k_ss, k_sn};
-  a.vs = {v_sb, v_ss, v_sn};
-  a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
-  a.dp = drop_args(threshold, seed, rinv);
-  return dispatch(kFwd, dtype, b, d, causal, dropout, a, stream_ptr);
-}
-
 extern "C" int pt_flash_attn_bwd_dq_d256(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, int dtype,

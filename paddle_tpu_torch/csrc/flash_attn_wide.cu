@@ -1,63 +1,68 @@
-// Flash attention above head_dim 256 for Hopper (sm_90a) in float32: the
-// forward, dQ and dK/dV kernels at any head_dim D that is a multiple of
-// 256 above it (ops/flash_attention.py's kernel_head_dim pads 257 and up
-// to the next one). The bf16 forward, dQ and dK/dV run on the tensor
-// cores in flash_attn_wgwide.cu (ops/flash_attention.py's _kernel_entry
-// sends them there), so this file builds f32 only: tensor cores would
-// change the f32 kernels' rounding.
+// Flash attention in float32 for Hopper (sm_90a) at any head_dim D that
+// is a multiple of 256: the forward from 256 up, the dQ and dK/dV
+// kernels above 256 (ops/flash_attention.py's kernel_head_dim pads 257
+// and up to the next multiple; at 256 the f32 backward is
+// flash_attn_d256.cu's). The bf16 kernels run on the tensor cores in
+// flash_attn_wg256.cu and flash_attn_wgwide.cu (ops/flash_attention.py's
+// _kernel_entry sends them there), so this file builds f32 only: tensor
+// cores would change the f32 kernels' rounding.
 //
-// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
-// `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
-// Pallas wrapper pads above 256 (pallas_kernels.py:486-493 pads any
-// head_dim to a multiple of 128 and runs it). The same function as the
-// kernels at 64, 128 and 256: the key bound `col < sk`, the query bound
-// `row < sq`, the causal rule `row >= col` (top-left), masking with
-// -1e30, l_safe = max(l, 1e-30), lse = m + log(l_safe), dropout from the
-// shared Philox keep bits of philox.cuh (seed, b*n + head, row, col),
-// which do not depend on D, l summing the un-dropped probabilities.
+// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175) at the
+// head_dims the Pallas wrapper pads to 256 and above, `_dq_kernel`
+// (:283) and `_dkv_kernel` (:319) above 256 (pallas_kernels.py:486-493
+// pads any head_dim to a multiple of 128 and runs it). The same function
+// as the kernels at 64 and 128: the key bound `col < sk`, the query
+// bound `row < sq`, the causal rule `row >= col` (top-left), masking
+// with -1e30, l_safe = max(l, 1e-30), lse = m + log(l_safe), dropout
+// from the shared Philox keep bits of philox.cuh (seed, b*n + head, row,
+// col), which do not depend on D, l summing the un-dropped
+// probabilities.
 //
-// Why a design of its own. flash_attn_d256.cu holds [32 x 256] f32 tiles
-// in shared memory (three or four of them, 104 to 142 KB a CTA); the same
-// tiles at 512 or 1024 columns no longer fit the 227 KB an SM gives a
-// CTA. Here shared memory does not grow with D: the output's head_dim is
-// split in 256-wide chunks, a CTA per (row block, chunk).
-//  * The forward (fwd_wide): a CTA owns 32 query rows and one chunk of
-//    O; the scores Q K^T, a product over the whole head_dim, are summed
-//    chunk by chunk through the same [32 x 256] tiles (the chunk loop ends
-//    on the CTA's own chunk), so every chunk's CTA computes them again;
-//    each keeps the online softmax of its own chunk (the same m and l in
-//    every CTA), and chunk 0 writes the lse. Tiles, threads and the FFMA
-//    products are flash_ffma.cuh's, as in flash_attn_d256.cu.
-//  * The backward (dq_wide, dkv_wide): the D / 256 chunk CTAs of a
-//    32-row block (query rows for dQ, keys for dK/dV) run as one
-//    thread-block cluster. Each CTA keeps its own chunk of the block's
-//    operands in shared memory for the whole walk (Q and dO, or K and V)
-//    and reads only its own chunk of the walked ones (K and V, or Q and
-//    dO), in steps of two 32-row tiles. It computes S and dP over its
-//    chunk only; the cluster sums the CTAs' partial tiles in distributed
-//    shared memory, in rank order, so every CTA applies a bit-identical
-//    softmax, dropout and dS, then accumulates its chunk of dQ (or dK
-//    and dV). So the grid does the 3 (dQ) and 4 (dK/dV) products of the
-//    bound, not the 2 nc + 1 and 2 nc + 2 of a CTA that sums the scores
-//    itself. delta = rowsum(dO * O) is summed the same way, and the dQ
-//    cluster's rank 0 writes it. Above 8 chunks (the portable cluster
-//    size) a CTA owns ceil(nc / 8) of them and walks once per owned
-//    chunk, copying its tiles as it goes.
-//  * Its CTA: two consumer warpgroups and a producer warp, whose bulk
-//    copies (a row each, counted on mbarriers) bring a walked tile as
-//    soon as the consumers are done with the tile's last one. The
-//    cluster barrier on one tile's partials waits behind the other
-//    tile's products, and releases only the CTA's shared memory (a full
-//    release is a GPU-wide fence at every barrier).
+// Why a design of its own. [32 x 256] f32 tiles of every operand of a
+// row block no longer fit the 227 KB an SM gives a CTA at 512 or 1024
+// columns. Here shared memory does not grow with D: the head_dim is split
+// in 256-wide chunks, and the D / 256 chunk CTAs of a 32-row block run
+// as one thread-block cluster (a cluster of one at D 256). Each CTA
+// keeps its own chunk of the block's operands in shared memory for the
+// whole walk and reads only its own chunk of the walked ones, in steps
+// of two 32-row tiles. It computes its partial scores over its chunk
+// only; the cluster sums the CTAs' partials in distributed shared
+// memory, in rank order, so every CTA applies a bit-identical mask,
+// softmax, dropout (and in the backward dS), then accumulates its own
+// chunk of the output. So the grid does the bound's products (2 in the
+// forward, 3 in dQ, 4 in dK/dV), not a CTA's own sum of the scores over
+// every chunk (nc + 1, 2 nc + 1 and 2 nc + 2). Above 8 chunks (the
+// portable cluster size) a CTA owns ceil(nc / 8) of them and walks once
+// per owned chunk, copying its tiles as it goes.
+//  * The forward (fwd_wide): a cluster per 32 query rows, Q of the chunk
+//    resident, the keys walked. Each step: the partial S (warps 0-3 the
+//    step's first key tile, 4-7 its second); the cluster barrier on it
+//    waits behind the last step's P V_z; the summed S, the online
+//    softmax (the same m and l in every CTA) and the keep bits; P into
+//    shared memory, O_z rescaled. Rank 0 writes the lse. One producer
+//    warp beside the 8 consumer warps, so each thread may hold 224
+//    registers: its tiles take 201 KB.
+//  * The backward (dq_wide, dkv_wide): a cluster per 32 query rows (dQ:
+//    Q and dO resident, K and V walked) or per 32 keys (dK/dV: K and V
+//    resident, Q and dO walked). The cluster sums S and dP (S^T and
+//    dP^T); delta = rowsum(dO * O) is summed the same way, and the dQ
+//    cluster's rank 0 writes it for dK/dV. Each CTA has two consumer
+//    warpgroups and a producer warpgroup; the cluster barrier on one
+//    tile's partials waits behind the other tile's products.
+//  * In both, the producer warp's bulk copies (a row each, counted on
+//    mbarriers) bring a walked tile as soon as the consumers are done
+//    with the tile's last one, and the cluster barrier releases only the
+//    CTA's shared memory (a full release is a GPU-wide fence at every
+//    barrier).
 //  * The products are FFMA, exact to the rounding of FP32 FMAs (no
 //    tensor cores: TF32 would change the f32 kernels' rounding): a
 //    thread's 4x4 block of S or dP (8 float4 shared loads for 64 FMAs,
-//    over half the chunk's columns), its 4x8 block of dQ (3 for 32) or
-//    8x8 block of dK or dV (4 for 64).
-// No atomics, so the gradients are the same from run to run. What
-// bounds the backward on the card: one CTA an SM (its tiles take 219 and
-// 227 KB), its 8 consumer warps through the same phases, so the
-// products run at about half the FP32 rate and the cluster's sums and
+//    over half the chunk's columns), its 4x8 block of O (12 for 128) or
+//    dQ (3 for 32), its 8x8 block of dK or dV (4 for 64).
+// No atomics, so the outputs and gradients are the same from run to run.
+// What bounds them on the card: one CTA an SM (its tiles take 201 to 227
+// KB), its 8 consumer warps through the same phases, so the products run
+// at about a third to a half of the FP32 rate and the cluster's sums and
 // barriers show in its time beside them (PERF.md).
 
 #include <cuda_runtime.h>
@@ -81,121 +86,7 @@ struct WideArgs {
   DropParams dp;
 };
 
-// the chunk of the i-th pass of a chunk loop that ends on chunk z
-__device__ __forceinline__ int chunk_of(int i, int z, int nc) {
-  return (z + 1 + i) % nc;
-}
-
-// ---------------------------------------------------------------- forward
-
-template <typename T, bool CAUSAL, bool DROP>
-__global__ void __launch_bounds__(kThreads) fwd_wide(WideArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_f[];
-  float* Qs = reinterpret_cast<float*>(smem_f);  // q * scale, one chunk
-  float* Ks = Qs + kTile;
-  float* Vs = Ks + kTile;  // the CTA's own chunk of V
-  float* Ps = Vs + kTile;  // [kT][kPLd] dropout(p)
-
-  const int bh = blockIdx.x;
-  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
-  const int q0 = blockIdx.y * kT;
-  const int z = blockIdx.z, nc = a.nc;
-  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
-  const int sq = a.sq, sk = a.sk;
-  const DropParams dp = drop_params<DROP>(a.dp);
-  const T* qb = static_cast<const T*>(a.q) + bi * a.qs.b + hi * a.qs.n;
-  const T* kb = static_cast<const T*>(a.k) + bi * a.ks.b + hi * a.ks.n;
-  const T* vb = static_cast<const T*>(a.v) + bi * a.vs.b + hi * a.vs.n;
-
-  float acc[2][16], m[2], lpart[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m[i] = kNeg;
-    lpart[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = key_tiles(CAUSAL, sk, q0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kT;
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    for (int i = 0; i < nc; ++i) {
-      const int cc = chunk_of(i, z, nc);
-      __syncthreads();  // the last pass's (or tile's) reads are done
-      load_rows(Qs, qb + cc * kD, a.qs.s, q0, sq, a.scale, tid);
-      load_rows(Ks, kb + cc * kD, a.ks.s, k0, sk, 1.f, tid);
-      if (i == 0) load_rows(Vs, vb + z * kD, a.vs.s, k0, sk, 1.f, tid);
-      __syncthreads();
-      scores_add(s, Qs, r, Ks, c);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + 2 * r + i;
-      bool ok[2];
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = k0 + 2 * c + j;
-        ok[j] = col < sk && (!CAUSAL || row >= col);
-        s[i][j] = ok[j] ? s[i][j] : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps += s[i][j];
-      }
-      lpart[i] = lpart[i] * corr + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] *= corr;
-    }
-    if (DROP) {
-      const int row = q0 + 2 * r, col = k0 + 2 * c;
-      const uint4 w = drop_block(dp, bh, row, col);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          s[i][j] = drop_keep(dp, w, row + i, col + j) ? s[i][j] * dp.rinv
-                                                       : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) Ps[(2 * r + i) * kPLd + 2 * c + j] = s[i][j];
-    __syncthreads();
-    accumulate(acc, Ps, r, Vs, c);
-  }
-
-  const long long d_all = (long long)nc * kD;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = lpart[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    const float l_safe = fmaxf(l, 1e-30f);
-    const int row = q0 + 2 * r + i;
-    if (row < sq) {
-      T* orow = static_cast<T*>(a.out) +
-                ((long long)(bi * sq + row) * a.n_heads + hi) * d_all +
-                z * kD;
-      store_row(orow, acc[i], c, 1.f / l_safe);
-      if (z == 0 && c == 0)
-        a.lse[(long long)bh * sq + row] = m[i] + logf(l_safe);
-    }
-  }
-}
-
-// ------------------------------------------------- the backward's cluster
+// ------------------------------------------------------------ the cluster
 
 // The chunk CTAs of one row block run as a thread-block cluster of
 // cl.size CTAs, each owning cl.chunks consecutive 256-wide chunks
@@ -1004,13 +895,384 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
   }
 }
 
+// --------------------------------------------------------------- forward
+
+// a step's partial scores [query][key] (66: a thread's float2 of two keys
+// reads two rows at once, and put_scores' scalar stores meet no bank
+// twice) and its dropout(P) [query][key] (68: float4 rows for
+// accumulate_pv, whose four rows a warp reads lie 4 banks apart)
+constexpr int kFSLd = kWT + 2;
+constexpr int kFPLd = kWT + 4;
+constexpr int kFPart = kCT * kFSLd;
+constexpr int kFP = kCT * kFPLd;
+// the resident Q, the step's two K and two V tiles, two steps' partial
+// scores and P, each row's rescale and 1 / l
+constexpr size_t kFwdCSmem =
+    (5 * kCTile + 2 * kFPart + 2 * kFP + 2 * kCT) * sizeof(float);
+static_assert(kFwdCSmem <= 232448, "a CTA takes at most 227 KB");
+// the forward's CTA: the consumers and one producer warp, so that every
+// thread may hold 224 registers (65,536 over 288, in steps of 8) with no
+// setmaxnreg; under the backward's 384 threads (168 each) it spilled
+constexpr int kFThreads = kConsumers + 32;
+
+// the thread's block of the partial scores into part[query][key]: query
+// rows 4 sa + i, keys sb + 8 j of the step's tile `prod` (its half of
+// them: j = 2 sh, 2 sh + 1)
+__device__ __forceinline__ void put_scores(float* part, const float sp[4][4],
+                                           const Roles& ro) {
+  float* p = part + 4 * ro.sa * kFSLd + kCT * ro.prod + ro.sb;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((j >> 1) == ro.sh) p[i * kFSLd + 8 * j] = sp[i][j];
+}
+
+// s[i]: rows 2 r + i, keys kCT t + 2 c and + 1 of the step's tile t,
+// summed over the cluster's CS CTAs in rank order (the same order in
+// every CTA, so each holds the same bits; every load issued before the
+// first sum); a cluster of one reads its own shared memory
+template <int CS>
+__device__ __forceinline__ void fwd_sum(float2 s[2], const float* part,
+                                        int off) {
+  float2 x[CS][2];
+#pragma unroll
+  for (int k = 0; k < CS; ++k) {
+    const float* src = CS == 1 ? part : at_rank(part, k);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) x[k][i] = ld2(src + off + i * kFSLd);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    s[i] = x[0][i];
+#pragma unroll
+    for (int k = 1; k < CS; ++k) {
+      s[i].x += x[k][i].x;
+      s[i].y += x[k][i].y;
+    }
+  }
+}
+
+// the thread's scores of the step, tile by tile: s[t][i]
+__device__ __forceinline__ void fwd_scores(float2 s[2][2], const float* part,
+                                           int cs, int r, int c) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int off = 2 * r * kFSLd + kCT * t + 2 * c;
+    switch (cs) {
+      case 1: fwd_sum<1>(s[t], part, off); break;
+      case 2: fwd_sum<2>(s[t], part, off); break;
+      case 3: fwd_sum<3>(s[t], part, off); break;
+      case 4: fwd_sum<4>(s[t], part, off); break;
+      case 5: fwd_sum<5>(s[t], part, off); break;
+      case 6: fwd_sum<6>(s[t], part, off); break;
+      case 7: fwd_sum<7>(s[t], part, off); break;
+      default: fwd_sum<8>(s[t], part, off);
+    }
+  }
+}
+
+// acc[i][e] += P[a + 8i][kk] * V[kk][4b + e] and acc[i][4 + e] +=
+// P[a + 8i][kk] * V[kk][128 + 4b + e] over the kCT keys kk of a tile:
+// P from its tile's first column, V a [kCT][kCLd] tile; 12 float4 loads
+// for 128 FMAs
+__device__ __forceinline__ void accumulate_pv(float acc[4][8], const float* P,
+                                              const float* V, int a, int b) {
+#pragma unroll 2
+  for (int kk = 0; kk < kCT; kk += 4) {
+    float pv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 p = ld4(P + (a + 8 * i) * kFPLd + kk);
+      pv[i][0] = p.x;
+      pv[i][1] = p.y;
+      pv[i][2] = p.z;
+      pv[i][3] = p.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 y0 = ld4(V + (kk + k) * kCLd + 4 * b);
+      const float4 y1 = ld4(V + (kk + k) * kCLd + 128 + 4 * b);
+      const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[i][e] = fmaf(pv[i][k], yv[e], acc[i][e]);
+    }
+  }
+}
+
+// A cluster per 32-row query block (blockIdx.y), a CTA per 256-wide
+// chunk (cl.chunks of them above 8 chunks; a cluster of one at D 256).
+// The CTA's chunk of Q stays in shared memory; the keys go by steps of
+// two 32-key tiles, the producer warp copying the step's K tiles as soon
+// as the consumers are done with the last step's and its V tiles as soon
+// as they have accumulated the last step's. Each step: the CTA's partial
+// scores over its chunk (warps 0-3 the step's first tile, 4-7 its
+// second); the cluster barrier on them waits behind the products of the
+// last step's P V_z; the cluster's sum in rank order, so every CTA
+// applies the same mask, online softmax (m, l) and keep bits; P into
+// shared memory, and O_z rescaled. Two buffers of partials and of P let
+// one cluster barrier a step do: a buffer is written again two steps
+// later, after every CTA's next arrival. Rank 0 writes the lse.
+template <bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kFThreads, 1) fwd_wide(WideArgs a,
+                                                         Cluster cl) {
+  extern __shared__ __align__(16) unsigned char smem_f[];
+  float* Qs = reinterpret_cast<float*>(smem_f);  // resident
+  float* Kw = Qs + kCTile;                       // the step's two K tiles
+  float* Vw = Kw + 2 * kCTile;                   // and V tiles
+  float* part = Vw + 2 * kCTile;  // two steps' partial scores
+  float* Ps = part + 2 * kFPart;  // two steps' dropout(P)
+  float* rowc = Ps + 2 * kFP;     // each row's rescale, then 1 / l
+
+  const int bh = blockIdx.x;
+  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
+  // causal: the longest walks first
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kCT;
+  const int rank = (int)cluster_rank(), cs = cl.size, per = cl.chunks;
+  const int c0 = rank * per, owned = min(per, a.nc - c0);
+  const bool multi = per > 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sq = a.sq, sk = a.sk;
+  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.n;
+  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.n;
+  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.n;
+  // full(0): the step's K tiles (and Q) have landed, full(1) its V
+  // tiles; empty(0), empty(1): every consumer warp is done with them
+  const Bars bars(Qs);
+  if (tid == 0) bars.init();
+  __syncthreads();
+  const int ns = (key_tiles(CAUSAL, sk, q0) + 1) / 2;  // steps of kWT keys
+  uint32_t phase = 0u, bytes = 0u;
+
+  if (warp >= kConsumers / 32) {
+    // the producer warp copies the tiles (above 8 chunks the consumers
+    // copy their own) and takes its part in the cluster's barriers, one a
+    // step and one at the end
+    if (!multi) {
+      warp_load(bars.full(0), bytes, Qs, qb + c0 * kD, a.qs.s, q0, sq, lane);
+      warp_load(bars.full(0), bytes, Kw, kb + c0 * kD, a.ks.s, 0, sk, lane,
+                2);
+      warp_commit(bars.full(0), bytes, lane);
+      warp_load(bars.full(1), bytes, Vw, vb + c0 * kD, a.vs.s, 0, sk, lane,
+                2);
+      warp_commit(bars.full(1), bytes, lane);
+    }
+    for (int g = 0; g < per * ns; ++g) {
+      if (!multi && g + 1 < ns) {
+        bar_wait(bars.empty(0), phase, 0);
+        warp_load(bars.full(0), bytes, Kw, kb + c0 * kD, a.ks.s,
+                  (g + 1) * kWT, sk, lane, 2);
+        warp_commit(bars.full(0), bytes, lane);
+      }
+      cluster_arrive();
+      if (!multi && g > 0) {
+        bar_wait(bars.empty(1), phase, 1);
+        warp_load(bars.full(1), bytes, Vw, vb + c0 * kD, a.vs.s, g * kWT,
+                  sk, lane, 2);
+        warp_commit(bars.full(1), bytes, lane);
+      }
+      cluster_wait();
+    }
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+
+  const Roles ro(tid);
+  const DropParams dp = drop_params<DROP>(a.dp);
+  // the softmax's thread: rows 2 r, 2 r + 1, keys 2 c, 2 c + 1 of each
+  // of the step's tiles (a Philox block); the 16 lanes of a half-warp
+  // share its rows
+  const int r = tid >> 4, c = tid & 15;
+  float acc[4][8], m[2], lpart[2];
+  int g = 0;  // the step, over every pass
+  for (int u = 0; u < per; ++u) {
+    const int cu = c0 + u;  // the chunk this pass accumulates
+    const bool mine = u < owned;
+    zero_acc(acc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[i] = kNeg;
+      lpart[i] = 0.f;
+    }
+    for (int j = 0; j < ns; ++j, ++g) {
+      const int k0 = j * kWT;
+      float* pw = part + (g & 1) * kFPart;
+      // the CTA's partial scores of the step
+      float* Kt = Kw + ro.prod * kCTile;
+      float sp[4][4];
+      if (multi) {
+        for (int v = 0; v < owned; ++v) {
+          const int cc = c0 + v;
+          consumers_sync();  // the last reads of Q and K are done
+          if (warp == 0) {
+            warp_load(bars.misc(), bytes, Qs, qb + cc * kD, a.qs.s, q0, sq,
+                      lane);
+            warp_load(bars.misc(), bytes, Kw, kb + cc * kD, a.ks.s, k0, sk,
+                      lane, 2);
+            warp_commit(bars.misc(), bytes, lane);
+          }
+          bar_wait(bars.misc(), phase, 2);
+          score_chunk(sp, Qs, Kt, ro, v == 0);
+        }
+      } else {
+        bar_wait(bars.full(0), phase, 0);
+        score_chunk(sp, Qs, Kt, ro, true);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(bars.empty(0));
+      }
+      put_scores(pw, sp, ro);
+      cluster_arrive();
+      // the last step's P V_z, behind which the barrier waits
+      if (j > 0 && mine) {
+        if (!multi) bar_wait(bars.full(1), phase, 1);
+        const float* P = Ps + ((g - 1) & 1) * kFP;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          accumulate_pv(acc, P + kCT * t, Vw + t * kCTile, ro.ua, ro.ub);
+        if (!multi) {
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(bars.empty(1));
+        }
+      }
+      cluster_wait();
+      // the cluster's scores, the mask, the online softmax and dropout
+      float2 s2[2][2];
+      fwd_scores(s2, pw, cs, r, c);
+      float* P = Ps + (g & 1) * kFP;
+      // the keep bits of the thread's links: bit 4 t + 2 i + jj for row
+      // 2 r + i, key kCT t + 2 c + jj
+      uint32_t keep = 0u;
+      if (DROP) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int row0 = q0 + 2 * r, col0 = k0 + kCT * t + 2 * c;
+          const uint4 w = drop_block(dp, bh, row0, col0);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+              if (drop_keep(dp, w, row0 + i, col0 + jj))
+                keep |= 1u << (4 * t + 2 * i + jj);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + 2 * r + i;
+        float x[4];
+        bool ok[4];
+        float mx = kNeg;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + kCT * (e >> 1) + 2 * c + (e & 1);
+          ok[e] = col < sk && (!CAUSAL || row >= col);
+          const float2 v2 = s2[e >> 1][i];
+          x[e] = ok[e] ? ((e & 1) ? v2.y : v2.x) * a.scale : kNeg;
+          mx = fmaxf(mx, x[e]);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const float corr = expf(m[i] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[e] = ok[e] ? expf(x[e] - m_new) : 0.f;
+          ps += x[e];
+          if (DROP)
+            x[e] = (keep >> (4 * (e >> 1) + 2 * i + (e & 1))) & 1u
+                       ? x[e] * dp.rinv
+                       : 0.f;
+        }
+        lpart[i] = lpart[i] * corr + ps;
+        m[i] = m_new;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          st2(P + (2 * r + i) * kFPLd + kCT * t + 2 * c, x[2 * t],
+              x[2 * t + 1]);
+        if (c == 0) rowc[2 * r + i] = corr;
+      }
+      consumers_sync();
+      // O_z rescaled to the step's m
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float corr = rowc[ro.ua + 8 * i];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[i][e] *= corr;
+        }
+        if (multi) {
+          // the step's V tiles of the chunk this pass accumulates (the
+          // last step's are read: the consumers' barrier above)
+          if (warp == 0) {
+            warp_load(bars.misc(), bytes, Vw, vb + cu * kD, a.vs.s, k0, sk,
+                      lane, 2);
+            warp_commit(bars.misc(), bytes, lane);
+          }
+          bar_wait(bars.misc(), phase, 2);
+        }
+      }
+    }
+    // the last step's P V_z, then O_z / l
+    if (mine) {
+      if (!multi) bar_wait(bars.full(1), phase, 1);
+      const float* P = Ps + ((g - 1) & 1) * kFP;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+        accumulate_pv(acc, P + kCT * t, Vw + t * kCTile, ro.ua, ro.ub);
+    }
+    float linv[2], lse_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float l = lpart[i];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        l += __shfl_xor_sync(0xffffffffu, l, off);
+      const float l_safe = fmaxf(l, 1e-30f);
+      linv[i] = 1.f / l_safe;
+      lse_r[i] = m[i] + logf(l_safe);
+    }
+    consumers_sync();  // every thread has read the last rescales
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + 2 * r + i;
+        rowc[2 * r + i] = linv[i];
+        if (rank == 0 && u == 0 && row < sq)
+          a.lse[(long long)bh * sq + row] = lse_r[i];
+      }
+    }
+    consumers_sync();
+    if (mine) {
+      float* out = static_cast<float*>(a.out) + cu * kD;
+      const long long d_all = (long long)a.nc * kD;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ro.ua + 8 * i;
+        if (row < sq)
+          store_c(out + ((long long)(bi * sq + row) * a.n_heads + hi) * d_all,
+                  acc[i], ro.ub, rowc[ro.ua + 8 * i]);
+      }
+    }
+    // (the next pass writes the rows' values after its first cluster
+    // barrier, which every thread reaches after these reads)
+  }
+  // no CTA leaves while the cluster may read its partials
+  cluster_arrive();
+  cluster_wait();
+}
+
 // ------------------------------------------------------------- launching
 
 enum Which { kFwd, kDq, kDkv };
 
 template <typename Kern>
-cudaError_t go_cluster(Kern kern, dim3 grid, size_t smem, cudaStream_t st,
-                       const WideArgs& a, const Cluster& cl) {
+cudaError_t go_cluster(Kern kern, dim3 grid, int threads, size_t smem,
+                       cudaStream_t st, const WideArgs& a, const Cluster& cl) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -1021,7 +1283,7 @@ cudaError_t go_cluster(Kern kern, dim3 grid, size_t smem, cudaStream_t st,
   attr[0].val.clusterDim.z = cl.size;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kWThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
@@ -1035,13 +1297,14 @@ template <bool C, bool P>
 cudaError_t launch(Which which, int bn, const WideArgs& a, const Cluster& cl,
                    cudaStream_t st) {
   if (which == kFwd)
-    return go(fwd_wide<float, C, P>, dim3(bn, (a.sq + kT - 1) / kT, a.nc),
-              kFwdSmem, st, a);
+    return go_cluster(fwd_wide<C, P>,
+                      dim3(bn, (a.sq + kCT - 1) / kCT, cl.size), kFThreads,
+                      kFwdCSmem, st, a, cl);
   if (which == kDq)
     return go_cluster(dq_wide<C, P>, dim3(bn, (a.sq + kCT - 1) / kCT, cl.size),
-                      kDqCSmem, st, a, cl);
+                      kWThreads, kDqCSmem, st, a, cl);
   return go_cluster(dkv_wide<C, P>, dim3(bn, (a.sk + kCT - 1) / kCT, cl.size),
-                    kDkvCSmem, st, a, cl);
+                    kWThreads, kDkvCSmem, st, a, cl);
 }
 
 bool aligned16(const void* p) {
@@ -1052,11 +1315,11 @@ bool rows16(const Strides& s) {
   return s.b % 4 == 0 && s.s % 4 == 0 && s.n % 4 == 0;
 }
 
-// every pointer and row of the backward's tensors 16-byte aligned, as its
-// bulk copies and float4 stores need (ops/flash_attention.py's
-// _kernel_input copies a tensor that is not)
+// every pointer and row of the tensors 16-byte aligned, as the bulk
+// copies and float4 stores need (ops/flash_attention.py's _kernel_input
+// copies a tensor that is not)
 bool vec_ok(const WideArgs& a) {
-  const void* ps[] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  const void* ps[] = {a.q, a.k, a.v, a.o, a.dout, a.out, a.dq, a.dk, a.dv};
   for (const void* p : ps)
     if (!aligned16(p)) return false;
   const Strides ss[] = {a.qs, a.ks, a.vs, a.os, a.dos, a.dqs, a.dks, a.dvs};
@@ -1065,11 +1328,13 @@ bool vec_ok(const WideArgs& a) {
   return true;
 }
 
-// dtype 0 (float32) only
+// dtype 0 (float32) only; the forward from 256 (a cluster of one there),
+// the backward above it
 int dispatch(Which which, int dtype, int b, int d, int causal, int dropout,
              WideArgs& a, void* stream_ptr) {
-  if (dtype != 0 || d <= kD || d % kD) return -1;
-  if (which != kFwd && !vec_ok(a)) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || d < kD || d % kD || (which != kFwd && d == kD))
+    return -1;
+  if (!vec_ok(a)) return (int)cudaErrorInvalidValue;
   a.nc = d / kD;
   const Cluster cl = cluster_of(a.nc);
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);

@@ -1,10 +1,11 @@
-// The FFMA tiles shared by the flash-attention kernels of
-// flash_attn_d256.cu (head_dim 256) and flash_attn_wide.cu (head_dim
-// above 256, in 256-wide chunks): [32 x 256] f32 tiles in shared memory
-// with a row stride of 260 floats, a CTA of 256 threads in which thread
-// (r, c) = (tid / 16, tid % 16) owns a 2x2 block of the 32x32 scores and
-// two rows x 16 columns (4c + 64g + e) of a [32 x 256] product. See
-// flash_attn_d256.cu for the design and what bounds it.
+// The FFMA tiles of the f32 flash-attention backward at head_dim 256
+// (flash_attn_d256.cu): [32 x 256] f32 tiles in shared memory with a row
+// stride of 260 floats, a CTA of 256 threads in which thread (r, c) =
+// (tid / 16, tid % 16) owns a 2x2 block of the 32x32 scores and two rows
+// x 16 columns (4c + 64g + e) of a [32 x 256] product. See
+// flash_attn_d256.cu for the design and what bounds it. The cluster
+// kernels of flash_attn_wide.cu (the f32 forward from 256, the backward
+// above it) take its chunk width, float4 loads and mask rules.
 
 #pragma once
 
@@ -27,7 +28,6 @@ constexpr int kThreads = 256;   // 16 row pairs x 16 column pairs
 constexpr int kTile = kT * kLd;
 constexpr int kScores = kT * kPLd;
 
-constexpr size_t kFwdSmem = (3 * kTile + kScores) * sizeof(float);
 constexpr size_t kDqSmem = (4 * kTile + kScores) * sizeof(float);
 constexpr size_t kDkvSmem =
     (4 * kTile + 2 * kScores + 2 * kT) * sizeof(float);
@@ -72,23 +72,6 @@ __device__ __forceinline__ void scores(float s[2][2], const float* A, int a,
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < kD; d += 4) {
-    const float4 x0 = ld4(a0 + d), x1 = ld4(a0 + kLd + d);
-    const float4 y0 = ld4(b0 + d), y1 = ld4(b0 + kLd + d);
-    s[0][0] = dot4(x0, y0, s[0][0]);
-    s[0][1] = dot4(x0, y1, s[0][1]);
-    s[1][0] = dot4(x1, y0, s[1][0]);
-    s[1][1] = dot4(x1, y1, s[1][1]);
-  }
-}
-
-// s[i][j] += A[2a + i] . B[2b + j] over D (scores without the reset,
-// for a product summed over several 256-wide chunks)
-__device__ __forceinline__ void scores_add(float s[2][2], const float* A,
-                                           int a, const float* B, int b) {
-  const float* a0 = A + (2 * a) * kLd;
-  const float* b0 = B + (2 * b) * kLd;
 #pragma unroll 4
   for (int d = 0; d < kD; d += 4) {
     const float4 x0 = ld4(a0 + d), x1 = ld4(a0 + kLd + d);

@@ -12,15 +12,17 @@ nvcc at first use (ops/_build.py) and called through ctypes:
 - at head_dim 256, where those designs do not fit: in bf16 all three
   run as the wgmma kernels of csrc/flash_attn_wg256.cu (on the same
   pipeline, one owned buffer, the backward on 32-row tiles, dK/dV with
-  both consumer warpgroups on the same 64 keys); in f32 as the FFMA
-  kernels of csrc/flash_attn_d256.cu; under the same launch counts;
-- above 256, at a multiple of 256 (the output's head_dim split over the
-  grid in 256-wide chunks, so shared memory does not grow with it): in
-  bf16 all three as the wgmma kernels of csrc/flash_attn_wgwide.cu
-  (the products over the whole head_dim summed chunk by chunk), in f32
-  as the FFMA kernels of csrc/flash_attn_wide.cu, whose dQ and dK/dV
-  run the chunk CTAs of a row block as one thread-block cluster that
-  sums its partial scores in distributed shared memory (wide_cluster);
+  both consumer warpgroups on the same 64 keys); in f32 the forward as
+  csrc/flash_attn_wide.cu's cluster forward (a cluster of one CTA), dQ
+  and dK/dV as the FFMA kernels of csrc/flash_attn_d256.cu; under the
+  same launch counts;
+- above 256, at a multiple of 256 (the head_dim split over the grid in
+  256-wide chunks, so shared memory does not grow with it): in bf16 all
+  three as the wgmma kernels of csrc/flash_attn_wgwide.cu (the products
+  over the whole head_dim summed chunk by chunk), in f32 as the FFMA
+  kernels of csrc/flash_attn_wide.cu, which run the chunk CTAs of a row
+  block as one thread-block cluster that sums its partial scores in
+  distributed shared memory (wide_cluster);
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -78,14 +80,14 @@ __all__ = ["flash_attention_mha", "flash_attention_fwd",
            "attention_flops", "flop_sinks"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-# the head_dim of csrc/flash_attn_d256.cu's f32 kernels (its entries carry
-# the suffix _d256 and take the arguments of the others) and of
-# csrc/flash_attn_wg256.cu's bf16 ones (suffix _wg256); above it,
-# csrc/flash_attn_wide.cu's f32 ones (suffix _wide) and
-# csrc/flash_attn_wgwide.cu's bf16 ones (suffix _wgwide) take every
-# multiple of it
+# the head_dim of csrc/flash_attn_d256.cu's f32 backward (its entries
+# carry the suffix _d256 and take the arguments of the others) and of
+# csrc/flash_attn_wg256.cu's bf16 kernels (suffix _wg256); from it up,
+# csrc/flash_attn_wide.cu's f32 forward (suffix _wide), and above it its
+# f32 backward and csrc/flash_attn_wgwide.cu's bf16 kernels (suffix
+# _wgwide), take every multiple of it
 _D256 = 256
-# the largest thread-block cluster of the f32 backward above 256
+# the largest thread-block cluster of the f32 kernels above 256
 # (wide_cluster): the portable cluster size
 _WIDE_CLUSTER_MAX = 8
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
@@ -111,7 +113,8 @@ _ARGTYPES = {
     "pt_flash_attn_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
 }
 _ARGTYPES.update({f"{k}_{w}": v for k, v in list(_ARGTYPES.items())
-                  for w in ("d256", "wg256", "wide", "wgwide")})
+                  for w in ("d256", "wg256", "wide", "wgwide")
+                  if (k, w) != ("pt_flash_attn_fwd", "d256")})
 
 
 def _check(q, k, v):
@@ -245,13 +248,16 @@ def _tma_ok(t):
             and sn >= h and ss >= sn * n and sb >= ss * s)
 
 
-def _kernel_input(t):
-    """t itself when the kernels can read it through its strides (a unit
-    head_dim stride in f32 up to head_dim 256; _tma_ok in bf16 and above
-    256, where the f32 backward copies whole 16-byte rows), else a packed
-    copy in fresh (aligned) memory."""
-    ok = (t.stride(3) == 1 if t.dtype == torch.float32
-          and t.shape[3] <= _D256 else _tma_ok(t))
+def _kernel_input(t, fn_name):
+    """t itself when the kernel that C entry fn_name runs at t's head_dim
+    and dtype (_kernel_entry) can read it through its strides, else a
+    packed copy in fresh (aligned) memory. The bf16 kernels and
+    csrc/flash_attn_wide.cu's f32 kernels, which copy whole 16-byte
+    rows, need _tma_ok; the other f32 kernels a unit head_dim stride."""
+    source, _ = _kernel_entry(None, fn_name, t.shape[3], t.dtype)
+    ok = (t.stride(3) == 1
+          if t.dtype == torch.float32 and source != "flash_attn_wide"
+          else _tma_ok(t))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -280,14 +286,17 @@ def _entry(lib_name, fn_name):
 def _kernel_entry(lib_name, fn_name, h, dtype):
     """(source, entry) of the kernel at head_dim h for dtype:
     csrc/<lib_name>.cu's fn_name; at 256 its _wg256 twin in
-    csrc/flash_attn_wg256.cu in bf16, its _d256 twin in
-    csrc/flash_attn_d256.cu in f32; above 256 its _wgwide twin in
+    csrc/flash_attn_wg256.cu in bf16, in f32 the forward's _wide twin in
+    csrc/flash_attn_wide.cu (a cluster of one) and the backward's _d256
+    twins in csrc/flash_attn_d256.cu; above 256 its _wgwide twin in
     csrc/flash_attn_wgwide.cu in bf16, its _wide twin in
     csrc/flash_attn_wide.cu in f32."""
     bf16 = dtype == torch.bfloat16
     if h == _D256:
         if bf16:
             return "flash_attn_wg256", f"{fn_name}_wg256"
+        if fn_name == "pt_flash_attn_fwd":
+            return "flash_attn_wide", f"{fn_name}_wide"
         return "flash_attn_d256", f"{fn_name}_d256"
     if h > _D256:
         if bf16:
@@ -333,7 +342,7 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
     _check_kernel("flash_attn_fwd", q, k)
     b, sq, n, h = q.shape
     sk = k.shape[1]
-    q, k, v = (_kernel_input(t) for t in (q, k, v))
+    q, k, v = (_kernel_input(t, "pt_flash_attn_fwd") for t in (q, k, v))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     o = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
@@ -373,7 +382,8 @@ def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
     kernel reads. In bf16 the kernel computes delta and writes it."""
     _check_kernel("flash_attn_bwd_dq", q, k)
     b, sq, n, h = q.shape
-    q, k, v, o, do = (_kernel_input(t) for t in (q, k, v, o, do))
+    q, k, v, o, do = (_kernel_input(t, "pt_flash_attn_bwd_dq")
+                       for t in (q, k, v, o, do))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
     if _delta_in_kernel(q.dtype, h):
@@ -399,7 +409,8 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
     _check_kernel("flash_attn_bwd_dkv", q, k)
     b, sq, n, h = q.shape
     sk = k.shape[1]
-    q, k, v, do = (_kernel_input(t) for t in (q, k, v, do))
+    q, k, v, do = (_kernel_input(t, "pt_flash_attn_bwd_dkv")
+                   for t in (q, k, v, do))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
     dk = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)
@@ -530,19 +541,36 @@ def kernel_head_dim(h):
     return next(d for d in SUPPORTED_HEAD_DIMS if d >= h)
 
 
+def _cluster_of(nc):
+    """(cluster size, chunks a CTA) of csrc/flash_attn_wide.cu's kernels
+    over nc 256-wide chunks: the twin of its cluster_of. The nc chunk
+    CTAs of a row block run as one thread-block cluster; above the
+    portable cluster size (_WIDE_CLUSTER_MAX CTAs) each CTA owns
+    ceil(nc / 8) chunks."""
+    per = -(-nc // _WIDE_CLUSTER_MAX)
+    return -(-nc // per), per
+
+
 def wide_cluster(h):
-    """(cluster size, chunks a CTA) of the f32 dQ and dK/dV kernels at a
-    head_dim h above 256 that they take (a multiple of 256): the twin of
-    csrc/flash_attn_wide.cu's cluster_of. The h / 256 chunk CTAs of a
-    row block run as one thread-block cluster; above the portable
-    cluster size (_WIDE_CLUSTER_MAX CTAs) each CTA owns ceil(nc / 8)
-    chunks."""
+    """(cluster size, chunks a CTA) of the f32 forward, dQ and dK/dV
+    kernels at a head_dim h above 256 that they take (a multiple of
+    256), _cluster_of(h / 256). (At 256 the f32 forward runs a cluster
+    of one and the backward csrc/flash_attn_d256.cu's kernels:
+    kernel_cluster.)"""
     if h <= _D256 or h % _D256:
         raise ValueError(f"the wide kernels take a multiple of {_D256} "
                          f"above it, got head_dim {h}")
-    nc = h // _D256
-    per = -(-nc // _WIDE_CLUSTER_MAX)
-    return -(-nc // per), per
+    return _cluster_of(h // _D256)
+
+
+def kernel_cluster(fn_name, h, dtype):
+    """(cluster size, chunks a CTA) of the kernel that C entry fn_name
+    runs at head_dim h (a kernel_head_dim) and dtype, where
+    _kernel_entry sends it to csrc/flash_attn_wide.cu; None for every
+    other kernel, which runs no cluster."""
+    if _kernel_entry(None, fn_name, h, dtype)[0] != "flash_attn_wide":
+        return None
+    return _cluster_of(h // _D256)
 
 
 def flash_attention_fwd(query, key, value, causal=False, scale=None,

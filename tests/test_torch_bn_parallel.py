@@ -143,7 +143,8 @@ import paddle_tpu as paddle  # noqa: E402
 import paddle_tpu.distributed as jdist  # noqa: E402
 import paddle_tpu.nn.functional as JF  # noqa: E402
 from paddle_tpu.static import TrainStep as JaxTrainStep  # noqa: E402
-from torch_vision_weights import jax_vision_model  # noqa: E402
+from torch_vision_weights import (ce64, jax_f64_steps,  # noqa: E402
+                                  jax_vision_model, nearer_f64)
 
 
 def _jax_step(mesh=None):
@@ -217,20 +218,47 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
 
 
+def _f64_step(state, x, y):
+    """The one-device JAX step on the global batch in float64
+    (jax_f64_steps, the cross-entropy in f64) from `state`, the JAX
+    step's state before it: (loss, state after)."""
+    (loss,), after = jax_f64_steps(
+        jax_vision_model("resnet18"), ce64,
+        lambda ps: paddle.optimizer.Momentum(
+            learning_rate=LR, momentum=0.9, parameters=ps,
+            weight_decay=1e-4),
+        state, [(x, y.astype(np.int32))])
+    return loss, after
+
+
 def test_jax_dp_step_normalises_over_the_global_batch(runs):
     """The JAX step on a 2-device mesh (the `runs` fixture's first step)
     is the one-device step on the whole batch (loss 1e-6, running
-    statistics 1e-6), not a BatchNorm over each device's half."""
+    statistics 1e-6), not a BatchNorm over each device's half. Where the
+    two part by more than that, the mesh step's value may lie no further
+    from the one-device step in float64 than the one-device step's f32
+    value does, and both within 1e-2 of it (torch_vision_weights
+    nearer_f64): on some CPUs the two f32 losses lie 1.3e-6 apart,
+    2.3e-6 and 3.5e-6 from the f64 one."""
     (jlosses, jstates), _ = runs
     x, y = _batch()
     m, step = _jax_step()
     loss = float(step(paddle.to_tensor(x),
                       paddle.to_tensor(y.astype(np.int32))))
     one = _state(m, step)
-    assert abs(jlosses[0] - loss) <= 1e-6 * abs(loss)
+    ref = None
+    if abs(jlosses[0] - loss) > 1e-6 * abs(loss):
+        ref = _f64_step(jstates[0], x, y)
+        ok, seen = nearer_f64(jlosses[0], loss, ref[0])
+        assert ok, (jlosses[0], loss, seen)
     for k in one:
-        if k.endswith(("_mean", "_variance")):
-            assert _rel(jstates[1][k], one[k]) <= 1e-6, k
+        if not k.endswith(("_mean", "_variance")):
+            continue
+        if _rel(jstates[1][k], one[k]) > 1e-6:
+            if ref is None:
+                ref = _f64_step(jstates[0], x, y)
+            ok, seen = nearer_f64(jstates[1][k], one[k], ref[1][k])
+            assert ok, (k, seen)
     # a BatchNorm over one half's samples has other statistics
     m = jax_vision_model("resnet18")
     m.train()

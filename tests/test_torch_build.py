@@ -165,7 +165,12 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                                    "pt_flash_attn_bwd_dkv_wg256",
                                    "pt_flash_attn_fwd_wgwide",
                                    "pt_flash_attn_bwd_dq_wgwide",
-                                   "pt_flash_attn_bwd_dkv_wgwide"])
+                                   "pt_flash_attn_bwd_dkv_wgwide",
+                                   "pt_flash_attn_fwd_wide",
+                                   "pt_flash_attn_bwd_dq_wide",
+                                   "pt_flash_attn_bwd_dkv_wide",
+                                   "pt_flash_attn_bwd_dq_d256",
+                                   "pt_flash_attn_bwd_dkv_d256"])
 def test_ctypes_signatures_match_the_c_entries(entry):
     """The wrappers' argtypes against the extern "C" parameter lists, so
     a marshalling slip shows here and not only on the card."""
@@ -178,3 +183,15 @@ def test_ctypes_signatures_match_the_c_entries(entry):
     kinds = [_C_TYPES[re.sub(r"\s*\w+$", "", p).replace(" *", "*")]
              for p in params]
     assert kinds == fa._ARGTYPES[entry]
+
+
+def test_every_argtypes_entry_is_a_c_entry():
+    """Every entry the wrappers know the argtypes of is an extern "C"
+    entry of csrc/ (the f32 forward at 256 is flash_attn_wide.cu's, so
+    flash_attn_d256.cu has no forward entry), and back."""
+    import re
+    from paddle_tpu_torch.ops import flash_attention as fa
+    text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    entries = set(re.findall(r'extern "C" int (pt_flash_attn\w*)\(', text))
+    assert entries == set(fa._ARGTYPES)
+    assert "pt_flash_attn_fwd_d256" not in entries

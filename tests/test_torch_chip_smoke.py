@@ -1580,11 +1580,13 @@ def test_seq2seq_rescore_catches_a_wrong_back_trace(cs, monkeypatch):
 
 def test_head_dim_256_cases_and_rows(cs):
     """head_pad runs 192 (padded to 256) and 256; the d256 file's
-    instantiations are its 3 f32 kernels x causal x dropout, the wg256
+    instantiations are its 2 f32 backward kernels x causal x dropout (the
+    f32 forward at 256 is the wide file's cluster forward), the wg256
     file's its 3 bf16 kernels x causal x dropout; the kernels line's
-    rows carry each case's device kernel, times, bound and SDPA's."""
+    rows carry each case's device kernel, times, bound and SDPA's, and
+    the f32 forward's row its cluster of one."""
     assert {192, 256} <= set(cs.PAD_HEAD_DIMS) and cs.D256_SHAPE[3] == 256
-    assert cs.D256_INSTANTIATIONS == 3 * 2 * 2
+    assert cs.D256_INSTANTIATIONS == 2 * 2 * 2
     assert cs.WG256_INSTANTIATIONS == 3 * 2 * 2
     case = dict(dtype="bfloat16", b=8, s=1024, sk=1024, n=8, h=256,
                 layout="qkv views",
@@ -1596,10 +1598,18 @@ def test_head_dim_256_cases_and_rows(cs):
                 dkv_bound_by="operations", backward_library_ms=0.4,
                 o_max_abs_err=1e-3, dq_max_abs_err=2e-3,
                 dk_max_abs_err=3e-3, dv_max_abs_err=4e-3)
-    rows = cs.d256_kernel_rows([case, dict(case, dtype="float32")])
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cases = [case, dict(case, dtype="float32")]
+    for c in cases:
+        cs.kernel_clusters(torch, fa, c)
+    rows = cs.d256_kernel_rows(cases)
     assert [[r["kernel"] for r in rows[k]] for k in cs.KERNEL_EVENTS] == [
-        ["fwd_wg256", "fwd_d256"], ["dq_wg256", "dq_d256"],
+        ["fwd_wg256", "fwd_wide"], ["dq_wg256", "dq_d256"],
         ["dkv_wg256", "dkv_d256"]]
+    assert [[r["cluster"] for r in rows[k]] for k in cs.KERNEL_EVENTS] == [
+        [None, {"size": 1, "chunks_per_cta": 1}], [None, None],
+        [None, None]]
     assert rows["flash_attn_fwd"][0]["library_ms"] == 0.3
     assert rows["flash_attn_bwd_dq"][0]["backward_library_ms"] == 0.4
     assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 4e-3
@@ -1621,7 +1631,7 @@ def test_head_dim_256_cases_and_rows(cs):
      "flash_attn_bwd_dkv"),
     ("void (anonymous namespace)::fwd_wgwide<true, true>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, Args)", "flash_attn_fwd"),
-    ("void (anonymous namespace)::fwd_d256<float, true, false>(Args)",
+    ("void (anonymous namespace)::fwd_wide<true, false>(WideArgs, Cluster)",
      "flash_attn_fwd"),
     ("void (anonymous namespace)::dq_wide<float, false, false>(WideArgs)",
      "flash_attn_bwd_dq"),
@@ -1641,7 +1651,8 @@ def test_head_dim_256_kernels_count_for_their_wrapper(cs, name, wrapper):
     cat = next(c for c, keys in cs.PROFILE_CATEGORIES
                if any(k in name for k in keys))
     assert cat == "flash attention kernels"
-    dtype = "float32" if "float" in name else "bfloat16"
+    dtype = ("float32" if "float" in name or "fwd_wide<" in name
+             else "bfloat16")
     routes = cs.D256_ROUTES if "256" in name else cs.WIDE_ROUTES
     assert routes[dtype][wrapper] in name
 
@@ -1789,10 +1800,14 @@ def test_wide_cases_and_rows(cs):
     assert [r[0]["kernel"] for r in bf16.values()] == [
         "fwd_wgwide", "dq_wgwide", "dkv_wgwide"]
     assert rows["flash_attn_fwd"][0]["h"] == 1024
-    cs._wide_cluster_of(fa, kernel)
+    import torch
+    cs.kernel_clusters(torch, fa, kernel)
     rows = cs.wide_kernel_rows([kernel])
     assert rows["flash_attn_bwd_dq"][0]["cluster"] == {
         "size": 4, "chunks_per_cta": 1}
+    # the forward runs in the same cluster as the backward
+    assert rows["flash_attn_fwd"][0]["cluster"] == \
+        rows["flash_attn_bwd_dq"][0]["cluster"]
 
 
 def test_wide_f32_hard_cases_and_cluster_rows(cs):
@@ -1810,12 +1825,14 @@ def test_wide_f32_hard_cases_and_cluster_rows(cs):
         (causal, p) for causal in (False, True) for p in (0.0, cs.DROP_P)}
     assert all(c[3] == 2304 and c[5] == "float32" for c in big)
     assert fa.wide_cluster(2304) == (5, 2)
+    import torch
     row = dict(dtype="float32", h=2304)
-    cs._wide_cluster_of(fa, row)
-    assert row["cluster"] == {"size": 5, "chunks_per_cta": 2}
+    cs.kernel_clusters(torch, fa, row)
+    assert row["clusters"] == {k: {"size": 5, "chunks_per_cta": 2}
+                               for k in cs.KERNEL_EVENTS}
     row = dict(dtype="bfloat16", h=1024)
-    cs._wide_cluster_of(fa, row)
-    assert row["cluster"] is None
+    cs.kernel_clusters(torch, fa, row)
+    assert row["clusters"] == {k: None for k in cs.KERNEL_EVENTS}
     assert cs.ENCWIDE_ATTN_F32[5] == "float32" and \
         cs.ENCWIDE_ATTN_F32[:5] == cs.ENCWIDE_ATTN[:5]
     assert cs.ENCODERS["encoder_wide_f32"][1] == cs.WIDE_ROUTES["float32"]

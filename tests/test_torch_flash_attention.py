@@ -316,11 +316,51 @@ def test_f32_kernel_input_above_256_is_16_byte_aligned(make, copied):
     fresh packed memory; up to 256 the f32 kernels read any view with a
     unit head_dim stride as it is."""
     t = make()
-    got = fa._kernel_input(t)
+    got = fa._kernel_input(t, "pt_flash_attn_bwd_dq")
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
     if t.shape[3] > 256:
         assert fa._tma_ok(got)
+
+
+@pytest.mark.parametrize("make,copied", [
+    (lambda: torch.randn(2, 8, 3, 2, 256)[:, :, 1], False),  # fused qkv view
+    (lambda: torch.randn(2, 8, 2, 256), False),              # packed
+    (lambda: _f32_odd_offset(256), True),                    # base not 16 B
+    (lambda: torch.randn(2, 8, 2, 257)[..., :256], True),    # rows not 16 B
+    (lambda: _f32_odd_offset(128), False),                   # below 256
+])
+def test_f32_forward_input_from_256_is_16_byte_aligned(make, copied):
+    """From head_dim 256 the f32 forward (csrc/flash_attn_wide.cu's
+    cluster forward, at 256 too) copies whole 16-byte rows into shared
+    memory: a view whose base or strides are not whole 16-byte multiples
+    is copied into fresh packed memory; below 256 the f32 forward reads
+    any view with a unit head_dim stride as it is."""
+    t = make()
+    got = fa._kernel_input(t, "pt_flash_attn_fwd")
+    assert (got.data_ptr() != t.data_ptr()) == copied
+    assert torch.equal(got, t)
+    if t.shape[3] >= 256:
+        assert fa._tma_ok(got)
+
+
+@pytest.mark.parametrize("fn,h,dtype,want", [
+    ("pt_flash_attn_fwd", 256, torch.float32, (1, 1)),
+    ("pt_flash_attn_bwd_dq", 256, torch.float32, None),
+    ("pt_flash_attn_bwd_dkv", 256, torch.float32, None),
+    ("pt_flash_attn_fwd", 256, torch.bfloat16, None),
+    ("pt_flash_attn_fwd", 128, torch.float32, None),
+    ("pt_flash_attn_fwd", 1024, torch.float32, (4, 1)),
+    ("pt_flash_attn_bwd_dkv", 2304, torch.float32, (5, 2)),
+    ("pt_flash_attn_bwd_dq", 1024, torch.bfloat16, None),
+])
+def test_kernel_cluster_follows_the_kernel_entry(fn, h, dtype, want):
+    """The cluster a kernel runs in follows _kernel_entry: the f32
+    kernels of csrc/flash_attn_wide.cu run wide_cluster's (the forward a
+    cluster of one at 256), every other kernel none."""
+    assert fa.kernel_cluster(fn, h, dtype) == want
+    in_wide = fa._kernel_entry(None, fn, h, dtype)[0] == "flash_attn_wide"
+    assert in_wide == (want is not None)
 
 
 @pytest.mark.parametrize("h", [256, 320, 64])
@@ -415,9 +455,10 @@ def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
     """At head_dim 256 the wrappers call entries with the arguments of
     the others: in bf16 the three entries of csrc/flash_attn_wg256.cu
     (the wgmma kernels; the dQ entry computes delta, and its delta buffer
-    is the one the dK/dV entry reads); in f32 the three entries of
-    csrc/flash_attn_d256.cu, the dQ entry reading delta from torch
-    ops."""
+    is the one the dK/dV entry reads); in f32 the forward entry of
+    csrc/flash_attn_wide.cu (its cluster forward, a cluster of one CTA
+    at 256) and the two backward entries of csrc/flash_attn_d256.cu, the
+    dQ entry reading delta from torch ops."""
     calls = _record_launches(monkeypatch)
     if dtype == torch.bfloat16:
         monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
@@ -427,8 +468,10 @@ def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
     fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), True, 0.0625)
     src, tail = (("flash_attn_wg256", "_wg256") if dtype == torch.bfloat16
                  else ("flash_attn_d256", "_d256"))
+    fwd = ((src, "pt_flash_attn_fwd" + tail) if dtype == torch.bfloat16
+           else ("flash_attn_wide", "pt_flash_attn_fwd_wide"))
     assert [c[:2] for c in calls] == [
-        (src, "pt_flash_attn_fwd" + tail),
+        fwd,
         (src, "pt_flash_attn_bwd_dq" + tail),
         (src, "pt_flash_attn_bwd_dkv" + tail)]
     assert [len(c[2]) + 1 for c in calls] == [

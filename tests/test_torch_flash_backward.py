@@ -219,7 +219,7 @@ def test_kernel_input_copies_what_tma_cannot_read(make, copied):
     outside its rows, is copied into fresh packed memory; the fused qkv
     views and packed tensors go in as they are."""
     t = make()
-    got = fa._kernel_input(t)
+    got = fa._kernel_input(t, "pt_flash_attn_bwd_dq")
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
     assert fa._tma_ok(got)

@@ -29,7 +29,20 @@ case's 4 samples), remat (no second update in the recompute) and a
 loss-scale skip (parameters and velocities kept, buffers advanced).
 Then the step's state_dict carries the buffers, set_state_dict restores
 them in place, and build_eval_fn normalises with them.
+
+In the three tests of the step's main case, grad_accum_steps=2 and
+remat, where a loss or a tensor parts from the JAX step's by more than
+its tolerance it is held three ways instead (torch_vision_weights
+nearer_f64): the port's f32 value may lie no further from the same step
+in float64 (the JAX TrainStep under jax.enable_x64 from the same state,
+the cross-entropy in f64) than the JAX package's f32 value does, and
+both within 1e-2 of it. On some CPUs the JAX step's parameters after
+step 1 lie up to 2.8e-3 from the f64 step's (layer1.0.bn2's weight and
+bias first, then the layers below it) where the port's lie within
+4.3e-6 of it (tests/bn_rounding_report.py prints these distances).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -48,7 +61,8 @@ from paddle_tpu_torch.models import load_jax_params
 from paddle_tpu_torch.optimizer import Momentum as TMomentum
 from paddle_tpu_torch.static import TrainStep as TStep
 from paddle_tpu_torch.vision import models as TM
-from torch_vision_weights import jax_vision_model
+from torch_vision_weights import (ce64, jax_f64_steps, jax_vision_model,
+                                  nearer_f64)
 
 LOSS, BUF, PARAM = 1e-5, 1e-5, 1e-4
 STEPS = 3
@@ -106,25 +120,59 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
 
 
-def _check_state(tm, want, what):
+def _check_state(tm, want, what, want64=None):
+    """The port's state against the JAX step's `want`; where a tensor
+    parts by more than its tolerance, three ways against want64() (the
+    f64 step's state), when given."""
     got = {k: v.detach().numpy() for k, v in tm.state_dict().items()}
     assert list(got) == list(want)
     for k, w in want.items():
         tol = BUF if k.endswith(("_mean", "_variance")) else PARAM
-        assert _rel(got[k], w) <= tol, (what, k, _rel(got[k], w))
+        if want64 is not None and _rel(got[k], w) > tol:
+            ok, seen = nearer_f64(got[k], w, want64()[k])
+            assert ok, (what, k, seen)
+        else:
+            assert _rel(got[k], w) <= tol, (what, k, _rel(got[k], w))
 
 
-def _run(jm, tm, js, ts, x, y, steps=STEPS, before=None, loss=True):
-    """`steps` steps, each from the JAX state; returns the losses."""
+def _f64_step(state, velocities, x, y, **kw):
+    """The JAX step in float64 (jax_f64_steps; kw its TrainStep options)
+    from the JAX state and Momentum velocities, on the same batch.
+    Returns (loss, state after)."""
+    (loss,), after = jax_f64_steps(
+        jax_vision_model("resnet18"), ce64,
+        lambda ps: JMomentum(learning_rate=0.1, momentum=0.9, parameters=ps,
+                             weight_decay=1e-4),
+        state, [(x, y)],
+        opt_state={k: {"velocity": v} for k, v in velocities.items()}, **kw)
+    return loss, after
+
+
+def _run(jm, tm, js, ts, x, y, steps=STEPS, before=None, loss=True,
+         f64=None):
+    """`steps` steps, each from the JAX state; returns the losses. f64:
+    the TrainStep's options, to hold a value that parts by more than its
+    tolerance three ways against the step in float64 (none: no such
+    fallback)."""
     losses = []
     for s in range(steps):
-        _force(tm, ts, _jax_state(jm, js), js)
+        state = _jax_state(jm, js)
+        velocities = {k: np.asarray(v["velocity"])
+                      for k, v in js.opt_state.items()}
+        _force(tm, ts, state, js)
         if before is not None:
             before(s)
+        ref = None if f64 is None else functools.cache(
+            lambda: _f64_step(state, velocities, x, y, **f64))
         jl = float(js(paddle.to_tensor(x), paddle.to_tensor(y)).numpy())
         tl = float(ts(torch.from_numpy(x), torch.from_numpy(y)))
-        assert not loss or abs(tl - jl) <= LOSS * abs(jl), (s, tl, jl)
-        _check_state(tm, _jax_state(jm, js), f"step {s}")
+        if ref is not None and abs(tl - jl) > LOSS * abs(jl):
+            ok, seen = nearer_f64(tl, jl, ref()[0])
+            assert ok, (s, tl, jl, seen)
+        else:
+            assert not loss or abs(tl - jl) <= LOSS * abs(jl), (s, tl, jl)
+        _check_state(tm, _jax_state(jm, js), f"step {s}",
+                     None if ref is None else lambda: ref()[1])
         losses.append(tl)
     return losses
 
@@ -137,7 +185,7 @@ def _buffers(tm):
 def test_resnet18_trainstep_matches_jax():
     jm, tm, js, ts, x, y = _steps()
     before = _buffers(tm)
-    losses = _run(jm, tm, js, ts, x, y)
+    losses = _run(jm, tm, js, ts, x, y, f64={})
     assert all(np.isfinite(losses))
     after = _buffers(tm)
     # the running statistics moved: the step carried them
@@ -148,14 +196,14 @@ def test_grad_accum_keeps_last_microbatch_update():
     """Every microbatch starts from the step's initial buffers; the step
     keeps the last microbatch's (JAX: the scan's new buffers, a[-1])."""
     jm, tm, js, ts, x, y = _steps(batch=8, grad_accum_steps=2)
-    _run(jm, tm, js, ts, x, y, steps=2)
+    _run(jm, tm, js, ts, x, y, steps=2, f64=dict(grad_accum_steps=2))
 
 
 def test_remat_updates_running_stats_once():
     """The recompute in the backward does not update the running
     statistics a second time (jax.checkpoint's recompute writes none)."""
     jm, tm, js, ts, x, y = _steps(remat=True)
-    _run(jm, tm, js, ts, x, y, steps=2)
+    _run(jm, tm, js, ts, x, y, steps=2, f64=dict(remat=True))
 
 
 def test_loss_scale_skip_advances_buffers():

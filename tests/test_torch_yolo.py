@@ -24,6 +24,15 @@ agrees with the eager tape to 2e-5 there. The train-mode backward is
 held through the TrainStep trajectory, whose batches keep those sums
 well conditioned; at 32 x 32 the stride-32 maps are 1 x 1, a BatchNorm
 there normalises 2 values, and no order-free comparison is possible.
+Where a tensor after the trajectory's last step parts from the JAX
+step's by more than 1e-4, it is held three ways instead
+(torch_vision_weights nearer_f64): the port's f32 value may lie no
+further from that step in float64 (the JAX TrainStep under
+jax.enable_x64 from the JAX trajectory's state and Adam state before
+it) than the JAX package's f32 value does, and both within 1e-2 of it.
+On some CPUs the JAX package's backbone.d9.conv.weight after the third
+step lies 1.3e-3 from the f64 step's, the port's 1.3e-6 from it
+(tests/bn_rounding_report.py prints these distances).
 """
 import jax
 import numpy as np
@@ -36,7 +45,7 @@ from paddle_tpu.static import TrainStep as JStep
 from paddle_tpu_torch.models import YOLOv3, load_jax_params
 from paddle_tpu_torch.optimizer import Adam as TAdam
 from paddle_tpu_torch.static import TrainStep as TStep
-from torch_vision_weights import jax_yolo_model
+from torch_vision_weights import jax_f64_steps, jax_yolo_model, nearer_f64
 
 LR = 1e-3
 BF16 = 2e-2
@@ -148,6 +157,11 @@ def _steps(jm, tm, batches, amp=None):
                                                  amp_dtype="bfloat16")))
     jl, tl = [], []
     for x, box, lbl in batches:
+        # the JAX state and Adam state before the last step
+        jstep.sync_to_layer()
+        before = ({k: np.asarray(v.numpy())
+                   for k, v in jm.state_dict().items()},
+                  jax.tree_util.tree_map(np.asarray, jstep.opt_state))
         jl.append(float(jstep(paddle.to_tensor(x),
                               (paddle.to_tensor(box),
                                paddle.to_tensor(lbl)))))
@@ -157,23 +171,42 @@ def _steps(jm, tm, batches, amp=None):
     jstate = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     tstate = {k: v.detach().float().numpy()
               for k, v in tm.state_dict().items()}
-    return jl, tl, jstate, tstate, tstep
+    return jl, tl, jstate, tstate, tstep, before
+
+
+def _f64_step(before, batch):
+    """The JAX Adam step in float64 (jax_f64_steps) from `before`, the
+    JAX state and Adam state _steps saw before its last step: the state
+    after."""
+    m = jax_yolo_model()
+    x, box, lbl = batch
+    return jax_f64_steps(
+        m, lambda o, b, l: m.loss(o, b, l),
+        lambda ps: paddle.optimizer.Adam(learning_rate=LR, parameters=ps),
+        before[0], [(x, (box, lbl))], opt_state=before[1])[1]
 
 
 def test_three_adam_steps_match_the_jax_train_step():
     jm, tm = _pair(2)
     batches = [_batch(64, seed=s) for s in (2, 3, 4)]
-    jl, tl, jstate, tstate, _ = _steps(jm, tm, batches)
+    jl, tl, jstate, tstate, _, before = _steps(jm, tm, batches)
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     assert jl[-1] < jl[0]
+    want64 = None
     for k, v in jstate.items():
-        _close(torch.from_numpy(tstate[k]), v, 1e-4)
+        if np.abs(tstate[k] - v).max() > 1e-4 * max(1.0, np.abs(v).max()):
+            if want64 is None:
+                want64 = _f64_step(before, batches[-1])
+            ok, seen = nearer_f64(tstate[k], v, want64[k])
+            assert ok, (k, seen)
+        else:
+            _close(torch.from_numpy(tstate[k]), v, 1e-4)
 
 
 def test_one_o1_bf16_step():
     jm, tm = _pair(3)
-    jl, tl, jstate, tstate, _ = _steps(jm, tm, [_batch(64, seed=5)],
-                                       amp="O1")
+    jl, tl, jstate, tstate, _, _ = _steps(jm, tm, [_batch(64, seed=5)],
+                                          amp="O1")
     np.testing.assert_allclose(tl, jl, rtol=BF16)
     for k, v in jstate.items():
         _close(torch.from_numpy(tstate[k]), v, BF16)
