@@ -16,9 +16,10 @@ Phases, each of which fails the run on any mismatch:
    started together), with ptxas's register and spill report. A spill
    or a wgmma serialisation (ptxas C7515/C7512) in a head_dim-64 bf16
    wgmma kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) fails the run, as do
-   a spill in any of the 12 head_dim-256 FFMA kernels or the 20 above
-   it, and a spill or a serialisation in any of the 12 head_dim-256
-   wgmma kernels or the 4 above it (phases 40 and 43). From
+   a spill in any of the 20 f32 FFMA kernels from head_dim 256
+   (csrc/flash_attn_wide.cu), and a spill or a serialisation in any of
+   the 12 head_dim-256 wgmma kernels or the 12 above it (phases 40 and
+   43). From
    the built forward's SASS (cuobjdump -sass), the instructions per
    Philox4x32-10 call of the dropout kernel's keep-bit loop, for the
    forward's Philox floor (see 4).
@@ -528,25 +529,26 @@ Phases, each of which fails the run on any mismatch:
    (ids that are not the sequence their score belongs to fail).
    The path launches none of the port's own kernels.
 40. Head_dim 256 (`d256_case`, `d256_routes`, `mask_probe` at h 256,
-   `encoder_256`, after `head_pad`): in bf16 csrc/flash_attn_wg256.cu's
-   wgmma forward, dQ (computing delta) and dK/dV, in f32
-   csrc/flash_attn_wide.cu's cluster forward (a cluster of one CTA) and
-   csrc/flash_attn_d256.cu's FFMA dQ and dK/dV, at b 8, s
-   1024, n 8, h 256, strided qkv views, f32 and bf16, p 0 and 0.1,
-   causal and not, and in bf16 at encoder_256's attention (b 8, s 1024,
-   n 16, p 0.1, separate q, k and v), each held row by row against the
-   plain versions at TOL (the forward too; in bf16 the dQ kernel's own
-   delta too) and timed beside the bound and SDPA; `d256_routes`: the
-   kernels a forward and backward runs in each dtype, by name, counted
-   by torch.profiler; the mask probes at D256_SHAPE; `head_pad` runs
+   `encoder_256`, `encoder_256_f32`, after `head_pad`): in bf16
+   csrc/flash_attn_wg256.cu's wgmma forward, dQ (computing delta) and
+   dK/dV, in f32 csrc/flash_attn_wide.cu's FFMA forward, dQ (computing
+   delta) and dK/dV, each a cluster of one CTA, at b 8, s 1024, n 8, h
+   256, strided qkv views, f32 and bf16, p 0 and 0.1, causal and not,
+   and at encoder_256's attention (b 8, s 1024, n 16, p 0.1, separate
+   q, k and v) in both dtypes, each held row by row against the plain
+   versions at TOL (the forward too, and the dQ kernel's own delta) and
+   timed beside the bound and SDPA; `d256_routes`: the kernels a
+   forward and backward runs in each dtype, by name, counted by
+   torch.profiler; the mask probes at D256_SHAPE; `head_pad` runs
    head_dims 192 and 256 through flash_attention_fwd (192 padded to
-   256); ptxas must report the 8 instantiations of the FFMA file and
-   the 12 of the wgmma file with no spill. `encoder_256`:
-   nn.TransformerEncoderLayer(4096, 16, 16384) (head_dim 256), 8 x 1024
-   tokens, O1 bf16, dropout 0.1, AdamW, one captured TrainStep step and
-   one replay bit-equal to two eager steps; a replay's attention
-   kernels counted by torch.profiler (the three wgmma kernels, once
-   each); step ms, device ms by category and attention's share of it.
+   256); ptxas must report the 12 instantiations of the wgmma file with
+   no spill. `encoder_256`: nn.TransformerEncoderLayer(4096, 16, 16384)
+   (head_dim 256), 8 x 1024 tokens, O1 bf16, dropout 0.1, AdamW, one
+   captured TrainStep step and one replay bit-equal to two eager steps;
+   a replay's attention kernels counted by torch.profiler (the three
+   wgmma kernels, once each); step ms, device ms by category and
+   attention's share of it. `encoder_256_f32`: the same step in f32
+   with no AMP, holding the three FFMA kernels at 256 once each.
 41. AMP on the card (`amp_card`, after `ops_card`): each op the JAX
    package registers under a name on its AMP lists (AMP_OPS) under
    auto_cast O1 and O2 from bf16 and f32 inputs: the lists' output
@@ -582,7 +584,7 @@ Phases, each of which fails the run on any mismatch:
    cross-attention both ways, s 200, one head, D 768) and in f32 at D
    2304 (nine chunks, two a CTA); each case launches every kernel, and a
    forward and backward at D 768 runs WIDE_ROUTES' kernels by name;
-   ptxas reports no spill in the 12 FFMA and 12 wgmma instantiations
+   ptxas reports no spill in the 20 FFMA and 12 wgmma instantiations
    and no serialisation in the 12. `sdpa_f32_routes`: the kernels SDPA's
    f32 forward and backward run at h 512 and 1024, by name.
    `encoder_wide`: encoder_256's step at nn.TransformerEncoderLayer(4096,
@@ -614,9 +616,9 @@ Output: a JSON line per phase; then the
 `kernels` line (each flash kernel with its launches a Transformer-base
 step and its times at the cross-attention and encoder self-attention
 shapes, its head_dim-256 cases and those above 256; the kernels of the
-bf16 paths at head_dim 256 and 512 (three wgmma kernels each), with
-encoder_256's and encoder_wide's
-launches and their times at their attention shapes; the
+encoder paths at head_dim 256 and 512 (three wgmma kernels each in
+bf16, three FFMA kernels each in f32), with each path's launches and
+their times at its attention shape; the
 captured loop's set_condition kernel; the run's phase_seconds), the card's
 nvidia-smi line, and last {"ok": true,
 "device": {...}}. Without CUDA, or when the repo's paddle_tpu_torch
@@ -1182,7 +1184,8 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case",
         emit({tag: row})
         fail(f"a kernel disagrees with its plain version: {row}")
     # the same dq from a second launch; where the dQ kernel computes
-    # delta (bf16), its delta against delta in torch ops (f32 takes
+    # delta (bf16, and f32 from head_dim 256), its delta against delta
+    # in torch ops, in f32 at TOL (the f32 kernels at 64 and 128 take
     # delta from those ops: nothing to check, null)
     dq2, delta = fa._flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
                                        p, sd)
@@ -1193,14 +1196,15 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case",
         ref_delta = fa._bwd_delta(o, do)
         big = max(1.0, ref_delta.abs().max().item())
         row["delta_max_abs_err"] = (delta - ref_delta).abs().max().item()
-        row["delta_tol"] = 1e-3 * big
+        row["delta_tol"] = (TOL[dt] if dt == "float32" else 1e-3) * big
         delta_ok = row["delta_max_abs_err"] <= row["delta_tol"]
         del ref_delta
     if not (delta_ok and row["dq_repeatable"]):
         emit({tag: row})
         fail(f"the dQ kernel's delta or its dq is off: {row}")
     del dq2
-    # dq_ms includes delta: in the kernel for bf16, torch ops for f32
+    # dq_ms includes delta: in the kernel, or in torch ops (f32 at 64
+    # and 128)
     row["dq_ms"] = time_ms(lambda: fa._flash_bwd_dq_cuda(
         q, k, v, o, do, lse, causal, scale, p, sd), reps=10)
     row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_dkv_cuda(
@@ -1347,13 +1351,9 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal, sk=None,
 # (nn.MultiHeadAttention(4096, 16)'s head width)
 PAD_HEAD_DIMS = (32, 96, 192, 256)
 # head_dim 256: b, s, n, h of the kernel cases; in bf16 the three
-# kernels on csrc/flash_attn_wg256.cu's wgmma kernels, in f32 the forward
-# on csrc/flash_attn_wide.cu's cluster forward (a cluster of one CTA),
-# dQ and dK/dV on csrc/flash_attn_d256.cu's FFMA kernels
+# kernels on csrc/flash_attn_wg256.cu's wgmma kernels, in f32 on
+# csrc/flash_attn_wide.cu's FFMA kernels (each a cluster of one CTA)
 D256_SHAPE = (8, 1024, 8, 256)
-D256_SOURCE = "flash_attn_d256"
-# its instantiations: 2 kernels (dQ, dK/dV) in f32 x causal x dropout
-D256_INSTANTIATIONS = 8
 WG256_SOURCE = "flash_attn_wg256"
 # its instantiations: the forward, dQ and dK/dV x causal x dropout
 WG256_INSTANTIATIONS = 12
@@ -1362,25 +1362,26 @@ D256_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wg256",
                             "flash_attn_bwd_dq": "dq_wg256",
                             "flash_attn_bwd_dkv": "dkv_wg256"},
                "float32": {"flash_attn_fwd": "fwd_wide",
-                           "flash_attn_bwd_dq": "dq_d256",
-                           "flash_attn_bwd_dkv": "dkv_d256"}}
+                           "flash_attn_bwd_dq": "dq_wide",
+                           "flash_attn_bwd_dkv": "dkv_wide"}}
 
 
 def d256_kernel_phase(torch, fa):
     """The forward, dQ and dK/dV kernels at head_dim 256 against their
     plain versions, row by row at TOL (bwd_kernel_case, the forward
-    always held too; in bf16 the dQ kernel's own delta too), in f32 and
-    bf16, at p 0 and DROP_P, causal and not, at D256_SHAPE, and in bf16
-    at the attention shape of the encoder_256 phase (ENC256_ATTN), with
-    their times beside the bound and SDPA's; each case must launch each
-    kernel once more. Then kernel_routes at 256 (`d256_routes`)."""
+    and the dQ kernel's own delta always held too), in f32 and bf16, at
+    p 0 and DROP_P, causal and not, at D256_SHAPE, and at the attention
+    shape of the encoder_256 phases (ENC256_ATTN in bf16,
+    ENC256_ATTN_F32), with their times beside the bound and SDPA's; each
+    case must launch each kernel once more. Then kernel_routes at 256
+    (`d256_routes`)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 23)
     b, s, n, h = D256_SHAPE
     cases = [(b, s, n, h, causal, dt, p) for dt in ("float32", "bfloat16")
              for p in (0.0, DROP_P) for causal in (False, True)]
-    cases.append(ENC256_ATTN)
+    cases += [ENC256_ATTN, ENC256_ATTN_F32]
     rows = []
     for case in cases:
         before = dict(fa.launches)
@@ -1428,8 +1429,8 @@ def kernel_routes(torch, fa, routes, h, tag):
 
 def d256_mask_probe_phase(torch, fa):
     """The head_dim-256 kernels' own dropout masks, link for link
-    (mask_probe_case), f32 (the FFMA kernels) and bf16 (the wgmma
-    kernels), causal and not, at D256_SHAPE."""
+    (mask_probe_case), f32 (the cluster FFMA kernels) and bf16 (the
+    wgmma kernels), causal and not, at D256_SHAPE."""
     b, s, n, h = D256_SHAPE
     return [mask_probe_case(torch, fa, b, n, h, s, dt, causal=causal)
             for dt in ("bfloat16", "float32") for causal in (False, True)]
@@ -1438,8 +1439,8 @@ def d256_mask_probe_phase(torch, fa):
 def kernel_clusters(torch, fa, row):
     """Set row["clusters"]: the cluster ({size, chunks_per_cta}) each of
     the row's three kernels ran in, by wrapper name (fa.kernel_cluster:
-    csrc/flash_attn_wide.cu's f32 kernels, the forward a cluster of one
-    at 256), None for a kernel that runs none."""
+    csrc/flash_attn_wide.cu's f32 kernels, a cluster of one at 256),
+    None for a kernel that runs none."""
     dt = getattr(torch, row["dtype"])
     row["clusters"] = {}
     for name in KERNEL_EVENTS:
@@ -1494,8 +1495,10 @@ ENC256_ATTN = (8, 1024, 16, 256, False, "bfloat16", DROP_P, 1024, True)
 # the three wgmma kernels of csrc/flash_attn_wgwide.cu
 ENCWIDE = dict(ENC256, nhead=8)
 ENCWIDE_ATTN = (8, 1024, 8, 512, False, "bfloat16", DROP_P, 1024, True)
-# encoder_wide's step in f32 with no AMP (encoder_wide_f32): the three f32
-# kernels of csrc/flash_attn_wide.cu at ENCWIDE_ATTN's shape
+# encoder_256's and encoder_wide's steps in f32 with no AMP
+# (encoder_256_f32, encoder_wide_f32): the three f32 kernels of
+# csrc/flash_attn_wide.cu at ENC256_ATTN's and ENCWIDE_ATTN's shapes
+ENC256_ATTN_F32 = ENC256_ATTN[:5] + ("float32",) + ENC256_ATTN[6:]
 ENCWIDE_ATTN_F32 = ENCWIDE_ATTN[:5] + ("float32",) + ENCWIDE_ATTN[6:]
 
 
@@ -1508,7 +1511,7 @@ def encoder_256_phase(torch, pt, fa, key="encoder_256"):
     attention kernels a replay runs, counted on the card by
     torch.profiler (profile_step): each of the three once, by the names
     ENCODERS[key] gives (the three wgmma kernels of head_dim 256, or of
-    512; in f32 the three FFMA kernels above 256). Then ENC256_WARMUP +
+    512; in f32 the three FFMA kernels). Then ENC256_WARMUP +
     ENC256_STEPS replays on a synchronised host clock: step ms beside a
     replay's device ms by category and attention's share of it, the idle
     share, tokens/s, peak memory over the first call. The kernels'
@@ -1604,8 +1607,9 @@ def encoder_256_phase(torch, pt, fa, key="encoder_256"):
 
 
 def encoder_256_gates(row, routes=D256_ROUTES["bfloat16"]):
-    """The encoder_256 (or encoder_wide) phase's failures, each a message
-    (empty: ok); routes: the kernel names a replay must run once each."""
+    """An ENCODERS phase's failures (encoder_256's by default), each a
+    message (empty: ok); routes: the kernel names a replay must run once
+    each."""
     bad = []
     cap = row["captured_vs_eager"]
     if not (cap["losses_bit_equal"] and cap["params_bit_equal"]):
@@ -1629,7 +1633,8 @@ def encoder_256_gates(row, routes=D256_ROUTES["bfloat16"]):
 
 def encoder_kernel_rows(paths, cases):
     """The `kernels` line's rows of the paths at head_dim 256
-    (encoder_256: the three wgmma kernels of csrc/flash_attn_wg256.cu)
+    (encoder_256: the three wgmma kernels of csrc/flash_attn_wg256.cu;
+    encoder_256_f32: the three FFMA kernels of csrc/flash_attn_wide.cu)
     and 512 (encoder_wide: the three of csrc/flash_attn_wgwide.cu;
     encoder_wide_f32: the three FFMA kernels of csrc/flash_attn_wide.cu):
     paths maps each phase to its row, and each kernel is timed at its
@@ -1690,8 +1695,9 @@ WIDE_SHAPE = (2, 512, 4)
 WIDE_HEAD_DIMS = (320, 512, 1024)
 WIDE_SOURCE = "flash_attn_wide"
 GRAPH_WHILE_SOURCE = "graph_while"
-# its instantiations: 3 kernels in f32 x causal x dropout
-WIDE_INSTANTIATIONS = 12
+# its instantiations: the forward, and dQ and dK/dV at one chunk (no
+# cluster barrier) and at more, in f32 x causal x dropout
+WIDE_INSTANTIATIONS = (1 + 2 * 2) * 2 * 2
 # the bf16 kernels above 256 (wgmma): 3 x causal x dropout
 WGWIDE_SOURCE = "flash_attn_wgwide"
 WGWIDE_INSTANTIATIONS = 12
@@ -1725,6 +1731,8 @@ WIDE_ROUTES = {"bfloat16": {"flash_attn_fwd": "fwd_wgwide",
 # attention as the kernel cases see it)
 ENCODERS = {"encoder_256": (ENC256, D256_ROUTES["bfloat16"], "O1",
                             ENC256_ATTN),
+            "encoder_256_f32": (ENC256, D256_ROUTES["float32"], None,
+                                ENC256_ATTN_F32),
             "encoder_wide": (ENCWIDE, WIDE_ROUTES["bfloat16"], "O1",
                              ENCWIDE_ATTN),
             "encoder_wide_f32": (ENCWIDE, WIDE_ROUTES["float32"], None,
@@ -2364,7 +2372,6 @@ PROFILE_CATEGORIES = [
     ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
                                  "dkv_wgmma", "dq_simt", "dkv_simt",
                                  "fwd_wg256", "dq_wg256", "dkv_wg256",
-                                 "dq_d256", "dkv_d256",
                                  "fwd_wgwide", "dq_wgwide", "dkv_wgwide",
                                  "fwd_wide", "dq_wide", "dkv_wide")),
     # cuDNN's convolution engines (implicit-GEMM fprop, dgrad, wgrad),
@@ -2384,15 +2391,15 @@ PROFILE_CATEGORIES = [
 
 # the device kernels each wrapper launches, by the fragments of their
 # names that torch.profiler shows (bf16 wgmma, f32 simt; at head_dim 256
-# the bf16 wg256 kernels, the f32 wide forward and d256 FFMA backward;
-# above it the bf16 wgwide and the f32 wide FFMA kernels)
+# the bf16 wg256 kernels; above it the bf16 wgwide kernels; from 256 the
+# f32 wide FFMA kernels)
 KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
                                     "fwd_wg256", "fwd_wgwide", "fwd_wide"),
                  "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_wg256",
-                                       "dq_d256", "dq_wgwide", "dq_wide"),
+                                       "dq_wgwide", "dq_wide"),
                  "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt",
-                                        "dkv_wg256", "dkv_d256",
-                                        "dkv_wgwide", "dkv_wide")}
+                                        "dkv_wg256", "dkv_wgwide",
+                                        "dkv_wide")}
 # what a training run's `launches` counts
 COUNTED_CALLS = ("the first call's warm-up (the wrappers' count) and two "
                  "replays under torch.profiler (kernels counted on the "
@@ -8872,12 +8879,10 @@ def main():
         if serial:
             fail(f"ptxas serialises the wgmma of a head_dim-64 kernel: "
                  f"{serial}")
-        for src, want, what in ((D256_SOURCE, D256_INSTANTIATIONS,
-                                 "head_dim-256 FFMA"),
-                                (WG256_SOURCE, WG256_INSTANTIATIONS,
+        for src, want, what in ((WG256_SOURCE, WG256_INSTANTIATIONS,
                                  "head_dim-256 wgmma"),
                                 (WIDE_SOURCE, WIDE_INSTANTIATIONS,
-                                 "head_dim above 256 FFMA"),
+                                 "f32 FFMA from head_dim 256"),
                                 (WGWIDE_SOURCE, WGWIDE_INSTANTIATIONS,
                                  "head_dim above 256 wgmma"),
                                 (GRAPH_WHILE_SOURCE, 1, "graph_while")):
@@ -8903,6 +8908,7 @@ def main():
     d256_cases = d256_kernel_phase(torch, fa)
     d256_probes = d256_mask_probe_phase(torch, fa)
     enc256 = encoder_256_phase(torch, pt, fa)
+    enc256_f32 = encoder_256_phase(torch, pt, fa, "encoder_256_f32")
     clock.lap("head_dim_256")
     wide_cases = wide_kernel_phase(torch, fa)
     wide_probes = wide_mask_probe_phase(torch, fa)
@@ -9133,18 +9139,16 @@ def main():
             **mt_at["cross"][kern["name"]],
             self_attention=mt_at["self"][kern["name"]])
         # head_dim 256: the kernel cases' rows at D256_SHAPE and at the
-        # encoder_256 phase's attention (each row names its device
+        # encoder_256 phases' attention (each row names its device
         # kernel: bf16 on csrc/flash_attn_wg256.cu, f32 on
-        # csrc/flash_attn_wide.cu's forward, a cluster of one, and
-        # csrc/flash_attn_d256.cu's backward); the launches of the
-        # encoder_256 path
+        # csrc/flash_attn_wide.cu, a cluster of one); the launches of
+        # the encoder_256 paths
         kern["head_dim_256"] = dict(
             sources=["paddle_tpu_torch/csrc/flash_attn_wg256.cu",
-                     "paddle_tpu_torch/csrc/flash_attn_wide.cu"
-                     if kern["name"] == "flash_attn_fwd" else
-                     "paddle_tpu_torch/csrc/flash_attn_d256.cu"],
+                     "paddle_tpu_torch/csrc/flash_attn_wide.cu"],
             shape="b{} s{} n{} h{}, qkv views".format(*D256_SHAPE),
             launches_encoder_256=enc256["launches"][kern["name"]],
+            launches_encoder_256_f32=enc256_f32["launches"][kern["name"]],
             cases=d256_rows[kern["name"]])
         # above head_dim 256: the kernel cases at 512 and 1024, at the
         # encoder_wide phases' attention, at WIDE_HARD_CASES and at D
@@ -9164,8 +9168,9 @@ def main():
     if launches_inf == 0:
         fail("the inference path launched no flash_attn_fwd kernel")
     kernels += encoder_kernel_rows(
-        {"encoder_256": enc256, "encoder_wide": encwide,
-         "encoder_wide_f32": encwide_f32}, d256_cases + wide_cases)
+        {"encoder_256": enc256, "encoder_256_f32": enc256_f32,
+         "encoder_wide": encwide, "encoder_wide_f32": encwide_f32},
+        d256_cases + wide_cases)
     # greedy NMS: no Pallas origin; at the serving path's shape (640
     # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates
     # of a YOLOv3 batch of 8 at 608)

@@ -7,8 +7,10 @@ lines, then for every case a forward and backward under torch.profiler
 (chip_smoke.device_profile, five calls after a warm-up) and each flash
 kernel's device ms a call, by name, one JSON line a case. The cases are
 chip_smoke.py's kernel shapes, its encoder phases' attention
-(ENC256_ATTN, ENCWIDE_ATTN and ENCWIDE_ATTN_F32) and the f32 head_dim
-256 cases at p 0 and 0.1, causal and not. To compare two trees on one
+(ENC256_ATTN, ENC256_ATTN_F32, ENCWIDE_ATTN and ENCWIDE_ATTN_F32) and
+the f32 head_dim 256 cases at p 0 and 0.1, causal and not;
+`--head-dim H` and `--dtype D` keep only the cases of that head_dim
+and dtype. To compare two trees on one
 card, unpack the older one with `git archive` under a git-ignored
 directory and run the script from each root in turns within one command
 (older, newer, newer, older): it imports the chip_smoke.py and the
@@ -30,6 +32,7 @@ CASES = [(48, 512, 12, 64, False, "bfloat16", 0.1, 512, False),
          (8, 256, 8, 128, False, "float32", 0.0, 256, False),
          (8, 1024, 8, 256, False, "bfloat16", 0.0, 1024, False),
          (8, 1024, 16, 256, False, "bfloat16", 0.1, 1024, True),
+         (8, 1024, 16, 256, False, "float32", 0.1, 1024, True),
          (8, 1024, 8, 512, False, "bfloat16", 0.1, 1024, True),
          (8, 1024, 8, 512, False, "float32", 0.1, 1024, True)]
 CASES += [(8, 1024, 8, 256, causal, "float32", p, 1024, False)
@@ -40,10 +43,17 @@ CASES += [(2, 512, 4, h, causal, dt, p, 512, False)
 
 
 def main():
+    import argparse
     import torch
     import chip_smoke as cs
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--head-dim", type=int)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"))
+    args = ap.parse_args()
+    cases = [c for c in CASES
+             if args.head_dim in (None, c[3]) and args.dtype in (None, c[5])]
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -57,7 +67,7 @@ def main():
     sd = torch.tensor(cs.DROP_SEED, dtype=torch.int64, device="cuda")
     names = [k for keys in cs.KERNEL_EVENTS.values() for k in keys]
     t0 = time.perf_counter()
-    for b, s, n, h, causal, dt, p, sk, sep in CASES:
+    for b, s, n, h, causal, dt, p, sk, sep in cases:
         q, k, v = cs.attention_inputs(torch, gen, b, s, sk, n, h,
                                       getattr(torch, dt), sep)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)

@@ -18,8 +18,8 @@
 // P * (keep * dP / (1-p) - delta) and P recomputed from lse; dV = sum_i
 // dropout(P)^T dO and dK = sum_i dS^T Q * scale, with the delta the dQ
 // kernel wrote. q, k, v and dO are read as strided [b, s, n, h] views
-// through TMA tensor maps, with no copy. The f32 kernels at 256 stay in
-// flash_attn_d256.cu.
+// through TMA tensor maps, with no copy. The f32 kernels at 256 are
+// flash_attn_wide.cu's.
 //
 // What bounds it on an H100. At b 8, s 1024, n 8, h 256 the forward does
 // 4 b n s^2 h = 68.7 GFLOP against 4 b s n h x 2 bytes (134 MB): 0.0695

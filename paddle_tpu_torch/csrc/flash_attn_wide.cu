@@ -1,16 +1,16 @@
 // Flash attention in float32 for Hopper (sm_90a) at any head_dim D that
-// is a multiple of 256: the forward from 256 up, the dQ and dK/dV
-// kernels above 256 (ops/flash_attention.py's kernel_head_dim pads 257
-// and up to the next multiple; at 256 the f32 backward is
-// flash_attn_d256.cu's). The bf16 kernels run on the tensor cores in
-// flash_attn_wg256.cu and flash_attn_wgwide.cu (ops/flash_attention.py's
-// _kernel_entry sends them there), so this file builds f32 only: tensor
-// cores would change the f32 kernels' rounding.
+// is a multiple of 256: the forward, dQ and dK/dV kernels
+// (ops/flash_attention.py's kernel_head_dim pads 129 to 255 up to 256,
+// and 257 and up to the next multiple). The bf16 kernels run on the
+// tensor cores in flash_attn_wg256.cu and flash_attn_wgwide.cu
+// (ops/flash_attention.py's _kernel_entry sends them there), so this
+// file builds f32 only: tensor cores would change the f32 kernels'
+// rounding.
 //
-// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175) at the
-// head_dims the Pallas wrapper pads to 256 and above, `_dq_kernel`
-// (:283) and `_dkv_kernel` (:319) above 256 (pallas_kernels.py:486-493
-// pads any head_dim to a multiple of 128 and runs it). The same function
+// Replaces: paddle_tpu/ops/pallas_kernels.py `_fwd_kernel` (:175),
+// `_dq_kernel` (:283) and `_dkv_kernel` (:319) at the head_dims the
+// Pallas wrapper pads to 256 and above (pallas_kernels.py:486-493 pads
+// any head_dim to a multiple of 128 and runs it). The same function
 // as the kernels at 64 and 128: the key bound `col < sk`, the query
 // bound `row < sq`, the causal rule `row >= col` (top-left), masking
 // with -1e30, l_safe = max(l, 1e-30), lse = m + log(l_safe), dropout
@@ -48,7 +48,10 @@
 //    dP^T); delta = rowsum(dO * O) is summed the same way, and the dQ
 //    cluster's rank 0 writes it for dK/dV. Each CTA has two consumer
 //    warpgroups and a producer warpgroup; the cluster barrier on one
-//    tile's partials waits behind the other tile's products.
+//    tile's partials waits behind the other tile's products. At D 256
+//    (one chunk, the ONE instantiations) there is no cluster barrier:
+//    the consumers' named barrier orders a step's partials, and the
+//    producer warp waits on nothing but the tiles' mbarriers.
 //  * In both, the producer warp's bulk copies (a row each, counted on
 //    mbarriers) bring a walked tile as soon as the consumers are done
 //    with the tile's last one, and the cluster barrier releases only the
@@ -62,17 +65,22 @@
 // No atomics, so the outputs and gradients are the same from run to run.
 // What bounds them on the card: one CTA an SM (its tiles take 201 to 227
 // KB), its 8 consumer warps through the same phases, so the products run
-// at about a third to a half of the FP32 rate and the cluster's sums and
-// barriers show in its time beside them (PERF.md).
+// at about a third to a half of the FP32 rate and, above one chunk, the
+// cluster's sums and barriers show in its time beside them (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_ffma.cuh"
+#include "flash_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
+
+using flash::kNeg;
+using flash::Strides;
+
+constexpr int kD = 256;  // the chunk width
 
 struct WideArgs {
   const void *q, *k, *v, *o, *dout;
@@ -162,6 +170,30 @@ __device__ __forceinline__ void st2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ bool link_ok(bool causal, int row, int col,
+                                        int sq, int sk) {
+  return row < sq && col < sk && (!causal || row >= col);
+}
+
+// tiles of kCT keys a causal kCT-row query tile from q0 can see
+__device__ __forceinline__ int key_tiles(bool causal, int sk, int q0) {
+  const int nk = (sk + kCT - 1) / kCT;
+  const int last = q0 / kCT + 1;  // q0 is a multiple of kCT
+  return causal && last < nk ? last : nk;
+}
+
 // one row of a chunk (kD floats, 16-byte aligned) into shared memory by
 // the bulk copy engine, its bytes counted on the mbarrier `bar`
 __device__ __forceinline__ void bulk_row(float* dst, const float* src,
@@ -247,6 +279,18 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t& phase,
 // producer warpgroup never joins it
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// At one chunk (no cluster barrier) the dQ kernel's consumers hand the
+// tile that held O for delta to the producer warp, which then copies K
+// into it: named barrier 2, the 256 consumers arriving, the producer
+// warp's 32 threads waiting
+__device__ __forceinline__ void handoff_arrive() {
+  asm volatile("bar.arrive 2, 288;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void handoff_wait() {
+  asm volatile("bar.sync 2, 288;\n" ::: "memory");
 }
 
 // s[i][j] = A[4a + i] . B[b + 8j] over the columns 8t + 4h + e of a
@@ -388,7 +432,8 @@ __device__ __forceinline__ void put_partial(float* part, const float sp[4][4],
 // S and dP of a 2x2 block (s[jj]: walked row jj of the block, x and y its
 // resident rows) summed over the cluster's CS CTAs in rank order, the
 // same order in every CTA, so each of them holds the same bits; every
-// load is issued before the first sum
+// load is issued before the first sum; a cluster of one reads its own
+// shared memory
 template <int CS>
 __device__ __forceinline__ void cluster_sum(float2 s[2], float2 dp[2],
                                             const float* ps, const float* pd,
@@ -396,8 +441,8 @@ __device__ __forceinline__ void cluster_sum(float2 s[2], float2 dp[2],
   float2 x[CS][2], y[CS][2];
 #pragma unroll
   for (int r = 0; r < CS; ++r) {
-    const float* rs = at_rank(ps, r);
-    const float* rd = at_rank(pd, r);
+    const float* rs = CS == 1 ? ps : at_rank(ps, r);
+    const float* rd = CS == 1 ? pd : at_rank(pd, r);
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       x[r][jj] = ld2(rs + off + jj * kSLd);
@@ -426,6 +471,7 @@ __device__ __forceinline__ void cluster_scores(float2 s[2], float2 dp[2],
                                                int t, const Roles& ro) {
   const int off = (kCT * t + 2 * ro.eb) * kSLd + 2 * ro.ea;
   switch (cs) {
+    case 1: cluster_sum<1>(s, dp, ps, pd, off); break;
     case 2: cluster_sum<2>(s, dp, ps, pd, off); break;
     case 3: cluster_sum<3>(s, dp, ps, pd, off); break;
     case 4: cluster_sum<4>(s, dp, ps, pd, off); break;
@@ -448,8 +494,11 @@ __device__ __forceinline__ void cluster_scores(float2 s[2], float2 dp[2],
 // softmax and dS, then dQ_z += dS K_z. The cluster barrier on a tile's
 // partials waits behind the products of the other tile. delta =
 // rowsum(dO * O) is summed the same way before the walk, and rank 0
-// writes it for dK/dV.
-template <bool CAUSAL, bool DROP>
+// writes it for dK/dV. ONE (D 256, one chunk): no cluster barrier; the
+// consumers' named barrier after a step's partials stands for it, and
+// the producer warp never waits on the consumers but through the tiles'
+// mbarriers (and once, handoff_wait, for the tile delta read O from).
+template <bool CAUSAL, bool DROP, bool ONE>
 __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
                                                         Cluster cl) {
   extern __shared__ __align__(16) unsigned char smem_q[];
@@ -466,7 +515,8 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
   const int bi = bh / a.n_heads, hi = bh % a.n_heads;
   // causal: the longest walks first
   const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kCT;
-  const int rank = (int)cluster_rank(), cs = cl.size, per = cl.chunks;
+  const int rank = ONE ? 0 : (int)cluster_rank();
+  const int cs = ONE ? 1 : cl.size, per = ONE ? 1 : cl.chunks;
   const int c0 = rank * per, owned = min(per, a.nc - c0);
   const bool multi = per > 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -483,11 +533,17 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
   if (warp >= kConsumers / 32) {
     // the producer warpgroup: its first warp copies the walked tiles
     // (above 8 chunks the consumers copy their own); all of it takes its
-    // part in the cluster's barriers, in the consumers' order
+    // part in the cluster's barriers, in the consumers' order (at one
+    // chunk the other three warps leave)
     hopper::regs_dec<kProdRegs>();
     const bool issuer = warp == kConsumers / 32 && !multi;
-    cluster_arrive();  // delta
-    cluster_wait();
+    if (ONE) {
+      if (!issuer) return;
+      handoff_wait();  // delta has read O
+    } else {
+      cluster_arrive();  // delta
+      cluster_wait();
+    }
     if (issuer) {
       // Q (dO is in place), then the first step's two key tiles
       warp_load(bars.full(0), bytes, Qs, qb + c0 * kD, a.qs.s, q0, sq,
@@ -502,9 +558,11 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
     }
     for (int g = 0; g < per * ns; ++g) {
       const int k1 = (g + 1) * kWT;  // the next step's first key
-      cluster_arrive();
-      cluster_wait();
-      cluster_arrive();
+      if (!ONE) {
+        cluster_arrive();
+        cluster_wait();
+        cluster_arrive();
+      }
       for (int t = 0; t < 2; ++t) {
         if (issuer && g + 1 < ns) {
           bar_wait(bars.empty(t), phase, t);
@@ -514,12 +572,12 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
                     a.vs.s, k1 + kCT * t, sk, lane);
           warp_commit(bars.full(t), bytes, lane);
         }
-        if (t == 0) {
+        if (!ONE && t == 0) {
           cluster_wait();
           cluster_arrive();
         }
       }
-      cluster_wait();
+      if (!ONE) cluster_wait();
     }
     return;
   }
@@ -560,16 +618,26 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
     }
     if (part8 == 0) dpart[row] = sum;
   }
-  cluster_arrive();
-  cluster_wait();
+  if (ONE) {
+    handoff_arrive();
+    consumers_sync();
+  } else {
+    cluster_arrive();
+    cluster_wait();
+  }
   float dl[2], lse_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = 2 * ro.ea + i;
     float d = 0.f;
+    if (ONE) {
+      d = dpart[row];
+    } else {
 #pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r)
-      if (r < cs) d = r ? d + at_rank(dpart, r)[row] : at_rank(dpart, r)[row];
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < cs)
+          d = r ? d + at_rank(dpart, r)[row] : at_rank(dpart, r)[row];
+    }
     dl[i] = d;
     const bool in = q0 + row < sq;
     lse_r[i] = in ? a.lse[(long long)bh * sq + q0 + row] : 0.f;
@@ -613,14 +681,17 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
           score_chunk(sp, ro.prod ? dOs : Qs, ro.prod ? Vt : Kt, ro, true);
         }
         put_partial((ro.prod ? pP : pS) + kCT * t * kSLd, sp, ro);
-        if (t == 0) cluster_arrive();
+        if (!ONE && t == 0) cluster_arrive();
       }
+      // (one chunk: every partial is read after this barrier, and written
+      // again after the consumers' barrier behind the last dS)
+      if (ONE) consumers_sync();
       // each tile: the cluster's sums and dS, then dQ_z += dS K_z, which
       // the barrier on the next tile's partials (or on every CTA having
       // read these) waits behind
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
-        cluster_wait();
+        if (!ONE) cluster_wait();
         float2 s2[2], d2[2];
         cluster_scores(s2, d2, pS, pP, cs, t, ro);
         const int row0 = q0 + 2 * ro.ea, col0 = k0 + kCT * t + 2 * ro.eb;
@@ -643,7 +714,7 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
               ds[1]);
         }
         consumers_sync();
-        cluster_arrive();  // this CTA has read tile t's partials
+        if (!ONE) cluster_arrive();  // this CTA has read tile t's partials
         float* Kt = Kw + t * kCTile;
         if (u < owned) {
           // the tile holds K of the CTA's last chunk
@@ -663,7 +734,7 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
           if (lane == 0) hopper::mbar_arrive(bars.empty(t));
         }
       }
-      cluster_wait();  // every CTA has read this CTA's partials
+      if (!ONE) cluster_wait();  // every CTA has read this CTA's partials
     }
     if (u < owned) {
       float* out = static_cast<float*>(a.dq) + bi * a.dqs.b + hi * a.dqs.n +
@@ -686,8 +757,8 @@ __global__ void __launch_bounds__(kWThreads, 1) dq_wide(WideArgs a,
 // are done with the tile's last ones. The cluster sums S^T and dP^T,
 // each CTA applies the same dropout and dS, then dK_z += dS^T Q_z and
 // dV_z += dropout(P)^T dO_z; the cluster barrier on a tile's partials
-// waits behind the other tile's products.
-template <bool CAUSAL, bool DROP>
+// waits behind the other tile's products. ONE (D 256) as in dq_wide.
+template <bool CAUSAL, bool DROP, bool ONE>
 __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
                                                          Cluster cl) {
   extern __shared__ __align__(16) unsigned char smem_kv[];
@@ -703,7 +774,8 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
   const int bh = blockIdx.x;
   const int bi = bh / a.n_heads, hi = bh % a.n_heads;
   const int k0 = blockIdx.y * kCT;
-  const int rank = (int)cluster_rank(), cs = cl.size, per = cl.chunks;
+  const int rank = ONE ? 0 : (int)cluster_rank();
+  const int cs = ONE ? 1 : cl.size, per = ONE ? 1 : cl.chunks;
   const int c0 = rank * per, owned = min(per, a.nc - c0);
   const bool multi = per > 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -723,6 +795,7 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
     // the producer warpgroup, as in dq_wide
     hopper::regs_dec<kProdRegs>();
     const bool issuer = warp == kConsumers / 32 && !multi;
+    if (ONE && !issuer) return;
     if (issuer && ns > 0) {
       // K and V, then the first step's two query tiles
       warp_load(bars.full(0), bytes, Ks,
@@ -743,9 +816,11 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
     }
     for (int g = 0; g < per * ns; ++g) {
       const int i1 = i00 + (g + 1) * kWT;  // the next step's first query
-      cluster_arrive();
-      cluster_wait();
-      cluster_arrive();
+      if (!ONE) {
+        cluster_arrive();
+        cluster_wait();
+        cluster_arrive();
+      }
       for (int t = 0; t < 2; ++t) {
         if (issuer && g + 1 < ns) {
           bar_wait(bars.empty(t), phase, t);
@@ -755,12 +830,12 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
                     a.dos.s, i1 + kCT * t, sq, lane);
           warp_commit(bars.full(t), bytes, lane);
         }
-        if (t == 0) {
+        if (!ONE && t == 0) {
           cluster_wait();
           cluster_arrive();
         }
       }
-      cluster_wait();
+      if (!ONE) cluster_wait();
     }
     return;
   }
@@ -822,11 +897,12 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
           score_chunk(sp, ro.prod ? Vs : Ks, ro.prod ? dOt : Qt, ro, true);
         }
         put_partial((ro.prod ? pP : pS) + kCT * t * kSLd, sp, ro);
-        if (t == 0) cluster_arrive();
+        if (!ONE && t == 0) cluster_arrive();
       }
+      if (ONE) consumers_sync();  // as in dq_wide
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
-        cluster_wait();
+        if (!ONE) cluster_wait();
         float2 s2[2], d2[2];
         cluster_scores(s2, d2, pS, pP, cs, t, ro);
         const int key0 = k0 + 2 * ro.ea, qrow0 = i0 + kCT * t + 2 * ro.eb;
@@ -855,7 +931,7 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
           st2(dSs + off, ds[0], ds[1]);
         }
         consumers_sync();
-        cluster_arrive();  // this CTA has read tile t's partials
+        if (!ONE) cluster_arrive();  // this CTA has read tile t's partials
         float* Qt = Qw + t * kCTile;
         float* dOt = dOw + t * kCTile;
         if (u < owned) {
@@ -878,7 +954,7 @@ __global__ void __launch_bounds__(kWThreads, 1) dkv_wide(WideArgs a,
           if (lane == 0) hopper::mbar_arrive(bars.empty(t));
         }
       }
-      cluster_wait();  // every CTA has read this CTA's partials
+      if (!ONE) cluster_wait();  // every CTA has read this CTA's partials
     }
     if (u < owned) {
       const Strides& os = out ? a.dks : a.dvs;
@@ -1293,7 +1369,8 @@ cudaError_t go_cluster(Kern kern, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <bool C, bool P>
+// ONE: the backward at one chunk (D 256), with no cluster barrier
+template <bool C, bool P, bool ONE>
 cudaError_t launch(Which which, int bn, const WideArgs& a, const Cluster& cl,
                    cudaStream_t st) {
   if (which == kFwd)
@@ -1301,10 +1378,12 @@ cudaError_t launch(Which which, int bn, const WideArgs& a, const Cluster& cl,
                       dim3(bn, (a.sq + kCT - 1) / kCT, cl.size), kFThreads,
                       kFwdCSmem, st, a, cl);
   if (which == kDq)
-    return go_cluster(dq_wide<C, P>, dim3(bn, (a.sq + kCT - 1) / kCT, cl.size),
-                      kWThreads, kDqCSmem, st, a, cl);
-  return go_cluster(dkv_wide<C, P>, dim3(bn, (a.sk + kCT - 1) / kCT, cl.size),
-                    kWThreads, kDkvCSmem, st, a, cl);
+    return go_cluster(dq_wide<C, P, ONE>,
+                      dim3(bn, (a.sq + kCT - 1) / kCT, cl.size), kWThreads,
+                      kDqCSmem, st, a, cl);
+  return go_cluster(dkv_wide<C, P, ONE>,
+                    dim3(bn, (a.sk + kCT - 1) / kCT, cl.size), kWThreads,
+                    kDkvCSmem, st, a, cl);
 }
 
 bool aligned16(const void* p) {
@@ -1328,18 +1407,19 @@ bool vec_ok(const WideArgs& a) {
   return true;
 }
 
-// dtype 0 (float32) only; the forward from 256 (a cluster of one there),
-// the backward above it
+// dtype 0 (float32) only, every multiple of 256 (a cluster of one at
+// 256)
 int dispatch(Which which, int dtype, int b, int d, int causal, int dropout,
              WideArgs& a, void* stream_ptr) {
-  if (dtype != 0 || d < kD || d % kD || (which != kFwd && d == kD))
-    return -1;
+  if (dtype != 0 || d < kD || d % kD) return -1;
   if (!vec_ok(a)) return (int)cudaErrorInvalidValue;
   a.nc = d / kD;
   const Cluster cl = cluster_of(a.nc);
+  const bool one = a.nc == 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int bn = b * a.n_heads;
-#define PT_GO(C, P) launch<C, P>(which, bn, a, cl, st)
+#define PT_GO(C, P) (one ? launch<C, P, true>(which, bn, a, cl, st) \
+                         : launch<C, P, false>(which, bn, a, cl, st))
   const cudaError_t e =
       causal ? (dropout ? PT_GO(true, true) : PT_GO(true, false))
              : (dropout ? PT_GO(false, true) : PT_GO(false, false));
@@ -1356,8 +1436,8 @@ DropParams drop_args(unsigned int threshold, const void* seed, float rinv) {
 
 // The three entries take the arguments of pt_flash_attn_fwd,
 // pt_flash_attn_bwd_dq and pt_flash_attn_bwd_dkv (flash_attn_fwd.cu,
-// flash_attn_bwd.cu), for d a multiple of 256 above 256 and dtype 0
-// (float32; bfloat16 is flash_attn_wgwide.cu's). Strides are element
+// flash_attn_bwd.cu), for d a multiple of 256 and dtype 0 (float32;
+// bfloat16 is flash_attn_wg256.cu's and flash_attn_wgwide.cu's). Strides are element
 // strides (batch, seq, head) of [b, s, n, h] tensors whose head_dim
 // stride is 1; O is written contiguous [b, sq, n, d], lse f32 [b, n,
 // sq]. The dQ entry computes delta = rowsum(dO * O) from o and writes it

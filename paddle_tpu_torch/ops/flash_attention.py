@@ -12,17 +12,17 @@ nvcc at first use (ops/_build.py) and called through ctypes:
 - at head_dim 256, where those designs do not fit: in bf16 all three
   run as the wgmma kernels of csrc/flash_attn_wg256.cu (on the same
   pipeline, one owned buffer, the backward on 32-row tiles, dK/dV with
-  both consumer warpgroups on the same 64 keys); in f32 the forward as
-  csrc/flash_attn_wide.cu's cluster forward (a cluster of one CTA), dQ
-  and dK/dV as the FFMA kernels of csrc/flash_attn_d256.cu; under the
-  same launch counts;
+  both consumer warpgroups on the same 64 keys); under the same launch
+  counts;
 - above 256, at a multiple of 256 (the head_dim split over the grid in
   256-wide chunks, so shared memory does not grow with it): in bf16 all
   three as the wgmma kernels of csrc/flash_attn_wgwide.cu (the products
-  over the whole head_dim summed chunk by chunk), in f32 as the FFMA
-  kernels of csrc/flash_attn_wide.cu, which run the chunk CTAs of a row
-  block as one thread-block cluster that sums its partial scores in
-  distributed shared memory (wide_cluster);
+  over the whole head_dim summed chunk by chunk);
+- in f32 from 256 up, all three as the FFMA kernels of
+  csrc/flash_attn_wide.cu, which run the chunk CTAs of a row block as
+  one thread-block cluster that sums its partial scores in distributed
+  shared memory (wide_cluster: a cluster of one at 256), the dQ kernel
+  computing delta;
 - `_drop_mask` -> csrc/philox.cuh, the same generator as ops/philox.py.
 
 Layout [batch, seq, num_heads, head_dim] at every function here, as in
@@ -80,14 +80,13 @@ __all__ = ["flash_attention_mha", "flash_attention_fwd",
            "attention_flops", "flop_sinks"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-# the head_dim of csrc/flash_attn_d256.cu's f32 backward (its entries
-# carry the suffix _d256 and take the arguments of the others) and of
-# csrc/flash_attn_wg256.cu's bf16 kernels (suffix _wg256); from it up,
-# csrc/flash_attn_wide.cu's f32 forward (suffix _wide), and above it its
-# f32 backward and csrc/flash_attn_wgwide.cu's bf16 kernels (suffix
-# _wgwide), take every multiple of it
+# the head_dim of csrc/flash_attn_wg256.cu's bf16 kernels (their entries
+# carry the suffix _wg256 and take the arguments of the others); from it
+# up, csrc/flash_attn_wide.cu's f32 kernels (suffix _wide), and above it
+# csrc/flash_attn_wgwide.cu's bf16 kernels (suffix _wgwide), take every
+# multiple of it
 _D256 = 256
-# the largest thread-block cluster of the f32 kernels above 256
+# the largest thread-block cluster of the f32 kernels from 256
 # (wide_cluster): the portable cluster size
 _WIDE_CLUSTER_MAX = 8
 # the devices whose head_dim flash_attention_fwd pads to kernel_head_dim
@@ -113,8 +112,7 @@ _ARGTYPES = {
     "pt_flash_attn_bwd_dkv": [_VP] * 8 + [_I] * 6 + [_LL] * 18 + _TAIL,
 }
 _ARGTYPES.update({f"{k}_{w}": v for k, v in list(_ARGTYPES.items())
-                  for w in ("d256", "wg256", "wide", "wgwide")
-                  if (k, w) != ("pt_flash_attn_fwd", "d256")})
+                  for w in ("wg256", "wide", "wgwide")})
 
 
 def _check(q, k, v):
@@ -285,24 +283,17 @@ def _entry(lib_name, fn_name):
 
 def _kernel_entry(lib_name, fn_name, h, dtype):
     """(source, entry) of the kernel at head_dim h for dtype:
-    csrc/<lib_name>.cu's fn_name; at 256 its _wg256 twin in
-    csrc/flash_attn_wg256.cu in bf16, in f32 the forward's _wide twin in
-    csrc/flash_attn_wide.cu (a cluster of one) and the backward's _d256
-    twins in csrc/flash_attn_d256.cu; above 256 its _wgwide twin in
-    csrc/flash_attn_wgwide.cu in bf16, its _wide twin in
-    csrc/flash_attn_wide.cu in f32."""
-    bf16 = dtype == torch.bfloat16
-    if h == _D256:
-        if bf16:
-            return "flash_attn_wg256", f"{fn_name}_wg256"
-        if fn_name == "pt_flash_attn_fwd":
-            return "flash_attn_wide", f"{fn_name}_wide"
-        return "flash_attn_d256", f"{fn_name}_d256"
-    if h > _D256:
-        if bf16:
-            return "flash_attn_wgwide", f"{fn_name}_wgwide"
+    csrc/<lib_name>.cu's fn_name below 256; from 256 in f32 its _wide
+    twin in csrc/flash_attn_wide.cu (a cluster of one at 256); in bf16
+    its _wg256 twin in csrc/flash_attn_wg256.cu at 256 and its _wgwide
+    twin in csrc/flash_attn_wgwide.cu above."""
+    if h < _D256:
+        return lib_name, fn_name
+    if dtype != torch.bfloat16:
         return "flash_attn_wide", f"{fn_name}_wide"
-    return lib_name, fn_name
+    if h == _D256:
+        return "flash_attn_wg256", f"{fn_name}_wg256"
+    return "flash_attn_wgwide", f"{fn_name}_wgwide"
 
 
 def _launch(lib_name, fn_name, q, args):
@@ -357,29 +348,29 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
 
 def _bwd_delta(o, do):
     """delta = rowsum(dO * O), f32 [b, n, sq]: torch ops, as the JAX
-    package leaves it to XLA outside its kernels. The f32 backward uses
-    it; the bf16 dQ kernel computes delta itself."""
+    package leaves it to XLA outside its kernels. The f32 backward at 64
+    and 128 uses it; every other dQ kernel computes delta itself."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _delta_in_kernel(dtype, head_dim=None):
     """True when the dQ kernel computes delta for this dtype and
-    head_dim: the dQ entry's delta buffer is then its output (bf16 at 64,
-    128 and 256, dq_wgmma and dq_wg256; above 256 dq_wgwide in bf16 and
-    dq_wide in f32),
-    else its input, filled by _bwd_delta (f32 up to 256, dq_simt and
-    dq_d256). csrc/flash_attn_bwd.cu's launch_dq and _kernel_entry pick
-    the kernel by the same dtype rule."""
-    if head_dim is not None and head_dim > _D256:
+    head_dim: the dQ entry's delta buffer is then its output (bf16 at
+    every head_dim: dq_wgmma, dq_wg256, dq_wgwide; f32 from 256:
+    dq_wide), else its input, filled by _bwd_delta (f32 at 64 and 128,
+    dq_simt). csrc/flash_attn_bwd.cu's launch_dq and _kernel_entry pick
+    the kernel by the same rule."""
+    if head_dim is not None and head_dim >= _D256:
         return True
     return dtype == torch.bfloat16
 
 
 def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
                        seed=0):
-    """Launch the dQ kernel of csrc/flash_attn_bwd.cu: returns (dq,
-    delta), delta = rowsum(dO * O) f32 [b, n, sq], which the dK/dV
-    kernel reads. In bf16 the kernel computes delta and writes it."""
+    """Launch the dQ kernel of csrc/flash_attn_bwd.cu (_kernel_entry):
+    returns (dq, delta), delta = rowsum(dO * O) f32 [b, n, sq], which the
+    dK/dV kernel reads. Where _delta_in_kernel, the kernel computes delta
+    and writes it."""
     _check_kernel("flash_attn_bwd_dq", q, k)
     b, sq, n, h = q.shape
     q, k, v, o, do = (_kernel_input(t, "pt_flash_attn_bwd_dq")
@@ -541,36 +532,29 @@ def kernel_head_dim(h):
     return next(d for d in SUPPORTED_HEAD_DIMS if d >= h)
 
 
-def _cluster_of(nc):
-    """(cluster size, chunks a CTA) of csrc/flash_attn_wide.cu's kernels
-    over nc 256-wide chunks: the twin of its cluster_of. The nc chunk
-    CTAs of a row block run as one thread-block cluster; above the
-    portable cluster size (_WIDE_CLUSTER_MAX CTAs) each CTA owns
-    ceil(nc / 8) chunks."""
-    per = -(-nc // _WIDE_CLUSTER_MAX)
-    return -(-nc // per), per
-
-
 def wide_cluster(h):
     """(cluster size, chunks a CTA) of the f32 forward, dQ and dK/dV
-    kernels at a head_dim h above 256 that they take (a multiple of
-    256), _cluster_of(h / 256). (At 256 the f32 forward runs a cluster
-    of one and the backward csrc/flash_attn_d256.cu's kernels:
-    kernel_cluster.)"""
-    if h <= _D256 or h % _D256:
-        raise ValueError(f"the wide kernels take a multiple of {_D256} "
-                         f"above it, got head_dim {h}")
-    return _cluster_of(h // _D256)
+    kernels of csrc/flash_attn_wide.cu at a head_dim h they take (a
+    multiple of 256), the twin of its cluster_of: the h / 256 chunk CTAs
+    of a row block run as one thread-block cluster (of one at 256); above
+    the portable cluster size (_WIDE_CLUSTER_MAX CTAs) each CTA owns
+    ceil(nc / 8) chunks."""
+    if h < _D256 or h % _D256:
+        raise ValueError(f"the wide kernels take a multiple of {_D256}, "
+                         f"got head_dim {h}")
+    nc = h // _D256
+    per = -(-nc // _WIDE_CLUSTER_MAX)
+    return -(-nc // per), per
 
 
 def kernel_cluster(fn_name, h, dtype):
     """(cluster size, chunks a CTA) of the kernel that C entry fn_name
     runs at head_dim h (a kernel_head_dim) and dtype, where
-    _kernel_entry sends it to csrc/flash_attn_wide.cu; None for every
-    other kernel, which runs no cluster."""
+    _kernel_entry sends it to csrc/flash_attn_wide.cu (wide_cluster);
+    None for every other kernel, which runs no cluster."""
     if _kernel_entry(None, fn_name, h, dtype)[0] != "flash_attn_wide":
         return None
-    return _cluster_of(h // _D256)
+    return wide_cluster(h)
 
 
 def flash_attention_fwd(query, key, value, causal=False, scale=None,

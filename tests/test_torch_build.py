@@ -168,9 +168,7 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                                    "pt_flash_attn_bwd_dkv_wgwide",
                                    "pt_flash_attn_fwd_wide",
                                    "pt_flash_attn_bwd_dq_wide",
-                                   "pt_flash_attn_bwd_dkv_wide",
-                                   "pt_flash_attn_bwd_dq_d256",
-                                   "pt_flash_attn_bwd_dkv_d256"])
+                                   "pt_flash_attn_bwd_dkv_wide"])
 def test_ctypes_signatures_match_the_c_entries(entry):
     """The wrappers' argtypes against the extern "C" parameter lists, so
     a marshalling slip shows here and not only on the card."""
@@ -187,11 +185,43 @@ def test_ctypes_signatures_match_the_c_entries(entry):
 
 def test_every_argtypes_entry_is_a_c_entry():
     """Every entry the wrappers know the argtypes of is an extern "C"
-    entry of csrc/ (the f32 forward at 256 is flash_attn_wide.cu's, so
-    flash_attn_d256.cu has no forward entry), and back."""
+    entry of csrc/, and back: the three of each source, the f32 ones
+    from head_dim 256 flash_attn_wide.cu's."""
     import re
+    import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
     entries = set(re.findall(r'extern "C" int (pt_flash_attn\w*)\(', text))
     assert entries == set(fa._ARGTYPES)
-    assert "pt_flash_attn_fwd_d256" not in entries
+    assert len(entries) == 3 * 4
+    for fn in ("pt_flash_attn_fwd", "pt_flash_attn_bwd_dq",
+               "pt_flash_attn_bwd_dkv"):
+        assert fa._kernel_entry(None, fn, 256, torch.float32) == (
+            "flash_attn_wide", f"{fn}_wide")
+
+
+def _wide_refusal():
+    """The condition under which csrc/flash_attn_wide.cu's dispatch
+    returns -1 (no kernel for the dtype and head_dim), read from the
+    source as a Python expression over which, dtype and d."""
+    import re
+    text = (_build.CSRC / "flash_attn_wide.cu").read_text()
+    body = text[text.index("int dispatch(Which which"):]
+    cond = re.search(r"if \((.*?)\)\s*return -1;", body, re.S).group(1)
+    return " ".join(cond.replace("||", " or ").replace("&&", " and ")
+                    .split())
+
+
+@pytest.mark.parametrize("which", ["kFwd", "kDq", "kDkv"])
+def test_wide_dispatch_takes_every_multiple_of_256(which):
+    """The f32 forward, dQ and dK/dV of csrc/flash_attn_wide.cu each take
+    head_dim 256 (a cluster of one) and every multiple of 256 above it,
+    and refuse 128, 320 and bf16."""
+    cond = _wide_refusal()
+    names = dict(kFwd=0, kDq=1, kDkv=2, kD=256, which=None)
+    names["which"] = names[which]
+    for d, dtype, refused in [(256, 0, False), (512, 0, False),
+                              (2304, 0, False), (128, 0, True),
+                              (320, 0, True), (256, 1, True)]:
+        got = eval(cond, {}, dict(names, d=d, dtype=dtype))
+        assert bool(got) == refused, (which, d, dtype, cond)

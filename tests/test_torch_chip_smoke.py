@@ -1579,14 +1579,12 @@ def test_seq2seq_rescore_catches_a_wrong_back_trace(cs, monkeypatch):
 # -- the op library's second half: head_dim 256 and the CoNLL-2005 SRL ----
 
 def test_head_dim_256_cases_and_rows(cs):
-    """head_pad runs 192 (padded to 256) and 256; the d256 file's
-    instantiations are its 2 f32 backward kernels x causal x dropout (the
-    f32 forward at 256 is the wide file's cluster forward), the wg256
-    file's its 3 bf16 kernels x causal x dropout; the kernels line's
-    rows carry each case's device kernel, times, bound and SDPA's, and
-    the f32 forward's row its cluster of one."""
+    """head_pad runs 192 (padded to 256) and 256; the wg256 file's
+    instantiations are its 3 bf16 kernels x causal x dropout (the f32
+    kernels at 256 are the wide file's, a cluster of one); the kernels
+    line's rows carry each case's device kernel, times, bound and
+    SDPA's, and each f32 row its cluster of one."""
     assert {192, 256} <= set(cs.PAD_HEAD_DIMS) and cs.D256_SHAPE[3] == 256
-    assert cs.D256_INSTANTIATIONS == 2 * 2 * 2
     assert cs.WG256_INSTANTIATIONS == 3 * 2 * 2
     case = dict(dtype="bfloat16", b=8, s=1024, sk=1024, n=8, h=256,
                 layout="qkv views",
@@ -1605,11 +1603,10 @@ def test_head_dim_256_cases_and_rows(cs):
         cs.kernel_clusters(torch, fa, c)
     rows = cs.d256_kernel_rows(cases)
     assert [[r["kernel"] for r in rows[k]] for k in cs.KERNEL_EVENTS] == [
-        ["fwd_wg256", "fwd_wide"], ["dq_wg256", "dq_d256"],
-        ["dkv_wg256", "dkv_d256"]]
+        ["fwd_wg256", "fwd_wide"], ["dq_wg256", "dq_wide"],
+        ["dkv_wg256", "dkv_wide"]]
     assert [[r["cluster"] for r in rows[k]] for k in cs.KERNEL_EVENTS] == [
-        [None, {"size": 1, "chunks_per_cta": 1}], [None, None],
-        [None, None]]
+        [None, {"size": 1, "chunks_per_cta": 1}]] * 3
     assert rows["flash_attn_fwd"][0]["library_ms"] == 0.3
     assert rows["flash_attn_bwd_dq"][0]["backward_library_ms"] == 0.4
     assert rows["flash_attn_bwd_dkv"][0]["max_abs_err"] == 4e-3
@@ -1627,8 +1624,8 @@ def test_head_dim_256_cases_and_rows(cs):
     ("void (anonymous namespace)::dkv_wg256<false, true>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Args)",
      "flash_attn_bwd_dkv"),
-    ("void (anonymous namespace)::dkv_d256<float, false, true>(Args)",
-     "flash_attn_bwd_dkv"),
+    ("void (anonymous namespace)::dkv_wide<false, true, true>(WideArgs, "
+     "Cluster)", "flash_attn_bwd_dkv"),
     ("void (anonymous namespace)::fwd_wgwide<true, true>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, Args)", "flash_attn_fwd"),
     ("void (anonymous namespace)::fwd_wide<true, false>(WideArgs, Cluster)",
@@ -1651,7 +1648,7 @@ def test_head_dim_256_kernels_count_for_their_wrapper(cs, name, wrapper):
     cat = next(c for c, keys in cs.PROFILE_CATEGORIES
                if any(k in name for k in keys))
     assert cat == "flash attention kernels"
-    dtype = ("float32" if "float" in name or "fwd_wide<" in name
+    dtype = ("float32" if "float" in name or "_wide<" in name
              else "bfloat16")
     routes = cs.D256_ROUTES if "256" in name else cs.WIDE_ROUTES
     assert routes[dtype][wrapper] in name
@@ -1773,7 +1770,7 @@ def test_wide_cases_and_rows(cs):
     and its case's shape; the hard bf16 cases run on the kernels' own
     head_dims, cross-attention on separate q, k and v."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    assert cs.WIDE_INSTANTIATIONS == 3 * 2 * 2
+    assert cs.WIDE_INSTANTIATIONS == (1 + 2 * 2) * 2 * 2
     assert cs.WGWIDE_INSTANTIATIONS == 3 * 2 * 2
     hard = [cs._unpack(c) for c in cs.WIDE_HARD_CASES]
     assert all(fa.kernel_head_dim(c[3]) == c[3] > 256 and c[5] == "bfloat16"
@@ -1918,19 +1915,23 @@ def _attn_case(attn):
 def test_encoder_kernel_rows_name_each_paths_kernels(cs):
     """The kernels line's rows of the encoder paths: at head_dim 256 the
     three bf16 wgmma kernels of flash_attn_wg256.cu, at 512 the three of
-    flash_attn_wgwide.cu and, in f32 (encoder_wide_f32), the three FFMA
-    kernels of flash_attn_wide.cu, each with its path's launches and the
-    times of the case at the path's attention shape (in its dtype); a
-    path that launched no kernel of one kind fails."""
+    flash_attn_wgwide.cu and, in f32 (encoder_256_f32, encoder_wide_f32),
+    the three FFMA kernels of flash_attn_wide.cu, each with its path's
+    launches and the times of the case at the path's attention shape (in
+    its dtype); a path that launched no kernel of one kind fails."""
     paths = {key: _path_row(entry[1]) for key, entry in cs.ENCODERS.items()}
-    cases = [_attn_case(cs.ENC256_ATTN), _attn_case(cs.ENCWIDE_ATTN),
-             _attn_case(cs.ENCWIDE_ATTN_F32)]
+    cases = [_attn_case(cs.ENC256_ATTN), _attn_case(cs.ENC256_ATTN_F32),
+             _attn_case(cs.ENCWIDE_ATTN), _attn_case(cs.ENCWIDE_ATTN_F32)]
     rows = cs.encoder_kernel_rows(paths, cases)
     assert [(r["name"], r["source"].rsplit("/", 1)[1], r["path"])
             for r in rows] == [
         ("flash_attn_fwd_wg256", "flash_attn_wg256.cu", "encoder_256"),
         ("flash_attn_bwd_dq_wg256", "flash_attn_wg256.cu", "encoder_256"),
         ("flash_attn_bwd_dkv_wg256", "flash_attn_wg256.cu", "encoder_256"),
+        ("flash_attn_fwd_wide", "flash_attn_wide.cu", "encoder_256_f32"),
+        ("flash_attn_bwd_dq_wide", "flash_attn_wide.cu", "encoder_256_f32"),
+        ("flash_attn_bwd_dkv_wide", "flash_attn_wide.cu",
+         "encoder_256_f32"),
         ("flash_attn_fwd_wgwide", "flash_attn_wgwide.cu", "encoder_wide"),
         ("flash_attn_bwd_dq_wgwide", "flash_attn_wgwide.cu", "encoder_wide"),
         ("flash_attn_bwd_dkv_wgwide", "flash_attn_wgwide.cu",
@@ -1940,7 +1941,7 @@ def test_encoder_kernel_rows_name_each_paths_kernels(cs):
         ("flash_attn_bwd_dkv_wide", "flash_attn_wide.cu",
          "encoder_wide_f32")]
     assert [r["shape"].split()[4] for r in rows] == \
-        ["bfloat16"] * 6 + ["float32"] * 3
+        (["bfloat16"] * 3 + ["float32"] * 3) * 2
     assert all(r["launches"] == 1 for r in rows)
     assert rows[3]["device_ms"] == 0.3 and rows[4]["library_ms"] is None
     assert rows[2]["replaces"].startswith(
@@ -1961,3 +1962,37 @@ def test_encoder_wide_gates_take_its_routes(cs):
         cs.ENCWIDE_ATTN[3] == 512
     bad = cs.encoder_256_gates(_encoder_256_row(), routes)
     assert len(bad) == 1 and "expected" in bad[0]
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("old_route", "expected"), ("graphs", "graphs"),
+    ("replay", "bit-equal"), ("nan", "non-finite")])
+def test_encoder_256_f32_gates_take_its_routes(cs, breakage, word):
+    """encoder_256_f32 is encoder_256's layer in f32 with no AMP at
+    ENC256_ATTN_F32; its replay must run the three f32 kernels at 256
+    (D256_ROUTES["float32"]: the wide file's, a cluster of one) once
+    each, and fails on the old dQ or dK/dV route, a second graph, a
+    replay that is not bit-equal, and a non-finite loss."""
+    cfg, routes, amp, attn = cs.ENCODERS["encoder_256_f32"]
+    assert (cfg, amp) == (cs.ENC256, None)
+    assert routes == cs.D256_ROUTES["float32"] == {
+        "flash_attn_fwd": "fwd_wide", "flash_attn_bwd_dq": "dq_wide",
+        "flash_attn_bwd_dkv": "dkv_wide"}
+    assert attn == cs.ENC256_ATTN[:5] + ("float32",) + cs.ENC256_ATTN[6:]
+    assert cfg["d_model"] // cfg["nhead"] == attn[3] == 256
+    row = dict(_encoder_256_row(),
+               routes_per_step={name: 1 for name in routes.values()})
+    if breakage == "old_route":
+        row["routes_per_step"] = {"fwd_wide": 1, "dq_d256": 1,
+                                  "dkv_wide": 1}
+    elif breakage == "graphs":
+        row["graphs"] = 2
+    elif breakage == "replay":
+        row["captured_vs_eager"]["params_bit_equal"] = False
+    elif breakage == "nan":
+        row["losses"][0] = float("inf")
+    bad = cs.encoder_256_gates(row, routes)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad

@@ -281,15 +281,15 @@ def test_kernel_head_dim_pads_to_the_smallest_kernel_width():
         == [64, 64, 64, 128, 128, 128, 256, 256, 256, 512, 512, 1024]
 
 
-@pytest.mark.parametrize("h,want", [(512, (2, 1)), (768, (3, 1)),
-                                    (1024, (4, 1)), (2048, (8, 1)),
-                                    (2304, (5, 2)), (4096, (8, 2)),
-                                    (4352, (6, 3))])
+@pytest.mark.parametrize("h,want", [(256, (1, 1)), (512, (2, 1)),
+                                    (768, (3, 1)), (1024, (4, 1)),
+                                    (2048, (8, 1)), (2304, (5, 2)),
+                                    (4096, (8, 2)), (4352, (6, 3))])
 def test_wide_cluster_covers_every_chunk_in_a_portable_cluster(h, want):
-    """The f32 dQ and dK/dV above 256 run the h / 256 chunk CTAs of a row
-    block as one cluster of at most 8 (the portable size): every chunk
-    owned by exactly one CTA, no CTA without one, and the fewest chunks
-    a CTA that fit (csrc/flash_attn_wide.cu's cluster_of)."""
+    """The f32 kernels from 256 run the h / 256 chunk CTAs of a row block
+    as one cluster of at most 8 (the portable size; of one at 256): every
+    chunk owned by exactly one CTA, no CTA without one, and the fewest
+    chunks a CTA that fit (csrc/flash_attn_wide.cu's cluster_of)."""
     size, per = fa.wide_cluster(h)
     nc = h // 256
     assert (size, per) == want
@@ -307,19 +307,20 @@ def _f32_odd_offset(h):
     (lambda: torch.randn(2, 8, 2, 512), False),              # packed
     (lambda: _f32_odd_offset(512), True),                    # base not 16 B
     (lambda: torch.randn(2, 8, 2, 513)[..., :512], True),    # rows not 16 B
-    (lambda: _f32_odd_offset(256), False),                   # at 256: as is
+    (lambda: _f32_odd_offset(256), True),                    # at 256 too
+    (lambda: _f32_odd_offset(128), False),                   # below: as is
 ])
 def test_f32_kernel_input_above_256_is_16_byte_aligned(make, copied):
-    """Above head_dim 256 the f32 backward copies whole 16-byte rows into
+    """From head_dim 256 the f32 backward copies whole 16-byte rows into
     shared memory (csrc/flash_attn_wide.cu refuses any other): a view
     whose base or strides are not whole 16-byte multiples is copied into
-    fresh packed memory; up to 256 the f32 kernels read any view with a
+    fresh packed memory; below 256 the f32 kernels read any view with a
     unit head_dim stride as it is."""
     t = make()
     got = fa._kernel_input(t, "pt_flash_attn_bwd_dq")
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
-    if t.shape[3] > 256:
+    if t.shape[3] >= 256:
         assert fa._tma_ok(got)
 
 
@@ -346,8 +347,8 @@ def test_f32_forward_input_from_256_is_16_byte_aligned(make, copied):
 
 @pytest.mark.parametrize("fn,h,dtype,want", [
     ("pt_flash_attn_fwd", 256, torch.float32, (1, 1)),
-    ("pt_flash_attn_bwd_dq", 256, torch.float32, None),
-    ("pt_flash_attn_bwd_dkv", 256, torch.float32, None),
+    ("pt_flash_attn_bwd_dq", 256, torch.float32, (1, 1)),
+    ("pt_flash_attn_bwd_dkv", 256, torch.float32, (1, 1)),
     ("pt_flash_attn_fwd", 256, torch.bfloat16, None),
     ("pt_flash_attn_fwd", 128, torch.float32, None),
     ("pt_flash_attn_fwd", 1024, torch.float32, (4, 1)),
@@ -356,14 +357,14 @@ def test_f32_forward_input_from_256_is_16_byte_aligned(make, copied):
 ])
 def test_kernel_cluster_follows_the_kernel_entry(fn, h, dtype, want):
     """The cluster a kernel runs in follows _kernel_entry: the f32
-    kernels of csrc/flash_attn_wide.cu run wide_cluster's (the forward a
-    cluster of one at 256), every other kernel none."""
+    kernels of csrc/flash_attn_wide.cu run wide_cluster's (a cluster of
+    one at 256), every other kernel none."""
     assert fa.kernel_cluster(fn, h, dtype) == want
     in_wide = fa._kernel_entry(None, fn, h, dtype)[0] == "flash_attn_wide"
     assert in_wide == (want is not None)
 
 
-@pytest.mark.parametrize("h", [256, 320, 64])
+@pytest.mark.parametrize("h", [320, 64])
 def test_wide_cluster_refuses_widths_the_wide_kernels_lack(h):
     with pytest.raises(ValueError, match="head_dim"):
         fa.wide_cluster(h)
@@ -454,24 +455,20 @@ def test_bf16_head_dim_768_matches_pallas_interpret(causal):
 def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
     """At head_dim 256 the wrappers call entries with the arguments of
     the others: in bf16 the three entries of csrc/flash_attn_wg256.cu
-    (the wgmma kernels; the dQ entry computes delta, and its delta buffer
-    is the one the dK/dV entry reads); in f32 the forward entry of
-    csrc/flash_attn_wide.cu (its cluster forward, a cluster of one CTA
-    at 256) and the two backward entries of csrc/flash_attn_d256.cu, the
-    dQ entry reading delta from torch ops."""
+    (the wgmma kernels), in f32 the three of csrc/flash_attn_wide.cu
+    (its cluster kernels, a cluster of one CTA at 256); in both the dQ
+    entry computes delta, and its delta buffer is the one the dK/dV
+    entry reads."""
     calls = _record_launches(monkeypatch)
-    if dtype == torch.bfloat16:
-        monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
-            "delta computed by torch ops in bf16 at head_dim 256"))
+    monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
+        "delta computed by torch ops at head_dim 256"))
     q, k, v = (torch.randn(1, 8, 2, 256).to(dtype) for _ in range(3))
     o, lse = fa._flash_fwd_cuda(q, k, v, True, 0.0625)
     fa._flash_bwd_cuda(q, k, v, o, lse, torch.randn_like(o), True, 0.0625)
     src, tail = (("flash_attn_wg256", "_wg256") if dtype == torch.bfloat16
-                 else ("flash_attn_d256", "_d256"))
-    fwd = ((src, "pt_flash_attn_fwd" + tail) if dtype == torch.bfloat16
-           else ("flash_attn_wide", "pt_flash_attn_fwd_wide"))
+                 else ("flash_attn_wide", "_wide"))
     assert [c[:2] for c in calls] == [
-        fwd,
+        (src, "pt_flash_attn_fwd" + tail),
         (src, "pt_flash_attn_bwd_dq" + tail),
         (src, "pt_flash_attn_bwd_dkv" + tail)]
     assert [len(c[2]) + 1 for c in calls] == [
@@ -479,7 +476,7 @@ def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
     assert calls[1][2][6] == calls[2][2][5]   # the dQ entry's delta
     assert calls[0][2][5] == calls[1][2][8] == calls[2][2][8] \
         == fa._KERNEL_DTYPES[dtype]
-    assert fa._delta_in_kernel(dtype, 256) == (dtype == torch.bfloat16)
+    assert fa._delta_in_kernel(dtype, 256)
     assert fa._delta_in_kernel(torch.bfloat16, 128)
 
 

@@ -266,6 +266,25 @@ def test_bf16_backward_computes_delta_in_the_dq_kernel(monkeypatch):
     assert not fa._delta_in_kernel(torch.float32)
 
 
+@pytest.mark.parametrize("h", [256, 512])
+def test_f32_backward_from_256_computes_delta_in_the_dq_kernel(monkeypatch,
+                                                               h):
+    """f32 from head_dim 256 (csrc/flash_attn_wide.cu): no torch op
+    computes delta; the dQ entry gets O and a fresh f32 [b, n, sq]
+    buffer, and the dK/dV entry reads that buffer."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
+        f"delta computed by torch ops in f32 at head_dim {h}"))
+    q, k, v, o, do = (_bf16(1, 16, 2, h, seed=i).float() for i in range(5))
+    fa._flash_bwd_cuda(q, k, v, o, torch.zeros((1, 2, 16)), do, True, 0.125)
+    assert [c[0] for c in calls] == ["pt_flash_attn_bwd_dq_wide",
+                                     "pt_flash_attn_bwd_dkv_wide"]
+    dq_args, dkv_args = calls[0][1], calls[1][1]
+    assert dq_args[3] == o.data_ptr() and dq_args[8] == 0
+    assert dkv_args[5] == dq_args[6]  # the dQ kernel's delta buffer
+    assert fa._delta_in_kernel(torch.float32, h)
+
+
 def test_f32_backward_takes_delta_from_torch_ops(monkeypatch):
     """f32 keeps delta in torch ops (the FFMA kernels read it)."""
     calls = _record_launches(monkeypatch)
