@@ -661,6 +661,11 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ROW_FLOOR = 1e-3
 # kernels whose ptxas report must show no spill at head_dim 64
 NO_SPILL = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
+# csrc/flash_attn_bwd.cu's f32 kernels at 64 and 128: dq_ffma and
+# dkv_ffma x head_dim x causal x dropout, none spilling
+BWD_SOURCE = "flash_attn_bwd"
+FFMA_KERNELS = ("dq_ffma", "dkv_ffma")
+FFMA_INSTANTIATIONS = 2 * 2 * 2 * 2
 # integer instructions an SM issues per clock (CUDA C++ Programming
 # Guide, arithmetic-instruction throughput, compute capability 9.0:
 # 32-bit integer add, multiply-add, shift, compare and logic ops)
@@ -1116,6 +1121,11 @@ def _sdpa_fb(torch, q, k, v, do, causal, scale, p):
     return fwd, fwd_bwd
 
 
+# the f32 backward at head_dim 128 over the whole card: b, s, n, h,
+# causal, dtype (at p 0 and DROP_P in bwd_kernel_phase)
+F32_H128_FULL = (8, 1024, 8, 128, False, "float32")
+
+
 def bwd_kernel_phase(torch, fa, philox):
     """The backward kernels (and the forward, in bf16 and with dropout)
     against their plain versions at the training path's shapes. philox:
@@ -1133,8 +1143,13 @@ def bwd_kernel_phase(torch, fa, philox):
     cases += [(b, 512, n, h, False, dt, DROP_P)
               for dt in ("float32", "bfloat16")]
     cases += [(b, 200, n, h, True, "bfloat16", DROP_P)]
+    # the f32 FFMA backward at 64: the rest of s 512 and 200, causal and
+    # not, at DROP_P
+    cases += [(b, s, n, h, causal, "float32", DROP_P)
+              for s, causal in ((512, True), (200, False), (200, True))]
     cases += [(8, 256, 8, 128, causal, dt, 0.0)
               for dt in ("float32", "bfloat16") for causal in (False, True)]
+    cases += [F32_H128_FULL[:6] + (p,) for p in (0.0, DROP_P)]
     return [bwd_kernel_case(torch, fa, gen, case, philox)
             for case in cases + mt_cases()]
 
@@ -1183,28 +1198,22 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case",
     if not ok:
         emit({tag: row})
         fail(f"a kernel disagrees with its plain version: {row}")
-    # the same dq from a second launch; where the dQ kernel computes
-    # delta (bf16, and f32 from head_dim 256), its delta against delta
-    # in torch ops, in f32 at TOL (the f32 kernels at 64 and 128 take
-    # delta from those ops: nothing to check, null)
+    # the same dq from a second launch, and the dQ kernel's own delta
+    # against delta in torch ops (_bwd_delta, its plain version), in f32
+    # at TOL
     dq2, delta = fa._flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale,
                                        p, sd)
     row["dq_repeatable"] = bool(torch.equal(dq2, dq))
-    row["delta_max_abs_err"] = row["delta_tol"] = None
-    delta_ok = True
-    if fa._delta_in_kernel(dtype, hd):
-        ref_delta = fa._bwd_delta(o, do)
-        big = max(1.0, ref_delta.abs().max().item())
-        row["delta_max_abs_err"] = (delta - ref_delta).abs().max().item()
-        row["delta_tol"] = (TOL[dt] if dt == "float32" else 1e-3) * big
-        delta_ok = row["delta_max_abs_err"] <= row["delta_tol"]
-        del ref_delta
-    if not (delta_ok and row["dq_repeatable"]):
+    ref_delta = fa._bwd_delta(o, do)
+    big = max(1.0, ref_delta.abs().max().item())
+    row["delta_max_abs_err"] = (delta - ref_delta).abs().max().item()
+    row["delta_tol"] = (TOL[dt] if dt == "float32" else 1e-3) * big
+    if not (row["delta_max_abs_err"] <= row["delta_tol"]
+            and row["dq_repeatable"]):
         emit({tag: row})
         fail(f"the dQ kernel's delta or its dq is off: {row}")
-    del dq2
-    # dq_ms includes delta: in the kernel, or in torch ops (f32 at 64
-    # and 128)
+    del dq2, ref_delta
+    # dq_ms includes delta, which the kernel computes
     row["dq_ms"] = time_ms(lambda: fa._flash_bwd_dq_cuda(
         q, k, v, o, do, lse, causal, scale, p, sd), reps=10)
     row["dkv_ms"] = time_ms(lambda: fa._flash_bwd_dkv_cuda(
@@ -1247,13 +1256,20 @@ def bwd_kernel_case(torch, fa, gen, case, philox, tag="bwd_kernel_case",
 
 def mask_probe_phase(torch, fa):
     """The kernels' own dropout masks, link for link, at the training
-    path's shapes (b 48, s 512 and 200, non-causal; mask_probe_case) and
-    at Transformer-base's (b 32, n 8, h 64, MT_SHAPES, separate q, k
-    and v)."""
+    path's shapes (b 48, s 512 and 200, non-causal; mask_probe_case; the
+    f32 FFMA backward causal at s 512 too), at the f32 h-128 shape over
+    the whole card (F32_H128_FULL, causal and not) and at
+    Transformer-base's (b 32, n 8, h 64, MT_SHAPES, separate q, k and
+    v)."""
     b, n = TRAIN_BATCH[0], BASE["num_attention_heads"]
     h = BASE["hidden_size"] // n
     rows = [mask_probe_case(torch, fa, b, n, h, s, dt, causal=False)
             for dt in ("bfloat16", "float32") for s in (TRAIN_BATCH[1], 200)]
+    rows.append(mask_probe_case(torch, fa, b, n, h, TRAIN_BATCH[1],
+                                "float32", causal=True))
+    fb, fs, fn, fh = F32_H128_FULL[:4]
+    rows += [mask_probe_case(torch, fa, fb, fn, fh, fs, "float32",
+                             causal=causal) for causal in (False, True)]
     # Transformer-base (mt_cases' shapes and layout)
     return rows + [mask_probe_case(torch, fa, 32, 8, 64, sq, dt,
                                    causal=False, sk=sk, separate=True)
@@ -1343,6 +1359,52 @@ def mask_probe_case(torch, fa, b, n, h, s, dt, causal, sk=None,
     del q, k, v, o, lse, do, got, ref
     torch.cuda.empty_cache()
     return row
+
+
+def ffma_kernel_rows(path, cases):
+    """The `kernels` line's rows of csrc/flash_attn_bwd.cu's f32 kernels
+    at head_dim 64 and 128 (dq_ffma, dkv_ffma): timed at ERNIE-base's f32
+    training shape (the bwd_kernel_case row at b 48, s 512, non-causal,
+    DROP_P, qkv views), launched by the captured_train_f32 path (`path`,
+    COUNTED_CALLS), with every f32 case at 64 and 128 beside them. Fails
+    if the path launched no kernel of one kind."""
+    def is_f32_head(c):
+        return (c["dtype"] == "float32" and c["b"] == TRAIN_BATCH[0]
+                and c["s"] == TRAIN_BATCH[1] and not c["causal"]
+                and c["dropout_p"] == DROP_P and c["h"] == 64)
+    head = next(c for c in cases if is_f32_head(c))
+    f32 = [c for c in cases if c["dtype"] == "float32"
+           and c["h"] in (64, 128)]
+    rows = []
+    for wrapper, t, pallas in (("flash_attn_bwd_dq", "dq", 283),
+                               ("flash_attn_bwd_dkv", "dkv", 319)):
+        route = F32_TRAIN_ROUTES[wrapper]
+        err = (("dq",) if t == "dq" else ("dk", "dv"))
+        rows.append(dict(
+            name=f"{wrapper}_ffma", route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+            replaces=f"paddle_tpu/ops/pallas_kernels.py:{pallas} (f32, "
+                     "head_dim 64 and 128)",
+            device_kernel=route, launches=path["launches"][wrapper],
+            launches_per_step=path["launches_per_replay"][wrapper],
+            max_abs_err=max(head[f"{e}_max_abs_err"] for e in err),
+            ms=head[f"{t}_ms"], plain_ms=head[f"{t}_plain_ms"],
+            bound_ms=head[f"{t}_bound_ms"], bound_by=head[f"{t}_bound_by"],
+            library_ms=None, backward_ms=head["backward_ms"],
+            backward_library_ms=head["backward_library_ms"],
+            delta_max_abs_err=(head["delta_max_abs_err"] if t == "dq"
+                               else None),
+            shape="b48 s512 n12 h64 float32 non-causal dropout 0.1, qkv "
+                  "views", path="captured_train_f32",
+            path_step_ms=path["step_ms"],
+            path_attention_share=path["attention_share"],
+            cases=[{k: c[k] for k in (
+                "b", "s", "sk", "n", "h", "causal", "dropout_p", "layout",
+                f"{t}_ms", f"{t}_bound_ms", "backward_ms",
+                "backward_library_ms", "delta_torch_ms")} for c in f32]))
+        if path["launches"][wrapper] == 0:
+            fail(f"the captured_train_f32 path launched no {route} kernel")
+    return rows
 
 
 # head_dims run through kernel_head_dim at the cross-attention shape (b
@@ -2171,13 +2233,14 @@ def _moe_loss(model):
     return loss
 
 
-def _train_step(torch, kind, model, **kw):
+def _train_step(torch, kind, model, amp_level="O1", **kw):
     """The phase's TrainStep of `model` on its path's batch (TRAIN_BATCH
     or GPT_TRAIN_BATCH, ids and labels from numpy seed 0): AdamW(1e-4,
-    weight decay 0.01), O1 bf16, the dense loss or the chunked one; kw
-    goes to TrainStep (remat, remat_policy). On the card it captures one
-    CUDA graph at its first call and replays it after. Returns (step, x,
-    y, (b, s), layers)."""
+    weight decay 0.01), AMP at amp_level in bf16 (O1; None: f32, no
+    AMP), the dense loss or the chunked one; kw goes to TrainStep
+    (remat, remat_policy). On the card it captures one CUDA graph at its
+    first call and replays it after. Returns (step, x, y, (b, s),
+    layers)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.static import TrainStep
     cfg = model.config
@@ -2193,8 +2256,8 @@ def _train_step(torch, kind, model, **kw):
         loss = model.chunked_lm_loss if chunked else _gpt_lm_loss
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
-    step = TrainStep(model, loss, opt, amp_level="O1", amp_dtype="bfloat16",
-                     **kw)
+    step = TrainStep(model, loss, opt, amp_level=amp_level,
+                     amp_dtype="bfloat16", **kw)
     x, y = _train_batch(torch, cfg.vocab_size, b, s, "cuda")
     return step, x, y, (b, s), layers
 
@@ -2287,11 +2350,15 @@ def train_flops_per_token(n_params, layers, hidden, seq):
     return 6.0 * n_params + 12.0 * layers * hidden * seq
 
 
-def _with_mfu(row, layers, hidden):
+def _with_mfu(row, layers, hidden, dtype="bfloat16"):
+    """The row's FLOPs a token and its MFU against the peak rate of
+    dtype (bf16's tensor cores, or FP32 outside them), named in
+    mfu_peak."""
     row["flops_per_token"] = train_flops_per_token(row["params"], layers,
                                                    hidden, row["seq"])
     row["mfu"] = (row["tokens_per_s"] * row["flops_per_token"]
-                  / PEAK_FLOPS["bfloat16"])
+                  / PEAK_FLOPS[dtype])
+    row["mfu_peak"] = f"{dtype} {PEAK_FLOPS[dtype]:.3g} FLOP/s"
     return row
 
 
@@ -2370,7 +2437,7 @@ def train_cpu_check(torch, pt, fa, moe=False):
 # kernel-name fragments of the profile's categories, first match wins
 PROFILE_CATEGORIES = [
     ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
-                                 "dkv_wgmma", "dq_simt", "dkv_simt",
+                                 "dkv_wgmma", "dq_ffma", "dkv_ffma",
                                  "fwd_wg256", "dq_wg256", "dkv_wg256",
                                  "fwd_wgwide", "dq_wgwide", "dkv_wgwide",
                                  "fwd_wide", "dq_wide", "dkv_wide")),
@@ -2390,14 +2457,15 @@ PROFILE_CATEGORIES = [
 
 
 # the device kernels each wrapper launches, by the fragments of their
-# names that torch.profiler shows (bf16 wgmma, f32 simt; at head_dim 256
-# the bf16 wg256 kernels; above it the bf16 wgwide kernels; from 256 the
-# f32 wide FFMA kernels)
+# names that torch.profiler shows (bf16 wgmma; f32 at 64 and 128 the
+# SIMT forward and the FFMA backward; at head_dim 256 the bf16 wg256
+# kernels; above it the bf16 wgwide kernels; from 256 the f32 wide FFMA
+# kernels); no fragment is part of another wrapper's kernel names
 KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
                                     "fwd_wg256", "fwd_wgwide", "fwd_wide"),
-                 "flash_attn_bwd_dq": ("dq_wgmma", "dq_simt", "dq_wg256",
+                 "flash_attn_bwd_dq": ("dq_wgmma", "dq_ffma", "dq_wg256",
                                        "dq_wgwide", "dq_wide"),
-                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_simt",
+                 "flash_attn_bwd_dkv": ("dkv_wgmma", "dkv_ffma",
                                         "dkv_wg256", "dkv_wgwide",
                                         "dkv_wide")}
 # what a training run's `launches` counts
@@ -4049,9 +4117,17 @@ def active_params(model):
     return int(total - skip)
 
 
+# the f32 ERNIE-base step (captured_train_f32: no AMP): the device
+# kernels a replay runs, by name, each once a layer
+F32_TRAIN_ROUTES = {"flash_attn_fwd": "flash_fwd_simt",
+                    "flash_attn_bwd_dq": "dq_ffma",
+                    "flash_attn_bwd_dkv": "dkv_ffma"}
+
+
 def captured_train_phase(torch, pt, fa, kind, key="captured_train",
-                         **step_kw):
-    """ERNIE-base 48x512 or GPT-2 small 8x1024, O1 bf16, dropout 0.1,
+                         amp_level="O1", routes=None, **step_kw):
+    """ERNIE-base 48x512 or GPT-2 small 8x1024, O1 bf16 (amp_level None:
+    f32, no AMP), dropout 0.1,
     AdamW: the captured TrainStep against its eager body from one start
     state (the snapshot before step 1, restored in place) and one seed
     sequence (STEP_SEEDS): the first call (warm-up, then capture; the
@@ -4063,13 +4139,16 @@ def captured_train_phase(torch, pt, fa, kind, key="captured_train",
     (1 graph, 0 sentinel events), the device time of a replay and the
     kernels each ran (profile_step: each kernel once per layer, as in
     the first call's warm-up), the idle share, tokens/s, MFU, peak
-    memory and the eager body's step ms from the same weights. step_kw
-    goes to TrainStep (mesh, sharding_plan); the row is emitted under
-    `key`, its MFU from the active parameters (active_params). Returns
-    (row, model, step, x, y)."""
+    memory and the eager body's step ms from the same weights; attention's
+    share of a replay's device time. routes: the kernel names a replay
+    must run once a layer each (captured_train_gates). step_kw goes to
+    TrainStep (mesh, sharding_plan); the row is emitted under `key`, its
+    MFU from the active parameters (active_params) against the peak of
+    the step's compute type. Returns (row, model, step, x, y)."""
     base = torch.cuda.memory_allocated()
     model = _train_model(pt, kind)
-    step, x, y, (b, s), layers = _train_step(torch, kind, model, **step_kw)
+    step, x, y, (b, s), layers = _train_step(torch, kind, model, amp_level,
+                                             **step_kw)
     s0 = _to_cpu(step.state_dict())    # off the card: not in the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4106,19 +4185,23 @@ def captured_train_phase(torch, pt, fa, kind, key="captured_train",
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     prof = profile_step(torch, step, x, y)
-    _expect_launches(kind, [warm, prof["launches_per_replay"]], layers)
     step_ms = secs / CAPTURE_STEPS * 1e3
     eager_ms = time_ms(lambda: step.eager_step(x, y), reps=5, warmup=1)
     cfg = model.config
-    row = dict(model=kind, batch=b, seq=s, amp="O1 bfloat16",
-               dropout=0.1, params=active_params(model)
+    attn_ms = prof["categories"].get("flash attention kernels", 0.0)
+    row = dict(model=kind, batch=b, seq=s,
+               amp=f"{amp_level} bfloat16" if amp_level else
+               "none (float32)", dropout=0.1, params=active_params(model)
                if kind.startswith("ernie") else
                sum(p.numel() for p in step.params),
                params_total=sum(p.numel() for p in step.params),
                graphs=step.programs, captures=step.captures,
                replays=step.replays,
                sentinel_events=step.recompile_sentinel.fired,
+               layers=layers, warmup_launches=warm,
                launches_per_replay=prof["launches_per_replay"],
+               routes_per_replay={k: v for k, v in
+                                  prof["routes_per_replay"].items() if v},
                launches=_sum_launches([warm, prof["kernel_launches"]]),
                counted_calls=COUNTED_CALLS,
                nccl_launches_per_replay=prof["nccl_launches"]
@@ -4131,23 +4214,63 @@ def captured_train_phase(torch, pt, fa, kind, key="captured_train",
                timed_replays=CAPTURE_STEPS, step_ms=step_ms,
                device_ms_per_step=prof["device_ms"],
                idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               attention_ms_per_step=attn_ms,
+               attention_share=attn_ms / prof["device_ms"],
+               attention_kernel_ms={
+                   name: sum(r["ms"] for r in prof["top"] if name in r["name"])
+                   for keys in KERNEL_EVENTS.values() for name in keys
+                   if prof["routes_per_replay"].get(name)},
                tokens_per_s=b * s * CAPTURE_STEPS / secs,
                eager_step_ms=eager_ms, peak_memory_bytes=peak,
                peak_above_base_bytes=peak - base,
                reserved_after_capture_bytes=reserved,
                profile=_profile_row(prof, top=8))
-    _with_mfu(row, layers, cfg.hidden_size)
-    row["ok"] = bool(
-        row["graphs"] == 1 and row["sentinel_events"] == 0
-        and loss_rel == 0 and params_equal
-        and seeded[0] == seeded[1] and seeded[2] != seeded[0]
-        and all(math.isfinite(v) for v in graph_losses)
-        and 0 < row["mfu"] < 1)
+    _with_mfu(row, layers, cfg.hidden_size,
+              "bfloat16" if amp_level else "float32")
+    bad = captured_train_gates(row, routes)
+    row["ok"] = not bad
     emit({key: row})
-    if not row["ok"]:
-        fail(f"the captured {kind} step disagrees with its eager body or "
-             f"its contract: {row}")
+    if bad:
+        fail(f"the captured {kind} step ({key}) disagrees with its eager "
+             "body or its contract: " + "; ".join(bad))
     return row, model, step, x, y
+
+
+def captured_train_gates(row, routes=None):
+    """captured_train_phase's failures, each a message (empty: ok): the
+    replays bit-equal to the eager steps (losses and every parameter),
+    one graph and no sentinel event, the step seed deciding a replay,
+    each kernel once a layer in the warm-up and in a replay, finite
+    losses, an MFU in (0, 1); with routes, a replay runs exactly the
+    kernel names of routes, once a layer each (no other kernel of
+    KERNEL_EVENTS)."""
+    bad = []
+    if not (row["max_loss_rel_diff"] == 0 and row["params_bit_equal"]):
+        bad.append("the replays are not bit-equal to the eager steps: "
+                   f"losses {row['graph_losses']} against "
+                   f"{row['eager_losses']}, parameters max abs diff "
+                   f"{row['params_max_abs_diff']}")
+    if row["graphs"] != 1 or row["sentinel_events"] != 0:
+        bad.append(f"{row['graphs']} graphs and {row['sentinel_events']} "
+                   "sentinel events for one signature")
+    same = row["same_seed_losses"]
+    if not (same[0] == same[1] and row["other_seed_loss"] != same[0]):
+        bad.append(f"the step seed does not decide a replay: {same}, "
+                   f"another seed {row['other_seed_loss']}")
+    want = {k: row["layers"] for k in KERNEL_EVENTS}
+    for what in ("warmup_launches", "launches_per_replay"):
+        if row[what] != want:
+            bad.append(f"{what} {row[what]}, expected {want}")
+    if routes is not None:
+        want_r = {name: row["layers"] for name in routes.values()}
+        if row["routes_per_replay"] != want_r:
+            bad.append(f"a replay ran {row['routes_per_replay']}, "
+                       f"expected {want_r}")
+    if not all(math.isfinite(v) for v in row["graph_losses"]):
+        bad.append(f"non-finite losses {row['graph_losses']}")
+    if not 0 < row["mfu"] < 1:
+        bad.append(f"MFU {row['mfu']} is outside (0, 1)")
+    return bad
 
 
 # the sentry on ERNIE-base's captured step (sentry_train): the
@@ -8879,6 +9002,14 @@ def main():
         if serial:
             fail(f"ptxas serialises the wgmma of a head_dim-64 kernel: "
                  f"{serial}")
+        if name == BWD_SOURCE:
+            ffma = [(f, st, ld) for f, st, ld in ptxas_spills(info["log"])
+                    if any(k in f for k in FFMA_KERNELS)]
+            spilling = [f for f, st, ld in ffma if st or ld]
+            if len(ffma) != FFMA_INSTANTIATIONS or spilling:
+                fail(f"ptxas: {len(ffma)} f32 FFMA backward kernels "
+                     f"reported (want {FFMA_INSTANTIATIONS}), spilling: "
+                     f"{spilling}")
         for src, want, what in ((WG256_SOURCE, WG256_INSTANTIATIONS,
                                  "head_dim-256 wgmma"),
                                 (WIDE_SOURCE, WIDE_INSTANTIATIONS,
@@ -8959,6 +9090,14 @@ def main():
         step.release()
         del model, step, x
         torch.cuda.empty_cache()
+    # ERNIE-base's step in f32 (no AMP): the f32 forward, dQ and dK/dV at
+    # head_dim 64, 12 of each a replay
+    captured_f32, model, step, _, _ = captured_train_phase(
+        torch, pt, fa, "ernie", key="captured_train_f32", amp_level=None,
+        routes=F32_TRAIN_ROUTES)
+    step.release()
+    del model, step
+    torch.cuda.empty_cache()
     scaler = captured_scaler_phase(torch, pt, fa)
     remat = {kind: remat_phase(torch, pt, fa, kind)
              for kind in ("gpt", "ernie")}
@@ -9035,6 +9174,8 @@ def main():
                       for m in scanned},
                    **{f"captured_training_{m}": captured[m]["launches"][k]
                       for m in captured},
+                   "captured_training_ernie_f32":
+                       captured_f32["launches"][k],
                    "captured_training_gpt_scaler_accum2":
                        scaler["launches"][k],
                    **{f"remat_{p}_{m}": remat[m][p]["launches"][k]
@@ -9171,6 +9312,7 @@ def main():
         {"encoder_256": enc256, "encoder_256_f32": enc256_f32,
          "encoder_wide": encwide, "encoder_wide_f32": encwide_f32},
         d256_cases + wide_cases)
+    kernels += ffma_kernel_rows(captured_f32, bwd_cases)
     # greedy NMS: no Pallas origin; at the serving path's shape (640
     # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates
     # of a YOLOv3 batch of 8 at 608)

@@ -7,8 +7,9 @@ lines, then for every case a forward and backward under torch.profiler
 (chip_smoke.device_profile, five calls after a warm-up) and each flash
 kernel's device ms a call, by name, one JSON line a case. The cases are
 chip_smoke.py's kernel shapes, its encoder phases' attention
-(ENC256_ATTN, ENC256_ATTN_F32, ENCWIDE_ATTN and ENCWIDE_ATTN_F32) and
-the f32 head_dim 256 cases at p 0 and 0.1, causal and not;
+(ENC256_ATTN, ENC256_ATTN_F32, ENCWIDE_ATTN and ENCWIDE_ATTN_F32), the
+f32 cases at 64 and 128 (ERNIE-base's shape, h 128 at b 8, s 256 and
+1024) and the f32 head_dim 256 cases at p 0 and 0.1, causal and not;
 `--head-dim H` and `--dtype D` keep only the cases of that head_dim
 and dtype. To compare two trees on one
 card, unpack the older one with `git archive` under a git-ignored
@@ -35,6 +36,14 @@ CASES = [(48, 512, 12, 64, False, "bfloat16", 0.1, 512, False),
          (8, 1024, 16, 256, False, "float32", 0.1, 1024, True),
          (8, 1024, 8, 512, False, "bfloat16", 0.1, 1024, True),
          (8, 1024, 8, 512, False, "float32", 0.1, 1024, True)]
+# the f32 backward at 64 and 128: ERNIE-base's training shape (p 0.1,
+# and causal at p 0), the h-128 case causal, and h 128 over the whole
+# card (b 8, s 1024) at p 0 and 0.1
+CASES += [(48, 512, 12, 64, False, "float32", 0.1, 512, False),
+          (48, 512, 12, 64, True, "float32", 0.0, 512, False),
+          (8, 256, 8, 128, True, "float32", 0.0, 256, False)]
+CASES += [(8, 1024, 8, 128, False, "float32", p, 1024, False)
+          for p in (0.0, 0.1)]
 CASES += [(8, 1024, 8, 256, causal, "float32", p, 1024, False)
           for p in (0.0, 0.1) for causal in (False, True)]
 CASES += [(2, 512, 4, h, causal, dt, p, 512, False)

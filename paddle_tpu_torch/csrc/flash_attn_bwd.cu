@@ -9,8 +9,8 @@
 // gradients are the same from run to run:
 //  * pt_flash_attn_bwd_dq: each CTA owns a block of query rows of one
 //    (batch, head) and loops over the k-tiles; dQ = sum_j dS K * scale.
-//    In bf16 it also computes delta = rowsum(dO * O) of its rows in f32,
-//    uses it and writes it to a [b, n, sq] buffer for the next kernel.
+//    It also computes delta = rowsum(dO * O) of its rows in f32, uses it
+//    and writes it to a [b, n, sq] buffer for the next kernel.
 //  * pt_flash_attn_bwd_dkv: each CTA owns a block of keys and loops over
 //    the q-tiles; dV = sum_i dropout(P)^T dO, dK = sum_i dS^T Q * scale.
 //    It launches after dQ on the same stream and reads that delta.
@@ -79,18 +79,35 @@
 //  * exp is one ex2.approx per probability, with the scale folded in;
 //    masking runs only on tiles that cross a bound or the diagonal and
 //    sets a masked probability to exactly 0.
-//  * f32 (dq_simt, dkv_simt): exact FFMA, no TF32, so the gradients
-//    agree with a float32 reference to ~1e-6; delta comes from torch
-//    ops. Every thread owns a 4x4 block of the scores; operands sit
-//    transposed in shared memory so an inner step is 16-byte shared
-//    loads feeding 16 FMAs. dK/dV takes 32-key tiles so that h = 128
-//    fits the 227 KB of shared memory.
+//  * f32 (dq_ffma, dkv_ffma): exact FFMA, no TF32, so the gradients
+//    agree with a float32 reference to ~1e-6. At 64 and 128 the f32
+//    products set the pace (67 TFLOP/s), and a link carries only 3 D
+//    (dQ) or 4 D (dK/dV) FMAs against its exponential, keep bits and dS.
+//    So a consumer thread keeps its block of S and dP over the whole
+//    head_dim in registers (8 rows by 4 at 64, 4 by 4 at 128) and forms
+//    dS there (no partial scores in shared memory, as the wide kernels
+//    need at 256 and above), stored once for the accumulating products.
+//    A CTA of 384 threads owns 128 rows at 64 and 64 at 128 (query rows
+//    for dQ, keys for dK/dV; at 64 the wider side halves the walked
+//    tiles' reads and loads 12 floats for 32 FMAs where 64 rows load 8
+//    for 16: 17% faster): 8 consumer warps and a producer warpgroup,
+//    whose first warp copies every operand tile once, row-major, by
+//    bulk copies counted on mbarriers (flash_bulk.cuh, the feeding of
+//    flash_attn_wide.cu), two 64-row walked tiles in flight; setmaxnreg
+//    72 / 208. Every product reads both operands along head_dim as
+//    float4 rows, each load in one wavefront. The producer warpgroup's
+//    three other warps compute each tile's keep bits and hand each
+//    consumer thread its bits as one word in shared memory (on the
+//    consumers, 4 Philox calls a thread a tile, dK/dV took 3.5% longer
+//    at p 0.1). The dQ kernel computes delta first, from O and dO in
+//    device memory, while the first tiles land.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bulk.cuh"
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
 #include "hopper.cuh"
@@ -105,7 +122,7 @@ using namespace flash_wg;
 struct BwdArgs {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
-  float* delta;  // bf16 dQ: written; otherwise read
+  float* delta;  // written by the dQ kernel, read by dK/dV
   void *dq, *dk, *dv;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   int batch, n_heads, sq, sk;
@@ -120,321 +137,513 @@ __device__ __forceinline__ bool link_ok(bool causal, int row, int col,
 
 // ------------------------------------------------------------ f32, FFMA
 
-constexpr int kLd = kBM + 4;        // transposed 64-row tile stride (floats)
-constexpr int kDqThreads = 256;     // 16 row groups x 16 column groups
-constexpr int kKB = 32;             // keys per dK/dV CTA in f32
-constexpr int kKLd = kKB + 4;       // transposed 32-key tile stride
-constexpr int kKvThreads = 128;     // 8 key groups x 16 query groups
+// The f32 kernels (dq_ffma, dkv_ffma): a CTA owns R rows (query rows
+// for dQ, keys for dK/dV; 128 at head_dim 64, 64 at 128, Ffma::kR) and
+// walks the other side in kFR-row tiles. Warps 0-7 consume; the
+// producer warpgroup's first warp copies every operand tile once,
+// row-major, a bulk copy a row (flash_bulk.cuh), the resident tiles on
+// `misc` and two walked tiles in flight, each released by its own
+// `empty` barrier, and with dropout its other three warps compute the
+// keep bits; setmaxnreg moves the producer warpgroup's registers to the
+// consumers (72 / 208: at 56 and 64 the keep warps spilled, at 216 the
+// dK/dV consumers; dQ took 4.6% longer at 64 / 216).
+constexpr int kFR = 64;  // walked rows of a tile
+constexpr int kFThreads = 384, kFConsumers = 256;
+// the register split (producer, consumer), within the pool
+// __launch_bounds__(384, 1) gives the CTA (168 a thread): asking for
+// more spins forever in the allocation
+constexpr int kFProdRegs = 72, kFConsRegs = 208;
+static_assert((kFThreads - kFConsumers) * kFProdRegs +
+                      kFConsumers * kFConsRegs <=
+                  168 * kFThreads,
+              "the warpgroups' registers exceed the CTA's pool");
+// the producer warpgroup's other warps compute each tile's keep bits
+// (ffma_keep_words) and hand them over as a word a consumer thread in
+// shared memory with the tile's full barrier
+constexpr int kFKeepWarps = 3;
 
 template <int D>
-constexpr size_t dq_simt_smem() {
-  return (4 * D * kLd + kBN * D + kBN * kLd) * sizeof(float);
-}
+struct Ffma {
+  static_assert(D == 64 || D == 128, "the FFMA kernels take 64 and 128");
+  // resident rows: 128 where they fit beside the walked tiles (64), so
+  // a thread's block of S and dP is 8 resident rows by 4 walked ones and
+  // each walked tile serves twice the rows; 64 at 128 (4 by 4)
+  static constexpr int kR = D == 64 ? 128 : 64;
+  static constexpr int kIR = kR / 16;  // resident rows of a thread's block
+  static constexpr int kLd = D + 4;    // an operand tile's row stride
+  static constexpr int kRTile = kR * kLd;
+  static constexpr int kTile = kFR * kLd;
+  static constexpr int kStages = 2;    // walked tiles in flight
+  // column steps of the score loops unrolled (dQ at 64 two: as fast as
+  // one there, where a step's loads of the 8-row blocks take 48 registers)
+  static constexpr int kDqUnroll = D == 64 ? 2 : 4;
+  static constexpr int kDkvUnroll = 4;
+  static constexpr int kKeepWords = kStages * kFConsumers;
+  // a [walked row][resident row] score tile (dQ's dS; dK/dV's
+  // dropout(P) and dS), its row stride 8 banks mod 32: a warp's float2
+  // stores of it in the two wavefronts they need
+  static constexpr int kSLd = kR + 8;
+  static constexpr int kScore = kFR * kSLd;
+  // score tiles: at 64 dQ's dS has two buffers (a tile's stores wait
+  // for no reader of the last tile's) and dK/dV's dropout(P) and dS one
+  // each; at 128 dQ's dS has one, and dK/dV's share one
+  static constexpr int kDqScores = D == 64 ? 2 : 1;
+  static constexpr int kDkvScores = D == 64 ? 2 : 1;
+  // two resident tiles, two walked ones a stage
+  static constexpr int kOperands = 2 * kRTile + 2 * kStages * kTile;
+  static constexpr size_t kDqBytes =
+      (kOperands + kDqScores * kScore + kR + kKeepWords) * sizeof(float);
+  static constexpr size_t kDkvBytes =
+      (kOperands + kDkvScores * kScore + kKeepWords) * sizeof(float);
+  static_assert(kDqBytes <= 232448 && kDkvBytes <= 232448,
+                "a CTA takes at most 227 KB of shared memory");
+  // with dropout the full barriers count the keep warps' arrivals too
+  template <bool DROP>
+  using Bars = flash_bulk::Bars<D, kLd, kStages, kFConsumers / 32,
+                                1 + (DROP ? kFKeepWarps : 0)>;
+};
 
-template <int D>
-constexpr size_t dkv_simt_smem() {
-  return (2 * D * kKLd + 2 * D * kLd + 2 * kBM * D + 2 * kBM * kKLd +
-          2 * kBM) * sizeof(float);
-}
-
-template <int D, bool CAUSAL, bool DROP>
-__global__ void __launch_bounds__(kDqThreads) dq_simt(BwdArgs a) {
-  static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
-  constexpr int G = D / 64;
-  extern __shared__ __align__(16) unsigned char smem_dq[];
-  float* Qt = reinterpret_cast<float*>(smem_dq);  // [D][kLd]
-  float* dOt = Qt + D * kLd;                      // [D][kLd]
-  float* Kt = dOt + D * kLd;                      // [D][kLd]
-  float* Vt = Kt + D * kLd;                       // [D][kLd]
-  float* Ks = Vt + D * kLd;                       // [kBN][D]
-  float* dSt = Ks + kBN * D;                      // [kBN][kLd] dS, transposed
-
-  const int bh = blockIdx.x;
-  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
-  const int q0 = blockIdx.y * kBM;
-  const int tid = threadIdx.x;
-  const int r = tid >> 4;  // rows r*4 .. r*4+3
-  const int c = tid & 15;  // score columns c*4 ..; dQ columns c*4+64g ..
-  const int sq = a.sq, sk = a.sk;
-  const DropParams dp = drop_params<DROP>(a.dp);
-
-  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.n;
-  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.n;
-  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.n;
-  const float* db =
-      static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
-
-  load_tile_t<D, kBM, kDqThreads>(Qt, kLd, qb, a.qs.s, q0, sq, 1.f, tid);
-  load_tile_t<D, kBM, kDqThreads>(dOt, kLd, db, a.dos.s, q0, sq, 1.f, tid);
-  float lse_r[4], dl_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-    lse_r[i] = row < sq ? a.lse[(long long)bh * sq + row] : 0.f;
-    dl_r[i] = row < sq ? a.delta[(long long)bh * sq + row] : 0.f;
+// A consumer thread's parts (8 warps), for R resident rows and head_dim
+// D:
+//  * its block of S and dP (dK/dV: S^T and dP^T): resident rows rr +
+//    res_row(i), i < R / 16 (rr, rr + 1, rr + 8, rr + 9, ...), against
+//    walked rows wc + 8 j, j < 4, over the whole head_dim, in registers.
+//    A warp's float4 loads of a column step read 4 resident rows (one
+//    wavefront, broadcast) and 8 walked ones (one wavefront: the row
+//    stride is 4 banks mod 32);
+//  * the accumulation: resident rows 4 ua + i, i < 4, columns 4 ub + e
+//    and D / 2 + 4 ub + e, e < 4.
+template <int R, int D>
+struct FRoles {
+  int rr, wc, ua, ub;
+  __device__ __forceinline__ explicit FRoles(int tid) {
+    const int lane = tid & 31, warp = tid >> 5;
+    rr = (R / 4) * (warp & 3) + 2 * (lane >> 3);
+    wc = 32 * (warp >> 2) + (lane & 7);
+    ua = 4 * (warp % (R / 16)) + (lane >> 3);
+    ub = 8 * (warp / (R / 16)) + (lane & 7);
   }
-  float acc[4][4 * G];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * G; ++j) acc[i][j] = 0.f;
+};
 
-  int nk = (sk + kBN - 1) / kBN;
-  if (CAUSAL) nk = causal_tiles(nk, q0);
+__device__ __forceinline__ int res_row(int i) { return (i & 1) + 8 * (i >> 1); }
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBN;
-    __syncthreads();  // the last tile's reads are done
-    load_tile_t<D, kBN, kDqThreads>(Kt, kLd, kb, a.ks.s, k0, sk, 1.f, tid);
-    load_tile_t<D, kBN, kDqThreads>(Vt, kLd, vb, a.vs.s, k0, sk, 1.f, tid);
-    load_tile<D, kBN, kDqThreads>(Ks, kb, a.ks.s, k0, sk, tid);
-    __syncthreads();
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-    float s[4][4], dpv[4][4];
+__device__ __forceinline__ float dot4(const float4 x, const float4 y,
+                                      float acc) {
+  acc = fmaf(x.x, y.x, acc);
+  acc = fmaf(x.y, y.y, acc);
+  acc = fmaf(x.z, y.z, acc);
+  return fmaf(x.w, y.w, acc);
+}
+
+// s[i][j] = A[rr + res_row(i)] . B[wc + 8 j] over D columns, A resident
+// and B walked, both row-major at D + 4: IR + 4 float4 loads for 16 IR
+// FMAs a step, U steps unrolled
+template <int D, int IR, int U, typename Ro>
+__device__ __forceinline__ void ffma_scores(float s[IR][4], const float* A,
+                                            const float* B, const Ro& ro) {
+  constexpr int LD = Ffma<D>::kLd;
+  const float* pa = A + ro.rr * LD;
+  const float* pb = B + ro.wc * LD;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < IR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dpv[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll (U)
+  for (int t = 0; t < D; t += 4) {
+    float4 x[IR], y[4];
+#pragma unroll
+    for (int i = 0; i < IR; ++i) x[i] = ld4(pa + res_row(i) * LD + t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = ld4(pb + 8 * j * LD + t);
+#pragma unroll
+    for (int i = 0; i < IR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dot4(x[i], y[j], s[i][j]);
+  }
+}
+
+// the thread's block x[i][j] into X[wc + 8 j][rr + res_row(i)] (row
+// stride SLD), a float2 (two resident rows) a store
+template <int IR, int SLD, typename Ro>
+__device__ __forceinline__ void ffma_put(float* X, const float x[IR][4],
+                                         const Ro& ro) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int rp = 0; rp < IR / 2; ++rp)
+      *reinterpret_cast<float2*>(X + (ro.wc + 8 * j) * SLD + ro.rr +
+                                 8 * rp) =
+          make_float2(x[2 * rp][j], x[2 * rp + 1][j]);
+}
+
+// acc[i][4 g + e] += X[kk][4 ua + i] * B[kk][D / 2 g + 4 ub + e] over the
+// kFR walked rows kk of a score tile X (row stride SLD) and a walked
+// tile B: 3 float4 loads for 32 FMAs, each in one wavefront
+template <int D, int SLD, typename Ro>
+__device__ __forceinline__ void ffma_accumulate(float acc[4][8],
+                                                const float* X,
+                                                const float* B,
+                                                const Ro& ro) {
+  constexpr int LD = Ffma<D>::kLd;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * kLd + r * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[d * kLd + c * 4]);
-      const float4 oa = *reinterpret_cast<const float4*>(&dOt[d * kLd + r * 4]);
-      const float4 va = *reinterpret_cast<const float4*>(&Vt[d * kLd + c * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-      const float ov[4] = {oa.x, oa.y, oa.z, oa.w};
-      const float vv[4] = {va.x, va.y, va.z, va.w};
+  for (int kk = 0; kk < kFR; ++kk) {
+    const float4 p = ld4(X + kk * SLD + 4 * ro.ua);
+    const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const float4 y = ld4(B + kk * LD + (D / 2) * g + 4 * ro.ub);
+      const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dpv[i][j] = fmaf(ov[i], vv[j], dpv[i][j]);
-        }
+        for (int e = 0; e < 4; ++e)
+          acc[i][4 * g + e] = fmaf(pv[i], yv[e], acc[i][4 * g + e]);
     }
-    if (DROP) {
-#pragma unroll
-      for (int ip = 0; ip < 2; ++ip)
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          const int row = q0 + r * 4 + ip * 2, col = k0 + c * 4 + jp * 2;
-          const uint4 w = drop_block(dp, bh, row, col);
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-#pragma unroll
-            for (int y = 0; y < 2; ++y) {
-              float& e = dpv[ip * 2 + x][jp * 2 + y];
-              e = drop_keep(dp, w, row + x, col + y) ? e * dp.rinv : 0.f;
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = link_ok(CAUSAL, q0 + r * 4 + i, k0 + c * 4 + j, sq, sk);
-        const float p = ok ? expf(s[i][j] * a.scale - lse_r[i]) : 0.f;
-        s[i][j] = p * (dpv[i][j] - dl_r[i]);  // dS
-      }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&dSt[(c * 4 + j) * kLd + r * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBN; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&dSt[kk * kLd + r * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(&Ks[kk * D + g * 64 + c * 4]);
-        const float xv[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][g * 4 + j] = fmaf(pv[i], xv[j], acc[i][g * 4 + j]);
-      }
-    }
-  }
-
-  float* out = static_cast<float*>(a.dq) + bi * a.dqs.b + hi * a.dqs.n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-    if (row >= sq) continue;
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      *reinterpret_cast<float4*>(&out[(long long)row * a.dqs.s + g * 64 + c * 4]) =
-          make_float4(acc[i][g * 4] * a.scale, acc[i][g * 4 + 1] * a.scale,
-                      acc[i][g * 4 + 2] * a.scale, acc[i][g * 4 + 3] * a.scale);
   }
 }
 
-template <int D, bool CAUSAL, bool DROP>
-__global__ void __launch_bounds__(kKvThreads) dkv_simt(BwdArgs a) {
-  static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
-  constexpr int G = D / 64;
-  extern __shared__ __align__(16) unsigned char smem_dkv[];
-  float* Kt = reinterpret_cast<float*>(smem_dkv);  // [D][kKLd]
-  float* Vt = Kt + D * kKLd;                       // [D][kKLd]
-  float* Qt = Vt + D * kKLd;                       // [D][kLd]
-  float* dOt = Qt + D * kLd;                       // [D][kLd]
-  float* Qs = dOt + D * kLd;                       // [kBM][D]
-  float* dOs = Qs + kBM * D;                       // [kBM][D]
-  float* Ps = dOs + kBM * D;                       // [kBM][kKLd] dropout(P)
-  float* dSs = Ps + kBM * kKLd;                    // [kBM][kKLd] dS
-  float* lse_s = dSs + kBM * kKLd;                 // [kBM]
-  float* dl_s = lse_s + kBM;                       // [kBM]
-
-  const int bh = blockIdx.x;
-  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
-  const int k0 = blockIdx.y * kKB;
-  const int tid = threadIdx.x;
-  const int r = tid >> 4;  // keys r*4 .. r*4+3
-  const int c = tid & 15;  // score queries c*4 ..; dK/dV columns c*4+64g ..
-  const int sq = a.sq, sk = a.sk;
-  const DropParams dp = drop_params<DROP>(a.dp);
-
-  const float* qb = static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.n;
-  const float* kb = static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.n;
-  const float* vb = static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.n;
-  const float* db =
-      static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
-
-  load_tile_t<D, kKB, kKvThreads>(Kt, kKLd, kb, a.ks.s, k0, sk, 1.f, tid);
-  load_tile_t<D, kKB, kKvThreads>(Vt, kKLd, vb, a.vs.s, k0, sk, 1.f, tid);
-  float dk[4][4 * G], dv[4][4 * G];
+__device__ __forceinline__ void zero8(float acc[4][8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4 * G; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+}
 
-  const int nq = (sq + kBM - 1) / kBM;
-  // causal: q-tiles whose last row reaches this tile's first key
-  const int first = CAUSAL ? k0 / kBM : 0;
-  for (int qt = first; qt < nq; ++qt) {
-    const int i0 = qt * kBM;
-    __syncthreads();  // the last tile's reads are done
-    load_tile_t<D, kBM, kKvThreads>(Qt, kLd, qb, a.qs.s, i0, sq, 1.f, tid);
-    load_tile_t<D, kBM, kKvThreads>(dOt, kLd, db, a.dos.s, i0, sq, 1.f, tid);
-    load_tile<D, kBM, kKvThreads>(Qs, qb, a.qs.s, i0, sq, tid);
-    load_tile<D, kBM, kKvThreads>(dOs, db, a.dos.s, i0, sq, tid);
-    for (int e = tid; e < kBM; e += kKvThreads) {
-      const bool in = i0 + e < sq;
-      lse_s[e] = in ? a.lse[(long long)bh * sq + i0 + e] : 0.f;
-      dl_s[e] = in ? a.delta[(long long)bh * sq + i0 + e] : 0.f;
-    }
-    __syncthreads();
+// rows row0 + 4 ua + i (< limit) of acc times mul into out (row stride
+// rs), at the thread's columns
+template <int D, typename Ro>
+__device__ __forceinline__ void ffma_store(float* out, long long rs,
+                                           const float acc[4][8], int row0,
+                                           int limit, float mul,
+                                           const Ro& ro) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + 4 * ro.ua + i;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      *reinterpret_cast<float4*>(out + (long long)row * rs + (D / 2) * g +
+                                 4 * ro.ub) =
+          make_float4(acc[i][4 * g] * mul, acc[i][4 * g + 1] * mul,
+                      acc[i][4 * g + 2] * mul, acc[i][4 * g + 3] * mul);
+  }
+}
 
-    // s[jj][ii]: key r*4+jj against query c*4+ii
-    float s[4][4], dpv[4][4];
+// The keep bits of the consumers' links, computed by the producer
+// warpgroup's keep warps: bit 4 i + j of consumer thread c's word is the
+// keep bit of its link (resident row res0 + rr + res_row(i), walked row
+// walk0 + 64 t + wc + 8 j of tile t). The resident rows are query rows
+// (RES_ROWS, dQ) or keys (dK/dV), the Philox block's rows or columns.
+// The lanes c and c ^ 1 hold the two walked rows of the same blocks, so
+// keep warp kw's lane computes the 2 IR blocks of the pair (2 pp, 2 pp +
+// 1), pp = 32 kw + lane (and + 96), into keep_s[st][c] after the
+// consumers released stage st, then the warp arrives on its full
+// barrier. The consumers spend no instruction on them.
+template <int R, int D, int S, bool RES_ROWS, typename B>
+__device__ __forceinline__ void ffma_keep_words(const DropParams& dp, int bh,
+                                                int res0, int walk0, int nt,
+                                                uint32_t* keep_s,
+                                                const B& bars, int kw,
+                                                int lane) {
+  uint32_t phase = 0u;
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % S;
+    if (t >= S) flash_bulk::bar_wait(bars.empty(st), phase, st);
+    for (int pp = 32 * kw + lane; pp < kFConsumers / 2;
+         pp += 32 * kFKeepWarps) {
+      const FRoles<R, D> ro(2 * pp);
+      uint32_t w2[2] = {0u, 0u};
+#pragma unroll 1
+      for (int rp = 0; rp < R / 32; ++rp)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dpv[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[d * kKLd + r * 4]);
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * kLd + c * 4]);
-      const float4 va = *reinterpret_cast<const float4*>(&Vt[d * kKLd + r * 4]);
-      const float4 oa = *reinterpret_cast<const float4*>(&dOt[d * kLd + c * 4]);
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float vv[4] = {va.x, va.y, va.z, va.w};
-      const float ov[4] = {oa.x, oa.y, oa.z, oa.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[j][i] = fmaf(kv[j], qv[i], s[j][i]);
-          dpv[j][i] = fmaf(vv[j], ov[i], dpv[j][i]);
-        }
-    }
-    float pd[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qrow = i0 + c * 4 + i, key = k0 + r * 4 + j;
-        const bool ok = link_ok(CAUSAL, qrow, key, sq, sk);
-        s[j][i] = ok ? expf(s[j][i] * a.scale - lse_s[c * 4 + i]) : 0.f;
-        pd[j][i] = s[j][i];
-      }
-    if (DROP) {
-#pragma unroll
-      for (int ip = 0; ip < 2; ++ip)
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          const int qrow = i0 + c * 4 + ip * 2, key = k0 + r * 4 + jp * 2;
-          const uint4 w = drop_block(dp, bh, qrow, key);
+        for (int j = 0; j < 4; ++j) {
+          const int res = res0 + ro.rr + 8 * rp;
+          const int walk = walk0 + t * kFR + ro.wc + 8 * j;
+          const uint4 w = RES_ROWS ? drop_block(dp, bh, res, walk)
+                                   : drop_block(dp, bh, walk, res);
 #pragma unroll
           for (int x = 0; x < 2; ++x)
 #pragma unroll
-            for (int y = 0; y < 2; ++y) {
-              const bool keep = drop_keep(dp, w, qrow + x, key + y);
-              float& p = pd[jp * 2 + y][ip * 2 + x];
-              float& g = dpv[jp * 2 + y][ip * 2 + x];
-              p = keep ? p * dp.rinv : 0.f;
-              g = keep ? g * dp.rinv : 0.f;
-            }
+            for (int y = 0; y < 2; ++y)
+              if (word_of(w, RES_ROWS ? 2 * x + y : 2 * y + x) >=
+                  dp.threshold)
+                w2[y] |= 1u << (4 * (2 * rp + x) + j);
         }
+      keep_s[st * kFConsumers + 2 * pp] = w2[0];
+      keep_s[st * kFConsumers + 2 * pp + 1] = w2[1];
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float dl = dl_s[c * 4 + i];
-      *reinterpret_cast<float4*>(&Ps[(c * 4 + i) * kKLd + r * 4]) =
-          make_float4(pd[0][i], pd[1][i], pd[2][i], pd[3][i]);
-      *reinterpret_cast<float4*>(&dSs[(c * 4 + i) * kKLd + r * 4]) =
-          make_float4(s[0][i] * (dpv[0][i] - dl), s[1][i] * (dpv[1][i] - dl),
-                      s[2][i] * (dpv[2][i] - dl), s[3][i] * (dpv[3][i] - dl));
-    }
-    __syncthreads();
+    flash_bulk::warp_release(bars.full(st), lane);
+  }
+}
 
-#pragma unroll 4
-    for (int i = 0; i < kBM; ++i) {
-      const float4 p = *reinterpret_cast<const float4*>(&Ps[i * kKLd + r * 4]);
-      const float4 ds = *reinterpret_cast<const float4*>(&dSs[i * kKLd + r * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      const float dsv[4] = {ds.x, ds.y, ds.z, ds.w};
+// dQ: a CTA per R query rows (causal: the longest walks first), Q and
+// dO resident, the keys walked by 64-key tiles of K and V. First delta =
+// rowsum(dO * O) of the CTA's rows, 256 / R threads a row, read from
+// device memory while the first copies land, written for dK/dV. Each
+// tile: S and dP of the thread's block, then its dS = P (dropout(dP) -
+// delta) in registers, once into shared memory, then dQ += dS K.
+template <int D, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kFThreads, 1) dq_ffma(BwdArgs a) {
+  using F = Ffma<D>;
+  constexpr int S = F::kStages, R = F::kR, IR = F::kIR;
+  extern __shared__ __align__(16) unsigned char smem_dqf[];
+  float* Qs = reinterpret_cast<float*>(smem_dqf);  // resident
+  float* dOs = Qs + F::kRTile;                     // resident
+  float* Kw = dOs + F::kRTile;  // stage st: K at Kw + 2 st kTile, V after
+  float* dSs = Kw + 2 * S * F::kTile;              // dS as [key][query]
+  float* dl_s = dSs + F::kDqScores * F::kScore;    // each row's delta
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(dl_s + R);
+
+  const int bh = blockIdx.x;
+  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * R;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sq = a.sq, sk = a.sk;
+  const typename F::template Bars<DROP> bars(Qs);
+  if (tid == 0) bars.init();
+  __syncthreads();
+  int nk = (sk + kFR - 1) / kFR;
+  if (CAUSAL) nk = min(nk, (q0 + R - 1) / kFR + 1);
+  uint32_t phase = 0u, bytes = 0u;
+
+  if (warp >= kFConsumers / 32) {
+    regs_dec<kFProdRegs>();
+    const int pw = warp - kFConsumers / 32;
+    if (DROP && pw > 0 && pw <= kFKeepWarps)
+      ffma_keep_words<R, D, S, true>(drop_params<DROP>(a.dp), bh, q0, 0, nk,
+                                     keep_s, bars, pw - 1, lane);
+    if (pw != 0) return;
+    const float* qb =
+        static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.n;
+    const float* db =
+        static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
+    const float* kb =
+        static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.n;
+    const float* vb =
+        static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.n;
+    flash_bulk::warp_load<D, F::kLd, R>(bars.misc(), bytes, Qs, qb, a.qs.s,
+                                        q0, sq, lane);
+    flash_bulk::warp_load<D, F::kLd, R>(bars.misc(), bytes, dOs, db,
+                                        a.dos.s, q0, sq, lane);
+    flash_bulk::warp_commit(bars.misc(), bytes, lane);
+    for (int t = 0; t < nk; ++t) {
+      const int st = t % S;
+      float* dst = Kw + 2 * st * F::kTile;
+      if (t >= S) flash_bulk::bar_wait(bars.empty(st), phase, st);
+      flash_bulk::warp_load<D, F::kLd, kFR>(bars.full(st), bytes, dst, kb,
+                                            a.ks.s, t * kFR, sk, lane);
+      flash_bulk::warp_load<D, F::kLd, kFR>(bars.full(st), bytes,
+                                            dst + F::kTile, vb, a.vs.s,
+                                            t * kFR, sk, lane);
+      flash_bulk::warp_commit(bars.full(st), bytes, lane);
+    }
+    return;
+  }
+
+  regs_inc<kFConsRegs>();
+  const FRoles<R, D> ro(tid);
+  {
+    constexpr int TPR = kFConsumers / R;  // threads a row
+    const int row = tid / TPR, part = tid % TPR;
+    float x = 0.f;
+    if (q0 + row < sq) {
+      const long long at = (long long)(q0 + row);
+      const float* op = static_cast<const float*>(a.o) + bi * a.os.b +
+                        hi * a.os.n + at * a.os.s;
+      const float* gp = static_cast<const float*>(a.dout) + bi * a.dos.b +
+                        hi * a.dos.n + at * a.dos.s;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 o =
-            *reinterpret_cast<const float4*>(&dOs[i * D + g * 64 + c * 4]);
-        const float4 qq =
-            *reinterpret_cast<const float4*>(&Qs[i * D + g * 64 + c * 4]);
-        const float ov[4] = {o.x, o.y, o.z, o.w};
-        const float qv[4] = {qq.x, qq.y, qq.z, qq.w};
+      for (int c = 4 * part; c < D; c += 4 * TPR)
+        x = dot4(__ldg(reinterpret_cast<const float4*>(op + c)),
+                 __ldg(reinterpret_cast<const float4*>(gp + c)), x);
+    }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+    for (int off = 1; off < TPR; off <<= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    if (part == 0) {
+      dl_s[row] = x;
+      if (q0 + row < sq) a.delta[(long long)bh * sq + q0 + row] = x;
+    }
+  }
+  flash_bulk::consumers_sync();
+  const float scale2 = a.scale * kLog2e;
+  float lse2[IR], dl[IR];
 #pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            dv[j][g * 4 + x] = fmaf(pv[j], ov[x], dv[j][g * 4 + x]);
-            dk[j][g * 4 + x] = fmaf(dsv[j], qv[x], dk[j][g * 4 + x]);
-          }
+  for (int i = 0; i < IR; ++i) {
+    const int row = q0 + ro.rr + res_row(i);
+    dl[i] = dl_s[ro.rr + res_row(i)];
+    lse2[i] = row < sq ? a.lse[(long long)bh * sq + row] * kLog2e : 0.f;
+  }
+  float acc[4][8];
+  zero8(acc);
+
+  flash_bulk::bar_wait(bars.misc(), phase, S);
+  for (int t = 0; t < nk; ++t) {
+    const int st = t % S, k0 = t * kFR;
+    const float* Kt = Kw + 2 * st * F::kTile;
+    flash_bulk::bar_wait(bars.full(st), phase, st);
+    float s[IR][4], g[IR][4];
+    ffma_scores<D, IR, F::kDqUnroll>(s, Qs, Kt, ro);
+    ffma_scores<D, IR, F::kDqUnroll>(g, dOs, Kt + F::kTile, ro);
+    const uint32_t keep = DROP ? keep_s[st * kFConsumers + tid] : 0u;
+#pragma unroll
+    for (int i = 0; i < IR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + ro.rr + res_row(i), col = k0 + ro.wc + 8 * j;
+        const float p = link_ok(CAUSAL, row, col, sq, sk)
+                            ? ex2(fmaf(s[i][j], scale2, -lse2[i]))
+                            : 0.f;
+        float d = g[i][j];
+        if (DROP) d = (keep >> (4 * i + j)) & 1u ? d * a.dp.rinv : 0.f;
+        s[i][j] = p * (d - dl[i]);  // dS
       }
+    float* X = dSs + (t % F::kDqScores) * F::kScore;
+    if (F::kDqScores == 1) flash_bulk::consumers_sync();  // the last dS read
+    ffma_put<IR, F::kSLd>(X, s, ro);
+    flash_bulk::consumers_sync();
+    ffma_accumulate<D, F::kSLd>(acc, X, Kt, ro);
+    flash_bulk::warp_release(bars.empty(st), lane);
+  }
+  ffma_store<D>(static_cast<float*>(a.dq) + bi * a.dqs.b + hi * a.dqs.n,
+                a.dqs.s, acc, q0, sq, a.scale, ro);
+}
+
+// dK/dV: a CTA per R keys, K and V resident, the queries walked by
+// 64-row tiles of Q and dO (causal: from the block's first key on). Each
+// tile: S^T and dP^T of the thread's block, then dropout(P)^T and dS^T
+// in registers, each once into shared memory, then dV += dropout(P)^T
+// dO and dK += dS^T Q; lse and delta of the thread's queries read from
+// device memory while the tile lands.
+template <int D, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kFThreads, 1) dkv_ffma(BwdArgs a) {
+  using F = Ffma<D>;
+  constexpr int S = F::kStages, R = F::kR, IR = F::kIR;
+  extern __shared__ __align__(16) unsigned char smem_dkvf[];
+  float* Ks = reinterpret_cast<float*>(smem_dkvf);  // resident
+  float* Vs = Ks + F::kRTile;                       // resident
+  float* Qw = Vs + F::kRTile;  // stage st: Q at Qw + 2 st kTile, dO after
+  float* Ps = Qw + 2 * S * F::kTile;  // score tiles as [query][key]
+  uint32_t* keep_s =
+      reinterpret_cast<uint32_t*>(Ps + F::kDkvScores * F::kScore);
+
+  const int bh = blockIdx.x;
+  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
+  const int k0 = blockIdx.y * R;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sq = a.sq, sk = a.sk;
+  const typename F::template Bars<DROP> bars(Ks);
+  if (tid == 0) bars.init();
+  __syncthreads();
+  // causal: the first query that sees key k0 is row k0
+  const int i00 = CAUSAL ? k0 : 0;
+  const int nq = sq > i00 ? (sq - i00 + kFR - 1) / kFR : 0;
+  uint32_t phase = 0u, bytes = 0u;
+
+  if (warp >= kFConsumers / 32) {
+    regs_dec<kFProdRegs>();
+    const int pw = warp - kFConsumers / 32;
+    if (DROP && pw > 0 && pw <= kFKeepWarps)
+      ffma_keep_words<R, D, S, false>(drop_params<DROP>(a.dp), bh, k0, i00,
+                                      nq, keep_s, bars, pw - 1, lane);
+    if (pw != 0) return;
+    const float* qb =
+        static_cast<const float*>(a.q) + bi * a.qs.b + hi * a.qs.n;
+    const float* db =
+        static_cast<const float*>(a.dout) + bi * a.dos.b + hi * a.dos.n;
+    flash_bulk::warp_load<D, F::kLd, R>(
+        bars.misc(), bytes, Ks,
+        static_cast<const float*>(a.k) + bi * a.ks.b + hi * a.ks.n, a.ks.s,
+        k0, sk, lane);
+    flash_bulk::warp_load<D, F::kLd, R>(
+        bars.misc(), bytes, Vs,
+        static_cast<const float*>(a.v) + bi * a.vs.b + hi * a.vs.n, a.vs.s,
+        k0, sk, lane);
+    flash_bulk::warp_commit(bars.misc(), bytes, lane);
+    for (int t = 0; t < nq; ++t) {
+      const int st = t % S, i0 = i00 + t * kFR;
+      float* dst = Qw + 2 * st * F::kTile;
+      if (t >= S) flash_bulk::bar_wait(bars.empty(st), phase, st);
+      flash_bulk::warp_load<D, F::kLd, kFR>(bars.full(st), bytes, dst, qb,
+                                            a.qs.s, i0, sq, lane);
+      flash_bulk::warp_load<D, F::kLd, kFR>(bars.full(st), bytes,
+                                            dst + F::kTile, db, a.dos.s, i0,
+                                            sq, lane);
+      flash_bulk::warp_commit(bars.full(st), bytes, lane);
     }
+    return;
   }
 
-  float* ok_ = static_cast<float*>(a.dk) + bi * a.dks.b + hi * a.dks.n;
-  float* ov_ = static_cast<float*>(a.dv) + bi * a.dvs.b + hi * a.dvs.n;
+  regs_inc<kFConsRegs>();
+  const FRoles<R, D> ro(tid);
+  const float scale2 = a.scale * kLog2e;
+  float dk[4][8], dv[4][8];
+  zero8(dk);
+  zero8(dv);
+
+  flash_bulk::bar_wait(bars.misc(), phase, S);
+  for (int t = 0; t < nq; ++t) {
+    const int st = t % S, i0 = i00 + t * kFR;
+    const float* Qt = Qw + 2 * st * F::kTile;
+    const float* dOt = Qt + F::kTile;
+    float lq2[4], dlq[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = k0 + r * 4 + j;
-    if (key >= sk) continue;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      *reinterpret_cast<float4*>(&ok_[(long long)key * a.dks.s + g * 64 + c * 4]) =
-          make_float4(dk[j][g * 4] * a.scale, dk[j][g * 4 + 1] * a.scale,
-                      dk[j][g * 4 + 2] * a.scale, dk[j][g * 4 + 3] * a.scale);
-      *reinterpret_cast<float4*>(&ov_[(long long)key * a.dvs.s + g * 64 + c * 4]) =
-          make_float4(dv[j][g * 4], dv[j][g * 4 + 1], dv[j][g * 4 + 2],
-                      dv[j][g * 4 + 3]);
+    for (int j = 0; j < 4; ++j) {
+      const int qi = i0 + ro.wc + 8 * j;
+      const bool in = qi < sq;
+      lq2[j] = in ? a.lse[(long long)bh * sq + qi] * kLog2e : 0.f;
+      dlq[j] = in ? a.delta[(long long)bh * sq + qi] : 0.f;
     }
+    flash_bulk::bar_wait(bars.full(st), phase, st);
+    float s[IR][4], g[IR][4];
+    ffma_scores<D, IR, F::kDkvUnroll>(s, Ks, Qt, ro);
+    ffma_scores<D, IR, F::kDkvUnroll>(g, Vs, dOt, ro);
+    const uint32_t keep = DROP ? keep_s[st * kFConsumers + tid] : 0u;
+#pragma unroll
+    for (int i = 0; i < IR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + ro.rr + res_row(i), qi = i0 + ro.wc + 8 * j;
+        const float p = link_ok(CAUSAL, qi, key, sq, sk)
+                            ? ex2(fmaf(s[i][j], scale2, -lq2[j]))
+                            : 0.f;
+        float d = g[i][j], pd = p;
+        if (DROP) {
+          const bool kept = (keep >> (4 * i + j)) & 1u;
+          d = kept ? d * a.dp.rinv : 0.f;
+          pd = kept ? p * a.dp.rinv : 0.f;
+        }
+        s[i][j] = pd;                  // dropout(P)^T
+        g[i][j] = p * (d - dlq[j]);    // dS^T
+      }
+    // the last tile's accumulations have read the score tiles
+    flash_bulk::consumers_sync();
+    if constexpr (F::kDkvScores == 2) {
+      ffma_put<IR, F::kSLd>(Ps, s, ro);
+      ffma_put<IR, F::kSLd>(Ps + F::kScore, g, ro);
+      flash_bulk::consumers_sync();
+      ffma_accumulate<D, F::kSLd>(dv, Ps, dOt, ro);
+      ffma_accumulate<D, F::kSLd>(dk, Ps + F::kScore, Qt, ro);
+    } else {
+      // one tile: dropout(P), then dS after every read of it
+      ffma_put<IR, F::kSLd>(Ps, s, ro);
+      flash_bulk::consumers_sync();
+      ffma_accumulate<D, F::kSLd>(dv, Ps, dOt, ro);
+      flash_bulk::consumers_sync();
+      ffma_put<IR, F::kSLd>(Ps, g, ro);
+      flash_bulk::consumers_sync();
+      ffma_accumulate<D, F::kSLd>(dk, Ps, Qt, ro);
+    }
+    flash_bulk::warp_release(bars.empty(st), lane);
   }
+  ffma_store<D>(static_cast<float*>(a.dk) + bi * a.dks.b + hi * a.dks.n,
+                a.dks.s, dk, k0, sk, a.scale, ro);
+  ffma_store<D>(static_cast<float*>(a.dv) + bi * a.dvs.b + hi * a.dvs.n,
+                a.dvs.s, dv, k0, sk, 1.f, ro);
 }
 
 // ------------------------------------------ bf16, wgmma + TMA + mbarriers
@@ -748,24 +957,39 @@ cudaError_t go_wgmma(const BwdArgs& a, cudaStream_t stream) {
               stream, tq, tdo, tk, tv, a);
 }
 
-// The dQ kernel of each dtype, and with it the role of BwdArgs.delta:
-// bf16 runs dq_wgmma, which computes delta = rowsum(dO * O) and writes
-// it (an output); f32 runs dq_simt, which reads the caller's delta (an
-// input). ops/flash_attention.py's _delta_in_kernel states the same rule.
+// the f32 kernels' bulk copies and float4 loads and stores need every
+// row of a tensor 16-byte aligned (ops/flash_attention.py's
+// _kernel_input copies a tensor whose rows are not)
+bool rows16(const void* p, const Strides& s) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && s.b % 4 == 0 &&
+         s.s % 4 == 0 && s.n % 4 == 0;
+}
+
+// The dQ kernel of each dtype: bf16 dq_wgmma, f32 dq_ffma; both compute
+// delta = rowsum(dO * O) and write it to BwdArgs.delta for dK/dV
 template <int D, bool C, bool P>
 cudaError_t launch_dq(int dtype, const BwdArgs& a, cudaStream_t st) {
-  const int b = a.batch;
   if (dtype == 1) return go_wgmma<D, C, P, false>(a, st);
-  return go(dq_simt<D, C, P>, dim3(b * a.n_heads, (a.sq + kBM - 1) / kBM),
-            kDqThreads, dq_simt_smem<D>(), st, a);
+  if (!(rows16(a.q, a.qs) && rows16(a.k, a.ks) && rows16(a.v, a.vs) &&
+        rows16(a.o, a.os) && rows16(a.dout, a.dos) && rows16(a.dq, a.dqs)))
+    return cudaErrorInvalidValue;
+  return go(dq_ffma<D, C, P>,
+            dim3(a.batch * a.n_heads, (a.sq + Ffma<D>::kR - 1) / Ffma<D>::kR),
+            kFThreads,
+            Ffma<D>::kDqBytes, st, a);
 }
 
 template <int D, bool C, bool P>
 cudaError_t launch_dkv(int dtype, const BwdArgs& a, cudaStream_t st) {
-  const int b = a.batch;
   if (dtype == 1) return go_wgmma<D, C, P, true>(a, st);
-  return go(dkv_simt<D, C, P>, dim3(b * a.n_heads, (a.sk + kKB - 1) / kKB),
-            kKvThreads, dkv_simt_smem<D>(), st, a);
+  if (!(rows16(a.q, a.qs) && rows16(a.k, a.ks) && rows16(a.v, a.vs) &&
+        rows16(a.dout, a.dos) && rows16(a.dk, a.dks) &&
+        rows16(a.dv, a.dvs)))
+    return cudaErrorInvalidValue;
+  return go(dkv_ffma<D, C, P>,
+            dim3(a.batch * a.n_heads, (a.sk + Ffma<D>::kR - 1) / Ffma<D>::kR),
+            kFThreads,
+            Ffma<D>::kDkvBytes, st, a);
 }
 
 template <bool DKV>
@@ -792,13 +1016,14 @@ int dispatch(int dtype, int d, int causal, int dropout, const BwdArgs& a,
 // Strides are element strides (batch, seq, head) of [b, s, n, h] tensors
 // whose head_dim stride is 1; in bf16 they are the layout the tensor
 // maps describe: multiples of 8 elements, and a dimension of size 1
-// given the stride a packed tensor would have. dropout != 0 regenerates
-// the forward's keep bits from the threshold and the 64-bit seed at
-// `seed` in device memory (lo, hi; read by the kernel); rinv =
-// 1 / (1 - p). delta: in bf16 the dQ kernel writes rowsum(dO * O) there
-// (o is read for it); in f32 it is read (see launch_dq). Returns 0 on
-// success, a cudaError_t code if a launch or a tensor map was refused,
-// or -1 for a dtype / head_dim this file has no kernel for.
+// given the stride a packed tensor would have; in f32 every row is
+// 16-byte aligned (rows16). dropout != 0 regenerates the forward's keep
+// bits from the threshold and the 64-bit seed at `seed` in device memory
+// (lo, hi; read by the kernel); rinv = 1 / (1 - p). delta: the dQ kernel
+// writes rowsum(dO * O) there (o is read for it), and the dK/dV kernel
+// reads it. Returns 0 on success, a cudaError_t code if a launch or a
+// tensor map was refused, or -1 for a dtype / head_dim this file has no
+// kernel for.
 extern "C" int pt_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, int dtype,

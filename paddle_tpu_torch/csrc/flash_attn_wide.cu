@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bulk.cuh"
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
@@ -194,103 +195,25 @@ __device__ __forceinline__ int key_tiles(bool causal, int sk, int q0) {
   return causal && last < nk ? last : nk;
 }
 
-// one row of a chunk (kD floats, 16-byte aligned) into shared memory by
-// the bulk copy engine, its bytes counted on the mbarrier `bar`
-__device__ __forceinline__ void bulk_row(float* dst, const float* src,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(hopper::smem_u32(dst)),
-      "l"(src), "r"(kD * (int)sizeof(float)), "r"(bar)
-      : "memory");
-}
+// the producer warp's bulk copies and the barriers (flash_bulk.cuh), at
+// the chunk's row width and a resident tile's row stride: the mbarriers
+// in the padding of a resident tile's rows, a warp's copies in kCT-row
+// tiles; handoff_arrive / handoff_wait (named barrier 2) give the tile
+// through which the one-chunk dQ kernel's delta read O back to the
+// producer warp
+using flash_bulk::bar_wait;
+using flash_bulk::consumers_sync;
+using flash_bulk::handoff_arrive;
+using flash_bulk::handoff_wait;
+using flash_bulk::warp_commit;
+using Bars = flash_bulk::Bars<kD, kCLd>;
 
-// The CTA's mbarriers, each in the padding of a row of a resident tile
-// (its columns kD to kD + 3, which no copy, product or store touches):
-// full[t] (the walked tile t of the step has landed: the producer warp's
-// copies), misc (the consumers' own copies), empty[t] (every consumer
-// warp is done with walked tile t).
-struct Bars {
-  uint32_t base;
-  __device__ __forceinline__ explicit Bars(float* tile)
-      : base(hopper::smem_u32(tile + kD)) {}
-  __device__ __forceinline__ uint32_t at(int i) const {
-    return base + i * kCLd * (uint32_t)sizeof(float);
-  }
-  __device__ __forceinline__ uint32_t full(int t) const { return at(t); }
-  __device__ __forceinline__ uint32_t misc() const { return at(2); }
-  __device__ __forceinline__ uint32_t empty(int t) const { return at(3 + t); }
-  // thread 0, before any use: full and misc count one arrival (with the
-  // bytes of their copies), empty one a consumer warp
-  __device__ __forceinline__ void init() const {
-    for (int i = 0; i < 3; ++i) hopper::mbar_init(at(i), 1);
-    for (int t = 0; t < 2; ++t) hopper::mbar_init(empty(t), kConsumers / 32);
-    hopper::mbar_fence_init();
-  }
-};
-
-// Copies issued by one warp: `tiles` kCT-row tiles of a 256-wide chunk
-// from row0 (row stride rs elements, every row 16-byte aligned: vec_ok)
-// into dst, dst + kCTile, ... (dst[row * kCLd + d]), a bulk copy a row
-// counted in bytes on `bar`; rows at or past `limit` are zero-filled by
-// stores. `bytes` sums what the copies will count.
 __device__ __forceinline__ void warp_load(uint32_t bar, uint32_t& bytes,
                                           float* dst, const float* src,
                                           long long rs, int row0, int limit,
                                           int lane, int tiles = 1) {
-  const int rows = tiles * kCT;
-  const int in = max(0, min(rows, limit - row0));
-  bytes += in * kD * (uint32_t)sizeof(float);
-  for (int r = lane; r < rows; r += 32) {
-    float* d = dst + (r / kCT) * kCTile + (r % kCT) * kCLd;
-    if (r < in) {
-      bulk_row(d, src + (long long)(row0 + r) * rs, bar);
-    } else {
-      for (int e = 0; e < kD; e += 4)
-        *reinterpret_cast<float4*>(d + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
-// the warp's copies on `bar` are all issued: lane 0 arrives with their
-// bytes (the count may go below zero while copies land before it); the
-// lanes' stores before any later bulk copy into the same bytes, and
-// before the arrival that releases them
-__device__ __forceinline__ void warp_commit(uint32_t bar, uint32_t& bytes,
-                                            int lane) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncwarp();
-  if (lane == 0)
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-        "r"(bytes)
-        : "memory");
-  bytes = 0u;
-}
-
-// the next phase of barrier i (bit i of `phase`) has completed
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t& phase,
-                                         int i) {
-  hopper::mbar_wait(bar, (phase >> i) & 1u);
-  phase ^= 1u << i;
-}
-
-// the consumers' own barrier (named barrier 1, 256 threads): the
-// producer warpgroup never joins it
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-// At one chunk (no cluster barrier) the dQ kernel's consumers hand the
-// tile that held O for delta to the producer warp, which then copies K
-// into it: named barrier 2, the 256 consumers arriving, the producer
-// warp's 32 threads waiting
-__device__ __forceinline__ void handoff_arrive() {
-  asm volatile("bar.arrive 2, 288;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void handoff_wait() {
-  asm volatile("bar.sync 2, 288;\n" ::: "memory");
+  flash_bulk::warp_load<kD, kCLd, kCT>(bar, bytes, dst, src, rs, row0, limit,
+                                       lane, tiles);
 }
 
 // s[i][j] = A[4a + i] . B[b + 8j] over the columns 8t + 4h + e of a

@@ -1,6 +1,5 @@
-// Pieces shared by the flash-attention kernels (flash_attn_fwd.cu and
-// flash_attn_bwd.cu): tile sizes, strides, bf16 packing and the f32
-// tile loaders of the FFMA kernels.
+// Pieces shared by the flash-attention kernels: tile sizes, strides and
+// bf16 packing.
 
 #pragma once
 
@@ -29,34 +28,6 @@ __device__ __forceinline__ int causal_tiles(int nk, int q0) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// ROWS x D f32 tile, transposed into dst[d * ld + row] (scaled by mul);
-// rows at or past `limit` read as zeros
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_t(float* dst, int ld,
-                                            const float* src,
-                                            long long row_stride, int row0,
-                                            int limit, float mul, int tid) {
-  for (int e = tid; e < ROWS * D; e += NT) {
-    const int row = e / D, d = e % D;
-    float x = 0.f;
-    if (row0 + row < limit) x = src[(long long)(row0 + row) * row_stride + d] * mul;
-    dst[d * ld + row] = x;
-  }
-}
-
-// ROWS x D f32 tile, row-major into dst[row * D + d]
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long row_stride, int row0,
-                                          int limit, int tid) {
-  for (int e = tid; e < ROWS * D; e += NT) {
-    const int row = e / D, d = e % D;
-    dst[row * D + d] = row0 + row < limit
-                           ? src[(long long)(row0 + row) * row_stride + d]
-                           : 0.f;
-  }
 }
 
 }  // namespace flash

@@ -8,7 +8,8 @@ nvcc at first use (ops/_build.py) and called through ctypes:
 - `_dq_kernel` and `_dkv_kernel` -> csrc/flash_attn_bwd.cu (two entries,
   the dQ one computing delta too);
 - in bf16 all three are wgmma kernels fed by TMA, on one pipeline
-  (csrc/flash_wgmma.cuh); in f32 exact FFMA kernels;
+  (csrc/flash_wgmma.cuh); in f32 exact FFMA kernels, the backward's fed
+  by a producer warp's bulk copies (csrc/flash_bulk.cuh);
 - at head_dim 256, where those designs do not fit: in bf16 all three
   run as the wgmma kernels of csrc/flash_attn_wg256.cu (on the same
   pipeline, one owned buffer, the backward on 32-row tiles, dK/dV with
@@ -249,13 +250,13 @@ def _tma_ok(t):
 def _kernel_input(t, fn_name):
     """t itself when the kernel that C entry fn_name runs at t's head_dim
     and dtype (_kernel_entry) can read it through its strides, else a
-    packed copy in fresh (aligned) memory. The bf16 kernels and
-    csrc/flash_attn_wide.cu's f32 kernels, which copy whole 16-byte
-    rows, need _tma_ok; the other f32 kernels a unit head_dim stride."""
-    source, _ = _kernel_entry(None, fn_name, t.shape[3], t.dtype)
-    ok = (t.stride(3) == 1
-          if t.dtype == torch.float32 and source != "flash_attn_wide"
-          else _tma_ok(t))
+    packed copy in fresh (aligned) memory. The f32 forward below 256
+    reads scalars and needs a unit head_dim stride; every other kernel
+    (bf16 by TMA, f32 by bulk copies of whole 16-byte rows) needs
+    _tma_ok."""
+    scalar = (t.dtype == torch.float32 and t.shape[3] < _D256
+              and fn_name == "pt_flash_attn_fwd")
+    ok = t.stride(3) == 1 if scalar else _tma_ok(t)
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -347,40 +348,25 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
 
 
 def _bwd_delta(o, do):
-    """delta = rowsum(dO * O), f32 [b, n, sq]: torch ops, as the JAX
-    package leaves it to XLA outside its kernels. The f32 backward at 64
-    and 128 uses it; every other dQ kernel computes delta itself."""
+    """delta = rowsum(dO * O), f32 [b, n, sq], in torch ops, as the JAX
+    package leaves it to XLA outside its kernels: the plain version of
+    the delta every dQ kernel computes itself (chip_smoke.py holds the
+    kernels' delta against it); no path on the card calls it."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-
-
-def _delta_in_kernel(dtype, head_dim=None):
-    """True when the dQ kernel computes delta for this dtype and
-    head_dim: the dQ entry's delta buffer is then its output (bf16 at
-    every head_dim: dq_wgmma, dq_wg256, dq_wgwide; f32 from 256:
-    dq_wide), else its input, filled by _bwd_delta (f32 at 64 and 128,
-    dq_simt). csrc/flash_attn_bwd.cu's launch_dq and _kernel_entry pick
-    the kernel by the same rule."""
-    if head_dim is not None and head_dim >= _D256:
-        return True
-    return dtype == torch.bfloat16
 
 
 def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
                        seed=0):
     """Launch the dQ kernel of csrc/flash_attn_bwd.cu (_kernel_entry):
     returns (dq, delta), delta = rowsum(dO * O) f32 [b, n, sq], which the
-    dK/dV kernel reads. Where _delta_in_kernel, the kernel computes delta
-    and writes it."""
+    kernel computes and writes and the dK/dV kernel reads."""
     _check_kernel("flash_attn_bwd_dq", q, k)
     b, sq, n, h = q.shape
     q, k, v, o, do = (_kernel_input(t, "pt_flash_attn_bwd_dq")
                        for t in (q, k, v, o, do))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
-    if _delta_in_kernel(q.dtype, h):
-        delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-    else:
-        delta = _bwd_delta(o, do)
+    delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     _launch(*_kernel_entry("flash_attn_bwd", "pt_flash_attn_bwd_dq", h,
                            q.dtype), q,

@@ -373,13 +373,14 @@ def test_bit_equal_and_max_abs_diff(cs):
 
 def test_kernel_launches_count_device_events_by_wrapper(cs):
     """Profiler event names map to the wrapper whose kernel they are
-    (bf16 wgmma and f32 simt); library kernels count for none."""
+    (bf16 wgmma, the f32 SIMT forward and FFMA backward); library kernels
+    count for none."""
     names = ["void fwd_wgmma<64, true, true>(CUtensorMap_st, FwdArgs)",
              "void dq_wgmma<64, true, true>(CUtensorMap_st, BwdArgs)",
              "void dkv_wgmma<64, true, true>(CUtensorMap_st, BwdArgs)",
              "void flash_fwd_simt<64, false, false>(float const*)",
-             "void dq_simt<64, false, false>(BwdArgs)",
-             "void dkv_simt<64, false, false>(BwdArgs)",
+             "void (anonymous namespace)::dq_ffma<64, false, true>(BwdArgs)",
+             "void (anonymous namespace)::dkv_ffma<64, false, true>(BwdArgs)",
              "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT",
              "void at::native::vectorized_elementwise_kernel<4>()",
              "void fwd_wgmma<64, true, true>(CUtensorMap_st, FwdArgs)"]
@@ -387,6 +388,22 @@ def test_kernel_launches_count_device_events_by_wrapper(cs):
         "flash_attn_fwd": 3, "flash_attn_bwd_dq": 2,
         "flash_attn_bwd_dkv": 2}
     assert cs.kernel_launches([]) == {k: 0 for k in cs.KERNEL_EVENTS}
+
+
+def test_kernel_event_fragments_name_one_wrapper_each(cs):
+    """No fragment of KERNEL_EVENTS matches a kernel of two wrappers: a
+    profiler name holding any one fragment (as the demangled names of
+    each source's kernels do) maps to that fragment's wrapper alone, and
+    counts once."""
+    for wrapper, frags in cs.KERNEL_EVENTS.items():
+        for frag in frags:
+            name = (f"void (anonymous namespace)::{frag}<64, true, false>"
+                    "(BwdArgs, Cluster)")
+            owners = {w for w, fs in cs.KERNEL_EVENTS.items()
+                      if any(f in name for f in fs)}
+            assert owners == {wrapper}, (frag, owners)
+            assert cs.kernel_launches([name]) == {
+                w: int(w == wrapper) for w in cs.KERNEL_EVENTS}
 
 
 def test_per_call_keeps_a_remainder_visible(cs, monkeypatch):
@@ -1951,6 +1968,43 @@ def test_encoder_kernel_rows_name_each_paths_kernels(cs):
         cs.encoder_kernel_rows(paths, cases)
 
 
+def test_ffma_kernel_rows_time_the_f32_backward_at_ernies_shape(cs):
+    """The kernels line's rows of flash_attn_bwd.cu's f32 kernels at 64
+    and 128 (dq_ffma, dkv_ffma): the captured_train_f32 path's launches,
+    the times of the ERNIE-base f32 case (b 48, s 512, DROP_P, qkv
+    views), every f32 case at 64 and 128 beside them; the bf16 case at
+    that shape is not theirs, and a path that launched no kernel of one
+    kind fails."""
+    b, s = cs.TRAIN_BATCH
+    head = _attn_case((b, s, 12, 64, False, "float32", cs.DROP_P, s, False))
+    head.update(dq_ms=2.4, delta_max_abs_err=1e-6, delta_torch_ms=0.15)
+    bf16 = dict(_attn_case((b, s, 12, 64, False, "bfloat16", cs.DROP_P, s,
+                            False)), delta_max_abs_err=1e-3,
+                delta_torch_ms=0.1)
+    h128 = dict(_attn_case(cs.F32_H128_FULL + (0.0, 1024, False)),
+                delta_max_abs_err=1e-6, delta_torch_ms=0.06)
+    per = {"flash_attn_fwd": 12, "flash_attn_bwd_dq": 12,
+           "flash_attn_bwd_dkv": 12}
+    path = dict(launches={k: 2 * v for k, v in per.items()},
+                launches_per_replay=per, step_ms=400.0,
+                attention_share=0.2)
+    rows = cs.ffma_kernel_rows(path, [bf16, head, h128])
+    assert [(r["name"], r["device_kernel"], r["launches"]) for r in rows] \
+        == [("flash_attn_bwd_dq_ffma", "dq_ffma", 24),
+            ("flash_attn_bwd_dkv_ffma", "dkv_ffma", 24)]
+    assert rows[0]["ms"] == 2.4 and rows[0]["delta_max_abs_err"] == 1e-6
+    assert rows[1]["delta_max_abs_err"] is None
+    assert all(r["library_ms"] is None and r["backward_library_ms"] == 1.4
+               and r["source"].endswith("csrc/flash_attn_bwd.cu")
+               for r in rows)
+    assert rows[0]["replaces"].startswith(
+        "paddle_tpu/ops/pallas_kernels.py:283")
+    assert [c["h"] for c in rows[1]["cases"]] == [64, 128]
+    path["launches"]["flash_attn_bwd_dkv"] = 0
+    with pytest.raises(SystemExit):
+        cs.ffma_kernel_rows(path, [bf16, head, h128])
+
+
 def test_encoder_wide_gates_take_its_routes(cs):
     """encoder_wide's replay must run the three wgmma kernels above 256
     once each: the head_dim-256 routes there are a failure."""
@@ -1962,6 +2016,113 @@ def test_encoder_wide_gates_take_its_routes(cs):
         cs.ENCWIDE_ATTN[3] == 512
     bad = cs.encoder_256_gates(_encoder_256_row(), routes)
     assert len(bad) == 1 and "expected" in bad[0]
+
+
+def _captured_row(layers=12, routes=None):
+    """A captured_train_phase row that meets every gate."""
+    per = {"flash_attn_fwd": layers, "flash_attn_bwd_dq": layers,
+           "flash_attn_bwd_dkv": layers}
+    return dict(graph_losses=[10.4, 10.3, 10.2, 10.1],
+                eager_losses=[10.4, 10.3, 10.2, 10.1], max_loss_rel_diff=0.0,
+                params_bit_equal=True, params_max_abs_diff=0.0, graphs=1,
+                sentinel_events=0, same_seed_losses=[10.3, 10.3],
+                other_seed_loss=10.31, layers=layers,
+                warmup_launches=dict(per), launches_per_replay=dict(per),
+                routes_per_replay={name: layers for name in
+                                   (routes or {}).values()},
+                mfu=0.4)
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("wgmma", "expected"), ("old_dq", "expected"),
+    ("launches", "expected"), ("graphs", "graphs"),
+    ("replay", "bit-equal"), ("nan", "non-finite")])
+def test_captured_train_f32_gates_take_its_routes(cs, breakage, word):
+    """captured_train_f32 is ERNIE-base's captured step in f32 (no AMP):
+    a replay must run the f32 forward and the FFMA dQ and dK/dV
+    (F32_TRAIN_ROUTES) 12 times each, and fails on a bf16 wgmma kernel
+    or the old SIMT dQ in a replay, a launch count other than 12, a
+    second graph, a replay that is not bit-equal, and a non-finite
+    loss."""
+    routes = cs.F32_TRAIN_ROUTES
+    assert routes == {"flash_attn_fwd": "flash_fwd_simt",
+                      "flash_attn_bwd_dq": "dq_ffma",
+                      "flash_attn_bwd_dkv": "dkv_ffma"}
+    assert cs.BASE["num_hidden_layers"] == 12
+    row = _captured_row(12, routes)
+    if breakage == "wgmma":
+        row["routes_per_replay"]["dq_wgmma"] = 12
+        del row["routes_per_replay"]["dq_ffma"]
+    elif breakage == "old_dq":
+        # the SIMT dQ the FFMA one replaced: the forward's suffix on dq_
+        old = "dq_" + routes["flash_attn_fwd"].rsplit("_", 1)[1]
+        row["routes_per_replay"] = {"flash_fwd_simt": 12, old: 12,
+                                    "dkv_ffma": 12}
+    elif breakage == "launches":
+        row["launches_per_replay"]["flash_attn_bwd_dkv"] = 11
+    elif breakage == "graphs":
+        row["graphs"] = 2
+    elif breakage == "replay":
+        row["params_bit_equal"] = False
+    elif breakage == "nan":
+        row["graph_losses"][3] = float("nan")
+    bad = cs.captured_train_gates(row, routes)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_captured_train_gates_without_routes_keep_the_launch_counts(cs):
+    """The O1 phases (no routes) are held as before: each kernel once a
+    layer in the warm-up and a replay, any route."""
+    row = _captured_row(12)
+    row["routes_per_replay"] = {"fwd_wgmma": 12, "dq_wgmma": 12,
+                                "dkv_wgmma": 12}
+    assert cs.captured_train_gates(row) == []
+    row["warmup_launches"]["flash_attn_fwd"] = 24
+    assert len(cs.captured_train_gates(row)) == 1
+
+
+def test_train_step_callers_other_than_f32_build_o1_steps(cs, monkeypatch):
+    """_train_step builds an O1 bf16 step unless told another AMP level,
+    and in the script only captured_train_phase passes one on (None for
+    captured_train_f32; its default O1 for every other phase)."""
+    import inspect
+    import re
+    import types
+
+    import torch
+
+    import paddle_tpu_torch.static as static
+    seen = []
+
+    class Step:
+        def __init__(self, model, loss, opt, **kw):
+            seen.append(kw)
+    monkeypatch.setattr(static, "TrainStep", Step)
+    monkeypatch.setattr(cs, "_train_batch",
+                        lambda torch, vocab, b, s, dev: (None, None))
+    model = types.SimpleNamespace(
+        config=types.SimpleNamespace(chunked_ce=False, num_hidden_layers=2,
+                                     vocab_size=11),
+        parameters=lambda: [torch.nn.Parameter(torch.zeros(2))])
+    cs._train_step(torch, "ernie", model)
+    assert (seen[-1]["amp_level"], seen[-1]["amp_dtype"]) == ("O1",
+                                                              "bfloat16")
+    cs._train_step(torch, "ernie", model, None)
+    assert seen[-1]["amp_level"] is None
+    src = inspect.getsource(cs)
+    calls = [" ".join(c.split()) for c in re.findall(
+        r"(?<!def )_train_step\(([^()]*(?:\([^()]*\)[^()]*)*)\)", src)]
+    assert len(calls) > 10
+    assert [c for c in calls if "amp_level" in c] == [
+        "torch, kind, model, amp_level, **step_kw"]
+    assert inspect.signature(cs.captured_train_phase).parameters[
+        "amp_level"].default == "O1"
+    assert re.findall(
+        r"(?<!def )captured_train_phase\([^)]*amp_level=([^,)]*)",
+        src) == ["None"]
 
 
 @pytest.mark.parametrize("breakage,word", [

@@ -308,20 +308,19 @@ def _f32_odd_offset(h):
     (lambda: _f32_odd_offset(512), True),                    # base not 16 B
     (lambda: torch.randn(2, 8, 2, 513)[..., :512], True),    # rows not 16 B
     (lambda: _f32_odd_offset(256), True),                    # at 256 too
-    (lambda: _f32_odd_offset(128), False),                   # below: as is
+    (lambda: _f32_odd_offset(128), True),                    # and below
 ])
 def test_f32_kernel_input_above_256_is_16_byte_aligned(make, copied):
     """From head_dim 256 the f32 backward copies whole 16-byte rows into
-    shared memory (csrc/flash_attn_wide.cu refuses any other): a view
-    whose base or strides are not whole 16-byte multiples is copied into
-    fresh packed memory; below 256 the f32 kernels read any view with a
-    unit head_dim stride as it is."""
+    shared memory (csrc/flash_attn_wide.cu refuses any other), and so
+    does the FFMA backward below it (csrc/flash_attn_bwd.cu's dq_ffma
+    and dkv_ffma at 64 and 128): a view whose base or strides are not
+    whole 16-byte multiples is copied into fresh packed memory."""
     t = make()
     got = fa._kernel_input(t, "pt_flash_attn_bwd_dq")
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
-    if t.shape[3] >= 256:
-        assert fa._tma_ok(got)
+    assert fa._tma_ok(got)
 
 
 @pytest.mark.parametrize("make,copied", [
@@ -417,7 +416,6 @@ def test_head_dim_above_256_launches_the_wide_entries(monkeypatch, dtype):
     assert [len(c[2]) + 1 for c in calls] == [
         len(fa._ARGTYPES[c[1]]) for c in calls]
     assert calls[1][2][6] == calls[2][2][5]   # the dQ entry's delta
-    assert fa._delta_in_kernel(dtype, 512)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -476,8 +474,6 @@ def test_head_dim_256_launches_the_d256_entries(monkeypatch, dtype):
     assert calls[1][2][6] == calls[2][2][5]   # the dQ entry's delta
     assert calls[0][2][5] == calls[1][2][8] == calls[2][2][8] \
         == fa._KERNEL_DTYPES[dtype]
-    assert fa._delta_in_kernel(dtype, 256)
-    assert fa._delta_in_kernel(torch.bfloat16, 128)
 
 
 @pytest.mark.parametrize("h,causal,p", [(8, False, 0.0), (32, True, 0.1),

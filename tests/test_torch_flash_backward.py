@@ -225,6 +225,38 @@ def test_kernel_input_copies_what_tma_cannot_read(make, copied):
     assert fa._tma_ok(got)
 
 
+def _f32(*shape, seed=0):
+    return _bf16(*shape, seed=seed).float()
+
+
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("make,copied,fwd_copied", [
+    (lambda h: _f32(2, 16, 3, 2, h)[:, :, 1], False, False),  # qkv view
+    (lambda h: _f32(2, 16, 2, h), False, False),              # packed
+    (lambda h: _f32(1 + 2 * 16 * 2 * h)[1:].view(2, 16, 2, h),
+     True, False),                                            # base 4 B off
+    (lambda h: _f32(2, 16, 2, h + 2)[..., :h], True, False),  # rows 8 B off
+    (lambda h: _f32(2, 2, 16, h).transpose(1, 2), True, False),  # heads out
+    (lambda h: _f32(2, 16, 2, 2 * h)[..., ::2], True, True),  # h stride 2
+])
+def test_kernel_input_f32_copies_what_bulk_copies_cannot_read(h, make, copied,
+                                                              fwd_copied):
+    """The f32 backward kernels at 64 and 128 copy whole 16-byte rows by
+    the bulk copy engine (and read O and dO as float4 rows): a view whose
+    base or row strides are not 16-byte multiples, or whose heads lie
+    outside its rows, is copied; the fused qkv views and packed tensors
+    go in as they are. The f32 forward there reads scalars and copies
+    only a view whose head_dim stride is not 1."""
+    t = make(h)
+    for fn in ("pt_flash_attn_bwd_dq", "pt_flash_attn_bwd_dkv"):
+        got = fa._kernel_input(t, fn)
+        assert (got.data_ptr() != t.data_ptr()) == copied, fn
+        assert torch.equal(got, t) and fa._tma_ok(got)
+    got = fa._kernel_input(t, "pt_flash_attn_fwd")
+    assert (got.data_ptr() != t.data_ptr()) == fwd_copied
+    assert torch.equal(got, t) and got.stride(3) == 1
+
+
 def test_tma_strides_give_size_one_dims_a_packed_stride():
     t = _bf16(1, 8, 3, 1, 64)[:, :, 0]          # b 1, n 1: strides unused
     assert fa._tma_strides(t) == (8 * 3 * 64, 3 * 64, 64)
@@ -262,45 +294,25 @@ def test_bf16_backward_computes_delta_in_the_dq_kernel(monkeypatch):
     assert fa.launches["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
     assert fa.launches["flash_attn_bwd_dkv"] == \
         before["flash_attn_bwd_dkv"] + 1
-    assert fa._delta_in_kernel(torch.bfloat16)
-    assert not fa._delta_in_kernel(torch.float32)
 
 
-@pytest.mark.parametrize("h", [256, 512])
-def test_f32_backward_from_256_computes_delta_in_the_dq_kernel(monkeypatch,
-                                                               h):
-    """f32 from head_dim 256 (csrc/flash_attn_wide.cu): no torch op
-    computes delta; the dQ entry gets O and a fresh f32 [b, n, sq]
-    buffer, and the dK/dV entry reads that buffer."""
+@pytest.mark.parametrize("h", [64, 128, 256, 512])
+def test_f32_backward_computes_delta_in_the_dq_kernel(monkeypatch, h):
+    """f32 at every head_dim (csrc/flash_attn_bwd.cu's dq_ffma and
+    dkv_ffma at 64 and 128, csrc/flash_attn_wide.cu's kernels from 256):
+    no torch op computes delta; the dQ entry gets O and a fresh f32 [b,
+    n, sq] buffer, and the dK/dV entry reads that buffer."""
     calls = _record_launches(monkeypatch)
     monkeypatch.setattr(fa, "_bwd_delta", lambda o, do: pytest.fail(
         f"delta computed by torch ops in f32 at head_dim {h}"))
     q, k, v, o, do = (_bf16(1, 16, 2, h, seed=i).float() for i in range(5))
     fa._flash_bwd_cuda(q, k, v, o, torch.zeros((1, 2, 16)), do, True, 0.125)
-    assert [c[0] for c in calls] == ["pt_flash_attn_bwd_dq_wide",
-                                     "pt_flash_attn_bwd_dkv_wide"]
+    tail = "_wide" if h >= 256 else ""
+    assert [c[0] for c in calls] == ["pt_flash_attn_bwd_dq" + tail,
+                                     "pt_flash_attn_bwd_dkv" + tail]
     dq_args, dkv_args = calls[0][1], calls[1][1]
-    assert dq_args[3] == o.data_ptr() and dq_args[8] == 0
+    assert dq_args[3] == o.data_ptr() and dq_args[8] == dkv_args[8] == 0
     assert dkv_args[5] == dq_args[6]  # the dQ kernel's delta buffer
-    assert fa._delta_in_kernel(torch.float32, h)
-
-
-def test_f32_backward_takes_delta_from_torch_ops(monkeypatch):
-    """f32 keeps delta in torch ops (the FFMA kernels read it)."""
-    calls = _record_launches(monkeypatch)
-    seen = []
-    real = fa._bwd_delta
-
-    def delta(o, do):
-        seen.append(real(o, do))
-        return seen[-1]
-    monkeypatch.setattr(fa, "_bwd_delta", delta)
-    q, k, v, o, do = (_bf16(1, 16, 2, 64, seed=i).float() for i in range(5))
-    fa._flash_bwd_cuda(q, k, v, o, torch.zeros((1, 2, 16)), do, True, 0.125)
-    assert len(seen) == 1
-    assert calls[0][1][6] == calls[1][1][5] == seen[0].data_ptr()
-    torch.testing.assert_close(
-        seen[0], (do * o).sum(-1).transpose(1, 2), atol=1e-6, rtol=1e-6)
 
 
 @pytest.fixture
