@@ -661,11 +661,11 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ROW_FLOOR = 1e-3
 # kernels whose ptxas report must show no spill at head_dim 64
 NO_SPILL = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
-# csrc/flash_attn_bwd.cu's f32 kernels at 64 and 128: dq_ffma and
-# dkv_ffma x head_dim x causal x dropout, none spilling
-BWD_SOURCE = "flash_attn_bwd"
-FFMA_KERNELS = ("dq_ffma", "dkv_ffma")
-FFMA_INSTANTIATIONS = 2 * 2 * 2 * 2
+# the f32 FFMA kernels at 64 and 128 by source: csrc/flash_attn_fwd.cu's
+# fwd_ffma and csrc/flash_attn_bwd.cu's dq_ffma and dkv_ffma, each x
+# head_dim x causal x dropout, none spilling
+FFMA_GATES = {"flash_attn_fwd": (("fwd_ffma",), 2 * 2 * 2),
+              "flash_attn_bwd": (("dq_ffma", "dkv_ffma"), 2 * 2 * 2 * 2)}
 # integer instructions an SM issues per clock (CUDA C++ Programming
 # Guide, arithmetic-instruction throughput, compute capability 9.0:
 # 32-bit integer add, multiply-add, shift, compare and logic ops)
@@ -777,6 +777,22 @@ def ptxas_spills(log):
             out.append((cur, nums[1], nums[2]))
             cur = None
     return out
+
+
+def ffma_ptxas_failure(name, log):
+    """What is wrong with the f32 FFMA kernels of source `name` in
+    nvcc's -Xptxas -v output (FFMA_GATES: an instantiation missing, or
+    one spilling), or None."""
+    if name not in FFMA_GATES:
+        return None
+    kernels, want = FFMA_GATES[name]
+    ffma = [(f, st, ld) for f, st, ld in ptxas_spills(log)
+            if any(k in f for k in kernels)]
+    spilling = [f for f, st, ld in ffma if st or ld]
+    if len(ffma) != want or spilling:
+        return (f"ptxas: {len(ffma)} f32 FFMA kernels of {name} reported "
+                f"(want {want}), spilling: {spilling}")
+    return None
 
 
 def ptxas_serialised(log):
@@ -1127,10 +1143,9 @@ F32_H128_FULL = (8, 1024, 8, 128, False, "float32")
 
 
 def bwd_kernel_phase(torch, fa, philox):
-    """The backward kernels (and the forward, in bf16 and with dropout)
-    against their plain versions at the training path's shapes. philox:
-    (instructions per Philox call, SMs, max SM clock MHz) for the
-    forward's bound."""
+    """The backward kernels and the forward against their plain versions
+    at the training path's shapes. philox: (instructions per Philox
+    call, SMs, max SM clock MHz) for the forward's bound."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
@@ -1150,7 +1165,7 @@ def bwd_kernel_phase(torch, fa, philox):
     cases += [(8, 256, 8, 128, causal, dt, 0.0)
               for dt in ("float32", "bfloat16") for causal in (False, True)]
     cases += [F32_H128_FULL[:6] + (p,) for p in (0.0, DROP_P)]
-    return [bwd_kernel_case(torch, fa, gen, case, philox)
+    return [bwd_kernel_case(torch, fa, gen, case, philox, with_fwd=True)
             for case in cases + mt_cases()]
 
 
@@ -1405,6 +1420,55 @@ def ffma_kernel_rows(path, cases):
         if path["launches"][wrapper] == 0:
             fail(f"the captured_train_f32 path launched no {route} kernel")
     return rows
+
+
+def ffma_fwd_kernel_row(path, cases, kernel_cases, launches_inference):
+    """The `kernels` line's row of csrc/flash_attn_fwd.cu's f32 forward at
+    head_dim 64 and 128 (fwd_ffma): timed at ERNIE-base's f32 training
+    shape (the bwd_kernel_case row at b 48, s 512, non-causal, DROP_P,
+    qkv views) beside SDPA's forward there, launched by the
+    captured_train_f32 path (`path`, COUNTED_CALLS) and by the f32
+    inference pass (`launches_inference`), with every f32 case at 64 and
+    128 of the backward phase (`cases`) and of the forward phase
+    (`kernel_cases`) beside it. Fails if either path launched none."""
+    head = next(c for c in cases if c["dtype"] == "float32"
+                and c["b"] == TRAIN_BATCH[0] and c["s"] == TRAIN_BATCH[1]
+                and not c["causal"] and c["dropout_p"] == DROP_P
+                and c["h"] == 64)
+    route = F32_TRAIN_ROUTES["flash_attn_fwd"]
+    if path["launches"]["flash_attn_fwd"] == 0:
+        fail(f"the captured_train_f32 path launched no {route} kernel")
+    if launches_inference == 0:
+        fail(f"the f32 inference pass launched no {route} kernel")
+
+    def f32(rows):
+        return [c for c in rows if c["dtype"] == "float32"
+                and c["h"] in (64, 128)]
+    keys = ("b", "s", "sk", "n", "h", "causal", "dropout_p", "layout")
+    return dict(
+        name="flash_attn_fwd_ffma", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:175 (f32, head_dim 64 "
+                 "and 128)",
+        device_kernel=route, launches=path["launches"]["flash_attn_fwd"],
+        launches_per_step=path["launches_per_replay"]["flash_attn_fwd"],
+        launches_float32_inference_pass=launches_inference,
+        max_abs_err=head["o_max_abs_err"],
+        lse_max_abs_err=head["lse_max_abs_err"], ms=head["fwd_ms"],
+        plain_ms=head["fwd_plain_ms"], bound_ms=head["fwd_bound_ms"],
+        bound_by=head["fwd_bound_by"], library_ms=head["fwd_library_ms"],
+        shape="b48 s512 n12 h64 float32 non-causal dropout 0.1, qkv views",
+        path="captured_train_f32", path_step_ms=path["step_ms"],
+        path_attention_share=path["attention_share"],
+        cases=[dict({k: c[k] for k in keys}, ms=c["fwd_ms"],
+                    library_ms=c["fwd_library_ms"],
+                    bound_ms=c["fwd_bound_ms"],
+                    max_abs_err=c["o_max_abs_err"]) for c in f32(cases)],
+        kernel_cases=[dict({k: c[k] for k in keys}, ms=c["ms"],
+                           library_ms=c["library_ms"],
+                           bound_ms=c["bound_ms"],
+                           max_abs_err=c["max_abs_err"])
+                      for c in f32(kernel_cases)])
 
 
 # head_dims run through kernel_head_dim at the cross-attention shape (b
@@ -2436,7 +2500,7 @@ def train_cpu_check(torch, pt, fa, moe=False):
 
 # kernel-name fragments of the profile's categories, first match wins
 PROFILE_CATEGORIES = [
-    ("flash attention kernels", ("fwd_wgmma", "flash_fwd_", "dq_wgmma",
+    ("flash attention kernels", ("fwd_wgmma", "fwd_ffma", "dq_wgmma",
                                  "dkv_wgmma", "dq_ffma", "dkv_ffma",
                                  "fwd_wg256", "dq_wg256", "dkv_wg256",
                                  "fwd_wgwide", "dq_wgwide", "dkv_wgwide",
@@ -2458,10 +2522,10 @@ PROFILE_CATEGORIES = [
 
 # the device kernels each wrapper launches, by the fragments of their
 # names that torch.profiler shows (bf16 wgmma; f32 at 64 and 128 the
-# SIMT forward and the FFMA backward; at head_dim 256 the bf16 wg256
-# kernels; above it the bf16 wgwide kernels; from 256 the f32 wide FFMA
-# kernels); no fragment is part of another wrapper's kernel names
-KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "flash_fwd_simt",
+# FFMA kernels; at head_dim 256 the bf16 wg256 kernels; above it the
+# bf16 wgwide kernels; from 256 the f32 wide FFMA kernels); no fragment
+# is part of another wrapper's kernel names
+KERNEL_EVENTS = {"flash_attn_fwd": ("fwd_wgmma", "fwd_ffma",
                                     "fwd_wg256", "fwd_wgwide", "fwd_wide"),
                  "flash_attn_bwd_dq": ("dq_wgmma", "dq_ffma", "dq_wg256",
                                        "dq_wgwide", "dq_wide"),
@@ -4119,7 +4183,7 @@ def active_params(model):
 
 # the f32 ERNIE-base step (captured_train_f32: no AMP): the device
 # kernels a replay runs, by name, each once a layer
-F32_TRAIN_ROUTES = {"flash_attn_fwd": "flash_fwd_simt",
+F32_TRAIN_ROUTES = {"flash_attn_fwd": "fwd_ffma",
                     "flash_attn_bwd_dq": "dq_ffma",
                     "flash_attn_bwd_dkv": "dkv_ffma"}
 
@@ -9002,14 +9066,9 @@ def main():
         if serial:
             fail(f"ptxas serialises the wgmma of a head_dim-64 kernel: "
                  f"{serial}")
-        if name == BWD_SOURCE:
-            ffma = [(f, st, ld) for f, st, ld in ptxas_spills(info["log"])
-                    if any(k in f for k in FFMA_KERNELS)]
-            spilling = [f for f, st, ld in ffma if st or ld]
-            if len(ffma) != FFMA_INSTANTIATIONS or spilling:
-                fail(f"ptxas: {len(ffma)} f32 FFMA backward kernels "
-                     f"reported (want {FFMA_INSTANTIATIONS}), spilling: "
-                     f"{spilling}")
+        ffma = ffma_ptxas_failure(name, info["log"])
+        if ffma:
+            fail(ffma)
         for src, want, what in ((WG256_SOURCE, WG256_INSTANTIATIONS,
                                  "head_dim-256 wgmma"),
                                 (WIDE_SOURCE, WIDE_INSTANTIATIONS,
@@ -9312,6 +9371,8 @@ def main():
         {"encoder_256": enc256, "encoder_256_f32": enc256_f32,
          "encoder_wide": encwide, "encoder_wide_f32": encwide_f32},
         d256_cases + wide_cases)
+    kernels.append(ffma_fwd_kernel_row(captured_f32, bwd_cases, cases,
+                                       launches_f32))
     kernels += ffma_kernel_rows(captured_f32, bwd_cases)
     # greedy NMS: no Pallas origin; at the serving path's shape (640
     # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates

@@ -109,6 +109,7 @@
 
 #include "flash_bulk.cuh"
 #include "flash_common.cuh"
+#include "flash_ffma_tiles.cuh"
 #include "flash_wgmma.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
@@ -116,6 +117,7 @@
 namespace {
 
 using namespace flash;
+using namespace flash_ffma;
 using namespace hopper;
 using namespace flash_wg;
 
@@ -137,52 +139,22 @@ __device__ __forceinline__ bool link_ok(bool causal, int row, int col,
 
 // ------------------------------------------------------------ f32, FFMA
 
-// The f32 kernels (dq_ffma, dkv_ffma): a CTA owns R rows (query rows
-// for dQ, keys for dK/dV; 128 at head_dim 64, 64 at 128, Ffma::kR) and
-// walks the other side in kFR-row tiles. Warps 0-7 consume; the
-// producer warpgroup's first warp copies every operand tile once,
-// row-major, a bulk copy a row (flash_bulk.cuh), the resident tiles on
-// `misc` and two walked tiles in flight, each released by its own
-// `empty` barrier, and with dropout its other three warps compute the
-// keep bits; setmaxnreg moves the producer warpgroup's registers to the
-// consumers (72 / 208: at 56 and 64 the keep warps spilled, at 216 the
-// dK/dV consumers; dQ took 4.6% longer at 64 / 216).
-constexpr int kFR = 64;  // walked rows of a tile
-constexpr int kFThreads = 384, kFConsumers = 256;
-// the register split (producer, consumer), within the pool
-// __launch_bounds__(384, 1) gives the CTA (168 a thread): asking for
-// more spins forever in the allocation
-constexpr int kFProdRegs = 72, kFConsRegs = 208;
-static_assert((kFThreads - kFConsumers) * kFProdRegs +
-                      kFConsumers * kFConsRegs <=
-                  168 * kFThreads,
-              "the warpgroups' registers exceed the CTA's pool");
-// the producer warpgroup's other warps compute each tile's keep bits
-// (ffma_keep_words) and hand them over as a word a consumer thread in
-// shared memory with the tile's full barrier
-constexpr int kFKeepWarps = 3;
-
+// The f32 kernels (dq_ffma, dkv_ffma) on flash_ffma_tiles.cuh: a CTA
+// owns R rows (query rows for dQ, keys for dK/dV; Ffma::kR) and walks
+// the other side in kFR-row tiles.
 template <int D>
-struct Ffma {
-  static_assert(D == 64 || D == 128, "the FFMA kernels take 64 and 128");
-  // resident rows: 128 where they fit beside the walked tiles (64), so
-  // a thread's block of S and dP is 8 resident rows by 4 walked ones and
-  // each walked tile serves twice the rows; 64 at 128 (4 by 4)
-  static constexpr int kR = D == 64 ? 128 : 64;
-  static constexpr int kIR = kR / 16;  // resident rows of a thread's block
-  static constexpr int kLd = D + 4;    // an operand tile's row stride
-  static constexpr int kRTile = kR * kLd;
-  static constexpr int kTile = kFR * kLd;
-  static constexpr int kStages = 2;    // walked tiles in flight
+struct FfmaBwd : Ffma<D> {
+  using F = Ffma<D>;
+  // resident rows of a thread's block
+  static constexpr int kIR = F::kR / 16;
   // column steps of the score loops unrolled (dQ at 64 two: as fast as
   // one there, where a step's loads of the 8-row blocks take 48 registers)
   static constexpr int kDqUnroll = D == 64 ? 2 : 4;
   static constexpr int kDkvUnroll = 4;
-  static constexpr int kKeepWords = kStages * kFConsumers;
   // a [walked row][resident row] score tile (dQ's dS; dK/dV's
   // dropout(P) and dS), its row stride 8 banks mod 32: a warp's float2
   // stores of it in the two wavefronts they need
-  static constexpr int kSLd = kR + 8;
+  static constexpr int kSLd = F::kR + 8;
   static constexpr int kScore = kFR * kSLd;
   // score tiles: at 64 dQ's dS has two buffers (a tile's stores wait
   // for no reader of the last tile's) and dK/dV's dropout(P) and dS one
@@ -190,18 +162,17 @@ struct Ffma {
   static constexpr int kDqScores = D == 64 ? 2 : 1;
   static constexpr int kDkvScores = D == 64 ? 2 : 1;
   // two resident tiles, two walked ones a stage
-  static constexpr int kOperands = 2 * kRTile + 2 * kStages * kTile;
+  static constexpr int kOperands = 2 * F::kRTile + 2 * F::kStages * F::kTile;
   static constexpr size_t kDqBytes =
-      (kOperands + kDqScores * kScore + kR + kKeepWords) * sizeof(float);
+      (kOperands + kDqScores * kScore + F::kR + F::kKeepWords) *
+      sizeof(float);
   static constexpr size_t kDkvBytes =
-      (kOperands + kDkvScores * kScore + kKeepWords) * sizeof(float);
+      (kOperands + kDkvScores * kScore + F::kKeepWords) * sizeof(float);
   static_assert(kDqBytes <= 232448 && kDkvBytes <= 232448,
                 "a CTA takes at most 227 KB of shared memory");
-  // with dropout the full barriers count the keep warps' arrivals too
-  template <bool DROP>
-  using Bars = flash_bulk::Bars<D, kLd, kStages, kFConsumers / 32,
-                                1 + (DROP ? kFKeepWarps : 0)>;
 };
+
+__device__ __forceinline__ int res_row(int i) { return (i & 1) + 8 * (i >> 1); }
 
 // A consumer thread's parts (8 warps), for R resident rows and head_dim
 // D:
@@ -224,20 +195,6 @@ struct FRoles {
     ub = 8 * (warp / (R / 16)) + (lane & 7);
   }
 };
-
-__device__ __forceinline__ int res_row(int i) { return (i & 1) + 8 * (i >> 1); }
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(const float4 x, const float4 y,
-                                      float acc) {
-  acc = fmaf(x.x, y.x, acc);
-  acc = fmaf(x.y, y.y, acc);
-  acc = fmaf(x.z, y.z, acc);
-  return fmaf(x.w, y.w, acc);
-}
 
 // s[i][j] = A[rr + res_row(i)] . B[wc + 8 j] over D columns, A resident
 // and B walked, both row-major at D + 4: IR + 4 float4 loads for 16 IR
@@ -278,39 +235,6 @@ __device__ __forceinline__ void ffma_put(float* X, const float x[IR][4],
       *reinterpret_cast<float2*>(X + (ro.wc + 8 * j) * SLD + ro.rr +
                                  8 * rp) =
           make_float2(x[2 * rp][j], x[2 * rp + 1][j]);
-}
-
-// acc[i][4 g + e] += X[kk][4 ua + i] * B[kk][D / 2 g + 4 ub + e] over the
-// kFR walked rows kk of a score tile X (row stride SLD) and a walked
-// tile B: 3 float4 loads for 32 FMAs, each in one wavefront
-template <int D, int SLD, typename Ro>
-__device__ __forceinline__ void ffma_accumulate(float acc[4][8],
-                                                const float* X,
-                                                const float* B,
-                                                const Ro& ro) {
-  constexpr int LD = Ffma<D>::kLd;
-#pragma unroll 4
-  for (int kk = 0; kk < kFR; ++kk) {
-    const float4 p = ld4(X + kk * SLD + 4 * ro.ua);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const float4 y = ld4(B + kk * LD + (D / 2) * g + 4 * ro.ub);
-      const float yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[i][4 * g + e] = fmaf(pv[i], yv[e], acc[i][4 * g + e]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero8(float acc[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
 }
 
 // rows row0 + 4 ua + i (< limit) of acc times mul into out (row stride
@@ -388,7 +312,7 @@ __device__ __forceinline__ void ffma_keep_words(const DropParams& dp, int bh,
 // delta) in registers, once into shared memory, then dQ += dS K.
 template <int D, bool CAUSAL, bool DROP>
 __global__ void __launch_bounds__(kFThreads, 1) dq_ffma(BwdArgs a) {
-  using F = Ffma<D>;
+  using F = FfmaBwd<D>;
   constexpr int S = F::kStages, R = F::kR, IR = F::kIR;
   extern __shared__ __align__(16) unsigned char smem_dqf[];
   float* Qs = reinterpret_cast<float*>(smem_dqf);  // resident
@@ -521,7 +445,7 @@ __global__ void __launch_bounds__(kFThreads, 1) dq_ffma(BwdArgs a) {
 // device memory while the tile lands.
 template <int D, bool CAUSAL, bool DROP>
 __global__ void __launch_bounds__(kFThreads, 1) dkv_ffma(BwdArgs a) {
-  using F = Ffma<D>;
+  using F = FfmaBwd<D>;
   constexpr int S = F::kStages, R = F::kR, IR = F::kIR;
   extern __shared__ __align__(16) unsigned char smem_dkvf[];
   float* Ks = reinterpret_cast<float*>(smem_dkvf);  // resident
@@ -957,14 +881,6 @@ cudaError_t go_wgmma(const BwdArgs& a, cudaStream_t stream) {
               stream, tq, tdo, tk, tv, a);
 }
 
-// the f32 kernels' bulk copies and float4 loads and stores need every
-// row of a tensor 16-byte aligned (ops/flash_attention.py's
-// _kernel_input copies a tensor whose rows are not)
-bool rows16(const void* p, const Strides& s) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && s.b % 4 == 0 &&
-         s.s % 4 == 0 && s.n % 4 == 0;
-}
-
 // The dQ kernel of each dtype: bf16 dq_wgmma, f32 dq_ffma; both compute
 // delta = rowsum(dO * O) and write it to BwdArgs.delta for dK/dV
 template <int D, bool C, bool P>
@@ -976,7 +892,7 @@ cudaError_t launch_dq(int dtype, const BwdArgs& a, cudaStream_t st) {
   return go(dq_ffma<D, C, P>,
             dim3(a.batch * a.n_heads, (a.sq + Ffma<D>::kR - 1) / Ffma<D>::kR),
             kFThreads,
-            Ffma<D>::kDqBytes, st, a);
+            FfmaBwd<D>::kDqBytes, st, a);
 }
 
 template <int D, bool C, bool P>
@@ -989,7 +905,7 @@ cudaError_t launch_dkv(int dtype, const BwdArgs& a, cudaStream_t st) {
   return go(dkv_ffma<D, C, P>,
             dim3(a.batch * a.n_heads, (a.sk + Ffma<D>::kR - 1) / Ffma<D>::kR),
             kFThreads,
-            Ffma<D>::kDkvBytes, st, a);
+            FfmaBwd<D>::kDkvBytes, st, a);
 }
 
 template <bool DKV>

@@ -33,8 +33,11 @@
 // links, about as long as the products), and with dropout one
 // Philox4x32-10 call per 2x2 block of links, integer work that no
 // tensor core does (chip_smoke.py reports its floor). In f32 the bytes
-// double and the arithmetic runs on the FP32 pipes (67 TFLOP/s), so f32
-// is bound by operations.
+// double and the arithmetic runs on the FP32 pipes (67 TFLOP/s): 0.58
+// ms for the same 38.7 GFLOP against 90 us of bytes, so f32 is bound by
+// operations, and a link's 2 h FMAs carry its exponential, mask, keep
+// bit and online-softmax share: every fixed cost of a tile weighs 1.5
+// times what it weighs in the f32 dQ kernel (3 h FMAs a link).
 //
 // What the design does about that.
 //  * bf16 (fwd_wgmma) runs on the backward's pipeline (flash_wgmma.cuh):
@@ -72,11 +75,28 @@
 //    run earlier stages, so the Philox rounds run on warps of their own.
 //    At p 0.1 their throughput, not the consumers, sets the kernel's
 //    time (about twice its time at p 0): a cheaper mask is the lever.
-//  * f32 (flash_fwd_simt): exact f32 FFMA, no TF32, so results agree
-//    with a float32 reference to ~1e-6. 256 threads each own a 4x4
-//    block of S and a 4x(h/16) block of O; tiles sit transposed in
-//    shared memory so every inner step is two 16-byte shared loads for
-//    16 FMAs. Dropout costs one Philox4x32-10 call per 2x2 block.
+//  * f32 (fwd_ffma): exact f32 FFMA, no TF32 and no tensor cores, so
+//    results agree with a float32 reference to ~1e-6. It is the f32
+//    backward's design (flash_ffma_tiles.cuh): a CTA of 384 threads
+//    owns 128 query rows at 64 and 64 at 128, Q resident; one producer
+//    thread copies Q once and streams 64-key tiles of K and V, two in
+//    flight, and the producer warpgroup's four warps compute the keep
+//    bits a word a consumer thread; setmaxnreg 72 / 208. Each tile is
+//    one TMA box of rows d + 4 floats long, the 4 past d outside the
+//    tensor and so zero-filled: it lands as the row-major tile at a
+//    stride of d + 4 that the products read without bank conflicts,
+//    and rows past the sequence land as zeros (the ragged edge). The
+//    backward's bulk copy a row costs the issuing warp a loop over its
+//    lanes; beside FFMA-bound consumers on its scheduler that starved
+//    the walk (on an H100 the forward took 15% longer so). The scale is
+//    folded into ex2. Unlike dQ, the forward does not know a row's
+//    maximum before its walk. So each of the 8 consumer warps owns whole
+//    rows (16 at 64, 8 at 128) against all 64 keys of a tile: a row's
+//    maximum and sum are reduced by shuffles among the lanes that share
+//    it, and those lanes then accumulate the same row's O from P in the
+//    warp's own tile, so a tile costs no barrier among the consumers.
+//    Under a causal mask the longest walks go first, a CTA stops at its
+//    last visible tile and a warp skips the tiles above its rows.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -84,6 +104,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_ffma_tiles.cuh"
 #include "flash_wgmma.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
@@ -91,187 +112,364 @@
 namespace {
 
 using namespace flash;
+using namespace flash_ffma;
 using namespace hopper;
 using namespace flash_wg;
 
 // ------------------------------------------------------------ f32, FFMA
 
-constexpr int kSimtThreads = 256;  // 16 row groups x 16 column groups
-constexpr int kLd = kBM + 4;       // transposed-tile row stride (floats)
-
+// fwd_ffma's parts, on flash_ffma_tiles.cuh's tiles: a CTA owns R query
+// rows (Ffma::kR: 128 at head_dim 64, 64 at 128) and walks the keys in
+// kFR-key tiles of K and V. Each consumer warp owns WR = R / 8 of the
+// rows and all kFR keys of a tile, so a row's maximum and sum never
+// leave its warp, and the probabilities it stores are read back by the
+// same warp: the tile loop has no barrier among the consumer warps.
+//  * A lane is (rg, kg), rg = lane / KG of the warp's RG row groups and
+//    kg = lane % KG of its KG key groups. It holds S of rows rg + RG i
+//    (i < 4) against keys kg + KG j (j < JK) over the whole head_dim in
+//    registers (4 x 8 at 64, 4 x 4 at 128). A column step's float4
+//    loads read RG resident rows (broadcast) and KG walked ones: one
+//    wavefront each at 64 (8 consecutive rows at a stride of 4 banks),
+//    two at 128.
+//  * The KG lanes of a row group share its rows: each row's maximum and
+//    sum are reduced over them by shuffles, so every lane of a row holds
+//    the same running maximum and applies the same rescale factor.
+//  * P goes into the warp's own [kFR key][WR slot] tile, row rg + RG i
+//    at slot 4 rg + i, so the same lane then accumulates O of its own
+//    rows: acc[i][4 g + e], columns 4 kg + e + D / 2 g, a float4 of P
+//    and two of V a key for 32 FMAs.
 template <int D>
-constexpr size_t simt_smem_bytes() {
-  return (2 * D * kLd + kBN * D + kBN * kLd) * sizeof(float);
-}
+struct FwdFfma : Ffma<D> {
+  using F = Ffma<D>;
+  static constexpr int WR = F::kR / 8;  // rows of a consumer warp
+  static constexpr int IR = 4;          // rows of a lane
+  static constexpr int RG = WR / IR;    // row groups of a warp
+  static constexpr int KG = 32 / RG;    // key groups (lanes of a row)
+  static constexpr int JK = kFR / KG;   // keys of a lane in a tile
+  static constexpr int U = D == 64 ? 2 : 4;  // column steps unrolled
+  static constexpr int kP = kFR * WR;   // a warp's P tile
+  // the mbarriers in an array of their own (TMA writes the tiles' row
+  // padding), 8 bytes each: full and empty a stage, misc for Q
+  static constexpr int kBarFloats = 2 * (2 * F::kStages + 1);
+  // the tiles from a 128-byte-aligned base (TMA's rule): 128 bytes of
+  // slack
+  static constexpr size_t kBytes =
+      (F::kRTile + 2 * F::kStages * F::kTile + 8 * kP + F::kKeepWords +
+       kBarFloats) * sizeof(float) + 128;
+  // full counts the copy thread's arrival (with its TMA bytes), or with
+  // dropout the 4 producer warps' (after their keep bits); misc the copy
+  // thread's
+  template <bool DROP>
+  using Bars = flash_bulk::Bars<0, 2, F::kStages, kFConsumers / 32,
+                                DROP ? (kFThreads - kFConsumers) / 32 : 1>;
+  // a tile's TMA bytes: rows of kLd floats, the padding included
+  static constexpr uint32_t kRowBytes = F::kLd * sizeof(float);
+  static_assert(IR * JK <= 32, "a lane's keep bits fill one word");
+  static_assert(kBytes <= 232448,
+                "a CTA takes at most 227 KB of shared memory");
+};
 
-template <int D, bool CAUSAL, bool DROP>
-__global__ void __launch_bounds__(kSimtThreads)
-flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int n_heads, int sq, int sk,
-               Strides qs, Strides ks, Strides vs, float scale,
-               DropParams drop) {
-  static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
-  constexpr int G = D / 64;  // 4-column groups of O per thread
-  const DropParams dp = drop_params<DROP>(drop);
-  extern __shared__ __align__(16) unsigned char smem_simt[];
-  float* Qt = reinterpret_cast<float*>(smem_simt);  // [D][kLd] q*scale, transposed
-  float* Kt = Qt + D * kLd;    // [D][kLd]  k, transposed
-  float* Vs = Kt + D * kLd;    // [kBN][D]
-  float* Pt = Vs + kBN * D;    // [kBN][kLd] p, transposed
-
-  const int bh = blockIdx.x;
-  const int bi = bh / n_heads, hi = bh % n_heads;
-  const int q0 = blockIdx.y * kBM;
-  const int tid = threadIdx.x;
-  const int r = tid >> 4;  // rows r*4 .. r*4+3 of the tile
-  const int c = tid & 15;  // S columns c*4 .. c*4+3; O columns c*4+64g ..
-
-  const float* qb = q + bi * qs.b + hi * qs.n;
-  const float* kb = k + bi * ks.b + hi * ks.n;
-  const float* vb = v + bi * vs.b + hi * vs.n;
-
-  for (int e = tid; e < kBM * D; e += kSimtThreads) {
-    const int row = e / D, d = e % D;
-    float x = 0.f;
-    if (q0 + row < sq) x = qb[(long long)(q0 + row) * qs.s + d] * scale;
-    Qt[d * kLd + row] = x;
+// a lane's first row in the CTA's tile, its row group (ua = rg: P's
+// slots 4 rg + i, ffma_accumulate's rows) and its key group (ub = kg:
+// keys kg + KG j, ffma_accumulate's columns)
+template <int D>
+struct FwdRoles {
+  using W = FwdFfma<D>;
+  int rr, ua, ub;
+  __device__ __forceinline__ explicit FwdRoles(int tid) {
+    const int lane = tid & 31;
+    ua = lane / W::KG;
+    ub = lane % W::KG;
+    rr = W::WR * (tid >> 5) + ua;
   }
+};
 
-  float acc[4][4 * G];
-  float m[4], lpart[4];
+// s[i][j] = Q[rr + RG i] . K[ub + KG j] over D columns, Q resident and
+// K walked, both row-major at D + 4: 4 + JK float4 loads for 16 JK FMAs
+// a step, U steps unrolled
+template <int D>
+__device__ __forceinline__ void fwd_scores(float (&s)[4][FwdFfma<D>::JK],
+                                           const float* Q, const float* K,
+                                           const FwdRoles<D>& ro) {
+  using W = FwdFfma<D>;
+  constexpr int LD = W::kLd, JK = W::JK;
+  const float* pa = Q + ro.rr * LD;
+  const float* pb = K + ro.ub * LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    lpart[i] = 0.f;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4 * G; ++j) acc[i][j] = 0.f;
-  }
-
-  int nk = (sk + kBN - 1) / kBN;
-  if (CAUSAL) nk = causal_tiles(nk, q0);
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBN;
-    __syncthreads();  // the last tile's Kt/Vs/Pt reads are done
-    for (int e = tid; e < kBN * D; e += kSimtThreads) {
-      const int key = e / D, d = e % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + key < sk) {
-        kx = kb[(long long)(k0 + key) * ks.s + d];
-        vx = vb[(long long)(k0 + key) * vs.s + d];
-      }
-      Kt[d * kLd + key] = kx;
-      Vs[key * D + d] = vx;
-    }
-    __syncthreads();
-
-    float s[4][4];
+    for (int j = 0; j < JK; ++j) s[i][j] = 0.f;
+#pragma unroll (W::U)
+  for (int t = 0; t < D; t += 4) {
+    float4 x[4], y[JK];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = ld4(pa + W::RG * i * LD + t);
+#pragma unroll
+    for (int j = 0; j < JK; ++j) y[j] = ld4(pb + W::KG * j * LD + t);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * kLd + r * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Kt[d * kLd + c * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
+      for (int j = 0; j < JK; ++j) s[i][j] = dot4(x[i], y[j], s[i][j]);
+  }
+}
 
+// The keep bits of the consumers' links in tile t, on the producer
+// warpgroup: bit JK i + j of consumer thread c's word is the keep bit of
+// its link (query row q0 + rr + RG i, key 64 t + kg + KG j). A Philox
+// block (2 rows, 2 keys) holds links of the four lanes (rg, kg) with
+// rg / 2 and kg / 2 alike, so a unit of work is 8 blocks of those four
+// lanes, byte b of their words: 256 units a tile at 64, 128 at 128, the
+// lanes of producer warp pw taking units 32 pw + lane, + 128.
+template <int D>
+__device__ __forceinline__ void fwd_keep_tile(const DropParams& dp, int bh,
+                                              int q0, int t,
+                                              uint32_t* keep_s, int pw,
+                                              int lane) {
+  using W = FwdFfma<D>;
+  constexpr int kBytesWord = W::IR * W::JK / 8;  // bytes of a word
+  constexpr int kUnits = 8 * (W::RG / 2) * (W::KG / 2) * kBytesWord;
+  unsigned char* words = reinterpret_cast<unsigned char*>(keep_s);
+  for (int u = 32 * pw + lane; u < kUnits; u += kFThreads - kFConsumers) {
+    const int b = u % kBytesWord, kh = (u / kBytesWord) % (W::KG / 2);
+    const int rh = (u / kBytesWord / (W::KG / 2)) % (W::RG / 2);
+    const int w = u / kBytesWord / (W::KG / 2) / (W::RG / 2);
+    uint32_t bits[2][2] = {};  // [row parity][key parity]
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + r * 4 + i;
-      bool ok[4];
-      float mx = kNeg;
+    for (int e = 0; e < 8; ++e) {
+      const int i = (8 * b + e) / W::JK, j = (8 * b + e) % W::JK;
+      const int row = q0 + W::WR * w + 2 * rh + W::RG * i;
+      const int key = t * kFR + 2 * kh + W::KG * j;
+      const uint4 blk = drop_block(dp, bh, row, key);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + c * 4 + j;
-        ok[j] = col < sk && (!CAUSAL || row >= col);
-        s[i][j] = ok[j] ? s[i][j] : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 lanes of a row group share rows: reduce the max over them
+      for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps += s[i][j];
-      }
-      // l stays a per-lane partial sum; corr is uniform over the row
-      lpart[i] = lpart[i] * corr + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * G; ++j) acc[i][j] *= corr;
-    }
-    if (DROP) {
-      // rows r*4 .. r*4+3 and columns c*4 .. c*4+3: four 2x2 blocks
-#pragma unroll
-      for (int ip = 0; ip < 2; ++ip)
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          const int row = q0 + r * 4 + ip * 2, col = k0 + c * 4 + jp * 2;
-          const uint4 w = drop_block(dp, bh, row, col);
-#pragma unroll
-          for (int a = 0; a < 2; ++a)
-#pragma unroll
-            for (int b2 = 0; b2 < 2; ++b2) {
-              float& x = s[ip * 2 + a][jp * 2 + b2];
-              x = drop_keep(dp, w, row + a, col + b2) ? x * dp.rinv : 0.f;
-            }
-        }
+        for (int y = 0; y < 2; ++y)
+          if (word_of(blk, 2 * x + y) >= dp.threshold)
+            bits[x][y] |= 1u << e;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(c * 4 + j) * kLd + r * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const int c = 32 * w + (2 * rh + x) * W::KG + 2 * kh + y;
+        words[4 * c + b] = (unsigned char)bits[x][y];
+      }
+  }
+}
 
-#pragma unroll 4
-    for (int kk = 0; kk < kBN; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&Pt[kk * kLd + r * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
+// The online softmax of one tile for a lane's rows: the row maxima m
+// (base-2 units of the scaled logits) and the per-lane partial sums l
+// move on, O shrinks by the rows' factors, and s becomes P (with DROP,
+// 0 for a dropped link and times rinv for a kept one, bit JK i + j of
+// keep; l sums the un-dropped probabilities). The maxima come from the
+// raw scores, max(s * scale2) = |scale2| max(+-s). Only an EDGE tile
+// (one that crosses the key bound or the diagonal) masks, the links
+// from hi[i] - KG j on: their scores become `masked`, below every real
+// one once scaled, so that their probabilities come out 0 from the same
+// ex2 (a row sees key 0 in its first tile, so m is real from there on).
+// Masks and keep bits act by a select and by integer masking each link
+// on its own: held as predicates over the row's shuffles, the causal
+// dropout variant's would need more than the 7 predicate registers a
+// thread has, and ptxas refuses it (C7600, "register count of '7'").
+template <int D, bool DROP, bool EDGE, bool NEG>
+__device__ __forceinline__ void fwd_softmax(
+    float (&s)[4][FwdFfma<D>::JK], float scale2, const int* hi,
+    uint32_t keep, float rinv, float* m, float* l, float acc[4][8]) {
+  using W = FwdFfma<D>;
+  constexpr float masked = NEG ? -kNeg : kNeg;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(&Vs[kk * D + g * 64 + c * 4]);
-        const float xv[4] = {x.x, x.y, x.z, x.w};
+  for (int i = 0; i < W::IR; ++i) {
+    float mx = kNeg;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < W::JK; ++j) {
+      if (EDGE && W::KG * j >= hi[i]) s[i][j] = masked;
+      mx = fmaxf(mx, NEG ? -s[i][j] : s[i][j]);
+    }
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][g * 4 + j] = fmaf(pv[i], xv[j], acc[i][g * 4 + j]);
+    for (int off = 1; off < W::KG; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx * fabsf(scale2));
+    const float corr = ex2(m[i] - m_new);
+    m[i] = m_new;
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < W::JK; ++j) {
+      float p = ex2(fmaf(s[i][j], scale2, -m_new));
+      ps += p;
+      // times rinv or 0 by its keep bit, as integer masking
+      if (DROP)
+        p *= __int_as_float(-(int)((keep >> (W::JK * i + j)) & 1u) &
+                            __float_as_int(rinv));
+      s[i][j] = p;
+    }
+    l[i] = l[i] * corr + ps;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] *= corr;
+  }
+}
+
+template <int D, bool DROP, bool NEG>
+__device__ __forceinline__ void fwd_softmax_tile(
+    float (&s)[4][FwdFfma<D>::JK], float scale2, bool edge, const int* hi,
+    uint32_t keep, float rinv, float* m, float* l, float acc[4][8]) {
+  if (edge)
+    fwd_softmax<D, DROP, true, NEG>(s, scale2, hi, keep, rinv, m, l, acc);
+  else
+    fwd_softmax<D, DROP, false, NEG>(s, scale2, hi, keep, rinv, m, l, acc);
+}
+
+struct FfmaArgs {
+  float* o;    // f32 [b, sq, n, D], contiguous
+  float* lse;  // f32 [b, n, sq]
+  int n_heads, sq, sk;
+  float scale;
+  DropParams dp;
+};
+
+// The f32 forward: a CTA per R query rows of a (batch, head) (causal:
+// the longest walks first, and the CTA stops at its last visible tile),
+// Q resident, K and V walked by 64-key tiles, each tile one TMA box of
+// the tensor maps tq, tk, tv (hopper.cuh's f32_rows_map). Each tile,
+// each consumer warp on its own: S of its rows, the online softmax, P
+// into its tile, O += P V. A warp past its rows' last visible key only
+// hands the tile back.
+template <int D, bool CAUSAL, bool DROP>
+__global__ void __launch_bounds__(kFThreads, 1)
+    fwd_ffma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const FfmaArgs a) {
+  using W = FwdFfma<D>;
+  constexpr int S = W::kStages, R = W::kR, IR = W::IR, JK = W::JK;
+  extern __shared__ __align__(128) unsigned char smem_fwdf[];
+  const uint32_t raw = smem_u32(smem_fwdf);
+  float* Qs = reinterpret_cast<float*>(smem_fwdf +
+                                       (((raw + 127u) & ~127u) - raw));
+  float* Kw = Qs + W::kRTile;  // stage st: K at Kw + 2 st kTile, V after
+  float* Ps = Kw + 2 * S * W::kTile;  // warp w's P tile at Ps + w kP
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(Ps + 8 * W::kP);
+
+  const int bh = blockIdx.x;
+  const int bi = bh / a.n_heads, hi = bh % a.n_heads;
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * R;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sq = a.sq, sk = a.sk;
+  const typename W::template Bars<DROP> bars(
+      reinterpret_cast<float*>(keep_s + W::kKeepWords));
+  if (tid == 0) bars.init();
+  __syncthreads();
+  int nk = (sk + kFR - 1) / kFR;
+  if (CAUSAL) nk = min(nk, (q0 + R - 1) / kFR + 1);
+  uint32_t phase = 0u;
+
+  if (warp >= kFConsumers / 32) {
+    // the producer warpgroup: one thread copies Q once, then K and V a
+    // tile, each a TMA box; with dropout all its warps compute the
+    // tile's keep bits after that thread's copies are issued
+    regs_dec<kFProdRegs>();
+    const int pw = warp - kFConsumers / 32;
+    const bool copier = pw == 0 && lane == 0;
+    if (copier) {
+      mbar_expect_tx(bars.misc(), R * W::kRowBytes);
+      tma_load_4d(smem_u32(Qs), &tq, bars.misc(), 0, hi, q0, bi);
+      mbar_arrive(bars.misc());
+    }
+    if (!DROP && !copier) return;
+    const DropParams dp = drop_params<DROP>(a.dp);
+    for (int t = 0; t < nk; ++t) {
+      const int st = t % S;
+      if (t >= S) flash_bulk::bar_wait(bars.empty(st), phase, st);
+      if (copier) {
+        const uint32_t dst = smem_u32(Kw + 2 * st * W::kTile);
+        mbar_expect_tx(bars.full(st), 2 * kFR * W::kRowBytes);
+        tma_load_4d(dst, &tk, bars.full(st), 0, hi, t * kFR, bi);
+        tma_load_4d(dst + W::kTile * sizeof(float), &tv, bars.full(st), 0,
+                    hi, t * kFR, bi);
+      }
+      if (DROP) {
+        fwd_keep_tile<D>(dp, bh, q0, t, keep_s + st * kFConsumers, pw,
+                         lane);
+        flash_bulk::warp_release(bars.full(st), lane);
+      } else {
+        mbar_arrive(bars.full(st));
       }
     }
+    return;
   }
 
+  regs_inc<kFConsRegs>();
+  const FwdRoles<D> ro(tid);
+  const int wrow = q0 + W::WR * warp;  // the warp's first query row
+  // under a causal mask the tiles from wlast on lie wholly above the
+  // warp's rows
+  const int wlast = CAUSAL ? min(nk, (wrow + W::WR - 1) / kFR + 1) : nk;
+  // the keys below klim[i] that the lane's row i may see (rows past sq
+  // are never written, so they need no mask of their own)
+  int klim[IR];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = lpart[i];
+  for (int i = 0; i < IR; ++i)
+    klim[i] = CAUSAL ? min(sk, q0 + ro.rr + W::RG * i + 1) : sk;
+  const float scale2 = a.scale * kLog2e;  // softmax in base 2
+  float* Pw = Ps + warp * W::kP;
+  float acc[4][8], m[IR], l[IR];
+  zero8(acc);
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-    const float l_safe = fmaxf(l, 1e-30f);
-    const float inv = 1.f / l_safe;
-    const int row = q0 + r * 4 + i;
-    if (row < sq) {
-      float* orow = o + ((long long)(bi * sq + row) * n_heads + hi) * D;
+  for (int i = 0; i < IR; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+  }
+
+  flash_bulk::bar_wait(bars.misc(), phase, S);
+  for (int t = 0; t < nk; ++t) {
+    const int st = t % S, k0 = t * kFR;
+    const float* Kt = Kw + 2 * st * W::kTile;
+    flash_bulk::bar_wait(bars.full(st), phase, st);
+    if (t < wlast) {
+      float s[IR][JK];
+      fwd_scores<D>(s, Qs, Kt, ro);
+      const uint32_t keep = DROP ? keep_s[st * kFConsumers + tid] : 0u;
+      const bool edge = k0 + kFR > sk || (CAUSAL && k0 + kFR - 1 > wrow);
+      int hi_[IR];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        *reinterpret_cast<float4*>(&orow[g * 64 + c * 4]) =
-            make_float4(acc[i][g * 4] * inv, acc[i][g * 4 + 1] * inv,
-                        acc[i][g * 4 + 2] * inv, acc[i][g * 4 + 3] * inv);
-      if (c == 0) lse[(long long)bh * sq + row] = m[i] + logf(l_safe);
+      for (int i = 0; i < IR; ++i) hi_[i] = klim[i] - k0 - ro.ub;
+      if (scale2 >= 0.f)
+        fwd_softmax_tile<D, DROP, false>(s, scale2, edge, hi_, keep,
+                                         a.dp.rinv, m, l, acc);
+      else
+        fwd_softmax_tile<D, DROP, true>(s, scale2, edge, hi_, keep,
+                                        a.dp.rinv, m, l, acc);
+      // P of row rg + RG i at slot 4 rg + i (the last tile's reads of the
+      // warp's P tile are ordered before by warp_release's __syncwarp)
+#pragma unroll
+      for (int j = 0; j < JK; ++j)
+        *reinterpret_cast<float4*>(Pw + (ro.ub + W::KG * j) * W::WR +
+                                   4 * ro.ua) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      __syncwarp();
+      ffma_accumulate<D, W::WR>(acc, Pw, Kt + W::kTile, ro);
     }
+    flash_bulk::warp_release(bars.empty(st), lane);
+  }
+
+  // l over the row's KG lanes; O = acc / l_safe, lse = m + log(l_safe)
+  float* ob = a.o + ((long long)bi * sq * a.n_heads + hi) * D;
+#pragma unroll
+  for (int i = 0; i < IR; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int off = 1; off < W::KG; off <<= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const float l_safe = fmaxf(lt, 1e-30f);
+    const float inv = 1.f / l_safe;
+    const int row = q0 + ro.rr + W::RG * i;
+    if (row >= sq) continue;
+    if (ro.ub == 0)
+      a.lse[(long long)bh * sq + row] = (m[i] + log2f(l_safe)) * kLn2;
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      *reinterpret_cast<float4*>(ob + (long long)row * a.n_heads * D +
+                                 (D / 2) * g + 4 * ro.ub) =
+          make_float4(acc[i][4 * g] * inv, acc[i][4 * g + 1] * inv,
+                      acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
   }
 }
 
@@ -575,16 +773,28 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 // ------------------------------------------------------------ launching
 
+// fwd_ffma: tensor maps of q (R-row boxes), k and v (kFR-row boxes),
+// every row 16-byte aligned (rows16); a CTA per R query rows of a
+// (batch, head)
 template <int D, bool C, bool DROP>
-cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        void* o, float* lse, int b, int n, int sq, int sk,
-                        Strides qs, Strides ks, Strides vs, float scale,
-                        DropParams dp, cudaStream_t stream) {
-  return go(flash_fwd_simt<D, C, DROP>, dim3(b * n, (sq + kBM - 1) / kBM),
-            kSimtThreads, simt_smem_bytes<D>(), stream,
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<float*>(o), lse, n, sq,
-            sk, qs, ks, vs, scale, dp);
+cudaError_t launch_ffma(const void* q, const void* k, const void* v,
+                        const Strides& qs, const Strides& ks,
+                        const Strides& vs, const FwdArgs& a,
+                        cudaStream_t stream) {
+  constexpr int R = FwdFfma<D>::kR;
+  const int b = a.batch, n = a.n_heads;
+  const long long o_row = (long long)n * D;  // O is packed
+  CUtensorMap tq, tk, tv;
+  if (!(rows16(q, qs) && rows16(k, ks) && rows16(v, vs) &&
+        rows16(a.o, Strides{a.sq * o_row, o_row, D})) ||
+      f32_rows_map(&tq, q, b, a.sq, n, D, qs.b, qs.s, qs.n, R) ||
+      f32_rows_map(&tk, k, b, a.sk, n, D, ks.b, ks.s, ks.n, kFR) ||
+      f32_rows_map(&tv, v, b, a.sk, n, D, vs.b, vs.s, vs.n, kFR))
+    return cudaErrorInvalidValue;
+  const FfmaArgs f{static_cast<float*>(a.o), a.lse, n, a.sq, a.sk, a.scale,
+                   a.dp};
+  return go(fwd_ffma<D, C, DROP>, dim3(b * n, (a.sq + R - 1) / R),
+            kFThreads, FwdFfma<D>::kBytes, stream, tq, tk, tv, f);
 }
 
 // fwd_wgmma: tensor maps of q (kOwn-row boxes), k and v (kStrm-row
@@ -641,10 +851,9 @@ extern "C" int pt_flash_attn_fwd(
   a.batch = b; a.n_heads = n; a.sq = sq; a.sk = sk; a.scale = scale;
   a.dp = dp;
 
-#define PT_GO(D, C, P)                                                      \
-  (dtype == 1 ? launch_wgmma<D, C, P>(q, k, v, qs, ks, vs, a, stream)      \
-              : launch_simt<D, C, P>(q, k, v, o, lse, b, n, sq, sk, qs, ks, \
-                                     vs, scale, dp, stream))
+#define PT_GO(D, C, P)                                                 \
+  (dtype == 1 ? launch_wgmma<D, C, P>(q, k, v, qs, ks, vs, a, stream) \
+              : launch_ffma<D, C, P>(q, k, v, qs, ks, vs, a, stream))
 #define PT_DROP(D, C) (dropout ? PT_GO(D, C, true) : PT_GO(D, C, false))
   cudaError_t e;
   if (d == 64)

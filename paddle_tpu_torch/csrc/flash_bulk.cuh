@@ -4,7 +4,8 @@
 // copy engine, the copies counted in bytes on mbarriers, into row-major
 // tiles whose rows are padded by 4 floats; the mbarriers live in that
 // padding of a resident tile. The consumer warps sync among themselves
-// on a named barrier the producer never joins.
+// on a named barrier the producer never joins. flash_attn_fwd.cu's
+// fwd_ffma copies its tiles by TMA instead and takes the barriers alone.
 
 #pragma once
 
@@ -29,7 +30,8 @@ __device__ __forceinline__ void bulk_row(float* dst, const float* src,
 
 // The CTA's mbarriers, each in the padding of a row of a resident tile
 // of W-float rows at a stride of LD floats (its columns W to LD - 1,
-// which no copy, product or store touches): full[t] (walked tile t has
+// which no copy, product or store touches), or at W 0 and LD 2 in an
+// array of their own, 8 bytes each: full[t] (walked tile t has
 // landed: the producer warp's copies), misc (the resident tiles, or the
 // consumers' own copies), empty[t] (every one of the CW consumer warps
 // is done with walked tile t); NT walked tiles, FC arrivals on each

@@ -325,4 +325,31 @@ inline int bf16_rows_map(CUtensorMap* map, const void* base, int b, int s,
   return r == CUDA_SUCCESS ? 0 : (int)r;
 }
 
+// Tensor map of an f32 [b, s, n, d] tensor read through element strides
+// (sb, ss, sn; d contiguous), whose boxes are `rows` sequence rows of one
+// (batch, head), each row d + 4 floats long: the 4 columns past d lie
+// outside the tensor and land as zeros, so a box lands in shared memory
+// as a row-major tile at a stride of d + 4 floats, no swizzle. Rows past
+// s read as zeros too. Returns 0, or nonzero when the driver refuses the
+// layout.
+inline int f32_rows_map(CUtensorMap* map, const void* base, int b, int s,
+                        int n, int d, long long sb, long long ss,
+                        long long sn, int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)s,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sn * 4, (cuuint64_t)ss * 4,
+                                 (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)d + 4, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                         const_cast<void*>(base), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)r;
+}
+
 }  // namespace hopper

@@ -233,9 +233,10 @@ def _tma_strides(t):
 
 
 def _tma_ok(t):
-    """True when the bf16 kernels can read t in place: a unit head_dim
+    """True when the kernels can read t in place: a unit head_dim
     stride, a 16-byte-aligned base, strides of whole 16-byte multiples
-    (TMA's rule; cp.async and ldmatrix read 16-byte rows), and head, seq
+    (TMA's rule for bf16; the f32 kernels copy whole 16-byte rows by the
+    bulk copy engine and read float4 rows), and head, seq
     and batch laid out in that order without overlap, as the fused qkv
     views and every packed tensor are."""
     if t.stride(3) != 1 or t.data_ptr() % 16:
@@ -247,17 +248,11 @@ def _tma_ok(t):
             and sn >= h and ss >= sn * n and sb >= ss * s)
 
 
-def _kernel_input(t, fn_name):
-    """t itself when the kernel that C entry fn_name runs at t's head_dim
-    and dtype (_kernel_entry) can read it through its strides, else a
-    packed copy in fresh (aligned) memory. The f32 forward below 256
-    reads scalars and needs a unit head_dim stride; every other kernel
-    (bf16 by TMA, f32 by bulk copies of whole 16-byte rows) needs
-    _tma_ok."""
-    scalar = (t.dtype == torch.float32 and t.shape[3] < _D256
-              and fn_name == "pt_flash_attn_fwd")
-    ok = t.stride(3) == 1 if scalar else _tma_ok(t)
-    return t if ok else t.clone(memory_format=torch.contiguous_format)
+def _kernel_input(t):
+    """t itself when the kernels can read it through its strides
+    (_tma_ok: bf16 by TMA, f32 by bulk copies of whole 16-byte rows),
+    else a packed copy in fresh (aligned) memory."""
+    return t if _tma_ok(t) else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_kernel(name, q, k):
@@ -334,7 +329,7 @@ def _flash_fwd_cuda(q, k, v, causal, scale, dropout_p=0.0, seed=0):
     _check_kernel("flash_attn_fwd", q, k)
     b, sq, n, h = q.shape
     sk = k.shape[1]
-    q, k, v = (_kernel_input(t, "pt_flash_attn_fwd") for t in (q, k, v))
+    q, k, v = (_kernel_input(t) for t in (q, k, v))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     o = torch.empty((b, sq, n, h), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
@@ -362,8 +357,7 @@ def _flash_bwd_dq_cuda(q, k, v, o, do, lse, causal, scale, dropout_p=0.0,
     kernel computes and writes and the dK/dV kernel reads."""
     _check_kernel("flash_attn_bwd_dq", q, k)
     b, sq, n, h = q.shape
-    q, k, v, o, do = (_kernel_input(t, "pt_flash_attn_bwd_dq")
-                       for t in (q, k, v, o, do))
+    q, k, v, o, do = (_kernel_input(t) for t in (q, k, v, o, do))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
     delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
@@ -386,8 +380,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
     _check_kernel("flash_attn_bwd_dkv", q, k)
     b, sq, n, h = q.shape
     sk = k.shape[1]
-    q, k, v, do = (_kernel_input(t, "pt_flash_attn_bwd_dkv")
-                   for t in (q, k, v, do))
+    q, k, v, do = (_kernel_input(t) for t in (q, k, v, do))
     seed_t = _seed_arg(seed, dropout_p, q.device)
     lse = lse.contiguous()
     dk = torch.empty((b, sk, n, h), dtype=q.dtype, device=q.device)

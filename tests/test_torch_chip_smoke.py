@@ -373,12 +373,13 @@ def test_bit_equal_and_max_abs_diff(cs):
 
 def test_kernel_launches_count_device_events_by_wrapper(cs):
     """Profiler event names map to the wrapper whose kernel they are
-    (bf16 wgmma, the f32 SIMT forward and FFMA backward); library kernels
+    (bf16 wgmma, the f32 FFMA forward and backward); library kernels
     count for none."""
     names = ["void fwd_wgmma<64, true, true>(CUtensorMap_st, FwdArgs)",
              "void dq_wgmma<64, true, true>(CUtensorMap_st, BwdArgs)",
              "void dkv_wgmma<64, true, true>(CUtensorMap_st, BwdArgs)",
-             "void flash_fwd_simt<64, false, false>(float const*)",
+             "void (anonymous namespace)::fwd_ffma<64, false, false>"
+             "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, FfmaArgs)",
              "void (anonymous namespace)::dq_ffma<64, false, true>(BwdArgs)",
              "void (anonymous namespace)::dkv_ffma<64, false, true>(BwdArgs)",
              "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT",
@@ -843,7 +844,7 @@ def _pipe_row():
                                        params_bit_equal=True),
                 launches_per_step=dict(want["launches"]),
                 eager_launches_per_step=dict(want["launches"]),
-                routes_per_step={"fwd_wgmma": 168, "flash_fwd_simt": 0},
+                routes_per_step={"fwd_wgmma": 168, "fwd_ffma": 0},
                 path_launches={"flash_attn_fwd": 402,
                                "flash_attn_bwd_dq": 240,
                                "flash_attn_bwd_dkv": 240},
@@ -867,7 +868,7 @@ def test_pipeline_train_gates_name_each_failure(cs, breakage, word):
     elif breakage == "launches":
         row["launches_per_step"]["flash_attn_bwd_dq"] = 95
     elif breakage == "route":
-        row["routes_per_step"] = {"fwd_wgmma": 96, "flash_fwd_simt": 72}
+        row["routes_per_step"] = {"fwd_wgmma": 96, "fwd_ffma": 72}
     elif breakage == "path":
         row["path_launches"]["flash_attn_bwd_dkv"] = 0
     elif breakage == "dispatches":
@@ -2005,6 +2006,117 @@ def test_ffma_kernel_rows_time_the_f32_backward_at_ernies_shape(cs):
         cs.ffma_kernel_rows(path, [bf16, head, h128])
 
 
+def test_ffma_fwd_kernel_row_times_the_f32_forward_at_ernies_shape(cs):
+    """The kernels line's row of flash_attn_fwd.cu's f32 forward at 64
+    and 128 (fwd_ffma): the captured_train_f32 path's and the f32
+    inference pass's launches, the times of the ERNIE-base f32 case (b
+    48, s 512, DROP_P, qkv views) beside SDPA's forward, every f32 case
+    at 64 and 128 of both kernel phases beside them; a path that
+    launched no forward fails."""
+    b, s = cs.TRAIN_BATCH
+    head = dict(_attn_case((b, s, 12, 64, False, "float32", cs.DROP_P, s,
+                            False)), fwd_ms=1.1, lse_max_abs_err=2e-7)
+    bf16 = _attn_case((b, s, 12, 64, False, "bfloat16", cs.DROP_P, s,
+                       False))
+    h128 = dict(_attn_case(cs.F32_H128_FULL + (0.0, 1024, False)),
+                lse_max_abs_err=1e-7)
+    wide = _attn_case((8, 1024, 8, 256, False, "float32", 0.0, 1024,
+                       False))
+    fwd_case = dict(dtype="float32", b=32, s=512, sk=512, n=12, h=64,
+                    causal=False, dropout_p=0.0, layout="qkv views", ms=0.6,
+                    library_ms=0.9, bound_ms=0.3, max_abs_err=1e-7)
+    per = {"flash_attn_fwd": 12, "flash_attn_bwd_dq": 12,
+           "flash_attn_bwd_dkv": 12}
+    path = dict(launches={k: 2 * v for k, v in per.items()},
+                launches_per_replay=per, step_ms=400.0,
+                attention_share=0.2)
+    cases = [bf16, head, h128, wide]
+    row = cs.ffma_fwd_kernel_row(path, cases,
+                                 [fwd_case, dict(fwd_case, h=256)], 288)
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in row, key
+    assert (row["name"], row["device_kernel"], row["launches"],
+            row["launches_per_step"],
+            row["launches_float32_inference_pass"]) == (
+        "flash_attn_fwd_ffma", "fwd_ffma", 24, 12, 288)
+    assert row["source"].endswith("csrc/flash_attn_fwd.cu")
+    assert row["replaces"].startswith("paddle_tpu/ops/pallas_kernels.py:175")
+    assert (row["ms"], row["library_ms"], row["lse_max_abs_err"]) == \
+        (1.1, 0.5, 2e-7)
+    assert [c["h"] for c in row["cases"]] == [64, 128]
+    assert [c["h"] for c in row["kernel_cases"]] == [64]
+    with pytest.raises(SystemExit):
+        cs.ffma_fwd_kernel_row(path, cases, [fwd_case], 0)
+    path["launches"]["flash_attn_fwd"] = 0
+    with pytest.raises(SystemExit):
+        cs.ffma_fwd_kernel_row(path, cases, [fwd_case], 288)
+
+
+def _ptxas_log(names):
+    """An -Xptxas -v log of the mangled kernels `names`: (name, spill
+    store bytes, spill load bytes) each."""
+    out = []
+    for name, st, ld in names:
+        out += [f"ptxas info    : Function properties for {name}",
+                f"    0 bytes stack frame, {st} bytes spill stores, "
+                f"{ld} bytes spill loads"]
+    return "\n".join(out)
+
+
+def _fwd_ffma_names():
+    return [f"_ZN12_GLOBAL__N_18fwd_ffmaILi{d}ELb{c}ELb{p}EEEv"
+            "14CUtensorMap_stS1_S1_NS_8FfmaArgsE"
+            for d in (64, 128) for c in (0, 1) for p in (0, 1)]
+
+
+@pytest.mark.parametrize("breakage", [None, "missing", "spilling"])
+def test_ffma_ptxas_gate_counts_the_forward_instantiations(cs, breakage):
+    """flash_attn_fwd's build must report fwd_ffma's 8 instantiations
+    (head_dim x causal x dropout), none spilling; the bf16 kernels of
+    the same source do not count, and sources without FFMA kernels pass
+    unchecked."""
+    names = [(n, 0, 0) for n in _fwd_ffma_names()]
+    names.append(("_ZN12_GLOBAL__N_19fwd_wgmmaILi64ELb0ELb0EEEv", 0, 0))
+    if breakage == "missing":
+        names.pop(0)
+    elif breakage == "spilling":
+        names[3] = (names[3][0], 8, 8)
+    got = cs.ffma_ptxas_failure("flash_attn_fwd", _ptxas_log(names))
+    if breakage is None:
+        assert got is None
+    else:
+        assert "want 8" in got
+        assert (names[3][0] in got) == (breakage == "spilling")
+    assert cs.ffma_ptxas_failure("nms", _ptxas_log(names[:1])) is None
+
+
+def test_ffma_ptxas_gate_counts_the_backward_instantiations(cs):
+    """flash_attn_bwd's build must report dq_ffma's and dkv_ffma's 16
+    instantiations, none spilling."""
+    names = [(f"_ZN12_GLOBAL__N_1{len(k)}{k}ILi{d}ELb{c}ELb{p}EEEv7BwdArgs",
+              0, 0) for k in ("dq_ffma", "dkv_ffma") for d in (64, 128)
+             for c in (0, 1) for p in (0, 1)]
+    assert cs.ffma_ptxas_failure("flash_attn_bwd", _ptxas_log(names)) is None
+    assert "want 16" in cs.ffma_ptxas_failure("flash_attn_bwd",
+                                              _ptxas_log(names[1:]))
+
+
+def test_profile_categories_file_the_ffma_forward_under_attention(cs):
+    """The f32 forward at 64 and 128 (fwd_ffma) and the FFMA backward
+    count as flash attention in a profile's categories, and as
+    flash_attn_fwd's launches."""
+    name = ("void (anonymous namespace)::fwd_ffma<64, false, true>"
+            "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, FfmaArgs)")
+    for kernel in (name, name.replace("fwd_ffma", "dq_ffma"),
+                   name.replace("fwd_ffma", "dkv_ffma")):
+        got = next(c for c, keys in cs.PROFILE_CATEGORIES
+                   if any(k in kernel for k in keys))
+        assert got == "flash attention kernels"
+    assert cs.kernel_launches([name])["flash_attn_fwd"] == 1
+
+
 def test_encoder_wide_gates_take_its_routes(cs):
     """encoder_wide's replay must run the three wgmma kernels above 256
     once each: the head_dim-256 routes there are a failure."""
@@ -2039,13 +2151,13 @@ def _captured_row(layers=12, routes=None):
     ("replay", "bit-equal"), ("nan", "non-finite")])
 def test_captured_train_f32_gates_take_its_routes(cs, breakage, word):
     """captured_train_f32 is ERNIE-base's captured step in f32 (no AMP):
-    a replay must run the f32 forward and the FFMA dQ and dK/dV
-    (F32_TRAIN_ROUTES) 12 times each, and fails on a bf16 wgmma kernel
-    or the old SIMT dQ in a replay, a launch count other than 12, a
+    a replay must run the FFMA forward, dQ and dK/dV (F32_TRAIN_ROUTES)
+    12 times each, and fails on a bf16 wgmma kernel or the old SIMT dQ
+    in a replay, a launch count other than 12, a
     second graph, a replay that is not bit-equal, and a non-finite
     loss."""
     routes = cs.F32_TRAIN_ROUTES
-    assert routes == {"flash_attn_fwd": "flash_fwd_simt",
+    assert routes == {"flash_attn_fwd": "fwd_ffma",
                       "flash_attn_bwd_dq": "dq_ffma",
                       "flash_attn_bwd_dkv": "dkv_ffma"}
     assert cs.BASE["num_hidden_layers"] == 12
@@ -2054,9 +2166,8 @@ def test_captured_train_f32_gates_take_its_routes(cs, breakage, word):
         row["routes_per_replay"]["dq_wgmma"] = 12
         del row["routes_per_replay"]["dq_ffma"]
     elif breakage == "old_dq":
-        # the SIMT dQ the FFMA one replaced: the forward's suffix on dq_
-        old = "dq_" + routes["flash_attn_fwd"].rsplit("_", 1)[1]
-        row["routes_per_replay"] = {"flash_fwd_simt": 12, old: 12,
+        # the SIMT dQ the FFMA one replaced
+        row["routes_per_replay"] = {"fwd_ffma": 12, "dq_simt": 12,
                                     "dkv_ffma": 12}
     elif breakage == "launches":
         row["launches_per_replay"]["flash_attn_bwd_dkv"] = 11

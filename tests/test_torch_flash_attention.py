@@ -224,6 +224,28 @@ def test_bf16_forward_launches_the_wgmma_entry_on_fused_views(monkeypatch,
     assert lse.shape == (b, n, s) and lse.dtype == torch.float32
 
 
+@pytest.mark.parametrize("h", [64, 128])
+def test_f32_forward_launches_fwd_ffma_on_fused_views(monkeypatch, h):
+    """f32 at 64 and 128 on fused qkv views: one call of
+    pt_flash_attn_fwd (fwd_ffma, which reads whole 16-byte rows) with the
+    views' own pointers and strides, no copy; O f32 [b, sq, n, h] and
+    lse f32 [b, n, sq] allocated by the wrapper."""
+    calls = _record_launches(monkeypatch)
+    b, s, n = 2, 24, 3
+    qkv = _bf16(b, s, 3, n, h).float()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, lse = fa._flash_fwd_cuda(q, k, v, True, 0.125, 0.1, 3)
+    assert len(calls) == 1
+    lib, fn, args = calls[0]
+    assert (lib, fn) == ("flash_attn_fwd", "pt_flash_attn_fwd")
+    assert args[:5] == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr()]
+    assert args[5:11] == [0, b, n, s, s, h]
+    assert args[11:20] == [s * 3 * n * h, 3 * n * h, h] * 3
+    assert o.shape == (b, s, n, h) and o.dtype == torch.float32
+    assert lse.shape == (b, n, s) and lse.dtype == torch.float32
+
+
 def test_bf16_forward_copies_only_what_tma_cannot_read(monkeypatch):
     """A view whose heads lie outside its rows goes in as a packed copy;
     the other two inputs, fused views, go in as they are."""
@@ -317,7 +339,7 @@ def test_f32_kernel_input_above_256_is_16_byte_aligned(make, copied):
     and dkv_ffma at 64 and 128): a view whose base or strides are not
     whole 16-byte multiples is copied into fresh packed memory."""
     t = make()
-    got = fa._kernel_input(t, "pt_flash_attn_bwd_dq")
+    got = fa._kernel_input(t)
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
     assert fa._tma_ok(got)
@@ -328,20 +350,21 @@ def test_f32_kernel_input_above_256_is_16_byte_aligned(make, copied):
     (lambda: torch.randn(2, 8, 2, 256), False),              # packed
     (lambda: _f32_odd_offset(256), True),                    # base not 16 B
     (lambda: torch.randn(2, 8, 2, 257)[..., :256], True),    # rows not 16 B
-    (lambda: _f32_odd_offset(128), False),                   # below 256
+    (lambda: _f32_odd_offset(128), True),                    # below 256
+    (lambda: torch.randn(2, 8, 3, 2, 64)[:, :, 2], False),   # view at 64
+    (lambda: torch.randn(2, 8, 2, 66)[..., :64], True),      # 264-byte rows
 ])
 def test_f32_forward_input_from_256_is_16_byte_aligned(make, copied):
-    """From head_dim 256 the f32 forward (csrc/flash_attn_wide.cu's
-    cluster forward, at 256 too) copies whole 16-byte rows into shared
-    memory: a view whose base or strides are not whole 16-byte multiples
-    is copied into fresh packed memory; below 256 the f32 forward reads
-    any view with a unit head_dim stride as it is."""
+    """At every head_dim the f32 forward copies whole 16-byte rows into
+    shared memory (csrc/flash_attn_wide.cu's cluster forward from 256,
+    csrc/flash_attn_fwd.cu's fwd_ffma at 64 and 128): a view whose base
+    or strides are not whole 16-byte multiples is copied into fresh
+    packed memory, and the fused qkv views go in as they are."""
     t = make()
-    got = fa._kernel_input(t, "pt_flash_attn_fwd")
+    got = fa._kernel_input(t)
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
-    if t.shape[3] >= 256:
-        assert fa._tma_ok(got)
+    assert fa._tma_ok(got)
 
 
 @pytest.mark.parametrize("fn,h,dtype,want", [

@@ -219,7 +219,7 @@ def test_kernel_input_copies_what_tma_cannot_read(make, copied):
     outside its rows, is copied into fresh packed memory; the fused qkv
     views and packed tensors go in as they are."""
     t = make()
-    got = fa._kernel_input(t, "pt_flash_attn_bwd_dq")
+    got = fa._kernel_input(t)
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
     assert fa._tma_ok(got)
@@ -230,31 +230,27 @@ def _f32(*shape, seed=0):
 
 
 @pytest.mark.parametrize("h", [64, 128])
-@pytest.mark.parametrize("make,copied,fwd_copied", [
-    (lambda h: _f32(2, 16, 3, 2, h)[:, :, 1], False, False),  # qkv view
-    (lambda h: _f32(2, 16, 2, h), False, False),              # packed
+@pytest.mark.parametrize("make,copied", [
+    (lambda h: _f32(2, 16, 3, 2, h)[:, :, 1], False),         # qkv view
+    (lambda h: _f32(2, 16, 2, h), False),                     # packed
     (lambda h: _f32(1 + 2 * 16 * 2 * h)[1:].view(2, 16, 2, h),
-     True, False),                                            # base 4 B off
-    (lambda h: _f32(2, 16, 2, h + 2)[..., :h], True, False),  # rows 8 B off
-    (lambda h: _f32(2, 2, 16, h).transpose(1, 2), True, False),  # heads out
-    (lambda h: _f32(2, 16, 2, 2 * h)[..., ::2], True, True),  # h stride 2
+     True),                                                   # base 4 B off
+    (lambda h: _f32(2, 16, 2, h + 2)[..., :h], True),         # rows 8 B off
+    (lambda h: _f32(2, 2, 16, h).transpose(1, 2), True),      # heads out
+    (lambda h: _f32(2, 16, 2, 2 * h)[..., ::2], True),        # h stride 2
 ])
-def test_kernel_input_f32_copies_what_bulk_copies_cannot_read(h, make, copied,
-                                                              fwd_copied):
-    """The f32 backward kernels at 64 and 128 copy whole 16-byte rows by
-    the bulk copy engine (and read O and dO as float4 rows): a view whose
-    base or row strides are not 16-byte multiples, or whose heads lie
-    outside its rows, is copied; the fused qkv views and packed tensors
-    go in as they are. The f32 forward there reads scalars and copies
-    only a view whose head_dim stride is not 1."""
+def test_kernel_input_f32_copies_what_bulk_copies_cannot_read(h, make,
+                                                              copied):
+    """The f32 kernels at 64 and 128 (the forward fwd_ffma, the backward
+    dq_ffma and dkv_ffma) copy whole 16-byte rows by the bulk copy engine
+    (and the dQ kernel reads O and dO as float4 rows): a view whose base
+    or row strides are not 16-byte multiples, or whose heads lie outside
+    its rows, is copied; the fused qkv views and packed tensors go in as
+    they are."""
     t = make(h)
-    for fn in ("pt_flash_attn_bwd_dq", "pt_flash_attn_bwd_dkv"):
-        got = fa._kernel_input(t, fn)
-        assert (got.data_ptr() != t.data_ptr()) == copied, fn
-        assert torch.equal(got, t) and fa._tma_ok(got)
-    got = fa._kernel_input(t, "pt_flash_attn_fwd")
-    assert (got.data_ptr() != t.data_ptr()) == fwd_copied
-    assert torch.equal(got, t) and got.stride(3) == 1
+    got = fa._kernel_input(t)
+    assert (got.data_ptr() != t.data_ptr()) == copied
+    assert torch.equal(got, t) and fa._tma_ok(got)
 
 
 def test_tma_strides_give_size_one_dims_a_packed_stride():
