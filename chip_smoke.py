@@ -253,7 +253,7 @@ Phases, each of which fails the run on any mismatch:
    sums up what the captures above showed.
 
 24. Captured generate (`generate_capture`): GPT-2 small generate() at
-   GEN_SHAPE in each of GEN_MODES (greedy; temperature 0.8 with top-k
+   GEN_CAPTURE_SHAPE in each of GEN_MODES (greedy; temperature 0.8 with top-k
    50, top-p 0.9, both; ragged prompt lengths; beam 4 with an eos), bf16
    and f32. The first call of a signature captures its programs
    (prefill, decode step, finish); a second call replays them and must
@@ -334,7 +334,8 @@ Phases, each of which fails the run on any mismatch:
    paddle_tpu_torch.distributed.launch --elastic` and
    paddle_tpu_torch/distributed/elastic_worker.py, checkpoints in a
    temporary directory: a control run, a run with chaos `kill` at step
-   5 and one with `corrupt_ckpt` at step 6. Each chaos run leaves one
+   5 and one with `corrupt_ckpt` at step 6, side by side on the card
+   (each its own launcher, worker and directory). Each chaos run leaves one
    respawn receipt with verdict crash, resumes from the newest intact
    checkpoint (printed), and its losses after the resume and its final
    checkpoint's manifest crc32s (params, moments, seed stream, step
@@ -693,6 +694,9 @@ CE_CHECK = dict(n=4096, d=768, vocab=30528, block=2048)
 # run against the unrolled one's at the same step
 CE_LOSS_RTOL, SCAN_RTOL = 1e-4, 1e-5
 GEN_SHAPE = (8, 128, 128)       # bench.py:308: batch, prompt, new tokens
+# generate_capture's rows: GEN_SHAPE at half its new tokens (each row runs
+# the eager loop once or twice and profiles a whole captured call)
+GEN_CAPTURE_SHAPE = (8, 128, 64)
 GEN_CHECK = (2, 32, 16)         # f32 greedy against full re-forwards
 SERVE_CONFIG = dict(max_slots=16, max_admit=4, block_size=16, n_blocks=257,
                     prefill_buckets=(32, 64, 128), decode_buckets=(4, 8, 16),
@@ -738,17 +742,30 @@ def emit(obj):
 
 class _PhaseClock:
     """Seconds of each stretch of the run (phase_seconds, printed with
-    the kernels line), for keeping the whole run inside its time
-    limit."""
+    the kernels line) and of each phase inside it (step_seconds), for
+    keeping the whole run inside its time limit; each stretch's end is
+    also written to stderr with the seconds since the clock started, so
+    a run that is cut shows how far it got."""
 
     def __init__(self):
-        self.t = time.perf_counter()
-        self.laps = {}
+        self.t0 = self.t = self.s = time.perf_counter()
+        self.laps, self.steps = {}, {}
+
+    def step(self, name):
+        now = time.perf_counter()
+        self.steps[name] = round(now - self.s, 1)
+        self.s = now
 
     def lap(self, name):
         now = time.perf_counter()
+        if now - self.s >= 0.05:
+            self.step(name)
+        self.s = now
         self.laps[name] = round(now - self.t, 1)
         self.t = now
+        print(f"chip_smoke: {name} took {self.laps[name]} s, "
+              f"{round(now - self.t0, 1)} s in all", file=sys.stderr,
+              flush=True)
 
 
 def fail(msg):
@@ -2134,6 +2151,64 @@ def graph_while_phase(torch, pt):
     return row
 
 
+def collatz_static(x):
+    """The Collatz loop of graph_while_phase written as plain Python (a
+    tensor-dependent `while`), for to_static's AST conversion
+    (paddle_tpu_torch/jit/dy2static.py): (final values, steps per lane,
+    trips)."""
+    c = x * 0
+    t = c[:1].sum()
+    live = x != 1
+    nxt = x
+    while (x != 1).any():
+        live = x != 1
+        nxt = (x // 2).where(x % 2 == 0, 3 * x + 1)
+        x = nxt.where(live, x)
+        c = c + live.to(c.dtype)
+        t = t + 1
+    return x, c, t
+
+
+def to_static_while_phase(torch, pt):
+    """to_static over collatz_static on the card with grad off: the first
+    call is the warm-up (the `while` runs on the host, reading the
+    predicate) and the capture, where dy2static's while_ goes to
+    ops/control_flow.py while_loop, a conditional WHILE node
+    (csrc/graph_while.cu); every replay on COLLATZ_INPUTS (different trip
+    counts, one signature, one graph) equals the eager function. Times:
+    a replay against the eager function."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.ops import control_flow as tcf
+    dev = torch.device("cuda", 0)
+    fn = to_static(collatz_static)
+    before = dict(tcf.launches)
+    rows = []
+    with torch.no_grad():
+        for vals in COLLATZ_INPUTS:
+            inp = torch.tensor(vals, dtype=torch.int64, device=dev)
+            got = [t.clone() for t in fn(inp)]
+            want = collatz_static(inp)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            rows.append(dict(inputs=vals, steps=got[1].tolist(),
+                             trips=int(got[2]), equal_to_eager=same))
+        recorded = {k: tcf.launches[k] - before[k] for k in tcf.launches}
+        inp = torch.tensor(COLLATZ_INPUTS[-1], dtype=torch.int64,
+                           device=dev)
+        ms = time_ms(lambda: fn(inp), reps=COLLATZ_TIMED)
+        eager_ms = time_ms(lambda: collatz_static(inp), reps=3, warmup=1)
+    row = dict(rows=rows, graphs=fn.programs, captures=fn.captures,
+               replays=fn.replays, set_condition_launches_captured=recorded,
+               replay_ms=ms, eager_ms=eager_ms)
+    emit({"to_static_while": row})
+    bad = [r for r in rows if not r["equal_to_eager"]]
+    if bad or fn.programs != 1 or fn.captures != 1 or \
+            not recorded["graph_while_set_condition"] or \
+            len(set(r["trips"] for r in rows)) < 3:
+        fail(f"to_static_while: {row}")
+    fn.release()
+    return row
+
+
 def head_pad_phase(torch, fa):
     """flash_attention_fwd (the autograd entry MultiHeadAttention
     reaches) at each of PAD_HEAD_DIMS, f32 at p 0 and bf16 at p DROP_P,
@@ -2576,7 +2651,7 @@ PAD_KERNEL = "spin_kernel"
 PROFILED_REPLAYS, PROFILE_ROUNDS = 2, 3
 
 
-def device_profile(torch, fn, runs, pad=PROFILE_PAD):
+def device_profile(torch, fn, runs, pad=PROFILE_PAD, *, kernels=()):
     """torch.profiler over `runs` calls of fn (after one unprofiled
     call; with pad, that many empty spin kernels launched first inside
     the window, to take the records the profiler can lose at its start;
@@ -2586,7 +2661,8 @@ def device_profile(torch, fn, runs, pad=PROFILE_PAD):
     flash-attention kernels launched, and `device_events`, every device
     event (kernels, copies, sets; not the host ops that launched
     them), and `routes`, the launches of each kernel name of
-    KERNEL_EVENTS (a wgmma or a SIMT route)."""
+    KERNEL_EVENTS (a wgmma or a SIMT route); with `kernels`, the
+    launches of each device kernel name fragment in it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2621,7 +2697,9 @@ def device_profile(torch, fn, runs, pad=PROFILE_PAD):
                         for keys in KERNEL_EVENTS.values() for key in keys},
                 nccl_launches=sum(1 for n, _ in events if is_nccl(n)),
                 nccl_names=sorted({n[:90] for n, _ in events if is_nccl(n)}),
-                device_events=len(events))
+                device_events=len(events),
+                **({"kernels": {k: sum(1 for n, _ in events if k in n)
+                                for k in kernels}} if kernels else {}))
 
 
 def max_counts(rounds):
@@ -2633,33 +2711,46 @@ def max_counts(rounds):
     return {k: max(r[k] for r in rounds) for k in rounds[0]}
 
 
-def profile_step(torch, step, x, y, runs=PROFILED_REPLAYS):
-    """device_profile over `runs` replays of a captured TrainStep, in
-    PROFILE_ROUNDS rounds; the profile is the round with the most device
-    events, `launches_per_replay` the flash-attention kernels a replay
-    ran, counted on the card (a replay does not pass through the
-    wrappers; max_counts over the rounds), `routes_per_replay` the same
-    by kernel name (KERNEL_EVENTS). Fails unless every profiled
-    call was a replay, the profiler saw device time inside them and a
-    replay ran the launches its capture recorded
-    (TrainStep.capture_launches)."""
-    before = step.replays
-    rounds = [device_profile(torch, lambda: step(x, y), runs)
+def profile_calls(torch, fn, counter, runs=PROFILED_REPLAYS, kernels=()):
+    """device_profile over `runs` calls of fn (a captured program's, whose
+    replays `counter()` counts) in PROFILE_ROUNDS rounds. Fails unless
+    every profiled call was a replay and the profiler saw device time
+    inside them. Returns the round with the most device events, with
+    each kernel's largest count over the rounds per call
+    (`launches_per_replay`, `routes_per_replay`, and in
+    `kernels_per_replay` each device kernel name of `kernels`)."""
+    before = counter()
+    rounds = [device_profile(torch, fn, runs, kernels=kernels)
               for _ in range(PROFILE_ROUNDS)]
     calls = PROFILE_ROUNDS * (runs + 1)
-    if step.replays - before != calls:
-        fail(f"profile_step: {step.replays - before} of {calls} calls "
-             "were replays")
+    if counter() - before != calls:
+        fail(f"profile_calls: {counter() - before} of {calls} calls were "
+             "replays")
     prof = max(rounds, key=lambda r: r["device_events"])
     if prof["device_ms"] <= 0:
-        fail("torch.profiler saw no device time inside a replay of the "
-             "captured step")
+        fail("torch.profiler saw no device time inside a replay")
     prof["kernel_launches"] = max_counts([r["kernel_launches"]
                                           for r in rounds])
     prof["routes"] = max_counts([r["routes"] for r in rounds])
     prof["device_events_by_round"] = [r["device_events"] for r in rounds]
     prof["launches_per_replay"] = per_call(prof["kernel_launches"], runs)
     prof["routes_per_replay"] = per_call(prof["routes"], runs)
+    prof["kernels_per_replay"] = per_call(
+        max_counts([r["kernels"] for r in rounds]), runs) if kernels else {}
+    return prof
+
+
+def profile_step(torch, step, x, y, runs=PROFILED_REPLAYS):
+    """profile_calls over `runs` replays of a captured TrainStep: the
+    profile is the round with the most device events,
+    `launches_per_replay` the flash-attention kernels a replay ran,
+    counted on the card (a replay does not pass through the wrappers;
+    max_counts over the rounds), `routes_per_replay` the same by kernel
+    name (KERNEL_EVENTS). Fails unless every profiled call was a
+    replay, the profiler saw device time inside them and a replay ran
+    the launches its capture recorded (TrainStep.capture_launches)."""
+    prof = profile_calls(torch, lambda: step(x, y), lambda: step.replays,
+                         runs)
     if prof["launches_per_replay"] != step.capture_launches:
         fail(f"a replay ran {prof['launches_per_replay']} kernels, its "
              f"capture recorded {step.capture_launches}")
@@ -3586,7 +3677,7 @@ def _gen_call(torch, model, ids, kw, eager):
 
 
 def generate_capture_phase(torch, pt, model):
-    """Captured generate on GPT-2 small at GEN_SHAPE, each mode of
+    """Captured generate on GPT-2 small at GEN_CAPTURE_SHAPE, each mode of
     GEN_MODES in bf16 and f32: the first call captures the signature's
     programs (prefill, step, finish), a second call replays them and is
     held bit-equal to the eager loop (eager=True) from the same seed,
@@ -3598,7 +3689,7 @@ def generate_capture_phase(torch, pt, model):
     import numpy as np
     from paddle_tpu_torch.models.generation import generate_programs
     vocab = GPT2["vocab_size"]
-    b, p, n = GEN_SHAPE
+    b, p, n = GEN_CAPTURE_SHAPE
     rng = np.random.RandomState(SEED + 9)
     ids = torch.from_numpy(rng.randint(0, vocab, (b, p))).cuda()
     lens = torch.from_numpy(rng.randint(1, p + 1, b))
@@ -4337,12 +4428,414 @@ def captured_train_gates(row, routes=None):
     return bad
 
 
+# the static Program phase (static_train): the Executor's run seeds, the
+# wrapper calls a signature's first run counts, and the f32 routes
+STATIC_SEEDS = [SEED + 400 + i for i in range(4)]
+STATIC_PARITY_STEPS = 2
+
+
+def _ernie_program(pt, model, b, s, opt):
+    """ERNIE-base's forward and pretraining loss recorded into a static
+    Program from static.data feeds ("ids", "labels" [b, s] int64), with
+    opt.minimize(loss): (program, loss var)."""
+    from paddle_tpu_torch import static
+    main = static.Program()
+    with static.program_guard(main):
+        ids = static.data("ids", [b, s], "int64")
+        labels = static.data("labels", [b, s], "int64")
+        loss = _ernie_loss(model(ids), labels)
+        opt.minimize(loss)
+    return main, loss
+
+
+def _adamw(pt, model):
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                 weight_decay=0.01)
+
+
+def _set_dropout(model, p):
+    """Every dropout of an ERNIE model (hidden and attention) at p."""
+    for m in model.modules():
+        if type(m).__name__ == "Dropout":
+            m.p = p
+        if hasattr(m, "dropout_p"):
+            m.dropout_p = p
+
+
+def static_train_gates(row):
+    bad = []
+    if not (row["graph_losses"] == row["eager_losses"]
+            and row["params_bit_equal"]):
+        bad.append(f"the captured runs are not bit-equal to the "
+                   f"Executor's eager replay: {row['graph_losses']} against "
+                   f"{row['eager_losses']}, parameters max abs diff "
+                   f"{row['params_max_abs_diff']}")
+    want = {k: row["layers"] for k in KERNEL_EVENTS}
+    for what in ("warmup_launches", "launches_per_eager_step",
+                 "launches_per_replay"):
+        if row[what] != want:
+            bad.append(f"{what} {row[what]}, expected {want}")
+    want_r = {name: row["layers"] for name in F32_TRAIN_ROUTES.values()}
+    if row["routes_per_replay"] != want_r:
+        bad.append(f"a replay ran {row['routes_per_replay']}, expected "
+                   f"{want_r}")
+    if row["flash_attention_nodes"] != row["layers"] or row["graphs"] != 1:
+        bad.append(f"{row['flash_attention_nodes']} flash-attention nodes, "
+                   f"{row['graphs']} graphs")
+    par = row["trainstep_parity"]
+    if not (par["loss_max_rel_diff"] <= TOL["float32"]
+            and par["params_max_abs_diff"] <= TOL["float32"]):
+        bad.append(f"the dropout-0 Executor steps differ from TrainStep's: "
+                   f"{par}")
+    if not all(math.isfinite(v) for v in row["graph_losses"]):
+        bad.append(f"non-finite losses {row['graph_losses']}")
+    return bad
+
+
+def static_train_phase(torch, pt, fa, f32_row):
+    """ERNIE-base (BASE) trained by the static Executor: its forward and
+    pretraining loss recorded under program_guard from static.data feeds
+    at TRAIN_BATCH, AdamW's minimize, f32 (no AMP stage), dropout 0.1;
+    Executor() on the card runs the first call as the warm-up and
+    captures the step as one CUDA graph, then replays it. Held: 4 runs
+    (STATIC_SEEDS) bit-equal, losses and every parameter, to the
+    Executor's own eager replay from the same start state; each of
+    fwd_ffma, dq_ffma and dkv_ffma 12 times a step (the warm-up's and an
+    eager run's wrapper counts, a replay's kernels by name on the card);
+    12 flash-attention nodes in the Program; and, with every dropout at
+    0, STATIC_PARITY_STEPS Executor steps against the port's TrainStep f32
+    steps from the same weights (losses and parameters within
+    TOL["float32"]). Printed: step ms, device ms and peak memory beside
+    captured_train_f32's."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import TrainStep
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    model = _train_model(pt, "ernie")
+    layers = model.config.num_hidden_layers
+    b, s = TRAIN_BATCH
+    x, y = _train_batch(torch, model.config.vocab_size, b, s, "cuda")
+    feed = {"ids": x, "labels": y}
+    opt = _adamw(pt, model)
+    for p in model.parameters():
+        opt._state_of(p)           # the state exists before the first run
+    p0 = [p.detach().clone() for p in model.parameters()]
+    o0 = opt.state_dict()
+    tr = time.perf_counter()
+    main, loss = _ernie_program(pt, model, b, s, opt)
+    record_s = time.perf_counter() - tr
+    flash_nodes = sum(1 for n in main.ops
+                      if (n.op_type or "").endswith(".flash_attention"))
+    n_ops = len(main.ops)
+    exe = static.Executor()
+    _zero(fa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph_losses = []
+    for sd in STATIC_SEEDS:
+        graph_losses.append(float(exe.run(main, feed, [loss], seed=sd)[0]))
+        if len(graph_losses) == 1:
+            warm = dict(exe.last_launches)
+            peak = torch.cuda.max_memory_allocated()
+    graph_params = [p.detach().clone() for p in model.parameters()]
+
+    def restore():
+        with torch.no_grad():
+            for p, v in zip(model.parameters(), p0):
+                p.copy_(v)
+        opt.set_state_dict(o0)
+    restore()
+    eager_losses = [float(exe.eager_run(main, feed, [loss], seed=sd)[0])
+                    for sd in STATIC_SEEDS]
+    eager_launches = dict(exe.last_launches)
+    eager_params = [p.detach().clone() for p in model.parameters()]
+    params_equal = _bit_equal(graph_params, eager_params)
+    param_diff = _max_abs_diff(graph_params, eager_params)
+    del graph_params, eager_params
+    prof = profile_calls(torch, lambda: exe.run(main, feed, [loss]),
+                         lambda: exe.replays)
+    launches = _sum_launches([warm, prof["kernel_launches"]])
+    for _ in range(CAPTURE_WARMUP):
+        exe.run(main, feed, [loss])
+    torch.cuda.synchronize()
+    tt = time.perf_counter()
+    for _ in range(CAPTURE_STEPS):
+        exe.run(main, feed, [loss])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - tt) / CAPTURE_STEPS * 1e3
+    eager_ms = time_ms(lambda: exe.eager_run(main, feed, [loss]), reps=2,
+                       warmup=1)
+    graphs, captures, replays = exe.programs, exe.captures, exe.replays
+    exe.close()
+    del main, loss
+    torch.cuda.empty_cache()
+    # dropout 0: the Executor's steps against TrainStep's from p0
+    _set_dropout(model, 0.0)
+    restore()
+    opt_a = _adamw(pt, model)
+    main0, loss0 = _ernie_program(pt, model, b, s, opt_a)
+    exe0 = static.Executor()
+    exec_losses = [float(exe0.run(main0, feed, [loss0])[0])
+                   for _ in range(STATIC_PARITY_STEPS)]
+    exec_params = [p.detach().clone() for p in model.parameters()]
+    exe0.close()
+    del main0, loss0
+    torch.cuda.empty_cache()
+    restore()
+    step = TrainStep(model, _ernie_loss, _adamw(pt, model), amp_level=None)
+    ts_losses = [float(step(x, y)) for _ in range(STATIC_PARITY_STEPS)]
+    ts_params = [p.detach().clone() for p in step.params]
+    step.release()
+    parity = dict(dropout=0.0, steps=STATIC_PARITY_STEPS,
+                  executor_losses=exec_losses, trainstep_losses=ts_losses,
+                  loss_max_rel_diff=max(_rel_diff(a, e) for a, e in
+                                        zip(exec_losses, ts_losses)),
+                  params_max_abs_diff=_max_abs_diff(exec_params, ts_params),
+                  tol=TOL["float32"])
+    del exec_params, ts_params, step, model, opt, p0
+    torch.cuda.empty_cache()
+    row = dict(card=nvidia_smi(), model="ERNIE-base", batch=b, seq=s,
+               amp="none (float32)", dropout=0.1, layers=layers,
+               program_ops=n_ops, flash_attention_nodes=flash_nodes,
+               record_s=record_s, graphs=graphs, captures=captures,
+               replays=replays, warmup_launches=warm,
+               launches_per_eager_step=eager_launches,
+               launches_per_replay=prof["launches_per_replay"],
+               routes_per_replay={k: v for k, v in
+                                  prof["routes_per_replay"].items() if v},
+               launches=launches, counted_calls=COUNTED_CALLS,
+               step_seeds=STATIC_SEEDS, graph_losses=graph_losses,
+               eager_losses=eager_losses, params_bit_equal=params_equal,
+               params_max_abs_diff=param_diff, step_ms=step_ms,
+               device_ms_per_step=prof["device_ms"],
+               idle_share=max(0.0, 1.0 - prof["device_ms"] / step_ms),
+               peak_memory_bytes=peak, peak_above_base_bytes=peak - base,
+               eager_step_ms=eager_ms,
+               captured_train_f32=dict(
+                   step_ms=f32_row["step_ms"],
+                   device_ms_per_step=f32_row["device_ms_per_step"],
+                   peak_memory_bytes=f32_row["peak_memory_bytes"]),
+               trainstep_parity=parity, profile=_profile_row(prof, top=8),
+               seconds=time.perf_counter() - t0)
+    bad = static_train_gates(row)
+    row["ok"] = not bad
+    emit({"static_train": row})
+    if bad:
+        fail("static_train: " + "; ".join(bad))
+    return row
+
+
+# the predictor phase: YOLOv3 at YOLO_SERVE's batch and size through
+# save_inference_model; ERNIE-base f32 inference through to_static,
+# jit.save with a None batch dim, jit.load and a Predictor at two batches
+PREDICT_ERNIE = ((32, 128), (16, 128))
+PREDICT_TIMED = 10
+NMS_KERNEL = "nms_greedy_kernel"
+
+
+def _yolo_serving_layer(pt, model, c):
+    """forward plus predict(nms_type="hard") of `model` as one Layer."""
+    import torch
+
+    class ServingYOLO(pt.nn.Layer):
+        def __init__(self, det):
+            super().__init__()
+            self.det = det
+
+        def forward(self, images):
+            im = torch.full((images.shape[0], 2), c["size"],
+                            dtype=torch.int32, device=images.device)
+            return self.det.predict(
+                self.det(images), im, conf_thresh=c["conf_thresh"],
+                nms_threshold=c["nms_threshold"],
+                keep_top_k=c["keep_top_k"], nms_type="hard")
+    return ServingYOLO(model).eval()
+
+
+def predictor_yolo(torch, pt, fa, nms, model, tmp):
+    import numpy as np
+    from paddle_tpu_torch.jit import InputSpec
+    c = YOLO_SERVE
+    serving = _yolo_serving_layer(pt, model, c)
+    rng = np.random.RandomState(SEED + 7)
+    x = torch.from_numpy(rng.randn(c["batch"], 3, c["size"], c["size"])
+                         .astype(np.float32) * 0.1).cuda()
+    with torch.no_grad():
+        ref_d, ref_c = serving(x)
+        eager_ms = time_ms(lambda: serving(x), reps=PREDICT_TIMED)
+    prefix = os.path.join(tmp, "yolo", "inference")
+    t0 = time.perf_counter()
+    pt.static.save_inference_model(
+        prefix, layer=serving,
+        input_spec=[InputSpec([c["batch"], 3, c["size"], c["size"]],
+                              "float32")])
+    save_s = time.perf_counter() - t0
+    pred, feeds, fetches = pt.static.load_inference_model(prefix)
+    _zero(fa)
+    nms.launches["nms_greedy"] = 0
+    dets, counts = pred.run_tensors([x])      # warm-up and capture
+    warm = pred.last_launches["nms_greedy"]
+    runs = [pred.run_tensors([x]) for _ in range(2)]
+    prof = profile_calls(torch, lambda: pred.run_tensors([x]),
+                         lambda: pred.replays, kernels=(NMS_KERNEL,))
+    ms = time_ms(lambda: pred.run_tensors([x]), reps=PREDICT_TIMED)
+    err = max(float((a[0] - ref_d).abs().max()) for a in [(dets,)] + [
+        (r[0],) for r in runs])
+    count_gap = max(int((r[1].long() - ref_c.long()).abs().max())
+                    for r in [(dets, counts)] + runs)
+    row = dict(model="YOLOv3", batch=c["batch"], size=c["size"],
+               feeds=feeds, fetches=fetches, save_s=save_s,
+               graphs=pred.programs, captures=pred.captures,
+               nms_launches_warmup=warm, nms_launches_per_replay=prof[
+                   "kernels_per_replay"][NMS_KERNEL],
+               flash_launches=dict(fa.launches),
+               max_abs_err=err, count_max_gap=count_gap,
+               detections=counts.tolist(), eager_detections=ref_c.tolist(),
+               ms_per_run=ms, eager_ms=eager_ms,
+               device_ms_per_run=prof["device_ms"])
+    pred.release()
+    return row
+
+
+def predictor_ernie(torch, pt, fa, tmp):
+    import numpy as np
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.jit import InputSpec, to_static
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    pt.seed(SEED)
+    model = ErnieForPretraining(ErnieConfig.base(**BASE),
+                                device="cuda").eval()
+    rng = np.random.RandomState(SEED + 11)
+    ids = {bs: torch.from_numpy(rng.randint(
+        0, BASE["vocab_size"], bs).astype(np.int64)).cuda()
+        for bs in PREDICT_ERNIE}
+    with torch.no_grad():
+        refs = {bs: model(ids[bs]) for bs in PREDICT_ERNIE}
+        eager_ms = {f"{b}x{s}": time_ms(lambda: model(ids[(b, s)]),
+                                        reps=PREDICT_TIMED)
+                    for b, s in PREDICT_ERNIE}
+    to_static(model)
+    path = os.path.join(tmp, "ernie", "model")
+    t0 = time.perf_counter()
+    jit.save(model, path, input_spec=[InputSpec([None, PREDICT_ERNIE[0][1]],
+                                                "int64")])
+    save_s = time.perf_counter() - t0
+    if not os.path.exists(path + ".pdmodel"):
+        fail("predictor: jit.save wrote no program for ERNIE-base")
+    loaded = jit.load(path)
+    with torch.no_grad():
+        lo = loaded(ids[PREDICT_ERNIE[0]])
+    loaded_err = float((lo[0] - refs[PREDICT_ERNIE[0]][0]).abs().max())
+    del loaded, lo
+    pred = create_predictor(Config(path))
+    per_sig = {}
+    launches = {k: 0 for k in KERNEL_EVENTS}
+    for bs in PREDICT_ERNIE:
+        out = pred.run_tensors([ids[bs]])          # warm-up and capture
+        warm = {k: pred.last_launches[k] for k in KERNEL_EVENTS}
+        again = pred.run_tensors([ids[bs]])
+        prof = profile_calls(torch, lambda: pred.run_tensors([ids[bs]]),
+                             lambda: pred.replays)
+        ref = refs[bs]
+        errs = [max(float((o - r).abs().max()) for o, r in zip(got, ref))
+                for got in (out, again)]
+        scale = max(float(r.abs().max()) for r in ref)
+        per_sig[f"{bs[0]}x{bs[1]}"] = dict(
+            warmup_launches=warm,
+            launches_per_replay=prof["launches_per_replay"],
+            routes_per_replay={k: v for k, v in
+                               prof["routes_per_replay"].items() if v},
+            max_abs_err=max(errs), max_abs_ref=scale,
+            ms_per_run=time_ms(lambda: pred.run_tensors([ids[bs]]),
+                               reps=PREDICT_TIMED),
+            device_ms_per_run=prof["device_ms"])
+        for k in launches:
+            launches[k] += warm[k] + prof["kernel_launches"][k]
+    row = dict(model="ERNIE-base", dtype="float32",
+               layers=BASE["num_hidden_layers"], save_s=save_s,
+               loaded_max_abs_err=loaded_err, graphs=pred.programs,
+               captures=pred.captures, signatures=per_sig,
+               launches=launches, eager_ms=eager_ms)
+    pred.release()
+    del pred, model, refs
+    torch.cuda.empty_cache()
+    return row
+
+
+def predictor_gates(row):
+    bad = []
+    y = row["yolo"]
+    if y["nms_launches_warmup"] != 1 or y["nms_launches_per_replay"] != 1:
+        bad.append(f"YOLOv3: nms_greedy {y['nms_launches_warmup']} "
+                   f"launches in the warm-up, "
+                   f"{y['nms_launches_per_replay']} a replay")
+    if not y["max_abs_err"] <= 1e-4 or y["count_max_gap"] > 1:
+        bad.append(f"YOLOv3: detections {y['max_abs_err']} from eager, "
+                   f"counts off by {y['count_max_gap']}")
+    if any(y["flash_launches"].values()) or y["graphs"] != 1:
+        bad.append(f"YOLOv3: {y['graphs']} graphs, flash launches "
+                   f"{y['flash_launches']}")
+    e = row["ernie"]
+    layers = e["layers"]
+    if e["graphs"] != len(PREDICT_ERNIE):
+        bad.append(f"ERNIE-base: {e['graphs']} graphs for "
+                   f"{len(PREDICT_ERNIE)} signatures")
+    for sig, r in e["signatures"].items():
+        if r["warmup_launches"]["flash_attn_fwd"] != layers or \
+                r["launches_per_replay"]["flash_attn_fwd"] != layers or \
+                r["routes_per_replay"] != {
+                    F32_TRAIN_ROUTES["flash_attn_fwd"]: layers}:
+            bad.append(f"ERNIE-base {sig}: launches {r}")
+        if not r["max_abs_err"] <= TOL["float32"] * max(1.0,
+                                                        r["max_abs_ref"]):
+            bad.append(f"ERNIE-base {sig}: outputs {r['max_abs_err']} from "
+                       "the eager forward")
+    if not e["loaded_max_abs_err"] <= TOL["float32"] * 10:
+        bad.append(f"ERNIE-base: jit.load's forward "
+                   f"{e['loaded_max_abs_err']} from eager")
+    return bad
+
+
+def predictor_phase(torch, pt, fa, nms, yolo_model):
+    """Two models served through Predictors on the card, each run
+    replaying one CUDA graph per input signature
+    (paddle_tpu_torch/inference): YOLOv3 (YOLO_SERVE's model and shape)
+    as forward plus predict(nms_type="hard") through
+    save_inference_model and load_inference_model, held within 1e-4 of
+    the eager predict with counts equal but for a box at the score
+    threshold (tests/test_yolo.py:183's slack), nms_greedy once a run;
+    ERNIE-base f32 through to_static, jit.save with a None batch dim,
+    jit.load and a Predictor at PREDICT_ERNIE (two signatures, two
+    graphs), fwd_ffma 12 times a run, outputs within TOL["float32"] of
+    the eager forward. Printed: ms a run against the eager ms."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pd_predictor_")
+    try:
+        yolo = predictor_yolo(torch, pt, fa, nms, yolo_model, tmp)
+        torch.cuda.empty_cache()
+        ernie = predictor_ernie(torch, pt, fa, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = dict(card=nvidia_smi(), yolo=yolo, ernie=ernie,
+               seconds=time.perf_counter() - t0)
+    bad = predictor_gates(row)
+    row["ok"] = not bad
+    emit({"predictor": row})
+    if bad:
+        fail("predictor: " + "; ".join(bad))
+    return row
+
+
 # the sentry on ERNIE-base's captured step (sentry_train): the
 # fingerprint period, the replays after the first call (its warm-up and
 # capture), their step seeds, the poisoned leaf's name token (an ffn
 # weight: scope mlp) and the card-against-CPU check's batch (f32)
 SENTRY_K = 4
-SENTRY_REPLAYS = 12
+SENTRY_REPLAYS = 6
 SENTRY_SEEDS = [SEED + 300 + i for i in range(1 + SENTRY_REPLAYS)]
 SENTRY_POISON = "ffn_in"
 SENTRY_CPU_BATCH = (2, 512)
@@ -5139,7 +5632,7 @@ def ernie_determinism_phase(torch, pt):
 # GPT-2 small training under `launch --elastic` and the drill worker: the
 # steps of a run, an async save every ELASTIC_EVERY of them, and the runs:
 # (name, chaos mode, the step it strikes at)
-ELASTIC_STEPS, ELASTIC_EVERY = 8, 2
+ELASTIC_STEPS, ELASTIC_EVERY = 7, 2
 ELASTIC_RUNS = [("control", None, None), ("kill", "kill", 5),
                 ("corrupt_ckpt", "corrupt_ckpt", 6),
                 ("numeric", "nan_grad", 5)]
@@ -5159,33 +5652,10 @@ FLEET_QUEUE_HIGH, FLEET_SHED_DEPTH = 4, 16
 FLEET_MEMORY_SLACK = 64 << 20
 
 
-def _run_group(cmd, env, timeout):
-    """cmd in a process group of its own; on timeout the whole group is
-    killed (the launcher and its workers). (rc, stdout, stderr)."""
-    import signal
-    proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, err = proc.communicate()
-        return 124, out, err
-    return proc.returncode, out, err
-
-
-def _jsonl(path):
-    with open(path) as f:
-        return [json.loads(ln) for ln in f if ln.strip()]
-
-
-def _elastic_run(name, mode, at, tmp):
-    """One `launch --elastic` run of the drill worker on GPT-2 small at
-    GPT_TRAIN_BATCH; returns its incarnations, receipts, progress lines
-    and final manifest (the checkpoint files are removed after)."""
-    import glob
-    import shutil
+def _elastic_start(name, mode, at, tmp):
+    """Start one `launch --elastic` run of the drill worker on GPT-2
+    small at GPT_TRAIN_BATCH in a process group of its own (the launcher
+    and its workers), its output into files under tmp."""
     ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
     env = dict(os.environ, PYTHONPATH=REPO,
                PD_ELASTIC_DIR=os.path.join(tmp, "receipts"),
@@ -5207,23 +5677,68 @@ def _elastic_run(name, mode, at, tmp):
            "--batch", str(b), "--seq", str(s)]
     if mode == "nan_grad":
         cmd += ["--sentry", "--sentry-probe-every", str(ELASTIC_PROBE)]
-    t0 = time.perf_counter()
-    rc, sout, serr = _run_group(cmd, env, ELASTIC_TIMEOUT)
-    secs = time.perf_counter() - t0
-    if rc != 0:
-        fail(f"elastic_train {name}: the launch exited {rc}: "
-             f"{serr[-3000:]}")
+    logs = [open(os.path.join(tmp, f"launch.{k}"), "w")
+            for k in ("out", "err")]
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                            stdout=logs[0], stderr=logs[1],
+                            start_new_session=True)
+    return dict(name=name, mode=mode, at=at, tmp=tmp, proc=proc, logs=logs,
+                t0=time.perf_counter(), rc=None, seconds=None)
+
+
+def _elastic_wait(started, timeout):
+    """Wait for every started run; a group still running after timeout
+    seconds is killed (rc 124). Sets each run's rc and seconds."""
+    import signal
+    deadline = time.perf_counter() + timeout
+    while any(r["rc"] is None for r in started):
+        for r in started:
+            if r["rc"] is None and r["proc"].poll() is not None:
+                r["rc"] = r["proc"].returncode
+                r["seconds"] = time.perf_counter() - r["t0"]
+        if time.perf_counter() > deadline:
+            for r in started:
+                if r["rc"] is None:
+                    os.killpg(r["proc"].pid, signal.SIGKILL)
+                    r["proc"].wait()
+                    r["rc"] = 124
+                    r["seconds"] = time.perf_counter() - r["t0"]
+        time.sleep(0.2)
+    for r in started:
+        for f in r["logs"]:
+            f.close()
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _elastic_result(run):
+    """A finished run's incarnations, receipts, progress lines and final
+    manifest (its temporary directory, checkpoints included, is removed
+    after); None and the end of its stderr if the launch failed."""
+    import glob
+    import shutil
+    tmp = run["tmp"]
+    out = os.path.join(tmp, "out")
+    if run["rc"] != 0:
+        with open(os.path.join(tmp, "launch.err")) as f:
+            err = f.read()[-3000:]
+        shutil.rmtree(tmp, ignore_errors=True)
+        return None, err
     incs = sorted((json.load(open(f)) for f in glob.glob(
         os.path.join(out, "inc*_slot0.json"))),
         key=lambda d: d["incarnation"])
     receipts = [json.load(open(f)) for f in sorted(glob.glob(
         os.path.join(tmp, "receipts", "receipt_*.json")))]
     progress = _jsonl(os.path.join(out, "progress_slot0.jsonl"))
-    with open(os.path.join(ckpt, "slot0.pkl.manifest.json")) as f:
+    with open(os.path.join(tmp, "ckpt", "slot0.pkl.manifest.json")) as f:
         manifest = json.load(f)["leaves"]
     shutil.rmtree(tmp, ignore_errors=True)
-    return dict(name=name, mode=mode, at=at, seconds=secs, incs=incs,
-                receipts=receipts, progress=progress, manifest=manifest)
+    return dict(name=run["name"], mode=run["mode"], at=run["at"],
+                seconds=run["seconds"], incs=incs, receipts=receipts,
+                progress=progress, manifest=manifest), None
 
 
 def _elastic_row(run, control):
@@ -5344,13 +5859,33 @@ def elastic_train_phase(torch):
     step committed stamped unhealthy, a NUMERIC verdict, and the relaunch
     with PD_ROLLBACK_HEALTHY=1 resuming from the newest healthy stamp,
     step 3, bit-equal to the control after it), each with an async save
-    every ELASTIC_EVERY steps into a temporary directory."""
+    every ELASTIC_EVERY steps into a temporary directory. The four runs
+    go side by side on the one card, each with its own launcher, worker
+    and directory; a run's seconds are its own wall time among them."""
+    import signal
     import tempfile
     torch.cuda.empty_cache()
-    runs = {}
-    for name, mode, at in ELASTIC_RUNS:
-        runs[name] = _elastic_run(name, mode, at,
-                                  tempfile.mkdtemp(prefix="pd_elastic_"))
+    t0 = time.perf_counter()
+    started = []
+    try:
+        for name, mode, at in ELASTIC_RUNS:
+            started.append(_elastic_start(
+                name, mode, at, tempfile.mkdtemp(prefix="pd_elastic_")))
+        _elastic_wait(started, ELASTIC_TIMEOUT)
+    except BaseException:
+        for r in started:
+            if r["proc"].poll() is None:
+                os.killpg(r["proc"].pid, signal.SIGKILL)
+        raise
+    wall_s = time.perf_counter() - t0
+    runs, failed = {}, []
+    for r in started:
+        runs[r["name"]], err = _elastic_result(r)
+        if err is not None:
+            failed.append(f"{r['name']}: the launch exited {r['rc']}: "
+                          f"{err}")
+    if failed:
+        fail("elastic_train: " + "; ".join(failed))
     control = runs["control"]
     rows, bad = [], []
     for name, _, _ in ELASTIC_RUNS:
@@ -5364,6 +5899,7 @@ def elastic_train_phase(torch):
         card=nvidia_smi(), model="GPT-2 small", batch=GPT_TRAIN_BATCH,
         amp="O1 bfloat16", dropout=GPT_TRAIN["dropout"],
         steps=ELASTIC_STEPS, save_every=ELASTIC_EVERY,
+        runs_side_by_side=len(started), wall_s=wall_s,
         checkpoint_bytes=saves[0]["bytes"] if saves else None,
         save_block_ms=[s["block_ms"] for s in saves],
         save_join_ms=[s["join_ms"] for s in saves],
@@ -9093,53 +9629,72 @@ def main():
     clock = _PhaseClock()
     cases = kernel_phase(torch, fa)
     bwd_cases = bwd_kernel_phase(torch, fa, philox)
+    clock.step("kernel_and_bwd_kernel")
     probes = mask_probe_phase(torch, fa)
     pad_cases = head_pad_phase(torch, fa)
+    clock.step("mask_probe_and_head_pad")
     d256_cases = d256_kernel_phase(torch, fa)
     d256_probes = d256_mask_probe_phase(torch, fa)
+    clock.step("d256_kernel")
     enc256 = encoder_256_phase(torch, pt, fa)
     enc256_f32 = encoder_256_phase(torch, pt, fa, "encoder_256_f32")
     clock.lap("head_dim_256")
     wide_cases = wide_kernel_phase(torch, fa)
     wide_probes = wide_mask_probe_phase(torch, fa)
+    clock.step("wide_kernel")
     wide_hard = wide_hard_phase(torch, fa)
     sdpa_routes = sdpa_f32_routes_phase(torch)
+    clock.step("wide_hard_and_sdpa_routes")
     encwide = encoder_256_phase(torch, pt, fa, "encoder_wide")
     encwide_f32 = encoder_256_phase(torch, pt, fa, "encoder_wide_f32")
     clock.lap("head_dim_wide")
     graph_while = graph_while_phase(torch, pt)
+    static_while = to_static_while_phase(torch, pt)
     clock.lap("graph_while")
     host_cost_phase(torch, fa)
     nms_cases = nms_kernel_phase(torch, nms)
     _zero(fa)
     clock.lap("kernel_cases")
     rows, launches_inf, launches_f32 = main_path(torch, pt, fa)
+    clock.step("main_path")
     train = train_path(torch, pt, fa)
+    clock.step("train_path")
     torch.cuda.empty_cache()
     train_cpu_check(torch, pt, fa)
     clock.lap("ernie_paths")
     gpt_rows, gpt_cases, gpt_model, gpt_launches = gpt_forward_phase(
         torch, pt, fa)
+    clock.step("gpt_forward")
     generate_phase(torch, pt, fa, gpt_model)
+    clock.step("generate")
     serving_row, bf16_streams = serving_phase(torch, pt, fa, gpt_model)
+    clock.step("serving")
     parity = serving_parity_phase(torch, pt, fa, gpt_model)
+    clock.step("serving_parity")
     serving_levers_phase(torch, pt, fa, gpt_model, bf16_streams, parity)
+    clock.step("serving_levers")
     generate_capture_phase(torch, pt, gpt_model)
+    clock.step("generate_capture")
     telemetry_phase(torch, pt, gpt_model)
+    clock.step("telemetry")
     torch.cuda.empty_cache()
     fleet_phase(torch, pt, gpt_model, serving_row, parity)
+    clock.step("fleet")
     loadgen_phase(torch, pt, gpt_model)
     clock.lap("gpt_serving")
     del gpt_model, parity
     torch.cuda.empty_cache()
     gpt_kernel_rows, gpt_probes = gpt_train_kernels_phase(torch, fa, philox)
     gpt_train = gpt_train_path(torch, pt, fa)
+    clock.step("gpt_train")
     torch.cuda.empty_cache()
     dense = {"ernie": train, "gpt": gpt_train}
     _, chunked = chunked_ce_phase(torch, pt, fa, dense)
+    clock.step("chunked_ce")
     scanned = scan_layers_phase(torch, pt, fa, dense)
     clock.lap("gpt_training")
     ernie_determinism_phase(torch, pt)
+    clock.step("ernie_determinism")
     captured = {}
     for kind in ("ernie", "gpt"):
         captured[kind], model, step, x, _ = captured_train_phase(
@@ -9149,6 +9704,7 @@ def main():
         step.release()
         del model, step, x
         torch.cuda.empty_cache()
+    clock.step("captured_train")
     # ERNIE-base's step in f32 (no AMP): the f32 forward, dQ and dK/dV at
     # head_dim 64, 12 of each a replay
     captured_f32, model, step, _, _ = captured_train_phase(
@@ -9157,9 +9713,15 @@ def main():
     step.release()
     del model, step
     torch.cuda.empty_cache()
+    clock.lap("captured_training_f32")
+    static_train = static_train_phase(torch, pt, fa, captured_f32)
+    torch.cuda.empty_cache()
+    clock.lap("static_train")
     scaler = captured_scaler_phase(torch, pt, fa)
+    clock.step("captured_scaler")
     remat = {kind: remat_phase(torch, pt, fa, kind)
              for kind in ("gpt", "ernie")}
+    clock.step("remat")
     lr_schedule_phase(torch, pt)
     optimizers_phase(torch)
     clock.lap("captured_training")
@@ -9168,32 +9730,46 @@ def main():
     optimizer_extras_phase(torch, pt)
     clock.lap("optimizer_extras")
     dp = dp_train_phase(torch, pt, fa)
+    clock.step("dp_train")
     torch.cuda.empty_cache()
     with _OneRankGroup():
         moe = moe_train_phase(torch, pt, fa, captured["ernie"])
+        clock.step("moe_train")
         torch.cuda.empty_cache()
         plan_train_phase(torch, pt)
+        clock.step("plan_train")
         sp = sp_train_phase(torch, pt, fa)
+        clock.step("sp_train")
     torch.cuda.empty_cache()
     pipe_case, pipe_probe = pipe_kernel_phase(torch, fa, philox)
+    clock.step("pipe_kernel")
     pipe = pipeline_train_phase(torch, pt, fa, captured["ernie"])
     torch.cuda.empty_cache()
     clock.lap("parallel_training")
     resnet = resnet_train_phase(torch, pt, fa)
+    clock.step("resnet_train")
     torch.cuda.empty_cache()
     yolo, yolo_model = yolo_train_phase(torch, pt, fa, nms)
+    clock.step("yolo_train")
     yolo_fit_phase(torch, pt, yolo)
     serve = yolo_serve_phase(torch, pt, fa, nms, yolo_model)
+    clock.lap("vision")
+    predictor = predictor_phase(torch, pt, fa, nms, yolo_model)
     del yolo_model
     torch.cuda.empty_cache()
-    clock.lap("vision")
+    clock.lap("predictor")
     ops_card_phase(torch, pt)
+    clock.step("ops_card")
     amp_card_phase(torch, pt)
+    clock.step("amp_card")
     mnist = mnist_dygraph_phase(torch, pt, fa, nms, smi)
+    clock.step("mnist_dygraph")
     torch.cuda.empty_cache()
     mt = transformer_train_phase(torch, pt, fa)
+    clock.step("transformer_train")
     torch.cuda.empty_cache()
     rnn_seq2seq_phase(torch, pt)
+    clock.step("rnn_seq2seq")
     torch.cuda.empty_cache()
     srl_train_phase(torch, pt, fa, nms)
     torch.cuda.empty_cache()
@@ -9235,6 +9811,8 @@ def main():
                       for m in captured},
                    "captured_training_ernie_f32":
                        captured_f32["launches"][k],
+                   "static_train_executor": static_train["launches"][k],
+                   "predictor_ernie": predictor["ernie"]["launches"][k],
                    "captured_training_gpt_scaler_accum2":
                        scaler["launches"][k],
                    **{f"remat_{p}_{m}": remat[m][p]["launches"][k]
@@ -9374,6 +9952,16 @@ def main():
     kernels.append(ffma_fwd_kernel_row(captured_f32, bwd_cases, cases,
                                        launches_f32))
     kernels += ffma_kernel_rows(captured_f32, bwd_cases)
+    # the static Executor's ERNIE-base step and the ERNIE-base Predictor
+    # run the same f32 kernels: their launches beside the captured step's
+    for kern in kernels[-3:]:
+        wrapper = kern["name"][:-len("_ffma")]
+        kern["launches_by_path"] = dict(
+            captured_train_f32=captured_f32["launches"][wrapper],
+            static_train_executor=static_train["launches"][wrapper],
+            static_train_per_replay=static_train["launches_per_replay"][
+                wrapper],
+            predictor_ernie=predictor["ernie"]["launches"][wrapper])
     # greedy NMS: no Pallas origin; at the serving path's shape (640
     # problems of K 400 pixel boxes, eta 1.0: multiclass_nms's candidates
     # of a YOLOv3 batch of 8 at 608)
@@ -9392,6 +9980,10 @@ def main():
               "eta 1.0 (YOLOv3 serving, batch 8 at 608)",
         launches_by_path={"yolo_training": yolo["nms_launches"],
                           "yolo_serving": serve["launches_per_hard_predict"],
+                          "yolo_predictor_warmup": predictor["yolo"][
+                              "nms_launches_warmup"],
+                          "yolo_predictor_per_replay": predictor["yolo"][
+                              "nms_launches_per_replay"],
                           "mnist_dygraph": mnist["custom_kernel_launches"][
                               "nms_greedy"]},
         cases=nms_cases))
@@ -9413,6 +10005,12 @@ def main():
         bound_by=graph_while["bound_by"], library_ms=None,
         shape="Collatz steps of {} lanes, {} trips a replay".format(
             len(COLLATZ_INPUTS[-1]), graph_while["trips_timed"]),
+        launches_by_path={
+            "graph_while": graph_while["set_condition_launches_captured"][
+                "graph_while_set_condition"],
+            "to_static_while": static_while[
+                "set_condition_launches_captured"][
+                "graph_while_set_condition"]},
         what="ms: one replay of the captured loop (every trip on the "
              "card); plain_ms: the eager loop (a host read a trip)"))
     if not graph_while["set_condition_launches_captured"][
@@ -9423,7 +10021,7 @@ def main():
           "mask_probes": probes + gpt_probes + [pipe_probe] + d256_probes
           + wide_probes,
           "sdpa_f32_routes": sdpa_routes,
-          "phase_seconds": clock.laps,
+          "phase_seconds": clock.laps, "step_seconds": clock.steps,
           "backward_cases": bwd_cases, "head_pad_cases": pad_cases,
           "gpt_training_cases": gpt_kernel_rows})
     print(smi, flush=True)

@@ -57,9 +57,9 @@ library's AMP casts; paddle.text's datasets, with which the CoNLL-2005
 semantic-role labeller (db-LSTM + linear-chain CRF) trains and decodes.
 """
 from . import (amp, core, device, distributed, hapi, incubate,  # noqa: F401
-               io, jit, linalg, metric, models, nn, observability, ops,
-               optimizer, profiler, quant, regularizer, serving, static,
-               text, vision)
+               inference, io, jit, linalg, metric, models, nn,
+               observability, ops, optimizer, profiler, quant, regularizer,
+               serving, static, text, vision)
 from . import ops as tensor  # noqa: F401
 from .batch import batch  # noqa: F401
 from .core.dtypes import get_default_dtype, set_default_dtype  # noqa: F401
@@ -112,13 +112,17 @@ def is_compiled_with_npu() -> bool:
 
 
 def disable_static(place=None):
-    return None
+    """Back to dygraph (the default mode)."""
+    from .static import program
+    program._static_mode = False
 
 
 def enable_static():
-    raise NotImplementedError(
-        "paddle.enable_static: the static graph mode (static/program.py) "
-        "is not ported yet (ROADMAP.md item 18.4); the port runs dygraph")
+    """The static graph mode flag (static/program.py): paddle.static's
+    Program, program_guard and Executor record and run programs; ops
+    record into a Program inside a program_guard in either mode."""
+    from .static import program
+    program._static_mode = True
 
 
 def grad(outputs, inputs, grad_outputs=None, retain_graph=None,

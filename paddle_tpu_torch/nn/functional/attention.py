@@ -30,6 +30,7 @@ import torch
 
 from ...amp.auto_cast import amp_cast
 from ...core.generator import next_seed, seed_tensor
+from ...core.recordable import recordable
 from ...ops import flash_attention as _fa
 from ...ops import philox as _philox
 
@@ -76,6 +77,7 @@ def _sdpa_impl(q, k, v, attn_mask, dropout_p, is_causal, scale,
     return torch.matmul(probs, vT).permute(0, 2, 1, 3)
 
 
+@recordable
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None, name=None):
@@ -254,6 +256,7 @@ def _flash_attention_dropout_op(query, key, value, seed, kv_lens=None,
                       None, seed=seed)
 
 
+@recordable
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, block_size=512, training=True,
                     name=None, kv_lens=None):

@@ -12,6 +12,7 @@ import torch
 from ...amp.auto_cast import amp_cast
 from ...core.dtypes import convert_dtype
 from ...core.generator import scope_generator
+from ...core.recordable import recordable
 
 __all__ = [
     "linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
@@ -35,6 +36,7 @@ def linear(x, weight, bias=None, name=None):
     return out.reshape(*x.shape[:-1], weight.shape[-1])
 
 
+@recordable
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
     """Element dropout. The mask draws from the device's generator, or
@@ -72,6 +74,7 @@ def _dropout_axis(x, p, axis, mode):
     return _dropout_nd(x, p, tuple(a % x.dim() for a in axes), mode)
 
 
+@recordable
 def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
     """Drops whole channels: one mask entry per (sample, channel)."""
     if not training or p == 0.0:
@@ -80,6 +83,7 @@ def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
     return _dropout_axis(x, float(p), (0, ch_axis), "upscale_in_train")
 
 
+@recordable
 def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
     if not training or p == 0.0:
         return x
@@ -91,6 +95,7 @@ _SELU_ALPHA = 1.6732632423543772
 _SELU_SCALE = 1.0507009873554805
 
 
+@recordable
 def alpha_dropout(x, p=0.5, training=True, name=None):
     """Dropout that keeps SELU's self-normalisation: dropped entries take
     -alpha * scale, then an affine map restores mean and variance."""

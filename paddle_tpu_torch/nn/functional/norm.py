@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as TF
 
 from ...amp.auto_cast import amp_cast
+from ...core.recordable import recordable
 
 __all__ = ["batch_norm", "layer_norm", "group_norm", "instance_norm",
            "local_response_norm", "normalize"]
@@ -142,6 +143,7 @@ def _normalize_with(x, mean, var, weight, bias, epsilon, ch_axis):
     return out
 
 
+@recordable
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
                data_format="NCHW", use_global_stats=None, name=None):

@@ -92,7 +92,13 @@ def _select(pred, a, b):
     if a is None or b is None:
         raise ValueError("the branches must return tensors under a "
                          "capture, got None")
-    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor) \
+            and type(a) is type(b) and a == b:
+        return a          # the same Python value on both sides
+    # a Python value becomes a tensor on the predicate's device (made
+    # there, not copied: no host copy inside a capture)
+    a, b = (v if isinstance(v, torch.Tensor) else
+            torch.as_tensor(v, device=pred.device) for v in (a, b))
     return torch.where(pred.to(a.device), a, b.to(a.dtype))
 
 
@@ -220,7 +226,7 @@ def _bit_copy(dst, src):
     a conditional node's body graph holds kernels)."""
     src = src.to(dst.dtype).expand_as(dst)
     if dst.dtype == torch.bool:
-        torch.logical_or(src, False, out=dst)
+        torch.ne(src, False, out=dst)
         return
     if dst.is_floating_point() or dst.is_complex():
         ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,

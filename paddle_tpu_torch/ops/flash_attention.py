@@ -31,8 +31,11 @@ the JAX package.
 
 - flash_attention_fwd(q, k, v, causal, scale, dropout_p, seed) ->
   (O, lse f32 [b, n, sq]) and flash_attention_mha(...) -> O go through
-  the torch.autograd.Function _FlashAttention (the `_flash_mha` custom
-  VJP). The dropout seed is data, as `_flash_mha(q, k, v, seed, ...)`
+  the named op torch.ops.paddle_tpu.flash_attn_fwd, whose autograd
+  formula (the `_flash_mha` custom VJP) calls
+  torch.ops.paddle_tpu.flash_attn_bwd: one node of a recorded Program
+  and of a torch.export graph each, as the JAX package's registry ops
+  are of its Program and of jax.export. The dropout seed is data, as `_flash_mha(q, k, v, seed, ...)`
   takes it: a 0-d int64 tensor on the inputs' device (an int becomes
   one without a host sync), whose two 32-bit words the kernels read
   from device memory at their start. So a captured CUDA graph draws a
@@ -51,22 +54,23 @@ the JAX package.
 - launches counts kernel launches per kernel, so a run can show that its
   main path went through the kernels.
 - attention_flops and flop_sinks: the FLOPs the kernels are credited
-  with (FlopCounterMode cannot see into the autograd Function), handed
+  with (FlopCounterMode cannot see into the named ops), handed
   to every sink in flop_sinks at each forward and backward
   (observability.mfu.step_flops and anatomy.count_flops install one,
   memory's static trace a silent one); while a sink listens, the plain
   versions run outside the dispatch modes, so the listeners see the
-  Function's outputs (copied out where they see them) and nothing of
-  the plain versions' own work, as a kernel's.
+  ops' outputs and nothing of the plain versions' own work, as a
+  kernel's.
 - On the meta device (a step traced from shapes alone, TrainStep's
-  aot_lower) the Function returns tensors of the right shapes and
-  computes nothing.
+  aot_lower) the ops' shape functions return tensors of the right
+  shapes and compute nothing.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -441,64 +445,92 @@ def _unobserved():
     return _disable_current_modes()
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The `_flash_mha` custom VJP: the forward saves (q, k, v, O, lse)
-    and the seed tensor (None at p 0); the backward regenerates the
-    dropout mask from that same tensor. CUDA tensors launch the kernels,
-    CPU tensors run the plain versions, meta tensors give shapes."""
+# The forward and the backward are named torch ops
+# (torch.library.custom_op, namespace paddle_tpu), the counterparts of
+# the JAX package's registry ops flash_attention_op and
+# flash_attention_dropout: a recording mode (static/program.py) sees one
+# of them as one node, torch.export traces it through its shape
+# function, and autograd reaches the backward op through
+# register_autograd. The implementations dispatch on the inputs'
+# device: CUDA tensors launch the kernels or raise, CPU tensors run the
+# plain versions; meta and fake tensors take the shape functions.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
-        dev = _device_of(q)
-        if dev == "cuda":
-            o, lse = _flash_fwd_cuda(q, k, v, causal, scale, dropout_p, seed)
-        elif dev == "meta":
-            b, sq, n, _ = q.shape
-            o = torch.empty_like(q)
-            lse = torch.empty((b, n, sq), dtype=torch.float32, device="meta")
-        else:
-            with _unobserved():
-                o, lse = flash_attention_fwd_plain(q, k, v, causal, scale,
-                                                   dropout_p=dropout_p,
-                                                   seed=seed)
-            if flop_sinks:
-                # the outputs made where the listeners see them, as the
-                # kernels' wrappers make theirs
-                o, lse = o.clone(), lse.clone()
-        ctx.save_for_backward(q, k, v, o, lse, seed)
-        ctx.args = (causal, scale, dropout_p)
-        ctx.mark_non_differentiable(lse)
-        # the backward's kernels run under the forward's scope (a
-        # record_function range a profiler sees)
-        ctx.scope = current_scope()
-        if flop_sinks:
-            from ..observability.anatomy import op_scope
-            ctx.flop_scope = op_scope()
-            _report_flops(q, k, causal)
-        return o, lse
+@torch.library.custom_op("paddle_tpu::flash_attn_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float, dropout_p: float,
+                  seed: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, lse): the forward kernel on the card, the plain version on the
+    CPU. The seed is a 0-d int64 tensor (None at p 0)."""
+    if _device_of(q) == "cuda":
+        return _flash_fwd_cuda(q, k, v, causal, scale, dropout_p, seed)
+    with _unobserved():
+        o, lse = flash_attention_fwd_plain(q, k, v, causal, scale,
+                                           dropout_p=dropout_p, seed=seed)
+    return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse, seed = ctx.saved_tensors
-        causal, scale, dropout_p = ctx.args
-        if q.device.type == "cuda":
-            with (torch.profiler.record_function(ctx.scope) if ctx.scope
-                  else contextlib.nullcontext()):
-                dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal,
-                                             scale, dropout_p, seed)
-        elif q.device.type == "meta":
-            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        else:
-            with _unobserved():
-                dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                       causal, scale,
-                                                       dropout_p, seed)
-            if flop_sinks:
-                dq, dk, dv = dq.clone(), dk.clone(), dv.clone()
-        if flop_sinks:
-            _report_flops(q, k, causal, backward=True,
-                          scope=getattr(ctx, "flop_scope", None))
-        return dq, dk, dv, None, None, None, None
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_shapes(q, k, v, causal, scale, dropout_p, seed):
+    b, sq, n, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, n, sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu::flash_attn_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool, scale: float, dropout_p: float,
+                  seed: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV): the dQ kernel (which writes delta) and the dK/dV
+    kernel on the card, the plain version on the CPU; the dropout mask
+    is regenerated from the forward's seed tensor."""
+    if _device_of(q) == "cuda":
+        return _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
+                               dropout_p, seed)
+    with _unobserved():
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                         dropout_p, seed)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_shapes(q, k, v, o, lse, do, causal, scale, dropout_p, seed):
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def _flash_setup(ctx, inputs, output):
+    """The `_flash_mha` custom VJP's residuals: (q, k, v, O, lse) and the
+    seed tensor; lse carries no gradient."""
+    q, k, v, causal, scale, dropout_p, seed = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse, seed)
+    ctx.args = (causal, scale, dropout_p)
+    ctx.mark_non_differentiable(lse)
+    # the backward's kernels run under the forward's scope (a
+    # record_function range a profiler sees)
+    ctx.scope = current_scope()
+    if flop_sinks:
+        from ..observability.anatomy import op_scope
+        ctx.flop_scope = op_scope()
+        _report_flops(q, k, causal)
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse, seed = ctx.saved_tensors
+    causal, scale, dropout_p = ctx.args
+    with (torch.profiler.record_function(ctx.scope)
+          if ctx.scope and q.device.type == "cuda"
+          else contextlib.nullcontext()):
+        dq, dk, dv = _flash_bwd_op(q, k, v, o, lse, do, causal, scale,
+                                   dropout_p, seed)
+    if flop_sinks:
+        _report_flops(q, k, causal, backward=True,
+                      scope=getattr(ctx, "flop_scope", None))
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def kernel_head_dim(h):
@@ -559,9 +591,9 @@ def flash_attention_fwd(query, key, value, causal=False, scale=None,
         # pad's backward slices them off the gradients
         query, key, value = (torch.nn.functional.pad(t, (0, hp - h))
                              for t in (query, key, value))
-    o, lse = _FlashAttention.apply(query, key, value, bool(causal),
-                                   float(scale), float(dropout_p),
-                                   _seed_arg(seed, dropout_p, query.device))
+    o, lse = _flash_fwd_op(query, key, value, bool(causal), float(scale),
+                           float(dropout_p),
+                           _seed_arg(seed, dropout_p, query.device))
     return (o[..., :h] if hp != h else o), lse
 
 

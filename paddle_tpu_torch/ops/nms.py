@@ -11,7 +11,9 @@ note for its design and its bound.
 
 - greedy_nms_mask(boxes [..., K, 4], scores [..., K], iou_threshold,
   normalized, eta) -> keep [..., K] bool, over candidates already sorted
-  by score (descending), score -inf where invalid. On a CUDA tensor it
+  by score (descending), score -inf where invalid, through the named op
+  torch.ops.paddle_tpu.nms_greedy (torch.library.custom_op, with a shape
+  function: one node of a recorded Program or an export). On a CUDA tensor it
   launches the kernel (one launch for all leading dims) or raises; on a
   CPU tensor it runs greedy_nms_mask_plain. There is no fallback from
   one to the other.
@@ -132,10 +134,12 @@ def _nms_cuda(boxes, scores, iou_threshold, normalized, eta):
     return keep.bool()
 
 
-def greedy_nms_mask(boxes, scores, iou_threshold, normalized=True,
-                    eta=1.0):
-    """Keep mask [..., K] of greedy NMS over sorted candidates: the
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+@torch.library.custom_op("paddle_tpu::nms_greedy", mutates_args=())
+def _nms_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+            normalized: bool, eta: float) -> torch.Tensor:
+    """The named op (one node of a recorded Program or a torch.export
+    graph): the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if boxes.is_cuda:
         return _nms_cuda(boxes, scores, iou_threshold, normalized, eta)
     if boxes.device.type != "cpu":
@@ -143,3 +147,17 @@ def greedy_nms_mask(boxes, scores, iou_threshold, normalized=True,
                            f"{boxes.device}")
     return greedy_nms_mask_plain(boxes, scores, iou_threshold, normalized,
                                  eta)
+
+
+@_nms_op.register_fake
+def _nms_shape(boxes, scores, iou_threshold, normalized, eta):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
+def greedy_nms_mask(boxes, scores, iou_threshold, normalized=True,
+                    eta=1.0):
+    """Keep mask [..., K] of greedy NMS over sorted candidates, through
+    torch.ops.paddle_tpu.nms_greedy: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    return _nms_op(boxes, scores, float(iou_threshold), bool(normalized),
+                   float(eta))

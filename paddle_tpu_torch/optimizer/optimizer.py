@@ -189,6 +189,13 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
+        from ..static.program import Var, append_backward
+        if isinstance(loss, Var):
+            # static mode: record the optimize stage on the program;
+            # Executor.run runs forward, backward and this rule
+            pairs = append_backward(loss, parameters, no_grad_set)
+            loss.program._optimize = (self, loss)
+            return None, pairs
         loss.backward()
         self.step()
         return None, [(p, p.grad) for p in self._param_list()]

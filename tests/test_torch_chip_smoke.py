@@ -2268,3 +2268,138 @@ def test_encoder_256_f32_gates_take_its_routes(cs, breakage, word):
         assert bad == []
     else:
         assert len(bad) == 1 and word in bad[0], bad
+
+
+# -- the static slice: static_train, predictor, to_static_while -------------------
+
+def _static_row(cs):
+    per = {k: 12 for k in cs.KERNEL_EVENTS}
+    return dict(graph_losses=[10.5, 10.4], eager_losses=[10.5, 10.4],
+                params_bit_equal=True, params_max_abs_diff=0.0, layers=12,
+                warmup_launches=dict(per), launches_per_eager_step=dict(per),
+                launches_per_replay=dict(per),
+                routes_per_replay={v: 12 for v in
+                                   cs.F32_TRAIN_ROUTES.values()},
+                flash_attention_nodes=12, graphs=1,
+                trainstep_parity=dict(loss_max_rel_diff=1e-7,
+                                      params_max_abs_diff=1e-8))
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("replay", "bit-equal"), ("warmup", "warmup_launches"),
+    ("route", "a replay ran"), ("nodes", "flash-attention nodes"),
+    ("parity", "TrainStep"), ("loss", "non-finite")])
+def test_static_train_gates_name_each_failure(cs, breakage, word):
+    row = _static_row(cs)
+    if breakage == "replay":
+        row["params_bit_equal"] = False
+    elif breakage == "warmup":
+        row["warmup_launches"]["flash_attn_bwd_dq"] = 11
+    elif breakage == "route":
+        row["routes_per_replay"] = {"fwd_wgmma": 12, "dq_ffma": 12,
+                                    "dkv_ffma": 12}
+    elif breakage == "nodes":
+        row["flash_attention_nodes"] = 24
+    elif breakage == "parity":
+        row["trainstep_parity"]["params_max_abs_diff"] = 1e-3
+    elif breakage == "loss":
+        row["graph_losses"] = row["eager_losses"] = [10.5, float("nan")]
+    bad = cs.static_train_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def _predictor_row(cs):
+    sig = dict(warmup_launches={"flash_attn_fwd": 12},
+               launches_per_replay={"flash_attn_fwd": 12},
+               routes_per_replay={"fwd_ffma": 12}, max_abs_err=1e-6,
+               max_abs_ref=20.0)
+    return dict(
+        yolo=dict(nms_launches_warmup=1, nms_launches_per_replay=1,
+                  max_abs_err=1e-6, count_max_gap=0,
+                  flash_launches={k: 0 for k in cs.KERNEL_EVENTS}, graphs=1),
+        ernie=dict(layers=12, graphs=2, loaded_max_abs_err=1e-6,
+                   signatures={"32x128": dict(sig), "16x128": dict(sig)}))
+
+
+@pytest.mark.parametrize("breakage,word", [
+    (None, None), ("nms", "nms_greedy"), ("dets", "detections"),
+    ("counts", "counts"), ("flash", "flash launches"),
+    ("graphs", "signatures"), ("launch", "launches"), ("err", "outputs"),
+    ("loaded", "jit.load")])
+def test_predictor_gates_name_each_failure(cs, breakage, word):
+    row = _predictor_row(cs)
+    y, e = row["yolo"], row["ernie"]
+    if breakage == "nms":
+        y["nms_launches_per_replay"] = 0
+    elif breakage == "dets":
+        y["max_abs_err"] = 1e-3
+    elif breakage == "counts":
+        y["count_max_gap"] = 2
+    elif breakage == "flash":
+        y["flash_launches"]["flash_attn_fwd"] = 1
+    elif breakage == "graphs":
+        e["graphs"] = 1
+    elif breakage == "launch":
+        e["signatures"]["16x128"] = dict(
+            e["signatures"]["16x128"], launches_per_replay={
+                "flash_attn_fwd": 0})
+    elif breakage == "err":
+        e["signatures"]["32x128"] = dict(e["signatures"]["32x128"],
+                                         max_abs_err=0.1)
+    elif breakage == "loaded":
+        e["loaded_max_abs_err"] = 0.1
+    bad = cs.predictor_gates(row)
+    if breakage is None:
+        assert bad == []
+    else:
+        assert len(bad) == 1 and word in bad[0], bad
+
+
+def test_collatz_static_converts_and_equals_the_graph_while_loop(cs):
+    """to_static over collatz_static on the CPU (the converted function
+    run eagerly): every COLLATZ_INPUTS row equals graph_while's eager
+    _collatz (steps and trips) and collatz_static itself."""
+    import torch
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.ops import control_flow as tcf
+    fn = to_static(cs.collatz_static)
+    for vals in cs.COLLATZ_INPUTS:
+        x = torch.tensor(vals, dtype=torch.int64)
+        got = fn(x)
+        ref = cs._collatz(torch, tcf, x)
+        assert torch.equal(got[1], ref[1]) and int(got[2]) == int(ref[2])
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, cs.collatz_static(x)))
+
+
+def test_ernie_program_records_one_flash_node_a_layer(cs):
+    """_ernie_program on a tiny ERNIE on the CPU: one flash-attention
+    node a layer, an optimize stage, and a run of the Executor that
+    trains (static_train's Program at a small size)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    pt.seed(0)
+    model = ErnieForPretraining(ErnieConfig.tiny(), device="cpu").train()
+    opt = cs._adamw(pt, model)
+    main, loss = cs._ernie_program(pt, model, 2, 16, opt)
+    assert sum(1 for n in main.ops if (n.op_type or "").endswith(
+        ".flash_attention")) == 2
+    assert main._optimize[0] is opt
+    rng = np.random.RandomState(0)
+    feed = {k: torch.from_numpy(rng.randint(0, 1024, (2, 16)))
+            for k in ("ids", "labels")}
+    exe = static.Executor(pt.CPUPlace())
+    first, second = (float(exe.run(main, feed, [loss], seed=1)[0])
+                     for _ in range(2))
+    assert second < first
+    cs._set_dropout(model, 0.0)
+    assert all(getattr(m, "p", 0.0) == 0.0 for m in model.modules()
+               if type(m).__name__ == "Dropout")
+    assert all(m.dropout_p == 0.0 for m in model.modules()
+               if hasattr(m, "dropout_p"))

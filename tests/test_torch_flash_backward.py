@@ -125,15 +125,17 @@ def test_plain_backward_per_kernel_parts(p):
 
 
 def test_outputs_carry_the_function_grad_fn():
-    """Every flash call goes through the autograd Function (the fault of
-    slice 1: the kernel's outputs were cut off from autograd)."""
+    """Every flash call goes through the named op's autograd formula
+    (the fault of slice 1: the kernel's outputs were cut off from
+    autograd)."""
     q, k, v, _ = (torch.from_numpy(a).requires_grad_(True)
                   for a in _data(1, 16, 16, 2, 8))
+    name = "GeneratedBackwardFor_paddle_tpu_flash_attn_fwd_defaultBackward"
     o, lse = fa.flash_attention_fwd(q, k, v)
-    assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert type(o.grad_fn).__name__ == name
     assert not lse.requires_grad
     o2 = fa.flash_attention_mha(q, k, v, dropout_p=0.2, seed=5)
-    assert type(o2.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert type(o2.grad_fn).__name__ == name
 
 
 def _tiny(use_flash):

@@ -228,6 +228,43 @@ def test_yolo_and_the_loader_need_cuda_unless_asked_for_the_cpu():
     assert "DET (1, 100, 6) cpu {'nms_greedy': 0}" in out
 
 
+def test_executor_and_predictor_need_cuda_unless_asked_for_the_cpu():
+    """static.Executor() and inference.create_predictor raise without
+    CUDA unless given CPUPlace() or Config.disable_gpu(); on the CPU a
+    recorded Program runs and a saved model serves, and the Program's
+    modules load nothing of the JAX package."""
+    out = _run(
+        "import sys, tempfile, numpy as np, torch, paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch import static\n"
+        "from paddle_tpu_torch.inference import Config, create_predictor\n"
+        "from paddle_tpu_torch.jit import InputSpec\n"
+        "assert not torch.cuda.is_available()\n"
+        "d = tempfile.mkdtemp()\n"
+        "m = pt.nn.Linear(4, 2, device='cpu').eval()\n"
+        "pt.jit.save(m, d + '/m', input_spec=[InputSpec([None, 4])])\n"
+        "for fn in (static.Executor, lambda: create_predictor(Config(d + "
+        "'/m'))):\n"
+        "    try:\n"
+        "        fn()\n"
+        "        raise SystemExit('no error without CUDA')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'set_device' in str(e) or 'disable_gpu' in str(e), e\n"
+        "main = static.Program()\n"
+        "with static.program_guard(main):\n"
+        "    y = m(static.data('x', [None, 4]))\n"
+        "exe = static.Executor(pt.CPUPlace())\n"
+        "(r,) = exe.run(main, {'x': np.ones((3, 4), np.float32)}, [y])\n"
+        "c = Config(d + '/m')\n"
+        "c.disable_gpu()\n"
+        "(p,) = create_predictor(c).run([np.ones((3, 4), np.float32)])\n"
+        "print('SAME', bool(np.array_equal(r, p)), r.shape)\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'paddle_tpu') or "
+        "k.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
+        "print('BAD', bad)\n")
+    assert "SAME True (3, 2)" in out
+    assert "BAD []" in out
+
+
 _IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|paddle_tpu)(\.|\s|$)", re.M)
 _FORBIDDEN = ("torch.nn.functional.scaled_dot_product_attention",
@@ -243,7 +280,8 @@ def _port_sources():
 def test_no_source_imports_jax_or_paddle_tpu():
     for f in _port_sources() + [REPO / "chip_smoke.py",
                                  REPO / "compare_generate.py",
-                                 REPO / "flash_kernel_times.py"]:
+                                 REPO / "flash_kernel_times.py",
+                                 REPO / "smoke_phase_costs.py"]:
         text = f.read_text()
         hit = _IMPORT.search(text)
         assert hit is None, f"{f.relative_to(REPO)}: {hit.group(0)!r}"

@@ -21,7 +21,7 @@
   stop_gradient round-trips;
 - paddle.grad against paddle_tpu.grad: first order, create_graph's
   second order, allow_unused, no_grad_vars, grad_outputs (f32, 1e-6);
-- enable_static raises, citing item 18.4.
+- enable_static switches the static mode on and disable_static off.
 """
 import importlib
 import json
@@ -49,6 +49,9 @@ NAMES = sorted({n for m in SIX for n in m.__all__})
 HOMONYMS = {
     "annotations": "the __future__ feature every module imports",
     "utils": "distributed.fleet.utils; paddle_tpu.utils is item 18.6",
+    "compat": "static.compat and jit.compat, the static and jit "
+              "compatibility layers; paddle_tpu.compat is the JAX "
+              "package's top-level compat module, not ported",
     "sigmoid_focal_loss": "nn.functional's (logit, label, normalizer, "
                           "...) loss; paddle_tpu.sigmoid_focal_loss is "
                           "ops/detection.py's (x, label, fg_num), not "
@@ -233,8 +236,14 @@ def test_grad_modes():
     with pt.set_grad_enabled(False):
         assert not pt.is_grad_enabled()
     assert pt.is_grad_enabled() and pt.in_dygraph_mode()
-    with pytest.raises(NotImplementedError, match="18.4"):
-        pt.enable_static()
+    from paddle_tpu_torch.static import program
+    assert not program._static_mode
+    pt.enable_static()
+    try:
+        assert program._static_mode
+    finally:
+        pt.disable_static()
+    assert not program._static_mode
 
 
 # -- the random ops ----------------------------------------------------------------
